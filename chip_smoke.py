@@ -1,0 +1,746 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch/H100 port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases:
+
+1. the card: its name, and its name and power limit from ``nvidia-smi``;
+2. the build: ``nvcc`` compiles the kernels of ``mxnet_tpu_torch/ops/csrc``
+   into ``build/kernels/`` (timed; the compiler's register/spill report is
+   printed);
+3. every kernel against its plain PyTorch version on the card, at the
+   shapes the 124M LM's serving path gives it and at small ragged shapes,
+   in every mode (int8/int4 weights, float/int8 KV, C = 1/5/64/256, GQA,
+   rope on/off, f32 and bf16), each to a stated tolerance; then each
+   kernel's time (CUDA events, median of 25 launches with the 50 MB L2
+   flushed before each and the host's launch overhead kept out) beside
+   its plain version's, its bound, and one PyTorch library call computing
+   the same function where there is one;
+4. the main path: the 124M LM (12 layers, E=768, 12 heads, vocab 32000,
+   seeded random weights) saved with ``save_checkpoint`` and served by
+   ``InferenceEngine.from_checkpoint`` with paged attention, int8 weights
+   and the fused decode kernel (max_len 1024, 32 slots, buckets 64/128/256,
+   8 steps per round, bf16), 9 waves of the same 24 staggered greedy
+   requests; the launch counters are zeroed just before the first wave
+   and read just after the last; every wave's streams equal the first's,
+   two requests' streams equal the offline ``Decoder.generate``, and the
+   same 124M LM rebuilt on the host (plain versions) agrees with the
+   card's logits and tokens to a stated bf16 tolerance; then a
+   profiled window of decode rounds with every slot busy (wall and kernel
+   time per step, the card's idle share, the kernels by device time; the
+   trace goes to ``chiprun_out/``); then small LMs in the decoder's other
+   modes (int4 weights, the int8 KV cache through the C=1 paged read,
+   float weights, rope, GQA) are held against the plain path on the host;
+5. the ``{"kernels": [...]}`` line, the card's line, and the result line
+   ``{"ok": true, "device": {...}}`` last.
+
+Any failure raises, so the script exits non-zero and prints no result. It
+needs a CUDA card and the rest of the repository beside it.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM figures used for the bound (NVIDIA's data sheet, dense rates
+# at the 700 W limit): 3.35 TB/s of device memory, 989 TFLOP/s bf16 on
+# the tensor cores, 67 TFLOP/s f32 on the CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# |kernel - plain| <= ATOL + RTOL * |plain|, per output dtype: f32 sums
+# run in another order; bf16 outputs may round one unit apart (2^-8)
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+TIMING_RUNS = 25
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+# -- timing -------------------------------------------------------------
+
+class Timer:
+    """Median device time of ``fn`` over TIMING_RUNS launches, each timed
+    by CUDA events after the L2 is flushed by a 64 MB write. The card
+    first spins (~50 ms) while the host queues every run behind the spin,
+    so the events time the card's work and none of the host's launch
+    overhead."""
+
+    def __init__(self, dev):
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        self.spin_cycles = 100_000_000
+        a, b = self._events(1)[0]
+        a.record()
+        torch.cuda._sleep(self.spin_cycles)
+        b.record()
+        b.synchronize()
+        self.cycles_per_ms = self.spin_cycles / a.elapsed_time(b)
+
+    @staticmethod
+    def _events(n):
+        return [(torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+
+    def __call__(self, fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        events = self._events(TIMING_RUNS)
+        torch.cuda._sleep(self.spin_cycles)
+        t0 = time.perf_counter()
+        for a, b in events:
+            self.flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if queued_ms < 0.8 * self.spin_cycles / self.cycles_per_ms:
+            return statistics.median(a.elapsed_time(b) for a, b in events)
+        # fn waited on the card (a host read of a device value), so the
+        # spin could not hide the queueing: time each run on its own; its
+        # time then includes that wait, as the caller of fn sees it
+        times = []
+        for a, b in events:
+            self.flush.zero_()
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+def bound_ms(nbytes, flops, dtype):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak for the inputs' type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def compare(name, got, want):
+    """Max |got - want|, raising past the dtype's tolerance."""
+    atol, rtol = TOL[want.dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    if not torch.isfinite(g).all() or bad.any():
+        raise AssertionError(
+            "%s: kernel disagrees with the plain version: max |err| %.3g "
+            "(atol %g, rtol %g), %d of %d outside" % (
+                name, err.max().item(), atol, rtol, int(bad.sum()),
+                bad.numel()))
+    return err.max().item()
+
+
+# -- phase 3: kernels against their plain versions ------------------------
+
+def _rand(gen, shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+
+def _weights(gen, f, e, bits, group, dev):
+    from mxnet_tpu_torch.serving.quant import quantize_tensor
+    w = (torch.rand((f, e), generator=gen) - 0.5) * 0.1   # U(-0.05, 0.05)
+    qt = quantize_tensor(w, bits=bits, group=group)
+    return qt.q.to(dev), qt.scale.to(dev)
+
+
+def _cache(gen, s, l_, kv, d, kind, dev):
+    """k, v (and row scales for int8) on the card."""
+    if kind == "int8":
+        k = torch.randint(-127, 128, (s, l_, kv, d), generator=gen,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (s, l_, kv, d), generator=gen,
+                          dtype=torch.int8)
+        ks = torch.rand((s, l_, kv), generator=gen) * 0.02 + 1e-3
+        vs = torch.rand((s, l_, kv), generator=gen) * 0.02 + 1e-3
+        return k.to(dev), v.to(dev), ks.to(dev), vs.to(dev)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kind]
+    return (_rand(gen, (s, l_, kv, d), dt).to(dev),
+            _rand(gen, (s, l_, kv, d), dt).to(dev), None, None)
+
+
+def check_quant_matmul(K, dev, gen):
+    """Every mode: int8 and int4 (groups 2, 16), f32/bf16 in and out, odd
+    M and F (both forms of the kernel: the tensor cores take bf16 x with
+    E a multiple of 32); then the 124M decode and prefill shapes."""
+    cases = []
+    for bits, group in ((8, None), (4, 2), (4, 16)):
+        for xdt in (torch.float32, torch.bfloat16):
+            for m, f, e in ((1, 37, 48), (7, 100, 96), (33, 65, 32)):
+                cases.append(("ragged", m, f, e, bits, group, xdt, xdt))
+    cases.append(("ragged", 5, 40, 64, 8, None, torch.bfloat16,
+                  torch.float32))
+    for m in (32, 256):
+        for f, e in ((2304, 768), (768, 768), (3072, 768), (768, 3072),
+                     (32000, 768)):
+            cases.append(("124M", m, f, e, 8, None, torch.bfloat16,
+                          torch.bfloat16))
+        cases.append(("124M", m, 3072, 768, 4, 128, torch.bfloat16,
+                      torch.bfloat16))
+        cases.append(("124M", m, 768, 3072, 4, 16, torch.float32,
+                      torch.float32))
+    worst = 0.0
+    for tag, m, f, e, bits, group, xdt, odt in cases:
+        x = _rand(gen, (m, e), xdt).to(dev)
+        q, s = _weights(gen, f, e, bits, group, dev)
+        got = K.quant_matmul(x, q, s, bits=bits, group=group, out_dtype=odt)
+        want = K.quant_matmul_plain(x, q, s, bits, group, odt)
+        torch.cuda.synchronize()
+        err = compare("quant_matmul %s m=%d f=%d e=%d bits=%d" % (
+            tag, m, f, e, bits), got, want)
+        worst = max(worst, err)
+    log("quant_matmul: %d cases agree, max |err| %.3g" % (len(cases), worst))
+    return worst
+
+
+def check_paged_attention(K, dev, gen):
+    """Float and int8 KV, C in {1, 5, 64, 256}, GQA 12->4, pos at 0, in
+    the middle and at L-C; f32 and bf16; the 124M shapes in bf16."""
+    cases = []
+    for kind in ("f32", "bf16", "int8"):
+        for qdt in (torch.float32, torch.bfloat16):
+            for c in (1, 5):
+                for h, kv in ((12, 4), (4, 4)):
+                    cases.append((3, c, h, kv, 64, 64, kind, qdt,
+                                  [0, 31, 64 - c]))
+    cases.append((2, 64, 12, 4, 64, 128, "int8", torch.bfloat16, [0, 64]))
+    cases.append((1, 256, 12, 12, 64, 1024, "bf16", torch.bfloat16, [0]))
+    cases.append((1, 256, 12, 12, 64, 1024, "int8", torch.bfloat16, [0]))
+    cases.append((1, 64, 12, 12, 64, 1024, "bf16", torch.bfloat16, [0]))
+    cases.append((32, 1, 12, 12, 64, 1024, "bf16", torch.bfloat16, None))
+    worst = 0.0
+    for s_, c, h, kv, d, l_, kind, qdt, pos in cases:
+        if pos is None:
+            pos = torch.randint(0, l_ - c + 1, (s_,), generator=gen)
+        pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
+        q = _rand(gen, (s_, c, h, d), qdt).to(dev)
+        k, v, ks, vs = _cache(gen, s_, l_, kv, d, kind, dev)
+        got = K.paged_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+        want = K.paged_attention_plain(q, k, v, pos, ks, vs)
+        torch.cuda.synchronize()
+        err = compare("paged_attention s=%d c=%d h=%d kv=%d l=%d %s %s" % (
+            s_, c, h, kv, l_, kind, qdt), got, want)
+        worst = max(worst, err)
+    log("paged_attention: %d cases agree, max |err| %.3g"
+        % (len(cases), worst))
+    return worst
+
+
+def _fused_inputs(gen, s_, h, kv, d, l_, bits, group, xdt, cdt, dev, pos):
+    e = h * d
+    fq = e + 2 * kv * d
+    wq, sq = _weights(gen, fq, e, bits, group, dev)
+    wo, so = _weights(gen, e, e, bits, group, dev)
+    bq = _rand(gen, (fq,), scale=0.1).to(dev)
+    bo = _rand(gen, (e,), scale=0.1).to(dev)
+    x = _rand(gen, (s_, e), xdt).to(dev)
+    kc = _rand(gen, (s_, l_, kv, d), cdt).to(dev)
+    vc = _rand(gen, (s_, l_, kv, d), cdt).to(dev)
+    if pos is None:
+        pos = torch.randint(0, l_, (s_,), generator=gen)
+    pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
+    return x, pos, kc, vc, wq, sq, bq, wo, so, bo
+
+
+def check_fused_decode_attention(K, dev, gen):
+    """int8 and int4 (group 16), rope on and off, GQA 12->4, pos at 0,
+    in the middle and at L-1; f32 and bf16; the 124M shape in bf16."""
+    cases = []
+    for bits, group in ((8, None), (4, 16)):
+        for rope in (True, False):
+            for dt in (torch.float32, torch.bfloat16):
+                cases.append((3, 12, 4, 8, 40, bits, group, rope, dt,
+                              [0, 17, 39]))
+    cases.append((4, 12, 12, 64, 128, 8, None, True, torch.bfloat16,
+                  [0, 1, 63, 127]))
+    cases.append((32, 12, 12, 64, 1024, 8, None, False, torch.bfloat16,
+                  None))
+    worst = 0.0
+    for s_, h, kv, d, l_, bits, group, rope, dt, pos in cases:
+        args = _fused_inputs(gen, s_, h, kv, d, l_, bits, group, dt, dt,
+                             dev, pos)
+        kw = dict(heads=h, kv_heads=kv, bits=bits, group=group, rope=rope)
+        got = K.fused_decode_attention(*args, **kw)
+        cos, sin = K._rope_tables(args[1], d // 2, rope, 10000.0)
+        want = K.fused_decode_attention_plain(
+            *args[:6], args[6].float(), *args[7:9], args[9].float(), cos,
+            sin, h, bits, group, 1.0 / math.sqrt(d))
+        torch.cuda.synchronize()
+        for part, g_, w_ in zip(("out", "k_new", "v_new"), got, want):
+            err = compare("fused_decode_attention %s s=%d h=%d kv=%d l=%d "
+                          "bits=%d rope=%s %s" % (part, s_, h, kv, l_, bits,
+                                                   rope, dt), g_, w_)
+            worst = max(worst, err)
+    log("fused_decode_attention: %d cases agree, max |err| %.3g"
+        % (len(cases), worst))
+    return worst
+
+
+def time_kernels(K, dev, gen, worst):
+    """Each kernel at a main-path shape of the 124M LM: its time, its
+    plain version's, its bound and a library call's, in one entry of the
+    kernels line (rows at the other main-path shapes are printed too)."""
+    import torch.nn.functional as F
+    timer = Timer(dev)
+    entries = {}
+
+    def row(name, shape, fn, plain, lib, nb, flops, dtype):
+        ms, pms = timer(fn), timer(plain)
+        lms = timer(lib) if lib is not None else None
+        bms, by = bound_ms(nb, flops, dtype)
+        log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %s  "
+            "bound %.4f ms (%s)" % (name, shape, ms, pms,
+                                    "%.4f ms" % lms if lms else "none",
+                                    bms, by))
+        return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lms, "shape": shape}
+
+    # quant_matmul: every product of a 124M decode step (M = 32 slots)
+    # and the prefill lm_head at the largest bucket
+    for m, f, e, what in ((32, 2304, 768, "qkv"), (32, 768, 768, "proj"),
+                          (32, 3072, 768, "ffn1"), (32, 768, 3072, "ffn2"),
+                          (32, 32000, 768, "lm_head"),
+                          (256, 32000, 768, "lm_head")):
+        x = _rand(gen, (m, e), torch.bfloat16).to(dev)
+        q, s = _weights(gen, f, e, 8, None, dev)
+        out = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+        r = row("quant_matmul", "%s M=%d F=%d E=%d" % (what, m, f, e),
+                lambda: K.quant_matmul(x, q, s),
+                lambda: K.quant_matmul_plain(x, q, s, 8, None,
+                                             torch.bfloat16),
+                lambda: torch.matmul(x.float(), (q.float() * s[:, None]).t()),
+                nbytes(x, q, s, out), 2 * m * f * e, torch.bfloat16)
+        if what == "lm_head" and m == 32:
+            entries["quant_matmul"] = r
+
+    # paged_attention: the prefill chunk of the largest bucket (C=256 at
+    # pos 0, the main path) and a C=1 read over 32 slots
+    for s_, c, pos in ((1, 256, [0]), (32, 1, None)):
+        l_, h, d = 1024, 12, 64
+        if pos is None:
+            pos = torch.randint(0, l_, (s_,), generator=gen)
+        pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
+        q = _rand(gen, (s_, c, h, d), torch.bfloat16).to(dev)
+        k, v, _, _ = _cache(gen, s_, l_, h, d, "bf16", dev)
+        keys = [int(p) + cc + 1 for p in pos.tolist() for cc in range(c)]
+        live_rows = sum(int(p) + c for p in pos.tolist())
+        nb = nbytes(q) * 2 + live_rows * h * d * 2 * 2
+        flops = 4 * h * d * sum(keys)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if c == 1:
+            mask = (torch.arange(l_, device=dev)[None, :]
+                    <= pos[:, None].long())[:, None, None, :]
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt[:, :, :c], vt[:, :, :c], is_causal=True)
+        r = row("paged_attention", "S=%d C=%d H=12 L=1024" % (s_, c),
+                lambda: K.paged_attention(q, k, v, pos),
+                lambda: K.paged_attention_plain(q, k, v, pos),
+                lib, nb, flops, torch.bfloat16)
+        if c == 256:
+            entries["paged_attention"] = r
+
+    # fused_decode_attention: one decode step of one attention node
+    s_, h, d, l_ = 32, 12, 64, 1024
+    args = _fused_inputs(gen, s_, h, h, d, l_, 8, None, torch.bfloat16,
+                         torch.bfloat16, dev, None)
+    x, pos = args[0], args[1]
+    kw = dict(heads=h, kv_heads=h, bits=8, rope=False)
+    cos, sin = K._rope_tables(pos, d // 2, False, 10000.0)
+    e = h * d
+    live = sum(pos.tolist())
+    nb = nbytes(x, pos, *args[4:]) + live * h * d * 2 * 2 \
+        + nbytes(x) + 2 * s_ * h * d * 2
+    flops = 2 * s_ * (3 * e * e + e * e) + 4 * h * d * (live + s_)
+    entries["fused_decode_attention"] = row(
+        "fused_decode_attention", "S=32 E=768 L=1024 int8",
+        lambda: K.fused_decode_attention(*args, **kw),
+        lambda: K.fused_decode_attention_plain(
+            *args[:6], args[6].float(), *args[7:9], args[9].float(), cos,
+            sin, h, 8, None, 1.0 / math.sqrt(d)),
+        None, nb, flops, torch.bfloat16)
+    for name, r in entries.items():
+        r["max_abs_err"] = worst[name]
+    return entries
+
+
+# -- phase 4: the main path -------------------------------------------------
+
+VOCAB, LAYERS, EMBED, HEADS = 32000, 12, 768, 12
+MAX_LEN, SLOTS, BUCKETS, STEPS_PER_ROUND = 1024, 32, (64, 128, 256), 8
+N_REQUESTS, WAVES = 24, 9
+
+# card vs host logits of the 124M LM in bf16: within LOGIT_ULPS bf16 ulps
+# (2^-7 relative) of the row's largest |logit|. bf16 keeps 8 significant
+# bits, and each side rounds the residual stream after each of ~10 ops per
+# layer (120 roundings over 12 layers), in another order on each side: a
+# random walk of ~sqrt(120) half-ulps, about 6 ulps, with room above it
+LOGIT_ULPS = 16
+
+
+def _lm_params(symbol, max_len, seed):
+    """Seeded U(-0.05, 0.05) f32 weights for every argument of the LM."""
+    shapes = {"data": (1, max_len), "softmax_label": (1, max_len)}
+    arg_shapes, _, _ = symbol.infer_shape(**shapes)
+    rng = np.random.RandomState(seed)
+    return {n: rng.uniform(-0.05, 0.05, sh).astype(np.float32)
+            for n, sh in zip(symbol.list_arguments(), arg_shapes)
+            if n not in shapes}
+
+
+def _serve_wave(engine, work):
+    """Serve ``work`` [(prompt, budget)]: 8 requests up front, 4 more
+    before each of the next rounds. Returns (requests, seconds)."""
+    work = list(work)
+    handles = []
+    t0 = time.perf_counter()
+    while work or not engine.idle:
+        for _ in range(8 if not handles else 4):
+            if work:
+                prompt, budget = work.pop(0)
+                handles.append(engine.submit(prompt, max_tokens=budget))
+        engine.step()
+    torch.cuda.synchronize()
+    return handles, time.perf_counter() - t0
+
+
+def _wave_metrics(handles, seconds):
+    """(tokens/s, ms per token p50, p99) of one wave."""
+    ntok = sum(len(h.tokens) for h in handles)
+    tpot = [(h.t_done - h.t_first) / (len(h.tokens) - 1) * 1e3
+            for h in handles if len(h.tokens) > 1]
+    return (ntok / seconds, float(np.percentile(tpot, 50)),
+            float(np.percentile(tpot, 99)))
+
+
+def serve_main_path(K, dev):
+    """The 124M LM through save_checkpoint -> InferenceEngine.
+    from_checkpoint -> WAVES waves of the same staggered greedy requests.
+    Returns the launch counts of the served waves (counters zeroed just
+    before the first and read just after the last)."""
+    from mxnet_tpu_torch.model import save_checkpoint
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.serving import InferenceEngine
+
+    symbol = get_transformer_lm(VOCAB, num_layers=LAYERS, embed_dim=EMBED,
+                                num_heads=HEADS)
+    ckpt = os.path.join(HERE, "build", "smoke_ckpt")
+    os.makedirs(ckpt, exist_ok=True)
+    prefix = os.path.join(ckpt, "lm124m")
+    t0 = time.perf_counter()
+    save_checkpoint(prefix, 0, symbol, _lm_params(symbol, MAX_LEN, 0), {})
+    engine = InferenceEngine.from_checkpoint(
+        prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
+        steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
+        weight_dtype="int8", matmul_impl="fused",
+        compute_dtype="bfloat16", device=dev)
+    torch.cuda.synchronize()
+    log("main path: 124M LM (%d layers, E=%d, %d heads, vocab %d) "
+        "checkpointed and loaded in %.1f s; int8 weights %.1f MB" % (
+            LAYERS, EMBED, HEADS, VOCAB, time.perf_counter() - t0,
+            engine.weight_bytes / 1e6))
+
+    rs = np.random.RandomState(1)
+    work = [(rs.randint(0, VOCAB, (int(rs.choice([24, 48, 96, 120, 200,
+                                                  256])),)),
+             int(rs.choice([32, 64]))) for _ in range(N_REQUESTS)]
+
+    # warm-up: one request per bucket (first launches, cuBLAS-free path)
+    for p in BUCKETS:
+        engine.submit(rs.randint(0, VOCAB, (p,)), max_tokens=4)
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = dict(engine.stats)
+    waves = [_serve_wave(engine, work) for _ in range(WAVES)]
+    launches = K.launch_counts()
+    rounds = engine.stats["steps"] - stats0["steps"]
+    prefills = engine.stats["prefills"] - stats0["prefills"]
+    steps = rounds * STEPS_PER_ROUND
+
+    first = waves[0][0]
+    for handles, _ in waves:
+        for h, h0 in zip(handles, first):
+            if not h.done or h.retire_reason != "length" \
+                    or len(h.tokens) != h.limit:
+                raise AssertionError("request %s did not finish its "
+                                     "budget: %r" % (h.id, h))
+            toks = np.asarray(h.tokens)
+            if toks.min() < 0 or toks.max() >= VOCAB:
+                raise AssertionError("request %s emitted ids outside the "
+                                     "vocab" % h.id)
+            if h.tokens != h0.tokens:
+                raise AssertionError(
+                    "request %s: a later wave's greedy stream differs from "
+                    "the first wave's on the same prompt" % h.id)
+    want = {"fused_decode_attention": LAYERS * steps,
+            "paged_attention": LAYERS * prefills,
+            # per decode step: ffn1, ffn2 per layer + lm_head; per prefill
+            # also the qkv and out projections
+            "quant_matmul": (2 * LAYERS + 1) * steps
+            + (4 * LAYERS + 1) * prefills}
+    if launches != want:
+        raise AssertionError("launch counts %r, the main path wants %r"
+                             % (launches, want))
+
+    # two requests' streams against the offline decoder on the same weights
+    dec = engine._dec
+    checked = (first[0], max(first[1:], key=lambda r: len(r.prompt)))
+    for h in checked:
+        ref = dec.generate(h.prompt[None], len(h.tokens))[0, len(h.prompt):]
+        if ref.cpu().tolist() != h.tokens:
+            raise AssertionError(
+                "request %s: the engine's greedy stream differs from "
+                "Decoder.generate" % h.id)
+
+    per_wave = [_wave_metrics(h, t) for h, t in waves]
+    for i, ((hs, t), (tps, p50, p99)) in enumerate(zip(waves, per_wave)):
+        log("main path wave %d: %d requests, %d tokens in %.3f s = %.1f "
+            "tokens/s; ms per token p50 %.3f p99 %.3f" % (
+                i, len(hs), sum(len(h.tokens) for h in hs), t, tps, p50,
+                p99))
+    cols = list(zip(*per_wave))
+    log("main path: %d waves x %d requests, %d prefills, %d rounds x %d "
+        "steps; median over waves (min-max): %.1f tokens/s (%.1f-%.1f), "
+        "ms per token p50 %.3f (%.3f-%.3f), p99 %.3f (%.3f-%.3f); peak "
+        "memory %.1f MB; %s" % (
+            WAVES, N_REQUESTS, prefills, rounds, STEPS_PER_ROUND,
+            *(v for c in cols for v in (statistics.median(c), min(c),
+                                        max(c))),
+            torch.cuda.max_memory_allocated() / 2**20, card_line()))
+    log("main path launches: %s" % json.dumps(launches))
+    check_main_against_host(prefix, dec, checked)
+    profile_decode(engine, rs)
+    return launches
+
+
+def check_main_against_host(prefix, dec, handles, steps=16):
+    """The 124M decoder rebuilt on the host from the same checkpoint (the
+    plain versions, bf16) against the card's, for each served request:
+    prefill logits over the prompt and its served stream agree within
+    LOGIT_ULPS; each token the card chose is the host's argmax up to that
+    tolerance; and the host's own greedy stream of ``steps`` tokens is
+    reported against the card's (random weights leave near ties)."""
+    from mxnet_tpu_torch.parallel import Decoder
+
+    host = Decoder.from_checkpoint(
+        prefix, 0, MAX_LEN, attn_impl="paged", weight_dtype="int8",
+        matmul_impl="fused", compute_dtype="bfloat16", device="cpu")
+    for h in handles:
+        p = len(h.prompt)
+        seq = np.concatenate([np.asarray(h.prompt),
+                              np.asarray(h.tokens[:-1])])[None]
+        lc, _ = dec.prefill(dec.init_cache(1), seq)
+        lh, _ = host.prefill(host.init_cache(1), seq)
+        lc, lh = lc[0].float().cpu(), lh[0].float()
+        tol = LOGIT_ULPS * 2.0 ** -7 * lh.abs().amax(dim=-1)
+        err = (lc - lh).abs().amax(dim=-1)
+        rows = lh[p - 1:]
+        toks = torch.as_tensor(h.tokens)
+        gap = rows.amax(dim=-1) - rows.gather(1, toks[:, None])[:, 0]
+        if (err > tol).any() or (gap > tol[p - 1:]).any():
+            raise AssertionError(
+                "request %s: the 124M LM on the card and on the host "
+                "disagree: max |logit err| %.4g (tolerance %.4g), the "
+                "card's tokens up to %.4g below the host's best" % (
+                    h.id, err.max().item(), tol.min().item(),
+                    gap.max().item()))
+        ref = host.generate(np.asarray(h.prompt)[None], steps)[0, p:]
+        same = next((i for i, (a, b) in enumerate(zip(ref.tolist(),
+                                                      h.tokens))
+                     if a != b), steps)
+        log("124M card vs host, request %s (prompt %d): prefill logits max "
+            "|err| %.4g = %.2f ulps of the row max (tolerance %d); card "
+            "tokens the host's argmax at %d of %d positions, all within "
+            "tolerance; host greedy stream equals the card's for %d of %d "
+            "tokens" % (
+                h.id, p, err.max().item(),
+                (err / (2.0 ** -7 * lh.abs().amax(dim=-1))).max().item(),
+                LOGIT_ULPS, int((rows.argmax(dim=-1) == toks).sum()),
+                len(toks), same, steps))
+
+
+def profile_decode(engine, rs, rounds=2):
+    """Where a decode round's time goes: every slot busy (prompts of 64,
+    long budgets), ``rounds`` rounds under torch.profiler after one warm
+    round. Prints the wall time per step, the card's kernel time per step
+    and its idle share (1 - kernel time / wall time), and the kernels by
+    device time; the trace goes to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(SLOTS):
+        engine.submit(rs.randint(0, VOCAB, (64,)),
+                      max_tokens=(rounds + 2) * STEPS_PER_ROUND)
+    engine.step()                        # admit all, one warm round
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    while not engine.idle:
+        engine.step()
+    steps = rounds * STEPS_PER_ROUND
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    log("decode profile: %d steps x %d slots; wall %.3f ms per step, card "
+        "kernels %.3f ms per step, idle share %.3f" % (
+            steps, SLOTS, wall * 1e3 / steps, busy_us / 1e3 / steps,
+            1.0 - busy_us / 1e6 / wall))
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
+        log("  %-60s %8.3f ms per step  %5d calls" % (
+            key[:60], us / 1e3 / steps, n))
+    out = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "decode_trace.json"))
+
+
+def check_small_against_host(dev):
+    """A 2-layer LM served on the card (kernels) and on the host (plain
+    versions) from the same seeded weights, in the decoder's other modes
+    too: f32 prefill logits within 1e-3 (sums run in other orders) and
+    greedy tokens equal. Weights are fan-in scaled so that the streams
+    vary and the logits are far from ties."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import Decoder
+
+    configs = [  # (model kwargs, decoder kwargs)
+        (dict(num_kv_heads=2), dict(weight_dtype="int8",
+                                    matmul_impl="fused")),
+        (dict(num_kv_heads=2, pos_encoding="rope"),
+         dict(weight_dtype="int4", matmul_impl="fused")),
+        (dict(), dict(weight_dtype="int8", matmul_impl="pallas",
+                      cache_dtype="int8")),
+        (dict(pos_encoding="rope"), dict(weight_dtype="float")),
+    ]
+    prompt = np.random.RandomState(3).randint(0, 97, (2, 11))
+    for mkw, dkw in configs:
+        symbol = get_transformer_lm(97, num_layers=2, embed_dim=64,
+                                    num_heads=4, **mkw)
+        shapes = {"data": (1, 64), "softmax_label": (1, 64)}
+        arg_shapes, _, _ = symbol.infer_shape(**shapes)
+        rng = np.random.RandomState(2)
+        params = {n: (rng.randn(*sh) * (1.5 / np.sqrt(sh[1])
+                                        if len(sh) == 2 else 0.1)
+                      + (n.endswith("_gamma"))).astype(np.float32)
+                  for n, sh in zip(symbol.list_arguments(), arg_shapes)
+                  if n not in shapes}
+        out = {}
+        for where in (dev, "cpu"):
+            d = Decoder(symbol, params, max_len=64, device=where, **dkw)
+            logits, _ = d.prefill(d.init_cache(2), prompt)
+            out[str(where)] = (logits.cpu(), d.generate(prompt, 20).cpu())
+        (lg, tg), (lh, th) = out[str(dev)], out["cpu"]
+        err = (lg - lh).abs().max().item()
+        same = torch.equal(tg, th)
+        if err > 1e-3 or not same:
+            raise AssertionError(
+                "small LM %s %s: card and host disagree (max |logit err| "
+                "%.3g, tokens equal %s)" % (mkw, dkw, err, same))
+        log("small LM %s %s: card vs host prefill logits max |err| %.3g, "
+            "greedy tokens equal (%d distinct)" % (
+                mkw, dkw, err, len(set(tg[:, 11:].flatten().tolist()))))
+
+
+# -- main -------------------------------------------------------------------
+
+def main():
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device — this script runs on the card")
+        return 2
+    sys.path.insert(0, HERE)
+    from mxnet_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    log("card: %s | nvidia-smi: %s | torch %s cuda %s" % (
+        name, card, torch.__version__, torch.version.cuda))
+
+    t0 = time.perf_counter()
+    secs = K.build()
+    log("build: %.1f s wall (%s)" % (time.perf_counter() - t0, ", ".join(
+        "%s %.1f s" % kv for kv in secs.items())))
+    for kname in K.KERNELS:
+        with open(K._lib_path(kname)[:-3] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log("  ptxas %s: %s" % (kname, line.strip()))
+
+    gen = torch.Generator().manual_seed(0)
+    worst = {"quant_matmul": check_quant_matmul(K, dev, gen),
+             "paged_attention": check_paged_attention(K, dev, gen),
+             "fused_decode_attention": check_fused_decode_attention(
+                 K, dev, gen)}
+    timed = time_kernels(K, dev, gen, worst)
+    launches = serve_main_path(K, dev)
+    check_small_against_host(dev)
+    replaces = {
+        "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:1115",
+        "quant_matmul": "mxnet_tpu/ops/pallas_kernels.py:1259",
+        "fused_decode_attention": "mxnet_tpu/ops/pallas_kernels.py:1389"}
+    missing = [k for k in K.KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError("the main path never launched %s" % missing)
+    line = {"kernels": [dict(
+        name=k, route="cuda",
+        source="mxnet_tpu_torch/ops/csrc/%s.cu" % k,
+        replaces=replaces[k], launches=launches[k],
+        max_abs_err=timed[k]["max_abs_err"], ms=timed[k]["ms"],
+        plain_ms=timed[k]["plain_ms"], bound_ms=timed[k]["bound_ms"],
+        bound_by=timed[k]["bound_by"], library_ms=timed[k]["library_ms"],
+        shape=timed[k]["shape"]) for k in K.KERNELS]}
+    log(json.dumps(line))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

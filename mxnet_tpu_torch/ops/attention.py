@@ -1,0 +1,164 @@
+"""Attention and normalization operators.
+
+Counterpart of ``mxnet_tpu/ops/attention.py``: ``LayerNorm`` (l.21),
+``PositionalEmbedding`` (l.49), ``rope_rotate`` (l.199) and the
+declarative half of ``MultiHeadAttention`` (l.221). Its full-sequence
+forward is the training slice's work; the decoder never calls it (it
+reads the cache through the paged and fused kernels instead).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import MXNetError
+from .registry import OpSpec, Param, register, shape_assign
+
+
+@register
+class LayerNorm(OpSpec):
+    """Layer normalization over the trailing axis: gamma/beta learnable."""
+
+    name = "LayerNorm"
+    params = {"eps": Param("float", 1e-5)}
+
+    def arguments(self, p):
+        return ["data", "gamma", "beta"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return list(in_shapes), [None], []
+        c = (d[-1],)
+        return [d, shape_assign(in_shapes[1], c, "LayerNorm gamma"),
+                shape_assign(in_shapes[2], c, "LayerNorm beta")], [d], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        # (x - mean) * rsqrt(biased var + eps) * gamma + beta, as the JAX
+        # package computes it, in one library call
+        x, gamma, beta = ins
+        return [torch.nn.functional.layer_norm(
+            x, (x.shape[-1],), gamma.to(x.dtype), beta.to(x.dtype),
+            p["eps"])], []
+
+
+@register
+class PositionalEmbedding(OpSpec):
+    """out = data + pos[None, :, :] — learned additive positional
+    embedding. data: [B, T, E]; pos: [T, E] (a parameter)."""
+
+    name = "PositionalEmbedding"
+    params = {}
+
+    def arguments(self, p):
+        return ["data", "pos"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        ins = list(in_shapes)
+        if d is not None:
+            if len(d) != 3:
+                raise MXNetError("PositionalEmbedding: data must be "
+                                 "[B, T, E]")
+            ins[1] = shape_assign(in_shapes[1], (d[1], d[2]),
+                                  "PositionalEmbedding pos")
+        return ins, [d], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        return [ins[0] + ins[1][None, :, :]], []
+
+
+def rope_freqs(half, base, device):
+    """Rotary frequencies ``base ** (-i / half)`` for i < half, f32."""
+    return base ** (-torch.arange(half, dtype=torch.float32,
+                                  device=device) / half)
+
+
+def rope_rotate(x, positions, base=10000.0):
+    """Rotary position embedding (half-split form): rotate the two
+    halves of each head dim by position-dependent angles. x: [B, T, H, D]
+    (D even); positions: [T] absolute positions, or [B, T] when each
+    batch row sits at its own clock."""
+    half = x.shape[-1] // 2
+    ang = positions[..., None].to(torch.float32) \
+        * rope_freqs(half, base, x.device)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if ang.dim() == 2:         # positions [T]: broadcast over batch
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                      # positions [B, T]: per-row angles
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+@register
+class MultiHeadAttention(OpSpec):
+    """Multi-head self-attention with fused QKV projection.
+
+    data: [B, T, E]; qkv_weight [F, E], qkv_bias [F] with
+    ``F = E + 2*num_kv_heads*head_dim``, out_weight [E, E], out_bias [E].
+    ``num_kv_heads`` (0 = ``num_heads``) is grouped-query attention;
+    ``rope`` rotates q/k; ``window`` is sliding-window attention. The
+    params, shape rules and JSON form are the JAX package's, so a graph
+    saved by either package loads in the other."""
+
+    name = "MultiHeadAttention"
+    params = {"num_heads": Param("int"),
+              "num_kv_heads": Param("int", 0),
+              "causal": Param("bool", True),
+              "impl": Param("str", "flash"),
+              "dropout": Param("float", 0.0),
+              "rope": Param("bool", False),
+              "rope_base": Param("float", 10000.0),
+              "window": Param("int", 0),
+              "axis_name": Param("str", "sp")}
+
+    @staticmethod
+    def kv_heads(p):
+        kv = p.get("num_kv_heads", 0) or p["num_heads"]
+        if kv < 1 or p["num_heads"] % kv:
+            raise MXNetError(
+                "MultiHeadAttention: num_kv_heads=%d must be a positive "
+                "divisor of num_heads=%d" % (kv, p["num_heads"]))
+        return kv
+
+    def arguments(self, p):
+        return ["data", "qkv_weight", "qkv_bias", "out_weight", "out_bias"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return list(in_shapes), [None], []
+        if len(d) != 3:
+            raise MXNetError("MultiHeadAttention: data must be [B, T, E]")
+        e = d[2]
+        if e % p["num_heads"] != 0:
+            raise MXNetError("MultiHeadAttention: %d heads do not divide "
+                             "embed dim %d" % (p["num_heads"], e))
+        if p["rope"] and (e // p["num_heads"]) % 2:
+            raise MXNetError("MultiHeadAttention: rope needs an even "
+                             "head dim, got %d" % (e // p["num_heads"]))
+        kv = self.kv_heads(p)
+        if p.get("window", 0):
+            if p["window"] < 1:
+                raise MXNetError("MultiHeadAttention: window must be "
+                                 ">= 1 (0 disables), got %d"
+                                 % p["window"])
+            if not p["causal"]:
+                raise MXNetError("MultiHeadAttention: window>0 is "
+                                 "defined for causal attention only")
+        f = e + 2 * kv * (e // p["num_heads"])  # q rows + kv k/v rows
+        ins = [d,
+               shape_assign(in_shapes[1], (f, e), "qkv_weight"),
+               shape_assign(in_shapes[2], (f,), "qkv_bias"),
+               shape_assign(in_shapes[3], (e, e), "out_weight"),
+               shape_assign(in_shapes[4], (e,), "out_bias")]
+        return ins, [d], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        raise MXNetError(
+            "MultiHeadAttention: the full-sequence forward (the "
+            "flash_attention path) belongs to the training slice of the "
+            "PyTorch port and is not ported yet; serve the model through "
+            "parallel.Decoder, which reads the KV cache through the paged "
+            "and fused kernels")
