@@ -7,33 +7,50 @@ Phases:
 
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
 2. the build: ``nvcc`` compiles the kernels of ``mxnet_tpu_torch/ops/csrc``
-   into ``build/kernels/`` (timed; the compiler's register/spill report is
-   printed);
+   into ``build/kernels/``, one process per source, all at once (timed; a
+   summary of the compiler's register/spill report is printed);
 3. every kernel against its plain PyTorch version on the card, at the
-   shapes the 124M LM's serving path gives it and at small ragged shapes,
-   in every mode (int8/int4 weights, float/int8 KV, C = 1/5/64/256, GQA,
-   rope on/off, f32 and bf16), each to a stated tolerance; then each
-   kernel's time (CUDA events, median of 25 launches with the 50 MB L2
-   flushed before each and the host's launch overhead kept out) beside
-   its plain version's, its bound, and one PyTorch library call computing
-   the same function where there is one;
-4. the main path: the 124M LM (12 layers, E=768, 12 heads, vocab 32000,
-   seeded random weights) saved with ``save_checkpoint`` and served by
-   ``InferenceEngine.from_checkpoint`` with paged attention, int8 weights
-   and the fused decode kernel (max_len 1024, 32 slots, buckets 64/128/256,
-   8 steps per round, bf16), 9 waves of the same 24 staggered greedy
-   requests; the launch counters are zeroed just before the first wave
-   and read just after the last; every wave's streams equal the first's,
-   two requests' streams equal the offline ``Decoder.generate``, and the
-   same 124M LM rebuilt on the host (plain versions) agrees with the
-   card's logits and tokens to a stated bf16 tolerance; then a
+   shapes the 124M LM's serving and training paths give it and at small
+   ragged shapes, in every mode, each to a stated tolerance: the serving
+   kernels (int8/int4 weights, float/int8 KV, C = 1/5/64/256, GQA, rope
+   on/off, f32 and bf16); ``flash_attention`` forward, dQ and dK/dV
+   (B=8 T=1024 12 heads of 64 causal bf16; T=100 and T=1000, non-causal,
+   window 33, f32 and bf16, head_dim 8-128) and through
+   ``MultiHeadAttention`` with GQA, rope and a window against the host;
+   ``fused_linear`` (M=8192 K=768 N=3072 bf16 relu; M=100 K=70 N=130 in
+   f32 and bf16 with every activation). Then each kernel's time (CUDA
+   events, median of 25 launches with the 50 MB L2 flushed before each and
+   the host's launch overhead kept out) beside its plain version's, its
+   bound, and one PyTorch library call computing the same function where
+   there is one;
+4. the serving main path: the 124M LM (12 layers, E=768, 12 heads, vocab
+   32000, seeded random weights) saved with ``save_checkpoint`` and served
+   by ``InferenceEngine.from_checkpoint`` with paged attention, int8
+   weights and the fused decode kernel (max_len 1024, 32 slots, buckets
+   64/128/256, 8 steps per round, bf16), 9 waves of the same 24 staggered
+   greedy requests; the launch counters are zeroed just before the first
+   wave and read just after the last; every wave's streams equal the
+   first's, two requests' streams equal the offline ``Decoder.generate``,
+   and the same 124M LM rebuilt on the host (plain versions) agrees with
+   the card's logits and tokens to a stated bf16 tolerance; then a
    profiled window of decode rounds with every slot busy (wall and kernel
    time per step, the card's idle share, the kernels by device time; the
    trace goes to ``chiprun_out/``); then small LMs in the decoder's other
    modes (int4 weights, the int8 KV cache through the C=1 paged read,
    float weights, rope, GQA) are held against the plain path on the host;
-5. the ``{"kernels": [...]}`` line, the card's line, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+5. the training main path: the same 124M LM (``impl="flash"``) trained by
+   ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
+   0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
+   ``bench_transformer_lm`` trains it: 3 warm-up steps, then 12 timed
+   steps with the launch counters zeroed just before and read just after
+   (12 launches of each of flash forward, dQ, dK/dV and ``fused_linear``
+   per step, asserted exactly); tokens/s (median, min-max), ms per step,
+   peak memory and MFU; the loss must fall; a profiled window of 2 steps
+   (busy share, kernels by device time, trace to ``chiprun_out/``); then
+   one f32 step of the same LM at B=1, T=128 from the same seeded weights
+   on the card and on the host, whose parameter deltas must agree;
+6. the ``{"kernels": [...]}`` line (every C entry), the card's line, and
+   the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 needs a CUDA card and the rest of the repository beside it.
@@ -397,6 +414,234 @@ def time_kernels(K, dev, gen, worst):
     return entries
 
 
+# -- phase 3b: the training kernels against their plain versions ------------
+
+# bf16 flash gradients: |kernel - plain| <= GRAD_REL * max|plain| per
+# tensor. The kernels round P and dS to bf16 (2^-9 relative) for the
+# products with V, K, Q and dO, where the plain version keeps them f32; a
+# gradient sums up to T such rounded terms of mixed sign, and the results
+# are stored in bf16 (2^-9 relative of the largest value): a few bf16 ulps
+# of the tensor's largest value, not of each element (elements near 0 come
+# from cancelling sums)
+GRAD_REL = 2.0 ** -6
+
+
+def compare_scaled(name, got, want, rel):
+    """Max |got - want| / max|want|, raising past ``rel``."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    top = w.abs().max().item()
+    if not torch.isfinite(g).all() or err > rel * top:
+        raise AssertionError(
+            "%s: kernel disagrees with the plain version: max |err| %.3g, "
+            "%.3g of max |plain| %.3g (gate %.3g)" % (
+                name, err, err / max(top, 1e-30), top, rel))
+    return err
+
+
+def _flash_inputs(gen, b, t, h, d, dtype, dev):
+    return [_rand(gen, (b, t, h, d), dtype).to(dev) for _ in range(4)]
+
+
+def flash_cases():
+    """(B, T, H, D, causal, window, dtype): the 124M training shape, then
+    ragged lengths (T=100, T=1000: not multiples of the 64-row tiles),
+    non-causal and windowed, f32 and bf16, and every head_dim the kernels
+    take."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 1024, 12, 64, True, 0, bf)]
+    for dt in (f32, bf):
+        for t in (100, 1000):
+            cases += [(2, t, 3, 64, True, 0, dt), (2, t, 3, 64, False, 0, dt),
+                      (2, t, 3, 64, True, 33, dt)]
+        for d in (16, 32, 128) + ((8,) if dt is f32 else ()):
+            cases.append((2, 77, 2, d, True, 5 if d == 32 else 0, dt))
+    return cases
+
+
+def check_flash_attention(K, dev, gen):
+    """Forward (o, lse), then dQ and dK/dV from the same o and lse, kernel
+    against plain, in every case of ``flash_cases``. Returns the largest
+    errors: {entry: max |err|}."""
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_dq": 0.0,
+             "flash_attention_dkv": 0.0}
+    for b, t, h, d, causal, window, dt in flash_cases():
+        q, k, v, do = _flash_inputs(gen, b, t, h, d, dt, dev)
+        kw = dict(causal=causal, window=window)
+        tag = "B=%d T=%d H=%d D=%d causal=%s window=%d %s" % (
+            b, t, h, d, causal, window, dt)
+        o, lse = K.flash_attention_fwd(q, k, v, **kw)
+        o_p, lse_p = K.flash_attention_fwd_plain(q, k, v, causal, None,
+                                                 window)
+        grads = K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        grads_p = K.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                              None, window)
+        torch.cuda.synchronize()
+        worst["flash_attention_fwd"] = max(
+            worst["flash_attention_fwd"],
+            compare("flash fwd o " + tag, o, o_p),
+            compare("flash fwd lse " + tag, lse, lse_p))
+        for name, g_, w_ in zip(("dq", "dk", "dv"), grads, grads_p):
+            entry = "flash_attention_dq" if name == "dq" else \
+                "flash_attention_dkv"
+            err = compare("flash %s %s" % (name, tag), g_, w_) \
+                if dt is torch.float32 else \
+                compare_scaled("flash %s %s" % (name, tag), g_, w_, GRAD_REL)
+            worst[entry] = max(worst[entry], err)
+    log("flash_attention: %d cases agree (fwd, dq, dk/dv), max |err| %s" % (
+        len(flash_cases()), {k: "%.3g" % v for k, v in worst.items()}))
+    return worst
+
+
+def check_fused_linear(K, dev, gen):
+    """Every activation at a ragged shape (M=100, K=70, N=130: no tile or
+    16-byte multiple) in f32 and bf16, with and without bias, then the
+    124M ffn1 shape (M=8192, K=768, N=3072, bf16, relu)."""
+    cases = [(100, 70, 130, act, dt, bias)
+             for act in ("linear", "relu", "sigmoid", "tanh")
+             for dt in (torch.float32, torch.bfloat16)
+             for bias in (True, False)]
+    cases += [(8192, 768, 3072, "relu", torch.bfloat16, True),
+              (33, 768, 2304, "tanh", torch.bfloat16, True)]
+    worst = 0.0
+    for m, kd, n, act, dt, bias in cases:
+        x = _rand(gen, (m, kd), dt).to(dev)
+        w = _rand(gen, (n, kd), dt, 1.0 / math.sqrt(kd)).to(dev)
+        b = _rand(gen, (n,), dt, 0.1).to(dev) if bias else None
+        got = K.fused_linear_fwd(x, w, b, act)
+        want = K.fused_linear_plain(x, w, b, act)
+        torch.cuda.synchronize()
+        worst = max(worst, compare("fused_linear M=%d K=%d N=%d %s %s bias=%s"
+                                   % (m, kd, n, act, dt, bias), got, want))
+    log("fused_linear: %d cases agree, max |err| %.3g" % (len(cases), worst))
+    return worst
+
+
+def check_mha_gqa(dev):
+    """MultiHeadAttention's flash path with GQA (12 heads over 4 kv heads,
+    the K/V repeat before the kernel), rope and a window, at T=100: its
+    output and the gradients of sum(out * g) for the data and the four
+    weights, on the card (the flash kernels) against the same op on the
+    host (their plain versions), f32."""
+    from mxnet_tpu_torch.ops.registry import get
+    spec = get("MultiHeadAttention")
+    b, t, e, h, kv = 2, 100, 768, 12, 4
+    f = e + 2 * kv * (e // h)
+    rng = np.random.RandomState(9)
+    ins = [rng.randn(b, t, e), rng.randn(f, e) / math.sqrt(e),
+           rng.randn(f) * 0.1, rng.randn(e, e) / math.sqrt(e),
+           rng.randn(e) * 0.1]
+    g = torch.from_numpy(rng.randn(b, t, e).astype(np.float32))
+    worst = 0.0
+    for window in (0, 33):
+        p = spec.parse_params(dict(num_heads=h, num_kv_heads=kv, rope=True,
+                                   window=window))
+        res = {}
+        for where in (dev, "cpu"):
+            xs = [torch.from_numpy(a.astype(np.float32)).to(where)
+                  .requires_grad_() for a in ins]
+            out = spec.forward(p, xs, [], False, None)[0][0]
+            (out * g.to(where)).sum().backward()
+            res[str(where)] = [out.detach().cpu()] + [x.grad.cpu()
+                                                      for x in xs]
+        for i, (got, want) in enumerate(zip(res[str(dev)], res["cpu"])):
+            worst = max(worst, compare("MultiHeadAttention GQA rope window=%d"
+                                       " %s" % (window, ("out", "d_data",
+                                                         "d_qkv_weight",
+                                                         "d_qkv_bias",
+                                                         "d_out_weight",
+                                                         "d_out_bias")[i]),
+                                       got, want))
+    log("MultiHeadAttention GQA 12->4 rope, window 0 and 33, T=100: card "
+        "against host agree, max |err| %.3g" % worst)
+
+
+def time_train_kernels(K, dev, gen, worst):
+    """The training kernels at the 124M step's shapes (B=8, T=1024, 12
+    heads of 64, causal, bf16; ffn1 M=8192 K=768 N=3072 relu): time, plain
+    time, bound and library time of each C entry."""
+    import torch.nn.functional as F
+    timer = Timer(dev)
+    b, t, h, d = 8, 1024, 12, 64
+    q, k, v, do = _flash_inputs(gen, b, t, h, d, torch.bfloat16, dev)
+    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    dcap = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    cfg = K._flash_kernel_args("flash_attention_dq", q, k, v) \
+        + (1.0 / math.sqrt(d), 1, 0, K._CODE[torch.bfloat16])
+    P = K._ptr
+
+    def dq_launch():
+        K._launch("flash_attention_dq", P(q), P(k), P(v), P(o), P(do),
+                  P(lse), P(dcap), P(dq), *cfg)
+
+    def dkv_launch():
+        K._launch("flash_attention_dkv", P(q), P(k), P(v), P(do), P(lse),
+                  P(dcap), P(dk), P(dv), *cfg)
+
+    dq_launch()
+    pairs = t * (t + 1) // 2 * b * h           # visible (query, key) pairs
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+    gt = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True
+                                       ).backward(gt)
+
+    ms = {"fwd": timer(lambda: K.flash_attention_fwd(q, k, v, causal=True)),
+          "dq": timer(dq_launch), "dkv": timer(dkv_launch)}
+    plain = {"fwd": timer(lambda: K.flash_attention_fwd_plain(q, k, v,
+                                                              True)),
+             "bwd": timer(lambda: K.flash_attention_bwd_plain(
+                 q, k, v, o, lse, do, True))}
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    lib_bwd = timer(sdpa_fwd_bwd) - lib_fwd
+    row = nbytes(q)                             # one [B, T, H, D] tensor
+    spec = {
+        # entry: (ms, plain ms, library ms, bytes, flops)
+        "flash_attention_fwd": (ms["fwd"], plain["fwd"], lib_fwd,
+                                4 * row + nbytes(lse), 4 * d * pairs),
+        "flash_attention_dq": (ms["dq"], plain["bwd"], lib_bwd,
+                               6 * row + 2 * nbytes(lse), 6 * d * pairs),
+        "flash_attention_dkv": (ms["dkv"], plain["bwd"], lib_bwd,
+                                6 * row + 2 * nbytes(lse), 8 * d * pairs),
+    }
+    entries = {}
+    shape = "B=8 T=1024 H=12 D=64 causal bf16"
+    for name, (kms, pms, lms, nb, flops) in spec.items():
+        bms, by = bound_ms(nb, flops, torch.bfloat16)
+        log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f "
+            "ms  bound %.4f ms (%s)" % (name, shape, kms, pms, lms, bms, by))
+        entries[name] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
+                         "bound_ms": bms, "bound_by": by, "shape": shape}
+    log("  (plain and library times of dq and dkv are those of the whole "
+        "backward: the plain backward, and SDPA forward+backward minus its "
+        "forward)")
+
+    m, kd, n = 8192, 768, 3072
+    x = _rand(gen, (m, kd), torch.bfloat16).to(dev)
+    w = _rand(gen, (n, kd), torch.bfloat16, 1.0 / math.sqrt(kd)).to(dev)
+    bias = _rand(gen, (n,), torch.bfloat16, 0.1).to(dev)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    kms = timer(lambda: K.fused_linear_fwd(x, w, bias, "relu"))
+    pms = timer(lambda: K.fused_linear_plain(x, w, bias, "relu"))
+    lms = timer(lambda: torch.relu(F.linear(x, w, bias)))
+    bms, by = bound_ms(nbytes(x, w, bias, out), 2 * m * n * kd,
+                       torch.bfloat16)
+    shape = "ffn1 M=8192 K=768 N=3072 bf16 relu"
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(F.linear + relu, two calls)  bound %.4f ms (%s)" % (
+            "fused_linear", shape, kms, pms, lms, bms, by))
+    entries["fused_linear"] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
+                               "bound_ms": bms, "bound_by": by,
+                               "shape": shape}
+    for name, r in entries.items():
+        r["max_abs_err"] = worst[name]
+    return entries
+
+
 # -- phase 4: the main path -------------------------------------------------
 
 VOCAB, LAYERS, EMBED, HEADS = 32000, 12, 768, 12
@@ -509,12 +754,13 @@ def serve_main_path(K, dev):
                 raise AssertionError(
                     "request %s: a later wave's greedy stream differs from "
                     "the first wave's on the same prompt" % h.id)
-    want = {"fused_decode_attention": LAYERS * steps,
-            "paged_attention": LAYERS * prefills,
-            # per decode step: ffn1, ffn2 per layer + lm_head; per prefill
-            # also the qkv and out projections
-            "quant_matmul": (2 * LAYERS + 1) * steps
-            + (4 * LAYERS + 1) * prefills}
+    want = dict.fromkeys(launches, 0)   # the training entries stay 0
+    want.update({"fused_decode_attention": LAYERS * steps,
+                 "paged_attention": LAYERS * prefills,
+                 # per decode step: ffn1, ffn2 per layer + lm_head; per
+                 # prefill also the qkv and out projections
+                 "quant_matmul": (2 * LAYERS + 1) * steps
+                 + (4 * LAYERS + 1) * prefills})
     if launches != want:
         raise AssertionError("launch counts %r, the main path wants %r"
                              % (launches, want))
@@ -684,6 +930,189 @@ def check_small_against_host(dev):
                 mkw, dkw, err, len(set(tg[:, 11:].flatten().tolist()))))
 
 
+# -- phase 5: the training main path -----------------------------------------
+
+TRAIN_B, TRAIN_T = 8, 1024          # bench.py:214 bench_transformer_lm
+WARM_STEPS, TIMED_STEPS = 3, 12
+TRAIN_ENTRIES = ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv", "fused_linear")
+# card vs host after one f32 step from the same weights (TF32 off on the
+# card). The step's softmax output: within PROB_REL of its largest value
+# (sums in other orders). The parameter deltas, per tensor:
+# ||delta_card - delta_host|| / ||delta_host|| <= DELTA_REL, and every
+# element within ELEM_REL of the tensor's largest delta. Both are far
+# looser than f32 rounding because of the ReLU kink: a pre-activation
+# within an ulp of zero lands on either side under any change of
+# summation order, which flips that unit's derivative, rewrites its row of
+# the ffn1 gradient and moves every gradient below it. Two correct host
+# implementations (plain flash attention against dense attention) differ
+# by up to 3.8e-3 per tensor in the norm and 0.040 of the largest element;
+# a wrong kernel moves whole tensors by O(1)
+PROB_REL = 1e-4
+DELTA_REL = 2e-2
+ELEM_REL = 0.1
+
+
+def _lm_train_loss(outs, label):
+    """Mean -log p[label] of the [B, V, T] softmax output."""
+    p = outs[0].float()
+    return -torch.log(p.gather(1, label[:, None, :]).clamp_min(1e-30)
+                      ).mean().item()
+
+
+def _train_batch(seed, b, t):
+    rs = np.random.RandomState(seed)
+    return {"data": rs.randint(0, VOCAB, (b, t)).astype(np.int32),
+            "softmax_label": rs.randint(0, VOCAB, (b, t)).astype(np.int32)}
+
+
+def _trainer(dev, b, t, compute_dtype):
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import ParallelTrainer
+    symbol = get_transformer_lm(VOCAB, num_layers=LAYERS, embed_dim=EMBED,
+                                num_heads=HEADS, impl="flash")
+    return ParallelTrainer(
+        symbol, {"data": (b, t), "softmax_label": (b, t)}, optimizer="sgd",
+        optimizer_params={"learning_rate": 1e-3, "momentum": 0.9},
+        compute_dtype=compute_dtype, seed=0, device=dev).init_params()
+
+
+def train_main_path(K, dev):
+    """The 124M LM trained by ParallelTrainer(device=None) in bf16 at
+    B=8, T=1024 on one repeated seeded batch: WARM_STEPS steps, then
+    TIMED_STEPS steps with the launch counters zeroed just before and read
+    just after. Returns the launch counts of the timed steps."""
+    trainer = _trainer(None, TRAIN_B, TRAIN_T, "bfloat16")
+    if trainer.device != dev:
+        raise AssertionError("device=None resolved to %s" % trainer.device)
+    batch = _train_batch(7, TRAIN_B, TRAIN_T)
+    label = torch.as_tensor(batch["softmax_label"]).long().to(dev)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        losses.append(_lm_train_loss(trainer.step(batch), label))
+    torch.cuda.synchronize()
+    log("train: 124M LM (%d layers, E=%d, %d heads, vocab %d), B=%d T=%d "
+        "bf16, SGD lr 1e-3 momentum 0.9; %d warm-up steps in %.1f s" % (
+            LAYERS, EMBED, HEADS, VOCAB, TRAIN_B, TRAIN_T, WARM_STEPS,
+            time.perf_counter() - t0))
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs, queued = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        outs = trainer.step(batch)
+        queued.append(time.perf_counter() - t0)   # the host's part
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(_lm_train_loss(outs, label))
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want.update({e: LAYERS * TIMED_STEPS for e in TRAIN_ENTRIES})
+    if launches != want:
+        raise AssertionError("train launch counts %r, the main path wants %r"
+                             % (launches, want))
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0] - 0.01:
+        raise AssertionError("the loss on the repeated batch did not fall: "
+                             "%r" % losses)
+    tokens = TRAIN_B * TRAIN_T
+    tps = [tokens / s for s in secs]
+    n_params = LAYERS * (12 * EMBED * EMBED) + VOCAB * EMBED
+    flops_per_tok = 6.0 * n_params + 12.0 * LAYERS * EMBED * TRAIN_T
+    med = statistics.median(tps)
+    log("train: %d timed steps; tokens/s median %.1f (min %.1f, max %.1f); "
+        "ms per step median %.3f (min %.3f, max %.3f); MFU %.4f (%.4g "
+        "FLOP per token, bench.py:231-236, over 989 TFLOP/s); peak memory "
+        "%.1f MB; %s" % (
+            TIMED_STEPS, med, min(tps), max(tps),
+            statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
+            med * flops_per_tok / 989e12, flops_per_tok, peak / 2**20,
+            card_line()))
+    log("train: step() returns to the host after %.3f ms (median; min "
+        "%.3f, max %.3f); the card finishes the step %.3f ms after it "
+        "began (median); where the two are close, the host bounds the "
+        "step" % (
+            statistics.median(queued) * 1e3, min(queued) * 1e3,
+            max(queued) * 1e3, statistics.median(secs) * 1e3))
+    log("train: loss over the %d steps %s" % (
+        len(losses), " ".join("%.4f" % v for v in losses)))
+    log("train launches: %s" % json.dumps(launches))
+    profile_train(trainer, batch)
+    return launches
+
+
+def profile_train(trainer, batch, steps=2):
+    """Where a train step's time goes: ``steps`` steps under
+    torch.profiler. Prints the wall and card kernel time per step, the
+    card's busy share (kernel time / wall time), and the kernels by device
+    time; the trace goes to chiprun_out/."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    log("train profile: %d steps; wall %.3f ms per step, card kernels %.3f "
+        "ms per step, busy share %.3f, idle share %.3f" % (
+            steps, wall * 1e3 / steps, busy_us / 1e3 / steps,
+            busy_us / 1e6 / wall, 1.0 - busy_us / 1e6 / wall))
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        log("  %-60s %8.3f ms per step  %5d calls" % (
+            key[:60], us / 1e3 / steps, n))
+    out = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "train_trace.json"))
+
+
+def check_train_against_host(dev, b=1, t=128):
+    """The 124M LM with the same seeded initial weights takes one f32
+    step at B=1, T=128 on the card (the kernels) and on the host (their
+    plain versions): the softmax outputs agree within PROB_REL and every
+    parameter's delta within DELTA_REL and ELEM_REL (see above)."""
+    batch = _train_batch(11, b, t)
+    res = {}
+    for where in (dev, "cpu"):
+        tr = _trainer(where, b, t, None)
+        before = {n: v.clone() for n, v in tr.params.items()}
+        probs = tr.step(batch)[0].cpu()
+        res[str(where)] = (probs, {n: (tr.params[n] - before[n]).cpu()
+                                   for n in before})
+    (pc, card), (ph, host) = res[str(dev)], res["cpu"]
+    perr = (pc - ph).abs().max().item() / ph.abs().max().item()
+    rows = []
+    for n, dh in host.items():
+        fro = ((card[n] - dh).norm() / dh.norm()).item()
+        top = ((card[n] - dh).abs().max() / dh.abs().max()).item()
+        rows.append((fro, top, n))
+    rows.sort(reverse=True)
+    if not perr <= PROB_REL or not all(r[0] <= DELTA_REL and r[1] <= ELEM_REL
+                                       for r in rows):
+        raise AssertionError(
+            "card vs host step: softmax output %.3g of its max (gate %g); "
+            "worst deltas (norm, largest element) %s (gates %g, %g)" % (
+                perr, PROB_REL,
+                ["%s %.3g %.3g" % (n, f, e) for f, e, n in rows[:5]],
+                DELTA_REL, ELEM_REL))
+    worst_elem = max(rows, key=lambda r: r[1])
+    log("train card vs host: one f32 step of the 124M LM at B=%d T=%d; "
+        "softmax output max |err| %.3g of its max (gate %g); %d parameter "
+        "deltas agree, worst in norm %s %.3g (gate %g), worst element %s "
+        "%.3g of its largest delta (gate %g)" % (
+            b, t, perr, PROB_REL, len(rows), rows[0][2], rows[0][0],
+            DELTA_REL, worst_elem[2], worst_elem[1], ELEM_REL))
+
+
 # -- main -------------------------------------------------------------------
 
 def main():
@@ -706,34 +1135,53 @@ def main():
     log("build: %.1f s wall (%s)" % (time.perf_counter() - t0, ", ".join(
         "%s %.1f s" % kv for kv in secs.items())))
     for kname in K.KERNELS:
+        # ptxas -v: one "Used N registers" line per compiled function, each
+        # after its spill line; print the largest count and any spill
         with open(K._lib_path(kname)[:-3] + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("  ptxas %s: %s" % (kname, line.strip()))
+            lines = f.read().splitlines()
+        regs = [int(x.split("Used ")[1].split()[0]) for x in lines
+                if "Used " in x and "registers" in x]
+        spills = [x.strip() for x in lines
+                  if "spill" in x and not x.strip().startswith("0 bytes")
+                  and " 0 bytes spill stores" not in x]
+        log("  ptxas %s: %d functions, registers max %d%s" % (
+            kname, len(regs), max(regs), "".join(
+                "\n    spills: " + x for x in spills)))
 
     gen = torch.Generator().manual_seed(0)
     worst = {"quant_matmul": check_quant_matmul(K, dev, gen),
              "paged_attention": check_paged_attention(K, dev, gen),
              "fused_decode_attention": check_fused_decode_attention(
                  K, dev, gen)}
+    worst.update(check_flash_attention(K, dev, gen))
+    worst["fused_linear"] = check_fused_linear(K, dev, gen)
+    check_mha_gqa(dev)
     timed = time_kernels(K, dev, gen, worst)
+    timed.update(time_train_kernels(K, dev, gen, worst))
     launches = serve_main_path(K, dev)
     check_small_against_host(dev)
+    launches.update({e: n for e, n in train_main_path(K, dev).items()
+                     if e in TRAIN_ENTRIES})
+    check_train_against_host(dev)
     replaces = {
-        "paged_attention": "mxnet_tpu/ops/pallas_kernels.py:1115",
-        "quant_matmul": "mxnet_tpu/ops/pallas_kernels.py:1259",
-        "fused_decode_attention": "mxnet_tpu/ops/pallas_kernels.py:1389"}
-    missing = [k for k in K.KERNELS if not launches[k]]
+        "paged_attention": 1115, "quant_matmul": 1259,
+        "fused_decode_attention": 1389,
+        "flash_attention_fwd": 107,     # _attn_fwd_kernel
+        "flash_attention_dq": 200,      # _attn_dq_kernel
+        "flash_attention_dkv": 241,     # _attn_dkv_kernel
+        "fused_linear": 725}            # _gemm_epi_kernel
+    missing = [e for e in K.SOURCE if not launches[e]]
     if missing:
-        raise AssertionError("the main path never launched %s" % missing)
+        raise AssertionError("the main paths never launched %s" % missing)
     line = {"kernels": [dict(
-        name=k, route="cuda",
-        source="mxnet_tpu_torch/ops/csrc/%s.cu" % k,
-        replaces=replaces[k], launches=launches[k],
-        max_abs_err=timed[k]["max_abs_err"], ms=timed[k]["ms"],
-        plain_ms=timed[k]["plain_ms"], bound_ms=timed[k]["bound_ms"],
-        bound_by=timed[k]["bound_by"], library_ms=timed[k]["library_ms"],
-        shape=timed[k]["shape"]) for k in K.KERNELS]}
+        name=e, route="cuda",
+        source="mxnet_tpu_torch/ops/csrc/%s.cu" % K.SOURCE[e],
+        replaces="mxnet_tpu/ops/pallas_kernels.py:%d" % replaces[e],
+        launches=launches[e], max_abs_err=timed[e]["max_abs_err"],
+        ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
+        bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
+        library_ms=timed[e]["library_ms"], shape=timed[e]["shape"])
+        for e in K.SOURCE]}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ a uint64 length and its UTF-8 bytes.
 
 Arrays go in as numpy arrays or torch tensors (bfloat16 needs a tensor:
 numpy has no such type) and come back as CPU torch tensors. The
-imperative ``NDArray`` belongs to the training slice of the port.
+imperative ``NDArray`` belongs to a later slice of the port.
 """
 from __future__ import annotations
 

@@ -1,16 +1,20 @@
 """Attention and normalization operators.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``: ``LayerNorm`` (l.21),
-``PositionalEmbedding`` (l.49), ``rope_rotate`` (l.199) and the
-declarative half of ``MultiHeadAttention`` (l.221). Its full-sequence
-forward is the training slice's work; the decoder never calls it (it
-reads the cache through the paged and fused kernels instead).
+``PositionalEmbedding`` (l.49), ``rope_rotate`` (l.199) and
+``MultiHeadAttention`` (l.221) with its full-sequence forward (l.334)
+through the ``flash_attention`` kernel or dense attention. The decoder
+never calls that forward: it reads the cache through the paged and fused
+kernels instead.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..base import MXNetError
+from . import kernels
 from .registry import OpSpec, Param, register, shape_assign
 
 
@@ -156,9 +160,66 @@ class MultiHeadAttention(OpSpec):
         return ins, [d], []
 
     def forward(self, p, ins, aux, is_train, generator):
-        raise MXNetError(
-            "MultiHeadAttention: the full-sequence forward (the "
-            "flash_attention path) belongs to the training slice of the "
-            "PyTorch port and is not ported yet; serve the model through "
-            "parallel.Decoder, which reads the KV cache through the paged "
-            "and fused kernels")
+        x, wqkv, bqkv, wo, bo = ins
+        b, t, e = x.shape
+        h = p["num_heads"]
+        d = e // h
+        kv = self.kv_heads(p)
+        qkv = torch.nn.functional.linear(x, wqkv, bqkv)
+        # views into qkv (the flash kernels read them in place); split's
+        # backward is one concatenation of the three gradients
+        q, k, v = qkv.split([e, kv * d, kv * d], dim=-1)
+        q = q.reshape(b, t, h, d)
+        k = k.reshape(b, t, kv, d)
+        v = v.reshape(b, t, kv, d)
+        if kv != h:
+            # GQA: each K/V head serves its query group; the kernel takes
+            # whole buffers, so the repeat is materialized (as in the JAX
+            # package's flash path)
+            k = k.repeat_interleave(h // kv, dim=2)
+            v = v.repeat_interleave(h // kv, dim=2)
+        if p["rope"]:
+            if d % 2:
+                raise MXNetError("MultiHeadAttention: rope needs an even "
+                                 "head dim, got %d" % d)
+            posv = torch.arange(t, device=x.device)
+            q = rope_rotate(q, posv, p["rope_base"])
+            k = rope_rotate(k, posv, p["rope_base"])
+        impl = p["impl"]
+        window = p.get("window", 0)
+        if window:
+            # as infer_shape validates: the forward can run without shape
+            # inference, and a negative window would mask every key
+            if window < 1:
+                raise MXNetError("MultiHeadAttention: window must be "
+                                 ">= 1 (0 disables), got %d" % window)
+            if not p["causal"]:
+                raise MXNetError("MultiHeadAttention: window>0 is "
+                                 "defined for causal attention only")
+        if impl == "flash":
+            o = kernels.flash_attention(q, k, v, causal=p["causal"],
+                                        window=window)
+        elif impl == "dense":
+            s_ = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+            if p["causal"]:
+                qpos = torch.arange(t, device=x.device)[:, None]
+                kpos = torch.arange(t, device=x.device)[None, :]
+                mask = kpos <= qpos
+                if window:
+                    mask = mask & (qpos - kpos < window)
+                s_ = s_.masked_fill(~mask, float("-inf"))
+            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, dim=-1), v)
+        elif impl in ("blockwise", "ring", "ring_striped"):
+            raise MXNetError(
+                "MultiHeadAttention: impl=%r (parallel/ring.py: blockwise "
+                "and ring attention) belongs to a later slice of the "
+                "PyTorch port; use impl='flash' or 'dense'" % impl)
+        else:
+            raise MXNetError("MultiHeadAttention: unknown impl %r" % impl)
+        out = torch.nn.functional.linear(o.reshape(b, t, e), wo, bo)
+        if is_train and p["dropout"] > 0.0:
+            keep = 1.0 - p["dropout"]
+            mask = torch.rand(out.shape, generator=generator,
+                              device=out.device) < keep
+            out = torch.where(mask, out / keep, torch.zeros_like(out))
+        return [out], []

@@ -1,4 +1,4 @@
-// Helpers shared by the serving kernels of mxnet_tpu_torch/ops/kernels.py.
+// Helpers shared by the kernels of mxnet_tpu_torch/ops/kernels.py.
 //
 // Dtype codes of the C interfaces: 0 = float32, 1 = bfloat16, 2 = int8.
 #pragma once
@@ -51,6 +51,43 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float nibble(uint8_t b, int high) {
   int v = high ? (b >> 4) : (b & 15);
   return static_cast<float>(v >= 8 ? v - 16 : v);
+}
+
+// Tensor-core helpers (mma.sync m16n8k16, bf16 in, f32 accumulate). With
+// g = lane / 4 and t = lane % 4, a warp's fragments hold:
+//   A (16 x 16, row-major): a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..],
+//                           a[2] = A[g][2t+8..],     a[3] = A[g+8][2t+8..];
+//   B (16 x 8, "col"):      b[0] = B[2t..2t+1][g],   b[1] = B[2t+8..2t+9][g];
+//   C (16 x 8, f32):        c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..].
+// Each 32-bit register holds two bf16 values, the lower index in the low
+// half.
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed on the way
+// (ldmatrix .x4 .trans): lane l gives the address of row l % 8 of matrix
+// l / 8 (16 contiguous bytes, 16-byte aligned), and r[i] receives, for
+// matrix i, elements (2t, g) and (2t+1, g). Over a row-major tile M[k][n]
+// that is the B fragment of a product by M (k the contraction index):
+// b[0] from the matrix of rows k0..k0+7, b[1] from rows k0+8..k0+15.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const uint32_t a =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 }  // namespace mxk

@@ -1,7 +1,6 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain
-PyTorch version.
+"""Hand-written CUDA kernels, each beside its plain PyTorch version.
 
-Counterpart of the serving half of ``mxnet_tpu/ops/pallas_kernels.py``:
+Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
 
 * :func:`paged_attention` (Pallas ``paged_attention`` l.1115): slot-paged
   attention over each slot's live KV rows ``[0, pos+C)``, causal in the
@@ -12,17 +11,28 @@ Counterpart of the serving half of ``mxnet_tpu/ops/pallas_kernels.py``:
 * :func:`fused_decode_attention` (l.1389): one decode step's QKV
   projection -> rope -> attention over the live cache plus the new token
   -> output projection in one launch.
+* :func:`flash_attention` (l.373): streaming-softmax attention with
+  causal, window and padded-key masks, differentiable: the forward kernel
+  emits the per-row logsumexp, and the backward is a dQ kernel over query
+  tiles and a dK/dV kernel over key tiles that recompute the
+  probabilities from it.
+* :func:`fused_linear` (l.813): ``act(x @ w^T + b)`` with the epilogue on
+  the f32 accumulator, differentiable (the backward is plain products, as
+  the JAX package keeps it outside Pallas).
 
 The kernels live in ``csrc/*.cu`` (CUDA C++ for ``sm_90a``). Each source
 is compiled by ``nvcc`` into its own shared library with a plain C
 interface under ``build/kernels/`` at first use — all sources in
-parallel, keyed by a hash of the source — and loaded with ``ctypes``.
+parallel, keyed by a hash of the source — and loaded with ``ctypes``. A
+source may export several C entries (``flash_attention`` exports the
+forward, dQ and dK/dV); each entry has its own argument types and its own
+launch counter.
 
 Dispatch: a tensor on the CPU goes to the plain version in this module
 (the tests run those); a CUDA tensor launches the kernel or raises —
-there is no fallback. Each launch adds one to :func:`launch_counts`
-(the analogue of the JAX package's ``dispatch_count``); the plain
-versions are not counted.
+there is no fallback. Each launch adds one to its entry in
+:func:`launch_counts` (the analogue of the JAX package's
+``dispatch_count``); the plain versions are not counted.
 """
 from __future__ import annotations
 
@@ -40,18 +50,23 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
-           "fused_decode_attention", "paged_attention_plain",
-           "quant_matmul_plain", "fused_decode_attention_plain",
-           "build", "launch_counts", "reset_launch_counts", "KERNELS"]
+           "fused_decode_attention", "flash_attention", "fused_linear",
+           "paged_attention_plain", "quant_matmul_plain",
+           "fused_decode_attention_plain", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention_fwd_plain",
+           "flash_attention_bwd_plain", "fused_linear_fwd",
+           "fused_linear_plain", "build", "launch_counts",
+           "reset_launch_counts", "KERNELS", "ENTRIES", "SOURCE"]
 
-KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention")
+# the sources build() compiles
+KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
+           "flash_attention", "fused_linear")
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
 _HEADERS = ("common.cuh",)
 
-_LAUNCHES = dict.fromkeys(KERNELS, 0)
 _LIBS = {}
 
 # dtype codes of the C interfaces (csrc/common.cuh)
@@ -59,7 +74,7 @@ _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def launch_counts():
-    """Kernel launches per kernel since :func:`reset_launch_counts`."""
+    """Kernel launches per C entry since :func:`reset_launch_counts`."""
     return dict(_LAUNCHES)
 
 
@@ -131,19 +146,34 @@ def build(names=KERNELS):
     return secs
 
 
-def _lib(name):
-    lib = _LIBS.get(name)
+def _lib(entry):
+    """The C function ``mx_<entry>``, its source built and loaded at the
+    first call."""
+    src = SOURCE[entry]
+    lib = _LIBS.get(src)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(_lib_path(name))
-        fn = getattr(lib, "mx_" + name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
-        _LIBS[name] = lib
-    return getattr(lib, "mx_" + name)
+        build((src,))
+        lib = ctypes.CDLL(_lib_path(src))
+        for e in ENTRIES[src]:
+            fn = getattr(lib, "mx_" + e)
+            fn.restype = ctypes.c_int
+            fn.argtypes = _ARGTYPES[e]
+        _LIBS[src] = lib
+    return getattr(lib, "mx_" + entry)
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+# the C entries of each source; every entry ends in the stream
+ENTRIES = {
+    "paged_attention": ("paged_attention",),
+    "quant_matmul": ("quant_matmul",),
+    "fused_decode_attention": ("fused_decode_attention",),
+    "flash_attention": ("flash_attention_fwd", "flash_attention_dq",
+                        "flash_attention_dkv"),
+    "fused_linear": ("fused_linear",),
+}
+SOURCE = {e: src for src, es in ENTRIES.items() for e in es}
 _ARGTYPES = {
     # q, k, v, k_scale, v_scale, pos, out, S, C, H, KV, L, D, scale,
     # q_dtype, kv_dtype, stream
@@ -155,18 +185,33 @@ _ARGTYPES = {
     # out, k_new, v_new, part, count, S, E, H, KV, D, L, bits, group,
     # smem_bytes, scale, x_dtype, cache_dtype, stream
     "fused_decode_attention": [_P] * 17 + [_I] * 9 + [_F, _I, _I, _P],
+    # q, k, v, o, lse, B, H, Tq, Tk, D, the batch and time strides of q,
+    # k and v, scale, causal, window, dtype, stream
+    "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 6
+    + [_F, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, dcap, dq, B, H, Tq, Tk, D, strides, scale,
+    # causal, window, dtype, stream
+    "flash_attention_dq": [_P] * 8 + [_I] * 5 + [_L] * 6
+    + [_F, _I, _I, _I, _P],
+    # q, k, v, do, lse, dcap, dk, dv, B, H, Tq, Tk, D, strides, scale,
+    # causal, window, dtype, stream
+    "flash_attention_dkv": [_P] * 8 + [_I] * 5 + [_L] * 6
+    + [_F, _I, _I, _I, _P],
+    # x, w, scale, bias, out, M, N, K, act, dtype, stream
+    "fused_linear": [_P] * 5 + [_I] * 5 + [_P],
 }
+_LAUNCHES = dict.fromkeys(SOURCE, 0)
 
 
-def _launch(name, *args):
-    """Call kernel ``name``'s C entry on the current stream and count the
+def _launch(entry, *args):
+    """Call C entry ``mx_<entry>`` on the current stream and count the
     launch; a launch the runtime refused raises here (it never ran)."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = _lib(name)(*args, stream)
+    err = _lib(entry)(*args, stream)
     if err != 0:
         raise MXNetError("%s: CUDA launch failed with error %d"
-                         % (name, err))
-    _LAUNCHES[name] += 1
+                         % (entry, err))
+    _LAUNCHES[entry] += 1
 
 
 def _ptr(t):
@@ -561,3 +606,273 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
             d, l_, bits, group or 0, smem, float(scale), _CODE[x.dtype],
             _CODE[k_cache.dtype])
     return out, kn, vn
+
+
+# -- flash_attention --------------------------------------------------------
+
+_FLASH_D = {torch.bfloat16: (16, 32, 64, 128),
+            torch.float32: (8, 16, 32, 64, 128)}
+
+
+def _flash_mask(tq, tk, causal, window, device):
+    """[tq, tk] bool: key visible from query (the kernels' ``visible``)."""
+    qp = torch.arange(tq, device=device)[:, None]
+    kp = torch.arange(tk, device=device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window:
+        mask = mask & (qp - kp < window)
+    return mask
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None, window=0):
+    """Plain PyTorch version of :func:`flash_attention_fwd`: one masked
+    softmax in f32 (``_reference_attention``, pallas_kernels.py l.333,
+    with the window mask), with the kernels' -1e30 masking and 1e-30
+    clamp, so a row that sees no key gives zeros."""
+    b, tq, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mask = _flash_mask(tq, k.shape[1], causal, window, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bhqk,bkhd->bqhd", p / den, v.float())
+    lse = (m + torch.log(den)).reshape(b * h, tq)
+    return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
+                              scale=None, window=0):
+    """Plain PyTorch version of :func:`flash_attention_bwd`: the kernels'
+    recompute formulas on whole matrices, in f32 — ``p = exp(s - lse)``,
+    ``dcap = rowsum(dO * O)``, ``dV = p^T dO``, ``dS = p (dO V^T - dcap)
+    scale``, ``dQ = dS K``, ``dK = dS^T Q`` (``_flash_bwd``, l.291)."""
+    b, tq, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mask = _flash_mask(tq, k.shape[1], causal, window, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, h, tq, 1)),
+                    torch.zeros_like(s))
+    dof = do.float()
+    dcap = torch.einsum("bqhd,bqhd->bhq", dof, o.float())[..., None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = p * (dp - dcap) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_flash(q, k, v, window, causal):
+    _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
+           and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:],
+           "flash_attention: q [B, Tq, H, D] and k, v [B, Tk, H, D] "
+           "needed, got %s %s %s", tuple(q.shape), tuple(k.shape),
+           tuple(v.shape))
+    _check(q.dtype in _FLASH_D and k.dtype == q.dtype and v.dtype == q.dtype,
+           "flash_attention: q, k, v must share one dtype, f32 or bf16")
+    if window < 0:
+        # a negative window would mask every key and return zeros
+        raise ValueError("flash_attention: window must be >= 0, got %d"
+                         % window)
+    if window and not causal:
+        raise ValueError("flash_attention: window>0 requires causal")
+
+
+def _flash_kernel_args(name, q, k, v, *tensors):
+    """The shape and the q/k/v strides the C entries take. q, k and v may
+    be views (e.g. into one packed qkv tensor) whose heads are D apart with
+    each head's D values contiguous; the other tensors are contiguous. The
+    bf16 kernels load rows in 16-byte pieces."""
+    b, tq, h, d = q.shape
+    _check(d in _FLASH_D[q.dtype],
+           "%s: the kernel takes head_dim in %s for %s, got %d", name,
+           _FLASH_D[q.dtype], q.dtype, d)
+    _check(b * h <= 65535, "%s: at most 65535 (batch, head) pairs", name)
+    strides = []
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        _check(t.stride(3) == 1 and t.stride(2) == d,
+               "%s: %s's heads must be %d apart with contiguous values, "
+               "got strides %s", name, nm, d, t.stride())
+        strides += [t.stride(0), t.stride(1)]
+    _contig(*tensors)
+    if q.dtype == torch.bfloat16:
+        _check(all(st % 8 == 0 for st in strides),
+               "%s: bf16 q/k/v rows must start on 16-byte boundaries", name)
+        _aligned(16, ("q", q), ("k", k), ("v", v), *tensors)
+    return (b, h, tq, k.shape[1], d) + tuple(strides)
+
+
+def flash_attention_fwd(q, k, v, *, causal=False, scale=None, window=0):
+    """Forward: ``(o [B, Tq, H, D] in q's dtype, lse [B*H, Tq] f32)``, the
+    per-row logsumexp the backward recomputes the probabilities from."""
+    _check_flash(q, k, v, window, causal)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_cuda(q, k, v):
+        return flash_attention_fwd_plain(q, k, v, causal, scale, window)
+    cfg = _flash_kernel_args("flash_attention_fwd", q, k, v)
+    b, h, tq = cfg[:3]
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(lse), *cfg, float(scale), int(causal), int(window),
+            _CODE[q.dtype])
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
+                        window=0):
+    """Backward of :func:`flash_attention_fwd`: ``(dq, dk, dv)``, in q's,
+    k's and v's dtypes. On the card, the dQ kernel (which also writes
+    ``dcap = rowsum(dO * O)``) and then the dK/dV kernel."""
+    _check_flash(q, k, v, window, causal)
+    _check(o.shape == q.shape and do.shape == q.shape
+           and lse.shape == (q.shape[0] * q.shape[2], q.shape[1]),
+           "flash_attention_bwd: o and do must be shaped like q, lse "
+           "[B*H, Tq]")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_cuda(q, k, v, o, lse, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         scale, window)
+    do = do.to(q.dtype).contiguous()
+    cfg = _flash_kernel_args("flash_attention_bwd", q, k, v, ("o", o),
+                             ("do", do), ("lse", lse)) \
+        + (float(scale), int(causal), int(window), _CODE[q.dtype])
+    dcap = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    _launch("flash_attention_dq", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(do), _ptr(lse), _ptr(dcap), _ptr(dq), *cfg)
+    _launch("flash_attention_dkv", _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+            _ptr(lse), _ptr(dcap), _ptr(dk), _ptr(dv), *cfg)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel; backward the dQ and dK/dV kernels (the JAX
+    package's ``_flash_core`` custom VJP, l.348)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = dict(causal=causal, scale=scale, window=window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.cfg)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=False, scale=None, window=0):
+    """Fused attention, differentiable. q: [B, Tq, H, D], k, v: [B, Tk,
+    H, D] (f32 or bf16); returns [B, Tq, H, D] in q's dtype.
+
+    Key ``j`` is visible from query ``i`` when ``j < Tk`` and, if
+    ``causal``, ``i >= j`` and, if ``window`` > 0 (causal only),
+    ``i - j < window``; the kernels skip whole tiles no row can see, so
+    windowed attention costs T·window, not T². f32 math inside (the bf16
+    kernels round the probabilities to bf16 for the products with V and
+    K). q, k and v may be views whose heads are D apart with contiguous
+    values (slices of a packed qkv projection): the kernels read them in
+    place; gradients come back contiguous."""
+    return _FlashAttention.apply(q, k, v, bool(causal), scale, int(window))
+
+
+# -- fused_linear -------------------------------------------------------------
+
+_ACT_CODE = {"linear": 0, "relu": 1, "sigmoid": 2, "tanh": 3}
+_ACTS = {"linear": lambda y: y, "relu": torch.relu,
+         "sigmoid": torch.sigmoid, "tanh": torch.tanh}
+# the activation's derivative from its OUTPUT (pallas_kernels.py l.717), so
+# the backward keeps no pre-activation; in f32 for the smooth ones
+_ACT_GRADS = {
+    "linear": lambda g, out: g,
+    # g where out > 0, else 0: exact in any dtype
+    "relu": lambda g, out: torch.ops.aten.threshold_backward(g, out, 0),
+    "sigmoid": lambda g, out: g.float() * out.float() * (1 - out.float()),
+    "tanh": lambda g, out: g.float() * (1 - out.float() * out.float())}
+
+
+def fused_linear_plain(x, w, b=None, act="linear", scale=None):
+    """Plain PyTorch version of :func:`fused_linear_fwd`: the f32 product,
+    then the epilogue, then the cast to x's dtype."""
+    acc = x.float() @ w.float().t()
+    if scale is not None:
+        acc = acc * scale.float()
+    if b is not None:
+        acc = acc + b.float()
+    return _ACTS[act](acc).to(x.dtype)
+
+
+def fused_linear_fwd(x, w, b=None, act="linear", scale=None):
+    """``act(scale * (x @ w^T) + b)`` in one kernel: x [M, K], w [N, K]
+    (a FullyConnected weight as stored), b and scale [N] or None; f32
+    accumulation, the result in x's dtype. ``scale`` is the folded
+    BatchNorm scale of the conv path; the LM passes none."""
+    _check(act in _ACT_CODE, "fused_linear: unknown activation %r", act)
+    _check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[1],
+           "fused_linear: x [M, K] and w [N, K] needed, got %s %s",
+           tuple(x.shape), tuple(w.shape))
+    _check(x.dtype in (torch.float32, torch.bfloat16) and w.dtype == x.dtype,
+           "fused_linear: x and w must share one dtype, f32 or bf16")
+    m, kdim = x.shape
+    n = w.shape[0]
+    for name, t in (("b", b), ("scale", scale)):
+        _check(t is None or t.shape == (n,), "fused_linear: %s must be [%d]",
+               name, n)
+    if not _on_cuda(x, w, b, scale):
+        return fused_linear_plain(x, w, b, act, scale)
+    _contig(("x", x), ("w", w))
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m:
+        bf = None if b is None else b.to(torch.float32).contiguous()
+        sf = None if scale is None else scale.to(torch.float32).contiguous()
+        _launch("fused_linear", _ptr(x), _ptr(w), _ptr(sf), _ptr(bf),
+                _ptr(out), m, n, kdim, _ACT_CODE[act], _CODE[x.dtype])
+    return out
+
+
+class _FusedLinear(torch.autograd.Function):
+    """Forward kernel; backward plain products (``_fused_linear_bwd``,
+    l.799): the activation's derivative from the output, then dx, dW and
+    db."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        out = fused_linear_fwd(x, w, b, act)
+        ctx.save_for_backward(x, w, out)
+        ctx.act = act
+        ctx.has_bias = b is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        dpre = _ACT_GRADS[ctx.act](g, out).to(x.dtype)
+        dx = dpre @ w
+        dw = dpre.t() @ x
+        db = dpre.sum(dim=0) if ctx.has_bias else None
+        return dx, dw, db, None
+
+
+def fused_linear(x, w, b=None, act="linear"):
+    """``act(x @ w^T + b)`` in one kernel, differentiable. x: [M, K], w:
+    [N, K], b: [N] or None. ``gelu`` runs the linear kernel and then
+    PyTorch's tanh-approximated gelu (its derivative needs the
+    pre-activation), as the JAX package composes it (l.828)."""
+    if act == "gelu":
+        return torch.nn.functional.gelu(_FusedLinear.apply(x, w, b, "linear"),
+                                        approximate="tanh")
+    _check(act in _ACT_CODE, "fused_linear: unknown activation %r", act)
+    return _FusedLinear.apply(x, w, b, act)

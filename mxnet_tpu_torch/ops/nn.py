@@ -50,10 +50,8 @@ class FullyConnected(OpSpec):
         x = ins[0]
         if p["flatten"]:
             x = x.reshape(x.shape[0], -1)
-        out = torch.matmul(x, ins[1].t())
-        if not p["no_bias"]:
-            out = out + ins[2]
-        return [out], []
+        # the bias rides in the product's epilogue
+        return [F.linear(x, ins[1], None if p["no_bias"] else ins[2])], []
 
 
 @register
@@ -156,6 +154,9 @@ class Embedding(OpSpec):
     def arguments(self, p):
         return ["data", "weight"]
 
+    def integer_arguments(self, p):
+        return ("data",)  # token ids — bf16 casts would corrupt >256
+
     def infer_shape(self, p, in_shapes):
         ins = list(in_shapes)
         ins[1] = shape_assign(ins[1], (p["input_dim"], p["output_dim"]),
@@ -166,4 +167,6 @@ class Embedding(OpSpec):
         return ins, [tuple(d) + (p["output_dim"],)], []
 
     def forward(self, p, ins, aux, is_train, generator):
-        return [ins[1][ins[0].long()]], []
+        # the indices are never differentiated (an integer tensor, or a
+        # float one detached first); the table's gradient scatter-adds
+        return [ins[1][ins[0].detach().long()]], []

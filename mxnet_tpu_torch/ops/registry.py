@@ -80,6 +80,13 @@ class OpSpec:
         """Auxiliary (non-differentiable, op-mutated) state names."""
         return []
 
+    def integer_arguments(self, p):
+        """Argument names whose values are INDICES (class ids, token ids).
+        Mixed-precision compute casts must skip them: bfloat16 represents
+        integers exactly only up to 256, so casting a label or token
+        tensor silently corrupts ids above that."""
+        return ()
+
     def infer_shape(self, p, in_shapes):
         """(in_shapes) -> (in_shapes, out_shapes, aux_shapes); ``None``
         entries for what cannot be inferred yet, MXNetError on

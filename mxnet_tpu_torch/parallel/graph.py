@@ -1,0 +1,81 @@
+"""Symbol graph -> a function on torch tensors.
+
+Counterpart of ``mxnet_tpu/parallel/graph.py`` (l.22-91). The reference
+executes a bound graph node by node (``graph_executor.cc:776-819``);
+here ``make_graph_fn`` returns a function that walks the graph once per
+call, eagerly, and autograd records the walk for the backward. The walk
+and the fused-kernel selection live in ``ops.fusion``. The ``Decoder``
+keeps its own walk (it swaps the attention nodes for cached variants).
+"""
+from __future__ import annotations
+
+from ..ops.fusion import FusionPlan, eval_graph
+
+__all__ = ["make_graph_fn", "integer_semantic_inputs"]
+
+# ops that forward their input VALUES unchanged (layout/flow only), so
+# integer semantics propagate backwards through them — a label reshaped
+# before reaching SoftmaxOutput is still a label
+_VALUE_PRESERVING = {"Reshape", "Flatten", "SwapAxis", "BlockGrad"}
+
+
+def integer_semantic_inputs(symbol):
+    """Names of input variables whose values are INDICES (labels, token
+    ids) in every use — mixed-precision trainers must not cast them:
+    bfloat16 spaces integers 4 apart near 1000, so a cast label or token
+    silently retargets every id above 256. A variable qualifies when
+    every consumption path, traced through value-preserving ops, ends in
+    an argument the op declares via ``OpSpec.integer_arguments``."""
+    topo = symbol._topo()
+    heads = {(id(h), i) for h, i in symbol._heads}
+    uses = {}  # id(node) -> [(consumer, argname)]
+    for n in topo:
+        if n.is_var:
+            continue
+        argnames = n.spec.arguments(n.params)
+        for (inp, _), aname in zip(n.inputs, argnames):
+            uses.setdefault(id(inp), []).append((n, aname))
+
+    int_out = {}  # id(node) -> every use of its output is an index use
+
+    def node_is_int(n):
+        if (id(n), 0) in heads:
+            return False
+        use_list = uses.get(id(n), [])
+        if not use_list:
+            return False
+        for consumer, aname in use_list:
+            if aname in consumer.spec.integer_arguments(consumer.params):
+                continue
+            if consumer.spec.name in _VALUE_PRESERVING \
+                    and int_out.get(id(consumer), False):
+                continue
+            return False
+        return True
+
+    for n in reversed(topo):
+        if not n.is_var:
+            int_out[id(n)] = node_is_int(n)
+    return {n.name for n in topo if n.is_var and node_is_int(n)}
+
+
+def make_graph_fn(symbol):
+    """Build ``fn(arg_vals, aux_vals, is_train, generator) -> (outs,
+    new_aux)``.
+
+    ``arg_vals`` is a list in ``symbol.list_arguments()`` order (the
+    topological order of variable nodes); ``aux_vals`` a list in
+    ``symbol.list_auxiliary_states()`` order; ``generator`` the
+    ``torch.Generator`` of the ops that draw at training time (dropout).
+    The ``FullyConnected -> Activation`` chains run as the
+    ``fused_linear`` kernel (``ops.fusion.FusionPlan``)."""
+    topo = symbol._topo()
+    heads = symbol._heads
+    plan = FusionPlan(topo, heads)
+
+    def fn(arg_vals, aux_vals, is_train, generator):
+        outs, new_aux, _ = eval_graph(topo, heads, arg_vals, aux_vals,
+                                      is_train, generator, plan=plan)
+        return outs, new_aux
+
+    return fn

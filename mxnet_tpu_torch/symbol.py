@@ -6,8 +6,9 @@ pure-Python DAG of ``_Node`` records. What must match the JAX package
 exactly is the user-visible contract — argument ordering (DFS), naming
 (``fc1_weight``, ``fc1_output``), composition and the JSON schema
 (nodes/arg_nodes/heads) of checkpoints — so a graph saved by either
-package loads in the other. Binding and execution are the training
-slice's; the decoder walks ``_topo()`` itself.
+package loads in the other. ``parallel.make_graph_fn`` executes a
+symbol and the decoder walks ``_topo()`` itself; binding (``Executor``)
+belongs to a later slice.
 """
 from __future__ import annotations
 

@@ -128,9 +128,10 @@ def test_cpu_tensors_take_the_plain_version():
     pos = torch.tensor([0, 5], dtype=torch.int32)
     assert torch.equal(K.paged_attention(qa, kc, kc, pos),
                        K.paged_attention_plain(qa, kc, kc, pos))
-    assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
+    assert K.launch_counts() == dict.fromkeys(K.SOURCE, 0)
     assert set(K.KERNELS) == {"paged_attention", "quant_matmul",
-                              "fused_decode_attention"}
+                              "fused_decode_attention", "flash_attention",
+                              "fused_linear"}
 
 
 def test_bf16_inputs_on_cpu():

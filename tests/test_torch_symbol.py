@@ -228,5 +228,8 @@ def test_unported_parts_raise():
     t = torch_lm(29, num_layers=1, embed_dim=16, num_heads=2)
     node = [n for n in t._topo() if not n.is_var
             and n.spec.name == "MultiHeadAttention"][0]
-    with pytest.raises(MXNetError, match="training slice"):
-        node.spec.forward(node.params, [None] * 5, [], False, None)
+    ins = [torch.zeros(1, 4, 16), torch.zeros(48, 16), torch.zeros(48),
+           torch.zeros(16, 16), torch.zeros(16)]
+    with pytest.raises(MXNetError, match="later slice"):
+        node.spec.forward(dict(node.params, impl="ring"), ins, [], False,
+                          None)
