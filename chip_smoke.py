@@ -10,15 +10,21 @@ Phases:
    into ``build/kernels/``, one process per source, all at once (timed; a
    summary of the compiler's register/spill report is printed);
 3. every kernel against its plain PyTorch version on the card, at the
-   shapes the 124M LM's serving and training paths give it and at small
-   ragged shapes, in every mode, each to a stated tolerance: the serving
-   kernels (int8/int4 weights, float/int8 KV, C = 1/5/64/256, GQA, rope
-   on/off, f32 and bf16); ``flash_attention`` forward, dQ and dK/dV
-   (B=8 T=1024 12 heads of 64 causal bf16; T=100 and T=1000, non-causal,
-   window 33, f32 and bf16, head_dim 8-128) and through
+   shapes the 124M LM's serving and training paths and ResNet-50 give it
+   and at small ragged shapes, in every mode, each to a stated tolerance:
+   the serving kernels (int8/int4 weights, float/int8 KV, C = 1/5/64/256,
+   GQA, rope on/off, f32 and bf16); ``flash_attention`` forward, dQ and
+   dK/dV (B=8 T=1024 12 heads of 64 causal bf16; T=100 and T=1000,
+   non-causal, window 33, f32 and bf16, head_dim 8-128) and through
    ``MultiHeadAttention`` with GQA, rope and a window against the host;
    ``fused_linear`` (M=8192 K=768 N=3072 bf16 relu; M=100 K=70 N=130 in
-   f32 and bf16 with every activation). Then each kernel's time (CUDA
+   f32 and bf16 with every activation, with and without the folded-BN
+   ``scale``); ``matmul_stats`` (each 1x1 conv of ResNet-50 at the main
+   path's B=256, ragged M, K and N in f32 and bf16; the column sums to a
+   stated share of their sums of magnitudes); ``fused_conv_bn_act`` (each
+   conv of ResNet-50 at B=256, small ragged convs with stride, pad,
+   dilation and a non-square kernel, relu and linear, f32 and bf16, NCHW
+   and channels-last). Then each kernel's time (CUDA
    events, median of 25 launches with the 50 MB L2 flushed before each and
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
@@ -49,7 +55,19 @@ Phases:
    (busy share, kernels by device time, trace to ``chiprun_out/``); then
    one f32 step of the same LM at B=1, T=128 from the same seeded weights
    on the card and on the host, whose parameter deltas must agree;
-6. the ``{"kernels": [...]}`` line (every C entry), the card's line, and
+6. the conv-net path: ResNet-50 (``get_resnet(1000, 50)``) trained by
+   ``ParallelTrainer(device=None)`` as ``bench.py``'s ``bench_resnet50``
+   trains it (B=256, 224 x 224, bf16 over f32 master weights, SGD lr 0.1
+   momentum 0.9 wd 1e-4, default init, a device-resident seeded batch)
+   with ``MXNET_PALLAS_CONVBN_TRAIN=1``: 3 warm-up and 12 timed steps with
+   exactly 33 ``matmul_stats`` launches per step and a falling loss, img/s,
+   ms per step, MFU, peak memory and a 2-step profile (its trace beside
+   the others); the same 12 steps with the gate unset (no launch);
+   ``trainer.forward()`` at B=256 with exactly 53 ``fused_conv_bn_act``
+   launches per forward, and timed again with no chain fused; then ResNet-50 in f32 at B=2 on the card and on
+   the host from the same weights: the eval log-probabilities and top-1,
+   and one train step's parameter deltas, must agree;
+7. the ``{"kernels": [...]}`` line (every C entry), the card's line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -179,7 +197,10 @@ def compare(name, got, want):
 # -- phase 3: kernels against their plain versions ------------------------
 
 def _rand(gen, shape, dtype=torch.float32, scale=1.0):
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    """Seeded normal values, drawn where ``gen`` lives (a generator on the
+    card draws the ResNet-50 shapes' gigabytes without the host)."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            ).to(dtype)
 
 
 def _weights(gen, f, e, bits, group, dev):
@@ -495,26 +516,244 @@ def check_flash_attention(K, dev, gen):
 
 def check_fused_linear(K, dev, gen):
     """Every activation at a ragged shape (M=100, K=70, N=130: no tile or
-    16-byte multiple) in f32 and bf16, with and without bias, then the
-    124M ffn1 shape (M=8192, K=768, N=3072, bf16, relu)."""
-    cases = [(100, 70, 130, act, dt, bias)
+    16-byte multiple) in f32 and bf16, with and without bias, with and
+    without the per-column ``scale`` (the folded BatchNorm of the conv
+    path), then the 124M ffn1 shape (M=8192, K=768, N=3072, bf16, relu)."""
+    cases = [(100, 70, 130, act, dt, bias, scale)
              for act in ("linear", "relu", "sigmoid", "tanh")
              for dt in (torch.float32, torch.bfloat16)
-             for bias in (True, False)]
-    cases += [(8192, 768, 3072, "relu", torch.bfloat16, True),
-              (33, 768, 2304, "tanh", torch.bfloat16, True)]
+             for bias in (True, False) for scale in (False, True)]
+    cases += [(8192, 768, 3072, "relu", torch.bfloat16, True, False),
+              (8192, 768, 3072, "relu", torch.bfloat16, True, True),
+              (33, 768, 2304, "tanh", torch.bfloat16, True, True)]
     worst = 0.0
-    for m, kd, n, act, dt, bias in cases:
+    for m, kd, n, act, dt, bias, scale in cases:
         x = _rand(gen, (m, kd), dt).to(dev)
         w = _rand(gen, (n, kd), dt, 1.0 / math.sqrt(kd)).to(dev)
         b = _rand(gen, (n,), dt, 0.1).to(dev) if bias else None
-        got = K.fused_linear_fwd(x, w, b, act)
-        want = K.fused_linear_plain(x, w, b, act)
+        s = (torch.rand((n,), generator=gen) + 0.5).to(dev) if scale \
+            else None
+        got = K.fused_linear_fwd(x, w, b, act, s)
+        want = K.fused_linear_plain(x, w, b, act, s)
         torch.cuda.synchronize()
-        worst = max(worst, compare("fused_linear M=%d K=%d N=%d %s %s bias=%s"
-                                   % (m, kd, n, act, dt, bias), got, want))
-    log("fused_linear: %d cases agree, max |err| %.3g" % (len(cases), worst))
+        worst = max(worst, compare(
+            "fused_linear M=%d K=%d N=%d %s %s bias=%s scale=%s"
+            % (m, kd, n, act, dt, bias, scale), got, want))
+    log("fused_linear: %d cases agree (%d with scale), max |err| %.3g"
+        % (len(cases), sum(c[-1] for c in cases), worst))
     return worst
+
+
+# -- phase 3c: the conv-net kernels against their plain versions ---------------
+
+RESNET_CLASSES, RESNET_LAYERS, RESNET_HW = 1000, 50, 224
+RESNET_B = 256                      # bench.py:115 bench_resnet50
+# matmul_stats' column sums: |kernel - plain| <= STAT_REL * sum_m |y| for
+# s1 and STAT_REL * sum_m y^2 for s2, per column. Both sum the same exact
+# f32 products (bf16 x bf16 is exact in f32) in other orders, each a tree
+# of partial sums (128-row tiles, then torch.sum): the error of such a sum
+# of M terms grows like log2(M) f32 ulps of the sum of magnitudes, ~1e-6
+# at M = 802816 (stage 1 at B=256); sqrt(M) ulps, the typical error of a
+# sum in sequence, is 5.3e-5
+STAT_REL = 1e-4
+
+
+def resnet_convs(batch):
+    """Every conv -> BatchNorm chain of ResNet-50 at ``batch`` x 3 x 224 x
+    224, in the plan's order: {name, x, w (shapes), stride, pad, dilate,
+    act, pointwise}, from the port's FusionPlan and shape inference."""
+    from mxnet_tpu_torch.models import get_resnet
+    from mxnet_tpu_torch.ops.fusion import FusionPlan
+    sym = get_resnet(RESNET_CLASSES, RESNET_LAYERS)
+    internals = sym.get_internals()
+    _, outs, _ = internals.infer_shape(
+        data=(batch, 3, RESNET_HW, RESNET_HW), softmax_label=(batch,))
+    shape_of = {(id(n), i): s for (n, i), s in zip(internals._heads, outs)}
+    convs = []
+    plan = FusionPlan(sym._topo(), sym._heads)
+    for kind, nodes in plan.chains.values():
+        conv = nodes[0]
+        p = conv.params
+        (xn, xi), (wn, _) = conv.inputs[:2]
+        convs.append(dict(
+            name=conv.name, x=shape_of[(id(xn), xi)],
+            w=shape_of[(id(wn), 0)], stride=tuple(p["stride"]),
+            pad=tuple(p["pad"]), dilate=tuple(p["dilate"]),
+            act="relu" if kind == "conv_bn_relu" else "linear",
+            pointwise=FusionPlan._conv_is_pointwise(p)))
+    return convs
+
+
+def _stats_err(name, got, want, scale):
+    """Max |got - want| / scale per column, raising past STAT_REL."""
+    rel = ((got.float() - want.float()).abs() / scale.clamp_min(1e-30))
+    if not torch.isfinite(got).all() or (rel > STAT_REL).any():
+        raise AssertionError(
+            "%s: kernel disagrees with the plain version: %.3g of the sum "
+            "of magnitudes (gate %g)" % (name, rel.max().item(), STAT_REL))
+    return rel.max().item()
+
+
+def check_matmul_stats(K, dev, gen, dgen):
+    """Each distinct pointwise conv of ResNet-50 at the main path's B=256
+    in bf16 (M = 256 H W, K and N its channels; inputs drawn on the card
+    from ``dgen``), then ragged shapes: (130, 70, 36) in f32 and
+    bf16, M = 1000 (not a multiple of the 128-row tile), N = 130 past one
+    column tile, K = 33 (the guarded scalar loads). y to the dtype's
+    tolerance; s1 and s2 per column to STAT_REL of the sums of |y| and
+    y^2. Returns the largest |y| error."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = sorted({(c["x"][0] * c["x"][2] * c["x"][3], c["w"][1], c["w"][0])
+                    for c in resnet_convs(RESNET_B) if c["pointwise"]})
+    cases = [(m, kd, n, bf, dgen) for m, kd, n in cases]
+    cases += [(m, kd, n, dt, gen) for m, kd, n, dt in (
+        (130, 70, 36, f32), (130, 70, 36, bf), (1000, 64, 64, bf),
+        (1000, 64, 64, f32), (257, 24, 130, bf), (77, 33, 20, bf),
+        (77, 33, 20, f32))]
+    worst, worst_stat = 0.0, 0.0
+    for m, kd, n, dt, g in cases:
+        x = _rand(g, (m, kd), dt).to(dev)
+        w = _rand(g, (n, kd), dt, 1.0 / math.sqrt(kd)).to(dev)
+        y, s1, s2 = K.matmul_stats_fwd(x, w)
+        yp, s1p, s2p = K.matmul_stats_plain(x, w)
+        mag = (x.float() @ w.float().t()).abs().sum(dim=0)
+        torch.cuda.synchronize()
+        tag = "M=%d K=%d N=%d %s" % (m, kd, n, dt)
+        worst = max(worst, compare("matmul_stats y " + tag, y, yp))
+        worst_stat = max(worst_stat,
+                         _stats_err("matmul_stats s1 " + tag, s1, s1p, mag),
+                         _stats_err("matmul_stats s2 " + tag, s2, s2p, s2p))
+        del x, w, y, s1, s2, yp, s1p, s2p, mag
+    log("matmul_stats: %d cases agree (%d ResNet-50 1x1 shapes at B=%d), "
+        "max |y err| %.3g, statistics within %.3g of their sums of "
+        "magnitudes (gate %g)" % (len(cases), len(cases) - 7, RESNET_B,
+                                  worst, worst_stat, STAT_REL))
+    return worst
+
+
+def _conv_inputs(gen, xs, ws, dt, dev):
+    fan_in = ws[1] * ws[2] * ws[3]
+    return (_rand(gen, xs, dt).to(dev),
+            _rand(gen, ws, dt, 1.0 / math.sqrt(fan_in)).to(dev),
+            (torch.rand((ws[0],), generator=gen, device=gen.device)
+             + 0.5).to(dev),
+            _rand(gen, (ws[0],), scale=0.1).to(dev))
+
+
+def check_fused_conv_bn_act(K, dev, gen, dgen):
+    """Each distinct conv of ResNet-50 at the main path's B=256 in bf16
+    with its chain's activation, on the channels-last x the previous
+    fused conv leaves (the stem's input is NCHW, and its K = 147 takes the
+    guarded scalar loads; inputs drawn on the card from ``dgen``), then
+    small ragged cases in f32 and bf16, relu and linear: 3x3 pad 1, 7x7/2
+    pad 3, a non-square kernel with stride (2, 1), pad (1, 2) and dilation
+    (2, 1), dilation 2, 1x1 stride 1 and stride 2, each from an NCHW and a
+    channels-last x. Against the plain version (F.conv2d in f32, TF32
+    off), to the dtype's tolerance."""
+    bf, f32 = torch.bfloat16, torch.float32
+    seen, cases = set(), []
+    for c in resnet_convs(RESNET_B):
+        key = (c["x"], c["w"], c["stride"], c["pad"], c["dilate"], c["act"])
+        if key not in seen:
+            seen.add(key)
+            cases.append(key + (bf, dgen, c["x"][1] > 3))
+    n_resnet = len(cases)
+    for dt in (f32, bf):
+        for ws, st, pd, dl, act in (
+                ((9, 5, 3, 3), (1, 1), (1, 1), (1, 1), "relu"),
+                ((9, 5, 7, 7), (2, 2), (3, 3), (1, 1), "relu"),
+                ((9, 5, 3, 2), (2, 1), (1, 2), (2, 1), "linear"),
+                ((9, 5, 3, 3), (1, 1), (2, 2), (2, 2), "linear"),
+                ((9, 5, 1, 1), (1, 1), (0, 0), (1, 1), "relu"),
+                ((9, 5, 1, 1), (2, 2), (0, 0), (1, 1), "linear")):
+            for cl in (False, True):
+                cases.append(((2, 5, 13, 10), ws, st, pd, dl, act, dt, gen,
+                              cl))
+    worst = 0.0
+    for xs, ws, st, pd, dl, act, dt, g, cl in cases:
+        x, w, s, b = _conv_inputs(g, xs, ws, dt, dev)
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        kw = dict(stride=st, pad=pd, dilate=dl, act=act)
+        got = K.fused_conv_bn_act(x, w, s, b, **kw)
+        want = K.fused_conv_bn_act_plain(x, w, s, b, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, compare("fused_conv_bn_act x=%s%s w=%s %s %s" % (
+            xs, " channels-last" if cl else "", ws, kw, dt), got, want))
+        del x, w, s, b, got, want
+    log("fused_conv_bn_act: %d cases agree (%d ResNet-50 conv shapes at "
+        "B=%d), max |err| %.3g" % (len(cases), n_resnet, RESNET_B, worst))
+    return worst
+
+
+def time_cnn_kernels(K, dev, gen, worst):
+    """The conv-net kernels at ResNet-50's B=256 shapes (inputs drawn on
+    the card from ``gen``; the checks above held both at these shapes):
+    matmul_stats at stage 1's `_a` conv (M = 256*56*56, K = 256, N = 64),
+    fused_conv_bn_act at stage 1's 3x3 conv (x 256x64x56x56 channels-last,
+    as the main path gives it, relu), whose time includes the im2col
+    gather (the GEMM alone is printed beside it)."""
+    import torch.nn.functional as F
+    timer = Timer(dev)
+    bf = torch.bfloat16
+    entries = {}
+    m, kd, n = RESNET_B * 56 * 56, 256, 64
+    x = _rand(gen, (m, kd), bf).to(dev)
+    w = _rand(gen, (n, kd), bf, 1.0 / math.sqrt(kd)).to(dev)
+    y = torch.empty((m, n), dtype=bf, device=dev)
+
+    def lib_stats():
+        out = torch.matmul(x, w.t())
+        return out.sum(dim=0, dtype=torch.float32), \
+            out.float().square().sum(dim=0)
+
+    kms = timer(lambda: K.matmul_stats_fwd(x, w))
+    pms = timer(lambda: K.matmul_stats_plain(x, w))
+    lms = timer(lib_stats)
+    bms, by = bound_ms(nbytes(x, w, y) + 2 * 4 * n, 2 * m * n * kd + 3 * m * n,
+                       bf)
+    shape = "stage1 _a M=%d K=%d N=%d bf16" % (m, kd, n)
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(matmul + two column sums)  bound %.4f ms (%s)" % (
+            "matmul_stats", shape, kms, pms, lms, bms, by))
+    entries["matmul_stats"] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
+                               "bound_ms": bms, "bound_by": by,
+                               "shape": shape}
+    del x, w, y
+
+    xs, ws = (RESNET_B, 64, 56, 56), (64, 64, 3, 3)
+    x, w, s, b = _conv_inputs(gen, xs, ws, bf, dev)
+    x = x.contiguous(memory_format=torch.channels_last)
+    kw = dict(stride=(1, 1), pad=(1, 1), dilate=(1, 1), act="relu")
+    out = torch.empty((RESNET_B, 64, 56, 56), dtype=bf, device=dev)
+    wf = (w.float() * s[:, None, None, None]).to(bf)   # the folded weight
+    bb = b.to(bf)
+    kms = timer(lambda: K.fused_conv_bn_act(x, w, s, b, **kw))
+    pms = timer(lambda: K.fused_conv_bn_act_plain(x, w, s, b, **kw))
+    lms = timer(lambda: torch.relu(F.conv2d(x, wf, bb, padding=1)))
+    xm, wm, _, _ = K._im2col(x, w, (1, 1), (1, 1), (1, 1))
+    om = torch.empty((xm.shape[0], 64), dtype=bf, device=dev)
+    P = K._ptr
+
+    def gemm_only():
+        K._launch("fused_conv_bn_act", P(xm), P(wm), P(s), P(b), P(om),
+                  xm.shape[0], 64, xm.shape[1], 1, K._CODE[bf])
+
+    gms = timer(gemm_only)
+    flops = 2 * xm.shape[0] * 64 * xm.shape[1]
+    bms, by = bound_ms(nbytes(x, w, s, b, out), flops, bf)
+    shape = "stage1 3x3 x=256x64x56x56 channels-last bf16 relu"
+    log("time %-22s %-34s kernel %.4f ms (of which the GEMM %.4f ms, the "
+        "im2col gather the rest)  plain %.4f ms  library %.4f ms (F.conv2d "
+        "with the scale folded + relu)  bound %.4f ms (%s)" % (
+            "fused_conv_bn_act", shape, kms, gms, pms, lms, bms, by))
+    entries["fused_conv_bn_act"] = {"ms": kms, "plain_ms": pms,
+                                    "library_ms": lms, "bound_ms": bms,
+                                    "bound_by": by, "shape": shape,
+                                    "gemm_ms": gms}
+    for name, r in entries.items():
+        r["max_abs_err"] = worst[name]
+    return entries
 
 
 def check_mha_gqa(dev):
@@ -1043,19 +1282,23 @@ def train_main_path(K, dev):
     return launches
 
 
-def profile_train(trainer, batch, steps=2):
-    """Where a train step's time goes: ``steps`` steps under
-    torch.profiler. Prints the wall and card kernel time per step, the
-    card's busy share (kernel time / wall time), and the kernels by device
-    time; the trace goes to chiprun_out/."""
+def profile_train(trainer, batch, steps=2, trace="train_trace.json",
+                  what="train", call=None):
+    """Where a train step's time goes: ``steps`` calls of ``call`` (a
+    train step by default) under torch.profiler. Prints the wall and card
+    kernel time per step, the card's busy share (kernel time / wall time),
+    and the kernels by device time; the trace is written beside the other
+    traces unless ``trace`` is None. Returns (wall ms, kernel ms, busy
+    share) per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    call = call or (lambda: trainer.step(batch))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.step(batch)
+            call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -1063,16 +1306,20 @@ def profile_train(trainer, batch, steps=2):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
-    log("train profile: %d steps; wall %.3f ms per step, card kernels %.3f "
+    log("%s profile: %d steps; wall %.3f ms per step, card kernels %.3f "
         "ms per step, busy share %.3f, idle share %.3f" % (
-            steps, wall * 1e3 / steps, busy_us / 1e3 / steps,
+            what, steps, wall * 1e3 / steps, busy_us / 1e3 / steps,
             busy_us / 1e6 / wall, 1.0 - busy_us / 1e6 / wall))
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
         log("  %-60s %8.3f ms per step  %5d calls" % (
             key[:60], us / 1e3 / steps, n))
+    result = (wall * 1e3 / steps, busy_us / 1e3 / steps, busy_us / 1e6 / wall)
+    if trace is None:
+        return result
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "train_trace.json"))
+    prof.export_chrome_trace(os.path.join(out, trace))
+    return result
 
 
 def check_train_against_host(dev, b=1, t=128):
@@ -1111,6 +1358,299 @@ def check_train_against_host(dev, b=1, t=128):
         "%.3g of its largest delta (gate %g)" % (
             b, t, perr, PROB_REL, len(rows), rows[0][2], rows[0][0],
             DELTA_REL, worst_elem[2], worst_elem[1], ELEM_REL))
+
+
+# -- phase 6: the conv-net path: ResNet-50 -------------------------------------
+
+RESNET_FLOPS_PER_IMG = 3 * 4.1e9    # bench.py:39, forward + backward
+RESNET_CHAINS, RESNET_POINTWISE = 53, 33
+GATE = "MXNET_PALLAS_CONVBN_TRAIN"
+# card vs host, f32, from the same weights: log-probabilities of the eval
+# forward within LOGP_ATOL (53 convs summed in other orders, the card's
+# fused_conv_bn_act against F.conv2d on the host); one train step's
+# softmax output and parameter deltas within the LM check's gates
+# (PROB_REL, DELTA_REL, ELEM_REL: the ReLU kink, above)
+LOGP_ATOL = 1e-3
+
+
+def _resnet_trainer(dev, b, compute_dtype):
+    from mxnet_tpu_torch.models import get_resnet
+    from mxnet_tpu_torch.parallel import ParallelTrainer
+    return ParallelTrainer(
+        get_resnet(RESNET_CLASSES, RESNET_LAYERS),
+        {"data": (b, 3, RESNET_HW, RESNET_HW), "softmax_label": (b,)},
+        optimizer="sgd", optimizer_params={"learning_rate": 0.1,
+                                           "momentum": 0.9, "wd": 1e-4},
+        compute_dtype=compute_dtype, seed=0, device=dev)
+
+
+def _resnet_batch(seed, b, dev=None):
+    """Images uniform in [0, 1) and integer labels from one seed (as
+    bench.py makes them), on ``dev`` when given (a device-resident batch,
+    as bench.py times it)."""
+    rs = np.random.RandomState(seed)
+    batch = {"data": rs.rand(b, 3, RESNET_HW, RESNET_HW).astype(np.float32),
+             "softmax_label": rs.randint(0, RESNET_CLASSES, (b,)
+                                         ).astype(np.int32)}
+    if dev is not None:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    return batch
+
+
+def _resnet_scaled_params(seed):
+    """Fan-in scaled weights, gamma near 1 but near 0.2 at the end of each
+    residual branch (so the residual stream stays O(1) through 16 units
+    and the logits O(1): log-probabilities are then comparable and the
+    top-1 far from ties), nonzero beta and moving statistics (so the eval
+    fold does real work)."""
+    from mxnet_tpu_torch.models import get_resnet
+    sym = get_resnet(RESNET_CLASSES, RESNET_LAYERS)
+    shapes = {"data": (1, 3, RESNET_HW, RESNET_HW), "softmax_label": (1,)}
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    rng = np.random.RandomState(seed)
+    args = {}
+    for n, sh in zip(sym.list_arguments(), arg_shapes):
+        if n in shapes:
+            continue
+        if n.endswith("_weight"):
+            v = rng.randn(*sh) * np.sqrt(2.0 / np.prod(sh[1:]))
+        elif n.endswith("_gamma"):
+            v = (0.2 if n.endswith("_c_bn_gamma") else 1.0) \
+                * (1.0 + 0.1 * rng.randn(*sh))
+        else:
+            v = 0.1 * rng.randn(*sh)
+        args[n] = v.astype(np.float32)
+    aux = {n: (0.1 * rng.randn(*sh) if n.endswith("mean")
+               else rng.uniform(0.5, 1.5, sh)).astype(np.float32)
+           for n, sh in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def _resnet_loss(outs, label):
+    p = outs[0].float()
+    return -torch.log(p.gather(1, label[:, None]).clamp_min(1e-30)
+                      ).mean().item()
+
+
+def _resnet_steps(K, trainer, batch, label, losses, steps):
+    """``steps`` timed train steps with the launch counters zeroed just
+    before and read just after: (seconds, host seconds, launches, peak
+    bytes)."""
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs, queued = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        outs = trainer.step(batch)
+        queued.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(_resnet_loss(outs, label))
+    return secs, queued, K.launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def _report_resnet(what, b, secs, queued, peak, busy):
+    ips = [b / t for t in secs]
+    med = statistics.median(ips)
+    log("%s: %d timed steps at B=%d; img/s median %.1f (min %.1f, max "
+        "%.1f); ms per step median %.3f (min %.3f, max %.3f); MFU %.4f "
+        "(%.3g FLOP per image, bench.py:39, over 989 TFLOP/s); step() "
+        "returns after %.3f ms (median); busy share %.3f (profiled); peak "
+        "memory %.1f MB; %s" % (
+            what, len(secs), b, med, min(ips), max(ips),
+            statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
+            med * RESNET_FLOPS_PER_IMG / 989e12, RESNET_FLOPS_PER_IMG,
+            statistics.median(queued) * 1e3, busy, peak / 2**20,
+            card_line()))
+
+
+def train_resnet(K, dev):
+    """ResNet-50 trained by ParallelTrainer(device=None) as bench.py:115-124
+    trains it (B=256, 224 x 224, bf16 over f32 master weights, SGD lr 0.1
+    momentum 0.9 wd 1e-4, default init) with MXNET_PALLAS_CONVBN_TRAIN=1
+    set before the trainer is built: WARM_STEPS steps, then TIMED_STEPS
+    with exactly RESNET_POINTWISE matmul_stats launches per step and a
+    falling loss, a 2-step profile; then the same TIMED_STEPS with the
+    gate unset (no launch: the unfused ops). Returns the gate-on launch
+    counts."""
+    os.environ[GATE] = "1"
+    trainer = _resnet_trainer(None, RESNET_B, "bfloat16").init_params()
+    if trainer.device != dev:
+        raise AssertionError("device=None resolved to %s" % trainer.device)
+    batch = _resnet_batch(0, RESNET_B, dev)
+    label = batch["softmax_label"].long()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        losses.append(_resnet_loss(trainer.step(batch), label))
+    torch.cuda.synchronize()
+    log("resnet train: ResNet-50, B=%d 3x%dx%d bf16, SGD lr 0.1 momentum "
+        "0.9 wd 1e-4, %s=1; %d warm-up steps in %.1f s" % (
+            RESNET_B, RESNET_HW, RESNET_HW, GATE, WARM_STEPS,
+            time.perf_counter() - t0))
+    secs, queued, launches, peak = _resnet_steps(
+        K, trainer, batch, label, losses, TIMED_STEPS)
+    want = dict.fromkeys(launches, 0)
+    want["matmul_stats"] = RESNET_POINTWISE * TIMED_STEPS
+    if launches != want:
+        raise AssertionError("resnet train launch counts %r, the main path "
+                             "wants %r" % (launches, want))
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0] - 0.01:
+        raise AssertionError("the ResNet-50 loss on the repeated batch did "
+                             "not fall: %r" % losses)
+    _, _, busy = profile_train(trainer, batch, trace="resnet_train_trace.json",
+                               what="resnet train (%s=1)" % GATE)
+    _report_resnet("resnet train (%s=1)" % GATE, RESNET_B, secs, queued,
+                   peak, busy)
+    log("resnet train: loss over the %d steps %s" % (
+        len(losses), " ".join("%.4f" % v for v in losses)))
+    log("resnet train launches: %s" % json.dumps(launches))
+
+    del os.environ[GATE]
+    trainer.step(batch)                 # the unfused convs' first calls
+    torch.cuda.synchronize()
+    secs, queued, off, peak = _resnet_steps(K, trainer, batch, label, [],
+                                            TIMED_STEPS)
+    if any(off.values()):
+        raise AssertionError("with %s unset the step launched %r" % (
+            GATE, off))
+    _, _, busy = profile_train(trainer, batch, trace=None,
+                               what="resnet train (%s unset)" % GATE)
+    _report_resnet("resnet train (%s unset)" % GATE, RESNET_B, secs, queued,
+                   peak, busy)
+    return {"matmul_stats": launches["matmul_stats"]}
+
+
+def eval_resnet(K, dev):
+    """ResNet-50's inference forward, ``trainer.forward()`` at B=256 bf16,
+    from fan-in scaled weights and nonzero moving statistics: 2 warm-up
+    forwards, then TIMED_STEPS with exactly RESNET_CHAINS
+    fused_conv_bn_act launches each; finite probabilities that sum to 1.
+    Returns the launch counts."""
+    trainer = _resnet_trainer(None, RESNET_B, "bfloat16")
+    trainer.init_params(*_resnet_scaled_params(1))
+    batch = _resnet_batch(2, RESNET_B, dev)
+    for _ in range(2):
+        trainer.forward(batch)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs, outs = [], None
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        outs = trainer.forward(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want["fused_conv_bn_act"] = RESNET_CHAINS * TIMED_STEPS
+    if launches != want:
+        raise AssertionError("resnet eval launch counts %r, the main path "
+                             "wants %r" % (launches, want))
+    p = outs[0].float()
+    if p.shape != (RESNET_B, RESNET_CLASSES) or not torch.isfinite(p).all() \
+            or (p.sum(dim=1) - 1).abs().max().item() > 1e-2:
+        raise AssertionError("resnet eval: the probabilities are not finite "
+                             "rows of %d summing to 1" % RESNET_CLASSES)
+    _, _, busy = profile_train(trainer, batch, trace=None,
+                               what="resnet eval",
+                               call=lambda: trainer.forward(batch))
+    ips = [RESNET_B / t for t in secs]
+    log("resnet eval: %d forwards at B=%d bf16; img/s median %.1f (min %.1f, "
+        "max %.1f); ms per forward median %.3f; busy share %.3f (profiled); "
+        "peak memory %.1f MB; %d distinct top-1 classes; %s" % (
+            TIMED_STEPS, RESNET_B, statistics.median(ips), min(ips),
+            max(ips), statistics.median(secs) * 1e3, busy, peak / 2**20,
+            len(set(p.argmax(dim=1).tolist())), card_line()))
+    log("resnet eval launches: %s" % json.dumps(launches))
+
+    # the same forwards with no chain fused (F.conv2d, BatchNorm and relu
+    # as separate ops, no kernel of the port): what the fold costs or
+    # saves. The moving statistics go in as bf16, since BatchNorm's output
+    # takes the wider of its input's and theirs (as in the JAX package),
+    # and the next conv wants bf16
+    from mxnet_tpu_torch.ops.fusion import eval_graph
+    topo, heads = trainer.symbol._topo(), trainer.symbol._heads
+    fused_fn = trainer._graph_fn
+    trainer._graph_fn = lambda a, x, t, g: eval_graph(
+        topo, heads, a, [v.to(torch.bfloat16) for v in x], t, g)[:2]
+    for _ in range(2):
+        trainer.forward(batch)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    usecs = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        uouts = trainer.forward(batch)
+        torch.cuda.synchronize()
+        usecs.append(time.perf_counter() - t0)
+    trainer._graph_fn = fused_fn
+    if any(K.launch_counts().values()):
+        raise AssertionError("the unfused forward launched %r"
+                             % K.launch_counts())
+    q = uouts[0].float()
+    log("resnet eval unfused (no chain fused): %d forwards at B=%d bf16; "
+        "ms per forward median %.3f (min %.3f, max %.3f) against %.3f "
+        "fused; probabilities max |fused - unfused| %.3g, top-1 equal for "
+        "%d of %d; %s" % (
+            TIMED_STEPS, RESNET_B, statistics.median(usecs) * 1e3,
+            min(usecs) * 1e3, max(usecs) * 1e3, statistics.median(secs) * 1e3,
+            (p - q).abs().max().item(),
+            int((p.argmax(dim=1) == q.argmax(dim=1)).sum()), RESNET_B,
+            card_line()))
+    return {"fused_conv_bn_act": launches["fused_conv_bn_act"]}
+
+
+def check_resnet_against_host(dev, b=2):
+    """ResNet-50 in f32 at B=2 from the same fan-in scaled weights on the
+    card (the kernels) and on the host (their plain versions), with
+    MXNET_PALLAS_CONVBN_TRAIN=1: the eval forward's log-probabilities
+    within LOGP_ATOL and the same top-1; then one train step's softmax
+    output within PROB_REL and each parameter's delta within DELTA_REL
+    (norm) and ELEM_REL (largest element)."""
+    os.environ[GATE] = "1"
+    args, aux = _resnet_scaled_params(3)
+    batch = _resnet_batch(4, b)
+    res = {}
+    for where in (dev, "cpu"):
+        tr = _resnet_trainer(where, b, None)
+        tr.init_params(args, aux)
+        logp = torch.log(tr.forward(batch)[0].cpu())
+        before = {n: v.clone() for n, v in tr.params.items()}
+        probs = tr.step(batch)[0].cpu()
+        res[str(where)] = (logp, probs, {n: (tr.params[n] - before[n]).cpu()
+                                         for n in before})
+    del os.environ[GATE]
+    (lc, pc, card), (lh, ph, host) = res[str(dev)], res["cpu"]
+    lerr = (lc - lh).abs().max().item()
+    top = lh.topk(2, dim=1).values
+    gap = (top[:, 0] - top[:, 1]).min().item()
+    same = torch.equal(lc.argmax(dim=1), lh.argmax(dim=1))
+    perr = (pc - ph).abs().max().item() / ph.abs().max().item()
+    rows = sorted((((card[n] - dh).norm() / dh.norm()).item(),
+                   ((card[n] - dh).abs().max() / dh.abs().max()).item(), n)
+                  for n, dh in host.items())[::-1]
+    # written so that a NaN fails every gate
+    if not (lerr <= LOGP_ATOL and same and perr <= PROB_REL) \
+            or not all(r[0] <= DELTA_REL and r[1] <= ELEM_REL for r in rows):
+        raise AssertionError(
+            "resnet card vs host: eval log-probabilities max |err| %.3g (gate "
+            "%g), top-1 equal %s; train softmax %.3g of its max (gate %g); "
+            "worst deltas (norm, largest element) %s (gates %g, %g)" % (
+                lerr, LOGP_ATOL, same, perr, PROB_REL,
+                ["%s %.3g %.3g" % (n, f, e) for f, e, n in rows[:5]],
+                DELTA_REL, ELEM_REL))
+    worst_elem = max(rows, key=lambda r: r[1])
+    log("resnet card vs host: ResNet-50 f32 at B=%d, %s=1; eval "
+        "log-probabilities max |err| %.3g (gate %g), top-1 equal (smallest "
+        "top-2 gap %.3g); one train step: softmax output %.3g of its max "
+        "(gate %g), %d parameter deltas agree, worst in norm %s %.3g (gate "
+        "%g), worst element %s %.3g (gate %g)" % (
+            b, GATE, lerr, LOGP_ATOL, gap, perr, PROB_REL, len(rows),
+            rows[0][2], rows[0][0], DELTA_REL, worst_elem[2], worst_elem[1],
+            ELEM_REL))
 
 
 # -- main -------------------------------------------------------------------
@@ -1155,21 +1695,30 @@ def main():
                  K, dev, gen)}
     worst.update(check_flash_attention(K, dev, gen))
     worst["fused_linear"] = check_fused_linear(K, dev, gen)
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    worst["matmul_stats"] = check_matmul_stats(K, dev, gen, dgen)
+    worst["fused_conv_bn_act"] = check_fused_conv_bn_act(K, dev, gen, dgen)
     check_mha_gqa(dev)
     timed = time_kernels(K, dev, gen, worst)
     timed.update(time_train_kernels(K, dev, gen, worst))
+    timed.update(time_cnn_kernels(K, dev, dgen, worst))
     launches = serve_main_path(K, dev)
     check_small_against_host(dev)
     launches.update({e: n for e, n in train_main_path(K, dev).items()
                      if e in TRAIN_ENTRIES})
     check_train_against_host(dev)
+    launches.update(train_resnet(K, dev))
+    launches.update(eval_resnet(K, dev))
+    check_resnet_against_host(dev)
     replaces = {
         "paged_attention": 1115, "quant_matmul": 1259,
         "fused_decode_attention": 1389,
         "flash_attention_fwd": 107,     # _attn_fwd_kernel
         "flash_attention_dq": 200,      # _attn_dq_kernel
         "flash_attention_dkv": 241,     # _attn_dkv_kernel
-        "fused_linear": 725}            # _gemm_epi_kernel
+        "fused_linear": 725,            # _gemm_epi_kernel
+        "fused_conv_bn_act": 838,
+        "matmul_stats": 876}            # _gemm_stats_kernel
     missing = [e for e in K.SOURCE if not launches[e]]
     if missing:
         raise AssertionError("the main paths never launched %s" % missing)

@@ -19,6 +19,13 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
 * :func:`fused_linear` (l.813): ``act(x @ w^T + b)`` with the epilogue on
   the f32 accumulator, differentiable (the backward is plain products, as
   the JAX package keeps it outside Pallas).
+* :func:`fused_conv_bn_act` (l.838): ``act(scale_c * conv(x, w) + bias_c)``,
+  the eval-time conv -> BatchNorm -> act chain, as im2col and
+  ``fused_linear``'s GEMM with the folded BatchNorm in its epilogue.
+* :func:`matmul_stats` (l.969): ``(x @ w^T, sum_rows y, sum_rows y^2)``
+  with the statistics taken from the f32 accumulator, differentiable (the
+  backward folds the statistics' cotangents into the output's and makes
+  two plain products).
 
 The kernels live in ``csrc/*.cu`` (CUDA C++ for ``sm_90a``). Each source
 is compiled by ``nvcc`` into its own shared library with a plain C
@@ -51,6 +58,8 @@ from ..base import MXNetError
 
 __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
            "fused_decode_attention", "flash_attention", "fused_linear",
+           "fused_conv_bn_act", "fused_conv_bn_act_plain", "matmul_stats",
+           "matmul_stats_fwd", "matmul_stats_plain",
            "paged_attention_plain", "quant_matmul_plain",
            "fused_decode_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_fwd_plain",
@@ -60,12 +69,12 @@ __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
 
 # the sources build() compiles
 KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
-           "flash_attention", "fused_linear")
+           "flash_attention", "fused_linear", "matmul_stats")
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "gemm.cuh")
 
 _LIBS = {}
 
@@ -171,7 +180,8 @@ ENTRIES = {
     "fused_decode_attention": ("fused_decode_attention",),
     "flash_attention": ("flash_attention_fwd", "flash_attention_dq",
                         "flash_attention_dkv"),
-    "fused_linear": ("fused_linear",),
+    "fused_linear": ("fused_linear", "fused_conv_bn_act"),
+    "matmul_stats": ("matmul_stats",),
 }
 SOURCE = {e: src for src, es in ENTRIES.items() for e in es}
 _ARGTYPES = {
@@ -199,6 +209,10 @@ _ARGTYPES = {
     + [_F, _I, _I, _I, _P],
     # x, w, scale, bias, out, M, N, K, act, dtype, stream
     "fused_linear": [_P] * 5 + [_I] * 5 + [_P],
+    # patches, w, scale, bias, out, M, N, K, act, dtype, stream
+    "fused_conv_bn_act": [_P] * 5 + [_I] * 5 + [_P],
+    # x, w, y, s1 partials, s2 partials, M, N, K, dtype, stream
+    "matmul_stats": [_P] * 5 + [_I] * 4 + [_P],
 }
 _LAUNCHES = dict.fromkeys(SOURCE, 0)
 
@@ -876,3 +890,164 @@ def fused_linear(x, w, b=None, act="linear"):
                                         approximate="tanh")
     _check(act in _ACT_CODE, "fused_linear: unknown activation %r", act)
     return _FusedLinear.apply(x, w, b, act)
+
+
+# -- fused_conv_bn_act --------------------------------------------------------
+
+def _im2col(x, w, stride, pad, dilate):
+    """The conv as the operands of one GEMM: ``(patches, wm, OH, OW)``,
+    the patches a contiguous ``[N*OH*OW, C*kh*kw]`` matrix and ``wm`` the
+    weight ``[O, C*kh*kw]`` with its columns in the same order
+    (``conv_general_dilated_patches``, l.855-861). The patches are a
+    strided view ``[N, OH, OW, ., ., .]`` of the (padded) input, gathered
+    by one copy. Their column order follows x's memory format, so that
+    the gather reads and writes runs of contiguous values: (kh, kw, c)
+    for a channels-last x (as the previous fused conv leaves it; the
+    weight is permuted to match, a small copy), else (c, kh, kw), the
+    order of ``w.reshape(O, -1)``. A 1x1 stride-1 unpadded conv needs
+    only the NHWC view of x (free when x is channels-last)."""
+    nb, c, h, wd = x.shape
+    nf, _, kh, kw = w.shape
+    (sh, sw), (ph, pw), (dh, dw) = stride, pad, dilate
+    oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    ow = (wd + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    _check(oh > 0 and ow > 0, "fused_conv_bn_act: kernel exceeds the input")
+    if (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0):
+        return x.permute(0, 2, 3, 1).reshape(-1, c), w.reshape(nf, c), oh, ow
+    if ph or pw:
+        x = torch.nn.functional.pad(x, (pw, pw, ph, ph))
+    sn, sc, sy, sx = x.stride()
+    rows = (nb, oh, ow), (sn, sy * sh, sx * sw)
+    if x.is_contiguous(memory_format=torch.channels_last) \
+            and not x.is_contiguous():
+        cols = x.as_strided(rows[0] + (kh, kw, c),
+                            rows[1] + (sy * dh, sx * dw, sc),
+                            x.storage_offset())
+        wm = w.permute(0, 2, 3, 1).reshape(nf, -1)
+    else:
+        cols = x.as_strided(rows[0] + (c, kh, kw),
+                            rows[1] + (sc, sy * dh, sx * dw),
+                            x.storage_offset())
+        wm = w.reshape(nf, -1)
+    return cols.contiguous().view(-1, c * kh * kw), wm, oh, ow
+
+
+def fused_conv_bn_act_plain(x, w, scale, bias, stride=(1, 1), pad=(0, 0),
+                            dilate=(1, 1), act="relu"):
+    """Plain PyTorch version of :func:`fused_conv_bn_act`: ``F.conv2d`` in
+    f32, then the epilogue, then the cast to x's dtype."""
+    acc = torch.nn.functional.conv2d(x.float(), w.float(), stride=stride,
+                                     padding=pad, dilation=dilate)
+    acc = acc * scale.float()[:, None, None] + bias.float()[:, None, None]
+    return _ACTS[act](acc).to(x.dtype)
+
+
+def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
+                      dilate=(1, 1), act="relu"):
+    """``act(scale_c * conv(x, w) + bias_c)`` in one GEMM kernel: the
+    eval-time conv -> BatchNorm -> act chain with the moving statistics
+    (and any conv bias) folded into ``scale``/``bias`` [O].
+
+    x [N, C, H, W], w [O, C, kh, kw] (one group), f32 or bf16; returns
+    [N, O, OH, OW] in x's dtype, as the NCHW view of the kernel's
+    ``[N*OH*OW, O]`` output (channels-last in memory). The patches are
+    made outside the kernel (:func:`_im2col`), as the JAX package makes
+    them in XLA. Forward only: the JAX kernel has no gradient either."""
+    _check(act in _ACT_CODE, "fused_conv_bn_act: unknown activation %r", act)
+    _check(x.dim() == 4 and w.dim() == 4 and x.shape[1] == w.shape[1],
+           "fused_conv_bn_act: x [N, C, H, W] and w [O, C, kh, kw] needed, "
+           "got %s %s", tuple(x.shape), tuple(w.shape))
+    _check(x.dtype in (torch.float32, torch.bfloat16) and w.dtype == x.dtype,
+           "fused_conv_bn_act: x and w must share one dtype, f32 or bf16")
+    nf = w.shape[0]
+    _check(scale.shape == (nf,) and bias.shape == (nf,),
+           "fused_conv_bn_act: scale and bias must be [%d]", nf)
+    _check(not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w, scale, bias))),
+        "fused_conv_bn_act is an inference kernel: it has no gradient")
+    stride, pad, dilate = (tuple(int(v) for v in a)
+                           for a in (stride, pad, dilate))
+    if not _on_cuda(x, w, scale, bias):
+        return fused_conv_bn_act_plain(x, w, scale, bias, stride, pad,
+                                       dilate, act)
+    xm, wm, oh, ow = _im2col(x, w, stride, pad, dilate)
+    _contig(("patches", xm), ("w", wm))
+    m, kdim = xm.shape
+    out = torch.empty((m, nf), dtype=x.dtype, device=x.device)
+    if m:
+        _launch("fused_conv_bn_act", _ptr(xm), _ptr(wm),
+                _ptr(scale.to(torch.float32).contiguous()),
+                _ptr(bias.to(torch.float32).contiguous()), _ptr(out), m, nf,
+                kdim, _ACT_CODE[act], _CODE[x.dtype])
+    return out.reshape(x.shape[0], oh, ow, nf).permute(0, 3, 1, 2)
+
+
+# -- matmul_stats -------------------------------------------------------------
+
+# rows of the kernel's M-tiles (csrc/gemm.cuh BM, FM): one row of partial
+# sums per tile
+_MS_TILE = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def matmul_stats_plain(x, w):
+    """Plain PyTorch version of :func:`matmul_stats_fwd`: the f32 product,
+    its column sums and sums of squares, then the product cast to x's
+    dtype."""
+    acc = x.float() @ w.float().t()
+    return acc.to(x.dtype), acc.sum(dim=0), acc.square().sum(dim=0)
+
+
+def matmul_stats_fwd(x, w):
+    """``(y, s1, s2)``: ``y = x @ w^T`` [M, N] in x's dtype, and the f32
+    column sums ``s1 = sum_m y`` and ``s2 = sum_m y^2`` [N] of the f32
+    product before it is rounded. x [M, K], w [N, K] (a 1x1 conv weight
+    [O, C]), f32 or bf16. The kernel writes one row of partial sums per
+    M-tile; they are summed here, as the JAX package sums them outside
+    Pallas (l.937-938)."""
+    _check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[1],
+           "matmul_stats: x [M, K] and w [N, K] needed, got %s %s",
+           tuple(x.shape), tuple(w.shape))
+    _check(x.dtype in _MS_TILE and w.dtype == x.dtype,
+           "matmul_stats: x and w must share one dtype, f32 or bf16")
+    if not _on_cuda(x, w):
+        return matmul_stats_plain(x, w)
+    _contig(("x", x), ("w", w))
+    m, kdim = x.shape
+    n = w.shape[0]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, -(-m // _MS_TILE[x.dtype]), n),
+                       dtype=torch.float32, device=x.device)
+    if m:
+        _launch("matmul_stats", _ptr(x), _ptr(w), _ptr(y), _ptr(part[0]),
+                _ptr(part[1]), m, n, kdim, _CODE[x.dtype])
+    s1, s2 = part.sum(dim=1)
+    return y, s1, s2
+
+
+class _MatmulStats(torch.autograd.Function):
+    """Forward kernel; backward plain products (``_matmul_stats_bwd``,
+    l.951-963): the statistics' cotangents fold into the output's as
+    ``g = gy + gs1 + 2 y gs2`` (f32, then x's dtype), then ``dx = g w``
+    and ``dw = g^T x``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        y, s1, s2 = matmul_stats_fwd(x, w)
+        ctx.save_for_backward(x, w, y)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, w, y = ctx.saved_tensors
+        g = (gy.float() + gs1.float()[None, :]
+             + 2.0 * y.float() * gs2.float()[None, :]).to(x.dtype)
+        return g @ w, g.t() @ x
+
+
+def matmul_stats(x, w):
+    """``(x @ w^T, per-column sum, per-column sum of squares)`` in one
+    kernel, differentiable. x [M, K], w [N, K]; the statistics are f32
+    sums of the f32 product, for the training conv -> BatchNorm chain
+    (``ops.fusion``), which then needs no second read of the
+    activation."""
+    return _MatmulStats.apply(x, w)

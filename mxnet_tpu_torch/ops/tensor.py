@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/ops/tensor.py``: the binary ops and their
 scalar forms (l.40-73), ``ElementWiseSum`` (l.109), ``Reshape`` (l.131),
-``SwapAxis`` (l.306), ``Cast`` (l.325) and ``BlockGrad`` (l.342).
+``Flatten`` (l.184), ``SpaceToDepth`` (l.269), ``SwapAxis`` (l.306),
+``Cast`` (l.325), ``BlockGrad`` (l.342) and ``Crop`` (l.355).
 """
 from __future__ import annotations
 
@@ -129,6 +130,55 @@ class Reshape(OpSpec):
 
 
 @register
+class Flatten(OpSpec):
+    """Collapse all but the batch dim (``reshape-inl.h`` FlattenProp)."""
+
+    name = "Flatten"
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return [None], [None], []
+        return [d], [(d[0], int(np.prod(d[1:])))], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        x = ins[0]
+        return [x.reshape(x.shape[0], -1)], []
+
+
+@register
+class SpaceToDepth(OpSpec):
+    """Rearrange spatial blocks into channels (NCHW):
+    ``out[b, c*bs*bs + p*bs + q, i, j] = x[b, c, i*bs + p, j*bs + q]``
+    (the stem of ``models.resnet.get_resnet(stem="s2d")``)."""
+
+    name = "SpaceToDepth"
+    params = {"block_size": Param("int")}
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return list(in_shapes), [None], []
+        bs = p["block_size"]
+        if len(d) != 4:
+            raise MXNetError("SpaceToDepth: data must be 4D NCHW")
+        if bs < 1 or d[2] % bs or d[3] % bs:
+            raise MXNetError(
+                "SpaceToDepth: block_size %d must divide H=%d and W=%d"
+                % (bs, d[2], d[3]))
+        out = (d[0], d[1] * bs * bs, d[2] // bs, d[3] // bs)
+        return list(in_shapes), [out], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        x = ins[0]
+        bs = p["block_size"]
+        b, c, h, w = x.shape
+        r = x.reshape(b, c, h // bs, bs, w // bs, bs)
+        r = r.permute(0, 1, 3, 5, 2, 4)
+        return [r.reshape(b, c * bs * bs, h // bs, w // bs)], []
+
+
+@register
 class SwapAxis(OpSpec):
     """Swap two axes (``swapaxis-inl.h``)."""
 
@@ -172,3 +222,50 @@ class BlockGrad(OpSpec):
 
     def forward(self, p, ins, aux, is_train, generator):
         return [ins[0].detach()], []
+
+
+@register
+class Crop(OpSpec):
+    """Spatial crop to an explicit size or to a reference symbol's H/W
+    (``crop-inl.h``). With ``num_args=2`` the second input supplies the
+    target H/W and gets no gradient."""
+
+    name = "Crop"
+    params = {"num_args": Param("int", 1), "offset": Param("shape", (0, 0)),
+              "h_w": Param("shape", (0, 0)),
+              "center_crop": Param("bool", False)}
+
+    def arguments(self, p):
+        if p["num_args"] == 1:
+            return ["data"]
+        return ["data", "crop_like"]
+
+    def _target_hw(self, p, shapes):
+        if p["num_args"] == 2 and shapes[1] is not None:
+            return shapes[1][2], shapes[1][3]
+        if p["h_w"] != (0, 0):
+            return p["h_w"]
+        return None
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        hw = self._target_hw(p, in_shapes)
+        if d is None or hw is None:
+            return list(in_shapes), [None], []
+        return list(in_shapes), [(d[0], d[1], hw[0], hw[1])], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        x = ins[0]
+        if p["num_args"] == 2:
+            th, tw = ins[1].shape[2], ins[1].shape[3]
+        else:
+            th, tw = p["h_w"]
+        if p["center_crop"]:
+            oy = (x.shape[2] - th) // 2
+            ox = (x.shape[3] - tw) // 2
+        else:
+            oy, ox = p["offset"]
+        # lax.dynamic_slice clamps the start so the window fits
+        oy = min(max(oy, 0), x.shape[2] - th)
+        ox = min(max(ox, 0), x.shape[3] - tw)
+        return [x[:, :, oy:oy + th, ox:ox + tw]], []

@@ -67,8 +67,11 @@ def make_graph_fn(symbol):
     topological order of variable nodes); ``aux_vals`` a list in
     ``symbol.list_auxiliary_states()`` order; ``generator`` the
     ``torch.Generator`` of the ops that draw at training time (dropout).
-    The ``FullyConnected -> Activation`` chains run as the
-    ``fused_linear`` kernel (``ops.fusion.FusionPlan``)."""
+    The chains of ``ops.fusion.FusionPlan`` run as one kernel each:
+    ``FullyConnected -> Activation`` as ``fused_linear``; ``Convolution ->
+    BatchNorm [-> relu]`` as ``fused_conv_bn_act`` on eval and, for 1x1
+    convs under ``MXNET_PALLAS_CONVBN_TRAIN=1``, as ``matmul_stats`` in
+    training."""
     topo = symbol._topo()
     heads = symbol._heads
     plan = FusionPlan(topo, heads)

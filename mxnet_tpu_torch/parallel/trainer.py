@@ -2,12 +2,13 @@
 
 Counterpart of ``mxnet_tpu/parallel/trainer.py`` ``ParallelTrainer``
 (l.111-786) on a one-device mesh: each step runs the forward (the graph
-walk of ``make_graph_fn``, with the ``fused_linear`` and
-``flash_attention`` kernels on the card), the backward (torch autograd,
-which reaches the kernels' backward through their ``autograd.Function``s),
-the gradient sum over microbatches, the global-norm clip and the optimizer
-update. The JAX package compiles all of that into one program; PyTorch
-runs it eagerly, and the update is made in place.
+walk of ``make_graph_fn``, with the ``fused_linear``, ``flash_attention``
+and, for conv nets, ``matmul_stats`` kernels on the card), the backward
+(torch autograd, which reaches the kernels' backward through their
+``autograd.Function``s), the gradient sum over microbatches, the
+global-norm clip and the optimizer update. The JAX package compiles all
+of that into one program; PyTorch runs it eagerly, and the update is made
+in place.
 
 Semantics kept from the JAX package:
 
@@ -21,7 +22,10 @@ Semantics kept from the JAX package:
   are never cast (l.323-328);
 * ``grad_accum`` sums the microbatches' gradients in f32 and makes one
   update; ``clip_grad_norm`` clips the global norm of the RESCALED
-  gradient (l.432-484).
+  gradient (l.432-484);
+* the aux states (BatchNorm's moving statistics) stay f32 across steps
+  in any compute dtype (l.424-427); ``forward()`` is the eval path, where
+  each conv -> BatchNorm chain runs as ``fused_conv_bn_act``.
 
 Meshes, sharding rules, ZeRO-1, FSDP, rematerialization, ``prefetch``,
 ``multi_step`` and ``fit`` belong to later slices of the port.

@@ -109,7 +109,7 @@ def test_dropout_and_rrelu_draw_from_the_generator():
 
 def test_registry_rejects():
     with pytest.raises(MXNetError):
-        treg.get("Convolution")
+        treg.get("Deconvolution")
     with pytest.raises(MXNetError):
         treg.get("FullyConnected").parse_params({"num_hiden": 3})
     with pytest.raises(MXNetError):
