@@ -17,18 +17,24 @@ Phases:
    dK/dV (B=8 T=1024 12 heads of 64 causal bf16; T=100 and T=1000,
    non-causal, window 33, f32 and bf16, head_dim 8-128) and through
    ``MultiHeadAttention`` with GQA, rope and a window against the host;
-   ``fused_linear`` (M=8192 K=768 N=3072 bf16 relu; M=100 K=70 N=130 in
+   ``fused_linear`` (M=8192 K=768 N=3072 bf16 relu; the SP path's M=2048
+   f32 relu; M=100 K=70 N=130 in
    f32 and bf16 with every activation, with and without the folded-BN
    ``scale``); ``matmul_stats`` (each 1x1 conv of ResNet-50 at the main
    path's B=256, ragged M, K and N in f32 and bf16; the column sums to a
    stated share of their sums of magnitudes); ``fused_conv_bn_act`` (each
-   conv of ResNet-50 at B=256, small ragged convs with stride, pad,
+   conv of ResNet-50 at B=256 in f32 and bf16, small ragged convs with stride, pad,
    dilation and a non-square kernel, relu and linear, f32 and bf16, NCHW
-   and channels-last). Then each kernel's time (CUDA
+   and channels-last); ``striped_pair_attention`` forward, dQ and dK/dV
+   (every ring position pair of the SP path's hop, [24, 1024, 64] at n=4,
+   f32 and bf16; n=1, also held against flash causal; n=3 at a ragged
+   C=100; head_dim 32-128; a random g_o and a nonzero g_lse). Then each
+   kernel's time (CUDA
    events, median of 25 launches with the 50 MB L2 flushed before each and
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
-   there is one;
+   there is one (``fused_conv_bn_act`` in f32, the eval forward's path,
+   with its bf16 row beside it);
 4. the serving main path: the 124M LM (12 layers, E=768, 12 heads, vocab
    32000, seeded random weights) saved with ``save_checkpoint`` and served
    by ``InferenceEngine.from_checkpoint`` with paged attention, int8
@@ -63,11 +69,23 @@ Phases:
    exactly 33 ``matmul_stats`` launches per step and a falling loss, img/s,
    ms per step, MFU, peak memory and a 2-step profile (its trace beside
    the others); the same 12 steps with the gate unset (no launch);
-   ``trainer.forward()`` at B=256 with exactly 53 ``fused_conv_bn_act``
-   launches per forward, and timed again with no chain fused; then ResNet-50 in f32 at B=2 on the card and on
-   the host from the same weights: the eval log-probabilities and top-1,
-   and one train step's parameter deltas, must agree;
-7. the ``{"kernels": [...]}`` line (every C entry), the card's line, and
+   ``trainer.forward()`` at B=256 (f32, as the JAX package's eval runs on
+   the master parameters) with exactly 53 ``fused_conv_bn_act`` launches
+   per forward, and timed again with no chain fused; then ResNet-50 in f32
+   at B=2 on the card and on the host from the same weights: the eval
+   log-probabilities and top-1, and one train step's parameter deltas,
+   must agree;
+7. the sequence-parallel path: ``striped_ring_attention`` on a 4-rank mesh
+   over one card (``[cuda:0] * 4``) against dense causal attention; the
+   124M LM (``impl="ring_striped"``) trained by
+   ``SequenceParallelTrainer`` on the mesh {dp: 1, sp: 4} at B=2, T=4096
+   in f32 (SGD lr 1e-3 momentum 0.9): 3 warm-up and 12 timed steps with
+   exactly 192 launches of each ``striped_pair`` entry and 48 of
+   ``fused_linear`` per step, a falling loss, tokens/s, a 2-step profile;
+   then one f32 step of it at B=1, T=1024 against
+   ``ParallelTrainer(impl="flash")`` from the same weights, whose
+   parameter deltas must agree;
+8. the ``{"kernels": [...]}`` line (every C entry), the card's line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result. It
@@ -514,19 +532,184 @@ def check_flash_attention(K, dev, gen):
     return worst
 
 
+# -- phase 3d: striped_pair_attention against its plain version -------------
+
+SP_RING, SP_C, SP_BH, SP_D = 4, 1024, 24, 64   # one hop of the SP main path
+
+
+def spair_cases():
+    """(BH, C, D, n, q_off, k_off, dtype): every ring position pair of the
+    main path's hop (n=4, [24, 1024, 64]) in f32 and bf16; n=1 (the causal
+    mask); n=3 at a ragged C=100 (not a multiple of the tiles), every pair;
+    head_dim 32, 64 and 128."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(SP_BH, SP_C, SP_D, SP_RING, qo, ko, dt) for dt in (f32, bf)
+             for qo in range(SP_RING) for ko in range(SP_RING)]
+    cases += [(6, 300, 64, 1, 0, 0, dt) for dt in (f32, bf)]
+    cases += [(4, 100, 64, 3, qo, ko, dt) for dt in (f32, bf)
+              for qo in range(3) for ko in range(3)]
+    cases += [(4, 200, d, 4, qo, ko, dt) for d in (32, 64, 128)
+              for dt in (f32, bf) for qo, ko in ((1, 2), (2, 1))]
+    return cases
+
+
+def check_striped_pair(K, dev, gen):
+    """Forward (o, lse), then dQ and dK/dV from the same o and lse under a
+    random g_o and a nonzero g_lse, kernel against plain, in every case of
+    ``spair_cases``: o and f32 gradients to the dtype's tolerance, lse to
+    the f32 tolerance, bf16 gradients to GRAD_REL of the tensor's largest
+    value (the flash rule of phase 3b). At n=1 the hop is causal attention:
+    its o, lse and gradients (g_lse = 0) are also held against the flash
+    kernels on the same inputs. Returns {entry: max |err|}."""
+    worst = dict.fromkeys(("striped_pair_fwd", "striped_pair_dq",
+                           "striped_pair_dkv"), 0.0)
+    cases = spair_cases()
+    for bh, c, d, n, qo, ko, dt in cases:
+        q, k, v, go = (_rand(gen, (bh, c, d), dt).to(dev) for _ in range(4))
+        gl = _rand(gen, (bh, c, 1)).to(dev)
+        tag = "BH=%d C=%d D=%d n=%d q_off=%d k_off=%d %s" % (
+            bh, c, d, n, qo, ko, dt)
+        o, lse = K.striped_pair_attention_fwd(q, k, v, qo, ko, n_stride=n)
+        o_p, lse_p = K.striped_pair_attention_plain(q, k, v, qo, ko, n)
+        grads = K.striped_pair_attention_bwd(q, k, v, o, lse, go, gl, qo, ko,
+                                             n_stride=n)
+        grads_p = K.striped_pair_attention_bwd_plain(q, k, v, o, lse, go, gl,
+                                                     qo, ko, n)
+        torch.cuda.synchronize()
+        worst["striped_pair_fwd"] = max(
+            worst["striped_pair_fwd"], compare("striped o " + tag, o, o_p),
+            compare("striped lse " + tag, lse, lse_p))
+        for name, g_, w_ in zip(("dq", "dk", "dv"), grads, grads_p):
+            entry = "striped_pair_dq" if name == "dq" else "striped_pair_dkv"
+            err = compare("striped %s %s" % (name, tag), g_, w_) \
+                if dt is torch.float32 else \
+                compare_scaled("striped %s %s" % (name, tag), g_, w_,
+                               GRAD_REL)
+            worst[entry] = max(worst[entry], err)
+        if n == 1:
+            as4 = [t[:, :, None, :] for t in (q, k, v, go)]
+            fo, flse = K.flash_attention_fwd(*as4[:3], causal=True)
+            fg = K.flash_attention_bwd(*as4[:3], fo, flse, as4[3],
+                                       causal=True)
+            sg = K.striped_pair_attention_bwd(q, k, v, o, lse, go,
+                                              torch.zeros_like(gl), 0, 0,
+                                              n_stride=1)
+            torch.cuda.synchronize()
+            same = torch.equal(fo[:, :, 0], o) and torch.equal(
+                flse, lse[..., 0]) and all(
+                torch.equal(a[:, :, 0], b) for a, b in zip(fg, sg))
+            compare("striped n=1 o vs flash " + tag, o, fo[:, :, 0])
+            compare("striped n=1 lse vs flash " + tag, lse[..., 0], flse)
+            for name, a, b in zip(("dq", "dk", "dv"), sg, fg):
+                if dt is torch.float32:
+                    compare("striped n=1 %s vs flash %s" % (name, tag), a,
+                            b[:, :, 0])
+                else:
+                    compare_scaled("striped n=1 %s vs flash %s" % (name, tag),
+                                   a, b[:, :, 0], GRAD_REL)
+            log("striped_pair n=1 %s: equals flash_attention causal (bitwise "
+                "%s)" % (dt, same))
+    log("striped_pair_attention: %d cases agree (fwd o and lse, dq, dk/dv "
+        "with g_lse), max |err| %s" % (
+            len(cases), {k_: "%.3g" % v_ for k_, v_ in worst.items()}))
+    return worst
+
+
+def time_striped_pair(K, dev, gen, worst):
+    """One hop of the SP main path ([24, 1024, 64], n=4, q_off=1, k_off=2)
+    in f32 (the main path's dtype: the kernels line) and bf16: each C
+    entry's time, the plain version's, the bound from the hop's visible
+    pairs, and the one PyTorch call that gives (o, lse) with the striped
+    mask as a bias (``_scaled_dot_product_efficient_attention``)."""
+    timer = Timer(dev)
+    qo, ko = 1, 2
+    mask = K._striped_mask(SP_C, SP_C, qo, ko, SP_RING, dev)
+    pairs = int(mask.sum()) * SP_BH
+    scale = 1.0 / math.sqrt(SP_D)
+    entries = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, go = (_rand(gen, (SP_BH, SP_C, SP_D), dt).to(dev)
+                       for _ in range(4))
+        gl = _rand(gen, (SP_BH, SP_C, 1)).to(dev)
+        o, lse = K.striped_pair_attention_fwd(q, k, v, qo, ko,
+                                              n_stride=SP_RING)
+        dcap = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        cfg = (SP_BH, SP_C, SP_C, SP_D, scale, SP_RING, qo, ko, K._CODE[dt])
+        P = K._ptr
+
+        def dq_launch():
+            K._launch("striped_pair_dq", P(q), P(k), P(v), P(o), P(go),
+                      P(lse), P(gl), P(dcap), P(dq), *cfg)
+
+        def dkv_launch():
+            K._launch("striped_pair_dkv", P(q), P(k), P(v), P(go), P(lse),
+                      P(dcap), P(dk), P(dv), *cfg)
+
+        dq_launch()
+        bias = torch.zeros((SP_C, SP_C), dtype=dt, device=dev).masked_fill(
+            ~mask, float("-inf"))[None, None].expand(1, SP_BH, SP_C, SP_C)
+        q4, k4, v4 = (x[None] for x in (q, k, v))
+
+        def lib():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, bias, True, scale=scale)
+
+        ms = {"fwd": timer(lambda: K.striped_pair_attention_fwd(
+                  q, k, v, qo, ko, n_stride=SP_RING)),
+              "dq": timer(dq_launch), "dkv": timer(dkv_launch)}
+        plain = {"fwd": timer(lambda: K.striped_pair_attention_plain(
+                     q, k, v, qo, ko, SP_RING)),
+                 "bwd": timer(lambda: K.striped_pair_attention_bwd_plain(
+                     q, k, v, o, lse, go, gl, qo, ko, SP_RING))}
+        lib_ms = timer(lib)
+        row = nbytes(q)
+        spec = {
+            # entry: (ms, plain ms, library ms, bytes, flops)
+            "striped_pair_fwd": (ms["fwd"], plain["fwd"], lib_ms,
+                                 4 * row + nbytes(lse), 4 * SP_D * pairs),
+            "striped_pair_dq": (ms["dq"], plain["bwd"], None,
+                                6 * row + 3 * nbytes(lse), 6 * SP_D * pairs),
+            "striped_pair_dkv": (ms["dkv"], plain["bwd"], None,
+                                 6 * row + 2 * nbytes(lse),
+                                 8 * SP_D * pairs),
+        }
+        shape = "BH=24 C=1024 D=64 n=4 q_off=1 k_off=2 %s" % (
+            "f32" if dt is torch.float32 else "bf16")
+        for name, (kms, pms, lms, nb, flops) in spec.items():
+            bms, by = bound_ms(nb, flops, dt)
+            log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %s  "
+                "bound %.4f ms (%s)" % (name, shape, kms, pms,
+                                        "%.4f ms" % lms if lms else "none",
+                                        bms, by))
+            if dt is torch.float32:
+                entries[name] = {"ms": kms, "plain_ms": pms,
+                                 "library_ms": lms, "bound_ms": bms,
+                                 "bound_by": by, "shape": shape}
+    log("  (%d visible pairs of %d in the hop; plain dq and dkv times are "
+        "the whole plain backward; the library time is the efficient "
+        "attention forward with the mask as a bias and the logsumexp)"
+        % (pairs, SP_BH * SP_C * SP_C))
+    for name, r in entries.items():
+        r["max_abs_err"] = worst[name]
+    return entries
+
+
 def check_fused_linear(K, dev, gen):
     """Every activation at a ragged shape (M=100, K=70, N=130: no tile or
     16-byte multiple) in f32 and bf16, with and without bias, with and
     without the per-column ``scale`` (the folded BatchNorm of the conv
-    path), then the 124M ffn1 shape (M=8192, K=768, N=3072, bf16, relu)."""
+    path), then the 124M ffn1 shape (M=8192, K=768, N=3072, bf16, relu)
+    and the SP path's (one rank's M=2048, f32, relu with bias)."""
     cases = [(100, 70, 130, act, dt, bias, scale)
              for act in ("linear", "relu", "sigmoid", "tanh")
              for dt in (torch.float32, torch.bfloat16)
              for bias in (True, False) for scale in (False, True)]
     cases += [(8192, 768, 3072, "relu", torch.bfloat16, True, False),
               (8192, 768, 3072, "relu", torch.bfloat16, True, True),
-              (33, 768, 2304, "tanh", torch.bfloat16, True, True)]
-    worst = 0.0
+              (33, 768, 2304, "tanh", torch.bfloat16, True, True),
+              (2048, 768, 3072, "relu", torch.float32, True, False)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for m, kd, n, act, dt, bias, scale in cases:
         x = _rand(gen, (m, kd), dt).to(dev)
         w = _rand(gen, (n, kd), dt, 1.0 / math.sqrt(kd)).to(dev)
@@ -536,12 +719,13 @@ def check_fused_linear(K, dev, gen):
         got = K.fused_linear_fwd(x, w, b, act, s)
         want = K.fused_linear_plain(x, w, b, act, s)
         torch.cuda.synchronize()
-        worst = max(worst, compare(
+        worst[dt] = max(worst[dt], compare(
             "fused_linear M=%d K=%d N=%d %s %s bias=%s scale=%s"
             % (m, kd, n, act, dt, bias, scale), got, want))
-    log("fused_linear: %d cases agree (%d with scale), max |err| %.3g"
-        % (len(cases), sum(c[-1] for c in cases), worst))
-    return worst
+    log("fused_linear: %d cases agree (%d with scale), max |err| f32 %.3g, "
+        "bf16 %.3g" % (len(cases), sum(c[-1] for c in cases),
+                       worst[torch.float32], worst[torch.bfloat16]))
+    return max(worst.values())
 
 
 # -- phase 3c: the conv-net kernels against their plain versions ---------------
@@ -641,8 +825,9 @@ def _conv_inputs(gen, xs, ws, dt, dev):
 
 
 def check_fused_conv_bn_act(K, dev, gen, dgen):
-    """Each distinct conv of ResNet-50 at the main path's B=256 in bf16
-    with its chain's activation, on the channels-last x the previous
+    """Each distinct conv of ResNet-50 at the main path's B=256 in f32
+    (what the eval forward runs) and in bf16, with its chain's
+    activation, on the channels-last x the previous
     fused conv leaves (the stem's input is NCHW, and its K = 147 takes the
     guarded scalar loads; inputs drawn on the card from ``dgen``), then
     small ragged cases in f32 and bf16, relu and linear: 3x3 pad 1, 7x7/2
@@ -656,7 +841,7 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
         key = (c["x"], c["w"], c["stride"], c["pad"], c["dilate"], c["act"])
         if key not in seen:
             seen.add(key)
-            cases.append(key + (bf, dgen, c["x"][1] > 3))
+            cases += [key + (dt, dgen, c["x"][1] > 3) for dt in (f32, bf)]
     n_resnet = len(cases)
     for dt in (f32, bf):
         for ws, st, pd, dl, act in (
@@ -669,7 +854,7 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
             for cl in (False, True):
                 cases.append(((2, 5, 13, 10), ws, st, pd, dl, act, dt, gen,
                               cl))
-    worst = 0.0
+    worst = {f32: 0.0, bf: 0.0}
     for xs, ws, st, pd, dl, act, dt, g, cl in cases:
         x, w, s, b = _conv_inputs(g, xs, ws, dt, dev)
         if cl:
@@ -678,12 +863,14 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
         got = K.fused_conv_bn_act(x, w, s, b, **kw)
         want = K.fused_conv_bn_act_plain(x, w, s, b, **kw)
         torch.cuda.synchronize()
-        worst = max(worst, compare("fused_conv_bn_act x=%s%s w=%s %s %s" % (
-            xs, " channels-last" if cl else "", ws, kw, dt), got, want))
+        worst[dt] = max(worst[dt], compare(
+            "fused_conv_bn_act x=%s%s w=%s %s %s" % (
+                xs, " channels-last" if cl else "", ws, kw, dt), got, want))
         del x, w, s, b, got, want
     log("fused_conv_bn_act: %d cases agree (%d ResNet-50 conv shapes at "
-        "B=%d), max |err| %.3g" % (len(cases), n_resnet, RESNET_B, worst))
-    return worst
+        "B=%d, each in f32 and bf16), max |err| f32 %.3g, bf16 %.3g" % (
+            len(cases), n_resnet // 2, RESNET_B, worst[f32], worst[bf]))
+    return max(worst.values())
 
 
 def time_cnn_kernels(K, dev, gen, worst):
@@ -691,8 +878,9 @@ def time_cnn_kernels(K, dev, gen, worst):
     the card from ``gen``; the checks above held both at these shapes):
     matmul_stats at stage 1's `_a` conv (M = 256*56*56, K = 256, N = 64),
     fused_conv_bn_act at stage 1's 3x3 conv (x 256x64x56x56 channels-last,
-    as the main path gives it, relu), whose time includes the im2col
-    gather (the GEMM alone is printed beside it)."""
+    as the main path gives it, relu) in f32 (the eval forward's path) and
+    bf16, whose time includes the im2col gather (the GEMM alone is
+    printed beside it)."""
     import torch.nn.functional as F
     timer = Timer(dev)
     bf = torch.bfloat16
@@ -722,35 +910,42 @@ def time_cnn_kernels(K, dev, gen, worst):
     del x, w, y
 
     xs, ws = (RESNET_B, 64, 56, 56), (64, 64, 3, 3)
-    x, w, s, b = _conv_inputs(gen, xs, ws, bf, dev)
-    x = x.contiguous(memory_format=torch.channels_last)
     kw = dict(stride=(1, 1), pad=(1, 1), dilate=(1, 1), act="relu")
-    out = torch.empty((RESNET_B, 64, 56, 56), dtype=bf, device=dev)
-    wf = (w.float() * s[:, None, None, None]).to(bf)   # the folded weight
-    bb = b.to(bf)
-    kms = timer(lambda: K.fused_conv_bn_act(x, w, s, b, **kw))
-    pms = timer(lambda: K.fused_conv_bn_act_plain(x, w, s, b, **kw))
-    lms = timer(lambda: torch.relu(F.conv2d(x, wf, bb, padding=1)))
-    xm, wm, _, _ = K._im2col(x, w, (1, 1), (1, 1), (1, 1))
-    om = torch.empty((xm.shape[0], 64), dtype=bf, device=dev)
     P = K._ptr
+    rows = {}
+    for dt in (torch.float32, bf):
+        x, w, s, b = _conv_inputs(gen, xs, ws, dt, dev)
+        x = x.contiguous(memory_format=torch.channels_last)
+        out = torch.empty((RESNET_B, 64, 56, 56), dtype=dt, device=dev)
+        wf = (w.float() * s[:, None, None, None]).to(dt)  # the folded weight
+        bb = b.to(dt)
+        kms = timer(lambda: K.fused_conv_bn_act(x, w, s, b, **kw))
+        pms = timer(lambda: K.fused_conv_bn_act_plain(x, w, s, b, **kw))
+        lms = timer(lambda: torch.relu(F.conv2d(x, wf, bb, padding=1)))
+        xm, wm, _, _ = K._im2col(x, w, (1, 1), (1, 1), (1, 1))
+        om = torch.empty((xm.shape[0], 64), dtype=dt, device=dev)
 
-    def gemm_only():
-        K._launch("fused_conv_bn_act", P(xm), P(wm), P(s), P(b), P(om),
-                  xm.shape[0], 64, xm.shape[1], 1, K._CODE[bf])
+        def gemm_only():
+            K._launch("fused_conv_bn_act", P(xm), P(wm), P(s), P(b), P(om),
+                      xm.shape[0], 64, xm.shape[1], 1, K._CODE[dt])
 
-    gms = timer(gemm_only)
-    flops = 2 * xm.shape[0] * 64 * xm.shape[1]
-    bms, by = bound_ms(nbytes(x, w, s, b, out), flops, bf)
-    shape = "stage1 3x3 x=256x64x56x56 channels-last bf16 relu"
-    log("time %-22s %-34s kernel %.4f ms (of which the GEMM %.4f ms, the "
-        "im2col gather the rest)  plain %.4f ms  library %.4f ms (F.conv2d "
-        "with the scale folded + relu)  bound %.4f ms (%s)" % (
-            "fused_conv_bn_act", shape, kms, gms, pms, lms, bms, by))
-    entries["fused_conv_bn_act"] = {"ms": kms, "plain_ms": pms,
-                                    "library_ms": lms, "bound_ms": bms,
-                                    "bound_by": by, "shape": shape,
-                                    "gemm_ms": gms}
+        gms = timer(gemm_only)
+        flops = 2 * xm.shape[0] * 64 * xm.shape[1]
+        bms, by = bound_ms(nbytes(x, w, s, b, out), flops, dt)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        shape = "stage1 3x3 x=256x64x56x56 channels-last %s relu" % tag
+        log("time %-22s %-34s kernel %.4f ms (of which the GEMM %.4f ms, "
+            "the im2col gather the rest)  plain %.4f ms  library %.4f ms "
+            "(F.conv2d with the scale folded + relu%s)  bound %.4f ms (%s)"
+            % ("fused_conv_bn_act", shape, kms, gms, pms, lms,
+               ", TF32 off" if tag == "f32" else "", bms, by))
+        rows[tag] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
+                     "bound_ms": bms, "bound_by": by, "shape": shape,
+                     "gemm_ms": gms}
+        del x, w, s, b, out, wf, bb, xm, wm, om
+    # the main path (the eval forward) runs the f32 path; the bf16 row
+    # rides along in the kernels line
+    entries["fused_conv_bn_act"] = dict(rows["f32"], bf16=rows["bf16"])
     for name, r in entries.items():
         r["max_abs_err"] = worst[name]
     return entries
@@ -1523,9 +1718,11 @@ def train_resnet(K, dev):
 
 
 def eval_resnet(K, dev):
-    """ResNet-50's inference forward, ``trainer.forward()`` at B=256 bf16,
-    from fan-in scaled weights and nonzero moving statistics: 2 warm-up
-    forwards, then TIMED_STEPS with exactly RESNET_CHAINS
+    """ResNet-50's inference forward, ``trainer.forward()`` at B=256 of
+    the bf16 trainer, from fan-in scaled weights and nonzero moving
+    statistics. As in the JAX package, forward() runs on the f32 master
+    parameters and the batch as given, so the chains run the kernel's f32
+    path: 2 warm-up forwards, then TIMED_STEPS with exactly RESNET_CHAINS
     fused_conv_bn_act launches each; finite probabilities that sum to 1.
     Returns the launch counts."""
     trainer = _resnet_trainer(None, RESNET_B, "bfloat16")
@@ -1558,7 +1755,8 @@ def eval_resnet(K, dev):
                                what="resnet eval",
                                call=lambda: trainer.forward(batch))
     ips = [RESNET_B / t for t in secs]
-    log("resnet eval: %d forwards at B=%d bf16; img/s median %.1f (min %.1f, "
+    log("resnet eval: %d forwards at B=%d f32 (bf16 trainer); img/s median "
+        "%.1f (min %.1f, "
         "max %.1f); ms per forward median %.3f; busy share %.3f (profiled); "
         "peak memory %.1f MB; %d distinct top-1 classes; %s" % (
             TIMED_STEPS, RESNET_B, statistics.median(ips), min(ips),
@@ -1568,14 +1766,12 @@ def eval_resnet(K, dev):
 
     # the same forwards with no chain fused (F.conv2d, BatchNorm and relu
     # as separate ops, no kernel of the port): what the fold costs or
-    # saves. The moving statistics go in as bf16, since BatchNorm's output
-    # takes the wider of its input's and theirs (as in the JAX package),
-    # and the next conv wants bf16
+    # saves
     from mxnet_tpu_torch.ops.fusion import eval_graph
     topo, heads = trainer.symbol._topo(), trainer.symbol._heads
     fused_fn = trainer._graph_fn
-    trainer._graph_fn = lambda a, x, t, g: eval_graph(
-        topo, heads, a, [v.to(torch.bfloat16) for v in x], t, g)[:2]
+    trainer._graph_fn = lambda a, x, t, g: eval_graph(topo, heads, a, x, t,
+                                                      g)[:2]
     for _ in range(2):
         trainer.forward(batch)
     torch.cuda.synchronize()
@@ -1591,7 +1787,7 @@ def eval_resnet(K, dev):
         raise AssertionError("the unfused forward launched %r"
                              % K.launch_counts())
     q = uouts[0].float()
-    log("resnet eval unfused (no chain fused): %d forwards at B=%d bf16; "
+    log("resnet eval unfused (no chain fused): %d forwards at B=%d f32; "
         "ms per forward median %.3f (min %.3f, max %.3f) against %.3f "
         "fused; probabilities max |fused - unfused| %.3g, top-1 equal for "
         "%d of %d; %s" % (
@@ -1653,6 +1849,209 @@ def check_resnet_against_host(dev, b=2):
             ELEM_REL))
 
 
+# -- phase 7: the sequence-parallel training path ----------------------------
+
+SP_B, SP_T = 2, 4096                # 8192 tokens a step, as TRAIN_B x TRAIN_T
+SP_MESH = {"dp": 1, "sp": SP_RING}
+SP_ENTRIES = ("striped_pair_fwd", "striped_pair_dq", "striped_pair_dkv")
+# the striped ring against dense causal attention on the card, f32 (TF32
+# off): tests/test_parallel.py's ring tolerance
+RING_TOL = (2e-4, 2e-5)
+# the f32 SP loss is computed the same way every step; f32 noise on a loss
+# of ~10.4 is ~1e-5, so a fall of LOSS_FALL is a real one
+LOSS_FALL = 1e-3
+
+
+def _sp_mesh(dev):
+    from mxnet_tpu_torch.parallel import build_mesh
+    return build_mesh(SP_MESH, [dev] * SP_RING)
+
+
+def check_ring_on_card(dev):
+    """striped_ring_attention over a 4-rank mesh on one card ([cuda:0] *
+    4: every hop runs the pair kernel at a real striped offset) against
+    dense causal attention, values and the q/k/v gradients of sum(out *
+    w), f32, at T=32 (tests/test_parallel.py's shape) and at a ragged
+    T=4*100 with 3 heads of 64 (local C=100: not a multiple of the
+    tiles)."""
+    from mxnet_tpu_torch.parallel import striped_ring_attention
+    mesh = _sp_mesh(dev)
+    rtol, atol = RING_TOL
+    worst = 0.0
+    for b, t, h, d in ((2, 32, 2, 8), (2, 400, 3, 64)):
+        rng = np.random.RandomState(t)
+        q, k, v, w = (torch.from_numpy(rng.randn(b, t, h, d).astype(
+            np.float32)).to(dev).requires_grad_() for _ in range(4))
+        res = []
+        for fn in (lambda: striped_ring_attention(q, k, v, mesh),
+                   lambda: _dense_causal(q, k, v)):
+            out = fn()
+            res.append([out.detach()] + list(torch.autograd.grad(
+                (out * w).sum(), (q, k, v))))
+        torch.cuda.synchronize()
+        for name, got, want in zip(("out", "dq", "dk", "dv"), *res):
+            err = (got - want).abs()
+            if not torch.isfinite(got).all() \
+                    or (err > atol + rtol * want.abs()).any():
+                raise AssertionError(
+                    "striped ring on %s vs dense causal, %s B=%d T=%d H=%d "
+                    "D=%d: max |err| %.3g" % (mesh, name, b, t, h, d,
+                                              err.max().item()))
+            worst = max(worst, err.max().item())
+    log("striped ring on a 4-rank mesh on one card vs dense causal "
+        "attention: out, dq, dk, dv agree at T=32 and T=400, max |err| "
+        "%.3g (rtol %g, atol %g)" % (worst, rtol, atol))
+
+
+def _dense_causal(q, k, v):
+    t = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(dim=-1), v)
+
+
+def _sp_trainer(dev, b, t, arg_params=None):
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import SequenceParallelTrainer
+    symbol = get_transformer_lm(VOCAB, num_layers=LAYERS, embed_dim=EMBED,
+                                num_heads=HEADS, impl="ring_striped")
+    return SequenceParallelTrainer(
+        symbol, {"data": (b, t), "softmax_label": (b, t)}, _sp_mesh(dev),
+        optimizer="sgd",
+        optimizer_params={"learning_rate": 1e-3, "momentum": 0.9},
+        seed=0).init_params(arg_params)
+
+
+def sp_main_path(K, dev):
+    """The 124M LM (impl="ring_striped") trained by SequenceParallelTrainer
+    on the mesh {dp: 1, sp: 4} over [cuda:0] * 4 at B=2, T=4096 (local
+    C=1024 a rank), f32, SGD lr 1e-3 momentum 0.9, rescale_grad 1/(B T),
+    the default Uniform(0.05) init from seed 0, on one repeated seeded
+    batch: WARM_STEPS steps, then TIMED_STEPS with the launch counters
+    zeroed just before and read just after. Per step, exactly 12 layers x
+    4 ranks x 4 hops = 192 launches of each striped_pair entry and 12 x 4
+    of fused_linear (each rank's ffn1 + relu chains). Returns the launch
+    counts of the timed steps."""
+    trainer = _sp_trainer(dev, SP_B, SP_T)
+    batch = _train_batch(7, SP_B, SP_T)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        losses.append(trainer.step(batch).item())
+    torch.cuda.synchronize()
+    log("sp train: 124M LM (%d layers, E=%d, %d heads, vocab %d, "
+        "impl=ring_striped), B=%d T=%d f32 on the mesh %s over %d x %s, "
+        "local C=%d; SGD lr 1e-3 momentum 0.9; %d warm-up steps in %.1f s"
+        % (LAYERS, EMBED, HEADS, VOCAB, SP_B, SP_T, SP_MESH, SP_RING, dev,
+           SP_T // SP_RING, WARM_STEPS, time.perf_counter() - t0))
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs, queued = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        nll = trainer.step(batch)
+        queued.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(nll.item())
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = dict.fromkeys(launches, 0)
+    per_step.update({e: LAYERS * SP_RING * SP_RING for e in SP_ENTRIES})
+    per_step["fused_linear"] = LAYERS * SP_RING
+    want = {e: n * TIMED_STEPS for e, n in per_step.items()}
+    if launches != want:
+        raise AssertionError("sp train launch counts %r, the main path "
+                             "wants %r" % (launches, want))
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0] - LOSS_FALL:
+        raise AssertionError("the SP loss on the repeated batch did not "
+                             "fall: %r" % losses)
+    tokens = SP_B * SP_T
+    tps = [tokens / s for s in secs]
+    log("sp train: %d timed steps; tokens/s median %.1f (min %.1f, max "
+        "%.1f); ms per step median %.3f (min %.3f, max %.3f); step() "
+        "returns after %.3f ms (median; min %.3f, max %.3f); peak memory "
+        "%.1f MB; %s" % (
+            TIMED_STEPS, statistics.median(tps), min(tps), max(tps),
+            statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
+            statistics.median(queued) * 1e3, min(queued) * 1e3,
+            max(queued) * 1e3, peak / 2**20, card_line()))
+    log("sp train: loss over the %d steps %s" % (
+        len(losses), " ".join("%.5f" % v for v in losses)))
+    log("sp train launches per step: %s" % json.dumps(
+        {e: n for e, n in per_step.items() if n}))
+    # gzipped: the 2 steps make a trace of over 30 MB
+    profile_train(trainer, batch, trace="sp_train_trace.json.gz",
+                  what="sp train")
+    return launches
+
+
+def _delta_rows(got, want):
+    """[(norm of the difference / norm of want, largest |difference| /
+    largest |want|, name)] per tensor, worst norm first."""
+    return sorted((((got[n] - dw).norm() / dw.norm()).item(),
+                   ((got[n] - dw).abs().max() / dw.abs().max()).item(), n)
+                  for n, dw in want.items())[::-1]
+
+
+def check_sp_against_flash(dev, b=1, t=1024):
+    """One f32 step of the 124M LM from the same seeded weights through
+    SequenceParallelTrainer(impl="ring_striped") on [cuda:0] * 4 and
+    through ParallelTrainer(impl="flash", device=None), both with
+    rescale_grad 1/(B T): every parameter's delta agrees within DELTA_REL
+    of its norm (the ReLU kink rule). The on-card oracle that the striped
+    ring is causal attention. The same step with impl="dense" is the
+    yardstick of what two correct attentions differ by at this length:
+    its distance from the flash step is reported beside the SP step's,
+    per tensor in the norm and in the largest element (where a few kink
+    flips show most)."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import ParallelTrainer
+
+    def single(impl):
+        symbol = get_transformer_lm(VOCAB, num_layers=LAYERS,
+                                    embed_dim=EMBED, num_heads=HEADS,
+                                    impl=impl)
+        return ParallelTrainer(
+            symbol, {"data": (b, t), "softmax_label": (b, t)},
+            optimizer="sgd",
+            optimizer_params={"learning_rate": 1e-3, "momentum": 0.9,
+                              "rescale_grad": 1.0 / (b * t)},
+            seed=0, device=None)
+
+    flash = single("flash")
+    params = _lm_params(flash.symbol, t, 5)
+    batch = _train_batch(13, b, t)
+    deltas = []
+    for tr in (_sp_trainer(dev, b, t, params), flash.init_params(params),
+               single("dense").init_params(params)):
+        before = {n: v.clone() for n, v in tr.params.items()}
+        tr.step(batch)
+        deltas.append({n: (tr.params[n] - before[n]).cpu() for n in before})
+        del tr, before
+    torch.cuda.synchronize()
+    sp, want, dense = deltas
+    rows, ref = _delta_rows(sp, want), _delta_rows(dense, want)
+    if not all(r[0] <= DELTA_REL for r in rows):
+        raise AssertionError(
+            "sp ring_striped vs flash step: worst deltas (norm, largest "
+            "element) %s (gate %g on the norm)" % (
+                ["%s %.3g %.3g" % (n, f, e) for f, e, n in rows[:5]],
+                DELTA_REL))
+    elem, ref_elem = max(rows, key=lambda r: r[1]), max(ref,
+                                                        key=lambda r: r[1])
+    log("sp vs flash: one f32 step of the 124M LM at B=%d T=%d, "
+        "SequenceParallelTrainer(ring_striped, sp=4 on one card) against "
+        "ParallelTrainer(flash); %d parameter deltas agree, worst in norm "
+        "%s %.3g (gate %g); worst element %s %.3g of its largest delta. "
+        "Yardstick, ParallelTrainer(dense) against flash: worst in norm %s "
+        "%.3g, worst element %s %.3g" % (
+            b, t, len(rows), rows[0][2], rows[0][0], DELTA_REL, elem[2],
+            elem[1], ref[0][2], ref[0][0], ref_elem[2], ref_elem[1]))
+
+
 # -- main -------------------------------------------------------------------
 
 def main():
@@ -1670,7 +2069,7 @@ def main():
     log("card: %s | nvidia-smi: %s | torch %s cuda %s" % (
         name, card, torch.__version__, torch.version.cuda))
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     secs = K.build()
     log("build: %.1f s wall (%s)" % (time.perf_counter() - t0, ", ".join(
         "%s %.1f s" % kv for kv in secs.items())))
@@ -1698,10 +2097,12 @@ def main():
     dgen = torch.Generator(device=dev).manual_seed(1)
     worst["matmul_stats"] = check_matmul_stats(K, dev, gen, dgen)
     worst["fused_conv_bn_act"] = check_fused_conv_bn_act(K, dev, gen, dgen)
+    worst.update(check_striped_pair(K, dev, gen))
     check_mha_gqa(dev)
     timed = time_kernels(K, dev, gen, worst)
     timed.update(time_train_kernels(K, dev, gen, worst))
     timed.update(time_cnn_kernels(K, dev, dgen, worst))
+    timed.update(time_striped_pair(K, dev, gen, worst))
     launches = serve_main_path(K, dev)
     check_small_against_host(dev)
     launches.update({e: n for e, n in train_main_path(K, dev).items()
@@ -1710,12 +2111,19 @@ def main():
     launches.update(train_resnet(K, dev))
     launches.update(eval_resnet(K, dev))
     check_resnet_against_host(dev)
+    check_ring_on_card(dev)
+    launches.update({e: n for e, n in sp_main_path(K, dev).items()
+                     if e in SP_ENTRIES})
+    check_sp_against_flash(dev)
     replaces = {
         "paged_attention": 1115, "quant_matmul": 1259,
         "fused_decode_attention": 1389,
         "flash_attention_fwd": 107,     # _attn_fwd_kernel
         "flash_attention_dq": 200,      # _attn_dq_kernel
         "flash_attention_dkv": 241,     # _attn_dkv_kernel
+        "striped_pair_fwd": 445,        # _spair_fwd_kernel
+        "striped_pair_dq": 491,         # _spair_dq_kernel
+        "striped_pair_dkv": 528,        # _spair_dkv_kernel
         "fused_linear": 725,            # _gemm_epi_kernel
         "fused_conv_bn_act": 838,
         "matmul_stats": 876}            # _gemm_stats_kernel
@@ -1729,8 +2137,11 @@ def main():
         launches=launches[e], max_abs_err=timed[e]["max_abs_err"],
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
-        library_ms=timed[e]["library_ms"], shape=timed[e]["shape"])
+        library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
+        **{k: timed[e][k] for k in ("gemm_ms", "bf16") if k in timed[e]})
         for e in K.SOURCE]}
+    log("chip_smoke: every phase passed in %.1f s"
+        % (time.perf_counter() - t_start))
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""``flash_attention``'s CUDA entries against another version of their
+source, in one process on one card.
+
+    python3 compare_flash.py --parent DIR
+
+DIR is a checkout of another commit (``git archive <commit> | tar -x -C
+DIR``). Its ``mxnet_tpu_torch/ops/csrc/flash_attention.cu`` is built beside
+this tree's; the same inputs go through both, and the outputs (o, lse,
+dcap, dQ, dK, dV) must be bitwise equal in four cases (the 124M LM's
+training shape, a windowed ragged T in bf16, non-causal f32, a windowed
+head_dim 32 f32). Then the three entries are timed at the 124M shape in
+turns (other, this, this, other) with ``chip_smoke.py``'s timer. Exits
+non-zero if any output differs. Needs a CUDA card and ``nvcc``.
+"""
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+CASES = [(8, 1024, 12, 64, True, 0, torch.bfloat16),
+         (2, 1000, 3, 64, True, 33, torch.bfloat16),
+         (2, 1000, 3, 64, False, 0, torch.float32),
+         (2, 77, 2, 32, True, 5, torch.float32)]
+
+
+def _load(K, path):
+    lib = ctypes.CDLL(path)
+    for e in K.ENTRIES["flash_attention"]:
+        fn = getattr(lib, "mx_" + e)
+        fn.restype = ctypes.c_int
+        fn.argtypes = K._ARGTYPES[e]
+    return lib
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="a checkout of the commit to compare against")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_flash: no CUDA device", flush=True)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cs.log(cs.card_line())
+    out = os.path.join(HERE, "build", "kernels", "other_flash_attention.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([K._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", out, os.path.join(
+                        os.path.abspath(args.parent), "mxnet_tpu_torch",
+                        "ops", "csrc", "flash_attention.cu")], check=True)
+    K.build(("flash_attention",))
+    libs = {"other": _load(K, out),
+            "this": _load(K, K._lib_path("flash_attention"))}
+    gen = torch.Generator().manual_seed(0)
+    P = K._ptr
+    timer = cs.Timer(dev)
+    differ = []
+    for b, t, h, d, causal, window, dt in CASES:
+        q, k, v, do = cs._flash_inputs(gen, b, t, h, d, dt, dev)
+        cfg = K._flash_kernel_args("flash_attention", q, k, v)
+        tail = (1.0 / d ** 0.5, int(causal), int(window), K._CODE[dt])
+        st = torch.cuda.current_stream().cuda_stream
+        res = {}
+        for name, lib in libs.items():
+            o = torch.empty_like(q)
+            lse = torch.empty((b * h, t), dtype=torch.float32, device=dev)
+            dcap = torch.empty_like(lse)
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            calls = {
+                "fwd": lambda lib=lib, o=o, lse=lse:
+                    lib.mx_flash_attention_fwd(
+                        P(q), P(k), P(v), P(o), P(lse), *cfg, *tail, st),
+                "dq": lambda lib=lib, o=o, lse=lse, dcap=dcap, dq=dq:
+                    lib.mx_flash_attention_dq(
+                        P(q), P(k), P(v), P(o), P(do), P(lse), P(dcap),
+                        P(dq), *cfg, *tail, st),
+                "dkv": lambda lib=lib, lse=lse, dcap=dcap, dk=dk, dv=dv:
+                    lib.mx_flash_attention_dkv(
+                        P(q), P(k), P(v), P(do), P(lse), P(dcap), P(dk),
+                        P(dv), *cfg, *tail, st)}
+            for entry, call in calls.items():
+                if call() != 0:
+                    raise RuntimeError("%s flash_attention_%s failed to "
+                                       "launch" % (name, entry))
+            torch.cuda.synchronize()
+            res[name] = ([x.clone() for x in (o, lse, dcap, dq, dk, dv)],
+                         calls)
+        same = all(torch.equal(x, y) for x, y in zip(res["other"][0],
+                                                     res["this"][0]))
+        tag = "B=%d T=%d H=%d D=%d causal=%s window=%d %s" % (
+            b, t, h, d, causal, window, dt)
+        cs.log("flash %s: other and this outputs (o, lse, dcap, dq, dk, dv) "
+               "bitwise equal: %s" % (tag, same))
+        if not same:
+            differ.append(tag)
+        if t == 1024:
+            for entry in ("fwd", "dq", "dkv"):
+                ms = [timer(res[n][1][entry])
+                      for n in ("other", "this", "this", "other")]
+                cs.log("time flash_attention_%-4s %s  other %.4f ms  this "
+                       "%.4f ms  this %.4f ms  other %.4f ms"
+                       % ((entry, tag) + tuple(ms)))
+    if differ:
+        raise AssertionError("flash outputs differ from the other "
+                             "version's in %s" % differ)
+    cs.log("compare_flash: all %d cases bitwise equal" % len(CASES))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

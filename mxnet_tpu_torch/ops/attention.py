@@ -3,9 +3,11 @@
 Counterpart of ``mxnet_tpu/ops/attention.py``: ``LayerNorm`` (l.21),
 ``PositionalEmbedding`` (l.49), ``rope_rotate`` (l.199) and
 ``MultiHeadAttention`` (l.221) with its full-sequence forward (l.334)
-through the ``flash_attention`` kernel or dense attention. The decoder
-never calls that forward: it reads the cache through the paged and fused
-kernels instead.
+through the ``flash_attention`` kernel, dense or blockwise attention, and
+the sequence-parallel ring impls (l.420-463), which run on all the ranks
+of a ring at once (``forward_ranks``, called by the SPMD walk of
+``parallel/graph.py``). The decoder never calls that forward: it reads the
+cache through the paged and fused kernels instead.
 """
 from __future__ import annotations
 
@@ -159,8 +161,10 @@ class MultiHeadAttention(OpSpec):
                shape_assign(in_shapes[4], (e,), "out_bias")]
         return ins, [d], []
 
-    def forward(self, p, ins, aux, is_train, generator):
-        x, wqkv, bqkv, wo, bo = ins
+    def _project(self, p, ins, off):
+        """q, k, v [B, T, H, D] of one rank's tokens, K/V broadcast to the
+        query heads, rope at positions ``off + [0, T)``."""
+        x, wqkv, bqkv = ins[:3]
         b, t, e = x.shape
         h = p["num_heads"]
         d = e // h
@@ -182,10 +186,15 @@ class MultiHeadAttention(OpSpec):
             if d % 2:
                 raise MXNetError("MultiHeadAttention: rope needs an even "
                                  "head dim, got %d" % d)
-            posv = torch.arange(t, device=x.device)
+            posv = off + torch.arange(t, device=x.device)
             q = rope_rotate(q, posv, p["rope_base"])
             k = rope_rotate(k, posv, p["rope_base"])
-        impl = p["impl"]
+        return q, k, v
+
+    @staticmethod
+    def _validate(p):
+        """The window and impl combinations the JAX package refuses;
+        returns the window."""
         window = p.get("window", 0)
         if window:
             # as infer_shape validates: the forward can run without shape
@@ -196,30 +205,104 @@ class MultiHeadAttention(OpSpec):
             if not p["causal"]:
                 raise MXNetError("MultiHeadAttention: window>0 is "
                                  "defined for causal attention only")
-        if impl == "flash":
-            o = kernels.flash_attention(q, k, v, causal=p["causal"],
-                                        window=window)
-        elif impl == "dense":
-            s_ = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
-            if p["causal"]:
-                qpos = torch.arange(t, device=x.device)[:, None]
-                kpos = torch.arange(t, device=x.device)[None, :]
-                mask = kpos <= qpos
-                if window:
-                    mask = mask & (qpos - kpos < window)
-                s_ = s_.masked_fill(~mask, float("-inf"))
-            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, dim=-1), v)
-        elif impl in ("blockwise", "ring", "ring_striped"):
-            raise MXNetError(
-                "MultiHeadAttention: impl=%r (parallel/ring.py: blockwise "
-                "and ring attention) belongs to a later slice of the "
-                "PyTorch port; use impl='flash' or 'dense'" % impl)
-        else:
-            raise MXNetError("MultiHeadAttention: unknown impl %r" % impl)
-        out = torch.nn.functional.linear(o.reshape(b, t, e), wo, bo)
+            if p["impl"] in ("ring", "ring_striped"):
+                raise MXNetError(
+                    "MultiHeadAttention: window>0 is not supported by "
+                    "the sp ring impls — short windows don't need "
+                    "sequence sharding; use impl='flash'/'blockwise'/"
+                    "'dense'")
+        if p["impl"] == "ring_striped" and not p["causal"]:
+            raise MXNetError("impl='ring_striped' is causal-only — "
+                             "striping exists to balance the causal "
+                             "mask; use impl='ring' for full attention")
+        return window
+
+    @staticmethod
+    def _output(p, o, ins, is_train, generator):
+        b, t, e = ins[0].shape
+        out = torch.nn.functional.linear(o.reshape(b, t, e), ins[3], ins[4])
         if is_train and p["dropout"] > 0.0:
             keep = 1.0 - p["dropout"]
             mask = torch.rand(out.shape, generator=generator,
                               device=out.device) < keep
             out = torch.where(mask, out / keep, torch.zeros_like(out))
-        return [out], []
+        return out
+
+    def is_collective(self, p):
+        """The ring impls attend across the ranks of mesh axis
+        ``axis_name``: the SPMD walk calls :meth:`forward_ranks`."""
+        return p["impl"] in ("ring", "ring_striped")
+
+    def forward(self, p, ins, aux, is_train, generator):
+        impl = p["impl"]
+        window = self._validate(p)
+        if self.is_collective(p):
+            raise MXNetError(
+                "MultiHeadAttention impl=%r needs the ranks of mesh axis "
+                "%r — train this symbol with SequenceParallelTrainer, or "
+                "use impl='flash'/'dense' for single-program execution"
+                % (impl, p["axis_name"]))
+        q, k, v = self._project(p, ins, 0)
+        t, d = q.shape[1], q.shape[3]
+        if impl == "flash":
+            o = kernels.flash_attention(q, k, v, causal=p["causal"],
+                                        window=window)
+        elif impl == "blockwise":
+            from ..parallel.ring import blockwise_attention
+            o = blockwise_attention(q, k, v, causal=p["causal"],
+                                    window=window)
+        elif impl == "dense":
+            s_ = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+            if p["causal"]:
+                qpos = torch.arange(t, device=q.device)[:, None]
+                kpos = torch.arange(t, device=q.device)[None, :]
+                mask = kpos <= qpos
+                if window:
+                    mask = mask & (qpos - kpos < window)
+                s_ = s_.masked_fill(~mask, float("-inf"))
+            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, dim=-1), v)
+        else:
+            raise MXNetError("MultiHeadAttention: unknown impl %r" % impl)
+        return [self._output(p, o, ins, is_train, generator)], []
+
+    def forward_ranks(self, p, ins_by_rank, is_train, generators):
+        """The forward on every rank of one ring along ``axis_name`` at
+        once: ``ins_by_rank[r]`` are rank r's inputs, its data the
+        contiguous tokens ``[r T, (r+1) T)``. ``impl="ring"`` rotates K/V
+        around the ring; ``"ring_striped"`` re-deals the tokens
+        round-robin with one all_to_all, runs the striped ring (the
+        ``striped_pair_attention`` kernel) and deals back. Returns each
+        rank's outputs."""
+        from ..parallel import collectives
+        from ..parallel.ring import _ring_attention_local, _striped_ring_local
+        self._validate(p)
+        n = len(ins_by_rank)
+        t = ins_by_rank[0][0].shape[1]
+        qkv = [self._project(p, ins, r * t)
+               for r, ins in enumerate(ins_by_rank)]
+        qs, ks, vs = (list(z) for z in zip(*qkv))
+        if p["impl"] == "ring":
+            os_ = _ring_attention_local(qs, ks, vs, causal=p["causal"],
+                                        scale=None)
+        else:
+            if t % n:
+                raise MXNetError(
+                    "impl='ring_striped': local length %d not divisible "
+                    "by ring size %d" % (t, n))
+            b, _, h, d = qs[0].shape
+
+            def deal(zs):  # contiguous shards -> striped shards
+                zs = [z.reshape(b, t // n, n, h, d).transpose(1, 2)
+                      for z in zs]
+                return [z.reshape(b, t, h, d)
+                        for z in collectives.all_to_all(zs, 1, 1)]
+
+            def undeal(zs):  # striped shards -> contiguous shards
+                zs = [z.reshape(b, n, t // n, h, d) for z in zs]
+                return [z.transpose(1, 2).reshape(b, t, h, d)
+                        for z in collectives.all_to_all(zs, 1, 1)]
+
+            os_ = undeal(_striped_ring_local(deal(qs), deal(ks), deal(vs),
+                                             scale=None))
+        return [[self._output(p, o, ins, is_train, g)]
+                for o, ins, g in zip(os_, ins_by_rank, generators)]

@@ -26,6 +26,11 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
   with the statistics taken from the f32 accumulator, differentiable (the
   backward folds the statistics' cotangents into the output's and makes
   two plain products).
+* :func:`striped_pair_attention` (l.664): one hop of the striped causal
+  ring, ``(o, lse)`` under the mask ``a*n + q_off >= b*n + k_off``,
+  differentiable in both outputs: the flash kernels of
+  ``csrc/attention.cuh`` with the striped mask, the lse cotangent folded
+  into the backward's row term.
 
 The kernels live in ``csrc/*.cu`` (CUDA C++ for ``sm_90a``). Each source
 is compiled by ``nvcc`` into its own shared library with a plain C
@@ -63,18 +68,22 @@ __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
            "paged_attention_plain", "quant_matmul_plain",
            "fused_decode_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_fwd_plain",
-           "flash_attention_bwd_plain", "fused_linear_fwd",
+           "flash_attention_bwd_plain", "striped_pair_attention",
+           "striped_pair_attention_fwd", "striped_pair_attention_bwd",
+           "striped_pair_attention_plain",
+           "striped_pair_attention_bwd_plain", "fused_linear_fwd",
            "fused_linear_plain", "build", "launch_counts",
            "reset_launch_counts", "KERNELS", "ENTRIES", "SOURCE"]
 
 # the sources build() compiles
 KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
-           "flash_attention", "fused_linear", "matmul_stats")
+           "flash_attention", "striped_pair_attention", "fused_linear",
+           "matmul_stats")
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
-_HEADERS = ("common.cuh", "gemm.cuh")
+_HEADERS = ("common.cuh", "gemm.cuh", "attention.cuh")
 
 _LIBS = {}
 
@@ -180,6 +189,8 @@ ENTRIES = {
     "fused_decode_attention": ("fused_decode_attention",),
     "flash_attention": ("flash_attention_fwd", "flash_attention_dq",
                         "flash_attention_dkv"),
+    "striped_pair_attention": ("striped_pair_fwd", "striped_pair_dq",
+                               "striped_pair_dkv"),
     "fused_linear": ("fused_linear", "fused_conv_bn_act"),
     "matmul_stats": ("matmul_stats",),
 }
@@ -207,6 +218,14 @@ _ARGTYPES = {
     # causal, window, dtype, stream
     "flash_attention_dkv": [_P] * 8 + [_I] * 5 + [_L] * 6
     + [_F, _I, _I, _I, _P],
+    # q, k, v, o, lse, BH, Cq, Ck, D, scale, n, q_off, k_off, dtype, stream
+    "striped_pair_fwd": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    # q, k, v, o, do, lse, g_lse, dcap, dq, BH, Cq, Ck, D, scale, n, q_off,
+    # k_off, dtype, stream
+    "striped_pair_dq": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    # q, k, v, do, lse, dcap, dk, dv, BH, Cq, Ck, D, scale, n, q_off, k_off,
+    # dtype, stream
+    "striped_pair_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     # x, w, scale, bias, out, M, N, K, act, dtype, stream
     "fused_linear": [_P] * 5 + [_I] * 5 + [_P],
     # patches, w, scale, bias, out, M, N, K, act, dtype, stream
@@ -801,6 +820,183 @@ def flash_attention(q, k, v, *, causal=False, scale=None, window=0):
     values (slices of a packed qkv projection): the kernels read them in
     place; gradients come back contiguous."""
     return _FlashAttention.apply(q, k, v, bool(causal), scale, int(window))
+
+
+# -- striped_pair_attention ---------------------------------------------------
+
+def _striped_mask(cq, ck, q_off, k_off, n, device):
+    """[cq, ck] bool: local key b visible from local query a on a striped
+    hop, ``a*n + q_off >= b*n + k_off`` (the kernels' ``visible``)."""
+    a = torch.arange(cq, device=device)[:, None]
+    b = torch.arange(ck, device=device)[None, :]
+    return a * n + q_off >= b * n + k_off
+
+
+def striped_pair_attention_plain(q, k, v, q_off, k_off, n_stride,
+                                 scale=None):
+    """Plain PyTorch version of :func:`striped_pair_attention_fwd`: dense
+    f32 scores under the striped mask, ``o`` normalized over the visible
+    keys and ``lse`` [BH, Cq, 1]; a row with no visible key gets o = 0 and
+    lse = -1e30 (``_spair_fwd_kernel``, l.482-485)."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mask = _striped_mask(q.shape[1], k.shape[1], q_off, k_off, n_stride,
+                         q.device)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    den = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bqk,bkd->bqd", p / den.clamp_min(1e-30), v.float())
+    lse = torch.where(den > 0, m + torch.log(den.clamp_min(1e-30)),
+                      torch.full_like(den, -1e30))
+    return o.to(q.dtype), lse
+
+
+def striped_pair_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse, q_off,
+                                     k_off, n_stride, scale=None):
+    """Plain PyTorch version of :func:`striped_pair_attention_bwd`: the
+    kernels' recompute on whole matrices in f32, with the lse cotangent in
+    the row term, ``dcap = rowsum(g_o * o) - g_lse`` (``_spair_bwd_impl``,
+    l.598-606)."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mask = _striped_mask(q.shape[1], k.shape[1], q_off, k_off, n_stride,
+                         q.device)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
+    dof = g_o.float()
+    dcap = (dof * o.float()).sum(dim=-1, keepdim=True) - g_lse.float()
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    ds = p * (dp - dcap) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_spair(q, k, v, q_off, k_off, n_stride):
+    _check(q.dim() == 3 and k.dim() == 3 and k.shape == v.shape
+           and q.shape[0] == k.shape[0] and q.shape[2] == k.shape[2],
+           "striped_pair_attention: q [BH, Cq, D] and k, v [BH, Ck, D] "
+           "needed, got %s %s %s", tuple(q.shape), tuple(k.shape),
+           tuple(v.shape))
+    _check(q.dtype in _FLASH_D and k.dtype == q.dtype and v.dtype == q.dtype,
+           "striped_pair_attention: q, k, v must share one dtype, f32 or "
+           "bf16")
+    _check(n_stride >= 1 and 0 <= q_off < n_stride and 0 <= k_off < n_stride,
+           "striped_pair_attention: ring positions q_off=%r, k_off=%r must "
+           "lie in [0, n_stride=%r)", q_off, k_off, n_stride)
+
+
+def _spair_kernel_args(name, q, k, *tensors):
+    """The shape the C entries take; every tensor contiguous, the bf16
+    ones on 16-byte boundaries (the kernels load rows in 16-byte
+    pieces)."""
+    bh, cq, d = q.shape
+    _check(d in _FLASH_D[q.dtype],
+           "%s: the kernel takes head_dim in %s for %s, got %d", name,
+           _FLASH_D[q.dtype], q.dtype, d)
+    _check(bh <= 65535, "%s: at most 65535 (batch, head) pairs", name)
+    _contig(*tensors)
+    if q.dtype == torch.bfloat16:
+        _aligned(16, *tensors)
+    return bh, cq, k.shape[1], d
+
+
+def striped_pair_attention_fwd(q, k, v, q_off, k_off, *, n_stride,
+                               scale=None):
+    """Forward of one striped hop: ``(o [BH, Cq, D] in q's dtype, lse
+    [BH, Cq, 1] f32)``."""
+    _check_spair(q, k, v, q_off, k_off, n_stride)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_cuda(q, k, v):
+        return striped_pair_attention_plain(q, k, v, q_off, k_off, n_stride,
+                                            scale)
+    cfg = _spair_kernel_args("striped_pair_fwd", q, k, ("q", q), ("k", k),
+                             ("v", v))
+    o = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32,
+                      device=q.device)
+    _launch("striped_pair_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(lse), *cfg, float(scale), int(n_stride), int(q_off),
+            int(k_off), _CODE[q.dtype])
+    return o, lse
+
+
+def striped_pair_attention_bwd(q, k, v, o, lse, g_o, g_lse, q_off, k_off, *,
+                               n_stride, scale=None):
+    """Backward of :func:`striped_pair_attention_fwd` from the cotangents of
+    both outputs: ``(dq, dk, dv)`` in q's, k's and v's dtypes. On the card,
+    the dQ kernel (which also writes ``dcap = rowsum(g_o * o) - g_lse``)
+    and then the dK/dV kernel."""
+    _check_spair(q, k, v, q_off, k_off, n_stride)
+    _check(o.shape == q.shape and g_o.shape == q.shape
+           and lse.shape == q.shape[:2] + (1,) and g_lse.shape == lse.shape,
+           "striped_pair_attention_bwd: o and g_o must be shaped like q, "
+           "lse and g_lse [BH, Cq, 1]")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_cuda(q, k, v, o, lse, g_o, g_lse):
+        return striped_pair_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse,
+                                                q_off, k_off, n_stride, scale)
+    g_o = g_o.to(q.dtype).contiguous()
+    g_lse = g_lse.to(torch.float32).contiguous()
+    cfg = _spair_kernel_args(
+        "striped_pair_bwd", q, k, ("q", q), ("k", k), ("v", v), ("o", o),
+        ("g_o", g_o), ("lse", lse), ("g_lse", g_lse)) \
+        + (float(scale), int(n_stride), int(q_off), int(k_off),
+           _CODE[q.dtype])
+    dcap = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch("striped_pair_dq", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(g_o), _ptr(lse), _ptr(g_lse), _ptr(dcap), _ptr(dq), *cfg)
+    _launch("striped_pair_dkv", _ptr(q), _ptr(k), _ptr(v), _ptr(g_o),
+            _ptr(lse), _ptr(dcap), _ptr(dk), _ptr(dv), *cfg)
+    return dq, dk, dv
+
+
+class _StripedPair(torch.autograd.Function):
+    """Forward kernel; backward the dQ and dK/dV kernels from the
+    cotangents of o and lse (the JAX package's ``_spair_core`` custom VJP,
+    l.628-657)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_off, k_off, n_stride, scale):
+        o, lse = striped_pair_attention_fwd(q, k, v, q_off, k_off,
+                                            n_stride=n_stride, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (q_off, k_off, n_stride, scale)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        q_off, k_off, n_stride, scale = ctx.cfg
+        dq, dk, dv = striped_pair_attention_bwd(
+            q, k, v, o, lse, g_o, g_lse, q_off, k_off, n_stride=n_stride,
+            scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def striped_pair_attention(q, k, v, q_off, k_off, *, n_stride, scale=None):
+    """One striped ring hop, differentiable in both outputs.
+
+    q: [BH, Cq, D], k, v: [BH, Ck, D] (f32 or bf16), local row ``a`` of q
+    at global position ``a*n_stride + q_off`` and row ``b`` of k, v at
+    ``b*n_stride + k_off``; ``q_off``/``k_off`` are host ints in
+    ``[0, n_stride)`` (the ranks' positions on the ring). Key ``b`` is
+    visible from query ``a`` when ``a*n + q_off >= b*n + k_off``. Returns
+    ``(o [BH, Cq, D] in q's dtype, lse [BH, Cq, 1] f32)``: o normalized
+    over the visible keys, lse the per-row logsumexp (-1e30 where no key
+    is visible), to be merged with other hops by ``logaddexp``. The JAX
+    package's ``block_q``/``block_k`` are TPU tile sizes; the kernels have
+    their own tiles and take no such argument."""
+    return _StripedPair.apply(q, k, v, int(q_off), int(k_off),
+                              int(n_stride), scale)
 
 
 # -- fused_linear -------------------------------------------------------------

@@ -80,6 +80,12 @@ class OpSpec:
         """Auxiliary (non-differentiable, op-mutated) state names."""
         return []
 
+    def is_collective(self, p):
+        """True for an op that computes across the ranks of a mesh axis
+        (ring attention): the SPMD walk of ``parallel/graph.py`` then calls
+        its ``forward_ranks`` with every rank's inputs at once."""
+        return False
+
     def integer_arguments(self, p):
         """Argument names whose values are INDICES (class ids, token ids).
         Mixed-precision compute casts must skip them: bfloat16 represents

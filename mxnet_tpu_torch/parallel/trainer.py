@@ -25,7 +25,9 @@ Semantics kept from the JAX package:
   gradient (l.432-484);
 * the aux states (BatchNorm's moving statistics) stay f32 across steps
   in any compute dtype (l.424-427); ``forward()`` is the eval path, where
-  each conv -> BatchNorm chain runs as ``fused_conv_bn_act``.
+  each conv -> BatchNorm chain runs as ``fused_conv_bn_act``. It runs on
+  the f32 parameters and the batch as given, in any compute dtype
+  (``_build_eval``, l.506-515).
 
 Meshes, sharding rules, ZeRO-1, FSDP, rematerialization, ``prefetch``,
 ``multi_step`` and ``fit`` belong to later slices of the port.
@@ -315,13 +317,17 @@ class ParallelTrainer:
 
     @torch.no_grad()
     def forward(self, batch):
-        """Inference forward (no aux update); returns the outputs."""
+        """Inference forward (no aux update); returns the outputs. As the
+        JAX package's ``_build_eval`` (l.506-515), it runs on the f32
+        master parameters and the batch as given, with no cast to
+        ``compute_dtype``: a bf16 trainer's ``forward()`` computes in
+        f32."""
         if self.params is None:
             self.init_params()
         batch = self._batch(batch, "forward")
-        pvals = self._views(self._cast(self._flat))
-        outs, _ = self._graph_fn(self._inputs(pvals, batch),
-                                 list(self.aux), False, self._gen)
+        vals = [self.params[n] if n in self.params else batch[n]
+                for n in self.arg_names]
+        outs, _ = self._graph_fn(vals, list(self.aux), False, self._gen)
         return outs
 
     def prefetch(self, batches, depth=2):

@@ -131,7 +131,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert K.launch_counts() == dict.fromkeys(K.SOURCE, 0)
     assert set(K.KERNELS) == {"paged_attention", "quant_matmul",
                               "fused_decode_attention", "flash_attention",
-                              "fused_linear", "matmul_stats"}
+                              "striped_pair_attention", "fused_linear",
+                              "matmul_stats"}
 
 
 def test_bf16_inputs_on_cpu():
