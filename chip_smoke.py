@@ -13,7 +13,10 @@ Phases:
    shapes the 124M LM's serving and training paths and ResNet-50 give it
    and at small ragged shapes, in every mode, each to a stated tolerance:
    the serving kernels (int8/int4 weights, float/int8 KV, C = 1/5/64/256,
-   GQA, rope on/off, f32 and bf16); ``flash_attention`` forward, dQ and
+   GQA, rope on/off, f32 and bf16; ``paged_attention``'s chunk entry at
+   C = 16/64/100/128/256, pos 0, 512 and L-C, one and three slots, GQA,
+   and with NaN in the dead cache rows, each case asserted on the entry
+   its route picks); ``flash_attention`` forward, dQ and
    dK/dV (B=8 T=1024 12 heads of 64 causal bf16; T=100 and T=1000,
    non-causal, window 33, f32 and bf16, head_dim 8-128) and through
    ``MultiHeadAttention`` with GQA, rope and a window against the host;
@@ -34,7 +37,8 @@ Phases:
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
    there is one (``fused_conv_bn_act`` in f32, the eval forward's path,
-   with its bf16 row beside it);
+   with its bf16 row beside it; the paged chunk at C = 64/128/256 beside
+   the scalar paged entry on the same inputs, in turns);
 4. the serving main path: the 124M LM (12 layers, E=768, 12 heads, vocab
    32000, seeded random weights) saved with ``save_checkpoint`` and served
    by ``InferenceEngine.from_checkpoint`` with paged attention, int8
@@ -43,13 +47,19 @@ Phases:
    greedy requests; the launch counters are zeroed just before the first
    wave and read just after the last; every wave's streams equal the
    first's, two requests' streams equal the offline ``Decoder.generate``,
-   and the same 124M LM rebuilt on the host (plain versions) agrees with
-   the card's logits and tokens to a stated bf16 tolerance; then a
-   profiled window of decode rounds with every slot busy (wall and kernel
-   time per step, the card's idle share, the kernels by device time; the
-   trace goes to ``chiprun_out/``); then small LMs in the decoder's other
-   modes (int4 weights, the int8 KV cache through the C=1 paged read,
-   float weights, rope, GQA) are held against the plain path on the host;
+   each prefill chunk goes through ``paged_attention_chunk`` (12 launches
+   a prefill, none of the scalar entry), and the same 124M LM rebuilt on
+   the host (plain versions) agrees with the card's logits and tokens to
+   a stated bf16 tolerance; then a profiled window of decode rounds with
+   every slot busy (wall and kernel time per step, the card's idle share,
+   the kernels by device time; the trace goes to ``chiprun_out/``); one
+   256-token prefill's wall and card time; then the same checkpoint
+   served with the int8 KV cache, the scalar ``paged_attention`` entry's
+   path (one wave, counters zeroed just before and read just after,
+   exact launches, two streams equal to ``Decoder.generate``); then small
+   LMs in the decoder's other modes (int4 weights, the int8 KV cache
+   through the C=1 paged read, float weights, rope, GQA) are held against
+   the plain path on the host;
 5. the training main path: the same 124M LM (``impl="flash"``) trained by
    ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
    0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
@@ -277,36 +287,84 @@ def check_quant_matmul(K, dev, gen):
     return worst
 
 
-def check_paged_attention(K, dev, gen):
-    """Float and int8 KV, C in {1, 5, 64, 256}, GQA 12->4, pos at 0, in
-    the middle and at L-C; f32 and bf16; the 124M shapes in bf16."""
+def paged_cases():
+    """(S, C, H, KV, D, L, cache, q dtype, pos, dead rows NaN): float and
+    int8 KV, C in {1, 5, 64, 256}, GQA 12->4, pos at 0, in the middle and at
+    L-C; f32 and bf16; the 124M shapes in bf16. Then the bf16 chunks the
+    chunk entry takes: C in {16, 64, 100, 128, 256}, pos 0, 512 and L-C
+    (L=1024), one slot and three slots at those three positions, GQA 12->4
+    and 12->12, cases whose cache rows past each slot's live keys hold NaN
+    (never read), and head_dim 16, 32 and 128."""
+    bf = torch.bfloat16
     cases = []
     for kind in ("f32", "bf16", "int8"):
-        for qdt in (torch.float32, torch.bfloat16):
+        for qdt in (torch.float32, bf):
             for c in (1, 5):
                 for h, kv in ((12, 4), (4, 4)):
                     cases.append((3, c, h, kv, 64, 64, kind, qdt,
-                                  [0, 31, 64 - c]))
-    cases.append((2, 64, 12, 4, 64, 128, "int8", torch.bfloat16, [0, 64]))
-    cases.append((1, 256, 12, 12, 64, 1024, "bf16", torch.bfloat16, [0]))
-    cases.append((1, 256, 12, 12, 64, 1024, "int8", torch.bfloat16, [0]))
-    cases.append((1, 64, 12, 12, 64, 1024, "bf16", torch.bfloat16, [0]))
-    cases.append((32, 1, 12, 12, 64, 1024, "bf16", torch.bfloat16, None))
-    worst = 0.0
-    for s_, c, h, kv, d, l_, kind, qdt, pos in cases:
+                                  [0, 31, 64 - c], False))
+    cases.append((2, 64, 12, 4, 64, 128, "int8", bf, [0, 64], False))
+    cases.append((1, 256, 12, 12, 64, 1024, "bf16", bf, [0], False))
+    cases.append((1, 256, 12, 12, 64, 1024, "int8", bf, [0], False))
+    cases.append((1, 64, 12, 12, 64, 1024, "bf16", bf, [0], False))
+    cases.append((32, 1, 12, 12, 64, 1024, "bf16", bf, None, False))
+    for c in (16, 64, 100, 128, 256):
+        for h, kv in ((12, 12), (12, 4)):
+            at = [0, 512, 1024 - c]
+            cases += [(1, c, h, kv, 64, 1024, "bf16", bf, [p], False)
+                      for p in at]
+            cases.append((3, c, h, kv, 64, 1024, "bf16", bf, at, False))
+    cases += [(3, 100, 12, 4, 64, 1024, "bf16", bf, [0, 300, 924], True),
+              (1, 256, 12, 12, 64, 1024, "bf16", bf, [0], True)]
+    cases += [(2, 100, 4, 2, d, 256, "bf16", bf, [0, 156], False)
+              for d in (16, 32, 128)]
+    return cases
+
+
+def check_paged_attention(K, dev, gen):
+    """Every case of ``paged_cases`` against the plain version, on the C
+    entry ``K.paged_entry`` picks for it (asserted from the launch
+    counters). A case with NaN past each slot's live rows is held against
+    the plain version slot by slot (it reads up to the largest pos + C of
+    its batch). Returns {entry: max |err|}."""
+    worst = {"paged_attention": 0.0, "paged_attention_chunk": 0.0}
+    counts = dict.fromkeys(worst, 0)
+    for s_, c, h, kv, d, l_, kind, qdt, pos, nan in paged_cases():
         if pos is None:
             pos = torch.randint(0, l_ - c + 1, (s_,), generator=gen)
         pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
         q = _rand(gen, (s_, c, h, d), qdt).to(dev)
         k, v, ks, vs = _cache(gen, s_, l_, kv, d, kind, dev)
+        if nan:
+            for i, p in enumerate(pos.tolist()):
+                k[i, p + c:] = float("nan")
+                v[i, p + c:] = float("nan")
+        entry = K.paged_entry(q.dtype, k.dtype, c, d)
+        before = K.launch_counts()
         got = K.paged_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
-        want = K.paged_attention_plain(q, k, v, pos, ks, vs)
+        after = K.launch_counts()
+        if nan:
+            want = torch.cat([K.paged_attention_plain(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], pos[i:i + 1])
+                for i in range(s_)])
+        else:
+            want = K.paged_attention_plain(q, k, v, pos, ks, vs)
         torch.cuda.synchronize()
-        err = compare("paged_attention s=%d c=%d h=%d kv=%d l=%d %s %s" % (
-            s_, c, h, kv, l_, kind, qdt), got, want)
-        worst = max(worst, err)
-    log("paged_attention: %d cases agree, max |err| %.3g"
-        % (len(cases), worst))
+        ran = {e for e in after if after[e] != before[e]}
+        if ran != {entry}:
+            raise AssertionError("paged_attention s=%d c=%d %s %s launched %s,"
+                                 " its route is %s" % (s_, c, kind, qdt,
+                                                       sorted(ran), entry))
+        err = compare("%s s=%d c=%d h=%d kv=%d l=%d pos=%s %s %s%s" % (
+            entry, s_, c, h, kv, l_, pos.tolist()[:3], kind, qdt,
+            " NaN past the live rows" if nan else ""), got, want)
+        worst[entry] = max(worst[entry], err)
+        counts[entry] += 1
+    log("paged_attention: %d cases agree, %d on the chunk entry (%d with "
+        "NaN past the live rows); max |err| %s" % (
+            sum(counts.values()), counts["paged_attention_chunk"],
+            sum(1 for cs in paged_cases() if cs[-1]),
+            {k_: "%.3g" % v_ for k_, v_ in worst.items()}))
     return worst
 
 
@@ -397,37 +455,62 @@ def time_kernels(K, dev, gen, worst):
         if what == "lm_head" and m == 32:
             entries["quant_matmul"] = r
 
-    # paged_attention: the prefill chunk of the largest bucket (C=256 at
-    # pos 0, the main path) and a C=1 read over 32 slots
-    for s_, c, pos in ((1, 256, [0]), (32, 1, None)):
-        l_, h, d = 1024, 12, 64
+    # paged_attention: the serving buckets' prefill chunks (C = 64, 128,
+    # 256 at pos 0) on the chunk entry, each beside the scalar entry on the
+    # same inputs; then C=1 reads over 32 slots on the scalar entry, with a
+    # bf16 cache and with the int8 cache the int8-KV serving path reads
+    # (the kernels line's row of the scalar entry)
+    l_, h, d = 1024, 12, 64
+    for s_, c, pos, kind in ((1, 64, [0], "bf16"), (1, 128, [0], "bf16"),
+                             (1, 256, [0], "bf16"), (32, 1, None, "bf16"),
+                             (32, 1, None, "int8")):
         if pos is None:
             pos = torch.randint(0, l_, (s_,), generator=gen)
         pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
         q = _rand(gen, (s_, c, h, d), torch.bfloat16).to(dev)
-        k, v, _, _ = _cache(gen, s_, l_, h, d, "bf16", dev)
+        k, v, ks, vs = _cache(gen, s_, l_, h, d, kind, dev)
         keys = [int(p) + cc + 1 for p in pos.tolist() for cc in range(c)]
         live_rows = sum(int(p) + c for p in pos.tolist())
-        nb = nbytes(q) * 2 + live_rows * h * d * 2 * 2
+        nb = nbytes(q) * 2 + live_rows * h * d * k.element_size() * 2 \
+            + (live_rows * h * 4 * 2 if ks is not None else 0)
         flops = 4 * h * d * sum(keys)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if c == 1:
+        entry = K.paged_entry(q.dtype, k.dtype, c, d)
+        shape = "S=%d C=%d H=12 L=1024 %s KV" % (s_, c, kind)
+        lib = None
+        if c == 1 and kind == "bf16":
             mask = (torch.arange(l_, device=dev)[None, :]
                     <= pos[:, None].long())[:, None, None, :]
 
             def lib():
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=mask)
-        else:
+        elif c > 1:
             def lib():
                 return F.scaled_dot_product_attention(
                     qt, kt[:, :, :c], vt[:, :, :c], is_causal=True)
-        r = row("paged_attention", "S=%d C=%d H=12 L=1024" % (s_, c),
-                lambda: K.paged_attention(q, k, v, pos),
-                lambda: K.paged_attention_plain(q, k, v, pos),
+
+        def wrapper():
+            return K.paged_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+        r = row(entry, shape, wrapper,
+                lambda: K.paged_attention_plain(q, k, v, pos, ks, vs),
                 lib, nb, flops, torch.bfloat16)
-        if c == 256:
-            entries["paged_attention"] = r
+        if entry == "paged_attention_chunk":
+            out = torch.empty_like(q)
+            P = K._ptr
+
+            def scalar():
+                K._launch("paged_attention", P(q), P(k), P(v), None, None,
+                          P(pos), P(out), s_, c, h, h, l_, d,
+                          1.0 / math.sqrt(d), K._CODE[q.dtype],
+                          K._CODE[k.dtype])
+            sms = [timer(f) for f in (scalar, wrapper, wrapper, scalar)]
+            log("  A/B %s: scalar entry %.4f ms, chunk entry %.4f ms, chunk "
+                "%.4f ms, scalar %.4f ms (same inputs, in turns)"
+                % ((shape,) + tuple(sms)))
+            r["scalar_ms"] = statistics.median([sms[0], sms[3]])
+        if c == 256 or (c == 1 and kind == "int8"):
+            entries[entry] = r
 
     # fused_decode_attention: one decode step of one attention node
     s_, h, d, l_ = 32, 12, 64, 1024
@@ -483,18 +566,21 @@ def _flash_inputs(gen, b, t, h, d, dtype, dev):
 
 
 def flash_cases():
-    """(B, T, H, D, causal, window, dtype): the 124M training shape, then
-    ragged lengths (T=100, T=1000: not multiples of the 64-row tiles),
-    non-causal and windowed, f32 and bf16, and every head_dim the kernels
-    take."""
+    """(B, T, H, D, causal, window, dtype, scale): the 124M training shape,
+    then ragged lengths (T=100, T=1000: not multiples of the 64-row tiles),
+    non-causal and windowed, f32 and bf16, every head_dim the kernels take,
+    and a negative and a zero scale (None: 1/sqrt(D))."""
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(8, 1024, 12, 64, True, 0, bf)]
+    cases = [(8, 1024, 12, 64, True, 0, bf, None)]
     for dt in (f32, bf):
         for t in (100, 1000):
-            cases += [(2, t, 3, 64, True, 0, dt), (2, t, 3, 64, False, 0, dt),
-                      (2, t, 3, 64, True, 33, dt)]
+            cases += [(2, t, 3, 64, True, 0, dt, None),
+                      (2, t, 3, 64, False, 0, dt, None),
+                      (2, t, 3, 64, True, 33, dt, None)]
         for d in (16, 32, 128) + ((8,) if dt is f32 else ()):
-            cases.append((2, 77, 2, d, True, 5 if d == 32 else 0, dt))
+            cases.append((2, 77, 2, d, True, 5 if d == 32 else 0, dt, None))
+        cases += [(2, 100, 3, 64, True, 0, dt, -0.125),
+                  (2, 100, 3, 64, False, 0, dt, 0.0)]
     return cases
 
 
@@ -504,17 +590,17 @@ def check_flash_attention(K, dev, gen):
     errors: {entry: max |err|}."""
     worst = {"flash_attention_fwd": 0.0, "flash_attention_dq": 0.0,
              "flash_attention_dkv": 0.0}
-    for b, t, h, d, causal, window, dt in flash_cases():
+    for b, t, h, d, causal, window, dt, scale in flash_cases():
         q, k, v, do = _flash_inputs(gen, b, t, h, d, dt, dev)
-        kw = dict(causal=causal, window=window)
-        tag = "B=%d T=%d H=%d D=%d causal=%s window=%d %s" % (
-            b, t, h, d, causal, window, dt)
+        kw = dict(causal=causal, window=window, scale=scale)
+        tag = "B=%d T=%d H=%d D=%d causal=%s window=%d scale=%s %s" % (
+            b, t, h, d, causal, window, scale, dt)
         o, lse = K.flash_attention_fwd(q, k, v, **kw)
-        o_p, lse_p = K.flash_attention_fwd_plain(q, k, v, causal, None,
+        o_p, lse_p = K.flash_attention_fwd_plain(q, k, v, causal, scale,
                                                  window)
         grads = K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         grads_p = K.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                              None, window)
+                                              scale, window)
         torch.cuda.synchronize()
         worst["flash_attention_fwd"] = max(
             worst["flash_attention_fwd"],
@@ -1129,7 +1215,8 @@ def serve_main_path(K, dev):
     """The 124M LM through save_checkpoint -> InferenceEngine.
     from_checkpoint -> WAVES waves of the same staggered greedy requests.
     Returns the launch counts of the served waves (counters zeroed just
-    before the first and read just after the last)."""
+    before the first and read just after the last), the checkpoint's
+    prefix and the requests."""
     from mxnet_tpu_torch.model import save_checkpoint
     from mxnet_tpu_torch.models import get_transformer_lm
     from mxnet_tpu_torch.serving import InferenceEngine
@@ -1190,7 +1277,9 @@ def serve_main_path(K, dev):
                     "the first wave's on the same prompt" % h.id)
     want = dict.fromkeys(launches, 0)   # the training entries stay 0
     want.update({"fused_decode_attention": LAYERS * steps,
-                 "paged_attention": LAYERS * prefills,
+                 # every prefill chunk (C = 64, 128, 256, bf16) takes the
+                 # chunk entry; the scalar one stays 0
+                 "paged_attention_chunk": LAYERS * prefills,
                  # per decode step: ffn1, ffn2 per layer + lm_head; per
                  # prefill also the qkv and out projections
                  "quant_matmul": (2 * LAYERS + 1) * steps
@@ -1227,6 +1316,101 @@ def serve_main_path(K, dev):
     log("main path launches: %s" % json.dumps(launches))
     check_main_against_host(prefix, dec, checked)
     profile_decode(engine, rs)
+    time_prefill(K, dec)
+    return launches, prefix, work
+
+
+def time_prefill(K, dec, reps=10, profiled=3):
+    """One 256-token prefill of the 124M decoder (the largest bucket, one
+    slot, pos 0): its wall time after a synchronize (median and min-max of
+    ``reps``), then, over ``profiled`` more under torch.profiler, its card
+    kernel time and the paged chunk kernel's part of it (the kernels named
+    ``fwd_mma``: the prefill runs no other attention forward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = np.random.RandomState(5).randint(0, VOCAB, (1, BUCKETS[-1]))
+    cache = dec.init_cache(1)
+    for _ in range(2):
+        dec.prefill(cache, prompt)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        dec.prefill(cache, prompt)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    K.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            dec.prefill(cache, prompt)
+        torch.cuda.synchronize()
+    chunks = K.launch_counts()["paged_attention_chunk"]
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(us for _, us in rows) / profiled / 1e3
+    paged = sum(us for key, us in rows if "fwd_mma" in key) / profiled / 1e3
+    log("prefill of %d tokens (124M, one slot, pos 0): wall %.3f ms median "
+        "(%.3f-%.3f) after a synchronize; card kernels %.3f ms, of which "
+        "the paged chunk kernel %.4f ms (%d launches a prefill); %s" % (
+            BUCKETS[-1], statistics.median(walls), min(walls), max(walls),
+            total, paged, chunks // profiled, card_line()))
+
+
+def serve_int8_kv_path(K, dev, prefix, work):
+    """The 124M checkpoint served with the int8 KV cache
+    (``cache_dtype="int8"``), the path of the scalar ``paged_attention``
+    entry: the decode chain runs unfused, so each decode step's attention
+    is a C=1 read of the int8 rows through it, as is each prefill's. One
+    wave of the main path's requests with the counters zeroed just before
+    it and read just after: exact launches, every budget met, and two
+    requests' streams equal to ``Decoder.generate`` of the same decoder.
+    Returns the launch counts."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine.from_checkpoint(
+        prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
+        steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
+        weight_dtype="int8", matmul_impl="fused", cache_dtype="int8",
+        compute_dtype="bfloat16", device=dev)
+    rs = np.random.RandomState(4)
+    for p in BUCKETS:                    # warm-up: one request per bucket
+        engine.submit(rs.randint(0, VOCAB, (p,)), max_tokens=4)
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    stats0 = dict(engine.stats)
+    handles, secs = _serve_wave(engine, work)
+    launches = K.launch_counts()
+    prefills = engine.stats["prefills"] - stats0["prefills"]
+    steps = (engine.stats["steps"] - stats0["steps"]) * STEPS_PER_ROUND
+    for h in handles:
+        if not h.done or h.retire_reason != "length" \
+                or len(h.tokens) != h.limit:
+            raise AssertionError("int8 KV: request %s did not finish its "
+                                 "budget: %r" % (h.id, h))
+    want = dict.fromkeys(launches, 0)
+    want.update({"paged_attention": LAYERS * (prefills + steps),
+                 # qkv, out, ffn1 and ffn2 per layer + lm_head, per decode
+                 # step and per prefill
+                 "quant_matmul": (4 * LAYERS + 1) * (steps + prefills)})
+    if launches != want:
+        raise AssertionError("int8 KV path: launch counts %r, the path "
+                             "wants %r" % (launches, want))
+    dec = engine._dec
+    for h in (handles[0], max(handles[1:], key=lambda r: len(r.prompt))):
+        ref = dec.generate(h.prompt[None], len(h.tokens))[0, len(h.prompt):]
+        if ref.cpu().tolist() != h.tokens:
+            raise AssertionError("int8 KV: request %s's stream differs from "
+                                 "Decoder.generate" % h.id)
+    tps, p50, p99 = _wave_metrics(handles, secs)
+    log("int8 KV path: %d requests, %d prefills, %d decode steps in %.3f s "
+        "= %.1f tokens/s, ms per token p50 %.3f p99 %.3f; launches %s" % (
+            len(handles), prefills, steps, secs, tps, p50, p99,
+            json.dumps({e: n for e, n in launches.items() if n})))
     return launches
 
 
@@ -2089,9 +2273,9 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     worst = {"quant_matmul": check_quant_matmul(K, dev, gen),
-             "paged_attention": check_paged_attention(K, dev, gen),
              "fused_decode_attention": check_fused_decode_attention(
                  K, dev, gen)}
+    worst.update(check_paged_attention(K, dev, gen))
     worst.update(check_flash_attention(K, dev, gen))
     worst["fused_linear"] = check_fused_linear(K, dev, gen)
     dgen = torch.Generator(device=dev).manual_seed(1)
@@ -2103,7 +2287,9 @@ def main():
     timed.update(time_train_kernels(K, dev, gen, worst))
     timed.update(time_cnn_kernels(K, dev, dgen, worst))
     timed.update(time_striped_pair(K, dev, gen, worst))
-    launches = serve_main_path(K, dev)
+    launches, prefix, work = serve_main_path(K, dev)
+    launches["paged_attention"] = serve_int8_kv_path(
+        K, dev, prefix, work)["paged_attention"]
     check_small_against_host(dev)
     launches.update({e: n for e, n in train_main_path(K, dev).items()
                      if e in TRAIN_ENTRIES})
@@ -2116,7 +2302,8 @@ def main():
                      if e in SP_ENTRIES})
     check_sp_against_flash(dev)
     replaces = {
-        "paged_attention": 1115, "quant_matmul": 1259,
+        "paged_attention": 1115, "paged_attention_chunk": 1115,
+        "quant_matmul": 1259,
         "fused_decode_attention": 1389,
         "flash_attention_fwd": 107,     # _attn_fwd_kernel
         "flash_attention_dq": 200,      # _attn_dq_kernel
@@ -2138,7 +2325,8 @@ def main():
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
-        **{k: timed[e][k] for k in ("gemm_ms", "bf16") if k in timed[e]})
+        **{k: timed[e][k] for k in ("gemm_ms", "bf16", "scalar_ms")
+           if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"
         % (time.perf_counter() - t_start))

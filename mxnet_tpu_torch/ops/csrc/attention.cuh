@@ -1,42 +1,80 @@
-// The attention kernels shared by flash_attention.cu and
-// striped_pair_attention.cu: a forward that writes o and the per-row
-// logsumexp, and the backward's two kernels, dQ over query tiles and dK/dV
-// over key tiles, for bf16 (tensor cores) and f32 (CUDA cores). Each kernel
-// is a template on SP, which selects the mask:
+// The attention kernels shared by flash_attention.cu,
+// striped_pair_attention.cu and paged_attention.cu: a forward that writes o
+// and the per-row logsumexp, and the backward's two kernels, dQ over query
+// tiles and dK/dV over key tiles, for bf16 (tensor cores) and f32 (CUDA
+// cores). Each kernel is a template on the mask (enum Mask):
 //
-// * SP = false, flash attention (mxnet_tpu/ops/pallas_kernels.py
+// * Flash, flash attention (mxnet_tpu/ops/pallas_kernels.py
 //   flash_attention l.373): key k is visible from query q when k < Tk,
 //   q < Tq, (causal) q >= k and (window > 0) q - k < window.
-// * SP = true, one striped ring hop (striped_pair_attention l.664): local
+// * Striped, one striped ring hop (striped_pair_attention l.664): local
 //   query a and key b stand at global positions a*n + q_off and
 //   b*n + k_off, and b is visible from a when a < Tq, b < Tk and
 //   a*n + q_off >= b*n + k_off (_spair_fwd_kernel l.445). The lse
 //   cotangent g_lse of the hop's output is folded into the backward's row
 //   term: dcap = rowsum(dO * O) - g_lse (_spair_bwd_impl l.603-604).
+// * Paged, the slot-paged prefill chunk (paged_attention l.1115; forward
+//   only, bf16, no lse): chunk row c of slot b sees cached key k when
+//   k <= pos[b] + c, the block reading pos[b] itself; query head h reads
+//   kv head h / group (GQA).
 //
-// A masked score is -1e30 and its probability exactly 0; the row sum is
-// clamped at 1e-30, so a row with no visible key gives o = 0 and
-// lse = -1e30 + log(1e-30), which is -1e30 in f32 (the striped hop's
-// empty-row convention, l.482-485), instead of NaN. Whole key tiles that
-// no row of a query tile can see (and query tiles no key of a key tile is
-// seen by) are skipped: for a striped hop the bounds of l.453-458 and
-// l.537-541, which skip the half of the hop above the striped diagonal.
+// A row with no visible key gives o = 0 and lse = -1e30 (the striped
+// hop's empty-row convention, l.482-485), instead of NaN. Whole key tiles
+// that no row of a query tile can see (and query tiles no key of a key
+// tile is seen by) are skipped: for a striped hop the bounds of l.453-458
+// and l.537-541, which skip the half of the hop above the striped
+// diagonal; for a paged chunk every key past the tile's last row's
+// pos + c.
 //
-// Design: one block of 4 warps owns a 64-row tile of the output (queries
-// for o and dQ, keys for dK/dV) and walks the tiles of the other side,
-// staging each 64-row K/V (or Q/dO) tile in shared memory. Each warp runs
-// 16 rows in mma.sync m16n8k16 steps (bf16 in, f32 accumulate): the scores
-// stay in registers and are reused as the A operand of the next product
-// (P.V, dS.K, P^T.dO, dS^T.Q), and the transposed B operands come from the
-// same row-major tiles through ldmatrix .trans. P and dS are rounded to
-// bf16 for those products while the row sums and the softmax stay f32.
-// Each output tile has one owner, so there are no atomics and a step's
-// gradients are the same bits every run. The dQ kernel also writes dcap,
-// which the dK/dV kernel, launched after it on the same stream, reads. f32
-// inputs take a CUDA-core form of the same three kernels (several threads
-// per row, one key or query at a time). cp.async/TMA pipelining and wgmma
-// are later work.
+// Bound on the H100: at the 124M LM's training shape a causal bf16
+// forward does ~257 flops per byte of q/k/v/o, near the ~295 where the
+// tensor cores become the limit, so bytes and operations bound it about
+// equally (flash_attention.cu has the numbers); a paged prefill chunk of
+// C rows over a cache of pos + C live keys does ~2 C flops per cached
+// element. What kept the first kernels far above either bound was
+// latency: tiles loaded synchronously between barriers while the tensor
+// cores idled, and scalar mask and softmax work between the products.
+//
+// The bf16 forward (fwd_mma): one block of BQ / 16 warps (BQ = 64 or
+// 128) owns a BQ-row query tile, its Q fragments in registers, and walks
+// the visible 64-row K/V tiles through a two-stage ring in dynamic shared
+// memory filled by 16-byte cp.async: tile j+1's K and V are in flight
+// while tile j's products run. K and V are separate commit groups, so
+// Q.K^T waits only for K and P.V only for V, one barrier each; rows past
+// the last key the tile may read are zero-filled (src-size 0) and never
+// read from device memory. BQ = 128 feeds each staged K/V tile to twice
+// the rows; it is taken where the grid gives every SM two such blocks,
+// each held to 128 registers. The grid runs the (batch, head) pairs
+// fastest and the query tiles from the last, so all of the causal mask's
+// heaviest tiles start first and the lightest fill the tail. The K
+// fragments of Q.K^T come by ldmatrix, the V fragments of P.V by
+// ldmatrix .trans. A key tile that every row of the query tile sees whole
+// skips the mask; only the boundary tiles (the diagonal, a ragged end, a
+// window edge, the striped diagonal, the paged chunk's last live keys)
+// evaluate it, setting masked scores to -inf. The softmax runs in base 2
+// with scale * log2(e) folded into one FMA per score (ex2.approx), and a
+// row whose running max is still -inf takes 0 as its reference, so masked
+// probabilities are exactly 0. lse is still the natural-log
+// m * scale + log(l).
+//
+// The backward (dq_mma, dkv_mma): one block of 4 warps owns a 64-row tile
+// of the output (queries for dQ, keys for dK/dV) and walks the tiles of
+// the other side, staging each 64-row tile in shared memory
+// synchronously. Each warp runs 16 rows in mma.sync m16n8k16 steps (bf16
+// in, f32 accumulate): the scores stay in registers and are reused as the
+// A operand of the next product (P.V, dS.K, P^T.dO, dS^T.Q), and the
+// transposed B operands come from the same row-major tiles through
+// ldmatrix .trans. P and dS are rounded to bf16 for those products while
+// the row sums and the softmax stay f32. Each output tile has one owner,
+// so there are no atomics and a step's gradients are the same bits every
+// run. The dQ kernel also writes dcap, which the dK/dV kernel, launched
+// after it on the same stream, reads. f32 inputs take a CUDA-core form of
+// the same three kernels (several threads per row, one key or query at a
+// time), masked scores at -1e30 with probability exactly 0. wgmma and TMA
+// (a warp-specialised forward) are later work.
 #pragma once
+
+#include <math.h>
 
 #include "common.cuh"
 
@@ -47,6 +85,8 @@ namespace {
 constexpr float NEG_BIG = -1e30f;
 constexpr int THREADS = 128;
 
+enum class Mask { Flash, Striped, Paged };
+
 struct Shape {
   int B, H, Tq, Tk;
   float scale;
@@ -55,10 +95,15 @@ struct Shape {
   // are contiguous and the heads D apart. o, dO, dQ, dK and dV are
   // contiguous [B, T, H, D].
   long long qsb, qst, ksb, kst, vsb, vst;
-  // the striped hop (SP kernels only): ring size and the ring positions
-  // of the query and key blocks, and the lse cotangent [B*H, Tq]
+  // the striped hop (Striped kernels only): ring size and the ring
+  // positions of the query and key blocks, and the lse cotangent
+  // [B*H, Tq]
   int n, q_off, k_off;
   const float* glse;
+  // the paged chunk (Paged only): query heads per kv head, and each
+  // slot's chunk start [B] in device memory
+  int group = 1;
+  const int* pos = nullptr;
 };
 
 // batch and time strides of a contiguous [B, T, H, D] tensor
@@ -72,11 +117,15 @@ __device__ __forceinline__ Lay lay_k(const Shape& s, int D) {
   return {(long long)s.Tk * s.H * D, (long long)s.H * D};
 }
 
-template <bool SP>
-__device__ __forceinline__ bool visible(int qp, int kp, const Shape& s) {
+// p0 is the paged chunk's start (Paged only)
+template <Mask M>
+__device__ __forceinline__ bool visible(int qp, int kp, const Shape& s,
+                                        int p0 = 0) {
   bool ok = qp < s.Tq && kp < s.Tk;
-  if constexpr (SP) {
+  if constexpr (M == Mask::Striped) {
     ok = ok && qp * s.n + s.q_off >= kp * s.n + s.k_off;
+  } else if constexpr (M == Mask::Paged) {
+    ok = ok && kp <= p0 + qp;
   } else {
     if (s.causal) ok = ok && qp >= kp;
     if (s.window) ok = ok && qp - kp < s.window;
@@ -84,17 +133,33 @@ __device__ __forceinline__ bool visible(int qp, int kp, const Shape& s) {
   return ok;
 }
 
+// one past the last key row any row of query tile qi (bq rows) may read:
+// for a paged chunk, the key of its last row (never past the rows the
+// chunk has written)
+template <Mask M>
+__device__ __forceinline__ int key_end(int qi, int bq, const Shape& s,
+                                       int p0) {
+  if constexpr (M == Mask::Paged) {
+    const int clast = min((qi + 1) * bq, s.Tq) - 1;
+    return min(s.Tk, p0 + clast + 1);
+  }
+  return s.Tk;
+}
+
 // key tiles [lo, hi) any row of query tile qi (bq rows) can see
-template <bool SP>
+template <Mask M>
 __device__ __forceinline__ void key_range(int qi, int bq, int bk,
-                                          const Shape& s, int& lo,
-                                          int& hi) {
+                                          const Shape& s, int& lo, int& hi,
+                                          int p0 = 0) {
   hi = (s.Tk + bk - 1) / bk;
-  if constexpr (SP) {
+  if constexpr (M == Mask::Striped) {
     // the tile of the last key the tile's last row sees (l.453-458); C++
     // division rounds toward zero, as lax.div does, then the clamp at 0
     const int numer = ((qi + 1) * bq - 1) * s.n + s.q_off - s.k_off;
     hi = max(0, min(hi, numer / (bk * s.n) + 1));
+    lo = 0;
+  } else if constexpr (M == Mask::Paged) {
+    hi = (key_end<M>(qi, bq, s, p0) + bk - 1) / bk;
     lo = 0;
   } else {
     if (s.causal) hi = min(hi, ((qi + 1) * bq + bk - 1) / bk);
@@ -102,13 +167,32 @@ __device__ __forceinline__ void key_range(int qi, int bq, int bk,
   }
 }
 
+// true when every row of the query tile at q0 (bq rows) sees every key of
+// the key tile at k0 (bk keys) whole, so the tile needs no mask; rows past
+// Tq count as seeing (their outputs are not stored)
+template <Mask M>
+__device__ __forceinline__ bool full_tile(int q0, int bq, int k0, int bk,
+                                          const Shape& s, int p0, int kend) {
+  if (k0 + bk > kend) return false;  // a ragged end: zero rows to mask
+  if constexpr (M == Mask::Striped) {
+    return q0 * s.n + s.q_off >= (k0 + bk - 1) * s.n + s.k_off;
+  } else if constexpr (M == Mask::Paged) {
+    return k0 + bk - 1 <= p0 + q0;
+  } else {
+    bool ok = true;
+    if (s.causal) ok = ok && q0 >= k0 + bk - 1;
+    if (s.window) ok = ok && q0 + bq - 1 - k0 < s.window;
+    return ok;
+  }
+}
+
 // query tiles [lo, hi) that see any key of key tile kj (bk keys)
-template <bool SP>
+template <Mask M>
 __device__ __forceinline__ void query_range(int kj, int bq, int bk,
                                             const Shape& s, int& lo,
                                             int& hi) {
   hi = (s.Tq + bq - 1) / bq;
-  if constexpr (SP) {
+  if constexpr (M == Mask::Striped) {
     // the first row that sees the tile's first key (l.537-541)
     lo = max(0, (kj * bk + (s.k_off > s.q_off ? 1 : 0)) / bq);
   } else {
@@ -127,7 +211,8 @@ __device__ __forceinline__ T* row_ptr(T* base, int b, int t, int h, Lay l,
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 
-constexpr int BQ = 64, BK = 64;  // rows of a query / key tile
+// rows of the backward's query tiles and of every key tile
+constexpr int BQ = 64, BK = 64;
 
 // rows [t0, t0 + 64) of head (b, h) into a [64][D + 8] shared tile, zeros
 // past T
@@ -240,57 +325,183 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
   }
 }
 
-template <int D, bool SP>
-__global__ void __launch_bounds__(THREADS)
+// 16 bytes from global to shared memory without passing through
+// registers (cp.async.cg: L2 only); with in = false nothing is read
+// (src-size 0) and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(a), "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's newest commit groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// issue rows [t0, t0 + R) of head (b, h) into an [R][D + 8] shared tile by
+// NT threads, zeros at and past row tend (not read)
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* sm,
+                                                const __nv_bfloat16* base,
+                                                int b, int t0, int tend,
+                                                int h, Lay l) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int it = 0; it < (R * CH + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if ((R * CH) % NT != 0 && i >= R * CH) break;
+    const int r = i / CH, c = (i % CH) * 8;
+    const int t = t0 + r;
+    const bool in = t < tend;
+    cp_async16(sm + r * LD + c, in ? row_ptr(base, b, t, h, l, D) + c : base,
+               in);
+  }
+}
+
+// 2^x (ex2.approx.ftz: about 2^-22 relative error, subnormal results
+// flushed to 0, 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows_dot_tile with the B fragments of two 8-key column blocks taken by
+// one ldmatrix: matrices (n, k lo), (n, k hi), (n+1, k lo), (n+1, k hi)
+template <int D>
+__device__ __forceinline__ void rows_dot_tile_ldsm(float (*acc)[4],
+                                                   uint32_t (*a)[4],
+                                                   const __nv_bfloat16* sm,
+                                                   int lane) {
+  constexpr int LD = D + 8;
+  const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; n += 2)
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      ldsm_x4(b,
+              sm + ((n + (mi >> 1)) * 8 + r) * LD + kk * 16 + (mi & 1) * 8);
+      mma16816(acc[n], a[kk], b);
+      mma16816(acc[n + 1], a[kk], b + 2);
+    }
+}
+
+// the bf16 forward: o (and, but for a paged chunk, lse) of a QT-row query
+// tile, QT / 16 warps of 16 rows; the header's note gives the design.
+// Up to D = 64 two 128-row blocks share an SM (at most 128 registers, a
+// few bytes spilled): the launcher takes them only where the grid gives
+// every SM two.
+template <int D, Mask M, int QT>
+__global__ void __launch_bounds__(QT * 2, QT == 128 && D <= 64 ? 2 : 1)
 fwd_mma(const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ k,
         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
         float* __restrict__ lse, Shape s) {
+  constexpr int NT = QT * 2;
   constexpr int LD = D + 8;
+  constexpr int STAGE = BK * LD;  // elements of one K or V stage
+  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + BQ * LD;
-  __nv_bfloat16* vs = ks + BK * LD;
-  // the last query tiles see the most keys under a causal mask: start them
-  // first
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
+  __nv_bfloat16* ks = qs + QT * LD;     // [2][BK][LD]
+  __nv_bfloat16* vs = ks + 2 * STAGE;   // [2][BK][LD]
+  // the last query tiles see the most keys under a causal mask: the grid
+  // runs the (b, h) pairs fastest and the tiles from the last, so the
+  // heaviest tiles of all heads start before any lighter one
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int hk = h / s.group;  // the kv head
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4, wr = 16 * warp;
+  const int q0 = qi * QT;
+  int p0 = 0;
+  if constexpr (M == Mask::Paged) p0 = max(s.pos[b], 0);
   const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
-  load_tile<D>(qs, q, b, qi * BQ, s.Tq, h, lq);
+  const int kend = key_end<M>(qi, QT, s, p0);
+  int lo, hi;
+  key_range<M>(qi, QT, BK, s, lo, hi, p0);
+
+  // commit groups, in order: Q, K[lo], V[lo], then K[j+1], V[j+1] in each
+  // step j (empty past the last tile, so the counts below hold throughout)
+  load_tile_async<D, QT, NT>(qs, q, b, q0, s.Tq, h, lq);
+  cp_async_commit();
+  if (lo < hi) load_tile_async<D, BK, NT>(ks, k, b, lo * BK, kend, hk, lk);
+  cp_async_commit();
+  if (lo < hi) load_tile_async<D, BK, NT>(vs, v, b, lo * BK, kend, hk, lv);
+  cp_async_commit();
+  cp_async_wait<2>();  // Q
   __syncthreads();
   uint32_t qf[D / 16][4];
   load_a<D>(qf, qs, wr, g, t);
-  const int qp[2] = {qi * BQ + wr + g, qi * BQ + wr + g + 8};
+  // scores are taken raw and scaled inside the exponent's FMA by c > 0: a
+  // negative scale flips Q's signs (exact in bf16), and a zero one is
+  // taken as the smallest positive, so masked (-inf) scores stay -inf
+  float sc = s.scale;
+  if (sc < 0.f) {
+    sc = -sc;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[kk][i] ^= 0x80008000u;
+  }
+  const float c = fmaxf(sc * LOG2E, 1e-30f);
+  const int qp[2] = {q0 + wr + g, q0 + wr + g + 8};
 
   float acc[D / 8][4] = {};
-  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
-  int lo, hi;
-  key_range<SP>(qi, BQ, BK, s, lo, hi);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int j = lo; j < hi; ++j) {
-    __syncthreads();  // the last tile's readers are done
-    load_tile<D>(ks, k, b, j * BK, s.Tk, h, lk);
-    load_tile<D>(vs, v, b, j * BK, s.Tk, h, lv);
+    const int stage = (j - lo) & 1;
+    const __nv_bfloat16* kt = ks + stage * STAGE;
+    const __nv_bfloat16* vt = vs + stage * STAGE;
+    cp_async_wait<1>();  // K[j]; V[j] may still be in flight
+    // K[j] is visible to every warp, and every warp is done with step
+    // j-1, whose stage the next tile takes
     __syncthreads();
-    float sc[8][4];
-    rows_dot_tile<D>(sc, qf, ks, g, t);
+    if (j + 1 < hi)
+      load_tile_async<D, BK, NT>(ks + (stage ^ 1) * STAGE, k, b,
+                                 (j + 1) * BK, kend, hk, lk);
+    cp_async_commit();
+    if (j + 1 < hi)
+      load_tile_async<D, BK, NT>(vs + (stage ^ 1) * STAGE, v, b,
+                                 (j + 1) * BK, kend, hk, lv);
+    cp_async_commit();
+
+    float sv[8][4];
+    rows_dot_tile_ldsm<D>(sv, qf, kt, lane);
+    if (!full_tile<M>(q0, QT, j * BK, BK, s, p0, kend)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = j * BK + n * 8 + 2 * t + (e & 1);
+          if (!visible<M>(qp[e >> 1], kp, s, p0)) sv[n][e] = -INFINITY;
+        }
+    }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = j * BK + n * 8 + 2 * t + (e & 1);
-        const float x =
-            visible<SP>(qp[e >> 1], kp, s) ? sc[n][e] * s.scale : NEG_BIG;
-        sc[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2];
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sv[n][e]);
+    float mr[2], corr[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = quad_max(mx[r]);
-      corr[r] = expf(m[r] - mx[r]);
+      // the reference point, in log2 units; 0 while the row has seen no
+      // key, so that exp2(-inf - 0) = 0
+      mr[r] = mx[r] == -INFINITY ? 0.f : mx[r] * c;
+      corr[r] = m[r] == -INFINITY ? 0.f : fast_exp2((m[r] - mx[r]) * c);
       m[r] = mx[r];
       l[r] *= corr[r];
     }
@@ -298,11 +509,8 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kp = j * BK + n * 8 + 2 * t + (e & 1);
-        const float p = visible<SP>(qp[e >> 1], kp, s)
-                            ? expf(sc[n][e] - m[e >> 1])
-                            : 0.f;
-        sc[n][e] = p;
+        const float p = fast_exp2(fmaf(sv[n][e], c, -mr[e >> 1]));
+        sv[n][e] = p;
         l[e >> 1] += p;  // this thread's share; summed over the quad below
       }
 #pragma unroll
@@ -312,23 +520,28 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
       acc[dn][2] *= corr[1];
       acc[dn][3] *= corr[1];
     }
-    probs_times_tile<D>(acc, sc, vs, lane);
+    cp_async_wait<2>();  // V[j]; K[j+1] and V[j+1] may still be in flight
+    __syncthreads();
+    probs_times_tile<D>(acc, sv, vt, lane);
   }
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-    inv[r] = 1.f / l[r];
-    if (t == 0 && qp[r] < s.Tq)
-      lse[(size_t)bh * s.Tq + qp[r]] = m[r] + logf(l[r]);
+    l[r] = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    if constexpr (M != Mask::Paged) {
+      if (t == 0 && qp[r] < s.Tq)
+        lse[(size_t)bh * s.Tq + qp[r]] =
+            l[r] > 0.f ? m[r] * sc + logf(l[r]) : NEG_BIG;
+    }
   }
-  store_rows<D>(o, acc, b, qi * BQ + wr, s.Tq, h, lay_q(s, D), g, t, inv);
+  store_rows<D>(o, acc, b, q0 + wr, s.Tq, h, lay_q(s, D), g, t, inv);
 }
 
 // dcap[row] = sum_d dO[row, d] * O[row, d] (minus g_lse[row] for a striped
 // hop) for the rows of a query tile (two threads a row), into shared
 // memory and, for real rows, to dcap
-template <typename T, int D, bool SP>
+template <typename T, int D, Mask M>
 __device__ __forceinline__ void tile_dcap(float* dcs, float* __restrict__ dcap,
                                           const T* __restrict__ o,
                                           const T* __restrict__ dout, int b,
@@ -343,7 +556,7 @@ __device__ __forceinline__ void tile_dcap(float* dcs, float* __restrict__ dcap,
       for (int d = half; d < D; d += 2) acc += to_f32(po[d]) * to_f32(pd[d]);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if constexpr (SP) {
+    if constexpr (M == Mask::Striped) {
       if (tq < s.Tq) acc -= s.glse[(size_t)bh * s.Tq + tq];
     }
     if (half == 0) {
@@ -353,7 +566,7 @@ __device__ __forceinline__ void tile_dcap(float* dcs, float* __restrict__ dcap,
   }
 }
 
-template <int D, bool SP>
+template <int D, Mask M>
 __global__ void __launch_bounds__(THREADS)
 dq_mma(const __nv_bfloat16* __restrict__ q,
        const __nv_bfloat16* __restrict__ k,
@@ -377,7 +590,7 @@ dq_mma(const __nv_bfloat16* __restrict__ q,
   const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
   load_tile<D>(qs, q, b, qi * BQ, s.Tq, h, lq);
   load_tile<D>(ds_, dout, b, qi * BQ, s.Tq, h, lay_q(s, D));
-  tile_dcap<__nv_bfloat16, D, SP>(dcs, dcap, o, dout, b, qi * BQ, bh, BQ, s,
+  tile_dcap<__nv_bfloat16, D, M>(dcs, dcap, o, dout, b, qi * BQ, bh, BQ, s,
                                   h);
   for (int r = threadIdx.x; r < BQ; r += THREADS) {
     const int tq = qi * BQ + r;
@@ -393,7 +606,7 @@ dq_mma(const __nv_bfloat16* __restrict__ q,
 
   float acc[D / 8][4] = {};
   int lo, hi;
-  key_range<SP>(qi, BQ, BK, s, lo, hi);
+  key_range<M>(qi, BQ, BK, s, lo, hi);
   for (int j = lo; j < hi; ++j) {
     __syncthreads();
     load_tile<D>(ks, k, b, j * BK, s.Tk, h, lk);
@@ -408,7 +621,7 @@ dq_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int kp = j * BK + n * 8 + 2 * t + (e & 1);
         const int r = e >> 1;
-        const float p = visible<SP>(qp[r], kp, s)
+        const float p = visible<M>(qp[r], kp, s)
                             ? expf(sc[n][e] * s.scale - rl[r])
                             : 0.f;
         sc[n][e] = p * (dp[n][e] - rd[r]) * s.scale;  // dS
@@ -419,7 +632,7 @@ dq_mma(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(dq, acc, b, qi * BQ + wr, s.Tq, h, lay_q(s, D), g, t, one);
 }
 
-template <int D, bool SP>
+template <int D, Mask M>
 __global__ void __launch_bounds__(THREADS)
 dkv_mma(const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ k,
@@ -452,7 +665,7 @@ dkv_mma(const __nv_bfloat16* __restrict__ q,
 
   float dka[D / 8][4] = {}, dva[D / 8][4] = {};
   int lo, hi;
-  query_range<SP>(kj, BQ, BK, s, lo, hi);
+  query_range<M>(kj, BQ, BK, s, lo, hi);
   for (int i = lo; i < hi; ++i) {
     __syncthreads();
     load_tile<D>(qs, q, b, i * BQ, s.Tq, h, lq);
@@ -474,7 +687,7 @@ dkv_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1);
-        const float p = visible<SP>(i * BQ + c, kp[e >> 1], s)
+        const float p = visible<M>(i * BQ + c, kp[e >> 1], s)
                             ? expf(st[n][e] * s.scale - lses[c])
                             : 0.f;
         st[n][e] = p;
@@ -533,7 +746,7 @@ __device__ __forceinline__ void load_part(float* dst, const float* base,
   for (int i = 0; i < DP; ++i) dst[i] = p ? p[i] : 0.f;
 }
 
-template <int D, bool SP>
+template <int D, Mask M>
 __global__ void __launch_bounds__(THREADS)
 fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, float* __restrict__ o,
@@ -551,7 +764,7 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < S::DP; ++i) acc[i] = 0.f;
   float m = NEG_BIG, l = 0.f;
   int lo, hi;
-  key_range<SP>(qi, S::ROWS, FT, s, lo, hi);
+  key_range<M>(qi, S::ROWS, FT, s, lo, hi);
   for (int j = lo; j < hi; ++j) {
     __syncthreads();
     load_tile_f32<D>(ks, k, b, j * FT, s.Tk, h, lk);
@@ -563,7 +776,7 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < S::DP; ++i) x += qr[i] * kr[i];
       x = part_sum<S::P>(x) * s.scale;
-      if (!visible<SP>(qp, j * FT + c, s)) continue;
+      if (!visible<M>(qp, j * FT + c, s)) continue;
       const float mn = fmaxf(m, x);
       const float corr = expf(m - mn), p = expf(x - mn);
       m = mn;
@@ -581,7 +794,7 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (part == 0) lse[(size_t)bh * s.Tq + qp] = m + logf(l);
 }
 
-template <int D, bool SP>
+template <int D, Mask M>
 __global__ void __launch_bounds__(THREADS)
 dq_f32(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, const float* __restrict__ o,
@@ -593,7 +806,7 @@ dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
   const int part = threadIdx.x % S::P, row = threadIdx.x / S::P;
   const int qp = qi * S::ROWS + row;
-  tile_dcap<float, D, SP>(dcs, dcap, o, dout, b, qi * S::ROWS, bh, S::ROWS,
+  tile_dcap<float, D, M>(dcs, dcap, o, dout, b, qi * S::ROWS, bh, S::ROWS,
                           s, h);
   const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
   float qr[S::DP], dr[S::DP], acc[S::DP];
@@ -603,7 +816,7 @@ dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < S::DP; ++i) acc[i] = 0.f;
   const float rl = qp < s.Tq ? lse[(size_t)bh * s.Tq + qp] : 0.f;
   int lo, hi;
-  key_range<SP>(qi, S::ROWS, FT, s, lo, hi);
+  key_range<M>(qi, S::ROWS, FT, s, lo, hi);
   __syncthreads();  // dcs
   const float rd = dcs[row];
   for (int j = lo; j < hi; ++j) {
@@ -622,7 +835,7 @@ dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
       x = part_sum<S::P>(x);
       dp = part_sum<S::P>(dp);
-      if (!visible<SP>(qp, j * FT + c, s)) continue;
+      if (!visible<M>(qp, j * FT + c, s)) continue;
       const float ds = expf(x * s.scale - rl) * (dp - rd) * s.scale;
 #pragma unroll
       for (int i = 0; i < S::DP; ++i) acc[i] += ds * kr[i];
@@ -634,7 +847,7 @@ dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < S::DP; ++i) dst[i] = acc[i];
 }
 
-template <int D, bool SP>
+template <int D, Mask M>
 __global__ void __launch_bounds__(THREADS)
 dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ dout,
@@ -653,7 +866,7 @@ dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < S::DP; ++i) dka[i] = dva[i] = 0.f;
   int lo, hi;
-  query_range<SP>(kj, FT, S::ROWS, s, lo, hi);
+  query_range<M>(kj, FT, S::ROWS, s, lo, hi);
   for (int i0 = lo; i0 < hi; ++i0) {
     __syncthreads();
     load_tile_f32<D>(qs, q, b, i0 * FT, s.Tq, h, lq);
@@ -676,7 +889,7 @@ dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
       x = part_sum<S::P>(x);
       dp = part_sum<S::P>(dp);
-      if (!visible<SP>(i0 * FT + c, kp, s)) continue;
+      if (!visible<M>(i0 * FT + c, kp, s)) continue;
       const float p = expf(x * s.scale - lses[c]);
       const float ds = p * (dp - dcs[c]) * s.scale;
 #pragma unroll
@@ -707,31 +920,63 @@ cudaError_t set_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int D, bool SP>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-        const Shape& s, int dtype, cudaStream_t st) {
-  const int bh = s.B * s.H;
-  if constexpr (D % 16 == 0) {
-    if (dtype == kBF16) {
-      const int smem = 3 * 64 * (D + 8) * 2;
-      cudaError_t e = set_smem(fwd_mma<D, SP>, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      fwd_mma<D, SP><<<dim3((s.Tq + BQ - 1) / BQ, bh), THREADS, smem, st>>>(
+template <int D, Mask M, int QT>
+int fwd_bf16(const void* q, const void* k, const void* v, void* o,
+             float* lse, const Shape& s, cudaStream_t st) {
+  const int smem = (QT + 4 * BK) * (D + 8) * 2;  // Q + 2 stages of K and V
+  cudaError_t e = set_smem(fwd_mma<D, M, QT>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fwd_mma<D, M, QT>
+      <<<dim3(s.B * s.H, (s.Tq + QT - 1) / QT), QT * 2, smem, st>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           static_cast<__nv_bfloat16*>(o), lse, s);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  const int rows = Split<D>::ROWS;
-  fwd_f32<D, SP><<<dim3((s.Tq + rows - 1) / rows, bh), THREADS, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool SP>
+// the card's SM count (cached)
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int D, Mask M>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+        const Shape& s, int dtype, cudaStream_t st) {
+  if constexpr (D % 16 == 0) {
+    if (dtype == kBF16) {
+      // 128-row query tiles where they give every SM two blocks (the LM's
+      // 768 tiles), else 64: with fewer, 64-row tiles spread the work over
+      // more SMs; a paged chunk (C <= 256 rows over few slots) always 64
+      if constexpr (M != Mask::Paged) {
+        const long long tiles =
+            (long long)s.B * s.H * ((s.Tq + 127) / 128);
+        if (tiles >= 2 * sm_count())
+          return fwd_bf16<D, M, 128>(q, k, v, o, lse, s, st);
+      }
+      return fwd_bf16<D, M, 64>(q, k, v, o, lse, s, st);
+    }
+  }
+  if constexpr (M == Mask::Paged) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const int rows = Split<D>::ROWS;
+    fwd_f32<D, M><<<dim3((s.Tq + rows - 1) / rows, s.B * s.H), THREADS, 0,
+                    st>>>(static_cast<const float*>(q),
+                          static_cast<const float*>(k),
+                          static_cast<const float*>(v),
+                          static_cast<float*>(o), lse, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <int D, Mask M>
 int dq(const void* q, const void* k, const void* v, const void* o,
        const void* dout, const float* lse, float* dcap, void* dqp,
        const Shape& s, int dtype, cudaStream_t st) {
@@ -739,9 +984,9 @@ int dq(const void* q, const void* k, const void* v, const void* o,
   if constexpr (D % 16 == 0) {
     if (dtype == kBF16) {
       const int smem = 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
-      cudaError_t e = set_smem(dq_mma<D, SP>, smem);
+      cudaError_t e = set_smem(dq_mma<D, M>, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
-      dq_mma<D, SP><<<dim3((s.Tq + BQ - 1) / BQ, bh), THREADS, smem, st>>>(
+      dq_mma<D, M><<<dim3((s.Tq + BQ - 1) / BQ, bh), THREADS, smem, st>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
@@ -752,7 +997,7 @@ int dq(const void* q, const void* k, const void* v, const void* o,
     }
   }
   const int rows = Split<D>::ROWS;
-  dq_f32<D, SP><<<dim3((s.Tq + rows - 1) / rows, bh), THREADS, 0, st>>>(
+  dq_f32<D, M><<<dim3((s.Tq + rows - 1) / rows, bh), THREADS, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(dout), lse, dcap, static_cast<float*>(dqp),
@@ -760,7 +1005,7 @@ int dq(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool SP>
+template <int D, Mask M>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* dcap, void* dk, void* dv,
         const Shape& s, int dtype, cudaStream_t st) {
@@ -768,9 +1013,9 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (D % 16 == 0) {
     if (dtype == kBF16) {
       const int smem = 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
-      cudaError_t e = set_smem(dkv_mma<D, SP>, smem);
+      cudaError_t e = set_smem(dkv_mma<D, M>, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
-      dkv_mma<D, SP><<<dim3((s.Tk + BK - 1) / BK, bh), THREADS, smem, st>>>(
+      dkv_mma<D, M><<<dim3((s.Tk + BK - 1) / BK, bh), THREADS, smem, st>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
@@ -781,7 +1026,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
     }
   }
   const int rows = Split<D>::ROWS;
-  dkv_f32<D, SP><<<dim3((s.Tk + rows - 1) / rows, bh), THREADS, 0, st>>>(
+  dkv_f32<D, M><<<dim3((s.Tk + rows - 1) / rows, bh), THREADS, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       dcap, static_cast<float*>(dk), static_cast<float*>(dv), s);

@@ -75,6 +75,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Four 8 x 8 bf16 matrices from shared memory (ldmatrix .x4): lane l gives
+// the address of row l % 8 of matrix l / 8 (16 contiguous bytes, 16-byte
+// aligned), and r[i] receives elements (g, 2t) and (g, 2t+1) of matrix i.
+// Over a row-major tile M[n][k] that is the B fragment of a product by
+// M^T (k the contraction index): b[0] from the matrix of columns k0..k0+7,
+// b[1] from columns k0+8..k0+15.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 // Four 8 x 8 bf16 matrices from shared memory, transposed on the way
 // (ldmatrix .x4 .trans): lane l gives the address of row l % 8 of matrix
 // l / 8 (16 contiguous bytes, 16-byte aligned), and r[i] receives, for

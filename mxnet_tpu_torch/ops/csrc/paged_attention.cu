@@ -5,27 +5,39 @@
 //
 // q [S, C, H, D] (each slot's C-token chunk, starting at pos[s]) against a
 // cache k, v [S, L, KV, D] (f32/bf16, or int8 with f32 row scales
-// [S, L, KV]). Query row r = g*C + c of kv head kvh is head kvh*G + g at
-// chunk offset c and sees keys [0, pos + c]. Online softmax in f32 with
-// -1e30 masking; out = acc / max(l, 1e-30).
+// [S, L, KV]). Query row c of head h sees keys [0, pos + c] of kv head
+// h / (H / KV). Online softmax in f32; a row's output is acc / max(l,
+// 1e-30). Two C entries, chosen by the wrapper by dtype and shape:
 //
-// Bound on the H100: the bytes of the live rows, read once per kv head
-// (decode and short chunks do a few flops per byte); a 256-token prefill
-// chunk does ~2*C flops per cached element and leans to the flop side.
-// Design: the TPU version cut dead-row DMA by revisiting a clamped block
-// index in its grid; here a block owns one (slot, kv head, tile of 16
-// query rows) and loops over the key tiles up to the tile's own last live
-// key, p + (largest chunk offset among its rows), so dead rows are never
-// loaded. Each tile of 32 keys is staged once in shared memory (int8 rows
-// dequantized on the way) and serves all 16 rows, i.e. every query head of
-// the GQA group; each warp owns 2 rows and each lane scores one key of the
-// tile, then the probabilities are broadcast by shuffles into per-lane
-// accumulators over head_dim (<= 128). The 256-row prefill chunk is cut
-// into 16 such tiles of rows, keeping the f32 accumulators in registers.
-// Scalar CUDA-core math; tensor-core tiles are later work.
-#include "common.cuh"
-
-using namespace mxk;
+// * mx_paged_attention_chunk: a bf16 q over a bf16 cache with C >= 16 and
+//   a tensor-core head_dim (16, 32, 64, 128), the serving path's prefill
+//   chunk. Bound on the H100: a C-row chunk at pos 0 does ~2 C flops per
+//   cached element (C = 256: ~0.4 GFLOP on ~1.6 MB), a few microseconds
+//   of either rate. What held the first kernel (below) at 154x that bound
+//   on the H100 was its scalar arithmetic: serial f32 dot products from
+//   shared memory, probabilities broadcast by shuffles, and every 16-row
+//   tile of the chunk restaging the same keys. This entry is
+//   attention.cuh's pipelined tensor-core forward with the paged mask
+//   (Mask::Paged, 64-row query tiles, one block per (slot, query head,
+//   tile); the block reads pos[s] itself). A query tile walks the key
+//   tiles up to its last row's pos + c; the cp.async loader zero-fills
+//   every row past min(L, that key + 1), so rows past a slot's last live
+//   key are never read and an unwritten row cannot put a NaN into P.V.
+//   Tiles wholly below the chunk's diagonal skip the mask. No lse.
+// * mx_paged_attention: everything else (C = 1 decode reads, short verify
+//   chunks, an f32 q or cache, the int8 cache). Bound: the bytes of the
+//   live rows, read once per kv head (decode and short chunks do a few
+//   flops per byte). The TPU version cut dead-row DMA by revisiting a
+//   clamped block index in its grid; here a block owns one (slot, kv
+//   head, tile of 16 query rows) and loops over the key tiles up to the
+//   tile's own last live key, p + (largest chunk offset among its rows),
+//   so dead rows are never loaded. Each tile of 32 keys is staged once in
+//   shared memory (int8 rows dequantized on the way) and serves all 16
+//   rows, i.e. every query head of the GQA group; each warp owns 2 rows
+//   and each lane scores one key of the tile, then the probabilities are
+//   broadcast by shuffles into per-lane accumulators over head_dim
+//   (<= 128). Scalar CUDA-core math.
+#include "attention.cuh"
 
 namespace {
 
@@ -198,4 +210,49 @@ extern "C" int mx_paged_attention(const void* q, const void* k,
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// q [S, C, H, D] and k, v [S, L, KV, D] bf16, contiguous, rows on 16-byte
+// boundaries; pos int32 [S]; out like q. Takes D in {16, 32, 64, 128};
+// anything else is refused (the wrapper routes it to mx_paged_attention).
+extern "C" int mx_paged_attention_chunk(const void* q, const void* k,
+                                        const void* v, const int* pos,
+                                        void* out, int S, int C, int H,
+                                        int KV, int L, int D, float scale,
+                                        void* stream) {
+  if (KV < 1 || H % KV != 0 || L < 1 || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Shape s{S,
+          H,
+          C,
+          L,
+          scale,
+          0,
+          0,
+          (long long)C * H * D,
+          (long long)H * D,
+          (long long)L * KV * D,
+          (long long)KV * D,
+          (long long)L * KV * D,
+          (long long)KV * D,
+          1,
+          0,
+          0,
+          nullptr,
+          H / KV,
+          pos};
+  if (!valid_dims(D, kBF16, s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return fwd<16, Mask::Paged>(q, k, v, out, nullptr, s, kBF16, st);
+    case 32:
+      return fwd<32, Mask::Paged>(q, k, v, out, nullptr, s, kBF16, st);
+    case 64:
+      return fwd<64, Mask::Paged>(q, k, v, out, nullptr, s, kBF16, st);
+    case 128:
+      return fwd<128, Mask::Paged>(q, k, v, out, nullptr, s, kBF16, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,13 +12,15 @@
 // host ints here, kernel arguments: the controller knows every rank's and
 // hop's, where the Pallas kernel reads them from an SMEM operand (l.589).
 //
-// The kernels are attention.cuh's with the striped mask (SP = true): the
-// flash kernels' tiles, a row with no visible key (row 0 whenever
+// The kernels are attention.cuh's with the striped mask (Mask::Striped):
+// the flash kernels' tiles, a row with no visible key (row 0 whenever
 // k_off > q_off) gives o = 0 and lse = -1e30, key tiles past the striped
 // diagonal are never read (l.453-458) and, in dK/dV, nor are the query
 // tiles before it (l.537-541), so a hop costs about half a block. The dQ
 // kernel writes dcap = rowsum(dO * O) - g_lse, the lse cotangent folded in
-// (l.603-604), and the dK/dV kernel reads it.
+// (l.603-604), and the dK/dV kernel reads it. The bf16 forward is the
+// pipelined one of attention.cuh: key tiles wholly below the striped
+// diagonal skip the mask (the f32 one is unchanged).
 //
 // Bound on the H100: at the 124M LM's sequence-parallel hop (BH = 24,
 // C = 1024, D = 64) a hop does 4 D flops per visible pair forward, ~3.2
@@ -69,7 +71,7 @@ extern "C" int mx_striped_pair_fwd(const void* q, const void* k,
   if (!valid_hop(D, dtype, s)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define MX_CALL(DD) fwd<DD, true>(q, k, v, o, l, s, dtype, st)
+#define MX_CALL(DD) fwd<DD, Mask::Striped>(q, k, v, o, l, s, dtype, st)
   MX_ATTN_DISPATCH(MX_CALL)
 #undef MX_CALL
 }
@@ -88,7 +90,8 @@ extern "C" int mx_striped_pair_dq(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dc = static_cast<float*>(dcap);
-#define MX_CALL(DD) dq<DD, true>(q, k, v, o, dout, l, dc, dqp, s, dtype, st)
+#define MX_CALL(DD) \
+  dq<DD, Mask::Striped>(q, k, v, o, dout, l, dc, dqp, s, dtype, st)
   MX_ATTN_DISPATCH(MX_CALL)
 #undef MX_CALL
 }
@@ -105,7 +108,8 @@ extern "C" int mx_striped_pair_dkv(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dc = static_cast<const float*>(dcap);
-#define MX_CALL(DD) dkv<DD, true>(q, k, v, dout, l, dc, dk, dv, s, dtype, st)
+#define MX_CALL(DD) \
+  dkv<DD, Mask::Striped>(q, k, v, dout, l, dc, dk, dv, s, dtype, st)
   MX_ATTN_DISPATCH(MX_CALL)
 #undef MX_CALL
 }

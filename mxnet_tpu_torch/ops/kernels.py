@@ -4,7 +4,11 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
 
 * :func:`paged_attention` (Pallas ``paged_attention`` l.1115): slot-paged
   attention over each slot's live KV rows ``[0, pos+C)``, causal in the
-  chunk, GQA-native, online softmax in f32, optional int8 KV.
+  chunk, GQA-native, online softmax in f32, optional int8 KV. Two C
+  entries, chosen by dtype and shape (:func:`paged_entry`): a bf16
+  prefill chunk runs the tensor-core attention forward of
+  ``csrc/attention.cuh`` with the paged mask, everything else a scalar
+  kernel.
 * :func:`quant_matmul` (l.1259): ``x @ dequant(q)^T`` for int8
   (per-output-channel scales) and nibble-packed int4 (per-group scales)
   weights, f32 accumulation.
@@ -73,7 +77,8 @@ __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
            "striped_pair_attention_plain",
            "striped_pair_attention_bwd_plain", "fused_linear_fwd",
            "fused_linear_plain", "build", "launch_counts",
-           "reset_launch_counts", "KERNELS", "ENTRIES", "SOURCE"]
+           "reset_launch_counts", "paged_entry", "KERNELS", "ENTRIES",
+           "SOURCE"]
 
 # the sources build() compiles
 KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
@@ -89,6 +94,9 @@ _LIBS = {}
 
 # dtype codes of the C interfaces (csrc/common.cuh)
 _CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the head dims the attention kernels of csrc/attention.cuh take, by dtype
+_FLASH_D = {torch.bfloat16: (16, 32, 64, 128),
+            torch.float32: (8, 16, 32, 64, 128)}
 
 
 def launch_counts():
@@ -184,7 +192,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 # the C entries of each source; every entry ends in the stream
 ENTRIES = {
-    "paged_attention": ("paged_attention",),
+    "paged_attention": ("paged_attention", "paged_attention_chunk"),
     "quant_matmul": ("quant_matmul",),
     "fused_decode_attention": ("fused_decode_attention",),
     "flash_attention": ("flash_attention_fwd", "flash_attention_dq",
@@ -199,6 +207,8 @@ _ARGTYPES = {
     # q, k, v, k_scale, v_scale, pos, out, S, C, H, KV, L, D, scale,
     # q_dtype, kv_dtype, stream
     "paged_attention": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, pos, out, S, C, H, KV, L, D, scale, stream
+    "paged_attention_chunk": [_P] * 5 + [_I] * 6 + [_F, _P],
     # x, q, scale, out, part, M, E, F, bits, group, ksplit, x_dtype,
     # out_dtype, stream
     "quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
@@ -337,9 +347,10 @@ def _check_quant(name, q, scale, bits, group, e):
 def default_paged_block_k(max_len):
     """The JAX kernel's KV rows per grid block: the largest of (128, 64,
     32, 16, 8) dividing ``max_len``, else ``max_len`` itself
-    (``default_paged_block_k``, l.1012). The CUDA kernel does not take
-    it: it walks live keys in tiles of 32 rows and stops at each query
-    tile's last live key."""
+    (``default_paged_block_k``, l.1012). The CUDA kernels do not take
+    it: they walk live keys in tiles of their own (32 rows for the scalar
+    entry, 64 for the chunk entry) and stop at each query tile's last live
+    key."""
     for b in (128, 64, 32, 16, 8):
         if max_len % b == 0:
             return b
@@ -376,6 +387,46 @@ def paged_attention_plain(q, k, v, pos, k_scale=None, v_scale=None,
     return o.reshape(s_, c, h, d).to(q.dtype)
 
 
+# the chunk entry's query rows at least: shorter chunks (a speculative
+# verify) would fill under a quarter of its 64-row tiles
+_CHUNK_MIN_C = 16
+
+
+def paged_entry(q_dtype, kv_dtype, c, d):
+    """The C entry :func:`paged_attention` launches for a CUDA call: a
+    bf16 q over a bf16 cache with ``c >= 16`` query rows and a
+    tensor-core head_dim (16, 32, 64, 128) takes ``paged_attention_chunk``
+    (the attention forward of ``csrc/attention.cuh`` with the paged mask);
+    everything else — C = 1 decode reads, short verify chunks, an f32 q or
+    cache, the int8 cache — takes ``paged_attention``, the scalar kernel.
+    A choice by dtype and shape: neither entry gives way to the other."""
+    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+            and c >= _CHUNK_MIN_C and d in _FLASH_D[torch.bfloat16]):
+        return "paged_attention_chunk"
+    return "paged_attention"
+
+
+def _paged_chunk(q, k, v, pos, scale):
+    """Launch ``paged_attention_chunk``; it takes only what
+    :func:`paged_entry` routes to it, and raises on anything else."""
+    s_, c, h, d = q.shape
+    l_, kv = k.shape[1], k.shape[2]
+    _check(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
+           and v.dtype == torch.bfloat16,
+           "paged_attention_chunk: q and the cache must be bf16")
+    _check(d in _FLASH_D[torch.bfloat16],
+           "paged_attention_chunk: head_dim must be in %s, got %d",
+           _FLASH_D[torch.bfloat16], d)
+    _check(s_ * h <= 65535, "paged_attention_chunk: at most 65535 (slot, "
+           "head) pairs")
+    _contig(("q", q), ("k", k), ("v", v), ("pos", pos))
+    _aligned(16, ("q", q), ("k", k), ("v", v))
+    out = torch.empty_like(q)
+    _launch("paged_attention_chunk", _ptr(q), _ptr(k), _ptr(v), _ptr(pos),
+            _ptr(out), s_, c, h, kv, l_, d, float(scale))
+    return out
+
+
 def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
                     scale=None):
     """Slot-paged attention reading only the live KV rows.
@@ -386,7 +437,8 @@ def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
     loaded). pos: [S] int32, the chunk's start per slot; rows
     ``[pos, pos+C)`` must already be written, and chunk row ``c`` attends
     keys ``[0, pos+c]``. Returns [S, C, H, D] in q's dtype, accumulated
-    in f32. Rows past a slot's last live key are never read."""
+    in f32. Rows past a slot's last live key are never read. On the card,
+    :func:`paged_entry` picks the C entry that runs."""
     s_, c, h, d = q.shape
     _check(k.dim() == 4 and k.shape == v.shape and k.shape[0] == s_
            and k.shape[3] == d, "paged_attention: k/v must be [S, L, Hkv, "
@@ -419,6 +471,8 @@ def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
     if not _on_cuda(q, k, v, pos, k_scale, v_scale):
         return paged_attention_plain(q, k, v, pos, k_scale, v_scale,
                                      scale)
+    if paged_entry(q.dtype, k.dtype, c, d) == "paged_attention_chunk":
+        return _paged_chunk(q, k, v, pos, scale)
     _check(d <= 128, "paged_attention: the kernel takes head_dim <= 128, "
            "got %d", d)
     _contig(("q", q), ("k", k), ("v", v), ("pos", pos),
@@ -642,10 +696,6 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
 
 
 # -- flash_attention --------------------------------------------------------
-
-_FLASH_D = {torch.bfloat16: (16, 32, 64, 128),
-            torch.float32: (8, 16, 32, 64, 128)}
-
 
 def _flash_mask(tq, tk, causal, window, device):
     """[tq, tk] bool: key visible from query (the kernels' ``visible``)."""

@@ -37,15 +37,36 @@ def _qweights(rng, f, e, bits, group):
 
 # -- paged_attention ----------------------------------------------------------
 
-@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
-@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)])
-@pytest.mark.parametrize("c", [1, 4])
-@pytest.mark.parametrize("where", ["start", "end"])
-def test_paged_attention_matches_jax(quant, h, kv, c, where):
-    s_, l_, d = 2, 32, 8
+def _paged_cases():
+    """(quant, h, kv, c, d, l, pos, block_k): decode reads and short chunks
+    at L=32 (ids where-c-h-kv-quant), then chunks of the sizes the chunk
+    entry takes on the card: ragged (C=100), at an offset (pos 300, C=128,
+    L=512) and GQA at C=64."""
+    cases = []
+    for where in ("start", "end"):
+        for c in (1, 4):
+            for h, kv in ((4, 4), (4, 2)):
+                for quant in (False, True):
+                    pos = [0, 1] if where == "start" else [32 - c, 32 - c - 3]
+                    cases.append(pytest.param(
+                        quant, h, kv, c, 8, 32, pos, 8,
+                        id="%s-%d-%d-%d-%s" % (where, c, h, kv,
+                                               "int8" if quant else "float")))
+    cases += [
+        pytest.param(False, 4, 2, 100, 16, 128, [0, 28], None,
+                     id="ragged-100-4-2-float"),
+        pytest.param(False, 4, 4, 128, 16, 512, [300, 384], None,
+                     id="offset-128-4-4-float"),
+        pytest.param(False, 6, 2, 64, 16, 128, [0, 64], None,
+                     id="gqa-64-6-2-float")]
+    return cases
+
+
+@pytest.mark.parametrize("quant,h,kv,c,d,l_,pos,block_k", _paged_cases())
+def test_paged_attention_matches_jax(quant, h, kv, c, d, l_, pos, block_k):
+    s_ = 2
     rng = np.random.RandomState(10 * c + h + kv)
-    pos = np.array([0, 1] if where == "start" else [l_ - c, l_ - c - 3],
-                   np.int32)
+    pos = np.array(pos, np.int32)
     q = rng.randn(s_, c, h, d).astype(np.float32)
     kw_j, kw_t = {}, {}
     if quant:
@@ -59,11 +80,85 @@ def test_paged_attention_matches_jax(quant, h, kv, c, where):
         k = rng.randn(s_, l_, kv, d).astype(np.float32)
         v = rng.randn(s_, l_, kv, d).astype(np.float32)
     want = pk.paged_attention(jnp.asarray(q), jnp.asarray(k),
-                              jnp.asarray(v), jnp.asarray(pos), block_k=8,
-                              **kw_j)
+                              jnp.asarray(v), jnp.asarray(pos),
+                              block_k=block_k, **kw_j)
     got = K.paged_attention(_t(q), _t(k), _t(v), _t(pos), **kw_t)
     assert got.dtype == torch.float32 and got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+_CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8}
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("cache", list(_CACHE_DTYPES))
+@pytest.mark.parametrize("c", [1, 5, 15, 16, 64, 100, 256])
+def test_paged_entry_takes_the_chunk_for_bf16_chunks(q_dtype, cache, c):
+    """A bf16 q over a bf16 cache with C >= 16 goes to the chunk entry;
+    decode reads, short chunks, f32 and the int8 cache to the scalar
+    one."""
+    want = "paged_attention_chunk" if (
+        q_dtype == torch.bfloat16 and cache == "bf16" and c >= 16) \
+        else "paged_attention"
+    assert K.paged_entry(q_dtype, _CACHE_DTYPES[cache], c, 64) == want
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 96, 128])
+def test_paged_entry_takes_the_chunk_for_tensor_core_head_dims(d):
+    want = "paged_attention_chunk" if d in (16, 32, 64, 128) \
+        else "paged_attention"
+    assert K.paged_entry(torch.bfloat16, torch.bfloat16, 64, d) == want
+
+
+def _refuse_library(monkeypatch):
+    def refuse(entry):
+        raise AssertionError("a CPU call reached the kernels' library (%s)"
+                             % entry)
+    monkeypatch.setattr(K, "_lib", refuse)
+
+
+def test_chunk_entry_is_registered_and_cpu_calls_run_plain(monkeypatch):
+    """The chunk entry is a C entry of paged_attention.cu with its own
+    argument types and launch counter; a bf16 chunk on the CPU runs the
+    plain version and never loads the kernels."""
+    assert K.ENTRIES["paged_attention"] == ("paged_attention",
+                                            "paged_attention_chunk")
+    assert K.SOURCE["paged_attention_chunk"] == "paged_attention"
+    assert len(K._ARGTYPES["paged_attention_chunk"]) == 13
+    assert "paged_attention_chunk" in K.launch_counts()
+    _refuse_library(monkeypatch)
+    K.reset_launch_counts()
+    q = torch.randn(2, 16, 4, 16).to(torch.bfloat16)
+    kc = torch.randn(2, 48, 2, 16).to(torch.bfloat16)
+    pos = torch.tensor([0, 30], dtype=torch.int32)
+    assert K.paged_entry(q.dtype, kc.dtype, 16, 16) == "paged_attention_chunk"
+    out = K.paged_attention(q, kc, kc, pos)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.equal(out, K.paged_attention_plain(q, kc, kc, pos))
+    assert not any(K.launch_counts().values())
+
+
+@pytest.mark.parametrize("case", ["q_f32", "cache_int8", "head_dim_8",
+                                  "cache_view"])
+def test_paged_chunk_rejects(case, monkeypatch):
+    """The chunk entry takes only what the route gives it and raises on
+    anything else, before any launch."""
+    _refuse_library(monkeypatch)
+    q = torch.randn(1, 16, 4, 16).to(torch.bfloat16)
+    k = torch.randn(1, 32, 4, 16).to(torch.bfloat16)
+    pos = torch.tensor([0], dtype=torch.int32)
+    if case == "q_f32":
+        q = q.float()
+    elif case == "cache_int8":
+        k = k.to(torch.int8)
+    elif case == "head_dim_8":
+        q, k = q[..., :8].contiguous(), k[..., :8].contiguous()
+    elif case == "cache_view":
+        k = torch.randn(1, 32, 8, 16).to(torch.bfloat16)[:, :, ::2]
+    with pytest.raises(MXNetError):
+        K._paged_chunk(q, k, k, pos, 0.25)
 
 
 # -- quant_matmul ---------------------------------------------------------------
