@@ -7,8 +7,10 @@ Phases:
 
 1. the card: its name, and its name and power limit from ``nvidia-smi``;
 2. the build: ``nvcc`` compiles the kernels of ``mxnet_tpu_torch/ops/csrc``
-   into ``build/kernels/``, one process per source, all at once (timed; a
-   summary of the compiler's register/spill report is printed);
+   into ``build/kernels/``, one process per source, all at once (timed;
+   each source's largest register count and every function that spills,
+   by name, with its registers and spilled bytes, from the compiler's
+   report);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the 124M LM's serving and training paths and ResNet-50 give it
    and at small ragged shapes, in every mode, each to a stated tolerance:
@@ -18,7 +20,8 @@ Phases:
    and with NaN in the dead cache rows, each case asserted on the entry
    its route picks); ``flash_attention`` forward, dQ and
    dK/dV (B=8 T=1024 12 heads of 64 causal bf16; T=100 and T=1000,
-   non-causal, window 33, f32 and bf16, head_dim 8-128) and through
+   non-causal, window 33, f32 and bf16, head_dim 8-128; two runs of the
+   bf16 backward give the same bits) and through
    ``MultiHeadAttention`` with GQA, rope and a window against the host;
    ``fused_linear`` (M=8192 K=768 N=3072 bf16 relu; the SP path's M=2048
    f32 relu; M=100 K=70 N=130 in
@@ -36,9 +39,11 @@ Phases:
    events, median of 25 launches with the 50 MB L2 flushed before each and
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
-   there is one (``fused_conv_bn_act`` in f32, the eval forward's path,
-   with its bf16 row beside it; the paged chunk at C = 64/128/256 beside
-   the scalar paged entry on the same inputs, in turns);
+   there is one (``fused_linear`` at the LM's bf16 ffn1, with the SP
+   path's f32 ffn1 beside it; ``fused_conv_bn_act`` in f32, the eval
+   forward's path, with its bf16 row beside it; the paged chunk at C =
+   64/128/256 beside the scalar paged entry on the same inputs, in
+   turns);
 4. the serving main path: the 124M LM (12 layers, E=768, 12 heads, vocab
    32000, seeded random weights) saved with ``save_checkpoint`` and served
    by ``InferenceEngine.from_checkpoint`` with paged attention, int8
@@ -618,6 +623,29 @@ def check_flash_attention(K, dev, gen):
     return worst
 
 
+def check_flash_repeat(K, dev):
+    """Two runs of the bf16 backward on the same (q, k, v, o, lse, dO) give
+    the same bits (each output tile has one owner: no atomics), at the
+    124M training shape and at a ragged windowed one (inputs from a
+    generator of their own)."""
+    gen = torch.Generator().manual_seed(2)
+    for b, t, h, d, causal, window in ((8, 1024, 12, 64, True, 0),
+                                       (2, 1000, 3, 64, True, 33)):
+        q, k, v, do = _flash_inputs(gen, b, t, h, d, torch.bfloat16, dev)
+        kw = dict(causal=causal, window=window)
+        o, lse = K.flash_attention_fwd(q, k, v, **kw)
+        runs = [K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        tag = "B=%d T=%d H=%d D=%d causal=%s window=%d bf16" % (
+            b, t, h, d, causal, window)
+        if not same:
+            raise AssertionError("flash backward %s: two runs on the same "
+                                 "inputs differ" % tag)
+        log("flash backward %s: two runs give the same bits" % tag)
+
+
 # -- phase 3d: striped_pair_attention against its plain version -------------
 
 SP_RING, SP_C, SP_BH, SP_D = 4, 1024, 24, 64   # one hop of the SP main path
@@ -1079,7 +1107,8 @@ def check_mha_gqa(dev):
 def time_train_kernels(K, dev, gen, worst):
     """The training kernels at the 124M step's shapes (B=8, T=1024, 12
     heads of 64, causal, bf16; ffn1 M=8192 K=768 N=3072 relu): time, plain
-    time, bound and library time of each C entry."""
+    time, bound and library time of each C entry; and ``fused_linear`` at
+    the SP step's f32 ffn1 (M=2048)."""
     import torch.nn.functional as F
     timer = Timer(dev)
     b, t, h, d = 8, 1024, 12, 64
@@ -1157,6 +1186,24 @@ def time_train_kernels(K, dev, gen, worst):
     entries["fused_linear"] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
                                "bound_ms": bms, "bound_by": by,
                                "shape": shape}
+    # the SP path's f32 ffn1 (one rank's M=2048), beside F.linear in f32
+    # (TF32 off): the f32 row rides along in the kernels line
+    m = 2048
+    x = _rand(gen, (m, kd)).to(dev)
+    w, bias = w.float(), bias.float()
+    out = torch.empty((m, n), device=dev)
+    kms = timer(lambda: K.fused_linear_fwd(x, w, bias, "relu"))
+    pms = timer(lambda: K.fused_linear_plain(x, w, bias, "relu"))
+    lms = timer(lambda: torch.relu(F.linear(x, w, bias)))
+    bms, by = bound_ms(nbytes(x, w, bias, out), 2 * m * n * kd,
+                       torch.float32)
+    shape = "SP ffn1 M=2048 K=768 N=3072 f32 relu"
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(F.linear f32, TF32 off, + relu)  bound %.4f ms (%s)" % (
+            "fused_linear", shape, kms, pms, lms, bms, by))
+    entries["fused_linear"]["f32"] = {
+        "ms": kms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+        "bound_by": by, "shape": shape}
     for name, r in entries.items():
         r["max_abs_err"] = worst[name]
     return entries
@@ -2238,6 +2285,21 @@ def check_sp_against_flash(dev, b=1, t=1024):
 
 # -- main -------------------------------------------------------------------
 
+def ptxas_summary(K, name, rows=None):
+    """The build log of source ``name`` (or its ``K.ptxas_report`` rows)
+    in a few lines: its compiled functions, their largest register count,
+    and each function that spills, with its registers and spilled
+    bytes."""
+    rows = rows or K.ptxas_report(K.build_log(name))
+    regs = [r["registers"] for r in rows if r["registers"] is not None]
+    spills = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    return "  ptxas %s: %d functions, registers max %d, %d spill%s" % (
+        name, len(regs), max(regs), len(spills), "".join(
+            "\n    spills: %s: %s registers, %d bytes stored, %d loaded"
+            % (r["name"], r["registers"], r["spill_stores"],
+               r["spill_loads"]) for r in spills))
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device — this script runs on the card")
@@ -2258,18 +2320,7 @@ def main():
     log("build: %.1f s wall (%s)" % (time.perf_counter() - t0, ", ".join(
         "%s %.1f s" % kv for kv in secs.items())))
     for kname in K.KERNELS:
-        # ptxas -v: one "Used N registers" line per compiled function, each
-        # after its spill line; print the largest count and any spill
-        with open(K._lib_path(kname)[:-3] + ".log") as f:
-            lines = f.read().splitlines()
-        regs = [int(x.split("Used ")[1].split()[0]) for x in lines
-                if "Used " in x and "registers" in x]
-        spills = [x.strip() for x in lines
-                  if "spill" in x and not x.strip().startswith("0 bytes")
-                  and " 0 bytes spill stores" not in x]
-        log("  ptxas %s: %d functions, registers max %d%s" % (
-            kname, len(regs), max(regs), "".join(
-                "\n    spills: " + x for x in spills)))
+        log(ptxas_summary(K, kname))
 
     gen = torch.Generator().manual_seed(0)
     worst = {"quant_matmul": check_quant_matmul(K, dev, gen),
@@ -2277,6 +2328,7 @@ def main():
                  K, dev, gen)}
     worst.update(check_paged_attention(K, dev, gen))
     worst.update(check_flash_attention(K, dev, gen))
+    check_flash_repeat(K, dev)
     worst["fused_linear"] = check_fused_linear(K, dev, gen)
     dgen = torch.Generator(device=dev).manual_seed(1)
     worst["matmul_stats"] = check_matmul_stats(K, dev, gen, dgen)
@@ -2325,7 +2377,7 @@ def main():
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
-        **{k: timed[e][k] for k in ("gemm_ms", "bf16", "scalar_ms")
+        **{k: timed[e][k] for k in ("gemm_ms", "bf16", "f32", "scalar_ms")
            if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"

@@ -11,16 +11,21 @@ LM's training shape, a windowed ragged T in bf16, non-causal f32, a
 windowed head_dim 32 f32):
 
 * the forward: o and lse of this build within ``chip_smoke.TOL`` of the
-  other's in bf16 (the bf16 forward was redesigned: another summation
-  order, exp2, the mask only on boundary tiles), bitwise equal in f32
-  (the f32 forward is unchanged);
+  other's in bf16 (the bf16 forward sums in another order, takes exp2
+  and masks only boundary tiles), bitwise equal in f32 (the f32 kernels
+  are unchanged);
 * the backward: both builds' dQ and dK/dV entries are fed the same
-  (q, k, v, o, lse, dO), the other build's o and lse, and their outputs
-  (dcap, dQ, dK, dV) must be bitwise equal.
+  (q, k, v, o, lse, dO), the other build's o and lse. In bf16 dcap is
+  held within ``chip_smoke.TOL`` of the other's and dQ, dK and dV within
+  ``chip_smoke.GRAD_REL`` of the other's largest value (the rule that
+  holds them against the plain version: the bf16 backward sums in
+  another order and takes exp2); in f32 all four are bitwise equal.
 
 Then the three entries are timed at the 124M shape in turns (other, this,
-this, other) with ``chip_smoke.py``'s timer. Exits non-zero if any check
-fails. Needs a CUDA card and ``nvcc``.
+this, other) with ``chip_smoke.py``'s timer. Both builds' compiler reports
+are printed first: each function that spills, with its registers and
+spilled bytes. Exits non-zero if any check fails. Needs a CUDA card and
+``nvcc``.
 """
 import argparse
 import ctypes
@@ -64,12 +69,18 @@ def main():
     cs.log(cs.card_line())
     out = os.path.join(HERE, "build", "kernels", "other_flash_attention.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([K._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", out, os.path.join(
-                        os.path.abspath(args.parent), "mxnet_tpu_torch",
-                        "ops", "csrc", "flash_attention.cu")], check=True)
+    with open(out[:-3] + ".log", "w") as log:
+        subprocess.run([K._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v", "-o", out, os.path.join(
+                            os.path.abspath(args.parent), "mxnet_tpu_torch",
+                            "ops", "csrc", "flash_attention.cu")],
+                       stdout=log, stderr=subprocess.STDOUT, check=True)
     K.build(("flash_attention",))
+    for name, path in (("other", out[:-3] + ".log"),
+                       ("this", K.build_log("flash_attention"))):
+        cs.log(name + cs.ptxas_summary(K, "flash_attention",
+                                       K.ptxas_report(path)))
     libs = {"other": _load(K, out),
             "this": _load(K, K._lib_path("flash_attention"))}
     gen = torch.Generator().manual_seed(0)
@@ -123,25 +134,53 @@ def main():
             how = "within TOL[bf16] (atol %g, rtol %g), max |err| o %.3g " \
                 "lse %.3g" % (atol, rtol, errs[0].max().item(),
                               errs[1].max().item())
-        bwd_ok = all(torch.equal(x, y) for x, y in zip(bwd["other"],
-                                                       bwd["this"]))
+        if dt is torch.float32:
+            bwd_ok = all(torch.equal(x, y) for x, y in zip(bwd["other"],
+                                                           bwd["this"]))
+            bhow = "bitwise equal"
+        else:
+            bwd_ok, bhow = _bwd_close(cs, bwd["this"], bwd["other"])
         cs.log("flash %s: forward (o, lse) this vs other %s: %s; backward "
-               "(dcap, dq, dk, dv) from the same (o, lse) bitwise equal: %s"
-               % (tag, how, fwd_ok, bwd_ok))
+               "(dcap, dq, dk, dv) from the same (o, lse) %s: %s"
+               % (tag, how, fwd_ok, bhow, bwd_ok))
         if not (fwd_ok and bwd_ok):
             failed.append(tag)
         if t == 1024:
+            mean = {}
             for entry in ("fwd", "dq", "dkv"):
                 ms = [timer(calls[n][entry])
                       for n in ("other", "this", "this", "other")]
                 cs.log("time flash_attention_%-4s %s  other %.4f ms  this "
                        "%.4f ms  this %.4f ms  other %.4f ms"
                        % ((entry, tag) + tuple(ms)))
+                mean[entry] = ((ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2)
+            other, this = (mean["dq"][i] + mean["dkv"][i] for i in (0, 1))
+            cs.log("backward dq + dkv %s: other %.4f ms, this %.4f ms, "
+                   "%.2fx" % (tag, other, this, other / this))
     if failed:
         raise AssertionError("flash outputs disagree with the other "
                              "version's in %s" % failed)
     cs.log("compare_flash: all %d cases agree" % len(CASES))
     return 0
+
+
+def _bwd_close(cs, this, other):
+    """(ok, how): dcap within ``TOL[f32]``, dQ/dK/dV within ``GRAD_REL``
+    of the other build's largest value."""
+    atol, rtol = cs.TOL[torch.float32]
+    err = (this[0] - other[0]).abs()
+    ok = bool((err <= atol + rtol * other[0].abs()).all())
+    rel = []
+    for x, y in zip(this[1:], other[1:]):
+        e = (x.float() - y.float()).abs().max().item()
+        top = y.float().abs().max().item()
+        rel.append(e / max(top, 1e-30))
+        ok = ok and bool(torch.isfinite(x).all()) and \
+            e <= cs.GRAD_REL * top
+    return ok, ("dcap within TOL[f32] (max |err| %.3g), dq/dk/dv within "
+                "GRAD_REL %.3g of max |other| (%s)" % (
+                    err.max().item(), cs.GRAD_REL,
+                    ", ".join("%.3g" % r for r in rel)))
 
 
 def _run(name, entry, call):

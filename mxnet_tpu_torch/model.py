@@ -14,14 +14,19 @@ import torch
 
 from . import ndarray as nd
 from . import symbol as sym
-from .base import MXNetError, torch_dtype
+from .base import MXNetError, refuse_unported, torch_dtype
 from .context import resolve_device
 
 __all__ = ["save_checkpoint", "load_checkpoint", "params_from_numpy"]
 
 
-def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    """Save ``prefix-symbol.json`` and ``prefix-%04d.params``."""
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
+                    optimizer_states=None):
+    """Save ``prefix-symbol.json`` and ``prefix-%04d.params``.
+    ``optimizer_states`` (the JAX package's ``prefix-%04d.states``)
+    raises unless None: it belongs to a later slice."""
+    refuse_unported("save_checkpoint",
+                    optimizer_states=(optimizer_states, None))
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
     symbol.save("%s-symbol.json" % prefix)

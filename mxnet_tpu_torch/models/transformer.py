@@ -8,7 +8,7 @@ and mixture-of-experts blocks wait for later slices of the port.
 from __future__ import annotations
 
 from .. import symbol as sym
-from ..base import MXNetError
+from ..base import later_slice
 
 __all__ = ["transformer_block", "get_transformer_lm"]
 
@@ -46,7 +46,8 @@ def transformer_block(data, num_heads, hidden, embed_dim, name,
 
 def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
                        ffn_hidden=None, seq_len=None, impl="flash",
-                       dropout=0.0, num_experts=0, loss_layout="reference",
+                       dropout=0.0, num_experts=0, pipeline_stages=None,
+                       moe_top_k=0, loss_layout="reference",
                        pos_encoding="learned", num_kv_heads=0, window=0):
     """Decoder-only LM: Embedding -> N blocks -> FC head -> per-position
     softmax over the vocab. ``loss_layout`` "reference" swaps the
@@ -54,11 +55,19 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
     reshapes them to [B*T,V]. ``pos_encoding`` "learned" adds the
     ``pos_embed`` table, "rope" rotates q/k in every attention.
     ``num_kv_heads`` is grouped-query attention, ``window`` sliding-window
-    attention (0 = unlimited)."""
+    attention (0 = unlimited). The parameters are the JAX package's, in
+    its order; ``num_experts``, ``pipeline_stages`` and ``moe_top_k``
+    (mixture-of-experts blocks, pipeline stage tags) raise unless left
+    at their defaults (or 0): they belong to a later slice."""
     if num_experts:
-        raise MXNetError(
-            "get_transformer_lm: mixture-of-experts blocks are not ported "
-            "to the PyTorch package yet (num_experts=%d)" % num_experts)
+        raise later_slice("get_transformer_lm", "mixture-of-experts blocks "
+                          "(num_experts=%d)" % num_experts)
+    if pipeline_stages:
+        raise later_slice("get_transformer_lm", "pipeline stage tags "
+                          "(pipeline_stages=%r)" % (pipeline_stages,))
+    if moe_top_k:
+        raise later_slice("get_transformer_lm", "top-k expert routing "
+                          "(moe_top_k=%r)" % (moe_top_k,))
     if pos_encoding not in ("learned", "rope"):
         raise ValueError("pos_encoding must be 'learned' or 'rope', "
                          "got %r" % (pos_encoding,))

@@ -57,21 +57,38 @@
 // probabilities are exactly 0. lse is still the natural-log
 // m * scale + log(l).
 //
-// The backward (dq_mma, dkv_mma): one block of 4 warps owns a 64-row tile
-// of the output (queries for dQ, keys for dK/dV) and walks the tiles of
-// the other side, staging each 64-row tile in shared memory
-// synchronously. Each warp runs 16 rows in mma.sync m16n8k16 steps (bf16
-// in, f32 accumulate): the scores stay in registers and are reused as the
-// A operand of the next product (P.V, dS.K, P^T.dO, dS^T.Q), and the
-// transposed B operands come from the same row-major tiles through
-// ldmatrix .trans. P and dS are rounded to bf16 for those products while
-// the row sums and the softmax stay f32. Each output tile has one owner,
-// so there are no atomics and a step's gradients are the same bits every
-// run. The dQ kernel also writes dcap, which the dK/dV kernel, launched
-// after it on the same stream, reads. f32 inputs take a CUDA-core form of
-// the same three kernels (several threads per row, one key or query at a
-// time), masked scores at -1e30 with probability exactly 0. wgmma and TMA
-// (a warp-specialised forward) are later work.
+// The bf16 backward (dq_mma, dkv_mma) keeps the JAX package's two kernels,
+// each with its own sequential loop: dQ over query tiles, dK/dV over key
+// tiles, P recomputed from (q, k, lse). Each output tile has one owner, so
+// there are no atomics and a step's gradients are the same bits every run.
+// One block of 4 warps owns a 64-row tile of the output, each warp 16 rows,
+// and walks the 64-row tiles of the other side through a two-stage cp.async
+// ring, one barrier a step: tile j+1's copies are in flight while tile j's
+// products run; dK/dV stages each query tile's lse and dcap beside its Q and
+// dO. The block's own Q and dO (K and V) stay in shared memory, their A
+// fragments taken by ldmatrix at each product, so that up to D = 64 a thread
+// holds at most 168 registers and three blocks (12 warps) share an SM (at D
+// = 128 two blocks fill its shared memory, and keep up to 255 registers).
+// Counted from a step's operations at the card's peak rates, its shared-
+// memory reads, its ex2 and its mma.sync take comparable times, and more
+// warps overlap them: on an H100 at the LM's shape, two blocks an SM holding
+// the fragments in registers, and 128-row tiles of 8 warps, were both
+// slower. The grid runs the (batch, head) pairs fastest and the heaviest
+// tiles first (dQ's last query tiles, dK/dV's first key tiles under a causal
+// mask). Each warp runs mma.sync m16n8k16 steps (bf16 in, f32 accumulate)
+// with every fragment taken by ldmatrix (.trans for the products by P and
+// dS): the scores stay in registers as the A operand of the next product
+// (dS.K; P^T.dO, dS^T.Q). P = exp2(S * scale * log2(e) - lse * log2(e)), one
+// FMA and ex2.approx a score; dS is taken without the scale, which
+// multiplies dQ and dK once at the store. Only boundary tiles evaluate the
+// mask (probability 0), and a warp whose rows see no key of the tile skips
+// it (its terms are exact zeros). P and dS are rounded to bf16 for the
+// products while the row sums and the softmax stay f32. The dQ kernel also
+// writes dcap, which the dK/dV kernel, launched after it on the same stream,
+// reads. f32 inputs take a CUDA-core form of the same three kernels (several
+// threads per row, one key or query at a time), masked scores at -1e30 with
+// probability exactly 0. wgmma and TMA (a warp-specialised pipeline) are
+// later work.
 #pragma once
 
 #include <math.h>
@@ -211,26 +228,9 @@ __device__ __forceinline__ T* row_ptr(T* base, int b, int t, int h, Lay l,
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 
-// rows of the backward's query tiles and of every key tile
+// rows of the streamed tiles: the query tiles dK/dV walks, the key tiles
+// the forward and dQ walk
 constexpr int BQ = 64, BK = 64;
-
-// rows [t0, t0 + 64) of head (b, h) into a [64][D + 8] shared tile, zeros
-// past T
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* sm,
-                                          const __nv_bfloat16* base, int b,
-                                          int t0, int T_, int h, Lay l) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  constexpr int LD = D + 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int t = t0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T_)
-      v = *reinterpret_cast<const uint4*>(row_ptr(base, b, t, h, l, D) + c);
-    *reinterpret_cast<uint4*>(sm + r * LD + c) = v;
-  }
-}
 
 // A fragments of 16 rows (from r0) x D of a [64][D + 8] tile
 template <int D>
@@ -248,29 +248,7 @@ __device__ __forceinline__ void load_a(uint32_t (*f)[4],
   }
 }
 
-// acc[n] (16 x 8, n < 8) = A (16 x D, fragments) . M^T for the 64 rows of
-// a [64][D + 8] tile M: the scores of 16 rows against 64 rows
-template <int D>
-__device__ __forceinline__ void rows_dot_tile(float (*acc)[4],
-                                              uint32_t (*a)[4],
-                                              const __nv_bfloat16* sm, int g,
-                                              int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* p = sm + (n * 8 + g) * LD + kk * 16 + 2 * t;
-      uint32_t b[2];
-      b[0] = *reinterpret_cast<const uint32_t*>(p);
-      b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-      mma16816(acc[n], a[kk], b);
-    }
-  }
-}
-
-// out (16 x D) += P (16 x 64, the f32 accumulators of rows_dot_tile,
+// out (16 x D) += P (16 x 64, the f32 accumulators of rows_dot_tile_ldsm,
 // rounded to bf16) . M for the 64 rows of a [64][D + 8] tile M
 template <int D>
 __device__ __forceinline__ void probs_times_tile(float (*out)[4],
@@ -396,6 +374,39 @@ __device__ __forceinline__ void rows_dot_tile_ldsm(float (*acc)[4],
       mma16816(acc[n], a[kk], b);
       mma16816(acc[n + 1], a[kk], b + 2);
     }
+}
+
+// rows_dot_tile_ldsm with the A fragments too taken by ldmatrix, from
+// rows [r0, r0 + 16) of a [.][D + 8] tile As, one 16-column step at a
+// time: the backward keeps its resident tiles in shared memory instead of
+// registers, so that three blocks share an SM. Each acc[n] sums the same
+// products in the same order as rows_dot_tile_ldsm.
+template <int D>
+__device__ __forceinline__ void rows_dot_tile_smem(float (*acc)[4],
+                                                   const __nv_bfloat16* As,
+                                                   int r0,
+                                                   const __nv_bfloat16* sm,
+                                                   int lane) {
+  constexpr int LD = D + 8;
+  const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // matrices (rows lo, k lo), (rows hi, k lo), (rows lo, k hi), (rows
+    // hi, k hi): the A fragment of mma16816
+    uint32_t a[4];
+    ldsm_x4(a, As + (r0 + (mi & 1) * 8 + r) * LD + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t b[4];
+      ldsm_x4(b,
+              sm + ((n + (mi >> 1)) * 8 + r) * LD + kk * 16 + (mi & 1) * 8);
+      mma16816(acc[n], a, b);
+      mma16816(acc[n + 1], a, b + 2);
+    }
+  }
 }
 
 // the bf16 forward: o (and, but for a paged chunk, lse) of a QT-row query
@@ -566,8 +577,96 @@ __device__ __forceinline__ void tile_dcap(float* dcs, float* __restrict__ dcap,
   }
 }
 
+// 4 bytes from global to shared memory (cp.async.ca), zero-filled with
+// in = false (nothing read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(a), "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// start copying rows [t0, t0 + R) of the f32 row terms of head bh
+// ([B*H, T]) into shared memory, one a thread from thread `first`, zeros
+// at and past T
+template <int R>
+__device__ __forceinline__ void load_terms_async(float* sm,
+                                                 const float* base, int bh,
+                                                 int t0, int T_, int first) {
+  const int i = threadIdx.x - first;
+  if (i >= 0 && i < R) {
+    const int t = t0 + i;
+    const bool in = t < T_;
+    cp_async4(sm + i, in ? base + (size_t)bh * T_ + t : base, in);
+  }
+}
+
+// false when no query of [q0, q0 + bq) sees any key of [k0, k0 + bk): the
+// range of q - k is then wholly outside what the mask keeps
+template <Mask M>
+__device__ __forceinline__ bool any_visible(int q0, int bq, int k0, int bk,
+                                            const Shape& s) {
+  if (q0 >= s.Tq || k0 >= s.Tk) return false;
+  const int q1 = min(q0 + bq, s.Tq) - 1, k1 = min(k0 + bk, s.Tk) - 1;
+  if constexpr (M == Mask::Striped) {
+    return q1 * s.n + s.q_off >= k0 * s.n + s.k_off;
+  } else {
+    bool ok = true;
+    if (s.causal) ok = ok && q1 >= k0;
+    if (s.window) ok = ok && q0 - k1 < s.window;
+    return ok;
+  }
+}
+
+// dcap[row] = sum_d dO[row, d] * O[row, d] (minus g_lse[row] for a striped
+// hop) for the BQ rows of a query tile, dO from its staged [BQ][D + 8]
+// tile and O from device memory by 16-byte loads, D / 8 neighbouring
+// threads a row; into shared memory and, for real rows, to dcap
 template <int D, Mask M>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void tile_dcap_bf16(
+    float* dcs, float* __restrict__ dcap, const __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* dos, int b, int q0, int bh, const Shape& s, int h) {
+  constexpr int CH = D / 8, LD = D + 8;
+  static_assert((BQ * CH) % THREADS == 0 && 32 % CH == 0,
+                "whole warps a row");
+#pragma unroll
+  for (int it = 0; it < BQ * CH / THREADS; ++it) {
+    const int i = it * THREADS + threadIdx.x;
+    const int r = i / CH, c = (i % CH) * 8, tq = q0 + r;
+    float acc = 0.f;
+    if (tq < s.Tq) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(
+          row_ptr(o, b, tq, h, lay_q(s, D), D) + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dos + r * LD + c);
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(op[e]);
+        const float2 d = __bfloat1622float2(dp[e]);
+        acc = fmaf(a.x, d.x, acc);
+        acc = fmaf(a.y, d.y, acc);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < CH; off <<= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if constexpr (M == Mask::Striped) {
+      if (tq < s.Tq) acc -= s.glse[(size_t)bh * s.Tq + tq];
+    }
+    if (c == 0) {
+      dcs[r] = acc;
+      if (tq < s.Tq) dcap[(size_t)bh * s.Tq + tq] = acc;
+    }
+  }
+}
+
+// The bf16 dQ kernel: dQ of a 64-row query tile, 4 warps of 16 rows; the
+// header's note gives the design.
+template <int D, Mask M>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 2)
 dq_mma(const __nv_bfloat16* __restrict__ q,
        const __nv_bfloat16* __restrict__ k,
        const __nv_bfloat16* __restrict__ v,
@@ -576,64 +675,103 @@ dq_mma(const __nv_bfloat16* __restrict__ q,
        const float* __restrict__ lse, float* __restrict__ dcap,
        __nv_bfloat16* __restrict__ dq, Shape s) {
   constexpr int LD = D + 8;
+  constexpr int STAGE = BK * LD;  // elements of one K or V stage
+  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ds_ = qs + BQ * LD;
-  __nv_bfloat16* ks = ds_ + BQ * LD;
-  __nv_bfloat16* vs = ks + BK * LD;
-  float* lses = reinterpret_cast<float*>(vs + BK * LD);
-  float* dcs = lses + BQ;
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
+  __nv_bfloat16* dos = qs + BQ * LD;
+  __nv_bfloat16* ks = dos + BQ * LD;  // [2][BK][LD]
+  __nv_bfloat16* vs = ks + 2 * STAGE;  // [2][BK][LD]
+  float* dcs = reinterpret_cast<float*>(vs + 2 * STAGE);
+  // under a causal mask the last query tiles see the most keys: the grid
+  // runs the (b, h) pairs fastest and the tiles from the last
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4, wr = 16 * warp;
+  const int q0 = qi * BQ;
   const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
-  load_tile<D>(qs, q, b, qi * BQ, s.Tq, h, lq);
-  load_tile<D>(ds_, dout, b, qi * BQ, s.Tq, h, lay_q(s, D));
-  tile_dcap<__nv_bfloat16, D, M>(dcs, dcap, o, dout, b, qi * BQ, bh, BQ, s,
-                                  h);
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const int tq = qi * BQ + r;
-    lses[r] = tq < s.Tq ? lse[(size_t)bh * s.Tq + tq] : 0.f;
-  }
-  __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a<D>(qf, qs, wr, g, t);
-  load_a<D>(df, ds_, wr, g, t);
-  const int qp[2] = {qi * BQ + wr + g, qi * BQ + wr + g + 8};
-  const float rl[2] = {lses[wr + g], lses[wr + g + 8]};
-  const float rd[2] = {dcs[wr + g], dcs[wr + g + 8]};
-
-  float acc[D / 8][4] = {};
   int lo, hi;
   key_range<M>(qi, BQ, BK, s, lo, hi);
-  for (int j = lo; j < hi; ++j) {
-    __syncthreads();
-    load_tile<D>(ks, k, b, j * BK, s.Tk, h, lk);
-    load_tile<D>(vs, v, b, j * BK, s.Tk, h, lv);
-    __syncthreads();
-    float sc[8][4], dp[8][4];
-    rows_dot_tile<D>(sc, qf, ks, g, t);
-    rows_dot_tile<D>(dp, df, vs, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = j * BK + n * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const float p = visible<M>(qp[r], kp, s)
-                            ? expf(sc[n][e] * s.scale - rl[r])
-                            : 0.f;
-        sc[n][e] = p * (dp[n][e] - rd[r]) * s.scale;  // dS
-      }
-    probs_times_tile<D>(acc, sc, ks, lane);
+
+  // commit groups, in order: Q and dO, K[lo] and V[lo], then K[j+1] and
+  // V[j+1] in each step j (empty past the last tile)
+  load_tile_async<D, BQ, THREADS>(qs, q, b, q0, s.Tq, h, lq);
+  load_tile_async<D, BQ, THREADS>(dos, dout, b, q0, s.Tq, h, lay_q(s, D));
+  cp_async_commit();
+  if (lo < hi) {
+    load_tile_async<D, BK, THREADS>(ks, k, b, lo * BK, s.Tk, h, lk);
+    load_tile_async<D, BK, THREADS>(vs, v, b, lo * BK, s.Tk, h, lv);
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(dq, acc, b, qi * BQ + wr, s.Tq, h, lay_q(s, D), g, t, one);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO
+  __syncthreads();
+  tile_dcap_bf16<D, M>(dcs, dcap, o, dos, b, q0, bh, s, h);
+  __syncthreads();
+  const int qp[2] = {q0 + wr + g, q0 + wr + g + 8};
+  // P = exp2(S * c - lse * log2(e)): one FMA per score; dS is taken
+  // without the scale, which multiplies dQ once at the end
+  const float c = s.scale * LOG2E;
+  float nl[2], rd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    nl[r] = qp[r] < s.Tq ? -lse[(size_t)bh * s.Tq + qp[r]] * LOG2E : 0.f;
+    rd[r] = dcs[wr + g + 8 * r];
+  }
+
+  float acc[D / 8][4] = {};
+  for (int j = lo; j < hi; ++j) {
+    const int stage = (j - lo) & 1;
+    const __nv_bfloat16* kt = ks + stage * STAGE;
+    const __nv_bfloat16* vt = vs + stage * STAGE;
+    cp_async_wait<0>();  // K[j] and V[j]
+    // the tile is visible to every warp, and every warp is done with step
+    // j-1, whose stage the next tile takes
+    __syncthreads();
+    if (j + 1 < hi) {
+      load_tile_async<D, BK, THREADS>(ks + (stage ^ 1) * STAGE, k, b,
+                                      (j + 1) * BK, s.Tk, h, lk);
+      load_tile_async<D, BK, THREADS>(vs + (stage ^ 1) * STAGE, v, b,
+                                      (j + 1) * BK, s.Tk, h, lv);
+    }
+    cp_async_commit();
+    // a warp whose 16 rows see no key of the tile adds exact zeros: skip
+    if (!any_visible<M>(q0 + wr, 16, j * BK, BK, s)) continue;
+    float sv[8][4], dp[8][4];
+    rows_dot_tile_smem<D>(sv, qs, wr, kt, lane);
+    rows_dot_tile_smem<D>(dp, dos, wr, vt, lane);
+    if (full_tile<M>(q0 + wr, 16, j * BK, BK, s, 0, s.Tk)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = fast_exp2(fmaf(sv[n][e], c, nl[r]));
+          sv[n][e] = p * (dp[n][e] - rd[r]);  // dS / scale
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int kp = j * BK + n * 8 + 2 * t + (e & 1);
+          const float p = visible<M>(qp[r], kp, s)
+                              ? fast_exp2(fmaf(sv[n][e], c, nl[r]))
+                              : 0.f;
+          sv[n][e] = p * (dp[n][e] - rd[r]);
+        }
+    }
+    probs_times_tile<D>(acc, sv, kt, lane);
+  }
+  const float mul[2] = {s.scale, s.scale};
+  store_rows<D>(dq, acc, b, q0 + wr, s.Tq, h, lay_q(s, D), g, t, mul);
 }
 
+// The bf16 dK/dV kernel: dK and dV of a 64-row key tile, 4 warps of 16
+// keys; each staged 64-row Q/dO tile comes with its rows' lse and dcap.
 template <int D, Mask M>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 2)
 dkv_mma(const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ k,
         const __nv_bfloat16* __restrict__ v,
@@ -642,63 +780,87 @@ dkv_mma(const __nv_bfloat16* __restrict__ q,
         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
         Shape s) {
   constexpr int LD = D + 8;
+  // one stage: Q and dO [BQ][LD], then lse and dcap [BQ] f32
+  constexpr int STAGE = 2 * BQ * LD * 2 + 2 * BQ * 4;  // bytes
+  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* vs = ks + BK * LD;
-  __nv_bfloat16* qs = vs + BK * LD;
-  __nv_bfloat16* ds_ = qs + BQ * LD;
-  float* lses = reinterpret_cast<float*>(ds_ + BQ * LD);
-  float* dcs = lses + BQ;
-  // under a causal mask the first key tiles are seen by the most queries
-  const int kj = blockIdx.x;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + BK * LD);
+  // under a causal mask the first key tiles are seen by the most queries:
+  // the grid runs the (b, h) pairs fastest and the tiles from the first
+  const int kj = blockIdx.y;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4, wr = 16 * warp;
+  const int k0 = kj * BK;
   const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
-  load_tile<D>(ks, k, b, kj * BK, s.Tk, h, lk);
-  load_tile<D>(vs, v, b, kj * BK, s.Tk, h, lv);
-  __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, ks, wr, g, t);
-  load_a<D>(vf, vs, wr, g, t);
-  const int kp[2] = {kj * BK + wr + g, kj * BK + wr + g + 8};
-
-  float dka[D / 8][4] = {}, dva[D / 8][4] = {};
   int lo, hi;
   query_range<M>(kj, BQ, BK, s, lo, hi);
+
+  // stage i's Q, dO, lse and dcap, by every thread (the row terms by the
+  // first 2 * BQ threads)
+  auto load_stage = [&](int i, unsigned char* st) {
+    __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(st);
+    float* ls = reinterpret_cast<float*>(qt + 2 * BQ * LD);
+    load_tile_async<D, BQ, THREADS>(qt, q, b, i * BQ, s.Tq, h, lq);
+    load_tile_async<D, BQ, THREADS>(qt + BQ * LD, dout, b, i * BQ, s.Tq,
+                                    h, lay_q(s, D));
+    load_terms_async<BQ>(ls, lse, bh, i * BQ, s.Tq, 0);
+    load_terms_async<BQ>(ls + BQ, dcap, bh, i * BQ, s.Tq, BQ);
+  };
+  // commit groups, in order: K and V, stage lo, then stage i+1 in each
+  // step i (empty past the last tile)
+  load_tile_async<D, BK, THREADS>(ks, k, b, k0, s.Tk, h, lk);
+  load_tile_async<D, BK, THREADS>(vs, v, b, k0, s.Tk, h, lv);
+  cp_async_commit();
+  if (lo < hi) load_stage(lo, ring);
+  cp_async_commit();
+  const int kp[2] = {k0 + wr + g, k0 + wr + g + 8};
+  const float c = s.scale * LOG2E;
+
+  float dka[D / 8][4] = {}, dva[D / 8][4] = {};
   for (int i = lo; i < hi; ++i) {
+    unsigned char* st = ring + ((i - lo) & 1) * STAGE;
+    const __nv_bfloat16* qt = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* dot = qt + BQ * LD;
+    const float* ls = reinterpret_cast<const float*>(dot + BQ * LD);
+    const float* dcs = ls + BQ;
+    cp_async_wait<0>();  // stage i (and, at i = lo, K and V)
+    // stage i is visible to every warp, and every warp is done with step
+    // i-1, whose stage the next one takes
     __syncthreads();
-    load_tile<D>(qs, q, b, i * BQ, s.Tq, h, lq);
-    load_tile<D>(ds_, dout, b, i * BQ, s.Tq, h, lay_q(s, D));
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      const int tq = i * BQ + r;
-      const bool in = tq < s.Tq;
-      lses[r] = in ? lse[(size_t)bh * s.Tq + tq] : 0.f;
-      dcs[r] = in ? dcap[(size_t)bh * s.Tq + tq] : 0.f;
-    }
-    __syncthreads();
+    if (i + 1 < hi) load_stage(i + 1, ring + ((i + 1 - lo) & 1) * STAGE);
+    cp_async_commit();
+    // a warp whose 16 keys no query of the tile sees adds exact zeros
+    if (!any_visible<M>(i * BQ, BQ, k0 + wr, 16, s)) continue;
     // transposed scores: rows are this warp's 16 keys, columns the tile's
     // 64 queries
-    float st[8][4], dpt[8][4];
-    rows_dot_tile<D>(st, kf, qs, g, t);
-    rows_dot_tile<D>(dpt, vf, ds_, g, t);
+    float sv[8][4], dp[8][4];
+    rows_dot_tile_smem<D>(sv, ks, wr, qt, lane);
+    rows_dot_tile_smem<D>(dp, vs, wr, dot, lane);
+    const bool full = full_tile<M>(i * BQ, BQ, k0 + wr, 16, s, 0, s.Tk);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 8; ++n) {
+      const int cq = n * 8 + 2 * t;  // this thread's two query columns
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + cq);
+      const float2 d2 = *reinterpret_cast<const float2*>(dcs + cq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        const float p = visible<M>(i * BQ + c, kp[e >> 1], s)
-                            ? expf(st[n][e] * s.scale - lses[c])
-                            : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - dcs[c]) * s.scale;  // dS^T
+        const float nl = -(e & 1 ? l2.y : l2.x) * LOG2E;
+        float p = fast_exp2(fmaf(sv[n][e], c, nl));
+        if (!full && !visible<M>(i * BQ + cq + (e & 1), kp[e >> 1], s))
+          p = 0.f;
+        sv[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - (e & 1 ? d2.y : d2.x));  // dS^T / scale
       }
-    probs_times_tile<D>(dva, st, ds_, lane);
-    probs_times_tile<D>(dka, dpt, qs, lane);
+    }
+    probs_times_tile<D>(dva, sv, dot, lane);
+    probs_times_tile<D>(dka, dp, qt, lane);
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(dk, dka, b, kj * BK + wr, s.Tk, h, lay_k(s, D), g, t, one);
-  store_rows<D>(dv, dva, b, kj * BK + wr, s.Tk, h, lay_k(s, D), g, t, one);
+  const float one[2] = {1.f, 1.f}, mul[2] = {s.scale, s.scale};
+  store_rows<D>(dk, dka, b, k0 + wr, s.Tk, h, lay_k(s, D), g, t, mul);
+  store_rows<D>(dv, dva, b, k0 + wr, s.Tk, h, lay_k(s, D), g, t, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -977,24 +1139,31 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 template <int D, Mask M>
+int dq_bf16(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const float* lse, float* dcap, void* dqp,
+            const Shape& s, cudaStream_t st) {
+  // Q and dO, 2 stages of K and V, dcap of the tile's rows
+  const int smem = (2 * BQ + 4 * BK) * (D + 8) * 2 + BQ * 4;
+  cudaError_t e = set_smem(dq_mma<D, M>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dq_mma<D, M><<<dim3(s.B * s.H, (s.Tq + BQ - 1) / BQ), THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, dcap,
+      static_cast<__nv_bfloat16*>(dqp), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, Mask M>
 int dq(const void* q, const void* k, const void* v, const void* o,
        const void* dout, const float* lse, float* dcap, void* dqp,
        const Shape& s, int dtype, cudaStream_t st) {
   const int bh = s.B * s.H;
   if constexpr (D % 16 == 0) {
-    if (dtype == kBF16) {
-      const int smem = 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
-      cudaError_t e = set_smem(dq_mma<D, M>, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      dq_mma<D, M><<<dim3((s.Tq + BQ - 1) / BQ, bh), THREADS, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const __nv_bfloat16*>(o),
-          static_cast<const __nv_bfloat16*>(dout), lse, dcap,
-          static_cast<__nv_bfloat16*>(dqp), s);
-      return static_cast<int>(cudaGetLastError());
-    }
+    if (dtype == kBF16)
+      return dq_bf16<D, M>(q, k, v, o, dout, lse, dcap, dqp, s, st);
   }
   const int rows = Split<D>::ROWS;
   dq_f32<D, M><<<dim3((s.Tq + rows - 1) / rows, bh), THREADS, 0, st>>>(
@@ -1006,24 +1175,31 @@ int dq(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <int D, Mask M>
+int dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* dcap, void* dk, void* dv,
+             const Shape& s, cudaStream_t st) {
+  // K and V, then 2 stages of Q, dO, lse and dcap
+  const int smem = 2 * BK * (D + 8) * 2 + 2 * (4 * BQ * (D + 8) + 8 * BQ);
+  cudaError_t e = set_smem(dkv_mma<D, M>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dkv_mma<D, M><<<dim3(s.B * s.H, (s.Tk + BK - 1) / BK), THREADS, smem,
+                  st>>>(static_cast<const __nv_bfloat16*>(q),
+                        static_cast<const __nv_bfloat16*>(k),
+                        static_cast<const __nv_bfloat16*>(v),
+                        static_cast<const __nv_bfloat16*>(dout), lse, dcap,
+                        static_cast<__nv_bfloat16*>(dk),
+                        static_cast<__nv_bfloat16*>(dv), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, Mask M>
 int dkv(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* dcap, void* dk, void* dv,
         const Shape& s, int dtype, cudaStream_t st) {
   const int bh = s.B * s.H;
   if constexpr (D % 16 == 0) {
-    if (dtype == kBF16) {
-      const int smem = 4 * 64 * (D + 8) * 2 + 2 * 64 * 4;
-      cudaError_t e = set_smem(dkv_mma<D, M>, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      dkv_mma<D, M><<<dim3((s.Tk + BK - 1) / BK, bh), THREADS, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const __nv_bfloat16*>(dout), lse, dcap,
-          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          s);
-      return static_cast<int>(cudaGetLastError());
-    }
+    if (dtype == kBF16)
+      return dkv_bf16<D, M>(q, k, v, dout, lse, dcap, dk, dv, s, st);
   }
   const int rows = Split<D>::ROWS;
   dkv_f32<D, M><<<dim3((s.Tk + rows - 1) / rows, bh), THREADS, 0, st>>>(

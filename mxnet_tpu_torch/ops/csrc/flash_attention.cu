@@ -22,7 +22,9 @@
 // So the forward overlaps tile j+1's cp.async copies with tile j's
 // products in 128-row query tiles, masks only the diagonal's tiles, takes
 // exp2 with the scale folded into one FMA, and starts the heaviest tiles
-// first; the backward keeps the synchronous tile loop.
+// first; the backward does the same in 64-row tiles, three blocks an SM
+// (a backward with synchronous loads and the mask and expf on every score
+// took 0.22 ms for dQ and 0.29 for dK/dV, 2.5x SDPA's backward).
 #include "attention.cuh"
 
 using namespace mxk;

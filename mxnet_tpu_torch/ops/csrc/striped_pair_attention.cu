@@ -18,9 +18,9 @@
 // diagonal are never read (l.453-458) and, in dK/dV, nor are the query
 // tiles before it (l.537-541), so a hop costs about half a block. The dQ
 // kernel writes dcap = rowsum(dO * O) - g_lse, the lse cotangent folded in
-// (l.603-604), and the dK/dV kernel reads it. The bf16 forward is the
-// pipelined one of attention.cuh: key tiles wholly below the striped
-// diagonal skip the mask (the f32 one is unchanged).
+// (l.603-604), and the dK/dV kernel reads it. The bf16 kernels are the
+// pipelined ones of attention.cuh: tiles wholly below the striped
+// diagonal skip the mask (the f32 ones are unchanged).
 //
 // Bound on the H100: at the 124M LM's sequence-parallel hop (BH = 24,
 // C = 1024, D = 64) a hop does 4 D flops per visible pair forward, ~3.2

@@ -57,6 +57,7 @@ import functools
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -76,9 +77,9 @@ __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
            "striped_pair_attention_fwd", "striped_pair_attention_bwd",
            "striped_pair_attention_plain",
            "striped_pair_attention_bwd_plain", "fused_linear_fwd",
-           "fused_linear_plain", "build", "launch_counts",
-           "reset_launch_counts", "paged_entry", "KERNELS", "ENTRIES",
-           "SOURCE"]
+           "fused_linear_plain", "build", "build_log", "parse_ptxas",
+           "ptxas_report", "launch_counts", "reset_launch_counts",
+           "paged_entry", "KERNELS", "ENTRIES", "SOURCE"]
 
 # the sources build() compiles
 KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
@@ -144,7 +145,7 @@ def build(names=KERNELS):
             continue
         nvcc = nvcc or _nvcc()
         tmp = "%s.%d.tmp" % (out, os.getpid())
-        log = open(out[:-3] + ".log", "w")
+        log = open(build_log(name), "w")
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", "-o", tmp,
@@ -165,11 +166,71 @@ def build(names=KERNELS):
     if failed:
         msgs = []
         for name in failed:
-            with open(_lib_path(name)[:-3] + ".log") as f:
+            with open(build_log(name)) as f:
                 msgs.append("%s:\n%s" % (name, f.read()[-4000:]))
         raise MXNetError("nvcc failed for %s\n%s"
                          % (", ".join(failed), "\n".join(msgs)))
     return secs
+
+
+_PTXAS_FN = re.compile(r"(?:Compiling entry function '([^']+)'|"
+                       r"Function properties for (\S+))")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text):
+    """The functions of a ``-Xptxas -v`` log, in order: ``[{"function":
+    mangled name, "registers": n or None, "spill_stores": bytes,
+    "spill_loads": bytes}]``."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            name = m.group(1) or m.group(2)
+            cur = out.setdefault(name, {"function": name, "registers": None,
+                                        "spill_stores": 0, "spill_loads": 0})
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return list(out.values())
+
+
+def build_log(name):
+    """The compiler log :func:`build` leaves beside source ``name``'s
+    library."""
+    return _lib_path(name)[:-3] + ".log"
+
+
+def ptxas_report(log):
+    """:func:`parse_ptxas` of the compiler log at path ``log`` (e.g.
+    :func:`build_log`), each function also under ``"name"``, demangled
+    where the toolkit's ``cu++filt`` (or ``c++filt``) is found, else as
+    mangled."""
+    with open(log) as f:
+        rows = parse_ptxas(f.read())
+    mangled = [r["function"] for r in rows]
+    names = mangled
+    tools = [os.path.join(os.path.dirname(_nvcc()), "cu++filt"),
+             shutil.which("c++filt")]
+    for tool in tools:
+        if tool and os.path.exists(tool) and mangled:
+            res = subprocess.run([tool], input="\n".join(mangled),
+                                 capture_output=True, text=True)
+            got = res.stdout.splitlines()
+            if res.returncode == 0 and len(got) == len(mangled):
+                names = got
+                break
+    for r, n in zip(rows, names):
+        r["name"] = n
+    return rows
 
 
 def _lib(entry):

@@ -38,8 +38,12 @@ class Optimizer:
         return Optimizer.opt_registry[name.lower()](
             rescale_grad=rescale_grad, **kwargs)
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None):
+    def __init__(self, rescale_grad=1.0, arg_names=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None):
+        self.sym = sym  # kept for parity with the JAX package
+        self.idx2name = {} if arg_names is None else dict(
+            enumerate(arg_names))
         self.rescale_grad = float(rescale_grad)
         self.lr = float(learning_rate)
         self.lr_scheduler = lr_scheduler

@@ -19,9 +19,11 @@ and beam search belong to later slices of the port.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, later_slice, torch_dtype
 from ..context import resolve_device
 from ..ops import kernels
 from ..ops.attention import MultiHeadAttention as _MHA, rope_rotate
@@ -74,35 +76,67 @@ class Decoder:
     compute_dtype : str or torch.dtype, optional
         Cast floating parameters (and the cache) for the decode math,
         e.g. ``"bfloat16"``.
+    cache_block : {"auto", None}
+        As in the JAX package, where with ``attn_impl="paged"`` both mean
+        no blocked read (the paged read is already bounded by each
+        sequence's live rows); an integer block (the dense path's
+        blocked read) raises: it belongs to a later slice.
     cache_dtype : optional
         ``"int8"`` stores K/V quantized with f32 row scales (amax/127 per
         position and head), dequantized inside the paged kernel; a float
         dtype stores the cache at that dtype; default follows
         ``compute_dtype``.
-    attn_impl : {"paged"}
+    attn_impl : {None, "paged"}
         The cache read: the paged kernel over each sequence's live rows.
-    weight_dtype : {"float", "int8", "int4"}
+        ``None`` reads ``MXNET_SERVING_ATTN_IMPL`` as the JAX package
+        does; unset, it means ``"paged"`` here where the JAX package
+        takes ``"dense"``. Both reads compute the same attention over a
+        sequence's live rows; the dense read (``"dense"``) raises: it
+        belongs to a later slice.
+    weight_dtype : {None, "float", "int8", "int4"}
         Weight storage: quantize every matmul weight (attention
         projections, FullyConnected, Embedding) with per-output-channel
         (int8) or per-group (int4) f32 scales, dequantized on the fly.
+        ``None`` reads ``MXNET_SERVING_WEIGHT_DTYPE``, else ``"float"``,
+        as the JAX package does.
     weight_group : int, optional
         int4 group width (default: the largest of 128..2 dividing E).
-    matmul_impl : {"dense", "pallas", "fused"}
+    matmul_impl : {None, "dense", "pallas", "fused"}
         Quantized products: ``"dense"`` the plain chunked product,
         ``"pallas"`` the ``quant_matmul`` kernel, ``"fused"`` the kernel
         plus the one-launch ``fused_decode_attention`` step where
         eligible (the name is the JAX package's, so one configuration
-        reads the same in both).
-    device : optional
+        reads the same in both). ``None`` reads
+        ``MXNET_SERVING_MATMUL_IMPL``, else ``"dense"``, as the JAX
+        package does.
+    device : optional, keyword-only (the port's own)
         Where parameters and caches live; ``None`` means ``cuda:0`` and
         raises without CUDA. Pass ``"cpu"`` to run the plain versions on
         the host.
     """
 
     def __init__(self, symbol, params, max_len, aux_params=None,
-                 compute_dtype=None, cache_dtype=None, attn_impl="paged",
-                 weight_dtype="float", weight_group=None,
-                 matmul_impl="dense", device=None):
+                 compute_dtype=None, cache_block="auto", cache_dtype=None,
+                 attn_impl=None, weight_dtype=None, weight_group=None,
+                 matmul_impl=None, *, device=None):
+        if attn_impl is None:
+            attn_impl = os.environ.get("MXNET_SERVING_ATTN_IMPL") or "paged"
+        if attn_impl == "dense":
+            raise later_slice("Decoder", "attn_impl='dense' (the dense "
+                              "cache read)")
+        if attn_impl != "paged":
+            raise MXNetError(
+                "Decoder: attn_impl must be 'paged' (or 'dense', a later "
+                "slice), got %r" % (attn_impl,))
+        if cache_block not in ("auto", None):
+            raise later_slice("Decoder", "cache_block=%r (the dense "
+                              "path's blocked read)" % (cache_block,))
+        if weight_dtype is None:
+            weight_dtype = os.environ.get(
+                "MXNET_SERVING_WEIGHT_DTYPE") or "float"
+        if matmul_impl is None:
+            matmul_impl = os.environ.get(
+                "MXNET_SERVING_MATMUL_IMPL") or "dense"
         self.device = resolve_device(device)
         symbol = _logits_symbol(symbol)
         self._topo = symbol._topo()
@@ -111,10 +145,6 @@ class Decoder:
             raise MXNetError("Decoder needs a single-output symbol, got %d"
                              % len(self._heads))
         self.max_len = int(max_len)
-        if attn_impl != "paged":
-            raise MXNetError(
-                "Decoder: the PyTorch port serves attn_impl='paged' (the "
-                "paged kernel); got %r" % (attn_impl,))
         self._attn_impl = attn_impl
         if matmul_impl not in ("dense", "pallas", "fused"):
             raise MXNetError(
@@ -464,15 +494,22 @@ class Decoder:
                                    self._tokens(token)[:, None])
         return logits[:, 0], caches
 
-    def generate(self, prompt, num_steps, temperature=0.0, generator=None,
+    def generate(self, prompt, num_steps, rng=None, temperature=0.0,
                  return_cache=False):
         """Greedy (``temperature=0``) or sampled continuation.
 
         prompt: [B, P] token ids. Returns [B, P + num_steps] int64 —
         the prompt followed by the generated ids — or ``(tokens,
         caches)`` with ``return_cache=True`` (K/V through position
-        ``P + num_steps - 1``). Sampled draws come from ``generator`` (a
-        ``torch.Generator`` on the decoder's device)."""
+        ``P + num_steps - 1``). Sampled draws come from ``rng``, a
+        ``torch.Generator`` on the decoder's device where the JAX
+        package takes a PRNG key: the same seed gives the same draws
+        (not the JAX package's). ``rng=None`` draws from PyTorch's
+        default generator, so repeated calls differ, as they do in the
+        JAX package."""
+        if rng is not None and not isinstance(rng, torch.Generator):
+            raise MXNetError("Decoder.generate: rng must be a "
+                             "torch.Generator, got %r" % type(rng).__name__)
         prompt = self._tokens(prompt)
         b, p = prompt.shape
         if p + num_steps > self.max_len:
@@ -485,7 +522,7 @@ class Decoder:
                 return torch.argmax(logits, dim=-1)
             probs = torch.softmax(logits.to(torch.float32) / temperature,
                                   dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+            return torch.multinomial(probs, 1, generator=rng)[:, 0]
 
         caches = self.init_cache(b)
         logits, caches = self._run(self._params, self._aux, caches, 0,

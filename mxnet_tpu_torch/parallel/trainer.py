@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, later_slice, torch_dtype
 from ..context import resolve_device
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
@@ -56,8 +56,7 @@ _LATER = {
 
 
 def _later(what):
-    return MXNetError("ParallelTrainer: %s belongs to a later slice of the "
-                      "PyTorch port" % what)
+    return later_slice("ParallelTrainer", what)
 
 
 def _as_tensor(v):
@@ -98,6 +97,10 @@ class ParallelTrainer:
     optimizer : str or Optimizer
         A string is created with ``rescale_grad=1/batch`` (the loss
         gradients are batch sums), like FeedForward.fit.
+    mesh, rules, remat, zero1, fsdp :
+        The JAX package's parameters, in its order; any value but the
+        default (or a false one) raises: sharding and rematerialization
+        belong to a later slice.
     initializer : Initializer, default ``Uniform(0.01)``
     seed : int, optional
         Seeds the initializer's draws and the training-time draws
@@ -112,16 +115,16 @@ class ParallelTrainer:
     clip_grad_norm : float, optional
         Clip the global gradient norm (over all parameters, after
         ``rescale_grad``) to this value before the update.
-    device : optional
+    device : optional, keyword-only (the port's own)
         ``None`` means ``cuda:0`` and raises without CUDA; pass ``"cpu"``
         to run the plain versions of the kernels on the host.
     """
 
-    def __init__(self, symbol, input_shapes, optimizer="sgd",
-                 initializer=None, seed=None, optimizer_params=None,
-                 compute_dtype=None, grad_accum=1, clip_grad_norm=None,
-                 device=None, mesh=None, rules=None, zero1=False,
-                 fsdp=False, remat=None):
+    def __init__(self, symbol, input_shapes, optimizer="sgd", mesh=None,
+                 rules=None, initializer=None, seed=None,
+                 optimizer_params=None, compute_dtype=None, remat=None,
+                 zero1=False, fsdp=False, grad_accum=1, clip_grad_norm=None,
+                 *, device=None):
         for name, val in (("mesh", mesh), ("rules", rules),
                           ("zero1", zero1), ("fsdp", fsdp),
                           ("remat", remat)):

@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, refuse_unported
 from ..parallel.decode import Decoder
 from .quant import QuantizedTensor, quantize_params, quantized_weight_names
 
@@ -116,15 +116,50 @@ class InferenceEngine:
         int4 group width.
     attn_impl, matmul_impl : optional
         Default to the decoder's; ``attn_impl`` must be ``"paged"``.
+    stage_depth, prefix_cache_mb, prefill_chunk, overload,
+    round_timeout_ms, slo_ttft_ms, slo_cadence_ms, slo_target,
+    flight_recorder, spec_k, draft, draft_decoder, capture_dir,
+    capture_mb, tp, mesh, ep, engine_id, migrated_from, role,
+    handoff_dtype :
+        The JAX package's parameters, in its order. Any value but the
+        default raises: prompt staging, the prefix cache, chunked
+        prefill, overload policies, the watchdog, SLO accounting, the
+        flight recorder, speculation, capture, tensor/expert parallelism
+        and fleet roles belong to later slices. (``prefix_cache_mb=None``
+        turns the JAX package's prefix cache on at its environment
+        default; here it means none.)
     """
 
     def __init__(self, decoder, slots=8, prefill_buckets=None,
-                 max_queue=256, drain_depth=2, steps_per_round=1,
-                 weight_dtype=None, weight_group=None, attn_impl=None,
-                 matmul_impl=None):
+                 max_queue=256, stage_depth=2, drain_depth=2,
+                 steps_per_round=1, prefix_cache_mb=None,
+                 prefill_chunk=None, overload=None,
+                 round_timeout_ms=None, slo_ttft_ms=None,
+                 slo_cadence_ms=None, slo_target=0.99,
+                 flight_recorder=None, spec_k=None, draft=None,
+                 draft_decoder=None, attn_impl=None, capture_dir=None,
+                 capture_mb=None, tp=None, mesh=None,
+                 weight_dtype=None, weight_group=None, matmul_impl=None,
+                 ep=None, engine_id=None, migrated_from=None,
+                 role=None, handoff_dtype=None):
         if not isinstance(decoder, Decoder):
             raise MXNetError("InferenceEngine needs a Decoder, got %r"
                              % type(decoder).__name__)
+        refuse_unported(
+            "InferenceEngine", stage_depth=(stage_depth, 2),
+            prefix_cache_mb=(prefix_cache_mb, None),
+            prefill_chunk=(prefill_chunk, None), overload=(overload, None),
+            round_timeout_ms=(round_timeout_ms, None),
+            slo_ttft_ms=(slo_ttft_ms, None),
+            slo_cadence_ms=(slo_cadence_ms, None),
+            slo_target=(slo_target, 0.99),
+            flight_recorder=(flight_recorder, None), spec_k=(spec_k, None),
+            draft=(draft, None), draft_decoder=(draft_decoder, None),
+            capture_dir=(capture_dir, None), capture_mb=(capture_mb, None),
+            tp=(tp, None), mesh=(mesh, None), ep=(ep, None),
+            engine_id=(engine_id, None),
+            migrated_from=(migrated_from, None), role=(role, None),
+            handoff_dtype=(handoff_dtype, None))
         self._dec = decoder
         self.device = decoder.device
         self.max_len = decoder.max_len
@@ -212,12 +247,34 @@ class InferenceEngine:
     @classmethod
     def from_checkpoint(cls, prefix, epoch, max_len, slots=8,
                         prefill_buckets=None, max_queue=256,
-                        drain_depth=2, steps_per_round=1, attn_impl=None,
-                        weight_dtype=None, **decoder_kwargs):
+                        stage_depth=2, drain_depth=2, steps_per_round=1,
+                        prefix_cache_mb=None, prefill_chunk=None,
+                        overload=None, round_timeout_ms=None,
+                        slo_ttft_ms=None, slo_cadence_ms=None,
+                        slo_target=0.99, flight_recorder=None,
+                        spec_k=None, draft=None, draft_decoder=None,
+                        draft_prefix=None, draft_epoch=None,
+                        attn_impl=None, capture_dir=None, tp=None,
+                        mesh=None, weight_dtype=None,
+                        **decoder_kwargs):
         """Checkpoint -> serving engine in one call (``prefix-symbol.json``
-        + ``prefix-NNNN.params``). ``weight_dtype`` goes to the decoder,
-        and so do ``decoder_kwargs`` (``compute_dtype``, ``matmul_impl``,
-        ``cache_dtype``, ``device`` ...)."""
+        + ``prefix-NNNN.params``), with the JAX package's parameters in
+        its order. ``weight_dtype`` goes to the decoder, and so do
+        ``decoder_kwargs`` (``compute_dtype``, ``matmul_impl``,
+        ``cache_dtype``, ``device`` ...). The unported parameters raise
+        as in :class:`InferenceEngine` (``draft_prefix``/``draft_epoch``,
+        the draft model's checkpoint, with speculation)."""
+        refuse_unported("InferenceEngine.from_checkpoint",
+                        draft_prefix=(draft_prefix, None),
+                        draft_epoch=(draft_epoch, None))
+        unported = dict(
+            stage_depth=stage_depth, prefix_cache_mb=prefix_cache_mb,
+            prefill_chunk=prefill_chunk, overload=overload,
+            round_timeout_ms=round_timeout_ms, slo_ttft_ms=slo_ttft_ms,
+            slo_cadence_ms=slo_cadence_ms, slo_target=slo_target,
+            flight_recorder=flight_recorder, spec_k=spec_k, draft=draft,
+            draft_decoder=draft_decoder, capture_dir=capture_dir, tp=tp,
+            mesh=mesh)
         if weight_dtype is not None:
             decoder_kwargs.setdefault("weight_dtype", weight_dtype)
         if attn_impl is not None:
@@ -226,7 +283,7 @@ class InferenceEngine:
                                       **decoder_kwargs)
         return cls(dec, slots=slots, prefill_buckets=prefill_buckets,
                    max_queue=max_queue, drain_depth=drain_depth,
-                   steps_per_round=steps_per_round)
+                   steps_per_round=steps_per_round, **unported)
 
     # -- scheduling -----------------------------------------------------
     def _bucket_for(self, n):

@@ -146,8 +146,8 @@ def test_step_matches_generate(models):
 def test_sampled_generate_follows_its_generator(models):
     _, ts, params, prompt = models["learned"]
     d = Decoder(ts, params, max_len=MAX_LEN, device="cpu")
-    runs = [d.generate(prompt, 6, temperature=1.0,
-                       generator=torch.Generator().manual_seed(s))
+    runs = [d.generate(prompt, 6, rng=torch.Generator().manual_seed(s),
+                       temperature=1.0)
             for s in (5, 5, 6)]
     assert torch.equal(runs[0], runs[1])
     assert runs[0].shape == (2, PROMPT + 6)

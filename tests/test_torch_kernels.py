@@ -342,3 +342,31 @@ def test_unpack4_sign_extends_every_nibble():
     vals = lambda n: n - 16 if n >= 8 else n        # noqa: E731
     assert out[:, 0].tolist() == [float(vals(b & 15)) for b in range(256)]
     assert out[:, 1].tolist() == [float(vals(b >> 4)) for b in range(256)]
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6dq_mmaILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6dq_mmaILi64EEvv
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, 8 bytes cumulative stack size, 400 \
+bytes cmem[0]
+ptxas info    : Compiling entry function '_Z7dkv_mmaILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z7dkv_mmaILi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, 400 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+"""
+
+
+def test_parse_ptxas_names_each_function_and_its_spills():
+    rows = K.parse_ptxas(PTXAS_LOG)
+    assert rows == [
+        {"function": "_Z6dq_mmaILi64EEvv", "registers": 255,
+         "spill_stores": 12, "spill_loads": 16},
+        {"function": "_Z7dkv_mmaILi64EEvv", "registers": 168,
+         "spill_stores": 0, "spill_loads": 0},
+        {"function": "_Z6helperv", "registers": None, "spill_stores": 4,
+         "spill_loads": 4}]
+    assert K.parse_ptxas("nvcc warning : nothing compiled\n") == []
