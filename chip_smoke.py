@@ -15,7 +15,9 @@ Phases:
    shapes the 124M LM's serving and training paths and ResNet-50 give it
    and at small ragged shapes, in every mode, each to a stated tolerance:
    the serving kernels (int8/int4 weights, float/int8 KV, C = 1/5/64/256,
-   GQA, rope on/off, f32 and bf16; ``paged_attention``'s chunk entry at
+   GQA, rope on/off, f32 and bf16; ``paged_attention``'s decode entry at
+   C = 1/2/4/15 with pos on its split edges, GQA 12->3 and 12->4, head_dim
+   16-128 and NaN past the live rows, its chunk entry at
    C = 16/64/100/128/256, pos 0, 512 and L-C, one and three slots, GQA,
    and with NaN in the dead cache rows, each case asserted on the entry
    its route picks); ``flash_attention`` forward, dQ and
@@ -42,8 +44,9 @@ Phases:
    there is one (``fused_linear`` at the LM's bf16 ffn1, with the SP
    path's f32 ffn1 beside it; ``fused_conv_bn_act`` in f32, the eval
    forward's path, with its bf16 row beside it; the paged chunk at C =
-   64/128/256 beside the scalar paged entry on the same inputs, in
-   turns);
+   64/128/256 and the decode entry at C = 1 (bf16 beside SDPA with a mask,
+   and int8) and C = 4, each beside the scalar paged entry on the same
+   inputs, in turns; the scalar entry at the int8-KV prefill's C = 256);
 4. the serving main path: the 124M LM (12 layers, E=768, 12 heads, vocab
    32000, seeded random weights) saved with ``save_checkpoint`` and served
    by ``InferenceEngine.from_checkpoint`` with paged attention, int8
@@ -59,9 +62,12 @@ Phases:
    every slot busy (wall and kernel time per step, the card's idle share,
    the kernels by device time; the trace goes to ``chiprun_out/``); one
    256-token prefill's wall and card time; then the same checkpoint
-   served with the int8 KV cache, the scalar ``paged_attention`` entry's
-   path (one wave, counters zeroed just before and read just after,
-   exact launches, two streams equal to ``Decoder.generate``); then small
+   served by the engine's default configuration (float weights, dense
+   products: ``paged_attention_decode`` for every decode step's read) and
+   with the int8 KV cache (the decode entry for decode steps, the scalar
+   ``paged_attention`` entry for prefills), one wave each, counters zeroed
+   just before and read just after, exact launches, two streams equal to
+   ``Decoder.generate``, and the default one's decode profile; then small
    LMs in the decoder's other modes (int4 weights, the int8 KV cache
    through the C=1 paged read, float weights, rope, GQA) are held against
    the plain path on the host;
@@ -292,15 +298,27 @@ def check_quant_matmul(K, dev, gen):
     return worst
 
 
-def paged_cases():
+def paged_cases(sms):
     """(S, C, H, KV, D, L, cache, q dtype, pos, dead rows NaN): float and
     int8 KV, C in {1, 5, 64, 256}, GQA 12->4, pos at 0, in the middle and at
-    L-C; f32 and bf16; the 124M shapes in bf16. Then the bf16 chunks the
-    chunk entry takes: C in {16, 64, 100, 128, 256}, pos 0, 512 and L-C
-    (L=1024), one slot and three slots at those three positions, GQA 12->4
-    and 12->12, cases whose cache rows past each slot's live keys hold NaN
-    (never read), and head_dim 16, 32 and 128."""
+    L-C; f32 and bf16; the 124M shapes in bf16. Then the short chunks the
+    decode entry takes on a card of ``sms`` SMs: C in {1, 2, 4, 15} with
+    pos on the edges of its key ranges (range - 1, range, L - C) and L not
+    a multiple of the range (L = 1001, ranges of 126 keys at head_dim 64),
+    GQA 12->3 and 12->4, NaN past each slot's live rows at C = 1 and 4, the
+    int8 and f32 caches, and head_dim 16, 32, 100 and 128. Then the bf16
+    chunks the chunk entry takes: C in {16, 64, 100, 128, 256}, pos 0, 512
+    and L-C (L=1024), one slot and three slots at those three positions,
+    GQA 12->4 and 12->12, cases whose cache rows past each slot's live keys
+    hold NaN (never read), and head_dim 16, 32 and 128."""
+    from mxnet_tpu_torch.ops.kernels import paged_decode_splits
+
+    def edges(l_, d, c):
+        w = -(-l_ // paged_decode_splits(l_, d, sms))
+        return [w - 1, w, l_ - c]
+
     bf = torch.bfloat16
+    f32 = torch.float32
     cases = []
     for kind in ("f32", "bf16", "int8"):
         for qdt in (torch.float32, bf):
@@ -313,6 +331,23 @@ def paged_cases():
     cases.append((1, 256, 12, 12, 64, 1024, "int8", bf, [0], False))
     cases.append((1, 64, 12, 12, 64, 1024, "bf16", bf, [0], False))
     cases.append((32, 1, 12, 12, 64, 1024, "bf16", bf, None, False))
+    for c in (1, 2, 4, 15):
+        for h, kv in ((12, 3), (12, 4)):
+            cases.append((3, c, h, kv, 64, 1001, "bf16", bf,
+                          edges(1001, 64, c), False))
+    for c in (1, 4):
+        for h, kv in ((12, 3), (12, 4)):
+            cases.append((3, c, h, kv, 64, 1001, "bf16", bf,
+                          edges(1001, 64, c), True))
+    cases += [(3, 1, 12, 4, 64, 1001, "int8", bf, edges(1001, 64, 1), False),
+              (3, 4, 12, 12, 64, 1001, "int8", bf, edges(1001, 64, 4),
+               False),
+              (3, 2, 12, 3, 64, 1001, "f32", f32, edges(1001, 64, 2), False)]
+    for d, l_ in ((16, 1001), (32, 1001), (100, 1000), (128, 1001)):
+        cases.append((3, 4, 12, 4, d, l_, "bf16", bf, edges(l_, d, 4),
+                      False))
+    cases.append((3, 1, 12, 3, 100, 1000, "int8", f32, edges(1000, 100, 1),
+                  False))
     for c in (16, 64, 100, 128, 256):
         for h, kv in ((12, 12), (12, 4)):
             at = [0, 512, 1024 - c]
@@ -332,9 +367,11 @@ def check_paged_attention(K, dev, gen):
     counters). A case with NaN past each slot's live rows is held against
     the plain version slot by slot (it reads up to the largest pos + C of
     its batch). Returns {entry: max |err|}."""
-    worst = {"paged_attention": 0.0, "paged_attention_chunk": 0.0}
+    worst = {"paged_attention": 0.0, "paged_attention_chunk": 0.0,
+             "paged_attention_decode": 0.0}
     counts = dict.fromkeys(worst, 0)
-    for s_, c, h, kv, d, l_, kind, qdt, pos, nan in paged_cases():
+    cases = paged_cases(K._sm_count(dev))
+    for s_, c, h, kv, d, l_, kind, qdt, pos, nan in cases:
         if pos is None:
             pos = torch.randint(0, l_ - c + 1, (s_,), generator=gen)
         pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
@@ -350,7 +387,9 @@ def check_paged_attention(K, dev, gen):
         after = K.launch_counts()
         if nan:
             want = torch.cat([K.paged_attention_plain(
-                q[i:i + 1], k[i:i + 1], v[i:i + 1], pos[i:i + 1])
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], pos[i:i + 1],
+                None if ks is None else ks[i:i + 1],
+                None if vs is None else vs[i:i + 1])
                 for i in range(s_)])
         else:
             want = K.paged_attention_plain(q, k, v, pos, ks, vs)
@@ -360,15 +399,14 @@ def check_paged_attention(K, dev, gen):
             raise AssertionError("paged_attention s=%d c=%d %s %s launched %s,"
                                  " its route is %s" % (s_, c, kind, qdt,
                                                        sorted(ran), entry))
-        err = compare("%s s=%d c=%d h=%d kv=%d l=%d pos=%s %s %s%s" % (
-            entry, s_, c, h, kv, l_, pos.tolist()[:3], kind, qdt,
+        err = compare("%s s=%d c=%d h=%d kv=%d d=%d l=%d pos=%s %s %s%s" % (
+            entry, s_, c, h, kv, d, l_, pos.tolist()[:3], kind, qdt,
             " NaN past the live rows" if nan else ""), got, want)
         worst[entry] = max(worst[entry], err)
         counts[entry] += 1
-    log("paged_attention: %d cases agree, %d on the chunk entry (%d with "
-        "NaN past the live rows); max |err| %s" % (
-            sum(counts.values()), counts["paged_attention_chunk"],
-            sum(1 for cs in paged_cases() if cs[-1]),
+    log("paged_attention: %d cases agree, %s by entry (%d with NaN past "
+        "the live rows); max |err| %s" % (
+            sum(counts.values()), counts, sum(1 for cs in cases if cs[-1]),
             {k_: "%.3g" % v_ for k_, v_ in worst.items()}))
     return worst
 
@@ -461,16 +499,20 @@ def time_kernels(K, dev, gen, worst):
             entries["quant_matmul"] = r
 
     # paged_attention: the serving buckets' prefill chunks (C = 64, 128,
-    # 256 at pos 0) on the chunk entry, each beside the scalar entry on the
-    # same inputs; then C=1 reads over 32 slots on the scalar entry, with a
-    # bf16 cache and with the int8 cache the int8-KV serving path reads
-    # (the kernels line's row of the scalar entry)
+    # 256 at pos 0) on the chunk entry, and the int8-KV serve's C = 256
+    # chunk on the scalar entry (the kernels line's row of it); then the
+    # decode entry at C = 1 over 32 slots with a bf16 cache (the default
+    # serving configuration's read, beside SDPA with a mask) and with the
+    # int8 cache (the int8-KV serve's), and at C = 4 (a spec_k = 3 verify
+    # chunk). Each row off the scalar entry puts the scalar entry beside
+    # it on the same inputs, in turns.
     l_, h, d = 1024, 12, 64
     for s_, c, pos, kind in ((1, 64, [0], "bf16"), (1, 128, [0], "bf16"),
-                             (1, 256, [0], "bf16"), (32, 1, None, "bf16"),
-                             (32, 1, None, "int8")):
+                             (1, 256, [0], "bf16"), (1, 256, [0], "int8"),
+                             (32, 1, None, "bf16"), (32, 1, None, "int8"),
+                             (32, 4, None, "bf16")):
         if pos is None:
-            pos = torch.randint(0, l_, (s_,), generator=gen)
+            pos = torch.randint(0, l_ - c + 1, (s_,), generator=gen)
         pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
         q = _rand(gen, (s_, c, h, d), torch.bfloat16).to(dev)
         k, v, ks, vs = _cache(gen, s_, l_, h, d, kind, dev)
@@ -483,14 +525,16 @@ def time_kernels(K, dev, gen, worst):
         entry = K.paged_entry(q.dtype, k.dtype, c, d)
         shape = "S=%d C=%d H=12 L=1024 %s KV" % (s_, c, kind)
         lib = None
-        if c == 1 and kind == "bf16":
-            mask = (torch.arange(l_, device=dev)[None, :]
-                    <= pos[:, None].long())[:, None, None, :]
+        if c < 16 and kind == "bf16":
+            mask = (torch.arange(l_, device=dev)[None, None, :]
+                    <= pos[:, None, None].long()
+                    + torch.arange(c, device=dev)[None, :, None]
+                    )[:, None]                            # [S, 1, C, L]
 
             def lib():
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=mask)
-        elif c > 1:
+        elif kind == "bf16":
             def lib():
                 return F.scaled_dot_product_attention(
                     qt, kt[:, :, :c], vt[:, :, :c], is_causal=True)
@@ -500,21 +544,27 @@ def time_kernels(K, dev, gen, worst):
         r = row(entry, shape, wrapper,
                 lambda: K.paged_attention_plain(q, k, v, pos, ks, vs),
                 lib, nb, flops, torch.bfloat16)
-        if entry == "paged_attention_chunk":
+        if entry != "paged_attention":
             out = torch.empty_like(q)
             P = K._ptr
 
             def scalar():
-                K._launch("paged_attention", P(q), P(k), P(v), None, None,
-                          P(pos), P(out), s_, c, h, h, l_, d,
+                K._launch("paged_attention", P(q), P(k), P(v), P(ks),
+                          P(vs), P(pos), P(out), s_, c, h, h, l_, d,
                           1.0 / math.sqrt(d), K._CODE[q.dtype],
                           K._CODE[k.dtype])
             sms = [timer(f) for f in (scalar, wrapper, wrapper, scalar)]
-            log("  A/B %s: scalar entry %.4f ms, chunk entry %.4f ms, chunk "
-                "%.4f ms, scalar %.4f ms (same inputs, in turns)"
-                % ((shape,) + tuple(sms)))
+            log("  A/B %s: scalar entry %.4f ms, %s %.4f ms, %.4f ms, "
+                "scalar %.4f ms (same inputs, in turns)"
+                % (shape, sms[0], entry, sms[1], sms[2], sms[3]))
             r["scalar_ms"] = statistics.median([sms[0], sms[3]])
-        if c == 256 or (c == 1 and kind == "int8"):
+        if entry == "paged_attention_decode" and c == 1 and kind == "bf16":
+            entries[entry] = r
+        elif entry == "paged_attention_decode":
+            entries[entry]["int8" if kind == "int8" else "c%d" % c] = {
+                k_: r[k_] for k_ in ("ms", "scalar_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "shape")}
+        elif c == 256:
             entries[entry] = r
 
     # fused_decode_attention: one decode step of one attention node
@@ -1406,15 +1456,78 @@ def time_prefill(K, dec, reps=10, profiled=3):
             total, paged, chunks // profiled, card_line()))
 
 
+def serve_default_path(K, dev, prefix, work):
+    """The 124M checkpoint served as ``InferenceEngine.from_checkpoint``
+    serves it by default (``weight_dtype`` and ``matmul_impl`` left to the
+    decoder: float weights, dense products), in bf16: each decode step's
+    attention is a C=1 read of the bf16 cache through
+    ``paged_attention_decode``, each prefill chunk goes through
+    ``paged_attention_chunk``. One wave of the main path's requests with
+    the counters zeroed just before it and read just after: exact
+    launches (no other kernel), every budget met, two requests' streams
+    equal to ``Decoder.generate``; tokens/s, ms per token, and a 2-round
+    decode profile (card kernel ms per decode step). Returns the launch
+    counts."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine.from_checkpoint(
+        prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
+        steps_per_round=STEPS_PER_ROUND, compute_dtype="bfloat16",
+        device=dev)
+    dec = engine._dec
+    if (dec.weight_dtype, dec._matmul_impl) != ("float", "dense"):
+        raise AssertionError("the default engine took weight_dtype=%r, "
+                             "matmul_impl=%r" % (dec.weight_dtype,
+                                                 dec._matmul_impl))
+    rs = np.random.RandomState(6)
+    for p in BUCKETS:                    # warm-up: one request per bucket
+        engine.submit(rs.randint(0, VOCAB, (p,)), max_tokens=4)
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    stats0 = dict(engine.stats)
+    handles, secs = _serve_wave(engine, work)
+    launches = K.launch_counts()
+    prefills = engine.stats["prefills"] - stats0["prefills"]
+    steps = (engine.stats["steps"] - stats0["steps"]) * STEPS_PER_ROUND
+    for h in handles:
+        if not h.done or h.retire_reason != "length" \
+                or len(h.tokens) != h.limit:
+            raise AssertionError("default engine: request %s did not "
+                                 "finish its budget: %r" % (h.id, h))
+    want = dict.fromkeys(launches, 0)
+    want.update({"paged_attention_decode": LAYERS * steps,
+                 "paged_attention_chunk": LAYERS * prefills})
+    if launches != want:
+        raise AssertionError("default engine: launch counts %r, the path "
+                             "wants %r" % (launches, want))
+    for h in (handles[0], max(handles[1:], key=lambda r: len(r.prompt))):
+        ref = dec.generate(h.prompt[None], len(h.tokens))[0, len(h.prompt):]
+        if ref.cpu().tolist() != h.tokens:
+            raise AssertionError("default engine: request %s's stream "
+                                 "differs from Decoder.generate" % h.id)
+    tps, p50, p99 = _wave_metrics(handles, secs)
+    log("default engine (float weights, dense products): %d requests, %d "
+        "prefills, %d decode steps in %.3f s = %.1f tokens/s, ms per token "
+        "p50 %.3f p99 %.3f; launches %s; %s" % (
+            len(handles), prefills, steps, secs, tps, p50, p99,
+            json.dumps({e: n for e, n in launches.items() if n}),
+            card_line()))
+    profile_decode(engine, rs, trace="decode_default_trace.json.gz")
+    return launches
+
+
 def serve_int8_kv_path(K, dev, prefix, work):
     """The 124M checkpoint served with the int8 KV cache
-    (``cache_dtype="int8"``), the path of the scalar ``paged_attention``
-    entry: the decode chain runs unfused, so each decode step's attention
-    is a C=1 read of the int8 rows through it, as is each prefill's. One
-    wave of the main path's requests with the counters zeroed just before
-    it and read just after: exact launches, every budget met, and two
-    requests' streams equal to ``Decoder.generate`` of the same decoder.
-    Returns the launch counts."""
+    (``cache_dtype="int8"``): the decode chain runs unfused, so each decode
+    step's attention is a C=1 read of the int8 rows through
+    ``paged_attention_decode``, and each prefill chunk (C >= 64) goes
+    through the scalar ``paged_attention`` entry. One wave of the main
+    path's requests with the counters zeroed just before it and read just
+    after: exact launches, every budget met, and two requests' streams
+    equal to ``Decoder.generate`` of the same decoder. Returns the launch
+    counts."""
     from mxnet_tpu_torch.serving import InferenceEngine
 
     engine = InferenceEngine.from_checkpoint(
@@ -1440,7 +1553,8 @@ def serve_int8_kv_path(K, dev, prefix, work):
             raise AssertionError("int8 KV: request %s did not finish its "
                                  "budget: %r" % (h.id, h))
     want = dict.fromkeys(launches, 0)
-    want.update({"paged_attention": LAYERS * (prefills + steps),
+    want.update({"paged_attention": LAYERS * prefills,
+                 "paged_attention_decode": LAYERS * steps,
                  # qkv, out, ffn1 and ffn2 per layer + lm_head, per decode
                  # step and per prefill
                  "quant_matmul": (4 * LAYERS + 1) * (steps + prefills)})
@@ -1507,7 +1621,7 @@ def check_main_against_host(prefix, dec, handles, steps=16):
                 len(toks), same, steps))
 
 
-def profile_decode(engine, rs, rounds=2):
+def profile_decode(engine, rs, rounds=2, trace="decode_trace.json"):
     """Where a decode round's time goes: every slot busy (prompts of 64,
     long budgets), ``rounds`` rounds under torch.profiler after one warm
     round. Prints the wall time per step, the card's kernel time per step
@@ -1545,7 +1659,7 @@ def profile_decode(engine, rs, rounds=2):
             key[:60], us / 1e3 / steps, n))
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "decode_trace.json"))
+    prof.export_chrome_trace(os.path.join(out, trace))
 
 
 def check_small_against_host(dev):
@@ -2340,6 +2454,8 @@ def main():
     timed.update(time_cnn_kernels(K, dev, dgen, worst))
     timed.update(time_striped_pair(K, dev, gen, worst))
     launches, prefix, work = serve_main_path(K, dev)
+    launches["paged_attention_decode"] = serve_default_path(
+        K, dev, prefix, work)["paged_attention_decode"]
     launches["paged_attention"] = serve_int8_kv_path(
         K, dev, prefix, work)["paged_attention"]
     check_small_against_host(dev)
@@ -2355,6 +2471,7 @@ def main():
     check_sp_against_flash(dev)
     replaces = {
         "paged_attention": 1115, "paged_attention_chunk": 1115,
+        "paged_attention_decode": 1115,
         "quant_matmul": 1259,
         "fused_decode_attention": 1389,
         "flash_attention_fwd": 107,     # _attn_fwd_kernel
@@ -2377,8 +2494,8 @@ def main():
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
-        **{k: timed[e][k] for k in ("gemm_ms", "bf16", "f32", "scalar_ms")
-           if k in timed[e]})
+        **{k: timed[e][k] for k in ("gemm_ms", "bf16", "f32", "scalar_ms",
+                                    "int8", "c4") if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"
         % (time.perf_counter() - t_start))

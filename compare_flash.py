@@ -1,31 +1,45 @@
 #!/usr/bin/env python3
-"""``flash_attention``'s CUDA entries against another version of their
-source, in one process on one card.
+"""This tree's CUDA kernels against another version of their sources, in
+one process on one card: ``flash_attention``'s three entries, the bf16
+GEMM core behind ``fused_linear``, ``fused_conv_bn_act`` and
+``matmul_stats``, and the short-chunk paged read.
 
     python3 compare_flash.py --parent DIR
 
 DIR is a checkout of another commit (``git archive <commit> | tar -x -C
-DIR``). Its ``mxnet_tpu_torch/ops/csrc/flash_attention.cu`` is built beside
-this tree's, and the same inputs go through both in four cases (the 124M
-LM's training shape, a windowed ragged T in bf16, non-causal f32, a
-windowed head_dim 32 f32):
+DIR``). Its ``flash_attention.cu``, ``fused_linear.cu``,
+``matmul_stats.cu`` and ``paged_attention.cu`` (under
+``mxnet_tpu_torch/ops/csrc``) are built beside this tree's, all at once,
+and the same inputs go through both builds:
 
-* the forward: o and lse of this build within ``chip_smoke.TOL`` of the
-  other's in bf16 (the bf16 forward sums in another order, takes exp2
-  and masks only boundary tiles), bitwise equal in f32 (the f32 kernels
-  are unchanged);
-* the backward: both builds' dQ and dK/dV entries are fed the same
-  (q, k, v, o, lse, dO), the other build's o and lse. In bf16 dcap is
-  held within ``chip_smoke.TOL`` of the other's and dQ, dK and dV within
-  ``chip_smoke.GRAD_REL`` of the other's largest value (the rule that
-  holds them against the plain version: the bf16 backward sums in
-  another order and takes exp2); in f32 all four are bitwise equal.
+* flash, in four cases (the 124M LM's training shape, a windowed ragged T
+  in bf16, non-causal f32, a windowed head_dim 32 f32). The forward: o and
+  lse of this build within ``chip_smoke.TOL`` of the other's in bf16 (the
+  bf16 forward may sum in another order, take exp2 and mask only boundary
+  tiles), bitwise equal in f32. The backward: both builds' dQ and dK/dV
+  entries are fed the same (q, k, v, o, lse, dO), the other build's o and
+  lse. In bf16 dcap is held within ``chip_smoke.TOL`` of the other's and
+  dQ, dK and dV within ``chip_smoke.GRAD_REL`` of the other's largest
+  value; in f32 all four are bitwise equal.
+* the bf16 GEMM: ``fused_linear`` at the 124M LM's four products (M =
+  8192 tokens: qkv N=2304, proj, ffn1 N=3072 with relu, ffn2 K=3072) and
+  at a ragged M=100 K=70 N=130 (the guarded loads); ``fused_conv_bn_act``'s
+  GEMM at ResNet-50's stage-1 3x3 conv (M=802816 patches of K=576, N=64,
+  the folded BatchNorm and relu); ``matmul_stats`` at stage 1's first 1x1
+  conv (M=802816, K=256, N=64). Outputs within ``chip_smoke.TOL`` of the
+  other's in bf16, column sums within ``chip_smoke.STAT_REL`` of their
+  sums of magnitudes.
+* the paged read at C < 16 (S=32 slots, 12 heads of 64, L=1024, random
+  pos): this tree's ``paged_attention_decode`` against the other's entry
+  for the same call, ``paged_attention_decode`` if it has one, else the
+  scalar ``paged_attention``; bf16 and int8 caches at C=1, bf16 at C=4.
+  Outputs within ``chip_smoke.TOL`` of the other's.
 
-Then the three entries are timed at the 124M shape in turns (other, this,
-this, other) with ``chip_smoke.py``'s timer. Both builds' compiler reports
-are printed first: each function that spills, with its registers and
-spilled bytes. Exits non-zero if any check fails. Needs a CUDA card and
-``nvcc``.
+Each shape of the 124M LM and of ResNet-50 is then timed in turns (other,
+this, this, other) with ``chip_smoke.py``'s timer. Both builds' compiler
+reports are printed first: each function that spills, with its registers
+and spilled bytes. Exits non-zero if any check fails. Needs a CUDA card
+and ``nvcc``.
 """
 import argparse
 import ctypes
@@ -43,13 +57,45 @@ CASES = [(8, 1024, 12, 64, True, 0, torch.bfloat16),
          (2, 77, 2, 32, True, 5, torch.float32)]
 
 
-def _load(K, path):
+# the sources built from both trees
+SOURCES = ("flash_attention", "fused_linear", "matmul_stats",
+           "paged_attention")
+
+
+def _load(K, name, path):
+    """Source ``name``'s library at ``path`` with the argument types of this
+    tree's entries; an entry the library lacks is left out."""
     lib = ctypes.CDLL(path)
-    for e in K.ENTRIES["flash_attention"]:
-        fn = getattr(lib, "mx_" + e)
-        fn.restype = ctypes.c_int
-        fn.argtypes = K._ARGTYPES[e]
+    for e in K.ENTRIES[name]:
+        fn = getattr(lib, "mx_" + e, None)
+        if fn is not None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = K._ARGTYPES[e]
     return lib
+
+
+def _build_other(K, parent):
+    """Compile the other tree's SOURCES into build/kernels/other_*.so, one
+    nvcc per source, all at once; returns {source: library path}."""
+    procs = {}
+    for name in SOURCES:
+        out = os.path.join(HERE, "build", "kernels", "other_%s.so" % name)
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        log = open(out[:-3] + ".log", "w")
+        procs[name] = (subprocess.Popen(
+            [K._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-o", out, os.path.join(
+                 os.path.abspath(parent), "mxnet_tpu_torch", "ops", "csrc",
+                 name + ".cu")], stdout=log, stderr=subprocess.STDOUT),
+            log, out)
+    for name, (proc, log, out) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            raise RuntimeError("nvcc failed for the other %s.cu (log %s)"
+                               % (name, out[:-3] + ".log"))
+    return {name: out for name, (_, _, out) in procs.items()}
 
 
 def main():
@@ -67,25 +113,31 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cs.log(cs.card_line())
-    out = os.path.join(HERE, "build", "kernels", "other_flash_attention.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(out[:-3] + ".log", "w") as log:
-        subprocess.run([K._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                        "-Xptxas", "-v", "-o", out, os.path.join(
-                            os.path.abspath(args.parent), "mxnet_tpu_torch",
-                            "ops", "csrc", "flash_attention.cu")],
-                       stdout=log, stderr=subprocess.STDOUT, check=True)
-    K.build(("flash_attention",))
-    for name, path in (("other", out[:-3] + ".log"),
-                       ("this", K.build_log("flash_attention"))):
-        cs.log(name + cs.ptxas_summary(K, "flash_attention",
-                                       K.ptxas_report(path)))
-    libs = {"other": _load(K, out),
-            "this": _load(K, K._lib_path("flash_attention"))}
+    K.build(SOURCES)
+    other = _build_other(K, args.parent)
+    libs = {"other": {}, "this": {}}
+    for name in SOURCES:
+        for who, path in (("other", other[name][:-3] + ".log"),
+                          ("this", K.build_log(name))):
+            cs.log(who + cs.ptxas_summary(K, name, K.ptxas_report(path)))
+        libs["other"][name] = _load(K, name, other[name])
+        libs["this"][name] = _load(K, name, K._lib_path(name))
+    timer = cs.Timer(dev)
+    failed = _compare_flash(cs, K, libs, dev, timer)
+    failed += _compare_gemm(cs, K, libs, dev, timer)
+    failed += _compare_decode(cs, K, libs, dev, timer)
+    if failed:
+        raise AssertionError("outputs disagree with the other version's in "
+                             "%s" % failed)
+    cs.log("compare_flash: every case agrees")
+    return 0
+
+
+def _compare_flash(cs, K, libs, dev, timer):
+    """The flash cases; returns the tags of those that disagree."""
+    libs = {who: ls["flash_attention"] for who, ls in libs.items()}
     gen = torch.Generator().manual_seed(0)
     P = K._ptr
-    timer = cs.Timer(dev)
     failed = []
     for b, t, h, d, causal, window, dt in CASES:
         q, k, v, do = cs._flash_inputs(gen, b, t, h, d, dt, dev)
@@ -102,7 +154,7 @@ def main():
                            lib.mx_flash_attention_fwd(
                                P(q), P(k), P(v), P(o), P(lse), *cfg, *tail,
                                st)}
-            _run(name, "fwd", calls[name]["fwd"])
+            _run(name, "flash_attention_fwd", calls[name]["fwd"])
             fwd[name] = (o, lse)
         # the backward of both builds from the same (o, lse): the other's
         o, lse = fwd["other"]
@@ -117,8 +169,8 @@ def main():
                 lib.mx_flash_attention_dkv(
                     P(q), P(k), P(v), P(do), P(lse), P(dcap), P(dk), P(dv),
                     *cfg, *tail, st)
-            _run(name, "dq", calls[name]["dq"])
-            _run(name, "dkv", calls[name]["dkv"])
+            _run(name, "flash_attention_dq", calls[name]["dq"])
+            _run(name, "flash_attention_dkv", calls[name]["dkv"])
             bwd[name] = (dcap, dq, dk, dv)
         torch.cuda.synchronize()
         if dt is torch.float32:
@@ -157,11 +209,131 @@ def main():
             other, this = (mean["dq"][i] + mean["dkv"][i] for i in (0, 1))
             cs.log("backward dq + dkv %s: other %.4f ms, this %.4f ms, "
                    "%.2fx" % (tag, other, this, other / this))
-    if failed:
-        raise AssertionError("flash outputs disagree with the other "
-                             "version's in %s" % failed)
-    cs.log("compare_flash: all %d cases agree" % len(CASES))
-    return 0
+    return failed
+
+
+# (what, entry, M, K, N, act): the 124M LM's products at B=8, T=1024, a
+# ragged shape, ResNet-50's stage-1 3x3 conv GEMM and first 1x1 conv
+GEMM_CASES = [("qkv", "fused_linear", 8192, 768, 2304, 0),
+              ("proj", "fused_linear", 8192, 768, 768, 0),
+              ("ffn1", "fused_linear", 8192, 768, 3072, 1),
+              ("ffn2", "fused_linear", 8192, 3072, 768, 0),
+              ("ragged", "fused_linear", 100, 70, 130, 1),
+              ("stage-1 3x3 conv", "fused_conv_bn_act", 802816, 576, 64, 1),
+              ("stage-1 _a", "matmul_stats", 802816, 256, 64, 0)]
+
+
+def _close(cs, got, want):
+    """(ok, max |err|): ``got`` within ``cs.TOL`` of ``want``'s dtype."""
+    atol, rtol = cs.TOL[want.dtype]
+    err = (got.float() - want.float()).abs()
+    return (bool(torch.isfinite(got).all())
+            and bool((err <= atol + rtol * want.float().abs()).all()),
+            err.max().item())
+
+
+def _compare_gemm(cs, K, libs, dev, timer):
+    """The bf16 GEMM cases; returns the tags of those that disagree."""
+    P = K._ptr
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    st = torch.cuda.current_stream().cuda_stream
+    failed = []
+    for what, entry, m, kd, n, act in GEMM_CASES:
+        x = cs._rand(gen, (m, kd), bf)
+        w = cs._rand(gen, (n, kd), bf, 1.0 / kd ** 0.5)
+        bias = cs._rand(gen, (n,), scale=0.1)
+        scale = torch.rand((n,), generator=gen, device=dev) + 0.5 \
+            if entry == "fused_conv_bn_act" else None
+        outs, calls = {}, {}
+        for who in ("other", "this"):
+            lib = libs[who]["matmul_stats" if entry == "matmul_stats"
+                            else "fused_linear"]
+            y = torch.empty((m, n), dtype=bf, device=dev)
+            if entry == "matmul_stats":
+                tiles = -(-m // 128)
+                s1 = torch.empty((tiles, n), device=dev)
+                s2 = torch.empty((tiles, n), device=dev)
+                calls[who] = lambda lib=lib, y=y, s1=s1, s2=s2: \
+                    lib.mx_matmul_stats(P(x), P(w), P(y), P(s1), P(s2), m,
+                                        n, kd, 1, st)
+                outs[who] = (y, s1, s2)
+            else:
+                fn = getattr(lib, "mx_" + entry)
+                calls[who] = lambda fn=fn, y=y: fn(
+                    P(x), P(w), P(scale), P(bias), P(y), m, n, kd, act, 1,
+                    st)
+                outs[who] = (y,)
+            _run(who, entry, calls[who])
+        torch.cuda.synchronize()
+        ok, err = _close(cs, outs["this"][0], outs["other"][0])
+        how = "y within TOL[bf16] (max |err| %.3g)" % err
+        if entry == "matmul_stats":
+            mag = (x.float() @ w.float().t()).abs().sum(dim=0)
+            for i, ref in ((1, mag), (2, outs["other"][2].sum(dim=0))):
+                rel = ((outs["this"][i].sum(dim=0)
+                        - outs["other"][i].sum(dim=0)).abs()
+                       / ref.clamp_min(1e-30)).max().item()
+                ok = ok and rel <= cs.STAT_REL
+                how += ", s%d within %.3g of its sum of magnitudes" % (i, rel)
+        tag = "%s %s M=%d K=%d N=%d" % (entry, what, m, kd, n)
+        cs.log("gemm %s: this vs other %s: %s" % (tag, how, ok))
+        if not ok:
+            failed.append(tag)
+        if what != "ragged":
+            ms = [timer(calls[who]) for who in ("other", "this", "this",
+                                                 "other")]
+            cs.log("time %-48s other %.4f ms  this %.4f ms  this %.4f ms  "
+                   "other %.4f ms  (%.2fx)" % (
+                       tag, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
+        del x, w, outs, calls
+    return failed
+
+
+def _compare_decode(cs, K, libs, dev, timer):
+    """This tree's decode entry against the other's entry for the same
+    short chunk; returns the tags of those that disagree."""
+    P = K._ptr
+    gen = torch.Generator().manual_seed(3)
+    st = torch.cuda.current_stream().cuda_stream
+    l_, h, d = 1024, 12, 64
+    ns = K.paged_decode_splits(l_, d, K._sm_count(dev))
+    failed = []
+    for s_, c, kind in ((32, 1, "bf16"), (32, 1, "int8"), (32, 4, "bf16")):
+        pos = torch.randint(0, l_ - c + 1, (s_,), generator=gen,
+                            dtype=torch.int32).to(dev)
+        q = cs._rand(gen, (s_, c, h, d), torch.bfloat16).to(dev)
+        k, v, ks, vs = cs._cache(gen, s_, l_, h, d, kind, dev)
+        head = (P(q), P(k), P(v), P(ks), P(vs), P(pos))
+        tail = (1.0 / d ** 0.5, K._CODE[q.dtype], K._CODE[k.dtype], st)
+        outs, calls = {}, {}
+        for who in ("other", "this"):
+            lib = libs[who]["paged_attention"]
+            out = torch.empty_like(q)
+            if hasattr(lib, "mx_paged_attention_decode"):
+                ws = torch.empty((s_, h, ns, c, d + 2), device=dev)
+                calls[who] = lambda lib=lib, out=out, ws=ws: \
+                    lib.mx_paged_attention_decode(
+                        *head, P(out), P(ws), s_, c, h, h, l_, d, ns, *tail)
+            else:
+                calls[who] = lambda lib=lib, out=out: \
+                    lib.mx_paged_attention(*head, P(out), s_, c, h, h, l_,
+                                           d, *tail)
+            _run(who, "paged read", calls[who])
+            outs[who] = out
+        torch.cuda.synchronize()
+        ok, err = _close(cs, outs["this"], outs["other"])
+        tag = "S=%d C=%d H=12 L=1024 %s KV" % (s_, c, kind)
+        cs.log("paged read %s: this (decode entry) vs other within TOL[bf16]"
+               " (max |err| %.3g): %s" % (tag, err, ok))
+        if not ok:
+            failed.append(tag)
+        ms = [timer(calls[who]) for who in ("other", "this", "this",
+                                             "other")]
+        cs.log("time paged read %-30s other %.4f ms  this %.4f ms  this "
+               "%.4f ms  other %.4f ms  (%.2fx)" % (
+                   tag, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
+    return failed
 
 
 def _bwd_close(cs, this, other):
@@ -185,8 +357,7 @@ def _bwd_close(cs, this, other):
 
 def _run(name, entry, call):
     if call() != 0:
-        raise RuntimeError("%s flash_attention_%s failed to launch"
-                           % (name, entry))
+        raise RuntimeError("%s %s failed to launch" % (name, entry))
 
 
 if __name__ == "__main__":

@@ -303,26 +303,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
   }
 }
 
-// 16 bytes from global to shared memory without passing through
-// registers (cp.async.cg: L2 only); with in = false nothing is read
-// (src-size 0) and the 16 bytes are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(a), "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's newest commit groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // issue rows [t0, t0 + R) of head (b, h) into an [R][D + 8] shared tile by
 // NT threads, zeros at and past row tend (not read)
 template <int D, int R, int NT>
@@ -575,17 +555,6 @@ __device__ __forceinline__ void tile_dcap(float* dcs, float* __restrict__ dcap,
       if (tq < s.Tq) dcap[(size_t)bh * s.Tq + tq] = acc;
     }
   }
-}
-
-// 4 bytes from global to shared memory (cp.async.ca), zero-filled with
-// in = false (nothing read)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :
-               : "r"(a), "l"(src), "r"(in ? 4 : 0)
-               : "memory");
 }
 
 // start copying rows [t0, t0 + R) of the f32 row terms of head bh

@@ -104,4 +104,35 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
       : "r"(a));
 }
 
+// 16 bytes from global to shared memory without passing through
+// registers (cp.async.cg: L2 only); with in = false nothing is read
+// (src-size 0) and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(a), "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's newest commit groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 bytes from global to shared memory (cp.async.ca), zero-filled with
+// in = false (nothing read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(a), "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
 }  // namespace mxk

@@ -16,19 +16,19 @@
 // Bound on the H100: at the 124M LM's ffn1 (M = 8192 tokens, K = 768,
 // N = 3072, bf16) the product does 38.7 GFLOP on ~67 MB, ~580 flops per
 // byte, so the tensor cores bound it. Design: a block of 8 warps owns a
-// 128 x 128 output tile and walks K in steps of 32; each warp computes a
-// 64 x 32 quarter in mma.sync m16n8k16 steps (bf16 in, f32 accumulate).
-// The next step's tiles are loaded into registers while the tensor cores
-// work on the current one (a two-stage software pipeline through shared
-// memory rows padded against bank conflicts). The epilogue (scale, bias,
-// activation) runs on the f32 accumulators before the one store of the
-// output, so the pre-activation never reaches device memory. 16-byte loads
-// serve K a multiple of 8 with aligned rows; any other K (ragged, or a
-// misaligned view) takes the same kernel with bounds-checked scalar loads.
-// f32 inputs take a CUDA-core kernel (64 x 64 tiles, 4 x 4 outputs a
-// thread). The tile loops live in gemm.cuh, shared with matmul_stats.cu.
-// wgmma/TMA pipelines, and for the conv an implicit GEMM that gathers the
-// patches in the tile loader, are later work.
+// 128 x 128 output tile and walks K in steps of 64; each warp computes a
+// 64 x 32 quarter in mma.sync m16n8k16 steps (bf16 in, f32 accumulate),
+// its fragments taken by ldmatrix from a three-stage cp.async ring in
+// swizzled dynamic shared memory (gemm.cuh mma_tile: two steps in flight
+// while one is multiplied, one barrier a step, two blocks an SM). The
+// epilogue (scale, bias, activation) runs on the f32 accumulators before
+// the one store of the output, so the pre-activation never reaches device
+// memory. 16-byte copies serve K a multiple of 8 with aligned rows; any
+// other K (ragged, or a misaligned view) takes the same ring with
+// bounds-checked element loads. f32 inputs take a CUDA-core kernel (64 x 64
+// tiles, 4 x 4 outputs a thread). The tile loops live in gemm.cuh, shared
+// with matmul_stats.cu. wgmma/TMA pipelines, and for the conv an implicit
+// GEMM that gathers the patches in the tile loader, are later work.
 #include "gemm.cuh"
 
 using namespace mxk;
@@ -54,7 +54,7 @@ __device__ __forceinline__ float epilogue(float acc, int n,
 }
 
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 fused_linear_mma(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
                  const float* __restrict__ scale,
@@ -128,16 +128,14 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16) {
     const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-    if (vec_ok(x, w, K))
-      fused_linear_mma<true><<<grid, THREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w), sc, bi,
-          static_cast<__nv_bfloat16*>(out), M, N, K, act);
-    else
-      fused_linear_mma<false><<<grid, THREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w), sc, bi,
-          static_cast<__nv_bfloat16*>(out), M, N, K, act);
+    const auto kernel = vec_ok(x, w, K) ? fused_linear_mma<true>
+                                        : fused_linear_mma<false>;
+    const cudaError_t e = ring_smem(kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, THREADS, RING_BYTES, st>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w), sc, bi,
+        static_cast<__nv_bfloat16*>(out), M, N, K, act);
   } else if (dtype == kF32) {
     fused_linear_f32<<<dim3((M + FM - 1) / FM, (N + FN - 1) / FN), THREADS,
                        0, st>>>(static_cast<const float*>(x),

@@ -14,107 +14,146 @@ namespace gemm {
 
 // -- bf16: tensor cores -----------------------------------------------------
 //
-// A block of 8 warps owns a 128 x 128 tile and walks K in steps of 32; each
-// warp computes a 64 x 32 part in mma.sync m16n8k16 steps. The next step's
-// tiles are loaded into registers while the tensor cores work on the
-// current one (a two-stage pipeline through shared rows padded against
-// bank conflicts). With g = lane / 4 and t = lane % 4, acc[mt][nt][i] holds
+// A block of 8 warps owns a 128 x 128 tile and walks K in steps of BK = 64;
+// each warp computes a 64 x 32 part in mma.sync m16n8k16 steps (bf16 in,
+// f32 accumulate). With g = lane / 4 and t = lane % 4, acc[mt][nt][i] holds
 // the tile element (wm + 16 mt + g + 8 (i / 2), wn + 8 nt + 2 t + i % 2),
 // wm = 64 (warp % 2), wn = 32 (warp / 2).
+//
+// The tiles of x and w come through a ring of STAGES = 3 stages in dynamic
+// shared memory (96 KB: two blocks an SM), filled by 16-byte cp.async
+// copies: while step k's products run, steps k + 1 and k + 2 are in flight,
+// and one barrier a step both publishes the arrived stage and frees the one
+// the next copies overwrite. Every step commits a group, empty past the
+// last tile, so that the wait counts hold. A stage holds each operand as
+// 128 rows of 64 bf16 (128 bytes), the 16-byte chunk c of row r stored at
+// chunk c ^ (r % 8): the ldmatrix .x4 reads that take every A and B
+// fragment touch 8 rows at one logical chunk, which this XOR swizzle puts
+// in 8 distinct bank groups. Rows past M or N and columns past K are
+// zero-filled without being read. The ring is shaped for the next step,
+// wgmma fed by TMA: 128-byte rows under the 128-byte swizzle are the
+// layout a TMA tile copy with CU_TENSOR_MAP_SWIZZLE_128B writes and a
+// wgmma shared-memory descriptor of that swizzle reads; what is left is
+// the copy (one thread's TMA and an mbarrier per stage in place of 256
+// threads' cp.async), the product (4 warps' wgmma m64n128k16 in place of
+// 8 warps' mma.sync, the accumulator layout changing with it) and a
+// producer warp.
+//
+// A K that is not a multiple of 8, or an operand off a 16-byte boundary,
+// takes guarded element loads into the same ring (VEC = false).
 
-constexpr int BM = 128, BN = 128, BKT = 32;
+
+constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int THREADS = 256;
-constexpr int LDS = BKT + 8;  // padded bf16 row of a staged tile (80 bytes)
+constexpr int STAGES = 3;
+constexpr int TILE_BYTES = BM * BK * 2;  // one operand's tile of a stage
+constexpr int RING_BYTES = STAGES * 2 * TILE_BYTES;
 
-// 8 consecutive values of row r from column c: one 16-byte load (VEC), or
-// eight guarded scalar loads; zeros past the matrix
-template <bool VEC>
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ a,
-                                       int r, int c, int R, int C) {
-  if (VEC) {
-    if (r < R && c < C)
-      return __ldg(reinterpret_cast<const uint4*>(a + (size_t)r * C + c));
-    return make_uint4(0u, 0u, 0u, 0u);
-  }
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lo = (r < R && c + 2 * i < C)
-                         ? __bfloat162float(a[(size_t)r * C + c + 2 * i])
-                         : 0.f;
-    const float hi = (r < R && c + 2 * i + 1 < C)
-                         ? __bfloat162float(a[(size_t)r * C + c + 2 * i + 1])
-                         : 0.f;
-    w[i] = pack_bf16(lo, hi);  // exact: the values are bf16 already
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+// byte offset of 16-byte chunk c of row r in a swizzled operand tile
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * (BK * 2) + ((c ^ (r & 7)) << 4);
 }
 
+// issue step kt's tiles of x and w into ring stage st
+template <bool VEC>
+__device__ __forceinline__ void load_stage(
+    uint8_t* ring, int st, const __nv_bfloat16* __restrict__ x,
+    const __nv_bfloat16* __restrict__ w, int M, int N, int K, int m0,
+    int n0, int kt) {
+  uint8_t* xs = ring + st * 2 * TILE_BYTES;
+  uint8_t* ws = xs + TILE_BYTES;
+  const int k = kt * BK;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int it = 0; it < BM * BK / 8 / THREADS; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int r = i / 8, c = i % 8, kc = k + 8 * c;
+      const int off = swz(r, c);
+      const bool inx = m0 + r < M && kc < K, inw = n0 + r < N && kc < K;
+      cp_async16(xs + off, inx ? x + (size_t)(m0 + r) * K + kc : x, inx);
+      cp_async16(ws + off, inw ? w + (size_t)(n0 + r) * K + kc : w, inw);
+    }
+  } else {
+    // element by element (the values are bf16 bits, copied as they are)
+    const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+    const uint16_t* wb = reinterpret_cast<const uint16_t*>(w);
+#pragma unroll 1
+    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
+      const int r = i / BK, e = i % BK, kc = k + e;
+      const int off = swz(r, e / 8) + 2 * (e % 8);
+      *reinterpret_cast<uint16_t*>(xs + off) =
+          m0 + r < M && kc < K ? xb[(size_t)(m0 + r) * K + kc] : 0;
+      *reinterpret_cast<uint16_t*>(ws + off) =
+          n0 + r < N && kc < K ? wb[(size_t)(n0 + r) * K + kc] : 0;
+    }
+  }
+}
+
+// The kernel that runs mma_tile launches with RING_BYTES of dynamic shared
+// memory, after ring_smem(kernel) lifts the 48 KB default.
 template <bool VEC>
 __device__ __forceinline__ void mma_tile(const __nv_bfloat16* __restrict__ x,
                                          const __nv_bfloat16* __restrict__ w,
                                          int M, int N, int K, int m0, int n0,
                                          float (&acc)[4][4][4]) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][LDS];
-  __shared__ __align__(16) __nv_bfloat16 ws[BN][LDS];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  extern __shared__ __align__(128) uint8_t ring[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = 64 * (warp % 2), wn = 32 * (warp / 2);
-  const int nk = (K + BKT - 1) / BKT;
-  // loaders: rows lr and lr + 64, 8 values from column lc
-  const int lr = tid / 4, lc = 8 * (tid % 4);
-  uint4 xr[2], wr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    xr[i] = load8<VEC>(x, m0 + lr + 64 * i, lc, M, K);
-    wr[i] = load8<VEC>(w, n0 + lr + 64 * i, lc, N, K);
-  }
+  const int nk = (K + BK - 1) / BK;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load_stage<VEC>(ring, st, x, w, M, N, K, m0, n0, st);
+    cp_async_commit();
+  }
+  // ldmatrix rows: A's matrices are (rows 0-7, 8-15) x (k 0-7, 8-15) in
+  // fragment order, B's (n 0-7 at k 0-7, k 8-15; n 8-15 at k 0-7, k 8-15).
+  // A step takes B's fragments, then A's one 16-row slice at a time, each
+  // slice's four products issued as soon as it lands.
+  const int ar = wm + (lane & 15), ac = lane >> 4;
+  const int br = wn + (lane & 7) + ((lane >> 4) << 3), bc = (lane >> 3) & 1;
   for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // step kt's copies have landed
+    __syncthreads();              // ... for every thread; step kt - 1 done
+    const int nx = kt + STAGES - 1;
+    if (nx < nk) load_stage<VEC>(ring, nx % STAGES, x, w, M, N, K, m0, n0, nx);
+    cp_async_commit();
+    const uint8_t* xs = ring + (kt % STAGES) * 2 * TILE_BYTES;
+    const uint8_t* ws = xs + TILE_BYTES;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(&xs[lr + 64 * i][lc]) = xr[i];
-      *reinterpret_cast<uint4*>(&ws[lr + 64 * i][lc]) = wr[i];
-    }
-    __syncthreads();
-    if (kt + 1 < nk) {  // the next step's loads fly during the products
-      const int k1 = (kt + 1) * BKT + lc;
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t b[4][2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        xr[i] = load8<VEC>(x, m0 + lr + 64 * i, k1, M, K);
-        wr[i] = load8<VEC>(w, n0 + lr + 64 * i, k1, N, K);
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4(r, ws + swz(br + 16 * np, 2 * kk + bc));
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
       }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BKT; kk += 16) {
-      uint32_t a[4][4], b[4][2];
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        const __nv_bfloat16* p = &xs[wm + 16 * mt + g][kk + 2 * t];
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 8);
+        uint32_t a[4];
+        ldsm_x4(a, xs + swz(ar + 16 * mt, 2 * kk + ac));
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], a, b[nt]);
       }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* p = &ws[wn + 8 * nt + g][kk + 2 * t];
-        b[nt][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[nt][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma16816(acc[mt][nt], a[mt], b[nt]);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+}
+
+// lift a kernel's dynamic shared memory limit to the ring's size
+template <typename Kernel>
+inline cudaError_t ring_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
 }
 
 // 16-byte loads need K a multiple of 8 and both operands on 16-byte

@@ -16,8 +16,9 @@
 // most of these convs sit below the ~295 flops per byte where the tensor
 // cores, and not the memory, would bound them: x's and y's bytes bound it.
 // Design: the tile loop of fused_linear (gemm.cuh: 128 x 128 tiles of
-// mma.sync for bf16, 64 x 64 tiles on the CUDA cores for f32), then one
-// epilogue that stores y and reduces the same accumulators per column:
+// mma.sync fed by a three-stage cp.async ring for bf16, 64 x 64 tiles on
+// the CUDA cores for f32), then one epilogue that stores y and reduces
+// the same accumulators per column:
 // each thread sums its rows, the lanes of a column meet through shuffles,
 // the warps through shared memory, always in the same order and without
 // atomics, so every run gives the same bits. Rows past M and columns past
@@ -33,7 +34,7 @@ using namespace mxk::gemm;
 namespace {
 
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 matmul_stats_mma(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
                  __nv_bfloat16* __restrict__ y, float* __restrict__ s1p,
@@ -162,16 +163,14 @@ extern "C" int mx_matmul_stats(const void* x, const void* w, void* y,
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16) {
     const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-    if (vec_ok(x, w, K))
-      matmul_stats_mma<true><<<grid, THREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w),
-          static_cast<__nv_bfloat16*>(y), p1, p2, M, N, K);
-    else
-      matmul_stats_mma<false><<<grid, THREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w),
-          static_cast<__nv_bfloat16*>(y), p1, p2, M, N, K);
+    const auto kernel = vec_ok(x, w, K) ? matmul_stats_mma<true>
+                                        : matmul_stats_mma<false>;
+    const cudaError_t e = ring_smem(kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, THREADS, RING_BYTES, st>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<__nv_bfloat16*>(y), p1, p2, M, N, K);
   } else if (dtype == kF32) {
     matmul_stats_f32<<<dim3((M + FM - 1) / FM, (N + FN - 1) / FN), THREADS,
                        0, st>>>(static_cast<const float*>(x),

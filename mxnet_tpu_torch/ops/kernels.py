@@ -4,11 +4,12 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
 
 * :func:`paged_attention` (Pallas ``paged_attention`` l.1115): slot-paged
   attention over each slot's live KV rows ``[0, pos+C)``, causal in the
-  chunk, GQA-native, online softmax in f32, optional int8 KV. Two C
-  entries, chosen by dtype and shape (:func:`paged_entry`): a bf16
-  prefill chunk runs the tensor-core attention forward of
-  ``csrc/attention.cuh`` with the paged mask, everything else a scalar
-  kernel.
+  chunk, GQA-native, online softmax in f32, optional int8 KV. Three C
+  entries, chosen by dtype and shape (:func:`paged_entry`): every chunk
+  with C < 16 (decode reads, verify chunks) a split-KV read whose splits
+  are merged by a second kernel of the same entry, a bf16 prefill chunk
+  the tensor-core attention forward of ``csrc/attention.cuh`` with the
+  paged mask, and what is left a scalar kernel.
 * :func:`quant_matmul` (l.1259): ``x @ dequant(q)^T`` for int8
   (per-output-channel scales) and nibble-packed int4 (per-group scales)
   weights, f32 accumulation.
@@ -79,7 +80,8 @@ __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
            "striped_pair_attention_bwd_plain", "fused_linear_fwd",
            "fused_linear_plain", "build", "build_log", "parse_ptxas",
            "ptxas_report", "launch_counts", "reset_launch_counts",
-           "paged_entry", "KERNELS", "ENTRIES", "SOURCE"]
+           "paged_entry", "paged_decode_splits", "KERNELS", "ENTRIES",
+           "SOURCE"]
 
 # the sources build() compiles
 KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
@@ -253,7 +255,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 # the C entries of each source; every entry ends in the stream
 ENTRIES = {
-    "paged_attention": ("paged_attention", "paged_attention_chunk"),
+    "paged_attention": ("paged_attention", "paged_attention_chunk",
+                        "paged_attention_decode"),
     "quant_matmul": ("quant_matmul",),
     "fused_decode_attention": ("fused_decode_attention",),
     "flash_attention": ("flash_attention_fwd", "flash_attention_dq",
@@ -270,6 +273,9 @@ _ARGTYPES = {
     "paged_attention": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     # q, k, v, pos, out, S, C, H, KV, L, D, scale, stream
     "paged_attention_chunk": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k, v, k_scale, v_scale, pos, out, workspace, S, C, H, KV, L, D,
+    # splits, scale, q_dtype, kv_dtype, stream
+    "paged_attention_decode": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
     # x, q, scale, out, part, M, E, F, bits, group, ksplit, x_dtype,
     # out_dtype, stream
     "quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
@@ -410,8 +416,8 @@ def default_paged_block_k(max_len):
     32, 16, 8) dividing ``max_len``, else ``max_len`` itself
     (``default_paged_block_k``, l.1012). The CUDA kernels do not take
     it: they walk live keys in tiles of their own (32 rows for the scalar
-    entry, 64 for the chunk entry) and stop at each query tile's last live
-    key."""
+    entry, 64 for the chunk entry, ranges of :func:`paged_decode_splits`
+    for the decode entry) and stop at each query tile's last live key."""
     for b in (128, 64, 32, 16, 8):
         if max_len % b == 0:
             return b
@@ -448,23 +454,81 @@ def paged_attention_plain(q, k, v, pos, k_scale=None, v_scale=None,
     return o.reshape(s_, c, h, d).to(q.dtype)
 
 
-# the chunk entry's query rows at least: shorter chunks (a speculative
-# verify) would fill under a quarter of its 64-row tiles
+# the chunk entry's query rows at least: shorter chunks (a decode read, a
+# speculative verify) would fill under a quarter of its 64-row tiles, and
+# take the decode entry
 _CHUNK_MIN_C = 16
 
 
 def paged_entry(q_dtype, kv_dtype, c, d):
-    """The C entry :func:`paged_attention` launches for a CUDA call: a
-    bf16 q over a bf16 cache with ``c >= 16`` query rows and a
-    tensor-core head_dim (16, 32, 64, 128) takes ``paged_attention_chunk``
-    (the attention forward of ``csrc/attention.cuh`` with the paged mask);
-    everything else — C = 1 decode reads, short verify chunks, an f32 q or
-    cache, the int8 cache — takes ``paged_attention``, the scalar kernel.
-    A choice by dtype and shape: neither entry gives way to the other."""
+    """The C entry :func:`paged_attention` launches for a CUDA call, by
+    dtype and shape:
+
+    * ``c < 16`` query rows (C = 1 decode reads, speculative verify
+      chunks), any q and cache dtype: ``paged_attention_decode``, the
+      split-KV read (:func:`paged_decode_splits`);
+    * a bf16 q over a bf16 cache with ``c >= 16`` and a tensor-core
+      head_dim (16, 32, 64, 128): ``paged_attention_chunk``, the attention
+      forward of ``csrc/attention.cuh`` with the paged mask;
+    * what is left (``c >= 16`` with an f32 q or cache, the int8 cache, or
+      another head_dim): ``paged_attention``, the scalar kernel.
+
+    No entry gives way to another."""
+    if c < _CHUNK_MIN_C:
+        return "paged_attention_decode"
     if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
-            and c >= _CHUNK_MIN_C and d in _FLASH_D[torch.bfloat16]):
+            and d in _FLASH_D[torch.bfloat16]):
         return "paged_attention_chunk"
     return "paged_attention"
+
+
+# keys x head_dim a decode split takes at least (128 keys at D = 64: 16 KB
+# of bf16 K and V), SMs a slot's (kv head, split) blocks may reach, and
+# splits at most (the merge holds each split's (m, l) in registers)
+_DEC_SPLIT_ELEMS = 8192
+_DEC_SMS_PER_SPLIT = 4
+_DEC_MAX_SPLITS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def paged_decode_splits(l_, d, sms):
+    """How many key ranges the decode entry cuts a slot's ``l_`` cache
+    rows into: ranges of at least ``8192 // d`` keys, at most one for
+    every 4 of the card's ``sms`` SMs (so that a slot's reads of one kv
+    head spread over at most a quarter of the card), and at most 32.
+    Split ``i`` takes keys ``[i * ceil(l_ / n), (i + 1) * ceil(l_ / n))``.
+    A function of the cache's shape and the card alone, never of ``pos``:
+    the host reads no device value, and a captured launch stays valid for
+    every ``pos``."""
+    per = max(1, _DEC_SPLIT_ELEMS // d)
+    return max(1, min(-(-l_ // per), sms // _DEC_SMS_PER_SPLIT,
+                      _DEC_MAX_SPLITS))
+
+
+def _paged_decode(q, k, v, pos, k_scale, v_scale, scale):
+    """Launch ``paged_attention_decode``; it takes only what
+    :func:`paged_entry` routes to it, and raises on anything else."""
+    s_, c, h, d = q.shape
+    l_, kv = k.shape[1], k.shape[2]
+    _check(c < _CHUNK_MIN_C, "paged_attention_decode: takes C < %d query "
+           "rows, got %d", _CHUNK_MIN_C, c)
+    _check(d <= 128, "paged_attention_decode: head_dim must be <= 128, "
+           "got %d", d)
+    _check(s_ <= 65535 and kv <= 65535, "paged_attention_decode: at most "
+           "65535 slots and kv heads")
+    _contig(("q", q), ("k", k), ("v", v), ("pos", pos),
+            ("k_scale", k_scale), ("v_scale", v_scale))
+    ns = paged_decode_splits(l_, d, _sm_count(q.device))
+    out = torch.empty_like(q)
+    # each split's (m, l, acc[D]) per query row, written by the splits and
+    # read by their merge, both inside the entry
+    ws = torch.empty((s_, kv, ns, (h // kv) * c, d + 2),
+                     dtype=torch.float32, device=q.device)
+    _launch("paged_attention_decode", _ptr(q), _ptr(k), _ptr(v),
+            _ptr(k_scale), _ptr(v_scale), _ptr(pos), _ptr(out), _ptr(ws),
+            s_, c, h, kv, l_, d, ns, float(scale), _CODE[q.dtype],
+            _CODE[k.dtype])
+    return out
 
 
 def _paged_chunk(q, k, v, pos, scale):
@@ -532,7 +596,10 @@ def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
     if not _on_cuda(q, k, v, pos, k_scale, v_scale):
         return paged_attention_plain(q, k, v, pos, k_scale, v_scale,
                                      scale)
-    if paged_entry(q.dtype, k.dtype, c, d) == "paged_attention_chunk":
+    entry = paged_entry(q.dtype, k.dtype, c, d)
+    if entry == "paged_attention_decode":
+        return _paged_decode(q, k, v, pos, k_scale, v_scale, scale)
+    if entry == "paged_attention_chunk":
         return _paged_chunk(q, k, v, pos, scale)
     _check(d <= 128, "paged_attention: the kernel takes head_dim <= 128, "
            "got %d", d)

@@ -97,11 +97,14 @@ _CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 @pytest.mark.parametrize("c", [1, 5, 15, 16, 64, 100, 256])
 def test_paged_entry_takes_the_chunk_for_bf16_chunks(q_dtype, cache, c):
     """A bf16 q over a bf16 cache with C >= 16 goes to the chunk entry;
-    decode reads, short chunks, f32 and the int8 cache to the scalar
-    one."""
-    want = "paged_attention_chunk" if (
-        q_dtype == torch.bfloat16 and cache == "bf16" and c >= 16) \
-        else "paged_attention"
+    decode reads and short chunks (C < 16) to the decode entry whatever
+    the dtypes; longer f32 and int8-cache chunks to the scalar one."""
+    if c < 16:
+        want = "paged_attention_decode"
+    elif q_dtype == torch.bfloat16 and cache == "bf16":
+        want = "paged_attention_chunk"
+    else:
+        want = "paged_attention"
     assert K.paged_entry(q_dtype, _CACHE_DTYPES[cache], c, 64) == want
 
 
@@ -124,7 +127,8 @@ def test_chunk_entry_is_registered_and_cpu_calls_run_plain(monkeypatch):
     argument types and launch counter; a bf16 chunk on the CPU runs the
     plain version and never loads the kernels."""
     assert K.ENTRIES["paged_attention"] == ("paged_attention",
-                                            "paged_attention_chunk")
+                                            "paged_attention_chunk",
+                                            "paged_attention_decode")
     assert K.SOURCE["paged_attention_chunk"] == "paged_attention"
     assert len(K._ARGTYPES["paged_attention_chunk"]) == 13
     assert "paged_attention_chunk" in K.launch_counts()
