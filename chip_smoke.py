@@ -25,25 +25,29 @@ Phases:
    non-causal, window 33, f32 and bf16, head_dim 8-128; two runs of the
    bf16 backward give the same bits) and through
    ``MultiHeadAttention`` with GQA, rope and a window against the host;
-   ``fused_linear`` (M=8192 K=768 N=3072 bf16 relu; the SP path's M=2048
-   f32 relu; M=100 K=70 N=130 in
-   f32 and bf16 with every activation, with and without the folded-BN
-   ``scale``); ``matmul_stats`` (each 1x1 conv of ResNet-50 at the main
-   path's B=256, ragged M, K and N in f32 and bf16; the column sums to a
-   stated share of their sums of magnitudes); ``fused_conv_bn_act`` (each
-   conv of ResNet-50 at B=256 in f32 and bf16, small ragged convs with stride, pad,
-   dilation and a non-square kernel, relu and linear, f32 and bf16, NCHW
-   and channels-last); ``striped_pair_attention`` forward, dQ and dK/dV
-   (every ring position pair of the SP path's hop, [24, 1024, 64] at n=4,
-   f32 and bf16; n=1, also held against flash causal; n=3 at a ragged
-   C=100; head_dim 32-128; a random g_o and a nonzero g_lse). Then each
+   ``fused_linear`` (M=8192 K=768 N=3072 bf16 relu, and in f32; the SP
+   path's M=2048 f32 relu; M=100 K=70 N=130 in f32 and bf16 with every
+   activation, with and without the folded-BN ``scale``; f32 at M=129
+   N=65 with K = 3, 5, 767 and from a misaligned view); ``matmul_stats``
+   (each 1x1 conv of ResNet-50 at the main path's B=256, ragged M, K and
+   N in f32 and bf16; the column sums to a stated share of their sums of
+   magnitudes); ``fused_conv_bn_act`` (each conv of ResNet-50 at B=256 in
+   f32 from an NCHW and a channels-last x and in bf16, small ragged convs
+   with stride, pad, dilation and a non-square kernel, relu and linear,
+   f32 and bf16, NCHW and channels-last); ``striped_pair_attention``
+   forward, dQ and dK/dV (every ring position pair of the SP path's hop,
+   [24, 1024, 64] at n=4, f32 and bf16; n=1, also held against flash
+   causal; n=3 at a ragged C=100; head_dim 32-128, and 8 and 16 in f32; a
+   random g_o and a nonzero g_lse). Then each
    kernel's time (CUDA
    events, median of 25 launches with the 50 MB L2 flushed before each and
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
    there is one (``fused_linear`` at the LM's bf16 ffn1, with the SP
    path's f32 ffn1 beside it; ``fused_conv_bn_act`` in f32, the eval
-   forward's path, with its bf16 row beside it; the paged chunk at C =
+   forward's path, at stage 1's 3x3 conv, the stem and a 1x1 stride-2
+   projection, with the bf16 row beside them; the striped hop's forward
+   and backward beside the efficient-attention calls; the paged chunk at C =
    64/128/256 and the decode entry at C = 1 (bf16 beside SDPA with a mask,
    and int8) and C = 4, each beside the scalar paged entry on the same
    inputs, in turns; the scalar entry at the int8-KV prefill's C = 256);
@@ -641,8 +645,9 @@ def flash_cases():
 
 def check_flash_attention(K, dev, gen):
     """Forward (o, lse), then dQ and dK/dV from the same o and lse, kernel
-    against plain, in every case of ``flash_cases``. Returns the largest
-    errors: {entry: max |err|}."""
+    against plain, in every case of ``flash_cases``; then the f32 forward
+    from q/k/v views whose rows are off 16-byte boundaries. Returns the
+    largest errors: {entry: max |err|}."""
     worst = {"flash_attention_fwd": 0.0, "flash_attention_dq": 0.0,
              "flash_attention_dkv": 0.0}
     for b, t, h, d, causal, window, dt, scale in flash_cases():
@@ -668,8 +673,22 @@ def check_flash_attention(K, dev, gen):
                 if dt is torch.float32 else \
                 compare_scaled("flash %s %s" % (name, tag), g_, w_, GRAD_REL)
             worst[entry] = max(worst[entry], err)
-    log("flash_attention: %d cases agree (fwd, dq, dk/dv), max |err| %s" % (
-        len(flash_cases()), {k: "%.3g" % v for k, v in worst.items()}))
+    # f32 q, k and v as views into one buffer whose rows lie 97 floats
+    # apart, off 16-byte boundaries: the f32 forward's 4-byte copies
+    b, t, h, d = 2, 77, 2, 16
+    buf = _rand(gen, (b, t, 3 * h * d + 1)).to(dev)
+    q, k, v = (buf[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+               for i in range(3))
+    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    o_p, lse_p = K.flash_attention_fwd_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    tag = "B=2 T=77 H=2 D=16 causal f32, rows 97 floats apart"
+    worst["flash_attention_fwd"] = max(
+        worst["flash_attention_fwd"], compare("flash fwd o " + tag, o, o_p),
+        compare("flash fwd lse " + tag, lse, lse_p))
+    log("flash_attention: %d cases agree (fwd, dq, dk/dv; and the f32 "
+        "forward from misaligned views), max |err| %s" % (
+            len(flash_cases()), {k: "%.3g" % v for k, v in worst.items()}))
     return worst
 
 
@@ -705,7 +724,7 @@ def spair_cases():
     """(BH, C, D, n, q_off, k_off, dtype): every ring position pair of the
     main path's hop (n=4, [24, 1024, 64]) in f32 and bf16; n=1 (the causal
     mask); n=3 at a ragged C=100 (not a multiple of the tiles), every pair;
-    head_dim 32, 64 and 128."""
+    head_dim 32, 64 and 128, and in f32 also 8 and 16."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(SP_BH, SP_C, SP_D, SP_RING, qo, ko, dt) for dt in (f32, bf)
              for qo in range(SP_RING) for ko in range(SP_RING)]
@@ -714,6 +733,8 @@ def spair_cases():
               for qo in range(3) for ko in range(3)]
     cases += [(4, 200, d, 4, qo, ko, dt) for d in (32, 64, 128)
               for dt in (f32, bf) for qo, ko in ((1, 2), (2, 1))]
+    cases += [(4, 200, d, 4, qo, ko, f32) for d in (8, 16)
+              for qo, ko in ((1, 2), (2, 1))]
     return cases
 
 
@@ -784,7 +805,10 @@ def time_striped_pair(K, dev, gen, worst):
     in f32 (the main path's dtype: the kernels line) and bf16: each C
     entry's time, the plain version's, the bound from the hop's visible
     pairs, and the one PyTorch call that gives (o, lse) with the striped
-    mask as a bias (``_scaled_dot_product_efficient_attention``)."""
+    mask as a bias (``_scaled_dot_product_efficient_attention``) and the
+    one that gives (dq, dk, dv) from it
+    (``_scaled_dot_product_efficient_attention_backward``); then the
+    compiler's line of each f32 forward kernel."""
     timer = Timer(dev)
     qo, ko = 1, 2
     mask = K._striped_mask(SP_C, SP_C, qo, ko, SP_RING, dev)
@@ -819,6 +843,15 @@ def time_striped_pair(K, dev, gen, worst):
             return torch.ops.aten._scaled_dot_product_efficient_attention(
                 q4, k4, v4, bias, True, scale=scale)
 
+        lo4, llse, seed, offset = lib()
+        go4 = go[None]
+
+        def lib_bwd():
+            return torch.ops.aten \
+                ._scaled_dot_product_efficient_attention_backward(
+                    go4, q4, k4, v4, bias, lo4, llse, seed, offset, 0.0,
+                    [True, True, True, False], False, scale=scale)
+
         ms = {"fwd": timer(lambda: K.striped_pair_attention_fwd(
                   q, k, v, qo, ko, n_stride=SP_RING)),
               "dq": timer(dq_launch), "dkv": timer(dkv_launch)}
@@ -827,14 +860,15 @@ def time_striped_pair(K, dev, gen, worst):
                  "bwd": timer(lambda: K.striped_pair_attention_bwd_plain(
                      q, k, v, o, lse, go, gl, qo, ko, SP_RING))}
         lib_ms = timer(lib)
+        lib_bwd_ms = timer(lib_bwd)
         row = nbytes(q)
         spec = {
             # entry: (ms, plain ms, library ms, bytes, flops)
             "striped_pair_fwd": (ms["fwd"], plain["fwd"], lib_ms,
                                  4 * row + nbytes(lse), 4 * SP_D * pairs),
-            "striped_pair_dq": (ms["dq"], plain["bwd"], None,
+            "striped_pair_dq": (ms["dq"], plain["bwd"], lib_bwd_ms,
                                 6 * row + 3 * nbytes(lse), 6 * SP_D * pairs),
-            "striped_pair_dkv": (ms["dkv"], plain["bwd"], None,
+            "striped_pair_dkv": (ms["dkv"], plain["bwd"], lib_bwd_ms,
                                  6 * row + 2 * nbytes(lse),
                                  8 * SP_D * pairs),
         }
@@ -851,9 +885,11 @@ def time_striped_pair(K, dev, gen, worst):
                                  "library_ms": lms, "bound_ms": bms,
                                  "bound_by": by, "shape": shape}
     log("  (%d visible pairs of %d in the hop; plain dq and dkv times are "
-        "the whole plain backward; the library time is the efficient "
-        "attention forward with the mask as a bias and the logsumexp)"
-        % (pairs, SP_BH * SP_C * SP_C))
+        "the whole plain backward; the library times are the efficient "
+        "attention forward with the mask as a bias and the logsumexp, and "
+        "its backward (dq, dk, dv in one call, no lse cotangent) for both "
+        "dq and dkv)" % (pairs, SP_BH * SP_C * SP_C))
+    log(ptxas_lines(K, "striped_pair_attention", ("fwd_f32",)))
     for name, r in entries.items():
         r["max_abs_err"] = worst[name]
     return entries
@@ -863,8 +899,10 @@ def check_fused_linear(K, dev, gen):
     """Every activation at a ragged shape (M=100, K=70, N=130: no tile or
     16-byte multiple) in f32 and bf16, with and without bias, with and
     without the per-column ``scale`` (the folded BatchNorm of the conv
-    path), then the 124M ffn1 shape (M=8192, K=768, N=3072, bf16, relu)
-    and the SP path's (one rank's M=2048, f32, relu with bias)."""
+    path), then the 124M ffn1 shape (M=8192, K=768, N=3072, bf16, relu;
+    also in f32, where it takes the 128-column tile) and the SP path's
+    (one rank's M=2048, f32, relu with bias); then f32 at M=129, N=65 with
+    K = 3, 5 and 767, and from a misaligned view of x."""
     cases = [(100, 70, 130, act, dt, bias, scale)
              for act in ("linear", "relu", "sigmoid", "tanh")
              for dt in (torch.float32, torch.bfloat16)
@@ -872,10 +910,21 @@ def check_fused_linear(K, dev, gen):
     cases += [(8192, 768, 3072, "relu", torch.bfloat16, True, False),
               (8192, 768, 3072, "relu", torch.bfloat16, True, True),
               (33, 768, 2304, "tanh", torch.bfloat16, True, True),
-              (2048, 768, 3072, "relu", torch.float32, True, False)]
+              (2048, 768, 3072, "relu", torch.float32, True, False),
+              (8192, 768, 3072, "relu", torch.float32, True, True)]
+    # f32 around the register tiles (128 rows, 64 or 128 columns, K steps
+    # of 16): one row and one column past a tile, K not a multiple of 4
+    # or of 16; "view": x a contiguous view 4 bytes off a 16-byte boundary
+    # (the guarded element loads)
+    cases += [(129, kd, 65, "relu", torch.float32, True, True)
+              for kd in (3, 5, 767)]
+    cases += [(129, 64, 65, "linear", torch.float32, "view", False)]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for m, kd, n, act, dt, bias, scale in cases:
         x = _rand(gen, (m, kd), dt).to(dev)
+        if bias == "view":
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(m, kd)
+            assert x.data_ptr() % 16 == 4
         w = _rand(gen, (n, kd), dt, 1.0 / math.sqrt(kd)).to(dev)
         b = _rand(gen, (n,), dt, 0.1).to(dev) if bias else None
         s = (torch.rand((n,), generator=gen) + 0.5).to(dev) if scale \
@@ -887,7 +936,7 @@ def check_fused_linear(K, dev, gen):
             "fused_linear M=%d K=%d N=%d %s %s bias=%s scale=%s"
             % (m, kd, n, act, dt, bias, scale), got, want))
     log("fused_linear: %d cases agree (%d with scale), max |err| f32 %.3g, "
-        "bf16 %.3g" % (len(cases), sum(c[-1] for c in cases),
+        "bf16 %.3g" % (len(cases), sum(bool(c[-1]) for c in cases),
                        worst[torch.float32], worst[torch.bfloat16]))
     return max(worst.values())
 
@@ -947,7 +996,9 @@ def check_matmul_stats(K, dev, gen, dgen):
     in bf16 (M = 256 H W, K and N its channels; inputs drawn on the card
     from ``dgen``), then ragged shapes: (130, 70, 36) in f32 and
     bf16, M = 1000 (not a multiple of the 128-row tile), N = 130 past one
-    column tile, K = 33 (the guarded scalar loads). y to the dtype's
+    column tile, K = 33 (the guarded scalar loads), and an f32 product
+    large enough to take the 128-column f32 tile (25088, 256, 1024). y to
+    the dtype's
     tolerance; s1 and s2 per column to STAT_REL of the sums of |y| and
     y^2. Returns the largest |y| error."""
     bf, f32 = torch.bfloat16, torch.float32
@@ -957,7 +1008,7 @@ def check_matmul_stats(K, dev, gen, dgen):
     cases += [(m, kd, n, dt, gen) for m, kd, n, dt in (
         (130, 70, 36, f32), (130, 70, 36, bf), (1000, 64, 64, bf),
         (1000, 64, 64, f32), (257, 24, 130, bf), (77, 33, 20, bf),
-        (77, 33, 20, f32))]
+        (77, 33, 20, f32), (25088, 256, 1024, f32))]
     worst, worst_stat = 0.0, 0.0
     for m, kd, n, dt, g in cases:
         x = _rand(g, (m, kd), dt).to(dev)
@@ -974,7 +1025,7 @@ def check_matmul_stats(K, dev, gen, dgen):
         del x, w, y, s1, s2, yp, s1p, s2p, mag
     log("matmul_stats: %d cases agree (%d ResNet-50 1x1 shapes at B=%d), "
         "max |y err| %.3g, statistics within %.3g of their sums of "
-        "magnitudes (gate %g)" % (len(cases), len(cases) - 7, RESNET_B,
+        "magnitudes (gate %g)" % (len(cases), len(cases) - 8, RESNET_B,
                                   worst, worst_stat, STAT_REL))
     return worst
 
@@ -989,11 +1040,12 @@ def _conv_inputs(gen, xs, ws, dt, dev):
 
 
 def check_fused_conv_bn_act(K, dev, gen, dgen):
-    """Each distinct conv of ResNet-50 at the main path's B=256 in f32
-    (what the eval forward runs) and in bf16, with its chain's
-    activation, on the channels-last x the previous
-    fused conv leaves (the stem's input is NCHW, and its K = 147 takes the
-    guarded scalar loads; inputs drawn on the card from ``dgen``), then
+    """Each distinct conv of ResNet-50 at the main path's B=256 with its
+    chain's activation: in f32 (what the eval forward runs: the implicit
+    GEMM) from an NCHW and from a channels-last x (the stem's C = 3 takes
+    the guarded element loads), in bf16 on the channels-last x the
+    previous fused conv leaves (the stem's input NCHW; inputs drawn on the
+    card from ``dgen``), then
     small ragged cases in f32 and bf16, relu and linear: 3x3 pad 1, 7x7/2
     pad 3, a non-square kernel with stride (2, 1), pad (1, 2) and dilation
     (2, 1), dilation 2, 1x1 stride 1 and stride 2, each from an NCHW and a
@@ -1005,7 +1057,8 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
         key = (c["x"], c["w"], c["stride"], c["pad"], c["dilate"], c["act"])
         if key not in seen:
             seen.add(key)
-            cases += [key + (dt, dgen, c["x"][1] > 3) for dt in (f32, bf)]
+            cases += [key + (f32, dgen, cl) for cl in (False, True)]
+            cases.append(key + (bf, dgen, c["x"][1] > 3))
     n_resnet = len(cases)
     for dt in (f32, bf):
         for ws, st, pd, dl, act in (
@@ -1032,8 +1085,9 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
                 xs, " channels-last" if cl else "", ws, kw, dt), got, want))
         del x, w, s, b, got, want
     log("fused_conv_bn_act: %d cases agree (%d ResNet-50 conv shapes at "
-        "B=%d, each in f32 and bf16), max |err| f32 %.3g, bf16 %.3g" % (
-            len(cases), n_resnet // 2, RESNET_B, worst[f32], worst[bf]))
+        "B=%d, each in f32 from NCHW and channels-last x and in bf16), max "
+        "|err| f32 %.3g, bf16 %.3g" % (
+            len(cases), n_resnet // 3, RESNET_B, worst[f32], worst[bf]))
     return max(worst.values())
 
 
@@ -1041,10 +1095,12 @@ def time_cnn_kernels(K, dev, gen, worst):
     """The conv-net kernels at ResNet-50's B=256 shapes (inputs drawn on
     the card from ``gen``; the checks above held both at these shapes):
     matmul_stats at stage 1's `_a` conv (M = 256*56*56, K = 256, N = 64),
-    fused_conv_bn_act at stage 1's 3x3 conv (x 256x64x56x56 channels-last,
-    as the main path gives it, relu) in f32 (the eval forward's path) and
-    bf16, whose time includes the im2col gather (the GEMM alone is
-    printed beside it)."""
+    fused_conv_bn_act in f32 (the eval forward's path, the implicit GEMM)
+    at stage 1's 3x3 conv (x 256x64x56x56 channels-last, as the main path
+    gives it, relu), the stem and stage 2's 1x1 stride-2 projection, and in
+    bf16 at stage 1's 3x3 conv, whose time includes the im2col gather (the
+    GEMM alone is printed beside it); then the compiler's line (registers,
+    spills) of each f32 GEMM kernel."""
     import torch.nn.functional as F
     timer = Timer(dev)
     bf = torch.bfloat16
@@ -1073,43 +1129,73 @@ def time_cnn_kernels(K, dev, gen, worst):
                                "shape": shape}
     del x, w, y
 
-    xs, ws = (RESNET_B, 64, 56, 56), (64, 64, 3, 3)
-    kw = dict(stride=(1, 1), pad=(1, 1), dilate=(1, 1), act="relu")
+    # fused_conv_bn_act in f32 (the eval forward's path, an implicit GEMM)
+    # at stage 1's 3x3 conv (the kernels line's row), the stem (NCHW x, C =
+    # 3: the guarded loads) and stage 2's 1x1 stride-2 projection; then
+    # bf16 at stage 1's 3x3 conv, with its GEMM alone beside it (the bf16
+    # path still gathers the patches by one strided copy)
     P = K._ptr
     rows = {}
-    for dt in (torch.float32, bf):
+    for tag, xs, ws, st, pd, act, cl, dt in (
+            ("f32", (RESNET_B, 64, 56, 56), (64, 64, 3, 3), 1, 1, "relu",
+             True, torch.float32),
+            ("stem", (RESNET_B, 3, 224, 224), (64, 3, 7, 7), 2, 3, "relu",
+             False, torch.float32),
+            ("proj", (RESNET_B, 256, 56, 56), (512, 256, 1, 1), 2, 0,
+             "linear", True, torch.float32),
+            ("bf16", (RESNET_B, 64, 56, 56), (64, 64, 3, 3), 1, 1, "relu",
+             True, bf)):
+        kw = dict(stride=(st, st), pad=(pd, pd), dilate=(1, 1), act=act)
         x, w, s, b = _conv_inputs(gen, xs, ws, dt, dev)
-        x = x.contiguous(memory_format=torch.channels_last)
-        out = torch.empty((RESNET_B, 64, 56, 56), dtype=dt, device=dev)
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        out = K.fused_conv_bn_act(x, w, s, b, **kw)
         wf = (w.float() * s[:, None, None, None]).to(dt)  # the folded weight
         bb = b.to(dt)
+        act_fn = torch.relu if act == "relu" else (lambda y: y)
         kms = timer(lambda: K.fused_conv_bn_act(x, w, s, b, **kw))
         pms = timer(lambda: K.fused_conv_bn_act_plain(x, w, s, b, **kw))
-        lms = timer(lambda: torch.relu(F.conv2d(x, wf, bb, padding=1)))
-        xm, wm, _, _ = K._im2col(x, w, (1, 1), (1, 1), (1, 1))
-        om = torch.empty((xm.shape[0], 64), dtype=dt, device=dev)
+        lms = timer(lambda: act_fn(F.conv2d(x, wf, bb, stride=st,
+                                            padding=pd)))
+        m, kdim = out.numel() // ws[0], ws[1] * ws[2] * ws[3]
+        bms, by = bound_ms(nbytes(x, w, s, b, out), 2 * m * ws[0] * kdim,
+                           dt)
+        shape = "%s %dx%d/%d x=%s%s %s %s" % (
+            {"f32": "stage1", "bf16": "stage1", "stem": "stem",
+             "proj": "stage2 projection"}[tag], ws[2], ws[3], st,
+            "x".join(map(str, xs)), " channels-last" if cl else " NCHW",
+            "f32" if dt == torch.float32 else "bf16", act)
+        row = {"ms": kms, "plain_ms": pms, "library_ms": lms,
+               "bound_ms": bms, "bound_by": by, "shape": shape}
+        extra = ""
+        if dt == bf:
+            xm, wm, _, _ = K._im2col(x, w, (st, st), (pd, pd), (1, 1))
+            om = torch.empty((xm.shape[0], ws[0]), dtype=dt, device=dev)
 
-        def gemm_only():
-            K._launch("fused_conv_bn_act", P(xm), P(wm), P(s), P(b), P(om),
-                      xm.shape[0], 64, xm.shape[1], 1, K._CODE[dt])
+            def gemm_only():
+                K._launch("fused_conv_bn_act", P(xm), P(wm), P(s), P(b),
+                          P(om), 1, 1, xm.shape[0], xm.shape[1], 1,
+                          xm.shape[0], ws[0], 1, 1, 1, 1, 0, 0, 1, 1, 1,
+                          K._CODE[dt])
 
-        gms = timer(gemm_only)
-        flops = 2 * xm.shape[0] * 64 * xm.shape[1]
-        bms, by = bound_ms(nbytes(x, w, s, b, out), flops, dt)
-        tag = "f32" if dt == torch.float32 else "bf16"
-        shape = "stage1 3x3 x=256x64x56x56 channels-last %s relu" % tag
-        log("time %-22s %-34s kernel %.4f ms (of which the GEMM %.4f ms, "
-            "the im2col gather the rest)  plain %.4f ms  library %.4f ms "
-            "(F.conv2d with the scale folded + relu%s)  bound %.4f ms (%s)"
-            % ("fused_conv_bn_act", shape, kms, gms, pms, lms,
-               ", TF32 off" if tag == "f32" else "", bms, by))
-        rows[tag] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
-                     "bound_ms": bms, "bound_by": by, "shape": shape,
-                     "gemm_ms": gms}
-        del x, w, s, b, out, wf, bb, xm, wm, om
-    # the main path (the eval forward) runs the f32 path; the bf16 row
-    # rides along in the kernels line
-    entries["fused_conv_bn_act"] = dict(rows["f32"], bf16=rows["bf16"])
+            row["gemm_ms"] = timer(gemm_only)
+            extra = " (of which the GEMM %.4f ms, the im2col gather the " \
+                "rest)" % row["gemm_ms"]
+            del xm, wm, om
+        log("time %-22s %-34s kernel %.4f ms%s  plain %.4f ms  library "
+            "%.4f ms (F.conv2d with the scale folded%s%s)  bound %.4f ms "
+            "(%s)" % ("fused_conv_bn_act", shape, kms, extra, pms, lms,
+                      " + relu" if act == "relu" else "",
+                      ", TF32 off" if dt == torch.float32 else "", bms, by))
+        rows[tag] = row
+        del x, w, s, b, out, wf, bb
+    # the main path (the eval forward) runs the f32 path: stage 1's 3x3
+    # conv is the kernels line's row, the other rows ride along in it
+    entries["fused_conv_bn_act"] = dict(
+        rows["f32"], **{t: rows[t] for t in ("stem", "proj", "bf16")})
+    for kname, keys in (("fused_linear", ("conv_f32", "fused_linear_f32")),
+                        ("matmul_stats", ("matmul_stats_f32",))):
+        log(ptxas_lines(K, kname, keys))
     for name, r in entries.items():
         r["max_abs_err"] = worst[name]
     return entries
@@ -2414,6 +2500,17 @@ def ptxas_summary(K, name, rows=None):
                r["spill_loads"]) for r in spills))
 
 
+def ptxas_lines(K, name, keys):
+    """One line per function of source ``name`` whose demangled name holds
+    one of ``keys``: its registers and spilled bytes."""
+    rows = [r for r in K.ptxas_report(K.build_log(name))
+            if any(k in r["name"] for k in keys)]
+    return "\n".join("  ptxas %s: %s registers, %d bytes spill stores, %d "
+                     "spill loads" % (r["name"], r["registers"],
+                                      r["spill_stores"], r["spill_loads"])
+                     for r in rows)
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device — this script runs on the card")
@@ -2494,8 +2591,9 @@ def main():
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
-        **{k: timed[e][k] for k in ("gemm_ms", "bf16", "f32", "scalar_ms",
-                                    "int8", "c4") if k in timed[e]})
+        **{k: timed[e][k] for k in ("stem", "proj", "bf16", "f32",
+                                    "scalar_ms", "int8", "c4")
+           if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"
         % (time.perf_counter() - t_start))

@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
 """This tree's CUDA kernels against another version of their sources, in
-one process on one card: ``flash_attention``'s three entries, the bf16
-GEMM core behind ``fused_linear``, ``fused_conv_bn_act`` and
-``matmul_stats``, and the short-chunk paged read.
+one process on one card: ``flash_attention``'s and
+``striped_pair_attention``'s entries, the GEMMs behind ``fused_linear``,
+``fused_conv_bn_act`` and ``matmul_stats`` in bf16 and f32, and the
+short-chunk paged read.
 
     python3 compare_flash.py --parent DIR
 
 DIR is a checkout of another commit (``git archive <commit> | tar -x -C
-DIR``). Its ``flash_attention.cu``, ``fused_linear.cu``,
-``matmul_stats.cu`` and ``paged_attention.cu`` (under
-``mxnet_tpu_torch/ops/csrc``) are built beside this tree's, all at once,
-and the same inputs go through both builds:
+DIR``). Its ``flash_attention.cu``, ``striped_pair_attention.cu``,
+``fused_linear.cu``, ``matmul_stats.cu`` and ``paged_attention.cu``
+(under ``mxnet_tpu_torch/ops/csrc``) are built beside this tree's, all at
+once, and the same inputs go through both builds. Each comparison is held
+to the tolerance below and also says whether the two builds' outputs are
+bitwise equal.
 
-* flash, in four cases (the 124M LM's training shape, a windowed ragged T
-  in bf16, non-causal f32, a windowed head_dim 32 f32). The forward: o and
-  lse of this build within ``chip_smoke.TOL`` of the other's in bf16 (the
-  bf16 forward may sum in another order, take exp2 and mask only boundary
-  tiles), bitwise equal in f32. The backward: both builds' dQ and dK/dV
-  entries are fed the same (q, k, v, o, lse, dO), the other build's o and
-  lse. In bf16 dcap is held within ``chip_smoke.TOL`` of the other's and
-  dQ, dK and dV within ``chip_smoke.GRAD_REL`` of the other's largest
-  value; in f32 all four are bitwise equal.
+* flash, in five cases (the 124M LM's training shape, a windowed ragged T
+  in bf16; non-causal f32, a windowed head_dim 32 f32, the LM's shape at
+  B=1 in f32). The forward: o and lse of this build within
+  ``chip_smoke.TOL`` of the other's (the bf16 forward may sum in another
+  order, take exp2 and mask only boundary tiles; the f32 forward is the
+  tiled one). The backward: both builds' dQ and dK/dV entries are fed the
+  same (q, k, v, o, lse, dO), the other build's o and lse. In bf16 dcap
+  is held within ``chip_smoke.TOL`` of the other's and dQ, dK and dV
+  within ``chip_smoke.GRAD_REL`` of the other's largest value; in f32 all
+  four are bitwise equal.
+* the striped hop of the SP path ([24, 1024, 64], n=4, q_off=1, k_off=2)
+  in f32 and bf16, held as the flash cases.
 * the bf16 GEMM: ``fused_linear`` at the 124M LM's four products (M =
   8192 tokens: qkv N=2304, proj, ffn1 N=3072 with relu, ffn2 K=3072) and
   at a ragged M=100 K=70 N=130 (the guarded loads); ``fused_conv_bn_act``'s
@@ -28,18 +34,26 @@ and the same inputs go through both builds:
   the folded BatchNorm and relu); ``matmul_stats`` at stage 1's first 1x1
   conv (M=802816, K=256, N=64). Outputs within ``chip_smoke.TOL`` of the
   other's in bf16, column sums within ``chip_smoke.STAT_REL`` of their
-  sums of magnitudes.
+  sums of magnitudes. The conv entry is called in the form each tree's
+  source declares: the patches and (M, N, K), or the conv's geometry.
+* the f32 GEMM: ``fused_linear`` at the SP path's ffn1 (M=2048 K=768
+  N=3072, relu and bias), ``matmul_stats`` at stage 1's first 1x1 conv,
+  ``fused_conv_bn_act`` at stage 1's 3x3 conv, the stem and stage 2's 1x1
+  stride-2 projection at B=256, each with the host-side work its tree's
+  wrapper does (the patches gather, or the channels-last copy and weight
+  permutation). Outputs within ``chip_smoke.TOL[f32]``, column sums within
+  ``chip_smoke.STAT_REL``.
 * the paged read at C < 16 (S=32 slots, 12 heads of 64, L=1024, random
   pos): this tree's ``paged_attention_decode`` against the other's entry
   for the same call, ``paged_attention_decode`` if it has one, else the
   scalar ``paged_attention``; bf16 and int8 caches at C=1, bf16 at C=4.
   Outputs within ``chip_smoke.TOL`` of the other's.
 
-Each shape of the 124M LM and of ResNet-50 is then timed in turns (other,
-this, this, other) with ``chip_smoke.py``'s timer. Both builds' compiler
-reports are printed first: each function that spills, with its registers
-and spilled bytes. Exits non-zero if any check fails. Needs a CUDA card
-and ``nvcc``.
+Each shape of the 124M LM, of the SP hop and of ResNet-50 is then timed in
+turns (other, this, this, other) with ``chip_smoke.py``'s timer. Both
+builds' compiler reports are printed first: each function that spills,
+with its registers and spilled bytes. Exits non-zero if any check fails.
+Needs a CUDA card and ``nvcc``.
 """
 import argparse
 import ctypes
@@ -54,23 +68,42 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CASES = [(8, 1024, 12, 64, True, 0, torch.bfloat16),
          (2, 1000, 3, 64, True, 33, torch.bfloat16),
          (2, 1000, 3, 64, False, 0, torch.float32),
-         (2, 77, 2, 32, True, 5, torch.float32)]
+         (2, 77, 2, 32, True, 5, torch.float32),
+         (1, 1024, 12, 64, True, 0, torch.float32)]
 
 
 # the sources built from both trees
-SOURCES = ("flash_attention", "fused_linear", "matmul_stats",
-           "paged_attention")
+SOURCES = ("flash_attention", "striped_pair_attention", "fused_linear",
+           "matmul_stats", "paged_attention")
+
+# mx_fused_conv_bn_act before it took the conv's geometry: the patches
+# [M, K] as x, then M, N, K
+GEMM_CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
 
 
-def _load(K, name, path):
+def _conv_form(tree):
+    """"geometry" if the tree's mx_fused_conv_bn_act takes the conv's
+    geometry (x channels-last), else "gemm" (the patches and M, N, K)."""
+    with open(os.path.join(tree, "mxnet_tpu_torch", "ops", "csrc",
+                           "fused_linear.cu")) as f:
+        src = f.read()
+    sig = src[src.index("mx_fused_conv_bn_act("):]
+    return "geometry" if "int OH" in sig[:sig.index(")")] else "gemm"
+
+
+def _load(K, name, path, conv_form="geometry"):
     """Source ``name``'s library at ``path`` with the argument types of this
-    tree's entries; an entry the library lacks is left out."""
+    tree's entries (the conv entry's by ``conv_form``); an entry the
+    library lacks is left out."""
     lib = ctypes.CDLL(path)
     for e in K.ENTRIES[name]:
         fn = getattr(lib, "mx_" + e, None)
         if fn is not None:
             fn.restype = ctypes.c_int
-            fn.argtypes = K._ARGTYPES[e]
+            fn.argtypes = GEMM_CONV_ARGTYPES if (
+                e == "fused_conv_bn_act" and conv_form == "gemm") \
+                else K._ARGTYPES[e]
     return lib
 
 
@@ -116,21 +149,33 @@ def main():
     K.build(SOURCES)
     other = _build_other(K, args.parent)
     libs = {"other": {}, "this": {}}
+    forms = {"other": _conv_form(args.parent), "this": _conv_form(HERE)}
     for name in SOURCES:
         for who, path in (("other", other[name][:-3] + ".log"),
                           ("this", K.build_log(name))):
             cs.log(who + cs.ptxas_summary(K, name, K.ptxas_report(path)))
-        libs["other"][name] = _load(K, name, other[name])
+        libs["other"][name] = _load(K, name, other[name], forms["other"])
         libs["this"][name] = _load(K, name, K._lib_path(name))
     timer = cs.Timer(dev)
     failed = _compare_flash(cs, K, libs, dev, timer)
-    failed += _compare_gemm(cs, K, libs, dev, timer)
+    failed += _compare_striped(cs, K, libs, dev, timer)
+    failed += _compare_gemm(cs, K, libs, forms, dev, timer)
+    failed += _compare_f32_gemm(cs, K, libs, forms, dev, timer)
     failed += _compare_decode(cs, K, libs, dev, timer)
     if failed:
         raise AssertionError("outputs disagree with the other version's in "
                              "%s" % failed)
     cs.log("compare_flash: every case agrees")
     return 0
+
+
+def _agree(cs, this, other):
+    """(ok, how): each tensor of ``this`` within ``cs.TOL`` of ``other``'s,
+    and whether all are bitwise equal."""
+    oks, errs = zip(*(_close(cs, x, y) for x, y in zip(this, other)))
+    same = all(torch.equal(x, y) for x, y in zip(this, other))
+    return all(oks), "within TOL (max |err| %s; bitwise equal: %s)" % (
+        ", ".join("%.3g" % e for e in errs), same)
 
 
 def _compare_flash(cs, K, libs, dev, timer):
@@ -173,25 +218,16 @@ def _compare_flash(cs, K, libs, dev, timer):
             _run(name, "flash_attention_dkv", calls[name]["dkv"])
             bwd[name] = (dcap, dq, dk, dv)
         torch.cuda.synchronize()
+        # forwards may sum in other orders (within TOL); backwards fed the
+        # same (o, lse) must agree bitwise in f32
+        fwd_ok, how = _agree(cs, fwd["this"], fwd["other"])
+        same = all(torch.equal(x, y) for x, y in zip(bwd["other"],
+                                                     bwd["this"]))
         if dt is torch.float32:
-            fwd_ok = all(torch.equal(x, y) for x, y in zip(fwd["other"],
-                                                           fwd["this"]))
-            how = "bitwise equal"
-        else:
-            atol, rtol = cs.TOL[torch.bfloat16]
-            errs = [(x.float() - y.float()).abs()
-                    for x, y in zip(fwd["this"], fwd["other"])]
-            fwd_ok = all(bool((e <= atol + rtol * y.float().abs()).all())
-                         for e, y in zip(errs, fwd["other"]))
-            how = "within TOL[bf16] (atol %g, rtol %g), max |err| o %.3g " \
-                "lse %.3g" % (atol, rtol, errs[0].max().item(),
-                              errs[1].max().item())
-        if dt is torch.float32:
-            bwd_ok = all(torch.equal(x, y) for x, y in zip(bwd["other"],
-                                                           bwd["this"]))
-            bhow = "bitwise equal"
+            bwd_ok, bhow = same, "bitwise equal"
         else:
             bwd_ok, bhow = _bwd_close(cs, bwd["this"], bwd["other"])
+            bhow += "; bitwise equal: %s" % same
         cs.log("flash %s: forward (o, lse) this vs other %s: %s; backward "
                "(dcap, dq, dk, dv) from the same (o, lse) %s: %s"
                % (tag, how, fwd_ok, bhow, bwd_ok))
@@ -209,6 +245,75 @@ def _compare_flash(cs, K, libs, dev, timer):
             other, this = (mean["dq"][i] + mean["dkv"][i] for i in (0, 1))
             cs.log("backward dq + dkv %s: other %.4f ms, this %.4f ms, "
                    "%.2fx" % (tag, other, this, other / this))
+    return failed
+
+
+# (BH, C, D, n, q_off, k_off, dtype): the SP path's hop
+SPAIR_CASES = [(24, 1024, 64, 4, 1, 2, torch.float32),
+               (24, 1024, 64, 4, 1, 2, torch.bfloat16)]
+
+
+def _compare_striped(cs, K, libs, dev, timer):
+    """The striped hop, as the flash cases: the forward (o, lse) of this
+    build within ``cs.TOL`` of the other's, then both builds' dQ and dK/dV
+    entries fed the other's (o, lse): bitwise equal in f32, within
+    ``_bwd_close`` in bf16; each entry timed in turns. Returns the tags
+    that disagree."""
+    libs = {who: ls["striped_pair_attention"] for who, ls in libs.items()}
+    gen = torch.Generator().manual_seed(4)
+    P = K._ptr
+    st = torch.cuda.current_stream().cuda_stream
+    failed = []
+    for bh, c, d, n, qo, ko, dt in SPAIR_CASES:
+        q, k, v, go = (cs._rand(gen, (bh, c, d), dt).to(dev)
+                       for _ in range(4))
+        gl = cs._rand(gen, (bh, c, 1)).to(dev)
+        cfg = (bh, c, c, d, 1.0 / d ** 0.5, n, qo, ko, K._CODE[dt], st)
+        tag = "BH=%d C=%d D=%d n=%d q_off=%d k_off=%d %s" % (
+            bh, c, d, n, qo, ko, dt)
+        fwd, bwd, calls = {}, {}, {}
+        for who, lib in libs.items():
+            o = torch.empty_like(q)
+            lse = torch.empty((bh, c, 1), device=dev)
+            calls[who] = {"fwd": lambda lib=lib, o=o, lse=lse:
+                          lib.mx_striped_pair_fwd(P(q), P(k), P(v), P(o),
+                                                  P(lse), *cfg)}
+            _run(who, "striped_pair_fwd", calls[who]["fwd"])
+            fwd[who] = (o, lse)
+        o, lse = fwd["other"]
+        for who, lib in libs.items():
+            dcap = torch.empty_like(lse)
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            calls[who]["dq"] = lambda lib=lib, dcap=dcap, dq=dq: \
+                lib.mx_striped_pair_dq(P(q), P(k), P(v), P(o), P(go),
+                                       P(lse), P(gl), P(dcap), P(dq), *cfg)
+            calls[who]["dkv"] = lambda lib=lib, dcap=dcap, dk=dk, dv=dv: \
+                lib.mx_striped_pair_dkv(P(q), P(k), P(v), P(go), P(lse),
+                                        P(dcap), P(dk), P(dv), *cfg)
+            _run(who, "striped_pair_dq", calls[who]["dq"])
+            _run(who, "striped_pair_dkv", calls[who]["dkv"])
+            bwd[who] = (dcap, dq, dk, dv)
+        torch.cuda.synchronize()
+        fwd_ok, how = _agree(cs, fwd["this"], fwd["other"])
+        same = all(torch.equal(x, y) for x, y in zip(bwd["this"],
+                                                     bwd["other"]))
+        if dt is torch.float32:
+            bwd_ok, bhow = same, "bitwise equal"
+        else:
+            bwd_ok, bhow = _bwd_close(cs, bwd["this"], bwd["other"])
+            bhow += "; bitwise equal: %s" % same
+        cs.log("striped %s: forward (o, lse) this vs other %s: %s; backward "
+               "(dcap, dq, dk, dv) from the same (o, lse) %s: %s"
+               % (tag, how, fwd_ok, bhow, bwd_ok))
+        if not (fwd_ok and bwd_ok):
+            failed.append("striped " + tag)
+        for entry in ("fwd", "dq", "dkv"):
+            ms = [timer(calls[w_][entry])
+                  for w_ in ("other", "this", "this", "other")]
+            cs.log("time striped_pair_%-4s %s  other %.4f ms  this %.4f ms  "
+                   "this %.4f ms  other %.4f ms  (%.2fx)" % (
+                       (entry, tag) + tuple(ms)
+                       + ((ms[0] + ms[3]) / (ms[1] + ms[2]),)))
     return failed
 
 
@@ -232,7 +337,20 @@ def _close(cs, got, want):
             err.max().item())
 
 
-def _compare_gemm(cs, K, libs, dev, timer):
+def _conv_gemm_call(fn, form, x, w, scale, bias, y, m, n, kd, act, dtype,
+                    st):
+    """mx_fused_conv_bn_act over patches x [m, kd] in either form: the
+    geometry form takes them as the x of a 1x1 stride-1 conv over
+    [1, 1, m, kd]."""
+    P = torch.Tensor.data_ptr
+    head = (P(x), P(w), P(scale), P(bias), P(y))
+    if form == "gemm":
+        return fn(*head, m, n, kd, act, dtype, st)
+    return fn(*head, 1, 1, m, kd, 1, m, n, 1, 1, 1, 1, 0, 0, 1, 1, act,
+              dtype, st)
+
+
+def _compare_gemm(cs, K, libs, forms, dev, timer):
     """The bf16 GEMM cases; returns the tags of those that disagree."""
     P = K._ptr
     bf = torch.bfloat16
@@ -258,6 +376,12 @@ def _compare_gemm(cs, K, libs, dev, timer):
                     lib.mx_matmul_stats(P(x), P(w), P(y), P(s1), P(s2), m,
                                         n, kd, 1, st)
                 outs[who] = (y, s1, s2)
+            elif entry == "fused_conv_bn_act":
+                fn = lib.mx_fused_conv_bn_act
+                calls[who] = lambda fn=fn, y=y, form=forms[who]: \
+                    _conv_gemm_call(fn, form, x, w, scale, bias, y, m, n,
+                                    kd, act, 1, st)
+                outs[who] = (y,)
             else:
                 fn = getattr(lib, "mx_" + entry)
                 calls[who] = lambda fn=fn, y=y: fn(
@@ -267,7 +391,9 @@ def _compare_gemm(cs, K, libs, dev, timer):
             _run(who, entry, calls[who])
         torch.cuda.synchronize()
         ok, err = _close(cs, outs["this"][0], outs["other"][0])
-        how = "y within TOL[bf16] (max |err| %.3g)" % err
+        how = "y within TOL[bf16] (max |err| %.3g; bitwise equal: %s)" % (
+            err, all(torch.equal(a, b) for a, b in zip(outs["this"],
+                                                       outs["other"])))
         if entry == "matmul_stats":
             mag = (x.float() @ w.float().t()).abs().sum(dim=0)
             for i, ref in ((1, mag), (2, outs["other"][2].sum(dim=0))):
@@ -287,6 +413,120 @@ def _compare_gemm(cs, K, libs, dev, timer):
                    "other %.4f ms  (%.2fx)" % (
                        tag, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
         del x, w, outs, calls
+    return failed
+
+
+# (what, x shape, w shape, stride, pad, act, channels-last x): the f32
+# conv entry at ResNet-50's stage-1 3x3 conv, its stem and stage 2's 1x1
+# stride-2 projection, at B=256
+F32_CONVS = [("stage-1 3x3", (256, 64, 56, 56), (64, 64, 3, 3), 1, 1, 1,
+              True),
+             ("stem 7x7/2", (256, 3, 224, 224), (64, 3, 7, 7), 2, 3, 1,
+              False),
+             ("stage-2 1x1/2 projection", (256, 256, 56, 56),
+              (512, 256, 1, 1), 2, 0, 0, True)]
+
+
+def _compare_f32_gemm(cs, K, libs, forms, dev, timer):
+    """The f32 GEMM entries: fused_linear at the SP path's ffn1, matmul_stats
+    at stage 1's first 1x1 conv and fused_conv_bn_act at F32_CONVS, this
+    build's outputs within ``cs.TOL[f32]`` of the other's (column sums
+    within ``cs.STAT_REL``), each timed in turns. A build whose conv entry
+    takes the patches (``gemm`` form) is timed with the one-copy gather
+    its wrapper makes (``K._im2col``), the geometry form with its
+    wrapper's channels-last copy of an NCHW x and weight permutation
+    (``K._conv_operands``). Returns the tags that disagree."""
+    P = K._ptr
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(5)
+    st = torch.cuda.current_stream().cuda_stream
+    failed = []
+
+    def report(tag, ok, how, calls):
+        cs.log("f32 %s: this vs other %s: %s" % (tag, how, ok))
+        if not ok:
+            failed.append(tag)
+        ms = [timer(calls[who]) for who in ("other", "this", "this",
+                                             "other")]
+        cs.log("time %-48s other %.4f ms  this %.4f ms  this %.4f ms  "
+               "other %.4f ms  (%.2fx)" % (
+                   tag, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
+
+    m, kd, n = 2048, 768, 3072
+    x = cs._rand(gen, (m, kd))
+    w = cs._rand(gen, (n, kd), f32, 1.0 / kd ** 0.5)
+    bias = cs._rand(gen, (n,), scale=0.1)
+    outs, calls = {}, {}
+    for who in ("other", "this"):
+        y = torch.empty((m, n), device=dev)
+        calls[who] = lambda lib=libs[who]["fused_linear"], y=y: \
+            lib.mx_fused_linear(P(x), P(w), None, P(bias), P(y), m, n, kd,
+                                1, 0, st)
+        _run(who, "fused_linear", calls[who])
+        outs[who] = y
+    torch.cuda.synchronize()
+    ok, err = _close(cs, outs["this"], outs["other"])
+    report("fused_linear SP ffn1 M=%d K=%d N=%d f32 relu" % (m, kd, n), ok,
+           "within TOL[f32] (max |err| %.3g)" % err, calls)
+
+    m, kd, n = 802816, 256, 64
+    x = cs._rand(gen, (m, kd))
+    w = cs._rand(gen, (n, kd), f32, 1.0 / kd ** 0.5)
+    outs, calls = {}, {}
+    for who in ("other", "this"):
+        y = torch.empty((m, n), device=dev)
+        # the partials of 64- or 128-row tiles, unwritten rows left 0
+        s1, s2 = torch.zeros((2, -(-m // 64), n), device=dev)
+        calls[who] = lambda lib=libs[who]["matmul_stats"], y=y, s1=s1, \
+            s2=s2: lib.mx_matmul_stats(P(x), P(w), P(y), P(s1), P(s2), m, n,
+                                       kd, 0, st)
+        _run(who, "matmul_stats", calls[who])
+        outs[who] = (y, s1.sum(dim=0), s2.sum(dim=0))
+    torch.cuda.synchronize()
+    ok, err = _close(cs, outs["this"][0], outs["other"][0])
+    how = "y within TOL[f32] (max |err| %.3g)" % err
+    mag = (x @ w.t()).abs().sum(dim=0)
+    for i, ref in ((1, mag), (2, outs["other"][2])):
+        rel = ((outs["this"][i] - outs["other"][i]).abs()
+               / ref.clamp_min(1e-30)).max().item()
+        ok = ok and rel <= cs.STAT_REL
+        how += ", s%d within %.3g of its sum of magnitudes" % (i, rel)
+    report("matmul_stats stage-1 _a M=%d K=%d N=%d f32" % (m, kd, n), ok,
+           how, calls)
+    del x, w, outs, calls, mag
+
+    for what, xs, ws, s_, p_, act, cl in F32_CONVS:
+        x, w, scale, bias = cs._conv_inputs(gen, xs, ws, f32, dev)
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        stride, pad = (s_, s_), (p_, p_)
+        oh, ow = K._conv_out_hw(xs[2], xs[3], ws[2], ws[3], stride, pad,
+                                (1, 1))
+        mm = xs[0] * oh * ow
+        outs, calls = {}, {}
+        for who in ("other", "this"):
+            fn = libs[who]["fused_linear"].mx_fused_conv_bn_act
+            y = torch.empty((mm, ws[0]), device=dev)
+            if forms[who] == "gemm":
+                def call(fn=fn, y=y):
+                    xm, wm, _, _ = K._im2col(x, w, stride, pad, (1, 1))
+                    return fn(P(xm), P(wm), P(scale), P(bias), P(y),
+                              xm.shape[0], ws[0], xm.shape[1], act, 0, st)
+            else:
+                def call(fn=fn, y=y):
+                    xc, wm, geom = K._conv_operands(x, w, stride, pad,
+                                                    (1, 1))
+                    return fn(P(xc), P(wm), P(scale), P(bias), P(y), *geom,
+                              act, 0, st)
+            calls[who] = call
+            _run(who, "fused_conv_bn_act", call)
+            outs[who] = y
+        torch.cuda.synchronize()
+        ok, err = _close(cs, outs["this"], outs["other"])
+        report("fused_conv_bn_act %s x=%s%s f32" % (
+            what, "x".join(map(str, xs)), " channels-last" if cl else ""),
+            ok, "within TOL[f32] (max |err| %.3g)" % err, calls)
+        del x, w, scale, bias, outs, calls
     return failed
 
 
@@ -322,10 +562,10 @@ def _compare_decode(cs, K, libs, dev, timer):
             _run(who, "paged read", calls[who])
             outs[who] = out
         torch.cuda.synchronize()
-        ok, err = _close(cs, outs["this"], outs["other"])
+        ok, how = _agree(cs, (outs["this"],), (outs["other"],))
         tag = "S=%d C=%d H=12 L=1024 %s KV" % (s_, c, kind)
-        cs.log("paged read %s: this (decode entry) vs other within TOL[bf16]"
-               " (max |err| %.3g): %s" % (tag, err, ok))
+        cs.log("paged read %s: this (decode entry) vs other %s: %s"
+               % (tag, how, ok))
         if not ok:
             failed.append(tag)
         ms = [timer(calls[who]) for who in ("other", "this", "this",

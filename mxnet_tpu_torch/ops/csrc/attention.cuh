@@ -85,10 +85,20 @@
 // it (its terms are exact zeros). P and dS are rounded to bf16 for the
 // products while the row sums and the softmax stay f32. The dQ kernel also
 // writes dcap, which the dK/dV kernel, launched after it on the same stream,
-// reads. f32 inputs take a CUDA-core form of the same three kernels (several
-// threads per row, one key or query at a time), masked scores at -1e30 with
-// probability exactly 0. wgmma and TMA (a warp-specialised pipeline) are
-// later work.
+// reads. wgmma and TMA (a warp-specialised pipeline) are later work.
+//
+// f32 inputs (the SP step's hops) stay true f32 on the CUDA cores, where a
+// hop's ~3.2 GFLOP bound it (67 TFLOP/s). The f32 forward (fwd_f32) works
+// tile-wise as the bf16 one does: a 64-row query tile per block of 128
+// threads, the visible 64-key tiles through the same two-stage cp.async
+// ring, S = Q.K^T and O += P.V as register-tiled products (4 rows x 8 keys
+// and 4 rows x D / 8 columns a thread, P through shared memory), the mask
+// only on boundary tiles, one row max, one row sum and one correction a
+// tile, exp2 with the scale folded into one FMA. Flash's and the striped
+// hop's f32 forwards are this one template, so an n = 1 hop equals flash
+// causal bit for bit. The f32 backward keeps the first port's form
+// (several threads per row, one key or query at a time, expf, masked
+// scores skipped, probability exactly 0).
 #pragma once
 
 #include <math.h>
@@ -833,10 +843,11 @@ dkv_mma(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores. P = max(1, D / 32) neighbouring threads share a row,
-// each holding DP = D / P of its values; dot products are summed over the
-// P lanes with shuffles. A block holds 128 / P rows; the other side's rows
-// stream through shared memory 32 at a time.
+// f32: CUDA cores. The backward (dq_f32, dkv_f32): P = max(1, D / 32)
+// neighbouring threads share a row, each holding DP = D / P of its values;
+// dot products are summed over the P lanes with shuffles. A block holds
+// 128 / P rows; the other side's rows stream through shared memory 32 at a
+// time. The forward (fwd_f32) follows them.
 
 constexpr int FT = 32;  // rows of the streamed tile
 
@@ -877,52 +888,257 @@ __device__ __forceinline__ void load_part(float* dst, const float* base,
   for (int i = 0; i < DP; ++i) dst[i] = p ? p[i] : 0.f;
 }
 
-template <int D, Mask M>
-__global__ void __launch_bounds__(THREADS)
-fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, float* __restrict__ o,
-        float* __restrict__ lse, Shape s) {
-  using S = Split<D>;
-  __shared__ float ks[FT * D], vs[FT * D];
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
-  const int part = threadIdx.x % S::P;
-  const int qp = qi * S::ROWS + threadIdx.x / S::P;
-  const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
-  float qr[S::DP], acc[S::DP];
-  load_part<D>(qr, q, b, qp, s.Tq, h, lq, part);
+// The f32 forward: one block of FwdF32<D>::NT threads (128; 256 at D =
+// 128) owns a 64-row query tile (FQ) and walks the visible 64-key tiles
+// through a two-stage cp.async ring, as the bf16 forward does (K and V
+// separate commit groups, rows past the last key zero-filled, unread). With
+// tx = tid % 8 and ty = tid / 8 a thread holds the RT query rows ty + RS i
+// (i < RT; RT = 4 and RS = 16, or at D = 128 RT = 2 and RS = 32, so that the
+// accumulators of O fit in registers): the scores of keys tx + 8 j (j < 8)
+// of the tile, and the output columns of FwdF32<D>::col. S = Q.K^T
+// reads Q and K as float4 along D from row-major tiles whose rows are D + 4
+// floats apart (the 8 keys a quarter warp reads fall in 8 distinct bank
+// groups); P goes to shared memory and O += P.V reads P's rows as float4
+// and V's rows as the thread's columns, 128 contiguous bytes a quarter
+// warp. A row's max and sum meet over its 8 threads (tx is the lane's low
+// 3 bits, so they share a warp) by shuffles, once a tile, and the
+// accumulators are corrected once a tile. At D = 64 a block takes 105 KB
+// of shared memory: two blocks an SM.
+constexpr int FQ = 64;
+
+template <int D>
+struct FwdF32 {
+  static constexpr int LD = D + 4;   // row stride of the Q, K and V tiles
+  static constexpr int LP = FQ + 8;  // row stride of the P tile
+  // query rows a thread holds, RS apart; threads a block
+  static constexpr int RT = D >= 128 ? 2 : 4, RS = FQ / RT;
+  static constexpr int NT = 8 * RS;
+  // a thread's output columns: DC chunks of VW, chunk dc of thread tx at
+  // tx * VW + 8 * VW * dc
+  static constexpr int VW = D >= 32 ? 4 : D / 8;
+  static constexpr int DC = D / 8 / VW;
+  static constexpr int SMEM = (5 * FQ * LD + FQ * LP) * 4;  // bytes
+  __device__ static int col(int tx, int dc) { return tx * VW + 8 * VW * dc; }
+};
+
+// VW consecutive floats of shared memory into a register array
+template <int VW>
+__device__ __forceinline__ void load_vw(float* dst, const float* src) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x;
+    dst[1] = t.y;
+    dst[2] = t.z;
+    dst[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x;
+    dst[1] = t.y;
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+// issue rows [t0, t0 + FQ) of head (b, h) into an [FQ][D + 4] f32 tile,
+// zeros at and past row tend (not read); vec: 16-byte copies (every row on
+// a 16-byte boundary), else 4-byte ones
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* sm,
+                                              const float* __restrict__ base,
+                                              int b, int t0, int tend, int h,
+                                              Lay l, bool vec) {
+  constexpr int CH = D / 4;  // 16-byte chunks per row
+  constexpr int LD = FwdF32<D>::LD, NT = FwdF32<D>::NT;
 #pragma unroll
-  for (int i = 0; i < S::DP; ++i) acc[i] = 0.f;
-  float m = NEG_BIG, l = 0.f;
-  int lo, hi;
-  key_range<M>(qi, S::ROWS, FT, s, lo, hi);
-  for (int j = lo; j < hi; ++j) {
-    __syncthreads();
-    load_tile_f32<D>(ks, k, b, j * FT, s.Tk, h, lk);
-    load_tile_f32<D>(vs, v, b, j * FT, s.Tk, h, lv);
-    __syncthreads();
-    for (int c = 0; c < FT; ++c) {
-      const float* kr = ks + c * D + part * S::DP;
-      float x = 0.f;
+  for (int it = 0; it < FQ * CH / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    const int r = i / CH, c = (i % CH) * 4, t = t0 + r;
+    const bool in = t < tend;
+    const float* src = in ? row_ptr(base, b, t, h, l, D) + c : base;
+    if (vec) {
+      cp_async16(sm + r * LD + c, src, in);
+    } else {
 #pragma unroll
-      for (int i = 0; i < S::DP; ++i) x += qr[i] * kr[i];
-      x = part_sum<S::P>(x) * s.scale;
-      if (!visible<M>(qp, j * FT + c, s)) continue;
-      const float mn = fmaxf(m, x);
-      const float corr = expf(m - mn), p = expf(x - mn);
-      m = mn;
-      l = l * corr + p;
-      const float* vr = vs + c * D + part * S::DP;
-#pragma unroll
-      for (int i = 0; i < S::DP; ++i) acc[i] = acc[i] * corr + p * vr[i];
+      for (int e = 0; e < 4; ++e) cp_async4(sm + r * LD + c + e, src + e, in);
     }
   }
-  if (qp >= s.Tq) return;
-  l = fmaxf(l, 1e-30f);
-  float* dst = row_ptr(o, b, qp, h, lay_q(s, D), D) + part * S::DP;
+}
+
+__device__ __forceinline__ float row8_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
+__device__ __forceinline__ float row8_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+template <int D, Mask M>
+__global__ void __launch_bounds__(FwdF32<D>::NT, D >= 128 ? 1 : 2)
+fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, float* __restrict__ o,
+        float* __restrict__ lse, Shape s, int vec) {
+  using F = FwdF32<D>;
+  constexpr int LD = F::LD, LP = F::LP, VW = F::VW, DC = F::DC;
+  constexpr int RT = F::RT, RS = F::RS;
+  constexpr int STAGE = FQ * LD;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [FQ][LD]
+  float* ks = qs + STAGE;                      // [2][FQ][LD]
+  float* vs = ks + 2 * STAGE;                  // [2][FQ][LD]
+  float* ps = vs + 2 * STAGE;                  // [FQ][LP]
+  // the heaviest tiles of all heads first, as in fwd_mma
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int q0 = qi * FQ;
+  const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
+  int lo, hi;
+  key_range<M>(qi, FQ, FQ, s, lo, hi);
+
+  // commit groups, in order: Q, K[lo], V[lo], then K[j+1], V[j+1] in each
+  // step j (empty past the last tile)
+  load_rows_f32<D>(qs, q, b, q0, s.Tq, h, lq, vec);
+  cp_async_commit();
+  if (lo < hi) load_rows_f32<D>(ks, k, b, lo * FQ, s.Tk, h, lk, vec);
+  cp_async_commit();
+  if (lo < hi) load_rows_f32<D>(vs, v, b, lo * FQ, s.Tk, h, lv, vec);
+  cp_async_commit();
+  // scores are taken raw (their sign flipped for a negative scale, which
+  // is exact) and scaled inside the exponent's FMA by c > 0; a zero scale
+  // is taken as the smallest positive, so masked (-inf) scores stay -inf
+  const bool flip = s.scale < 0.f;
+  const float sc = fabsf(s.scale);
+  const float c = fmaxf(sc * LOG2E, 1e-30f);
+
+  float acc[RT][DC * VW];
+  float m[RT], l[RT];
 #pragma unroll
-  for (int i = 0; i < S::DP; ++i) dst[i] = acc[i] / l;
-  if (part == 0) lse[(size_t)bh * s.Tq + qp] = m + logf(l);
+  for (int i = 0; i < RT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DC * VW; ++e) acc[i][e] = 0.f;
+  }
+  for (int j = lo; j < hi; ++j) {
+    const int stage = (j - lo) & 1;
+    const float* kt = ks + stage * STAGE;
+    const float* vt = vs + stage * STAGE;
+    cp_async_wait<1>();  // Q and K[j]; V[j] may still be in flight
+    // K[j] is visible to every thread, and every thread is done with step
+    // j-1, whose stage (and P) the next writes take
+    __syncthreads();
+    if (j + 1 < hi)
+      load_rows_f32<D>(ks + (stage ^ 1) * STAGE, k, b, (j + 1) * FQ, s.Tk,
+                       h, lk, vec);
+    cp_async_commit();
+    if (j + 1 < hi)
+      load_rows_f32<D>(vs + (stage ^ 1) * STAGE, v, b, (j + 1) * FQ, s.Tk,
+                       h, lv, vec);
+    cp_async_commit();
+
+    float sv[RT][8];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) sv[i][jj] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[RT], kv[8];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + RS * i) * LD + d);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        kv[jj] = *reinterpret_cast<const float4*>(kt + (tx + 8 * jj) * LD + d);
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          float x = sv[i][jj];
+          x = fmaf(qv[i].x, kv[jj].x, x);
+          x = fmaf(qv[i].y, kv[jj].y, x);
+          x = fmaf(qv[i].z, kv[jj].z, x);
+          sv[i][jj] = fmaf(qv[i].w, kv[jj].w, x);
+        }
+    }
+    const bool full = full_tile<M>(q0, FQ, j * FQ, FQ, s, 0, s.Tk);
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        if (flip) sv[i][jj] = -sv[i][jj];
+        if (!full && !visible<M>(q0 + ty + RS * i, j * FQ + tx + 8 * jj, s))
+          sv[i][jj] = -INFINITY;
+      }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, sv[i][jj]);
+      mx = row8_max(mx);
+      // the reference point, in log2 units; 0 while the row has seen no
+      // key, so that exp2(-inf - 0) = 0
+      const float mr = mx == -INFINITY ? 0.f : mx * c;
+      const float corr =
+          m[i] == -INFINITY ? 0.f : fast_exp2((m[i] - mx) * c);
+      m[i] = mx;
+      l[i] *= corr;
+      float* prow = ps + (ty + RS * i) * LP + tx;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float p = fast_exp2(fmaf(sv[i][jj], c, -mr));
+        l[i] += p;  // this thread's share; summed over the row's 8 below
+        prow[8 * jj] = p;
+      }
+#pragma unroll
+      for (int e = 0; e < DC * VW; ++e) acc[i][e] *= corr;
+    }
+    cp_async_wait<2>();  // V[j]; K[j+1] and V[j+1] may still be in flight
+    __syncthreads();     // ... and P, for every thread
+#pragma unroll 4
+    for (int c0 = 0; c0 < FQ; c0 += 4) {
+      float4 pv[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + RS * i) * LP + c0);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        float vv[DC * VW];
+#pragma unroll
+        for (int dc = 0; dc < DC; ++dc)
+          load_vw<VW>(vv + dc * VW, vt + (c0 + cc) * LD + F::col(tx, dc));
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float p = cc == 0   ? pv[i].x
+                          : cc == 1 ? pv[i].y
+                          : cc == 2 ? pv[i].z
+                                    : pv[i].w;
+#pragma unroll
+          for (int e = 0; e < DC * VW; ++e)
+            acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float li = row8_sum(l[i]);
+    const int row = q0 + ty + RS * i;
+    if (row >= s.Tq) continue;
+    if (tx == 0)
+      lse[(size_t)bh * s.Tq + row] = li > 0.f ? m[i] * sc + logf(li) : NEG_BIG;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    float* dst = row_ptr(o, b, row, h, lay_q(s, D), D);
+#pragma unroll
+    for (int dc = 0; dc < DC; ++dc)
+#pragma unroll
+      for (int e = 0; e < VW; ++e)
+        dst[F::col(tx, dc) + e] = acc[i][dc * VW + e] * inv;
+  }
 }
 
 template <int D, Mask M>
@@ -1066,17 +1282,6 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the card's SM count (cached)
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 template <int D, Mask M>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         const Shape& s, int dtype, cudaStream_t st) {
@@ -1097,12 +1302,19 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   if constexpr (M == Mask::Paged) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const int rows = Split<D>::ROWS;
-    fwd_f32<D, M><<<dim3((s.Tq + rows - 1) / rows, s.B * s.H), THREADS, 0,
-                    st>>>(static_cast<const float*>(q),
+    constexpr int smem = FwdF32<D>::SMEM;
+    const cudaError_t e = set_smem(fwd_f32<D, M>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    // 16-byte copies need every row of q, k and v on a 16-byte boundary
+    const bool vec =
+        ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+          reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
+        ((s.qsb | s.qst | s.ksb | s.kst | s.vsb | s.vst) % 4 == 0);
+    fwd_f32<D, M><<<dim3(s.B * s.H, (s.Tq + FQ - 1) / FQ), FwdF32<D>::NT,
+                    smem, st>>>(static_cast<const float*>(q),
                           static_cast<const float*>(k),
                           static_cast<const float*>(v),
-                          static_cast<float*>(o), lse, s);
+                          static_cast<float*>(o), lse, s, vec);
     return static_cast<int>(cudaGetLastError());
   }
 }

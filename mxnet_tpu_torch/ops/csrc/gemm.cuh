@@ -2,9 +2,12 @@
 // fused_conv_bn_act) and matmul_stats.cu: one block computes one output
 // tile of acc[m, n] = sum_k x[m, k] w[n, k] for x [M, K] and a weight
 // w [N, K] as it is stored (a FullyConnected weight, or a conv weight
-// [O, C*kh*kw]), accumulated in f32 registers, and leaves the epilogue
-// to its caller. Rows past M and columns past N load as zeros, so their
-// accumulators are exactly 0.
+// permuted to [O, kh*kw*C]), accumulated in f32 registers, and leaves the
+// epilogue to its caller. Two cores: mma_tile, bf16 on the tensor cores;
+// f32_tile, true f32 FFMA on the CUDA cores, whose x may also be the
+// patches of a convolution gathered from a channels-last input in the
+// tile loader (an implicit GEMM). Rows past M and columns past N load as
+// zeros, so their accumulators are exactly 0.
 #pragma once
 
 #include "common.cuh"
@@ -165,47 +168,346 @@ inline bool vec_ok(const void* x, const void* w, int K) {
 
 // -- f32: CUDA cores ----------------------------------------------------------
 //
-// 64 x 64 tiles, 4 x 4 outputs a thread: acc[i][j] is the tile element
-// (4 ty + i, 4 tx + j), tx = tid % 16, ty = tid / 16.
+// True f32 FFMA (no TF32), register-tiled: a block of 256 threads owns a
+// 128 x FN output tile, FN = 128 or 64 (f32_width), and each thread an
+// 8 x TN block of it in registers, TN = FN / 16: with tx = tid % 16 and
+// ty = tid / 16, acc[i][j] is the tile element (frow(tid, i), fcol(tid,
+// j)), frow = 4 ty + i % 4 + 64 (i / 4), fcol = 4 tx + j % 4 + 64 (j / 4). K
+// advances in steps of FBK = 16. The product wants each operand k-major in
+// shared memory (xs[k][m], ws[k][n]), so that one float4 read gives four
+// rows' (columns') values of one k: per k a thread reads two float4 of x
+// and TN / 4 of w for 8 TN FFMAs, the reads of x broadcast within a
+// quarter warp and those of w 128 contiguous bytes. Both operands are
+// K-contiguous in device memory ("NT"), and cp.async cannot transpose, so
+// each thread loads its part of the next step's tiles as float4 into
+// registers before the current step's FFMAs and stores it transposed into
+// the other of two shared buffers after them: one barrier a step. A loader
+// thread takes row tid % R of an R-row tile, 32 consecutive rows a warp, so
+// the transposed stores hit 32 distinct banks.
+//
+// The A operand comes through a loader: DenseRows reads a row-major x [M, K]
+// (fused_linear, matmul_stats, a pointwise conv over a channels-last x);
+// ConvRows is the implicit GEMM of a convolution, gathering patch row
+// m = (n, oy, ox), column k = (ky, kx, c) straight from a channels-last x
+// [N, H, W, C] as x[n, oy sh - ph + ky dh, ox sw - pw + kx dw, c], zero
+// outside the image: no patches matrix exists. Each thread decomposes its
+// one row m before the K loop. With VEC (K, or C for the conv, a multiple
+// of 4 and 16-byte aligned operands) four consecutive k are one float4
+// (for the conv, four channels of one pixel); otherwise each value is a
+// guarded element load (a ragged K, a misaligned view, the stem's C = 3).
+// Rows past M, columns past N and k past K load as zeros, so their
+// accumulators are exactly 0.
 
-constexpr int FM = 64, FN = 64, FK = 16;
+constexpr int FBM = 128, FBK = 16;
 
-__device__ __forceinline__ void f32_tile(const float* __restrict__ x,
-                                         const float* __restrict__ w, int M,
-                                         int N, int K, int m0, int n0,
-                                         float (&acc)[4][4]) {
-  __shared__ __align__(16) float xs[FK][FM + 4];
-  __shared__ __align__(16) float ws[FK][FN + 4];
+template <int FN>
+struct FTile {
+  static constexpr int TN = FN / 16;                  // columns a thread owns
+  static constexpr int NB = FN * FBK / 4 / THREADS;   // float4 of w a step
+  static constexpr int SMEM = 2 * FBK * (FBM + FN);   // floats, two buffers
+};
+
+// the tile row of accumulator row i of thread tid, and the tile column
+// of its column j; the rows of i and i + 4, and the columns of j and j + 4,
+// are RSTEP and CSTEP apart
+constexpr int RSTEP = 64, CSTEP = 64;
+__device__ __forceinline__ int frow(int tid, int i) {
+  return 4 * (tid / 16) + (i & 3) + RSTEP * (i >> 2);
+}
+__device__ __forceinline__ int fcol(int tid, int j) {
+  return 4 * (tid % 16) + (j & 3) + CSTEP * (j >> 2);
+}
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// row[k .. k + 3], zeros at and past K (and for a null row); VEC: one
+// float4 load (k % 4 == 0, K % 4 == 0, the row on a 16-byte boundary)
+template <bool VEC>
+__device__ __forceinline__ float4 row4(const float* __restrict__ row, int k,
+                                       int K) {
+  if (!row) return zero4();
+  if constexpr (VEC) {
+    return k < K ? *reinterpret_cast<const float4*>(row + k) : zero4();
+  } else {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = k + i < K ? row[k + i] : 0.f;
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+// Loaders: each thread owns one row of its operand's tile and, in every K
+// step, NC float4 chunks of it (4 NC consecutive k from an offset of its
+// own). start(k) sets the first k; next(v) loads the chunks at this step's
+// k and moves on to the next step's, k + FBK.
+
+// row r0 + (tid % R) of a row-major [rows, K] matrix, R rows a tile
+template <bool VEC, int R>
+struct DenseRows {
+  const float* row;
+  int K, k = 0;
+  __device__ __forceinline__ DenseRows(const float* __restrict__ p, int rows,
+                                       int K_, int r0)
+      : K(K_) {
+    const int r = r0 + threadIdx.x % R;
+    row = r < rows ? p + (size_t)r * K_ : nullptr;
+  }
+  __device__ __forceinline__ void start(int k0) { k = k0; }
+  template <int NC>
+  __device__ __forceinline__ void next(float4 (&v)[NC]) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) v[c] = row4<VEC>(row, k + 4 * c, K);
+    k += FBK;
+  }
+};
+
+// a convolution over a channels-last x [N, H, W, C]: output OH x OW, kernel
+// kh x kw, stride (sh, sw), padding (ph, pw), dilation (dh, dw)
+struct ConvGeom {
+  int N, H, W, C, OH, OW, kh, kw, sh, sw, ph, pw, dh, dw;
+};
+
+// The implicit GEMM's A: patch row m0 + tid % FBM, its columns k in (ky,
+// kx, c) order, gathered from x. The column is carried as (c, kx, ky) and
+// advanced by adding, so the K loop divides by nothing: the divisions run
+// once per thread, for its row and its first column.
+template <bool VEC>
+struct ConvRows {
+  ConvGeom g;
+  const float* img;  // image n of x; null past M
+  int iy0 = 0, ix0 = 0;
+  int c = 0, kx = 0, ky = 0;  // the next column to load
+  __device__ __forceinline__ ConvRows(const float* __restrict__ x,
+                                      const ConvGeom& g_, int M, int m0)
+      : g(g_), img(nullptr) {
+    const int m = m0 + threadIdx.x % FBM;
+    if (m < M) {
+      const int n = m / (g.OH * g.OW), r = m - n * (g.OH * g.OW);
+      const int oy = r / g.OW, ox = r - oy * g.OW;
+      img = x + (size_t)n * g.H * g.W * g.C;
+      iy0 = oy * g.sh - g.ph;
+      ix0 = ox * g.sw - g.pw;
+    }
+  }
+  __device__ __forceinline__ void start(int k0) {
+    const int t = k0 / g.C;
+    c = k0 - t * g.C;
+    ky = t / g.kw;
+    kx = t - ky * g.kw;
+  }
+  __device__ __forceinline__ void advance(int d) {
+    c += d;
+    while (c >= g.C) {
+      c -= g.C;
+      if (++kx == g.kw) {
+        kx = 0;
+        ++ky;
+      }
+    }
+  }
+  // the offset in the image of the next column's value; -1 outside the
+  // image or past K (ky == kh)
+  // (an image holds fewer than 2^31 values: the launcher checks)
+  __device__ __forceinline__ int offset() const {
+    const int iy = iy0 + ky * g.dh, ix = ix0 + kx * g.dw;
+    if (!img || ky >= g.kh || (unsigned)iy >= (unsigned)g.H ||
+        (unsigned)ix >= (unsigned)g.W)
+      return -1;
+    return (iy * g.W + ix) * g.C + c;
+  }
+  template <int NC>
+  __device__ __forceinline__ void next(float4 (&v)[NC]) {
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      if constexpr (VEC) {
+        // C % 4 == 0: columns k..k+3 are four channels of one pixel
+        const int o = offset();
+        v[q] = o < 0 ? zero4() : *reinterpret_cast<const float4*>(img + o);
+        advance(4);
+      } else {
+        float e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int o = offset();
+          e[i] = o < 0 ? 0.f : img[o];
+          advance(1);
+        }
+        v[q] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+    advance(FBK - 4 * NC);
+  }
+};
+
+// acc = the block's 128 x FN tile of sum_k A[m, k] w[n, k] over K columns;
+// a loads A's rows m0.. (DenseRows<., FBM> or ConvRows), b w's rows n0..
+// (DenseRows<., FN>); sm holds FTile<FN>::SMEM floats. Ends with a barrier,
+// so the caller may reuse sm.
+template <int FN, class ARows, class BRows>
+__device__ __forceinline__ void f32_tile(ARows a, BRows b,
+                                         int K, float (&acc)[8][FN / 16],
+                                         float* sm) {
+  constexpr int TN = FTile<FN>::TN, NB = FTile<FN>::NB;
+  float* xs = sm;                  // [2][FBK][FBM]
+  float* ws = sm + 2 * FBK * FBM;  // [2][FBK][FN]
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  // loaders: row lr, 4 values from column lc
-  const int lr = tid / 4, lc = 4 * (tid % 4);
+  // this thread's loads: x row tid % FBM at k offsets ak + 4c (c < 2), w
+  // row tid % FN at bk + 4c (c < NB)
+  const int ar = tid % FBM, ak = (tid / FBM) * 8;
+  const int br = tid % FN, bk = (tid / FN) * 4 * NB;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += FK) {
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int nk = (K + FBK - 1) / FBK;
+  float4 va[2], vb[NB];
+  a.start(ak);
+  b.start(bk);
+  auto stash = [&](int buf) {
+    float* xd = xs + buf * FBK * FBM + ar;
+    float* wd = ws + buf * FBK * FN + br;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + lc + i;
-      const int m = m0 + lr, n = n0 + lr;
-      xs[lc + i][lr] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
-      ws[lc + i][lr] = (n < N && k < K) ? w[(size_t)n * K + k] : 0.f;
+    for (int c = 0; c < 2; ++c) {
+      const int k = ak + 4 * c;
+      xd[(k + 0) * FBM] = va[c].x;
+      xd[(k + 1) * FBM] = va[c].y;
+      xd[(k + 2) * FBM] = va[c].z;
+      xd[(k + 3) * FBM] = va[c].w;
     }
-    __syncthreads();
 #pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[k][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[k][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    for (int c = 0; c < NB; ++c) {
+      const int k = bk + 4 * c;
+      wd[(k + 0) * FN] = vb[c].x;
+      wd[(k + 1) * FN] = vb[c].y;
+      wd[(k + 2) * FN] = vb[c].z;
+      wd[(k + 3) * FN] = vb[c].w;
     }
+  };
+  a.next(va);
+  b.next(vb);
+  stash(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    // the next step's loads are in flight during this step's FFMAs
+    if (kt + 1 < nk) {
+      a.next(va);
+      b.next(vb);
+    }
+    const float* xc = xs + buf * FBK * FBM + frow(tid, 0);
+    const float* wc = ws + buf * FBK * FN + fcol(tid, 0);
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      float av[8], bv[TN];
+      const float4 a0 = *reinterpret_cast<const float4*>(xc + k * FBM);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(xc + k * FBM + RSTEP);
+      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+#pragma unroll
+      for (int jc = 0; jc < TN / 4; ++jc) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(wc + k * FN + CSTEP * jc);
+        bv[4 * jc] = b4.x;
+        bv[4 * jc + 1] = b4.y;
+        bv[4 * jc + 2] = b4.z;
+        bv[4 * jc + 3] = b4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    // buffer buf ^ 1 was last read in step kt - 1, which every thread
+    // finished before the barrier that ended it
+    if (kt + 1 < nk) stash(buf ^ 1);
     __syncthreads();
   }
+}
+
+// out[m, n] = f(acc, n) for the thread's part of the tile at (m0, n0) of an
+// [M, N] f32 output: four columns at once where N % 4 == 0
+template <int FN, class F>
+__device__ __forceinline__ void f32_store(const float (&acc)[8][FN / 16],
+                                          float* __restrict__ out, int M,
+                                          int N, int m0, int n0, F f) {
+  constexpr int TN = FN / 16;
+  const int tid = threadIdx.x;
+  const bool quads = N % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + frow(tid, i);
+    if (m >= M) continue;
+    float* row = out + (size_t)m * N;
+#pragma unroll
+    for (int jc = 0; jc < TN / 4; ++jc) {
+      const int n = n0 + fcol(tid, 4 * jc);
+      if (quads && n < N) {
+        *reinterpret_cast<float4*>(row + n) =
+            make_float4(f(acc[i][4 * jc], n), f(acc[i][4 * jc + 1], n + 1),
+                        f(acc[i][4 * jc + 2], n + 2),
+                        f(acc[i][4 * jc + 3], n + 3));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) row[n + e] = f(acc[i][4 * jc + e], n + e);
+      }
+    }
+  }
+}
+
+// blocks of `Kernel` (THREADS threads, static shared memory) an SM holds
+template <auto Kernel>
+int blocks_per_sm() {
+  static const int n = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, Kernel, THREADS, 0);
+    return b > 0 ? b : 1;
+  }();
+  return n;
+}
+
+// The f32 tile width for an M x N product, K128 and K64 the kernel's two
+// widths: 64 where N <= 64 (a 128-wide tile would leave half its threads
+// idle), else the width whose last wave of blocks is the less empty: each
+// choice's waves (ceil(tiles / (blocks an SM x SMs))) times the work of a
+// wave, a 64-wide tile's counted 10% dearer per output for its extra
+// shared-memory reads a FFMA.
+template <auto K128, auto K64>
+int f32_width(long long M, int N) {
+  if (N <= 64) return 64;
+  const long long mt = (M + FBM - 1) / FBM, sms = sm_count();
+  const long long s128 = blocks_per_sm<K128>() * sms;
+  const long long s64 = blocks_per_sm<K64>() * sms;
+  const long long w128 = (mt * ((N + 127) / 128) + s128 - 1) / s128;
+  const long long w64 = (mt * ((N + 63) / 64) + s64 - 1) / s64;
+  return w64 * s64 * 64 * 11 < w128 * s128 * 128 * 10 ? 64 : 128;
+}
+
+// launch K128 or K64 (f32_width) over the M x N product's tiles, row tiles
+// fastest: the blocks that share a weight tile run together
+template <auto K128, auto K64, typename... Args>
+int launch_f32(long long M, int N, cudaStream_t st, Args... args) {
+  if (M < 1 || N < 1 || (M + FBM - 1) / FBM > 0x7fffffff ||
+      (N + 63) / 64 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bn = f32_width<K128, K64>(M, N);
+  const dim3 grid(static_cast<unsigned>((M + FBM - 1) / FBM),
+                  (N + bn - 1) / bn);
+  if (bn == 128)
+    K128<<<grid, THREADS, 0, st>>>(args...);
+  else
+    K64<<<grid, THREADS, 0, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte f32 loads need K a multiple of 4 and both operands on 16-byte
+// boundaries; anything else takes the guarded element loads
+inline bool vec_ok_f32(const void* x, const void* w, int K) {
+  return K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0;
 }
 
 }  // namespace gemm

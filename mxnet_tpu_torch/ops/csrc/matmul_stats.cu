@@ -15,17 +15,19 @@
 // ~2 K N flops per 2 (K + N) bytes of a row, 16-512 flops per byte, so
 // most of these convs sit below the ~295 flops per byte where the tensor
 // cores, and not the memory, would bound them: x's and y's bytes bound it.
-// Design: the tile loop of fused_linear (gemm.cuh: 128 x 128 tiles of
-// mma.sync fed by a three-stage cp.async ring for bf16, 64 x 64 tiles on
-// the CUDA cores for f32), then one epilogue that stores y and reduces
-// the same accumulators per column:
-// each thread sums its rows, the lanes of a column meet through shuffles,
-// the warps through shared memory, always in the same order and without
-// atomics, so every run gives the same bits. Rows past M and columns past
-// N are zero in the accumulators and add exactly 0. A tile of 128 columns
-// is half idle at N = 64 (stage 1's convs); a 64-column form, wgmma/TMA
-// and channels-last activations (no NCHW <-> [M, C] copies around the
-// call) are later work.
+// Design: the tile loops of fused_linear (gemm.cuh: 128 x 128 tiles of
+// mma.sync fed by a three-stage cp.async ring for bf16; for f32 the
+// register-tiled CUDA-core f32_tile, 128 x 128 or, at N <= 64 as in stage
+// 1, 128 x 64), then one epilogue that stores y and reduces the same
+// accumulators per column: each thread sums its rows, the lanes of a
+// column meet through shuffles, the warps through shared memory, always
+// in the same order and without atomics, so every run gives the same
+// bits. Both dtypes' M-tiles have 128 rows, so the partials have
+// ceil(M / 128) rows. Rows past M and columns past N are zero in the
+// accumulators and add exactly 0. The bf16 tile of 128 columns is half
+// idle at N = 64 (stage 1's convs); a 64-column bf16 form, wgmma/TMA and
+// channels-last activations (no NCHW <-> [M, C] copies around the call)
+// are later work.
 #include "gemm.cuh"
 
 using namespace mxk;
@@ -104,44 +106,46 @@ matmul_stats_mma(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int FN, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 matmul_stats_f32(const float* __restrict__ x, const float* __restrict__ w,
                  float* __restrict__ y, float* __restrict__ s1p,
                  float* __restrict__ s2p, int M, int N, int K) {
-  // per column of the tile, each thread row's sums: [s1/s2][ty][column]
-  __shared__ float red[2][16][FN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
-  float acc[4][4];
-  f32_tile(x, w, M, N, K, m0, n0, acc);
+  constexpr int TN = FN / 16;
+  __shared__ __align__(16) float sm[FTile<FN>::SMEM];
+  const int warp = threadIdx.x / 32;
+  const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * FN;
+  float acc[8][TN];
+  f32_tile<FN>(DenseRows<VEC, FBM>(x, M, K, m0),
+               DenseRows<VEC, FN>(w, N, K, n0), K, acc, sm);
+  f32_store<FN>(acc, y, M, N, m0, n0, [](float a, int) { return a; });
+
+  // per column of the tile, each warp's sums ([s1/s2][warp][column], in
+  // the tile's shared memory, free after f32_tile's last barrier): this
+  // thread's 8 rows, then the lane 16 apart (the other ty of the warp)
+  float* red = sm;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n < N) y[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < TN; ++j) {
     float s = 0.f, q = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 8; ++i) {
       s += acc[i][j];
       q += acc[i][j] * acc[i][j];
     }
-    red[0][ty][4 * tx + j] = s;
-    red[1][ty][4 * tx + j] = q;
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    q += __shfl_xor_sync(0xffffffffu, q, 16);
+    if (threadIdx.x % 32 < 16) {
+      red[warp * FN + fcol(threadIdx.x, j)] = s;
+      red[(8 + warp) * FN + fcol(threadIdx.x, j)] = q;
+    }
   }
   __syncthreads();
   const int c = threadIdx.x;
   if (c < FN && n0 + c < N) {
     float s = 0.f, q = 0.f;
-    for (int r = 0; r < 16; ++r) {
-      s += red[0][r][c];
-      q += red[1][r][c];
+    for (int r = 0; r < 8; ++r) {
+      s += red[r * FN + c];
+      q += red[(8 + r) * FN + c];
     }
     const size_t o = (size_t)blockIdx.x * N + n0 + c;
     s1p[o] = s;
@@ -152,14 +156,14 @@ matmul_stats_f32(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace
 
 // x [M, K], w [N, K], y [M, N], contiguous, all of one dtype; s1p and s2p
-// f32 [ceil(M / 128), N] for bf16 and [ceil(M / 64), N] for f32.
+// f32 [ceil(M / 128), N] (both dtypes' tiles have 128 rows).
 extern "C" int mx_matmul_stats(const void* x, const void* w, void* y,
                                void* s1p, void* s2p, int M, int N, int K,
                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p1 = static_cast<float*>(s1p);
   float* p2 = static_cast<float*>(s2p);
-  if (M < 1 || N < 1 || K < 1 || N > 65535 * FN)
+  if (M < 1 || N < 1 || K < 1 || N > 65535 * 64)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16) {
     const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
@@ -171,13 +175,16 @@ extern "C" int mx_matmul_stats(const void* x, const void* w, void* y,
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w),
         static_cast<__nv_bfloat16*>(y), p1, p2, M, N, K);
-  } else if (dtype == kF32) {
-    matmul_stats_f32<<<dim3((M + FM - 1) / FM, (N + FN - 1) / FN), THREADS,
-                       0, st>>>(static_cast<const float*>(x),
-                                static_cast<const float*>(w),
-                                static_cast<float*>(y), p1, p2, M, N, K);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* yf = static_cast<float*>(y);
+  if (vec_ok_f32(x, w, K))
+    return launch_f32<matmul_stats_f32<128, true>, matmul_stats_f32<64, true>>(
+        M, N, st, xf, wf, yf, p1, p2, M, N, K);
+  return launch_f32<matmul_stats_f32<128, false>,
+                    matmul_stats_f32<64, false>>(M, N, st, xf, wf, yf, p1, p2,
+                                                 M, N, K);
 }

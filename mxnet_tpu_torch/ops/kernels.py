@@ -25,8 +25,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
   the f32 accumulator, differentiable (the backward is plain products, as
   the JAX package keeps it outside Pallas).
 * :func:`fused_conv_bn_act` (l.838): ``act(scale_c * conv(x, w) + bias_c)``,
-  the eval-time conv -> BatchNorm -> act chain, as im2col and
-  ``fused_linear``'s GEMM with the folded BatchNorm in its epilogue.
+  the eval-time conv -> BatchNorm -> act chain, as ``fused_linear``'s GEMM
+  with the folded BatchNorm in its epilogue; in f32 an implicit GEMM that
+  gathers the patches from a channels-last x in its tile loader, in bf16
+  over patches made by one strided copy.
 * :func:`matmul_stats` (l.969): ``(x @ w^T, sum_rows y, sum_rows y^2)``
   with the statistics taken from the f32 accumulator, differentiable (the
   backward folds the statistics' cotangents into the output's and makes
@@ -305,8 +307,10 @@ _ARGTYPES = {
     "striped_pair_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     # x, w, scale, bias, out, M, N, K, act, dtype, stream
     "fused_linear": [_P] * 5 + [_I] * 5 + [_P],
-    # patches, w, scale, bias, out, M, N, K, act, dtype, stream
-    "fused_conv_bn_act": [_P] * 5 + [_I] * 5 + [_P],
+    # x (channels-last), w [O, kh*kw*C], scale, bias, out, then the
+    # geometry N, H, W, C, OH, OW, O, kh, kw, sh, sw, ph, pw, dh, dw, then
+    # act, dtype, stream
+    "fused_conv_bn_act": [_P] * 5 + [_I] * 17 + [_P],
     # x, w, y, s1 partials, s2 partials, M, N, K, dtype, stream
     "matmul_stats": [_P] * 5 + [_I] * 4 + [_P],
 }
@@ -1268,8 +1272,36 @@ def fused_linear(x, w, b=None, act="linear"):
 
 # -- fused_conv_bn_act --------------------------------------------------------
 
+def _conv_out_hw(h, wd, kh, kw, stride, pad, dilate):
+    """The conv's output height and width (the C entry checks the same)."""
+    (sh, sw), (ph, pw), (dh, dw) = stride, pad, dilate
+    oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    ow = (wd + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    _check(oh > 0 and ow > 0, "fused_conv_bn_act: kernel exceeds the input")
+    return oh, ow
+
+
+def _conv_operands(x, w, stride, pad, dilate):
+    """What the f32 implicit GEMM is handed: ``(xc, wm, geometry)``. ``xc``
+    is x as a contiguous NHWC tensor ``[N, H, W, C]`` (a free view of a
+    channels-last x, as the previous fused conv leaves it; one copy of an
+    NCHW one), ``wm`` the weight permuted once to ``[O, kh*kw*C]``, its
+    columns in the kernel's (ky, kx, c) order, and ``geometry`` the C
+    entry's ``(N, H, W, C, OH, OW, O, kh, kw, sh, sw, ph, pw, dh, dw)``.
+    The kernel reads patch row ``m = (n, oy, ox)``, column ``k = (ky, kx,
+    c)`` as ``xc[n, oy*sh - ph + ky*dh, ox*sw - pw + kx*dw, c]``, zero
+    outside the image."""
+    nb, c, h, wd = x.shape
+    nf, _, kh, kw = w.shape
+    oh, ow = _conv_out_hw(h, wd, kh, kw, stride, pad, dilate)
+    xc = x.permute(0, 2, 3, 1).contiguous()
+    wm = w.permute(0, 2, 3, 1).reshape(nf, -1).contiguous()
+    return xc, wm, (nb, h, wd, c, oh, ow, nf, kh, kw) + tuple(stride) \
+        + tuple(pad) + tuple(dilate)
+
+
 def _im2col(x, w, stride, pad, dilate):
-    """The conv as the operands of one GEMM: ``(patches, wm, OH, OW)``,
+    """The bf16 conv as the operands of one GEMM: ``(patches, wm, OH, OW)``,
     the patches a contiguous ``[N*OH*OW, C*kh*kw]`` matrix and ``wm`` the
     weight ``[O, C*kh*kw]`` with its columns in the same order
     (``conv_general_dilated_patches``, l.855-861). The patches are a
@@ -1279,13 +1311,12 @@ def _im2col(x, w, stride, pad, dilate):
     for a channels-last x (as the previous fused conv leaves it; the
     weight is permuted to match, a small copy), else (c, kh, kw), the
     order of ``w.reshape(O, -1)``. A 1x1 stride-1 unpadded conv needs
-    only the NHWC view of x (free when x is channels-last)."""
+    only the NHWC view of x (free when x is channels-last). The f32 path
+    makes no patches (:func:`_conv_operands`)."""
     nb, c, h, wd = x.shape
     nf, _, kh, kw = w.shape
     (sh, sw), (ph, pw), (dh, dw) = stride, pad, dilate
-    oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
-    ow = (wd + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-    _check(oh > 0 and ow > 0, "fused_conv_bn_act: kernel exceeds the input")
+    oh, ow = _conv_out_hw(h, wd, kh, kw, stride, pad, dilate)
     if (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0):
         return x.permute(0, 2, 3, 1).reshape(-1, c), w.reshape(nf, c), oh, ow
     if ph or pw:
@@ -1324,9 +1355,11 @@ def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
 
     x [N, C, H, W], w [O, C, kh, kw] (one group), f32 or bf16; returns
     [N, O, OH, OW] in x's dtype, as the NCHW view of the kernel's
-    ``[N*OH*OW, O]`` output (channels-last in memory). The patches are
-    made outside the kernel (:func:`_im2col`), as the JAX package makes
-    them in XLA. Forward only: the JAX kernel has no gradient either."""
+    ``[N*OH*OW, O]`` output (channels-last in memory). In f32 (the eval
+    forward's path) the kernel gathers the patches from a channels-last x
+    itself (an implicit GEMM, :func:`_conv_operands`); in bf16 they are
+    made outside it (:func:`_im2col`), as the JAX package makes them in
+    XLA. Forward only: the JAX kernel has no gradient either."""
     _check(act in _ACT_CODE, "fused_conv_bn_act: unknown activation %r", act)
     _check(x.dim() == 4 and w.dim() == 4 and x.shape[1] == w.shape[1],
            "fused_conv_bn_act: x [N, C, H, W] and w [O, C, kh, kw] needed, "
@@ -1344,23 +1377,30 @@ def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
     if not _on_cuda(x, w, scale, bias):
         return fused_conv_bn_act_plain(x, w, scale, bias, stride, pad,
                                        dilate, act)
-    xm, wm, oh, ow = _im2col(x, w, stride, pad, dilate)
-    _contig(("patches", xm), ("w", wm))
-    m, kdim = xm.shape
-    out = torch.empty((m, nf), dtype=x.dtype, device=x.device)
-    if m:
-        _launch("fused_conv_bn_act", _ptr(xm), _ptr(wm),
+    if x.dtype == torch.float32:
+        xc, wm, geom = _conv_operands(x, w, stride, pad, dilate)
+        oh, ow = geom[4:6]
+    else:
+        xc, wm, oh, ow = _im2col(x, w, stride, pad, dilate)
+        # the patches as the x of a 1x1 stride-1 conv over [1, 1, M, K]
+        m, kdim = xc.shape
+        geom = (1, 1, m, kdim, 1, m, nf, 1, 1, 1, 1, 0, 0, 1, 1)
+        _contig(("patches", xc), ("w", wm))
+    nb = x.shape[0]
+    out = torch.empty((nb * oh * ow, nf), dtype=x.dtype, device=x.device)
+    if out.numel():
+        _launch("fused_conv_bn_act", _ptr(xc), _ptr(wm),
                 _ptr(scale.to(torch.float32).contiguous()),
-                _ptr(bias.to(torch.float32).contiguous()), _ptr(out), m, nf,
-                kdim, _ACT_CODE[act], _CODE[x.dtype])
-    return out.reshape(x.shape[0], oh, ow, nf).permute(0, 3, 1, 2)
+                _ptr(bias.to(torch.float32).contiguous()), _ptr(out), *geom,
+                _ACT_CODE[act], _CODE[x.dtype])
+    return out.reshape(nb, oh, ow, nf).permute(0, 3, 1, 2)
 
 
 # -- matmul_stats -------------------------------------------------------------
 
-# rows of the kernel's M-tiles (csrc/gemm.cuh BM, FM): one row of partial
-# sums per tile
-_MS_TILE = {torch.bfloat16: 128, torch.float32: 64}
+# rows of the kernel's M-tiles in both dtypes (csrc/gemm.cuh BM, FBM): one
+# row of partial sums per tile
+_MS_TILE = 128
 
 
 def matmul_stats_plain(x, w):
@@ -1381,7 +1421,7 @@ def matmul_stats_fwd(x, w):
     _check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[1],
            "matmul_stats: x [M, K] and w [N, K] needed, got %s %s",
            tuple(x.shape), tuple(w.shape))
-    _check(x.dtype in _MS_TILE and w.dtype == x.dtype,
+    _check(x.dtype in (torch.float32, torch.bfloat16) and w.dtype == x.dtype,
            "matmul_stats: x and w must share one dtype, f32 or bf16")
     if not _on_cuda(x, w):
         return matmul_stats_plain(x, w)
@@ -1389,7 +1429,7 @@ def matmul_stats_fwd(x, w):
     m, kdim = x.shape
     n = w.shape[0]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, -(-m // _MS_TILE[x.dtype]), n),
+    part = torch.empty((2, -(-m // _MS_TILE), n),
                        dtype=torch.float32, device=x.device)
     if m:
         _launch("matmul_stats", _ptr(x), _ptr(w), _ptr(y), _ptr(part[0]),
