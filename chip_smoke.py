@@ -34,7 +34,9 @@ Phases:
    magnitudes); ``fused_conv_bn_act`` (each conv of ResNet-50 at B=256 in
    f32 from an NCHW and a channels-last x and in bf16, small ragged convs
    with stride, pad, dilation and a non-square kernel, relu and linear,
-   f32 and bf16, NCHW and channels-last); ``striped_pair_attention``
+   f32 and bf16, NCHW and channels-last; the Winograd path's ragged edges
+   and the 3x3 convs its rule leaves to the implicit GEMM, each with its
+   path); ``striped_pair_attention``
    forward, dQ and dK/dV (every ring position pair of the SP path's hop,
    [24, 1024, 64] at n=4, f32 and bf16; n=1, also held against flash
    causal; n=3 at a ragged C=100; head_dim 32-128, and 8 and 16 in f32; a
@@ -44,10 +46,12 @@ Phases:
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
    there is one (``fused_linear`` at the LM's bf16 ffn1, with the SP
-   path's f32 ffn1 beside it; ``fused_conv_bn_act`` in f32, the eval
-   forward's path, at stage 1's 3x3 conv, the stem and a 1x1 stride-2
-   projection, with the bf16 row beside them; the striped hop's forward
-   and backward beside the efficient-attention calls; the paged chunk at C =
+   path's f32 ffn1 beside it; flash's f32 backward at B=1;
+   ``fused_conv_bn_act`` in f32, the eval forward's path, at the stride-1
+   3x3 convs of stages 1-4 (Winograd; the bound also from the direct
+   product), the stem and a 1x1 stride-2 projection, with the bf16 row
+   beside them; the striped hop's forward and backward beside the
+   efficient-attention calls; the paged chunk at C =
    64/128/256 and the decode entry at C = 1 (bf16 beside SDPA with a mask,
    and int8) and C = 4, each beside the scalar paged entry on the same
    inputs, in turns; the scalar entry at the int8-KV prefill's C = 256);
@@ -646,8 +650,8 @@ def flash_cases():
 def check_flash_attention(K, dev, gen):
     """Forward (o, lse), then dQ and dK/dV from the same o and lse, kernel
     against plain, in every case of ``flash_cases``; then the f32 forward
-    from q/k/v views whose rows are off 16-byte boundaries. Returns the
-    largest errors: {entry: max |err|}."""
+    and backward from q/k/v views whose rows are off 16-byte boundaries and
+    from a dO off one. Returns the largest errors: {entry: max |err|}."""
     worst = {"flash_attention_fwd": 0.0, "flash_attention_dq": 0.0,
              "flash_attention_dkv": 0.0}
     for b, t, h, d, causal, window, dt, scale in flash_cases():
@@ -673,21 +677,45 @@ def check_flash_attention(K, dev, gen):
                 if dt is torch.float32 else \
                 compare_scaled("flash %s %s" % (name, tag), g_, w_, GRAD_REL)
             worst[entry] = max(worst[entry], err)
-    # f32 q, k and v as views into one buffer whose rows lie 97 floats
-    # apart, off 16-byte boundaries: the f32 forward's 4-byte copies
+    # the f32 kernels' 4-byte copies: q, k and v as views into one buffer
+    # whose rows lie 97 floats apart, off 16-byte boundaries, with dO
+    # starting one float past a 16-byte boundary; then contiguous q, k and
+    # v with only dO (and o) off a boundary, so that dO alone picks the
+    # backward's copies
     b, t, h, d = 2, 77, 2, 16
     buf = _rand(gen, (b, t, 3 * h * d + 1)).to(dev)
-    q, k, v = (buf[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
-               for i in range(3))
-    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
-    o_p, lse_p = K.flash_attention_fwd_plain(q, k, v, True)
-    torch.cuda.synchronize()
-    tag = "B=2 T=77 H=2 D=16 causal f32, rows 97 floats apart"
-    worst["flash_attention_fwd"] = max(
-        worst["flash_attention_fwd"], compare("flash fwd o " + tag, o, o_p),
-        compare("flash fwd lse " + tag, lse, lse_p))
+    views = [buf[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+             for i in range(3)]
+    q0, k0, v0, do0 = _flash_inputs(gen, b, t, h, d, torch.float32, dev)
+
+    def off16(a):
+        """a's values, contiguous, one float past a 16-byte boundary."""
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+        return flat[1:].view(a.shape).copy_(a)
+
+    for what, (q, k, v), o_off in (
+            ("q/k/v rows 97 floats apart, dO off 16 bytes", views, False),
+            ("dO and o off 16 bytes", (q0, k0, v0), True)):
+        o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+        o_p, lse_p = K.flash_attention_fwd_plain(q, k, v, True)
+        if o_off:
+            o = off16(o)
+        do = off16(do0)
+        grads = K.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        grads_p = K.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        tag = "B=2 T=77 H=2 D=16 causal f32, " + what
+        worst["flash_attention_fwd"] = max(
+            worst["flash_attention_fwd"],
+            compare("flash fwd o " + tag, o, o_p),
+            compare("flash fwd lse " + tag, lse, lse_p))
+        for name, g_, w_ in zip(("dq", "dk", "dv"), grads, grads_p):
+            entry = "flash_attention_dq" if name == "dq" else \
+                "flash_attention_dkv"
+            worst[entry] = max(worst[entry], compare(
+                "flash %s %s" % (name, tag), g_, w_))
     log("flash_attention: %d cases agree (fwd, dq, dk/dv; and the f32 "
-        "forward from misaligned views), max |err| %s" % (
+        "forward and backward from misaligned views), max |err| %s" % (
             len(flash_cases()), {k: "%.3g" % v for k, v in worst.items()}))
     return worst
 
@@ -889,7 +917,8 @@ def time_striped_pair(K, dev, gen, worst):
         "attention forward with the mask as a bias and the logsumexp, and "
         "its backward (dq, dk, dv in one call, no lse cotangent) for both "
         "dq and dkv)" % (pairs, SP_BH * SP_C * SP_C))
-    log(ptxas_lines(K, "striped_pair_attention", ("fwd_f32",)))
+    log(ptxas_lines(K, "striped_pair_attention",
+                    ("fwd_f32", "dq_f32", "dkv_f32")))
     for name, r in entries.items():
         r["max_abs_err"] = worst[name]
     return entries
@@ -1049,8 +1078,12 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
     small ragged cases in f32 and bf16, relu and linear: 3x3 pad 1, 7x7/2
     pad 3, a non-square kernel with stride (2, 1), pad (1, 2) and dilation
     (2, 1), dilation 2, 1x1 stride 1 and stride 2, each from an NCHW and a
-    channels-last x. Against the plain version (F.conv2d in f32, TF32
-    off), to the dtype's tolerance."""
+    channels-last x; then the Winograd path's ragged cases in f32 at B=2
+    (odd H x W, 7 x 7, 3 x 3, 1 x 1, pads 0 and 2, C = 4 and 12, O past a
+    64-channel block) and 3x3 convs that stay on the implicit GEMM (C = 3,
+    stride 2), each asserted on the path ``kernels.conv_algo`` names and
+    logged with it. Against the plain version (F.conv2d in f32, TF32 off),
+    to the dtype's tolerance."""
     bf, f32 = torch.bfloat16, torch.float32
     seen, cases = set(), []
     for c in resnet_convs(RESNET_B):
@@ -1071,23 +1104,50 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
             for cl in (False, True):
                 cases.append(((2, 5, 13, 10), ws, st, pd, dl, act, dt, gen,
                               cl))
+    n_small = len(cases) - n_resnet
+    # (x, w, stride, pad, act, the path): ragged Winograd cases, then 3x3
+    # convs the rule keeps on the implicit GEMM
+    wino = [((2, 8, 9, 13), (12, 8, 3, 3), 1, 0, "relu", "winograd"),
+            ((2, 8, 9, 13), (72, 8, 3, 3), 1, 2, "linear", "winograd"),
+            ((2, 16, 7, 7), (36, 16, 3, 3), 1, 1, "relu", "winograd"),
+            ((2, 4, 5, 11), (9, 4, 3, 3), 1, 1, "linear", "winograd"),
+            ((2, 4, 3, 3), (9, 4, 3, 3), 1, 0, "relu", "winograd"),
+            ((2, 12, 1, 1), (33, 12, 3, 3), 1, 2, "linear", "winograd"),
+            ((2, 3, 9, 13), (9, 3, 3, 3), 1, 1, "relu", "implicit"),
+            ((2, 8, 9, 13), (12, 8, 3, 3), 2, 1, "relu", "implicit")]
+    for xs, ws, st, pd, act, path in wino:
+        for cl in (False, True):
+            cases.append((xs, ws, (st, st), (pd, pd), (1, 1), act, f32, gen,
+                          cl, path))
     worst = {f32: 0.0, bf: 0.0}
-    for xs, ws, st, pd, dl, act, dt, g, cl in cases:
+    paths = {}
+    for xs, ws, st, pd, dl, act, dt, g, cl, *want_path in cases:
         x, w, s, b = _conv_inputs(g, xs, ws, dt, dev)
         if cl:
             x = x.contiguous(memory_format=torch.channels_last)
         kw = dict(stride=st, pad=pd, dilate=dl, act=act)
+        path = K.conv_algo(dt, xs[1], ws[2:], st, pd, dl)
+        paths[path] = paths.get(path, 0) + 1
+        tag = "fused_conv_bn_act x=%s%s w=%s %s %s (%s)" % (
+            xs, " channels-last" if cl else "", ws, kw, dt, path)
+        if want_path and path != want_path[0]:
+            raise AssertionError("%s: the rule names %s, the case wants %s"
+                                 % (tag, path, want_path[0]))
         got = K.fused_conv_bn_act(x, w, s, b, **kw)
         want = K.fused_conv_bn_act_plain(x, w, s, b, **kw)
         torch.cuda.synchronize()
-        worst[dt] = max(worst[dt], compare(
-            "fused_conv_bn_act x=%s%s w=%s %s %s" % (
-                xs, " channels-last" if cl else "", ws, kw, dt), got, want))
+        err = compare(tag, got, want)
+        worst[dt] = max(worst[dt], err)
+        if want_path:
+            log("  %s: max |err| %.3g" % (tag, err))
         del x, w, s, b, got, want
     log("fused_conv_bn_act: %d cases agree (%d ResNet-50 conv shapes at "
-        "B=%d, each in f32 from NCHW and channels-last x and in bf16), max "
-        "|err| f32 %.3g, bf16 %.3g" % (
-            len(cases), n_resnet // 3, RESNET_B, worst[f32], worst[bf]))
+        "B=%d, each in f32 from NCHW and channels-last x and in bf16; %d "
+        "small ragged; %d of the Winograd rule's edges), max |err| f32 "
+        "%.3g, bf16 %.3g; cases by path %s" % (
+            len(cases), n_resnet // 3, RESNET_B, n_small,
+            len(cases) - n_resnet - n_small, worst[f32], worst[bf],
+            json.dumps(paths, sort_keys=True)))
     return max(worst.values())
 
 
@@ -1095,12 +1155,16 @@ def time_cnn_kernels(K, dev, gen, worst):
     """The conv-net kernels at ResNet-50's B=256 shapes (inputs drawn on
     the card from ``gen``; the checks above held both at these shapes):
     matmul_stats at stage 1's `_a` conv (M = 256*56*56, K = 256, N = 64),
-    fused_conv_bn_act in f32 (the eval forward's path, the implicit GEMM)
-    at stage 1's 3x3 conv (x 256x64x56x56 channels-last, as the main path
-    gives it, relu), the stem and stage 2's 1x1 stride-2 projection, and in
-    bf16 at stage 1's 3x3 conv, whose time includes the im2col gather (the
-    GEMM alone is printed beside it); then the compiler's line (registers,
-    spills) of each f32 GEMM kernel."""
+    fused_conv_bn_act in f32 (the eval forward's path) at the stride-1 3x3
+    convs of stages 1-4 (x channels-last, as the main path gives it, relu;
+    Winograd F(2x2, 3x3)), the stem and stage 2's 1x1 stride-2 projection
+    (the implicit GEMM), and in bf16 at stage 1's 3x3 conv, whose time
+    includes the im2col gather (the GEMM alone is printed beside it); then
+    the compiler's line (registers, spills) of each f32 conv and GEMM
+    kernel. A Winograd row's bound is stated two ways: from the direct
+    product's FLOPs, and from F(2x2, 3x3)'s 16 multiply-adds per 2 x 2
+    output tile, channel and output channel (the operations the kernel
+    does; its ``bound_ms``)."""
     import torch.nn.functional as F
     timer = Timer(dev)
     bf = torch.bfloat16
@@ -1129,16 +1193,23 @@ def time_cnn_kernels(K, dev, gen, worst):
                                "shape": shape}
     del x, w, y
 
-    # fused_conv_bn_act in f32 (the eval forward's path, an implicit GEMM)
-    # at stage 1's 3x3 conv (the kernels line's row), the stem (NCHW x, C =
-    # 3: the guarded loads) and stage 2's 1x1 stride-2 projection; then
-    # bf16 at stage 1's 3x3 conv, with its GEMM alone beside it (the bf16
-    # path still gathers the patches by one strided copy)
+    # fused_conv_bn_act in f32 (the eval forward's path) at stage 1's 3x3
+    # conv (the kernels line's row) and those of stages 2-4 (Winograd), the
+    # stem (NCHW x, C = 3: the implicit GEMM's guarded loads) and stage
+    # 2's 1x1 stride-2 projection; then bf16 at stage 1's 3x3 conv, with
+    # its GEMM alone beside it (the bf16 path still gathers the patches by
+    # one strided copy)
     P = K._ptr
     rows = {}
     for tag, xs, ws, st, pd, act, cl, dt in (
             ("f32", (RESNET_B, 64, 56, 56), (64, 64, 3, 3), 1, 1, "relu",
              True, torch.float32),
+            ("stage2", (RESNET_B, 128, 28, 28), (128, 128, 3, 3), 1, 1,
+             "relu", True, torch.float32),
+            ("stage3", (RESNET_B, 256, 14, 14), (256, 256, 3, 3), 1, 1,
+             "relu", True, torch.float32),
+            ("stage4", (RESNET_B, 512, 7, 7), (512, 512, 3, 3), 1, 1,
+             "relu", True, torch.float32),
             ("stem", (RESNET_B, 3, 224, 224), (64, 3, 7, 7), 2, 3, "relu",
              False, torch.float32),
             ("proj", (RESNET_B, 256, 56, 56), (512, 256, 1, 1), 2, 0,
@@ -1158,23 +1229,34 @@ def time_cnn_kernels(K, dev, gen, worst):
         lms = timer(lambda: act_fn(F.conv2d(x, wf, bb, stride=st,
                                             padding=pd)))
         m, kdim = out.numel() // ws[0], ws[1] * ws[2] * ws[3]
-        bms, by = bound_ms(nbytes(x, w, s, b, out), 2 * m * ws[0] * kdim,
-                           dt)
-        shape = "%s %dx%d/%d x=%s%s %s %s" % (
+        path = K.conv_algo(dt, xs[1], ws[2:], (st, st), (pd, pd), (1, 1))
+        io = nbytes(x, w, s, b, out)
+        bms, by = bound_ms(io, 2 * m * ws[0] * kdim, dt)
+        shape = "%s %dx%d/%d x=%s%s %s %s (%s)" % (
             {"f32": "stage1", "bf16": "stage1", "stem": "stem",
-             "proj": "stage2 projection"}[tag], ws[2], ws[3], st,
+             "proj": "stage2 projection"}.get(tag, tag), ws[2], ws[3], st,
             "x".join(map(str, xs)), " channels-last" if cl else " NCHW",
-            "f32" if dt == torch.float32 else "bf16", act)
+            "f32" if dt == torch.float32 else "bf16", act, path)
         row = {"ms": kms, "plain_ms": pms, "library_ms": lms,
                "bound_ms": bms, "bound_by": by, "shape": shape}
         extra = ""
+        if path == "winograd":
+            # F(2x2, 3x3): 16 multiply-adds per 2x2 outputs, i.e. 4 per
+            # output position, input channel and output channel (the
+            # function's own work; a ragged tile's padding is not counted)
+            row["bound_direct_ms"], row["bound_direct_by"] = bms, by
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                io, 2 * 4 * m * xs[1] * ws[0], dt)
+            extra = " (bound from the direct product %.4f ms (%s))" % (
+                bms, by)
+            bms, by = row["bound_ms"], row["bound_by"]
         if dt == bf:
             xm, wm, _, _ = K._im2col(x, w, (st, st), (pd, pd), (1, 1))
             om = torch.empty((xm.shape[0], ws[0]), dtype=dt, device=dev)
 
             def gemm_only():
                 K._launch("fused_conv_bn_act", P(xm), P(wm), P(s), P(b),
-                          P(om), 1, 1, xm.shape[0], xm.shape[1], 1,
+                          P(om), None, 0, 1, 1, xm.shape[0], xm.shape[1], 1,
                           xm.shape[0], ws[0], 1, 1, 1, 1, 0, 0, 1, 1, 1,
                           K._CODE[dt])
 
@@ -1184,16 +1266,20 @@ def time_cnn_kernels(K, dev, gen, worst):
             del xm, wm, om
         log("time %-22s %-34s kernel %.4f ms%s  plain %.4f ms  library "
             "%.4f ms (F.conv2d with the scale folded%s%s)  bound %.4f ms "
-            "(%s)" % ("fused_conv_bn_act", shape, kms, extra, pms, lms,
-                      " + relu" if act == "relu" else "",
-                      ", TF32 off" if dt == torch.float32 else "", bms, by))
+            "(%s)%s" % ("fused_conv_bn_act", shape, kms,
+                        extra if dt == bf else "", pms, lms,
+                        " + relu" if act == "relu" else "",
+                        ", TF32 off" if dt == torch.float32 else "", bms, by,
+                        extra if path == "winograd" else ""))
         rows[tag] = row
         del x, w, s, b, out, wf, bb
     # the main path (the eval forward) runs the f32 path: stage 1's 3x3
     # conv is the kernels line's row, the other rows ride along in it
     entries["fused_conv_bn_act"] = dict(
-        rows["f32"], **{t: rows[t] for t in ("stem", "proj", "bf16")})
-    for kname, keys in (("fused_linear", ("conv_f32", "fused_linear_f32")),
+        rows["f32"], **{t: rows[t] for t in ("stage2", "stage3", "stage4",
+                                             "stem", "proj", "bf16")})
+    for kname, keys in (("fused_linear", ("conv_wino", "wino_weights",
+                                          "conv_f32", "fused_linear_f32")),
                         ("matmul_stats", ("matmul_stats_f32",))):
         log(ptxas_lines(K, kname, keys))
     for name, r in entries.items():
@@ -1243,8 +1329,9 @@ def check_mha_gqa(dev):
 def time_train_kernels(K, dev, gen, worst):
     """The training kernels at the 124M step's shapes (B=8, T=1024, 12
     heads of 64, causal, bf16; ffn1 M=8192 K=768 N=3072 relu): time, plain
-    time, bound and library time of each C entry; and ``fused_linear`` at
-    the SP step's f32 ffn1 (M=2048)."""
+    time, bound and library time of each C entry; flash's f32 backward
+    (the SP path's kernels under the flash mask) at B=1; and
+    ``fused_linear`` at the SP step's f32 ffn1 (M=2048)."""
     import torch.nn.functional as F
     timer = Timer(dev)
     b, t, h, d = 8, 1024, 12, 64
@@ -1304,6 +1391,39 @@ def time_train_kernels(K, dev, gen, worst):
     log("  (plain and library times of dq and dkv are those of the whole "
         "backward: the plain backward, and SDPA forward+backward minus its "
         "forward)")
+    # the f32 backward (the SP path's form, flash under Mask::Flash) at
+    # B=1 T=1024: rows that ride along in the kernels line as "f32"
+    b = 1
+    q, k, v, do = _flash_inputs(gen, b, t, h, d, torch.float32, dev)
+    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    dcap = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    cfg = K._flash_kernel_args("flash_attention_dq", q, k, v) \
+        + (1.0 / math.sqrt(d), 1, 0, K._CODE[torch.float32])
+    dq_launch()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+    gt = do.transpose(1, 2)
+    ms = {"dq": timer(dq_launch), "dkv": timer(dkv_launch)}
+    pms = timer(lambda: K.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    True))
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    lib_bwd = timer(sdpa_fwd_bwd) - lib_fwd
+    pairs, row = t * (t + 1) // 2 * b * h, nbytes(q)
+    shape = "B=1 T=1024 H=12 D=64 causal f32"
+    for name, nb, flops in (
+            ("flash_attention_dq", 6 * row + 2 * nbytes(lse), 6 * d * pairs),
+            ("flash_attention_dkv", 6 * row + 2 * nbytes(lse),
+             8 * d * pairs)):
+        kms = ms[name.rsplit("_", 1)[1]]
+        bms, by = bound_ms(nb, flops, torch.float32)
+        log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f "
+            "ms  bound %.4f ms (%s)" % (name, shape, kms, pms, lib_bwd, bms,
+                                        by))
+        entries[name]["f32"] = {"ms": kms, "plain_ms": pms,
+                                "library_ms": lib_bwd, "bound_ms": bms,
+                                "bound_by": by, "shape": shape}
 
     m, kd, n = 8192, 768, 3072
     x = _rand(gen, (m, kd), torch.bfloat16).to(dev)
@@ -2591,8 +2711,9 @@ def main():
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
-        **{k: timed[e][k] for k in ("stem", "proj", "bf16", "f32",
-                                    "scalar_ms", "int8", "c4")
+        **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
+                                    "proj", "bf16", "f32", "scalar_ms",
+                                    "int8", "c4")
            if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"

@@ -21,10 +21,11 @@ bitwise equal.
   ``chip_smoke.TOL`` of the other's (the bf16 forward may sum in another
   order, take exp2 and mask only boundary tiles; the f32 forward is the
   tiled one). The backward: both builds' dQ and dK/dV entries are fed the
-  same (q, k, v, o, lse, dO), the other build's o and lse. In bf16 dcap
-  is held within ``chip_smoke.TOL`` of the other's and dQ, dK and dV
-  within ``chip_smoke.GRAD_REL`` of the other's largest value; in f32 all
-  four are bitwise equal.
+  same (q, k, v, o, lse, dO), the other build's o and lse; dcap is held
+  within ``chip_smoke.TOL[f32]`` of the other's and dQ, dK and dV within
+  ``chip_smoke.GRAD_REL`` of the other's largest value (the bf16 backward
+  rounds P and dS; the tiled f32 backward sums in another order than the
+  first port's).
 * the striped hop of the SP path ([24, 1024, 64], n=4, q_off=1, k_off=2)
   in f32 and bf16, held as the flash cases.
 * the bf16 GEMM: ``fused_linear`` at the 124M LM's four products (M =
@@ -35,13 +36,15 @@ bitwise equal.
   conv (M=802816, K=256, N=64). Outputs within ``chip_smoke.TOL`` of the
   other's in bf16, column sums within ``chip_smoke.STAT_REL`` of their
   sums of magnitudes. The conv entry is called in the form each tree's
-  source declares: the patches and (M, N, K), or the conv's geometry.
+  source declares: the conv's geometry, or the geometry and a workspace.
 * the f32 GEMM: ``fused_linear`` at the SP path's ffn1 (M=2048 K=768
   N=3072, relu and bias), ``matmul_stats`` at stage 1's first 1x1 conv,
-  ``fused_conv_bn_act`` at stage 1's 3x3 conv, the stem and stage 2's 1x1
-  stride-2 projection at B=256, each with the host-side work its tree's
-  wrapper does (the patches gather, or the channels-last copy and weight
-  permutation). Outputs within ``chip_smoke.TOL[f32]``, column sums within
+  ``fused_conv_bn_act`` at the stride-1 3x3 convs of stages 1-4 (Winograd
+  in a tree whose conv entry takes a workspace, else the implicit GEMM),
+  the stem and stage 2's 1x1 stride-2 projection at B=256, each with the
+  host-side work its tree's wrapper does (the channels-last copy, weight
+  permutation and Winograd workspace). Outputs
+  within ``chip_smoke.TOL[f32]``, column sums within
   ``chip_smoke.STAT_REL``.
 * the paged read at C < 16 (S=32 slots, 12 heads of 64, L=1024, random
   pos): this tree's ``paged_attention_decode`` against the other's entry
@@ -76,23 +79,30 @@ CASES = [(8, 1024, 12, 64, True, 0, torch.bfloat16),
 SOURCES = ("flash_attention", "striped_pair_attention", "fused_linear",
            "matmul_stats", "paged_attention")
 
-# mx_fused_conv_bn_act before it took the conv's geometry: the patches
-# [M, K] as x, then M, N, K
-GEMM_CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-    + [ctypes.c_void_p]
+# mx_fused_conv_bn_act before it took the Winograd workspace: the conv's
+# geometry alone ("geometry")
+CONV_ARGTYPES = {
+    "geometry": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17
+    + [ctypes.c_void_p]}
 
 
 def _conv_form(tree):
-    """"geometry" if the tree's mx_fused_conv_bn_act takes the conv's
-    geometry (x channels-last), else "gemm" (the patches and M, N, K)."""
+    """"workspace" if the tree's mx_fused_conv_bn_act takes the conv's
+    geometry and a workspace (the Winograd path's), "geometry" if it takes
+    the geometry alone (x channels-last). A tree whose entry still takes
+    the patches is compared from its own compare_flash.py."""
     with open(os.path.join(tree, "mxnet_tpu_torch", "ops", "csrc",
                            "fused_linear.cu")) as f:
         src = f.read()
     sig = src[src.index("mx_fused_conv_bn_act("):]
-    return "geometry" if "int OH" in sig[:sig.index(")")] else "gemm"
+    sig = sig[:sig.index(")")]
+    if "int OH" not in sig:
+        raise SystemExit("%s: its conv entry takes the patches; compare it "
+                         "with that tree's own compare_flash.py" % tree)
+    return "workspace" if "void* ws" in sig else "geometry"
 
 
-def _load(K, name, path, conv_form="geometry"):
+def _load(K, name, path, conv_form="workspace"):
     """Source ``name``'s library at ``path`` with the argument types of this
     tree's entries (the conv entry's by ``conv_form``); an entry the
     library lacks is left out."""
@@ -101,8 +111,8 @@ def _load(K, name, path, conv_form="geometry"):
         fn = getattr(lib, "mx_" + e, None)
         if fn is not None:
             fn.restype = ctypes.c_int
-            fn.argtypes = GEMM_CONV_ARGTYPES if (
-                e == "fused_conv_bn_act" and conv_form == "gemm") \
+            fn.argtypes = CONV_ARGTYPES[conv_form] if (
+                e == "fused_conv_bn_act" and conv_form in CONV_ARGTYPES) \
                 else K._ARGTYPES[e]
     return lib
 
@@ -218,16 +228,13 @@ def _compare_flash(cs, K, libs, dev, timer):
             _run(name, "flash_attention_dkv", calls[name]["dkv"])
             bwd[name] = (dcap, dq, dk, dv)
         torch.cuda.synchronize()
-        # forwards may sum in other orders (within TOL); backwards fed the
-        # same (o, lse) must agree bitwise in f32
+        # forwards and backwards may sum in other orders: within TOL, and
+        # the backward fed the same (o, lse) within _bwd_close
         fwd_ok, how = _agree(cs, fwd["this"], fwd["other"])
         same = all(torch.equal(x, y) for x, y in zip(bwd["other"],
                                                      bwd["this"]))
-        if dt is torch.float32:
-            bwd_ok, bhow = same, "bitwise equal"
-        else:
-            bwd_ok, bhow = _bwd_close(cs, bwd["this"], bwd["other"])
-            bhow += "; bitwise equal: %s" % same
+        bwd_ok, bhow = _bwd_close(cs, bwd["this"], bwd["other"])
+        bhow += "; bitwise equal: %s" % same
         cs.log("flash %s: forward (o, lse) this vs other %s: %s; backward "
                "(dcap, dq, dk, dv) from the same (o, lse) %s: %s"
                % (tag, how, fwd_ok, bhow, bwd_ok))
@@ -256,9 +263,8 @@ SPAIR_CASES = [(24, 1024, 64, 4, 1, 2, torch.float32),
 def _compare_striped(cs, K, libs, dev, timer):
     """The striped hop, as the flash cases: the forward (o, lse) of this
     build within ``cs.TOL`` of the other's, then both builds' dQ and dK/dV
-    entries fed the other's (o, lse): bitwise equal in f32, within
-    ``_bwd_close`` in bf16; each entry timed in turns. Returns the tags
-    that disagree."""
+    entries fed the other's (o, lse) within ``_bwd_close``; each entry
+    timed in turns. Returns the tags that disagree."""
     libs = {who: ls["striped_pair_attention"] for who, ls in libs.items()}
     gen = torch.Generator().manual_seed(4)
     P = K._ptr
@@ -297,11 +303,8 @@ def _compare_striped(cs, K, libs, dev, timer):
         fwd_ok, how = _agree(cs, fwd["this"], fwd["other"])
         same = all(torch.equal(x, y) for x, y in zip(bwd["this"],
                                                      bwd["other"]))
-        if dt is torch.float32:
-            bwd_ok, bhow = same, "bitwise equal"
-        else:
-            bwd_ok, bhow = _bwd_close(cs, bwd["this"], bwd["other"])
-            bhow += "; bitwise equal: %s" % same
+        bwd_ok, bhow = _bwd_close(cs, bwd["this"], bwd["other"])
+        bhow += "; bitwise equal: %s" % same
         cs.log("striped %s: forward (o, lse) this vs other %s: %s; backward "
                "(dcap, dq, dk, dv) from the same (o, lse) %s: %s"
                % (tag, how, fwd_ok, bhow, bwd_ok))
@@ -339,13 +342,13 @@ def _close(cs, got, want):
 
 def _conv_gemm_call(fn, form, x, w, scale, bias, y, m, n, kd, act, dtype,
                     st):
-    """mx_fused_conv_bn_act over patches x [m, kd] in either form: the
-    geometry form takes them as the x of a 1x1 stride-1 conv over
-    [1, 1, m, kd]."""
+    """mx_fused_conv_bn_act over patches x [m, kd] in either form, as the x
+    of a 1x1 stride-1 conv over [1, 1, m, kd] (the workspace form with no
+    workspace)."""
     P = torch.Tensor.data_ptr
     head = (P(x), P(w), P(scale), P(bias), P(y))
-    if form == "gemm":
-        return fn(*head, m, n, kd, act, dtype, st)
+    if form == "workspace":
+        head += (None, 0)
     return fn(*head, 1, 1, m, kd, 1, m, n, 1, 1, 1, 1, 0, 0, 1, 1, act,
               dtype, st)
 
@@ -417,9 +420,15 @@ def _compare_gemm(cs, K, libs, forms, dev, timer):
 
 
 # (what, x shape, w shape, stride, pad, act, channels-last x): the f32
-# conv entry at ResNet-50's stage-1 3x3 conv, its stem and stage 2's 1x1
-# stride-2 projection, at B=256
+# conv entry at ResNet-50's stride-1 3x3 convs of stages 1-4, its stem and
+# stage 2's 1x1 stride-2 projection, at B=256
 F32_CONVS = [("stage-1 3x3", (256, 64, 56, 56), (64, 64, 3, 3), 1, 1, 1,
+              True),
+             ("stage-2 3x3", (256, 128, 28, 28), (128, 128, 3, 3), 1, 1, 1,
+              True),
+             ("stage-3 3x3", (256, 256, 14, 14), (256, 256, 3, 3), 1, 1, 1,
+              True),
+             ("stage-4 3x3", (256, 512, 7, 7), (512, 512, 3, 3), 1, 1, 1,
               True),
              ("stem 7x7/2", (256, 3, 224, 224), (64, 3, 7, 7), 2, 3, 1,
               False),
@@ -431,11 +440,10 @@ def _compare_f32_gemm(cs, K, libs, forms, dev, timer):
     """The f32 GEMM entries: fused_linear at the SP path's ffn1, matmul_stats
     at stage 1's first 1x1 conv and fused_conv_bn_act at F32_CONVS, this
     build's outputs within ``cs.TOL[f32]`` of the other's (column sums
-    within ``cs.STAT_REL``), each timed in turns. A build whose conv entry
-    takes the patches (``gemm`` form) is timed with the one-copy gather
-    its wrapper makes (``K._im2col``), the geometry form with its
-    wrapper's channels-last copy of an NCHW x and weight permutation
-    (``K._conv_operands``). Returns the tags that disagree."""
+    within ``cs.STAT_REL``), each timed in turns with its wrapper's
+    channels-last copy of an NCHW x and weight permutation
+    (``K._conv_operands``) and, in the workspace form, the Winograd
+    workspace. Returns the tags that disagree."""
     P = K._ptr
     f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -495,29 +503,30 @@ def _compare_f32_gemm(cs, K, libs, forms, dev, timer):
            how, calls)
     del x, w, outs, calls, mag
 
-    for what, xs, ws, s_, p_, act, cl in F32_CONVS:
-        x, w, scale, bias = cs._conv_inputs(gen, xs, ws, f32, dev)
+    for what, xs, wsh, s_, p_, act, cl in F32_CONVS:
+        x, w, scale, bias = cs._conv_inputs(gen, xs, wsh, f32, dev)
         if cl:
             x = x.contiguous(memory_format=torch.channels_last)
         stride, pad = (s_, s_), (p_, p_)
-        oh, ow = K._conv_out_hw(xs[2], xs[3], ws[2], ws[3], stride, pad,
+        oh, ow = K._conv_out_hw(xs[2], xs[3], wsh[2], wsh[3], stride, pad,
                                 (1, 1))
         mm = xs[0] * oh * ow
         outs, calls = {}, {}
         for who in ("other", "this"):
             fn = libs[who]["fused_linear"].mx_fused_conv_bn_act
-            y = torch.empty((mm, ws[0]), device=dev)
-            if forms[who] == "gemm":
-                def call(fn=fn, y=y):
-                    xm, wm, _, _ = K._im2col(x, w, stride, pad, (1, 1))
-                    return fn(P(xm), P(wm), P(scale), P(bias), P(y),
-                              xm.shape[0], ws[0], xm.shape[1], act, 0, st)
-            else:
-                def call(fn=fn, y=y):
-                    xc, wm, geom = K._conv_operands(x, w, stride, pad,
-                                                    (1, 1))
-                    return fn(P(xc), P(wm), P(scale), P(bias), P(y), *geom,
-                              act, 0, st)
+            y = torch.empty((mm, wsh[0]), device=dev)
+
+            def call(fn=fn, y=y, form=forms[who]):
+                xc, wm, geom = K._conv_operands(x, w, stride, pad, (1, 1))
+                tail = ()
+                if form == "workspace":
+                    ws = None  # the wrapper's workspace, kept alive
+                    if K.conv_algo(f32, xs[1], wsh[2:], stride, pad,
+                                   (1, 1)) == "winograd":
+                        ws = K._winograd_workspace(xs[1], wsh[0], dev)
+                    tail = (P(ws), 0 if ws is None else ws.numel())
+                return fn(P(xc), P(wm), P(scale), P(bias), P(y), *tail,
+                          *geom, act, 0, st)
             calls[who] = call
             _run(who, "fused_conv_bn_act", call)
             outs[who] = y

@@ -88,17 +88,28 @@
 // reads. wgmma and TMA (a warp-specialised pipeline) are later work.
 //
 // f32 inputs (the SP step's hops) stay true f32 on the CUDA cores, where a
-// hop's ~3.2 GFLOP bound it (67 TFLOP/s). The f32 forward (fwd_f32) works
-// tile-wise as the bf16 one does: a 64-row query tile per block of 128
-// threads, the visible 64-key tiles through the same two-stage cp.async
-// ring, S = Q.K^T and O += P.V as register-tiled products (4 rows x 8 keys
-// and 4 rows x D / 8 columns a thread, P through shared memory), the mask
-// only on boundary tiles, one row max, one row sum and one correction a
-// tile, exp2 with the scale folded into one FMA. Flash's and the striped
-// hop's f32 forwards are this one template, so an n = 1 hop equals flash
-// causal bit for bit. The f32 backward keeps the first port's form
-// (several threads per row, one key or query at a time, expf, masked
-// scores skipped, probability exactly 0).
+// hop's ~3.2 GFLOP forward and ~5.6 GFLOP backward bound it (67 TFLOP/s).
+// The f32 kernels work tile-wise as the bf16 ones do: a block of 128
+// threads (256 at D = 128) owns a 64-row tile of its output and walks the
+// visible 64-row tiles of the other side through a two-stage cp.async ring
+// (16-byte copies where every row is 16-byte aligned), with every product
+// register-tiled: 4 owned rows x 8 streamed rows a thread for the scores,
+// 4 rows x D / 8 columns for the accumulation over a score tile in shared
+// memory (2 rows at D = 128). The forward (fwd_f32) takes one row max, one
+// row sum and one correction a tile. The backward keeps the bf16 one's two
+// kernels: dq_f32 (Q and dO resident; K in the ring and V in one stage
+// refilled once dP has read it) forms S = Q.K^T, P = exp2(S c - lse
+// log2(e)) with one FMA and ex2 a score, dP = dO.V^T and dS / scale = P (dP
+// - dcap) in the score tile, then dQ += dS.K, and writes dcap; dkv_f32 (K
+// and V resident; Q with its rows' lse and dcap in the ring, dO in one
+// stage) forms the transposed S^T, P^T and dP^T, then dV += P^T.dO and, the
+// score tile refilled, dK += dS^T.Q. The scale multiplies dQ and dK once at
+// the store; each output tile has one owner, so there are no atomics and
+// the gradients are the same bits every run. Every f32 kernel evaluates the
+// mask only where full_tile is false (probability exactly 0 outside it) and
+// walks only the tiles key_range / query_range name. Flash's and the striped
+// hop's f32 kernels are these templates, so an n = 1 hop equals flash causal
+// bit for bit.
 #pragma once
 
 #include <math.h>
@@ -539,34 +550,6 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(o, acc, b, q0 + wr, s.Tq, h, lay_q(s, D), g, t, inv);
 }
 
-// dcap[row] = sum_d dO[row, d] * O[row, d] (minus g_lse[row] for a striped
-// hop) for the rows of a query tile (two threads a row), into shared
-// memory and, for real rows, to dcap
-template <typename T, int D, Mask M>
-__device__ __forceinline__ void tile_dcap(float* dcs, float* __restrict__ dcap,
-                                          const T* __restrict__ o,
-                                          const T* __restrict__ dout, int b,
-                                          int t0, int bh, int rows,
-                                          const Shape& s, int h) {
-  for (int i = threadIdx.x; i < 2 * rows; i += blockDim.x) {
-    const int r = i / 2, half = i % 2, tq = t0 + r;
-    float acc = 0.f;
-    if (tq < s.Tq) {
-      const T* po = row_ptr(o, b, tq, h, lay_q(s, D), D);
-      const T* pd = row_ptr(dout, b, tq, h, lay_q(s, D), D);
-      for (int d = half; d < D; d += 2) acc += to_f32(po[d]) * to_f32(pd[d]);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if constexpr (M == Mask::Striped) {
-      if (tq < s.Tq) acc -= s.glse[(size_t)bh * s.Tq + tq];
-    }
-    if (half == 0) {
-      dcs[r] = acc;
-      if (tq < s.Tq) dcap[(size_t)bh * s.Tq + tq] = acc;
-    }
-  }
-}
-
 // start copying rows [t0, t0 + R) of the f32 row terms of head bh
 // ([B*H, T]) into shared memory, one a thread from thread `first`, zeros
 // at and past T
@@ -843,81 +826,41 @@ dkv_mma(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores. The backward (dq_f32, dkv_f32): P = max(1, D / 32)
-// neighbouring threads share a row, each holding DP = D / P of its values;
-// dot products are summed over the P lanes with shuffles. A block holds
-// 128 / P rows; the other side's rows stream through shared memory 32 at a
-// time. The forward (fwd_f32) follows them.
-
-constexpr int FT = 32;  // rows of the streamed tile
-
-template <int D>
-struct Split {
-  static constexpr int P = D > 32 ? D / 32 : 1;
-  static constexpr int DP = D / P;
-  static constexpr int ROWS = THREADS / P;
-};
-
-template <int P>
-__device__ __forceinline__ float part_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < P; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [t0, t0 + FT) of head (b, h) into an [FT][D] f32 tile, zeros past T
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* sm,
-                                              const float* __restrict__ base,
-                                              int b, int t0, int T_, int h,
-                                              Lay l) {
-  for (int i = threadIdx.x; i < FT * D; i += THREADS) {
-    const int r = i / D, c = i % D, t = t0 + r;
-    sm[i] = t < T_ ? row_ptr(base, b, t, h, l, D)[c] : 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_part(float* dst, const float* base,
-                                          int b, int t, int T_, int h, Lay l,
-                                          int part) {
-  constexpr int DP = Split<D>::DP;
-  const float* p = t < T_ ? row_ptr(base, b, t, h, l, D) + part * DP
-                          : nullptr;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) dst[i] = p ? p[i] : 0.f;
-}
-
-// The f32 forward: one block of FwdF32<D>::NT threads (128; 256 at D =
-// 128) owns a 64-row query tile (FQ) and walks the visible 64-key tiles
-// through a two-stage cp.async ring, as the bf16 forward does (K and V
-// separate commit groups, rows past the last key zero-filled, unread). With
-// tx = tid % 8 and ty = tid / 8 a thread holds the RT query rows ty + RS i
-// (i < RT; RT = 4 and RS = 16, or at D = 128 RT = 2 and RS = 32, so that the
-// accumulators of O fit in registers): the scores of keys tx + 8 j (j < 8)
-// of the tile, and the output columns of FwdF32<D>::col. S = Q.K^T
-// reads Q and K as float4 along D from row-major tiles whose rows are D + 4
-// floats apart (the 8 keys a quarter warp reads fall in 8 distinct bank
-// groups); P goes to shared memory and O += P.V reads P's rows as float4
-// and V's rows as the thread's columns, 128 contiguous bytes a quarter
-// warp. A row's max and sum meet over its 8 threads (tx is the lane's low
-// 3 bits, so they share a warp) by shuffles, once a tile, and the
-// accumulators are corrected once a tile. At D = 64 a block takes 105 KB
-// of shared memory: two blocks an SM.
+// f32: CUDA cores. The forward (fwd_f32) and the backward's two kernels
+// (dq_f32, dkv_f32) share one tile scheme. A block of F32Tile<D>::NT
+// threads (128; 256 at D = 128) owns a 64-row tile (FQ) of its output and
+// walks the visible 64-row tiles of the other side through a cp.async ring
+// in dynamic shared memory, rows D + 4 floats apart, rows past the last
+// readable one zero-filled and never read. With tx = tid % 8 and ty =
+// tid / 8 a thread holds the owned rows ty + RS i (i < RT; RT = 4 and RS =
+// 16, or at D = 128 RT = 2 and RS = 32, so that the accumulators fit in
+// registers): f32_scores gives it the products of those rows with the
+// streamed rows tx + 8 j (j < 8), reading both tiles as float4 along D
+// (the 8 rows a quarter warp reads fall in 8 distinct bank groups), and
+// f32_accumulate adds a score tile in shared memory times a streamed tile
+// into its output columns F32Tile<D>::col, reading the scores' rows as
+// float4 and the tile's rows as the thread's columns, 128 contiguous bytes
+// a quarter warp. A row's values meet over its 8 threads (tx is the lane's
+// low 3 bits, so they share a warp) by shuffles. At D = 64 a block takes
+// about 105 KB of shared memory: two blocks an SM.
 constexpr int FQ = 64;
 
 template <int D>
-struct FwdF32 {
-  static constexpr int LD = D + 4;   // row stride of the Q, K and V tiles
-  static constexpr int LP = FQ + 8;  // row stride of the P tile
-  // query rows a thread holds, RS apart; threads a block
+struct F32Tile {
+  static constexpr int LD = D + 4;   // row stride of the Q, K, V, dO tiles
+  static constexpr int LP = FQ + 8;  // row stride of the score tile
+  // owned rows a thread holds, RS apart; threads a block
   static constexpr int RT = D >= 128 ? 2 : 4, RS = FQ / RT;
   static constexpr int NT = 8 * RS;
   // a thread's output columns: DC chunks of VW, chunk dc of thread tx at
   // tx * VW + 8 * VW * dc
   static constexpr int VW = D >= 32 ? 4 : D / 8;
   static constexpr int DC = D / 8 / VW;
-  static constexpr int SMEM = (5 * FQ * LD + FQ * LP) * 4;  // bytes
+  static constexpr int TILE = FQ * LD;  // floats of one row tile
+  // five row tiles and the score tile (the forward: Q and two stages of K
+  // and V; dQ: Q, dO, two stages of K, V; dK/dV: K, V, two stages of Q,
+  // dO), dK/dV's row terms (two stages of lse and dcap) besides
+  static constexpr int SMEM = (5 * TILE + FQ * LP + 4 * FQ) * 4;  // bytes
   __device__ static int col(int tx, int dc) { return tx * VW + 8 * VW * dc; }
 };
 
@@ -948,7 +891,7 @@ __device__ __forceinline__ void load_rows_f32(float* sm,
                                               int b, int t0, int tend, int h,
                                               Lay l, bool vec) {
   constexpr int CH = D / 4;  // 16-byte chunks per row
-  constexpr int LD = FwdF32<D>::LD, NT = FwdF32<D>::NT;
+  constexpr int LD = F32Tile<D>::LD, NT = F32Tile<D>::NT;
 #pragma unroll
   for (int it = 0; it < FQ * CH / NT; ++it) {
     const int i = it * NT + threadIdx.x;
@@ -975,15 +918,110 @@ __device__ __forceinline__ float row8_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
+// sv[i][j] = sum_d A[ty + RS i][d] * B[tx + 8 j][d] over two [FQ][D + 4]
+// tiles: the owned rows' products with the streamed rows
+template <int D>
+__device__ __forceinline__ void f32_scores(float (&sv)[F32Tile<D>::RT][8],
+                                           const float* A, const float* B,
+                                           int tx, int ty) {
+  using F = F32Tile<D>;
+  constexpr int LD = F::LD, RT = F::RT, RS = F::RS;
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sv[i][j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    float4 av[RT], bv[8];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      av[i] = *reinterpret_cast<const float4*>(A + (ty + RS * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = sv[i][j];
+        x = fmaf(av[i].x, bv[j].x, x);
+        x = fmaf(av[i].y, bv[j].y, x);
+        x = fmaf(av[i].z, bv[j].z, x);
+        sv[i][j] = fmaf(av[i].w, bv[j].w, x);
+      }
+  }
+}
+
+// acc[i][.] += sum_c S[ty + RS i][c] * T[c][col(tx, .)] for the [FQ][LP]
+// score tile S and an [FQ][D + 4] row tile T
+template <int D>
+__device__ __forceinline__ void f32_accumulate(
+    float (&acc)[F32Tile<D>::RT][F32Tile<D>::DC * F32Tile<D>::VW],
+    const float* S, const float* T, int tx, int ty) {
+  using F = F32Tile<D>;
+  constexpr int LD = F::LD, LP = F::LP, VW = F::VW, DC = F::DC;
+  constexpr int RT = F::RT, RS = F::RS;
+#pragma unroll 4
+  for (int c0 = 0; c0 < FQ; c0 += 4) {
+    float4 pv[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(S + (ty + RS * i) * LP + c0);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float vv[DC * VW];
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc)
+        load_vw<VW>(vv + dc * VW, T + (c0 + cc) * LD + F::col(tx, dc));
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float p = cc == 0   ? pv[i].x
+                        : cc == 1 ? pv[i].y
+                        : cc == 2 ? pv[i].z
+                                  : pv[i].w;
+#pragma unroll
+        for (int e = 0; e < DC * VW; ++e)
+          acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+      }
+    }
+  }
+}
+
+// store the thread's rows of an owned tile at t0 (rows past T_ dropped),
+// times mul, into a contiguous [B, T, H, D] tensor
+template <int D>
+__device__ __forceinline__ void f32_store(
+    float* base,
+    const float (&acc)[F32Tile<D>::RT][F32Tile<D>::DC * F32Tile<D>::VW],
+    int b, int t0, int T_, int h, Lay l, int tx, int ty, float mul) {
+  using F = F32Tile<D>;
+#pragma unroll
+  for (int i = 0; i < F::RT; ++i) {
+    const int row = t0 + ty + F::RS * i;
+    if (row >= T_) continue;
+    float* dst = row_ptr(base, b, row, h, l, D);
+#pragma unroll
+    for (int dc = 0; dc < F::DC; ++dc)
+#pragma unroll
+      for (int e = 0; e < F::VW; ++e)
+        dst[F::col(tx, dc) + e] = acc[i][dc * F::VW + e] * mul;
+  }
+}
+
+// The f32 forward: o and lse of a 64-row query tile, the visible 64-key
+// tiles through a two-stage ring (K and V separate commit groups, as the
+// bf16 forward's): S = Q.K^T (f32_scores), the mask on boundary tiles, one
+// row max, one row sum and one correction of the accumulators a tile, P
+// into shared memory, O += P.V (f32_accumulate).
 template <int D, Mask M>
-__global__ void __launch_bounds__(FwdF32<D>::NT, D >= 128 ? 1 : 2)
+__global__ void __launch_bounds__(F32Tile<D>::NT, D >= 128 ? 1 : 2)
 fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, float* __restrict__ o,
         float* __restrict__ lse, Shape s, int vec) {
-  using F = FwdF32<D>;
-  constexpr int LD = F::LD, LP = F::LP, VW = F::VW, DC = F::DC;
+  using F = F32Tile<D>;
+  constexpr int LP = F::LP, VW = F::VW, DC = F::DC;
   constexpr int RT = F::RT, RS = F::RS;
-  constexpr int STAGE = FQ * LD;
+  constexpr int STAGE = F::TILE;
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [FQ][LD]
@@ -1041,30 +1079,7 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
 
     float sv[RT][8];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) sv[i][jj] = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[RT], kv[8];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + RS * i) * LD + d);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        kv[jj] = *reinterpret_cast<const float4*>(kt + (tx + 8 * jj) * LD + d);
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          float x = sv[i][jj];
-          x = fmaf(qv[i].x, kv[jj].x, x);
-          x = fmaf(qv[i].y, kv[jj].y, x);
-          x = fmaf(qv[i].z, kv[jj].z, x);
-          sv[i][jj] = fmaf(qv[i].w, kv[jj].w, x);
-        }
-    }
+    f32_scores<D>(sv, qs, kt, tx, ty);
     const bool full = full_tile<M>(q0, FQ, j * FQ, FQ, s, 0, s.Tk);
 #pragma unroll
     for (int i = 0; i < RT; ++i)
@@ -1099,161 +1114,278 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_wait<2>();  // V[j]; K[j+1] and V[j+1] may still be in flight
     __syncthreads();     // ... and P, for every thread
-#pragma unroll 4
-    for (int c0 = 0; c0 < FQ; c0 += 4) {
-      float4 pv[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + RS * i) * LP + c0);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float vv[DC * VW];
-#pragma unroll
-        for (int dc = 0; dc < DC; ++dc)
-          load_vw<VW>(vv + dc * VW, vt + (c0 + cc) * LD + F::col(tx, dc));
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const float p = cc == 0   ? pv[i].x
-                          : cc == 1 ? pv[i].y
-                          : cc == 2 ? pv[i].z
-                                    : pv[i].w;
-#pragma unroll
-          for (int e = 0; e < DC * VW; ++e)
-            acc[i][e] = fmaf(p, vv[e], acc[i][e]);
-        }
-      }
-    }
+    f32_accumulate<D>(acc, ps, vt, tx, ty);
   }
+  float inv[RT];
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const float li = row8_sum(l[i]);
     const int row = q0 + ty + RS * i;
-    if (row >= s.Tq) continue;
-    if (tx == 0)
+    if (tx == 0 && row < s.Tq)
       lse[(size_t)bh * s.Tq + row] = li > 0.f ? m[i] * sc + logf(li) : NEG_BIG;
-    const float inv = 1.f / fmaxf(li, 1e-30f);
-    float* dst = row_ptr(o, b, row, h, lay_q(s, D), D);
+    inv[i] = 1.f / fmaxf(li, 1e-30f);
+  }
 #pragma unroll
-    for (int dc = 0; dc < DC; ++dc)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int e = 0; e < VW; ++e)
-        dst[F::col(tx, dc) + e] = acc[i][dc * VW + e] * inv;
+    for (int e = 0; e < DC * VW; ++e) acc[i][e] *= inv[i];
+  f32_store<D>(o, acc, b, q0, s.Tq, h, lay_q(s, D), tx, ty, 1.f);
+}
+
+// dcap[row] = sum_d dO[row, d] * O[row, d] (minus g_lse[row] for a striped
+// hop) for the FQ rows of a query tile, dO from its staged [FQ][D + 4]
+// tile and O from device memory, NT / FQ neighbouring threads a row; into
+// shared memory and, for real rows, to dcap
+template <int D, Mask M>
+__device__ __forceinline__ void tile_dcap_f32(float* dcs,
+                                              float* __restrict__ dcap,
+                                              const float* __restrict__ o,
+                                              const float* dos, int b,
+                                              int q0, int bh, const Shape& s,
+                                              int h) {
+  constexpr int TPR = F32Tile<D>::NT / FQ, LD = F32Tile<D>::LD;
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, tq = q0 + r;
+  float acc = 0.f;
+  if (tq < s.Tq) {
+    const float* po = row_ptr(o, b, tq, h, lay_q(s, D), D);
+#pragma unroll 4
+    for (int d = part; d < D; d += TPR) acc = fmaf(po[d], dos[r * LD + d], acc);
+  }
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if constexpr (M == Mask::Striped) {
+    if (tq < s.Tq) acc -= s.glse[(size_t)bh * s.Tq + tq];
+  }
+  if (part == 0) {
+    dcs[r] = acc;
+    if (tq < s.Tq) dcap[(size_t)bh * s.Tq + tq] = acc;
   }
 }
 
+// The f32 dQ kernel: dQ of a 64-row query tile, with Q and dO resident and
+// the visible 64-key tiles streamed, K through a two-stage ring and V
+// through one stage, refilled once the step's dP has read it (so that five
+// row tiles and the score tile hold two blocks an SM at D = 64). Per tile:
+// S = Q.K^T, P = exp2(S c - lse log2(e)) (one FMA and ex2 a score; the
+// mask only where full_tile is false) into shared memory, dP = dO.V^T,
+// dS / scale = P (dP - dcap) over P's place, then dQ += dS.K. The scale
+// multiplies dQ once at the store. The kernel also writes dcap, which the
+// dK/dV kernel, launched after it on the same stream, reads.
 template <int D, Mask M>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F32Tile<D>::NT, D >= 128 ? 1 : 2)
 dq_f32(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, const float* __restrict__ o,
        const float* __restrict__ dout, const float* __restrict__ lse,
-       float* __restrict__ dcap, float* __restrict__ dq, Shape s) {
-  using S = Split<D>;
-  __shared__ float ks[FT * D], vs[FT * D], dcs[S::ROWS];
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
-  const int part = threadIdx.x % S::P, row = threadIdx.x / S::P;
-  const int qp = qi * S::ROWS + row;
-  tile_dcap<float, D, M>(dcs, dcap, o, dout, b, qi * S::ROWS, bh, S::ROWS,
-                          s, h);
+       float* __restrict__ dcap, float* __restrict__ dq, Shape s, int vec) {
+  using F = F32Tile<D>;
+  constexpr int LP = F::LP, VW = F::VW, DC = F::DC;
+  constexpr int RT = F::RT, RS = F::RS;
+  constexpr int STAGE = F::TILE;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [FQ][LD]
+  float* dos = qs + STAGE;                     // [FQ][LD]
+  float* ks = dos + STAGE;                     // [2][FQ][LD]
+  float* vs = ks + 2 * STAGE;                  // [FQ][LD]
+  float* ps = vs + STAGE;                      // [FQ][LP]
+  float* dcs = ps + FQ * LP;                   // [FQ]
+  // under a causal mask the last query tiles see the most keys: the grid
+  // runs the (b, h) pairs fastest and the tiles from the last
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int q0 = qi * FQ;
   const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
-  float qr[S::DP], dr[S::DP], acc[S::DP];
-  load_part<D>(qr, q, b, qp, s.Tq, h, lq, part);
-  load_part<D>(dr, dout, b, qp, s.Tq, h, lay_q(s, D), part);
-#pragma unroll
-  for (int i = 0; i < S::DP; ++i) acc[i] = 0.f;
-  const float rl = qp < s.Tq ? lse[(size_t)bh * s.Tq + qp] : 0.f;
   int lo, hi;
-  key_range<M>(qi, S::ROWS, FT, s, lo, hi);
-  __syncthreads();  // dcs
-  const float rd = dcs[row];
-  for (int j = lo; j < hi; ++j) {
-    __syncthreads();
-    load_tile_f32<D>(ks, k, b, j * FT, s.Tk, h, lk);
-    load_tile_f32<D>(vs, v, b, j * FT, s.Tk, h, lv);
-    __syncthreads();
-    for (int c = 0; c < FT; ++c) {
-      const float* kr = ks + c * D + part * S::DP;
-      const float* vr = vs + c * D + part * S::DP;
-      float x = 0.f, dp = 0.f;
+  key_range<M>(qi, FQ, FQ, s, lo, hi);
+
+  // commit groups, in order: Q and dO, K[lo], V[lo], then in each step j
+  // K[j+1] at its start and V[j+1] once dP(j) is done (empty past the
+  // last tile): at each wait the group it needs is the second newest
+  load_rows_f32<D>(qs, q, b, q0, s.Tq, h, lq, vec);
+  load_rows_f32<D>(dos, dout, b, q0, s.Tq, h, lay_q(s, D), vec);
+  cp_async_commit();
+  if (lo < hi) load_rows_f32<D>(ks, k, b, lo * FQ, s.Tk, h, lk, vec);
+  cp_async_commit();
+  if (lo < hi) load_rows_f32<D>(vs, v, b, lo * FQ, s.Tk, h, lv, vec);
+  cp_async_commit();
+  cp_async_wait<2>();  // Q and dO
+  __syncthreads();
+  tile_dcap_f32<D, M>(dcs, dcap, o, dos, b, q0, bh, s, h);
+  __syncthreads();
+  // P = exp2(S * c - lse * log2(e)); dS is taken without the scale
+  const float c = s.scale * LOG2E;
+  float nl[RT], rd[RT];
 #pragma unroll
-      for (int i = 0; i < S::DP; ++i) {
-        x += qr[i] * kr[i];
-        dp += dr[i] * vr[i];
-      }
-      x = part_sum<S::P>(x);
-      dp = part_sum<S::P>(dp);
-      if (!visible<M>(qp, j * FT + c, s)) continue;
-      const float ds = expf(x * s.scale - rl) * (dp - rd) * s.scale;
-#pragma unroll
-      for (int i = 0; i < S::DP; ++i) acc[i] += ds * kr[i];
-    }
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + ty + RS * i;
+    nl[i] = row < s.Tq ? -lse[(size_t)bh * s.Tq + row] * LOG2E : 0.f;
+    rd[i] = dcs[ty + RS * i];
   }
-  if (qp >= s.Tq) return;
-  float* dst = row_ptr(dq, b, qp, h, lay_q(s, D), D) + part * S::DP;
+
+  float acc[RT][DC * VW];
 #pragma unroll
-  for (int i = 0; i < S::DP; ++i) dst[i] = acc[i];
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int e = 0; e < DC * VW; ++e) acc[i][e] = 0.f;
+  for (int j = lo; j < hi; ++j) {
+    const int stage = (j - lo) & 1;
+    const float* kt = ks + stage * STAGE;
+    cp_async_wait<1>();  // K[j]; V[j] may still be in flight
+    // K[j] is visible to every thread, and every thread is done with step
+    // j-1: its K stage, which K[j+1] takes, and the score tile
+    __syncthreads();
+    if (j + 1 < hi)
+      load_rows_f32<D>(ks + (stage ^ 1) * STAGE, k, b, (j + 1) * FQ, s.Tk,
+                       h, lk, vec);
+    cp_async_commit();
+    float sv[RT][8];
+    f32_scores<D>(sv, qs, kt, tx, ty);
+    const bool full = full_tile<M>(q0, FQ, j * FQ, FQ, s, 0, s.Tk);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float* prow = ps + (ty + RS * i) * LP + tx;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        prow[8 * jj] =
+            full || visible<M>(q0 + ty + RS * i, j * FQ + tx + 8 * jj, s)
+                ? fast_exp2(fmaf(sv[i][jj], c, nl[i]))
+                : 0.f;
+    }
+    cp_async_wait<1>();  // V[j]; K[j+1] may still be in flight
+    __syncthreads();     // V[j] is visible to every thread
+    f32_scores<D>(sv, dos, vs, tx, ty);  // dP
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float* prow = ps + (ty + RS * i) * LP + tx;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        prow[8 * jj] *= sv[i][jj] - rd[i];  // dS / scale, over this thread's P
+    }
+    __syncthreads();  // dS is visible, and every thread is done with V[j]
+    if (j + 1 < hi)
+      load_rows_f32<D>(vs, v, b, (j + 1) * FQ, s.Tk, h, lv, vec);
+    cp_async_commit();
+    f32_accumulate<D>(acc, ps, kt, tx, ty);
+  }
+  f32_store<D>(dq, acc, b, q0, s.Tq, h, lay_q(s, D), tx, ty, s.scale);
 }
 
+// The f32 dK/dV kernel: dK and dV of a 64-row key tile, with K and V
+// resident and the 64-row query tiles that see it streamed, Q (with its
+// rows' lse and dcap) through a two-stage ring and dO through one stage,
+// refilled once the step's dV product has read it (two blocks an SM at D =
+// 64, as the dQ kernel). Per tile, transposed:
+// S^T = K.Q^T, P^T (as the dQ kernel's P) into shared memory, dP^T =
+// V.dO^T, dS^T / scale = P^T (dP^T - dcap) kept in registers, dV += P^T.dO;
+// then dS^T over P^T's place and dK += dS^T.Q. The scale multiplies dK
+// once at the store.
 template <int D, Mask M>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F32Tile<D>::NT, D >= 128 ? 1 : 2)
 dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ dcap,
-        float* __restrict__ dk, float* __restrict__ dv, Shape s) {
-  using S = Split<D>;
-  __shared__ float qs[FT * D], ds_[FT * D], lses[FT], dcs[FT];
-  const int kj = blockIdx.x;
-  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
-  const int part = threadIdx.x % S::P;
-  const int kp = kj * S::ROWS + threadIdx.x / S::P;
+        float* __restrict__ dk, float* __restrict__ dv, Shape s, int vec) {
+  using F = F32Tile<D>;
+  constexpr int LP = F::LP, VW = F::VW, DC = F::DC;
+  constexpr int RT = F::RT, RS = F::RS;
+  constexpr int STAGE = F::TILE;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [FQ][LD]
+  float* vs = ks + STAGE;                      // [FQ][LD]
+  float* qs = vs + STAGE;                      // [2][FQ][LD]
+  float* dos = qs + 2 * STAGE;                 // [FQ][LD]
+  float* ps = dos + STAGE;                     // [FQ][LP]
+  float* ts = ps + FQ * LP;                    // [2][lse, dcap][FQ]
+  // under a causal mask the first key tiles are seen by the most queries:
+  // the grid runs the (b, h) pairs fastest and the tiles from the first
+  const int kj = blockIdx.y;
+  const int bh = blockIdx.x, b = bh / s.H, h = bh % s.H;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int k0 = kj * FQ;
   const Lay lq{s.qsb, s.qst}, lk{s.ksb, s.kst}, lv{s.vsb, s.vst};
-  float kr[S::DP], vr[S::DP], dka[S::DP], dva[S::DP];
-  load_part<D>(kr, k, b, kp, s.Tk, h, lk, part);
-  load_part<D>(vr, v, b, kp, s.Tk, h, lv, part);
-#pragma unroll
-  for (int i = 0; i < S::DP; ++i) dka[i] = dva[i] = 0.f;
   int lo, hi;
-  query_range<M>(kj, FT, S::ROWS, s, lo, hi);
-  for (int i0 = lo; i0 < hi; ++i0) {
+  query_range<M>(kj, FQ, FQ, s, lo, hi);
+
+  // query tile i's Q and row terms into ring slot sl
+  auto load_q = [&](int i, int sl) {
+    load_rows_f32<D>(qs + sl * STAGE, q, b, i * FQ, s.Tq, h, lq, vec);
+    load_terms_async<FQ>(ts + sl * 2 * FQ, lse, bh, i * FQ, s.Tq, 0);
+    load_terms_async<FQ>(ts + sl * 2 * FQ + FQ, dcap, bh, i * FQ, s.Tq, FQ);
+  };
+  // commit groups, in order: K and V, Q[lo], dO[lo], then in each step i
+  // Q[i+1] at its start and dO[i+1] once dV has read dO[i] (empty past the
+  // last tile): at each wait the group it needs is the second newest
+  load_rows_f32<D>(ks, k, b, k0, s.Tk, h, lk, vec);
+  load_rows_f32<D>(vs, v, b, k0, s.Tk, h, lv, vec);
+  cp_async_commit();
+  if (lo < hi) load_q(lo, 0);
+  cp_async_commit();
+  if (lo < hi)
+    load_rows_f32<D>(dos, dout, b, lo * FQ, s.Tq, h, lay_q(s, D), vec);
+  cp_async_commit();
+  const float c = s.scale * LOG2E;
+
+  float dka[RT][DC * VW], dva[RT][DC * VW];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int e = 0; e < DC * VW; ++e) dka[r][e] = dva[r][e] = 0.f;
+  for (int i = lo; i < hi; ++i) {
+    const int sl = (i - lo) & 1;
+    const float* qt = qs + sl * STAGE;
+    const float* ls = ts + sl * 2 * FQ;
+    const float* dcs = ls + FQ;
+    cp_async_wait<1>();  // Q[i] and its terms (and K, V); dO[i] may not be
+    // Q[i] is visible to every thread, and every thread is done with step
+    // i-1: its Q slot, which Q[i+1] takes, and the score tile
     __syncthreads();
-    load_tile_f32<D>(qs, q, b, i0 * FT, s.Tq, h, lq);
-    load_tile_f32<D>(ds_, dout, b, i0 * FT, s.Tq, h, lay_q(s, D));
-    for (int r = threadIdx.x; r < FT; r += THREADS) {
-      const int tq = i0 * FT + r;
-      const bool in = tq < s.Tq;
-      lses[r] = in ? lse[(size_t)bh * s.Tq + tq] : 0.f;
-      dcs[r] = in ? dcap[(size_t)bh * s.Tq + tq] : 0.f;
-    }
-    __syncthreads();
-    for (int c = 0; c < FT; ++c) {
-      const float* qr = qs + c * D + part * S::DP;
-      const float* dr = ds_ + c * D + part * S::DP;
-      float x = 0.f, dp = 0.f;
+    if (i + 1 < hi) load_q(i + 1, sl ^ 1);
+    cp_async_commit();
+    float sv[RT][8];
+    f32_scores<D>(sv, ks, qt, tx, ty);  // S^T: rows keys, columns queries
+    const bool full = full_tile<M>(i * FQ, FQ, k0, FQ, s, 0, s.Tk);
 #pragma unroll
-      for (int i = 0; i < S::DP; ++i) {
-        x += kr[i] * qr[i];
-        dp += vr[i] * dr[i];
-      }
-      x = part_sum<S::P>(x);
-      dp = part_sum<S::P>(dp);
-      if (!visible<M>(i0 * FT + c, kp, s)) continue;
-      const float p = expf(x * s.scale - lses[c]);
-      const float ds = p * (dp - dcs[c]) * s.scale;
+    for (int r = 0; r < RT; ++r) {
+      float* prow = ps + (ty + RS * r) * LP + tx;
 #pragma unroll
-      for (int i = 0; i < S::DP; ++i) {
-        dva[i] += p * dr[i];
-        dka[i] += ds * qr[i];
+      for (int jj = 0; jj < 8; ++jj) {
+        const int cq = tx + 8 * jj;
+        prow[8 * jj] =
+            full || visible<M>(i * FQ + cq, k0 + ty + RS * r, s)
+                ? fast_exp2(fmaf(sv[r][jj], c, -ls[cq] * LOG2E))
+                : 0.f;
       }
     }
-  }
-  if (kp >= s.Tk) return;
-  float* pk = row_ptr(dk, b, kp, h, lay_k(s, D), D) + part * S::DP;
-  float* pv = row_ptr(dv, b, kp, h, lay_k(s, D), D) + part * S::DP;
+    cp_async_wait<1>();  // dO[i]; Q[i+1] may still be in flight
+    __syncthreads();     // dO[i] and P^T are visible to every thread
+    f32_scores<D>(sv, vs, dos, tx, ty);  // dP^T
 #pragma unroll
-  for (int i = 0; i < S::DP; ++i) {
-    pk[i] = dka[i];
-    pv[i] = dva[i];
+    for (int r = 0; r < RT; ++r) {
+      const float* prow = ps + (ty + RS * r) * LP + tx;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        sv[r][jj] = prow[8 * jj] * (sv[r][jj] - dcs[tx + 8 * jj]);
+    }
+    f32_accumulate<D>(dva, ps, dos, tx, ty);
+    __syncthreads();  // every thread is done with P^T and dO[i]
+    if (i + 1 < hi)
+      load_rows_f32<D>(dos, dout, b, (i + 1) * FQ, s.Tq, h, lay_q(s, D),
+                       vec);
+    cp_async_commit();
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float* prow = ps + (ty + RS * r) * LP + tx;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) prow[8 * jj] = sv[r][jj];  // dS^T / scale
+    }
+    __syncthreads();  // dS^T is visible to every thread
+    f32_accumulate<D>(dka, ps, qt, tx, ty);
   }
+  f32_store<D>(dk, dka, b, k0, s.Tk, h, lay_k(s, D), tx, ty, s.scale);
+  f32_store<D>(dv, dva, b, k0, s.Tk, h, lay_k(s, D), tx, ty, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1265,6 +1397,17 @@ cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+// the f32 kernels' 16-byte copies need every row they stage (q, k, v
+// and, in the backward, dO: contiguous, rows D apart) on a 16-byte
+// boundary; anything else takes 4-byte copies
+inline bool f32_vec(const Shape& s, const void* q, const void* k,
+                    const void* v, const void* dout) {
+  return ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+           reinterpret_cast<uintptr_t>(v) |
+           reinterpret_cast<uintptr_t>(dout)) % 16 == 0) &&
+         ((s.qsb | s.qst | s.ksb | s.kst | s.vsb | s.vst) % 4 == 0);
 }
 
 template <int D, Mask M, int QT>
@@ -1302,19 +1445,15 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   if constexpr (M == Mask::Paged) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    constexpr int smem = FwdF32<D>::SMEM;
+    constexpr int smem = F32Tile<D>::SMEM;
     const cudaError_t e = set_smem(fwd_f32<D, M>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    // 16-byte copies need every row of q, k and v on a 16-byte boundary
-    const bool vec =
-        ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-          reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
-        ((s.qsb | s.qst | s.ksb | s.kst | s.vsb | s.vst) % 4 == 0);
-    fwd_f32<D, M><<<dim3(s.B * s.H, (s.Tq + FQ - 1) / FQ), FwdF32<D>::NT,
+    fwd_f32<D, M><<<dim3(s.B * s.H, (s.Tq + FQ - 1) / FQ), F32Tile<D>::NT,
                     smem, st>>>(static_cast<const float*>(q),
                           static_cast<const float*>(k),
                           static_cast<const float*>(v),
-                          static_cast<float*>(o), lse, s, vec);
+                          static_cast<float*>(o), lse, s,
+                          f32_vec(s, q, k, v, nullptr));
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1346,12 +1485,14 @@ int dq(const void* q, const void* k, const void* v, const void* o,
     if (dtype == kBF16)
       return dq_bf16<D, M>(q, k, v, o, dout, lse, dcap, dqp, s, st);
   }
-  const int rows = Split<D>::ROWS;
-  dq_f32<D, M><<<dim3((s.Tq + rows - 1) / rows, bh), THREADS, 0, st>>>(
+  constexpr int smem = F32Tile<D>::SMEM;
+  const cudaError_t e = set_smem(dq_f32<D, M>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dq_f32<D, M><<<dim3(bh, (s.Tq + FQ - 1) / FQ), F32Tile<D>::NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(dout), lse, dcap, static_cast<float*>(dqp),
-      s);
+      s, f32_vec(s, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1382,11 +1523,16 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
     if (dtype == kBF16)
       return dkv_bf16<D, M>(q, k, v, dout, lse, dcap, dk, dv, s, st);
   }
-  const int rows = Split<D>::ROWS;
-  dkv_f32<D, M><<<dim3((s.Tk + rows - 1) / rows, bh), THREADS, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      dcap, static_cast<float*>(dk), static_cast<float*>(dv), s);
+  constexpr int smem = F32Tile<D>::SMEM;
+  const cudaError_t e = set_smem(dkv_f32<D, M>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dkv_f32<D, M><<<dim3(bh, (s.Tk + FQ - 1) / FQ), F32Tile<D>::NT, smem,
+                  st>>>(static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v),
+                        static_cast<const float*>(dout), lse, dcap,
+                        static_cast<float*>(dk), static_cast<float*>(dv), s,
+                        f32_vec(s, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 

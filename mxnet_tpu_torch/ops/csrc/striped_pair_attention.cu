@@ -18,17 +18,17 @@
 // diagonal are never read (l.453-458) and, in dK/dV, nor are the query
 // tiles before it (l.537-541), so a hop costs about half a block. The dQ
 // kernel writes dcap = rowsum(dO * O) - g_lse, the lse cotangent folded in
-// (l.603-604), and the dK/dV kernel reads it. The bf16 kernels and the
-// f32 forward are the pipelined, tiled ones of attention.cuh: tiles wholly
-// below the striped diagonal skip the mask (the f32 backward keeps the
-// first port's form).
+// (l.603-604), and the dK/dV kernel reads it. Every kernel, bf16 and f32,
+// is a pipelined, tiled one of attention.cuh: tiles wholly below the
+// striped diagonal skip the mask.
 //
 // Bound on the H100: at the 124M LM's sequence-parallel hop (BH = 24,
-// C = 1024, D = 64) a hop does 4 D flops per visible pair forward, ~3.2
-// GFLOP on ~25 MB in f32: the operations bound it, on the CUDA cores in
-// f32 (67 TFLOP/s) and on the tensor cores in bf16. The f32 forward keeps
-// them busy with register-tiled products (128 FFMAs a thread for each 12
-// float4 reads of shared memory) over 64 x 64 tiles staged by cp.async.
+// C = 1024, D = 64) a hop does 4 D flops per visible pair forward (~3.2
+// GFLOP on ~25 MB in f32), 6 D in dQ and 8 D in dK/dV: the operations bound
+// it, on the CUDA cores in f32 (67 TFLOP/s) and on the tensor cores in
+// bf16. The f32 kernels keep the CUDA cores busy with register-tiled
+// products (128 FFMAs a thread for each 12 float4 reads of shared memory
+// in the score products) over 64 x 64 tiles staged by cp.async.
 #include "attention.cuh"
 
 using namespace mxk;

@@ -25,10 +25,11 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
   the f32 accumulator, differentiable (the backward is plain products, as
   the JAX package keeps it outside Pallas).
 * :func:`fused_conv_bn_act` (l.838): ``act(scale_c * conv(x, w) + bias_c)``,
-  the eval-time conv -> BatchNorm -> act chain, as ``fused_linear``'s GEMM
-  with the folded BatchNorm in its epilogue; in f32 an implicit GEMM that
-  gathers the patches from a channels-last x in its tile loader, in bf16
-  over patches made by one strided copy.
+  the eval-time conv -> BatchNorm -> act chain with the folded BatchNorm
+  in the epilogue, its path a rule on the geometry (:func:`conv_algo`): in
+  f32 Winograd F(2x2, 3x3) for stride-1 3x3 convs, else an implicit GEMM
+  that gathers the patches from a channels-last x in its tile loader; in
+  bf16 ``fused_linear``'s GEMM over patches made by one strided copy.
 * :func:`matmul_stats` (l.969): ``(x @ w^T, sum_rows y, sum_rows y^2)``
   with the statistics taken from the f32 accumulator, differentiable (the
   backward folds the statistics' cotangents into the output's and makes
@@ -82,8 +83,8 @@ __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
            "striped_pair_attention_bwd_plain", "fused_linear_fwd",
            "fused_linear_plain", "build", "build_log", "parse_ptxas",
            "ptxas_report", "launch_counts", "reset_launch_counts",
-           "paged_entry", "paged_decode_splits", "KERNELS", "ENTRIES",
-           "SOURCE"]
+           "paged_entry", "paged_decode_splits", "conv_algo", "KERNELS",
+           "ENTRIES", "SOURCE"]
 
 # the sources build() compiles
 KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
@@ -307,10 +308,10 @@ _ARGTYPES = {
     "striped_pair_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     # x, w, scale, bias, out, M, N, K, act, dtype, stream
     "fused_linear": [_P] * 5 + [_I] * 5 + [_P],
-    # x (channels-last), w [O, kh*kw*C], scale, bias, out, then the
-    # geometry N, H, W, C, OH, OW, O, kh, kw, sh, sw, ph, pw, dh, dw, then
-    # act, dtype, stream
-    "fused_conv_bn_act": [_P] * 5 + [_I] * 17 + [_P],
+    # x (channels-last), w [O, kh*kw*C], scale, bias, out, the Winograd
+    # workspace and its floats, then the geometry N, H, W, C, OH, OW, O, kh,
+    # kw, sh, sw, ph, pw, dh, dw, then act, dtype, stream
+    "fused_conv_bn_act": [_P] * 6 + [_L] + [_I] * 17 + [_P],
     # x, w, y, s1 partials, s2 partials, M, N, K, dtype, stream
     "matmul_stats": [_P] * 5 + [_I] * 4 + [_P],
 }
@@ -1337,6 +1338,47 @@ def _im2col(x, w, stride, pad, dilate):
     return cols.contiguous().view(-1, c * kh * kw), wm, oh, ow
 
 
+# channels and output channels the Winograd kernel takes a step and a block
+# (csrc/fused_linear.cu wino::CK, wino::BO)
+_WINO_CK, _WINO_BO = 8, 64
+
+
+def conv_algo(dtype, c, kernel, stride, pad, dilate):
+    """The path ``fused_conv_bn_act``'s C entry takes for a conv, by dtype
+    and geometry alone (the entry applies the same rule):
+
+    * f32, a 3x3 kernel, stride 1, dilation 1, ``c % 4 == 0``, any
+      padding: ``"winograd"``, F(2x2, 3x3) with the weight transform
+      written into a workspace the wrapper allocates
+      (:func:`_winograd_workspace`);
+    * f32, a 1x1 stride-1 unpadded conv: ``"pointwise"``, the GEMM over x
+      as the ``[N*H*W, C]`` matrix it is;
+    * every other f32 conv: ``"implicit"``, the implicit GEMM that
+      gathers the patches in its tile loader;
+    * bf16: ``"patches"``, the GEMM over patches made by one strided copy
+      (:func:`_im2col`).
+
+    No path gives way to another."""
+    if dtype == torch.bfloat16:
+        return "patches"
+    if (tuple(kernel), tuple(stride), tuple(pad)) == ((1, 1), (1, 1), (0, 0)):
+        return "pointwise"
+    if (tuple(kernel), tuple(stride), tuple(dilate)) == ((3, 3), (1, 1),
+                                                         (1, 1)) \
+            and c % 4 == 0:
+        return "winograd"
+    return "implicit"
+
+
+def _winograd_workspace(c, nf, device):
+    """The Winograd path's workspace: the transformed weight U [16, Cp,
+    Op], C rounded up to the kernel's channel step and O to its block
+    (zero-padded by the kernel), f32."""
+    cp = -(-c // _WINO_CK) * _WINO_CK
+    op = -(-nf // _WINO_BO) * _WINO_BO
+    return torch.empty(16 * cp * op, dtype=torch.float32, device=device)
+
+
 def fused_conv_bn_act_plain(x, w, scale, bias, stride=(1, 1), pad=(0, 0),
                             dilate=(1, 1), act="relu"):
     """Plain PyTorch version of :func:`fused_conv_bn_act`: ``F.conv2d`` in
@@ -1356,10 +1398,14 @@ def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
     x [N, C, H, W], w [O, C, kh, kw] (one group), f32 or bf16; returns
     [N, O, OH, OW] in x's dtype, as the NCHW view of the kernel's
     ``[N*OH*OW, O]`` output (channels-last in memory). In f32 (the eval
-    forward's path) the kernel gathers the patches from a channels-last x
-    itself (an implicit GEMM, :func:`_conv_operands`); in bf16 they are
-    made outside it (:func:`_im2col`), as the JAX package makes them in
-    XLA. Forward only: the JAX kernel has no gradient either."""
+    forward's path) the kernel reads a channels-last x itself
+    (:func:`_conv_operands`): a stride-1 3x3 conv with C % 4 == 0 is
+    Winograd F(2x2, 3x3), its transformed weight written into a workspace
+    allocated here (:func:`_winograd_workspace`), any other conv an
+    implicit GEMM; in bf16 the patches are made outside it
+    (:func:`_im2col`), as the JAX package makes them in XLA.
+    :func:`conv_algo` names the path. Forward only: the JAX kernel has no
+    gradient either."""
     _check(act in _ACT_CODE, "fused_conv_bn_act: unknown activation %r", act)
     _check(x.dim() == 4 and w.dim() == 4 and x.shape[1] == w.shape[1],
            "fused_conv_bn_act: x [N, C, H, W] and w [O, C, kh, kw] needed, "
@@ -1377,9 +1423,13 @@ def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
     if not _on_cuda(x, w, scale, bias):
         return fused_conv_bn_act_plain(x, w, scale, bias, stride, pad,
                                        dilate, act)
+    ws = None
     if x.dtype == torch.float32:
         xc, wm, geom = _conv_operands(x, w, stride, pad, dilate)
         oh, ow = geom[4:6]
+        if conv_algo(x.dtype, x.shape[1], w.shape[2:], stride, pad,
+                     dilate) == "winograd":
+            ws = _winograd_workspace(x.shape[1], nf, x.device)
     else:
         xc, wm, oh, ow = _im2col(x, w, stride, pad, dilate)
         # the patches as the x of a 1x1 stride-1 conv over [1, 1, M, K]
@@ -1391,7 +1441,8 @@ def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
     if out.numel():
         _launch("fused_conv_bn_act", _ptr(xc), _ptr(wm),
                 _ptr(scale.to(torch.float32).contiguous()),
-                _ptr(bias.to(torch.float32).contiguous()), _ptr(out), *geom,
+                _ptr(bias.to(torch.float32).contiguous()), _ptr(out),
+                _ptr(ws), 0 if ws is None else ws.numel(), *geom,
                 _ACT_CODE[act], _CODE[x.dtype])
     return out.reshape(nb, oh, ow, nf).permute(0, 3, 1, 2)
 
