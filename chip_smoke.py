@@ -15,7 +15,12 @@ Phases:
    shapes the 124M LM's serving and training paths and ResNet-50 give it
    and at small ragged shapes, in every mode, each to a stated tolerance:
    the serving kernels (int8/int4 weights, float/int8 KV, C = 1/5/64/256,
-   GQA, rope on/off, f32 and bf16; ``paged_attention``'s decode entry at
+   GQA, rope on/off, f32 and bf16; ``quant_matmul`` and
+   ``fused_decode_attention`` also held batch-invariant, bitwise: rows of
+   x[:1], x[:7], x[:32], x[:256] against the same rows of the 256-row
+   product at every 124M shape, int8 and int4, and slot subsets at S = 1,
+   5 and 32 of a 124M step, 12 and 4 kv heads; ``paged_attention``'s
+   decode entry at
    C = 1/2/4/15 with pos on its split edges, GQA 12->3 and 12->4, head_dim
    16-128 and NaN past the live rows, its chunk entry at
    C = 16/64/100/128/256, pos 0, 512 and L-C, one and three slots, GQA,
@@ -45,7 +50,9 @@ Phases:
    events, median of 25 launches with the 50 MB L2 flushed before each and
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
-   there is one (``fused_linear`` at the LM's bf16 ffn1, with the SP
+   there is one (``quant_matmul`` at every 124M product at M = 32 and
+   256, also beside ``F.linear`` on the weight dequantized to bf16;
+   ``fused_linear`` at the LM's bf16 ffn1, with the SP
    path's f32 ffn1 beside it; flash's f32 backward at B=1;
    ``fused_conv_bn_act`` in f32, the eval forward's path, at the stride-1
    3x3 convs of stages 1-4 (Winograd; the bound also from the direct
@@ -274,12 +281,17 @@ def _cache(gen, s, l_, kv, d, kind, dev):
 
 def check_quant_matmul(K, dev, gen):
     """Every mode: int8 and int4 (groups 2, 16), f32/bf16 in and out, odd
-    M and F (both forms of the kernel: the tensor cores take bf16 x with
-    E a multiple of 32); then the 124M decode and prefill shapes."""
+    M and F (both forms of the tile: the tensor cores take bf16 x with E a
+    multiple of 128 and int4 groups of a multiple of 16); then the 124M
+    decode and prefill shapes. Then the batch-invariance gate: at every
+    124M shape, int8 and int4 (group 128), the rows of x[:1], x[:7],
+    x[:32] and x[:256] through the kernel are bitwise equal to the same
+    rows of the product of all 256."""
     cases = []
     for bits, group in ((8, None), (4, 2), (4, 16)):
         for xdt in (torch.float32, torch.bfloat16):
-            for m, f, e in ((1, 37, 48), (7, 100, 96), (33, 65, 32)):
+            for m, f, e in ((1, 37, 48), (7, 100, 96), (33, 65, 32),
+                            (1, 37, 128), (33, 65, 256), (40, 130, 1024)):
                 cases.append(("ragged", m, f, e, bits, group, xdt, xdt))
     cases.append(("ragged", 5, 40, 64, 8, None, torch.bfloat16,
                   torch.float32))
@@ -303,7 +315,30 @@ def check_quant_matmul(K, dev, gen):
             tag, m, f, e, bits), got, want)
         worst = max(worst, err)
     log("quant_matmul: %d cases agree, max |err| %.3g" % (len(cases), worst))
+    gates = 0
+    for f, e in QMM_SHAPES:
+        for bits, group in ((8, None), (4, 128)):
+            x = _rand(gen, (256, e), torch.bfloat16).to(dev)
+            q, s = _weights(gen, f, e, bits, group, dev)
+            full = K.quant_matmul(x, q, s, bits=bits, group=group)
+            for m in (1, 7, 32, 256):
+                rows = K.quant_matmul(x[:m].clone(), q, s, bits=bits,
+                                      group=group)
+                if not torch.equal(rows, full[:m]):
+                    raise AssertionError(
+                        "quant_matmul F=%d E=%d bits=%d: rows of x[:%d] "
+                        "differ from the same rows of the 256-row product "
+                        "(max |diff| %.3g)" % (f, e, bits, m, (
+                            rows.float() - full[:m].float()).abs().max()))
+                gates += 1
+    log("quant_matmul: batch invariance, %d subsets bitwise equal to the "
+        "256-row product" % gates)
     return worst
+
+
+# the 124M LM's quantized products (F, E): qkv, proj, ffn1, ffn2, lm_head
+QMM_SHAPES = ((2304, 768), (768, 768), (3072, 768), (768, 3072),
+              (32000, 768))
 
 
 def paged_cases(sms):
@@ -437,7 +472,12 @@ def _fused_inputs(gen, s_, h, kv, d, l_, bits, group, xdt, cdt, dev, pos):
 
 def check_fused_decode_attention(K, dev, gen):
     """int8 and int4 (group 16), rope on and off, GQA 12->4, pos at 0,
-    in the middle and at L-1; f32 and bf16; the 124M shape in bf16."""
+    in the middle and at L-1; f32 and bf16; the 124M shape in bf16, with
+    12 and with 4 kv heads (and with pos on the edges of the read's key
+    ranges), and in int4 (group 128) with rope. Then the
+    batch-invariance gate: slots [5], [0, 3, 9, 20, 31] and all 32 of a
+    124M step (int8, rope, 12 and 4 kv heads) give bitwise the same rows
+    as among all 32."""
     cases = []
     for bits, group in ((8, None), (4, 16)):
         for rope in (True, False):
@@ -448,8 +488,17 @@ def check_fused_decode_attention(K, dev, gen):
                   [0, 1, 63, 127]))
     cases.append((32, 12, 12, 64, 1024, 8, None, False, torch.bfloat16,
                   None))
+    cases.append((32, 12, 4, 64, 1024, 8, None, True, torch.bfloat16,
+                  None))
+    cases.append((4, 12, 4, 64, 1024, 8, None, True, torch.bfloat16,
+                  [511, 512, 513, 1023]))     # the key ranges' edges
+    cases.append((32, 12, 12, 64, 1024, 4, 128, True, torch.bfloat16,
+                  [0, 1023] + [None] * 30))
     worst = 0.0
     for s_, h, kv, d, l_, bits, group, rope, dt, pos in cases:
+        if pos is not None and None in pos:
+            pos = [p if p is not None else int(torch.randint(
+                0, l_, (1,), generator=gen)) for p in pos]
         args = _fused_inputs(gen, s_, h, kv, d, l_, bits, group, dt, dt,
                              dev, pos)
         kw = dict(heads=h, kv_heads=kv, bits=bits, group=group, rope=rope)
@@ -466,6 +515,24 @@ def check_fused_decode_attention(K, dev, gen):
             worst = max(worst, err)
     log("fused_decode_attention: %d cases agree, max |err| %.3g"
         % (len(cases), worst))
+    for kv in (12, 4):
+        args = _fused_inputs(gen, 32, 12, kv, 64, 1024, 8, None,
+                             torch.bfloat16, torch.bfloat16, dev, None)
+        kw = dict(heads=12, kv_heads=kv, bits=8, rope=True)
+        full = K.fused_decode_attention(*args, **kw)
+        for rows in ([5], [0, 3, 9, 20, 31], list(range(32))):
+            sub = [a[rows].contiguous() if i < 4 else a
+                   for i, a in enumerate(args)]
+            for part, g_, f_ in zip(("out", "k_new", "v_new"),
+                                    K.fused_decode_attention(*sub, **kw),
+                                    full):
+                if not torch.equal(g_, f_[rows]):
+                    raise AssertionError(
+                        "fused_decode_attention kv=%d: %s of slots %s alone"
+                        " differs from the same slots among 32" % (
+                            kv, part, rows[:5]))
+    log("fused_decode_attention: batch invariance, slots at S=1, 5, 32 "
+        "bitwise equal to the same slots among 32 (kv heads 12 and 4)")
     return worst
 
 
@@ -489,22 +556,29 @@ def time_kernels(K, dev, gen, worst):
                 "library_ms": lms, "shape": shape}
 
     # quant_matmul: every product of a 124M decode step (M = 32 slots)
-    # and the prefill lm_head at the largest bucket
-    for m, f, e, what in ((32, 2304, 768, "qkv"), (32, 768, 768, "proj"),
-                          (32, 3072, 768, "ffn1"), (32, 768, 3072, "ffn2"),
-                          (32, 32000, 768, "lm_head"),
-                          (256, 32000, 768, "lm_head")):
-        x = _rand(gen, (m, e), torch.bfloat16).to(dev)
-        q, s = _weights(gen, f, e, 8, None, dev)
-        out = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
-        r = row("quant_matmul", "%s M=%d F=%d E=%d" % (what, m, f, e),
-                lambda: K.quant_matmul(x, q, s),
-                lambda: K.quant_matmul_plain(x, q, s, 8, None,
-                                             torch.bfloat16),
-                lambda: torch.matmul(x.float(), (q.float() * s[:, None]).t()),
-                nbytes(x, q, s, out), 2 * m * f * e, torch.bfloat16)
-        if what == "lm_head" and m == 32:
-            entries["quant_matmul"] = r
+    # and of a prefill at the largest bucket (M = 256); beside the library
+    # call (the f32 product of the dequantized weight), dense_bf16_ms:
+    # F.linear on the weight already dequantized to bf16, twice the bytes
+    for m in (32, 256):
+        for (f, e), what in zip(QMM_SHAPES, ("qkv", "proj", "ffn1", "ffn2",
+                                             "lm_head")):
+            x = _rand(gen, (m, e), torch.bfloat16).to(dev)
+            q, s = _weights(gen, f, e, 8, None, dev)
+            out = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+            r = row("quant_matmul", "%s M=%d F=%d E=%d" % (what, m, f, e),
+                    lambda: K.quant_matmul(x, q, s),
+                    lambda: K.quant_matmul_plain(x, q, s, 8, None,
+                                                 torch.bfloat16),
+                    lambda: torch.matmul(x.float(),
+                                         (q.float() * s[:, None]).t()),
+                    nbytes(x, q, s, out), 2 * m * f * e, torch.bfloat16)
+            wd = (q.float() * s[:, None]).to(torch.bfloat16)
+            r["dense_bf16_ms"] = timer(lambda: F.linear(x, wd))
+            log("  quant_matmul %s M=%d: F.linear on the bf16 weight %.4f "
+                "ms" % (what, m, r["dense_bf16_ms"]))
+            del wd
+            if what == "lm_head" and m == 32:
+                entries["quant_matmul"] = r
 
     # paged_attention: the serving buckets' prefill chunks (C = 64, 128,
     # 256 at pos 0) on the chunk entry, and the int8-KV serve's C = 256

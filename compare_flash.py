@@ -51,6 +51,13 @@ bitwise equal.
   for the same call, ``paged_attention_decode`` if it has one, else the
   scalar ``paged_attention``; bf16 and int8 caches at C=1, bf16 at C=4.
   Outputs within ``chip_smoke.TOL`` of the other's.
+* the int8-weight decode step: ``quant_matmul`` at the 124M LM's five
+  products at M=32 (a decode step) and M=256 (a prefill), bf16 x and out,
+  and ``fused_decode_attention`` at S=32, 12 heads of 64, L=1024, random
+  pos, int8, bf16, each entry called in the form its tree's
+  source declares (``_qmm_form``: with or without the arrival counts;
+  the old fused entry's per-slot partials, counts and shared-memory size).
+  Outputs within ``chip_smoke.TOL`` of the other's.
 
 Each shape of the 124M LM, of the SP hop and of ResNet-50 is then timed in
 turns (other, this, this, other) with ``chip_smoke.py``'s timer. Both
@@ -77,13 +84,33 @@ CASES = [(8, 1024, 12, 64, True, 0, torch.bfloat16),
 
 # the sources built from both trees
 SOURCES = ("flash_attention", "striped_pair_attention", "fused_linear",
-           "matmul_stats", "paged_attention")
+           "matmul_stats", "paged_attention", "quant_matmul",
+           "fused_decode_attention")
 
 # mx_fused_conv_bn_act before it took the Winograd workspace: the conv's
 # geometry alone ("geometry")
 CONV_ARGTYPES = {
     "geometry": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17
     + [ctypes.c_void_p]}
+# mx_quant_matmul and mx_fused_decode_attention before the arrival counts
+# (PR 1-9): a finishing kernel over [ksplit, M, F] partials of 32-wide
+# steps; the fused step one block a (slot, kv head) with [S, KV, E]
+# partials, [S] counts and its shared-memory size
+_P, _I = ctypes.c_void_p, ctypes.c_int
+OLD_ARGTYPES = {
+    "quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
+    "fused_decode_attention": [_P] * 17 + [_I] * 9
+    + [ctypes.c_float, _I, _I, _P]}
+
+
+def _qmm_form(tree):
+    """"counts" if the tree's mx_quant_matmul takes the arrival counts (and
+    its fused entry the new workspaces), else "finish"."""
+    with open(os.path.join(tree, "mxnet_tpu_torch", "ops", "csrc",
+                           "quant_matmul.cu")) as f:
+        src = f.read()
+    sig = src[src.index("mx_quant_matmul("):]
+    return "counts" if "void* count" in sig[:sig.index(")")] else "finish"
 
 
 def _conv_form(tree):
@@ -102,18 +129,20 @@ def _conv_form(tree):
     return "workspace" if "void* ws" in sig else "geometry"
 
 
-def _load(K, name, path, conv_form="workspace"):
+def _load(K, name, path, conv_form="workspace", qmm_form="counts"):
     """Source ``name``'s library at ``path`` with the argument types of this
-    tree's entries (the conv entry's by ``conv_form``); an entry the
-    library lacks is left out."""
+    tree's entries (the conv entry's by ``conv_form``, the quantized
+    entries' by ``qmm_form``); an entry the library lacks is left out."""
     lib = ctypes.CDLL(path)
     for e in K.ENTRIES[name]:
         fn = getattr(lib, "mx_" + e, None)
         if fn is not None:
             fn.restype = ctypes.c_int
-            fn.argtypes = CONV_ARGTYPES[conv_form] if (
-                e == "fused_conv_bn_act" and conv_form in CONV_ARGTYPES) \
-                else K._ARGTYPES[e]
+            fn.argtypes = K._ARGTYPES[e]
+            if e == "fused_conv_bn_act" and conv_form in CONV_ARGTYPES:
+                fn.argtypes = CONV_ARGTYPES[conv_form]
+            if e in OLD_ARGTYPES and qmm_form == "finish":
+                fn.argtypes = OLD_ARGTYPES[e]
     return lib
 
 
@@ -160,11 +189,13 @@ def main():
     other = _build_other(K, args.parent)
     libs = {"other": {}, "this": {}}
     forms = {"other": _conv_form(args.parent), "this": _conv_form(HERE)}
+    qforms = {"other": _qmm_form(args.parent), "this": _qmm_form(HERE)}
     for name in SOURCES:
         for who, path in (("other", other[name][:-3] + ".log"),
                           ("this", K.build_log(name))):
             cs.log(who + cs.ptxas_summary(K, name, K.ptxas_report(path)))
-        libs["other"][name] = _load(K, name, other[name], forms["other"])
+        libs["other"][name] = _load(K, name, other[name], forms["other"],
+                                    qforms["other"])
         libs["this"][name] = _load(K, name, K._lib_path(name))
     timer = cs.Timer(dev)
     failed = _compare_flash(cs, K, libs, dev, timer)
@@ -172,6 +203,7 @@ def main():
     failed += _compare_gemm(cs, K, libs, forms, dev, timer)
     failed += _compare_f32_gemm(cs, K, libs, forms, dev, timer)
     failed += _compare_decode(cs, K, libs, dev, timer)
+    failed += _compare_quant(cs, K, libs, qforms["other"], dev, timer)
     if failed:
         raise AssertionError("outputs disagree with the other version's in "
                              "%s" % failed)
@@ -582,6 +614,105 @@ def _compare_decode(cs, K, libs, dev, timer):
         cs.log("time paged read %-30s other %.4f ms  this %.4f ms  this "
                "%.4f ms  other %.4f ms  (%.2fx)" % (
                    tag, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
+    return failed
+
+
+def _old_qmm_splits(f, e, sms):
+    """The contraction splits of the finishing-kernel quant_matmul (PR 1-9):
+    32-wide steps, two blocks an SM over 64-channel tiles."""
+    n_f, n_k = -(-f // 64), -(-e // 32)
+    want = min(n_k, max(1, -(-2 * sms // n_f)))
+    steps = -(-n_k // want)
+    return -(-n_k // steps)
+
+
+def _compare_quant(cs, K, libs, form, dev, timer):
+    """quant_matmul at the 124M LM's products (M=32 and M=256) and
+    fused_decode_attention at S=32 L=1024, this tree (the wrappers)
+    against the other's entries called in ``form``; returns the tags that
+    disagree."""
+    P = K._ptr
+    gen = torch.Generator().manual_seed(4)
+    st = torch.cuda.current_stream().cuda_stream
+    sms = K._sm_count(dev)
+    failed = []
+
+    def report(tag, this, other, calls):
+        ok, how = _agree(cs, this, other)
+        cs.log("%s: this vs other %s: %s" % (tag, how, ok))
+        if not ok:
+            failed.append(tag)
+        ms = [timer(calls[who]) for who in ("other", "this", "this",
+                                             "other")]
+        cs.log("time %-44s other %.4f ms  this %.4f ms  this %.4f ms  "
+               "other %.4f ms  (%.2fx)" % (
+                   tag, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
+
+    for m, (f, e), what in [(m, fe, w) for m in (32, 256) for fe, w in zip(
+            cs.QMM_SHAPES, ("qkv", "proj", "ffn1", "ffn2", "lm_head"))]:
+        x = cs._rand(gen, (m, e), torch.bfloat16).to(dev)
+        q, s = cs._weights(gen, f, e, 8, None, dev)
+        lib = libs["other"]["quant_matmul"]
+        out = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+        if form == "finish":
+            ks = _old_qmm_splits(f, e, sms)
+            part = torch.empty((ks, m, f), device=dev)
+            other = lambda: lib.mx_quant_matmul(
+                P(x), P(q), P(s), P(out), P(part), m, e, f, 8, 0, ks, 1, 1,
+                st)
+        else:
+            ks = K.quant_matmul_splits(f, e, sms)
+            part, cnt = K._split_workspace(m, f, ks, dev)
+            other = lambda: lib.mx_quant_matmul(
+                P(x), P(q), P(s), P(out), P(part), P(cnt), m, e, f, 8, 0,
+                ks, 1, 1, st)
+        _run("other", "quant_matmul", other)
+        mine = K.quant_matmul(x, q, s)
+        torch.cuda.synchronize()
+        report("quant_matmul %s M=%d F=%d E=%d int8" % (what, m, f, e),
+               (mine,), (out,), {"other": other,
+                                 "this": lambda: K.quant_matmul(x, q, s)})
+        del x, q, s, out, part
+
+    s_, h, d, l_ = 32, 12, 64, 1024
+    args = cs._fused_inputs(gen, s_, h, h, d, l_, 8, None, torch.bfloat16,
+                            torch.bfloat16, dev, None)
+    x, pos, kc, vc, wq, sq, bq, wo, so, bo = args
+    e = h * d
+    cos, sin = K._rope_tables(pos, d // 2, False, 10000.0)
+    out = torch.empty_like(x)
+    kn = torch.empty((s_, h, d), dtype=torch.bfloat16, device=dev)
+    vn = torch.empty_like(kn)
+    lib = libs["other"]["fused_decode_attention"]
+    head = (P(x), P(pos), P(kc), P(vc), P(wq), P(sq), P(bq), P(wo), P(so),
+            P(bo), P(cos), P(sin), P(out), P(kn), P(vn))
+    if form == "finish":
+        part = torch.empty((s_, h, e), device=dev)
+        cnt = torch.empty((s_,), dtype=torch.int32, device=dev)
+        smem = 4 * (e + (2 + 2 + 8) * d + (l_ + 1))
+        other = lambda: lib.mx_fused_decode_attention(
+            *head, P(part), P(cnt), s_, e, h, h, d, l_, 8, 0, smem,
+            1.0 / d ** 0.5, 1, 1, st)
+    else:
+        def other():
+            kw = dict(heads=h, kv_heads=h, bits=8, rope=False)
+            saved = K._lib
+            K._lib = lambda entry: getattr(lib, "mx_" + entry)
+            try:
+                o, k_, v_ = K.fused_decode_attention(*args, **kw)
+            finally:
+                K._lib = saved
+            out.copy_(o)
+            kn.copy_(k_)
+            vn.copy_(v_)
+            return 0
+    _run("other", "fused_decode_attention", other)
+    kw = dict(heads=h, kv_heads=h, bits=8, rope=False)
+    mine = K.fused_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    report("fused_decode_attention S=32 L=1024 int8", mine, (out, kn, vn),
+           {"other": other,
+            "this": lambda: K.fused_decode_attention(*args, **kw)})
     return failed
 
 

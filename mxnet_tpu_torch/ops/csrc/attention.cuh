@@ -345,14 +345,6 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* sm,
   }
 }
 
-// 2^x (ex2.approx.ftz: about 2^-22 relative error, subnormal results
-// flushed to 0, 2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // rows_dot_tile with the B fragments of two 8-key column blocks taken by
 // one ldmatrix: matrices (n, k lo), (n, k hi), (n+1, k lo), (n+1, k hi)
 template <int D>

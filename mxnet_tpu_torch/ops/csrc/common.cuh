@@ -57,6 +57,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// 2^x (ex2.approx.ftz: about 2^-22 relative error, subnormal results
+// flushed to 0, 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // One signed 4-bit value of a packed byte: the low nibble is the even
 // element, the high nibble the odd one, two's complement.
 __device__ __forceinline__ float nibble(uint8_t b, int high) {

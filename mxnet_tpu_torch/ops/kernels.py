@@ -83,7 +83,9 @@ __all__ = ["paged_attention", "default_paged_block_k", "quant_matmul",
            "striped_pair_attention_bwd_plain", "fused_linear_fwd",
            "fused_linear_plain", "build", "build_log", "parse_ptxas",
            "ptxas_report", "launch_counts", "reset_launch_counts",
-           "paged_entry", "paged_decode_splits", "conv_algo", "KERNELS",
+           "paged_entry", "paged_decode_splits", "fused_decode_splits",
+           "quant_matmul_splits",
+           "conv_algo", "KERNELS",
            "ENTRIES", "SOURCE"]
 
 # the sources build() compiles
@@ -94,7 +96,8 @@ KERNELS = ("paged_attention", "quant_matmul", "fused_decode_attention",
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
-_HEADERS = ("common.cuh", "gemm.cuh", "attention.cuh")
+_HEADERS = ("common.cuh", "gemm.cuh", "attention.cuh", "decode.cuh",
+            "qgemm.cuh")
 
 _LIBS = {}
 
@@ -279,13 +282,14 @@ _ARGTYPES = {
     # q, k, v, k_scale, v_scale, pos, out, workspace, S, C, H, KV, L, D,
     # splits, scale, q_dtype, kv_dtype, stream
     "paged_attention_decode": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
-    # x, q, scale, out, part, M, E, F, bits, group, ksplit, x_dtype,
+    # x, q, scale, out, part, count, M, E, F, bits, group, ksplit, x_dtype,
     # out_dtype, stream
-    "quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
+    "quant_matmul": [_P] * 6 + [_I] * 8 + [_P],
     # x, pos, k_cache, v_cache, wqkv, sqkv, bqkv, wo, so, bo, cos, sin,
-    # out, k_new, v_new, part, count, S, E, H, KV, D, L, bits, group,
-    # smem_bytes, scale, x_dtype, cache_dtype, stream
-    "fused_decode_attention": [_P] * 17 + [_I] * 9 + [_F, _I, _I, _P],
+    # out, k_new, v_new, then the workspaces qkv, o, part, att, count, then
+    # S, E, H, KV, D, L, bits, group, key splits, QKV and output splits,
+    # scale, x_dtype, cache_dtype, stream
+    "fused_decode_attention": [_P] * 20 + [_I] * 11 + [_F, _I, _I, _P],
     # q, k, v, o, lse, B, H, Tq, Tk, D, the batch and time strides of q,
     # k and v, scale, causal, window, dtype, stream
     "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 6
@@ -652,16 +656,17 @@ def quant_matmul(x, q, scale, *, bits=8, group=None, out_dtype=None):
     f = q.shape[0]
     out = torch.empty((m, f), dtype=out_dtype, device=x.device)
     if m:
-        ksplit = _quant_matmul_splits(f, e, x.device)
-        part = torch.empty((ksplit, m, f), dtype=torch.float32,
-                           device=x.device)
+        ksplit = quant_matmul_splits(f, e, _sm_count(x.device))
+        part, count = _split_workspace(m, f, ksplit, x.device)
         _launch("quant_matmul", _ptr(x), _ptr(q), _ptr(scale), _ptr(out),
-                _ptr(part), m, e, f, bits, group or 0, ksplit,
+                _ptr(part), _ptr(count), m, e, f, bits, group or 0, ksplit,
                 _CODE[x.dtype], _CODE[out_dtype])
     return out
 
 
-_QMM_BF, _QMM_BK = 64, 32   # csrc/quant_matmul.cu BF, BK
+# csrc/qgemm.cuh BM, BF, KS: rows and channels of a tile, contraction
+# values of a stage (the unit the splits cut)
+_QMM_BM, _QMM_BF, _QMM_KS = 32, 64, 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -670,22 +675,65 @@ def _sm_count(device):
 
 
 @functools.lru_cache(maxsize=None)
-def _quant_matmul_splits(f, e, device):
-    """How many ranges the kernel splits the contraction into: enough for
-    two blocks per SM over the weight's 64-channel tiles, whatever M is
-    (so a row's sums never depend on its batch), in whole 32-wide
-    steps."""
+def quant_matmul_splits(f, e, sms):
+    """How many ranges ``csrc/qgemm.cuh`` cuts the contraction of an
+    ``[F, E]`` weight into, on a card of ``sms`` SMs: enough for a block
+    per SM over the weight's 64-channel tiles, in whole 128-value stages,
+    each range as many stages as the next (the last may be short). A
+    function of F, E and the card, never of M: a row's sums do not depend
+    on the batch it rides in."""
     n_f = -(-f // _QMM_BF)
-    n_k = -(-e // _QMM_BK)
-    want = min(n_k, max(1, -(-2 * _sm_count(device) // n_f)))
+    n_k = -(-e // _QMM_KS)
+    want = min(n_k, max(1, -(-sms // n_f)))
     steps = -(-n_k // want)
     return -(-n_k // steps)
 
 
+_COUNTS = {}
+
+
+def _current_stream(device):
+    """The handle of the stream :func:`_launch` launches on (0 for a
+    CPU ``device``: only the tests launch from there, recording)."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _zeroed_counts(n, device):
+    """``n`` int32 arrival counts on ``device``, all 0, for a launch on
+    the current stream. The kernels that count arrivals
+    (``csrc/qgemm.cuh`` ``finish_tile``: ``quant_matmul`` and the fused
+    decode step's two GEMMs) set each count back to 0 when its last
+    arrival has read it, so one buffer serves every launch on one stream,
+    with no memset. Launches on a stream run one after another; two
+    streams may run at once, so each stream has a buffer of its own."""
+    key = (device, _current_stream(device))
+    buf = _COUNTS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                         device=device)
+    return buf
+
+
+def _split_workspace(m, f, ksplit, device):
+    """The f32 partials and arrival counts of an ``[m, f]`` product cut
+    into ``ksplit`` contraction ranges (None for one range)."""
+    if ksplit == 1:
+        return None, None
+    tiles = -(-m // _QMM_BM) * -(-f // _QMM_BF)
+    part = torch.empty(tiles * ksplit * _QMM_BM * _QMM_BF,
+                       dtype=torch.float32, device=device)
+    return part, _zeroed_counts(tiles, device)
+
+
 # -- fused_decode_attention -------------------------------------------------
 
-_FD_WARPS = 8            # csrc/fused_decode_attention.cu THREADS / 32
 _SMEM_MAX = 232448       # bytes of shared memory a block may use (H100)
+# keys x head_dim a split of the fused step's read takes at least (512
+# keys at D = 64): four times the decode entry's, since each of its splits
+# also costs a merge read, and a decode step's slots are many
+_FD_SPLIT_ELEMS = 32768
 
 
 def _rope_tables(pos, half, rope, rope_base):
@@ -697,6 +745,17 @@ def _rope_tables(pos, half, rope, rope_base):
     ang = pos.to(torch.float32)[:, None] \
         * rope_freqs(half, rope_base, pos.device)[None, :]
     return torch.cos(ang), torch.sin(ang)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_decode_splits(l_, d, sms):
+    """How many key ranges the fused step's read cuts a slot's ``l_`` cache
+    rows into: :func:`paged_decode_splits`' rule with ranges of at least
+    ``32768 // d`` keys. A function of the cache's shape and the card
+    alone, never of ``pos`` or the slot count."""
+    per = max(1, _FD_SPLIT_ELEMS // d)
+    return max(1, min(-(-l_ // per), sms // _DEC_SMS_PER_SPLIT,
+                      _DEC_MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=64)
@@ -753,7 +812,9 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
                            group=None, rope=True, rope_base=10000.0,
                            scale=None):
     """One decode step's QKV projection -> rope -> attention -> output
-    projection in one launch (``matmul_impl="fused"``, paged, C == 1).
+    projection in one C entry call (``matmul_impl="fused"``, paged, C ==
+    1): a GEMM over all slots, a split-KV read and merge, and a GEMM over
+    all slots (``csrc/fused_decode_attention.cu``).
 
     Per slot: dequantize and apply the QKV weights to the token, rotate
     q/k at the slot's position (half-split rope), attend over the live
@@ -799,10 +860,13 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
             x, pos, k_cache, v_cache, wqkv, sqkv, bq, wo, so, bo_, cos,
             sin, heads, bits, group, scale)
     g = heads // kv
-    smem = 4 * (e + (2 * g + 2 + _FD_WARPS) * d + g * (l_ + 1))
+    # the merge of a kv head's splits holds its G roped q rows, k_new and
+    # 35 floats a row (csrc/fused_decode_attention.cu merge_smem)
+    smem = 4 * ((g + 1) * d + 35 * g)
     _check(smem <= _SMEM_MAX,
-           "fused_decode_attention: E=%d and L=%d need %d bytes of shared "
-           "memory, more than a block has", e, l_, smem)
+           "fused_decode_attention: %d query heads a kv head of head_dim "
+           "%d need %d bytes of shared memory, more than a block has",
+           g, d, smem)
     _check(d in (8, 16, 32, 64, 128),
            "fused_decode_attention: the kernel reads a cache row in whole "
            "16-byte chunks: head_dim must be a power of two in [8, 128], "
@@ -812,18 +876,34 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
             ("wo", wo), ("so", so))
     _aligned(16, ("k_cache", k_cache), ("v_cache", v_cache),
              ("wqkv", wqkv), ("wo", wo))
+    dev = x.device
     out = torch.empty_like(x)
-    kn = torch.empty((s_, kv, d), dtype=k_cache.dtype, device=x.device)
+    kn = torch.empty((s_, kv, d), dtype=k_cache.dtype, device=dev)
     vn = torch.empty_like(kn)
-    # per (slot, kv head) partial output rows, and per slot the count of
-    # its blocks that have finished (zeroed by the C entry)
-    part = torch.empty((s_, kv, e), dtype=torch.float32, device=x.device)
-    count = torch.empty((s_,), dtype=torch.int32, device=x.device)
+    sms = _sm_count(dev)
+    ns = fused_decode_splits(l_, d, sms)
+    ks1, ks3 = quant_matmul_splits(fq, e, sms), quant_matmul_splits(e, e, sms)
+    # the workspaces: the projection [S, FQ] (f32), the attention output
+    # [S, E] (x's dtype), the GEMMs' split partials, each key split's (m,
+    # l, acc[D]) per query row, and the arrival counts of the phase 1 and
+    # phase 3 tiles
+    nmt = -(-s_ // _QMM_BM)
+    tiles1, tiles3 = nmt * -(-fq // _QMM_BF), nmt * -(-e // _QMM_BF)
+    qkv = torch.empty((s_, fq), dtype=torch.float32, device=dev)
+    o = torch.empty_like(x)
+    nparts = max(tiles1 * ks1 if ks1 > 1 else 0,
+                 tiles3 * ks3 if ks3 > 1 else 0)
+    part = torch.empty(nparts * _QMM_BM * _QMM_BF, dtype=torch.float32,
+                       device=dev) if nparts else None
+    att = torch.empty((s_, kv, ns, g, d + 2), dtype=torch.float32,
+                      device=dev)
+    count = _zeroed_counts(tiles1 + tiles3, dev)
     _launch("fused_decode_attention", _ptr(x), _ptr(pos), _ptr(k_cache),
             _ptr(v_cache), _ptr(wqkv), _ptr(sqkv), _ptr(bq), _ptr(wo),
             _ptr(so), _ptr(bo_), _ptr(cos), _ptr(sin), _ptr(out),
-            _ptr(kn), _ptr(vn), _ptr(part), _ptr(count), s_, e, heads, kv,
-            d, l_, bits, group or 0, smem, float(scale), _CODE[x.dtype],
+            _ptr(kn), _ptr(vn), _ptr(qkv), _ptr(o), _ptr(part), _ptr(att),
+            _ptr(count), s_, e, heads, kv, d, l_, bits, group or 0, ns, ks1,
+            ks3, float(scale), _CODE[x.dtype],
             _CODE[k_cache.dtype])
     return out, kn, vn
 
