@@ -25,7 +25,10 @@ Phases:
    16-128 and NaN past the live rows, its chunk entry at
    C = 16/64/100/128/256, pos 0, 512 and L-C, one and three slots, GQA,
    and with NaN in the dead cache rows, each case asserted on the entry
-   its route picks); ``flash_attention`` forward, dQ and
+   its route picks; the int8 cache at the chunk entry's breadth with NaN
+   in the row scales past the live keys; the scalar entry at an f32 q over
+   an f32 cache at C = 64 and 256, bf16 at head_dim 100, and the int8
+   cache under an f32 q); ``flash_attention`` forward, dQ and
    dK/dV (B=8 T=1024 12 heads of 64 causal bf16; T=100 and T=1000,
    non-causal, window 33, f32 and bf16, head_dim 8-128; two runs of the
    bf16 backward give the same bits) and through
@@ -59,9 +62,11 @@ Phases:
    product), the stem and a 1x1 stride-2 projection, with the bf16 row
    beside them; the striped hop's forward and backward beside the
    efficient-attention calls; the paged chunk at C =
-   64/128/256 and the decode entry at C = 1 (bf16 beside SDPA with a mask,
+   64/128/256 in bf16 and at the int8-KV prefill's C = 256 with the int8
+   cache, and the decode entry at C = 1 (bf16 beside SDPA with a mask,
    and int8) and C = 4, each beside the scalar paged entry on the same
-   inputs, in turns; the scalar entry at the int8-KV prefill's C = 256);
+   inputs, in turns; the scalar entry's own row at an f32 C = 256 chunk,
+   which no path runs);
 4. the serving main path: the 124M LM (12 layers, E=768, 12 heads, vocab
    32000, seeded random weights) saved with ``save_checkpoint`` and served
    by ``InferenceEngine.from_checkpoint`` with paged attention, int8
@@ -79,10 +84,12 @@ Phases:
    256-token prefill's wall and card time; then the same checkpoint
    served by the engine's default configuration (float weights, dense
    products: ``paged_attention_decode`` for every decode step's read) and
-   with the int8 KV cache (the decode entry for decode steps, the scalar
-   ``paged_attention`` entry for prefills), one wave each, counters zeroed
-   just before and read just after, exact launches, two streams equal to
-   ``Decoder.generate``, and the default one's decode profile; then small
+   with the int8 KV cache (the decode entry for decode steps,
+   ``paged_attention_chunk`` for prefills, no launch of the scalar
+   entry), one wave each, counters zeroed just before and read just
+   after, exact launches, two streams equal to ``Decoder.generate``, the
+   default one's decode profile and the int8 one's 256-token prefill
+   timed; then small
    LMs in the decoder's other modes (int4 weights, the int8 KV cache
    through the C=1 paged read, float weights, rope, GQA) are held against
    the plain path on the host;
@@ -153,6 +160,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
 TIMING_RUNS = 25
+
+# C entries no main path launches: the kernels line reports 0 for them
+OFF_PATH = ("paged_attention",)
 
 
 def log(*a):
@@ -349,11 +359,15 @@ def paged_cases(sms):
     pos on the edges of its key ranges (range - 1, range, L - C) and L not
     a multiple of the range (L = 1001, ranges of 126 keys at head_dim 64),
     GQA 12->3 and 12->4, NaN past each slot's live rows at C = 1 and 4, the
-    int8 and f32 caches, and head_dim 16, 32, 100 and 128. Then the bf16
-    chunks the chunk entry takes: C in {16, 64, 100, 128, 256}, pos 0, 512
-    and L-C (L=1024), one slot and three slots at those three positions,
-    GQA 12->4 and 12->12, cases whose cache rows past each slot's live keys
-    hold NaN (never read), and head_dim 16, 32 and 128."""
+    int8 and f32 caches, and head_dim 16, 32, 100 and 128. Then the chunks
+    the chunk entry takes, a bf16 q over the bf16 and over the int8 cache
+    alike: C in {16, 64, 100, 128, 256}, pos 0, 512 and L-C (L=1024), one
+    slot and three slots at those three positions, GQA 12->4 and 12->12,
+    cases whose cache rows (int8: whose row scales) past each slot's live
+    keys hold NaN (never read), and head_dim 16, 32 and 128. Then what the
+    scalar entry still takes: an f32 q over an f32 cache at C = 64 and
+    256, bf16 at head_dim 100 with C = 64, and the int8 cache under an f32
+    q, with NaN scales past the live keys."""
     from mxnet_tpu_torch.ops.kernels import paged_decode_splits
 
     def edges(l_, d, c):
@@ -391,25 +405,35 @@ def paged_cases(sms):
                       False))
     cases.append((3, 1, 12, 3, 100, 1000, "int8", f32, edges(1000, 100, 1),
                   False))
-    for c in (16, 64, 100, 128, 256):
-        for h, kv in ((12, 12), (12, 4)):
-            at = [0, 512, 1024 - c]
-            cases += [(1, c, h, kv, 64, 1024, "bf16", bf, [p], False)
-                      for p in at]
-            cases.append((3, c, h, kv, 64, 1024, "bf16", bf, at, False))
-    cases += [(3, 100, 12, 4, 64, 1024, "bf16", bf, [0, 300, 924], True),
-              (1, 256, 12, 12, 64, 1024, "bf16", bf, [0], True)]
-    cases += [(2, 100, 4, 2, d, 256, "bf16", bf, [0, 156], False)
-              for d in (16, 32, 128)]
+    for kind in ("bf16", "int8"):
+        for c in (16, 64, 100, 128, 256):
+            for h, kv in ((12, 12), (12, 4)):
+                at = [0, 512, 1024 - c]
+                cases += [(1, c, h, kv, 64, 1024, kind, bf, [p], False)
+                          for p in at]
+                cases.append((3, c, h, kv, 64, 1024, kind, bf, at, False))
+        cases += [(3, 100, 12, 4, 64, 1024, kind, bf, [0, 300, 924], True),
+                  (1, 256, 12, 12, 64, 1024, kind, bf, [0], True)]
+        cases += [(2, 100, 4, 2, d, 256, kind, bf, [0, 156], False)
+                  for d in (16, 32, 128)]
+        cases.append((3, 64, 12, 4, 128, 1024, kind, bf, [0, 300, 960],
+                      True))
+    cases += [(2, 64, 12, 4, 64, 1024, "f32", f32, [0, 960], False),
+              (1, 256, 12, 12, 64, 1024, "f32", f32, [0], False),
+              (2, 64, 12, 4, 100, 1000, "bf16", bf, [0, 936], False),
+              (2, 64, 12, 4, 64, 1024, "int8", f32, [0, 512], False),
+              (3, 100, 12, 4, 64, 1024, "int8", f32, [0, 300, 924], True)]
     return cases
 
 
 def check_paged_attention(K, dev, gen):
     """Every case of ``paged_cases`` against the plain version, on the C
     entry ``K.paged_entry`` picks for it (asserted from the launch
-    counters). A case with NaN past each slot's live rows is held against
-    the plain version slot by slot (it reads up to the largest pos + C of
-    its batch). Returns {entry: max |err|}."""
+    counters); every entry takes some case. A case with NaN past each
+    slot's live rows (in the rows of a float cache, in the row scales of
+    an int8 one) is held against the plain version slot by slot (it reads
+    up to the largest pos + C of its batch). Returns {entry: max
+    |err|}."""
     worst = {"paged_attention": 0.0, "paged_attention_chunk": 0.0,
              "paged_attention_decode": 0.0}
     counts = dict.fromkeys(worst, 0)
@@ -422,8 +446,8 @@ def check_paged_attention(K, dev, gen):
         k, v, ks, vs = _cache(gen, s_, l_, kv, d, kind, dev)
         if nan:
             for i, p in enumerate(pos.tolist()):
-                k[i, p + c:] = float("nan")
-                v[i, p + c:] = float("nan")
+                for t in ((ks, vs) if kind == "int8" else (k, v)):
+                    t[i, p + c:] = float("nan")
         entry = K.paged_entry(q.dtype, k.dtype, c, d)
         before = K.launch_counts()
         got = K.paged_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
@@ -447,6 +471,9 @@ def check_paged_attention(K, dev, gen):
             " NaN past the live rows" if nan else ""), got, want)
         worst[entry] = max(worst[entry], err)
         counts[entry] += 1
+    idle = [e for e, n in counts.items() if not n]
+    if idle:
+        raise AssertionError("paged_attention: no case reached %s" % idle)
     log("paged_attention: %d cases agree, %s by entry (%d with NaN past "
         "the live rows); max |err| %s" % (
             sum(counts.values()), counts, sum(1 for cs in cases if cs[-1]),
@@ -582,21 +609,24 @@ def time_kernels(K, dev, gen, worst):
 
     # paged_attention: the serving buckets' prefill chunks (C = 64, 128,
     # 256 at pos 0) on the chunk entry, and the int8-KV serve's C = 256
-    # chunk on the scalar entry (the kernels line's row of it); then the
-    # decode entry at C = 1 over 32 slots with a bf16 cache (the default
-    # serving configuration's read, beside SDPA with a mask) and with the
-    # int8 cache (the int8-KV serve's), and at C = 4 (a spec_k = 3 verify
-    # chunk). Each row off the scalar entry puts the scalar entry beside
-    # it on the same inputs, in turns.
+    # chunk on it too (the chunk row's "int8"); the scalar entry's own row
+    # at an f32 C = 256 chunk, on no path; then the decode entry at C = 1
+    # over 32 slots with a bf16 cache (the default serving configuration's
+    # read, beside SDPA with a mask) and with the int8 cache (the int8-KV
+    # serve's), and at C = 4 (a spec_k = 3 verify chunk). Each row off the
+    # scalar entry puts the scalar entry beside it on the same inputs, in
+    # turns.
     l_, h, d = 1024, 12, 64
     for s_, c, pos, kind in ((1, 64, [0], "bf16"), (1, 128, [0], "bf16"),
                              (1, 256, [0], "bf16"), (1, 256, [0], "int8"),
+                             (1, 256, [0], "f32"),
                              (32, 1, None, "bf16"), (32, 1, None, "int8"),
                              (32, 4, None, "bf16")):
         if pos is None:
             pos = torch.randint(0, l_ - c + 1, (s_,), generator=gen)
         pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
-        q = _rand(gen, (s_, c, h, d), torch.bfloat16).to(dev)
+        qdt = torch.float32 if kind == "f32" else torch.bfloat16
+        q = _rand(gen, (s_, c, h, d), qdt).to(dev)
         k, v, ks, vs = _cache(gen, s_, l_, h, d, kind, dev)
         keys = [int(p) + cc + 1 for p in pos.tolist() for cc in range(c)]
         live_rows = sum(int(p) + c for p in pos.tolist())
@@ -605,7 +635,8 @@ def time_kernels(K, dev, gen, worst):
         flops = 4 * h * d * sum(keys)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         entry = K.paged_entry(q.dtype, k.dtype, c, d)
-        shape = "S=%d C=%d H=12 L=1024 %s KV" % (s_, c, kind)
+        shape = "S=%d C=%d H=12 L=1024 %s KV%s" % (
+            s_, c, kind, ", f32 q" if kind == "f32" else "")
         lib = None
         if c < 16 and kind == "bf16":
             mask = (torch.arange(l_, device=dev)[None, None, :]
@@ -616,7 +647,7 @@ def time_kernels(K, dev, gen, worst):
             def lib():
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=mask)
-        elif kind == "bf16":
+        elif kind != "int8":
             def lib():
                 return F.scaled_dot_product_attention(
                     qt, kt[:, :, :c], vt[:, :, :c], is_causal=True)
@@ -625,7 +656,7 @@ def time_kernels(K, dev, gen, worst):
             return K.paged_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
         r = row(entry, shape, wrapper,
                 lambda: K.paged_attention_plain(q, k, v, pos, ks, vs),
-                lib, nb, flops, torch.bfloat16)
+                lib, nb, flops, qdt)
         if entry != "paged_attention":
             out = torch.empty_like(q)
             P = K._ptr
@@ -642,7 +673,7 @@ def time_kernels(K, dev, gen, worst):
             r["scalar_ms"] = statistics.median([sms[0], sms[3]])
         if entry == "paged_attention_decode" and c == 1 and kind == "bf16":
             entries[entry] = r
-        elif entry == "paged_attention_decode":
+        elif entry == "paged_attention_decode" or kind == "int8":
             entries[entry]["int8" if kind == "int8" else "c%d" % c] = {
                 k_: r[k_] for k_ in ("ms", "scalar_ms", "plain_ms",
                                      "library_ms", "bound_ms", "shape")}
@@ -1697,7 +1728,7 @@ def serve_main_path(K, dev):
     return launches, prefix, work
 
 
-def time_prefill(K, dec, reps=10, profiled=3):
+def time_prefill(K, dec, reps=10, profiled=3, what="124M"):
     """One 256-token prefill of the 124M decoder (the largest bucket, one
     slot, pos 0): its wall time after a synchronize (median and min-max of
     ``reps``), then, over ``profiled`` more under torch.profiler, its card
@@ -1729,10 +1760,11 @@ def time_prefill(K, dec, reps=10, profiled=3):
             and e.self_device_time_total > 0]
     total = sum(us for _, us in rows) / profiled / 1e3
     paged = sum(us for key, us in rows if "fwd_mma" in key) / profiled / 1e3
-    log("prefill of %d tokens (124M, one slot, pos 0): wall %.3f ms median "
+    log("prefill of %d tokens (%s, one slot, pos 0): wall %.3f ms median "
         "(%.3f-%.3f) after a synchronize; card kernels %.3f ms, of which "
         "the paged chunk kernel %.4f ms (%d launches a prefill); %s" % (
-            BUCKETS[-1], statistics.median(walls), min(walls), max(walls),
+            BUCKETS[-1], what, statistics.median(walls), min(walls),
+            max(walls),
             total, paged, chunks // profiled, card_line()))
 
 
@@ -1803,11 +1835,12 @@ def serve_int8_kv_path(K, dev, prefix, work):
     (``cache_dtype="int8"``): the decode chain runs unfused, so each decode
     step's attention is a C=1 read of the int8 rows through
     ``paged_attention_decode``, and each prefill chunk (C >= 64) goes
-    through the scalar ``paged_attention`` entry. One wave of the main
+    through ``paged_attention_chunk`` (the int8 tiles on the tensor cores),
+    none through the scalar ``paged_attention`` entry. One wave of the main
     path's requests with the counters zeroed just before it and read just
     after: exact launches, every budget met, and two requests' streams
-    equal to ``Decoder.generate`` of the same decoder. Returns the launch
-    counts."""
+    equal to ``Decoder.generate`` of the same decoder; then one 256-token
+    prefill's wall and card time. Returns the launch counts."""
     from mxnet_tpu_torch.serving import InferenceEngine
 
     engine = InferenceEngine.from_checkpoint(
@@ -1833,7 +1866,7 @@ def serve_int8_kv_path(K, dev, prefix, work):
             raise AssertionError("int8 KV: request %s did not finish its "
                                  "budget: %r" % (h.id, h))
     want = dict.fromkeys(launches, 0)
-    want.update({"paged_attention": LAYERS * prefills,
+    want.update({"paged_attention_chunk": LAYERS * prefills,
                  "paged_attention_decode": LAYERS * steps,
                  # qkv, out, ffn1 and ffn2 per layer + lm_head, per decode
                  # step and per prefill
@@ -1852,6 +1885,7 @@ def serve_int8_kv_path(K, dev, prefix, work):
         "= %.1f tokens/s, ms per token p50 %.3f p99 %.3f; launches %s" % (
             len(handles), prefills, steps, secs, tps, p50, p99,
             json.dumps({e: n for e, n in launches.items() if n})))
+    time_prefill(K, dec, what="124M, int8 KV")
     return launches
 
 
@@ -2726,6 +2760,15 @@ def main():
         "%s %.1f s" % kv for kv in secs.items())))
     for kname in K.KERNELS:
         log(ptxas_summary(K, kname))
+    # the paged chunk's instantiations, bf16 and int8 cache; the int8
+    # ones must not spill
+    log(ptxas_lines(K, "paged_attention", ["fwd_mma"]))
+    spilled = [r["name"] for r in K.ptxas_report(
+        K.build_log("paged_attention"))
+        if "fwd_mma" in r["name"] and "signed char" in r["name"]
+        and (r["spill_stores"] or r["spill_loads"])]
+    if spilled:
+        raise AssertionError("the int8 paged chunk spills: %s" % spilled)
 
     gen = torch.Generator().manual_seed(0)
     worst = {"quant_matmul": check_quant_matmul(K, dev, gen),
@@ -2747,8 +2790,7 @@ def main():
     launches, prefix, work = serve_main_path(K, dev)
     launches["paged_attention_decode"] = serve_default_path(
         K, dev, prefix, work)["paged_attention_decode"]
-    launches["paged_attention"] = serve_int8_kv_path(
-        K, dev, prefix, work)["paged_attention"]
+    serve_int8_kv_path(K, dev, prefix, work)
     check_small_against_host(dev)
     launches.update({e: n for e, n in train_main_path(K, dev).items()
                      if e in TRAIN_ENTRIES})
@@ -2774,7 +2816,10 @@ def main():
         "fused_linear": 725,            # _gemm_epi_kernel
         "fused_conv_bn_act": 838,
         "matmul_stats": 876}            # _gemm_stats_kernel
-    missing = [e for e in K.SOURCE if not launches[e]]
+    # the scalar paged entry takes what no path runs (an f32 q or cache
+    # at C >= 16, an int8 cache under an f32 q): its row is off the paths
+    missing = [e for e in K.SOURCE if not launches[e]
+               and e not in OFF_PATH]
     if missing:
         raise AssertionError("the main paths never launched %s" % missing)
     line = {"kernels": [dict(

@@ -2,8 +2,9 @@
 """This tree's CUDA kernels against another version of their sources, in
 one process on one card: ``flash_attention``'s and
 ``striped_pair_attention``'s entries, the GEMMs behind ``fused_linear``,
-``fused_conv_bn_act`` and ``matmul_stats`` in bf16 and f32, and the
-short-chunk paged read.
+``fused_conv_bn_act`` and ``matmul_stats`` in bf16 and f32, the paged
+reads (short chunks and prefill chunks) and the int8-weight decode
+step.
 
     python3 compare_flash.py --parent DIR
 
@@ -11,7 +12,8 @@ DIR is a checkout of another commit (``git archive <commit> | tar -x -C
 DIR``). Its ``flash_attention.cu``, ``striped_pair_attention.cu``,
 ``fused_linear.cu``, ``matmul_stats.cu`` and ``paged_attention.cu``
 (under ``mxnet_tpu_torch/ops/csrc``) are built beside this tree's, all at
-once, and the same inputs go through both builds. Each comparison is held
+once, and the same inputs go through both builds, each entry with the
+argument types its own tree's source declares. Each comparison is held
 to the tolerance below and also says whether the two builds' outputs are
 bitwise equal.
 
@@ -51,12 +53,19 @@ bitwise equal.
   for the same call, ``paged_attention_decode`` if it has one, else the
   scalar ``paged_attention``; bf16 and int8 caches at C=1, bf16 at C=4.
   Outputs within ``chip_smoke.TOL`` of the other's.
+* the prefill chunk (12 heads of 64, L=1024): this tree's bf16
+  ``paged_attention_chunk`` against the other's at C = 64, 128, 256 (one
+  slot, pos 0) and C = 100 over three slots with GQA 12->4; this tree's
+  int8 chunk against the other's entry for the same call (the scalar
+  ``paged_attention`` in a tree before the int8 chunk) at C = 64, 128,
+  256. Outputs within ``chip_smoke.TOL`` of the other's.
 * the int8-weight decode step: ``quant_matmul`` at the 124M LM's five
   products at M=32 (a decode step) and M=256 (a prefill), bf16 x and out,
   and ``fused_decode_attention`` at S=32, 12 heads of 64, L=1024, random
   pos, int8, bf16, each entry called in the form its tree's
   source declares (``_qmm_form``: with or without the arrival counts;
-  the old fused entry's per-slot partials, counts and shared-memory size).
+  the old fused entry's per-slot partials, counts and shared-memory size;
+  an older fused entry's lack of a dtype for k_new and v_new).
   Outputs within ``chip_smoke.TOL`` of the other's.
 
 Each shape of the 124M LM, of the SP hop and of ResNet-50 is then timed in
@@ -87,20 +96,27 @@ SOURCES = ("flash_attention", "striped_pair_attention", "fused_linear",
            "matmul_stats", "paged_attention", "quant_matmul",
            "fused_decode_attention")
 
-# mx_fused_conv_bn_act before it took the Winograd workspace: the conv's
-# geometry alone ("geometry")
-CONV_ARGTYPES = {
-    "geometry": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17
-    + [ctypes.c_void_p]}
-# mx_quant_matmul and mx_fused_decode_attention before the arrival counts
-# (PR 1-9): a finishing kernel over [ksplit, M, F] partials of 32-wide
-# steps; the fused step one block a (slot, kv head) with [S, KV, E]
-# partials, [S] counts and its shared-memory size
-_P, _I = ctypes.c_void_p, ctypes.c_int
-OLD_ARGTYPES = {
-    "quant_matmul": [_P] * 5 + [_I] * 8 + [_P],
-    "fused_decode_attention": [_P] * 17 + [_I] * 9
-    + [ctypes.c_float, _I, _I, _P]}
+_CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "long long": ctypes.c_longlong}
+
+
+def _argtypes(tree, source, entry):
+    """``mx_<entry>``'s argument types as the tree's ``<source>.cu``
+    declares them (pointers as ``c_void_p``), or None if it has no such
+    entry."""
+    with open(os.path.join(tree, "mxnet_tpu_torch", "ops", "csrc",
+                           source + ".cu")) as f:
+        src = f.read()
+    at = src.find("mx_%s(" % entry)
+    if at < 0:
+        return None
+    sig = src[at:]
+    types = []
+    for p in sig[sig.index("(") + 1:sig.index(")")].split(","):
+        words = p.replace("const ", "").replace("*", " * ").split()[:-1]
+        types.append(ctypes.c_void_p if "*" in words
+                     else _CTYPES[" ".join(words)])
+    return types
 
 
 def _qmm_form(tree):
@@ -129,20 +145,16 @@ def _conv_form(tree):
     return "workspace" if "void* ws" in sig else "geometry"
 
 
-def _load(K, name, path, conv_form="workspace", qmm_form="counts"):
-    """Source ``name``'s library at ``path`` with the argument types of this
-    tree's entries (the conv entry's by ``conv_form``, the quantized
-    entries' by ``qmm_form``); an entry the library lacks is left out."""
+def _load(K, name, path, tree):
+    """Source ``name``'s library at ``path``, each entry with the argument
+    types ``tree``'s source declares (:func:`_argtypes`); an entry the
+    library lacks is left out."""
     lib = ctypes.CDLL(path)
     for e in K.ENTRIES[name]:
         fn = getattr(lib, "mx_" + e, None)
         if fn is not None:
             fn.restype = ctypes.c_int
-            fn.argtypes = K._ARGTYPES[e]
-            if e == "fused_conv_bn_act" and conv_form in CONV_ARGTYPES:
-                fn.argtypes = CONV_ARGTYPES[conv_form]
-            if e in OLD_ARGTYPES and qmm_form == "finish":
-                fn.argtypes = OLD_ARGTYPES[e]
+            fn.argtypes = _argtypes(tree, name, e)
     return lib
 
 
@@ -194,15 +206,15 @@ def main():
         for who, path in (("other", other[name][:-3] + ".log"),
                           ("this", K.build_log(name))):
             cs.log(who + cs.ptxas_summary(K, name, K.ptxas_report(path)))
-        libs["other"][name] = _load(K, name, other[name], forms["other"],
-                                    qforms["other"])
-        libs["this"][name] = _load(K, name, K._lib_path(name))
+        libs["other"][name] = _load(K, name, other[name], args.parent)
+        libs["this"][name] = _load(K, name, K._lib_path(name), HERE)
     timer = cs.Timer(dev)
     failed = _compare_flash(cs, K, libs, dev, timer)
     failed += _compare_striped(cs, K, libs, dev, timer)
     failed += _compare_gemm(cs, K, libs, forms, dev, timer)
     failed += _compare_f32_gemm(cs, K, libs, forms, dev, timer)
     failed += _compare_decode(cs, K, libs, dev, timer)
+    failed += _compare_chunk(cs, K, libs, dev, timer)
     failed += _compare_quant(cs, K, libs, qforms["other"], dev, timer)
     if failed:
         raise AssertionError("outputs disagree with the other version's in "
@@ -617,6 +629,71 @@ def _compare_decode(cs, K, libs, dev, timer):
     return failed
 
 
+def _chunk_call(K, lib, q, k, v, ks, vs, pos, out, shape, st):
+    """mx_paged_attention_chunk of ``lib`` in the form its source
+    declares: with the row scales and the cache's dtype code, or, in a
+    tree from before the int8 chunk, the bf16 form."""
+    P = K._ptr
+    fn = lib.mx_paged_attention_chunk
+    if len(fn.argtypes) == len(K._ARGTYPES["paged_attention_chunk"]):
+        return fn(P(q), P(k), P(v), P(ks), P(vs), P(pos), P(out), *shape,
+                  K._CODE[k.dtype], st)
+    return fn(P(q), P(k), P(v), P(pos), P(out), *shape, st)
+
+
+def _compare_chunk(cs, K, libs, dev, timer):
+    """The prefill chunk: this tree's bf16 chunk against the other's (C =
+    64, 128, 256 at pos 0, one slot; C = 100 over three slots at pos 0,
+    300, 924 with GQA 12->4), and this tree's int8 chunk against the
+    other's entry for the same call (the scalar ``paged_attention`` in a
+    tree before the int8 chunk) at C = 64, 128, 256, pos 0: outputs within
+    ``cs.TOL`` of the other's, each timed in turns. Returns the tags that
+    disagree."""
+    P = K._ptr
+    gen = torch.Generator().manual_seed(6)
+    st = torch.cuda.current_stream().cuda_stream
+    l_, h, d = 1024, 12, 64
+    failed = []
+    cases = [(1, c, 12, [0], "bf16") for c in (64, 128, 256)] \
+        + [(3, 100, 4, [0, 300, 924], "bf16")] \
+        + [(1, c, 12, [0], "int8") for c in (64, 128, 256)]
+    for s_, c, kv, pos, kind in cases:
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = cs._rand(gen, (s_, c, h, d), torch.bfloat16).to(dev)
+        k, v, ks, vs = cs._cache(gen, s_, l_, kv, d, kind, dev)
+        shape = (s_, c, h, kv, l_, d, 1.0 / d ** 0.5)
+        outs, calls = {}, {}
+        for who in ("other", "this"):
+            lib = libs[who]["paged_attention"]
+            out = torch.empty_like(q)
+            if who == "other" and kind == "int8" and len(
+                    lib.mx_paged_attention_chunk.argtypes) != len(
+                        K._ARGTYPES["paged_attention_chunk"]):
+                calls[who] = lambda lib=lib, out=out: \
+                    lib.mx_paged_attention(
+                        P(q), P(k), P(v), P(ks), P(vs), P(pos), P(out),
+                        *shape, K._CODE[q.dtype], K._CODE[k.dtype], st)
+            else:
+                calls[who] = lambda lib=lib, out=out: _chunk_call(
+                    K, lib, q, k, v, ks, vs, pos, out, shape, st)
+            _run(who, "paged chunk", calls[who])
+            outs[who] = out
+        torch.cuda.synchronize()
+        ok, how = _agree(cs, (outs["this"],), (outs["other"],))
+        tag = "S=%d C=%d H=12 KV=%d L=1024 pos=%s %s KV" % (
+            s_, c, kv, pos.tolist(), kind)
+        cs.log("paged chunk %s: this (chunk entry) vs other %s: %s"
+               % (tag, how, ok))
+        if not ok:
+            failed.append(tag)
+        ms = [timer(calls[who]) for who in ("other", "this", "this",
+                                             "other")]
+        cs.log("time paged chunk %-40s other %.4f ms  this %.4f ms  this "
+               "%.4f ms  other %.4f ms  (%.2fx)" % (
+                   tag, *ms, (ms[0] + ms[3]) / (ms[1] + ms[2])))
+    return failed
+
+
 def _old_qmm_splits(f, e, sms):
     """The contraction splits of the finishing-kernel quant_matmul (PR 1-9):
     32-wide steps, two blocks an SM over 64-channel tiles."""
@@ -694,10 +771,17 @@ def _compare_quant(cs, K, libs, form, dev, timer):
             *head, P(part), P(cnt), s_, e, h, h, d, l_, 8, 0, smem,
             1.0 / d ** 0.5, 1, 1, st)
     else:
+        fn = lib.mx_fused_decode_attention
+        # a tree whose entry takes no dtype for k_new and v_new: the
+        # wrapper's last argument before the stream is dropped
+        call = fn if len(fn.argtypes) == len(
+            K._ARGTYPES["fused_decode_attention"]) \
+            else (lambda *a: fn(*a[:-2], a[-1]))
+
         def other():
             kw = dict(heads=h, kv_heads=h, bits=8, rope=False)
             saved = K._lib
-            K._lib = lambda entry: getattr(lib, "mx_" + entry)
+            K._lib = lambda entry: call
             try:
                 o, k_, v_ = K.fused_decode_attention(*args, **kw)
             finally:

@@ -14,9 +14,9 @@
 //   cotangent g_lse of the hop's output is folded into the backward's row
 //   term: dcap = rowsum(dO * O) - g_lse (_spair_bwd_impl l.603-604).
 // * Paged, the slot-paged prefill chunk (paged_attention l.1115; forward
-//   only, bf16, no lse): chunk row c of slot b sees cached key k when
-//   k <= pos[b] + c, the block reading pos[b] itself; query head h reads
-//   kv head h / group (GQA).
+//   only, a bf16 q over a bf16 or an int8 cache, no lse): chunk row c of
+//   slot b sees cached key k when k <= pos[b] + c, the block reading
+//   pos[b] itself; query head h reads kv head h / group (GQA).
 //
 // A row with no visible key gives o = 0 and lse = -1e30 (the striped
 // hop's empty-row convention, l.482-485), instead of NaN. Whole key tiles
@@ -113,6 +113,8 @@
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -402,25 +404,111 @@ __device__ __forceinline__ void rows_dot_tile_smem(float (*acc)[4],
   }
 }
 
+// issue rows [t0, t0 + R) of int8 head (b, h) into an unpadded [R][D]
+// shared tile by NT threads, 16 values a copy, zeros at and past row tend
+// (not read)
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_tile_i8_async(int8_t* sm,
+                                                   const int8_t* base, int b,
+                                                   int t0, int tend, int h,
+                                                   Lay l) {
+  constexpr int CH = D / 16;  // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < (R * CH + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if ((R * CH) % NT != 0 && i >= R * CH) break;
+    const int r = i / CH, c = (i % CH) * 16;
+    const int t = t0 + r;
+    const bool in = t < tend;
+    cp_async16(sm + r * D + c, in ? row_ptr(base, b, t, h, l, D) + c : base,
+               in);
+  }
+}
+
+// issue the f32 scales of rows [t0, t0 + R) of kv head hk of slot b from
+// [B, Tk, KV] into shared memory, one a thread from thread `first`, zeros
+// at and past row tend (not read: a masked probability is 0, but 0 times
+// an unwritten NaN scale would still be NaN)
+template <int R>
+__device__ __forceinline__ void load_scales_async(float* sm,
+                                                  const float* base, int b,
+                                                  int t0, int tend, int hk,
+                                                  int KV, int Tk, int first) {
+  const int i = threadIdx.x - first;
+  if (i >= 0 && i < R) {
+    const int t = t0 + i;
+    const bool in = t < tend;
+    cp_async4(sm + i, in ? base + ((size_t)b * Tk + t) * KV + hk : base, in);
+  }
+}
+
+// an unpadded [R][D] int8 tile as the [R][D + 8] bf16 tile the products
+// read, by NT threads, 16 values a thread at a time: every int8 value is
+// a bf16 integer, so the conversion is exact (i8x4_bf16, its pairs put
+// back in order by byte permutes)
+template <int D, int R, int NT>
+__device__ __forceinline__ void tile_i8_to_bf16(__nv_bfloat16* dst,
+                                                const int8_t* src) {
+  constexpr int CH = D / 16, LD = D + 8;
+#pragma unroll
+  for (int it = 0; it < (R * CH + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if ((R * CH) % NT != 0 && i >= R * CH) break;
+    const int r = i / CH, c = (i % CH) * 16;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + r * D + c);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    uint32_t o[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t ev, od;  // values (0, 2) and (1, 3) of word e
+      i8x4_bf16(w[e], ev, od);
+      o[2 * e] = __byte_perm(ev, od, 0x5410);      // values 0, 1
+      o[2 * e + 1] = __byte_perm(ev, od, 0x7632);  // values 2, 3
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + r * LD + c);
+    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
 // the bf16 forward: o (and, but for a paged chunk, lse) of a QT-row query
 // tile, QT / 16 warps of 16 rows; the header's note gives the design.
 // Up to D = 64 two 128-row blocks share an SM (at most 128 registers, a
 // few bytes spilled): the launcher takes them only where the grid gives
-// every SM two.
-template <int D, Mask M, int QT>
-__global__ void __launch_bounds__(QT * 2, QT == 128 && D <= 64 ? 2 : 1)
-fwd_mma(const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ k,
-        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-        float* __restrict__ lse, Shape s) {
+// every SM two. The body of the kernels fwd_mma (a bf16 cache) and
+// fwd_mma_i8 (below).
+//
+// TK = int8_t (Mask::Paged only): the int8 cache with its f32 row scales
+// kscale, vscale [B, Tk, H / group]. Each K/V tile and its 64 + 64 row
+// scales come through a two-stage ring of raw int8 (16-byte copies) and
+// f32 (4-byte copies), one commit group a tile, and are turned into the
+// bf16 tiles the products read, exactly: the products take the cache's
+// integers, and the row scales apply outside them, kscale[key] to each
+// score column before the mask and the running max, vscale[key] to each
+// probability column after l has summed it and before P is rounded to
+// bf16 for P.V. Step j waits for tile j, issues tile j+1, converts tile
+// j, and passes one barrier before its products.
+template <int D, Mask M, int QT, typename TK>
+__device__ __forceinline__ void fwd_tile(
+    const __nv_bfloat16* __restrict__ q, const TK* __restrict__ k,
+    const TK* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, Shape s, const float* __restrict__ kscale,
+    const float* __restrict__ vscale) {
+  constexpr bool I8 = std::is_same<TK, int8_t>::value;
+  static_assert(!I8 || M == Mask::Paged, "an int8 cache is paged");
   constexpr int NT = QT * 2;
   constexpr int LD = D + 8;
   constexpr int STAGE = BK * LD;  // elements of one K or V stage
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + QT * LD;     // [2][BK][LD]
-  __nv_bfloat16* vs = ks + 2 * STAGE;   // [2][BK][LD]
+  // bf16: [2][BK][LD] each; int8: one [BK][LD] tile each, then the ring
+  __nv_bfloat16* ks = qs + QT * LD;
+  __nv_bfloat16* vs = ks + (I8 ? 1 : 2) * STAGE;
+  int8_t* k8 = reinterpret_cast<int8_t*>(vs + (I8 ? 1 : 2) * STAGE);
+  int8_t* v8 = k8 + 2 * BK * D;                        // [2][BK][D] each
+  float* ksc = reinterpret_cast<float*>(v8 + 2 * BK * D);
+  float* vsc = ksc + 2 * BK;                           // [2][BK] each
   // the last query tiles see the most keys under a causal mask: the grid
   // runs the (b, h) pairs fastest and the tiles from the last, so the
   // heaviest tiles of all heads start before any lighter one
@@ -436,16 +524,37 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
   const int kend = key_end<M>(qi, QT, s, p0);
   int lo, hi;
   key_range<M>(qi, QT, BK, s, lo, hi, p0);
+  // int8: issue tile j's rows and scales into ring stage st
+  auto issue_i8 = [&](int j, int st) {
+    if constexpr (I8) {
+      const int kv = s.H / s.group;
+      load_tile_i8_async<D, BK, NT>(k8 + st * BK * D, k, b, j * BK, kend,
+                                    hk, lk);
+      load_tile_i8_async<D, BK, NT>(v8 + st * BK * D, v, b, j * BK, kend,
+                                    hk, lv);
+      load_scales_async<BK>(ksc + st * BK, kscale, b, j * BK, kend, hk, kv,
+                            s.Tk, 0);
+      load_scales_async<BK>(vsc + st * BK, vscale, b, j * BK, kend, hk, kv,
+                            s.Tk, BK);
+    }
+  };
 
   // commit groups, in order: Q, K[lo], V[lo], then K[j+1], V[j+1] in each
-  // step j (empty past the last tile, so the counts below hold throughout)
+  // step j (empty past the last tile, so the counts below hold throughout);
+  // int8: Q, tile lo, then tile j+1 in each step j
   load_tile_async<D, QT, NT>(qs, q, b, q0, s.Tq, h, lq);
   cp_async_commit();
-  if (lo < hi) load_tile_async<D, BK, NT>(ks, k, b, lo * BK, kend, hk, lk);
-  cp_async_commit();
-  if (lo < hi) load_tile_async<D, BK, NT>(vs, v, b, lo * BK, kend, hk, lv);
-  cp_async_commit();
-  cp_async_wait<2>();  // Q
+  if constexpr (I8) {
+    if (lo < hi) issue_i8(lo, 0);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q
+  } else {
+    if (lo < hi) load_tile_async<D, BK, NT>(ks, k, b, lo * BK, kend, hk, lk);
+    cp_async_commit();
+    if (lo < hi) load_tile_async<D, BK, NT>(vs, v, b, lo * BK, kend, hk, lv);
+    cp_async_commit();
+    cp_async_wait<2>();  // Q
+  }
   __syncthreads();
   uint32_t qf[D / 16][4];
   load_a<D>(qf, qs, wr, g, t);
@@ -467,23 +576,47 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int j = lo; j < hi; ++j) {
     const int stage = (j - lo) & 1;
-    const __nv_bfloat16* kt = ks + stage * STAGE;
-    const __nv_bfloat16* vt = vs + stage * STAGE;
-    cp_async_wait<1>();  // K[j]; V[j] may still be in flight
-    // K[j] is visible to every warp, and every warp is done with step
-    // j-1, whose stage the next tile takes
-    __syncthreads();
-    if (j + 1 < hi)
-      load_tile_async<D, BK, NT>(ks + (stage ^ 1) * STAGE, k, b,
-                                 (j + 1) * BK, kend, hk, lk);
-    cp_async_commit();
-    if (j + 1 < hi)
-      load_tile_async<D, BK, NT>(vs + (stage ^ 1) * STAGE, v, b,
-                                 (j + 1) * BK, kend, hk, lv);
-    cp_async_commit();
+    const __nv_bfloat16* kt = ks + (I8 ? 0 : stage * STAGE);
+    const __nv_bfloat16* vt = vs + (I8 ? 0 : stage * STAGE);
+    if constexpr (I8) {
+      cp_async_wait<0>();  // tile j
+      // tile j is visible to every warp, and every warp is done with step
+      // j-1: its bf16 tiles and its ring stage, which tile j+1 takes
+      __syncthreads();
+      if (j + 1 < hi) issue_i8(j + 1, stage ^ 1);
+      cp_async_commit();
+      tile_i8_to_bf16<D, BK, NT>(ks, k8 + stage * BK * D);
+      tile_i8_to_bf16<D, BK, NT>(vs, v8 + stage * BK * D);
+      __syncthreads();  // the bf16 tiles are visible to every warp
+    } else {
+      cp_async_wait<1>();  // K[j]; V[j] may still be in flight
+      // K[j] is visible to every warp, and every warp is done with step
+      // j-1, whose stage the next tile takes
+      __syncthreads();
+      if (j + 1 < hi)
+        load_tile_async<D, BK, NT>(ks + (stage ^ 1) * STAGE, k, b,
+                                   (j + 1) * BK, kend, hk, lk);
+      cp_async_commit();
+      if (j + 1 < hi)
+        load_tile_async<D, BK, NT>(vs + (stage ^ 1) * STAGE, v, b,
+                                   (j + 1) * BK, kend, hk, lv);
+      cp_async_commit();
+    }
 
     float sv[8][4];
     rows_dot_tile_ldsm<D>(sv, qf, kt, lane);
+    if constexpr (I8) {
+      // score = ks[key] * (q . k_int8)
+      const float* kr = ksc + stage * BK + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 f = *reinterpret_cast<const float2*>(kr + n * 8);
+        sv[n][0] *= f.x;
+        sv[n][1] *= f.y;
+        sv[n][2] *= f.x;
+        sv[n][3] *= f.y;
+      }
+    }
     if (!full_tile<M>(q0, QT, j * BK, BK, s, p0, kend)) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -517,6 +650,18 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
         sv[n][e] = p;
         l[e >> 1] += p;  // this thread's share; summed over the quad below
       }
+    if constexpr (I8) {
+      // P.V = (p * vs[key]) . v_int8; l keeps the unscaled p
+      const float* vr = vsc + stage * BK + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 f = *reinterpret_cast<const float2*>(vr + n * 8);
+        sv[n][0] *= f.x;
+        sv[n][1] *= f.y;
+        sv[n][2] *= f.x;
+        sv[n][3] *= f.y;
+      }
+    }
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
       acc[dn][0] *= corr[0];
@@ -524,8 +669,10 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
       acc[dn][2] *= corr[1];
       acc[dn][3] *= corr[1];
     }
-    cp_async_wait<2>();  // V[j]; K[j+1] and V[j+1] may still be in flight
-    __syncthreads();
+    if constexpr (!I8) {
+      cp_async_wait<2>();  // V[j]; K[j+1] and V[j+1] may still be in flight
+      __syncthreads();
+    }
     probs_times_tile<D>(acc, sv, vt, lane);
   }
   float inv[2];
@@ -540,6 +687,27 @@ fwd_mma(const __nv_bfloat16* __restrict__ q,
     }
   }
   store_rows<D>(o, acc, b, q0 + wr, s.Tq, h, lay_q(s, D), g, t, inv);
+}
+
+template <int D, Mask M, int QT>
+__global__ void __launch_bounds__(QT * 2, QT == 128 && D <= 64 ? 2 : 1)
+fwd_mma(const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+        float* __restrict__ lse, Shape s) {
+  fwd_tile<D, M, QT, __nv_bfloat16>(q, k, v, o, lse, s, nullptr, nullptr);
+}
+
+// the paged chunk over an int8 cache (64-row query tiles)
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+fwd_mma_i8(const __nv_bfloat16* __restrict__ q,
+           const int8_t* __restrict__ k, const int8_t* __restrict__ v,
+           __nv_bfloat16* __restrict__ o, Shape s,
+           const float* __restrict__ kscale,
+           const float* __restrict__ vscale) {
+  fwd_tile<D, Mask::Paged, 64, int8_t>(q, k, v, o, nullptr, s, kscale,
+                                       vscale);
 }
 
 // start copying rows [t0, t0 + R) of the f32 row terms of head bh
@@ -1414,6 +1582,23 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o,
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           static_cast<__nv_bfloat16*>(o), lse, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the paged chunk over an int8 cache with its row scales
+template <int D>
+int fwd_i8(const void* q, const void* k, const void* v, void* o,
+           const float* kscale, const float* vscale, const Shape& s,
+           cudaStream_t st) {
+  // Q, one bf16 K and V tile, then 2 stages of int8 K and V and of their
+  // row scales
+  const int smem = (64 + 2 * BK) * (D + 8) * 2 + 4 * BK * D + 16 * BK;
+  cudaError_t e = set_smem(fwd_mma_i8<D>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fwd_mma_i8<D><<<dim3(s.B * s.H, (s.Tq + 63) / 64), 128, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(v), static_cast<__nv_bfloat16*>(o), s,
+      kscale, vscale);
   return static_cast<int>(cudaGetLastError());
 }
 

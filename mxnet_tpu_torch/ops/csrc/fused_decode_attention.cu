@@ -60,7 +60,7 @@ struct FdArgs {
   const float* cs;  // [S, D/2] rope cos, sin
   const float* sn;
   void* out;     // [S, E] in x's dtype
-  void* kn;      // [S, KV, D] in the cache's dtype
+  void* kn;      // [S, KV, D] in bf16 or f32 (new_bf16)
   void* vn;
   float* qkv;    // [S, FQ]: the projection, scaled and biased, not roped
   void* o;       // [S, E] in x's dtype: the attention output
@@ -70,6 +70,7 @@ struct FdArgs {
   int S, E, H, KV, D, L, group, ns, ks1, ks3;
   float scale;   // the softmax scale
   bool vec;      // cache rows are whole 16-byte chunks on 16-byte bounds
+  bool new_bf16; // k_new and v_new in bf16, else f32
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
@@ -129,13 +130,23 @@ __host__ __device__ __forceinline__ int merge_smem(int G, int D) {
   return 4 * ((G + 1) * D + 35 * G);
 }
 
+// element i of k_new or v_new, rounded once from the f32 value when the
+// caller asked for bf16
+__device__ __forceinline__ void store_new(void* p, size_t i, float x,
+                                          bool bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = from_f32<__nv_bfloat16>(x);
+  else
+    static_cast<float*>(p)[i] = x;
+}
+
 // The merge of (slot s, kv head kvh): k_new and v_new out; per query row
 // (a warp, a lane a split) the new token's score, the running maximum over
 // it and the live splits, each split's weight and the denominator (the new
 // token's term added last); then per row and dim the splits' accs in split
 // order, the new token's v last. A split with l = 0 saw no key: weight 0,
 // its acc not read.
-template <typename TX, typename TC>
+template <typename TX>
 __device__ void merge_pair(const FdArgs& a, int s, int kvh, float* sm) {
   const int G = a.H / a.KV, D = a.D, W = D + 2, half = D / 2;
   const int FQ = a.E + 2 * a.KV * D;
@@ -158,8 +169,8 @@ __device__ void merge_pair(const FdArgs& a, int s, int kvh, float* sm) {
   __syncthreads();
   const size_t nrow = ((size_t)s * a.KV + kvh) * D;
   for (int d = tid; d < D; d += DEC_THREADS) {
-    static_cast<TC*>(a.kn)[nrow + d] = from_f32<TC>(kq[d]);
-    static_cast<TC*>(a.vn)[nrow + d] = from_f32<TC>(vrow[d]);
+    store_new(a.kn, nrow + d, kq[d], a.new_bf16);
+    store_new(a.vn, nrow + d, vrow[d], a.new_bf16);
   }
   const float c2 = a.scale * 1.4426950408889634f;
   const size_t step = (size_t)G * W;  // from one split's row to the next
@@ -221,11 +232,11 @@ __device__ void split_items(const FdArgs& a, uint8_t* sm) {
 }
 
 // phase 3's first part: the merges, a (slot, kv head) an item
-template <typename TX, typename TC>
+template <typename TX>
 __device__ void merge_items(const FdArgs& a, uint8_t* sm) {
   for (int it = blockIdx.x; it < a.S * a.KV; it += gridDim.x) {
     __syncthreads();  // the last item is done with the shared memory
-    merge_pair<TX, TC>(a, it / a.KV, it % a.KV, reinterpret_cast<float*>(sm));
+    merge_pair<TX>(a, it / a.KV, it % a.KV, reinterpret_cast<float*>(sm));
   }
 }
 
@@ -246,7 +257,7 @@ fused_decode_kernel(FdArgs a) {
         smem);
   if constexpr (PH == 2) split_items<TC, RT>(a, smem);
   if constexpr (PH == 3) {
-    merge_items<TX, TC>(a, smem);
+    merge_items<TX>(a, smem);
     cg::this_grid().sync();
     qmm::gemm_items<TX, BITS, MMA>(
         static_cast<const TX*>(a.o), a.wo, a.so, a.S, a.E, a.E, a.group,
@@ -292,7 +303,7 @@ int launch(const FdArgs& a, cudaStream_t st) {
   if (rc == 0)
     rc = run<TC, TC, 8, false, RT, 2>(a, n2, 2 * 2 * DEC_STAGE, false, st);
   if (rc == 0)
-    rc = run<TX, TC, BITS, MMA, 1, 3>(a, max(n3, pairs), merge, true, st);
+    rc = run<TX, TX, BITS, MMA, 1, 3>(a, max(n3, pairs), merge, true, st);
   return rc;
 }
 
@@ -325,7 +336,8 @@ int dispatch(const FdArgs& a, int bits, cudaStream_t st) {
 // ks1, ceil(E/64) ks3) tiles of 32 x 64 (unused where both splits are 1);
 // att f32 [S, KV, ns, H/KV, D + 2]; count int32 [ceil(S/32) (ceil(FQ/64) +
 // ceil(E/64))], all 0, left all 0. ns <= 32 key splits, ks1 and ks3 <=
-// ceil(E/128) contraction splits.
+// ceil(E/128) contraction splits. k_new and v_new [S, KV, D] come out in
+// new_dtype (f32 or bf16), each rounded once from its f32 value.
 extern "C" int mx_fused_decode_attention(
     const void* x, const int* pos, const void* kc, const void* vc,
     const void* wqkv, const float* sqkv, const float* bqkv, const void* wo,
@@ -333,13 +345,14 @@ extern "C" int mx_fused_decode_attention(
     void* out, void* kn, void* vn, void* qkv, void* o, void* part, void* att,
     void* count, int S, int E, int H, int KV, int D, int L, int bits,
     int group, int ns, int ks1, int ks3, float scale,
-    int x_dtype, int cache_dtype, void* stream) {
+    int x_dtype, int cache_dtype, int new_dtype, void* stream) {
   const int nst = (E + qmm::KS - 1) / qmm::KS;
   if (S < 1 || KV < 1 || H % KV != 0 || H * D != E || D < 2 || D % 2 ||
       D > 128 || L < 1 || ns < 1 || ns > 32 || ks1 < 1 || ks1 > nst ||
       ks3 < 1 || ks3 > nst ||
       (bits != 8 && bits != 4) ||
       (bits == 4 && (group < 2 || E % group != 0)) ||
+      (new_dtype != kF32 && new_dtype != kBF16) ||
       merge_smem(H / KV, D) > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   const int csz = static_cast<int>(cache_dtype == kF32 ? 4 : 2);
@@ -376,7 +389,8 @@ extern "C" int mx_fused_decode_attention(
                  scale,
                  (D * csz) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(kc) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(vc) % 16 == 0};
+                     reinterpret_cast<uintptr_t>(vc) % 16 == 0,
+                 new_dtype == kBF16};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == kF32 && cache_dtype == kF32)
     return dispatch<float, float>(a, bits, st);

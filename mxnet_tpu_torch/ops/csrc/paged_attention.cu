@@ -46,28 +46,40 @@
 //   (head_dim 100 in bf16, a view) takes guarded element loads into the
 //   same ring. CUDA-core f32 math: at 2-4 flops a byte the tensor cores
 //   would not help.
-// * mx_paged_attention_chunk: a bf16 q over a bf16 cache with C >= 16 and
-//   a tensor-core head_dim (16, 32, 64, 128), the serving path's prefill
-//   chunk. Bound on the H100: a C-row chunk at pos 0 does ~2 C flops per
-//   cached element (C = 256: ~0.4 GFLOP on ~1.6 MB), a few microseconds
-//   of either rate. What held the first kernel (below) at 154x that bound
-//   on the H100 was its scalar arithmetic: serial f32 dot products from
-//   shared memory, probabilities broadcast by shuffles, and every 16-row
-//   tile of the chunk restaging the same keys. This entry is
+// * mx_paged_attention_chunk: a bf16 q over a bf16 or an int8 cache with
+//   C >= 16 and a tensor-core head_dim (16, 32, 64, 128): the serving
+//   path's prefill chunk, and the int8-KV serve's. Bound on the H100: a
+//   C-row chunk at pos 0 does ~2 C flops per cached element (C = 256:
+//   ~0.4 GFLOP on ~1.6 MB of bf16, ~0.8 MB of int8 and its scales), a few
+//   microseconds of either rate. What held the scalar kernel (below) at
+//   150-180x that bound on the H100 was its arithmetic: serial f32 dot
+//   products from shared memory, probabilities broadcast by shuffles, and
+//   every 16-row tile of the chunk restaging the same keys. This entry is
 //   attention.cuh's pipelined tensor-core forward with the paged mask
 //   (Mask::Paged, 64-row query tiles, one block per (slot, query head,
 //   tile); the block reads pos[s] itself). A query tile walks the key
 //   tiles up to its last row's pos + c; the cp.async loader zero-fills
 //   every row past min(L, that key + 1), so rows past a slot's last live
 //   key are never read and an unwritten row cannot put a NaN into P.V.
-//   Tiles wholly below the chunk's diagonal skip the mask. No lse.
-// * mx_paged_attention: what is left, C >= 16 with an f32 q or cache, the
-//   int8 cache (the int8-KV serve's prefill chunks) or a head_dim the
-//   tensor cores do not take. Bound: the bytes of the live rows, read once
-//   per kv head. The TPU version cut dead-row DMA by revisiting a clamped
-//   block index in its grid; here a block owns one (slot, kv head, tile of
-//   16 query rows) and loops over the key tiles up to the tile's own last
-//   live key, p + (largest chunk offset among its rows), so dead rows are
+//   Tiles wholly below the chunk's diagonal skip the mask. No lse. The
+//   int8 cache (fwd_mma_i8<D>) keeps its integers on the tensor cores:
+//   each raw int8 tile and its row scales come through the ring (scales
+//   past the live keys zero-filled too, since 0 times an unwritten NaN
+//   scale is NaN), the tile is turned into the
+//   bf16 tile the products read (exact: every int8 value is a bf16
+//   integer), and the row scales apply outside the products: ks[key]
+//   multiplies each score column, vs[key] each probability column after
+//   the row sum l has taken it and before P is rounded to bf16. So the
+//   scores are the JAX kernel's f32 q . (ks k) up to the order of
+//   rounding, and the only bf16 rounding is the bf16 chunk's, of P.
+// * mx_paged_attention: what is left, C >= 16 with an f32 q or cache, an
+//   int8 cache under an f32 q, or a head_dim the tensor cores do not take
+//   (none on a serving path: the f32 chunk stays here until a path runs
+//   it). Bound: the bytes of the live rows, read once per kv head. The
+//   TPU version cut dead-row DMA by revisiting a clamped block index in
+//   its grid; here a block owns one (slot, kv head, tile of 16 query
+//   rows) and loops over the key tiles up to the tile's own last live
+//   key, p + (largest chunk offset among its rows), so dead rows are
 //   never loaded. Each tile of 32 keys is staged once in shared memory
 //   (int8 rows dequantized on the way) and serves all 16 rows, i.e. every
 //   query head of the GQA group; each warp owns 2 rows and each lane
@@ -250,15 +262,19 @@ extern "C" int mx_paged_attention(const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q [S, C, H, D] and k, v [S, L, KV, D] bf16, contiguous, rows on 16-byte
+// q [S, C, H, D] bf16 and k, v [S, L, KV, D] bf16, or int8 (kv_dtype)
+// with f32 row scales ks, vs [S, L, KV], contiguous, rows on 16-byte
 // boundaries; pos int32 [S]; out like q. Takes D in {16, 32, 64, 128};
 // anything else is refused (the wrapper routes it to mx_paged_attention).
 extern "C" int mx_paged_attention_chunk(const void* q, const void* k,
-                                        const void* v, const int* pos,
+                                        const void* v, const float* ks,
+                                        const float* vs, const int* pos,
                                         void* out, int S, int C, int H,
                                         int KV, int L, int D, float scale,
-                                        void* stream) {
-  if (KV < 1 || H % KV != 0 || L < 1 || C < 1)
+                                        int kv_dtype, void* stream) {
+  if (KV < 1 || H % KV != 0 || L < 1 || C < 1 ||
+      (kv_dtype != kBF16 && kv_dtype != kI8) ||
+      (kv_dtype == kI8) != (ks != nullptr && vs != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Shape s{S,
           H,
@@ -282,6 +298,19 @@ extern "C" int mx_paged_attention_chunk(const void* q, const void* k,
   if (!valid_dims(D, kBF16, s))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_dtype == kI8) {
+    switch (D) {
+      case 16:
+        return fwd_i8<16>(q, k, v, out, ks, vs, s, st);
+      case 32:
+        return fwd_i8<32>(q, k, v, out, ks, vs, s, st);
+      case 64:
+        return fwd_i8<64>(q, k, v, out, ks, vs, s, st);
+      case 128:
+        return fwd_i8<128>(q, k, v, out, ks, vs, s, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (D) {
     case 16:
       return fwd<16, Mask::Paged>(q, k, v, out, nullptr, s, kBF16, st);

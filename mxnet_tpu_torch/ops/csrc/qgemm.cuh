@@ -99,28 +99,6 @@ __device__ __forceinline__ int wsw(int n) {
   return BITS == 8 ? 2 * (n & 3) : (n >> 1) & 3;
 }
 
-// Four int8 values (the first in the low byte) as two bf16 pairs: ev =
-// values 0, 2 and od = values 1, 3 (the first in the low half). A byte's
-// low 7 bits in the mantissa of the bf16 128 (whose unit is 1) give 128 + b
-// & 127, which is 128 + v for v >= 0 and 256 + v for v < 0; less 128 or
-// 256 (0x4300 with the sign bit as the exponent's lowest bit), exact.
-__device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& ev,
-                                          uint32_t& od) {
-  const uint32_t wo = w >> 8;
-  const uint32_t ve = (w & 0x007f007fu) | 0x43004300u;
-  const uint32_t se = (w & 0x00800080u) | 0x43004300u;
-  const uint32_t vo = (wo & 0x007f007fu) | 0x43004300u;
-  const uint32_t so = (wo & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 re =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&ve),
-              *reinterpret_cast<const __nv_bfloat162*>(&se));
-  const __nv_bfloat162 ro =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&vo),
-              *reinterpret_cast<const __nv_bfloat162*>(&so));
-  ev = *reinterpret_cast<const uint32_t*>(&re);
-  od = *reinterpret_cast<const uint32_t*>(&ro);
-}
-
 // Four int4 values (two bytes, the low nibble the even value) as two bf16
 // pairs, lo = values 0, 1, hi = values 2, 3. A nibble with its sign bit
 // flipped is n + 8 in [0, 16), which in the mantissa of the bf16 128 (whose

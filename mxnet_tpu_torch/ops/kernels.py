@@ -7,9 +7,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``:
   chunk, GQA-native, online softmax in f32, optional int8 KV. Three C
   entries, chosen by dtype and shape (:func:`paged_entry`): every chunk
   with C < 16 (decode reads, verify chunks) a split-KV read whose splits
-  are merged by a second kernel of the same entry, a bf16 prefill chunk
-  the tensor-core attention forward of ``csrc/attention.cuh`` with the
-  paged mask, and what is left a scalar kernel.
+  are merged by a second kernel of the same entry, a bf16 q's prefill
+  chunk over a bf16 or an int8 cache the tensor-core attention forward of
+  ``csrc/attention.cuh`` with the paged mask, and what is left a scalar
+  kernel.
 * :func:`quant_matmul` (l.1259): ``x @ dequant(q)^T`` for int8
   (per-output-channel scales) and nibble-packed int4 (per-group scales)
   weights, f32 accumulation.
@@ -53,6 +54,20 @@ Dispatch: a tensor on the CPU goes to the plain version in this module
 there is no fallback. Each launch adds one to its entry in
 :func:`launch_counts` (the analogue of the JAX package's
 ``dispatch_count``); the plain versions are not counted.
+
+Each public wrapper takes the JAX wrapper's parameters, in its order and
+of its kind, and one rule holds for the two kinds that are the TPU's:
+
+* **tile knobs** (``block_q``, ``block_k``, ``block_m``, ``block_n``,
+  ``block_f``): accepted and validated as the JAX wrapper validates them
+  (a positive size; ``paged_attention``'s ``block_k`` must divide the
+  cache length, ``quant_matmul``'s ``block_f`` the output channels); they
+  have no effect on CUDA, where each kernel's tiles are fixed, and the
+  result does not depend on the tiling;
+* **interpret**: ``None`` or ``False`` runs the kernel on CUDA tensors
+  (the plain version on CPU ones); ``True`` runs the plain version on any
+  device, the port's counterpart of the Pallas interpreter. It runs only
+  when the caller asks for it, never as a fallback.
 """
 from __future__ import annotations
 
@@ -60,6 +75,7 @@ import ctypes
 import functools
 import hashlib
 import math
+import numbers
 import os
 import re
 import shutil
@@ -277,8 +293,9 @@ _ARGTYPES = {
     # q, k, v, k_scale, v_scale, pos, out, S, C, H, KV, L, D, scale,
     # q_dtype, kv_dtype, stream
     "paged_attention": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
-    # q, k, v, pos, out, S, C, H, KV, L, D, scale, stream
-    "paged_attention_chunk": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k, v, k_scale, v_scale, pos, out, S, C, H, KV, L, D, scale,
+    # kv_dtype, stream
+    "paged_attention_chunk": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     # q, k, v, k_scale, v_scale, pos, out, workspace, S, C, H, KV, L, D,
     # splits, scale, q_dtype, kv_dtype, stream
     "paged_attention_decode": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
@@ -288,8 +305,8 @@ _ARGTYPES = {
     # x, pos, k_cache, v_cache, wqkv, sqkv, bqkv, wo, so, bo, cos, sin,
     # out, k_new, v_new, then the workspaces qkv, o, part, att, count, then
     # S, E, H, KV, D, L, bits, group, key splits, QKV and output splits,
-    # scale, x_dtype, cache_dtype, stream
-    "fused_decode_attention": [_P] * 20 + [_I] * 11 + [_F, _I, _I, _P],
+    # scale, x_dtype, cache_dtype, the dtype of k_new and v_new, stream
+    "fused_decode_attention": [_P] * 20 + [_I] * 11 + [_F, _I, _I, _I, _P],
     # q, k, v, o, lse, B, H, Tq, Tk, D, the batch and time strides of q,
     # k and v, scale, causal, window, dtype, stream
     "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_L] * 6
@@ -350,6 +367,25 @@ def _on_cuda(*tensors):
     if dev.type != "cuda":
         raise MXNetError("no kernel for device %s" % dev)
     return True
+
+
+def _plain(interpret, *tensors):
+    """True where the plain version runs: ``interpret=True`` asks for it
+    on any device; otherwise CPU tensors take it and CUDA ones the kernel
+    (:func:`_on_cuda`)."""
+    if interpret:
+        return True
+    return not _on_cuda(*tensors)
+
+
+def _check_tiles(name, **knobs):
+    """The JAX wrapper's tile knobs: None or a positive int each, and
+    no effect here (the module's rule)."""
+    for knob, val in knobs.items():
+        if val is not None and (isinstance(val, bool) or not isinstance(
+                val, numbers.Integral) or val < 1):
+            raise ValueError("%s: %s must be a positive int or None, got %r"
+                             % (name, knob, val))
 
 
 def _check(cond, what, *args):
@@ -476,16 +512,20 @@ def paged_entry(q_dtype, kv_dtype, c, d):
     * ``c < 16`` query rows (C = 1 decode reads, speculative verify
       chunks), any q and cache dtype: ``paged_attention_decode``, the
       split-KV read (:func:`paged_decode_splits`);
-    * a bf16 q over a bf16 cache with ``c >= 16`` and a tensor-core
-      head_dim (16, 32, 64, 128): ``paged_attention_chunk``, the attention
-      forward of ``csrc/attention.cuh`` with the paged mask;
-    * what is left (``c >= 16`` with an f32 q or cache, the int8 cache, or
-      another head_dim): ``paged_attention``, the scalar kernel.
+    * a bf16 q over a bf16 or an int8 cache with ``c >= 16`` and a
+      tensor-core head_dim (16, 32, 64, 128): ``paged_attention_chunk``,
+      the attention forward of ``csrc/attention.cuh`` with the paged mask
+      (an int8 tile turned into bf16 integers in shared memory, its row
+      scales applied to the score and probability columns);
+    * what is left (``c >= 16`` with an f32 q or cache, an int8 cache
+      under an f32 q, or another head_dim): ``paged_attention``, the
+      scalar kernel.
 
     No entry gives way to another."""
     if c < _CHUNK_MIN_C:
         return "paged_attention_decode"
-    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+    if (q_dtype == torch.bfloat16
+            and kv_dtype in (torch.bfloat16, torch.int8)
             and d in _FLASH_D[torch.bfloat16]):
         return "paged_attention_chunk"
     return "paged_attention"
@@ -540,29 +580,37 @@ def _paged_decode(q, k, v, pos, k_scale, v_scale, scale):
     return out
 
 
-def _paged_chunk(q, k, v, pos, scale):
+def _paged_chunk(q, k, v, pos, scale, k_scale=None, v_scale=None):
     """Launch ``paged_attention_chunk``; it takes only what
     :func:`paged_entry` routes to it, and raises on anything else."""
     s_, c, h, d = q.shape
     l_, kv = k.shape[1], k.shape[2]
-    _check(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
-           and v.dtype == torch.bfloat16,
-           "paged_attention_chunk: q and the cache must be bf16")
+    _check(q.dtype == torch.bfloat16
+           and k.dtype in (torch.bfloat16, torch.int8)
+           and v.dtype == k.dtype,
+           "paged_attention_chunk: q must be bf16 and the cache bf16 or "
+           "int8")
+    _check((k.dtype == torch.int8) == (k_scale is not None
+                                       and v_scale is not None),
+           "paged_attention_chunk: an int8 cache comes with its row scales, "
+           "a bf16 one without")
     _check(d in _FLASH_D[torch.bfloat16],
            "paged_attention_chunk: head_dim must be in %s, got %d",
            _FLASH_D[torch.bfloat16], d)
     _check(s_ * h <= 65535, "paged_attention_chunk: at most 65535 (slot, "
            "head) pairs")
-    _contig(("q", q), ("k", k), ("v", v), ("pos", pos))
+    _contig(("q", q), ("k", k), ("v", v), ("pos", pos),
+            ("k_scale", k_scale), ("v_scale", v_scale))
     _aligned(16, ("q", q), ("k", k), ("v", v))
     out = torch.empty_like(q)
-    _launch("paged_attention_chunk", _ptr(q), _ptr(k), _ptr(v), _ptr(pos),
-            _ptr(out), s_, c, h, kv, l_, d, float(scale))
+    _launch("paged_attention_chunk", _ptr(q), _ptr(k), _ptr(v),
+            _ptr(k_scale), _ptr(v_scale), _ptr(pos), _ptr(out), s_, c, h,
+            kv, l_, d, float(scale), _CODE[k.dtype])
     return out
 
 
 def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
-                    scale=None):
+                    scale=None, block_k=None, interpret=None):
     """Slot-paged attention reading only the live KV rows.
 
     q: [S, C, H, D] — each slot's C-token query chunk. k, v:
@@ -572,7 +620,12 @@ def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
     ``[pos, pos+C)`` must already be written, and chunk row ``c`` attends
     keys ``[0, pos+c]``. Returns [S, C, H, D] in q's dtype, accumulated
     in f32. Rows past a slot's last live key are never read. On the card,
-    :func:`paged_entry` picks the C entry that runs."""
+    :func:`paged_entry` picks the C entry that runs.
+
+    ``block_k`` (the JAX kernel's KV rows a grid step) and ``interpret``
+    follow the module's rule: ``block_k`` must divide L (as in the JAX
+    wrapper) and changes nothing here; ``interpret=True`` runs the plain
+    version on any device."""
     s_, c, h, d = q.shape
     _check(k.dim() == 4 and k.shape == v.shape and k.shape[0] == s_
            and k.shape[3] == d, "paged_attention: k/v must be [S, L, Hkv, "
@@ -582,6 +635,11 @@ def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
            "paged_attention: %d kv heads must divide %d heads", kv, h)
     _check(pos.shape == (s_,) and pos.dtype == torch.int32,
            "paged_attention: pos must be int32 [S]")
+    _check_tiles("paged_attention", block_k=block_k)
+    if block_k is not None and l_ % block_k:
+        raise ValueError(
+            "paged_attention: block_k=%d must divide the cache length %d "
+            "(whole blocks keep the grid static)" % (block_k, l_))
     quant = k_scale is not None or v_scale is not None
     if quant:
         _check(k_scale is not None and v_scale is not None,
@@ -602,14 +660,14 @@ def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
            "paged_attention: q must be f32 or bf16, got %s", q.dtype)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if not _on_cuda(q, k, v, pos, k_scale, v_scale):
+    if _plain(interpret, q, k, v, pos, k_scale, v_scale):
         return paged_attention_plain(q, k, v, pos, k_scale, v_scale,
                                      scale)
     entry = paged_entry(q.dtype, k.dtype, c, d)
     if entry == "paged_attention_decode":
         return _paged_decode(q, k, v, pos, k_scale, v_scale, scale)
     if entry == "paged_attention_chunk":
-        return _paged_chunk(q, k, v, pos, scale)
+        return _paged_chunk(q, k, v, pos, scale, k_scale, v_scale)
     _check(d <= 128, "paged_attention: the kernel takes head_dim <= 128, "
            "got %d", d)
     _contig(("q", q), ("k", k), ("v", v), ("pos", pos),
@@ -632,24 +690,36 @@ def quant_matmul_plain(x, q, scale, bits=8, group=None, out_dtype=None):
     return acc.to(out_dtype or x.dtype)
 
 
-def quant_matmul(x, q, scale, *, bits=8, group=None, out_dtype=None):
+def quant_matmul(x, q, scale, *, bits=8, group=None, block_f=None,
+                 out_dtype=None, interpret=None):
     """``x [M, E] @ dequant(q) [F, E]^T -> [M, F]``.
 
     ``q``: int8 ``[F, E]`` (``bits=8``, ``scale`` f32 ``[F]``, applied to
     the product) or nibble-packed uint8 ``[F, E//2]`` (``bits=4``,
     ``scale`` f32 ``[F, E//group]``, applied to the weight before the
     dot). x in f32 or bf16; the result is accumulated in f32 and returned
-    in ``out_dtype`` (default x's)."""
+    in ``out_dtype`` (default x's).
+
+    ``block_f`` (the JAX kernel's output channels a grid step) and
+    ``interpret`` follow the module's rule: ``min(block_f, F)`` must divide
+    F (as in the JAX wrapper) and changes nothing here; ``interpret=True``
+    runs the plain version on any device."""
     _check(x.dim() == 2, "quant_matmul: x must be [M, E], got %s",
            tuple(x.shape))
     _check(x.dtype in (torch.float32, torch.bfloat16),
            "quant_matmul: x must be f32 or bf16, got %s", x.dtype)
     m, e = x.shape
     _check_quant("quant_matmul", q, scale, bits, group, e)
+    _check_tiles("quant_matmul", block_f=block_f)
+    if block_f is not None and q.shape[0] \
+            and q.shape[0] % min(block_f, q.shape[0]):
+        raise ValueError(
+            "quant_matmul: block_f=%d must divide the output-channel count "
+            "%d (the grid partitions whole blocks)" % (block_f, q.shape[0]))
     out_dtype = out_dtype or x.dtype
     _check(out_dtype in (torch.float32, torch.bfloat16),
            "quant_matmul: out_dtype must be f32 or bf16")
-    if not _on_cuda(x, q, scale):
+    if _plain(interpret, x, q, scale):
         return quant_matmul_plain(x, q, scale, bits, group, out_dtype)
     _contig(("x", x), ("q", q), ("scale", scale))
     _aligned(16, ("q", q))
@@ -766,9 +836,10 @@ def _identity_rotation(s_, half, device):
 
 def fused_decode_attention_plain(x, pos, k_cache, v_cache, wqkv, sqkv,
                                  bqkv, wo, so, bo, cos, sin, heads, bits,
-                                 group, scale):
+                                 group, scale, cache_dtype=None):
     """Plain PyTorch version of :func:`fused_decode_attention` (with the
-    rope tables already built)."""
+    rope tables already built); ``k_new`` and ``v_new`` in
+    ``cache_dtype``, default the cache's."""
     s_, e = x.shape
     l_, kv, d = k_cache.shape[1:]
     g, half = heads // kv, d // 2
@@ -804,13 +875,14 @@ def fused_decode_attention_plain(x, pos, k_cache, v_cache, wqkv, sqkv,
     if bits == 8:
         out = out * so
     out = out + bo.to(torch.float32)
-    return (out.to(x.dtype), kh.to(k_cache.dtype), vh.to(k_cache.dtype))
+    cdt = cache_dtype or k_cache.dtype
+    return out.to(x.dtype), kh.to(cdt), vh.to(cdt)
 
 
 def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
                            wo, so, bo, *, heads, kv_heads, bits=8,
                            group=None, rope=True, rope_base=10000.0,
-                           scale=None):
+                           scale=None, cache_dtype=None, interpret=None):
     """One decode step's QKV projection -> rope -> attention -> output
     projection in one C entry call (``matmul_impl="fused"``, paged, C ==
     1): a GEMM over all slots, a split-KV read and merge, and a GEMM over
@@ -827,7 +899,11 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
     [S, L, KV, D] f32 or bf16; wqkv/wo with sqkv/so as in
     :func:`quant_matmul` (one ``bits`` for both); bqkv [3E-ish], bo [E].
     Returns ``(out [S, E] in x's dtype, k_new [S, KV, D], v_new
-    [S, KV, D] in the cache's dtype)``."""
+    [S, KV, D])``, the two rows in ``cache_dtype`` (f32 or bf16; a torch
+    dtype or its name) when it is given, else in the cache's dtype, each
+    rounded once from its f32 value (``cache_dtype``, l.1443).
+    ``interpret`` follows the module's rule: ``True`` runs the plain
+    version on any device."""
     _check(x.dim() == 2 and x.dtype in (torch.float32, torch.bfloat16),
            "fused_decode_attention: x must be f32/bf16 [S, E]")
     s_, e = x.shape
@@ -852,13 +928,19 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
            "fused_decode_attention: pos must be int32 [S]")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    cdt = k_cache.dtype if cache_dtype is None else (
+        getattr(torch, cache_dtype, None) if isinstance(cache_dtype, str)
+        else cache_dtype)
+    _check(cdt in (torch.float32, torch.bfloat16),
+           "fused_decode_attention: cache_dtype must be float32 or "
+           "bfloat16, got %r", cache_dtype)
     cos, sin = _rope_tables(pos, d // 2, rope, rope_base)
     bq = bqkv.to(torch.float32).contiguous()
     bo_ = bo.to(torch.float32).contiguous()
-    if not _on_cuda(x, pos, k_cache, v_cache, wqkv, sqkv, wo, so):
+    if _plain(interpret, x, pos, k_cache, v_cache, wqkv, sqkv, wo, so):
         return fused_decode_attention_plain(
             x, pos, k_cache, v_cache, wqkv, sqkv, bq, wo, so, bo_, cos,
-            sin, heads, bits, group, scale)
+            sin, heads, bits, group, scale, cdt)
     g = heads // kv
     # the merge of a kv head's splits holds its G roped q rows, k_new and
     # 35 floats a row (csrc/fused_decode_attention.cu merge_smem)
@@ -878,7 +960,7 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
              ("wqkv", wqkv), ("wo", wo))
     dev = x.device
     out = torch.empty_like(x)
-    kn = torch.empty((s_, kv, d), dtype=k_cache.dtype, device=dev)
+    kn = torch.empty((s_, kv, d), dtype=cdt, device=dev)
     vn = torch.empty_like(kn)
     sms = _sm_count(dev)
     ns = fused_decode_splits(l_, d, sms)
@@ -904,7 +986,7 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
             _ptr(kn), _ptr(vn), _ptr(qkv), _ptr(o), _ptr(part), _ptr(att),
             _ptr(count), s_, e, heads, kv, d, l_, bits, group or 0, ns, ks1,
             ks3, float(scale), _CODE[x.dtype],
-            _CODE[k_cache.dtype])
+            _CODE[k_cache.dtype], _CODE[cdt])
     return out, kn, vn
 
 
@@ -1004,13 +1086,15 @@ def _flash_kernel_args(name, q, k, v, *tensors):
     return (b, h, tq, k.shape[1], d) + tuple(strides)
 
 
-def flash_attention_fwd(q, k, v, *, causal=False, scale=None, window=0):
+def flash_attention_fwd(q, k, v, *, causal=False, scale=None, window=0,
+                        interpret=None):
     """Forward: ``(o [B, Tq, H, D] in q's dtype, lse [B*H, Tq] f32)``, the
-    per-row logsumexp the backward recomputes the probabilities from."""
+    per-row logsumexp the backward recomputes the probabilities from.
+    ``interpret=True`` runs the plain version on any device."""
     _check_flash(q, k, v, window, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _on_cuda(q, k, v):
+    if _plain(interpret, q, k, v):
         return flash_attention_fwd_plain(q, k, v, causal, scale, window)
     cfg = _flash_kernel_args("flash_attention_fwd", q, k, v)
     b, h, tq = cfg[:3]
@@ -1023,10 +1107,11 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, window=0):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
-                        window=0):
+                        window=0, interpret=None):
     """Backward of :func:`flash_attention_fwd`: ``(dq, dk, dv)``, in q's,
     k's and v's dtypes. On the card, the dQ kernel (which also writes
-    ``dcap = rowsum(dO * O)``) and then the dK/dV kernel."""
+    ``dcap = rowsum(dO * O)``) and then the dK/dV kernel;
+    ``interpret=True`` runs the plain version on any device."""
     _check_flash(q, k, v, window, causal)
     _check(o.shape == q.shape and do.shape == q.shape
            and lse.shape == (q.shape[0] * q.shape[2], q.shape[1]),
@@ -1034,7 +1119,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
            "[B*H, Tq]")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _on_cuda(q, k, v, o, lse, do):
+    if _plain(interpret, q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                          scale, window)
     do = do.to(q.dtype).contiguous()
@@ -1056,21 +1141,23 @@ class _FlashAttention(torch.autograd.Function):
     package's ``_flash_core`` custom VJP, l.348)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                     window=window)
+    def forward(ctx, q, k, v, causal, scale, window, interpret):
+        cfg = dict(causal=causal, scale=scale, window=window,
+                   interpret=interpret)
+        o, lse = flash_attention_fwd(q, k, v, **cfg)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = dict(causal=causal, scale=scale, window=window)
+        ctx.cfg = cfg
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.cfg)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, *, causal=False, scale=None, window=0):
+def flash_attention(q, k, v, *, causal=False, scale=None, block_q=None,
+                    block_k=None, interpret=None, window=0):
     """Fused attention, differentiable. q: [B, Tq, H, D], k, v: [B, Tk,
     H, D] (f32 or bf16); returns [B, Tq, H, D] in q's dtype.
 
@@ -1081,8 +1168,15 @@ def flash_attention(q, k, v, *, causal=False, scale=None, window=0):
     kernels round the probabilities to bf16 for the products with V and
     K). q, k and v may be views whose heads are D apart with contiguous
     values (slices of a packed qkv projection): the kernels read them in
-    place; gradients come back contiguous."""
-    return _FlashAttention.apply(q, k, v, bool(causal), scale, int(window))
+    place; gradients come back contiguous.
+
+    ``block_q``, ``block_k`` and ``interpret`` follow the module's rule:
+    the tile knobs are validated and change nothing here (the kernels'
+    tiles are fixed); ``interpret=True`` runs the plain forward and
+    backward on any device."""
+    _check_tiles("flash_attention", block_q=block_q, block_k=block_k)
+    return _FlashAttention.apply(q, k, v, bool(causal), scale, int(window),
+                                 bool(interpret))
 
 
 # -- striped_pair_attention ---------------------------------------------------
@@ -1170,13 +1264,14 @@ def _spair_kernel_args(name, q, k, *tensors):
 
 
 def striped_pair_attention_fwd(q, k, v, q_off, k_off, *, n_stride,
-                               scale=None):
+                               scale=None, interpret=None):
     """Forward of one striped hop: ``(o [BH, Cq, D] in q's dtype, lse
-    [BH, Cq, 1] f32)``."""
+    [BH, Cq, 1] f32)``; ``interpret=True`` runs the plain version on any
+    device."""
     _check_spair(q, k, v, q_off, k_off, n_stride)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _on_cuda(q, k, v):
+    if _plain(interpret, q, k, v):
         return striped_pair_attention_plain(q, k, v, q_off, k_off, n_stride,
                                             scale)
     cfg = _spair_kernel_args("striped_pair_fwd", q, k, ("q", q), ("k", k),
@@ -1191,11 +1286,12 @@ def striped_pair_attention_fwd(q, k, v, q_off, k_off, *, n_stride,
 
 
 def striped_pair_attention_bwd(q, k, v, o, lse, g_o, g_lse, q_off, k_off, *,
-                               n_stride, scale=None):
+                               n_stride, scale=None, interpret=None):
     """Backward of :func:`striped_pair_attention_fwd` from the cotangents of
     both outputs: ``(dq, dk, dv)`` in q's, k's and v's dtypes. On the card,
     the dQ kernel (which also writes ``dcap = rowsum(g_o * o) - g_lse``)
-    and then the dK/dV kernel."""
+    and then the dK/dV kernel; ``interpret=True`` runs the plain version on
+    any device."""
     _check_spair(q, k, v, q_off, k_off, n_stride)
     _check(o.shape == q.shape and g_o.shape == q.shape
            and lse.shape == q.shape[:2] + (1,) and g_lse.shape == lse.shape,
@@ -1203,7 +1299,7 @@ def striped_pair_attention_bwd(q, k, v, o, lse, g_o, g_lse, q_off, k_off, *,
            "lse and g_lse [BH, Cq, 1]")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _on_cuda(q, k, v, o, lse, g_o, g_lse):
+    if _plain(interpret, q, k, v, o, lse, g_o, g_lse):
         return striped_pair_attention_bwd_plain(q, k, v, o, lse, g_o, g_lse,
                                                 q_off, k_off, n_stride, scale)
     g_o = g_o.to(q.dtype).contiguous()
@@ -1228,24 +1324,26 @@ class _StripedPair(torch.autograd.Function):
     l.628-657)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_off, k_off, n_stride, scale):
+    def forward(ctx, q, k, v, q_off, k_off, n_stride, scale, interpret):
         o, lse = striped_pair_attention_fwd(q, k, v, q_off, k_off,
-                                            n_stride=n_stride, scale=scale)
+                                            n_stride=n_stride, scale=scale,
+                                            interpret=interpret)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = (q_off, k_off, n_stride, scale)
+        ctx.cfg = (q_off, k_off, n_stride, scale, interpret)
         return o, lse
 
     @staticmethod
     def backward(ctx, g_o, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
-        q_off, k_off, n_stride, scale = ctx.cfg
+        q_off, k_off, n_stride, scale, interpret = ctx.cfg
         dq, dk, dv = striped_pair_attention_bwd(
             q, k, v, o, lse, g_o, g_lse, q_off, k_off, n_stride=n_stride,
-            scale=scale)
-        return dq, dk, dv, None, None, None, None
+            scale=scale, interpret=interpret)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def striped_pair_attention(q, k, v, q_off, k_off, *, n_stride, scale=None):
+def striped_pair_attention(q, k, v, q_off, k_off, *, n_stride, scale=None,
+                           block_q=128, block_k=128, interpret=None):
     """One striped ring hop, differentiable in both outputs.
 
     q: [BH, Cq, D], k, v: [BH, Ck, D] (f32 or bf16), local row ``a`` of q
@@ -1255,11 +1353,15 @@ def striped_pair_attention(q, k, v, q_off, k_off, *, n_stride, scale=None):
     visible from query ``a`` when ``a*n + q_off >= b*n + k_off``. Returns
     ``(o [BH, Cq, D] in q's dtype, lse [BH, Cq, 1] f32)``: o normalized
     over the visible keys, lse the per-row logsumexp (-1e30 where no key
-    is visible), to be merged with other hops by ``logaddexp``. The JAX
-    package's ``block_q``/``block_k`` are TPU tile sizes; the kernels have
-    their own tiles and take no such argument."""
+    is visible), to be merged with other hops by ``logaddexp``.
+
+    ``block_q``, ``block_k`` and ``interpret`` follow the module's rule:
+    the tile knobs are validated and change nothing here (the kernels'
+    tiles are fixed); ``interpret=True`` runs the plain forward and
+    backward on any device."""
+    _check_tiles("striped_pair_attention", block_q=block_q, block_k=block_k)
     return _StripedPair.apply(q, k, v, int(q_off), int(k_off),
-                              int(n_stride), scale)
+                              int(n_stride), scale, bool(interpret))
 
 
 # -- fused_linear -------------------------------------------------------------
@@ -1288,11 +1390,13 @@ def fused_linear_plain(x, w, b=None, act="linear", scale=None):
     return _ACTS[act](acc).to(x.dtype)
 
 
-def fused_linear_fwd(x, w, b=None, act="linear", scale=None):
+def fused_linear_fwd(x, w, b=None, act="linear", scale=None, *,
+                     interpret=None):
     """``act(scale * (x @ w^T) + b)`` in one kernel: x [M, K], w [N, K]
     (a FullyConnected weight as stored), b and scale [N] or None; f32
     accumulation, the result in x's dtype. ``scale`` is the folded
-    BatchNorm scale of the conv path; the LM passes none."""
+    BatchNorm scale of the conv path; the LM passes none.
+    ``interpret=True`` runs the plain version on any device."""
     _check(act in _ACT_CODE, "fused_linear: unknown activation %r", act)
     _check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[1],
            "fused_linear: x [M, K] and w [N, K] needed, got %s %s",
@@ -1304,7 +1408,7 @@ def fused_linear_fwd(x, w, b=None, act="linear", scale=None):
     for name, t in (("b", b), ("scale", scale)):
         _check(t is None or t.shape == (n,), "fused_linear: %s must be [%d]",
                name, n)
-    if not _on_cuda(x, w, b, scale):
+    if _plain(interpret, x, w, b, scale):
         return fused_linear_plain(x, w, b, act, scale)
     _contig(("x", x), ("w", w))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -1322,8 +1426,8 @@ class _FusedLinear(torch.autograd.Function):
     db."""
 
     @staticmethod
-    def forward(ctx, x, w, b, act):
-        out = fused_linear_fwd(x, w, b, act)
+    def forward(ctx, x, w, b, act, interpret):
+        out = fused_linear_fwd(x, w, b, act, interpret=interpret)
         ctx.save_for_backward(x, w, out)
         ctx.act = act
         ctx.has_bias = b is not None
@@ -1336,19 +1440,29 @@ class _FusedLinear(torch.autograd.Function):
         dx = dpre @ w
         dw = dpre.t() @ x
         db = dpre.sum(dim=0) if ctx.has_bias else None
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
-def fused_linear(x, w, b=None, act="linear"):
+def fused_linear(x, w, b=None, act="linear", *, block_m=256, block_n=256,
+                 block_k=512, interpret=None):
     """``act(x @ w^T + b)`` in one kernel, differentiable. x: [M, K], w:
     [N, K], b: [N] or None. ``gelu`` runs the linear kernel and then
     PyTorch's tanh-approximated gelu (its derivative needs the
-    pre-activation), as the JAX package composes it (l.828)."""
+    pre-activation), as the JAX package composes it (l.828).
+
+    ``block_m``, ``block_n``, ``block_k`` and ``interpret`` follow the
+    module's rule: the tile knobs are validated and change nothing here
+    (the kernel's tiles are fixed); ``interpret=True`` runs the plain
+    version on any device."""
+    _check_tiles("fused_linear", block_m=block_m, block_n=block_n,
+                 block_k=block_k)
+    interpret = bool(interpret)
     if act == "gelu":
-        return torch.nn.functional.gelu(_FusedLinear.apply(x, w, b, "linear"),
-                                        approximate="tanh")
+        return torch.nn.functional.gelu(
+            _FusedLinear.apply(x, w, b, "linear", interpret),
+            approximate="tanh")
     _check(act in _ACT_CODE, "fused_linear: unknown activation %r", act)
-    return _FusedLinear.apply(x, w, b, act)
+    return _FusedLinear.apply(x, w, b, act, interpret)
 
 
 # -- fused_conv_bn_act --------------------------------------------------------
@@ -1469,8 +1583,9 @@ def fused_conv_bn_act_plain(x, w, scale, bias, stride=(1, 1), pad=(0, 0),
     return _ACTS[act](acc).to(x.dtype)
 
 
-def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
-                      dilate=(1, 1), act="relu"):
+def fused_conv_bn_act(x, w, scale, bias, stride=(1, 1), pad=(0, 0),
+                      dilate=(1, 1), act="relu", *, block_m=256,
+                      block_n=256, block_k=512, interpret=None):
     """``act(scale_c * conv(x, w) + bias_c)`` in one GEMM kernel: the
     eval-time conv -> BatchNorm -> act chain with the moving statistics
     (and any conv bias) folded into ``scale``/``bias`` [O].
@@ -1485,8 +1600,15 @@ def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
     implicit GEMM; in bf16 the patches are made outside it
     (:func:`_im2col`), as the JAX package makes them in XLA.
     :func:`conv_algo` names the path. Forward only: the JAX kernel has no
-    gradient either."""
+    gradient either.
+
+    ``block_m``, ``block_n``, ``block_k`` and ``interpret`` follow the
+    module's rule: the tile knobs are validated and change nothing here
+    (the kernels' tiles are fixed); ``interpret=True`` runs the plain
+    version on any device."""
     _check(act in _ACT_CODE, "fused_conv_bn_act: unknown activation %r", act)
+    _check_tiles("fused_conv_bn_act", block_m=block_m, block_n=block_n,
+                 block_k=block_k)
     _check(x.dim() == 4 and w.dim() == 4 and x.shape[1] == w.shape[1],
            "fused_conv_bn_act: x [N, C, H, W] and w [O, C, kh, kw] needed, "
            "got %s %s", tuple(x.shape), tuple(w.shape))
@@ -1500,7 +1622,7 @@ def fused_conv_bn_act(x, w, scale, bias, *, stride=(1, 1), pad=(0, 0),
         "fused_conv_bn_act is an inference kernel: it has no gradient")
     stride, pad, dilate = (tuple(int(v) for v in a)
                            for a in (stride, pad, dilate))
-    if not _on_cuda(x, w, scale, bias):
+    if _plain(interpret, x, w, scale, bias):
         return fused_conv_bn_act_plain(x, w, scale, bias, stride, pad,
                                        dilate, act)
     ws = None
@@ -1542,19 +1664,20 @@ def matmul_stats_plain(x, w):
     return acc.to(x.dtype), acc.sum(dim=0), acc.square().sum(dim=0)
 
 
-def matmul_stats_fwd(x, w):
+def matmul_stats_fwd(x, w, *, interpret=None):
     """``(y, s1, s2)``: ``y = x @ w^T`` [M, N] in x's dtype, and the f32
     column sums ``s1 = sum_m y`` and ``s2 = sum_m y^2`` [N] of the f32
     product before it is rounded. x [M, K], w [N, K] (a 1x1 conv weight
     [O, C]), f32 or bf16. The kernel writes one row of partial sums per
     M-tile; they are summed here, as the JAX package sums them outside
-    Pallas (l.937-938)."""
+    Pallas (l.937-938). ``interpret=True`` runs the plain version on any
+    device."""
     _check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[1],
            "matmul_stats: x [M, K] and w [N, K] needed, got %s %s",
            tuple(x.shape), tuple(w.shape))
     _check(x.dtype in (torch.float32, torch.bfloat16) and w.dtype == x.dtype,
            "matmul_stats: x and w must share one dtype, f32 or bf16")
-    if not _on_cuda(x, w):
+    if _plain(interpret, x, w):
         return matmul_stats_plain(x, w)
     _contig(("x", x), ("w", w))
     m, kdim = x.shape
@@ -1576,8 +1699,8 @@ class _MatmulStats(torch.autograd.Function):
     and ``dw = g^T x``."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        y, s1, s2 = matmul_stats_fwd(x, w)
+    def forward(ctx, x, w, interpret):
+        y, s1, s2 = matmul_stats_fwd(x, w, interpret=interpret)
         ctx.save_for_backward(x, w, y)
         return y, s1, s2
 
@@ -1586,13 +1709,21 @@ class _MatmulStats(torch.autograd.Function):
         x, w, y = ctx.saved_tensors
         g = (gy.float() + gs1.float()[None, :]
              + 2.0 * y.float() * gs2.float()[None, :]).to(x.dtype)
-        return g @ w, g.t() @ x
+        return g @ w, g.t() @ x, None
 
 
-def matmul_stats(x, w):
+def matmul_stats(x, w, *, block_m=256, block_n=256, block_k=512,
+                 interpret=None):
     """``(x @ w^T, per-column sum, per-column sum of squares)`` in one
     kernel, differentiable. x [M, K], w [N, K]; the statistics are f32
     sums of the f32 product, for the training conv -> BatchNorm chain
     (``ops.fusion``), which then needs no second read of the
-    activation."""
-    return _MatmulStats.apply(x, w)
+    activation.
+
+    ``block_m``, ``block_n``, ``block_k`` and ``interpret`` follow the
+    module's rule: the tile knobs are validated and change nothing here
+    (the kernel's tiles are fixed); ``interpret=True`` runs the plain
+    version on any device."""
+    _check_tiles("matmul_stats", block_m=block_m, block_n=block_n,
+                 block_k=block_k)
+    return _MatmulStats.apply(x, w, bool(interpret))

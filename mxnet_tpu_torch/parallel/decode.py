@@ -23,7 +23,7 @@ import os
 
 import torch
 
-from ..base import MXNetError, later_slice, torch_dtype
+from ..base import MXNetError, later_slice, refuse_unported, torch_dtype
 from ..context import resolve_device
 from ..ops import kernels
 from ..ops.attention import MultiHeadAttention as _MHA, rope_rotate
@@ -254,10 +254,13 @@ class Decoder:
                 if not n.is_var and n.spec.name == "Embedding"}
 
     # -- cache ----------------------------------------------------------
-    def init_cache(self, batch_size):
+    def init_cache(self, batch_size, kv_sharding=None):
         """Zeroed K/V buffers, ``[B, max_len, Hkv, D]`` per attention
         node (plus ``[B, max_len, Hkv]`` f32 row scales for an int8
-        cache)."""
+        cache). ``kv_sharding`` (a cache laid out over a mesh's kv heads)
+        raises unless None: it belongs to a later slice."""
+        refuse_unported("Decoder.init_cache",
+                        kv_sharding=(kv_sharding, None))
         caches = []
         for n in self._mha:
             w = self._params[n.inputs[1][0].name]

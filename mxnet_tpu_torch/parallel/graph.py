@@ -14,6 +14,8 @@ node, each rank on its own shard.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..base import MXNetError
@@ -67,7 +69,7 @@ def integer_semantic_inputs(symbol):
     return {n.name for n in topo if n.is_var and node_is_int(n)}
 
 
-def make_graph_fn(symbol):
+def make_graph_fn(symbol, allow_fusion=True):
     """Build ``fn(arg_vals, aux_vals, is_train, generator) -> (outs,
     new_aux)``.
 
@@ -79,10 +81,15 @@ def make_graph_fn(symbol):
     ``FullyConnected -> Activation`` as ``fused_linear``; ``Convolution ->
     BatchNorm [-> relu]`` as ``fused_conv_bn_act`` on eval and, for 1x1
     convs under ``MXNET_PALLAS_CONVBN_TRAIN=1``, as ``matmul_stats`` in
-    training."""
+    training. ``allow_fusion=False`` runs no chain fused (every node its
+    own op) unless ``MXNET_PALLAS_FUSION=1``, read here, turns the plan
+    back on, as in the JAX package."""
     topo = symbol._topo()
     heads = symbol._heads
-    plan = FusionPlan(topo, heads)
+    if allow_fusion or os.environ.get("MXNET_PALLAS_FUSION") == "1":
+        plan = FusionPlan(topo, heads)
+    else:
+        plan = None
 
     def fn(arg_vals, aux_vals, is_train, generator):
         outs, new_aux, _ = eval_graph(topo, heads, arg_vals, aux_vals,

@@ -129,13 +129,14 @@ def _ring_attention_local(qs, ks, vs, *, causal, scale):
     return [_finalize(o, l).to(q.dtype) for (o, l, _), q in zip(state, qs)]
 
 
-def _striped_ring_local(qs, ks, vs, *, scale):
+def _striped_ring_local(qs, ks, vs, *, scale, block_q=None, block_k=None):
     """The striped ring body over one ring's ranks: qs, ks, vs are the
     STRIPED shards [B, C, H, D] of ranks 0..n-1 (local row ``a`` of rank
     ``my`` is global position ``a*n + my``). Each hop runs the
     ``striped_pair_attention`` kernel for every rank, with the ring
     positions ``(my, (my - i) % n)`` as host ints, and merges the (o, lse)
-    partial with streaming softmax. Returns the ranks' outputs."""
+    partial with streaming softmax; ``block_q``/``block_k`` go to every
+    hop. Returns the ranks' outputs."""
     n = len(qs)
     b, c, h, d = qs[0].shape
     if scale is None:
@@ -154,7 +155,8 @@ def _striped_ring_local(qs, ks, vs, *, scale):
         for my in range(n):
             src = (my - i) % n  # ring position of this K/V block
             o_i, lse_i = kernels.striped_pair_attention(
-                qb[my], kcur[my], vcur[my], my, src, n_stride=n, scale=scale)
+                qb[my], kcur[my], vcur[my], my, src, n_stride=n, scale=scale,
+                block_q=block_q, block_k=block_k)
             new_lse = torch.logaddexp(lse[my], lse_i)
             o[my] = o[my] * torch.exp(lse[my] - new_lse) \
                 + o_i.float() * torch.exp(lse_i - new_lse)
@@ -217,15 +219,16 @@ def ring_attention(q, k, v, mesh, *, axis_name="sp", causal=False,
 
 
 def striped_ring_attention(q, k, v, mesh, *, axis_name="sp", scale=None,
-                           batch_axis=None):
+                           batch_axis=None, block_q=None, block_k=None):
     """Causal ring attention with the STRIPED token layout: balanced
     per-hop work through the ``striped_pair_attention`` kernel.
 
     q,k,v: GLOBAL [B,T,H,D] in NATURAL token order. The tokens are dealt
     round-robin onto the ring, the balanced ring runs, and the output comes
     back in natural order. Causal only: striping exists to balance the
-    causal mask. (The JAX package's ``block_q``/``block_k`` are its
-    kernel's TPU tiles; the CUDA kernel has its own.)"""
+    causal mask. ``block_q``/``block_k`` go to every hop's
+    ``striped_pair_attention``, whose tiles on CUDA are fixed: validated
+    there, they change nothing."""
     n = len(_rings(mesh, axis_name, batch_axis)[0])
     b, t, h, d = q.shape
     if t % n:
@@ -241,7 +244,8 @@ def striped_ring_attention(q, k, v, mesh, *, axis_name="sp", scale=None,
         return x.reshape(b, n, c, h, d).transpose(1, 2).reshape(b, t, h, d)
 
     def body(qs, ks, vs):
-        return _striped_ring_local(qs, ks, vs, scale=scale)
+        return _striped_ring_local(qs, ks, vs, scale=scale, block_q=block_q,
+                                   block_k=block_k)
     return unstripe(_run_rings(body, (stripe(q), stripe(k), stripe(v)),
                                mesh, axis_name, batch_axis))
 

@@ -304,14 +304,24 @@ class InferenceEngine:
             and not self._drain
 
     def submit(self, prompt, max_tokens, eos_id=None, temperature=0.0,
-               seed=None, request_id=None):
+               seed=None, request_id=None, deadline_ms=None,
+               ttft_deadline_ms=None, _resume_tokens=(), _trace=None):
         """Queue one generation request; returns its :class:`Request`.
 
         prompt: 1-D integer sequence, ``1 <= len <= max_len - 1`` and
         within the largest bucket; at most ``max_len - len(prompt)``
         tokens come back. ``eos_id`` stops generation after it is
         emitted. ``temperature=0`` is greedy; > 0 samples with ``seed``
-        (drawn from a counter when omitted). A full queue raises."""
+        (drawn from a counter when omitted). A full queue raises.
+        ``deadline_ms``, ``ttft_deadline_ms`` (request deadlines),
+        ``_resume_tokens`` (a migrated request's tokens) and ``_trace``
+        (fleet trace context) raise unless at their defaults: they belong
+        to a later slice."""
+        refuse_unported("InferenceEngine.submit",
+                        deadline_ms=(deadline_ms, None),
+                        ttft_deadline_ms=(ttft_deadline_ms, None),
+                        _resume_tokens=(tuple(_resume_tokens), ()),
+                        _trace=(_trace, None))
         try:
             prompt = np.asarray(prompt)
         except (TypeError, ValueError) as e:

@@ -96,12 +96,13 @@ _CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 @pytest.mark.parametrize("cache", list(_CACHE_DTYPES))
 @pytest.mark.parametrize("c", [1, 5, 15, 16, 64, 100, 256])
 def test_paged_entry_takes_the_chunk_for_bf16_chunks(q_dtype, cache, c):
-    """A bf16 q over a bf16 cache with C >= 16 goes to the chunk entry;
-    decode reads and short chunks (C < 16) to the decode entry whatever
-    the dtypes; longer f32 and int8-cache chunks to the scalar one."""
+    """A bf16 q over a bf16 or an int8 cache with C >= 16 goes to the
+    chunk entry; decode reads and short chunks (C < 16) to the decode
+    entry whatever the dtypes; longer chunks with an f32 q or cache to the
+    scalar one."""
     if c < 16:
         want = "paged_attention_decode"
-    elif q_dtype == torch.bfloat16 and cache == "bf16":
+    elif q_dtype == torch.bfloat16 and cache in ("bf16", "int8"):
         want = "paged_attention_chunk"
     else:
         want = "paged_attention"
@@ -130,7 +131,7 @@ def test_chunk_entry_is_registered_and_cpu_calls_run_plain(monkeypatch):
                                             "paged_attention_chunk",
                                             "paged_attention_decode")
     assert K.SOURCE["paged_attention_chunk"] == "paged_attention"
-    assert len(K._ARGTYPES["paged_attention_chunk"]) == 13
+    assert len(K._ARGTYPES["paged_attention_chunk"]) == 16
     assert "paged_attention_chunk" in K.launch_counts()
     _refuse_library(monkeypatch)
     K.reset_launch_counts()

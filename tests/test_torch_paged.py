@@ -42,11 +42,12 @@ def _t(a):
 @pytest.mark.parametrize("c", [1, 5, 15, 16, 256])
 def test_paged_entry_three_way_rule(q_dtype, cache, c):
     """C < 16 takes the decode entry whatever the dtypes; a bf16 q over a
-    bf16 cache with C >= 16 the chunk entry; the rest the scalar one."""
+    bf16 or an int8 cache with C >= 16 the chunk entry; the rest the
+    scalar one."""
     got = K.paged_entry(DTYPES[q_dtype], DTYPES[cache], c, 64)
     if c < 16:
         assert got == "paged_attention_decode"
-    elif q_dtype == "bf16" and cache == "bf16":
+    elif q_dtype == "bf16" and cache in ("bf16", "int8"):
         assert got == "paged_attention_chunk"
     else:
         assert got == "paged_attention"

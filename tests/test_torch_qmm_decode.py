@@ -7,8 +7,8 @@ against their plain versions. Here, on the CPU, what they compute is
 written out in numpy and torch from the sources' own rules and held
 against the plain versions and the JAX package:
 
-* the in-register conversions (``csrc/qgemm.cuh`` ``i8x4_bf16``,
-  ``i4x4_bf16``), emulated bit for bit over every byte value, equal the
+* the in-register conversions (``csrc/common.cuh`` ``i8x4_bf16``,
+  ``csrc/qgemm.cuh`` ``i4x4_bf16``), emulated bit for bit over every byte value, equal the
   plain conversion exactly;
 * the split rules (``quant_matmul_splits``, ``fused_decode_splits``) take
   no M, S or pos, cut whole stages and stay within the stage count, and
@@ -104,7 +104,7 @@ def hsub2(a, b):
 
 
 def i8x4_bf16(w):
-    """csrc/qgemm.cuh i8x4_bf16 on uint32 words: the bf16 pairs (values 0,
+    """csrc/common.cuh i8x4_bf16 on uint32 words: the bf16 pairs (values 0,
     2) and (values 1, 3)."""
     w = np.asarray(w, np.uint32)
     magic = np.uint32(0x43004300)

@@ -14,7 +14,10 @@ import torch
 import mxnet_tpu.model as jax_model
 import mxnet_tpu.optimizer as jax_opt
 from mxnet_tpu.models import transformer as jax_transformer
+from mxnet_tpu.ops import pallas_kernels as jax_kernels
 from mxnet_tpu.parallel import decode as jax_decode
+from mxnet_tpu.parallel import graph as jax_graph
+from mxnet_tpu.parallel import ring as jax_ring
 from mxnet_tpu.parallel import sp as jax_sp
 from mxnet_tpu.parallel import trainer as jax_trainer
 from mxnet_tpu.serving import engine as jax_engine
@@ -25,7 +28,10 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.initializer import Uniform
 from mxnet_tpu_torch.models import transformer as ttransformer
 from mxnet_tpu_torch.models import get_transformer_lm
+from mxnet_tpu_torch.ops import kernels as tkernels
 from mxnet_tpu_torch.parallel import decode as tdecode
+from mxnet_tpu_torch.parallel import graph as tgraph
+from mxnet_tpu_torch.parallel import ring as tring
 from mxnet_tpu_torch.parallel import sp as tsp
 from mxnet_tpu_torch.parallel import trainer as ttrainer
 from mxnet_tpu_torch.serving import engine as tengine
@@ -56,7 +62,18 @@ CALLABLES = [
      tmodel.save_checkpoint),
     ("load_checkpoint", jax_model.load_checkpoint,
      tmodel.load_checkpoint),
-]
+    ("InferenceEngine.submit", jax_engine.InferenceEngine.submit,
+     tengine.InferenceEngine.submit),
+    ("Decoder.init_cache", jax_decode.Decoder.init_cache,
+     tdecode.Decoder.init_cache),
+    ("make_graph_fn", jax_graph.make_graph_fn, tgraph.make_graph_fn),
+    ("striped_ring_attention", jax_ring.striped_ring_attention,
+     tring.striped_ring_attention),
+] + [(name, getattr(jax_kernels, name), getattr(tkernels, name))
+     for name in ("flash_attention", "striped_pair_attention",
+                  "fused_linear", "fused_conv_bn_act", "matmul_stats",
+                  "paged_attention", "quant_matmul",
+                  "fused_decode_attention")]
 
 
 @pytest.mark.parametrize("name,jax_fn,port_fn", CALLABLES,
