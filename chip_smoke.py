@@ -78,18 +78,26 @@ Phases:
    each prefill chunk goes through ``paged_attention_chunk`` (12 launches
    a prefill, none of the scalar entry), and the same 124M LM rebuilt on
    the host (plain versions) agrees with the card's logits and tokens to
-   a stated bf16 tolerance; then a profiled window of decode rounds with
-   every slot busy (wall and kernel time per step, the card's idle share,
-   the kernels by device time; the trace goes to ``chiprun_out/``); one
-   256-token prefill's wall and card time; then the same checkpoint
+   a stated bf16 tolerance. The engine runs compiled programs (CUDA
+   graphs): its ``compile_counts`` must be the JAX contract (one decode
+   program, one prefill program per bucket); the same wave run uncaptured
+   (``Program._run_eager``) must give the same 24 streams; one sampled
+   request alone and inside a busy wave, captured and uncaptured, must
+   give one stream. Then a window of decode rounds with every slot busy,
+   captured and uncaptured (wall time and the card's time per step by
+   CUDA events and by the profiler, the idle share, the host calls per
+   round, the kernels by device time, peak memory; the trace goes to
+   ``chiprun_out/``); one 256-token prefill's wall and card time through
+   the (uncaptured) decoder and through the engine's captured bucket
+   program; then the same checkpoint
    served by the engine's default configuration (float weights, dense
    products: ``paged_attention_decode`` for every decode step's read) and
    with the int8 KV cache (the decode entry for decode steps,
    ``paged_attention_chunk`` for prefills, no launch of the scalar
    entry), one wave each, counters zeroed just before and read just
    after, exact launches, two streams equal to ``Decoder.generate``, the
-   default one's decode profile and the int8 one's 256-token prefill
-   timed; then small
+   JAX compile contract, the default one's decode profile and the int8
+   one's 256-token prefill timed (decoder and engine); then small
    LMs in the decoder's other modes (int4 weights, the int8 KV cache
    through the C=1 paged read, float weights, rope, GQA) are held against
    the plain path on the host;
@@ -101,7 +109,12 @@ Phases:
    (12 launches of each of flash forward, dQ, dK/dV and ``fused_linear``
    per step, asserted exactly); tokens/s (median, min-max), ms per step,
    peak memory and MFU; the loss must fall; a profiled window of 2 steps
-   (busy share, kernels by device time, trace to ``chiprun_out/``); then
+   (busy share, host calls, kernels by device time, trace to
+   ``chiprun_out/``); the same step uncaptured (``Program._run_eager``),
+   timed and profiled; one captured step equal bitwise to one uncaptured
+   step from the same parameters, ``multi_step(batch, 3)`` equal bitwise
+   to 3 captured steps, the cost of ``step()``'s output copy, and 12
+   steps as one ``multi_step``; then
    one f32 step of the same LM at B=1, T=128 from the same seeded weights
    on the card and on the host, whose parameter deltas must agree;
 6. the conv-net path: ResNet-50 (``get_resnet(1000, 50)``) trained by
@@ -111,7 +124,9 @@ Phases:
    with ``MXNET_PALLAS_CONVBN_TRAIN=1``: 3 warm-up and 12 timed steps with
    exactly 33 ``matmul_stats`` launches per step and a falling loss, img/s,
    ms per step, MFU, peak memory and a 2-step profile (its trace beside
-   the others); the same 12 steps with the gate unset (no launch);
+   the others); the same 12 steps with the gate unset, by a trainer built
+   with it unset (the step program reads the gate when it is built; no
+   launch);
    ``trainer.forward()`` at B=256 (f32, as the JAX package's eval runs on
    the master parameters) with exactly 53 ``fused_conv_bn_act`` launches
    per forward, and timed again with no chain fused; then ResNet-50 in f32
@@ -136,6 +151,8 @@ needs a CUDA card and the rest of the repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -1619,6 +1636,122 @@ def _wave_metrics(handles, seconds):
             float(np.percentile(tpot, 99)))
 
 
+# -- the program layer: captured against uncaptured --------------------------
+
+def check_compile_counts(engine, what):
+    """The JAX package's compile contract for the waves served here: one
+    decode program, no verify or copy program, one prefill program per
+    bucket (every bucket is used)."""
+    cc = engine.compile_counts
+    want = {"decode": 1, "verify": 0, "prefill": dict.fromkeys(BUCKETS, 1),
+            "copy": {}}
+    if cc != want:
+        raise AssertionError("%s: compile_counts %r, the contract wants %r"
+                             % (what, cc, want))
+    log("%s: compile_counts %s" % (what, json.dumps(
+        {k: ({str(b): n for b, n in v.items()} if isinstance(v, dict)
+             else v) for k, v in cc.items()})))
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Every ``Program`` call inside runs its function uncaptured
+    (``Program._run_eager``) over the same buffers: the captured paths
+    are held against it, and its times stand for the uncaptured path."""
+    from mxnet_tpu_torch.parallel.program import Program
+    captured = Program.__call__
+    Program.__call__ = Program._run_eager
+    try:
+        yield
+    finally:
+        Program.__call__ = captured
+
+
+def free_programs():
+    """Free the graphs and memory pools of the engines and trainers a
+    phase left behind (each program and its owner refer to each other, so
+    only the cycle collector frees them)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def memory():
+    """'peak P MB allocated, R MB reserved': the peak since the last
+    reset, and the caching allocator's segments now, which hold the
+    programs' graph pools (a captured program's intermediates stay in its
+    pool between replays, reserved but not allocated)."""
+    return "peak %.1f MB allocated, %.1f MB reserved" % (
+        torch.cuda.max_memory_allocated() / 2**20,
+        torch.cuda.memory_reserved() / 2**20)
+
+
+def host_calls(prof):
+    """{name: count} of the CUDA API calls (``cuda*`` and ``cu*``) that
+    put work on the card (kernel and graph launches, copies, memsets) in
+    a profile."""
+    from torch.autograd import DeviceType
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith("cu")
+            and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
+
+
+def check_eager_wave(engine, work, first):
+    """The main path's wave through ``Program._run_eager``: its 24 streams
+    must equal the captured wave's (``first``). Returns its tokens/s."""
+    with eager_programs():
+        handles, secs = _serve_wave(engine, work)
+    for h, h0 in zip(handles, first):
+        if h.tokens != h0.tokens:
+            raise AssertionError(
+                "request %s: the captured wave's stream differs from the "
+                "same wave run uncaptured" % h.id)
+    tps, p50, p99 = _wave_metrics(handles, secs)
+    log("main path, the same wave uncaptured (Program._run_eager): %d "
+        "streams equal the captured wave's; %.1f tokens/s, ms per token "
+        "p50 %.3f p99 %.3f; %s" % (len(handles), tps, p50, p99, card_line()))
+    return tps
+
+
+def check_sampled_wave(engine, work):
+    """Sampled decoding on the card: one request (temperature 0.9, seed
+    5) alone, then the same request inside a busy wave of sampled and
+    greedy requests, each captured and uncaptured. Its stream must be
+    the same in all four runs (a function of the seed and the positions,
+    not of the batch), and the busy wave's streams captured must equal
+    them uncaptured."""
+    prompt = work[1][0]
+    runs = {}
+    for mode in ("captured", "uncaptured"):
+        ctx = eager_programs() if mode == "uncaptured" \
+            else contextlib.nullcontext()
+        with ctx:
+            alone = engine.submit(prompt, max_tokens=32, temperature=0.9,
+                                  seed=5)
+            while not engine.idle:
+                engine.step()
+            busy = [engine.submit(p, max_tokens=b,
+                                  temperature=(0.7 if i % 2 else 0.0),
+                                  seed=100 + i)
+                    for i, (p, b) in enumerate(work[:12])]
+            busy.insert(5, engine.submit(prompt, max_tokens=32,
+                                         temperature=0.9, seed=5))
+            while not engine.idle:
+                engine.step()
+        runs[mode] = (alone.tokens, [h.tokens for h in busy])
+    streams = [runs[m][0] for m in runs] + [runs[m][1][5] for m in runs]
+    if any(s != streams[0] for s in streams) or len(streams[0]) != 32:
+        raise AssertionError("sampled request: its stream alone and in a "
+                             "busy wave, captured and uncaptured, differ: "
+                             "%r" % streams)
+    if runs["captured"][1] != runs["uncaptured"][1]:
+        raise AssertionError("sampled wave: captured and uncaptured "
+                             "streams differ")
+    log("sampled decoding: one request's 32 tokens equal alone and inside "
+        "a busy wave beside 12 others (6 sampled), captured and uncaptured; "
+        "the busy wave's streams equal captured and uncaptured (%d distinct "
+        "tokens in the request's stream)" % len(set(streams[0])))
+
+
 def serve_main_path(K, dev):
     """The 124M LM through save_checkpoint -> InferenceEngine.
     from_checkpoint -> WAVES waves of the same staggered greedy requests.
@@ -1636,6 +1769,7 @@ def serve_main_path(K, dev):
     prefix = os.path.join(ckpt, "lm124m")
     t0 = time.perf_counter()
     save_checkpoint(prefix, 0, symbol, _lm_params(symbol, MAX_LEN, 0), {})
+    torch.cuda.reset_peak_memory_stats()
     engine = InferenceEngine.from_checkpoint(
         prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
         steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
@@ -1660,7 +1794,6 @@ def serve_main_path(K, dev):
     torch.cuda.synchronize()
 
     K.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     stats0 = dict(engine.stats)
     waves = [_serve_wave(engine, work) for _ in range(WAVES)]
     launches = K.launch_counts()
@@ -1715,16 +1848,23 @@ def serve_main_path(K, dev):
     cols = list(zip(*per_wave))
     log("main path: %d waves x %d requests, %d prefills, %d rounds x %d "
         "steps; median over waves (min-max): %.1f tokens/s (%.1f-%.1f), "
-        "ms per token p50 %.3f (%.3f-%.3f), p99 %.3f (%.3f-%.3f); peak "
-        "memory %.1f MB; %s" % (
+        "ms per token p50 %.3f (%.3f-%.3f), p99 %.3f (%.3f-%.3f); memory "
+        "since the engine was built: %s; %s" % (
             WAVES, N_REQUESTS, prefills, rounds, STEPS_PER_ROUND,
             *(v for c in cols for v in (statistics.median(c), min(c),
                                         max(c))),
-            torch.cuda.max_memory_allocated() / 2**20, card_line()))
+            memory(), card_line()))
     log("main path launches: %s" % json.dumps(launches))
+    check_compile_counts(engine, "main path")
+    check_eager_wave(engine, work, first)
+    check_sampled_wave(engine, work)
+    check_compile_counts(engine, "main path after the checks")
     check_main_against_host(prefix, dec, checked)
     profile_decode(engine, rs)
+    with eager_programs():
+        profile_decode(engine, rs, trace=None, what="uncaptured")
     time_prefill(K, dec)
+    time_engine_prefill(engine)
     return launches, prefix, work
 
 
@@ -1766,6 +1906,55 @@ def time_prefill(K, dec, reps=10, profiled=3, what="124M"):
             BUCKETS[-1], what, statistics.median(walls), min(walls),
             max(walls),
             total, paged, chunks // profiled, card_line()))
+
+
+def time_engine_prefill(engine, reps=10, profiled=3):
+    """One 256-token prefill through the engine's captured bucket-256
+    program (an admission: the operand copy, the replay and the first
+    token's copy; ``engine._admit`` with one request queued): its wall
+    time after a synchronize (median and min-max of ``reps``), then over
+    ``profiled`` more under torch.profiler its card kernel time and host
+    calls; the peak memory over all of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = np.random.RandomState(5).randint(0, VOCAB, (BUCKETS[-1],))
+
+    def admit():
+        engine.submit(prompt, max_tokens=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._admit()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def drain():
+        while not engine.idle:
+            engine.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps):
+        walls.append(admit())
+        drain()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            engine.submit(prompt, max_tokens=1)
+        engine._admit()
+        torch.cuda.synchronize()
+    drain()
+    rows = [e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    calls = host_calls(prof)
+    log("engine prefill of %d tokens (captured bucket-%d program, one slot, "
+        "pos 0): wall %.3f ms median (%.3f-%.3f) after a synchronize; card "
+        "kernels %.3f ms; host calls per prefill %.1f %s; memory %s; %s" % (
+            BUCKETS[-1], BUCKETS[-1], statistics.median(walls), min(walls),
+            max(walls), sum(rows) / profiled / 1e3,
+            sum(calls.values()) / profiled, json.dumps(calls), memory(),
+            card_line()))
 
 
 def serve_default_path(K, dev, prefix, work):
@@ -1819,6 +2008,7 @@ def serve_default_path(K, dev, prefix, work):
         if ref.cpu().tolist() != h.tokens:
             raise AssertionError("default engine: request %s's stream "
                                  "differs from Decoder.generate" % h.id)
+    check_compile_counts(engine, "default engine")
     tps, p50, p99 = _wave_metrics(handles, secs)
     log("default engine (float weights, dense products): %d requests, %d "
         "prefills, %d decode steps in %.3f s = %.1f tokens/s, ms per token "
@@ -1880,12 +2070,14 @@ def serve_int8_kv_path(K, dev, prefix, work):
         if ref.cpu().tolist() != h.tokens:
             raise AssertionError("int8 KV: request %s's stream differs from "
                                  "Decoder.generate" % h.id)
+    check_compile_counts(engine, "int8 KV path")
     tps, p50, p99 = _wave_metrics(handles, secs)
     log("int8 KV path: %d requests, %d prefills, %d decode steps in %.3f s "
         "= %.1f tokens/s, ms per token p50 %.3f p99 %.3f; launches %s" % (
             len(handles), prefills, steps, secs, tps, p50, p99,
             json.dumps({e: n for e, n in launches.items() if n})))
     time_prefill(K, dec, what="124M, int8 KV")
+    time_engine_prefill(engine)
     return launches
 
 
@@ -1935,20 +2127,35 @@ def check_main_against_host(prefix, dec, handles, steps=16):
                 len(toks), same, steps))
 
 
-def profile_decode(engine, rs, rounds=2, trace="decode_trace.json"):
+def profile_decode(engine, rs, rounds=2, trace="decode_trace.json",
+                   what="captured"):
     """Where a decode round's time goes: every slot busy (prompts of 64,
-    long budgets), ``rounds`` rounds under torch.profiler after one warm
-    round. Prints the wall time per step, the card's kernel time per step
-    and its idle share (1 - kernel time / wall time), and the kernels by
-    device time; the trace goes to chiprun_out/."""
+    long budgets), ``rounds`` rounds after one warm round: their wall
+    time and the card's time over them by CUDA events, then the same
+    number of rounds under torch.profiler. Prints the wall time per step,
+    the card's kernel time per step (the profiler's sum; the events' span
+    beside it) and its idle share (1 - kernel time / wall time), the host
+    calls per round that put work on the card, the kernels by device time,
+    and the peak memory; the trace goes to chiprun_out/ unless ``trace``
+    is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(SLOTS):
         engine.submit(rs.randint(0, VOCAB, (64,)),
-                      max_tokens=(rounds + 2) * STEPS_PER_ROUND)
+                      max_tokens=(2 * rounds + 2) * STEPS_PER_ROUND)
     engine.step()                        # admit all, one warm round
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = Timer._events(1)[0]
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(rounds):
+        engine.step()
+    b.record()
+    torch.cuda.synchronize()
+    wall_ev = time.perf_counter() - t0
+    span_ms = a.elapsed_time(b)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1964,13 +2171,20 @@ def profile_decode(engine, rs, rounds=2, trace="decode_trace.json"):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
-    log("decode profile: %d steps x %d slots; wall %.3f ms per step, card "
-        "kernels %.3f ms per step, idle share %.3f" % (
-            steps, SLOTS, wall * 1e3 / steps, busy_us / 1e3 / steps,
-            1.0 - busy_us / 1e6 / wall))
+    calls = host_calls(prof)
+    log("decode profile (%s): %d steps x %d slots; wall %.3f ms per step "
+        "(unprofiled: %.3f, card span by events %.3f), card kernels %.3f "
+        "ms per step, idle share %.3f; host calls per round %.1f %s; memory "
+        "%s; %s" % (
+            what, steps, SLOTS, wall * 1e3 / steps, wall_ev * 1e3 / steps,
+            span_ms / steps, busy_us / 1e3 / steps,
+            1.0 - busy_us / 1e6 / wall, sum(calls.values()) / rounds,
+            json.dumps(calls), memory(), card_line()))
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log("  %-60s %8.3f ms per step  %5d calls" % (
             key[:60], us / 1e3 / steps, n))
+    if trace is None:
+        return
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, trace))
@@ -2075,6 +2289,7 @@ def train_main_path(K, dev):
     B=8, T=1024 on one repeated seeded batch: WARM_STEPS steps, then
     TIMED_STEPS steps with the launch counters zeroed just before and read
     just after. Returns the launch counts of the timed steps."""
+    torch.cuda.reset_peak_memory_stats()
     trainer = _trainer(None, TRAIN_B, TRAIN_T, "bfloat16")
     if trainer.device != dev:
         raise AssertionError("device=None resolved to %s" % trainer.device)
@@ -2090,7 +2305,6 @@ def train_main_path(K, dev):
             LAYERS, EMBED, HEADS, VOCAB, TRAIN_B, TRAIN_T, WARM_STEPS,
             time.perf_counter() - t0))
     K.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     secs, queued = [], []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
@@ -2100,7 +2314,7 @@ def train_main_path(K, dev):
         secs.append(time.perf_counter() - t0)
         losses.append(_lm_train_loss(outs, label))
     launches = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    mem = memory()
     want = dict.fromkeys(launches, 0)
     want.update({e: LAYERS * TIMED_STEPS for e in TRAIN_ENTRIES})
     if launches != want:
@@ -2117,11 +2331,11 @@ def train_main_path(K, dev):
     med = statistics.median(tps)
     log("train: %d timed steps; tokens/s median %.1f (min %.1f, max %.1f); "
         "ms per step median %.3f (min %.3f, max %.3f); MFU %.4f (%.4g "
-        "FLOP per token, bench.py:231-236, over 989 TFLOP/s); peak memory "
-        "%.1f MB; %s" % (
+        "FLOP per token, bench.py:231-236, over 989 TFLOP/s); memory since "
+        "the trainer was built: %s; %s" % (
             TIMED_STEPS, med, min(tps), max(tps),
             statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
-            med * flops_per_tok / 989e12, flops_per_tok, peak / 2**20,
+            med * flops_per_tok / 989e12, flops_per_tok, mem,
             card_line()))
     log("train: step() returns to the host after %.3f ms (median; min "
         "%.3f, max %.3f); the card finishes the step %.3f ms after it "
@@ -2133,7 +2347,83 @@ def train_main_path(K, dev):
         len(losses), " ".join("%.4f" % v for v in losses)))
     log("train launches: %s" % json.dumps(launches))
     profile_train(trainer, batch)
+    time_train_uncaptured(trainer, batch, secs)
+    check_train_capture(trainer, batch, outs)
     return launches
+
+
+def time_train_uncaptured(trainer, batch, captured_secs, steps=5):
+    """The same step through ``Program._run_eager`` (uncaptured, over the
+    same buffers): ``steps`` steps' wall time and the host's part, beside
+    the captured steps' wall time; then a 2-step profile of it."""
+    prog = trainer._step_program(batch, "step")
+
+    def eager_step():
+        trainer._next_lr()
+        return [o.clone() for o in prog._run_eager()]
+
+    eager_step()
+    torch.cuda.synchronize()
+    secs, queued = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        eager_step()
+        queued.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log("train uncaptured (Program._run_eager): ms per step median %.3f "
+        "(min %.3f, max %.3f), the host's part %.3f; captured: %.3f; %s" % (
+            statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
+            statistics.median(queued) * 1e3,
+            statistics.median(captured_secs) * 1e3, card_line()))
+    profile_train(trainer, batch, trace=None, what="train uncaptured",
+                  call=eager_step)
+
+
+def check_train_capture(trainer, batch, outs, n=3):
+    """From the same parameters (``set_params``, zero momentum), one
+    captured step and one uncaptured step (``Program._run_eager``) must
+    give the same parameters bitwise; ``multi_step(batch, n)`` the same
+    bitwise as ``n`` captured ``step()``s. Then the cost of ``step()``'s
+    output copy (CUDA events), and TIMED_STEPS steps as one
+    ``multi_step`` (wall time per step)."""
+    init, _ = trainer.get_params()
+    prog = trainer._step_program(batch, "step")
+
+    def after(run):
+        trainer.set_params(init)
+        run()
+        torch.cuda.synchronize()
+        return trainer._flat.clone()
+
+    def eager():
+        trainer._next_lr()
+        prog._run_eager()
+
+    cap = after(lambda: trainer.step(batch))
+    eag = after(eager)
+    if not torch.equal(cap, eag):
+        raise AssertionError(
+            "a captured train step and an uncaptured one from the same "
+            "parameters differ: max |diff| %.3g" % (cap - eag).abs().max())
+    steps = after(lambda: [trainer.step(batch) for _ in range(n)])
+    multi = after(lambda: trainer.multi_step(batch, n))
+    if not torch.equal(steps, multi):
+        raise AssertionError(
+            "multi_step(batch, %d) and %d captured steps differ: max |diff| "
+            "%.3g" % (n, n, (steps - multi).abs().max()))
+    copy_ms = Timer(trainer.device)(lambda: [o.clone() for o in outs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.multi_step(batch, TIMED_STEPS)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / TIMED_STEPS
+    log("train capture: a captured step equals an uncaptured one bitwise "
+        "(%d parameters); multi_step(batch, %d) equals %d captured steps "
+        "bitwise; step()'s output copy (%.1f MB) %.4f ms; multi_step(batch, "
+        "%d) %.3f ms per step; %s" % (
+            cap.numel(), n, n, nbytes(*outs) / 1e6, copy_ms, TIMED_STEPS,
+            per * 1e3, card_line()))
 
 
 def profile_train(trainer, batch, steps=2, trace="train_trace.json",
@@ -2160,10 +2450,13 @@ def profile_train(trainer, batch, steps=2, trace="train_trace.json",
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
+    calls = host_calls(prof)
     log("%s profile: %d steps; wall %.3f ms per step, card kernels %.3f "
-        "ms per step, busy share %.3f, idle share %.3f" % (
+        "ms per step, busy share %.3f, idle share %.3f; host calls per "
+        "step %.1f %s" % (
             what, steps, wall * 1e3 / steps, busy_us / 1e3 / steps,
-            busy_us / 1e6 / wall, 1.0 - busy_us / 1e6 / wall))
+            busy_us / 1e6 / wall, 1.0 - busy_us / 1e6 / wall,
+            sum(calls.values()) / steps, json.dumps(calls)))
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
         log("  %-60s %8.3f ms per step  %5d calls" % (
             key[:60], us / 1e3 / steps, n))
@@ -2288,10 +2581,9 @@ def _resnet_loss(outs, label):
 
 def _resnet_steps(K, trainer, batch, label, losses, steps):
     """``steps`` timed train steps with the launch counters zeroed just
-    before and read just after: (seconds, host seconds, launches, peak
-    bytes)."""
+    before and read just after: (seconds, host seconds, launches, the
+    memory since the trainer was built)."""
     K.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     secs, queued = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -2300,21 +2592,21 @@ def _resnet_steps(K, trainer, batch, label, losses, steps):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(_resnet_loss(outs, label))
-    return secs, queued, K.launch_counts(), torch.cuda.max_memory_allocated()
+    return secs, queued, K.launch_counts(), memory()
 
 
-def _report_resnet(what, b, secs, queued, peak, busy):
+def _report_resnet(what, b, secs, queued, mem, busy):
     ips = [b / t for t in secs]
     med = statistics.median(ips)
     log("%s: %d timed steps at B=%d; img/s median %.1f (min %.1f, max "
         "%.1f); ms per step median %.3f (min %.3f, max %.3f); MFU %.4f "
         "(%.3g FLOP per image, bench.py:39, over 989 TFLOP/s); step() "
-        "returns after %.3f ms (median); busy share %.3f (profiled); peak "
-        "memory %.1f MB; %s" % (
+        "returns after %.3f ms (median); busy share %.3f (profiled); memory "
+        "since the trainer was built: %s; %s" % (
             what, len(secs), b, med, min(ips), max(ips),
             statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
             med * RESNET_FLOPS_PER_IMG / 989e12, RESNET_FLOPS_PER_IMG,
-            statistics.median(queued) * 1e3, busy, peak / 2**20,
+            statistics.median(queued) * 1e3, busy, mem,
             card_line()))
 
 
@@ -2328,6 +2620,7 @@ def train_resnet(K, dev):
     gate unset (no launch: the unfused ops). Returns the gate-on launch
     counts."""
     os.environ[GATE] = "1"
+    torch.cuda.reset_peak_memory_stats()
     trainer = _resnet_trainer(None, RESNET_B, "bfloat16").init_params()
     if trainer.device != dev:
         raise AssertionError("device=None resolved to %s" % trainer.device)
@@ -2361,8 +2654,16 @@ def train_resnet(K, dev):
         len(losses), " ".join("%.4f" % v for v in losses)))
     log("resnet train launches: %s" % json.dumps(launches))
 
+    # the step program read the gate when it was built, as the JAX
+    # package reads it when it traces: the gate-off steps take a trainer
+    # built with the gate unset, from the same seeded initial weights
     del os.environ[GATE]
-    trainer.step(batch)                 # the unfused convs' first calls
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _resnet_trainer(None, RESNET_B, "bfloat16").init_params()
+    trainer.step(batch)                 # the unfused step's capture
     torch.cuda.synchronize()
     secs, queued, off, peak = _resnet_steps(K, trainer, batch, label, [],
                                             TIMED_STEPS)
@@ -2788,16 +3089,23 @@ def main():
     timed.update(time_cnn_kernels(K, dev, dgen, worst))
     timed.update(time_striped_pair(K, dev, gen, worst))
     launches, prefix, work = serve_main_path(K, dev)
+    free_programs()
     launches["paged_attention_decode"] = serve_default_path(
         K, dev, prefix, work)["paged_attention_decode"]
+    free_programs()
     serve_int8_kv_path(K, dev, prefix, work)
+    free_programs()
     check_small_against_host(dev)
     launches.update({e: n for e, n in train_main_path(K, dev).items()
                      if e in TRAIN_ENTRIES})
+    free_programs()
     check_train_against_host(dev)
+    free_programs()
     launches.update(train_resnet(K, dev))
+    free_programs()
     launches.update(eval_resnet(K, dev))
     check_resnet_against_host(dev)
+    free_programs()
     check_ring_on_card(dev)
     launches.update({e: n for e, n in sp_main_path(K, dev).items()
                      if e in SP_ENTRIES})

@@ -16,7 +16,8 @@ head:
   :func:`~mxnet_tpu_torch.ops.kernels.fused_conv_bn_act`. Train, for a
   1x1 / stride-1 / unpadded / undilated conv only, and only under
   ``MXNET_BN_STATS=auto`` with ``MXNET_PALLAS_CONVBN_TRAIN=1`` (read at
-  each call, opt-in as in the JAX package):
+  each walk unless the caller fixes it, as a program does when it is
+  built; opt-in as in the JAX package):
   :func:`~mxnet_tpu_torch.ops.kernels.matmul_stats` gives the conv and the
   batch statistics of its output in one kernel, the normalization and
   relu are one elementwise pass, and the moving statistics are written
@@ -114,26 +115,30 @@ class FusionPlan:
                 and tuple(p["dilate"]) == (1, 1))
 
     @classmethod
-    def _active(cls, kind, nodes, is_train):
+    def _active(cls, kind, nodes, is_train, convbn_train=None):
         if kind == "fc_act" or not is_train:
             # eval conv+bn folds the moving statistics: always available
             return True
-        return (_convbn_train_enabled()
-                and cls._conv_is_pointwise(nodes[0].params))
+        if convbn_train is None:
+            convbn_train = _convbn_train_enabled()
+        return convbn_train and cls._conv_is_pointwise(nodes[0].params)
 
-    def is_covered(self, n, is_train):
+    def is_covered(self, n, is_train, convbn_train=None):
         last_id = self.covered.get(id(n))
         if last_id is None:
             return False
         kind, nodes = self.chains[last_id]
-        return self._active(kind, nodes, is_train)
+        return self._active(kind, nodes, is_train, convbn_train)
 
-    def execute(self, n, env, aux_vals, is_train, new_aux=None):
+    def execute(self, n, env, aux_vals, is_train, new_aux=None,
+                convbn_train=None):
         """If ``n`` ends an active chain, compute the fused result into
         its env slot and return True. ``new_aux`` receives the BatchNorm
-        moving-statistics updates of the fused TRAIN chain."""
+        moving-statistics updates of the fused TRAIN chain;
+        ``convbn_train`` fixes the train gate (None: read it now)."""
         entry = self.chains.get(id(n))
-        if entry is None or not self._active(entry[0], entry[1], is_train):
+        if entry is None or not self._active(entry[0], entry[1], is_train,
+                                             convbn_train):
             return False
         kind = entry[0]
         if kind == "fc_act":
@@ -225,10 +230,11 @@ class FusionPlan:
 
 
 def eval_graph(topo, heads, arg_vals, aux_vals, is_train, generator,
-               plan=None):
+               plan=None, convbn_train=None):
     """The topological walk (the reference's per-node RunOps,
     ``graph_executor.cc:776-819``): every op's ``OpSpec.forward`` on the
-    values of its inputs, with the active chains of ``plan`` fused.
+    values of its inputs, with the active chains of ``plan`` fused
+    (``convbn_train``: see :meth:`FusionPlan.execute`).
     Returns ``(head_outs, new_aux, env)``."""
     env = {}
     var_iter = iter(arg_vals)
@@ -240,8 +246,9 @@ def eval_graph(topo, heads, arg_vals, aux_vals, is_train, generator,
             continue
         n_aux = len(n.spec.aux_states(n.params))
         if plan is not None and (
-                plan.is_covered(n, is_train)
-                or plan.execute(n, env, aux_vals, is_train, new_aux)):
+                plan.is_covered(n, is_train, convbn_train)
+                or plan.execute(n, env, aux_vals, is_train, new_aux,
+                                convbn_train)):
             # a covered node's output comes from its chain's last node;
             # BatchNorm's aux pass through on eval, and the train chain
             # writes its updates into new_aux itself

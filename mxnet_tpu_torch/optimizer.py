@@ -105,15 +105,18 @@ class SGD(Optimizer):
         buffers ``moms`` (None without momentum): ``g' = clip(rescale *
         g) + wd * w``; without momentum ``w -= lr * g'``; with it ``mom =
         momentum * mom - lr * g'`` and ``w += mom``. ``ws`` and ``moms``
-        are updated in place."""
+        are updated in place. ``lr`` is a float or a 0-dim tensor on the
+        weights' device (the trainer's step program sets that tensor
+        before each run); either way ``lr * g'`` is one product."""
         gs = self._clip_rescale(gs)
         if wd:
             torch._foreach_add_(gs, ws, alpha=wd)
+        torch._foreach_mul_(gs, lr)
         if moms is None:
-            torch._foreach_add_(ws, gs, alpha=-lr)
+            torch._foreach_sub_(ws, gs)
         else:
             torch._foreach_mul_(moms, self.momentum)
-            torch._foreach_add_(moms, gs, alpha=-lr)
+            torch._foreach_sub_(moms, gs)
             torch._foreach_add_(ws, moms)
         return ws, moms
 

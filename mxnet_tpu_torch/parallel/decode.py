@@ -11,9 +11,12 @@ single decode token with quantized projections and ``matmul_impl=
 "fused"``, through :func:`~mxnet_tpu_torch.ops.kernels.
 fused_decode_attention`).
 
-PyTorch runs eagerly, so there is no compiled program: ``generate`` is a
-Python loop, and the cache is updated IN PLACE (one buffer per node for
-the life of the cache instead of a donated copy per step). Windowed ring
+The decoder runs eagerly: ``generate`` is a Python loop, and the cache
+is updated IN PLACE (one buffer per node for the life of the cache
+instead of a donated copy per step). The serving engine runs the same
+walk inside its compiled programs (``parallel.program``), with
+:func:`sample_tokens` over :func:`uniform_draw`, the draw as a pure
+function of (seed, position). Windowed ring
 caches, ``cache_block``, tensor/expert parallelism, speculative verify
 and beam search belong to later slices of the port.
 """
@@ -31,7 +34,7 @@ from ..serving.quant import (QuantizedTensor, embedding_rows,
                              quantize_params, quantized_weight_names,
                              resolve_group, scale_fused_matmul)
 
-__all__ = ["Decoder"]
+__all__ = ["Decoder", "sample_tokens", "uniform_draw"]
 
 # ops whose forward acts independently per position on [B, C, ...] data
 _POSITIONWISE = {
@@ -57,6 +60,59 @@ def _logits_symbol(symbol):
             node = node.inputs[0][0]
         return symbol.get_internals()[node.name + "_output"]
     return symbol
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant ``c``, in two 16-bit halves of ``c`` so that no product
+    leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _hash32(x):
+    """lowbias32 (C. Wellons, "Prospecting for hash functions", 2018): a
+    bijection of [0, 2**32) whose output bits each flip with probability
+    near 1/2 when one input bit flips."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def uniform_draw(seed, position):
+    """One uniform in (0, 1) per element: a function of the int64
+    ``seed`` and ``position`` and of nothing else (the port's counterpart
+    of ``jax.random.fold_in(key(seed), position)``). Both halves of the
+    seed and then the position are folded through :func:`_hash32`; the
+    top 24 bits of the result give the float32 uniform."""
+    h = _hash32(seed & _M32)
+    h = _hash32(h ^ ((seed >> 32) & _M32))
+    h = _hash32(_hash32(h ^ (position & _M32)))
+    return ((h >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+
+
+def sample_tokens(logits, temperature, u):
+    """The next token of each row of ``logits`` [N, V]: the argmax where
+    ``temperature`` [N] is 0; elsewhere the token whose interval of the
+    cumulative ``softmax(logits / temperature)`` holds ``u`` [N], the
+    row's :func:`uniform_draw` of (seed, position) — so a request's
+    stream depends on its seed and its positions only, never on what
+    else shares the batch. All on the device, with no host read."""
+    greedy = torch.argmax(logits, dim=-1)
+    t = torch.where(temperature > 0, temperature,
+                    torch.ones_like(temperature))
+    cdf = torch.cumsum(torch.softmax(logits.to(torch.float32) / t[:, None],
+                                     dim=-1), dim=-1)
+    drawn = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None].contiguous()
+                               )[:, 0]
+    drawn = drawn.clamp_max(logits.shape[-1] - 1)
+    return torch.where(temperature > 0, drawn, greedy)
 
 
 class Decoder:
@@ -454,20 +510,16 @@ class Decoder:
         return self._run(params, aux, caches, pos, tokens, mm_impl=mm_impl)
 
     @staticmethod
-    def slot_slice(caches, slot):
-        """View one cache slot as a b=1 cache; writes through the view
-        land in the full cache (pair with :meth:`slot_update`)."""
-        return [tuple(c[slot:slot + 1] for c in entry) for entry in caches]
-
-    @staticmethod
-    def slot_update(caches, slot, sub):
-        """Write a b=1 cache back into ``slot`` (a no-op for the views
-        :meth:`slot_slice` hands out, which were written in place)."""
+    def slot_update(caches, slot, sub, rows):
+        """Write rows ``rows`` (an int64 tensor of row indices) of the b=1
+        cache ``sub`` into the same rows of ``slot`` of the full cache, in
+        place: one ``index_put_`` per buffer, keyed by ``slot``, an int64
+        tensor [1] on the cache's device (a program's operand, as the JAX
+        package's ``dynamic_update_slice`` is keyed by a traced slot)."""
         for entry, sentry in zip(caches, sub):
             for full, s in zip(entry, sentry):
-                dst = full[slot:slot + 1]
-                if s.data_ptr() != dst.data_ptr():
-                    dst.copy_(s)
+                full.index_put_((slot.expand(rows.shape[0]), rows),
+                                s[0].index_select(0, rows))
         return caches
 
     # -- user API -------------------------------------------------------

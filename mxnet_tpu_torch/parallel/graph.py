@@ -70,8 +70,8 @@ def integer_semantic_inputs(symbol):
 
 
 def make_graph_fn(symbol, allow_fusion=True):
-    """Build ``fn(arg_vals, aux_vals, is_train, generator) -> (outs,
-    new_aux)``.
+    """Build ``fn(arg_vals, aux_vals, is_train, generator,
+    convbn_train=None) -> (outs, new_aux)``.
 
     ``arg_vals`` is a list in ``symbol.list_arguments()`` order (the
     topological order of variable nodes); ``aux_vals`` a list in
@@ -83,7 +83,9 @@ def make_graph_fn(symbol, allow_fusion=True):
     convs under ``MXNET_PALLAS_CONVBN_TRAIN=1``, as ``matmul_stats`` in
     training. ``allow_fusion=False`` runs no chain fused (every node its
     own op) unless ``MXNET_PALLAS_FUSION=1``, read here, turns the plan
-    back on, as in the JAX package."""
+    back on, as in the JAX package. ``convbn_train`` fixes whether the
+    training conv chains run fused; ``None`` reads the gate at the call
+    (a caller that builds a program reads it once, at the build)."""
     topo = symbol._topo()
     heads = symbol._heads
     if allow_fusion or os.environ.get("MXNET_PALLAS_FUSION") == "1":
@@ -91,9 +93,10 @@ def make_graph_fn(symbol, allow_fusion=True):
     else:
         plan = None
 
-    def fn(arg_vals, aux_vals, is_train, generator):
+    def fn(arg_vals, aux_vals, is_train, generator, convbn_train=None):
         outs, new_aux, _ = eval_graph(topo, heads, arg_vals, aux_vals,
-                                      is_train, generator, plan=plan)
+                                      is_train, generator, plan=plan,
+                                      convbn_train=convbn_train)
         return outs, new_aux
 
     return fn

@@ -7,9 +7,12 @@ Counterpart of ``mxnet_tpu/parallel/optim.py`` (l.29-46): each
     new_ws, new_states = update_fn(weights, grads, states, lr, t)
 
 ``update_fn`` takes lists of tensors (all of a model's parameters at
-once, where the JAX package maps it over a pytree); ``t`` is the 1-based
-update count. The math is the optimizer's own (``SGD._step``), so the
-imperative and the fused paths agree. PyTorch runs eagerly, so
+once, where the JAX package maps it over a pytree); ``lr`` is a float or
+a 0-dim tensor on the weights' device (the trainer's captured step reads
+it from there); ``t`` is the 1-based update count (SGD does not read it:
+a captured step would see only its value at capture). The math is the
+optimizer's own (``SGD._step``), so the imperative and the fused paths
+agree. PyTorch runs eagerly, so
 ``update_fn`` updates the weights and the states IN PLACE, under
 ``torch.no_grad()``, and returns them.
 """

@@ -6,9 +6,17 @@ walk of ``make_graph_fn``, with the ``fused_linear``, ``flash_attention``
 and, for conv nets, ``matmul_stats`` kernels on the card), the backward
 (torch autograd, which reaches the kernels' backward through their
 ``autograd.Function``s), the gradient sum over microbatches, the
-global-norm clip and the optimizer update. The JAX package compiles all
-of that into one program; PyTorch runs it eagerly, and the update is made
-in place.
+global-norm clip and the optimizer update. As the JAX package compiles
+all of that into one program, the port runs it as one
+``parallel.program.Program``: captured once as a CUDA graph on the card
+and replayed at every step, run as the same function over the same
+buffers on the CPU. The batch is copied into the program's input
+buffers; the flat parameters, the optimizer state and the aux states are
+updated in place and never rebound (``set_params`` copies into them, so
+it builds no new program); the learning rate is a device scalar the host
+sets before each run; the dropout generator is registered with the graph.
+``multi_step`` runs the same program ``num_steps`` times over one copy of
+the batch. No switch turns capture off.
 
 Semantics kept from the JAX package:
 
@@ -27,12 +35,16 @@ Semantics kept from the JAX package:
   in any compute dtype (l.424-427); ``forward()`` is the eval path, where
   each conv -> BatchNorm chain runs as ``fused_conv_bn_act``. It runs on
   the f32 parameters and the batch as given, in any compute dtype
-  (``_build_eval``, l.506-515).
+  (``_build_eval``, l.506-515), uncaptured;
+* ``MXNET_PALLAS_CONVBN_TRAIN`` is read when the step program is built,
+  as the JAX package reads it when it traces the step.
 
-Meshes, sharding rules, ZeRO-1, FSDP, rematerialization, ``prefetch``,
-``multi_step`` and ``fit`` belong to later slices of the port.
+Meshes, sharding rules, ZeRO-1, FSDP, rematerialization, ``prefetch``
+and ``fit`` belong to later slices of the port.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -41,8 +53,10 @@ from ..base import MXNetError, later_slice, torch_dtype
 from ..context import resolve_device
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
+from ..ops.fusion import _convbn_train_enabled
 from .graph import make_graph_fn, integer_semantic_inputs
 from .optim import make_functional
+from .program import Program
 
 __all__ = ["ParallelTrainer"]
 
@@ -176,6 +190,9 @@ class ParallelTrainer:
         self.opt_state = None
         self.aux = None
         self._t = 0
+        # the step program's learning rate, set by the host before each run
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._program = None
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         self._init_gen = torch.Generator().manual_seed(seed)
@@ -210,15 +227,24 @@ class ParallelTrainer:
         tensor per parameter costs several host calls per parameter."""
         vals = [self._initial(n, self.arg_shapes[n], arg_params)
                 for n in self.param_names]
-        self._flat = torch.cat([v.reshape(-1) for v in vals]) if vals \
+        flat = torch.cat([v.reshape(-1) for v in vals]) if vals \
             else torch.zeros(0, device=self.device)
-        self.params = self._views(self._flat)
-        self.aux = [self._initial(n, s, aux_params)
-                    for n, s in zip(self.aux_names, self.aux_shapes)]
-        self._flat_state = self._opt_init(self._flat)
-        self.opt_state = self._views(self._flat_state) \
-            if isinstance(self._flat_state, torch.Tensor) \
-            else dict.fromkeys(self.param_names, self._flat_state)
+        aux = [self._initial(n, s, aux_params)
+               for n, s in zip(self.aux_names, self.aux_shapes)]
+        state = self._opt_init(flat)
+        if self.params is None:
+            self._flat, self.aux, self._flat_state = flat, aux, state
+            self.params = self._views(self._flat)
+            self.opt_state = self._views(self._flat_state) \
+                if isinstance(self._flat_state, torch.Tensor) \
+                else dict.fromkeys(self.param_names, self._flat_state)
+        else:
+            # into the buffers the step program reads and writes
+            self._flat.copy_(flat)
+            for a, v in zip(self.aux, aux):
+                a.copy_(v)
+            if isinstance(state, torch.Tensor):
+                self._flat_state.copy_(state)
         self._t = 0
         return self
 
@@ -267,42 +293,40 @@ class ParallelTrainer:
                 (batch[n] if n in self._no_cast else self._cast(batch[n]))
                 for n in self.arg_names]
 
-    def _grads_of(self, batch):
-        """(flat gradient, new_aux, outs) for one (micro)batch: the
-        forward with the flat parameter buffer as the leaf (cast to the
-        compute dtype inside the differentiated function, so the gradient
-        comes back f32), then the backward from head gradients of ones
-        (the loss heads ignore them)."""
+    def _grads_of(self, batch, convbn_train):
+        """(flat gradient, outs) for one (micro)batch: the forward with
+        the flat parameter buffer as the leaf (cast to the compute dtype
+        inside the differentiated function, so the gradient comes back
+        f32), then the backward from head gradients of ones (the loss
+        heads ignore them). The new aux states are copied into
+        ``self.aux``."""
         leaf = self._flat.detach().requires_grad_(True)
         shapes = tuple(tuple(self.arg_shapes[n]) for n in self.param_names)
         pvals = dict(zip(self.param_names,
                          _Unflatten.apply(self._cast(leaf), shapes)))
         outs, new_aux = self._graph_fn(self._inputs(pvals, batch),
-                                       list(self.aux), True, self._gen)
+                                       list(self.aux), True, self._gen,
+                                       convbn_train=convbn_train)
         torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
         grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
-        new_aux = [a.detach().to(o.dtype) for a, o in zip(new_aux, self.aux)]
-        return grad, new_aux, [o.detach() for o in outs]
+        with torch.no_grad():
+            for a, v in zip(self.aux, new_aux):
+                a.copy_(v)
+        return grad, [o.detach() for o in outs]
 
-    def step(self, batch):
-        """One train step. ``batch``: dict of arrays (numpy or torch)
-        keyed by input name. Returns the outputs (detached)."""
-        if self.params is None:
-            self.init_params()
-        batch = self._batch(batch, "step")
-        self._t += 1
-        sched = self.optimizer.lr_scheduler
-        lr = sched(self._t) if sched is not None else self.optimizer.lr
+    def _step_fn(self, inputs, convbn_train):
+        """One train step over the program's input buffers ``inputs``."""
         a = self.grad_accum
         if a == 1:
-            grad, self.aux, outs = self._grads_of(batch)
+            grad, outs = self._grads_of(inputs, convbn_train)
         else:
             # microbatches: gradients SUM (the loss gradients are batch
             # sums, so the sum is the full batch's gradient); aux chains
             grad, outs_parts = None, []
             for i in range(a):
-                g, self.aux, outs = self._grads_of(
-                    {k: v.chunk(a)[i] for k, v in batch.items()})
+                g, outs = self._grads_of(
+                    {k: v.chunk(a)[i] for k, v in inputs.items()},
+                    convbn_train)
                 outs_parts.append(outs)
                 grad = g if grad is None else grad + g
             outs = [torch.cat(parts) for parts in zip(*outs_parts)]
@@ -314,9 +338,65 @@ class ParallelTrainer:
             grad = grad * torch.clamp(self.clip_grad_norm
                                       / torch.clamp(gnorm, min=1e-12),
                                       max=1.0)
-        self._opt_update([self._flat], [grad], [self._flat_state], lr,
+        self._opt_update([self._flat], [grad], [self._flat_state], self._lr,
                          self._t)
         return outs
+
+    def _step_program(self, batch, what):
+        """The step program, loaded with ``batch``. Built at the first
+        step, with input buffers of the first batch's dtypes (a later
+        batch is converted into them) and the conv-BN train gate as it
+        reads then."""
+        missing = [k for k in self.input_shapes if k not in batch]
+        if missing:
+            raise MXNetError("%s: missing input %s" % (what, missing[0]))
+        vals = {k: _as_tensor(batch[k]) for k in self.input_shapes}
+        if self._program is None:
+            inputs = {k: torch.empty(self.input_shapes[k], dtype=v.dtype,
+                                     device=self.device)
+                      for k, v in vals.items()}
+            state = [self._flat_state] \
+                if isinstance(self._flat_state, torch.Tensor) else []
+            self._program = Program(
+                functools.partial(self._step_fn, inputs,
+                                  _convbn_train_enabled()),
+                inputs, mutable=[self._flat] + state + list(self.aux),
+                generators=[self._gen] if self.device.type == "cuda"
+                else [], name="ParallelTrainer.step", device=self.device)
+        self._program.load(**vals)
+        return self._program
+
+    def _next_lr(self):
+        """Advance the step count and set the program's learning rate."""
+        self._t += 1
+        sched = self.optimizer.lr_scheduler
+        self._lr.fill_(sched(self._t) if sched is not None
+                       else self.optimizer.lr)
+
+    def step(self, batch):
+        """One train step. ``batch``: dict of arrays (numpy or torch)
+        keyed by input name, in the trainer's input shapes. Returns the
+        outputs: copies, which later steps leave as they are."""
+        if self.params is None:
+            self.init_params()
+        prog = self._step_program(batch, "step")
+        self._next_lr()
+        return [o.clone() for o in prog.run()]
+
+    def multi_step(self, batch, num_steps):
+        """Run ``num_steps`` consecutive train steps on the SAME batch:
+        the batch is copied once, then the step program runs
+        ``num_steps`` times (replays of one graph on the card, whatever
+        ``num_steps`` is). The step counter, the lr schedule and the
+        dropout draws advance exactly as ``num_steps`` calls of
+        :meth:`step` would. Returns nothing; the parameters advance in
+        place (``get_params``)."""
+        if self.params is None:
+            self.init_params()
+        prog = self._step_program(batch, "multi_step")
+        for _ in range(int(num_steps)):
+            self._next_lr()
+            prog.run()
 
     @torch.no_grad()
     def forward(self, batch):
@@ -335,9 +415,6 @@ class ParallelTrainer:
 
     def prefetch(self, batches, depth=2):
         raise _later("prefetch (the device-staged input stream)")
-
-    def multi_step(self, batch, num_steps):
-        raise _later("multi_step (several steps as one captured program)")
 
     def fit(self, *args, **kwargs):
         raise _later("fit (the epoch loop with metrics and callbacks)")

@@ -6,24 +6,39 @@ at its own position. A round admits queued requests into free slots —
 each prompt right-padded to the smallest prefill bucket that holds it
 and prefilled into its slot, its first token picked at the last real
 position (l.1576-1630) — then runs ``steps_per_round`` decode steps over
-all slots at once (l.1427-1491; a Python loop where the JAX package scans
-a compiled program) and drains token vectors ``drain_depth`` rounds
-behind, so the host schedules the next round while the card works.
+all slots at once (l.1427-1491) and drains token vectors ``drain_depth``
+rounds behind, so the host schedules the next round while the card works.
 Requests retire on EOS or their length budget; a full queue refuses
 ``submit`` (``max_queue`` backpressure).
 
-Greedy decoding is deterministic. Sampled decoding draws from a
-per-request ``torch.Generator`` seeded by the request's ``seed``: one draw
-per emitted token, so a request's stream does not depend on what else is
-scheduled (it cannot equal the JAX package's ``fold_in`` draws).
+As in the JAX package, every request mix runs through a fixed set of
+compiled programs (``parallel.program.Program``: CUDA graphs on the card,
+the same functions over the same buffers on the CPU): ONE decode program
+for a whole round of ``steps_per_round`` steps, tagged ``"decode"``, and
+one prefill program per used bucket, tagged ``("prefill", bucket)``.
+The slot cache, the per-slot state vectors and the programs' operand
+buffers keep their addresses for the life of the engine: the programs
+update them in place. A prefill's slot, length, EOS id, last position,
+seed, temperature and chunk start are device operands (the JAX
+``_prefill_fn``'s traced operands), so no admission adds a program;
+``compile_counts`` reports them in the JAX shape, and no switch turns
+capture off.
+
+Greedy decoding is deterministic. Sampled decoding draws on the device
+with ``parallel.decode.sample_tokens``, a pure function of the request's
+``seed`` and the token's position (the counterpart of the JAX package's
+``fold_in(seed, position)``), so a request's stream does not depend on
+what else is scheduled (it cannot equal the JAX package's draws).
 
 The prefix cache, chunked prefill, speculation, tensor/expert
-parallelism, capture, SLO accounting, the watchdog, the flight recorder,
-snapshot/restore and fleet roles belong to later slices of the port.
+parallelism, trace capture (``capture_dir``), SLO accounting, the
+watchdog, the flight recorder, snapshot/restore and fleet roles belong to
+later slices of the port.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import math
 import time
 
@@ -31,7 +46,8 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, refuse_unported
-from ..parallel.decode import Decoder
+from ..parallel.decode import Decoder, sample_tokens, uniform_draw
+from ..parallel.program import Program
 from .quant import QuantizedTensor, quantize_params, quantized_weight_names
 
 __all__ = ["InferenceEngine", "Request"]
@@ -74,6 +90,11 @@ class Request:
                 "generated=%d)" % (self.id, len(self.prompt),
                                    self.max_tokens, self.done,
                                    len(self.tokens)))
+
+
+# the prefill operands after the padded prompt: slot, true length, EOS id,
+# last position, seed, the temperature's float32 bits, chunk start
+_N_SCALARS = 7
 
 
 def _default_buckets(max_len):
@@ -223,15 +244,24 @@ class InferenceEngine:
             v.nbytes if isinstance(v, QuantizedTensor)
             else v.numel() * v.element_size() for v in params.values())
 
-        # device-resident: the slot cache and per-slot state vectors
+        # device-resident, at fixed addresses for the engine's life (the
+        # programs update them in place): the slot cache, the one-slot
+        # staging cache a prefill runs over, and the per-slot state
         S, dev = self.slots, self.device
         self._caches = decoder.init_cache(S)
+        self._stage = decoder.init_cache(1)
         self._pos = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._tok = torch.zeros((S,), dtype=torch.int64, device=dev)
         self._live = torch.zeros((S,), dtype=torch.bool, device=dev)
         self._eos = torch.full((S,), -1, dtype=torch.int64, device=dev)
         self._last = torch.zeros((S,), dtype=torch.int32, device=dev)
-        self._gens = {}    # slot -> (torch.Generator, temperature), sampled
+        self._temp = torch.zeros((S,), dtype=torch.float32, device=dev)
+        # each slot's uniform draw at every position, from its request's
+        # seed (written by the prefill; a decode step gathers one a slot)
+        self._uniform = torch.zeros((S, self.max_len), dtype=torch.float32,
+                                    device=dev)
+        self._programs = {}
+        self._compile_log = []
 
         # host-side scheduler state
         self._pending = collections.deque()
@@ -382,48 +412,120 @@ class InferenceEngine:
 
     def _release_slot(self, slot):
         self._mirror[slot] = None
-        self._gens.pop(slot, None)
         self._free.append(slot)
 
-    def _pick(self, logits, slots):
-        """Next token per row of ``logits`` [N, V]: the argmax, or a draw
-        from the slot's generator for sampled slots (``slots`` names the
-        slot of each row)."""
-        nxt = torch.argmax(logits, dim=-1)
-        for row, slot in enumerate(slots):
-            if slot in self._gens:
-                g, t = self._gens[slot]
-                probs = torch.softmax(logits[row].to(torch.float32) / t, -1)
-                nxt[row] = torch.multinomial(probs, 1, generator=g)[0]
-        return nxt
+    # -- the compiled programs ------------------------------------------
+    @property
+    def compile_counts(self):
+        """``{'decode': n, 'verify': n, 'prefill': {bucket: n}, 'copy':
+        {bucket: n}}``, the JAX package's compile-count contract: after
+        any workload one decode program, no verify program (speculation
+        is a later slice), one prefill program per USED bucket, and no
+        copy program (the prefix cache is a later slice). On the card a
+        count is a capture; on the CPU, a program's first run."""
+        out = {"decode": 0, "verify": 0, "prefill": {}, "copy": {}}
+        for tag in self._compile_log:
+            if isinstance(tag, str):
+                out[tag] += 1
+            else:
+                fam = out[tag[0]]
+                fam[tag[1]] = fam.get(tag[1], 0) + 1
+        return out
+
+    def _state(self):
+        return (self._pos, self._tok, self._live, self._eos, self._last,
+                self._temp, self._uniform)
+
+    def _program(self, tag):
+        """The program of ``tag`` (``"decode"`` or ``("prefill", b)``),
+        built at its first use."""
+        prog = self._programs.get(tag)
+        if prog is None:
+            if tag == "decode":
+                fn, operands = self._decode_fn, {}
+            else:
+                bucket = tag[1]
+                ops = torch.zeros(bucket + _N_SCALARS, dtype=torch.int64,
+                                  device=self.device)
+                fn = functools.partial(self._prefill_fn, bucket, ops)
+                operands = {"ops": ops}
+            prog = self._programs[tag] = Program(
+                fn, operands, mutable=self._state(),
+                name="InferenceEngine %s program" % (tag,), tag=tag,
+                log=self._compile_log, device=self.device)
+        return prog
+
+    def _prefill_fn(self, bucket, ops):
+        """The prefill program of ``bucket``: ``ops`` holds the padded
+        prompt, then the slot, the true length, the EOS id (-1: none), the
+        slot's last position, the seed, the temperature's float32 bits and
+        the chunk start. The walk runs at b=1 over the staging cache; its
+        rows ``[start, start + bucket)`` go into the slot's rows, and the
+        slot's state is set from the first token, picked at the last real
+        position, and its row of uniform draws from the seed. Returns that
+        token [1]."""
+        dec = self._dec
+        slot, true_len, eos, lastp, seed, tbits, start = (
+            ops[bucket + i:bucket + i + 1] for i in range(_N_SCALARS))
+        temp = tbits.to(torch.int32).view(torch.float32)
+        logits, _ = dec._run(self._params, self._aux, self._stage,
+                             start.to(torch.int32), ops[None, :bucket],
+                             mm_impl=self.matmul_impl)
+        rows = start + torch.arange(bucket, device=ops.device)
+        dec.slot_update(self._caches, slot, self._stage, rows)
+        total = start + true_len
+        draws = uniform_draw(seed, torch.arange(self.max_len,
+                                                device=ops.device))
+        t0 = sample_tokens(logits[0].index_select(0, true_len - 1), temp,
+                           draws.index_select(0, total))
+        for buf, val in ((self._pos, total), (self._tok, t0),
+                         (self._live, (t0 != eos) & (total < lastp)),
+                         (self._eos, eos), (self._last, lastp),
+                         (self._temp, temp), (self._uniform, draws[None])):
+            buf.index_copy_(0, slot, val.to(buf.dtype))
+        return t0
+
+    def _decode_fn(self):
+        """The decode program: ``steps_per_round`` steps over every slot.
+        Each writes its pending token at its own position and picks the
+        next one; finished slots stay frozen, rewriting their last token
+        in place. The state vectors are updated in place. Returns the
+        [steps, S] tokens (-1 where a slot had none)."""
+        dec = self._dec
+        outs = []
+        for _ in range(self.steps_per_round):
+            logits, _ = dec._run_slots(
+                self._params, self._aux, self._caches, self._pos,
+                self._tok[:, None], mm_impl=self.matmul_impl)
+            nxt_pos = self._pos + 1
+            # a frozen slot at the cache's end draws from its last row
+            u = self._uniform.gather(
+                1, nxt_pos.clamp_max(self.max_len - 1).long()[:, None])
+            nxt = sample_tokens(logits[:, 0], self._temp, u[:, 0])
+            done_now = (nxt == self._eos) | (nxt_pos >= self._last)
+            outs.append(torch.where(self._live, nxt,
+                                    torch.full_like(nxt, -1)))
+            self._pos.copy_(torch.where(self._live, nxt_pos, self._pos))
+            self._tok.copy_(torch.where(self._live, nxt, self._tok))
+            self._live.copy_(self._live & ~done_now)
+        return torch.stack(outs)
 
     def _prefill(self, req, slot):
         """Prefill ``req``'s prompt into ``slot`` (padded to its bucket)
-        and set the slot's state from the first token, picked at the last
-        real position; the token stays on the card until drained."""
-        dec = self._dec
+        through the bucket's program: one operand copy and one run. The
+        first token stays on the card until drained (a copy: the next
+        run of the program overwrites its output)."""
         p = len(req.prompt)
         bucket = self._bucket_for(p)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :p] = req.prompt
-        tokens = torch.from_numpy(padded).to(self.device, non_blocking=True)
-        if req.temperature > 0:
-            g = torch.Generator(device=self.device)
-            g.manual_seed(req.seed)
-            self._gens[slot] = (g, req.temperature)
-        sub = dec.slot_slice(self._caches, slot)
-        logits, sub = dec._run(self._params, self._aux, sub, 0, tokens,
-                               mm_impl=self.matmul_impl)
-        self._caches = dec.slot_update(self._caches, slot, sub)
-        t0 = self._pick(logits[0, p - 1:p], [slot])[0]
+        ops = np.zeros(bucket + _N_SCALARS, np.int64)
+        ops[:p] = req.prompt
         # the slot's last position: prompt + budget - 1, within the cache
         lastp = min(p + req.limit - 1, self.max_len - 1)
         eos = -1 if req.eos_id is None else req.eos_id
-        self._pos[slot] = p
-        self._tok[slot] = t0
-        self._live[slot] = (t0 != eos) & (p < lastp)
-        self._eos[slot] = eos
-        self._last[slot] = lastp
+        tbits = int(np.float32(req.temperature).view(np.int32))
+        seed = (req.seed + 2 ** 63) % 2 ** 64 - 2 ** 63   # as int64
+        ops[bucket:] = (slot, p, eos, lastp, seed, tbits, 0)
+        t0 = self._program(("prefill", bucket))(ops=ops).clone()
         self._drain.append(("prefill", req, slot, t0))
         self.stats["prefills"] += 1
 
@@ -439,27 +541,12 @@ class InferenceEngine:
         return admitted
 
     def _decode_round(self):
-        """``steps_per_round`` decode steps over every slot: each writes
-        its pending token at its own position and picks the next one;
-        finished slots stay frozen, rewriting their last token in
-        place. Returns the [steps, S] tokens (-1 where a slot had none)."""
-        dec = self._dec
-        outs = []
-        slots = range(self.slots)
-        for _ in range(self.steps_per_round):
-            logits, self._caches = dec._run_slots(
-                self._params, self._aux, self._caches, self._pos,
-                self._tok[:, None], mm_impl=self.matmul_impl)
-            nxt = self._pick(logits[:, 0], slots)
-            nxt_pos = self._pos + 1
-            done_now = (nxt == self._eos) | (nxt_pos >= self._last)
-            outs.append(torch.where(self._live, nxt,
-                                    torch.full_like(nxt, -1)))
-            self._pos = torch.where(self._live, nxt_pos, self._pos)
-            self._tok = torch.where(self._live, nxt, self._tok)
-            self._live = self._live & ~done_now
+        """One run of the decode program. Returns its [steps, S] tokens,
+        copied out of the program's output (up to ``drain_depth`` rounds
+        wait to be drained, and the next run overwrites it)."""
+        block = self._program("decode")().clone()
         self.stats["steps"] += 1
-        return torch.stack(outs)
+        return block
 
     def _push_token(self, req, slot, t, now):
         if t < 0:

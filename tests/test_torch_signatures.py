@@ -42,6 +42,8 @@ VOCAB, T = 23, 16
 CALLABLES = [
     ("ParallelTrainer", jax_trainer.ParallelTrainer.__init__,
      ttrainer.ParallelTrainer.__init__),
+    ("ParallelTrainer.multi_step", jax_trainer.ParallelTrainer.multi_step,
+     ttrainer.ParallelTrainer.multi_step),
     ("SequenceParallelTrainer", jax_sp.SequenceParallelTrainer.__init__,
      tsp.SequenceParallelTrainer.__init__),
     ("InferenceEngine", jax_engine.InferenceEngine.__init__,
@@ -119,6 +121,12 @@ def test_trainer_binds_positionally_as_jax(lm):
                                  device="cpu").init_params().get_params()[0]
     assert all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
                for k in a)
+
+
+def test_compile_counts_is_a_property_as_in_jax():
+    for cls in (jax_engine.InferenceEngine, tengine.InferenceEngine):
+        assert isinstance(inspect.getattr_static(cls, "compile_counts"),
+                          property), cls
 
 
 def test_engine_binds_positionally_as_jax(decoder):

@@ -452,8 +452,7 @@ def test_trainer_later_slices_raise():
         with pytest.raises(MXNetError, match="later slice"):
             ParallelTrainer(sym, shapes, device="cpu", **kw)
     tr = ParallelTrainer(sym, shapes, device="cpu")
-    for call in (lambda: tr.multi_step(batches[0], 2),
-                 lambda: tr.fit(None), lambda: next(tr.prefetch([]))):
+    for call in (lambda: tr.fit(None), lambda: next(tr.prefetch([]))):
         with pytest.raises(MXNetError, match="later slice"):
             call()
     with pytest.raises(MXNetError):
