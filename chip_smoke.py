@@ -64,9 +64,12 @@ Phases:
    efficient-attention calls; the paged chunk at C =
    64/128/256 in bf16 and at the int8-KV prefill's C = 256 with the int8
    cache, and the decode entry at C = 1 (bf16 beside SDPA with a mask,
-   and int8) and C = 4, each beside the scalar paged entry on the same
-   inputs, in turns; the scalar entry's own row at an f32 C = 256 chunk,
-   which no path runs);
+   and int8) and C = 4 and 5, each beside the scalar paged entry on the
+   same inputs, in turns; the scalar entry's own row at an f32 C = 256
+   chunk, which no path runs; ``quant_matmul`` also at a verify round's
+   M = 160); and, bitwise, the rows of a C = 5 verify read against C = 1
+   reads at pos + c, and prefill pieces at start 192-768 against the rows
+   of one whole-prompt chunk;
 4. the serving main path: the 124M LM (12 layers, E=768, 12 heads, vocab
    32000, seeded random weights) saved with ``save_checkpoint`` and served
    by ``InferenceEngine.from_checkpoint`` with paged attention, int8
@@ -101,6 +104,26 @@ Phases:
    LMs in the decoder's other modes (int4 weights, the int8 KV cache
    through the C=1 paged read, float weights, rope, GQA) are held against
    the plain path on the host;
+4b. reuse and speculation: the same checkpoint behind the main path's
+   engine, one wave each (after a warm-up wave that builds every program;
+   counters zeroed just before each and read just after, launches exact
+   from ``engine.stats``, the JAX compile contract, every stream equal to
+   the same engine's with the feature off where that engine serves the
+   prompts, two equal to ``Decoder.generate``; tokens/s, ms per token p50
+   and p99, TTFT p50): prefix reuse (a 160 MiB pool of 4 slots; 24
+   requests sharing a 192-token system prompt, >= 20 hits; a hit's
+   admission beside a miss's, wall and card time; the gather-in and the
+   copy program alone), chunked prefill (``prefill_chunk=256``: 20 short
+   requests decode while 4 prompts of 600-1000 tokens admit in pieces;
+   the long streams equal ``Decoder.generate`` and all equal an engine's
+   at ``prefill_chunk=128``), n-gram speculation (``spec_k=4``, prompts
+   repeating a 16-token phrase; one verify program; a verify round's and
+   a decode round's wall and card time; one sampled request alone and in
+   the wave, speculation on and off, gives one stream) and draft-model
+   speculation (the target's own checkpoint through ``from_checkpoint(
+   draft_prefix=...)``, every draft accepted, and a 2-layer LM of the same
+   width; the draft program's card time), the speculation waves with
+   unfused products (``SPEC_MM``);
 5. the training main path: the same 124M LM (``impl="flash"``) trained by
    ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
    0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
@@ -313,7 +336,8 @@ def check_quant_matmul(K, dev, gen):
     decode and prefill shapes. Then the batch-invariance gate: at every
     124M shape, int8 and int4 (group 128), the rows of x[:1], x[:7],
     x[:32] and x[:256] through the kernel are bitwise equal to the same
-    rows of the product of all 256."""
+    rows of the product of all 256 (x[:160]: a verify round of 32 slots
+    at spec_k = 4)."""
     cases = []
     for bits, group in ((8, None), (4, 2), (4, 16)):
         for xdt in (torch.float32, torch.bfloat16):
@@ -348,7 +372,7 @@ def check_quant_matmul(K, dev, gen):
             x = _rand(gen, (256, e), torch.bfloat16).to(dev)
             q, s = _weights(gen, f, e, bits, group, dev)
             full = K.quant_matmul(x, q, s, bits=bits, group=group)
-            for m in (1, 7, 32, 256):
+            for m in (1, 7, 32, 160, 256):
                 rows = K.quant_matmul(x[:m].clone(), q, s, bits=bits,
                                       group=group)
                 if not torch.equal(rows, full[:m]):
@@ -498,6 +522,60 @@ def check_paged_attention(K, dev, gen):
     return worst
 
 
+def check_paged_invariance(K, dev, gen):
+    """The identities phase 4b's stream equality rests on, bitwise, at the
+    124M serving shapes (bf16 cache, 12 heads of 64, L = 1024): each row of
+    a verify chunk read through ``paged_attention_decode`` (S = 32, C = 5,
+    random pos; also an f32 q, whose f32 rows show any difference, C = 2
+    and GQA) equals a C = 1 read of the same cache at pos + c (a plain
+    decode step's); and a prefill piece through ``paged_attention_chunk``
+    at start 192, 256, 512 and 768 (C = 64 and 256, one slot) equals the
+    same rows of one chunk over the whole prompt from pos 0 (what a
+    prefix hit's suffix and a chunk piece compute, against a whole-prompt
+    prefill)."""
+    l_, h, d = 1024, 12, 64
+    k, v, _, _ = _cache(gen, 32, l_, h, d, "bf16", dev)
+    pos = torch.randint(0, l_ - 5, (32,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    # an f32 q gives f32 rows, so any difference shows, not only one that
+    # moves a bf16 rounding; C = 2 and 5, and GQA (12 heads over 4)
+    for qdt, c_, kv in ((torch.bfloat16, 5, h), (torch.float32, 5, h),
+                        (torch.float32, 2, h), (torch.float32, 5, 4)):
+        q = _rand(gen, (32, c_, h, d), qdt).to(dev)
+        kk, vv = (k, v) if kv == h else (k[:, :, :kv].contiguous(),
+                                         v[:, :, :kv].contiguous())
+        rows = K.paged_attention(q, kk, vv, pos)
+        for c in range(c_):
+            one = K.paged_attention(q[:, c:c + 1].contiguous(), kk, vv,
+                                    pos + c)
+            if not torch.equal(one[:, 0], rows[:, c]):
+                raise AssertionError(
+                    "paged_attention_decode: row %d of a C=%d read (%s q, %d "
+                    "kv heads) differs from a C=1 read at pos + %d (max "
+                    "|diff| %.3g)" % (c, c_, qdt, kv, c, (
+                        one[:, 0].float() - rows[:, c].float()).abs().max()))
+    k1, v1 = k[:1].contiguous(), v[:1].contiguous()
+    qa = _rand(gen, (1, l_, h, d), torch.bfloat16).to(dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    whole = K.paged_attention(qa, k1, v1, zero)
+    n = 0
+    for start in (192, 256, 512, 768):
+        for c in (64, 256):
+            piece = K.paged_attention(qa[:, start:start + c].contiguous(),
+                                      k1, v1, zero + start)
+            if not torch.equal(piece, whole[:, start:start + c]):
+                raise AssertionError(
+                    "paged_attention_chunk: a C=%d piece at start %d differs "
+                    "from the same rows of the whole chunk (max |diff| %.3g)"
+                    % (c, start, (piece.float() - whole[:, start:start + c]
+                                  .float()).abs().max()))
+            n += 1
+    log("paged_attention: the rows of C=5 and C=2 reads bitwise equal to "
+        "C=1 reads at pos + c (S=32; bf16 and f32 q; 12 and 4 kv heads); %d "
+        "chunk pieces at start > 0 bitwise equal to the rows of the "
+        "whole-prompt chunk" % n)
+
+
 def _fused_inputs(gen, s_, h, kv, d, l_, bits, group, xdt, cdt, dev, pos):
     e = h * d
     fq = e + 2 * kv * d
@@ -599,11 +677,12 @@ def time_kernels(K, dev, gen, worst):
         return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "library_ms": lms, "shape": shape}
 
-    # quant_matmul: every product of a 124M decode step (M = 32 slots)
-    # and of a prefill at the largest bucket (M = 256); beside the library
+    # quant_matmul: every product of a 124M decode step (M = 32 slots), of
+    # a verify round (M = 160: 32 slots x spec_k + 1 = 5) and of a prefill
+    # at the largest bucket (M = 256); beside the library
     # call (the f32 product of the dequantized weight), dense_bf16_ms:
     # F.linear on the weight already dequantized to bf16, twice the bytes
-    for m in (32, 256):
+    for m in (32, 160, 256):
         for (f, e), what in zip(QMM_SHAPES, ("qkv", "proj", "ffn1", "ffn2",
                                              "lm_head")):
             x = _rand(gen, (m, e), torch.bfloat16).to(dev)
@@ -623,6 +702,10 @@ def time_kernels(K, dev, gen, worst):
             del wd
             if what == "lm_head" and m == 32:
                 entries["quant_matmul"] = r
+            elif m == 160:          # a verify round's products (S=32, K=4)
+                entries["quant_matmul"].setdefault("m160", {})[what] = {
+                    k_: r[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                         "dense_bf16_ms", "bound_ms")}
 
     # paged_attention: the serving buckets' prefill chunks (C = 64, 128,
     # 256 at pos 0) on the chunk entry, and the int8-KV serve's C = 256
@@ -630,7 +713,8 @@ def time_kernels(K, dev, gen, worst):
     # at an f32 C = 256 chunk, on no path; then the decode entry at C = 1
     # over 32 slots with a bf16 cache (the default serving configuration's
     # read, beside SDPA with a mask) and with the int8 cache (the int8-KV
-    # serve's), and at C = 4 (a spec_k = 3 verify chunk). Each row off the
+    # serve's), and at C = 4 and 5 (verify chunks at spec_k = 3 and 4, the
+    # latter phase 4b's, beside SDPA with a mask). Each row off the
     # scalar entry puts the scalar entry beside it on the same inputs, in
     # turns.
     l_, h, d = 1024, 12, 64
@@ -638,7 +722,7 @@ def time_kernels(K, dev, gen, worst):
                              (1, 256, [0], "bf16"), (1, 256, [0], "int8"),
                              (1, 256, [0], "f32"),
                              (32, 1, None, "bf16"), (32, 1, None, "int8"),
-                             (32, 4, None, "bf16")):
+                             (32, 4, None, "bf16"), (32, 5, None, "bf16")):
         if pos is None:
             pos = torch.randint(0, l_ - c + 1, (s_,), generator=gen)
         pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)
@@ -1611,9 +1695,10 @@ def _lm_params(symbol, max_len, seed):
             if n not in shapes}
 
 
-def _serve_wave(engine, work):
+def _serve_wave(engine, work, sampled=None):
     """Serve ``work`` [(prompt, budget)]: 8 requests up front, 4 more
-    before each of the next rounds. Returns (requests, seconds)."""
+    before each of the next rounds; ``sampled`` (index, temperature, seed)
+    makes one request sampled. Returns (requests, seconds)."""
     work = list(work)
     handles = []
     t0 = time.perf_counter()
@@ -1621,7 +1706,11 @@ def _serve_wave(engine, work):
         for _ in range(8 if not handles else 4):
             if work:
                 prompt, budget = work.pop(0)
-                handles.append(engine.submit(prompt, max_tokens=budget))
+                kw = {}
+                if sampled is not None and len(handles) == sampled[0]:
+                    kw = dict(temperature=sampled[1], seed=sampled[2])
+                handles.append(engine.submit(prompt, max_tokens=budget,
+                                             **kw))
         engine.step()
     torch.cuda.synchronize()
     return handles, time.perf_counter() - t0
@@ -1774,7 +1863,8 @@ def serve_main_path(K, dev):
         prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
         steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
         weight_dtype="int8", matmul_impl="fused",
-        compute_dtype="bfloat16", device=dev)
+        compute_dtype="bfloat16", device=dev, prefix_cache_mb=0,
+        prefill_chunk=0)
     torch.cuda.synchronize()
     log("main path: 124M LM (%d layers, E=%d, %d heads, vocab %d) "
         "checkpointed and loaded in %.1f s; int8 weights %.1f MB" % (
@@ -1908,17 +1998,23 @@ def time_prefill(K, dec, reps=10, profiled=3, what="124M"):
             total, paged, chunks // profiled, card_line()))
 
 
-def time_engine_prefill(engine, reps=10, profiled=3):
-    """One 256-token prefill through the engine's captured bucket-256
-    program (an admission: the operand copy, the replay and the first
-    token's copy; ``engine._admit`` with one request queued): its wall
+def time_engine_prefill(engine, prompt=None, what=None, reps=10,
+                        profiled=3):
+    """One admission through ``engine._admit`` with one request queued
+    (what the engine runs for it: the prefix lookup and copy, the operand
+    copy, the prefill replay and the first token's copy), by default of
+    a 256-token prompt through the captured bucket-256 program: its wall
     time after a synchronize (median and min-max of ``reps``), then over
-    ``profiled`` more under torch.profiler its card kernel time and host
-    calls; the peak memory over all of them."""
+    ``profiled`` more under torch.profiler its card kernel time, its 16
+    largest kernels and its host calls; the peak memory over all of them.
+    Returns (median wall ms, card ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prompt = np.random.RandomState(5).randint(0, VOCAB, (BUCKETS[-1],))
+    if prompt is None:
+        prompt = np.random.RandomState(5).randint(0, VOCAB, (BUCKETS[-1],))
+        what = "engine prefill of %d tokens (captured bucket-%d program, " \
+            "one slot, pos 0)" % (BUCKETS[-1], BUCKETS[-1])
 
     def admit():
         engine.submit(prompt, max_tokens=1)
@@ -1944,17 +2040,21 @@ def time_engine_prefill(engine, reps=10, profiled=3):
         engine._admit()
         torch.cuda.synchronize()
     drain()
-    rows = [e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = sorted(((e.self_device_time_total / profiled / 1e3,
+                    e.count // profiled, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    card = sum(r[0] for r in rows)
     calls = host_calls(prof)
-    log("engine prefill of %d tokens (captured bucket-%d program, one slot, "
-        "pos 0): wall %.3f ms median (%.3f-%.3f) after a synchronize; card "
+    log("%s: wall %.3f ms median (%.3f-%.3f) after a synchronize; card "
         "kernels %.3f ms; host calls per prefill %.1f %s; memory %s; %s" % (
-            BUCKETS[-1], BUCKETS[-1], statistics.median(walls), min(walls),
-            max(walls), sum(rows) / profiled / 1e3,
+            what, statistics.median(walls), min(walls), max(walls), card,
             sum(calls.values()) / profiled, json.dumps(calls), memory(),
             card_line()))
+    log("  by kernel: %s" % "; ".join(
+        "%s %.4f ms x%d" % (key[:60], ms, n) for ms, n, key in rows[:16]))
+    return statistics.median(walls), card
 
 
 def serve_default_path(K, dev, prefix, work):
@@ -1974,7 +2074,7 @@ def serve_default_path(K, dev, prefix, work):
     engine = InferenceEngine.from_checkpoint(
         prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
         steps_per_round=STEPS_PER_ROUND, compute_dtype="bfloat16",
-        device=dev)
+        device=dev, prefix_cache_mb=0, prefill_chunk=0)
     dec = engine._dec
     if (dec.weight_dtype, dec._matmul_impl) != ("float", "dense"):
         raise AssertionError("the default engine took weight_dtype=%r, "
@@ -2037,7 +2137,8 @@ def serve_int8_kv_path(K, dev, prefix, work):
         prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
         steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
         weight_dtype="int8", matmul_impl="fused", cache_dtype="int8",
-        compute_dtype="bfloat16", device=dev)
+        compute_dtype="bfloat16", device=dev, prefix_cache_mb=0,
+        prefill_chunk=0)
     rs = np.random.RandomState(4)
     for p in BUCKETS:                    # warm-up: one request per bucket
         engine.submit(rs.randint(0, VOCAB, (p,)), max_tokens=4)
@@ -2079,6 +2180,480 @@ def serve_int8_kv_path(K, dev, prefix, work):
     time_prefill(K, dec, what="124M, int8 KV")
     time_engine_prefill(engine)
     return launches
+
+
+# -- phase 4b: reuse and speculation -----------------------------------------
+
+SPEC_K = 4
+# the speculation waves' products: unfused, as a verify chunk's are. The
+# fused decode step keeps q and the new token's k/v in f32 and rounds its
+# output once after the bias, where the unfused walk rounds after each
+# product: in bf16 a verify round's tokens and a fused step's part at
+# near-ties, so a stream with speculation would not equal one without
+SPEC_MM = "pallas"
+SYSTEM_PROMPT = 192                  # tokens every prefix-wave request shares
+POOL_MB = 160                        # 4 pool slots of 36 MiB at the 124M LM
+CHUNK = 256
+
+
+def _engine_4b(prefix, dev, **kw):
+    """The 124M checkpoint behind the main path's engine configuration,
+    with ``kw`` on top (every feature off unless given)."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    args = dict(max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
+                steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
+                weight_dtype="int8", matmul_impl="fused",
+                compute_dtype="bfloat16", device=dev, prefix_cache_mb=0,
+                prefill_chunk=0, draft="off")
+    args.update(kw)
+    return InferenceEngine.from_checkpoint(prefix, 0, **args)
+
+
+def _build(engine, tags):
+    """Run each program of ``tags`` once on the idle engine (every slot
+    dead: nothing changes that a request reads), so that its warm-up runs
+    and capture happen before a wave's launches are counted."""
+    for tag in tags:
+        engine._program(tag).run()
+    torch.cuda.synchronize()
+
+
+def _ttft_p50(handles):
+    return float(np.percentile([(h.t_first - h.t_submit) * 1e3
+                                for h in handles], 50))
+
+
+def _pieces(engine, work):
+    """The prefill buckets ``work`` uses on ``engine`` (chunk pieces as
+    ``_advance_chunk`` splits them, prefix hits aside)."""
+    used = set()
+    for prompt, _ in work:
+        n = len(prompt)
+        while n > 0:
+            piece = min(n, engine.prefill_chunk or BUCKETS[-1])
+            used.add(engine._bucket_for(piece))
+            n -= piece
+    return used
+
+
+def _contract(engine, what, prefill, copy=(), verify=0, draft=None):
+    """The JAX package's compile contract for the configuration: one
+    decode program, ``verify`` verify programs, one prefill program per
+    bucket in ``prefill``, one copy program per bucket in ``copy``, and
+    for a draft model one draft program and one draft prefill per bucket
+    in ``draft``."""
+    want = {"decode": 1, "verify": verify,
+            "prefill": dict.fromkeys(sorted(prefill), 1),
+            "copy": dict.fromkeys(sorted(copy), 1)}
+    if draft is not None:
+        want.update({"draft": 1,
+                     "draft_prefill": dict.fromkeys(sorted(draft), 1)})
+    cc = engine.compile_counts
+    if cc != want:
+        raise AssertionError("%s: compile_counts %r, the contract wants %r"
+                             % (what, cc, want))
+    return cc
+
+
+def _equal_streams(what, handles, ref):
+    """The streams of ``handles`` equal those of ``ref``."""
+    for i, h in enumerate(handles):
+        if not h.done or len(h.tokens) != h.limit:
+            raise AssertionError("%s: request %s did not finish its "
+                                 "budget: %r" % (what, h.id, h))
+        if h.tokens != ref[i].tokens:
+            raise AssertionError("%s: request %d's stream differs from the "
+                                 "same engine's with the feature off"
+                                 % (what, i))
+
+
+def _equal_generate(what, dec, handles):
+    for h in handles:
+        ref = dec.generate(h.prompt[None], len(h.tokens))[0, len(h.prompt):]
+        if ref.cpu().tolist() != h.tokens:
+            raise AssertionError("%s: request %s's stream differs from "
+                                 "Decoder.generate" % (what, h.id))
+
+
+def _check_launches(K, what, want):
+    got = K.launch_counts()
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError("%s: launch counts %r, the wave wants %r"
+                             % (what, got, full))
+    return got
+
+
+def _wave_line(what, handles, secs, launches, extra=""):
+    tps, p50, p99 = _wave_metrics(handles, secs)
+    log("%s: %d requests, %d tokens in %.3f s = %.1f tokens/s; ms per token "
+        "p50 %.3f p99 %.3f; TTFT p50 %.3f ms%s; launches %s; %s" % (
+            what, len(handles), sum(len(h.tokens) for h in handles), secs,
+            tps, p50, p99, _ttft_p50(handles), extra,
+            json.dumps({e: n for e, n in launches.items() if n}),
+            card_line()))
+
+
+def _card_ms(fn, n=3):
+    """(wall ms median of 10 calls each after a synchronize, card kernel
+    ms per call under torch.profiler over ``n`` more)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    card = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
+    return statistics.median(walls), card
+
+
+def reuse_prefix_wave(K, dev, prefix, off, timer):
+    """Wave 1: 24 requests share one 192-token system prompt, each with its
+    own 8-56-token suffix, budgets 32/64, through a 160 MiB prefix pool
+    (4 slots). Returns the wave's launches."""
+    rs = np.random.RandomState(41)
+
+    def wave(system):
+        return [(np.concatenate([system, rs.randint(0, VOCAB, (int(n),))]),
+                 int(rs.choice([32, 64])))
+                for n in rs.randint(8, 57, N_REQUESTS)]
+    warm = wave(rs.randint(0, VOCAB, (SYSTEM_PROMPT,)))
+    work = wave(rs.randint(0, VOCAB, (SYSTEM_PROMPT,)))
+    engine = _engine_4b(prefix, dev, prefix_cache_mb=POOL_MB)
+    if engine._prefix.capacity != 4:
+        raise AssertionError("prefix wave: %d pool slots, want 4"
+                             % engine._prefix.capacity)
+    _serve_wave(engine, warm)                  # every program built
+    _build(engine, ("decode",))
+    K.reset_launch_counts()
+    s0 = dict(engine.stats)
+    handles, secs = _serve_wave(engine, work)
+    d = {k: engine.stats[k] - s0[k] for k in engine.stats}
+    steps = d["steps"] * STEPS_PER_ROUND
+    launches = _check_launches(K, "prefix wave", {
+        "fused_decode_attention": LAYERS * steps,
+        "paged_attention_chunk": LAYERS * d["prefill_chunks"],
+        "quant_matmul": (2 * LAYERS + 1) * steps
+        + (4 * LAYERS + 1) * d["prefill_chunks"]})
+    if d["prefix_hits"] < 20:
+        raise AssertionError("prefix wave: %d hits, want >= 20"
+                             % d["prefix_hits"])
+    ref, _ = _serve_wave(off, work)
+    _equal_streams("prefix wave", handles, ref)
+    _equal_generate("prefix wave", engine._dec,
+                    (handles[0], handles[1 + int(np.argmax(
+                        [h.prefix_hit_tokens for h in handles[1:]]))]))
+    _contract(engine, "prefix wave", {64, 256}, copy={256})
+    _wave_line("phase 4b prefix wave (pool %d slots)" % (
+        engine._prefix.capacity), handles, secs, launches,
+        "; %d hits, %d hit tokens, %d copies, %d evictions" % (
+            d["prefix_hits"], d["prefix_hit_tokens"], d["prefix_copies"],
+            engine._prefix.evictions))
+
+    # a hit's admission (the pool -> slot copy of 256 rows, then the
+    # 64-bucket prefill of the last prompt token at start P-1) beside a
+    # miss's (the 256-bucket prefill, no pool) on the same prompt
+    prompt = handles[0].prompt
+    hit = time_engine_prefill(
+        engine, prompt, "phase 4b prefix hit's admission (%d-token prompt: "
+        "copy + 64-bucket prefill at start %d)" % (len(prompt),
+                                                   len(prompt) - 1))
+    miss = time_engine_prefill(
+        off, prompt, "phase 4b miss's admission (the same prompt, "
+        "256-bucket prefill, no pool)")
+    log("phase 4b a hit's admission against a miss's: %.2fx shorter wall, "
+        "%.2fx card; %s" % (miss[0] / hit[0], miss[1] / hit[1],
+                            card_line()))
+    from mxnet_tpu_torch.serving.engine import _wide
+    slot = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def gather():                # as InferenceEngine._staged_run runs it
+        for g, sg in zip(engine._groups, engine._stage_groups):
+            torch.index_select(_wide(g), 1, slot,
+                               out=_wide(sg)[:, :, :MAX_LEN])
+    caches = engine._caches
+    moved = 2 * sum(b[:1].numel() * b.element_size()
+                    for e in caches for b in e)
+    g_ms = timer(gather)
+    c_ms = timer(engine._program(("copy", 256)).run)
+    c_bytes = 2 * sum(b[:1, :256].numel() * b.element_size()
+                      for e in caches for b in e)
+    log("phase 4b gather-in (a slot's %d rows into the staging cache, one "
+        "copy an allocation): %.4f ms for %.1f MB moved, bound %.4f ms; the "
+        "copy program of bucket 256: %.4f ms for %.1f MB, bound %.4f ms; "
+        "beside "
+        "a 256-token prefill's %.3f ms of card time; %s" % (
+            MAX_LEN, g_ms, moved / 1e6, moved / HBM_BYTES_PER_S * 1e3,
+            c_ms, c_bytes / 1e6, c_bytes / HBM_BYTES_PER_S * 1e3, miss[1],
+            card_line()))
+    f_wall, f_card = _card_ms(engine._program("decode").run)
+    log("phase 4b fused decode round of this engine (%d steps, 32 slots): "
+        "wall %.3f ms, card %.3f ms = %.3f ms a step; %s" % (
+            STEPS_PER_ROUND, f_wall, f_card, f_card / STEPS_PER_ROUND,
+            card_line()))
+    return launches
+
+
+def reuse_chunk_wave(K, dev, prefix, off):
+    """Wave 2: 20 short requests (24-120 tokens) decode while 4 prompts of
+    600-1000 tokens admit in 256-token pieces. Returns the launches."""
+    rs = np.random.RandomState(42)
+    shorts = [(rs.randint(0, VOCAB, (int(rs.randint(24, 121)),)), 64)
+              for _ in range(20)]
+    longs = [(rs.randint(0, VOCAB, (int(n),)), 32)
+             for n in (600, 777, 901, 1000)]
+    work = shorts[:8] + longs[:2] + shorts[8:14] + longs[2:] + shorts[14:]
+    is_long = [len(p) > BUCKETS[-1] for p, _ in work]
+    engine = _engine_4b(prefix, dev, prefill_chunk=CHUNK)
+    _serve_wave(engine, work)
+    _build(engine, ("decode",))
+    K.reset_launch_counts()
+    s0 = dict(engine.stats)
+    handles, secs = _serve_wave(engine, work)
+    d = {k: engine.stats[k] - s0[k] for k in engine.stats}
+    steps = d["steps"] * STEPS_PER_ROUND
+    launches = _check_launches(K, "chunk wave", {
+        "fused_decode_attention": LAYERS * steps,
+        # 12 a piece; the pieces after a long prompt's first run at
+        # start > 0
+        "paged_attention_chunk": LAYERS * d["prefill_chunks"],
+        "quant_matmul": (2 * LAYERS + 1) * steps
+        + (4 * LAYERS + 1) * d["prefill_chunks"]})
+    later = sum(-(-len(p) // CHUNK) - 1 for p, _ in work)
+    if d["prefill_chunks"] - d["prefills"] != later or later < 1:
+        raise AssertionError("chunk wave: %d pieces for %d prefills, want "
+                             "%d pieces at start > 0" % (
+                                 d["prefill_chunks"], d["prefills"], later))
+    _contract(engine, "chunk wave", _pieces(engine, work))
+    ref, _ = _serve_wave(off, [w for w, lg in zip(work, is_long) if not lg])
+    short_h = [h for h, lg in zip(handles, is_long) if not lg]
+    _equal_streams("chunk wave", short_h, ref)
+    long_h = [h for h, lg in zip(handles, is_long) if lg]
+    _equal_generate("chunk wave", engine._dec, long_h)
+    del engine
+    free_programs()
+    e128 = _engine_4b(prefix, dev, prefill_chunk=128)
+    h128, _ = _serve_wave(e128, work)
+    _equal_streams("chunk wave at prefill_chunk=128", handles, h128)
+    tpot = [(h.t_done - h.t_first) / (len(h.tokens) - 1) * 1e3
+            for h in short_h]
+    _wave_line("phase 4b chunk wave (prefill_chunk=%d)" % CHUNK, handles,
+               secs, launches,
+               "; %d pieces for %d prefills (%d at start > 0); the 20 "
+               "residents' ms per token p99 %.3f, p50 %.3f" % (
+                   d["prefill_chunks"], d["prefills"], later,
+                   float(np.percentile(tpot, 99)),
+                   float(np.percentile(tpot, 50))))
+    return launches
+
+
+def _spec_launches(d, layers_d=None, drafts=0):
+    """A speculating wave's launches from its stats, every product unfused
+    (``SPEC_MM``): per verify round 12 ``paged_attention_decode`` (C = K+1)
+    and 4*12+1 ``quant_matmul`` (M = S(K+1)); the same per plain decode
+    step of a fallback round (C = 1, M = S); per prefill piece 12 chunk
+    reads and 4*12+1 products; per run of the draft program over an
+    ``layers_d``-layer draft, K walks (the catch-up chunk, then K-1 single
+    tokens) of ``layers_d`` decode reads and 4 layers_d + 1 products each;
+    per draft prefill ``layers_d`` chunk reads and 4 layers_d + 1
+    products."""
+    walks = d["spec_rounds"] + d["spec_fallback_rounds"] * STEPS_PER_ROUND
+    want = {"paged_attention_decode": LAYERS * walks,
+            "paged_attention_chunk": LAYERS * d["prefill_chunks"],
+            "quant_matmul": (4 * LAYERS + 1) * (walks
+                                                + d["prefill_chunks"])}
+    if layers_d:
+        ld = layers_d
+        want["paged_attention_decode"] += ld * SPEC_K * drafts
+        want["paged_attention_chunk"] += ld * d["prefills"]
+        want["quant_matmul"] += (4 * ld + 1) * (SPEC_K * drafts
+                                                + d["prefills"])
+    return want
+
+
+def _spec_work(seed):
+    """24 prompts that repeat a 16-token phrase 3-15 times, budgets
+    32/64."""
+    rs = np.random.RandomState(seed)
+    return [(np.tile(rs.randint(0, VOCAB, (16,)), int(rs.randint(3, 16))),
+             int(rs.choice([32, 64]))) for _ in range(N_REQUESTS)]
+
+
+def reuse_ngram_wave(K, dev, prefix, off, timer):
+    """Wave 3: n-gram speculation (spec_k=4) over prompts that repeat a
+    16-token phrase; one sampled request alone and in the wave, with
+    speculation on and off. Returns the launches."""
+    work = _spec_work(43)
+    engine = _engine_4b(prefix, dev, draft="ngram", spec_k=SPEC_K,
+                        matmul_impl=SPEC_MM)
+    _serve_wave(engine, work)
+    _build(engine, ("decode", "verify"))
+    host = []
+    spec_round = engine._spec_round
+
+    def timed_round():
+        t0 = time.perf_counter()
+        out = spec_round()
+        if out:
+            host.append((time.perf_counter() - t0) * 1e3)
+        return out
+    engine._spec_round = timed_round
+    K.reset_launch_counts()
+    s0 = dict(engine.stats)
+    handles, secs = _serve_wave(engine, work)
+    d = {k: engine.stats[k] - s0[k] for k in engine.stats}
+    del engine._spec_round
+    launches = _check_launches(K, "n-gram wave", _spec_launches(d))
+    if d["spec_rounds"] < 1:
+        raise AssertionError("n-gram wave: no verify round ran")
+    ref, _ = _serve_wave(off, work)
+    _equal_streams("n-gram wave", handles, ref)
+    _equal_generate("n-gram wave", engine._dec,
+                    (handles[0], max(handles[1:], key=lambda h: len(
+                        h.prompt))))
+    _contract(engine, "n-gram wave", _pieces(engine, work), verify=1)
+    _wave_line("phase 4b n-gram wave (spec_k=%d)" % SPEC_K, handles, secs,
+               launches,
+               "; %d verify rounds, %d fallback rounds, %d drafted, %d "
+               "accepted (%.3f a verify round); _spec_round host time "
+               "median %.3f ms a verify round" % (
+                   d["spec_rounds"], d["spec_fallback_rounds"],
+                   d["spec_drafted"], d["spec_accepted"],
+                   d["spec_accepted"] / max(1, d["spec_rounds"]),
+                   statistics.median(host)))
+    streams = []
+    for eng in (engine, off):
+        alone, _ = _serve_wave(eng, work[5:6], sampled=(0, 0.9, 5))
+        busy, _ = _serve_wave(eng, work, sampled=(5, 0.9, 5))
+        streams += [alone[0].tokens, busy[5].tokens]
+    if any(s != streams[0] for s in streams):
+        raise AssertionError("n-gram wave: the sampled request's stream "
+                             "alone and in the wave, speculation on and "
+                             "off, differ: %r" % streams)
+    # a verify round against a plain decode round, on the idle engine
+    # (every slot computed either way)
+    v_wall, v_card = _card_ms(engine._program("verify").run)
+    p_wall, p_card = _card_ms(engine._program("decode").run)
+    log("phase 4b verify round (S=%d, C=%d): wall %.3f ms, card %.3f ms "
+        "(events %.4f ms) for up to %d tokens a slot; unfused decode round "
+        "(%d steps) wall %.3f ms, card %.3f ms = %.3f ms a step (events "
+        "%.4f ms a step); sampled stream of %d tokens equal alone and in "
+        "the wave, speculation on and off; %s" % (
+            SLOTS, SPEC_K + 1, v_wall, v_card,
+            timer(engine._program("verify").run), SPEC_K + 1,
+            STEPS_PER_ROUND, p_wall, p_card, p_card / STEPS_PER_ROUND,
+            timer(engine._program("decode").run) / STEPS_PER_ROUND,
+            len(streams[0]), card_line()))
+    return launches
+
+
+def reuse_draft_waves(K, dev, prefix, off, timer):
+    """Wave 4: draft-model speculation with (a) the target's own
+    checkpoint as the draft, through ``from_checkpoint(draft_prefix=...)``,
+    and (b) a 2-layer LM of the same width from seed 1. Returns the
+    launches of both."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import Decoder
+    work = _spec_work(44)
+    ref, _ = _serve_wave(off, work)
+    total = {}
+    small = get_transformer_lm(VOCAB, num_layers=2, embed_dim=EMBED,
+                               num_heads=HEADS)
+    for what, layers_d in (("draft = the target", LAYERS),
+                           ("draft = a 2-layer LM", 2)):
+        if layers_d == LAYERS:
+            # draft=None: a draft checkpoint turns draft="model" on
+            engine = _engine_4b(prefix, dev, spec_k=SPEC_K, draft=None,
+                                draft_prefix=prefix, draft_epoch=0,
+                                matmul_impl=SPEC_MM)
+            target = engine._dec
+        else:
+            ddec = Decoder(small, _lm_params(small, MAX_LEN, 1), MAX_LEN,
+                           compute_dtype="bfloat16", device=dev)
+            from mxnet_tpu_torch.serving import InferenceEngine
+            engine = InferenceEngine(
+                target, slots=SLOTS, prefill_buckets=BUCKETS,
+                steps_per_round=STEPS_PER_ROUND, prefix_cache_mb=0,
+                prefill_chunk=0, spec_k=SPEC_K, draft="model",
+                draft_decoder=ddec)
+        if engine.spec_draft != "model":
+            raise AssertionError("%s: draft=%r" % (what, engine.spec_draft))
+        _serve_wave(engine, work)
+        _build(engine, ("decode", "verify", "draft"))
+        runs = [0]
+        prog = engine._program("draft")
+        replay = prog.run
+
+        def counted():
+            runs[0] += 1
+            return replay()
+        prog.run = counted
+        K.reset_launch_counts()
+        s0 = dict(engine.stats)
+        handles, secs = _serve_wave(engine, work)
+        d = {k: engine.stats[k] - s0[k] for k in engine.stats}
+        prog.run = replay
+        launches = _check_launches(K, what, _spec_launches(
+            d, layers_d, runs[0]))
+        _equal_streams(what, handles, ref)
+        _contract(engine, what, _pieces(engine, work), verify=1,
+                  draft=_pieces(engine, work))
+        if layers_d == LAYERS and d["spec_accepted"] <= d["spec_rounds"]:
+            raise AssertionError("%s: %d accepted in %d verify rounds, want "
+                                 "more" % (what, d["spec_accepted"],
+                                           d["spec_rounds"]))
+        _wave_line("phase 4b %s (spec_k=%d)" % (what, SPEC_K), handles,
+                   secs, launches,
+                   "; %d verify rounds, %d fallback rounds, %d draft runs, "
+                   "%d drafted, %d accepted (%.3f a verify round); the "
+                   "draft program %.4f ms of card time a run (events)" % (
+                       d["spec_rounds"], d["spec_fallback_rounds"], runs[0],
+                       d["spec_drafted"], d["spec_accepted"],
+                       d["spec_accepted"] / max(1, d["spec_rounds"]),
+                       timer(prog.run)))
+        for e, n in launches.items():
+            total[e] = total.get(e, 0) + n
+        del engine, prog
+        free_programs()
+    return total
+
+
+def reuse_main_path(K, dev, prefix):
+    """Phase 4b: the 124M LM from phase 4's checkpoint behind the main
+    path's engine configuration (the speculation waves with unfused
+    products, ``SPEC_MM``), one wave each of prefix reuse, chunked
+    prefill, n-gram speculation and draft-model speculation (two drafts);
+    each wave's streams equal the same configuration's with the feature
+    off, exact launches, the JAX compile contract. Returns the launches of
+    every wave, summed."""
+    timer = Timer(dev)
+    total = {}
+
+    def add(launches):
+        for e, n in launches.items():
+            total[e] = total.get(e, 0) + n
+        free_programs()
+    off = _engine_4b(prefix, dev)
+    add(reuse_prefix_wave(K, dev, prefix, off, timer))
+    add(reuse_chunk_wave(K, dev, prefix, off))
+    del off
+    free_programs()
+    off = _engine_4b(prefix, dev, matmul_impl=SPEC_MM)
+    add(reuse_ngram_wave(K, dev, prefix, off, timer))
+    add(reuse_draft_waves(K, dev, prefix, off, timer))
+    log("phase 4b launches: %s" % json.dumps(
+        {e: n for e, n in total.items() if n}))
+    return total
 
 
 def check_main_against_host(prefix, dec, handles, steps=16):
@@ -3076,6 +3651,7 @@ def main():
              "fused_decode_attention": check_fused_decode_attention(
                  K, dev, gen)}
     worst.update(check_paged_attention(K, dev, gen))
+    check_paged_invariance(K, dev, gen)
     worst.update(check_flash_attention(K, dev, gen))
     check_flash_repeat(K, dev)
     worst["fused_linear"] = check_fused_linear(K, dev, gen)
@@ -3094,6 +3670,9 @@ def main():
         K, dev, prefix, work)["paged_attention_decode"]
     free_programs()
     serve_int8_kv_path(K, dev, prefix, work)
+    free_programs()
+    for e, n in reuse_main_path(K, dev, prefix).items():
+        launches[e] += n
     free_programs()
     check_small_against_host(dev)
     launches.update({e: n for e, n in train_main_path(K, dev).items()
@@ -3140,7 +3719,7 @@ def main():
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",
-                                    "int8", "c4")
+                                    "int8", "c4", "c5", "m160")
            if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"

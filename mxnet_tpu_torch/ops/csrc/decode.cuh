@@ -92,7 +92,12 @@ __device__ __forceinline__ void unpack16<int8_t>(const uint4& u, float* f) {
 }
 
 // merge running state (mo, lo, ao) into (m, l, a); a row whose max is
-// still -inf takes 0 as its reference, so an empty state adds exactly 0
+// still -inf takes 0 as its reference, so an empty state adds exactly 0.
+// The read's softmax arithmetic is spelled out (__fmul_rn, __fadd_rn,
+// fmaf) wherever the compiler could otherwise contract a product and a sum
+// one way in one instantiation and another way in the next: a row's result
+// is then the same bits whatever RT and the other rows of its block (a
+// verify chunk's rows equal C = 1 reads at their positions).
 template <int E>
 __device__ __forceinline__ void merge_state(float& m, float& l, float* a,
                                             float mo, float lo,
@@ -100,9 +105,10 @@ __device__ __forceinline__ void merge_state(float& m, float& l, float* a,
   const float mn = fmaxf(m, mo);
   const float ref = mn == -INFINITY ? 0.f : mn;
   const float ca = fast_exp2(m - ref), cb = fast_exp2(mo - ref);
-  l = l * ca + lo * cb;
+  l = __fadd_rn(__fmul_rn(l, ca), __fmul_rn(lo, cb));
 #pragma unroll
-  for (int e = 0; e < E; ++e) a[e] = a[e] * ca + ao[e] * cb;
+  for (int e = 0; e < E; ++e)
+    a[e] = __fadd_rn(__fmul_rn(a[e], ca), __fmul_rn(ao[e], cb));
   m = mn;
 }
 
@@ -269,7 +275,7 @@ __device__ __forceinline__ void decode_split(const DecArgs& a,
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < E; ++e) d = fmaf(qr[r][e], kf[e], d);
-        sc[u][r] = d * kscale;
+        sc[u][r] = __fmul_rn(d, kscale);
       }
     }
 #pragma unroll
@@ -293,15 +299,16 @@ __device__ __forceinline__ void decode_split(const DecArgs& a,
       if (mx == -INFINITY) continue;  // no key of this group is visible
       const float mn = fmaxf(m[r], mx);
       const float corr = fast_exp2(m[r] - mn);
-      l[r] *= corr;
+      l[r] = __fmul_rn(l[r], corr);
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[r][e] *= corr;
+      for (int e = 0; e < E; ++e) acc[r][e] = __fmul_rn(acc[r][e], corr);
 #pragma unroll
       for (int u = 0; u < DEC_U; ++u) {
         const float pj = fast_exp2(sc[u][r] - mn);  // 0 where masked
-        l[r] += pj;
+        l[r] = __fadd_rn(l[r], pj);
         const float w =
-            QUANT ? pj * scl[(2 * st + 1) * DEC_TK_MAX + grp + ng * u]
+            QUANT ? __fmul_rn(pj,
+                              scl[(2 * st + 1) * DEC_TK_MAX + grp + ng * u])
                   : pj;
         float vf[E];
         unpack16<TKV>(vr[u], vf);
@@ -361,7 +368,8 @@ __device__ __forceinline__ void decode_split(const DecArgs& a,
       val = 0.f;
 #pragma unroll
       for (int w = 0; w < DEC_WARPS; ++w)
-        val += red[(w * RT + r) * rw + x] * fast_exp2(mw[w] - ref);
+        val = fmaf(red[(w * RT + r) * rw + x], fast_exp2(mw[w] - ref),
+                   val);
     }
     ws[r * W + x] = val;
   }

@@ -378,8 +378,8 @@ paged_decode_combine(DecArgs a) {
   for (int sp = 0; sp < 32; ++sp) {
     if (l[sp] > 0.f) {
       const float w = fast_exp2(m[sp] - mx);
-      den += w * l[sp];
-      num += w * ws[sp * step + 2 + d];
+      den = fmaf(w, l[sp], den);
+      num = fmaf(w, ws[sp * step + 2 + d], num);
     }
   }
   const int g = r / a.C, c = r % a.C;

@@ -16,9 +16,11 @@ is updated IN PLACE (one buffer per node for the life of the cache
 instead of a donated copy per step). The serving engine runs the same
 walk inside its compiled programs (``parallel.program``), with
 :func:`sample_tokens` over :func:`uniform_draw`, the draw as a pure
-function of (seed, position). Windowed ring
-caches, ``cache_block``, tensor/expert parallelism, speculative verify
-and beam search belong to later slices of the port.
+function of (seed, position), together with the slot-addressed forms
+below: the prefix copy's row reads and writes, the speculative verify
+step and the draft model's proposal. Windowed ring caches,
+``cache_block``, tensor/expert parallelism and beam search belong to
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -474,7 +476,11 @@ class Decoder:
                 continue
             if name == "PositionalEmbedding":
                 x, posp = ins
-                env[(id(n), 0)] = x + posp[ctx["rows"]]
+                # rows past the table are pad rows of a chunk that runs
+                # off the cache's end (the engine's staging cache is
+                # longer than max_len): any row of the table will do
+                env[(id(n), 0)] = x + posp[
+                    ctx["rows"].clamp_max(posp.shape[0] - 1)]
                 continue
             if name == "FullyConnected" \
                     and isinstance(ins[1], QuantizedTensor):
@@ -510,17 +516,145 @@ class Decoder:
         return self._run(params, aux, caches, pos, tokens, mm_impl=mm_impl)
 
     @staticmethod
-    def slot_update(caches, slot, sub, rows):
-        """Write rows ``rows`` (an int64 tensor of row indices) of the b=1
-        cache ``sub`` into the same rows of ``slot`` of the full cache, in
-        place: one ``index_put_`` per buffer, keyed by ``slot``, an int64
-        tensor [1] on the cache's device (a program's operand, as the JAX
-        package's ``dynamic_update_slice`` is keyed by a traced slot)."""
-        for entry, sentry in zip(caches, sub):
-            for full, s in zip(entry, sentry):
-                full.index_put_((slot.expand(rows.shape[0]), rows),
-                                s[0].index_select(0, rows))
+    def _slot_index(slot, like):
+        """``slot`` (an int or a device operand) as an int64 tensor [1] on
+        ``like``'s device."""
+        return torch.as_tensor(slot, dtype=torch.int64,
+                               device=like.device).reshape(1)
+
+    @staticmethod
+    def slot_prefix_rows(caches, slot, length):
+        """Read rows ``[0, length)`` of one cache slot as a b=1 cache: the
+        read half of the serving engine's prefix copy. ``length`` is
+        static (the engine buckets it like a prefill, so one program
+        serves every copy of that bucket); ``slot`` is an int or an int
+        tensor on the cache's device (a program's operand). Rows past
+        the true cached length ride along as junk: in the destination
+        they sit at positions the ``key_pos <= pos`` mask hides until
+        the suffix prefill overwrites them. Every buffer is read, the
+        int8 row scales included."""
+        out = []
+        for entry in caches:
+            idx = Decoder._slot_index(slot, entry[0])
+            out.append(tuple(buf[:, :length].index_select(0, idx)
+                             for buf in entry))
+        return out
+
+    @staticmethod
+    def slot_write_prefix_rows(caches, slot, rows):
+        """Write a :meth:`slot_prefix_rows` result into rows ``[0, C)`` of
+        ``slot``, in place: the write half of the slot-to-slot prefix
+        copy. Returns ``caches``."""
+        for entry, rentry in zip(caches, rows):
+            idx = Decoder._slot_index(slot, entry[0])
+            for full, r in zip(entry, rentry):
+                full[:, :r.shape[1]].index_copy_(0, idx, r.to(full.dtype))
         return caches
+
+    def verify_step_slots(self, params, aux, caches, state, drafts, dlen,
+                          impl=None, tp=None, mm_impl=None, ep=None):
+        """Speculative draft-and-verify decode step over all S slots (the
+        serving engine's verify program).
+
+        ``state`` is the engine's per-slot state ``(pos, tok, live, temp,
+        uniform, eos, last)`` in the JAX package's order, with the port's
+        ``uniform`` [S, max_len] (each slot's :func:`uniform_draw` at
+        every position) where the JAX package has the PRNG keys.
+        ``drafts`` [S, K] are proposed continuations of each slot's head
+        token ``tok``; ``dlen`` [S] how many of them are real (0: the slot
+        rides along and emits exactly its plain-decode token). Returns
+        ``(caches, state2, out)`` with ``out`` [K+1, S]: row i is the i-th
+        token emitted this step per slot, -1 where none; ``state2`` is new
+        tensors, the caches are written in place.
+
+        One chunked run scores all K drafted positions: the chunk ``[tok,
+        d_1..d_K]`` is written at positions ``[pos, pos+K]`` and each
+        position's logits give the target's OWN choice there — the argmax,
+        or for ``temp > 0`` the :func:`sample_tokens` draw at the slot's
+        uniform of position ``pos + i + 1``, the draw a plain decode step
+        takes there. Token i is emitted iff every earlier emitted token
+        matched its draft and was not terminal; the first mismatch emits
+        the target's corrected token and stops. Every emitted token is
+        therefore the target's own choice at its position: drafts change
+        how many arrive per step, never which.
+
+        The rejected positions' rows sit above the slot's new head, where
+        every read masks them until a later write covers them. A chunk
+        that would run past the cache's end (a slot the engine holds no
+        request in; the engine falls back to plain decode while a
+        sequence is that near its end) is written ending at the last row
+        instead, as the JAX package's clamped update does."""
+        refuse_unported("Decoder.verify_step_slots", tp=(tp, None),
+                        ep=(ep, None))
+        pos, tok, live, temp, uniform, eos, last = state
+        k = drafts.shape[1]
+        chunk = torch.cat([tok[:, None].to(torch.int64),
+                           drafts.to(torch.int64)], dim=1)
+        logits, caches = self._run_slots(
+            params, aux, caches, pos.clamp_max(self.max_len - (k + 1)),
+            chunk, impl=impl, mm_impl=mm_impl)                # [S, K+1, V]
+        s_, c, v = logits.shape
+        at = (pos.long()[:, None] + torch.arange(1, c + 1, device=pos.device)
+              ).clamp_max(self.max_len - 1)
+        nxt = sample_tokens(logits.reshape(s_ * c, v),
+                            temp.repeat_interleave(c),
+                            uniform.gather(1, at).reshape(-1)).reshape(s_, c)
+        emit = live
+        outs = []
+        e = torch.zeros_like(pos)
+        tok2 = tok
+        done_any = torch.zeros_like(live)
+        for i in range(k + 1):
+            tki = nxt[:, i].to(tok.dtype)
+            done_i = (tki == eos) | (pos + i + 1 >= last)
+            outs.append(torch.where(emit, tki, torch.full_like(tki, -1)))
+            e = e + emit.to(e.dtype)
+            tok2 = torch.where(emit, tki, tok2)
+            done_any = done_any | (emit & done_i)
+            if i < k:
+                matched = (dlen > i) & (tki == drafts[:, i].to(tki.dtype))
+                emit = emit & matched & ~done_i
+        state2 = (pos + e, tok2, live & ~done_any, temp, uniform, eos, last)
+        return caches, state2, torch.stack(outs)              # [K+1, S]
+
+    def draft_propose_slots(self, params, aux, caches, pos, catchup, clen,
+                            k, impl=None, tp=None, mm_impl=None, ep=None):
+        """Greedy ``k``-token proposal from a DRAFT model sharing the
+        slot-paged layout (the serving engine's draft program,
+        ``InferenceEngine(draft="model")``).
+
+        Two phases in one program: (1) catch up — ``catchup`` [S, W] holds
+        each slot's real tokens the draft cache has not seen yet (``clen``
+        [S] in [1, W] of them valid; pad rows write junk above the head,
+        healed by the next catch-up's overwrite), written at positions
+        ``[pos, pos+clen)``; (2) propose — from the last valid position's
+        logits, k-1 greedy single-token steps. Returns ``(caches, drafts
+        [S, k])``. Greedy always: for sampled requests the target's verify
+        still gates acceptance against its own draw. Positions that would
+        run past the cache's end (slots the engine holds no request in)
+        are written ending at the last row, as the JAX package's clamped
+        updates do."""
+        refuse_unported("Decoder.draft_propose_slots", tp=(tp, None),
+                        ep=(ep, None))
+        w = catchup.shape[1]
+        pos = pos.clamp_max(self.max_len - w)
+        logits, caches = self._run_slots(
+            params, aux, caches, pos, catchup.to(torch.int64), impl=impl,
+            mm_impl=mm_impl)                                    # [S, W, V]
+        idx = (clen.long() - 1).clamp(0, w - 1)
+        lastlog = logits.gather(
+            1, idx[:, None, None].expand(-1, 1, logits.shape[2]))[:, 0]
+        t = torch.argmax(lastlog, dim=-1)
+        p = pos + clen.to(pos.dtype)
+        out = [t]
+        for _ in range(k - 1):
+            lg, caches = self._run_slots(
+                params, aux, caches, p.clamp_max(self.max_len - 1),
+                t[:, None], impl=impl, mm_impl=mm_impl)
+            t = torch.argmax(lg[:, 0], dim=-1)
+            out.append(t)
+            p = p + 1
+        return caches, torch.stack(out, dim=1)                 # [S, k]
 
     # -- user API -------------------------------------------------------
     def _tokens(self, tokens):

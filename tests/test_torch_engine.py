@@ -30,8 +30,10 @@ from mxnet_tpu_torch.serving import InferenceEngine
 
 VOCAB, MAX_LEN, BUCKETS = 53, 32, (4, 8, 16)
 CFG = dict(num_layers=2, embed_dim=32, num_heads=4)
+# the prefix cache and chunked prefill off, as in the JAX engine below
 ENGINE = dict(slots=2, prefill_buckets=BUCKETS, steps_per_round=2,
-              weight_dtype="int8", matmul_impl="fused")
+              weight_dtype="int8", matmul_impl="fused", prefix_cache_mb=0,
+              prefill_chunk=0)
 # (prompt length, max_tokens): every bucket, slot reuse, a budget that
 # runs into max_len, and one request (index 1) that stops on EOS
 REQUESTS = [(3, 6), (7, 9), (12, 5), (4, 8), (16, 20), (1, 4)]
@@ -95,7 +97,7 @@ def test_engine_streams_equal_jax(lm, port_decoder, eos_id):
     jeng = JaxEngine(
         JaxDecoder(js, {k: jnp.asarray(v) for k, v in params.items()},
                    max_len=MAX_LEN, cache_block=None),
-        prefix_cache_mb=0, prefill_chunk=0, attn_impl="paged", **ENGINE)
+        attn_impl="paged", **ENGINE)
     jreqs = [jeng.submit(p, max_tokens=n,
                          eos_id=eos_id if i == EOS_REQUEST else None)
              for i, (p, (_, n)) in enumerate(zip(prompts, REQUESTS))]

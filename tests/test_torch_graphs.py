@@ -53,8 +53,10 @@ from check_utils import assert_compile_contract
 
 VOCAB, MAX_LEN, BUCKETS = 53, 32, (4, 8, 16)
 CFG = dict(num_layers=2, embed_dim=32, num_heads=4)
+# the prefix cache and chunked prefill off, as in the JAX engine below
 ENGINE = dict(slots=2, prefill_buckets=BUCKETS, steps_per_round=2,
-              weight_dtype="int8", matmul_impl="fused")
+              weight_dtype="int8", matmul_impl="fused", prefix_cache_mb=0,
+              prefill_chunk=0)
 # (prompt length, max_tokens, temperature, seed): every bucket, slot
 # reuse, greedy and sampled requests; request EOS_REQUEST stops on EOS
 REQUESTS = [(3, 6, 0.0, 0), (7, 9, 0.0, 0), (12, 5, 0.8, 7),
@@ -146,7 +148,7 @@ def test_engine_compile_counts_equal_jax(lm, served):
     jeng = JaxEngine(
         JaxDecoder(js, {k: jnp.asarray(v) for k, v in params.items()},
                    max_len=MAX_LEN, cache_block=None),
-        prefix_cache_mb=0, prefill_chunk=0, attn_impl="paged", **ENGINE)
+        attn_impl="paged", **ENGINE)
     _submit_all(jeng, prompts, eos_id)
     jeng.serve_forever()
     assert eng.compile_counts == jeng.compile_counts

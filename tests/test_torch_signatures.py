@@ -176,11 +176,10 @@ def test_generate_repeats_for_the_same_rng_seed(decoder):
 
 
 ENGINE_UNPORTED = [
-    ("stage_depth", 3), ("prefix_cache_mb", 64), ("prefill_chunk", 8),
+    ("stage_depth", 3),
     ("overload", "shed"), ("round_timeout_ms", 100.0),
     ("slo_ttft_ms", 50.0), ("slo_cadence_ms", 5.0), ("slo_target", 0.9),
-    ("flight_recorder", 16), ("spec_k", 4), ("draft", "ngram"),
-    ("draft_decoder", object()), ("capture_dir", "cap"),
+    ("flight_recorder", 16), ("capture_dir", "cap"),
     ("capture_mb", 8), ("tp", 2), ("mesh", object()), ("ep", 2),
     ("engine_id", "e0"), ("migrated_from", "e1"), ("role", "prefill"),
     ("handoff_dtype", "int8")]
@@ -232,22 +231,98 @@ def test_save_checkpoint_optimizer_states_raise(tmp_path, lm):
     assert not list(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("param,value", [("draft_prefix", "d"),
-                                         ("draft_epoch", 1),
-                                         ("spec_k", 2)])
-def test_from_checkpoint_unported_parameters_raise(tmp_path, lm, param,
-                                                   value):
-    symbol, _, params = lm
-    prefix = str(tmp_path / "m")
-    tmodel.save_checkpoint(prefix, 0, symbol,
-                           {k: torch.from_numpy(v) for k, v in params.items()},
-                           {})
-    with pytest.raises(MXNetError, match="later slice"):
-        tengine.InferenceEngine.from_checkpoint(prefix, 0, T, device="cpu",
-                                                **{param: value})
+# the engine's view of the reuse and speculation parameters:
+# (prefix_cache_mb, prefill_chunk, spec_k, draft, the draft decoder)
+def _resolved(eng):
+    return (eng.prefix_cache_mb, eng.prefill_chunk, eng.spec_k,
+            eng.spec_draft, eng._draft_dec)
 
 
-def test_defaults_resolve_as_in_jax(lm, monkeypatch):
+SERVING_ENV = ("MXNET_SERVING_PREFIX_CACHE_MB", "MXNET_SERVING_PREFILL_CHUNK",
+               "MXNET_SERVING_SPEC_K", "MXNET_SERVING_DRAFT")
+
+
+@pytest.fixture
+def jax_engine_defaults(monkeypatch):
+    """What the JAX engine resolves the reuse and speculation parameters
+    to, under the current environment (a 1-layer LM of its own)."""
+    import jax.numpy as jnp
+    from mxnet_tpu.name import NameManager
+
+    with NameManager():
+        sym = jax_transformer.get_transformer_lm(VOCAB, num_layers=1,
+                                                 embed_dim=16, num_heads=2)
+    arg_shapes, _, _ = sym.infer_shape(data=(1, T), softmax_label=(1, T))
+    params = {n: jnp.zeros(s, jnp.float32)
+              for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+
+    def resolve():
+        return _resolved(jax_engine.InferenceEngine(
+            jax_decode.Decoder(sym, params, T, cache_block=None), 2))
+    return resolve
+
+
+# each reuse or speculation parameter the port now takes (they raised
+# "later slice" before): (name, where, value, what the engine reads,
+# index in _resolved)
+ACCEPTED = [
+    ("prefix_cache_mb", "engine", 0.0021, 0.0021, 0),
+    ("prefill_chunk", "engine", 8, 8, 1),
+    ("spec_k", "engine", 2, 2, 2),
+    ("draft", "engine", "ngram", "ngram", 3),
+    ("draft_decoder", "engine", "decoder", "decoder", 4),
+    ("draft_prefix", "from_checkpoint", "ckpt", "model", 3),
+    ("draft_epoch", "from_checkpoint", 0, None, 4),
+    ("spec_k", "from_checkpoint", 2, 2, 2)]
+
+
+@pytest.mark.parametrize("param,where,value,reads,idx", ACCEPTED,
+                         ids=["%s-%s" % (a[1], a[0]) for a in ACCEPTED])
+def test_reuse_and_speculation_parameters_are_accepted(
+        tmp_path, lm, decoder, jax_engine_defaults, monkeypatch, param,
+        where, value, reads, idx):
+    """Each is taken and reaches the engine; unset, it resolves to what the
+    JAX engine resolves it to. ``draft_decoder`` serves with
+    ``draft="model"`` (without it the JAX engine ignores it, and so does
+    the port's); ``draft_epoch`` without ``draft_prefix`` loads nothing, as
+    in the JAX package; ``draft_prefix`` loads a draft model and turns
+    ``draft`` to ``"model"``."""
+    for name in SERVING_ENV:
+        monkeypatch.delenv(name, raising=False)
+    if where == "engine":
+        kw = {param: decoder if value == "decoder" else value}
+        if param == "draft_decoder":
+            kw["draft"] = "model"
+        eng = tengine.InferenceEngine(decoder, 2, **kw)
+        base = tengine.InferenceEngine(decoder, 2)
+    else:
+        symbol, _, params = lm
+        prefix = str(tmp_path / "m")
+        tmodel.save_checkpoint(prefix, 0, symbol, {
+            k: torch.from_numpy(v) for k, v in params.items()}, {})
+        kw = {param: prefix if value == "ckpt" else value}
+        eng = tengine.InferenceEngine.from_checkpoint(prefix, 0, T, 2,
+                                                      device="cpu", **kw)
+        base = tengine.InferenceEngine.from_checkpoint(prefix, 0, T, 2,
+                                                       device="cpu")
+    got = _resolved(eng)[idx]
+    if reads == "decoder":
+        assert got is decoder
+    elif param == "draft_prefix":
+        assert got == reads and isinstance(eng._draft_dec, tdecode.Decoder)
+        assert eng._draft_dec is not eng._dec
+    else:
+        assert got == reads
+    assert _resolved(base) == jax_engine_defaults() \
+        == (64.0, 0, 4, "off", None)
+
+
+def test_defaults_resolve_as_in_jax(lm, decoder, jax_engine_defaults,
+                                    monkeypatch):
+    """The decoder's defaults, and the engine's four environment defaults
+    (the prefix pool's MiB, the prefill chunk, spec_k and the drafter),
+    read as the JAX package reads them."""
     symbol, _, params = lm
     monkeypatch.delenv("MXNET_SERVING_ATTN_IMPL", raising=False)
     monkeypatch.delenv("MXNET_SERVING_MATMUL_IMPL", raising=False)
@@ -258,3 +333,8 @@ def test_defaults_resolve_as_in_jax(lm, monkeypatch):
     for cb in ("auto", None):
         tdecode.Decoder(symbol, params, T, cache_block=cb,
                         weight_dtype="float", device="cpu")
+
+    for name, value in zip(SERVING_ENV, ("0.5", "8", "2", "ngram")):
+        monkeypatch.setenv(name, value)
+    got = _resolved(tengine.InferenceEngine(decoder, 2))
+    assert got == jax_engine_defaults() == (0.5, 8, 2, "ngram", None)
