@@ -124,6 +124,36 @@ Phases:
    draft_prefix=...)``, every draft accepted, and a 2-layer LM of the same
    width; the draft program's card time), the speculation waves with
    unfused products (``SPEC_MM``);
+4c. the engine's robustness and observability layer on phase 4's
+   configuration (each check on its own ``phase 4c`` line, the phase's
+   seconds last): (1) its cost: phase 4's wave on two engines in turns,
+   9 waves each, the JAX package's defaults (telemetry on, a 256-request
+   flight recorder) against ``telemetry.enable(False)`` and
+   ``flight_recorder=0`` (tokens/s, ms per token p50/p99, the round
+   ledger's ms a round by phase; streams equal phase 4's, the compile
+   contract and the launches a round phase 4's, counters zeroed just
+   before and read just after); (2) a hostile wave: 48 requests of
+   24-600 tokens against 32 slots with ``overload="shed_oldest"``,
+   ``max_queue=8``, the prefix pool and 256-token chunks: 8 cancelled and
+   4 with their deadline forced past 3 rounds after admission, 4 with
+   ``ttft_deadline_ms=0``, a burst of 16 at once; survivors equal a
+   feature-off engine's streams, partial streams are prefixes, ``stats``
+   and the ``serving.*`` counters count exactly the retirements, free
+   slots and prefix pins come back, exact launches; (3) the watchdog:
+   ``round_timeout_ms=50`` under an injected 5 s round hang raises
+   ``EngineStuck`` with ``health()["stuck"]``, then the same engine
+   finishes byte-identically; 3 waves armed and 3 not, in turns, with no
+   trip, and the event's host cost a round; (4) crash and restore on
+   phase 4b's prefix + chunk + n-gram engine: ``InjectedCrash`` 20 rounds
+   into a 24-request wave, ``snapshot()``, ``close()``, ``restore()`` on
+   a fresh engine over the same decoder; every stream equals the
+   uninterrupted wave's; the time to recover (to every resumed request's
+   next token) and ``memory_allocated`` before the engine, after
+   ``close()`` (within 64 MiB of before) and after ``restore()``; (5) two
+   injected staging failures retire exactly two requests with
+   ``"error"``, ``serve_forever()`` over a seeded arrival generator, and
+   ``close()`` with 4 requests queued (each fails with ``EngineClosed``;
+   a second ``close()`` does nothing);
 5. the training main path: the same 124M LM (``impl="flash"``) trained by
    ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
    0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
@@ -174,6 +204,7 @@ needs a CUDA card and the rest of the repository beside it.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -1955,7 +1986,7 @@ def serve_main_path(K, dev):
         profile_decode(engine, rs, trace=None, what="uncaptured")
     time_prefill(K, dec)
     time_engine_prefill(engine)
-    return launches, prefix, work
+    return launches, prefix, work, [h.tokens for h in first]
 
 
 def time_prefill(K, dec, reps=10, profiled=3, what="124M"):
@@ -2501,9 +2532,9 @@ def reuse_ngram_wave(K, dev, prefix, off, timer):
     host = []
     spec_round = engine._spec_round
 
-    def timed_round():
+    def timed_round(busy):
         t0 = time.perf_counter()
-        out = spec_round()
+        out = spec_round(busy)
         if out:
             host.append((time.perf_counter() - t0) * 1e3)
         return out
@@ -2653,6 +2684,517 @@ def reuse_main_path(K, dev, prefix):
     add(reuse_draft_waves(K, dev, prefix, off, timer))
     log("phase 4b launches: %s" % json.dumps(
         {e: n for e, n in total.items() if n}))
+    return total
+
+
+# -- phase 4c: robustness and observability ----------------------------------
+
+WATCHDOG_MS = 50.0
+# how far close() must bring memory_allocated back to its value before the
+# engine was built
+CLOSE_SLACK = 64 << 20
+_PHASES = ("sched", "prefix_lookup", "h2d", "prefill", "copy", "dispatch",
+           "drain")
+
+
+def _decoder_4c(prefix, dev, mm="fused"):
+    """The 124M checkpoint as phase 4's engine loads it (int8 weights,
+    paged attention, bf16), products ``mm``."""
+    from mxnet_tpu_torch.parallel import Decoder
+    return Decoder.from_checkpoint(prefix, 0, MAX_LEN, attn_impl="paged",
+                                   weight_dtype="int8", matmul_impl=mm,
+                                   compute_dtype="bfloat16", device=dev)
+
+
+def _engine_4c(dec, **kw):
+    """Phase 4's engine configuration over ``dec``, ``kw`` on top."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    args = dict(slots=SLOTS, prefill_buckets=BUCKETS,
+                steps_per_round=STEPS_PER_ROUND, prefix_cache_mb=0,
+                prefill_chunk=0, draft="off")
+    args.update(kw)
+    return InferenceEngine(dec, **args)
+
+
+def _warm(engine, seed=2):
+    """One request per bucket: every prefill and the decode program are
+    captured before a wave is timed or counted."""
+    rs = np.random.RandomState(seed)
+    for p in BUCKETS:
+        engine.submit(rs.randint(0, VOCAB, (p,)), max_tokens=4)
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+
+
+def _counters():
+    from mxnet_tpu_torch import telemetry
+    return {n: m.value for n, m in list(telemetry._state.metrics.items())
+            if n.startswith("serving.") and m.kind == "counter"}
+
+
+def _main_launches(d):
+    """Phase 4's launches for stats deltas ``d`` (fused decode step)."""
+    steps = d["steps"] * STEPS_PER_ROUND
+    return {"fused_decode_attention": LAYERS * steps,
+            "paged_attention_chunk": LAYERS * d["prefill_chunks"],
+            "quant_matmul": (2 * LAYERS + 1) * steps
+            + (4 * LAYERS + 1) * d["prefill_chunks"]}
+
+
+def _ledger(engine, since):
+    """(rounds, mean wall ms a round, {phase: mean ms a round}) over the
+    round ledger's dispatching rows after round ``since``."""
+    rows = [r for r in engine.round_table()
+            if r["round"] > since and r["dispatched"]]
+    n = max(1, len(rows))
+    return len(rows), sum(r["wall_ms"] for r in rows) / n, {
+        k: sum(r["phases_ms"].get(k, 0.0) for r in rows) / n
+        for k in _PHASES}
+
+
+def _same_streams(what, handles, streams):
+    for h, s in zip(handles, streams):
+        if h.tokens != s:
+            raise AssertionError("%s: request %s's stream differs from "
+                                 "phase 4's" % (what, h.id))
+
+
+def layer_cost(K, dec, work, streams):
+    """4c.1: phase 4's wave on two engines in turns, 9 waves each: (a) the
+    JAX package's defaults (telemetry on, a 256-request flight recorder),
+    (b) ``telemetry.enable(False)`` and ``flight_recorder=0``. Streams
+    equal phase 4's; the compile contract and the launches a round are
+    phase 4's. Returns engine (a) and the launches."""
+    from mxnet_tpu_torch import telemetry
+    on = _engine_4c(dec)
+    off = _engine_4c(dec, flight_recorder=0)
+    if on.flight.retain != 256 or not telemetry.enabled():
+        raise AssertionError("phase 4c: the defaults are not the JAX "
+                             "package's (flight %d, telemetry %s)" % (
+                                 on.flight.retain, telemetry.enabled()))
+    for eng in (on, off):
+        _warm(eng)
+    marks = {id(e): e.round_table(1)[-1]["round"] for e in (on, off)}
+    stats0 = {id(e): dict(e.stats) for e in (on, off)}
+    K.reset_launch_counts()
+    runs = {"on": [], "off": []}
+    try:
+        for i in range(WAVES):
+            turn = (("on", on), ("off", off))
+            for name, eng in (turn if i % 2 == 0 else turn[::-1]):
+                telemetry.enable(name == "on")
+                runs[name].append(_serve_wave(eng, work))
+    finally:
+        telemetry.enable(True)
+    launches = K.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    for e in (on, off):
+        d = {k: e.stats[k] - stats0[id(e)][k] for k in e.stats}
+        for k, n in _main_launches(d).items():
+            want[k] += n
+    if launches != want:
+        raise AssertionError("phase 4c: launch counts %r, phase 4's "
+                             "rounds want %r" % (launches, want))
+    for name in runs:
+        for handles, _ in runs[name]:
+            _same_streams("phase 4c (%s)" % name, handles, streams)
+    check_compile_counts(on, "phase 4c defaults on")
+    check_compile_counts(off, "phase 4c layer off")
+    for key, eng, name in (("on", on, "telemetry on, flight recorder 256"),
+                           ("off", off, "telemetry off, flight recorder 0")):
+        per = [_wave_metrics(h, t) for h, t in runs[key]]
+        cols = list(zip(*per))
+        n, wall, phases = _ledger(eng, marks[id(eng)])
+        log("phase 4c layer cost (%s): %d waves in turns, median (min-max) "
+            "%.1f tokens/s (%.1f-%.1f), ms per token p50 %.3f, p99 %.3f; "
+            "round ledger over %d rounds: wall %.4f ms a round, by phase "
+            "%s; %s" % (
+                name, len(per), statistics.median(cols[0]), min(cols[0]),
+                max(cols[0]), statistics.median(cols[1]),
+                statistics.median(cols[2]), n, wall,
+                json.dumps({k: round(v, 4) for k, v in phases.items()}),
+                card_line()))
+    ratio = statistics.median(_wave_metrics(h, t)[0] for h, t in runs["on"]) \
+        / statistics.median(_wave_metrics(h, t)[0] for h, t in runs["off"])
+    log("phase 4c layer cost: tokens/s with the layer on over off %.4f; "
+        "streams of (a) and (b) equal phase 4's; compile_counts and "
+        "launches a round equal phase 4's; launches %s" % (
+            ratio, json.dumps({e: n for e, n in launches.items() if n})))
+    del off
+    return on, launches
+
+
+def _hostile_work(rs):
+    """48 greedy requests of 24-600 tokens (every second one past the
+    system prompt's length shares a 192-token system prompt), budgets 64
+    for the first 16 and 32/64 after."""
+    system = rs.randint(0, VOCAB, (SYSTEM_PROMPT,))
+    work = []
+    for i in range(48):
+        n = int(rs.randint(24, 601))
+        if i % 2 and n > SYSTEM_PROMPT + 8:
+            prompt = np.concatenate([system, rs.randint(
+                0, VOCAB, (n - SYSTEM_PROMPT,))])
+        else:
+            prompt = rs.randint(0, VOCAB, (n,))
+        work.append((prompt, 64 if i < 16 else int(rs.choice([32, 64]))))
+    return work
+
+
+def hostile_wave(K, dec):
+    """4c.2: 48 requests against 32 slots with ``overload="shed_oldest"``
+    and ``max_queue=8`` (prefix pool and 256-token chunks on): 32 come as
+    the queue has room, at most 4 a round, then a burst of 16 at once;
+    8 are cancelled and 4 have their deadline forced past 3 rounds after
+    admission, 4 carry ``ttft_deadline_ms=0``. Survivors equal a
+    feature-off engine's streams, the retired ones' partial streams are
+    prefixes of them, ``stats`` and the ``serving.*`` counters count
+    exactly the cancelled, deadline and shed requests, and free slots and
+    prefix pins return. Returns the launches."""
+    rs = np.random.RandomState(46)
+    work = _hostile_work(rs)
+    cancel, ttft0, late = range(0, 16, 2), (1, 5, 9, 13), (3, 7, 11, 15)
+    ref_eng = _engine_4c(dec, prefix_cache_mb=POOL_MB, prefill_chunk=CHUNK)
+    ref, _ = _serve_wave(ref_eng, work)
+    del ref_eng
+    free_programs()
+    eng = _engine_4c(dec, prefix_cache_mb=POOL_MB, prefill_chunk=CHUNK,
+                     overload="shed_oldest", max_queue=8)
+    _serve_wave(eng, _hostile_work(np.random.RandomState(47))[:8])
+    free0, pins0 = len(eng._free), eng._prefix.pinned
+    s0, c0 = dict(eng.stats), _counters()
+    K.reset_launch_counts()
+    hs, admitted_at, rnd, nxt = [None] * 48, {}, 0, 0
+    t0 = time.perf_counter()
+    while nxt < 48 or not eng.idle:
+        sent = 0
+        while nxt < 32 and sent < 4 and eng.queued() < eng.max_queue:
+            kw = {"ttft_deadline_ms": 0.0} if nxt in ttft0 else \
+                {"deadline_ms": 1e9} if nxt in late else {}
+            hs[nxt] = eng.submit(work[nxt][0], max_tokens=work[nxt][1],
+                                 **kw)
+            nxt, sent = nxt + 1, sent + 1
+        if nxt == 32 and not sent:
+            for i in range(32, 48):               # the burst
+                hs[i] = eng.submit(work[i][0], max_tokens=work[i][1])
+            nxt = 48
+        for i in list(cancel) + list(late):
+            h = hs[i]
+            if h is not None and h.t_admit is not None \
+                    and i not in admitted_at:
+                admitted_at[i] = rnd
+            if admitted_at.get(i) == rnd - 3 and not h.done:
+                if i in late:
+                    h._deadline = 0.0
+                elif not eng.cancel(h.id):
+                    raise AssertionError("hostile wave: cancel(%r) found "
+                                         "no live request" % h.id)
+        eng.step()
+        rnd += 1
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d = {k: eng.stats[k] - s0[k] for k in eng.stats}
+    c1 = _counters()
+    dc = {k: c1[k] - c0.get(k, 0) for k in c1}
+    launches = _check_launches(K, "hostile wave", _main_launches(d))
+    reasons = collections.Counter(h.retire_reason for h in hs)
+    for i, h in enumerate(hs):
+        want = ("cancelled",) if i in cancel else ("deadline",) \
+            if i in ttft0 or i in late else ("length", "shed")
+        if h.retire_reason not in want or not h.done:
+            raise AssertionError("hostile wave: request %d retired %r, "
+                                 "want %r" % (i, h.retire_reason, want))
+        if h.tokens != ref[i].tokens[:len(h.tokens)]:
+            raise AssertionError("hostile wave: request %d's stream is not "
+                                 "a prefix of the feature-off stream" % i)
+        if h.retire_reason == "length" and h.tokens != ref[i].tokens:
+            raise AssertionError("hostile wave: survivor %d's stream "
+                                 "differs from the feature-off one" % i)
+        if i in ttft0 and h.t_admit is not None:
+            raise AssertionError("hostile wave: request %d expired in a "
+                                 "slot, not in the queue" % i)
+    want_counts = {"cancelled": 8, "deadline_missed": 8,
+                   "shed": reasons["shed"], "errors": 0}
+    got = ({k: d[k] for k in want_counts},
+           {k: dc["serving." + n] for k, n in (
+               ("cancelled", "cancelled"), ("deadline_missed",
+                                            "deadline_missed"),
+               ("shed", "shed"), ("errors", "request_errors"))})
+    if reasons["cancelled"] != 8 or reasons["deadline"] != 8 \
+            or reasons["shed"] < 8 or any(g != want_counts for g in got):
+        raise AssertionError("hostile wave: retire reasons %r, stats and "
+                             "counters %r" % (dict(reasons), got))
+    if (len(eng._free), eng._prefix.pinned) != (free0, pins0):
+        raise AssertionError("hostile wave: %d free slots and %d pins after "
+                             "the wave, %d and %d before" % (
+                                 len(eng._free), eng._prefix.pinned, free0,
+                                 pins0))
+    survivors = [h for h in hs if h.retire_reason == "length"]
+    tps, _, p99 = _wave_metrics(survivors, secs)
+    log("phase 4c hostile wave: 48 requests in %.3f s over %d rounds; "
+        "retired %s; stats and serving.* counters count exactly the "
+        "cancelled, deadline and shed ones; %d survivors equal the "
+        "feature-off streams at %.1f tokens/s, ms per token p99 %.3f; "
+        "partial streams are prefixes; free slots %d and pins %d as "
+        "before; %d prefix hits; %s" % (
+            secs, rnd, json.dumps(dict(reasons)), len(survivors), tps, p99,
+            len(eng._free), eng._prefix.pinned, d["prefix_hits"],
+            card_line()))
+    return launches
+
+
+def watchdog(engine, work, streams):
+    """4c.3: ``round_timeout_ms=50`` under a 5 s injected round hang: the
+    drain raises EngineStuck, ``health()`` says stuck, and once the hang
+    is gone the same engine drains and finishes byte-identically. Then
+    waves with the watchdog armed and not, in turns: no trip, and what
+    recording and polling the round's event costs."""
+    from mxnet_tpu_torch.serving import EngineStuck
+    from mxnet_tpu_torch.testing.faults import FaultInjector
+    engine.round_timeout_ms = WATCHDOG_MS
+    fi = FaultInjector()
+    hs = [engine.submit(p, max_tokens=b) for p, b in work[:8]]
+    t0 = time.perf_counter()
+    with fi.serving_round_hang(seconds=5):
+        try:
+            engine.serve_forever()
+            raise AssertionError("watchdog: no EngineStuck under the hang")
+        except EngineStuck:
+            trip = time.perf_counter() - t0
+        stuck = engine.health()["stuck"]
+    if not stuck or engine.stats["watchdog_trips"] != 1:
+        raise AssertionError("watchdog: health %r, %d trips" % (
+            engine.health(), engine.stats["watchdog_trips"]))
+    engine.serve_forever()
+    if engine.health()["stuck"]:
+        raise AssertionError("watchdog: still stuck after the drain")
+    _same_streams("watchdog", hs, streams)
+    spent = []
+    dispatched = engine._dispatched
+
+    def timed():
+        t = time.perf_counter()
+        ev = dispatched()
+        spent.append(time.perf_counter() - t)
+        return ev
+    engine._dispatched = timed
+    tps = {WATCHDOG_MS: [], 0.0: []}
+    polls = {WATCHDOG_MS: 0, 0.0: 0}
+    guard = engine._guard_ready
+
+    def counted(ev):
+        polls[engine.round_timeout_ms] += 1
+        return guard(ev)
+    engine._guard_ready = counted
+    try:
+        for i in range(6):
+            engine.round_timeout_ms = (WATCHDOG_MS, 0.0)[i % 2]
+            hs, secs = _serve_wave(engine, work)
+            _same_streams("watchdog wave", hs, streams)
+            tps[engine.round_timeout_ms].append(
+                _wave_metrics(hs, secs)[0])
+    finally:
+        del engine._dispatched, engine._guard_ready
+        engine.round_timeout_ms = 0.0
+    if engine.stats["watchdog_trips"] != 1:
+        raise AssertionError("watchdog: tripped without a fault")
+    # the poll of a round that is done: one query of its event
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ev.query()
+    query_us = (time.perf_counter() - t0) * 1e3
+    log("phase 4c watchdog: EngineStuck %.1f ms after serve_forever "
+        "began under a 5 s hang (round_timeout_ms=%g), health stuck, then "
+        "the same engine finished 8 requests equal to phase 4's; 3 waves "
+        "armed and 3 not, in turns, no trip: %.1f and %.1f tokens/s "
+        "(median); the poll's host cost a round: recording the round's "
+        "event %.2f us (median of %d) and one query of a finished round's "
+        "event %.2f us; %d drain polls; %s" % (
+            trip * 1e3, WATCHDOG_MS, statistics.median(tps[WATCHDOG_MS]),
+            statistics.median(tps[0.0]),
+            statistics.median(spent) * 1e6, len(spent), query_us,
+            polls[WATCHDOG_MS], card_line()))
+
+
+def poison_and_close(engine, work, streams):
+    """4c.5: two injected staging failures retire exactly two requests
+    with ``"error"`` and leave the rest equal; ``serve_forever()`` over a
+    seeded arrival generator; ``close()`` with 4 requests queued fails
+    each with EngineClosed, and a second ``close()`` is a no-op."""
+    from mxnet_tpu_torch.serving import EngineClosed
+    from mxnet_tpu_torch.testing.faults import FaultInjector
+    fi = FaultInjector()
+    with fi.serving_h2d_failures(2):
+        hs, _ = _serve_wave(engine, work)
+    bad = [h for h in hs if h.retire_reason == "error"]
+    if len(bad) != 2 or [k for k, _ in fi.log] != ["h2d_fail"] * 2:
+        raise AssertionError("poison: %d errors, log %r" % (len(bad),
+                                                           fi.log))
+    for h, s in zip(hs, streams):
+        if h.retire_reason != "error" and h.tokens != s:
+            raise AssertionError("poison: request %s's stream differs"
+                                 % h.id)
+    rs = np.random.RandomState(48)
+
+    def arrivals():
+        for i, (p, b) in enumerate(work):
+            for _ in range(int(rs.randint(0, 3))):
+                yield None
+            yield dict(prompt=p, max_tokens=b, request_id=("arrival", i))
+    t0 = time.perf_counter()
+    done = engine.serve_forever(arrivals())
+    secs = time.perf_counter() - t0
+    by_id = {h.id: h for h in done}
+    if len(by_id) != len(work):
+        raise AssertionError("serve_forever: %d of %d requests returned"
+                             % (len(by_id), len(work)))
+    _same_streams("serve_forever", [by_id[("arrival", i)]
+                                    for i in range(len(work))], streams)
+    queued = [engine.submit(p, max_tokens=b) for p, b in work[:4]]
+    engine.close()
+    for h in queued:
+        try:
+            h.result()
+            raise AssertionError("close: request %s did not fail" % h.id)
+        except EngineClosed:
+            pass
+        if h.retire_reason != "closed":
+            raise AssertionError("close: request %s retired %r" % (
+                h.id, h.retire_reason))
+    engine.close()
+    log("phase 4c poison and close: 2 injected staging failures retired "
+        "requests %s with 'error', the other 22 equal phase 4's; "
+        "serve_forever over a seeded arrival process (None gaps) returned "
+        "all 24 in %.3f s, equal; close() with 4 queued failed each with "
+        "EngineClosed, a second close() did nothing; %s" % (
+            [h.id for h in bad], secs, card_line()))
+
+
+def _crash_work(rs):
+    """24 requests: 8 past a shared 192-token system prompt (prefix hits),
+    4 of 600-900 tokens (chunked), 12 repeating a 16-token phrase
+    (n-gram drafts), budgets 32/64."""
+    system = rs.randint(0, VOCAB, (SYSTEM_PROMPT,))
+    work = []
+    for i in range(N_REQUESTS):
+        if i % 3 == 0:
+            p = np.concatenate([system, rs.randint(0, VOCAB,
+                                                   (int(rs.randint(8, 57)),))])
+        elif i % 6 == 1:
+            p = rs.randint(0, VOCAB, (int(rs.randint(600, 901)),))
+        else:
+            p = np.tile(rs.randint(0, VOCAB, (16,)), int(rs.randint(3, 12)))
+        work.append((p, int(rs.choice([32, 64]))))
+    return work
+
+
+def crash_and_restore(dev, prefix):
+    """4c.4: phase 4b's prefix + chunk + n-gram engine, crashed 20 rounds
+    into a 24-request wave (``serving_crash_mid_round``); ``snapshot()``,
+    ``close()``, ``restore()`` onto a fresh engine over the same decoder.
+    Every stream equals the uninterrupted wave's; the time to recover and
+    memory_allocated before the engine, after close() and after
+    restore()."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    from mxnet_tpu_torch.testing.faults import FaultInjector, InjectedCrash
+    dec = _decoder_4c(prefix, dev, SPEC_MM)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    kw = dict(prefix_cache_mb=POOL_MB, prefill_chunk=CHUNK, draft="ngram",
+              spec_k=SPEC_K)
+    engine = _engine_4c(dec, **kw)
+    work = _crash_work(np.random.RandomState(49))
+    ref, _ = _serve_wave(engine, work)
+    built = torch.cuda.memory_allocated()
+    fi = FaultInjector()
+    hs, pending = [], list(work)
+
+    def round_():
+        for _ in range(8 if not hs else 4):
+            if pending:
+                p, b = pending.pop(0)
+                hs.append(engine.submit(p, max_tokens=b))
+        engine.step()
+    for _ in range(20):
+        round_()
+    rounds = 20
+    with fi.serving_crash_mid_round(1):
+        try:
+            while pending or not engine.idle:
+                rounds += 1
+                round_()
+            raise AssertionError("crash: the wave ended before the crash")
+        except InjectedCrash:
+            pass
+    snap = json.loads(json.dumps(engine.snapshot()))
+    pending_ids = [r["id"] for r in snap["requests"]]
+    engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.synchronize()
+    closed = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine2, handles = InferenceEngine.restore(snap, dec)
+    want = {rid: len(h.tokens) for rid, h in handles.items()}
+    while any(len(handles[rid].tokens) == want[rid] and not
+              handles[rid].done for rid in want):
+        engine2.step()
+    torch.cuda.synchronize()
+    recover = time.perf_counter() - t0
+    restored = torch.cuda.memory_allocated()
+    for p, b in pending:              # what the crash left unsubmitted
+        hs.append(engine2.submit(p, max_tokens=b))
+    engine2.serve_forever()
+    final = [handles.get(h.id, h) for h in hs]
+    for h, r in zip(final, ref):
+        if h.tokens != r.tokens or not h.done:
+            raise AssertionError("crash: request %s's stream differs from "
+                                 "the uninterrupted wave's" % h.id)
+    if engine2._prefix.pinned or len(engine2._free) != SLOTS:
+        raise AssertionError("crash: pins or slots leaked after restore")
+    if closed - before > CLOSE_SLACK:
+        raise AssertionError("crash: memory_allocated %.1f MiB after "
+                             "close(), %.1f MiB before the engine" % (
+                                 closed / 2**20, before / 2**20))
+    log("phase 4c crash and restore: InjectedCrash in round %d of a "
+        "24-request wave (prefix pool %d MiB, prefill_chunk %d, n-gram "
+        "spec_k %d), %d requests in the snapshot; restore() to every "
+        "resumed request's next token %.3f s (programs captured anew "
+        "included); every stream equals the uninterrupted wave's; "
+        "memory_allocated %.1f MiB before the engine (the decoder), %.1f "
+        "MiB with it, %.1f MiB after close(), %.1f MiB after restore(); "
+        "%s" % (
+            rounds, POOL_MB, CHUNK, SPEC_K, len(pending_ids), recover,
+            before / 2**20, built / 2**20, closed / 2**20,
+            restored / 2**20, card_line()))
+    engine2.close()
+
+
+def robust_main_path(K, dev, prefix, work, streams):
+    """Phase 4c: the robustness and observability layer on phase 4's 124M
+    int8 configuration. Returns the launches it counted."""
+    t0 = time.perf_counter()
+    dec = _decoder_4c(prefix, dev)
+    engine, launches = layer_cost(K, dec, work, streams)
+    total = dict(launches)
+    watchdog(engine, work, streams)
+    poison_and_close(engine, work, streams)
+    del engine
+    free_programs()
+    for e, n in hostile_wave(K, dec).items():
+        total[e] = total.get(e, 0) + n
+    del dec
+    free_programs()
+    crash_and_restore(dev, prefix)
+    free_programs()
+    log("phase 4c: every check passed in %.1f s; launches %s" % (
+        time.perf_counter() - t0,
+        json.dumps({e: n for e, n in total.items() if n})))
     return total
 
 
@@ -3664,7 +4206,7 @@ def main():
     timed.update(time_train_kernels(K, dev, gen, worst))
     timed.update(time_cnn_kernels(K, dev, dgen, worst))
     timed.update(time_striped_pair(K, dev, gen, worst))
-    launches, prefix, work = serve_main_path(K, dev)
+    launches, prefix, work, streams = serve_main_path(K, dev)
     free_programs()
     launches["paged_attention_decode"] = serve_default_path(
         K, dev, prefix, work)["paged_attention_decode"]
@@ -3672,6 +4214,9 @@ def main():
     serve_int8_kv_path(K, dev, prefix, work)
     free_programs()
     for e, n in reuse_main_path(K, dev, prefix).items():
+        launches[e] += n
+    free_programs()
+    for e, n in robust_main_path(K, dev, prefix, work, streams).items():
         launches[e] += n
     free_programs()
     check_small_against_host(dev)

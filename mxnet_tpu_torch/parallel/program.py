@@ -37,7 +37,7 @@ import torch
 from ..base import MXNetError
 from ..ops import kernels
 
-__all__ = ["Program"]
+__all__ = ["Program", "copy_in"]
 
 # uncaptured runs on the capture stream before the capture
 WARMUP = 2
@@ -61,6 +61,20 @@ def _host_tensor(v):
     if isinstance(v, torch.Tensor):
         return v.detach()
     return torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+
+
+def copy_in(dst, v):
+    """Copy ``v`` (a tensor or an array of ``dst``'s shape; another dtype
+    is converted) into ``dst`` without blocking the host: a host value
+    through pinned memory (the caching host allocator keeps a pinned block
+    until the copy that reads it has run, so the block is never rewritten
+    under a pending copy)."""
+    src = _host_tensor(v)
+    if dst.device.type == "cuda" and src.device.type == "cpu":
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pinned.copy_(src)
+        src = pinned
+    dst.copy_(src, non_blocking=True)
 
 
 class Program:
@@ -121,20 +135,13 @@ class Program:
             if dst is None:
                 raise MXNetError("%s: no operand %r (it has %s)"
                                  % (self.name, name, sorted(self.operands)))
-            src = _host_tensor(v)
-            if tuple(src.shape) != tuple(dst.shape):
+            shape = tuple(np.shape(v))
+            if shape != tuple(dst.shape):
                 raise MXNetError("%s: operand %r has shape %s, the program "
                                  "was built for %s" % (
-                                     self.name, name, tuple(src.shape),
+                                     self.name, name, shape,
                                      tuple(dst.shape)))
-            if dst.device.type == "cuda" and src.device.type == "cpu":
-                # the caching host allocator keeps a pinned block until
-                # the copy that reads it has run
-                pinned = torch.empty(src.shape, dtype=src.dtype,
-                                     pin_memory=True)
-                pinned.copy_(src)
-                src = pinned
-            dst.copy_(src, non_blocking=True)
+            copy_in(dst, v)
 
     def run(self):
         """Run over the operands as they stand (replay on the card)."""

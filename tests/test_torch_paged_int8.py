@@ -489,9 +489,7 @@ def decoder():
     return tdecode.Decoder(symbol, params, T, device="cpu")
 
 
-@pytest.mark.parametrize("param,value", [
-    ("deadline_ms", 50.0), ("ttft_deadline_ms", 20.0),
-    ("_resume_tokens", [3, 4]), ("_trace", ("t", 1))])
+@pytest.mark.parametrize("param,value", [("_trace", ("t", 1))])
 def test_submit_unported_parameters_raise(decoder, param, value):
     eng = tengine.InferenceEngine(decoder, 2, (8, 16))
     with pytest.raises(MXNetError, match="later slice"):
@@ -503,6 +501,23 @@ def test_submit_unported_parameters_raise(decoder, param, value):
     while not eng.idle:
         eng.step()
     assert req.done and len(req.tokens) == 2
+
+
+@pytest.mark.parametrize("param,value", [
+    ("deadline_ms", 1e6), ("ttft_deadline_ms", 1e6),
+    ("_resume_tokens", [3, 4])])
+def test_submit_robustness_parameters_are_accepted(decoder, param, value):
+    """The request deadlines and a restored request's tokens (they raised
+    "later slice" before the robustness layer was ported) bind as in the
+    JAX package, and the request is served."""
+    eng = tengine.InferenceEngine(decoder, 2, (8, 16))
+    req = eng.submit([1, 2, 3], 4, **{param: value})
+    eng.serve_forever()
+    assert req.done and req.retire_reason == "length"
+    assert len(req.tokens) == 4
+    # a restored request's tokens are regenerated, not emitted again
+    assert eng.stats["tokens"] == 4 - (len(value) if param ==
+                                       "_resume_tokens" else 0)
 
 
 def test_init_cache_kv_sharding_raises(decoder):

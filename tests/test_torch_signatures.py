@@ -20,7 +20,11 @@ from mxnet_tpu.parallel import graph as jax_graph
 from mxnet_tpu.parallel import ring as jax_ring
 from mxnet_tpu.parallel import sp as jax_sp
 from mxnet_tpu.parallel import trainer as jax_trainer
+from mxnet_tpu import io as jax_io
+from mxnet_tpu import telemetry as jax_tele
 from mxnet_tpu.serving import engine as jax_engine
+from mxnet_tpu.serving import flight as jax_flight
+from mxnet_tpu.testing import faults as jax_faults
 
 import mxnet_tpu_torch.model as tmodel
 import mxnet_tpu_torch.optimizer as topt
@@ -34,7 +38,11 @@ from mxnet_tpu_torch.parallel import graph as tgraph
 from mxnet_tpu_torch.parallel import ring as tring
 from mxnet_tpu_torch.parallel import sp as tsp
 from mxnet_tpu_torch.parallel import trainer as ttrainer
+from mxnet_tpu_torch import io as tio
+from mxnet_tpu_torch import telemetry as ttele
 from mxnet_tpu_torch.serving import engine as tengine
+from mxnet_tpu_torch.serving import flight as tflight
+from mxnet_tpu_torch.testing import faults as tfaults
 
 VOCAB, T = 23, 16
 
@@ -75,7 +83,39 @@ CALLABLES = [
      for name in ("flash_attention", "striped_pair_attention",
                   "fused_linear", "fused_conv_bn_act", "matmul_stats",
                   "paged_attention", "quant_matmul",
-                  "fused_decode_attention")]
+                  "fused_decode_attention")
+] + [("Request", jax_engine.Request.__init__, tengine.Request.__init__)
+] + [("InferenceEngine." + name, getattr(jax_engine.InferenceEngine, name),
+      getattr(tengine.InferenceEngine, name))
+     for name in ("cancel", "serve_forever", "close", "snapshot", "restore",
+                  "health", "round_table", "request_table")
+] + [("FlightRecorder." + name, getattr(jax_flight.FlightRecorder, name),
+      getattr(tflight.FlightRecorder, name))
+     for name in ("__init__", "start", "event", "token", "retire",
+                  "timeline", "records", "rows", "ids")
+] + [("FaultInjector." + name, getattr(jax_faults.FaultInjector, name),
+      getattr(tfaults.FaultInjector, name))
+     for name in ("__init__", "serving_h2d_failures", "serving_round_hang",
+                  "serving_crash_mid_round", "serving_h2d",
+                  "serving_round_stuck", "serving_crash")
+] + [("StagedStream." + name, getattr(jax_io.StagedStream, name),
+      getattr(tio.StagedStream, name))
+     for name in ("__init__", "next", "staged", "prune", "reset", "close")
+] + [("telemetry." + name, getattr(jax_tele, name), getattr(ttele, name))
+     for name in ("counter", "gauge", "histogram", "enable", "enabled",
+                  "reset", "snapshot", "to_prometheus", "tracing",
+                  "start_trace", "stop_trace", "trace_complete", "mark",
+                  "tracing_paused", "span", "serve", "stop_server",
+                  "start_reporter", "stop_reporter")
+] + [("telemetry.%s.%s" % (cls, name),
+      getattr(getattr(jax_tele, cls), name),
+      getattr(getattr(ttele, cls), name))
+     for cls, names in (("Counter", ("__init__", "inc")),
+                        ("Gauge", ("__init__", "set")),
+                        ("Histogram", ("__init__", "observe", "percentile",
+                                       "count_le")),
+                        ("SloWindow", ("__init__", "tick")))
+     for name in names]
 
 
 @pytest.mark.parametrize("name,jax_fn,port_fn", CALLABLES,
@@ -176,13 +216,9 @@ def test_generate_repeats_for_the_same_rng_seed(decoder):
 
 
 ENGINE_UNPORTED = [
-    ("stage_depth", 3),
-    ("overload", "shed"), ("round_timeout_ms", 100.0),
-    ("slo_ttft_ms", 50.0), ("slo_cadence_ms", 5.0), ("slo_target", 0.9),
-    ("flight_recorder", 16), ("capture_dir", "cap"),
+    ("capture_dir", "cap"),
     ("capture_mb", 8), ("tp", 2), ("mesh", object()), ("ep", 2),
-    ("engine_id", "e0"), ("migrated_from", "e1"), ("role", "prefill"),
-    ("handoff_dtype", "int8")]
+    ("role", "prefill"), ("handoff_dtype", "int8")]
 
 
 @pytest.mark.parametrize("param,value", ENGINE_UNPORTED,
@@ -190,6 +226,53 @@ ENGINE_UNPORTED = [
 def test_engine_unported_parameters_raise(decoder, param, value):
     with pytest.raises(MXNetError, match="later slice"):
         tengine.InferenceEngine(decoder, **{param: value})
+
+
+# the robustness and observability parameters (they raised "later slice"
+# before this slice of the port): (name, value, what the engine reads)
+ENGINE_ROBUSTNESS = [
+    ("stage_depth", 3, lambda e: e.stage_depth),
+    ("overload", "shed", lambda e: e.overload),
+    ("round_timeout_ms", 100.0, lambda e: e.round_timeout_ms),
+    ("slo_ttft_ms", 50.0, lambda e: e.slo_ttft_ms),
+    ("slo_cadence_ms", 5.0, lambda e: e.slo_cadence_ms),
+    ("slo_target", 0.9, lambda e: e.slo_target),
+    ("flight_recorder", 16, lambda e: e.flight.retain),
+    ("engine_id", "e0", lambda e: e.engine_id),
+    ("migrated_from", "e1", lambda e: e.migrated_from)]
+
+ROBUSTNESS_ENV = ("MXNET_SERVING_OVERLOAD", "MXNET_SERVING_ROUND_TIMEOUT_MS",
+                  "MXNET_SERVING_SLO_TTFT_MS", "MXNET_SERVING_SLO_CADENCE_MS",
+                  "MXNET_SERVING_FLIGHT_RECORDER")
+
+
+@pytest.mark.parametrize("param,value,reads", ENGINE_ROBUSTNESS,
+                         ids=[p for p, _, _ in ENGINE_ROBUSTNESS])
+def test_engine_robustness_parameters_are_accepted(
+        decoder, jax_engine_build, monkeypatch, param, value, reads):
+    """Each is taken and reaches the engine; unset, it resolves as the JAX
+    engine resolves it (an auto ``engine_id`` is ``"e<pid>.<n>"``)."""
+    for name in ROBUSTNESS_ENV:
+        monkeypatch.delenv(name, raising=False)
+    assert reads(tengine.InferenceEngine(decoder, 2, **{param: value})) \
+        == value
+    got, want = (reads(tengine.InferenceEngine(decoder, 2)),
+                 reads(jax_engine_build()))
+    if param == "engine_id":
+        got, want = got.split(".")[0], want.split(".")[0]
+    assert got == want
+
+
+def test_submit_takes_deadlines_and_resume_tokens(decoder):
+    eng = tengine.InferenceEngine(decoder, 2, prefix_cache_mb=0)
+    r = eng.submit([1, 2, 3], 4, deadline_ms=1e6, ttft_deadline_ms=1e6,
+                   _resume_tokens=[5, 6])
+    assert (r.tokens, r.resumed, r.seq.tolist()) == ([5, 6], 2,
+                                                     [1, 2, 3, 5, 6])
+    assert r.deadline_ms == 1e6 and r._deadline is not None
+    with pytest.raises(MXNetError, match="later slice"):
+        eng.submit([1, 2, 3], 4, _trace=("t", 0))
+    eng.close()
 
 
 def _lm_unported(kw):
@@ -243,9 +326,9 @@ SERVING_ENV = ("MXNET_SERVING_PREFIX_CACHE_MB", "MXNET_SERVING_PREFILL_CHUNK",
 
 
 @pytest.fixture
-def jax_engine_defaults(monkeypatch):
-    """What the JAX engine resolves the reuse and speculation parameters
-    to, under the current environment (a 1-layer LM of its own)."""
+def jax_engine_build():
+    """A JAX engine (2 slots) over a 1-layer LM of its own, built under
+    the current environment."""
     import jax.numpy as jnp
     from mxnet_tpu.name import NameManager
 
@@ -256,11 +339,15 @@ def jax_engine_defaults(monkeypatch):
     params = {n: jnp.zeros(s, jnp.float32)
               for n, s in zip(sym.list_arguments(), arg_shapes)
               if n not in ("data", "softmax_label")}
+    return lambda: jax_engine.InferenceEngine(
+        jax_decode.Decoder(sym, params, T, cache_block=None), 2)
 
-    def resolve():
-        return _resolved(jax_engine.InferenceEngine(
-            jax_decode.Decoder(sym, params, T, cache_block=None), 2))
-    return resolve
+
+@pytest.fixture
+def jax_engine_defaults(jax_engine_build):
+    """What the JAX engine resolves the reuse and speculation parameters
+    to, under the current environment."""
+    return lambda: _resolved(jax_engine_build())
 
 
 # each reuse or speculation parameter the port now takes (they raised
