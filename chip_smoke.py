@@ -154,6 +154,35 @@ Phases:
    ``"error"``, ``serve_forever()`` over a seeded arrival generator, and
    ``close()`` with 4 requests queued (each fails with ``EngineClosed``;
    a second ``close()`` does nothing);
+4d. the serving fleet on phase 4's configuration, every replica an engine
+   on the one card over one decoder (each check on its own ``phase 4d``
+   line, the phase's seconds last): (1) phase 4's wave with
+   ``capture_dir`` under ``chiprun_out/`` against capture off, 3 waves
+   each in turns (tokens/s), the capture's bytes a request, and
+   ``serving.replay.replay(verify=True)`` clean on a fresh engine and at
+   ``prefill_chunk=128, steps_per_round=4``; (2) 1P1D and 2P2D
+   ``FleetRouter``s over the wave (every program captured first by
+   handing one package of each bucket from every prefill engine to every
+   decode engine): streams equal phase 4's, 24 handoffs out and in,
+   prefill engines build prefill + handoff and no decode, decode engines
+   decode + handoff and no prefill, exact launches from the engines'
+   ``stats``; the row movers' wall and card ms (CUDA events) at buckets
+   64/128/256, wire bytes native against int8 and ``pack_rows``' host ms;
+   the wave through an int8 handoff (how many streams agree in full, the
+   first token always); the short requests' ms a token p50/p99 under a
+   long-prompt mix (20 short beside 4 of 200-256 tokens), 1P1D against
+   one unified engine, both on the one card; (3) two unified replicas: a
+   replica killed (``fleet_kill_replica``) and, on a fresh pair, one
+   drained and a successor added, each in round 6 of the wave (when the
+   most requests are in flight on two replicas): streams equal phase
+   4's, zero failed, the time to every migrated request's next token;
+   (1)'s capture through a 2-replica rolling restart, verify clean; and
+   ``memory_allocated`` after the fleets' ``close()`` within 64 MiB of
+   before; (4) ``telemetry.serve(port=0)`` during 1P1D waves: a scraper
+   thread reads ``/metrics``, ``/healthz``, ``/fleet`` and
+   ``/fleet/flight/<id>`` every 50 ms (``/metrics`` parses as Prometheus
+   text, a journey's hops are the prefill then the decode engine), ms a
+   scrape, tokens/s with the scraper against without, in turns;
 5. the training main path: the same 124M LM (``impl="flash"``) trained by
    ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
    0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
@@ -3198,6 +3227,567 @@ def robust_main_path(K, dev, prefix, work, streams):
     return total
 
 
+# -- phase 4d: the serving fleet ---------------------------------------------
+
+# a prompt of the long-prompt mix: 200-256 tokens (a 256-bucket prefill)
+LONG_PROMPT = (200, 257)
+# fleet rounds into phase 4's wave before a replica is killed or drained:
+# on two replicas every request of the wave is in by round 5 and the
+# last finish by ~round 14, so round 6 finds the most work in flight
+FAIL_ROUND = 6
+SCRAPE_S = 0.05
+SCRAPES = ("/metrics", "/healthz", "/fleet")
+
+
+def _fleet(engines, **kw):
+    from mxnet_tpu_torch.serving import FleetRouter
+    args = dict(heartbeat_ms=1e6)
+    args.update(kw)
+    return FleetRouter(engines, **args)
+
+
+def _stats_delta(engines, before):
+    return [{k: e.stats[k] - before[i][k] for k in e.stats}
+            for i, e in enumerate(engines)]
+
+
+def _fleet_launches(deltas):
+    """Phase 4's launches for the engines' ``stats`` deltas, summed."""
+    want = {}
+    for d in deltas:
+        for k, n in _main_launches(d).items():
+            want[k] = want.get(k, 0) + n
+    return want
+
+
+def _warm_pairs(prefills, decodes):
+    """Every prefill engine exports a package of every bucket to every
+    decode engine, delivered by hand (``take_handoffs`` ->
+    ``admit_handoff`` -> ``resolve``): each prefill, decode and row mover
+    program is captured before a wave is counted or timed."""
+    rs = np.random.RandomState(3)
+    for p in prefills:
+        for d in decodes:
+            for b in BUCKETS:
+                p.submit(rs.randint(0, VOCAB, (b,)), max_tokens=4)
+                pkgs = []
+                while not pkgs:
+                    p.step()
+                    pkgs = p.take_handoffs()
+                d.admit_handoff(pkgs[0].payload())
+                pkgs[0].resolve()
+                d.serve_forever()
+    torch.cuda.synchronize()
+
+
+def _check_roles(prefills, decodes, what):
+    """The per-role compile contract: a prefill engine built each bucket's
+    prefill and row mover once and no decode or verify program; a decode
+    engine its decode program and each bucket's row mover once, no
+    prefill."""
+    every = dict.fromkeys(BUCKETS, 1)
+    for e in prefills:
+        cc = e.compile_counts
+        if cc != {"decode": 0, "verify": 0, "prefill": every, "copy": {},
+                  "handoff": every}:
+            raise AssertionError("%s: prefill engine compile_counts %r"
+                                 % (what, cc))
+    for e in decodes:
+        cc = e.compile_counts
+        if cc != {"decode": 1, "verify": 0, "prefill": {}, "copy": {},
+                  "handoff": every}:
+            raise AssertionError("%s: decode engine compile_counts %r"
+                                 % (what, cc))
+
+
+def capture_and_replay(dec, work, streams, outdir):
+    """4d.1: phase 4's wave with capture on and off, in turns, 3 waves
+    each; the capture replayed ``verify``-clean on a fresh engine and at
+    another round geometry. Returns the capture."""
+    from mxnet_tpu_torch.serving import load_capture
+    from mxnet_tpu_torch.serving import replay as rp
+    capdir = os.path.join(outdir, "capture")
+    if os.path.isdir(capdir):
+        for f in os.listdir(capdir):
+            os.remove(os.path.join(capdir, f))
+    on = _engine_4c(dec, capture_dir=capdir)
+    off = _engine_4c(dec)
+    for e in (on, off):
+        _warm(e)
+    # the host time of each record (serialization, write and flush)
+    spent = []
+    write = on.capture._write
+
+    def timed(rec, always=False):
+        t = time.perf_counter()
+        try:
+            return write(rec, always)
+        finally:
+            spent.append(time.perf_counter() - t)
+    on.capture._write = timed
+    tps = {"on": [], "off": []}
+    for i in range(3):
+        turn = (("on", on), ("off", off))
+        for name, eng in (turn if i % 2 == 0 else turn[::-1]):
+            hs, secs = _serve_wave(eng, work)
+            _same_streams("phase 4d capture %s" % name, hs, streams)
+            tps[name].append(_wave_metrics(hs, secs)[0])
+    del on.capture._write
+    path = on.capture.path
+    on.close()
+    off.close()
+    size = os.path.getsize(path)
+    cap = load_capture(path)
+    nreq = len(cap["submits"])
+    if nreq != 3 * N_REQUESTS + len(BUCKETS) \
+            or len(cap["retires"]) != nreq:
+        raise AssertionError("phase 4d capture: %d submits, %d retires"
+                             % (nreq, len(cap["retires"])))
+    reports = []
+    other = dict(prefill_chunk=BUCKETS[1],
+                 steps_per_round=STEPS_PER_ROUND // 2)
+    for what, over in (("the captured geometry", {}),
+                       ("prefill_chunk=%(prefill_chunk)d, "
+                        "steps_per_round=%(steps_per_round)d" % other,
+                        other)):
+        eng = rp.build_engine(cap, dec, **over)
+        t0 = time.perf_counter()
+        rep = rp.replay(cap, eng, timing="max", verify=True)
+        if rep["mismatches"] or rep["verified"] != nreq \
+                or rep["verify_mode"] != "exact":
+            raise AssertionError("phase 4d replay (%s): %r" % (what, rep))
+        reports.append("%s %d verified, %.1f tokens/s, %.2f s" % (
+            what, rep["verified"], rep["tokens_per_sec"],
+            time.perf_counter() - t0))
+        eng.close()
+    log("phase 4d capture: tokens/s with capture on over off %.4f (median "
+        "of 3 waves each in turns: %.1f against %.1f); streams equal phase "
+        "4's; %d requests in %d bytes = %.1f bytes a request; a record's "
+        "host time (serialize, write, flush) median %.1f us, max %.1f us, "
+        "%.3f ms a wave; replay verify clean: %s; %s" % (
+            statistics.median(tps["on"]) / statistics.median(tps["off"]),
+            statistics.median(tps["on"]), statistics.median(tps["off"]),
+            nreq, size, size / nreq, statistics.median(spent) * 1e6,
+            max(spent) * 1e6, sum(spent) / 3 * 1e3, "; ".join(reports),
+            card_line()))
+    return cap
+
+
+def _row_movers(p, d):
+    """Export and import at each bucket: wall ms (median of 10, the copy
+    out or in included) and card ms (CUDA events around the program's
+    replay), wire bytes native and int8 and ``pack_rows``' host ms."""
+    from mxnet_tpu_torch.serving import pack_rows
+    out = []
+    for b in BUCKETS:
+        exp = p._handoff_program(b, False)
+        imp = d._handoff_program(b, True)
+        rows = p._export_rows(0, b)
+        walls = {"export": [], "import": []}
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = p._export_rows(0, b)
+            walls["export"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            d._import_rows(0, b, rows)
+            torch.cuda.synchronize()
+            walls["import"].append((time.perf_counter() - t0) * 1e3)
+        card = {}
+        for name, prog in (("export", exp), ("import", imp)):
+            a, z = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            ts = []
+            for _ in range(10):
+                a.record()
+                prog.run()
+                z.record()
+                z.synchronize()
+                ts.append(a.elapsed_time(z))
+            card[name] = statistics.median(ts)
+        _, native = pack_rows(rows, "native")
+        packs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _, q8 = pack_rows(rows, "int8")
+            packs.append((time.perf_counter() - t0) * 1e3)
+        out.append("bucket %d: export wall %.3f ms card %.4f ms, import wall "
+                   "%.3f ms card %.4f ms; wire %d bytes native, %d int8 "
+                   "(%.3f), pack_rows int8 %.2f ms host" % (
+                       b, statistics.median(walls["export"]),
+                       card["export"], statistics.median(walls["import"]),
+                       card["import"], native, q8, q8 / native,
+                       statistics.median(packs)))
+    return out
+
+
+def _long_mix(rs):
+    """20 short requests (32-127 tokens) beside 4 prompts of 200-256
+    tokens, budgets 64."""
+    work = []
+    for i in range(N_REQUESTS):
+        n = int(rs.randint(*LONG_PROMPT)) if i % 6 == 5 \
+            else int(rs.randint(BUCKETS[0] // 2, BUCKETS[1]))
+        work.append((rs.randint(0, VOCAB, (n,)), 8 * STEPS_PER_ROUND))
+    return work
+
+
+def _cadence(handles, work):
+    """ms a token p50 and p99 of the short requests of ``work``."""
+    ms = [(h.t_done - h.t_first) / (len(h.tokens) - 1) * 1e3
+          for h, (p, _) in zip(handles, work) if len(p) < LONG_PROMPT[0]]
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def disaggregation(K, dec, work, streams):
+    """4d.2: 1P1D and 2P2D fleets over phase 4's wave; row movers; the
+    int8 handoff; decode-side cadence under a long-prompt mix. Returns
+    the launches counted."""
+    total = {}
+    lines = []
+    for np_, nd in ((1, 1), (2, 2)):
+        pre = [_engine_4c(dec, role="prefill") for _ in range(np_)]
+        dco = [_engine_4c(dec, role="decode") for _ in range(nd)]
+        engines = pre + dco
+        _warm_pairs(pre, dco)
+        fleet = _fleet(engines)
+        before = [dict(e.stats) for e in engines]
+        K.reset_launch_counts()
+        hs, secs = _serve_wave(fleet, work)
+        launches = K.launch_counts()
+        deltas = _stats_delta(engines, before)
+        want = dict.fromkeys(launches, 0)
+        want.update(_fleet_launches(deltas))
+        if launches != want:
+            raise AssertionError("phase 4d %dP%dD: launch counts %r, the "
+                                 "engines' rounds want %r"
+                                 % (np_, nd, launches, want))
+        _same_streams("phase 4d %dP%dD" % (np_, nd), hs, streams)
+        out = sum(d["handoffs_out"] for d in deltas)
+        inn = sum(d["handoffs_in"] for d in deltas)
+        if out != N_REQUESTS or inn != N_REQUESTS \
+                or fleet.stats["handoffs"] != N_REQUESTS:
+            raise AssertionError("phase 4d %dP%dD: %d handoffs out, %d in"
+                                 % (np_, nd, out, inn))
+        _check_roles(pre, dco, "phase 4d %dP%dD" % (np_, nd))
+        for e, n in launches.items():
+            total[e] = total.get(e, 0) + n
+        tps, p50, p99 = _wave_metrics(hs, secs)
+        lines.append("%dP%dD %.1f tokens/s, ms a token p50 %.3f p99 %.3f, "
+                     "%d handoffs, %.1f MB shipped" % (
+                         np_, nd, tps, p50, p99, fleet.stats["handoffs"],
+                         fleet.stats["handoff_bytes"] / 1e6))
+        if np_ == 1:
+            movers = _row_movers(pre[0], dco[0])
+        fleet.close()
+        del fleet, engines, pre, dco
+        free_programs()
+    log("phase 4d disaggregation: every stream of the 1P1D and 2P2D waves "
+        "equals phase 4's; 24 handoffs out and in each; prefill engines "
+        "built prefill + handoff and no decode, decode engines decode + "
+        "handoff and no prefill; exact launches from stats; %s; all "
+        "engines share one card; %s" % ("; ".join(lines), card_line()))
+    log("phase 4d row movers (one card: the rows go out to the host and "
+        "back): %s" % "; ".join(movers))
+
+    # the int8 handoff: JAX's contract is agreement on a prefix
+    pre = _engine_4c(dec, role="prefill", handoff_dtype="int8")
+    dco = _engine_4c(dec, role="decode")
+    fleet = _fleet([pre, dco])
+    hs, _ = _serve_wave(fleet, work)
+    agree, full = [], 0
+    for h, s in zip(hs, streams):
+        if not h.done or len(h.tokens) != len(s) or h.tokens[0] != s[0]:
+            raise AssertionError("phase 4d int8 handoff: request %s "
+                                 "finished %r against %d tokens, first "
+                                 "token %s" % (h.id, h.retire_reason,
+                                               len(s), h.tokens[:1]))
+        n = next((i for i, (a, b) in enumerate(zip(h.tokens, s)) if a != b),
+                 len(s))
+        agree.append(n / len(s))
+        full += n == len(s)
+    shipped = fleet.stats["handoff_bytes"]
+    fleet.close()
+    del fleet, pre, dco
+    log("phase 4d int8 handoff: %d of %d streams equal phase 4's in full, "
+        "the first token always (it is the prefill engine's); mean share "
+        "of each stream agreeing before its first difference %.3f; %.1f MB "
+        "shipped" % (full, N_REQUESTS, statistics.mean(agree),
+                     shipped / 1e6))
+
+    # decode cadence under long prompts: 1P1D against one unified engine
+    mix = _long_mix(np.random.RandomState(61))
+    uni = _engine_4c(dec)
+    _warm(uni)
+    pre = _engine_4c(dec, role="prefill")
+    dco = _engine_4c(dec, role="decode")
+    _warm_pairs([pre], [dco])
+    fleet = _fleet([pre, dco])
+    runs = {"unified": [], "1P1D": []}
+    for i in range(2):
+        for name, eng in ((("unified", uni), ("1P1D", fleet)) if i == 0
+                          else (("1P1D", fleet), ("unified", uni))):
+            hs, secs = _serve_wave(eng, mix)
+            runs[name].append((_cadence(hs, mix), _wave_metrics(hs, secs)[0],
+                               [h.tokens for h in hs]))
+    if runs["unified"][0][2] != runs["1P1D"][0][2]:
+        raise AssertionError("phase 4d long-prompt mix: 1P1D streams "
+                             "differ from the unified engine's")
+    log("phase 4d long-prompt mix (20 short beside 4 of 200-256 tokens; "
+        "both roles share ONE card): short requests' ms a token p50/p99 "
+        "%s; tokens/s %s; streams equal" % (
+            "; ".join("%s %.3f/%.3f" % (k, v[0][0][0], v[0][0][1])
+                      + " (again %.3f/%.3f)" % v[1][0] for k, v in
+                      runs.items()),
+            ", ".join("%s %.1f %.1f" % (k, v[0][1], v[1][1])
+                      for k, v in runs.items())))
+    fleet.close()
+    uni.close()
+    return total
+
+
+def _kill_wave(fleet, work, victim_at, act):
+    """Phase 4's staggered wave through ``fleet``; ``act(fleet)`` runs
+    before fleet round ``victim_at`` and returns ``(handles it moved,
+    t0)``. Returns (handles, seconds to every moved request's next
+    token)."""
+    work = list(work)
+    handles = []
+    rounds = 0
+    moved, t0, recover = None, None, None
+    while work or not fleet.idle:
+        for _ in range(8 if not handles else 4):
+            if work:
+                p, b = work.pop(0)
+                handles.append(fleet.submit(p, max_tokens=b))
+        if rounds == victim_at:
+            moved, t0 = act(fleet, handles)
+            if not moved:
+                raise AssertionError("phase 4d: the victim had no work")
+        fleet.step()
+        rounds += 1
+        if moved is not None and recover is None \
+                and all(h.done or len(h.tokens) > n for h, n in moved):
+            torch.cuda.synchronize()
+            recover = time.perf_counter() - t0
+    return handles, recover, moved
+
+
+def failover_and_drain(dec, cap, work, streams):
+    """4d.3: two unified replicas: a kill and a drain + successor mid-wave,
+    the capture through a 2-replica rolling restart, memory after
+    close()."""
+    from mxnet_tpu_torch.serving import replay as rp
+    from mxnet_tpu_torch.testing.faults import FaultInjector
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    a, b = _engine_4c(dec), _engine_4c(dec)
+    for e in (a, b):
+        _warm(e)
+    fleet = _fleet([a, b])
+    fi = FaultInjector()
+
+    def kill(fl, hs):
+        victim = max((a, b), key=lambda e: len(e._active)).engine_id
+        moved = [(h, len(h.tokens)) for h in hs
+                 if h.replica_id == victim and not h.done]
+        t0 = time.perf_counter()
+        with fi.fleet_kill_replica(victim):
+            fl.step()
+        if fl.stats["failovers"] != 1:
+            raise AssertionError("phase 4d kill: no failover")
+        return moved, t0
+    hs, recover, moved = _kill_wave(fleet, work, FAIL_ROUND, kill)
+    _same_streams("phase 4d kill", hs, streams)
+    kill_line = ("kill in round %d: %d requests migrated, every stream "
+                 "equals phase 4's; kill to every migrated request's next "
+                 "token %.3f s" % (FAIL_ROUND, len(moved), recover))
+    fleet.close()
+    del fleet, a, b
+    free_programs()
+
+    a, b = _engine_4c(dec), _engine_4c(dec)
+    for e in (a, b):
+        _warm(e)
+    succ = _engine_4c(dec)
+    _warm(succ)
+    fleet = _fleet([a, b])
+
+    def drain(fl, hs):
+        victim = max((a, b), key=lambda e: len(e._active)).engine_id
+        moved = [(h, len(h.tokens)) for h in hs
+                 if h.replica_id == victim and not h.done]
+        t0 = time.perf_counter()
+        fl.drain(victim)
+        fl.add_replica(succ)
+        return moved, t0
+    hs, recover_d, moved_d = _kill_wave(fleet, work, FAIL_ROUND, drain)
+    _same_streams("phase 4d drain", hs, streams)
+    failed = [h for h in hs if h.retire_reason not in ("length", "eos")]
+    if failed or fleet.stats["drains"] != 1:
+        raise AssertionError("phase 4d drain: %d failed, stats %r" % (
+            len(failed), dict(fleet.stats)))
+    fleet.close()
+    del fleet, a, b, succ
+    free_programs()
+
+    # the capture of 4d.1 through a 2-replica rolling restart
+    def mkreplica():
+        return rp.build_engine(cap, dec)
+    fleet = _fleet([mkreplica(), mkreplica()])
+    on_round = rp.rolling_restart(fleet, cap, mkreplica)
+    rep = rp.replay(cap, fleet, timing="max", verify=True,
+                    on_round=on_round)
+    nfail = len(rep["mismatches"])
+    if nfail or rep["verified"] != len(cap["submits"]) \
+            or fleet.stats["drains"] != 2:
+        raise AssertionError("phase 4d rolling restart: %r, %r"
+                             % (rep, dict(fleet.stats)))
+    migrated = fleet.stats["migrated_requests"]
+    fleet.close()
+    del fleet
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if after - before > CLOSE_SLACK:
+        raise AssertionError("phase 4d: memory_allocated %.1f MiB after the "
+                             "fleets closed, %.1f MiB before" % (
+                                 after / 2**20, before / 2**20))
+    log("phase 4d failover and drain (2 unified replicas on ONE card): %s; "
+        "drain + add_replica in round %d: %d requests migrated, 0 failed, "
+        "every stream equals phase 4's, drain to every migrated request's "
+        "next token %.3f s; the capture (%d requests) through a 2-replica "
+        "rolling restart: verify clean, 0 failed, 2 drains, %d migrated; "
+        "memory_allocated %.1f MiB before the fleets, %.1f MiB after "
+        "close(); %s" % (
+            kill_line, FAIL_ROUND, len(moved_d), recover_d,
+            len(cap["submits"]), migrated, before / 2**20, after / 2**20,
+            card_line()))
+
+
+def _prometheus_ok(text):
+    """Every sample line of a Prometheus text exposition is ``name`` or
+    ``name{labels}``, then a float."""
+    import re
+    pat = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                     r'(-?[0-9.eE+-]+|NaN|[+-]Inf)$')
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        if not pat.match(line):
+            raise AssertionError("phase 4d /metrics: not Prometheus text: "
+                                 "%r" % line)
+        n += 1
+    return n
+
+
+def http_exposition(dec, work, streams):
+    """4d.4: the exposition server during 1P1D waves: a scraper thread
+    reads /metrics, /healthz, /fleet and /fleet/flight/<id> every 50 ms;
+    tokens/s with the scraper against without, in turns."""
+    import threading
+    import urllib.request
+    from mxnet_tpu_torch import telemetry
+    pre = _engine_4c(dec, role="prefill")
+    dco = _engine_4c(dec, role="decode")
+    _warm_pairs([pre], [dco])
+    fleet = _fleet([pre, dco])
+    srv = telemetry.serve(port=0)
+    stop = threading.Event()
+    times, errors, journeys, samples = [], [], [], []
+
+    def scrape_once():
+        try:
+            for path in SCRAPES:
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(srv.url + path,
+                                            timeout=10) as r:
+                    body = r.read()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if path == "/metrics":
+                    samples.append(_prometheus_ok(body.decode()))
+            retired = json.loads(body)["fleets"][0]["flight"]["retired"]
+            if retired:
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(
+                        srv.url + "/fleet/flight/%s" % retired[-1],
+                        timeout=10) as r:
+                    journeys.append(json.loads(r.read()))
+                times.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:     # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    def scrape():
+        # every 50 ms while the wave runs, and once after it ends (its
+        # journeys have retired by then)
+        while not stop.wait(SCRAPE_S):
+            scrape_once()
+        scrape_once()
+    tps = {"scraped": [], "quiet": []}
+    try:
+        for i in range(4):
+            name = ("scraped", "quiet")[i % 2]
+            th = None
+            if name == "scraped":
+                stop.clear()
+                th = threading.Thread(target=scrape, daemon=True)
+                th.start()
+            hs, secs = _serve_wave(fleet, work)
+            if th is not None:
+                stop.set()
+                th.join()
+            _same_streams("phase 4d http (%s)" % name, hs, streams)
+            tps[name].append(_wave_metrics(hs, secs)[0])
+    finally:
+        stop.set()
+        telemetry.stop_server()
+    if errors or not journeys or not samples:
+        raise AssertionError("phase 4d http: errors %r, %d journeys, %d "
+                             "metrics scrapes" % (errors[:3], len(journeys),
+                                                  len(samples)))
+    hops = journeys[-1]["hops"]
+    if hops != [pre.engine_id, dco.engine_id]:
+        raise AssertionError("phase 4d http: /fleet/flight hops %r, want "
+                             "the prefill then the decode engine" % hops)
+    fleet.close()
+    log("phase 4d http: %d scrapes of %s and /fleet/flight/<id>, %.3f ms a "
+        "scrape (median; p99 %.3f); /metrics parses as Prometheus text "
+        "(%d samples); /fleet/flight stitches the prefill and decode hops; "
+        "tokens/s with the scraper over without %.4f (%.1f against %.1f, "
+        "2 waves each in turns)" % (
+            len(times), ", ".join(SCRAPES), statistics.median(times),
+            float(np.percentile(times, 99)), samples[-1],
+            statistics.median(tps["scraped"])
+            / statistics.median(tps["quiet"]),
+            statistics.median(tps["scraped"]),
+            statistics.median(tps["quiet"])))
+
+
+def fleet_main_path(K, dev, prefix, work, streams):
+    """Phase 4d: the serving fleet on phase 4's 124M int8 configuration,
+    every replica an engine on the one card over one decoder. Returns the
+    launches it counted."""
+    t0 = time.perf_counter()
+    outdir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(outdir, exist_ok=True)
+    dec = _decoder_4c(prefix, dev)
+    cap = capture_and_replay(dec, work, streams, outdir)
+    free_programs()
+    launches = disaggregation(K, dec, work, streams)
+    free_programs()
+    failover_and_drain(dec, cap, work, streams)
+    free_programs()
+    http_exposition(dec, work, streams)
+    del dec
+    free_programs()
+    log("phase 4d: every check passed in %.1f s; launches %s" % (
+        time.perf_counter() - t0,
+        json.dumps({e: n for e, n in launches.items() if n})))
+    return launches
+
+
 def check_main_against_host(prefix, dec, handles, steps=16):
     """The 124M decoder rebuilt on the host from the same checkpoint (the
     plain versions, bf16) against the card's, for each served request:
@@ -4217,6 +4807,9 @@ def main():
         launches[e] += n
     free_programs()
     for e, n in robust_main_path(K, dev, prefix, work, streams).items():
+        launches[e] += n
+    free_programs()
+    for e, n in fleet_main_path(K, dev, prefix, work, streams).items():
         launches[e] += n
     free_programs()
     check_small_against_host(dev)

@@ -69,8 +69,20 @@ per-round phase ledger (:meth:`~InferenceEngine.round_table`), SLO burn
 gauges and a per-request flight recorder (:class:`.flight.FlightRecorder`)
 say what the engine did.
 
-Tensor/expert parallelism, trace capture (``capture_dir``), the HTTP
-exposition server and fleet roles belong to later slices of the port.
+Traffic capture (``capture_dir``, :mod:`.capture`) records every
+accepted submit and its retirement for ``python -m
+mxnet_tpu_torch.serving.replay``. Role-specialized engines (``role=
+"prefill"``/``"decode"``, the JAX package's l.1035-1066) split a request
+across two engines: a prefill engine runs admission and prefill only and
+packages each finished prefill as a :class:`~.handoff.KVHandoff`; a decode
+engine admits packages only (:meth:`~InferenceEngine.admit_handoff`),
+never a prompt. The rows move through one more program family, the
+per-bucket handoff row movers (``("handoff", bucket)``: export gathers a
+slot's rows into a fixed staging buffer that is then copied out; import
+copies rows into it and writes them into a slot). The
+:class:`~.fleet.FleetRouter` drives the handoffs between engines.
+
+Tensor/expert parallelism belongs to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -80,6 +92,7 @@ import itertools
 import math
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -89,7 +102,9 @@ from ..base import MXNetError, refuse_unported
 from ..io import StagedStream
 from ..parallel.decode import Decoder, sample_tokens, uniform_draw
 from ..parallel.program import Program, copy_in
+from .capture import CaptureStream
 from .flight import FlightRecorder
+from .handoff import HANDOFF_DTYPES, KVHandoff, unpack_rows
 from .prefix import PrefixCache
 from .quant import QuantizedTensor, quantize_params, quantized_weight_names
 from .spec import NgramDrafter
@@ -101,6 +116,10 @@ __all__ = ["InferenceEngine", "Request", "EngineOverloaded",
 # unique within a process across engine rebuilds (a restore() successor
 # gets a FRESH id; the donor's travels in ``migrated_from``)
 _ENGINE_SEQ = itertools.count()
+
+# live engines, for the exposition server (telemetry_http); weak, so that
+# telemetry never keeps an engine the caller dropped alive
+_ENGINES = weakref.WeakSet()
 
 # serving-side fault injection (mxnet_tpu_torch.testing.faults): an
 # installed injector's hooks run at the engine's host-side seams —
@@ -198,7 +217,14 @@ _TM_COMPILES = {
     "copy": tele.counter("serving.compiles_copy"),
     "verify": tele.counter("serving.compiles_verify"),
     "draft": tele.counter("serving.compiles_draft"),
-    "draft_prefill": tele.counter("serving.compiles_draft")}
+    "draft_prefill": tele.counter("serving.compiles_draft"),
+    "handoff": tele.counter("serving.compiles_handoff")}
+# disaggregated prefill/decode: the engine's role (0 unified, 1 prefill,
+# 2 decode; engine-last-built semantics) and how long a finished prefill
+# waited from packaging to its admission on a decode engine (observed by
+# the fleet router at delivery)
+_TM_ROLE = tele.gauge("serving.role")
+_TM_HANDOFF_WAIT = tele.histogram("serving.handoff_wait_ms")
 # robustness: every abnormal retirement path
 _TM_SHED = tele.counter("serving.shed")
 _TM_DEADLINE = tele.counter("serving.deadline_missed")
@@ -264,7 +290,12 @@ class Request:
     uninterrupted run's rows; the rounds' kernels are batch-invariant
     and give them bit for bit. Should a regenerated token differ (a
     snapshot from another package or configuration), the request is
-    prefilled again over ``seq``, the JAX package's way."""
+    prefilled again over ``seq``, the JAX package's way.
+
+    A KV handoff carries the same distinction across engines: a resumed
+    request on a prefill-role engine prefills its prompt, checks its first
+    recorded token, and hands the rest to the decode engine to regenerate
+    (:meth:`InferenceEngine.admit_handoff`)."""
 
     def __init__(self, rid, prompt, max_tokens, eos_id, temperature, seed,
                  limit, deadline_ms=None, ttft_deadline_ms=None,
@@ -281,6 +312,10 @@ class Request:
         self.seq = prompt if not self.resumed else np.concatenate(
             [prompt, np.asarray(self.tokens, prompt.dtype)])
         self._replay = self.resumed     # emitted tokens not regenerated yet
+        self._prefilled = 0             # positions the final prefill covered
+        # fleet trace context: (trace_id, hop) when a FleetRouter placed
+        # the request (``submit(_trace=)``, a handoff's admission)
+        self.trace = None
         self.done = False
         self.error = None
         self.t_submit = time.perf_counter()
@@ -366,7 +401,7 @@ _DEVICE_STATE = ("_groups", "_cache_bufs", "_caches", "_stage_groups",
                  "_stage", "_pos", "_tok", "_live", "_eos", "_last",
                  "_temp", "_uniform", "_params", "_aux", "_draft_groups",
                  "_draft_caches", "_draft_stage_groups", "_draft_stage",
-                 "_draft_params", "_draft_aux")
+                 "_draft_params", "_draft_aux", "_handoff_stage")
 
 # the prefill operands after the padded piece: slot, chunk start, the
 # piece's true length, final (0/1), the temperature's float32 bits, seed,
@@ -394,6 +429,22 @@ def _grouped_cache(one, slots, rows):
     caches)``: the allocations, and the per-node tuples of ``[slots, rows,
     ...]`` views (each contiguous, as the kernels take them), so that a
     copy between slots runs one kernel a group instead of one a buffer."""
+    keys, counts, where = _group_layout(one)
+    dev = one[0][0].device
+    # row scales ([B, L, H]: one value a row) start at one
+    groups = [(torch.ones if len(tail) == 1 else torch.zeros)(
+        (n, slots, rows) + tail, dtype=dt, device=dev)
+        for n, (dt, tail) in zip(counts, keys)]
+    it = iter(where)
+    caches = [tuple(groups[g][i] for g, i in (next(it) for _ in entry))
+              for entry in one]
+    return groups, caches
+
+
+def _group_layout(one):
+    """How :func:`_grouped_cache` groups the buffers of ``one``: the
+    ``(dtype, row shape)`` of each allocation, its buffer count, and
+    ``(allocation, index)`` of each buffer in tree order."""
     keys, counts, where = [], [], []
     for entry in one:
         for b in entry:
@@ -404,15 +455,7 @@ def _grouped_cache(one, slots, rows):
             g = keys.index(key)
             where.append((g, counts[g]))
             counts[g] += 1
-    dev = one[0][0].device
-    # row scales ([B, L, H]: one value a row) start at one
-    groups = [(torch.ones if len(tail) == 1 else torch.zeros)(
-        (n, slots, rows) + tail, dtype=dt, device=dev)
-        for n, (dt, tail) in zip(counts, keys)]
-    it = iter(where)
-    caches = [tuple(groups[g][i] for g, i in (next(it) for _ in entry))
-              for entry in one]
-    return groups, caches
+    return keys, counts, where
 
 
 def _wide(t):
@@ -521,12 +564,27 @@ class InferenceEngine:
         Names this engine (default ``"e<pid>.<n>"``, unique in the
         process); ``migrated_from`` is the donor's id when ``restore()``
         built it.
-    capture_dir, capture_mb, tp, mesh, ep, role, handoff_dtype :
-        The JAX package's parameters, in its order. Any value but the
-        default (``tp``/``ep`` 1, ``role`` ``"unified"``,
-        ``handoff_dtype`` ``"native"`` count as the default) raises:
-        capture, tensor/expert parallelism and fleet roles belong to
-        later slices.
+    capture_dir : str, optional
+        Traffic capture (:mod:`.capture`): every accepted submit and its
+        retirement go to a fresh ``mx_capture_<pid>_<n>.jsonl`` in this
+        directory (``None`` reads ``MXNET_SERVING_CAPTURE_DIR``; unset is
+        off), bounded by ``capture_mb`` (``None`` reads
+        ``MXNET_SERVING_CAPTURE_MB``, else 64). ``snapshot()`` carries the
+        directory, so a restored engine captures on into a new file.
+    role : {"unified", "prefill", "decode"}, optional
+        ``None`` reads ``MXNET_SERVING_ROLE``, else ``"unified"``. A
+        prefill engine admits and prefills only and packages each first
+        token's request as a :class:`~.handoff.KVHandoff`
+        (:meth:`take_handoffs`); it never runs a decode or verify program.
+        A decode engine refuses ``submit`` and admits packages
+        (:meth:`admit_handoff`); it never runs a prefill program.
+    handoff_dtype : {"native", "int8"}, optional
+        How this engine's exported rows travel (``None`` reads
+        ``MXNET_SERVING_HANDOFF_DTYPE``, else ``"native"``):
+        :func:`~.handoff.pack_rows`.
+    tp, mesh, ep :
+        The JAX package's tensor/expert parallelism, in its order; any
+        value but the default (``tp``/``ep`` 1) raises: a later slice.
     """
 
     def __init__(self, decoder, slots=8, prefill_buckets=None,
@@ -545,14 +603,10 @@ class InferenceEngine:
             raise MXNetError("InferenceEngine needs a Decoder, got %r"
                              % type(decoder).__name__)
         # a snapshot's geometry carries the resolved defaults of these
-        refuse_unported(
-            "InferenceEngine", capture_dir=(capture_dir, None),
-            capture_mb=(capture_mb, None), tp=(tp or 1, 1),
-            mesh=(mesh, None), ep=(ep or 1, 1),
-            role=(role or "unified", "unified"),
-            handoff_dtype=(handoff_dtype or "native", "native"))
+        refuse_unported("InferenceEngine", tp=(tp or 1, 1),
+                        mesh=(mesh, None), ep=(ep or 1, 1))
         self._dec = decoder
-        self._t0 = time.perf_counter()   # the round ledger's time origin
+        self._t0 = time.perf_counter()   # ledger and capture time origin
         self.engine_id = str(engine_id) if engine_id is not None \
             else "e%d.%d" % (os.getpid(), next(_ENGINE_SEQ))
         self.migrated_from = None if migrated_from is None \
@@ -654,6 +708,30 @@ class InferenceEngine:
                 "InferenceEngine: matmul_impl must be 'dense', 'pallas' "
                 "or 'fused', got %r" % (matmul_impl,))
         self.matmul_impl = matmul_impl
+        # disaggregated prefill/decode: the role gates which program
+        # families ever run (a scheduler gate: the programs are built at
+        # first use, so nothing extra is built either way)
+        if role is None:
+            role = os.environ.get("MXNET_SERVING_ROLE") or "unified"
+        if role not in ("unified", "prefill", "decode"):
+            raise MXNetError(
+                "InferenceEngine: role must be 'unified', 'prefill' or "
+                "'decode', got %r (MXNET_SERVING_ROLE sets the default)"
+                % (role,))
+        self.role = role
+        if handoff_dtype is None:
+            handoff_dtype = os.environ.get(
+                "MXNET_SERVING_HANDOFF_DTYPE") or "native"
+        if handoff_dtype not in HANDOFF_DTYPES:
+            raise MXNetError(
+                "InferenceEngine: handoff_dtype must be one of %s, got %r "
+                "(MXNET_SERVING_HANDOFF_DTYPE sets the default)"
+                % (", ".join(map(repr, HANDOFF_DTYPES)), handoff_dtype))
+        self.handoff_dtype = handoff_dtype
+        # a draining replica takes no NEW submits (FleetRouter.drain sets
+        # it; health() reports it)
+        self.draining = False
+        _TM_ROLE.set({"unified": 0, "prefill": 1, "decode": 2}[role])
 
         if weight_dtype is None:
             weight_dtype = decoder.weight_dtype
@@ -763,6 +841,7 @@ class InferenceEngine:
             self._draft_pos = [0] * S     # next draft-cache position
             self._draft_pending = [[] for _ in range(S)]
         self._programs = {}
+        self._handoff_stage = {}     # bucket -> staging allocations
         self._compile_log = _CompileLog()
         _TM_ATTN_IMPL.set(1)
         _TM_TP.set(1)
@@ -798,6 +877,14 @@ class InferenceEngine:
         self._watched = set()        # ids with a deadline / cancel mark
         self._done_buf = []          # finished since the last step()
         self._closed = False
+        # KV handoff state: _handoff_out holds packaged finished prefills
+        # until the router takes them; _handoff_slots are the slots those
+        # packages pin (out of _free, carrying no live request, until the
+        # package resolves); _imported is a bounded id ring for
+        # exactly-once admission under retried deliveries
+        self._handoff_out = collections.deque()
+        self._handoff_slots = set()
+        self._imported = collections.OrderedDict()
         self.stats = {"submitted": 0, "completed": 0, "prefills": 0,
                       "steps": 0, "tokens": 0, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "prefill_chunks": 0,
@@ -805,7 +892,8 @@ class InferenceEngine:
                       "cancelled": 0, "errors": 0, "watchdog_trips": 0,
                       "restores": 0, "spec_rounds": 0,
                       "spec_fallback_rounds": 0, "spec_drafted": 0,
-                      "spec_accepted": 0}
+                      "spec_accepted": 0, "handoffs_out": 0,
+                      "handoffs_in": 0}
         # the watchdog's state (health()), and the round-phase ledger:
         # _phase is the accumulator while a step() is in flight,
         # _rounds the bounded ledger round_table() reads
@@ -814,6 +902,17 @@ class InferenceEngine:
         self._phase = None
         self._rounds = collections.deque(maxlen=_ROUND_LEDGER)
         self._round_no = 0
+        # traffic capture, opened last so that the header carries the
+        # final geometry; a disabled stream (knob unset) is a no-op
+        self.capture = CaptureStream.open(
+            capture_dir, capture_mb,
+            dict(self._geometry(), max_len=self.max_len,
+                 engine_id=self.engine_id,
+                 migrated_from=self.migrated_from), self._t0)
+        # resolved (the env default included) so snapshot() carries it
+        self.capture_dir = os.path.dirname(self.capture.path) \
+            if self.capture.enabled else None
+        _ENGINES.add(self)
 
     @staticmethod
     def _weight_nbytes(params):
@@ -951,13 +1050,18 @@ class InferenceEngine:
 
     @property
     def idle(self):
+        # handoff-pinned slots count as free: the engine has nothing left
+        # to step for them (delivery is the router's job, and
+        # FleetRouter.idle waits for every unresolved package)
         return not self._pending and self._stager.staged() == 0 \
-            and self._held is None and len(self._free) == self.slots \
+            and self._held is None \
+            and len(self._free) + len(self._handoff_slots) == self.slots \
             and not self._drain and not self._chunking
 
     def _busy(self):
-        return self.slots - len(self._free) > 0 or bool(self._pending) \
-            or self._stager.staged() > 0 or self._held is not None
+        return self.slots - len(self._free) - len(self._handoff_slots) > 0 \
+            or bool(self._pending) or self._stager.staged() > 0 \
+            or self._held is not None
 
     def submit(self, prompt, max_tokens, eos_id=None, temperature=0.0,
                seed=None, request_id=None, deadline_ms=None,
@@ -977,11 +1081,24 @@ class InferenceEngine:
         expired request fails without ever occupying a slot.
         :meth:`cancel` retires the same way with ``"cancelled"``. A full
         queue follows the ``overload`` policy. ``_resume_tokens`` are a
-        restored request's emitted tokens (:meth:`restore`); ``_trace``
-        (fleet trace context) raises unless None: it belongs to a later
-        slice."""
-        refuse_unported("InferenceEngine.submit", _trace=(_trace, None))
+        restored or migrated request's emitted tokens (:meth:`restore`);
+        ``_trace`` is the fleet trace context ``(trace_id, hop)`` a
+        :class:`~.fleet.FleetRouter` threads through its placements.
+
+        A draining engine refuses new submits (a resumed one still lands:
+        work folds INTO a stopping engine, never out through its
+        admission); a decode-role engine refuses every submit — packages
+        reach it through :meth:`admit_handoff`."""
         self._check_open()
+        if self.draining and not _resume_tokens:
+            raise MXNetError(
+                "InferenceEngine: engine %s is draining — submit to "
+                "another replica" % self.engine_id)
+        if self.role == "decode":
+            raise MXNetError(
+                "InferenceEngine: engine %s has role='decode' — prompts go "
+                "to a prefill or unified replica (the FleetRouter's "
+                "role-aware placement does this)" % self.engine_id)
         # validation runs BEFORE the overload branch, so that an
         # inadmissible submit can never shed valid queued work
         try:
@@ -1065,11 +1182,14 @@ class InferenceEngine:
                       deadline_ms=deadline_ms,
                       ttft_deadline_ms=ttft_deadline_ms,
                       resume_tokens=_resume_tokens)
+        if _trace is not None:
+            req.trace = (str(_trace[0]), int(_trace[1]))
         self._pending.append(req)
         self._active[rid] = req
         if req._deadline is not None or req._ttft_deadline is not None:
             self._watched.add(rid)
         self.stats["submitted"] += 1
+        self.capture.submit(req)
         if self.flight.enabled:
             meta = {"prompt_len": int(prompt.size),
                     "max_tokens": max_tokens}
@@ -1081,6 +1201,8 @@ class InferenceEngine:
                 meta["deadline_ms"] = deadline_ms
             if ttft_deadline_ms is not None:
                 meta["ttft_deadline_ms"] = ttft_deadline_ms
+            if req.trace is not None:
+                meta["trace"], meta["hop"] = req.trace
             self.flight.start(rid, **meta)
         return req
 
@@ -1096,6 +1218,227 @@ class InferenceEngine:
         req._cancelled = True
         self._watched.add(request_id)
         return True
+
+    # -- KV handoff scheduler seams (the JAX package's l.2076-2315) ------
+    def _handoff_prefill(self, req, slot, t, now):
+        """Prefill-role drain tail: the first token lands on the request
+        as unified serving would land it (TTFT is served here), then the
+        finished prefill is packaged for the router. The slot leaves the
+        free list into ``_handoff_slots`` — its rows must survive until
+        the package resolves — and the request retires locally with
+        ``retire_reason="handoff"`` (the FleetRequest treats that as still
+        running). A resumed request's first token is its first recorded
+        one, checked and not emitted again; the package then carries the
+        rest for the decode engine to regenerate."""
+        self._push_token(req, slot, t, now)
+        if req.done or req.t_admit is None:
+            return      # finished here (eos, a one-token budget: the slot
+            # is free again), or a recorded token differed and the request
+            # was queued to prefill again
+        pkg = KVHandoff(self, req, slot, req._prefilled)
+        self._handoff_slots.add(slot)
+        self._handoff_out.append(pkg)
+        self.stats["handoffs_out"] += 1
+        self.flight.event(req.id, "handoff_export", slot=slot,
+                          prefill_len=pkg.prefill_len)
+        self._finish(req, "handoff")
+
+    def take_handoffs(self):
+        """Drain the packaged finished prefills (router-facing). The caller
+        OWNS delivery: every returned package must eventually be
+        ``resolve()``\\ d — delivered, deduped, or abandoned — or its slot
+        stays pinned."""
+        out = []
+        while self._handoff_out:
+            out.append(self._handoff_out.popleft())
+        return out
+
+    def _resolve_handoff(self, pkg):
+        """Release a package's slot, exactly once (``KVHandoff.resolve``);
+        a second resolution is a transport bug and raises."""
+        if pkg.resolved:
+            raise MXNetError(
+                "InferenceEngine: handoff package %r resolved twice — each "
+                "package has exactly one terminal path" % (pkg,))
+        pkg.resolved = True
+        if pkg.slot in self._handoff_slots:
+            self._handoff_slots.discard(pkg.slot)
+            self._release_slot(pkg.slot)
+
+    def set_role(self, role):
+        """Widen a specialist to ``"unified"`` (failover promotion: the
+        survivor of a dead prefill/decode pair serves both phases; a
+        program family it lacks is built at first use). Narrowing a live
+        engine is refused."""
+        if role == self.role:
+            return
+        if role != "unified":
+            raise MXNetError(
+                "InferenceEngine: role can only widen to 'unified' (engine "
+                "%s is %r, asked for %r) — build a new engine to "
+                "specialize" % (self.engine_id, self.role, role))
+        self.role = "unified"
+        _TM_ROLE.set(0)
+
+    def admit_handoff(self, payload, deadline_ms=None,
+                      ttft_deadline_ms=None):
+        """Admit a handed-off finished prefill (router-facing): write the
+        transferred KV rows into a free slot through the import program —
+        or, when ``payload["rows"]`` is None because this engine's prefix
+        pool retains the whole prefill, copy them out of the pool — set
+        the slot's state to resume after the prefill (position ``P``, the
+        token there pending, the request's draws from its seed), and
+        decode on byte-identically to a unified engine.
+
+        The payload's tokens past position ``P`` are recorded ones the
+        decode rounds regenerate and check without emitting again (a
+        resumed request prefilled on a prefill specialist); a payload
+        whose rows cover everything but the last token has none.
+
+        Exactly-once under retries: a package id already active or already
+        imported returns the existing request without touching the cache.
+        Raises :class:`EngineOverloaded` when no slot is free (the router
+        tries the next decode replica or waits)."""
+        self._check_open()
+        if self.role == "prefill":
+            raise MXNetError(
+                "InferenceEngine: engine %s has role='prefill' — it exports "
+                "handoffs, it cannot admit one" % self.engine_id)
+        rid = payload["id"]
+        existing = self._active.get(rid)
+        if existing is None:
+            existing = self._imported.get(rid)
+        if existing is not None:
+            return existing
+        # flush every dispatched-but-undrained round BEFORE touching a
+        # slot: those rounds saw the slot dead and must not drain into the
+        # imported request; draining may also free slots
+        while self._drain:
+            self._drain_one()
+        if not self._free:
+            raise EngineOverloaded(
+                "InferenceEngine: engine %s has no free slot for a handoff "
+                "(slots=%d busy)" % (self.engine_id, self.slots))
+        prompt = np.asarray(payload["prompt"], np.int64)
+        tokens = [int(t) for t in payload["tokens"]]
+        if not tokens:
+            raise MXNetError(
+                "InferenceEngine: handoff payload %r carries no first token "
+                "— the prefill side emits it" % (rid,))
+        req = Request(rid, prompt, int(payload["max_tokens"]),
+                      payload["eos_id"], float(payload["temperature"]),
+                      int(payload["seed"]),
+                      min(int(payload["max_tokens"]),
+                          self.max_len - prompt.size),
+                      deadline_ms=deadline_ms,
+                      ttft_deadline_ms=ttft_deadline_ms,
+                      resume_tokens=tokens)
+        # TTFT was served on the prefill engine
+        req.t_first = req.t_submit
+        trace = payload.get("trace")
+        if trace is not None:
+            # the wire crossing is one hop
+            req.trace = (str(trace[0]), int(trace[1]) + 1)
+        P = int(payload["prefill_len"])
+        if not prompt.size <= P < len(req.seq):
+            raise MXNetError(
+                "InferenceEngine: handoff payload %r is inconsistent — "
+                "prefill_len=%d but the prompt has %d positions and "
+                "prompt+tokens %d" % (rid, P, prompt.size, len(req.seq)))
+        if P > self.prefill_buckets[-1] or payload["last"] >= self.max_len:
+            raise MXNetError(
+                "InferenceEngine: handoff %r does not fit this engine's "
+                "geometry (prefill_len=%d, last=%d vs buckets %r, "
+                "max_len=%d) — replicas in one fleet share geometry"
+                % (rid, P, payload["last"], self.prefill_buckets,
+                   self.max_len))
+        # the recorded tokens after the pending one are regenerated
+        req._replay = len(req.seq) - 1 - P
+        slot = self._free.popleft()
+        req.t_admit = time.perf_counter()
+        rows = payload.get("rows")
+        entry = None
+        try:
+            if rows is None:
+                # transfer skipped on prefix affinity: this engine's pool
+                # retains the whole prefill; the pin brackets the copy
+                if self._prefix is None:
+                    raise MXNetError(
+                        "InferenceEngine: rows-less handoff %r but engine "
+                        "%s has no prefix pool" % (rid, self.engine_id))
+                depth, entry = self._prefix.lookup(req.seq[:P])
+                if depth < P or entry is None:
+                    raise MXNetError(
+                        "InferenceEngine: rows-less handoff %r but the pool "
+                        "covers only %d of %d prefill positions — the "
+                        "router's affinity probe was stale; retry with rows"
+                        % (rid, depth, P))
+                self._prefix.acquire(entry)
+                self._dispatch_copy(P, src=entry.slot, dst=slot,
+                                    src_pool=True, dst_pool=False)
+                self._prefix.release(entry)
+                entry = None
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_hit_tokens"] += P
+                _TM_PREFIX_HITS.inc()
+                _TM_PREFIX_HIT_TOKENS.inc(P)
+            else:
+                self._import_rows(slot, P, rows)
+            self._set_slot_state(
+                slot, P, int(req.seq[P]), req.temperature, req.seed,
+                -1 if req.eos_id is None else req.eos_id,
+                int(payload["last"]))
+        except Exception:
+            if entry is not None:
+                self._prefix.release(entry)
+            self._release_slot(slot)
+            self._free.remove(slot)      # back at the head, FIFO order
+            self._free.appendleft(slot)
+            raise
+        self._mirror[slot] = req
+        self._active[rid] = req
+        if req._deadline is not None or req._ttft_deadline is not None:
+            self._watched.add(rid)
+        if self.spec_draft == "ngram":
+            # the context a unified engine's drafter has at this point:
+            # what was prefilled, then the pending token
+            self._drafters[rid] = NgramDrafter(req.seq[:P + 1])
+        elif self.spec_draft == "model":
+            self._draft_prefill_all(req, slot, req.seq[:P])
+            self._draft_pending[slot] = [int(req.seq[P])]
+        # decode-side retention: park the prefill in THIS engine's pool so
+        # that the next same-prefix handoff ships no rows at all
+        if rows is not None and self._prefix is not None \
+                and not self._pressure \
+                and self._prefix.get(req.seq[:P]) is None:
+            try:
+                new = self._prefix.insert(req.seq[:P])
+                if new is not None:
+                    try:
+                        self._dispatch_copy(P, src=slot, dst=new.slot,
+                                            src_pool=False, dst_pool=True)
+                    except Exception:
+                        self._prefix.discard(new)
+                        raise
+                _TM_PREFIX_BYTES.set(self._prefix.bytes_used)
+            except Exception:            # noqa: BLE001 — isolated
+                _TM_PREFIX_INSERT_SKIPPED.inc()
+        self.stats["handoffs_in"] += 1
+        self.stats["submitted"] += 1
+        self.capture.submit(req)
+        if self.flight.enabled:
+            meta = {"prompt_len": int(prompt.size),
+                    "max_tokens": int(payload["max_tokens"]),
+                    "handoff": True, "resumed": req.resumed}
+            if req.trace is not None:
+                meta["trace"], meta["hop"] = req.trace
+            self.flight.start(rid, **meta)
+            self.flight.event(rid, "handoff_import", slot=slot,
+                              prefill_len=P, rows=rows is not None)
+        self._imported[rid] = req
+        while len(self._imported) > 256:
+            self._imported.popitem(last=False)
+        return req
 
     # -- host-side retirement (the JAX package's l.2318-2459) -------------
     def _check_open(self):
@@ -1137,6 +1480,7 @@ class InferenceEngine:
         if self.slo_ttft_ms is not None and req.t_first is None \
                 and reason == "deadline":
             _TM_SLO_TTFT_MISS.inc()
+        self.capture.retire(req)
         if reason == "deadline":
             _TM_DEADLINE.inc()
             self.stats["deadline_missed"] += 1
@@ -1260,12 +1604,19 @@ class InferenceEngine:
         USED bucket (chunk pieces reuse them: the start is an operand)
         and one copy program per USED bucket (both directions). Engines
         with ``draft="model"`` also report ``'draft'`` (at most 1) and
-        ``'draft_prefill'`` ({bucket: 1}). On the card a count is a
-        capture; on the CPU, a program's first run."""
+        ``'draft_prefill'`` ({bucket: 1}). Engines that ever touched the
+        KV handoff path (``role`` not ``"unified"``, or a unified engine
+        that imported) also report ``'handoff'`` ({bucket: 1}: one row
+        mover a bucket; an engine moves rows one way only). On the card a
+        count is a capture; on the CPU, a program's first run."""
         out = {"decode": 0, "verify": 0, "prefill": {}, "copy": {}}
         if self.spec_draft == "model":
             out["draft"] = 0
             out["draft_prefill"] = {}
+        if self.role != "unified" or any(
+                t[0] == "handoff" for t in self._compile_log
+                if not isinstance(t, str)):
+            out["handoff"] = {}
         for tag in self._compile_log:
             if isinstance(tag, str):
                 out[tag] += 1
@@ -1315,6 +1666,105 @@ class InferenceEngine:
             name="InferenceEngine %s program" % (tag,), tag=tag,
             log=self._compile_log, device=self.device)
         return prog
+
+    # -- KV handoff row movers (the JAX package's l.1711-1788) ------------
+    def _handoff_rows(self, bucket):
+        """The staging allocations of ``bucket``'s row movers, made at
+        first use and kept (the programs read and write them in place):
+        grouped as the cache is, ``[count, 1, bucket, ...]`` each."""
+        stage = self._handoff_stage.get(bucket)
+        if stage is None:
+            stage = self._handoff_stage[bucket] = _grouped_cache(
+                self._caches, 1, bucket)[0]
+        return stage
+
+    def _handoff_program(self, bucket, write):
+        """The row mover of ``bucket`` and direction: export (``write``
+        False) gathers the first ``bucket`` rows of slot ``ops[0]`` into
+        the staging buffers, reading the cache and writing nothing of it
+        (other slots keep decoding against it); import writes the staging
+        buffers into rows ``[0, bucket)`` of the slot. Both are tagged
+        ``("handoff", bucket)``."""
+        key = ("handoff", bucket, bool(write))
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        stage = self._handoff_rows(bucket)
+        ops = self._operand(1)
+
+        def export():
+            for g, sg in zip(self._groups, stage):
+                torch.index_select(_wide(g)[:, :, :bucket], 1, ops,
+                                   out=_wide(sg))
+
+        def write_rows():
+            for g, sg in zip(self._groups, stage):
+                _wide(g)[:, :, :bucket].index_copy_(1, ops, _wide(sg))
+
+        prog = self._programs[key] = Program(
+            write_rows if write else export, {"ops": ops},
+            mutable=self._state(),
+            name="InferenceEngine handoff %s program (bucket %d)"
+            % ("import" if write else "export", bucket),
+            tag=("handoff", bucket), log=self._compile_log,
+            device=self.device)
+        return prog
+
+    def _export_rows(self, slot, length):
+        """One slot's first ``length`` KV rows (rounded up to the covering
+        bucket: the decode side's mask hides the pad rows until they are
+        overwritten) as a row tree of host tensors, through the export
+        program and one device-to-host copy an allocation."""
+        bucket = self._bucket_for(length)
+        tc0 = time.perf_counter()
+        with tele.span("serving.handoff_export", cat="serving",
+                       bucket=bucket):
+            self._handoff_program(bucket, False)(ops=np.array([slot]))
+            stage = self._handoff_rows(bucket)
+            host = [sg.cpu() for sg in stage]
+        self._phase_add("copy", time.perf_counter() - tc0)
+        it = iter(_group_layout(self._caches)[2])
+        return [tuple(host[g][i] for g, i in (next(it) for _ in e))
+                for e in self._caches]
+
+    def _import_rows(self, slot, length, rows):
+        """Write transferred rows into ``slot``: dequantized to the cache
+        dtype first (an int8 transfer), each allocation's rows copied
+        into the staging buffers, then the import program."""
+        bucket = self._bucket_for(length)
+        rows = unpack_rows(rows, self._caches)
+        stage = self._handoff_rows(bucket)
+        _, counts, where = _group_layout(self._caches)
+        parts = [[None] * n for n in counts]
+        for (g, i), r in zip(where, (r for e in rows for r in e)):
+            parts[g][i] = r[0]
+        tc0 = time.perf_counter()
+        with tele.span("serving.handoff_import", cat="serving",
+                       bucket=bucket):
+            for sg, ps in zip(stage, parts):
+                copy_in(sg, torch.stack(ps)[:, None])
+            self._handoff_program(bucket, True)(ops=np.array([slot]))
+        self._phase_add("copy", time.perf_counter() - tc0)
+
+    def _set_slot_state(self, slot, pos, tok, temperature, seed, eos, last):
+        """Make ``slot`` live at ``pos`` with ``tok`` pending and the
+        request's sampling identity, as the final prefill piece leaves a
+        slot (the draws of every position from the seed, computed the
+        prefill program's way): the handoff's admission, which runs no
+        prefill. Eager, in place, on the stream the programs replay on."""
+        dev = self.device
+        idx = torch.tensor([slot], dtype=torch.int64, device=dev)
+        seed = (int(seed) + 2 ** 63) % 2 ** 64 - 2 ** 63    # as int64
+        draws = uniform_draw(
+            torch.tensor([seed], dtype=torch.int64, device=dev),
+            torch.arange(self.max_len, device=dev))
+        for buf, val in ((self._pos, pos), (self._tok, tok),
+                         (self._live, True), (self._eos, eos),
+                         (self._last, last),
+                         (self._temp, np.float32(temperature))):
+            buf.index_copy_(0, idx, torch.tensor([val], dtype=buf.dtype,
+                                                 device=dev))
+        self._uniform.index_copy_(0, idx, draws[None])
 
     def _staged_run(self, dec, params, aux, groups, stage_groups, stage,
                     slot, start, tokens):
@@ -1537,6 +1987,7 @@ class InferenceEngine:
         self._round_budget -= piece
         if not final:
             return False
+        req._prefilled = p
         # the first token stays on the card until drained (a copy: the
         # next run of the program overwrites its output)
         self._drain.append(("prefill", req, slot, t0.clone(),
@@ -1576,13 +2027,15 @@ class InferenceEngine:
             _TM_PREFIX_INSERT_SKIPPED.inc()
         return True
 
-    def _draft_prefill_all(self, req, slot):
+    def _draft_prefill_all(self, req, slot, seq=None):
         """Build the draft model's cache for a freshly admitted slot: the
-        whole admitted sequence in pieces of the largest bucket at most, at
-        admission (the draft model is small, so its prefill is not
-        budgeted, and it ignores prefix hits: the pool holds target K/V
-        only). Resets the slot's draft clock and pending tokens."""
-        seq = req._admitted()
+        whole admitted sequence (or ``seq``) in pieces of the largest
+        bucket at most, at admission (the draft model is small, so its
+        prefill is not budgeted, and it ignores prefix hits: the pool holds
+        target K/V only). Resets the slot's draft clock and pending
+        tokens."""
+        if seq is None:
+            seq = req._admitted()
         p = len(seq)
         start = 0
         top = self.prefill_buckets[-1]
@@ -1890,6 +2343,7 @@ class InferenceEngine:
             self._watched.discard(req.id)
             self._release_slot(slot)
             self.stats["completed"] += 1
+            self.capture.retire(req)
             self.flight.retire(req.id, req.retire_reason,
                                tokens=len(req.tokens))
             self._done_buf.append(req)
@@ -1964,6 +2418,9 @@ class InferenceEngine:
             if req.done:
                 return               # host-retired while in flight: its
                                      # slot was already released
+            if self.role == "prefill":
+                self._handoff_prefill(req, slot, int(t0), now)
+                return
             self._mirror[slot] = req
             self._push_token(req, slot, int(t0), now)
             return
@@ -2043,8 +2500,11 @@ class InferenceEngine:
             _TM_OCCUPANCY.set(busy)
             if admitted or busy:
                 _TM_ADMITTED.observe(admitted)
-            # slots still mid-prefill have nothing to decode
-            if busy - len(self._chunking) > 0:
+            # slots still mid-prefill have nothing to decode, nor slots a
+            # handoff pins (their requests left); a prefill-role engine
+            # never runs the decode family: that is its role's contract
+            if busy - len(self._chunking) - len(self._handoff_slots) > 0 \
+                    and self.role != "prefill":
                 if self._spec and self._spec_round(busy):
                     dispatched = "verify"
                 else:
@@ -2064,8 +2524,12 @@ class InferenceEngine:
                     flt = _SERVING_FAULTS
                     if flt is not None:
                         flt.serving_crash()   # injected process death
-            while len(self._drain) > (self._drain_depth if self._busy()
-                                      else 0):
+            # a prefill-role engine drains at once: no decode round follows
+            # to push a first token out of the drain window, and each one
+            # is a package the router is waiting on
+            while len(self._drain) > (
+                    self._drain_depth
+                    if self._busy() and self.role != "prefill" else 0):
                 self._drain_one()
             self._last_ok_t = time.perf_counter()
             self._slo_tick(self._last_ok_t)
@@ -2140,20 +2604,20 @@ class InferenceEngine:
         """Liveness summary (plain dict, host-side): ``stuck`` is True from
         a ``round_timeout_ms`` trip until a later drain succeeds;
         ``closed`` after :meth:`close`; ``last_round_age_s`` is how long
-        since a ``step()`` completed. ``draining``, ``role`` and
-        ``handoffs_waiting`` are the JAX package's fleet fields, constant
-        here (fleet roles belong to a later slice)."""
+        since a ``step()`` completed; ``draining``, ``role`` and
+        ``handoffs_waiting`` (packaged prefills not yet taken by the
+        router) are the fleet's fields."""
         now = time.perf_counter()
         return {
             "closed": self._closed,
             "stuck": self._watchdog_stuck_t is not None,
-            "draining": False,
-            "role": "unified",
+            "draining": self.draining,
+            "role": self.role,
             "watchdog_trips": self.stats["watchdog_trips"],
             "slots": self.slots,
             "slots_busy": self.slots - len(self._free),
             "queued": self.queued(),
-            "handoffs_waiting": 0,
+            "handoffs_waiting": len(self._handoff_out),
             "last_round_age_s": round(now - self._last_ok_t, 3),
         }
 
@@ -2176,9 +2640,11 @@ class InferenceEngine:
                 "prefix_hit_tokens": req.prefix_hit_tokens,
             })
         rows.extend(self.flight.rows())
+        # several engines in one process share one /requests endpoint:
+        # each row names its engine and role
         for row in rows:
             row["engine_id"] = self.engine_id
-            row["role"] = "unified"
+            row["role"] = self.role
         return rows
 
     # -- lifecycle (the JAX package's l.3292-3410) ----------------------------
@@ -2251,10 +2717,13 @@ class InferenceEngine:
         """Shut the engine down: every pending request — queued, staged,
         mid-prefill or decoding — fails with a typed :class:`EngineClosed`
         (``retire_reason="closed"``; drained tokens stay readable on
-        ``.tokens``), every slot and prefix-cache pin is released, and the
-        engine's device memory goes: its programs (each capture and its
-        graph's memory pool), caches, prefix pool, state vectors and its
-        own weight copy. Idempotent; ``submit``/``step``/
+        ``.tokens``), every slot and prefix-cache pin is released, packages
+        not yet delivered die with the engine (marked resolved: their rows
+        are gone), the capture file closes, and the engine's device memory
+        goes: its programs (each capture and its graph's memory pool),
+        caches, prefix pool, handoff staging, state vectors and its own
+        weight copy — only what it owns: a decoder's weights that other
+        engines serve from stay as they are. Idempotent; ``submit``/``step``/
         ``serve_forever`` raise :class:`EngineClosed` afterwards. Also a
         context manager (``with engine: ...`` closes on exit)."""
         if self._closed:
@@ -2269,7 +2738,13 @@ class InferenceEngine:
         self._chunking.clear()
         self._held = None
         self._drain.clear()
+        while self._handoff_out:
+            self._handoff_out.popleft().resolved = True
+        for slot in sorted(self._handoff_slots):
+            self._release_slot(slot)
+        self._handoff_slots.clear()
         self._stager.close()
+        self.capture.close()
         # each program and this engine refer to each other: dropping the
         # engine's side frees the captures now, not at the next cycle
         # collection
@@ -2317,6 +2792,22 @@ class InferenceEngine:
                 if req._ttft_deadline is None or req.t_first is not None
                 else (req._ttft_deadline - now) * 1e3,
             })
+        # packaged but undelivered handoffs: retired here, not done — a
+        # restore (or the fleet's failover) serves them on
+        for pkg in self._handoff_out:
+            if pkg.resolved:
+                continue
+            reqs.append({
+                "id": pkg.id,
+                "prompt": pkg.prompt.tolist(),
+                "tokens": list(pkg.tokens),
+                "max_tokens": int(pkg.max_tokens),
+                "eos_id": pkg.eos_id,
+                "temperature": float(pkg.temperature),
+                "seed": int(pkg.seed),
+                "deadline_ms": None,
+                "ttft_deadline_ms": None,
+            })
         return {
             "version": 1,
             "auto_seed": self._auto_seed,
@@ -2328,8 +2819,10 @@ class InferenceEngine:
     def _geometry(self):
         """The engine's geometry as plain JSON: every constructor knob a
         fresh engine needs to serve the same way, the JAX package's keys
-        (``tp``/``ep``/``role``/``handoff_dtype``/``capture_dir`` at the
-        values the port serves with)."""
+        (``tp``/``ep`` at the values the port serves with). Shared by
+        :meth:`snapshot` and the capture header; ``capture_dir`` is None
+        in the header (written before the knob resolves: a replay must
+        not capture again by default)."""
         return {
             "slots": self.slots,
             "prefill_buckets": list(self.prefill_buckets),
@@ -2353,9 +2846,9 @@ class InferenceEngine:
             "weight_dtype": self.weight_dtype,
             "weight_group": self.weight_group,
             "matmul_impl": self.matmul_impl,
-            "role": "unified",
-            "handoff_dtype": "native",
-            "capture_dir": None,
+            "role": self.role,
+            "handoff_dtype": self.handoff_dtype,
+            "capture_dir": getattr(self, "capture_dir", None),
         }
 
     @classmethod
@@ -2374,8 +2867,10 @@ class InferenceEngine:
         carry over. Returns ``(engine,
         {request_id: Request})``. A ``draft="model"`` snapshot needs the
         draft model back: pass ``draft_decoder=...`` in ``overrides``. A
-        geometry knob the port still refuses (``tp``, ``role``,
-        ``capture_dir`` ...) must be at its default."""
+        geometry knob the port still refuses (``tp``, ``ep``) must be at
+        its default. A snapshot's ``capture_dir`` makes the restored
+        engine capture into a fresh file in that directory, its header
+        naming the donor (``migrated_from``)."""
         if not isinstance(snap, dict) or snap.get("version") != 1:
             raise MXNetError(
                 "InferenceEngine.restore: not an engine snapshot "

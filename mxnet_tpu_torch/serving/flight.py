@@ -11,8 +11,8 @@ already knows about (submit → staged → prefix hit/miss → admitted →
 each prefill chunk → first token → sampled decode progress → retire
 with the reason) is appended to the request's record, and the last
 ``retain`` RETIRED records are kept for post-hoc reconstruction through
-:meth:`FlightRecorder.timeline` (the JAX package also serves them over
-HTTP, which belongs to a later slice of the port).
+:meth:`FlightRecorder.timeline` and served over HTTP at
+``GET /flight/<id>`` (:mod:`mxnet_tpu_torch.telemetry_http`).
 
 Design constraints, matching the rest of the telemetry plane:
 

@@ -26,8 +26,8 @@ Knobs: ``MXNET_TELEMETRY=0`` disables collection entirely;
 ``MXNET_TRACE_DIR=<dir>`` arms span capture at import (flushed at
 process exit, or explicitly via :func:`stop_trace`);
 ``MXNET_TELEMETRY_LOG_INTERVAL=<seconds>`` starts a background
-reporter that logs a compact summary on that cadence. The HTTP
-exposition server (:func:`serve`) belongs to a later slice of the port.
+reporter that logs a compact summary on that cadence. :func:`serve`
+puts the plane on HTTP (:mod:`mxnet_tpu_torch.telemetry_http`).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ import re
 import threading
 import time
 
-from .base import MXNetError, later_slice
+from .base import MXNetError
 
 __all__ = ["counter", "gauge", "histogram", "snapshot", "to_prometheus",
            "span", "mark", "trace_complete", "start_trace", "stop_trace",
@@ -636,18 +636,25 @@ class SloWindow:
 
 
 # ---------------------------------------------------------------------------
-# HTTP exposition: the JAX package's telemetry_http.py, a later slice
+# HTTP exposition (telemetry_http.py holds the server; these are the
+# JAX package's entry points)
 
 def serve(port=0, host="127.0.0.1"):
-    """The read-only HTTP exposition server (``GET /metrics``,
-    ``/snapshot``, ``/requests``, ``/flight/<id>``, ``/healthz``) of the
-    JAX package; raises: it belongs to a later slice of the port."""
-    raise later_slice("telemetry.serve", "the HTTP exposition server")
+    """Start (or restart) the read-only HTTP exposition server on a daemon
+    thread: ``GET /metrics`` (Prometheus text), ``/snapshot`` (JSON),
+    ``/rounds``, ``/requests``, ``/flight/<id>``, ``/fleet``,
+    ``/fleet/flight/<id>`` and ``/healthz``. ``port=0`` binds an ephemeral
+    port. Returns the server handle (``.url``, ``.port``, ``.stop()``).
+    ``MXNET_TELEMETRY_PORT`` starts one when ``telemetry_http`` is
+    imported."""
+    from . import telemetry_http
+    return telemetry_http.serve(port=port, host=host)
 
 
 def stop_server():
-    """Stop the exposition server; raises, as :func:`serve` does."""
-    raise later_slice("telemetry.stop_server", "the HTTP exposition server")
+    """Stop the exposition server (no-op when none runs)."""
+    from . import telemetry_http
+    telemetry_http.stop_server()
 
 
 # ---------------------------------------------------------------------------

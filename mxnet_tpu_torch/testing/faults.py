@@ -1,8 +1,8 @@
-"""Deterministic fault injection for the serving engine.
+"""Deterministic fault injection for the serving engine and the fleet.
 
-Counterpart of the serving half of ``mxnet_tpu/testing/faults.py``. A
-:class:`FaultInjector` installs itself as
-``mxnet_tpu_torch.serving.engine._SERVING_FAULTS`` while one of its
+Counterpart of the serving and fleet halves of
+``mxnet_tpu/testing/faults.py``. A :class:`FaultInjector` installs itself
+as ``mxnet_tpu_torch.serving.engine._SERVING_FAULTS`` while one of its
 serving plans is active, and drives the engine's host-side failure seams
 deterministically:
 
@@ -23,9 +23,23 @@ test reads like a fault schedule:
     with inj.serving_h2d_failures(1):
         engine.submit(...)      # this request's staging fails
 
+The fleet plans install it as
+``mxnet_tpu_torch.serving.fleet._FLEET_FAULTS`` and drive the
+:class:`~mxnet_tpu_torch.serving.FleetRouter`'s seams:
+:meth:`FaultInjector.fleet_kill_replica` (the named replica's next stepped
+round dies with :class:`InjectedCrash` through the engine's own crash
+seam — dispatched but undrained), :meth:`FaultInjector.
+fleet_heartbeat_blackhole` (the replica's next pings go unanswered),
+:meth:`FaultInjector.fleet_slow_replica` (the channel to the replica
+stalls; the router's per-op timeout and ping probe decide slow-not-dead),
+:meth:`FaultInjector.fleet_submit_failures` (the channel drops a submit)
+and :meth:`FaultInjector.fleet_handoff_failures` (the channel drops a KV
+handoff delivery). A directive naming replica ``None`` matches whichever
+replica reaches that seam first.
+
 Every injected fault is appended to ``FaultInjector.log`` as ``(kind,
 op)``. The JAX package's transport plans (the ``dist_async`` kvstore)
-and fleet plans raise: they belong to later slices of the port.
+raise: they belong to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -56,13 +70,16 @@ class FaultInjector:
     def __init__(self, seed=0):
         self.rng = random.Random(seed)
         self.serving_plan = collections.deque()
+        self.fleet_plan = collections.deque()
         self.log = []          # (kind, op) per injected fault
         self._serving_depth = 0
+        self._fleet_depth = 0
+        self._fleet_prev = None
         self._serving_prev = None
         self._hang_until = None
         self._lock = threading.Lock()
 
-    # -- the transport and fleet plans: later slices ------------------
+    # -- the transport plans: a later slice ----------------------------
     def random_faults(self, n, p_drop=0.0, p_sever=0.2, p_delay=0.0,
                       delay_s=0.05):
         raise later_slice("FaultInjector", "the kvstore transport plans")
@@ -81,21 +98,6 @@ class FaultInjector:
 
     def drop_replies(self, n=1):
         raise later_slice("FaultInjector", "the kvstore transport plans")
-
-    def fleet_kill_replica(self, replica_id=None, n=1):
-        raise later_slice("FaultInjector", "the fleet plans")
-
-    def fleet_heartbeat_blackhole(self, replica_id=None, n=1):
-        raise later_slice("FaultInjector", "the fleet plans")
-
-    def fleet_slow_replica(self, replica_id=None, seconds=1.0, n=1):
-        raise later_slice("FaultInjector", "the fleet plans")
-
-    def fleet_submit_failures(self, replica_id=None, n=1):
-        raise later_slice("FaultInjector", "the fleet plans")
-
-    def fleet_handoff_failures(self, replica_id=None, n=1):
-        raise later_slice("FaultInjector", "the fleet plans")
 
     # -- serving-engine plans -----------------------------------------
     def serving_h2d_failures(self, n=1):
@@ -177,3 +179,137 @@ class FaultInjector:
         self.log.append(("crash", None))
         raise InjectedCrash("fault injection: process died mid-round "
                             "(dispatched, undrained)")
+
+    # -- fleet plans ---------------------------------------------------
+    def fleet_kill_replica(self, replica_id=None, n=1):
+        """Kill the named replica (or whichever steps first when
+        ``None``) mid-round, ``n`` times: its next stepped round dies
+        with :class:`InjectedCrash` AFTER dispatch via the engine's
+        own crash seam — tokens dispatched but undrained, exactly the
+        snapshot-after-crash state the router must fail over from."""
+        return self._fleet_scheduled([("kill_replica", replica_id)] * n)
+
+    def fleet_heartbeat_blackhole(self, replica_id=None, n=1):
+        """The replica's next ``n`` heartbeat pings go unanswered (a
+        partitioned or hung peer): ``heartbeat_misses`` consecutive
+        misses and the router declares it dead and fails over."""
+        return self._fleet_scheduled([("blackhole", replica_id)] * n)
+
+    def fleet_slow_replica(self, replica_id=None, seconds=1.0, n=1):
+        """The channel to the replica stalls ``seconds`` on the next
+        ``n`` submits. Past the router's ``timeout_ms`` the op times
+        out and the ping probe decides slow-not-dead (retry, no
+        failover) — under it, the submit just lands."""
+        return self._fleet_scheduled(
+            [("slow", replica_id, seconds)] * n)
+
+    def fleet_submit_failures(self, replica_id=None, n=1):
+        """Drop the next ``n`` submits to the replica on the floor
+        (``ConnectionError`` from the channel): the router's bounded
+        retry/backoff — and, when the submit actually LANDED before
+        the fault, the exactly-once adoption path — must absorb it."""
+        return self._fleet_scheduled([("submit_fail", replica_id)] * n)
+
+    def fleet_handoff_failures(self, replica_id=None, n=1):
+        """Drop the next ``n`` KV-handoff deliveries to the decode
+        replica (``ConnectionError`` from the channel): the router's
+        retry must re-deliver the SAME package, and when the admit
+        landed before the fault died on the wire, the decode engine's
+        dedup table must admit exactly once (adoption, not double
+        admission)."""
+        return self._fleet_scheduled([("handoff_fail", replica_id)] * n)
+
+    @contextlib.contextmanager
+    def _fleet_scheduled(self, directives):
+        from ..serving import fleet as _sf
+
+        with self._lock:
+            self.fleet_plan.extend(directives)
+            if self._fleet_depth == 0:
+                self._fleet_prev = _sf._FLEET_FAULTS
+                _sf._FLEET_FAULTS = self
+            self._fleet_depth += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._fleet_depth -= 1
+                if self._fleet_depth == 0:
+                    _sf._FLEET_FAULTS = self._fleet_prev
+                    self.fleet_plan.clear()
+
+    # -- hooks called by serving.fleet.FleetRouter --------------------
+    def _fleet_head(self, kind, replica_id):
+        """Pop-and-return the head directive iff it is ``kind`` aimed
+        at ``replica_id`` (or at anyone). FIFO: a head aimed at a
+        DIFFERENT replica blocks this one from matching, so a test's
+        schedule fires in the order it was written."""
+        head = self.fleet_plan[0] if self.fleet_plan else None
+        if head is None or head[0] != kind:
+            return None
+        if head[1] is not None and head[1] != replica_id:
+            return None
+        return self.fleet_plan.popleft()
+
+    def fleet_step_context(self, replica_id):
+        """Context manager for one replica round, or None. A matched
+        kill directive arms the ENGINE crash seam for the round's
+        scope, so death lands after dispatch exactly like
+        :meth:`serving_crash_mid_round`."""
+        with self._lock:
+            head = self._fleet_head("kill_replica", replica_id)
+        if head is None:
+            return None
+        self.log.append(("kill_replica", replica_id))
+        return self._serving_scheduled([("crash",)])
+
+    def fleet_ping_blackholed(self, replica_id):
+        """True when the replica's ping should go unanswered."""
+        with self._lock:
+            head = self._fleet_head("blackhole", replica_id)
+        if head is None:
+            return False
+        self.log.append(("blackhole", replica_id))
+        return True
+
+    def fleet_submit(self, replica_id):
+        """Channel fault for one submit attempt: raises
+        ``ConnectionError`` (dropped), or returns a stall in seconds
+        (the router judges it against its timeout), or 0 (clean)."""
+        with self._lock:
+            head = self._fleet_head("submit_fail", replica_id)
+            if head is None:
+                slow = self._fleet_head("slow", replica_id)
+            else:
+                slow = None
+        if head is not None:
+            self.log.append(("submit_fail", replica_id))
+            raise ConnectionError(
+                "fault injection: submit to replica %r lost"
+                % (replica_id,))
+        if slow is not None:
+            self.log.append(("slow", replica_id))
+            return slow[2]
+        return 0
+
+    def fleet_handoff(self, replica_id):
+        """Channel fault for one KV-handoff delivery attempt: raises
+        ``ConnectionError`` (package lost on the wire), or returns a
+        stall in seconds, or 0 (clean) — same contract as
+        :meth:`fleet_submit`, separate directive kind so a schedule
+        can fault handoffs without touching ordinary submits."""
+        with self._lock:
+            head = self._fleet_head("handoff_fail", replica_id)
+            if head is None:
+                slow = self._fleet_head("slow", replica_id)
+            else:
+                slow = None
+        if head is not None:
+            self.log.append(("handoff_fail", replica_id))
+            raise ConnectionError(
+                "fault injection: handoff to replica %r lost"
+                % (replica_id,))
+        if slow is not None:
+            self.log.append(("slow", replica_id))
+            return slow[2]
+        return 0

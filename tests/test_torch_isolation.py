@@ -29,6 +29,10 @@ for info in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
     importlib.import_module(info.name)
     names.append(info.name)
 from mxnet_tpu_torch.serving import InferenceEngine, Request  # noqa
+from mxnet_tpu_torch.serving import (  # noqa: F401
+    FleetRouter, KVHandoff, CaptureStream, load_capture, pack_rows)
+from mxnet_tpu_torch.serving import replay, handoff, fleet, capture  # noqa
+from mxnet_tpu_torch import telemetry_http  # noqa: F401
 from mxnet_tpu_torch.parallel import ParallelTrainer, make_graph_fn  # noqa
 from mxnet_tpu_torch.parallel import (  # noqa: F401
     SequenceParallelTrainer, build_mesh, collectives, ring_attention,
@@ -47,8 +51,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    # every module of the slice was imported
-    assert int(out.stdout.strip().splitlines()[-1]) >= 34
+    # every module of the slice was imported (the fleet's included:
+    # serving.capture, .handoff, .fleet, .replay and telemetry_http)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 39
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

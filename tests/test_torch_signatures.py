@@ -6,6 +6,8 @@ yet raises its "later slice" ``MXNetError`` when set to anything but the
 default. Small 1-layer models, on the CPU.
 """
 import inspect
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -22,8 +24,11 @@ from mxnet_tpu.parallel import sp as jax_sp
 from mxnet_tpu.parallel import trainer as jax_trainer
 from mxnet_tpu import io as jax_io
 from mxnet_tpu import telemetry as jax_tele
+from mxnet_tpu.serving import capture as jax_capture
 from mxnet_tpu.serving import engine as jax_engine
+from mxnet_tpu.serving import fleet as jax_fleet
 from mxnet_tpu.serving import flight as jax_flight
+from mxnet_tpu.serving import handoff as jax_handoff
 from mxnet_tpu.testing import faults as jax_faults
 
 import mxnet_tpu_torch.model as tmodel
@@ -40,9 +45,17 @@ from mxnet_tpu_torch.parallel import sp as tsp
 from mxnet_tpu_torch.parallel import trainer as ttrainer
 from mxnet_tpu_torch import io as tio
 from mxnet_tpu_torch import telemetry as ttele
+from mxnet_tpu_torch.serving import capture as tcapture
 from mxnet_tpu_torch.serving import engine as tengine
+from mxnet_tpu_torch.serving import fleet as tfleet
 from mxnet_tpu_torch.serving import flight as tflight
+from mxnet_tpu_torch.serving import handoff as thandoff
+from mxnet_tpu_torch.serving import replay as treplay
 from mxnet_tpu_torch.testing import faults as tfaults
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+from tools import replay_serving as jax_replay  # noqa: E402
 
 VOCAB, T = 23, 16
 
@@ -88,7 +101,35 @@ CALLABLES = [
 ] + [("InferenceEngine." + name, getattr(jax_engine.InferenceEngine, name),
       getattr(tengine.InferenceEngine, name))
      for name in ("cancel", "serve_forever", "close", "snapshot", "restore",
-                  "health", "round_table", "request_table")
+                  "health", "round_table", "request_table", "admit_handoff",
+                  "set_role", "take_handoffs")
+] + [("FleetRouter." + name, getattr(jax_fleet.FleetRouter, name),
+      getattr(tfleet.FleetRouter, name))
+     for name in ("__init__", "submit", "drain", "add_replica", "step",
+                  "serve_forever", "cancel", "close", "health",
+                  "fleet_table", "replica", "replica_ids")
+] + [("FleetFlightRecorder." + name,
+      getattr(jax_fleet.FleetFlightRecorder, name),
+      getattr(tfleet.FleetFlightRecorder, name))
+     for name in ("__init__", "start", "event", "hop", "absorb", "retire",
+                  "timeline", "chrome_trace", "rows", "ids")
+] + [("KVHandoff.payload", jax_handoff.KVHandoff.payload,
+      thandoff.KVHandoff.payload),
+     ("pack_rows", jax_handoff.pack_rows, thandoff.pack_rows),
+     ("unpack_rows", jax_handoff.unpack_rows, thandoff.unpack_rows),
+     ("CaptureStream.open", jax_capture.CaptureStream.open,
+      tcapture.CaptureStream.open),
+     ("CaptureStream", jax_capture.CaptureStream.__init__,
+      tcapture.CaptureStream.__init__),
+     ("load_capture", jax_capture.load_capture, tcapture.load_capture),
+     ("replay.replay", jax_replay.replay, treplay.replay),
+     ("replay.build_engine", jax_replay.build_engine,
+      treplay.build_engine),
+     ("replay.rolling_restart", jax_replay.rolling_restart,
+      treplay.rolling_restart),
+     ("replay.role_report", jax_replay.role_report, treplay.role_report),
+     ("replay.recorded_latency", jax_replay.recorded_latency,
+      treplay.recorded_latency)
 ] + [("FlightRecorder." + name, getattr(jax_flight.FlightRecorder, name),
       getattr(tflight.FlightRecorder, name))
      for name in ("__init__", "start", "event", "token", "retire",
@@ -97,7 +138,11 @@ CALLABLES = [
       getattr(tfaults.FaultInjector, name))
      for name in ("__init__", "serving_h2d_failures", "serving_round_hang",
                   "serving_crash_mid_round", "serving_h2d",
-                  "serving_round_stuck", "serving_crash")
+                  "serving_round_stuck", "serving_crash",
+                  "fleet_kill_replica", "fleet_heartbeat_blackhole",
+                  "fleet_slow_replica", "fleet_submit_failures",
+                  "fleet_handoff_failures", "fleet_step_context",
+                  "fleet_ping_blackholed", "fleet_submit", "fleet_handoff")
 ] + [("StagedStream." + name, getattr(jax_io.StagedStream, name),
       getattr(tio.StagedStream, name))
      for name in ("__init__", "next", "staged", "prune", "reset", "close")
@@ -215,10 +260,7 @@ def test_generate_repeats_for_the_same_rng_seed(decoder):
         decoder.generate(prompt, 5, rng=5, temperature=1.0)
 
 
-ENGINE_UNPORTED = [
-    ("capture_dir", "cap"),
-    ("capture_mb", 8), ("tp", 2), ("mesh", object()), ("ep", 2),
-    ("role", "prefill"), ("handoff_dtype", "int8")]
+ENGINE_UNPORTED = [("tp", 2), ("mesh", object()), ("ep", 2)]
 
 
 @pytest.mark.parametrize("param,value", ENGINE_UNPORTED,
@@ -226,6 +268,31 @@ ENGINE_UNPORTED = [
 def test_engine_unported_parameters_raise(decoder, param, value):
     with pytest.raises(MXNetError, match="later slice"):
         tengine.InferenceEngine(decoder, **{param: value})
+
+
+# the fleet parameters (they raised "later slice" before this slice of the
+# port): (name, value, what the engine reads)
+ENGINE_FLEET = [
+    ("capture_dir", "cap", lambda e: e.capture_dir),
+    ("capture_mb", 8, lambda e: e.capture.max_bytes >> 20),
+    ("role", "prefill", lambda e: e.role),
+    ("handoff_dtype", "int8", lambda e: e.handoff_dtype)]
+
+
+@pytest.mark.parametrize("param,value,reads", ENGINE_FLEET,
+                         ids=[p for p, _, _ in ENGINE_FLEET])
+def test_engine_fleet_parameters_are_accepted(decoder, tmp_path,
+                                              monkeypatch, param, value,
+                                              reads):
+    """Each is taken and reaches the engine (a capture_mb needs a
+    directory to bound: the env default's)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("MXNET_SERVING_CAPTURE_DIR", "cap")
+    eng = tengine.InferenceEngine(decoder, 2, **{param: value})
+    try:
+        assert reads(eng) == value
+    finally:
+        eng.close()
 
 
 # the robustness and observability parameters (they raised "later slice"
@@ -270,8 +337,7 @@ def test_submit_takes_deadlines_and_resume_tokens(decoder):
     assert (r.tokens, r.resumed, r.seq.tolist()) == ([5, 6], 2,
                                                      [1, 2, 3, 5, 6])
     assert r.deadline_ms == 1e6 and r._deadline is not None
-    with pytest.raises(MXNetError, match="later slice"):
-        eng.submit([1, 2, 3], 4, _trace=("t", 0))
+    assert eng.submit([1, 2, 3], 4, _trace=("t", 0)).trace == ("t", 0)
     eng.close()
 
 
