@@ -183,6 +183,30 @@ Phases:
    ``/fleet/flight/<id>`` every 50 ms (``/metrics`` parses as Prometheus
    text, a journey's hops are the prefill then the decode engine), ms a
    scrape, tokens/s with the scraper against without, in turns;
+4e. tensor-parallel serving of phase 4's 124M LM (each check on its own
+   ``phase 4e`` line, the phase's seconds last; every tp figure is two
+   ranks on ONE card, not a multi-card figure): the paged read of each
+   rank's 6 heads bitwise equal to the same heads of the 12-head read
+   (decode entry C = 1 and 5, chunk entry C = 64 and 256, bf16 and int8
+   caches); then a tp=2 engine on ``model_parallel_mesh(2, devices=
+   [cuda:0] * 2)`` against the tp=1 engine from the same weights, both
+   with unfused products (``matmul_impl="pallas"``; the fused step is not
+   eligible under tp): (1) phase 4's wave, 5 waves at each degree in
+   turns: every stream equal, two equal ``Decoder.generate``, exact
+   launches from ``stats`` (2 x 12 decode reads a step and 2 x 12 chunk
+   reads a prefill at tp=2, the products as at tp=1, no fused step), each
+   rank's shard ``[32, 1024, 6, 64]`` contiguous, ``kv_bytes_per_shard``
+   half of tp=1's, equal ``compile_counts``; tokens/s at each degree, a
+   decode profile (wall and card ms a step, idle share, host calls a
+   round) and the idle decode round's wall, card and event time; (2) the
+   int8 KV cache, one wave each, streams equal, exact launches; (3) the
+   reuse gauntlet (160 MiB prefix pool, ``prefill_chunk=256``, n-gram
+   ``spec_k=4``; 10 system-prompt, 4 long and 10 repeating prompts):
+   streams, reuse stats and compile counts equal, exact launches; (4) a
+   tp=2 snapshot 6 rounds into the wave restored at tp=1 and a tp=1 one
+   at tp=2: the donors' and the restored engines' streams equal tp=1's;
+   (5) the wave through a tp=2 prefill and a tp=1 decode specialist, and
+   the other way round: streams equal tp=1's;
 5. the training main path: the same 124M LM (``impl="flash"``) trained by
    ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
    0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
@@ -3788,6 +3812,410 @@ def fleet_main_path(K, dev, prefix, work, streams):
     return launches
 
 
+# -- phase 4e: tensor-parallel serving ---------------------------------------
+
+TP = 2
+TP_WAVES = 5                        # phase 4's wave at each degree, in turns
+TP_INT8_WAVES = 3                   # the same with the int8 KV cache
+# both degrees' products: unfused (the fused step is not eligible under tp,
+# and it rounds a bf16 step differently from the unfused chain)
+TP_MM = "pallas"
+TP_NOTE = "two ranks on ONE card, not a multi-card figure"
+
+
+def check_head_split(K, dev, gen):
+    """What byte-identity across degrees rests on, bitwise, at the 124M
+    serving shapes (12 heads of 64, L = 1024): the paged read of a tp rank
+    (its 6 query heads over its 6 kv heads, each contiguous) equals the
+    same heads of the 12-head read, through the decode entry (S = 32, C = 1
+    and 5, bf16 and int8 caches) and the chunk entry (S = 1, C = 64 and
+    256, bf16 and int8), random pos."""
+    l_, h, d = 1024, HEADS, EMBED // HEADS
+    hl = h // TP
+    n = 0
+    for s_, c_, kind in ((32, 1, "bf16"), (32, 5, "bf16"), (32, 1, "int8"),
+                         (1, 64, "bf16"), (1, 256, "bf16"),
+                         (1, 256, "int8")):
+        k, v, ks, vs = _cache(gen, s_, l_, h, d, kind, dev)
+        q = _rand(gen, (s_, c_, h, d), torch.bfloat16).to(dev)
+        pos = torch.randint(0, l_ - c_, (s_,), generator=gen,
+                            dtype=torch.int32).to(dev)
+
+        def read(lo, hi):
+            sc = {} if ks is None else dict(
+                k_scale=ks[:, :, lo:hi].contiguous(),
+                v_scale=vs[:, :, lo:hi].contiguous())
+            return K.paged_attention(
+                q[:, :, lo:hi].contiguous(), k[:, :, lo:hi].contiguous(),
+                v[:, :, lo:hi].contiguous(), pos, **sc)
+        whole = read(0, h)
+        for r in range(TP):
+            part = read(r * hl, (r + 1) * hl)
+            if not torch.equal(part, whole[:, :, r * hl:(r + 1) * hl]):
+                raise AssertionError(
+                    "paged_attention (%s, S=%d, C=%d, %s cache): rank %d's "
+                    "heads differ from the same heads of the 12-head read "
+                    "(max |diff| %.3g)" % (
+                        K.paged_entry(q.dtype, k.dtype, c_, d), s_, c_, kind,
+                        r, (part.float() - whole[:, :, r * hl:(r + 1) * hl]
+                            .float()).abs().max()))
+            n += 1
+    log("phase 4e head split: %d rank reads (decode entry C=1/5, chunk entry "
+        "C=64/256, bf16 and int8 caches) bitwise equal to the same heads of "
+        "the 12-head read" % n)
+
+
+def _tp_launches(d, tp, spec=False):
+    """Launches for an engine's stats deltas ``d`` at degree ``tp`` with
+    unfused products: tp=1's (per decode step 12 decode reads and 4*12+1
+    products; per prefill piece 12 chunk reads and 4*12+1 products; under
+    speculation ``_spec_launches``) with ``tp`` times the paged reads (one
+    a rank) and the products once (they run replicated, once)."""
+    if spec:
+        want = _spec_launches(d)
+    else:
+        steps = d["steps"] * STEPS_PER_ROUND
+        want = {"paged_attention_decode": LAYERS * steps,
+                "paged_attention_chunk": LAYERS * d["prefill_chunks"],
+                "quant_matmul": (4 * LAYERS + 1)
+                * (steps + d["prefill_chunks"])}
+    for e in ("paged_attention_decode", "paged_attention_chunk"):
+        want[e] *= tp
+    return want
+
+
+def _delta(engine, before):
+    return {k: engine.stats[k] - before[k] for k in engine.stats}
+
+
+def _kv_gauge():
+    from mxnet_tpu_torch import telemetry
+    return telemetry.snapshot()["serving"]["kv_bytes_per_shard"]
+
+
+def _check_tp_shards(engine, dev):
+    """Each rank's slot cache: every buffer ``[32, 1024, 6, ...]`` on the
+    card, contiguous and an allocation of its own rank."""
+    if len(engine._caches) != TP:
+        raise AssertionError("phase 4e: %d cache shards, want %d"
+                             % (len(engine._caches), TP))
+    owners = []
+    for tree in engine._caches:
+        ptrs = set()
+        for entry in tree:
+            for b in entry:
+                if tuple(b.shape[:3]) != (SLOTS, MAX_LEN, HEADS // TP) \
+                        or not b.is_contiguous() or b.device != dev:
+                    raise AssertionError(
+                        "phase 4e: a shard buffer %s %s (contiguous %s), "
+                        "want [%d, %d, %d, ...] on %s" % (
+                            tuple(b.shape), b.device, b.is_contiguous(),
+                            SLOTS, MAX_LEN, HEADS // TP, dev))
+                ptrs.add(b.untyped_storage().data_ptr())
+        owners.append(ptrs)
+    if owners[0] & owners[1]:
+        raise AssertionError("phase 4e: two ranks share an allocation")
+
+
+def tp_pair(dec, mesh, dev, what, **kw):
+    """The tp=1 engine and the tp=2 one over ``dec`` (phase 4's
+    configuration, ``kw`` on top): the shards checked, the per-shard
+    gauge half of tp=1's."""
+    one = _engine_4c(dec, **kw)
+    g1 = _kv_gauge()
+    two = _engine_4c(dec, mesh=mesh, **kw)
+    g2 = _kv_gauge()
+    _check_tp_shards(two, dev)
+    if 2 * g2 != g1 or two.tp != TP:
+        raise AssertionError("phase 4e %s: kv_bytes_per_shard %d at tp=2, "
+                             "%d at tp=1" % (what, g2, g1))
+    return one, two, g1, g2
+
+
+def _tp_equal(what, handles, streams):
+    for h, s in zip(handles, streams):
+        if not h.done or h.tokens != s:
+            raise AssertionError("phase 4e %s: request %s's stream differs "
+                                 "from the tp=1 engine's" % (what, h.id))
+
+
+def _waves_in_turns(K, what, one, two, work, waves):
+    """``waves`` of ``work`` on the tp=1 engine ``one`` and the tp=2
+    engine ``two`` in turns (each warmed first), counters zeroed just
+    before and read just after: exact launches from both engines'
+    ``stats``, every stream of either equal to tp=1's first wave. Returns
+    ``({tp: [(handles, seconds)]}, launches, tp=2's share)``."""
+    for e in (one, two):
+        _warm(e)
+    s0 = {id(e): dict(e.stats) for e in (one, two)}
+    K.reset_launch_counts()
+    runs = {1: [], TP: []}
+    for i in range(waves):
+        turn = ((1, one), (TP, two))
+        for tp, eng in (turn if i % 2 == 0 else turn[::-1]):
+            runs[tp].append(_serve_wave(eng, work))
+    launches = K.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    share = {}
+    for tp, e in ((1, one), (TP, two)):
+        for k, n in _tp_launches(_delta(e, s0[id(e)]), tp).items():
+            want[k] += n
+            if tp == TP:
+                share[k] = n
+    if launches != want:
+        raise AssertionError("phase 4e %s: launch counts %r, the waves "
+                             "want %r" % (what, launches, want))
+    streams = [h.tokens for h in runs[1][0][0]]
+    for tp in runs:
+        for handles, _ in runs[tp]:
+            for h in handles:
+                if not h.done or len(h.tokens) != h.limit:
+                    raise AssertionError("phase 4e %s: request %s did not "
+                                         "finish its budget" % (what, h.id))
+            _tp_equal("%s (tp=%d)" % (what, tp), handles, streams)
+    return runs, launches, share
+
+
+def _tps(runs):
+    """{tp: median tokens/s over its waves}."""
+    return {tp: statistics.median(_wave_metrics(h, t)[0] for h, t in r)
+            for tp, r in runs.items()}
+
+
+def tp_wave(K, dec, mesh, dev, work, timer):
+    """4e.1: phase 4's wave at tp=2 and tp=1, TP_WAVES waves each in
+    turns: streams equal (and two equal ``Decoder.generate``), exact
+    launches, shards, gauge, compile counts; the decode round's wall and
+    card time at each degree. Returns the launches, the tp=2 engine's
+    share of them, and the tp=1 streams."""
+    one, two, g1, g2 = tp_pair(dec, mesh, dev, "wave")
+    runs, launches, share = _waves_in_turns(K, "wave", one, two, work,
+                                            TP_WAVES)
+    streams = [h.tokens for h in runs[1][0][0]]
+    first = runs[TP][0][0]
+    _equal_generate("phase 4e wave", dec, (first[0], max(
+        first[1:], key=lambda h: len(h.prompt))))
+    check_compile_counts(one, "phase 4e tp=1")
+    check_compile_counts(two, "phase 4e tp=2")
+    tps = {tp: [_wave_metrics(h, t) for h, t in runs[tp]] for tp in runs}
+    for tp in runs:
+        cols = list(zip(*tps[tp]))
+        log("phase 4e wave at tp=%d (%s): %d waves in turns, median "
+            "(min-max) %.1f tokens/s (%.1f-%.1f), ms per token p50 %.3f, "
+            "p99 %.3f; %s" % (
+                tp, TP_NOTE if tp > 1 else "one rank",
+                len(cols[0]), statistics.median(cols[0]), min(cols[0]),
+                max(cols[0]), statistics.median(cols[1]),
+                statistics.median(cols[2]), card_line()))
+    med = _tps(runs)
+    ratio = med[TP] / med[1]
+    log("phase 4e wave: tokens/s at tp=2 over tp=1 %.4f (%s); every stream "
+        "equal at both degrees and to phase 4e's first wave; two equal "
+        "Decoder.generate; compile_counts equal; each rank's shard "
+        "[%d, %d, %d, %d] contiguous; kv_bytes_per_shard %d at tp=2 against "
+        "%d at tp=1; launches %s (tp=2's share %s)" % (
+            ratio, TP_NOTE, SLOTS, MAX_LEN, HEADS // TP, EMBED // HEADS, g2,
+            g1, json.dumps({e: n for e, n in launches.items() if n}),
+            json.dumps(share)))
+    rs = np.random.RandomState(7)
+    for tp, eng in ((1, one), (TP, two)):
+        profile_decode(eng, rs, trace=None,
+                       what="phase 4e tp=%d, unfused products (%s)" % (
+                           tp, TP_NOTE if tp > 1 else "one rank"))
+    rounds = {tp: timer(e._program("decode").run) / STEPS_PER_ROUND
+              for tp, e in ((1, one), (TP, two))}
+    walls = {tp: _card_ms(e._program("decode").run)
+             for tp, e in ((1, one), (TP, two))}
+    log("phase 4e decode round on the idle engine (%d steps): tp=1 wall %.3f "
+        "ms, card %.3f ms, events %.4f ms a step; tp=2 wall %.3f ms, card "
+        "%.3f ms, events %.4f ms a step (%s); %s" % (
+            STEPS_PER_ROUND, walls[1][0], walls[1][1], rounds[1],
+            walls[TP][0], walls[TP][1], rounds[TP], TP_NOTE, card_line()))
+    one.close()
+    two.close()
+    return launches, share, streams
+
+
+def tp_int8_kv(K, prefix, mesh, dev, work):
+    """4e.2: the int8 KV cache at tp=2 against tp=1, TP_INT8_WAVES waves
+    each in turns: streams equal, exact launches (the decode entry and the
+    int8 chunk entry, a rank each)."""
+    from mxnet_tpu_torch.parallel import Decoder
+    dec8 = Decoder.from_checkpoint(prefix, 0, MAX_LEN, attn_impl="paged",
+                                   weight_dtype="int8", matmul_impl=TP_MM,
+                                   compute_dtype="bfloat16",
+                                   cache_dtype="int8", device=dev)
+    one, two, g1, g2 = tp_pair(dec8, mesh, dev, "int8 KV")
+    runs, total, _ = _waves_in_turns(K, "int8 KV", one, two, work,
+                                     TP_INT8_WAVES)
+    med = _tps(runs)
+    log("phase 4e int8 KV: %d waves at each degree in turns, every stream "
+        "equal; median tokens/s %.1f at tp=2, %.1f at tp=1, ratio %.4f "
+        "(%s); kv_bytes_per_shard %d against %d; launches %s" % (
+            TP_INT8_WAVES, med[TP], med[1], med[TP] / med[1], TP_NOTE, g2,
+            g1, json.dumps({e: n for e, n in total.items() if n})))
+    one.close()
+    two.close()
+    return total
+
+
+def _gauntlet_work(seed):
+    """24 requests: 10 sharing a 192-token system prompt (prefix hits), 4
+    of 600-1000 tokens (chunked), 10 repeating a 16-token phrase (n-gram
+    drafts accepted); budgets 32/64."""
+    rs = np.random.RandomState(seed)
+    system = rs.randint(0, VOCAB, (SYSTEM_PROMPT,))
+    work = [(np.concatenate([system, rs.randint(0, VOCAB, (int(n),))]),
+             int(rs.choice([32, 64]))) for n in rs.randint(8, 57, 10)]
+    work += [(rs.randint(0, VOCAB, (int(n),)), 32)
+             for n in rs.randint(600, 1001, 4)]
+    work += [(np.tile(rs.randint(0, VOCAB, (16,)), int(rs.randint(3, 16))),
+              int(rs.choice([32, 64]))) for _ in range(10)]
+    order = rs.permutation(len(work))
+    return [work[i] for i in order]
+
+
+def tp_gauntlet(K, dec, mesh, dev):
+    """4e.3: the reuse gauntlet (a 160 MiB prefix pool, ``prefill_chunk=
+    256``, n-gram ``spec_k=4``) at tp=2 and tp=1: the same wave twice on
+    each (the first builds every program), the second counted: streams
+    and reuse stats equal, exact launches, compile counts equal."""
+    work = _gauntlet_work(44)
+    kw = dict(prefix_cache_mb=POOL_MB, prefill_chunk=CHUNK, draft="ngram",
+              spec_k=SPEC_K)
+    one, two, _, _ = tp_pair(dec, mesh, dev, "gauntlet", **kw)
+    if one._prefix.capacity != two._prefix.capacity:
+        raise AssertionError("phase 4e gauntlet: pool of %d slots at tp=2, "
+                             "%d at tp=1" % (two._prefix.capacity,
+                                             one._prefix.capacity))
+    total, out, deltas = {}, {}, {}
+    for tp, e in ((1, one), (TP, two)):
+        _serve_wave(e, work)
+        _build(e, ("decode", "verify"))
+        s0 = dict(e.stats)
+        K.reset_launch_counts()
+        handles, secs = _serve_wave(e, work)
+        deltas[tp] = d = _delta(e, s0)
+        got = _check_launches(K, "phase 4e gauntlet tp=%d" % tp,
+                              _tp_launches(d, tp, spec=True))
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        out[tp] = (handles, secs)
+    _tp_equal("gauntlet", out[TP][0], [h.tokens for h in out[1][0]])
+    keys = ("prefix_hits", "prefix_hit_tokens", "prefill_chunks",
+            "spec_rounds", "spec_accepted", "tokens")
+    if any(deltas[1][k] != deltas[TP][k] for k in keys) \
+            or deltas[TP]["prefix_hits"] < 5 \
+            or deltas[TP]["spec_accepted"] < 1 \
+            or deltas[TP]["prefill_chunks"] <= len(work):
+        raise AssertionError("phase 4e gauntlet: stats %r at tp=2, %r at "
+                             "tp=1" % ({k: deltas[TP][k] for k in keys},
+                                       {k: deltas[1][k] for k in keys}))
+    if one.compile_counts != two.compile_counts:
+        raise AssertionError("phase 4e gauntlet: compile_counts %r at tp=2, "
+                             "%r at tp=1" % (two.compile_counts,
+                                             one.compile_counts))
+    log("phase 4e gauntlet (prefix pool %d slots, prefill_chunk=%d, n-gram "
+        "spec_k=%d): %d streams equal at tp=2 and tp=1; %s equal; "
+        "compile_counts equal %s; tokens/s %.1f at tp=2, %.1f at tp=1 (%s); "
+        "launches %s" % (
+            two._prefix.capacity, CHUNK, SPEC_K, len(work),
+            json.dumps({k: deltas[TP][k] for k in keys}),
+            json.dumps({k: (v if not isinstance(v, dict) else
+                            {str(b): n for b, n in v.items()})
+                        for k, v in two.compile_counts.items()}),
+            _wave_metrics(*out[TP])[0], _wave_metrics(*out[1])[0], TP_NOTE,
+            json.dumps({e: n for e, n in total.items() if n})))
+    one.close()
+    two.close()
+    return total
+
+
+def tp_restore_and_handoff(dec, mesh, work, streams):
+    """4e.4: a tp=2 snapshot taken 6 rounds into phase 4's wave restored
+    at tp=1, and a tp=1 one at tp=2 (``mesh=`` in the overrides): both the
+    donor and the restored engine finish every stream equal to the tp=1
+    engine's. 4e.5: the wave through a tp=2 prefill specialist and a tp=1
+    decode specialist, and the other way round: 24 handoffs, streams
+    equal."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    for src, over in (({"mesh": mesh}, {"tp": 1}), ({}, {"mesh": mesh})):
+        eng = _engine_4c(dec, **src)
+        hs = [eng.submit(p, max_tokens=b) for p, b in work]
+        for _ in range(6):
+            eng.step()
+        snap = eng.snapshot()
+        resumed = sum(1 for r in snap["requests"] if r["tokens"])
+        new, handles = InferenceEngine.restore(snap, dec, **over)
+        new.serve_forever()
+        eng.serve_forever()
+        _tp_equal("snapshot at tp=%d (donor)" % eng.tp, hs, streams)
+        _tp_equal("restore at tp=%d" % new.tp,
+                  [handles.get(h.id, h) for h in hs], streams)
+        log("phase 4e snapshot at tp=%d, 6 rounds in (%d requests with "
+            "tokens), restored at tp=%d: every stream of the donor and the "
+            "restored engine equals the tp=1 engine's" % (
+                eng.tp, resumed, new.tp))
+        eng.close()
+        new.close()
+        free_programs()
+    for p_kw, d_kw in (({"mesh": mesh}, {}), ({}, {"mesh": mesh})):
+        pre = _engine_4c(dec, role="prefill", **p_kw)
+        dco = _engine_4c(dec, role="decode", **d_kw)
+        for p, b in work:
+            pre.submit(p, max_tokens=b)
+        pkgs = []
+        while len(pkgs) < len(work):
+            pre.step()
+            pkgs += pre.take_handoffs()
+        t0 = time.perf_counter()
+        reqs = {}
+        for pkg in pkgs:
+            reqs[pkg.id] = dco.admit_handoff(pkg.payload())
+            pkg.resolve()
+        admit = time.perf_counter() - t0
+        dco.serve_forever()
+        _tp_equal("handoff tp=%d -> tp=%d" % (pre.tp, dco.tp),
+                  [reqs[i] for i in range(len(work))], streams)
+        log("phase 4e handoff from a tp=%d prefill engine to a tp=%d decode "
+            "engine: %d packages, every stream equals the tp=1 engine's; "
+            "%.1f ms to admit them all (%s)" % (
+                pre.tp, dco.tp, len(pkgs), admit * 1e3, TP_NOTE))
+        pre.close()
+        dco.close()
+        free_programs()
+
+
+def tp_main_path(K, dev, prefix, work):
+    """Phase 4e: tensor-parallel serving of phase 4's 124M LM at tp=2 on a
+    2-rank mesh over the one card (``[cuda:0] * 2``), against tp=1 from
+    the same weights, both with unfused products (``TP_MM``). Returns the
+    launches it counted."""
+    from mxnet_tpu_torch.parallel import model_parallel_mesh
+    t0 = time.perf_counter()
+    check_head_split(K, dev, torch.Generator().manual_seed(4))
+    mesh = model_parallel_mesh(TP, devices=[dev] * TP)
+    dec = _decoder_4c(prefix, dev, mm=TP_MM)
+    timer = Timer(dev)
+    total = {}
+
+    def add(launches):
+        for e, n in launches.items():
+            total[e] = total.get(e, 0) + n
+        free_programs()
+    launches, share, streams = tp_wave(K, dec, mesh, dev, work, timer)
+    add(launches)
+    add(tp_int8_kv(K, prefix, mesh, dev, work))
+    add(tp_gauntlet(K, dec, mesh, dev))
+    tp_restore_and_handoff(dec, mesh, work, streams)
+    del dec
+    free_programs()
+    log("phase 4e: every check passed in %.1f s; launches %s" % (
+        time.perf_counter() - t0,
+        json.dumps({e: n for e, n in total.items() if n})))
+    return total
+
+
 def check_main_against_host(prefix, dec, handles, steps=16):
     """The 124M decoder rebuilt on the host from the same checkpoint (the
     plain versions, bf16) against the card's, for each served request:
@@ -4810,6 +5238,9 @@ def main():
         launches[e] += n
     free_programs()
     for e, n in fleet_main_path(K, dev, prefix, work, streams).items():
+        launches[e] += n
+    free_programs()
+    for e, n in tp_main_path(K, dev, prefix, work).items():
         launches[e] += n
     free_programs()
     check_small_against_host(dev)

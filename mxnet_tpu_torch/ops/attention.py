@@ -128,6 +128,21 @@ class MultiHeadAttention(OpSpec):
                 "divisor of num_heads=%d" % (kv, p["num_heads"]))
         return kv
 
+    @staticmethod
+    def check_head_shards(p, tp, where="tensor-parallel serving"):
+        """Refuse when the kv heads do not split evenly over ``tp``
+        shards: tensor-parallel serving shards the KV cache and the
+        per-head attention on the kv-head dimension, each GQA query
+        group on its kv head's shard, so an uneven split would give the
+        shards different shapes and cut groups apart."""
+        kv = MultiHeadAttention.kv_heads(p)
+        if kv % tp:
+            raise MXNetError(
+                "MultiHeadAttention: %s needs the %d kv head(s) to "
+                "divide evenly over tp=%d shards (GQA query groups "
+                "must stay whole on their kv head's shard) — use a "
+                "tp that divides num_kv_heads" % (where, kv, tp))
+
     def arguments(self, p):
         return ["data", "qkv_weight", "qkv_bias", "out_weight", "out_bias"]
 

@@ -5,7 +5,7 @@ the ranks of a single-controller SPMD program, ring attention and the
 ``SequenceParallelTrainer``."""
 from .mesh import (Mesh, build_mesh, data_parallel_mesh,  # noqa: F401
                    local_mesh, model_parallel_mesh)
-from .shard import P  # noqa: F401
+from .shard import NamedSharding, P  # noqa: F401
 from .decode import Decoder  # noqa: F401
 from .graph import (make_graph_fn, make_spmd_graph_fn,  # noqa: F401
                     integer_semantic_inputs)

@@ -18,9 +18,16 @@ walk inside its compiled programs (``parallel.program``), with
 :func:`sample_tokens` over :func:`uniform_draw`, the draw as a pure
 function of (seed, position), together with the slot-addressed forms
 below: the prefix copy's row reads and writes, the speculative verify
-step and the draft model's proposal. Windowed ring caches,
-``cache_block``, tensor/expert parallelism and beam search belong to
-later slices of the port.
+step and the draft model's proposal.
+
+Tensor-parallel serving (``tp=("model", n)`` on the walk) runs over a
+cache sharded on its kv heads (``init_cache(kv_sharding=)``: one tp=1
+layout tree a rank, each with ``Hkv/n`` heads): every position-wise op
+runs once at tp=1's shapes, and each attention node hands each rank its
+contiguous block of heads, writes and reads that rank's shard, and
+gathers the ranks' outputs on the head axis (one collective a node).
+Windowed ring caches, ``cache_block``, expert parallelism and beam search
+belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -35,8 +42,10 @@ from ..ops.attention import MultiHeadAttention as _MHA, rope_rotate
 from ..serving.quant import (QuantizedTensor, embedding_rows,
                              quantize_params, quantized_weight_names,
                              resolve_group, scale_fused_matmul)
+from .collectives import all_gather
+from .shard import NamedSharding, PartitionSpec
 
-__all__ = ["Decoder", "sample_tokens", "uniform_draw"]
+__all__ = ["Decoder", "rank_trees", "sample_tokens", "uniform_draw"]
 
 # ops whose forward acts independently per position on [B, C, ...] data
 _POSITIONWISE = {
@@ -62,6 +71,14 @@ def _logits_symbol(symbol):
             node = node.inputs[0][0]
         return symbol.get_internals()[node.name + "_output"]
     return symbol
+
+
+def rank_trees(caches):
+    """The per-rank trees of a cache: a sharded cache
+    (:meth:`Decoder.init_cache` with ``kv_sharding``, a list of tp=1
+    layout trees) as it is, an unsharded one (a list of per-node tuples)
+    as its only rank."""
+    return caches if caches and isinstance(caches[0], list) else [caches]
 
 
 _M32 = 0xFFFFFFFF
@@ -315,10 +332,55 @@ class Decoder:
     def init_cache(self, batch_size, kv_sharding=None):
         """Zeroed K/V buffers, ``[B, max_len, Hkv, D]`` per attention
         node (plus ``[B, max_len, Hkv]`` f32 row scales for an int8
-        cache). ``kv_sharding`` (a cache laid out over a mesh's kv heads)
-        raises unless None: it belongs to a later slice."""
-        refuse_unported("Decoder.init_cache",
-                        kv_sharding=(kv_sharding, None))
+        cache).
+
+        ``kv_sharding`` (a :class:`~.shard.NamedSharding` whose spec names
+        the kv-head dimension, ``NamedSharding(mesh, P(None, None,
+        "model"))``): the cache sharded over that mesh axis, as a list
+        with one tree a rank, in rank order. Each is the tp=1 layout with
+        ``Hkv/tp`` heads (the rank's contiguous block, as
+        :meth:`cache_specs` says), every buffer its own contiguous
+        allocation on the rank's device: the layout the walk's ``tp=``
+        reads."""
+        if kv_sharding is None:
+            return self._cache_tree(batch_size, self.device)
+        if not isinstance(kv_sharding, NamedSharding):
+            raise MXNetError(
+                "Decoder.init_cache: kv_sharding must be a parallel."
+                "NamedSharding, got %r" % type(kv_sharding).__name__)
+        axis = kv_sharding.spec[2] if len(kv_sharding.spec) > 2 else None
+        if axis is None:
+            raise MXNetError(
+                "Decoder.init_cache: kv_sharding must name the kv-head "
+                "dimension (spec P(None, None, axis)), got %r"
+                % (kv_sharding.spec,))
+        ranks = kv_sharding.mesh.axis_devices(axis)
+        caches = self._cache_tree(batch_size, torch.device("meta"))
+        specs = self.cache_specs(caches, axis)
+        out = []
+        for dev in ranks:
+            tree = []
+            for entry, espec in zip(caches, specs):
+                bufs = []
+                for buf, spec in zip(entry, espec):
+                    shape = list(buf.shape)
+                    if spec == PartitionSpec(None, None, axis):
+                        if shape[2] % len(ranks):
+                            raise MXNetError(
+                                "Decoder.init_cache: %d kv heads do not "
+                                "divide evenly over %d shards"
+                                % (shape[2], len(ranks)))
+                        shape[2] //= len(ranks)
+                    # int8 row scales ([B, L, H]) start at one
+                    bufs.append((torch.ones if buf.dim() == 3
+                                 else torch.zeros)(
+                        shape, dtype=buf.dtype, device=dev))
+                tree.append(tuple(bufs))
+            out.append(tree)
+        return out
+
+    def _cache_tree(self, batch_size, device):
+        """One unsharded cache tree on ``device``."""
         caches = []
         for n in self._mha:
             w = self._params[n.inputs[1][0].name]
@@ -327,7 +389,7 @@ class Decoder:
             h = n.params["num_heads"]
             shape = (batch_size, self.max_len, _MHA.kv_heads(n.params),
                      e // h)
-            kw = dict(device=self.device)
+            kw = dict(device=device)
             if self._cache_int8:
                 entry = (torch.zeros(shape, dtype=torch.int8, **kw),
                          torch.ones(shape[:3], dtype=torch.float32, **kw),
@@ -340,6 +402,18 @@ class Decoder:
         return caches
 
     @staticmethod
+    def cache_specs(caches, axis="model"):
+        """The :class:`~.shard.PartitionSpec` of each buffer of an
+        unsharded cache tree: K/V and row-scale buffers (rank 3 or more)
+        shard their kv-head dimension (dim 2) over ``axis``, and a buffer
+        of lower rank (none yet: the ring positions of windowed caches
+        are a later slice) replicates. :meth:`init_cache` lays a sharded
+        cache out by it."""
+        return [tuple(PartitionSpec(None, None, axis) if b.dim() >= 3
+                      else PartitionSpec() for b in entry)
+                for entry in caches]
+
+    @staticmethod
     def _quantize_rows(x):
         """[B, C, H, D] float -> (int8 values, [B, C, H] f32 scales):
         symmetric amax/127 per (position, head) row."""
@@ -348,22 +422,23 @@ class Decoder:
         s = torch.where(s > 0, s, torch.ones_like(s))
         return torch.round(xf / s[..., None]).to(torch.int8), s
 
-    def _write_cache(self, entry, k, v, ctx):
-        """Write a [B, C, Hkv, D] K/V chunk into rows ``[pos, pos+C)`` of
-        each batch row, in place (the rows come from the run's ``ctx``)."""
-        sidx, rows = ctx["sidx"], ctx["rows"]
+    def _cache_rows(self, k, v):
+        """A [B, C, Hkv, D] K/V chunk as the cache stores it, one tensor a
+        cache buffer: int8 values and their [B, C, Hkv] f32 row scales (K,
+        then V) for an int8 cache, else K and V in the cache dtype. Each
+        head's rows depend on that head alone."""
         if self._cache_int8:
-            ck, ks, cv, vs = entry
-            k8, ksc = self._quantize_rows(k)
-            v8, vsc = self._quantize_rows(v)
-            ck[sidx, rows] = k8
-            ks[sidx, rows] = ksc
-            cv[sidx, rows] = v8
-            vs[sidx, rows] = vsc
-        else:
-            ck, cv = entry
-            ck[sidx, rows] = k.to(ck.dtype)
-            cv[sidx, rows] = v.to(cv.dtype)
+            return self._quantize_rows(k) + self._quantize_rows(v)
+        return k.to(self._cache_dtype), v.to(self._cache_dtype)
+
+    @staticmethod
+    def _write_cache(entry, rows, ctx):
+        """Write :meth:`_cache_rows` ``rows`` into rows ``[pos, pos+C)``
+        of each batch row of ``entry``, in place (the rows come from the
+        run's ``ctx``)."""
+        sidx, at = ctx["sidx"], ctx["rows"]
+        for buf, val in zip(entry, rows):
+            buf[sidx, at] = val
         return entry
 
     # -- the derived incremental walk -----------------------------------
@@ -402,18 +477,68 @@ class Decoder:
             kv_heads=_MHA.kv_heads(node.params), bits=wqkv.bits,
             group=wqkv.group, rope=bool(node.params.get("rope")),
             rope_base=float(node.params.get("rope_base") or 10000.0))
-        entry = self._write_cache(entry, kn[:, None], vn[:, None], ctx)
+        entry = self._write_cache(
+            entry, self._cache_rows(kn[:, None], vn[:, None]), ctx)
         return out.reshape(b, 1, e), entry
 
-    def _cached_mha(self, node, ins, entry, ctx, mm_impl):
+    def _paged_read(self, q, entry, ctx):
+        """The paged kernel's read of cache ``entry`` for the chunk's
+        queries ``q`` [B, C, H, D] (the rows are written already)."""
+        if self._cache_int8:
+            ck, ks, cv, vs = entry
+            return kernels.paged_attention(q.contiguous(), ck, cv,
+                                           ctx["pos"], k_scale=ks,
+                                           v_scale=vs)
+        ck, cv = entry
+        return kernels.paged_attention(q.contiguous(), ck, cv, ctx["pos"])
+
+    @staticmethod
+    def _ctx_on(ctx, device):
+        """``ctx`` with its tensors on ``device`` (made once a run)."""
+        if ctx["pos"].device == device:
+            return ctx
+        hit = ctx.setdefault("_on", {}).get(device)
+        if hit is None:
+            hit = ctx["_on"][device] = {k: ctx[k].to(device)
+                                        for k in ("pos", "rows", "sidx")}
+        return hit
+
+    def _sharded_attention(self, q, k, v, entries, ctx, tp):
+        """The tensor-parallel attention of one node: rank ``r`` takes
+        its contiguous block of ``Hkv/tp`` kv heads and of ``H/tp`` query
+        heads (query heads are kv-major, so a GQA group stays whole),
+        writes its K/V rows into its own cache shard ``entries[r]`` and
+        reads that shard through the paged kernel; one tiled all-gather
+        on the head axis puts the ranks' outputs back in tp=1's head
+        order. The rows are quantized (an int8 cache) once, before the
+        split. Returns o [B, C, H, D] on rank 0's device."""
+        ntp = tp[1]
+        if len(entries) != ntp:
+            raise MXNetError(
+                "Decoder: tp=%r over a cache of %d shards"
+                % (tuple(tp), len(entries)))
+        h, kv = q.shape[2], k.shape[2]
+        hl, kvl = h // ntp, kv // ntp
+        rows = self._cache_rows(k, v)
+        outs = []
+        for r, entry in enumerate(entries):
+            dev = entry[0].device
+            rctx = self._ctx_on(ctx, dev)
+            self._write_cache(entry, [x[:, :, r * kvl:(r + 1) * kvl].to(dev)
+                                      for x in rows], rctx)
+            outs.append(self._paged_read(
+                q[:, :, r * hl:(r + 1) * hl].to(dev), entry, rctx))
+        return all_gather(outs, axis=2, tiled=True)[0]
+
+    def _cached_mha(self, node, ins, entry, ctx, mm_impl, tp=None):
         x, wqkv, bqkv, wo, bo = ins
         b, c, e = x.shape
         h = node.params["num_heads"]
         d = e // h
         kv = _MHA.kv_heads(node.params)
         # the JAX package's eligibility rule (decode.py l.587-595); the
-        # port has no tp or windowed nodes, so those terms always hold
-        if (mm_impl == "fused" and c == 1 and len(entry) == 2
+        # port has no windowed nodes, so that term always holds
+        if (mm_impl == "fused" and c == 1 and tp is None and len(entry) == 2
                 and isinstance(wqkv, QuantizedTensor)
                 and isinstance(wo, QuantizedTensor)
                 and wqkv.bits == wo.bits and wqkv.group == wo.group
@@ -429,24 +554,30 @@ class Decoder:
         if node.params.get("rope"):
             q = rope_rotate(q, ctx["rows"], node.params["rope_base"])
             k = rope_rotate(k, ctx["rows"], node.params["rope_base"])
-        entry = self._write_cache(entry, k, v, ctx)
-        if self._cache_int8:
-            ck, ks, cv, vs = entry
-            o = kernels.paged_attention(q.contiguous(), ck, cv, ctx["pos"],
-                                        k_scale=ks, v_scale=vs)
+        if tp is not None:
+            # everything up to here ran once at tp=1's shapes; the
+            # per-head work runs per rank on its shard
+            o = self._sharded_attention(q, k, v, entry, ctx, tp)
         else:
-            ck, cv = entry
-            o = kernels.paged_attention(q.contiguous(), ck, cv, ctx["pos"])
+            entry = self._write_cache(entry, self._cache_rows(k, v), ctx)
+            o = self._paged_read(q, entry, ctx)
         o = o.reshape(b, c, e)
         if isinstance(wo, QuantizedTensor):
             return self._qmm(o, wo, mm_impl) + bo, entry
         return torch.matmul(o, wo.t()) + bo, entry
 
-    def _run(self, params, aux, caches, pos, tokens, mm_impl=None):
+    def _run(self, params, aux, caches, pos, tokens, tp=None,
+             mm_impl=None):
         """One chunk: tokens [B, C] at positions ``[pos, pos+C)`` ->
         (logits [B, C, V], caches). ``pos`` is an int (every row at the
         same position) or an int32 tensor [B] (each row at its own);
-        the caches are written in place and returned."""
+        the caches are written in place and returned.
+
+        ``tp`` (``(axis_name, degree)``, optional): ``caches`` is sharded
+        over ``degree`` ranks (:meth:`init_cache` with ``kv_sharding``);
+        every op but the per-head attention runs once, on the device of
+        the inputs, at tp=1's shapes, so the logits do not depend on the
+        degree."""
         if mm_impl is None:
             mm_impl = self._matmul_impl
         b, c = tokens.shape
@@ -470,8 +601,13 @@ class Decoder:
             ins = [env[(id(inp), idx)] for inp, idx in n.inputs]
             name = n.spec.name
             if name == "MultiHeadAttention":
-                env[(id(n), 0)], caches[mha_i] = self._cached_mha(
-                    n, ins, caches[mha_i], ctx, mm_impl)
+                if tp is None:
+                    env[(id(n), 0)], caches[mha_i] = self._cached_mha(
+                        n, ins, caches[mha_i], ctx, mm_impl)
+                else:
+                    env[(id(n), 0)], _ = self._cached_mha(
+                        n, ins, [t[mha_i] for t in caches], ctx, mm_impl,
+                        tp)
                 mha_i += 1
                 continue
             if name == "PositionalEmbedding":
@@ -506,14 +642,16 @@ class Decoder:
 
     # -- slot-addressed forms (serving engine) --------------------------
     def _run_slots(self, params, aux, caches, pos, tokens, impl=None,
-                   mm_impl=None):
+                   tp=None, mm_impl=None):
         """Per-slot ``_run``: ``pos`` [S] int32 positions, ``tokens``
         [S, C] -> (logits [S, C, V], caches): one batched walk in which
-        each slot writes and reads at its own clock."""
+        each slot writes and reads at its own clock (``tp``: as in
+        :meth:`_run`)."""
         if impl not in (None, "paged"):
             raise MXNetError("Decoder: the PyTorch port serves impl="
                              "'paged' only, got %r" % (impl,))
-        return self._run(params, aux, caches, pos, tokens, mm_impl=mm_impl)
+        return self._run(params, aux, caches, pos, tokens, tp=tp,
+                         mm_impl=mm_impl)
 
     @staticmethod
     def _slot_index(slot, like):
@@ -532,7 +670,11 @@ class Decoder:
         the true cached length ride along as junk: in the destination
         they sit at positions the ``key_pos <= pos`` mask hides until
         the suffix prefill overwrites them. Every buffer is read, the
-        int8 row scales included."""
+        int8 row scales included. A sharded cache gives sharded rows (one
+        tree a rank)."""
+        if rank_trees(caches) is caches:
+            return [Decoder.slot_prefix_rows(t, slot, length)
+                    for t in caches]
         out = []
         for entry in caches:
             idx = Decoder._slot_index(slot, entry[0])
@@ -544,7 +686,11 @@ class Decoder:
     def slot_write_prefix_rows(caches, slot, rows):
         """Write a :meth:`slot_prefix_rows` result into rows ``[0, C)`` of
         ``slot``, in place: the write half of the slot-to-slot prefix
-        copy. Returns ``caches``."""
+        copy (a sharded cache takes sharded rows). Returns ``caches``."""
+        if rank_trees(caches) is caches:
+            for t, r in zip(caches, rows):
+                Decoder.slot_write_prefix_rows(t, slot, r)
+            return caches
         for entry, rentry in zip(caches, rows):
             idx = Decoder._slot_index(slot, entry[0])
             for full, r in zip(entry, rentry):
@@ -583,16 +729,16 @@ class Decoder:
         that would run past the cache's end (a slot the engine holds no
         request in; the engine falls back to plain decode while a
         sequence is that near its end) is written ending at the last row
-        instead, as the JAX package's clamped update does."""
-        refuse_unported("Decoder.verify_step_slots", tp=(tp, None),
-                        ep=(ep, None))
+        instead, as the JAX package's clamped update does. ``tp``: as in
+        :meth:`_run`."""
+        refuse_unported("Decoder.verify_step_slots", ep=(ep, None))
         pos, tok, live, temp, uniform, eos, last = state
         k = drafts.shape[1]
         chunk = torch.cat([tok[:, None].to(torch.int64),
                            drafts.to(torch.int64)], dim=1)
         logits, caches = self._run_slots(
             params, aux, caches, pos.clamp_max(self.max_len - (k + 1)),
-            chunk, impl=impl, mm_impl=mm_impl)                # [S, K+1, V]
+            chunk, impl=impl, tp=tp, mm_impl=mm_impl)        # [S, K+1, V]
         s_, c, v = logits.shape
         at = (pos.long()[:, None] + torch.arange(1, c + 1, device=pos.device)
               ).clamp_max(self.max_len - 1)
@@ -633,14 +779,13 @@ class Decoder:
         still gates acceptance against its own draw. Positions that would
         run past the cache's end (slots the engine holds no request in)
         are written ending at the last row, as the JAX package's clamped
-        updates do."""
-        refuse_unported("Decoder.draft_propose_slots", tp=(tp, None),
-                        ep=(ep, None))
+        updates do. ``tp``: as in :meth:`_run`."""
+        refuse_unported("Decoder.draft_propose_slots", ep=(ep, None))
         w = catchup.shape[1]
         pos = pos.clamp_max(self.max_len - w)
         logits, caches = self._run_slots(
             params, aux, caches, pos, catchup.to(torch.int64), impl=impl,
-            mm_impl=mm_impl)                                    # [S, W, V]
+            tp=tp, mm_impl=mm_impl)                             # [S, W, V]
         idx = (clen.long() - 1).clamp(0, w - 1)
         lastlog = logits.gather(
             1, idx[:, None, None].expand(-1, 1, logits.shape[2]))[:, 0]
@@ -650,7 +795,7 @@ class Decoder:
         for _ in range(k - 1):
             lg, caches = self._run_slots(
                 params, aux, caches, p.clamp_max(self.max_len - 1),
-                t[:, None], impl=impl, mm_impl=mm_impl)
+                t[:, None], impl=impl, tp=tp, mm_impl=mm_impl)
             t = torch.argmax(lg[:, 0], dim=-1)
             out.append(t)
             p = p + 1

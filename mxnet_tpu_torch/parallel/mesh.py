@@ -48,6 +48,16 @@ class Mesh:
     def size(self):
         return self.devices.size
 
+    def axis_devices(self, name):
+        """The devices along axis ``name``, in rank order (at index 0 of
+        every other axis)."""
+        if name not in self.axis_names:
+            raise MXNetError("Mesh: no axis %r (axes: %r)"
+                             % (name, self.axis_names))
+        ax = self.axis_names.index(name)
+        grid = np.moveaxis(self.devices, ax, 0)
+        return list(grid.reshape(grid.shape[0], -1)[:, 0])
+
     def __repr__(self):
         return "Mesh(%s, %s)" % (self.shape, sorted(
             {str(d) for d in self.devices.ravel()}))

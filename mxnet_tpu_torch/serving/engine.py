@@ -82,7 +82,19 @@ slot's rows into a fixed staging buffer that is then copied out; import
 copies rows into it and writes them into a slot). The
 :class:`~.fleet.FleetRouter` drives the handoffs between engines.
 
-Tensor/expert parallelism belongs to a later slice of the port.
+Tensor-parallel serving (``tp``/``mesh``, the JAX package's l.790-951):
+the KV cache — the slot cache, the prefix pool, the staging caches, the
+draft model's and the handoff staging buffers — is sharded over the
+mesh's ``model`` axis on its kv heads, one set of allocations a rank
+(``Decoder.init_cache(kv_sharding=)``), and every program family runs the
+walk with ``tp``: the position-wise ops once at tp=1's shapes, each
+attention node per rank on its shard with one all-gather of the heads.
+The program families and their counts are tp=1's; a copy between slots
+is one kernel an allocation of every rank. The mesh is single-controller
+and its ranks all name the engine's device (``[cuda:0] * 2`` on one card,
+``["cpu"] * 2`` on the host): each program is still one CUDA graph, and a
+mesh over distinct cards belongs to a later slice. Expert parallelism
+(``ep``) belongs to a later slice too.
 """
 from __future__ import annotations
 
@@ -98,10 +110,14 @@ import numpy as np
 import torch
 
 from .. import telemetry as tele
-from ..base import MXNetError, refuse_unported
+from ..base import MXNetError, later_slice, refuse_unported
 from ..io import StagedStream
-from ..parallel.decode import Decoder, sample_tokens, uniform_draw
+from ..ops.attention import MultiHeadAttention as _MHA
+from ..parallel.decode import (Decoder, rank_trees, sample_tokens,
+                               uniform_draw)
+from ..parallel.mesh import Mesh, model_parallel_mesh
 from ..parallel.program import Program, copy_in
+from ..parallel.shard import NamedSharding, PartitionSpec
 from .capture import CaptureStream
 from .flight import FlightRecorder
 from .handoff import HANDOFF_DTYPES, KVHandoff, unpack_rows
@@ -174,7 +190,7 @@ _TM_SLOTS_BUSY = tele.histogram(
 _TM_OCCUPANCY = tele.gauge("serving.slot_occupancy")
 # info gauges, set at construction (engine-last-built semantics): the
 # attention impl (1 = paged), the tensor-parallel degree and each shard's
-# KV bytes (the port serves tp=1), the weight dtype (0 float, 1 int8,
+# slot-cache KV bytes, the weight dtype (0 float, 1 int8,
 # 2 int4), the engine's stored weight bytes (the draft model's included),
 # the matmul impl (0 dense, 1 pallas, 2 fused) and the int4 group width
 _TM_ATTN_IMPL = tele.gauge("serving.attn_impl")
@@ -421,40 +437,54 @@ def _default_buckets(max_len):
     return tuple(out)
 
 
+def _leaves(tree):
+    """The buffers of a cache tree (sharded: rank by rank), in order."""
+    return [b for t in rank_trees(tree) for e in t for b in e]
+
+
+def _unflatten(tree, leaves):
+    """A tree shaped like ``tree`` (sharded or not) over ``leaves``."""
+    it = iter(leaves)
+    out = [[tuple(next(it) for _ in e) for e in t] for t in rank_trees(tree)]
+    return out if rank_trees(tree) is tree else out[0]
+
+
 def _grouped_cache(one, slots, rows):
-    """Cache buffers laid out like ``one`` (``Decoder.init_cache(1)``) for
-    ``slots`` slots of ``rows`` rows, every buffer of one dtype and row
-    shape in ONE allocation ``[count, slots, rows, ...]`` (K/V zeroed,
-    int8 row scales one, as ``init_cache`` has them). Returns ``(groups,
-    caches)``: the allocations, and the per-node tuples of ``[slots, rows,
-    ...]`` views (each contiguous, as the kernels take them), so that a
-    copy between slots runs one kernel a group instead of one a buffer."""
+    """Cache buffers laid out like ``one`` (``Decoder.init_cache(1)``,
+    sharded or not) for ``slots`` slots of ``rows`` rows, every buffer of
+    one rank, dtype and row shape in ONE allocation ``[count, slots, rows,
+    ...]`` on the rank's device (K/V zeroed, int8 row scales one, as
+    ``init_cache`` has them). Returns ``(groups, caches)``: the
+    allocations (rank by rank), and a tree shaped like ``one`` of ``[slots,
+    rows, ...]`` views (each contiguous, as the kernels take them), so
+    that a copy between slots runs one kernel a group instead of one a
+    buffer."""
     keys, counts, where = _group_layout(one)
-    dev = one[0][0].device
+    devs = {}
+    for (g, _), b in zip(where, _leaves(one)):
+        devs.setdefault(g, b.device)
     # row scales ([B, L, H]: one value a row) start at one
     groups = [(torch.ones if len(tail) == 1 else torch.zeros)(
-        (n, slots, rows) + tail, dtype=dt, device=dev)
-        for n, (dt, tail) in zip(counts, keys)]
-    it = iter(where)
-    caches = [tuple(groups[g][i] for g, i in (next(it) for _ in entry))
-              for entry in one]
-    return groups, caches
+        (n, slots, rows) + tail, dtype=dt, device=devs[g])
+        for g, (n, (_, dt, tail)) in enumerate(zip(counts, keys))]
+    return groups, _unflatten(one, [groups[g][i] for g, i in where])
 
 
 def _group_layout(one):
     """How :func:`_grouped_cache` groups the buffers of ``one``: the
-    ``(dtype, row shape)`` of each allocation, its buffer count, and
-    ``(allocation, index)`` of each buffer in tree order."""
+    ``(rank, dtype, row shape)`` of each allocation, its buffer count, and
+    ``(allocation, index)`` of each buffer in :func:`_leaves` order."""
     keys, counts, where = [], [], []
-    for entry in one:
-        for b in entry:
-            key = (b.dtype, tuple(b.shape[2:]))
-            if key not in keys:
-                keys.append(key)
-                counts.append(0)
-            g = keys.index(key)
-            where.append((g, counts[g]))
-            counts[g] += 1
+    for r, t in enumerate(rank_trees(one)):
+        for entry in t:
+            for b in entry:
+                key = (r, b.dtype, tuple(b.shape[2:]))
+                if key not in keys:
+                    keys.append(key)
+                    counts.append(0)
+                g = keys.index(key)
+                where.append((g, counts[g]))
+                counts[g] += 1
     return keys, counts, where
 
 
@@ -470,7 +500,69 @@ def _wide(t):
 
 
 def _nbytes(caches):
-    return sum(b.numel() * b.element_size() for e in caches for b in e)
+    return sum(b.numel() * b.element_size() for b in _leaves(caches))
+
+
+def _device_key(d):
+    """``d`` as a ``torch.device`` with its index (``cuda`` is ``cuda:0``
+    when nothing else is current)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device()
+                         if torch.cuda.is_available() else 0)
+    return d
+
+
+def _resolve_tp(tp, mesh, device):
+    """The tensor-parallel degree and mesh as the JAX package resolves
+    them (its l.794-860): ``MXNET_SERVING_TP`` is the default, a mesh
+    needs a ``model`` axis and wins the degree, a ``tp`` that differs from
+    it disagrees. Without a mesh, a CPU engine takes ``["cpu"] * tp`` (the
+    caller asked for the host) and a CUDA one the visible cards. Every
+    rank must name ``device``: the engine's programs are single-device
+    (CUDA graphs), so a mesh over distinct devices belongs to a later
+    slice. Returns ``(tp, mesh)``, the mesh None at tp=1."""
+    if mesh is None and tp is None:
+        tp = int(os.environ.get("MXNET_SERVING_TP", "") or 1)
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise MXNetError(
+                "InferenceEngine: mesh must be a parallel.Mesh "
+                "(parallel.model_parallel_mesh builds one), got %r"
+                % type(mesh).__name__)
+        if "model" not in mesh.axis_names:
+            raise MXNetError(
+                "InferenceEngine: mesh=... needs a 'model' axis to shard "
+                "the KV cache over (axes: %r) — parallel."
+                "model_parallel_mesh builds one" % (mesh.axis_names,))
+        if tp is not None and int(tp) != int(mesh.shape["model"]):
+            raise MXNetError(
+                "InferenceEngine: tp=%r disagrees with the mesh's model "
+                "axis size %d — pass one or the other"
+                % (tp, mesh.shape["model"]))
+        tp = int(mesh.shape["model"])
+    tp = int(tp)
+    if tp < 1:
+        raise MXNetError("InferenceEngine: tp must be >= 1 (1 = unsharded; "
+                         "MXNET_SERVING_TP sets the default), got %d" % tp)
+    if tp == 1:
+        return 1, None
+    if mesh is None:
+        mesh = model_parallel_mesh(
+            tp, devices=[device] * tp if device.type == "cpu" else None)
+    devs = sorted({str(_device_key(d)) for d in mesh.devices.ravel()})
+    if len(devs) > 1:
+        raise later_slice(
+            "InferenceEngine", "tensor-parallel serving over distinct "
+            "devices (%s; the engine's programs each run on one device: "
+            "pass a mesh whose ranks all name it, e.g. "
+            "model_parallel_mesh(%d, devices=[%r] * %d))"
+            % (", ".join(devs), tp, str(device), tp))
+    if devs[0] != str(_device_key(device)):
+        raise MXNetError(
+            "InferenceEngine: the mesh lies on %s, the decoder on %s"
+            % (devs[0], device))
+    return tp, mesh
 
 
 class InferenceEngine:
@@ -582,9 +674,21 @@ class InferenceEngine:
         How this engine's exported rows travel (``None`` reads
         ``MXNET_SERVING_HANDOFF_DTYPE``, else ``"native"``):
         :func:`~.handoff.pack_rows`.
-    tp, mesh, ep :
-        The JAX package's tensor/expert parallelism, in its order; any
-        value but the default (``tp``/``ep`` 1) raises: a later slice.
+    tp, mesh : optional
+        Tensor-parallel serving: the KV cache and the attention sharded
+        over ``tp`` ranks of ``mesh``'s ``model`` axis (a
+        :class:`~mxnet_tpu_torch.parallel.Mesh`; ``model_parallel_mesh(2,
+        devices=["cuda:0"] * 2)`` runs two ranks on one card). ``tp=None``
+        reads ``MXNET_SERVING_TP``, else 1; a mesh gives the degree, and a
+        ``tp`` that differs from it raises. Without a mesh a CPU engine
+        runs its ranks on the host and a CUDA one takes the visible cards.
+        Every rank must name the decoder's device (a mesh over distinct
+        cards belongs to a later slice), and the kv heads of the target
+        and draft models must divide by ``tp``. Greedy streams equal
+        tp=1's.
+    ep : optional
+        The JAX package's expert parallelism; any value but 1 raises: a
+        later slice.
     """
 
     def __init__(self, decoder, slots=8, prefill_buckets=None,
@@ -602,9 +706,16 @@ class InferenceEngine:
         if not isinstance(decoder, Decoder):
             raise MXNetError("InferenceEngine needs a Decoder, got %r"
                              % type(decoder).__name__)
-        # a snapshot's geometry carries the resolved defaults of these
-        refuse_unported("InferenceEngine", tp=(tp or 1, 1),
-                        mesh=(mesh, None), ep=(ep or 1, 1))
+        # a snapshot's geometry carries the resolved default of ep
+        refuse_unported("InferenceEngine", ep=(ep or 1, 1))
+        self.tp, self._mesh = _resolve_tp(tp, mesh, decoder.device)
+        # the walk's tp operand, and the cache layout it reads
+        self._tp_ax = ("model", self.tp) if self.tp > 1 else None
+        self._kv_shard = None if self._mesh is None else NamedSharding(
+            self._mesh, PartitionSpec(None, None, "model"))
+        if self._mesh is not None:
+            for n in decoder._mha:
+                _MHA.check_head_shards(n.params, self.tp)
         self._dec = decoder
         self._t0 = time.perf_counter()   # ledger and capture time origin
         self.engine_id = str(engine_id) if engine_id is not None \
@@ -787,6 +898,11 @@ class InferenceEngine:
         wbytes = self._weight_nbytes(params)
         if draft == "model":
             self._draft_dec = self._check_draft(draft_decoder)
+            if self._mesh is not None:
+                for n in draft_decoder._mha:
+                    _MHA.check_head_shards(
+                        n.params, self.tp,
+                        where="tensor-parallel draft serving")
             dparams = draft_decoder._params
             if self.weight_dtype == "int8" \
                     and draft_decoder.weight_dtype != "int8":
@@ -805,7 +921,9 @@ class InferenceEngine:
         # pool (one set of buffers), the one-slot staging cache a prefill
         # runs over, and the per-slot state
         S, dev = self.slots, self.device
-        one = decoder.init_cache(1)
+        # sharded under tp (one tree a rank); the byte budgets count every
+        # rank's share, so that they do not depend on the degree
+        one = decoder.init_cache(1, kv_sharding=self._kv_shard)
         slot_bytes = _nbytes(one)
         pool = 0
         if self.prefix_cache_mb > 0:
@@ -813,7 +931,8 @@ class InferenceEngine:
                        // max(1, slot_bytes), _MAX_POOL_SLOTS)
         self._groups, self._cache_bufs = _grouped_cache(
             one, S + pool, self.max_len)
-        self._caches = [tuple(b[:S] for b in e) for e in self._cache_bufs]
+        self._caches = _unflatten(self._cache_bufs,
+                                  [b[:S] for b in _leaves(self._cache_bufs)])
         self._prefix = PrefixCache(pool, slot_bytes) if pool else None
         # a piece at a late start runs its pad rows past max_len: the
         # staging cache has room for them (only rows below max_len are
@@ -832,7 +951,7 @@ class InferenceEngine:
         self._uniform = torch.zeros((S, self.max_len), dtype=torch.float32,
                                     device=dev)
         if self._draft_dec is not None:
-            one = self._draft_dec.init_cache(1)
+            one = self._draft_dec.init_cache(1, kv_sharding=self._kv_shard)
             self._draft_groups, self._draft_caches = _grouped_cache(
                 one, S, self.max_len)
             self._draft_stage_groups, self._draft_stage = _grouped_cache(
@@ -844,8 +963,9 @@ class InferenceEngine:
         self._handoff_stage = {}     # bucket -> staging allocations
         self._compile_log = _CompileLog()
         _TM_ATTN_IMPL.set(1)
-        _TM_TP.set(1)
-        _TM_TP_KV_BYTES.set(slot_bytes * S)
+        _TM_TP.set(self.tp)
+        # what one rank holds of the slot cache
+        _TM_TP_KV_BYTES.set(_nbytes(self._caches) // self.tp)
         _TM_WEIGHT_DTYPE.set(
             {"float": 0, "int8": 1, "int4": 2}[self.weight_dtype])
         _TM_WEIGHT_BYTES.set(wbytes)
@@ -1714,7 +1834,10 @@ class InferenceEngine:
         """One slot's first ``length`` KV rows (rounded up to the covering
         bucket: the decode side's mask hides the pad rows until they are
         overwritten) as a row tree of host tensors, through the export
-        program and one device-to-host copy an allocation."""
+        program and one device-to-host copy an allocation. Under tp the
+        ranks' rows are put back together on the head axis, as the JAX
+        export's global array has them: a package does not depend on the
+        degree of the engine that made it."""
         bucket = self._bucket_for(length)
         tc0 = time.perf_counter()
         with tele.span("serving.handoff_export", cat="serving",
@@ -1723,20 +1846,28 @@ class InferenceEngine:
             stage = self._handoff_rows(bucket)
             host = [sg.cpu() for sg in stage]
         self._phase_add("copy", time.perf_counter() - tc0)
-        it = iter(_group_layout(self._caches)[2])
-        return [tuple(host[g][i] for g, i in (next(it) for _ in e))
-                for e in self._caches]
+        rows = _unflatten(self._caches, [
+            host[g][i] for g, i in _group_layout(self._caches)[2]])
+        if self.tp == 1:
+            return rows
+        return [tuple(torch.cat(parts, dim=2) for parts in zip(*entries))
+                for entries in zip(*rows)]
 
     def _import_rows(self, slot, length, rows):
         """Write transferred rows into ``slot``: dequantized to the cache
-        dtype first (an int8 transfer), each allocation's rows copied
-        into the staging buffers, then the import program."""
+        dtype first (an int8 transfer), cut into the ranks' head blocks
+        under tp, each allocation's rows copied into the staging buffers,
+        then the import program."""
         bucket = self._bucket_for(length)
-        rows = unpack_rows(rows, self._caches)
+        ranks = rank_trees(self._caches)
+        rows = unpack_rows(rows, ranks[0])
+        if self.tp > 1:
+            rows = [[tuple(r.chunk(self.tp, dim=2)[k] for r in e)
+                     for e in rows] for k in range(self.tp)]
         stage = self._handoff_rows(bucket)
         _, counts, where = _group_layout(self._caches)
         parts = [[None] * n for n in counts]
-        for (g, i), r in zip(where, (r for e in rows for r in e)):
+        for (g, i), r in zip(where, _leaves(rows)):
             parts[g][i] = r[0]
         tc0 = time.perf_counter()
         with tele.span("serving.handoff_import", cat="serving",
@@ -1782,7 +1913,8 @@ class InferenceEngine:
         for g, sg in zip(groups, stage_groups):
             torch.index_select(_wide(g), 1, slot, out=_wide(sg)[:, :, :n])
         logits, _ = dec._run(params, aux, stage, start.to(torch.int32),
-                             tokens, mm_impl=self.matmul_impl)
+                             tokens, tp=self._tp_ax,
+                             mm_impl=self.matmul_impl)
         rows = (start + torch.arange(tokens.shape[1], device=start.device)
                 ).clamp_max(n - 1)
         for g, sg in zip(groups, stage_groups):
@@ -1848,7 +1980,8 @@ class InferenceEngine:
         for _ in range(self.steps_per_round):
             logits, _ = dec._run_slots(
                 self._params, self._aux, self._caches, self._pos,
-                self._tok[:, None], mm_impl=self.matmul_impl)
+                self._tok[:, None], tp=self._tp_ax,
+                mm_impl=self.matmul_impl)
             nxt_pos = self._pos + 1
             # a frozen slot at the cache's end draws from its last row
             u = self._uniform.gather(
@@ -1870,7 +2003,7 @@ class InferenceEngine:
         _, st, out = self._dec.verify_step_slots(
             self._params, self._aux, self._caches,
             (self._pos, self._tok, self._live, self._temp, self._uniform,
-             self._eos, self._last), drafts, dlen,
+             self._eos, self._last), drafts, dlen, tp=self._tp_ax,
             mm_impl=self.matmul_impl)
         for buf, val in zip((self._pos, self._tok, self._live), st):
             buf.copy_(val)
@@ -1882,7 +2015,8 @@ class InferenceEngine:
         ``spec_k`` greedy tokens a slot. Returns the [S, K] drafts."""
         _, props = self._draft_dec.draft_propose_slots(
             self._draft_params, self._draft_aux, self._draft_caches, pos,
-            catchup, clen, self.spec_k, mm_impl=self.matmul_impl)
+            catchup, clen, self.spec_k, tp=self._tp_ax,
+            mm_impl=self.matmul_impl)
         return props
 
     def _draft_prefill_fn(self, bucket, ops):
@@ -2819,7 +2953,7 @@ class InferenceEngine:
     def _geometry(self):
         """The engine's geometry as plain JSON: every constructor knob a
         fresh engine needs to serve the same way, the JAX package's keys
-        (``tp``/``ep`` at the values the port serves with). Shared by
+        (``ep`` at the value the port serves with). Shared by
         :meth:`snapshot` and the capture header; ``capture_dir`` is None
         in the header (written before the knob resolves: a replay must
         not capture again by default)."""
@@ -2841,7 +2975,7 @@ class InferenceEngine:
             "spec_k": self.spec_k,
             "draft": self.spec_draft,
             "attn_impl": self.attn_impl,
-            "tp": 1,
+            "tp": self.tp,
             "ep": 1,
             "weight_dtype": self.weight_dtype,
             "weight_group": self.weight_group,
@@ -2867,16 +3001,26 @@ class InferenceEngine:
         carry over. Returns ``(engine,
         {request_id: Request})``. A ``draft="model"`` snapshot needs the
         draft model back: pass ``draft_decoder=...`` in ``overrides``. A
-        geometry knob the port still refuses (``tp``, ``ep``) must be at
-        its default. A snapshot's ``capture_dir`` makes the restored
-        engine capture into a fresh file in that directory, its header
-        naming the donor (``migrated_from``)."""
+        geometry knob the port still refuses (``ep``) must be at its
+        default. The snapshot's ``tp`` is rebuilt as the constructor
+        resolves a degree without a mesh; a ``mesh`` (or ``tp``) in
+        ``overrides`` replaces it, so a tp=2 snapshot restores at tp=1,
+        or on two ranks of one card. The JAX engine's default
+        ``attn_impl="dense"`` gives way to the port's ``"paged"``, as in
+        :func:`~.replay.build_engine`: the read is not request content. A
+        snapshot's ``capture_dir`` makes the restored engine capture into
+        a fresh file in that directory, its header naming the donor
+        (``migrated_from``)."""
         if not isinstance(snap, dict) or snap.get("version") != 1:
             raise MXNetError(
                 "InferenceEngine.restore: not an engine snapshot "
                 "(want the dict snapshot() returned)")
         cfg = dict(snap["engine"])
         cfg["prefill_buckets"] = tuple(cfg["prefill_buckets"])
+        if cfg.get("attn_impl") == "dense":
+            cfg["attn_impl"] = "paged"
+        if "mesh" in overrides:
+            cfg.pop("tp", None)
         cfg.update(overrides)
         cfg.setdefault("migrated_from", snap.get("engine_id"))
         eng = cls(decoder, **cfg)

@@ -3,9 +3,12 @@ machine.
 
 Counterpart of the JAX package's ``tools/replay_serving.py`` (library and
 CLI): ``python -m mxnet_tpu_torch.serving.replay CAPTURE.jsonl
---checkpoint PREFIX ...``, the same flags (``--tp`` raises: tensor
-parallelism is a later slice of the port), plus ``--device`` (default
-``cuda:0``; ``cpu`` runs the engines on the host).
+--checkpoint PREFIX ...``, the same flags, plus ``--device`` (default
+``cuda:0``; ``cpu`` runs the engines on the host). ``--tp N`` replays on a
+tensor-parallel engine of N ranks (``--tp 1`` unshards a tp capture):
+greedy streams do not depend on the degree, so ``--verify`` stays clean.
+With ``--device`` the ranks all run on that device; without it, on the
+visible cards.
 
 A capture (``MXNET_SERVING_CAPTURE_DIR`` /
 ``InferenceEngine(capture_dir=...)``, either package's) holds everything a
@@ -55,7 +58,6 @@ import time
 
 import numpy as np
 
-from ..base import later_slice
 from .capture import load_capture
 
 __all__ = ["build_engine", "recorded_latency", "rolling_restart",
@@ -344,8 +346,9 @@ def main(argv=None):
     ap.add_argument("--attn-impl", default=None,
                     choices=("dense", "paged"))
     ap.add_argument("--tp", type=int, default=None,
-                    help="tensor-parallel degree override; anything "
-                         "but 1 raises (a later slice of the port)")
+                    help="tensor-parallel degree override (default: the "
+                         "capture's; 1 = unshard a tp capture); the ranks "
+                         "run on --device, else on the visible cards")
     ap.add_argument("--weight-dtype", default=None,
                     choices=("float", "int8"),
                     help="weight-storage override: replay the capture "
@@ -385,10 +388,8 @@ def main(argv=None):
                     help="the engines' device (default cuda:0; cpu runs "
                          "them on the host)")
     args = ap.parse_args(argv)
-    if args.tp is not None and args.tp != 1:
-        raise later_slice("replay --tp", "tensor-parallel replay")
 
-    from ..parallel import Decoder
+    from ..parallel import Decoder, model_parallel_mesh
 
     cap = load_capture(args.capture)
     max_len = args.max_len or cap["engine"].get("max_len")
@@ -416,6 +417,13 @@ def main(argv=None):
         ("attn_impl", args.attn_impl),
         ("weight_dtype", args.weight_dtype),
     ) if v is not None}
+    tp = args.tp if args.tp is not None else cap["engine"].get("tp", 1)
+    if args.tp is not None:
+        overrides["tp"] = tp
+    if tp > 1 and args.device is not None:
+        # the ranks of a single-controller mesh on the one device asked for
+        overrides["mesh"] = model_parallel_mesh(
+            tp, devices=[args.device] * tp)
     roles_pd = None
     if args.roles:
         try:
@@ -449,7 +457,8 @@ def main(argv=None):
     report = replay(cap, engine, timing=args.timing,
                     verify=args.verify, verify_mode=args.verify_mode,
                     on_round=on_round)
-    report["overrides"] = overrides
+    report["overrides"] = {k: v for k, v in overrides.items()
+                           if k != "mesh"}
     captured_role, note = role_report(cap, roles_pd)
     report["captured_role"] = captured_role
     if note:

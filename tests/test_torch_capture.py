@@ -479,7 +479,8 @@ def test_jax_capture_replays_on_port_and_port_capture_on_jax(lm, captured):
 def test_replay_cli(lm, captured, tmp_path, capsys):
     """``python -m mxnet_tpu_torch.serving.replay``'s ``main`` on a saved
     checkpoint: verify clean, then through a 2-replica fleet with a rolling
-    restart (zero failed); ``--tp 2`` is a later slice."""
+    restart (zero failed), then on a tp=2 engine (``--tp 2``, two ranks on
+    the host), verify clean."""
     prefix = str(tmp_path / "lm")
     save_checkpoint(prefix, 0, lm["symbol"], lm["params"], {})
     path = captured["port"]["path"]
@@ -495,5 +496,7 @@ def test_replay_cli(lm, captured, tmp_path, capsys):
     assert rep["mismatches"] == []
     assert rep["fleet"]["drains"] == 2
     assert rep["fleet"].get("failovers", 0) == 0
-    with pytest.raises(PortError, match="later slice"):
-        port_replay.main(base + ["--tp", "2"])
+    assert port_replay.main(base + ["--tp", "2"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rep["mismatches"] == [] and rep["overrides"]["tp"] == 2
+    assert rep["verified"] == len(captured["port"]["cases"])

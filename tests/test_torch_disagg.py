@@ -166,8 +166,9 @@ def test_role_knob_validation(lm, monkeypatch):
     """Unknown roles and handoff dtypes refused, the env default honored,
     narrowing refused (only widening to unified), a decode specialist
     refuses every submit, a prefill specialist refuses admit_handoff —
-    both packages, the same messages; tp/ep/mesh still a later slice on
-    the port."""
+    both packages, the same messages. On the port a tensor-parallel
+    prefill specialist builds, ep is still a later slice and a mesh must
+    be a parallel.Mesh."""
     for name in ("jax", "port"):
         side = lm[name]
         with pytest.raises(side.error, match="role must be"):
@@ -202,8 +203,12 @@ def test_role_knob_validation(lm, monkeypatch):
         finally:
             ep.close()
             ed.close()
-    for kw in (dict(tp=2), dict(ep=2), dict(mesh=object())):
-        with pytest.raises(PortError, match="later slice"):
+    e = _mkeng(lm["port"], role="prefill", tp=2)
+    assert e.tp == 2 and e._geometry()["tp"] == 2
+    e.close()
+    for kw, match in ((dict(ep=2), "later slice"),
+                      (dict(mesh=object()), "parallel.Mesh")):
+        with pytest.raises(PortError, match=match):
             _mkeng(lm["port"], **kw)
 
 

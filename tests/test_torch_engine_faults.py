@@ -637,6 +637,36 @@ def test_snapshot_restores_across_packages(lm, ceng, direction):
     _drained(eng)
 
 
+def test_default_jax_engine_snapshot_restores_on_the_port(lm):
+    """A snapshot of a JAX engine at its defaults (``attn_impl="dense"``
+    in its geometry), taken mid-flight, restores on the port (which
+    serves the same attention through its paged read), and the greedy
+    streams equal the JAX engine's uninterrupted run; ``"dense"`` passed
+    to the port's constructor is still refused."""
+    side = lm["jax"]
+    rng = np.random.RandomState(14)
+    cases = [(rng.randint(0, VOCAB, (n,)), b)
+             for n, b in ((3, 9), (6, 7), (2, 10))]
+    jeng = side.engine.InferenceEngine(side.mkdec(), **PLAIN)
+    rs = [jeng.submit(p, max_tokens=b) for p, b in cases]
+    for _ in range(4):
+        jeng.step()
+    snap = json.loads(json.dumps(jeng.snapshot()))
+    assert snap["engine"]["attn_impl"] == "dense"
+    assert any(r["tokens"] for r in snap["requests"])
+    jeng.serve_forever()
+    eng, handles = port_engine.InferenceEngine.restore(
+        snap, lm["port"].mkdec())
+    assert eng.attn_impl == "paged"
+    eng.serve_forever()
+    for r in rs:
+        assert handles.get(r.id, r).result().tolist() == r.result().tolist()
+    _drained(eng)
+    eng.close()
+    with pytest.raises(PortError, match="attn_impl"):
+        _build(lm["port"], attn_impl="dense", **PLAIN)
+
+
 def test_restore_regenerates_the_emitted_rows_bit_for_bit(lm):
     """The port's restore prefills the prompt and regenerates the emitted
     tokens through its decode rounds: the restored slot's K/V rows equal

@@ -522,10 +522,23 @@ def test_submit_robustness_parameters_are_accepted(decoder, param, value):
 
 
 def test_init_cache_kv_sharding_raises(decoder):
-    with pytest.raises(MXNetError, match="later slice"):
+    """``kv_sharding`` is ported: what is not a NamedSharding, or one whose
+    spec does not name the kv-head dimension, raises; a sharding over the
+    model axis gives one tree a rank with half the heads."""
+    from mxnet_tpu_torch.parallel import (NamedSharding, P,
+                                          model_parallel_mesh)
+    with pytest.raises(MXNetError, match="NamedSharding"):
         decoder.init_cache(2, kv_sharding=object())
+    mesh = model_parallel_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(MXNetError, match="kv-head dimension"):
+        decoder.init_cache(2, kv_sharding=NamedSharding(mesh, P()))
     caches = decoder.init_cache(2, None)
     assert caches[0][0].shape[:2] == (2, T)
+    ranks = decoder.init_cache(2, NamedSharding(mesh, P(None, None,
+                                                         "model")))
+    assert len(ranks) == 2
+    assert ranks[1][0][0].shape == caches[0][0].shape[:2] + (
+        caches[0][0].shape[2] // 2, caches[0][0].shape[3])
 
 
 def test_striped_ring_passes_tile_knobs_to_its_hops(monkeypatch):

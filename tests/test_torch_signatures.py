@@ -40,6 +40,7 @@ from mxnet_tpu_torch.models import get_transformer_lm
 from mxnet_tpu_torch.ops import kernels as tkernels
 from mxnet_tpu_torch.parallel import decode as tdecode
 from mxnet_tpu_torch.parallel import graph as tgraph
+from mxnet_tpu_torch.parallel import mesh as tmesh
 from mxnet_tpu_torch.parallel import ring as tring
 from mxnet_tpu_torch.parallel import sp as tsp
 from mxnet_tpu_torch.parallel import trainer as ttrainer
@@ -260,14 +261,38 @@ def test_generate_repeats_for_the_same_rng_seed(decoder):
         decoder.generate(prompt, 5, rng=5, temperature=1.0)
 
 
-ENGINE_UNPORTED = [("tp", 2), ("mesh", object()), ("ep", 2)]
+# tensor parallelism is ported (the cases below), so its cases here are
+# its refusals: a degree that does not divide the 2 kv heads, a mesh that
+# is not a parallel.Mesh; ep is still a later slice
+ENGINE_UNPORTED = [("tp", 3, "divide evenly"),
+                   ("mesh", object(), "parallel.Mesh"),
+                   ("ep", 2, "later slice")]
 
 
-@pytest.mark.parametrize("param,value", ENGINE_UNPORTED,
-                         ids=[p for p, _ in ENGINE_UNPORTED])
-def test_engine_unported_parameters_raise(decoder, param, value):
-    with pytest.raises(MXNetError, match="later slice"):
+@pytest.mark.parametrize("param,value,match", ENGINE_UNPORTED,
+                         ids=[p for p, _, _ in ENGINE_UNPORTED])
+def test_engine_unported_parameters_raise(decoder, param, value, match):
+    with pytest.raises(MXNetError, match=match):
         tengine.InferenceEngine(decoder, **{param: value})
+
+
+# the tensor-parallel parameters (they raised "later slice" before this
+# slice of the port): each is taken and gives the degree
+ENGINE_TP = [
+    ("tp", 2),
+    ("mesh", lambda: tmesh.model_parallel_mesh(2, devices=["cpu"] * 2))]
+
+
+@pytest.mark.parametrize("param,value", ENGINE_TP,
+                         ids=[p for p, _ in ENGINE_TP])
+def test_engine_tp_parameters_are_accepted(decoder, param, value):
+    eng = tengine.InferenceEngine(
+        decoder, 2, **{param: value() if callable(value) else value})
+    try:
+        assert eng.tp == 2 and len(eng._caches) == 2
+        assert eng.snapshot()["engine"]["tp"] == 2
+    finally:
+        eng.close()
 
 
 # the fleet parameters (they raised "later slice" before this slice of the
