@@ -207,6 +207,38 @@ Phases:
    at tp=2: the donors' and the restored engines' streams equal tp=1's;
    (5) the wave through a tp=2 prefill and a tp=1 decode specialist, and
    the other way round: streams equal tp=1's;
+4f. the dense, blocked and windowed reads on phase 4's 124M LM (int8
+   weights, unfused products ``matmul_impl="pallas"``, bf16; each check on
+   its own ``phase 4f`` line, the phase's seconds last): (1) before any
+   engine runs, bitwise: the blocked read (``cache_block`` 128) over all 8
+   blocks against each slot's live blocks (32 slots at random positions,
+   bf16 and int8 caches); a row's bits whatever the batch (the blocked,
+   dense and ring reads of 1 and 6 slots against the same slots among
+   32, a 200-row dense chunk against its 256-row bucket); the windowed
+   ring write of a padded piece against the exact piece (the 124M
+   windowed LM's padded prefill against its exact one reported); (2) the
+   dense engine (``cache_block`` auto = 128) over phase 4's wave, 3 waves
+   in turns with the paged engine at the same products: every stream
+   equal to the dense ``Decoder.generate``, exact launches (no paged read,
+   no fused step), the JAX compile contract, tokens/s of both, how many
+   streams the two reads share (bf16: not gated), both decode profiles;
+   phase 4e(3)'s reuse gauntlet on a dense engine at ``cache_block=None``
+   (the JAX engine's serving configuration): streams equal the dense
+   offline decoder's, prefix hits and accepted drafts; (3) a 2-layer f32
+   LM's paged and dense engines over a small gauntlet, streams
+   byte-identical; (4) the 124M LM built with ``window=256``: asked for
+   the paged read and n-gram speculation the engine warns, has no prefix
+   pool and refuses a prefill role; 36 requests over 32 slots, prompts of
+   40-900 tokens in pieces of 256 (rings wrapping within a prompt, across
+   pieces and during decode), exact launches, the compile contract, every
+   stream equal to the windowed ``Decoder.generate``, the decode profile;
+   the same wave at tp=2 on two ranks of the card, streams equal; (5)
+   ``beam_search`` on the 124M paged decoder (B=2, a 64-token prompt, 32
+   steps, beams of 4, with and without an EOS): exact launches,
+   ``beam_size=1`` equal to greedy ``generate``, each score within its
+   bf16 bound of a teacher-forced prefill's log-probs, beams best first,
+   ms a step; (6) 2-layer f32 LMs through the dense (GQA, rope, int8
+   cache), blocked and windowed reads, card against host;
 5. the training main path: the same 124M LM (``impl="flash"``) trained by
    ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
    0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
@@ -4216,6 +4248,628 @@ def tp_main_path(K, dev, prefix, work):
     return total
 
 
+# -- phase 4f: the dense, blocked and windowed reads -------------------------
+
+WINDOW = 256                        # the windowed cell's ring rows
+DW_WAVES = 3                        # paged and dense waves, in turns
+# the windowed wave: 4 prompt lengths x 9 requests (36 > 32 slots: slots
+# are reused), prompts past the window and a budget that carries the short
+# ones past it during decode; pieces of CHUNK tokens
+WIN_GROUPS = ((40, 224), (300, 64), (600, 48), (900, 32))
+WIN_PER_GROUP = 9
+BEAM_B, BEAM_P, BEAM_STEPS, BEAM_K = 2, 64, 32, 4
+
+
+def _decoder_4f(prefix, dev, symbol=None, **kw):
+    """The 124M checkpoint (int8 weights, unfused products, bf16) as a
+    decoder of ``kw``'s read; ``symbol`` rebuilds it over another graph of
+    the same parameters (the windowed LM)."""
+    from mxnet_tpu_torch.model import load_checkpoint
+    from mxnet_tpu_torch.parallel import Decoder
+    args = dict(weight_dtype="int8", matmul_impl=TP_MM,
+                compute_dtype="bfloat16", device=dev)
+    args.update(kw)
+    if symbol is None:
+        return Decoder.from_checkpoint(prefix, 0, MAX_LEN, **args)
+    _, arg_params, aux_params = load_checkpoint(prefix, 0)
+    return Decoder(symbol, arg_params, MAX_LEN, aux_params=aux_params,
+                   **args)
+
+
+def _unfused_launches(d, spec=False):
+    """The launches of a dense or windowed engine's stats deltas ``d``:
+    the products only (4*12+1 a walk: a decode step, a verify round, a
+    prefill piece), no paged read and no fused step."""
+    walks = d["steps"] * STEPS_PER_ROUND
+    if spec:
+        walks = d["spec_rounds"] + d["spec_fallback_rounds"] \
+            * STEPS_PER_ROUND
+    return {"quant_matmul": (4 * LAYERS + 1) * (walks + d["prefill_chunks"])}
+
+
+def _equal_generate_grouped(what, dec, handles):
+    """Every stream of ``handles`` equal to ``Decoder.generate``, one batch
+    a (prompt length, tokens) group: the dense, blocked and ring reads and
+    ``quant_matmul`` give a row the same bits whatever the batch (phase
+    4f.1 gates the reads' batch invariance). Returns the seconds of
+    offline decoding."""
+    groups = collections.defaultdict(list)
+    for h in handles:
+        if not h.done or len(h.tokens) != h.limit:
+            raise AssertionError("%s: request %s did not finish its budget"
+                                 % (what, h.id))
+        groups[(len(h.prompt), len(h.tokens))].append(h)
+    t0 = time.perf_counter()
+    for (p, n), hs in groups.items():
+        ref = dec.generate(np.stack([np.asarray(h.prompt) for h in hs]),
+                           n)[:, p:].cpu().tolist()
+        for h, r in zip(hs, ref):
+            if r != h.tokens:
+                raise AssertionError("%s: request %s's stream differs from "
+                                     "Decoder.generate" % (what, h.id))
+    return time.perf_counter() - t0
+
+
+def _live_blocked(dec, q, entry, pos):
+    """The JAX package's blocked read: each row runs its own
+    ``ceil((pos + 1) / cache_block)`` live blocks (a row past them keeps
+    its carry, as the vmapped loop of the JAX package keeps it)."""
+    b, c, h, d = q.shape
+    bl = dec._cache_block
+    qf = q.to(torch.float32)
+    m = torch.full((b, h, c), -math.inf, device=q.device)
+    s = torch.zeros((b, h, c), device=q.device)
+    acc = torch.zeros((b, h, c, d), device=q.device)
+    live = (pos.long() + bl) // bl
+    for i in range(int(live.max())):
+        kb, vb = dec._cache_block_rows(entry, i * bl)
+        m2, s2, a2 = dec._block_update(qf, kb, vb, i * bl, pos, (m, s, acc))
+        on = (i < live)[:, None, None]
+        m, s, acc = (torch.where(on, m2, m), torch.where(on, s2, s),
+                     torch.where(on[..., None], a2, acc))
+    return (acc / s[..., None]).to(q.dtype).transpose(1, 2)
+
+
+def check_dense_reads(dec, dec8, decw, dev):
+    """4f.1, before any engine runs: (a) the blocked read over all 8
+    blocks bitwise equal to the loop over each row's live blocks (C=1, 32
+    slots at random positions, bf16 and int8 caches, junk past each
+    position); (b) the dense read's rows: the port reads all max_len rows
+    in every call (no static clamp to pos + C is kept, so there is none to
+    gate); (c) a row's bits whatever the batch: the blocked, dense and
+    ring reads of 1 and 6 slots against the same slots among 32, and a
+    200-row dense chunk against its rows of the 256-row bucket (the
+    engine's rounds equal ``Decoder.generate`` only so); (d) the windowed
+    ring write of a right-padded piece bitwise equal to the exact-length
+    piece's (ring K/V and positions) at the 124M shapes, a piece longer
+    than the window first, and the 124M windowed LM's padded prefill
+    against its exact one (reported)."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    hd = EMBED // HEADS
+    n = 0
+    for d in (dec, dec8):
+        for trial in range(2):
+            pos = torch.randint(0, MAX_LEN, (SLOTS,), generator=g,
+                                device=dev, dtype=torch.int32)
+            if trial:
+                pos[0], pos[1] = 0, MAX_LEN - 1       # the edge blocks
+            q = torch.randn((SLOTS, 1, HEADS, hd), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            shape = (SLOTS, MAX_LEN, HEADS, hd)
+            if d._cache_int8:
+                def vals():
+                    return torch.randint(-127, 128, shape, generator=g,
+                                         device=dev, dtype=torch.int8)
+
+                def scales():
+                    return torch.rand(shape[:3], generator=g, device=dev) \
+                        * 0.02 + 1e-3
+                entry = (vals(), scales(), vals(), scales())
+            else:
+                entry = tuple(torch.randn(shape, generator=g, device=dev,
+                                          dtype=torch.bfloat16)
+                              for _ in range(2))
+            got = d._blocked_attn(q, entry, pos)
+            want = _live_blocked(d, q, entry, pos)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    "phase 4f: the blocked read over all %d blocks differs "
+                    "from the live blocks' loop (%s cache, max |diff| %.3g)"
+                    % (MAX_LEN // d._cache_block,
+                       "int8" if d._cache_int8 else "bf16",
+                       (got.float() - want.float()).abs().max()))
+            n += 1
+    log("phase 4f reads (a): the blocked read over all %d blocks of %d rows "
+        "bitwise equal to the loop over each slot's live blocks in %d "
+        "cases (C=1, %d slots at random positions, bf16 and int8 caches)"
+        % (MAX_LEN // dec._cache_block, dec._cache_block, n, SLOTS))
+    log("phase 4f reads (b): the dense read takes all %d rows in every call "
+        "(prefill, step and the engine's programs alike); the JAX "
+        "package's static clamp to pos + C is not kept, so no clamp is "
+        "gated" % MAX_LEN)
+    # (c) a row's bits do not depend on the batch: rows 0, 0-5 of a
+    # 32-slot read against the same rows read alone (the blocked read, the
+    # dense read at C=1 and a 200-row chunk against its 256-row bucket)
+    n = 0
+    for d in (dec, dec8):
+        pos = torch.randint(0, MAX_LEN, (SLOTS,), generator=g, device=dev,
+                            dtype=torch.int32)
+        q = torch.randn((SLOTS, 1, HEADS, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        entry = tuple(torch.randn((SLOTS, MAX_LEN, HEADS, hd), generator=g,
+                                  device=dev, dtype=torch.bfloat16)
+                      for _ in range(2))
+        if d._cache_int8:
+            entry = d._cache_rows(*entry)
+
+        def reads(sl):
+            ctx = {"rows": pos[sl].long()[:, None]}
+            return (d._blocked_attn(q[sl], tuple(t[sl] for t in entry),
+                                    pos[sl]),
+                    d._dense_attn(q[sl], tuple(t[sl] for t in entry), ctx))
+        full = reads(slice(0, SLOTS))
+        for sl in (slice(0, 1), slice(0, 6)):
+            for got, want in zip(reads(sl), full):
+                if not torch.equal(got, want[sl]):
+                    raise AssertionError(
+                        "phase 4f: a read of %d slots differs from the same "
+                        "slots among %d" % (sl.stop, SLOTS))
+                n += 1
+    qc = torch.randn((1, 256, HEADS, hd), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    rows = 300 + torch.arange(256, device=dev)[None]
+    one = tuple(torch.randn((1, MAX_LEN, HEADS, hd), generator=g,
+                            device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+    chunk = dec._dense_attn(qc, one, {"rows": rows})
+    part = dec._dense_attn(qc[:, :200], one, {"rows": rows[:, :200]})
+    if not torch.equal(part, chunk[:, :200]):
+        raise AssertionError("phase 4f: the dense read of a 200-row chunk "
+                             "differs from its rows of the 256-row bucket")
+    posw = torch.randint(WINDOW, MAX_LEN, (SLOTS,), generator=g, device=dev,
+                         dtype=torch.int32)
+    ring = [torch.randn((SLOTS, WINDOW, HEADS, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2)]
+    back = posw[:, None].long() - 1 - torch.arange(WINDOW, device=dev)
+    cpos = torch.zeros((SLOTS, WINDOW), dtype=torch.int32, device=dev)
+    cpos.scatter_(1, back % WINDOW, back.to(torch.int32))
+    qkv = [torch.randn((SLOTS, 1, HEADS, hd), generator=g, device=dev,
+                       dtype=torch.bfloat16) for _ in range(3)]
+
+    def ring_read(sl):
+        e = (ring[0][sl].clone(), ring[1][sl].clone(), cpos[sl].clone())
+        return decw._window_attn(*(t[sl] for t in qkv), e, posw[sl],
+                                 WINDOW)[0]
+    full = ring_read(slice(0, SLOTS))
+    for sl in (slice(0, 1), slice(0, 6)):
+        if not torch.equal(ring_read(sl), full[sl]):
+            raise AssertionError("phase 4f: a ring read of %d slots differs "
+                                 "from the same slots among %d"
+                                 % (sl.stop, SLOTS))
+        n += 1
+    log("phase 4f reads (c): %d batch checks bitwise (the blocked and dense "
+        "reads of 1 and 6 slots against the same slots among %d, bf16 and "
+        "int8 caches; the ring read likewise; a 200-row dense chunk against "
+        "its rows of the 256-row bucket)" % (n + 1, SLOTS))
+    # (d) the write alone: the same rows, a padded and an exact piece
+    win = decw._node_window(decw._mha[0])
+    q, k, v = (torch.randn((1, 512, HEADS, hd), generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    exact = decw.init_cache(1)[0]
+    padded = decw.init_cache(1)[0]
+    same_o = True
+    start = 0
+    for real, pad in ((300, 300), (150, 256)):
+        sl = slice(start, start + real)
+        o_e, _ = decw._window_attn(q[:, sl], k[:, sl], v[:, sl], exact,
+                                   torch.tensor([start], device=dev), win)
+        sp = slice(start, start + pad)
+        o_p, _ = decw._window_attn(q[:, sp], k[:, sp], v[:, sp], padded,
+                                   torch.tensor([start], device=dev), win,
+                                   valid_len=torch.tensor([start + real],
+                                                          device=dev))
+        same_o &= torch.equal(o_p[:, :real], o_e)
+        for x, y in zip(padded, exact):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    "phase 4f: the ring written by a piece of %d real rows "
+                    "padded to %d differs from the exact piece's" % (real,
+                                                                     pad))
+        start += real
+    # the whole LM: a 200-token prompt, exact and padded to 256
+    toks = torch.randint(0, VOCAB, (1, 200), generator=g, device=dev)
+    pad = torch.cat([toks, torch.zeros((1, 56), dtype=toks.dtype,
+                                       device=dev)], 1)
+    le, ce = decw._run(decw._params, decw._aux, decw.init_cache(1), 0, toks)
+    lp, cp = decw._run(decw._params, decw._aux, decw.init_cache(1), 0, pad,
+                       valid_len=200)
+    rings = sum(all(torch.equal(x, y) for x, y in zip(a, b))
+                for a, b in zip(cp, ce))
+    log("phase 4f reads (d): the ring write of a padded piece (300 rows, "
+        "then 150 padded to 256, window %d, bf16) bitwise equal to the "
+        "exact pieces': ring K/V and positions; the real rows' outputs "
+        "bitwise equal: %s; the 124M windowed LM's 200-token prefill padded "
+        "to 256: %d of %d layers' rings and the last logits (%s) bitwise "
+        "equal to the exact prefill's" % (
+            win, same_o, rings, LAYERS,
+            "equal" if torch.equal(lp[0, 199], le[0, 199]) else
+            "max |diff| %.3g" % (lp[0, 199].float()
+                                 - le[0, 199].float()).abs().max()))
+
+
+def dense_engine(K, dec, paged, work):
+    """4f.2 and 4f.3's 124M part: phase 4's wave on the dense engine
+    (``cache_block`` auto = 128: decode steps on the blocked read, prefill
+    pieces on the dense read) and on the paged one, DW_WAVES each in turns
+    (both unfused, ``TP_MM``): every dense stream equal to the dense
+    ``Decoder.generate``, exact launches from ``stats``, the JAX compile
+    contract; how many streams the two reads share (bf16: not gated);
+    tokens/s of each; the dense decode profile. Returns the launches."""
+    de = _engine_4c(dec)
+    pe = _engine_4c(paged)
+    if de.attn_impl != "dense" or dec._cache_block != 128:
+        raise AssertionError("phase 4f: the dense engine reads %s with "
+                             "cache_block %r" % (de.attn_impl,
+                                                 dec._cache_block))
+    for e in (de, pe):
+        _warm(e)
+    s0 = {id(e): dict(e.stats) for e in (de, pe)}
+    K.reset_launch_counts()
+    runs = {"dense": [], "paged": []}
+    for i in range(DW_WAVES):
+        turn = (("dense", de), ("paged", pe))
+        for what, e in (turn if i % 2 == 0 else turn[::-1]):
+            runs[what].append(_serve_wave(e, work))
+    launches = K.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    dd = _delta(de, s0[id(de)])
+    want.update(_unfused_launches(dd))
+    for k, nl in _tp_launches(_delta(pe, s0[id(pe)]), 1).items():
+        want[k] = want.get(k, 0) + nl
+    if launches != want:
+        raise AssertionError("phase 4f dense wave: launch counts %r, the "
+                             "waves want %r" % (launches, want))
+    first = runs["dense"][0][0]
+    for what in runs:
+        for handles, _ in runs[what]:
+            for h, h0 in zip(handles, runs[what][0][0]):
+                if not h.done or len(h.tokens) != h.limit \
+                        or h.tokens != h0.tokens:
+                    raise AssertionError("phase 4f %s wave: request %s "
+                                         "differs between waves" % (what,
+                                                                    h.id))
+    gen_s = _equal_generate_grouped("phase 4f dense wave", dec, first)
+    check_compile_counts(de, "phase 4f dense")
+    shared = sum(h.tokens == hp.tokens
+                 for h, hp in zip(first, runs["paged"][0][0]))
+    tps = {w: statistics.median(_wave_metrics(h, t)[0] for h, t in r)
+           for w, r in runs.items()}
+    log("phase 4f dense wave (cache_block %d): %d streams equal the dense "
+        "Decoder.generate (%.1f s of offline decoding); %d of %d streams "
+        "equal the paged engine's (bf16: the reads round differently; not "
+        "gated); tokens/s dense %.1f, paged %.1f (median of %d waves each, "
+        "in turns, unfused products), dense/paged %.3f; launches %s; %s" % (
+            dec._cache_block, len(first), gen_s, shared, len(first),
+            tps["dense"], tps["paged"], DW_WAVES,
+            tps["dense"] / tps["paged"],
+            json.dumps({e: n for e, n in launches.items() if n}),
+            card_line()))
+    profile_decode(de, np.random.RandomState(8), trace=None,
+                   what="phase 4f dense, cache_block 128")
+    profile_decode(pe, np.random.RandomState(8), trace=None,
+                   what="phase 4f paged, unfused")
+    de.close()
+    pe.close()
+    return launches
+
+
+def dense_gauntlet(K, prefix, dev):
+    """4f.2's reuse gauntlet (phase 4e(3)'s: a 160 MiB prefix pool,
+    ``prefill_chunk=256``, n-gram ``spec_k=4``) on a dense engine with
+    ``cache_block=None``, the JAX engine's serving configuration (a
+    verify round reads its chunk densely in q's dtype; so does a decode
+    step then): the wave twice (the first builds every program), the
+    second counted: exact launches, prefix hits and accepted drafts, every
+    stream equal to the dense offline decoder's. Returns the launches."""
+    dec = _decoder_4f(prefix, dev, attn_impl="dense", cache_block=None)
+    work = _gauntlet_work(44)
+    e = _engine_4c(dec, prefix_cache_mb=POOL_MB, prefill_chunk=CHUNK,
+                   draft="ngram", spec_k=SPEC_K)
+    _serve_wave(e, work)
+    _build(e, ("decode", "verify"))
+    s0 = dict(e.stats)
+    K.reset_launch_counts()
+    handles, secs = _serve_wave(e, work)
+    d = _delta(e, s0)
+    got = _check_launches(K, "phase 4f dense gauntlet",
+                          _unfused_launches(d, spec=True))
+    if d["prefix_hits"] < 1 or d["spec_accepted"] < 1 \
+            or d["prefill_chunks"] <= len(work):
+        raise AssertionError("phase 4f dense gauntlet: stats %r" % d)
+    _equal_generate_grouped("phase 4f dense gauntlet", dec, handles)
+    _wave_line("phase 4f dense gauntlet (cache_block None)", handles, secs,
+               got, "; prefix hits %d, accepted drafts %d of %d, prefill "
+               "pieces %d; every stream equal the dense Decoder.generate"
+               % (d["prefix_hits"], d["spec_accepted"], d["spec_drafted"],
+                  d["prefill_chunks"]))
+    e.close()
+    return got
+
+
+def check_paged_equals_dense_f32(dev):
+    """4f.3: a 2-layer f32 LM on the card, a paged and a dense engine over
+    a small gauntlet (a prefix pool, 16-token pieces, n-gram drafts, 4
+    slots for 12 requests): streams byte-identical (the JAX contract,
+    ``tests/test_paged_attention.py``)."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import Decoder
+    from mxnet_tpu_torch.serving import InferenceEngine
+
+    symbol = get_transformer_lm(97, num_layers=2, embed_dim=64, num_heads=4)
+    params = _small_params(symbol, 64)
+    rs = np.random.RandomState(9)
+    base = rs.randint(0, 97, (20,))
+    work = [(base, 8), (base[:12].copy(), 10),
+            (np.concatenate([base[:12], rs.randint(0, 97, (9,))]), 8),
+            (np.tile(rs.randint(0, 97, (4,)), 5), 20)]
+    work += [(rs.randint(0, 97, (int(n),)), 12)
+             for n in rs.randint(3, 40, 8)]
+    streams = {}
+    for impl in ("paged", "dense"):
+        d = Decoder(symbol, params, max_len=64, attn_impl=impl,
+                    cache_block=None, device=dev)
+        e = InferenceEngine(d, slots=4, prefill_buckets=(8, 16, 32),
+                            prefix_cache_mb=0.2, prefill_chunk=16,
+                            draft="ngram", spec_k=3)
+        hs = [e.submit(p, max_tokens=b) for p, b in work]
+        e.serve_forever()
+        streams[impl] = ([h.tokens for h in hs], dict(e.stats))
+        e.close()
+    if streams["paged"][0] != streams["dense"][0]:
+        raise AssertionError("phase 4f: the paged and dense engines' f32 "
+                             "streams differ")
+    st = streams["dense"][1]
+    log("phase 4f paged = dense (2-layer f32 LM, gauntlet of %d requests "
+        "over 4 slots): every stream byte-identical (prefix hits %d, "
+        "accepted drafts %d, prefill pieces %d)" % (
+            len(work), st["prefix_hits"], st["spec_accepted"],
+            st["prefill_chunks"]))
+
+
+def _window_work(rs):
+    return [(rs.randint(0, VOCAB, (p,)), b) for p, b in WIN_GROUPS
+            for _ in range(WIN_PER_GROUP)]
+
+
+def window_engine(K, decw, dev):
+    """4f.4: the 124M LM built with ``window=256`` behind the engine:
+    asked for the paged read and n-gram speculation it warns and serves
+    its dense ring read without speculation and without a prefix pool; a
+    prefill role is refused. Its wave (36 requests over 32 slots, prompts
+    of 40-900 tokens in pieces of 256, rings wrapping across pieces and
+    during decode) with exact launches and the compile
+    contract: every stream equal to the windowed ``Decoder.generate``;
+    then the wave at tp=2 on two ranks of the card, streams equal. Returns
+    the launches."""
+    import warnings as _w
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel import model_parallel_mesh
+    from mxnet_tpu_torch.serving import InferenceEngine
+
+    try:
+        InferenceEngine(decw, slots=2, role="prefill")
+    except MXNetError as err:
+        if "serve unified" not in str(err):
+            raise
+    else:
+        raise AssertionError("phase 4f: a windowed prefill engine was "
+                             "built")
+    with _w.catch_warnings(record=True) as caught:
+        _w.simplefilter("always")
+        e = _engine_4c(decw, attn_impl="paged", draft="ngram", spec_k=SPEC_K,
+                       prefix_cache_mb=POOL_MB, prefill_chunk=CHUNK)
+    texts = " | ".join(str(c.message) for c in caught
+                       if issubclass(c.category, UserWarning))
+    if "exact dense ring walk" not in texts or "draft='off'" not in texts \
+            or e.attn_impl != "dense" or e.spec_draft != "off" \
+            or e._prefix is not None:
+        raise AssertionError("phase 4f windowed engine: warnings %r, read "
+                             "%s, draft %s, pool %r" % (
+                                 texts, e.attn_impl, e.spec_draft,
+                                 e._prefix))
+    work = _window_work(np.random.RandomState(45))
+    _warm(e)
+    s0 = dict(e.stats)
+    K.reset_launch_counts()
+    handles, secs = _serve_wave(e, work)
+    d = _delta(e, s0)
+    got = _check_launches(K, "phase 4f windowed wave", _unfused_launches(d))
+    check_compile_counts(e, "phase 4f windowed")
+    gen_s = _equal_generate_grouped("phase 4f windowed wave", decw,
+                                    handles)
+    _wave_line("phase 4f windowed wave (window %d, prefill_chunk %d, %d "
+               "requests over %d slots)" % (WINDOW, CHUNK, len(work), SLOTS),
+               handles, secs, got,
+               "; prefill pieces %d; every stream equal the windowed "
+               "Decoder.generate (%.1f s offline, one batch a prompt length)"
+               % (d["prefill_chunks"], gen_s))
+    e.prefill_chunk = 0      # the profile's 32 prompts admit at once
+    profile_decode(e, np.random.RandomState(8), trace=None,
+                   what="phase 4f windowed, window %d" % WINDOW)
+    e.close()
+    mesh = model_parallel_mesh(TP, devices=[dev] * TP)
+    two = _engine_4c(decw, mesh=mesh, prefill_chunk=CHUNK)
+    _warm(two)
+    s0 = dict(two.stats)
+    K.reset_launch_counts()
+    h2, secs2 = _serve_wave(two, work)
+    g2 = _check_launches(K, "phase 4f windowed wave tp=2",
+                         _unfused_launches(_delta(two, s0)))
+    for h, r in zip(h2, handles):
+        if not h.done or h.tokens != r.tokens:
+            raise AssertionError("phase 4f windowed tp=2: request %s's "
+                                 "stream differs from tp=1's" % h.id)
+    log("phase 4f windowed tp=2 (%s): %d streams equal tp=1's; %.1f "
+        "tokens/s; %s" % (TP_NOTE, len(h2), _wave_metrics(h2, secs2)[0],
+                          card_line()))
+    two.close()
+    total = dict(got)
+    for k, n in g2.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def check_beam(K, dec, dev):
+    """4f.5: ``beam_search`` on the 124M paged decoder (B=2, a 64-token
+    prompt, 32 steps, beams of 4, with and without an EOS): exact
+    launches; ``beam_size=1`` equal to greedy ``generate``; each score
+    within its bound of the sum of its sequence's log-probs recomputed by
+    one teacher-forced prefill (bf16: per token 2 x LOGIT_ULPS bf16 ulps,
+    2^-7 relative, of the row's largest |logit|: the logit and the
+    log-sum-exp each); beams best first. Returns the launches."""
+    g = torch.Generator(device=dev).manual_seed(46)
+    prompt = torch.randint(0, VOCAB, (BEAM_B, BEAM_P), generator=g,
+                           device=dev)
+    one, _ = dec.beam_search(prompt, BEAM_STEPS, 1)
+    if not torch.equal(one[:, 0], dec.generate(prompt, BEAM_STEPS)):
+        raise AssertionError("phase 4f beam: beam_size=1 differs from "
+                             "greedy generate")
+    seqs0, _ = dec.beam_search(prompt, BEAM_STEPS, BEAM_K)
+    eos = int(seqs0[0, 0, BEAM_P + 3])
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs, scores = dec.beam_search(prompt, BEAM_STEPS, BEAM_K)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / BEAM_STEPS
+    walks = BEAM_STEPS
+    got = _check_launches(K, "phase 4f beam", {
+        "paged_attention_chunk": LAYERS,
+        "paged_attention_decode": LAYERS * (walks - 1),
+        "quant_matmul": (4 * LAYERS + 1) * walks})
+    worst = 0.0
+    for eos_id, (sq, sc) in ((None, (seqs, scores)),
+                             (eos, dec.beam_search(prompt, BEAM_STEPS,
+                                                   BEAM_K, eos_id=eos))):
+        if (sc[:, 1:] > sc[:, :-1]).any():
+            raise AssertionError("phase 4f beam: beams not best first")
+        flat = sq.reshape(BEAM_B * BEAM_K, -1)
+        logits, _ = dec.prefill(dec.init_cache(flat.shape[0]), flat)
+        lg = logits[:, BEAM_P - 1:-1].float()
+        lp = torch.log_softmax(lg, -1).gather(
+            2, flat[:, BEAM_P:, None])[..., 0]
+        live = torch.ones_like(lp, dtype=torch.bool)
+        if eos_id is not None:
+            hit = (flat[:, BEAM_P:] == eos_id).long().cumsum(1)
+            live = (hit - (flat[:, BEAM_P:] == eos_id).long()) == 0
+        want = (lp * live).sum(1)
+        bound = (2 * LOGIT_ULPS * 2.0 ** -7
+                 * lg.abs().amax(-1) * live).sum(1)
+        err = (sc.reshape(-1) - want).abs()
+        if (err > bound).any():
+            raise AssertionError("phase 4f beam (eos %r): scores %s, "
+                                 "recomputed %s, bound %s" % (
+                                     eos_id, sc.tolist(), want.tolist(),
+                                     bound.tolist()))
+        worst = max(worst, float((err / bound).max()))
+    log("phase 4f beam search (124M paged, B=%d, a %d-token prompt, %d "
+        "steps, beams of %d): beam_size=1 equals greedy generate; scores "
+        "within %.3f of their bound from a teacher-forced prefill, with and "
+        "without an EOS (%d); best first; %.3f ms a step; launches %s; %s"
+        % (BEAM_B, BEAM_P, BEAM_STEPS, BEAM_K, worst, eos, ms,
+           json.dumps({e: n for e, n in got.items() if n}), card_line()))
+    return got
+
+
+def _small_params(symbol, max_len):
+    """Fan-in scaled f32 weights (far from ties), from seed 2."""
+    shapes = {"data": (1, max_len), "softmax_label": (1, max_len)}
+    arg_shapes, _, _ = symbol.infer_shape(**shapes)
+    rng = np.random.RandomState(2)
+    return {n: (rng.randn(*sh) * (1.5 / np.sqrt(sh[1]) if len(sh) == 2
+                                  else 0.1)
+                + (n.endswith("_gamma"))).astype(np.float32)
+            for n, sh in zip(symbol.list_arguments(), arg_shapes)
+            if n not in shapes}
+
+
+def check_small_reads_against_host(dev):
+    """4f.6: 2-layer LMs in f32 on the card and on the host from the same
+    weights, through the dense read (GQA, rope, an int8 cache), the
+    blocked read (cache_block 16 of 64) and the ring (window 8, GQA, rope,
+    an int8 cache): prefill logits within 1e-3 and greedy tokens equal."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import Decoder
+
+    configs = [
+        (dict(num_kv_heads=2, pos_encoding="rope"),
+         dict(attn_impl="dense", cache_block=None, cache_dtype="int8")),
+        (dict(num_kv_heads=2), dict(attn_impl="dense", cache_block=16,
+                                    weight_dtype="int8",
+                                    matmul_impl="pallas")),
+        (dict(window=8, num_kv_heads=2, pos_encoding="rope"),
+         dict(cache_dtype="int8")),
+        (dict(window=8), dict(weight_dtype="int8", matmul_impl="pallas")),
+    ]
+    prompt = np.random.RandomState(3).randint(0, 97, (2, 11))
+    for mkw, dkw in configs:
+        symbol = get_transformer_lm(97, num_layers=2, embed_dim=64,
+                                    num_heads=4, **mkw)
+        params = _small_params(symbol, 64)
+        out = {}
+        for where in (dev, "cpu"):
+            d = Decoder(symbol, params, max_len=64, device=where, **dkw)
+            logits, _ = d.prefill(d.init_cache(2), prompt)
+            out[str(where)] = (logits.cpu(), d.generate(prompt, 30).cpu())
+        (lg, tg), (lh, th) = out[str(dev)], out["cpu"]
+        err = (lg - lh).abs().max().item()
+        if err > 1e-3 or not torch.equal(tg, th):
+            raise AssertionError(
+                "phase 4f small LM %s %s: card and host disagree (max "
+                "|logit err| %.3g, tokens equal %s)" % (
+                    mkw, dkw, err, torch.equal(tg, th)))
+        log("phase 4f small LM %s %s: card vs host prefill logits max |err| "
+            "%.3g, 30 greedy tokens equal (%d distinct)" % (
+                mkw, dkw, err, len(set(tg[:, 11:].flatten().tolist()))))
+
+
+def dense_main_path(K, dev, prefix, work):
+    """Phase 4f: the dense, blocked and windowed reads of ``Decoder`` and
+    the engine's dense and windowed paths on phase 4's 124M LM (int8
+    weights, unfused products, bf16). Returns the launches it counted."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    t0 = time.perf_counter()
+    dec = _decoder_4f(prefix, dev, attn_impl="dense")
+    dec8 = _decoder_4f(prefix, dev, attn_impl="dense", cache_dtype="int8")
+    symw = get_transformer_lm(VOCAB, num_layers=LAYERS, embed_dim=EMBED,
+                              num_heads=HEADS, window=WINDOW)
+    decw = _decoder_4f(prefix, dev, symbol=symw)
+    if decw._attn_impl != "dense":
+        raise AssertionError("phase 4f: the windowed decoder reads %s"
+                             % decw._attn_impl)
+    check_dense_reads(dec, dec8, decw, dev)
+    del dec8
+    paged = _decoder_4c(prefix, dev, mm=TP_MM)
+    total = {}
+
+    def add(launches):
+        for e, n in launches.items():
+            total[e] = total.get(e, 0) + n
+        free_programs()
+    add(dense_engine(K, dec, paged, work))
+    add(dense_gauntlet(K, prefix, dev))
+    check_paged_equals_dense_f32(dev)
+    add(window_engine(K, decw, dev))
+    add(check_beam(K, paged, dev))
+    check_small_reads_against_host(dev)
+    del dec, decw, paged
+    free_programs()
+    log("phase 4f: every check passed in %.1f s; launches %s" % (
+        time.perf_counter() - t0,
+        json.dumps({e: n for e, n in total.items() if n})))
+    return total
+
+
 def check_main_against_host(prefix, dec, handles, steps=16):
     """The 124M decoder rebuilt on the host from the same checkpoint (the
     plain versions, bf16) against the card's, for each served request:
@@ -5241,6 +5895,9 @@ def main():
         launches[e] += n
     free_programs()
     for e, n in tp_main_path(K, dev, prefix, work).items():
+        launches[e] += n
+    free_programs()
+    for e, n in dense_main_path(K, dev, prefix, work).items():
         launches[e] += n
     free_programs()
     check_small_against_host(dev)

@@ -82,6 +82,16 @@ slot's rows into a fixed staging buffer that is then copied out; import
 copies rows into it and writes them into a slot). The
 :class:`~.fleet.FleetRouter` drives the handoffs between engines.
 
+The attention read is the decoder's (``attn_impl``, the JAX package's
+l.977-1124): the paged kernel, or the dense read (blocked for the decode
+steps where the decoder has a ``cache_block``; the JAX engine serves
+``cache_block=None`` only). A windowed decoder's rings are served by its
+dense ring read: without a prefix pool, without speculation (asked for, it
+warns and turns it off) and as a unified engine only; a prefill piece wipes
+the slot's ring positions on the request's first piece and writes only its
+real rows into the ring, and the staging cache carries each ring and its
+positions whole (a ring row is not addressed by absolute position).
+
 Tensor-parallel serving (``tp``/``mesh``, the JAX package's l.790-951):
 the KV cache — the slot cache, the prefix pool, the staging caches, the
 draft model's and the handoff staging buffers — is sharded over the
@@ -104,6 +114,7 @@ import itertools
 import math
 import os
 import time
+import warnings
 import weakref
 
 import numpy as np
@@ -113,8 +124,8 @@ from .. import telemetry as tele
 from ..base import MXNetError, later_slice, refuse_unported
 from ..io import StagedStream
 from ..ops.attention import MultiHeadAttention as _MHA
-from ..parallel.decode import (Decoder, rank_trees, sample_tokens,
-                               uniform_draw)
+from ..parallel.decode import (CACHE_FILL, Decoder, rank_trees, ring_entry,
+                               sample_tokens, uniform_draw)
 from ..parallel.mesh import Mesh, model_parallel_mesh
 from ..parallel.program import Program, copy_in
 from ..parallel.shard import NamedSharding, PartitionSpec
@@ -424,8 +435,8 @@ _DEVICE_STATE = ("_groups", "_cache_bufs", "_caches", "_stage_groups",
 # EOS id (-1: none), the request's token budget (the JAX ``_prefill_fn``'s
 # traced operands, in its order, the PRNG key as the seed)
 _N_SCALARS = 8
-# the draft prefill's: slot, chunk start
-_N_DRAFT_SCALARS = 2
+# the draft prefill's: slot, chunk start, the piece's true length
+_N_DRAFT_SCALARS = 3
 
 
 def _default_buckets(max_len):
@@ -453,32 +464,37 @@ def _grouped_cache(one, slots, rows):
     """Cache buffers laid out like ``one`` (``Decoder.init_cache(1)``,
     sharded or not) for ``slots`` slots of ``rows`` rows, every buffer of
     one rank, dtype and row shape in ONE allocation ``[count, slots, rows,
-    ...]`` on the rank's device (K/V zeroed, int8 row scales one, as
-    ``init_cache`` has them). Returns ``(groups, caches)``: the
-    allocations (rank by rank), and a tree shaped like ``one`` of ``[slots,
-    rows, ...]`` views (each contiguous, as the kernels take them), so
-    that a copy between slots runs one kernel a group instead of one a
-    buffer."""
+    ...]`` on the rank's device (K/V zeroed, int8 row scales one, ring
+    positions -1, as ``init_cache`` has them). A windowed node's ring is
+    not addressed by absolute row: its buffers keep their ``window`` rows
+    whatever ``rows`` is, in allocations of their own. Returns ``(groups,
+    caches)``: the allocations (rank by rank), and a tree shaped like
+    ``one`` of ``[slots, rows, ...]`` views (each contiguous, as the
+    kernels take them), so that a copy between slots runs one kernel a
+    group instead of one a buffer."""
     keys, counts, where = _group_layout(one)
     devs = {}
     for (g, _), b in zip(where, _leaves(one)):
         devs.setdefault(g, b.device)
-    # row scales ([B, L, H]: one value a row) start at one
-    groups = [(torch.ones if len(tail) == 1 else torch.zeros)(
-        (n, slots, rows) + tail, dtype=dt, device=devs[g])
-        for g, (n, (_, dt, tail)) in enumerate(zip(counts, keys))]
+    groups = [torch.full((n, slots, ring or rows) + tail,
+                         CACHE_FILL[2 + len(tail)], dtype=dt,
+                         device=devs[g])
+              for g, (n, (_, dt, tail, ring)) in enumerate(zip(counts,
+                                                                keys))]
     return groups, _unflatten(one, [groups[g][i] for g, i in where])
 
 
 def _group_layout(one):
     """How :func:`_grouped_cache` groups the buffers of ``one``: the
-    ``(rank, dtype, row shape)`` of each allocation, its buffer count, and
-    ``(allocation, index)`` of each buffer in :func:`_leaves` order."""
+    ``(rank, dtype, row shape, ring rows or None)`` of each allocation,
+    its buffer count, and ``(allocation, index)`` of each buffer in
+    :func:`_leaves` order."""
     keys, counts, where = [], [], []
     for r, t in enumerate(rank_trees(one)):
         for entry in t:
+            ring = entry[0].shape[1] if ring_entry(entry) else None
             for b in entry:
-                key = (r, b.dtype, tuple(b.shape[2:]))
+                key = (r, b.dtype, tuple(b.shape[2:]), ring)
                 if key not in keys:
                     keys.append(key)
                     counts.append(0)
@@ -571,8 +587,8 @@ class InferenceEngine:
     Parameters
     ----------
     decoder : Decoder
-        The derived incremental program (paged; int8 or float KV; GQA,
-        rope).
+        The derived incremental program (paged or dense, windowed rings;
+        int8 or float KV; GQA, rope).
     slots : int
         ``S``, the resident-sequence capacity (the decode batch).
     prefill_buckets : tuple of int, optional
@@ -651,7 +667,13 @@ class InferenceEngine:
     weight_group : int, optional
         int4 group width.
     attn_impl, matmul_impl : optional
-        Default to the decoder's; ``attn_impl`` must be ``"paged"``.
+        Default to the decoder's. ``attn_impl`` is the read of the decode,
+        verify and draft programs (a prefill reads as the decoder does):
+        ``"paged"``, or ``"dense"`` over a decoder built dense (over a
+        paged one it raises, as in the JAX package). A windowed decoder
+        asked for ``"paged"`` warns and serves its dense ring read; it
+        also serves without a prefix pool, without speculation (asked
+        for, it warns and turns it off) and only as ``role="unified"``.
     engine_id : str, optional
         Names this engine (default ``"e<pid>.<n>"``, unique in the
         process); ``migrated_from`` is the donor's id when ``restore()``
@@ -806,11 +828,28 @@ class InferenceEngine:
         if self.prefix_cache_mb < 0:
             raise MXNetError("InferenceEngine: prefix_cache_mb must "
                              "be >= 0 (0 disables the prefix cache)")
+        self._windowed = any(decoder._node_window(n) for n in decoder._mha)
+        # the read the decode, verify and draft programs run (threaded into
+        # every Decoder._run_slots); a prefill reads as the decoder does
         if attn_impl is None:
             attn_impl = decoder._attn_impl
-        if attn_impl != "paged":
-            raise MXNetError("InferenceEngine: the PyTorch port serves "
-                             "attn_impl='paged', got %r" % (attn_impl,))
+        if attn_impl not in ("dense", "paged"):
+            raise MXNetError(
+                "InferenceEngine: attn_impl must be 'dense' or 'paged', got "
+                "%r (MXNET_SERVING_ATTN_IMPL sets the default)"
+                % (attn_impl,))
+        if attn_impl == "dense" and decoder._attn_impl == "paged":
+            raise MXNetError(
+                "InferenceEngine: attn_impl='dense' over a Decoder built "
+                "with attn_impl='paged' — build the decoder dense; the "
+                "engine threads its own attn_impl into the slot programs")
+        if attn_impl == "paged" and self._windowed:
+            warnings.warn(
+                "InferenceEngine: windowed-ring decoders do not compose "
+                "with attn_impl='paged' (ring rows live at wrapped "
+                "positions, not a [0, pos) prefix) — serving with the "
+                "exact dense ring walk instead", UserWarning, stacklevel=2)
+            attn_impl = "dense"
         self.attn_impl = attn_impl
         if matmul_impl is None:
             matmul_impl = decoder._matmul_impl
@@ -829,6 +868,12 @@ class InferenceEngine:
                 "InferenceEngine: role must be 'unified', 'prefill' or "
                 "'decode', got %r (MXNET_SERVING_ROLE sets the default)"
                 % (role,))
+        if role != "unified" and self._windowed:
+            raise MXNetError(
+                "InferenceEngine: windowed-ring decoders do not compose "
+                "with role=%r — ring rows live at wrapped positions, "
+                "outside the [0, P) prefix contract the KV handoff rows "
+                "ride (slot_prefix_rows); serve unified" % (role,))
         self.role = role
         if handoff_dtype is None:
             handoff_dtype = os.environ.get(
@@ -891,6 +936,13 @@ class InferenceEngine:
                     "InferenceEngine: spec_k=%d leaves no room in the "
                     "max_len=%d cache for a verify chunk (need "
                     "spec_k <= max_len - 3)" % (self.spec_k, self.max_len))
+            if self._windowed:
+                warnings.warn(
+                    "InferenceEngine: windowed-ring decoders do not "
+                    "compose with speculative decoding (the verify chunk "
+                    "would wrap rejected drafts onto live ring rows) — "
+                    "serving with draft='off'", UserWarning, stacklevel=2)
+                draft = "off"
         self.spec_draft = draft
         self._spec = draft != "off"
         self._drafters = {}           # request id -> NgramDrafter
@@ -926,7 +978,9 @@ class InferenceEngine:
         one = decoder.init_cache(1, kv_sharding=self._kv_shard)
         slot_bytes = _nbytes(one)
         pool = 0
-        if self.prefix_cache_mb > 0:
+        # a ring row is addressed by its wrapped position, not by a prompt
+        # prefix: a windowed decoder has no prefix pool
+        if self.prefix_cache_mb > 0 and not self._windowed:
             pool = min(int(self.prefix_cache_mb * 2 ** 20)
                        // max(1, slot_bytes), _MAX_POOL_SLOTS)
         self._groups, self._cache_bufs = _grouped_cache(
@@ -962,10 +1016,11 @@ class InferenceEngine:
         self._programs = {}
         self._handoff_stage = {}     # bucket -> staging allocations
         self._compile_log = _CompileLog()
-        _TM_ATTN_IMPL.set(1)
+        _TM_ATTN_IMPL.set(1 if self.attn_impl == "paged" else 0)
         _TM_TP.set(self.tp)
-        # what one rank holds of the slot cache
-        _TM_TP_KV_BYTES.set(_nbytes(self._caches) // self.tp)
+        # what one rank holds of the slot cache: its share of the K/V and
+        # whole copies of the ring positions
+        _TM_TP_KV_BYTES.set(_nbytes(rank_trees(self._caches)[0]))
         _TM_WEIGHT_DTYPE.set(
             {"float": 0, "int8": 1, "int4": 2}[self.weight_dtype])
         _TM_WEIGHT_BYTES.set(wbytes)
@@ -1056,6 +1111,12 @@ class InferenceEngine:
             raise MXNetError(
                 "InferenceEngine: draft_decoder lives on %s, the engine "
                 "on %s" % (ddec.device, self.device))
+        if self.attn_impl == "dense" and ddec._attn_impl == "paged":
+            raise MXNetError(
+                "InferenceEngine: attn_impl='dense' over a draft_decoder "
+                "built with attn_impl='paged' — build the draft decoder "
+                "dense (the engine threads its attn_impl into the draft "
+                "program)")
         if self.weight_dtype == "float" and ddec.weight_dtype == "int8":
             raise MXNetError(
                 "InferenceEngine: weight_dtype='float' over a "
@@ -1094,7 +1155,7 @@ class InferenceEngine:
         if draft_prefix is not None and draft_decoder is None:
             draft_decoder = Decoder.from_checkpoint(
                 draft_prefix, 0 if draft_epoch is None else draft_epoch,
-                max_len, cache_block=None,
+                max_len, cache_block=None, attn_impl=dec._attn_impl,
                 compute_dtype=decoder_kwargs.get("compute_dtype"),
                 weight_dtype=decoder_kwargs["weight_dtype"],
                 device=decoder_kwargs.get("device"))
@@ -1424,6 +1485,11 @@ class InferenceEngine:
             raise MXNetError(
                 "InferenceEngine: engine %s has role='prefill' — it exports "
                 "handoffs, it cannot admit one" % self.engine_id)
+        if self._windowed:
+            raise MXNetError(
+                "InferenceEngine: engine %s serves a windowed-ring decoder "
+                "— ring rows live at wrapped positions, outside the [0, P) "
+                "prefix rows a KV handoff carries" % self.engine_id)
         rid = payload["id"]
         existing = self._active.get(rid)
         if existing is None:
@@ -1898,26 +1964,39 @@ class InferenceEngine:
         self._uniform.index_copy_(0, idx, draws[None])
 
     def _staged_run(self, dec, params, aux, groups, stage_groups, stage,
-                    slot, start, tokens):
-        """One prefill piece of ``tokens`` [1, bucket] at ``start`` into
-        ``slot`` of the cache allocations ``groups``, run over the staging
-        cache ``stage`` (allocations ``stage_groups``): the gather-in (the
-        slot's rows ``[0, max_len)`` copied into the staging rows, so that
-        a piece at ``start > 0`` sees the rows earlier pieces or a prefix
-        copy left there; in a graph the copy has a fixed shape, all
-        ``max_len`` rows, one kernel an allocation), the walk, then the
-        piece's rows ``[start, start + bucket)`` written back to the slot
-        (those past ``max_len`` are pad rows and are not). Returns the
+                    slot, start, tokens, true_len):
+        """One prefill piece of ``tokens`` [1, bucket] at ``start`` (its
+        first ``true_len`` tokens real) into ``slot`` of the cache
+        allocations ``groups``, run over the staging cache ``stage``
+        (allocations ``stage_groups``): the gather-in (the slot's rows
+        ``[0, max_len)`` copied into the staging rows, so that a piece at
+        ``start > 0`` sees the rows earlier pieces or a prefix copy left
+        there; in a graph the copy has a fixed shape, all ``max_len`` rows,
+        one kernel an allocation), the walk, then the piece's rows
+        ``[start, start + bucket)`` written back to the slot (those past
+        ``max_len`` are pad rows and are not). A windowed node's ring is
+        not addressed by absolute row: its allocations (the ring and its
+        positions) go in and come back whole, the positions are wiped on a
+        request's first piece (``start == 0``: the slot's last occupant's
+        rows must not show), and the walk writes only the piece's real rows
+        into the ring (``valid_len``), as the JAX program does. Returns the
         logits [1, bucket, V]."""
         n = self.max_len
-        for g, sg in zip(groups, stage_groups):
-            torch.index_select(_wide(g), 1, slot, out=_wide(sg)[:, :, :n])
+        rings = [key[3] is not None for key in _group_layout(stage)[0]]
+        for g, sg, ring in zip(groups, stage_groups, rings):
+            torch.index_select(_wide(g), 1, slot,
+                               out=_wide(sg) if ring else _wide(sg)[:, :, :n])
+        if any(rings):
+            dec.clear_window_positions(stage, only_if=start == 0)
         logits, _ = dec._run(params, aux, stage, start.to(torch.int32),
-                             tokens, tp=self._tp_ax,
-                             mm_impl=self.matmul_impl)
+                             tokens, valid_len=start + true_len,
+                             tp=self._tp_ax, mm_impl=self.matmul_impl)
         rows = (start + torch.arange(tokens.shape[1], device=start.device)
                 ).clamp_max(n - 1)
-        for g, sg in zip(groups, stage_groups):
+        for g, sg, ring in zip(groups, stage_groups, rings):
+            if ring:
+                _wide(g).index_copy_(1, slot, _wide(sg))
+                continue
             # [slots, rows, count, ...] views: one index_put_ an allocation
             _wide(g).transpose(0, 1).transpose(1, 2).index_put_(
                 (slot.expand(rows.shape[0]), rows),
@@ -1942,7 +2021,7 @@ class InferenceEngine:
         logits = self._staged_run(self._dec, self._params, self._aux,
                                   self._groups, self._stage_groups,
                                   self._stage, slot, start,
-                                  ops[None, :bucket])
+                                  ops[None, :bucket], true_len)
         total = start + true_len
         lastp = (total + max_toks - 1).clamp_max(self.max_len - 1)
         draws = uniform_draw(seed, torch.arange(self.max_len,
@@ -1980,7 +2059,7 @@ class InferenceEngine:
         for _ in range(self.steps_per_round):
             logits, _ = dec._run_slots(
                 self._params, self._aux, self._caches, self._pos,
-                self._tok[:, None], tp=self._tp_ax,
+                self._tok[:, None], impl=self.attn_impl, tp=self._tp_ax,
                 mm_impl=self.matmul_impl)
             nxt_pos = self._pos + 1
             # a frozen slot at the cache's end draws from its last row
@@ -2003,8 +2082,8 @@ class InferenceEngine:
         _, st, out = self._dec.verify_step_slots(
             self._params, self._aux, self._caches,
             (self._pos, self._tok, self._live, self._temp, self._uniform,
-             self._eos, self._last), drafts, dlen, tp=self._tp_ax,
-            mm_impl=self.matmul_impl)
+             self._eos, self._last), drafts, dlen, impl=self.attn_impl,
+            tp=self._tp_ax, mm_impl=self.matmul_impl)
         for buf, val in zip((self._pos, self._tok, self._live), st):
             buf.copy_(val)
         return out
@@ -2015,21 +2094,22 @@ class InferenceEngine:
         ``spec_k`` greedy tokens a slot. Returns the [S, K] drafts."""
         _, props = self._draft_dec.draft_propose_slots(
             self._draft_params, self._draft_aux, self._draft_caches, pos,
-            catchup, clen, self.spec_k, tp=self._tp_ax,
-            mm_impl=self.matmul_impl)
+            catchup, clen, self.spec_k, impl=self.attn_impl,
+            tp=self._tp_ax, mm_impl=self.matmul_impl)
         return props
 
     def _draft_prefill_fn(self, bucket, ops):
         """The draft model's prefill program of ``bucket``: the padded
-        piece's K/V into the slot (``ops``: the piece, then the slot and
-        the start) of the draft cache, through its own
+        piece's K/V into the slot (``ops``: the piece, then the slot, the
+        start and the piece's true length) of the draft cache, through its own
         staging cache. No sampling and no state: the draft program decodes
         from this cache."""
-        slot, start = ops[bucket:bucket + 1], ops[bucket + 1:bucket + 2]
+        slot, start, true_len = (ops[bucket + i:bucket + i + 1]
+                                 for i in range(_N_DRAFT_SCALARS))
         self._staged_run(self._draft_dec, self._draft_params,
                          self._draft_aux, self._draft_groups,
                          self._draft_stage_groups, self._draft_stage, slot,
-                         start, ops[None, :bucket])
+                         start, ops[None, :bucket], true_len)
 
     # -- admission --------------------------------------------------------
     def _suffix_cost(self, n):
@@ -2179,7 +2259,7 @@ class InferenceEngine:
             bucket = self._bucket_for(piece)
             ops = np.zeros(bucket + _N_DRAFT_SCALARS, np.int64)
             ops[:piece] = seq[start:start + piece]
-            ops[bucket:] = (slot, start)
+            ops[bucket:] = (slot, start, piece)
             self._program(("draft_prefill", bucket))(ops=ops)
             start += piece
         self._phase_add("prefill", time.perf_counter() - td0)
@@ -3006,7 +3086,8 @@ class InferenceEngine:
         resolves a degree without a mesh; a ``mesh`` (or ``tp``) in
         ``overrides`` replaces it, so a tp=2 snapshot restores at tp=1,
         or on two ranks of one card. The JAX engine's default
-        ``attn_impl="dense"`` gives way to the port's ``"paged"``, as in
+        ``attn_impl="dense"`` is honoured over a dense ``decoder`` and gives
+        way to ``"paged"`` over a paged one (the port's default), as in
         :func:`~.replay.build_engine`: the read is not request content. A
         snapshot's ``capture_dir`` makes the restored engine capture into
         a fresh file in that directory, its header naming the donor
@@ -3017,7 +3098,7 @@ class InferenceEngine:
                 "(want the dict snapshot() returned)")
         cfg = dict(snap["engine"])
         cfg["prefill_buckets"] = tuple(cfg["prefill_buckets"])
-        if cfg.get("attn_impl") == "dense":
+        if cfg.get("attn_impl") == "dense" and decoder._attn_impl == "paged":
             cfg["attn_impl"] = "paged"
         if "mesh" in overrides:
             cfg.pop("tp", None)

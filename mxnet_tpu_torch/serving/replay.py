@@ -80,14 +80,17 @@ def build_engine(cap, decoder, **overrides):
     """Rebuild the captured engine geometry over ``decoder`` (the same
     weights), with ``overrides`` applied — the ``--slots/--spec-k/...``
     config axes. Replay engines do not re-capture unless an override
-    asks for it. A JAX capture's ``attn_impl`` (``"dense"``) gives way to
-    the port's ``"paged"``: the attention read is not request content."""
+    asks for it. A capture's ``attn_impl="dense"`` (the JAX engine's
+    default) is honoured over a dense ``decoder`` and gives way to
+    ``"paged"`` over a paged one, the port's default: the attention read
+    is not request content."""
     from .engine import InferenceEngine
 
     cfg = {k: v for k, v in cap["engine"].items()
            if k not in _NON_CTOR_KEYS}
     cfg["prefill_buckets"] = tuple(cfg["prefill_buckets"])
-    cfg["attn_impl"] = "paged"
+    if cfg.get("attn_impl") == "dense" and decoder._attn_impl == "paged":
+        cfg["attn_impl"] = "paged"
     cfg.update(overrides)
     return InferenceEngine(decoder, **cfg)
 
@@ -401,6 +404,9 @@ def main(argv=None):
     # float-header capture (the float weights are gone)
     deckw = {"cache_block": None, "weight_dtype": "float",
              "device": args.device}
+    if args.attn_impl == "dense":
+        # the engine's dense read needs a decoder built dense
+        deckw["attn_impl"] = "dense"
     if args.compute_dtype:
         deckw["compute_dtype"] = args.compute_dtype
 

@@ -165,7 +165,7 @@ def test_bf16_compute_dtype(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(attn_impl="dense"), dict(matmul_impl="triton"),
+    dict(attn_impl="flash"), dict(matmul_impl="triton"),
     dict(weight_dtype="int2"), dict(cache_dtype="int32"),
     dict(max_len=MAX_LEN + 1)])
 def test_decoder_rejects(models, kw):
@@ -182,11 +182,6 @@ def test_decoder_rejects_unported_graphs(models):
         Decoder(ts, {k: v for k, v in params.items()
                      if k != "lm_head_weight"}, max_len=MAX_LEN,
                 device="cpu")
-    with TorchNames():
-        win = torch_lm(VOCAB, num_layers=1, embed_dim=16, num_heads=2,
-                       window=4)
-    with pytest.raises(MXNetError, match="windowed"):
-        Decoder(win, {}, max_len=8, device="cpu")
 
 
 def test_device_none_without_cuda_raises(models):

@@ -639,10 +639,11 @@ def test_snapshot_restores_across_packages(lm, ceng, direction):
 
 def test_default_jax_engine_snapshot_restores_on_the_port(lm):
     """A snapshot of a JAX engine at its defaults (``attn_impl="dense"``
-    in its geometry), taken mid-flight, restores on the port (which
-    serves the same attention through its paged read), and the greedy
-    streams equal the JAX engine's uninterrupted run; ``"dense"`` passed
-    to the port's constructor is still refused."""
+    in its geometry), taken mid-flight, restores on the port's default
+    paged decoder (which serves the same attention through its paged
+    read), and the greedy streams equal the JAX engine's uninterrupted
+    run; ``"dense"`` passed to the port's constructor over that paged
+    decoder is refused, as the JAX engine refuses it."""
     side = lm["jax"]
     rng = np.random.RandomState(14)
     cases = [(rng.randint(0, VOCAB, (n,)), b)

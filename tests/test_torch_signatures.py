@@ -90,6 +90,11 @@ CALLABLES = [
      tengine.InferenceEngine.submit),
     ("Decoder.init_cache", jax_decode.Decoder.init_cache,
      tdecode.Decoder.init_cache),
+] + [("Decoder." + name, getattr(jax_decode.Decoder, name),
+      getattr(tdecode.Decoder, name))
+     for name in ("beam_search", "clone_cache", "clear_window_positions",
+                  "slot_slice", "slot_update", "_run", "_run_slots")
+] + [
     ("make_graph_fn", jax_graph.make_graph_fn, tgraph.make_graph_fn),
     ("striped_ring_attention", jax_ring.striped_ring_attention,
      tring.striped_ring_attention),
@@ -231,8 +236,12 @@ def test_decoder_binds_positionally_as_jax(lm):
     d = tdecode.Decoder(symbol, params, T, None, None, None, "int8",
                         "paged", "int8", device="cpu")
     assert d._cache_int8 and d.weight_dtype == "int8"
-    with pytest.raises(MXNetError, match="later slice"):
+    # cache_block is the sixth: an integer block under the paged read is
+    # refused as in the JAX package, and taken by the dense one
+    with pytest.raises(MXNetError, match="two prefix-bounded"):
         tdecode.Decoder(symbol, params, T, None, None, 8, device="cpu")
+    assert tdecode.Decoder(symbol, params, T, None, None, 8, None, "dense",
+                           device="cpu")._cache_block == 8
 
 
 def test_lm_and_optimizer_bind_positionally_as_jax():
@@ -382,10 +391,6 @@ OTHER_UNPORTED = {
     "pipeline_stages": _lm_unported(dict(pipeline_stages=2)),
     "moe_top_k": _lm_unported(dict(moe_top_k=2)),
     "num_experts": _lm_unported(dict(num_experts=4)),
-    "cache_block": lambda lm: tdecode.Decoder(lm[0], lm[2], T,
-                                              cache_block=128, device="cpu"),
-    "attn_impl_dense": lambda lm: tdecode.Decoder(
-        lm[0], lm[2], T, attn_impl="dense", device="cpu"),
     "trainer_mesh": lambda lm: ttrainer.ParallelTrainer(
         lm[0], lm[1], "sgd", object(), device="cpu"),
     "trainer_remat": lambda lm: ttrainer.ParallelTrainer(
