@@ -15,7 +15,11 @@ Phases:
    shapes the 124M LM's serving and training paths and ResNet-50 give it
    and at small ragged shapes, in every mode, each to a stated tolerance:
    the serving kernels (int8/int4 weights, float/int8 KV, C = 1/5/64/256,
-   GQA, rope on/off, f32 and bf16; ``quant_matmul`` and
+   GQA, rope on/off, f32 and bf16; ``quant_matmul`` also at the MoE LM's
+   products (the gate at 8 experts, and at 3 and 64; the up stack's
+   flattened [8 x 3072, 768] view; one expert's down slice of an
+   [8, 768, 3072] stack with its rows copied out of h), int8 and int4, M =
+   32 and 256; ``quant_matmul`` and
    ``fused_decode_attention`` also held batch-invariant, bitwise: rows of
    x[:1], x[:7], x[:32], x[:256] against the same rows of the 256-row
    product at every 124M shape, int8 and int4, and slot subsets at S = 1,
@@ -54,7 +58,9 @@ Phases:
    the host's launch overhead kept out) beside its plain version's, its
    bound, and one PyTorch library call computing the same function where
    there is one (``quant_matmul`` at every 124M product at M = 32 and
-   256, also beside ``F.linear`` on the weight dequantized to bf16;
+   256, and at the MoE gate, up stack and down slice at M = 32 and 256 in
+   int8 and M = 32 in int4, each also beside ``F.linear`` on the weight
+   dequantized to bf16;
    ``fused_linear`` at the LM's bf16 ffn1, with the SP
    path's f32 ffn1 beside it; flash's f32 backward at B=1;
    ``fused_conv_bn_act`` in f32, the eval forward's path, at the stride-1
@@ -239,6 +245,29 @@ Phases:
    bf16 bound of a teacher-forced prefill's log-probs, beams best first,
    ms a step; (6) 2-layer f32 LMs through the dense (GQA, rope, int8
    cache), blocked and windowed reads, card against host;
+4g. the mixture-of-experts LM: phase 4's 124M LM with every block a MoE
+   block of 8 experts of 3072, top-2 routing (Mixtral 8x7B's counts),
+   seeded random weights, saved with ``save_checkpoint`` (each check on
+   its own ``phase 4g`` line, the phase's seconds last): (1) served by
+   ``from_checkpoint`` on phase 4's settings (int8 weights, the fused
+   decode step, paged reads), 3 of phase 4's waves: streams equal the
+   first wave's, two equal ``Decoder.generate``, exact launches (per
+   decode step 12 fused steps and 12 x (gate + up + 8 down) + 1
+   ``quant_matmul``; per prefill 12 chunk reads and 12 x 12 + 1), the
+   compile contract; tokens/s, ms per token, the decode profile (the
+   ``quant_matmul`` share of the card's time) and one 256-token engine
+   prefill; (2) a 2-layer f32 MoE LM (top-2 of 4), card against host,
+   float, int8 and int4 weights at ``matmul_impl="dense"`` and
+   ``"pallas"``: logits within 1e-3, greedy tokens equal; (3) ep=2 on
+   ``build_mesh({"expert": 2, "model": 1}, [cuda:0] * 2)`` and ep=2,
+   tp=2 on ``[cuda:0] * 4`` against ep=1 (unfused products), one wave
+   each in turns: every stream equal to ep=1's, each rank's gate and
+   stacks an allocation of 4 experts (values and scales), exact launches
+   (4 down products a layer a rank), equal compile counts, tokens/s over
+   ep=1's and the idle decode round's card ms (ranks on ONE card, not a
+   multi-card figure); (4) phase 4e(3)'s reuse gauntlet at ep=1 and ep=2:
+   streams, prefix hits and accepted drafts equal; an ep=2 snapshot 6
+   rounds into the wave restored at ep=1: streams equal;
 5. the training main path: the same 124M LM (``impl="flash"``) trained by
    ``ParallelTrainer(device=None)`` in bf16 with SGD (lr 1e-3, momentum
    0.9) at B=8, T=1024 on a repeated seeded batch, as ``bench.py``'s
@@ -255,6 +284,15 @@ Phases:
    steps as one ``multi_step``; then
    one f32 step of the same LM at B=1, T=128 from the same seeded weights
    on the card and on the host, whose parameter deltas must agree;
+5b. the MoE LM of phase 4g (``impl="flash"``) trained as phase 5 trains
+   the dense LM (bf16 over f32 masters, SGD lr 1e-3 momentum 0.9, B=8,
+   T=1024): 3 warm-up and 6 timed steps, exactly 12 launches of each
+   flash entry a step and one ``fused_linear`` a FullyConnected ->
+   Activation chain of the graph (none in a MoE block), a falling loss,
+   tokens/s, ms per step, peak memory, MFU over a stated FLOP count
+   (``moe_flops_per_token``) and a 2-step profile; then one f32 step of a
+   2-layer MoE LM of the same width at B=1, T=128, card against host,
+   parameter deltas within 2e-2 by per-tensor norm;
 6. the conv-net path: ResNet-50 (``get_resnet(1000, 50)``) trained by
    ``ParallelTrainer(device=None)`` as ``bench.py``'s ``bench_resnet50``
    trains it (B=256, 224 x 224, bf16 over f32 master weights, SGD lr 0.1
@@ -506,6 +544,89 @@ def check_quant_matmul(K, dev, gen):
 # the 124M LM's quantized products (F, E): qkv, proj, ffn1, ffn2, lm_head
 QMM_SHAPES = ((2304, 768), (768, 768), (3072, 768), (768, 3072),
               (32000, 768))
+# the MoE LM's quantized products (F, E) at the 124M width with 8 experts
+# of 3072 (phase 4g): the gate, the up stack's flattened [X*H, E] view and
+# one expert's down slice; and the gate at 3 and 64 experts (F below and
+# at one 64-channel tile)
+QMM_MOE_SHAPES = (("gate", 8, 768), ("up", 8 * 3072, 768),
+                  ("down", 768, 3072), ("gate3", 3, 768), ("gate64", 64, 768))
+
+
+def check_quant_matmul_moe(K, dev, gen):
+    """Phase 3 at the MoE LM's shapes (``QMM_MOE_SHAPES``), int8 and int4
+    (group 128), bf16 x, M = 32 and 256: each against the plain version
+    to phase 3's tolerance, then the batch-invariance gate (rows of x[:1],
+    x[:7], x[:32], x[:256] bitwise the same rows of the 256-row product).
+    The down slice is expert 3 of an [8, 768, 3072] stack (``q[3]``, a
+    view at a 16-byte multiple) with its x the expert's rows of an [M, 8,
+    3072] h, copied contiguous as the walk copies it. Then, bitwise, each
+    rank's share of the gate and the up stack at ep=EP (its rows of the
+    weight) against the same channels of the whole product: phase 4g's
+    ep streams equal ep=1's because of it. Returns the worst error."""
+    from mxnet_tpu_torch.serving.quant import (_kernel_slice,
+                                               quantize_tensor)
+    worst, n, gates = 0.0, 0, 0
+    for what, f, e in QMM_MOE_SHAPES:
+        for bits, group in ((8, None), (4, 128)):
+            if what == "down":
+                w = (torch.rand((8, f, e), generator=gen) - 0.5) * 0.1
+                qt = _kernel_slice(quantize_tensor(w.to(dev), bits=bits,
+                                                   group=group), 3)
+                if qt.q.data_ptr() % 16 or not qt.q.is_contiguous():
+                    raise AssertionError("the down slice is not a view")
+                q, s = qt.q, qt.scale
+                h = _rand(gen, (256, 8, e), torch.bfloat16).to(dev)
+                x = h.movedim(1, 0).contiguous()[3]
+            else:
+                q, s = _weights(gen, f, e, bits, group, dev)
+                x = _rand(gen, (256, e), torch.bfloat16).to(dev)
+            full = K.quant_matmul(x, q, s, bits=bits, group=group)
+            for m in (32, 256):
+                got = K.quant_matmul(x[:m].clone(), q, s, bits=bits,
+                                     group=group)
+                want = K.quant_matmul_plain(x[:m], q, s, bits, group,
+                                            torch.bfloat16)
+                torch.cuda.synchronize()
+                worst = max(worst, compare(
+                    "quant_matmul MoE %s m=%d f=%d e=%d bits=%d" % (
+                        what, m, f, e, bits), got, want))
+                n += 1
+            for m in (1, 7, 32, 256):
+                rows = K.quant_matmul(x[:m].clone(), q, s, bits=bits,
+                                      group=group)
+                if not torch.equal(rows, full[:m]):
+                    raise AssertionError(
+                        "quant_matmul MoE %s F=%d E=%d bits=%d: rows of "
+                        "x[:%d] differ from the same rows of the 256-row "
+                        "product" % (what, f, e, bits, m))
+                gates += 1
+    # expert parallelism's premise (phase 4g): a rank's gate and up
+    # products (its experts' rows of the weight) give the same channels,
+    # bitwise, as the product over all experts
+    parts = 0
+    for what, f, e in QMM_MOE_SHAPES[:2]:
+        for bits, group in ((8, None), (4, 128)):
+            q, s = _weights(gen, f, e, bits, group, dev)
+            x = _rand(gen, (256, e), torch.bfloat16).to(dev)
+            full = K.quant_matmul(x, q, s, bits=bits, group=group)
+            rows = f // EP
+            for r in range(EP):
+                sl = slice(r * rows, (r + 1) * rows)
+                part = K.quant_matmul(x, q[sl].clone(), s[sl].clone(),
+                                      bits=bits, group=group)
+                if not torch.equal(part, full[:, sl]):
+                    raise AssertionError(
+                        "quant_matmul MoE %s bits=%d: rank %d's %d channels "
+                        "differ from the same channels of the product over "
+                        "all %d" % (what, bits, r, rows, f))
+                parts += 1
+    log("quant_matmul MoE shapes (%s): %d cases agree, max |err| %.3g; "
+        "batch invariance, %d subsets bitwise equal to the 256-row product; "
+        "%d rank products (the gate's and the up stack's rows at ep=%d) "
+        "bitwise equal to their channels of the whole product"
+        % (", ".join("%s F=%d E=%d" % c for c in QMM_MOE_SHAPES), n, worst,
+           gates, parts, EP))
+    return worst
 
 
 def paged_cases(sms):
@@ -823,6 +944,9 @@ def time_kernels(K, dev, gen, worst):
                     k_: r[k_] for k_ in ("ms", "plain_ms", "library_ms",
                                          "dense_bf16_ms", "bound_ms")}
 
+    entries["quant_matmul"]["moe"] = time_quant_matmul_moe(K, dev, gen, row,
+                                                           timer)
+
     # paged_attention: the serving buckets' prefill chunks (C = 64, 128,
     # 256 at pos 0) on the chunk entry, and the int8-KV serve's C = 256
     # chunk on it too (the chunk row's "int8"); the scalar entry's own row
@@ -919,6 +1043,44 @@ def time_kernels(K, dev, gen, worst):
     for name, r in entries.items():
         r["max_abs_err"] = worst[name]
     return entries
+
+
+def time_quant_matmul_moe(K, dev, gen, row, timer):
+    """``quant_matmul`` at the MoE LM's products (phase 4g): the gate, the
+    up stack and a down slice at M = 32 (a decode step) and 256 (a
+    prefill at the largest bucket) in int8, and at M = 32 in int4 (group
+    128); each beside the f32 product of the dequantized weight (the
+    library row) and ``F.linear`` on the weight dequantized to bf16.
+    ``row`` times and prints one row (``time_kernels``'). Returns {shape:
+    its figures}."""
+    import torch.nn.functional as F
+    moe = {}
+    for what, f, e in QMM_MOE_SHAPES[:3]:
+        for m, bits in ((32, 8), (256, 8), (32, 4)):
+            group = 128 if bits == 4 else None
+            x = _rand(gen, (m, e), torch.bfloat16).to(dev)
+            q, s = _weights(gen, f, e, bits, group, dev)
+            w32 = K._dequant_w(q, s, bits, group)
+            if bits == 8:
+                w32 = w32 * s[:, None]
+            out = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+            r = row("quant_matmul", "MoE %s M=%d F=%d E=%d int%d" % (
+                what, m, f, e, bits),
+                lambda: K.quant_matmul(x, q, s, bits=bits, group=group),
+                lambda: K.quant_matmul_plain(x, q, s, bits, group,
+                                             torch.bfloat16),
+                lambda: torch.matmul(x.float(), w32.t()),
+                nbytes(x, q, s, out), 2 * m * f * e, torch.bfloat16)
+            wd = w32.to(torch.bfloat16)
+            r["dense_bf16_ms"] = timer(lambda: F.linear(x, wd))
+            log("  quant_matmul MoE %s M=%d int%d: F.linear on the bf16 "
+                "weight %.4f ms" % (what, m, bits, r["dense_bf16_ms"]))
+            del wd, w32
+            moe["%s M=%d int%d" % (what, m, bits)] = {
+                k_: r[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                     "dense_bf16_ms", "bound_ms",
+                                     "bound_by")}
+    return moe
 
 
 # -- phase 3b: the training kernels against their plain versions ------------
@@ -4926,7 +5088,8 @@ def profile_decode(engine, rs, rounds=2, trace="decode_trace.json",
     beside it) and its idle share (1 - kernel time / wall time), the host
     calls per round that put work on the card, the kernels by device time,
     and the peak memory; the trace goes to chiprun_out/ unless ``trace``
-    is None."""
+    is None. Returns the figures per step (wall and card ms, the idle
+    share, host calls a round, {kernel: card ms})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4972,11 +5135,16 @@ def profile_decode(engine, rs, rounds=2, trace="decode_trace.json",
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log("  %-60s %8.3f ms per step  %5d calls" % (
             key[:60], us / 1e3 / steps, n))
+    result = {"wall_ms": wall * 1e3 / steps, "card_ms": busy_us / 1e3 / steps,
+              "idle": 1.0 - busy_us / 1e6 / wall,
+              "host_calls": sum(calls.values()) / rounds,
+              "by_kernel": {key: us / 1e3 / steps for key, us, _ in rows}}
     if trace is None:
-        return
+        return result
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, trace))
+    return result
 
 
 def check_small_against_host(dev):
@@ -5024,6 +5192,353 @@ def check_small_against_host(dev):
         log("small LM %s %s: card vs host prefill logits max |err| %.3g, "
             "greedy tokens equal (%d distinct)" % (
                 mkw, dkw, err, len(set(tg[:, 11:].flatten().tolist()))))
+
+
+# -- phase 4g: the mixture-of-experts LM served -------------------------------
+
+MOE_X, MOE_K = 8, 2          # Mixtral 8x7B's routing (Jiang et al., 2024)
+MOE_WAVES = 3
+MOE_MM = "pallas"            # the ep and gauntlet engines' products, unfused
+EP = 2
+EP_NOTE = "ranks on ONE card, not a multi-card figure"
+MOE_INPUTS = ("gate_weight", "expert_w1", "expert_b1", "expert_w2",
+              "expert_b2")
+
+
+def _moe_symbol(layers=LAYERS):
+    """The 124M LM at full width with every block a MoE block of MOE_X
+    experts of 4E, top-MOE_K routing."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    return get_transformer_lm(VOCAB, num_layers=layers, embed_dim=EMBED,
+                              num_heads=HEADS, num_experts=MOE_X,
+                              moe_top_k=MOE_K)
+
+
+def _moe_layer_qmm(ep=1, fused=False):
+    """``quant_matmul`` launches of one MoE layer's walk: the qkv and out
+    projections unless the fused step takes them, then on each expert
+    rank its gate and its up stack (``serving/quant.py``
+    ``moe_ffn_forward``), and one down product an expert."""
+    return (0 if fused else 2) + 2 * ep + MOE_X
+
+
+def _moe_launches(d, fused=False, ep=1, tp=1, spec=False):
+    """A MoE engine's launches from its stats deltas ``d``: per decode
+    walk (each step of a round, or under speculation each verify round and
+    each step of a fallback round) LAYERS fused steps (``fused``) or
+    ``tp`` x LAYERS decode reads, and the layers' products plus the
+    lm_head; per prefill piece ``tp`` x LAYERS chunk reads and the unfused
+    products plus the lm_head."""
+    walks = (d["spec_rounds"] + d["spec_fallback_rounds"] * STEPS_PER_ROUND
+             if spec else d["steps"] * STEPS_PER_ROUND)
+    pieces = d["prefill_chunks"]
+    want = {"paged_attention_chunk": tp * LAYERS * pieces,
+            "quant_matmul": (LAYERS * _moe_layer_qmm(ep) + 1) * pieces
+            + (LAYERS * _moe_layer_qmm(ep, fused) + 1) * walks}
+    want["fused_decode_attention" if fused else "paged_attention_decode"] = \
+        (1 if fused else tp) * LAYERS * walks
+    return want
+
+
+def _check_expert_shards(engine, dev, what):
+    """Each MoE input of every layer: ``EP`` shards of MOE_X/EP experts on
+    the card, each (a quantized stack's values and scales alike) an
+    allocation no other rank shares."""
+    for i in range(LAYERS):
+        for name in MOE_INPUTS:
+            shards = engine._params["layer%d_%s" % (i, name)]
+            if not isinstance(shards, list) or len(shards) != EP:
+                raise AssertionError("%s: layer%d_%s is not %d rank shards"
+                                     % (what, i, name, EP))
+            owners = []
+            for sh in shards:
+                leaves = (sh.q, sh.scale) if hasattr(sh, "q") else (sh,)
+                for t in leaves:
+                    if t.shape[0] != MOE_X // EP or t.device != dev \
+                            or not t.is_contiguous():
+                        raise AssertionError(
+                            "%s: a layer%d_%s shard %s on %s" % (
+                                what, i, name, tuple(t.shape), t.device))
+                owners.append({t.untyped_storage().data_ptr()
+                               for t in leaves})
+            if owners[0] & owners[1]:
+                raise AssertionError("%s: two ranks share layer%d_%s"
+                                     % (what, i, name))
+
+
+def moe_wave(K, dev, prefix, work):
+    """4g.1: the MoE checkpoint through ``from_checkpoint`` on phase 4's
+    settings (int8 weights, the fused decode step, paged reads), MOE_WAVES
+    of phase 4's wave: streams equal the first wave's and two equal
+    ``Decoder.generate``, exact launches, the compile contract; tokens/s,
+    ms per token, the decode profile, one 256-token prefill. Returns the
+    launches."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_checkpoint(
+        prefix, 0, max_len=MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
+        steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
+        weight_dtype="int8", matmul_impl="fused", compute_dtype="bfloat16",
+        device=dev, prefix_cache_mb=0, prefill_chunk=0)
+    torch.cuda.synchronize()
+    log("phase 4g: MoE LM loaded in %.1f s; int8 weights %.1f MB" % (
+        time.perf_counter() - t0, engine.weight_bytes / 1e6))
+    _warm(engine)
+    s0 = dict(engine.stats)
+    K.reset_launch_counts()
+    waves = [_serve_wave(engine, work) for _ in range(MOE_WAVES)]
+    launches = _check_launches(K, "phase 4g wave", _moe_launches(
+        _delta(engine, s0), fused=True))
+    first = waves[0][0]
+    for handles, _ in waves:
+        _equal_streams("phase 4g wave", handles, first)
+    _equal_generate("phase 4g wave", engine._dec, (first[0], max(
+        first[1:], key=lambda h: len(h.prompt))))
+    check_compile_counts(engine, "phase 4g")
+    per = [_wave_metrics(h, t) for h, t in waves]
+    cols = list(zip(*per))
+    log("phase 4g wave: %d waves x %d requests; median (min-max) %.1f "
+        "tokens/s (%.1f-%.1f), ms per token p50 %.3f, p99 %.3f; every "
+        "stream equal to the first wave's, two equal Decoder.generate; "
+        "launches %s (per decode step %d fused steps and %d quant_matmul; "
+        "per prefill %d chunk reads and %d quant_matmul); %s" % (
+            MOE_WAVES, len(work), statistics.median(cols[0]), min(cols[0]),
+            max(cols[0]), statistics.median(cols[1]),
+            statistics.median(cols[2]),
+            json.dumps({e: n for e, n in launches.items() if n}), LAYERS,
+            LAYERS * _moe_layer_qmm(1, True) + 1, LAYERS,
+            LAYERS * _moe_layer_qmm(1) + 1, card_line()))
+    prof = profile_decode(engine, np.random.RandomState(8), trace=None,
+                          what="phase 4g MoE, fused step")
+    qmm = sum(ms for key, ms in prof["by_kernel"].items()
+              if "quant_matmul" in key)
+    log("phase 4g decode step: wall %.3f ms, card %.3f ms, idle share %.3f, "
+        "host calls a round %.1f; quant_matmul %.3f ms a step = %.3f of the "
+        "card's time; %s" % (
+            prof["wall_ms"], prof["card_ms"], prof["idle"],
+            prof["host_calls"], qmm, qmm / max(prof["card_ms"], 1e-9),
+            card_line()))
+    time_engine_prefill(engine, what="phase 4g engine prefill of %d tokens "
+                        "(captured bucket-%d program, one slot, pos 0)" % (
+                            BUCKETS[-1], BUCKETS[-1]),
+                        prompt=np.random.RandomState(5).randint(
+                            0, VOCAB, (BUCKETS[-1],)))
+    engine.close()
+    return launches
+
+
+def check_small_moe_against_host(dev):
+    """4g.2: a 2-layer f32 MoE LM (top-2 of 4 experts) served on the card
+    (kernels) and on the host (plain versions) from the same fan-in scaled
+    weights, float, int8 and int4 weights at ``matmul_impl="dense"`` and
+    ``"pallas"``: prefill logits within 1e-3 (sums in other orders) and
+    greedy tokens equal."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import Decoder
+    symbol = get_transformer_lm(97, num_layers=2, embed_dim=64, num_heads=4,
+                                num_experts=4, moe_top_k=2)
+    shapes = {"data": (1, 64), "softmax_label": (1, 64)}
+    arg_shapes, _, _ = symbol.infer_shape(**shapes)
+    rng = np.random.RandomState(2)
+    params = {n: (rng.randn(*sh) * (1.5 / np.sqrt(sh[-1]) if len(sh) >= 2
+                                    else 0.1)
+                  + (n.endswith("_gamma"))).astype(np.float32)
+              for n, sh in zip(symbol.list_arguments(), arg_shapes)
+              if n not in shapes}
+    prompt = np.random.RandomState(3).randint(0, 97, (2, 11))
+    for wd in ("float", "int8", "int4"):
+        for mm in ("dense", "pallas"):
+            out = {}
+            for where in (dev, "cpu"):
+                d = Decoder(symbol, params, max_len=64, device=where,
+                            weight_dtype=wd, matmul_impl=mm)
+                logits, _ = d.prefill(d.init_cache(2), prompt)
+                out[str(where)] = (logits.cpu(),
+                                   d.generate(prompt, 20).cpu())
+            (lg, tg), (lh, th) = out[str(dev)], out["cpu"]
+            err = (lg - lh).abs().max().item()
+            if err > 1e-3 or not torch.equal(tg, th):
+                raise AssertionError(
+                    "phase 4g small MoE LM %s %s: card and host disagree "
+                    "(max |logit err| %.3g, tokens equal %s)" % (
+                        wd, mm, err, torch.equal(tg, th)))
+            log("phase 4g small MoE LM (2 layers, top-2 of 4) %s weights, "
+                "%s products: card vs host prefill logits max |err| %.3g, "
+                "greedy tokens equal (%d distinct)" % (
+                    wd, mm, err, len(set(tg[:, 11:].flatten().tolist()))))
+
+
+def moe_ep(K, dec, dev, work):
+    """4g.3: ep=2 on ``build_mesh({"expert": 2, "model": 1}, [card] * 2)``
+    and ep=2, tp=2 on ``[card] * 4`` against ep=1 from the same weights,
+    unfused products (``MOE_MM``), one wave each in turns after a warm-up:
+    every stream equal to ep=1's (two of which equal ``Decoder.generate``),
+    each rank's stacks its own allocation of MOE_X/EP experts, exact
+    launches, equal compile counts; tokens/s over ep=1's and the idle
+    decode round's card ms. Returns the launches and ep=1's streams."""
+    from mxnet_tpu_torch.parallel import build_mesh
+    meshes = {(EP, 1): build_mesh({"expert": EP, "model": 1}, [dev] * EP),
+              (EP, 2): build_mesh({"expert": EP, "model": 2}, [dev] * 2 * EP)}
+    engines = {(1, 1): _engine_4c(dec)}
+    for (ep, tp), mesh in meshes.items():
+        engines[(ep, tp)] = _engine_4c(dec, mesh=mesh, ep=ep)
+        _check_expert_shards(engines[(ep, tp)], dev,
+                             "phase 4g ep=%d tp=%d" % (ep, tp))
+    for e in engines.values():
+        _warm(e)
+    s0 = {k: dict(e.stats) for k, e in engines.items()}
+    K.reset_launch_counts()
+    runs = {k: _serve_wave(e, work) for k, e in engines.items()}
+    launches = K.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    share = {}
+    for (ep, tp), e in engines.items():
+        for k_, n in _moe_launches(_delta(e, s0[(ep, tp)]), ep=ep,
+                                   tp=tp).items():
+            want[k_] = want.get(k_, 0) + n
+            share.setdefault("ep=%d tp=%d" % (ep, tp), {})[k_] = n
+    if launches != want:
+        raise AssertionError("phase 4g ep: launch counts %r, the waves want "
+                             "%r" % (launches, want))
+    ref = runs[(1, 1)][0]
+    _equal_generate("phase 4g ep=1", dec, (ref[0], max(
+        ref[1:], key=lambda h: len(h.prompt))))
+    for k, (handles, _) in runs.items():
+        _equal_streams("phase 4g ep=%d tp=%d" % k, handles, ref)
+        if engines[k].compile_counts != engines[(1, 1)].compile_counts:
+            raise AssertionError("phase 4g ep=%d tp=%d: compile_counts %r"
+                                 % (k + (engines[k].compile_counts,)))
+    check_compile_counts(engines[(1, 1)], "phase 4g ep=1")
+    tps = {k: _wave_metrics(*r)[0] for k, r in runs.items()}
+    cards = {k: _card_ms(e._program("decode").run)
+             for k, e in engines.items()}
+    log("phase 4g ep: one wave at each of ep=1, ep=%d and ep=%d tp=2 in "
+        "turns, unfused products; every stream equals ep=1's (two equal "
+        "Decoder.generate); each rank's gate and stacks (values and scales) "
+        "an allocation of %d experts; compile_counts equal; launches %s" % (
+            EP, EP, MOE_X // EP, json.dumps(share)))
+    for k in engines:
+        log("phase 4g ep=%d tp=%d (%s): %.1f tokens/s, %.4f of ep=1's; the "
+            "idle decode round (%d steps) wall %.3f ms, card %.3f ms = %.4f "
+            "ms a step; %s" % (
+                k[0], k[1], EP_NOTE if k != (1, 1) else "one rank", tps[k],
+                tps[k] / tps[(1, 1)], STEPS_PER_ROUND, cards[k][0],
+                cards[k][1], cards[k][1] / STEPS_PER_ROUND, card_line()))
+    for e in engines.values():
+        e.close()
+    return launches, [h.tokens for h in ref]
+
+
+def moe_gauntlet_and_restore(K, dec, dev, work, streams):
+    """4g.4: phase 4e(3)'s reuse gauntlet (the 160 MiB prefix pool,
+    ``prefill_chunk=256``, n-gram ``spec_k=4``) at ep=1 and ep=2: the wave
+    twice on each (the first builds every program), the second counted:
+    streams, prefix hits and accepted drafts equal, exact launches. Then
+    an ep=2 snapshot 6 rounds into phase 4's wave restored at ep=1: the
+    donor's and the restored engine's streams equal ep=1's. Returns the
+    launches."""
+    from mxnet_tpu_torch.parallel import build_mesh
+    from mxnet_tpu_torch.serving import InferenceEngine
+    mesh = build_mesh({"expert": EP, "model": 1}, [dev] * EP)
+    gwork = _gauntlet_work(44)
+    kw = dict(prefix_cache_mb=POOL_MB, prefill_chunk=CHUNK, draft="ngram",
+              spec_k=SPEC_K)
+    total, out, deltas = {}, {}, {}
+    for ep in (1, EP):
+        e = _engine_4c(dec, **(dict(kw, mesh=mesh, ep=ep) if ep > 1 else kw))
+        _serve_wave(e, gwork)
+        _build(e, ("decode", "verify"))
+        s0 = dict(e.stats)
+        K.reset_launch_counts()
+        out[ep] = _serve_wave(e, gwork)
+        deltas[ep] = d = _delta(e, s0)
+        for k_, n in _check_launches(K, "phase 4g gauntlet ep=%d" % ep,
+                                     _moe_launches(d, ep=ep,
+                                                   spec=True)).items():
+            total[k_] = total.get(k_, 0) + n
+        e.close()
+        free_programs()
+    _equal_streams("phase 4g gauntlet ep=%d" % EP, out[EP][0], out[1][0])
+    keys = ("prefix_hits", "prefix_hit_tokens", "prefill_chunks",
+            "spec_rounds", "spec_accepted", "tokens")
+    if any(deltas[1][k] != deltas[EP][k] for k in keys) \
+            or deltas[EP]["prefix_hits"] < 5 \
+            or deltas[EP]["spec_accepted"] < 1:
+        raise AssertionError("phase 4g gauntlet: stats %r at ep=%d, %r at "
+                             "ep=1" % ({k: deltas[EP][k] for k in keys}, EP,
+                                       {k: deltas[1][k] for k in keys}))
+    log("phase 4g gauntlet (prefix pool, prefill_chunk=%d, n-gram spec_k=%d)"
+        ": %d streams equal at ep=%d and ep=1; %s equal; tokens/s %.1f at "
+        "ep=%d, %.1f at ep=1 (%s); launches %s" % (
+            CHUNK, SPEC_K, len(gwork), EP,
+            json.dumps({k: deltas[EP][k] for k in keys}),
+            _wave_metrics(*out[EP])[0], EP, _wave_metrics(*out[1])[0],
+            EP_NOTE, json.dumps({e: n for e, n in total.items() if n})))
+    eng = _engine_4c(dec, mesh=mesh, ep=EP)
+    hs = [eng.submit(p, max_tokens=b) for p, b in work]
+    for _ in range(6):
+        eng.step()
+    snap = eng.snapshot()
+    new, handles = InferenceEngine.restore(snap, dec, ep=1)
+    new.serve_forever()
+    eng.serve_forever()
+    for what, got in (("donor", hs),
+                      ("restored", [handles.get(h.id, h) for h in hs])):
+        for h, s_ in zip(got, streams):
+            if not h.done or h.tokens != s_:
+                raise AssertionError("phase 4g snapshot at ep=%d (%s): "
+                                     "request %s differs from ep=1's"
+                                     % (EP, what, h.id))
+    log("phase 4g snapshot at ep=%d 6 rounds in (%d requests with tokens), "
+        "restored at ep=%d: every stream of the donor and the restored "
+        "engine equals ep=1's" % (
+            EP, sum(1 for r in snap["requests"] if r["tokens"]), new.ep))
+    eng.close()
+    new.close()
+    return total
+
+
+def moe_main_path(K, dev, work):
+    """Phase 4g: the MoE LM (phase 4's 124M LM with every block a MoE
+    block of MOE_X experts, top-MOE_K) saved with ``save_checkpoint`` and
+    served. Returns the launches it counted."""
+    from mxnet_tpu_torch.model import save_checkpoint
+    from mxnet_tpu_torch.parallel import Decoder
+    t_phase = time.perf_counter()
+    symbol = _moe_symbol()
+    ckpt = os.path.join(HERE, "build", "smoke_ckpt")
+    os.makedirs(ckpt, exist_ok=True)
+    prefix = os.path.join(ckpt, "moe124m")
+    t0 = time.perf_counter()
+    params = _lm_params(symbol, MAX_LEN, 0)
+    n_params = sum(v.size for v in params.values())
+    save_checkpoint(prefix, 0, symbol, params, {})
+    del params
+    log("phase 4g: MoE LM (%d layers, E=%d, %d heads, %d experts of %d, "
+        "top-%d, vocab %d): %.1f M parameters, checkpointed in %.1f s" % (
+            LAYERS, EMBED, HEADS, MOE_X, 4 * EMBED, MOE_K, VOCAB,
+            n_params / 1e6, time.perf_counter() - t0))
+    total = {}
+
+    def add(launches):
+        for e, n in launches.items():
+            total[e] = total.get(e, 0) + n
+        free_programs()
+    add(moe_wave(K, dev, prefix, work))
+    check_small_moe_against_host(dev)
+    dec = Decoder.from_checkpoint(prefix, 0, MAX_LEN, attn_impl="paged",
+                                  weight_dtype="int8", matmul_impl=MOE_MM,
+                                  compute_dtype="bfloat16", device=dev)
+    launches, streams = moe_ep(K, dec, dev, work)
+    add(launches)
+    add(moe_gauntlet_and_restore(K, dec, dev, work, streams))
+    del dec
+    free_programs()
+    log("phase 4g: every check passed in %.1f s; launches %s" % (
+        time.perf_counter() - t_phase,
+        json.dumps({e: n for e, n in total.items() if n})))
+    return total
 
 
 # -- phase 5: the training main path -----------------------------------------
@@ -5294,6 +5809,139 @@ def check_train_against_host(dev, b=1, t=128):
         "%.3g of its largest delta (gate %g)" % (
             b, t, perr, PROB_REL, len(rows), rows[0][2], rows[0][0],
             DELTA_REL, worst_elem[2], worst_elem[1], ELEM_REL))
+
+
+# -- phase 5b: training the mixture-of-experts LM -----------------------------
+
+MOE_TIMED_STEPS = 6
+
+
+def _moe_trainer(dev, b, t, compute_dtype, layers=LAYERS):
+    from mxnet_tpu_torch.parallel import ParallelTrainer
+    return ParallelTrainer(
+        _moe_symbol(layers), {"data": (b, t), "softmax_label": (b, t)},
+        optimizer="sgd",
+        optimizer_params={"learning_rate": 1e-3, "momentum": 0.9},
+        compute_dtype=compute_dtype, seed=0, device=dev).init_params()
+
+
+def moe_flops_per_token(t=TRAIN_T):
+    """The step's FLOP per token by ``bench.py:231-236``'s count (6 per
+    parameter a token and 12 L E T for the attention scores), over the MoE
+    LM's parameters: each layer's attention (4 E^2), gate (X E) and every
+    expert's two products (2 X E H, static routing computes every expert
+    for every token), and the embedding (V E). A stated count, not a
+    measured one."""
+    h = 4 * EMBED
+    n_params = LAYERS * (4 * EMBED * EMBED + MOE_X * EMBED
+                         + 2 * MOE_X * EMBED * h) + VOCAB * EMBED
+    return 6.0 * n_params + 12.0 * LAYERS * EMBED * t
+
+
+def moe_train_path(K, dev):
+    """Phase 5b: the MoE LM (``impl="flash"``) trained by
+    ``ParallelTrainer(device=None)`` in bf16 over f32 masters, SGD lr 1e-3
+    momentum 0.9, at B=8, T=1024 on one repeated seeded batch: WARM_STEPS
+    steps, then MOE_TIMED_STEPS with the counters zeroed just before and
+    read just after: per step LAYERS launches of each flash entry and one
+    ``fused_linear`` a FullyConnected -> Activation chain of the graph
+    (``FusionPlan``; a MoE block has none); the loss must fall. Returns the
+    launches."""
+    from mxnet_tpu_torch.ops.fusion import FusionPlan
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _moe_trainer(None, TRAIN_B, TRAIN_T, "bfloat16")
+    if trainer.device != dev:
+        raise AssertionError("device=None resolved to %s" % trainer.device)
+    symbol = trainer.symbol
+    plan = FusionPlan(symbol._topo(), symbol._heads)
+    fc_act = sum(1 for kind, _ in plan.chains.values() if kind == "fc_act")
+    batch = _train_batch(7, TRAIN_B, TRAIN_T)
+    label = torch.as_tensor(batch["softmax_label"]).long().to(dev)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        losses.append(_lm_train_loss(trainer.step(batch), label))
+    torch.cuda.synchronize()
+    log("phase 5b: MoE LM (%d layers, E=%d, %d experts of %d, top-%d), "
+        "B=%d T=%d bf16, SGD lr 1e-3 momentum 0.9; built and %d warm-up "
+        "steps in %.1f s" % (LAYERS, EMBED, MOE_X, 4 * EMBED, MOE_K,
+                             TRAIN_B, TRAIN_T, WARM_STEPS,
+                             time.perf_counter() - t0))
+    K.reset_launch_counts()
+    secs = []
+    for _ in range(MOE_TIMED_STEPS):
+        t0 = time.perf_counter()
+        outs = trainer.step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(_lm_train_loss(outs, label))
+    launches = _check_launches(K, "phase 5b", dict(
+        {e: LAYERS * MOE_TIMED_STEPS for e in TRAIN_ENTRIES[:3]},
+        fused_linear=fc_act * MOE_TIMED_STEPS))
+    mem = memory()
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0] - 0.01:
+        raise AssertionError("phase 5b: the loss on the repeated batch did "
+                             "not fall: %r" % losses)
+    tps = [TRAIN_B * TRAIN_T / s for s in secs]
+    med = statistics.median(tps)
+    fpt = moe_flops_per_token()
+    log("phase 5b: %d timed steps; tokens/s median %.1f (min %.1f, max "
+        "%.1f); ms per step median %.3f (min %.3f, max %.3f); MFU %.4f "
+        "(%.4g FLOP per token stated, %.4g a step, over 989 TFLOP/s); "
+        "memory since the trainer was built: %s; loss %s; launches %s "
+        "(%d fused_linear chains in the graph); %s" % (
+            MOE_TIMED_STEPS, med, min(tps), max(tps),
+            statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
+            med * fpt / 989e12, fpt, fpt * TRAIN_B * TRAIN_T, mem,
+            " ".join("%.4f" % v for v in losses),
+            json.dumps({e: n for e, n in launches.items() if n}), fc_act,
+            card_line()))
+    profile_train(trainer, batch, trace=None, what="phase 5b MoE train")
+    del trainer, outs
+    free_programs()
+    check_moe_train_against_host(dev)
+    log("phase 5b: every check passed in %.1f s" % (
+        time.perf_counter() - t_phase))
+    return launches
+
+
+def check_moe_train_against_host(dev, b=1, t=128, layers=2):
+    """A 2-layer MoE LM at full width with the same seeded initial weights
+    takes one f32 step at B=1, T=128 on the card (the kernels) and on the
+    host (their plain versions): the softmax outputs agree within PROB_REL
+    and every parameter's delta within DELTA_REL by per-tensor norm (the
+    ReLU kink and near-tied routing move single elements, so the largest
+    element's share is reported, not gated)."""
+    batch = _train_batch(11, b, t)
+    res = {}
+    for where in (dev, "cpu"):
+        tr = _moe_trainer(where, b, t, None, layers)
+        before = {n: v.clone() for n, v in tr.params.items()}
+        probs = tr.step(batch)[0].cpu()
+        res[str(where)] = (probs, {n: (tr.params[n] - before[n]).cpu()
+                                   for n in before})
+        del tr
+    (pc, card), (ph, host) = res[str(dev)], res["cpu"]
+    perr = (pc - ph).abs().max().item() / ph.abs().max().item()
+    rows = sorted((((card[n] - dh).norm() / dh.norm()).item(),
+                   ((card[n] - dh).abs().max() / dh.abs().max()).item(), n)
+                  for n, dh in host.items())[::-1]
+    if not perr <= PROB_REL or not all(r[0] <= DELTA_REL for r in rows):
+        raise AssertionError(
+            "phase 5b card vs host step: softmax output %.3g of its max "
+            "(gate %g); worst deltas (norm, largest element) %s (gate %g)"
+            % (perr, PROB_REL,
+               ["%s %.3g %.3g" % (n, f, e) for f, e, n in rows[:5]],
+               DELTA_REL))
+    worst_elem = max(rows, key=lambda r: r[1])
+    log("phase 5b card vs host: one f32 step of the %d-layer MoE LM at B=%d "
+        "T=%d; softmax output max |err| %.3g of its max (gate %g); %d "
+        "parameter deltas agree, worst in norm %s %.3g (gate %g), worst "
+        "element %s %.3g of its largest delta (reported)" % (
+            layers, b, t, perr, PROB_REL, len(rows), rows[0][2], rows[0][0],
+            DELTA_REL, worst_elem[2], worst_elem[1]))
 
 
 # -- phase 6: the conv-net path: ResNet-50 -------------------------------------
@@ -5864,6 +6512,8 @@ def main():
     worst = {"quant_matmul": check_quant_matmul(K, dev, gen),
              "fused_decode_attention": check_fused_decode_attention(
                  K, dev, gen)}
+    worst["quant_matmul"] = max(worst["quant_matmul"],
+                                check_quant_matmul_moe(K, dev, gen))
     worst.update(check_paged_attention(K, dev, gen))
     check_paged_invariance(K, dev, gen)
     worst.update(check_flash_attention(K, dev, gen))
@@ -5901,10 +6551,18 @@ def main():
         launches[e] += n
     free_programs()
     check_small_against_host(dev)
+    moe = moe_main_path(K, dev, work)
+    for e, n in moe.items():
+        launches[e] += n
+    free_programs()
     launches.update({e: n for e, n in train_main_path(K, dev).items()
                      if e in TRAIN_ENTRIES})
     free_programs()
     check_train_against_host(dev)
+    free_programs()
+    for e, n in moe_train_path(K, dev).items():
+        launches[e] += n
+        moe[e] = moe.get(e, 0) + n
     free_programs()
     launches.update(train_resnet(K, dev))
     free_programs()
@@ -5943,9 +6601,10 @@ def main():
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
+        moe_launches=moe.get(e, 0),
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",
-                                    "int8", "c4", "c5", "m160")
+                                    "int8", "c4", "c5", "m160", "moe")
            if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"

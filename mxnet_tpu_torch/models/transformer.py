@@ -1,16 +1,18 @@
 """Decoder-only transformer language model.
 
 Counterpart of ``mxnet_tpu/models/transformer.py`` ``get_transformer_lm``
-(l.89): the same Symbol graph, node names and parameter layouts, so a
-checkpoint of either package serves in the other. Pipeline-stage tags
-and mixture-of-experts blocks wait for later slices of the port.
+(l.89), ``moe_transformer_block`` (l.67) and ``ep_rules`` (l.218): the
+same Symbol graph, node names and parameter layouts, so a checkpoint of
+either package serves in the other. Pipeline-stage tags wait for a later
+slice of the port.
 """
 from __future__ import annotations
 
 from .. import symbol as sym
 from ..base import later_slice
 
-__all__ = ["transformer_block", "get_transformer_lm"]
+__all__ = ["transformer_block", "moe_transformer_block",
+           "get_transformer_lm", "ep_rules"]
 
 
 def _ln(data, name):
@@ -20,10 +22,9 @@ def _ln(data, name):
                          name=name)
 
 
-def transformer_block(data, num_heads, hidden, embed_dim, name,
-                      causal=True, impl="flash", dropout=0.0,
-                      rope=False, num_kv_heads=0, window=0):
-    """Pre-LN block: x + MHA(LN(x)); x + FFN(LN(x)). data: [B,T,E]."""
+def _attn_sublayer(data, num_heads, name, causal, impl, dropout,
+                   rope=False, num_kv_heads=0, window=0):
+    """x + MHA(LN(x)) then LN: the attention half every block shares."""
     ln1 = _ln(data, name + "_ln1")
     attn = sym.MultiHeadAttention(
         data=ln1,
@@ -35,13 +36,43 @@ def transformer_block(data, num_heads, hidden, embed_dim, name,
         impl=impl, dropout=dropout, rope=rope, window=window,
         name=name + "_attn")
     x = data + attn
-    ln2 = _ln(x, name + "_ln2")
+    return x, _ln(x, name + "_ln2")
+
+
+def transformer_block(data, num_heads, hidden, embed_dim, name,
+                      causal=True, impl="flash", dropout=0.0,
+                      rope=False, num_kv_heads=0, window=0):
+    """Pre-LN block: x + MHA(LN(x)); x + FFN(LN(x)). data: [B,T,E]."""
+    x, ln2 = _attn_sublayer(data, num_heads, name, causal, impl, dropout,
+                            rope=rope, num_kv_heads=num_kv_heads,
+                            window=window)
     f1 = sym.FullyConnected(data=ln2, num_hidden=hidden,
                             name=name + "_ffn1", flatten=False)
     act = sym.Activation(data=f1, act_type="relu", name=name + "_ffn_relu")
     f2 = sym.FullyConnected(data=act, num_hidden=embed_dim,
                             name=name + "_ffn2", flatten=False)
     return x + f2
+
+
+def moe_transformer_block(data, num_heads, hidden, embed_dim, num_experts,
+                          name, causal=True, impl="flash", dropout=0.0,
+                          moe_top_k=0, rope=False, num_kv_heads=0,
+                          window=0):
+    """The block whose FFN is a mixture of ``num_experts`` experts
+    (``MoEFFN``); ``moe_top_k > 0`` is static-shaped top-k routing."""
+    x, ln2 = _attn_sublayer(data, num_heads, name, causal, impl, dropout,
+                            rope=rope, num_kv_heads=num_kv_heads,
+                            window=window)
+    moe = sym.MoEFFN(
+        data=ln2,
+        gate_weight=sym.Variable(name + "_gate_weight"),
+        expert_w1=sym.Variable(name + "_expert_w1"),
+        expert_b1=sym.Variable(name + "_expert_b1"),
+        expert_w2=sym.Variable(name + "_expert_w2"),
+        expert_b2=sym.Variable(name + "_expert_b2"),
+        num_experts=num_experts, hidden=hidden, top_k=moe_top_k,
+        name=name + "_moe")
+    return x + moe
 
 
 def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
@@ -55,19 +86,15 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
     reshapes them to [B*T,V]. ``pos_encoding`` "learned" adds the
     ``pos_embed`` table, "rope" rotates q/k in every attention.
     ``num_kv_heads`` is grouped-query attention, ``window`` sliding-window
-    attention (0 = unlimited). The parameters are the JAX package's, in
-    its order; ``num_experts``, ``pipeline_stages`` and ``moe_top_k``
-    (mixture-of-experts blocks, pipeline stage tags) raise unless left
-    at their defaults (or 0): they belong to a later slice."""
-    if num_experts:
-        raise later_slice("get_transformer_lm", "mixture-of-experts blocks "
-                          "(num_experts=%d)" % num_experts)
+    attention (0 = unlimited). ``num_experts`` builds every block with
+    :func:`moe_transformer_block` (``moe_top_k`` its top-k routing, read
+    only with ``num_experts``, as in the JAX package). The parameters are
+    the JAX package's, in its order; ``pipeline_stages`` (pipeline stage
+    tags) raises unless left at its default: it belongs to a later
+    slice."""
     if pipeline_stages:
         raise later_slice("get_transformer_lm", "pipeline stage tags "
                           "(pipeline_stages=%r)" % (pipeline_stages,))
-    if moe_top_k:
-        raise later_slice("get_transformer_lm", "top-k expert routing "
-                          "(moe_top_k=%r)" % (moe_top_k,))
     if pos_encoding not in ("learned", "rope"):
         raise ValueError("pos_encoding must be 'learned' or 'rope', "
                          "got %r" % (pos_encoding,))
@@ -85,10 +112,19 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
                                       pos=sym.Variable("pos_embed"),
                                       name="pos_add")
     for i in range(num_layers):
-        net = transformer_block(net, num_heads, ffn_hidden, embed_dim,
-                                "layer%d" % i, impl=impl, dropout=dropout,
-                                rope=rope, num_kv_heads=num_kv_heads,
-                                window=window)
+        if num_experts:
+            net = moe_transformer_block(net, num_heads, ffn_hidden,
+                                        embed_dim, num_experts,
+                                        "layer%d" % i, impl=impl,
+                                        dropout=dropout, moe_top_k=moe_top_k,
+                                        rope=rope, num_kv_heads=num_kv_heads,
+                                        window=window)
+        else:
+            net = transformer_block(net, num_heads, ffn_hidden, embed_dim,
+                                    "layer%d" % i, impl=impl,
+                                    dropout=dropout, rope=rope,
+                                    num_kv_heads=num_kv_heads,
+                                    window=window)
     ln_f = _ln(net, "lnf")
     logits = sym.FullyConnected(data=ln_f, num_hidden=vocab_size,
                                 name="lm_head", flatten=False)
@@ -103,3 +139,18 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
     logits_t = sym.SwapAxis(data=logits, dim1=1, dim2=2, name="logits_t")
     return sym.SoftmaxOutput(data=logits_t, name="softmax",
                              multi_output=True)
+
+
+def ep_rules():
+    """Expert-parallel sharding rules, the JAX package's: the leading
+    ``num_experts`` dim of every expert stack shards over ``ep``. A list of
+    ``(name regex, PartitionSpec)`` for ``ShardingRules(param_rules=...)``,
+    which waits for the trainer's meshes (a later slice); the serving
+    engine's ``ep`` shards its own copy (``serving/engine.py``)."""
+    from ..parallel.shard import P
+    return [
+        (r"_expert_w1$", P("ep", None, None)),
+        (r"_expert_b1$", P("ep", None)),
+        (r"_expert_w2$", P("ep", None, None)),
+        (r"_expert_b2$", P("ep", None)),
+    ]

@@ -73,6 +73,142 @@ class PositionalEmbedding(OpSpec):
         return [ins[0] + ins[1][None, :, :]], []
 
 
+@register
+class MoEFFN(OpSpec):
+    """Mixture-of-experts position-wise FFN (soft or top-k routing).
+
+    data: [B, T, E]. gate_weight: [X, E] (X = num_experts);
+    expert_w1: [X, H, E], expert_b1: [X, H]; expert_w2: [X, E, H],
+    expert_b2: [X, E]. out[b,t] = Σ_x gate[b,t,x] · FFN_x(data[b,t]).
+
+    ``top_k=0`` is soft routing (every expert weighs in); ``top_k=k``
+    keeps the k largest gates of each token, renormalized among
+    themselves, in its static-shaped form: every expert still computes
+    every token, and the dropped ones get exactly zero weight. The
+    params, shape rules and messages are the JAX package's."""
+
+    name = "MoEFFN"
+    params = {"num_experts": Param("int"), "hidden": Param("int"),
+              "top_k": Param("int", 0)}
+
+    def arguments(self, p):
+        return ["data", "gate_weight", "expert_w1", "expert_b1",
+                "expert_w2", "expert_b2"]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        ins = list(in_shapes)
+        if d is not None:
+            if len(d) != 3:
+                raise MXNetError("MoEFFN: data must be [B, T, E]")
+            e = d[2]
+            x, h = p["num_experts"], p["hidden"]
+            ins[1] = shape_assign(ins[1], (x, e), "MoEFFN gate_weight")
+            ins[2] = shape_assign(ins[2], (x, h, e), "MoEFFN expert_w1")
+            ins[3] = shape_assign(ins[3], (x, h), "MoEFFN expert_b1")
+            ins[4] = shape_assign(ins[4], (x, e, h), "MoEFFN expert_w2")
+            ins[5] = shape_assign(ins[5], (x, e), "MoEFFN expert_b2")
+        return ins, [d], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        return [moe_ffn_math(p, ins)], []
+
+
+# the JAX package's jnp.float32(-1e30), cast to the logits' dtype by the fill
+_MASKED = float(torch.tensor(-1e30, dtype=torch.float32))
+
+
+def _moe_gates(p, logits):
+    """The routing weights [B, T, X] from the full gate row: the top-k
+    mask (``top_k > 0``), then the softmax over experts. The k kept
+    experts are the first k of a stable descending sort, so exactly k are
+    kept and ties go to the lower index, as ``lax.top_k`` breaks them
+    (``torch.topk`` promises no order among equal values). An expert's
+    place in that sort is the count of the logits above it plus that of
+    the equal ones at lower indices, so the mask is ``place < k``,
+    computed from the [X, X] comparisons of each row without a sort. The
+    dropped logits become ``-1e30`` in the logits' dtype; gradients reach
+    the kept ones only."""
+    k = int(p["top_k"])
+    nx = int(p["num_experts"])
+    if k > 0:
+        if k >= nx:
+            raise MXNetError(
+                "MoEFFN: top_k=%d must be < num_experts=%d (use "
+                "top_k=0 for dense routing)" % (k, nx))
+        lg = logits.detach()
+        other, me = lg[..., None, :], lg[..., :, None]   # [.., i, j]
+        lower = torch.ones((nx, nx), dtype=torch.bool,
+                           device=lg.device).tril(-1)   # j < i
+        place = ((other > me) | ((other == me) & lower)).sum(-1)
+        logits = logits.masked_fill(place >= k, _MASKED)
+    return torch.softmax(logits, dim=-1)
+
+
+def _moe_experts(x, gates, w1, b1, w2, b2, up_mm, down_mm):
+    """Each expert of ``w1``..``b2`` weighted by its gate, [B, T, X, E]:
+    up + ``b1``, relu, down + ``b2``, times ``gates`` [B, T, X]."""
+    up = up_mm(x, w1) if up_mm is not None \
+        else torch.einsum("bte,xhe->btxh", x, w1)
+    h = torch.relu(up + b1[None, None])
+    y = (down_mm(h, w2) if down_mm is not None
+         else torch.einsum("btxh,xeh->btxe", h, w2)) + b2[None, None]
+    return y * gates[..., None]
+
+
+def moe_ffn_math(p, ins, gate_mm=None, up_mm=None, down_mm=None,
+                 ep=None):
+    """The one MoE routing and combine, over its three pluggable products
+    (``None``: the plain einsums), as the JAX package's ``moe_ffn_math``:
+    the serving path's quantized forms (``serving/quant.py``) plug in
+    here, so quantized routing is the float op's.
+
+    The combine ``btxe,btx->bte`` is the gate-weighted expert outputs
+    summed over the expert axis, one reduction over all X experts.
+
+    ``ep=(axis_name, n)``: expert parallelism in the single-controller
+    form of ``parallel/collectives.py``. Every expert-stacked input (the
+    gate rows and the four stacks) arrives as a LIST of n rank shards,
+    each with its ``X/n`` experts on its rank's device. Each rank takes
+    the data, computes its local logits, and one all-gather rebuilds the
+    full gate row before routing; each rank keeps its slice of the
+    renormalized gates and computes only its experts. The JAX package
+    then adds the ranks' partial sums with a ``psum``, which reassociates
+    the sum: in bf16 that rounding changed a greedy stream on the card.
+    Here a second all-gather puts the ranks' gate-weighted outputs back
+    in expert order and the same reduction as ep = 1 sums them, so the
+    output is ep = 1's bitwise wherever each expert's own products are
+    (their kernels' split of the contraction depends on the product's
+    width, ``kernels.quant_matmul_splits``). Returns the output on rank
+    0's device."""
+    x, gate_w, w1, b1, w2, b2 = ins
+    gmm = gate_mm if gate_mm is not None \
+        else (lambda a, w: torch.einsum("bte,xe->btx", a, w))
+    if ep is None:
+        return _moe_experts(x, _moe_gates(p, gmm(x, gate_w)), w1, b1, w2,
+                            b2, up_mm, down_mm).sum(2)
+    from ..parallel.collectives import all_gather
+    shards = [z if isinstance(z, (list, tuple)) else [z]
+              for z in (gate_w, w1, b1, w2, b2)]
+    n = len(shards[0])
+    if n != int(ep[1]) or any(len(s) != n for s in shards):
+        raise MXNetError(
+            "MoEFFN: ep=%r wants each expert input as a list of %d rank "
+            "shards, got %s" % (tuple(ep), int(ep[1]),
+                                [len(s) for s in shards]))
+    devs = [b.device for b in shards[2]]
+    xs = [x.to(d) for d in devs]
+    logits = all_gather([gmm(xr, g) for xr, g in zip(xs, shards[0])],
+                        axis=-1, tiled=True)
+    outs = []
+    for r, (xr, lg) in enumerate(zip(xs, logits)):
+        nloc = shards[0][r].shape[0]
+        gates = _moe_gates(p, lg)[..., r * nloc:(r + 1) * nloc]
+        outs.append(_moe_experts(xr, gates, *(s[r] for s in shards[1:]),
+                                 up_mm, down_mm))
+    return all_gather(outs, axis=2, tiled=True)[0].sum(2)
+
+
 def rope_freqs(half, base, device):
     """Rotary frequencies ``base ** (-i / half)`` for i < half, f32."""
     return base ** (-torch.arange(half, dtype=torch.float32,

@@ -37,7 +37,10 @@ ring positions): every position-wise op runs once at tp=1's shapes, and
 each attention node hands each rank its contiguous block of heads, writes
 and reads that rank's shard through the same read as tp=1, and gathers
 the ranks' outputs on the head axis (one collective a node). Expert
-parallelism belongs to a later slice of the port.
+parallelism (``ep=("expert", n)`` on the walk, which composes with ``tp``)
+hands each MoE node its stacks as lists of rank shards: every rank routes
+on the all-gathered gate row and computes its own experts, and ep=1's
+reduction sums their gathered outputs (``ops.attention.moe_ffn_math``).
 """
 from __future__ import annotations
 
@@ -47,13 +50,14 @@ import warnings
 
 import torch
 
-from ..base import MXNetError, refuse_unported, torch_dtype
+from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from ..ops import kernels
 from ..ops.attention import MultiHeadAttention as _MHA, rope_rotate
 from ..serving.quant import (QuantizedTensor, embedding_rows,
-                             quantize_params, quantized_weight_names,
-                             resolve_group, scale_fused_matmul)
+                             moe_ffn_forward, quantize_params,
+                             quantized_weight_names, resolve_group,
+                             scale_fused_matmul)
 from .collectives import all_gather
 from .shard import NamedSharding, PartitionSpec
 
@@ -62,7 +66,7 @@ __all__ = ["Decoder", "rank_trees", "sample_tokens", "uniform_draw"]
 # ops whose forward acts independently per position on [B, C, ...] data
 _POSITIONWISE = {
     "Embedding", "LayerNorm", "FullyConnected", "Activation", "LeakyReLU",
-    "Dropout", "BlockGrad", "Cast", "ElementWiseSum",
+    "MoEFFN", "Dropout", "BlockGrad", "Cast", "ElementWiseSum",
     "_Plus", "_Minus", "_Mul", "_Div", "_PlusScalar", "_MinusScalar",
     "_MulScalar", "_DivScalar", "_RMinusScalar", "_RDivScalar",
 }
@@ -208,7 +212,8 @@ class Decoder:
         paged read's ``[0, pos]`` rows).
     weight_dtype : {None, "float", "int8", "int4"}
         Weight storage: quantize every matmul weight (attention
-        projections, FullyConnected, Embedding) with per-output-channel
+        projections, FullyConnected, Embedding, the MoE gate and expert
+        stacks) with per-output-channel
         (int8) or per-group (int4) f32 scales, dequantized on the fly.
         ``None`` reads ``MXNET_SERVING_WEIGHT_DTYPE``, else ``"float"``,
         as the JAX package does.
@@ -860,16 +865,27 @@ class Decoder:
         over ``degree`` ranks (:meth:`init_cache` with ``kv_sharding``);
         every op but the per-head attention runs once, on the device of
         the inputs, at tp=1's shapes, so the logits do not depend on the
-        degree. ``ep``: a later slice."""
-        refuse_unported("Decoder._run", ep=(ep, None))
+        degree.
+
+        ``ep`` (``(axis_name, degree)``, optional): every input of a MoE
+        node but its data is a list of ``degree`` rank shards on the
+        expert axis, each with its ``X/degree`` experts (the serving
+        engine's placement), and the node runs expert-parallel
+        (:func:`~mxnet_tpu_torch.serving.quant.moe_ffn_forward`). A MoE
+        node also runs that forward when any of its weights is quantized,
+        its products through the ``quant_matmul`` kernel unless
+        ``mm_impl`` is ``"dense"``; otherwise it runs the op's own
+        forward."""
         return self._walk(params, aux, caches, pos, tokens, valid_len, tp,
-                          mm_impl, self._attn_impl)
+                          mm_impl, self._attn_impl, ep)
 
     def _walk(self, params, aux, caches, pos, tokens, valid_len, tp,
-              mm_impl, impl):
+              mm_impl, impl, ep=None):
         """:meth:`_run` with the attention read ``impl`` given."""
         if mm_impl is None:
             mm_impl = self._matmul_impl
+        qmm = None if mm_impl == "dense" \
+            else (lambda x, qt: self._qmm(x, qt, mm_impl))
         b, c = tokens.shape
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((b,), int(pos), dtype=torch.int32,
@@ -925,6 +941,11 @@ class Decoder:
             if name == "Embedding" and isinstance(ins[1], QuantizedTensor):
                 env[(id(n), 0)] = embedding_rows(ins[1], ins[0])
                 continue
+            if name == "MoEFFN" and (ep is not None or any(
+                    isinstance(z, QuantizedTensor) for z in ins[1:])):
+                env[(id(n), 0)] = moe_ffn_forward(n.params, ins, mm=qmm,
+                                                  ep=ep)
+                continue
             n_aux = len(n.spec.aux_states(n.params))
             aux_in = aux[aux_cursor:aux_cursor + n_aux]
             aux_cursor += n_aux
@@ -946,8 +967,7 @@ class Decoder:
         all ``max_len`` rows (or blocks), what the JAX package's ``vmap``
         of one-row walks computes (its l.1043-1055). A windowed node reads
         its ring either way. ``"dense"`` on a decoder built paged raises,
-        as in the JAX package."""
-        refuse_unported("Decoder._run_slots", ep=(ep, None))
+        as in the JAX package. ``ep``: as in :meth:`_run`."""
         if impl is None:
             impl = self._attn_impl
         elif impl == "dense" and self._attn_impl == "paged":
@@ -959,7 +979,7 @@ class Decoder:
             raise MXNetError("Decoder: impl must be 'dense' or 'paged', "
                              "got %r" % (impl,))
         return self._walk(params, aux, caches, pos, tokens, None, tp,
-                          mm_impl, impl)
+                          mm_impl, impl, ep)
 
     @staticmethod
     def _slot_index(slot, like):
@@ -1088,16 +1108,15 @@ class Decoder:
         that would run past the cache's end (a slot the engine holds no
         request in; the engine falls back to plain decode while a
         sequence is that near its end) is written ending at the last row
-        instead, as the JAX package's clamped update does. ``tp``: as in
-        :meth:`_run`."""
-        refuse_unported("Decoder.verify_step_slots", ep=(ep, None))
+        instead, as the JAX package's clamped update does. ``tp`` and
+        ``ep``: as in :meth:`_run`."""
         pos, tok, live, temp, uniform, eos, last = state
         k = drafts.shape[1]
         chunk = torch.cat([tok[:, None].to(torch.int64),
                            drafts.to(torch.int64)], dim=1)
         logits, caches = self._run_slots(
             params, aux, caches, pos.clamp_max(self.max_len - (k + 1)),
-            chunk, impl=impl, tp=tp, mm_impl=mm_impl)        # [S, K+1, V]
+            chunk, impl=impl, tp=tp, mm_impl=mm_impl, ep=ep)  # [S, K+1, V]
         s_, c, v = logits.shape
         at = (pos.long()[:, None] + torch.arange(1, c + 1, device=pos.device)
               ).clamp_max(self.max_len - 1)
@@ -1138,13 +1157,12 @@ class Decoder:
         still gates acceptance against its own draw. Positions that would
         run past the cache's end (slots the engine holds no request in)
         are written ending at the last row, as the JAX package's clamped
-        updates do. ``tp``: as in :meth:`_run`."""
-        refuse_unported("Decoder.draft_propose_slots", ep=(ep, None))
+        updates do. ``tp`` and ``ep``: as in :meth:`_run`."""
         w = catchup.shape[1]
         pos = pos.clamp_max(self.max_len - w)
         logits, caches = self._run_slots(
             params, aux, caches, pos, catchup.to(torch.int64), impl=impl,
-            tp=tp, mm_impl=mm_impl)                             # [S, W, V]
+            tp=tp, mm_impl=mm_impl, ep=ep)                      # [S, W, V]
         idx = (clen.long() - 1).clamp(0, w - 1)
         lastlog = logits.gather(
             1, idx[:, None, None].expand(-1, 1, logits.shape[2]))[:, 0]
@@ -1154,7 +1172,7 @@ class Decoder:
         for _ in range(k - 1):
             lg, caches = self._run_slots(
                 params, aux, caches, p.clamp_max(self.max_len - 1),
-                t[:, None], impl=impl, tp=tp, mm_impl=mm_impl)
+                t[:, None], impl=impl, tp=tp, mm_impl=mm_impl, ep=ep)
             t = torch.argmax(lg[:, 0], dim=-1)
             out.append(t)
             p = p + 1

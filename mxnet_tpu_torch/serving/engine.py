@@ -104,7 +104,13 @@ is one kernel an allocation of every rank. The mesh is single-controller
 and its ranks all name the engine's device (``[cuda:0] * 2`` on one card,
 ``["cpu"] * 2`` on the host): each program is still one CUDA graph, and a
 mesh over distinct cards belongs to a later slice. Expert parallelism
-(``ep``) belongs to a later slice too.
+(``ep``, the JAX package's l.815-940) composes with it on a mesh with an
+``expert`` axis: each MoE node's gate and expert stacks are held as ``ep``
+rank shards, one allocation a rank, and the prefill, decode and verify
+programs run the walk with ``ep`` (each rank routes on the all-gathered
+gate row, computes its own experts, and a second all-gather puts their
+weighted outputs back in expert order for ep=1's reduction). The KV cache
+does not depend on ``ep``.
 """
 from __future__ import annotations
 
@@ -121,12 +127,12 @@ import numpy as np
 import torch
 
 from .. import telemetry as tele
-from ..base import MXNetError, later_slice, refuse_unported
+from ..base import MXNetError, later_slice
 from ..io import StagedStream
 from ..ops.attention import MultiHeadAttention as _MHA
 from ..parallel.decode import (CACHE_FILL, Decoder, rank_trees, ring_entry,
                                sample_tokens, uniform_draw)
-from ..parallel.mesh import Mesh, model_parallel_mesh
+from ..parallel.mesh import Mesh, build_mesh, model_parallel_mesh
 from ..parallel.program import Program, copy_in
 from ..parallel.shard import NamedSharding, PartitionSpec
 from .capture import CaptureStream
@@ -529,15 +535,20 @@ def _device_key(d):
     return d
 
 
-def _resolve_tp(tp, mesh, device):
-    """The tensor-parallel degree and mesh as the JAX package resolves
-    them (its l.794-860): ``MXNET_SERVING_TP`` is the default, a mesh
-    needs a ``model`` axis and wins the degree, a ``tp`` that differs from
-    it disagrees. Without a mesh, a CPU engine takes ``["cpu"] * tp`` (the
-    caller asked for the host) and a CUDA one the visible cards. Every
-    rank must name ``device``: the engine's programs are single-device
-    (CUDA graphs), so a mesh over distinct devices belongs to a later
-    slice. Returns ``(tp, mesh)``, the mesh None at tp=1."""
+def _resolve_parallel(tp, ep, mesh, decoder):
+    """The tensor- and expert-parallel degrees and the mesh, as the JAX
+    package resolves them (its l.794-860): ``MXNET_SERVING_TP`` and
+    ``MXNET_SERVING_EP`` are the defaults; a mesh needs a ``model`` axis
+    and wins the tp degree, a ``tp`` that differs from it disagrees; ep > 1
+    needs a MoE decoder whose expert counts it divides, and a mesh whose
+    ``expert`` axis has ep ranks. Without a mesh, ep > 1 builds
+    ``build_mesh({"expert": ep, "model": tp})`` over ``[device] * (ep *
+    tp)``; tp > 1 alone takes ``["cpu"] * tp`` on the host (the caller
+    asked for it) and the visible cards on CUDA. Every rank must name the
+    decoder's device: the engine's programs are single-device (CUDA
+    graphs), so a mesh over distinct devices belongs to a later slice.
+    Returns ``(tp, ep, mesh)``, the mesh None at tp = ep = 1."""
+    device = decoder.device
     if mesh is None and tp is None:
         tp = int(os.environ.get("MXNET_SERVING_TP", "") or 1)
     if mesh is not None:
@@ -561,24 +572,74 @@ def _resolve_tp(tp, mesh, device):
     if tp < 1:
         raise MXNetError("InferenceEngine: tp must be >= 1 (1 = unsharded; "
                          "MXNET_SERVING_TP sets the default), got %d" % tp)
-    if tp == 1:
-        return 1, None
-    if mesh is None:
+    if ep is None:
+        ep = int(os.environ.get("MXNET_SERVING_EP", "") or 1)
+    ep = int(ep)
+    if ep < 1:
+        raise MXNetError("InferenceEngine: ep must be >= 1 (1 = no expert "
+                         "sharding; MXNET_SERVING_EP sets the default), "
+                         "got %d" % ep)
+    if ep > 1:
+        moe_nodes = [n for n in decoder._topo
+                     if not n.is_var and n.spec.name == "MoEFFN"]
+        if not moe_nodes:
+            raise MXNetError(
+                "InferenceEngine: ep=%d needs a MoE decoder — no MoEFFN "
+                "node to shard experts over" % ep)
+        for n in moe_nodes:
+            nx = int(n.params["num_experts"])
+            if nx % ep:
+                raise MXNetError(
+                    "InferenceEngine: ep=%d must divide num_experts=%d "
+                    "(node %r) — the expert stacks shard their leading "
+                    "axis evenly" % (ep, nx, n.name))
+        if mesh is not None:
+            if "expert" not in mesh.axis_names \
+                    or int(mesh.shape["expert"]) != ep:
+                raise MXNetError(
+                    "InferenceEngine: ep=%d disagrees with the mesh's "
+                    "expert axis (axes: %r) — parallel.build_mesh("
+                    "{'expert': ep, 'model': tp}) builds a composed mesh"
+                    % (ep, mesh.axis_names))
+        else:
+            mesh = build_mesh({"expert": ep, "model": tp},
+                              [device] * (ep * tp))
+    elif tp == 1:
+        return 1, 1, None
+    elif mesh is None:
         mesh = model_parallel_mesh(
             tp, devices=[device] * tp if device.type == "cpu" else None)
     devs = sorted({str(_device_key(d)) for d in mesh.devices.ravel()})
     if len(devs) > 1:
         raise later_slice(
-            "InferenceEngine", "tensor-parallel serving over distinct "
-            "devices (%s; the engine's programs each run on one device: "
-            "pass a mesh whose ranks all name it, e.g. "
+            "InferenceEngine", "tensor- or expert-parallel serving over "
+            "distinct devices (%s; the engine's programs each run on one "
+            "device: pass a mesh whose ranks all name it, e.g. "
             "model_parallel_mesh(%d, devices=[%r] * %d))"
             % (", ".join(devs), tp, str(device), tp))
     if devs[0] != str(_device_key(device)):
         raise MXNetError(
             "InferenceEngine: the mesh lies on %s, the decoder on %s"
             % (devs[0], device))
-    return tp, mesh
+    return tp, ep, mesh
+
+
+def _expert_shards(v, ranks):
+    """An expert-stacked parameter (a tensor or a :class:`QuantizedTensor`
+    with the expert axis first) as a list of its rank shards, rank ``r``
+    holding experts ``[r X/n, (r+1) X/n)`` in one allocation of its own on
+    its device ``ranks[r]`` (a quantized stack: its values and its scales
+    each)."""
+    n = len(ranks)
+
+    def cut(t):
+        return [c.to(d).clone(memory_format=torch.contiguous_format)
+                for c, d in zip(t.chunk(n, dim=0), ranks)]
+
+    if isinstance(v, QuantizedTensor):
+        return [QuantizedTensor(q, sc, v.dtype, bits=v.bits, group=v.group)
+                for q, sc in zip(cut(v.q), cut(v.scale))]
+    return cut(v)
 
 
 class InferenceEngine:
@@ -709,8 +770,18 @@ class InferenceEngine:
         and draft models must divide by ``tp``. Greedy streams equal
         tp=1's.
     ep : optional
-        The JAX package's expert parallelism; any value but 1 raises: a
-        later slice.
+        Expert parallelism of a MoE decoder: every input of each MoE node
+        but its data (the gate and the four expert stacks; a quantized
+        stack's values and scales) held as ``ep`` rank shards of ``X/ep``
+        experts, one allocation a rank, and every program running the walk
+        with ``ep=("expert", ep)``. ``None`` reads ``MXNET_SERVING_EP``,
+        else 1. ep > 1 needs a MoE decoder whose expert counts it divides;
+        a ``mesh`` needs an ``expert`` axis of ``ep`` ranks (and a
+        ``model`` axis, of ``tp`` ranks); without one the engine builds
+        ``build_mesh({"expert": ep, "model": tp})`` over ``[device] * (ep
+        * tp)``: ranks on the one device, as for ``tp``. Greedy streams
+        equal ep=1's (``ops.attention.moe_ffn_math``: the logits are ep=1's
+        bitwise where each expert's products are).
     """
 
     def __init__(self, decoder, slots=8, prefill_buckets=None,
@@ -728,14 +799,14 @@ class InferenceEngine:
         if not isinstance(decoder, Decoder):
             raise MXNetError("InferenceEngine needs a Decoder, got %r"
                              % type(decoder).__name__)
-        # a snapshot's geometry carries the resolved default of ep
-        refuse_unported("InferenceEngine", ep=(ep or 1, 1))
-        self.tp, self._mesh = _resolve_tp(tp, mesh, decoder.device)
-        # the walk's tp operand, and the cache layout it reads
+        self.tp, self.ep, self._mesh = _resolve_parallel(tp, ep, mesh,
+                                                         decoder)
+        # the walk's tp and ep operands, and the cache layout it reads
         self._tp_ax = ("model", self.tp) if self.tp > 1 else None
-        self._kv_shard = None if self._mesh is None else NamedSharding(
+        self._ep_ax = ("expert", self.ep) if self.ep > 1 else None
+        self._kv_shard = None if self.tp == 1 else NamedSharding(
             self._mesh, PartitionSpec(None, None, "model"))
-        if self._mesh is not None:
+        if self.tp > 1:
             for n in decoder._mha:
                 _MHA.check_head_shards(n.params, self.tp)
         self._dec = decoder
@@ -912,6 +983,16 @@ class InferenceEngine:
                 bits=8 if weight_dtype == "int8" else 4,
                 group=self.weight_group,
                 row_quant=decoder._embedding_weight_names())
+        if self.ep > 1:
+            # the engine's own copy: each MoE node's gate and stacks as
+            # rank shards on the expert axis (quantized first: a row's
+            # scale is its own, so shards quantize as the whole does)
+            ranks = self._mesh.axis_devices("expert")
+            experts = {inp.name for n in decoder._topo
+                       if not n.is_var and n.spec.name == "MoEFFN"
+                       for inp, _ in n.inputs[1:]}
+            params = {k: _expert_shards(v, ranks) if k in experts else v
+                      for k, v in params.items()}
         self._params, self._aux = params, decoder._aux
 
         # speculative decoding
@@ -950,7 +1031,7 @@ class InferenceEngine:
         wbytes = self._weight_nbytes(params)
         if draft == "model":
             self._draft_dec = self._check_draft(draft_decoder)
-            if self._mesh is not None:
+            if self.tp > 1:
                 for n in draft_decoder._mha:
                     _MHA.check_head_shards(
                         n.params, self.tp,
@@ -1091,9 +1172,12 @@ class InferenceEngine:
 
     @staticmethod
     def _weight_nbytes(params):
-        return sum(v.nbytes if isinstance(v, QuantizedTensor)
-                   else v.numel() * v.element_size()
-                   for v in params.values())
+        def one(v):
+            if isinstance(v, list):             # an ep-sharded stack
+                return sum(one(s) for s in v)
+            return v.nbytes if isinstance(v, QuantizedTensor) \
+                else v.numel() * v.element_size()
+        return sum(one(v) for v in params.values())
 
     def _check_draft(self, ddec):
         """Validate ``draft_decoder`` as the JAX package does (l.1131)."""
@@ -1964,7 +2048,7 @@ class InferenceEngine:
         self._uniform.index_copy_(0, idx, draws[None])
 
     def _staged_run(self, dec, params, aux, groups, stage_groups, stage,
-                    slot, start, tokens, true_len):
+                    slot, start, tokens, true_len, ep=None):
         """One prefill piece of ``tokens`` [1, bucket] at ``start`` (its
         first ``true_len`` tokens real) into ``slot`` of the cache
         allocations ``groups``, run over the staging cache ``stage``
@@ -1979,8 +2063,9 @@ class InferenceEngine:
         positions) go in and come back whole, the positions are wiped on a
         request's first piece (``start == 0``: the slot's last occupant's
         rows must not show), and the walk writes only the piece's real rows
-        into the ring (``valid_len``), as the JAX program does. Returns the
-        logits [1, bucket, V]."""
+        into the ring (``valid_len``), as the JAX program does. ``ep``: the
+        walk's (the target's, never the draft model's). Returns the logits
+        [1, bucket, V]."""
         n = self.max_len
         rings = [key[3] is not None for key in _group_layout(stage)[0]]
         for g, sg, ring in zip(groups, stage_groups, rings):
@@ -1990,7 +2075,7 @@ class InferenceEngine:
             dec.clear_window_positions(stage, only_if=start == 0)
         logits, _ = dec._run(params, aux, stage, start.to(torch.int32),
                              tokens, valid_len=start + true_len,
-                             tp=self._tp_ax, mm_impl=self.matmul_impl)
+                             tp=self._tp_ax, mm_impl=self.matmul_impl, ep=ep)
         rows = (start + torch.arange(tokens.shape[1], device=start.device)
                 ).clamp_max(n - 1)
         for g, sg, ring in zip(groups, stage_groups, rings):
@@ -2021,7 +2106,8 @@ class InferenceEngine:
         logits = self._staged_run(self._dec, self._params, self._aux,
                                   self._groups, self._stage_groups,
                                   self._stage, slot, start,
-                                  ops[None, :bucket], true_len)
+                                  ops[None, :bucket], true_len,
+                                  ep=self._ep_ax)
         total = start + true_len
         lastp = (total + max_toks - 1).clamp_max(self.max_len - 1)
         draws = uniform_draw(seed, torch.arange(self.max_len,
@@ -2060,7 +2146,7 @@ class InferenceEngine:
             logits, _ = dec._run_slots(
                 self._params, self._aux, self._caches, self._pos,
                 self._tok[:, None], impl=self.attn_impl, tp=self._tp_ax,
-                mm_impl=self.matmul_impl)
+                mm_impl=self.matmul_impl, ep=self._ep_ax)
             nxt_pos = self._pos + 1
             # a frozen slot at the cache's end draws from its last row
             u = self._uniform.gather(
@@ -2083,7 +2169,7 @@ class InferenceEngine:
             self._params, self._aux, self._caches,
             (self._pos, self._tok, self._live, self._temp, self._uniform,
              self._eos, self._last), drafts, dlen, impl=self.attn_impl,
-            tp=self._tp_ax, mm_impl=self.matmul_impl)
+            tp=self._tp_ax, mm_impl=self.matmul_impl, ep=self._ep_ax)
         for buf, val in zip((self._pos, self._tok, self._live), st):
             buf.copy_(val)
         return out
@@ -3032,8 +3118,8 @@ class InferenceEngine:
 
     def _geometry(self):
         """The engine's geometry as plain JSON: every constructor knob a
-        fresh engine needs to serve the same way, the JAX package's keys
-        (``ep`` at the value the port serves with). Shared by
+        fresh engine needs to serve the same way, the JAX package's keys.
+        Shared by
         :meth:`snapshot` and the capture header; ``capture_dir`` is None
         in the header (written before the knob resolves: a replay must
         not capture again by default)."""
@@ -3056,7 +3142,7 @@ class InferenceEngine:
             "draft": self.spec_draft,
             "attn_impl": self.attn_impl,
             "tp": self.tp,
-            "ep": 1,
+            "ep": self.ep,
             "weight_dtype": self.weight_dtype,
             "weight_group": self.weight_group,
             "matmul_impl": self.matmul_impl,
@@ -3080,12 +3166,12 @@ class InferenceEngine:
         handles' ``.tokens`` from the start. Remaining deadline budgets
         carry over. Returns ``(engine,
         {request_id: Request})``. A ``draft="model"`` snapshot needs the
-        draft model back: pass ``draft_decoder=...`` in ``overrides``. A
-        geometry knob the port still refuses (``ep``) must be at its
-        default. The snapshot's ``tp`` is rebuilt as the constructor
-        resolves a degree without a mesh; a ``mesh`` (or ``tp``) in
-        ``overrides`` replaces it, so a tp=2 snapshot restores at tp=1,
-        or on two ranks of one card. The JAX engine's default
+        draft model back: pass ``draft_decoder=...`` in ``overrides``. The
+        snapshot's ``tp`` and ``ep`` are rebuilt as the constructor
+        resolves degrees without a mesh; ``tp``/``ep`` in ``overrides``
+        replace them, and a ``mesh`` replaces both (its ``expert`` axis
+        gives ep, 1 without one), so a tp=2 or ep=2 snapshot restores at
+        1, or on ranks of one card. The JAX engine's default
         ``attn_impl="dense"`` is honoured over a dense ``decoder`` and gives
         way to ``"paged"`` over a paged one (the port's default), as in
         :func:`~.replay.build_engine`: the read is not request content. A
@@ -3102,6 +3188,9 @@ class InferenceEngine:
             cfg["attn_impl"] = "paged"
         if "mesh" in overrides:
             cfg.pop("tp", None)
+            if "ep" not in overrides \
+                    and isinstance(overrides["mesh"], Mesh):
+                cfg["ep"] = int(overrides["mesh"].shape.get("expert", 1))
         cfg.update(overrides)
         cfg.setdefault("migrated_from", snap.get("engine_id"))
         eng = cls(decoder, **cfg)

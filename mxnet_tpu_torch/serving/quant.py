@@ -1,9 +1,10 @@
 """Weight-only int8/int4 quantization for serving.
 
-Counterpart of ``mxnet_tpu/serving/quant.py`` (l.74-375). Every
+Counterpart of ``mxnet_tpu/serving/quant.py`` (l.74-457). Every
 quantizable LM weight contracts over its LAST axis (``qkv_weight``/
 ``out_weight`` ``[F, E]``, FullyConnected ``[out, in]``, Embedding
-``[vocab, E]``), so:
+``[vocab, E]``, the MoE gate ``[X, E]`` and expert stacks ``[X, H, E]`` /
+``[X, E, H]``), so:
 
 * int8: symmetric per-output-channel, ``scale = amax(|w|, -1) / 127``
   (all-zero rows get 1), ``q = round(w / scale)``; the scale multiplies
@@ -15,8 +16,12 @@ quantizable LM weight contracts over its LAST axis (``qkv_weight``/
 Values, packed nibbles and scales are bitwise those of the JAX package
 on the same f32 weights (f32 division and round-half-to-even on both
 sides). LayerNorm gains, biases and positional tables stay float.
+``MXNET_QUANT_GROUP`` and ``MXNET_QUANT_CHUNK`` set the int4 group and
+the plain product's chunk as in the JAX package.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -26,7 +31,8 @@ from ..ops.kernels import quant_matmul_plain, unpack4
 __all__ = ["QuantizedTensor", "quantize_tensor", "dequantize",
            "quantized_weight_names", "quantize_params",
            "scale_fused_matmul", "pack_int4", "unpack_int4",
-           "resolve_chunk", "resolve_group", "embedding_rows"]
+           "resolve_chunk", "resolve_group", "embedding_rows",
+           "expert_slice", "moe_ffn_forward"]
 
 # op name -> input indices that are quantizable matmul weights; every
 # OTHER consumer position vetoes quantization of its variable
@@ -34,6 +40,7 @@ _QUANT_ARGS = {
     "FullyConnected": (1,),
     "Embedding": (1,),
     "MultiHeadAttention": (1, 3),          # qkv_weight, out_weight
+    "MoEFFN": (1, 2, 4),                   # gate, expert_w1, expert_w2
 }
 
 
@@ -90,9 +97,12 @@ def unpack_int4(u, dtype=torch.int8):
 
 def resolve_group(n, group=None):
     """The per-group scale width for a contraction axis of size ``n``
-    under int4: the largest of (128, 64, 32, 16, 8, 4, 2) dividing ``n``
-    when ``group`` is None; an explicit group must be an even divisor of
-    ``n``."""
+    under int4. ``group=None`` reads ``MXNET_QUANT_GROUP`` (unset: auto,
+    the largest of (128, 64, 32, 16, 8, 4, 2) dividing ``n``); an explicit
+    group must be an even divisor of ``n`` or it raises."""
+    if group is None:
+        env = os.environ.get("MXNET_QUANT_GROUP", "").strip()
+        group = int(env) if env else None
     if group is None:
         for g in (128, 64, 32, 16, 8, 4, 2):
             if n % g == 0:
@@ -103,8 +113,9 @@ def resolve_group(n, group=None):
     group = int(group)
     if group <= 0 or group % 2 or n % group:
         raise MXNetError(
-            "int4 group=%d must be a positive even divisor of the "
-            "contraction axis (%d here)" % (group, n))
+            "MXNET_QUANT_GROUP=%d must be a positive even divisor of "
+            "the contraction axis (%d here); pick a divisor or unset "
+            "it for the auto choice" % (group, n))
     return group
 
 
@@ -186,8 +197,24 @@ def _block_rows(f):
 
 def resolve_chunk(f):
     """Output-channel chunk for a weight with ``f`` output rows (None =
-    dequantize whole)."""
-    return _block_rows(f)
+    dequantize whole). ``MXNET_QUANT_CHUNK`` overrides the
+    :func:`_block_rows` pick (``0`` or unset: the auto pick); a value that
+    does not divide ``f`` raises, and one ``>= f`` means whole."""
+    env = os.environ.get("MXNET_QUANT_CHUNK", "").strip()
+    if not env or env == "0":
+        return _block_rows(f)
+    try:
+        r = int(env)
+    except ValueError:
+        raise MXNetError(
+            "MXNET_QUANT_CHUNK=%r is not an integer chunk size" % env)
+    if r < 0 or (r < f and f % r):
+        raise MXNetError(
+            "MXNET_QUANT_CHUNK=%d must divide the weight's output-"
+            "channel count (%d here): the chunk walk partitions "
+            "output rows exactly; pick a divisor or 0 for the auto "
+            "choice" % (r, f))
+    return None if r >= f else r
 
 
 def scale_fused_matmul(x, qt):
@@ -211,3 +238,83 @@ def embedding_rows(qt, idx):
     idx = idx.long()
     rows = qt.q[idx].to(torch.float32)
     return (rows * qt.scale[idx][..., None]).to(qt.dtype)
+
+
+def expert_slice(qt, i):
+    """Expert ``i`` of a stacked MoE :class:`QuantizedTensor` (``[X, out,
+    contract]`` values and their scales) as its own 2-D quantized weight,
+    views of the stack."""
+    return QuantizedTensor(qt.q[i], qt.scale[i], qt.dtype, bits=qt.bits,
+                           group=qt.group)
+
+
+def _kernel_slice(qt, i):
+    """:func:`expert_slice` as the ``quant_matmul`` kernel takes it: its
+    vector loads need the values on a 16-byte boundary, so an expert
+    whose offset in the stack is not one (per-expert bytes not a multiple
+    of 16) is copied into an allocation of its own."""
+    w = expert_slice(qt, i)
+    if w.q.data_ptr() % 16:
+        w = QuantizedTensor(w.q.clone(), w.scale, w.dtype, bits=w.bits,
+                            group=w.group)
+    return w
+
+
+def _expert_matmul(h, qt):
+    """``h [B, T, X, H] x w2 [X, E, H] -> [B, T, X, E]``: the MoE down
+    projection of ``matmul_impl="dense"``, one plain product an expert
+    (experts are independent output blocks, so this is the einsum on the
+    dequantized stack)."""
+    b, t, nx, hh = h.shape
+    cols = [quant_matmul_plain(h[:, :, i].reshape(b * t, hh), qt.q[i],
+                               qt.scale[i], qt.bits, qt.group, h.dtype)
+            for i in range(nx)]
+    return torch.stack(cols, dim=1).reshape(b, t, nx, -1)
+
+
+def moe_ffn_forward(p, ins, mm=None, ep=None):
+    """MoEFFN forward with any mix of quantized and float weights: the
+    routing and combine of ``ops.attention.moe_ffn_math``, the float op's
+    own, with the product of each quantized weight swapped for its
+    quantized form (the JAX package's l.411-457).
+
+    ``mm`` (optional) replaces :func:`scale_fused_matmul` for the 2-D
+    quantized products: the decoder passes the ``quant_matmul`` kernel
+    under ``matmul_impl="pallas"``/``"fused"``. Then the gate is one
+    product ``[X, E]``, the up projection one over the stack's flattened
+    ``[X*H, E]`` view, and the down projection one product an expert,
+    over that expert's rows of ``h`` (one copy of ``h`` puts each
+    expert's rows together, as the kernel takes contiguous operands).
+    ``ep=(axis_name, n)``: the stacks arrive as lists of rank shards
+    (:func:`~mxnet_tpu_torch.ops.attention.moe_ffn_math`)."""
+    from ..ops.attention import moe_ffn_math
+    qmm = mm if mm is not None else scale_fused_matmul
+
+    def gate_mm(x, w):
+        if isinstance(w, QuantizedTensor):
+            return qmm(x, w)
+        return torch.einsum("bte,xe->btx", x, w)
+
+    def up_mm(x, w):
+        if not isinstance(w, QuantizedTensor):
+            return torch.einsum("bte,xhe->btxh", x, w)
+        # [X, H, E] contracts E with output channels (x, h): the 2-D
+        # product over the flattened [X*H, E] view
+        xq, hq = w.q.shape[:2]
+        flat = QuantizedTensor(
+            w.q.reshape((xq * hq,) + tuple(w.q.shape[2:])),
+            w.scale.reshape((xq * hq,) + tuple(w.scale.shape[2:])),
+            w.dtype, bits=w.bits, group=w.group)
+        return qmm(x, flat).reshape(tuple(x.shape[:-1]) + (xq, hq))
+
+    def down_mm(h, w):
+        if not isinstance(w, QuantizedTensor):
+            return torch.einsum("btxh,xeh->btxe", h, w)
+        if mm is None:
+            return _expert_matmul(h, w)
+        hx = h.movedim(2, 0).contiguous()          # [X, B, T, H]
+        return torch.stack([mm(hx[i], _kernel_slice(w, i))
+                            for i in range(w.q.shape[0])], dim=2)
+
+    return moe_ffn_math(p, ins, gate_mm=gate_mm, up_mm=up_mm,
+                        down_mm=down_mm, ep=ep)

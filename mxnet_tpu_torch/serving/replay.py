@@ -8,7 +8,8 @@ CLI): ``python -m mxnet_tpu_torch.serving.replay CAPTURE.jsonl
 tensor-parallel engine of N ranks (``--tp 1`` unshards a tp capture):
 greedy streams do not depend on the degree, so ``--verify`` stays clean.
 With ``--device`` the ranks all run on that device; without it, on the
-visible cards.
+visible cards. A capture of an expert-parallel engine (``ep`` in its
+geometry) replays at its ``ep`` on ranks of the same device.
 
 A capture (``MXNET_SERVING_CAPTURE_DIR`` /
 ``InferenceEngine(capture_dir=...)``, either package's) holds everything a
@@ -392,7 +393,7 @@ def main(argv=None):
                          "them on the host)")
     args = ap.parse_args(argv)
 
-    from ..parallel import Decoder, model_parallel_mesh
+    from ..parallel import Decoder, build_mesh, model_parallel_mesh
 
     cap = load_capture(args.capture)
     max_len = args.max_len or cap["engine"].get("max_len")
@@ -426,10 +427,13 @@ def main(argv=None):
     tp = args.tp if args.tp is not None else cap["engine"].get("tp", 1)
     if args.tp is not None:
         overrides["tp"] = tp
+    ep = int(cap["engine"].get("ep", 1) or 1)
     if tp > 1 and args.device is not None:
         # the ranks of a single-controller mesh on the one device asked for
-        overrides["mesh"] = model_parallel_mesh(
-            tp, devices=[args.device] * tp)
+        overrides["mesh"] = build_mesh(
+            {"expert": ep, "model": tp}, [args.device] * (ep * tp)) \
+            if ep > 1 else model_parallel_mesh(
+                tp, devices=[args.device] * tp)
     roles_pd = None
     if args.roles:
         try:

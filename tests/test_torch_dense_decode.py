@@ -203,7 +203,8 @@ def test_dense_and_paged_streams_equal(models):
 
 def test_dense_refusals_follow_jax(models):
     """``impl="dense"`` on a paged decoder raises in ``_run_slots`` and in
-    the engine; ``_run``'s ``ep`` is a later slice."""
+    the engine; ``_run``'s ``ep`` reaches MoE nodes only, so on this dense
+    LM it changes nothing, as in the JAX package."""
     _, ts, params, _ = models["learned"]
     paged = Decoder(ts, params, max_len=T, attn_impl="paged", device="cpu")
     with pytest.raises(MXNetError, match="build the decoder dense"):
@@ -213,9 +214,12 @@ def test_dense_refusals_follow_jax(models):
                          impl="dense")
     with pytest.raises(MXNetError, match="build the decoder dense"):
         InferenceEngine(paged, 2, attn_impl="dense")
-    with pytest.raises(MXNetError, match="later slice"):
-        paged._run(paged._params, paged._aux, paged.init_cache(1), 0,
-                   torch.zeros((1, 1), dtype=torch.int64), ep=2)
+    tok = torch.zeros((1, 1), dtype=torch.int64)
+    plain, _ = paged._run(paged._params, paged._aux, paged.init_cache(1), 0,
+                          tok)
+    with_ep, _ = paged._run(paged._params, paged._aux, paged.init_cache(1),
+                            0, tok, ep=("expert", 2))
+    assert torch.equal(with_ep, plain)
 
 
 # -- the dense engine ---------------------------------------------------

@@ -167,8 +167,8 @@ def test_role_knob_validation(lm, monkeypatch):
     narrowing refused (only widening to unified), a decode specialist
     refuses every submit, a prefill specialist refuses admit_handoff —
     both packages, the same messages. On the port a tensor-parallel
-    prefill specialist builds, ep is still a later slice and a mesh must
-    be a parallel.Mesh."""
+    prefill specialist builds, ep > 1 over this dense LM is the JAX
+    refusal (no MoE node to shard) and a mesh must be a parallel.Mesh."""
     for name in ("jax", "port"):
         side = lm[name]
         with pytest.raises(side.error, match="role must be"):
@@ -206,7 +206,7 @@ def test_role_knob_validation(lm, monkeypatch):
     e = _mkeng(lm["port"], role="prefill", tp=2)
     assert e.tp == 2 and e._geometry()["tp"] == 2
     e.close()
-    for kw, match in ((dict(ep=2), "later slice"),
+    for kw, match in ((dict(ep=2), "needs a MoE decoder"),
                       (dict(mesh=object()), "parallel.Mesh")):
         with pytest.raises(PortError, match=match):
             _mkeng(lm["port"], **kw)

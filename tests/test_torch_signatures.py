@@ -270,12 +270,12 @@ def test_generate_repeats_for_the_same_rng_seed(decoder):
         decoder.generate(prompt, 5, rng=5, temperature=1.0)
 
 
-# tensor parallelism is ported (the cases below), so its cases here are
-# its refusals: a degree that does not divide the 2 kv heads, a mesh that
-# is not a parallel.Mesh; ep is still a later slice
+# tensor and expert parallelism are ported, so their cases here are their
+# refusals: a degree that does not divide the 2 kv heads, a mesh that is
+# not a parallel.Mesh, ep > 1 over an LM with no MoE node
 ENGINE_UNPORTED = [("tp", 3, "divide evenly"),
                    ("mesh", object(), "parallel.Mesh"),
-                   ("ep", 2, "later slice")]
+                   ("ep", 2, "needs a MoE decoder")]
 
 
 @pytest.mark.parametrize("param,value,match", ENGINE_UNPORTED,
@@ -389,8 +389,6 @@ def _save(tmp_path, lm):
 
 OTHER_UNPORTED = {
     "pipeline_stages": _lm_unported(dict(pipeline_stages=2)),
-    "moe_top_k": _lm_unported(dict(moe_top_k=2)),
-    "num_experts": _lm_unported(dict(num_experts=4)),
     "trainer_mesh": lambda lm: ttrainer.ParallelTrainer(
         lm[0], lm[1], "sgd", object(), device="cpu"),
     "trainer_remat": lambda lm: ttrainer.ParallelTrainer(
@@ -402,6 +400,33 @@ OTHER_UNPORTED = {
 def test_other_unported_parameters_raise(lm, case):
     with pytest.raises(MXNetError, match="later slice"):
         OTHER_UNPORTED[case](lm)
+
+
+# the mixture-of-experts parameters (they raised "later slice" before this
+# slice of the port): each builds the JAX package's symbol, its argument
+# names and shapes; moe_top_k alone is read only with num_experts, as in
+# the JAX package (the dense LM)
+MOE_PORTED = {"moe_top_k": dict(moe_top_k=2),
+              "num_experts": dict(num_experts=4, moe_top_k=1)}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_PORTED))
+def test_moe_parameters_build_the_jax_symbol(case):
+    from mxnet_tpu.name import NameManager as JaxNames
+    from mxnet_tpu_torch.name import NameManager as TorchNames
+
+    kw = dict(num_layers=1, embed_dim=16, num_heads=2, **MOE_PORTED[case])
+    with JaxNames():
+        js = jax_transformer.get_transformer_lm(VOCAB, **kw)
+    with TorchNames():
+        ts = get_transformer_lm(VOCAB, **kw)
+    shapes = {"data": (2, T), "softmax_label": (2, T)}
+    assert ts.list_arguments() == js.list_arguments()
+    assert ts.infer_shape(**shapes)[0] == \
+        [tuple(s) for s in js.infer_shape(**shapes)[0]]
+    moe = [n for n in ts._topo() if not n.is_var
+           and n.spec.name == "MoEFFN"]
+    assert len(moe) == (1 if "num_experts" in MOE_PORTED[case] else 0)
 
 
 def test_save_checkpoint_optimizer_states_raise(tmp_path, lm):

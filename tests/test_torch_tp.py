@@ -348,7 +348,7 @@ REFUSALS = {
     "disagrees": (dict(mesh="cpu2", tp=4), "disagrees"),
     "not_a_mesh": (dict(mesh=object()), "parallel.Mesh"),
     "distinct_cards": (dict(mesh="cuda01"), "later slice"),
-    "ep2": (dict(ep=2), "later slice"),
+    "ep2": (dict(ep=2), "needs a MoE decoder"),
     "draft_uneven": (dict(tp=4, draft="model", draft_decoder="kv2"),
                      "divide evenly"),
 }
