@@ -293,6 +293,34 @@ Phases:
    (``moe_flops_per_token``) and a 2-step profile; then one f32 step of a
    2-layer MoE LM of the same width at B=1, T=128, card against host,
    parameter deltas within 2e-2 by per-tensor norm;
+5c. the LM trained as users train it (each check on its own ``phase 5c``
+   line, the phase's seconds last): phase 5's 124M LM ending in
+   ``loss_layout="ce"`` (``SoftmaxCELoss``), trained with GPT-3 Small's
+   recipe (AdamW lr 6e-4 beta2 0.95 wd 0.1, linear warmup then cosine to
+   6e-5, global-norm clip 1.0; bf16 over f32 masters, B=8, T=1024) through
+   ``ParallelTrainer(device=None).fit`` over an ``NDArrayIter`` of 24
+   batches of a seeded order-1 Markov chain (4 successors a token), 2
+   epochs, ``device_metric=True`` on ``metric.Loss()``, a ``Speedometer``
+   and an epoch-end callback saving ``.params`` and ``.states`` (and a
+   sharded checkpoint after the first epoch): exact launches a step (12
+   of each flash entry, one ``fused_linear`` a FullyConnected ->
+   Activation chain), every epoch's loss finite and the last below the
+   first; tokens/s of ``fit`` with the metric on the device and on the
+   host against 12 ``step()`` calls, MFU, peak memory, each checkpoint's
+   seconds and bytes; the AdamW update alone (CUDA events, a 2-call
+   profile, its kernels) against its bound, and a 2-step profile of the
+   AdamW step; then crash and resume: with epoch 2's ``.params`` gone, a
+   fresh trainer resumes from ``latest_checkpoint``'s ``.params`` and
+   ``.states``, and another from the sharded checkpoint, and each one's
+   parameters after the second epoch equal the uninterrupted run's
+   bitwise; for AdamW, AdaFactor (factored, beta1 0.9) and SGLD, 4
+   captured steps equal 4 uncaptured ones bitwise with lr and t advancing
+   (and for AdamW, a run with t frozen at 1 differs), ``multi_step(batch,
+   3)`` equals 3 ``step()`` calls bitwise; one f32 AdamW step of a 2-layer
+   LM of the same width at B=1, T=128, card against host (deltas within
+   2e-2 by norm); the 9 optimizers' functional updates card against host;
+   ``SoftmaxCELoss`` at [8192, 32000] bf16 card against host, and its
+   forward's and backward's card time;
 6. the conv-net path: ResNet-50 (``get_resnet(1000, 50)``) trained by
    ``ParallelTrainer(device=None)`` as ``bench.py``'s ``bench_resnet50``
    trains it (B=256, 224 x 224, bf16 over f32 master weights, SGD lr 0.1
@@ -318,7 +346,9 @@ Phases:
    ``fused_linear`` per step, a falling loss, tokens/s, a 2-step profile;
    then one f32 step of it at B=1, T=1024 against
    ``ParallelTrainer(impl="flash")`` from the same weights, whose
-   parameter deltas must agree;
+   parameter deltas must agree; and 3 steps at B=1, T=1024,
+   ``save_sharded_checkpoint``, 2 more: a fresh trainer restored from the
+   checkpoint takes the same 2 steps, bitwise;
 8. the ``{"kernels": [...]}`` line (every C entry), the card's line, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -5630,6 +5660,7 @@ def train_main_path(K, dev):
                              "%r" % losses)
     tokens = TRAIN_B * TRAIN_T
     tps = [tokens / s for s in secs]
+    REPORT["sgd_step_ms"] = statistics.median(secs) * 1e3
     n_params = LAYERS * (12 * EMBED * EMBED) + VOCAB * EMBED
     flops_per_tok = 6.0 * n_params + 12.0 * LAYERS * EMBED * TRAIN_T
     med = statistics.median(tps)
@@ -5942,6 +5973,532 @@ def check_moe_train_against_host(dev, b=1, t=128, layers=2):
         "element %s %.3g of its largest delta (reported)" % (
             layers, b, t, perr, PROB_REL, len(rows), rows[0][2], rows[0][0],
             DELTA_REL, worst_elem[2], worst_elem[1]))
+
+
+# -- phase 5c: the LM trained as users train it -------------------------------
+
+FIT_BATCHES, FIT_EPOCHS, FIT_WARMUP = 24, 2, 4
+MARKOV_SUCC = 4
+# GPT-3 Small's recipe (Brown et al. 2020, Table 2.1 and Appendix B): AdamW
+# beta1 0.9, beta2 0.95, eps 1e-8, weight decay 0.1; peak lr 6e-4 after a
+# linear warmup, cosine decay to 10%; global-norm clip 1.0
+GPT3_ADAMW = dict(learning_rate=6e-4, beta1=0.9, beta2=0.95, epsilon=1e-8,
+                  wd=0.1)
+CAPTURE_STEPS = 4
+# the optimizers' functional updates, card against host, f32: elementwise
+# arithmetic (FMA contraction, pow) and AdaFactor's means summed in other
+# orders; |card - host| <= OPT_ATOL + OPT_RTOL * |host| on the weights
+# (~N(0, 1)) and every state leaf
+OPT_ATOL, OPT_RTOL = 1e-6, 1e-5
+# the 9 optimizers of optimizer.py (ccSGD is SGD's math), at the settings
+# the functional check runs
+OPTIMIZERS_5C = [
+    ("sgd", dict(learning_rate=0.01, momentum=0.9, wd=0.01)),
+    ("sgld", dict(learning_rate=0.01)),  # no wd: the noise stays apart
+    ("adam", dict(learning_rate=0.01, wd=0.01)),
+    ("adamw", dict(GPT3_ADAMW)),
+    ("adafactor", dict(learning_rate=0.01, beta1=0.9, wd=0.01)),
+    ("adagrad", dict(learning_rate=0.05, wd=0.01)),
+    ("rmsprop", dict(learning_rate=0.01, wd=0.01)),
+    ("adadelta", dict(wd=0.01)),
+    ("test", dict(rescale_grad=0.5)),
+]
+REPORT = {}
+
+
+def markov_batches(seed, n, t, succ=MARKOV_SUCC):
+    """``n`` rows of an order-1 Markov chain over the vocabulary (each
+    token has ``succ`` successors, drawn from the seed), as token ids
+    ``[n, t]`` and the labels shifted by one: a stream whose loss can fall
+    from ln(VOCAB) toward ln(succ)."""
+    vocab = VOCAB
+    rs = np.random.RandomState(seed)
+    nxt = rs.randint(0, vocab, (vocab, succ))
+    seq = np.empty((n, t + 1), np.int64)
+    seq[:, 0] = rs.randint(0, vocab, n)
+    for i in range(1, t + 1):
+        seq[:, i] = nxt[seq[:, i - 1], rs.randint(0, succ, n)]
+    return seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
+
+
+def _recipe_trainer(dev, b, t, compute_dtype, layers=None,
+                    optimizer="adamw", optimizer_params=None):
+    """The 124M LM ending in ``loss_layout="ce"``, trained with the GPT-3
+    recipe (or ``optimizer``): ``rescale_grad`` 1/(B T) (the clip bounds
+    the mean token's gradient), the cosine schedule over the phase's
+    FIT_EPOCHS x FIT_BATCHES steps, the clip at 1.0, seed 0."""
+    from mxnet_tpu_torch.lr_scheduler import CosineScheduler
+    from mxnet_tpu_torch.models import get_transformer_lm
+    from mxnet_tpu_torch.parallel import ParallelTrainer
+    symbol = get_transformer_lm(VOCAB, num_layers=layers or LAYERS,
+                                embed_dim=EMBED, num_heads=HEADS,
+                                impl="flash", loss_layout="ce")
+    params = dict(GPT3_ADAMW if optimizer_params is None
+                  else optimizer_params)
+    params.setdefault("rescale_grad", 1.0 / (b * t))
+    params.setdefault("lr_scheduler", CosineScheduler(
+        FIT_EPOCHS * FIT_BATCHES, final_lr=6e-5, warmup_steps=FIT_WARMUP))
+    return ParallelTrainer(
+        symbol, {"data": (b, t), "softmax_label": (b, t)},
+        optimizer=optimizer, optimizer_params=params,
+        compute_dtype=compute_dtype, clip_grad_norm=1.0, seed=0,
+        device=dev).init_params()
+
+
+def _param_count(symbol):
+    arg_shapes, _, _ = symbol.infer_shape(data=(1, TRAIN_T),
+                                          softmax_label=(1, TRAIN_T))
+    return sum(int(np.prod(s)) for n, s in zip(symbol.list_arguments(),
+                                               arg_shapes)
+               if n not in ("data", "softmax_label"))
+
+
+def _sizes(*paths):
+    return sum(os.path.getsize(p) for p in paths)
+
+
+def fit_main_path(K, dev):
+    """Phase 5c: the 124M LM trained as users train it, through
+    ``ParallelTrainer(device=None).fit``: each check on its own ``phase
+    5c`` line. Returns the fit's launches."""
+    import shutil
+    t_phase = time.perf_counter()
+    ckdir = os.path.join(HERE, "build", "ckpt5c")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    try:
+        launches, final = fit_run(K, dev, os.path.join(ckdir, "lm"))
+        free_programs()
+        check_fit_resume(dev, os.path.join(ckdir, "lm"), final)
+        del final
+        free_programs()
+        for name in ("adamw", "adafactor", "sgld"):
+            check_capture_with_t(dev, name)
+            free_programs()
+        check_recipe_against_host(dev)
+        check_optimizers_against_host(dev)
+        check_ce_loss_against_host(dev)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log("phase 5c: every check passed in %.1f s" % (
+        time.perf_counter() - t_phase))
+    return launches
+
+
+def fit_run(K, dev, prefix):
+    """The configuration through ``fit``: an ``NDArrayIter`` of
+    FIT_BATCHES Markov batches over FIT_EPOCHS epochs, ``device_metric``
+    on ``metric.Loss()``, a ``Speedometer`` batch callback, and an
+    epoch-end callback saving ``.params`` and ``.states`` (and, after the
+    first epoch, a sharded checkpoint). One warm-up step builds the step
+    program first; the parameters and the optimizer are then set back to
+    their initial values and the counters zeroed. Gates: exact launches (a
+    step: LAYERS of each flash entry, one ``fused_linear`` a
+    FullyConnected -> Activation chain), every epoch's loss finite, the
+    last below the first. Then tokens/s of ``fit`` with
+    ``device_metric=False`` (one more epoch) and of 12 ``step()`` calls;
+    the optimizer update's card time against its bound. Returns (the
+    launches, the flat parameters after the FIT_EPOCHS epochs)."""
+    from mxnet_tpu_torch import callback, metric
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.model import save_checkpoint
+    from mxnet_tpu_torch.ops.fusion import FusionPlan
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = _recipe_trainer(None, TRAIN_B, TRAIN_T, "bfloat16")
+    if trainer.device != dev:
+        raise AssertionError("device=None resolved to %s" % trainer.device)
+    data, label = markov_batches(17, FIT_BATCHES * TRAIN_B, TRAIN_T)
+    first = {"data": data[:TRAIN_B], "softmax_label": label[:TRAIN_B]}
+    init = trainer.get_params()
+    trainer.step(first)
+    trainer.set_params(*init)
+    torch.cuda.synchronize()
+    plan = FusionPlan(trainer.symbol._topo(), trainer.symbol._heads)
+    fc_act = sum(1 for kind, _ in plan.chains.values() if kind == "fc_act")
+    n_params = _param_count(trainer.symbol)
+    log("phase 5c: 124M LM (%d layers, E=%d, %d heads, vocab %d, "
+        "loss_layout=\"ce\", %d parameters), B=%d T=%d bf16 over f32 "
+        "masters; AdamW lr 6e-4 beta2 0.95 wd 0.1, %d warmup steps then "
+        "cosine to 6e-5 over %d, clip 1.0; order-1 Markov data (%d "
+        "successors a token); built and warmed up in %.1f s" % (
+            LAYERS, EMBED, HEADS, VOCAB, n_params, TRAIN_B, TRAIN_T,
+            FIT_WARMUP, FIT_EPOCHS * FIT_BATCHES, MARKOV_SUCC,
+            time.perf_counter() - t0))
+    marks, ckpts, losses = {}, [], []
+
+    def last_batch(param):
+        if param.nbatch == FIT_BATCHES - 1:
+            torch.cuda.synchronize()
+            marks[("end", param.epoch)] = time.perf_counter()
+
+    def on_epoch(epoch, symbol, arg, aux):
+        losses.append(trainer.last_train_metric[1])
+        t1 = time.perf_counter()
+        blob = trainer.get_optimizer_states()
+        t2 = time.perf_counter()
+        save_checkpoint(prefix, epoch + 1, symbol, arg, aux,
+                        optimizer_states=blob)
+        t3 = time.perf_counter()
+        row = dict(epoch=epoch + 1, states_s=t2 - t1, save_s=t3 - t2,
+                   bytes=_sizes("%s-%04d.params" % (prefix, epoch + 1),
+                                "%s-%04d.states" % (prefix, epoch + 1)))
+        if epoch == 0:
+            trainer.save_sharded_checkpoint(prefix + "-sharded")
+            row["sharded_s"] = time.perf_counter() - t3
+            row["sharded_bytes"] = _sizes(prefix + "-sharded-manifest.json",
+                                          prefix + "-sharded-shards-p0.npz")
+        ckpts.append(row)
+        del blob
+        marks[("start", epoch + 1)] = time.perf_counter()
+
+    K.reset_launch_counts()
+    marks[("start", 0)] = time.perf_counter()
+    trainer.fit(NDArrayIter(data, label, batch_size=TRAIN_B),
+                eval_metric=metric.Loss(), num_epoch=FIT_EPOCHS,
+                batch_end_callback=[callback.Speedometer(TRAIN_B, 8),
+                                    last_batch],
+                epoch_end_callback=on_epoch, device_metric=True)
+    launches = _check_launches(K, "phase 5c fit", dict(
+        {e: LAYERS * FIT_EPOCHS * FIT_BATCHES for e in TRAIN_ENTRIES[:3]},
+        fused_linear=fc_act * FIT_EPOCHS * FIT_BATCHES))
+    final = trainer._flat.clone()
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError("phase 5c: the epochs' mean loss did not fall: "
+                             "%r" % losses)
+    tokens = FIT_BATCHES * TRAIN_B * TRAIN_T
+    fit_s = marks[("end", 1)] - marks[("start", 1)]
+    log("phase 5c fit: %d epochs of %d batches, device_metric=True on "
+        "metric.Loss(): epoch mean loss %s (ln %d = %.3f, ln %d = %.3f); "
+        "the second epoch %.3f s = %.1f tokens/s; launches %s (%d "
+        "fused_linear chains in the graph); %s" % (
+            FIT_EPOCHS, FIT_BATCHES, " ".join("%.4f" % v for v in losses),
+            VOCAB, math.log(VOCAB), MARKOV_SUCC, math.log(MARKOV_SUCC),
+            fit_s, tokens / fit_s,
+            json.dumps({e: n for e, n in launches.items() if n}), fc_act,
+            card_line()))
+    for row in ckpts:
+        log("phase 5c checkpoint after epoch %d: get_optimizer_states %.3f "
+            "s, save_checkpoint (.params + .states) %.3f s, %d bytes%s" % (
+                row["epoch"], row["states_s"], row["save_s"], row["bytes"],
+                "" if "sharded_s" not in row else
+                "; save_sharded_checkpoint %.3f s, %d bytes" % (
+                    row["sharded_s"], row["sharded_bytes"])))
+    # fit with the metric read on the host every batch: one more epoch
+    marks.clear()
+    t0 = time.perf_counter()
+    trainer.fit(NDArrayIter(data, label, batch_size=TRAIN_B),
+                eval_metric=metric.Loss(), num_epoch=1,
+                batch_end_callback=last_batch, device_metric=False)
+    host_s = marks[("end", 0)] - t0
+    secs = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        trainer.step(first)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    step_tps = TRAIN_B * TRAIN_T / statistics.median(secs)
+    fpt = 6.0 * (LAYERS * 12 * EMBED * EMBED + VOCAB * EMBED) \
+        + 12.0 * LAYERS * EMBED * TRAIN_T
+    log("phase 5c tokens/s: fit with device_metric=True %.1f (%.4f of "
+        "step()'s), with device_metric=False %.1f (%.4f); %d timed step() "
+        "calls %.1f (ms per step median %.3f, min %.3f, max %.3f; phase 5's "
+        "SGD step of the \"reference\" layout %s ms); MFU of step() %.4f "
+        "(%.4g FLOP per token, phase 5's count); memory since the trainer "
+        "was built: %s; %s" % (
+            tokens / fit_s, tokens / fit_s / step_tps, tokens / host_s,
+            tokens / host_s / step_tps, TIMED_STEPS, step_tps,
+            statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
+            "%.3f" % REPORT["sgd_step_ms"] if "sgd_step_ms" in REPORT
+            else "not measured", step_tps * fpt / 989e12, fpt, memory(),
+            card_line()))
+    time_optimizer_update(trainer)
+    profile_train(trainer, first, trace=None, what="phase 5c AdamW train")
+    return launches, final
+
+
+def time_optimizer_update(trainer):
+    """The AdamW update of the trainer's 124M flat parameters alone, over
+    copies of its buffers (``FlatOptState.update``, uncaptured): CUDA
+    events (Timer) and a 2-call profile (card kernel time and kernels a
+    call), beside its bound: it must read w, g, m and v and write w, m
+    and v, 7 x 4 bytes a parameter, over 3.35 TB/s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.parallel.optim import FlatOptState
+    dev = trainer.device
+    flat = trainer._flat.clone()
+    shapes = [trainer.arg_shapes[n] for n in trainer.param_names]
+    state = FlatOptState(trainer.optimizer, trainer.param_names, shapes,
+                         flat)
+    grad = torch.randn(flat.shape, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev) * 1e-4
+    lr = torch.tensor(6e-4, device=dev)
+    t = torch.tensor(10.0, device=dev)
+
+    def update():
+        state.update(flat, grad, lr, t)
+
+    ms = Timer(dev)(update)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            update()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    card = sum(e.self_device_time_total for e in rows) / 2 / 1e3
+    kernels = sum(e.count for e in rows) / 2
+    n = flat.numel()
+    bound, by = bound_ms(28 * n, 0, torch.float32)
+    log("phase 5c AdamW update of %d parameters (FlatOptState.update, "
+        "uncaptured): %.3f ms (CUDA events, median of %d), card kernels "
+        "%.3f ms a call and %.1f kernels a call (2-call profile); bound "
+        "%.3f ms (%s: 28 bytes a parameter over 3.35 TB/s), %.2fx it; "
+        "%s" % (n, ms, TIMING_RUNS, card, kernels, bound, by, ms / bound,
+                card_line()))
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        log("  %-60s %8.3f ms a call  %4d calls" % (
+            e.key[:60], e.self_device_time_total / 2 / 1e3, e.count))
+    REPORT["adamw_update"] = dict(ms=ms, card_ms=card, kernels=kernels,
+                                  bound_ms=bound)
+
+
+def check_fit_resume(dev, prefix, final):
+    """Crash and resume: with the epoch-2 ``.params`` gone (a crash before
+    it was published), ``latest_checkpoint`` finds epoch 1; a fresh
+    trainer loads its ``.params`` and ``.states`` and fits the second
+    epoch; its parameters equal the uninterrupted run's bitwise. The same
+    from the sharded checkpoint through ``resume_sharded_checkpoint``."""
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.model import (latest_checkpoint, load_checkpoint,
+                                       load_optimizer_states)
+    data, label = markov_batches(17, FIT_BATCHES * TRAIN_B, TRAIN_T)
+    os.remove("%s-%04d.params" % (prefix, FIT_EPOCHS))
+    epoch = latest_checkpoint(prefix)
+    if epoch != FIT_EPOCHS - 1:
+        raise AssertionError("latest_checkpoint found %r" % (epoch,))
+    for how in ("whole", "sharded"):
+        t0 = time.perf_counter()
+        tr = _recipe_trainer(dev, TRAIN_B, TRAIN_T, "bfloat16")
+        if how == "whole":
+            _, arg, aux = load_checkpoint(prefix, epoch)
+            tr.init_params(arg, aux)
+            tr.set_optimizer_states(load_optimizer_states(prefix, epoch))
+        elif tr.resume_sharded_checkpoint(prefix + "-sharded") \
+                != FIT_BATCHES:
+            raise AssertionError("resume_sharded_checkpoint: wrong step")
+        t1 = time.perf_counter()
+        tr.fit(NDArrayIter(data, label, batch_size=TRAIN_B),
+               eval_metric=metric.Loss(), num_epoch=1, device_metric=True)
+        torch.cuda.synchronize()
+        if not torch.equal(tr._flat, final):
+            raise AssertionError(
+                "phase 5c %s resume: the parameters after the resumed "
+                "epoch differ from the uninterrupted run's: max |diff| %.3g"
+                % (how, (tr._flat - final).abs().max()))
+        log("phase 5c resume (%s): epoch %d restored in %.3f s, the next "
+            "epoch's parameters equal the uninterrupted run's bitwise (%d "
+            "parameters); %s" % (how, epoch, t1 - t0, final.numel(),
+                                 card_line()))
+        del tr
+        free_programs()
+
+
+def check_capture_with_t(dev, name):
+    """From the same parameters (``set_params``, the generator's state put
+    back), CAPTURE_STEPS captured steps equal as many uncaptured ones
+    (``Program._run_eager``) bitwise, parameters and optimizer state, with
+    the lr and the update count t advancing each run; ``multi_step(batch,
+    3)`` equals 3 ``step()`` calls bitwise. For AdamW also: the captured
+    run differs from one whose t stays at 1 (the gate can fail)."""
+    params = {"adamw": None,
+              "adafactor": dict(learning_rate=1e-2, beta1=0.9, wd=0.1),
+              "sgld": dict(learning_rate=1e-4, wd=0.1)}[name]
+    tr = _recipe_trainer(dev, TRAIN_B, TRAIN_T, "bfloat16", optimizer=name,
+                         optimizer_params=params)
+    data, label = markov_batches(17, TRAIN_B, TRAIN_T)
+    batch = {"data": data, "softmax_label": label}
+    init = tr.get_params()
+    gen0 = tr._gen.get_state()
+    prog = tr._step_program(batch, "step")
+
+    def after(run):
+        tr.set_params(*init)
+        tr._gen.set_state(gen0)
+        run()
+        torch.cuda.synchronize()
+        return [tr._flat.clone()] + [b.clone() for b in tr._state.buffers()]
+
+    def eager(n, frozen=False):
+        for _ in range(n):
+            tr._next_lr()
+            if frozen:
+                tr._tdev.fill_(1.0)
+            prog._run_eager()
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    cap = after(lambda: [tr.step(batch) for _ in range(CAPTURE_STEPS)])
+    eag = after(lambda: eager(CAPTURE_STEPS))
+    if not equal(cap, eag):
+        raise AssertionError(
+            "phase 5c %s: %d captured steps and %d uncaptured ones from the "
+            "same parameters differ: max |diff| %.3g" % (
+                name, CAPTURE_STEPS, CAPTURE_STEPS,
+                max((x - y).abs().max().item() for x, y in zip(cap, eag))))
+    steps = after(lambda: [tr.step(batch) for _ in range(3)])
+    multi = after(lambda: tr.multi_step(batch, 3))
+    if not equal(steps, multi):
+        raise AssertionError("phase 5c %s: multi_step(batch, 3) differs "
+                             "from 3 step() calls" % name)
+    extra = ""
+    if name == "adamw":
+        frozen = after(lambda: eager(CAPTURE_STEPS, frozen=True))
+        diff = (frozen[0] - cap[0]).abs().max().item()
+        if diff == 0:
+            raise AssertionError("phase 5c: a run with t frozen at 1 gives "
+                                 "the same parameters: t is not read")
+        extra = "; t frozen at 1 moves the parameters by up to %.3g" % diff
+    log("phase 5c capture (%s, %d state buffers): %d captured steps equal "
+        "%d uncaptured ones bitwise (parameters and state; lr %s); "
+        "multi_step(batch, 3) equals 3 step() calls bitwise%s; %s" % (
+            name, len(tr._state.buffers()), CAPTURE_STEPS, CAPTURE_STEPS,
+            " ".join("%.3g" % tr.optimizer.lr_scheduler(i + 1)
+                     for i in range(CAPTURE_STEPS)), extra, card_line()))
+
+
+def check_recipe_against_host(dev, b=1, t=128, layers=2):
+    """One f32 step of the recipe (AdamW, the clip, "ce") of a 2-layer LM
+    of the 124M's width at B=1, T=128, on the card and on the host from
+    the same seeded weights: the per-token losses within PROB_REL of their
+    largest, every parameter's delta within DELTA_REL by per-tensor norm
+    (the ReLU-kink rule of phase 5)."""
+    data, label = markov_batches(19, b, t)
+    batch = {"data": data, "softmax_label": label}
+    res = {}
+    for where in (dev, "cpu"):
+        tr = _recipe_trainer(where, b, t, None, layers=layers)
+        before = {n: v.clone() for n, v in tr.params.items()}
+        loss = tr.step(batch)[0].cpu()
+        res[str(where)] = (loss, {n: (tr.params[n] - before[n]).cpu()
+                                  for n in before})
+        del tr
+    (lc, card), (lh, host) = res[str(dev)], res["cpu"]
+    lerr = (lc - lh).abs().max().item() / lh.abs().max().item()
+    rows = _delta_rows(card, host)
+    if not lerr <= PROB_REL or not all(r[0] <= DELTA_REL for r in rows):
+        raise AssertionError(
+            "phase 5c card vs host AdamW step: loss %.3g of its max (gate "
+            "%g); worst deltas (norm, largest element) %s (gate %g)" % (
+                lerr, PROB_REL,
+                ["%s %.3g %.3g" % (n, f, e) for f, e, n in rows[:5]],
+                DELTA_REL))
+    elem = max(rows, key=lambda r: r[1])
+    log("phase 5c card vs host: one f32 AdamW step (clip 1.0, \"ce\") of "
+        "the %d-layer LM at B=%d T=%d; per-token loss max |err| %.3g of its "
+        "max (gate %g); %d parameter deltas agree, worst in norm %s %.3g "
+        "(gate %g), worst element %s %.3g of its largest delta "
+        "(reported)" % (layers, b, t, lerr, PROB_REL, len(rows), rows[0][2],
+                        rows[0][0], DELTA_REL, elem[2], elem[1]))
+
+
+def check_optimizers_against_host(dev, steps=3):
+    """Each optimizer's functional update (the trainers' path: lr and t as
+    0-dim f32 tensors) on a [257, 131] and a [131] weight, ``steps`` steps
+    on the card and on the host from the same values: weights and state
+    leaves within OPT_ATOL + OPT_RTOL |host|. SGLD's noise is each
+    device's own draw, so its noise is taken out first (drawn again from a
+    copy of the generator's state) and the rest compared."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.parallel.optim import make_functional
+    rs = np.random.RandomState(23)
+    shapes = [(257, 131), (131,)]
+    w0 = [rs.randn(*s).astype(np.float32) for s in shapes]
+    gs = [[rs.randn(*s).astype(np.float32) for s in shapes]
+          for _ in range(steps)]
+    worst = []
+    for name, kw in OPTIMIZERS_5C:
+        out = []
+        for where in (dev, torch.device("cpu")):
+            init, update = make_functional(opt_mod.create(name, **kw))
+            ws = [torch.from_numpy(w.copy()).to(where) for w in w0]
+            states = [init(w) for w in ws]
+            gen = torch.Generator(device=where).manual_seed(5)
+            noise = [torch.zeros_like(w) for w in ws]
+            for k, step in enumerate(gs):
+                lr = torch.tensor(0.01 * (k + 1), device=where)
+                if name == "sgld":
+                    replay = torch.Generator(device=where)
+                    replay.set_state(gen.get_state())
+                    for nz, w in zip(noise, ws):
+                        nz += torch.randn(w.shape, generator=replay,
+                                          device=where) * torch.sqrt(lr)
+                update(ws, [torch.from_numpy(g).to(where) for g in step],
+                       states, lr, torch.tensor(float(k + 1), device=where),
+                       gen)
+            out.append([w - nz for w, nz in zip(ws, noise)]
+                       + [leaf for s in states for leaf in s])
+        err = 0.0
+        for got, want in zip(*out):
+            g, w = got.cpu(), want
+            e = (g - w).abs()
+            if not torch.isfinite(g).all() \
+                    or (e > OPT_ATOL + OPT_RTOL * w.abs()).any():
+                raise AssertionError(
+                    "phase 5c %s functional update, card vs host: max "
+                    "|err| %.3g (atol %g, rtol %g)" % (
+                        name, e.max().item(), OPT_ATOL, OPT_RTOL))
+            err = max(err, e.max().item())
+        worst.append("%s %.3g" % (name, err))
+    log("phase 5c optimizers card vs host: %d functional steps at [257, "
+        "131] and [131], weights and state leaves within atol %g rtol %g; "
+        "max |err| %s" % (steps, OPT_ATOL, OPT_RTOL, ", ".join(worst)))
+
+
+def check_ce_loss_against_host(dev):
+    """``SoftmaxCELoss`` on the 124M LM's [B T, V] = [8192, 32000] bf16
+    logits: the f32 loss and the bf16 gradient on the card against the
+    same op on the host, at phase 3's tolerances for their dtypes; the
+    forward's and the backward's card time (CUDA events) beside the
+    bytes they must move (the forward reads the logits; the backward reads
+    them and writes the gradient)."""
+    from mxnet_tpu_torch.ops import registry as reg
+    spec = reg.get("SoftmaxCELoss")
+    p = spec.parse_params({})
+    gen = torch.Generator(device=dev).manual_seed(29)
+    logits = (torch.randn((TRAIN_B * TRAIN_T, VOCAB), generator=gen,
+                          device=dev) * 2).to(torch.bfloat16)
+    labels = torch.randint(0, VOCAB, (TRAIN_B * TRAIN_T,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    res = []
+    for x, lab in ((logits, labels), (logits.cpu(), labels.cpu())):
+        d = x.detach().requires_grad_(True)
+        out = spec.forward(p, [d, lab], [], True, None)[0][0]
+        out.backward(torch.ones_like(out))
+        res.append((out.detach().cpu(), d.grad.cpu()))
+    (card_loss, card_grad), (host_loss, host_grad) = res
+    e_loss = compare("SoftmaxCELoss loss", card_loss, host_loss)
+    e_grad = compare("SoftmaxCELoss grad", card_grad, host_grad)
+    timer = Timer(dev)
+    d = logits.detach().requires_grad_(True)
+    fwd_ms = timer(lambda: spec.forward(p, [d, labels], [], True, None))
+    out = spec.forward(p, [d, labels], [], True, None)[0][0]
+    ones = torch.ones_like(out)
+    bwd_ms = timer(lambda: torch.autograd.grad(out, d, ones,
+                                               retain_graph=True))
+    fb, _ = bound_ms(nbytes(logits, labels, out), 0, torch.bfloat16)
+    bb, _ = bound_ms(2 * nbytes(logits) + nbytes(labels), 0, torch.bfloat16)
+    log("phase 5c SoftmaxCELoss [%d, %d] bf16, card vs host: loss max |err| "
+        "%.3g (f32), gradient max |err| %.3g (bf16); forward %.4f ms (bound "
+        "%.4f, bytes), backward %.4f ms (bound %.4f, bytes); %s" % (
+            TRAIN_B * TRAIN_T, VOCAB, e_loss, e_grad, fwd_ms, fb, bwd_ms, bb,
+            card_line()))
 
 
 # -- phase 6: the conv-net path: ResNet-50 -------------------------------------
@@ -6449,6 +7006,51 @@ def check_sp_against_flash(dev, b=1, t=1024):
             elem[1], ref[0][2], ref[0][0], ref_elem[2], ref_elem[1]))
 
 
+def check_sp_resume(dev, b=1, t=1024, before=3, after=2):
+    """The SP trainer of phase 7 at B=1, T=1024: ``before`` steps,
+    ``save_sharded_checkpoint``, ``after`` more; a fresh trainer restores
+    the checkpoint and takes the same ``after`` steps: its parameters and
+    momentum equal the uninterrupted run's bitwise."""
+    import shutil
+    ckdir = os.path.join(HERE, "build", "ckpt7")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    prefix = os.path.join(ckdir, "sp")
+    try:
+        batch = _train_batch(31, b, t)
+        tr = _sp_trainer(dev, b, t)
+        for _ in range(before):
+            tr.step(batch)
+        t0 = time.perf_counter()
+        tr.save_sharded_checkpoint(prefix)
+        save_s = time.perf_counter() - t0
+        want = [tr.step(batch).item() for _ in range(after)]
+        flat, state = tr._flat.clone(), [x.clone()
+                                         for x in tr._state.buffers()]
+        del tr
+        fresh = _sp_trainer(dev, b, t)
+        t0 = time.perf_counter()
+        fresh.restore_sharded_checkpoint(prefix)
+        load_s = time.perf_counter() - t0
+        got = [fresh.step(batch).item() for _ in range(after)]
+        torch.cuda.synchronize()
+        if got != want or not torch.equal(fresh._flat, flat) or not all(
+                torch.equal(x, y)
+                for x, y in zip(fresh._state.buffers(), state)):
+            raise AssertionError(
+                "sp resume: the restored trainer's next %d steps differ from "
+                "the uninterrupted run's: losses %r against %r, max |diff| "
+                "%.3g" % (after, got, want,
+                          (fresh._flat - flat).abs().max().item()))
+        log("sp resume: %d steps at B=%d T=%d, save_sharded_checkpoint %.3f "
+            "s, restore %.3f s; the next %d steps' losses %s and the "
+            "parameters and momentum equal the uninterrupted run's bitwise; "
+            "%s" % (before, b, t, save_s, load_s, after,
+                    " ".join("%.5f" % v for v in got), card_line()))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
 # -- main -------------------------------------------------------------------
 
 def ptxas_summary(K, name, rows=None):
@@ -6564,6 +7166,8 @@ def main():
         launches[e] += n
         moe[e] = moe.get(e, 0) + n
     free_programs()
+    fit = fit_main_path(K, dev)
+    free_programs()
     launches.update(train_resnet(K, dev))
     free_programs()
     launches.update(eval_resnet(K, dev))
@@ -6573,6 +7177,7 @@ def main():
     launches.update({e: n for e, n in sp_main_path(K, dev).items()
                      if e in SP_ENTRIES})
     check_sp_against_flash(dev)
+    check_sp_resume(dev)
     replaces = {
         "paged_attention": 1115, "paged_attention_chunk": 1115,
         "paged_attention_decode": 1115,
@@ -6601,7 +7206,7 @@ def main():
         ms=timed[e]["ms"], plain_ms=timed[e]["plain_ms"],
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
-        moe_launches=moe.get(e, 0),
+        moe_launches=moe.get(e, 0), fit_launches=fit.get(e, 0),
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",
                                     "int8", "c4", "c5", "m160", "moe")

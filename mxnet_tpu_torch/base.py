@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "DTYPE_TORCH_TO_MX", "DTYPE_MX_TO_TORCH",
-           "torch_dtype", "later_slice", "refuse_unported"]
+           "torch_dtype", "later_slice"]
 
 
 class MXNetError(Exception):
@@ -23,15 +23,6 @@ def later_slice(owner, what):
     """The error for a feature of the JAX package the port has not yet."""
     return MXNetError("%s: %s belongs to a later slice of the PyTorch port"
                       % (owner, what))
-
-
-def refuse_unported(owner, **params):
-    """Raise :func:`later_slice` for the first of ``params`` (``name=(value,
-    default)``, a parameter the port accepts where the JAX package has it
-    but does not implement) that is set to anything but its default."""
-    for name, (value, default) in params.items():
-        if value is not None if default is None else value != default:
-            raise later_slice(owner, "%s=%r" % (name, value))
 
 
 # the .params type flags by torch dtype (numpy arrays travel as tensors:

@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/initializer.py`` (the reference's
 ``python/mxnet/initializer.py``): dispatch on the parameter's name
 (``*_bias`` -> 0, ``*_gamma`` -> 1, ``*_beta`` -> 0, ``*_weight`` and
 ``*embed`` (e.g. ``pos_embed``) -> the weight draw, ``*_moving_mean`` ->
-0, ``*_moving_var`` -> 1, ...), with ``Uniform``, ``Normal`` and
-``Xavier`` draws. An initializer fills a torch tensor in place,
+0, ``*_moving_var`` -> 1, ...), with ``Uniform``, ``Normal``, ``Xavier``,
+``MSRAPrelu`` and ``Orthogonal`` draws; ``Load`` (from a parameter dict or
+a ``.params`` file) and ``Mixed`` (by name pattern) compose them. An initializer fills a torch tensor in place,
 ``init(name, tensor, generator)``; the draws come from the explicit
 ``torch.Generator`` on the host, then are copied to the tensor's device,
 so one seed gives the same weights on every device. They are not the JAX
@@ -14,11 +15,13 @@ package's draws: tests carry weights across as numpy arrays instead.
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Uniform", "Normal", "Xavier"]
+__all__ = ["Initializer", "Load", "Mixed", "Uniform", "Normal",
+           "Orthogonal", "Xavier", "MSRAPrelu"]
 
 
 class Initializer:
@@ -86,6 +89,61 @@ class Initializer:
         arr.copy_(draw.to(arr.dtype))
 
 
+class Load:
+    """Initialize from a parameter dict (or a ``.params`` file; ``arg:``
+    and ``aux:`` prefixes are dropped), falling back to ``default_init``
+    for the names it lacks."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .ndarray import load
+            param = load(param)
+        self.param = {}
+        for name, arr in param.items():
+            if name.startswith("arg:") or name.startswith("aux:"):
+                name = name[4:]
+            self.param[name] = arr
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr, generator=None):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(arr.shape) != tuple(np.shape(src)):
+                raise ValueError(
+                    "Parameter %s cannot be initialized from loading. "
+                    "Shape mismatch, target %s vs loaded %s"
+                    % (name, tuple(arr.shape), tuple(np.shape(src))))
+            with torch.no_grad():
+                arr.copy_(torch.as_tensor(np.asarray(src))
+                          if not isinstance(src, torch.Tensor) else src)
+        else:
+            if self.default_init is None:
+                raise ValueError(
+                    "Cannot Initialize %s. Not found in loaded param and "
+                    "no default Initializer is provided." % name)
+            self.default_init(name, arr, generator)
+
+
+class Mixed:
+    """Initialize each parameter with the first initializer whose regex
+    pattern matches its name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("Mixed needs one initializer a pattern")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr, generator=None):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr, generator)
+                return
+        raise ValueError("Parameter name %s did not match any pattern."
+                         % name)
+
+
 class Uniform(Initializer):
     """Uniform draw on [-scale, scale]."""
 
@@ -106,6 +164,29 @@ class Normal(Initializer):
 
     def _init_weight(self, _, arr, gen):
         self._fill(arr, torch.randn(arr.shape, generator=gen) * self.sigma)
+
+
+class Orthogonal(Initializer):
+    """Orthogonal init (Saxe et al. 2013): the weight's [out, in] matrix
+    is ``scale`` times the orthonormal factor of an SVD of a uniform
+    (``rand_type="uniform"``) or gaussian draw."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr, gen):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = torch.rand((nout, nin), generator=gen,
+                             dtype=torch.float64) * 2.0 - 1.0
+        else:
+            tmp = torch.randn((nout, nin), generator=gen,
+                              dtype=torch.float64)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        self._fill(arr, (self.scale * res).reshape(arr.shape))
 
 
 class Xavier(Initializer):
@@ -136,3 +217,12 @@ class Xavier(Initializer):
         else:
             draw = torch.randn(arr.shape, generator=gen) * scale
         self._fill(arr, draw)
+
+
+class MSRAPrelu(Xavier):
+    """MSRA init for PReLU nets (He et al. 2015): a gaussian Xavier draw of
+    magnitude ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)

@@ -2,14 +2,18 @@
 
 Counterpart of ``mxnet_tpu/lr_scheduler.py`` (the reference's
 ``python/mxnet/lr_scheduler.py``): ``FactorScheduler`` (lr *= factor every
-``step`` updates) and ``MultiFactorScheduler`` (at each step of a list).
-Schedulers are called with the global update count.
+``step`` updates), ``MultiFactorScheduler`` (at each step of a list),
+``CosineScheduler`` (linear warmup, then cosine decay) and
+``PolyScheduler`` (polynomial decay). Schedulers are called with the
+global update count.
 """
 from __future__ import annotations
 
 import logging
+import math
 
-__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler"]
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+           "CosineScheduler", "PolyScheduler"]
 
 
 class LRScheduler:
@@ -78,3 +82,49 @@ class MultiFactorScheduler(LRScheduler):
             else:
                 return self.base_lr
         return self.base_lr
+
+
+class CosineScheduler(LRScheduler):
+    """Cosine decay from base_lr to final_lr over max_update steps, after a
+    linear warmup from warmup_begin_lr over warmup_steps."""
+
+    def __init__(self, max_update, final_lr=0.0, warmup_steps=0,
+                 warmup_begin_lr=0.0):
+        super().__init__()
+        if max_update < 1:
+            raise ValueError("max_update must be >= 1")
+        if warmup_steps >= max_update:
+            raise ValueError("warmup_steps must be < max_update")
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.warmup_steps = warmup_steps
+        self.warmup_begin_lr = warmup_begin_lr
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.warmup_begin_lr + \
+                (self.base_lr - self.warmup_begin_lr) * \
+                num_update / max(self.warmup_steps, 1)
+        t = min(num_update - self.warmup_steps,
+                self.max_update - self.warmup_steps)
+        frac = t / (self.max_update - self.warmup_steps)
+        return self.final_lr + (self.base_lr - self.final_lr) * \
+            0.5 * (1 + math.cos(math.pi * frac))
+
+
+class PolyScheduler(LRScheduler):
+    """Polynomial decay: lr = final_lr + (base_lr - final_lr) * (1 -
+    t/max_update)^power."""
+
+    def __init__(self, max_update, power=2.0, final_lr=0.0):
+        super().__init__()
+        if max_update < 1:
+            raise ValueError("max_update must be >= 1")
+        self.max_update = max_update
+        self.power = power
+        self.final_lr = final_lr
+
+    def __call__(self, num_update):
+        t = min(num_update, self.max_update)
+        return self.final_lr + (self.base_lr - self.final_lr) * \
+            (1.0 - t / self.max_update) ** self.power

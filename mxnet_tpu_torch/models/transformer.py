@@ -83,7 +83,10 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
     """Decoder-only LM: Embedding -> N blocks -> FC head -> per-position
     softmax over the vocab. ``loss_layout`` "reference" swaps the
     [B,T,V] logits to [B,V,T] for the multi_output SoftmaxOutput; "flat"
-    reshapes them to [B*T,V]. ``pos_encoding`` "learned" adds the
+    reshapes them to [B*T,V]; "ce" ends the flat logits in the fused
+    ``SoftmaxCELoss`` head, whose output is the per-token loss [B*T] (f32;
+    the probabilities are never formed, and the parameter updates are the
+    other layouts'). ``pos_encoding`` "learned" adds the
     ``pos_embed`` table, "rope" rotates q/k in every attention.
     ``num_kv_heads`` is grouped-query attention, ``window`` sliding-window
     attention (0 = unlimited). ``num_experts`` builds every block with
@@ -98,9 +101,9 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
     if pos_encoding not in ("learned", "rope"):
         raise ValueError("pos_encoding must be 'learned' or 'rope', "
                          "got %r" % (pos_encoding,))
-    if loss_layout not in ("reference", "flat"):
-        raise ValueError("loss_layout must be 'reference' or 'flat' in "
-                         "the PyTorch port, got %r" % (loss_layout,))
+    if loss_layout not in ("reference", "flat", "ce"):
+        raise ValueError("loss_layout must be 'reference', 'flat' or "
+                         "'ce', got %r" % (loss_layout,))
     if ffn_hidden is None:
         ffn_hidden = 4 * embed_dim
     data = sym.Variable("data")  # [B, T] int tokens
@@ -128,12 +131,15 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
     ln_f = _ln(net, "lnf")
     logits = sym.FullyConnected(data=ln_f, num_hidden=vocab_size,
                                 name="lm_head", flatten=False)
-    if loss_layout == "flat":
+    if loss_layout in ("flat", "ce"):
         flat = sym.Reshape(data=logits, shape=(-1, vocab_size),
                            name="logits_flat")
         flat_label = sym.Reshape(
             data=sym.Variable("softmax_label"), shape=(-1,),
             name="label_flat")
+        if loss_layout == "ce":
+            return sym.SoftmaxCELoss(data=flat, label=flat_label,
+                                     name="softmax")
         return sym.SoftmaxOutput(data=flat, label=flat_label,
                                  name="softmax")
     logits_t = sym.SwapAxis(data=logits, dim1=1, dim2=2, name="logits_t")

@@ -1,12 +1,13 @@
 """Output (loss) operators.
 
-Counterpart of ``SoftmaxOutput`` in ``mxnet_tpu/ops/loss.py`` (l.43),
-after the reference's ``softmax_output-inl.h``. The reference's loss
+Counterpart of ``SoftmaxOutput`` (l.43, after the reference's
+``softmax_output-inl.h``) and ``SoftmaxCELoss`` (l.140-200) in
+``mxnet_tpu/ops/loss.py``. The reference's loss
 contract is kept: a loss layer IGNORES the incoming head gradient (so a
 backward with no head gradients, or with ones, "just works") and its
 gradient is SUMMED over the batch — the optimizer's ``rescale_grad``
-handles 1/batch. It is a ``torch.autograd.Function``, so the rest of the
-graph differentiates through plain autograd. The decoder strips the loss
+handles 1/batch. Each is a ``torch.autograd.Function``, so the rest of
+the graph differentiates through plain autograd. The decoder strips the loss
 head (``parallel.decode._logits_symbol``).
 """
 from __future__ import annotations
@@ -85,4 +86,79 @@ class SoftmaxOutput(OpSpec):
         axis = 1 if p["multi_output"] else data.dim() - 1
         ignore = p["ignore_label"] if p["use_ignore"] else None
         return [_SoftmaxOutputFn.apply(data, label, axis, p["grad_scale"],
+                                       ignore)], []
+
+
+class _SoftmaxCELossFn(torch.autograd.Function):
+    """The per-row loss ``lse(z) - z[label]`` over the last axis, in f32,
+    labels clipped to [0, classes), zero where ``label == ignore`` (when
+    ``ignore`` is not None). The forward never forms the probabilities;
+    the residual is the LOGITS, and the backward forms ``(softmax(z) -
+    onehot(label)) * grad_scale`` once, in f32 (no one-hot entry for a
+    label outside [0, classes), as ``jax.nn.one_hot`` gives none), zeroed
+    at ignored rows, whatever the head gradient: ``SoftmaxOutput``'s
+    gradient, so training through either head updates the parameters
+    alike. No gradient reaches the label."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore):
+        nclass = data.shape[-1]
+        z = data.float()
+        idx = label.detach().long().clamp(0, nclass - 1)
+        loss = torch.logsumexp(z, dim=-1) \
+            - z.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+        if ignore is not None:
+            loss = torch.where(label == ignore, torch.zeros_like(loss),
+                               loss)
+        ctx.save_for_backward(data, label)
+        ctx.cfg = (grad_scale, ignore)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        del g  # reference loss layers ignore head gradients
+        data, label = ctx.saved_tensors
+        grad_scale, ignore = ctx.cfg
+        nclass = data.shape[-1]
+        grad = torch.softmax(data.float(), dim=-1)
+        idx = label.detach().long()
+        hit = ((idx >= 0) & (idx < nclass)).to(grad.dtype)
+        grad.scatter_add_(-1, idx.clamp(0, nclass - 1).unsqueeze(-1),
+                          -hit.unsqueeze(-1))
+        if grad_scale != 1.0:
+            grad.mul_(grad_scale)
+        if ignore is not None:
+            grad.mul_((label != ignore).to(grad.dtype).unsqueeze(-1))
+        return grad.to(data.dtype), None, None, None
+
+
+@register
+class SoftmaxCELoss(OpSpec):
+    """Fused softmax + cross-entropy loss head: the per-example loss out
+    (f32, the class axis reduced away); the vocab-sized probability
+    tensor is never an output."""
+
+    name = "SoftmaxCELoss"
+    params = {"grad_scale": Param("float", 1.0),
+              "ignore_label": Param("float", -1.0),
+              "use_ignore": Param("bool", False)}
+
+    def arguments(self, p):
+        return ["data", "label"]
+
+    def integer_arguments(self, p):
+        return ("label",)  # class ids — bf16 casts would corrupt >256
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            return list(in_shapes), [None], []
+        lshape = tuple(d[:-1])
+        ins = [d, shape_assign(in_shapes[1], lshape, "SoftmaxCELoss label")]
+        return ins, [lshape], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        data, label = ins
+        ignore = p["ignore_label"] if p["use_ignore"] else None
+        return [_SoftmaxCELossFn.apply(data, label, p["grad_scale"],
                                        ignore)], []

@@ -1,0 +1,174 @@
+"""Sharded checkpoints of the trainers' state.
+
+Counterpart of ``mxnet_tpu/parallel/checkpoint.py``, with its files:
+
+    prefix-manifest.json          the step, the process count, each
+                                  array's global shape, dtype and spec
+    prefix-shards-p{R}.npz        process R's shards, keyed
+                                  ``name|start:stop,...`` by the slice of
+                                  the global array each holds
+
+and its names: the parameters by name, the optimizer state's leaves as
+``opt/<param>/<i>`` (the JAX package's tree order) and the aux states as
+``aux/<name>``. A checkpoint written by either package loads in the
+other. The port's trainers hold every array whole in one process, so one
+process writes everything: each array once, as one shard covering it,
+with a replicated spec (which the JAX package's ``load_sharded`` places
+on any mesh). Loading assembles each global array from whatever shards
+the files hold, the JAX package's per-device slices included.
+
+Every file lands through ``tmp`` + ``os.replace``, and the manifest,
+written last, is the completeness marker: :func:`latest_step` returns a
+step only when the manifest and every shard file it names exist.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["save_sharded", "load_sharded", "latest_step",
+           "flatten_train_state", "restore_opt_state"]
+
+
+def _index_key(shape):
+    """The key of a shard covering the whole of an array of ``shape``."""
+    return ",".join("0:%d" % d for d in shape)
+
+
+def _snapshot(params, step, extra):
+    """Host copies of ``params`` (later steps update the device values in
+    place, so this part cannot wait) and the manifest."""
+    blobs = {}
+    manifest = {"step": int(step), "nprocs": 1, "params": {},
+                "extra": extra or {}}
+    for name, arr in params.items():
+        host = arr.detach().to("cpu", copy=True).numpy() \
+            if isinstance(arr, torch.Tensor) else np.array(arr)
+        manifest["params"][name] = {"global_shape": list(host.shape),
+                                    "dtype": str(host.dtype), "spec": []}
+        blobs["%s|%s" % (name, _index_key(host.shape))] = host
+    return blobs, manifest
+
+
+def _write(prefix, blobs, manifest):
+    tmp = "%s-shards-p0.tmp.npz" % prefix  # np.savez wants the suffix
+    np.savez(tmp, **blobs)
+    os.replace(tmp, "%s-shards-p0.npz" % prefix)
+    mtmp = "%s-manifest.json.tmp" % prefix
+    with open(mtmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(mtmp, "%s-manifest.json" % prefix)
+
+
+def save_sharded(prefix, params, step=0, extra=None, async_write=False):
+    """Write every array of ``params`` (a flat name -> tensor dict).
+    ``async_write=True`` takes the host snapshot now and writes the files
+    on a background thread. Returns ``finalize``, a 0-arg callable that
+    joins the writer and raises its error (a no-op when synchronous);
+    call it before restoring or exiting."""
+    blobs, manifest = _snapshot(params, step, extra)
+    if not async_write:
+        _write(prefix, blobs, manifest)
+        return lambda: None
+    err = []
+
+    def run():
+        try:
+            _write(prefix, blobs, manifest)
+        except BaseException as e:  # raised at finalize()
+            err.append(e)
+
+    t = threading.Thread(target=run, daemon=True,
+                         name="sharded-ckpt-writer")
+    t.start()
+
+    def finalize():
+        t.join()
+        if err:
+            raise err[0]
+    return finalize
+
+
+def latest_step(prefix):
+    """The step of the checkpoint at ``prefix`` if it is complete (a
+    readable manifest and every shard file it names), else None."""
+    try:
+        with open("%s-manifest.json" % prefix) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError):
+        return None
+    step, nprocs = manifest.get("step"), manifest.get("nprocs")
+    if step is None or nprocs is None:
+        return None
+    for r in range(nprocs):
+        if not os.path.exists("%s-shards-p%d.npz" % (prefix, r)):
+            return None
+    return step
+
+
+def _slices(key):
+    return tuple(slice(*map(int, part.split(":")))
+                 for part in key.split(",")) if key else ()
+
+
+def load_sharded(prefix, mesh=None, param_specs=None):
+    """Reassemble the global arrays from the files of the manifest's
+    processes. Returns (params as CPU tensors, step, extra). ``mesh`` and
+    ``param_specs`` are the JAX package's placement arguments: the port's
+    trainers place the arrays themselves, so they are not read."""
+    with open("%s-manifest.json" % prefix) as f:
+        manifest = json.load(f)
+    out = {}
+    filled = {}
+    for name, meta in manifest["params"].items():
+        out[name] = np.empty(tuple(meta["global_shape"]),
+                             dtype=np.dtype(meta["dtype"]))
+        filled[name] = np.zeros(out[name].shape, dtype=bool)
+    for r in range(manifest["nprocs"]):
+        with np.load("%s-shards-p%d.npz" % (prefix, r)) as blobs:
+            for key in blobs.files:
+                name, idx = key.rsplit("|", 1)
+                if name not in out:
+                    continue
+                sl = _slices(idx)
+                out[name][sl] = blobs[key]
+                filled[name][sl] = True
+    for name, mask in filled.items():
+        if not mask.all():
+            raise MXNetError("load_sharded: the shards of %r cover %d of "
+                             "its %d elements" % (name, int(mask.sum()),
+                                                  mask.size))
+    return ({n: torch.from_numpy(v) for n, v in out.items()},
+            manifest["step"], manifest.get("extra", {}))
+
+
+def flatten_train_state(params, opt_state, aux_names=(), aux=()):
+    """One flat name -> tensor dict of the parameters, the optimizer
+    state's leaves (``opt/<param>/<i>``, ``opt_state[param]`` a sequence
+    of leaves in the JAX package's order) and the aux states
+    (``aux/<name>``)."""
+    flat = dict(params)
+    for name, leaves in opt_state.items():
+        for i, leaf in enumerate(leaves):
+            flat["opt/%s/%d" % (name, i)] = leaf
+    for name, a in zip(aux_names, aux):
+        flat["aux/%s" % name] = a
+    return flat
+
+
+def restore_opt_state(flat, params, opt_init):
+    """``{param: [leaf, ...]}`` from a flat dict: each parameter's number
+    of leaves is what ``opt_init`` makes for it (run on a shape-only
+    tensor, so no trainer state is needed)."""
+    out = {}
+    for name, param in params.items():
+        template = opt_init(torch.empty(tuple(param.shape), device="meta"))
+        out[name] = [flat["opt/%s/%d" % (name, i)]
+                     for i in range(len(template))]
+    return out

@@ -71,7 +71,7 @@ _POSITIONWISE = {
     "_MulScalar", "_DivScalar", "_RMinusScalar", "_RDivScalar",
 }
 _TEMPORAL = {"MultiHeadAttention", "PositionalEmbedding"}
-_LOSS_HEADS = {"SoftmaxOutput"}
+_LOSS_HEADS = {"SoftmaxOutput", "SoftmaxCELoss"}
 # what a fresh cache buffer holds, by its rank: ring positions ([B, W]) -1
 # (never written), int8 row scales ([B, L, H]) one, K/V zero
 CACHE_FILL = {2: -1, 3: 1, 4: 0}

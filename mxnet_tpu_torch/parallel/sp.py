@@ -14,10 +14,15 @@ runs the step under ``shard_map``; here one process drives every rank
 * a sequence-sharded parameter (``pos_embed``, ``P("sp", None)``) is
   sliced per rank, so its rows get only their own ranks' gradients, the
   ``psum`` over ``dp`` alone;
-* the optimizer updates the one f32 copy, on the first rank's device.
+* the optimizer updates the one f32 copy, on the first rank's device,
+  its state laid out by ``parallel.optim.FlatOptState`` (any optimizer of
+  ``optimizer.py``).
 
 Dropout draws from one ``torch.Generator`` per rank, the stand-in for the
-``fold_in(dp, sp)`` streams: the draws are the port's own, not JAX's.
+``fold_in(dp, sp)`` streams, and SGLD's noise from one more: the draws are
+the port's own, not JAX's. Sharded checkpoints (``parallel.checkpoint``)
+hold the parameters, the optimizer state, the step and the generators'
+states.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from ..base import MXNetError
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
 from .graph import make_spmd_graph_fn
-from .optim import make_functional
+from .optim import FlatOptState
 from .shard import P
 from .trainer import _as_tensor, _Unflatten
 
@@ -99,7 +104,6 @@ class SequenceParallelTrainer:
             opt_kwargs.setdefault("rescale_grad", 1.0 / (batch * seqlen))
             optimizer = opt_mod.create(optimizer, **opt_kwargs)
         self.optimizer = optimizer
-        self._opt_init, self._opt_update = make_functional(optimizer)
         self._initializer = initializer or Uniform(0.05)
         self._init_gen = torch.Generator().manual_seed(seed)
         self._graph_fn = make_spmd_graph_fn(symbol, mesh)
@@ -114,8 +118,11 @@ class SequenceParallelTrainer:
             s = int(np.random.SeedSequence([seed, dpi, spi]).generate_state(
                 1)[0])
             self._gens.append(torch.Generator(device=dev).manual_seed(s))
+        # SGLD's noise: one draw for the one copy of the parameters
+        self._opt_gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = None
         self.opt_state = None
+        self._state = None
         self._t = 0
 
     # -- sharding helpers ------------------------------------------------
@@ -167,10 +174,9 @@ class SequenceParallelTrainer:
             vals.append(val.reshape(-1))
         self._flat = torch.cat(vals).to(self.device)
         self.params = self._views(self._flat)
-        self._flat_state = self._opt_init(self._flat)
-        self.opt_state = self._views(self._flat_state) \
-            if isinstance(self._flat_state, torch.Tensor) \
-            else dict.fromkeys(self.param_names, self._flat_state)
+        self._state = FlatOptState(self.optimizer, self.param_names,
+                                   self._shapes(), self._flat)
+        self.opt_state = self._state.by_name()
         self._t = 0
         return self
 
@@ -226,8 +232,8 @@ class SequenceParallelTrainer:
         torch.autograd.backward(flat_outs,
                                 [torch.ones_like(o) for o in flat_outs])
         grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
-        self._opt_update([self._flat], [grad], [self._flat_state], lr,
-                         self._t)
+        self._state.update(self._flat, grad, lr, float(self._t),
+                           self._opt_gen)
         # global mean NLL per token (for logging): outs[r][0] is rank r's
         # [B_l, V, T_l] multi_output softmax
         with torch.no_grad():
@@ -242,15 +248,34 @@ class SequenceParallelTrainer:
         return {n: v.detach().to("cpu", copy=True)
                 for n, v in self.params.items()}
 
-    # -- sharded (per-process) checkpointing ---------------------------
+    # -- sharded checkpoints --------------------------------------------
+    def _generators(self):
+        return self._gens + [self._opt_gen]
+
     def save_sharded_checkpoint(self, prefix, step=None, async_write=False):
-        raise _no_checkpoints()
+        """Write the parameters, the optimizer state and the generators'
+        states as ``parallel.checkpoint`` files at ``prefix`` (step: the
+        update count unless given). ``async_write=True`` writes on a
+        thread; returns ``finalize()``, which joins it."""
+        from .checkpoint import save_sharded, flatten_train_state
+        flat = flatten_train_state(self.params, self._state.by_name())
+        flat.update({"rng/%d" % i: g.get_state()
+                     for i, g in enumerate(self._generators())})
+        return save_sharded(prefix, flat,
+                            step=self._t if step is None else step,
+                            async_write=async_write)
 
     def restore_sharded_checkpoint(self, prefix):
-        raise _no_checkpoints()
-
-
-def _no_checkpoints():
-    return MXNetError("SequenceParallelTrainer: sharded checkpoints "
-                      "(parallel/checkpoint.py) belong to a later slice of "
-                      "the PyTorch port")
+        """Restore the parameters, the optimizer state, the step count and
+        the generators from ``prefix``; works on a fresh trainer."""
+        from .checkpoint import load_sharded, restore_opt_state
+        flat, step, _ = load_sharded(prefix)
+        self.init_params({n: flat[n] for n in self.param_names})
+        self._state.load(restore_opt_state(flat, self.params,
+                                           self._state.init_fn),
+                         "restore_sharded_checkpoint")
+        for i, g in enumerate(self._generators()):
+            if "rng/%d" % i in flat:
+                g.set_state(flat["rng/%d" % i])
+        self._t = int(step)
+        return self

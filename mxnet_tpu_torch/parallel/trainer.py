@@ -6,17 +6,30 @@ walk of ``make_graph_fn``, with the ``fused_linear``, ``flash_attention``
 and, for conv nets, ``matmul_stats`` kernels on the card), the backward
 (torch autograd, which reaches the kernels' backward through their
 ``autograd.Function``s), the gradient sum over microbatches, the
-global-norm clip and the optimizer update. As the JAX package compiles
-all of that into one program, the port runs it as one
+global-norm clip and the optimizer update (any optimizer of
+``optimizer.py``, through ``parallel.optim.FlatOptState``). As the JAX
+package compiles all of that into one program, the port runs it as one
 ``parallel.program.Program``: captured once as a CUDA graph on the card
 and replayed at every step, run as the same function over the same
 buffers on the CPU. The batch is copied into the program's input
 buffers; the flat parameters, the optimizer state and the aux states are
-updated in place and never rebound (``set_params`` copies into them, so
-it builds no new program); the learning rate is a device scalar the host
-sets before each run; the dropout generator is registered with the graph.
-``multi_step`` runs the same program ``num_steps`` times over one copy of
-the batch. No switch turns capture off.
+updated in place and never rebound (``set_params`` and
+``set_optimizer_states`` copy into them, so they build no new program);
+the learning rate and the update count ``t`` are device scalars the host
+sets before each run; the generator of dropout and SGLD's noise is
+registered with the graph. ``multi_step`` runs the same program
+``num_steps`` times over one copy of the batch. No switch turns capture
+off.
+
+Around the step: ``fit`` (the epoch loop over a ``DataIter`` with
+metrics, on the host or accumulated on the device, callbacks and eval
+data), ``prefetch`` and ``staged_batches`` (the batches copied to the
+device ahead of their steps), ``get_``/``set_optimizer_states`` (the JAX
+package's blob) and the sharded checkpoints of ``parallel.checkpoint``,
+and the JAX package's telemetry: ``train.steps``, ``train.step_ms``,
+``train.input_wait_ms``, ``train.device_wait_ms``, ``train.h2d_bytes``,
+``train.compiles`` (a step program built), and the ``train.step`` and
+``train.epoch`` spans.
 
 Semantics kept from the JAX package:
 
@@ -39,26 +52,40 @@ Semantics kept from the JAX package:
 * ``MXNET_PALLAS_CONVBN_TRAIN`` is read when the step program is built,
   as the JAX package reads it when it traces the step.
 
-Meshes, sharding rules, ZeRO-1, FSDP, rematerialization, ``prefetch``
-and ``fit`` belong to later slices of the port.
+Meshes, sharding rules, ZeRO-1, FSDP and rematerialization belong to
+later slices of the port.
 """
 from __future__ import annotations
 
+import collections
 import functools
+import itertools
+import logging
+import time
 
 import numpy as np
 import torch
 
 from ..base import MXNetError, later_slice, torch_dtype
 from ..context import resolve_device
+from .. import metric as metric_mod
 from .. import optimizer as opt_mod
+from .. import telemetry as tele
 from ..initializer import Uniform
+from ..io import StagedStream
 from ..ops.fusion import _convbn_train_enabled
 from .graph import make_graph_fn, integer_semantic_inputs
-from .optim import make_functional
+from .optim import FlatOptState
 from .program import Program
 
 __all__ = ["ParallelTrainer"]
+
+_TM_STEPS = tele.counter("train.steps")
+_TM_STEP_MS = tele.histogram("train.step_ms")          # the host's part
+_TM_INPUT_MS = tele.histogram("train.input_wait_ms")   # blocked on input
+_TM_DEVICE_MS = tele.histogram("train.device_wait_ms")  # blocked on device
+_TM_H2D_BYTES = tele.counter("train.h2d_bytes")
+_TM_COMPILES = tele.counter("train.compiles")
 
 _LATER = {
     "mesh": "meshes and sharding (parallel/mesh.py, parallel/shard.py)",
@@ -81,6 +108,38 @@ def _as_tensor(v):
     if hasattr(v, "asnumpy"):
         v = v.asnumpy()
     return torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+
+
+class _StagedBatches:
+    """Depth-k staging of a DataIter for ``fit``: yields ``(data_batch,
+    device_batch)``, batch i+1's copy to the device dispatched (pinned,
+    non-blocking) before batch i is handed out; ends at the iterator's
+    epoch end; ``reset()`` rewinds the iterator and drops staged
+    batches. Over the inline ``io.StagedStream``."""
+
+    def __init__(self, trainer, data, data_names, label_names, depth=2):
+        def place(dbatch):
+            batch = dict(zip(data_names, dbatch.data))
+            batch.update(zip(label_names, dbatch.label))
+            return dbatch, trainer._stage_batch(batch, "staged fit")
+
+        self._stream = StagedStream(data, place=place, depth=depth)
+
+    def reset(self):
+        self._stream.reset()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        # blocked on input: what the loop waits for the next staged batch
+        # (the iterator's host work and the copy's dispatch)
+        t0 = time.perf_counter()
+        out = self._stream.next()
+        dt = time.perf_counter() - t0
+        _TM_INPUT_MS.observe(dt * 1e3)
+        tele.trace_complete("io.input_wait", t0, dt, cat="io")
+        return out
 
 
 class _Unflatten(torch.autograd.Function):
@@ -115,11 +174,11 @@ class ParallelTrainer:
         The JAX package's parameters, in its order; any value but the
         default (or a false one) raises: sharding and rematerialization
         belong to a later slice.
+    optimizer_params : dict, optional
     initializer : Initializer, default ``Uniform(0.01)``
     seed : int, optional
         Seeds the initializer's draws and the training-time draws
-        (dropout); ``None`` draws a seed.
-    optimizer_params : dict, optional
+        (dropout, SGLD's noise); ``None`` draws a seed.
     compute_dtype : optional
         e.g. ``"bfloat16"``: the forward and backward run in it, the
         parameters and the optimizer state stay f32.
@@ -178,7 +237,6 @@ class ParallelTrainer:
             opt_kwargs.setdefault("rescale_grad", 1.0 / batch_size)
             optimizer = opt_mod.create(optimizer, **opt_kwargs)
         self.optimizer = optimizer
-        self._opt_init, self._opt_update = make_functional(optimizer)
 
         self._graph_fn = make_graph_fn(symbol)
         # index-valued inputs (labels, embedding tokens) are exempt from
@@ -188,11 +246,15 @@ class ParallelTrainer:
             if self.compute_dtype is not None else set())
         self.params = None
         self.opt_state = None
+        self._state = None      # FlatOptState, made by init_params
         self.aux = None
         self._t = 0
-        # the step program's learning rate, set by the host before each run
+        # the step program's learning rate and update count (f32, as the
+        # JAX adapters read t), set by the host before each run
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._tdev = torch.zeros((), dtype=torch.float32, device=self.device)
         self._program = None
+        self._h2d_batch_bytes = None
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         self._init_gen = torch.Generator().manual_seed(seed)
@@ -218,33 +280,35 @@ class ParallelTrainer:
         device, and the optimizer state. ``arg_params``/``aux_params``
         map names to numpy arrays, torch tensors or arrays with
         ``asnumpy()`` (e.g. the JAX trainer's ``get_params()``); names
-        they lack are drawn by the initializer.
+        they lack are drawn by the initializer. The optimizer state starts
+        afresh and the step count at 0.
 
         The parameters live in ONE flat f32 buffer, and ``params`` maps
         each name to its view: a step casts the buffer to the compute
-        dtype once, autograd returns one flat gradient, and the optimizer
-        updates the buffer (and a flat state) in a few launches, where a
-        tensor per parameter costs several host calls per parameter."""
+        dtype once, autograd returns one flat gradient, and an elementwise
+        optimizer updates the buffer (and its flat state buffers) in a few
+        launches, where a tensor per parameter costs several host calls
+        per parameter. ``opt_state`` maps each name to its state leaves in
+        the JAX package's order."""
         vals = [self._initial(n, self.arg_shapes[n], arg_params)
                 for n in self.param_names]
         flat = torch.cat([v.reshape(-1) for v in vals]) if vals \
             else torch.zeros(0, device=self.device)
         aux = [self._initial(n, s, aux_params)
                for n, s in zip(self.aux_names, self.aux_shapes)]
-        state = self._opt_init(flat)
         if self.params is None:
-            self._flat, self.aux, self._flat_state = flat, aux, state
+            self._flat, self.aux = flat, aux
             self.params = self._views(self._flat)
-            self.opt_state = self._views(self._flat_state) \
-                if isinstance(self._flat_state, torch.Tensor) \
-                else dict.fromkeys(self.param_names, self._flat_state)
+            self._state = FlatOptState(
+                self.optimizer, self.param_names,
+                [self.arg_shapes[n] for n in self.param_names], self._flat)
+            self.opt_state = self._state.by_name()
         else:
             # into the buffers the step program reads and writes
             self._flat.copy_(flat)
             for a, v in zip(self.aux, aux):
                 a.copy_(v)
-            if isinstance(state, torch.Tensor):
-                self._flat_state.copy_(state)
+            self._state.reset(self._flat)
         self._t = 0
         return self
 
@@ -338,8 +402,7 @@ class ParallelTrainer:
             grad = grad * torch.clamp(self.clip_grad_norm
                                       / torch.clamp(gnorm, min=1e-12),
                                       max=1.0)
-        self._opt_update([self._flat], [grad], [self._flat_state], self._lr,
-                         self._t)
+        self._state.update(self._flat, grad, self._lr, self._tdev, self._gen)
         return outs
 
     def _step_program(self, batch, what):
@@ -355,33 +418,45 @@ class ParallelTrainer:
             inputs = {k: torch.empty(self.input_shapes[k], dtype=v.dtype,
                                      device=self.device)
                       for k, v in vals.items()}
-            state = [self._flat_state] \
-                if isinstance(self._flat_state, torch.Tensor) else []
+            _TM_COMPILES.inc()
+            tele.mark("train.compile", kind="step", shapes=",".join(
+                "%s:%s" % (k, "x".join(map(str, v)))
+                for k, v in sorted(self.input_shapes.items())))
             self._program = Program(
                 functools.partial(self._step_fn, inputs,
                                   _convbn_train_enabled()),
-                inputs, mutable=[self._flat] + state + list(self.aux),
+                inputs, mutable=[self._flat] + self._state.buffers()
+                + list(self.aux),
                 generators=[self._gen] if self.device.type == "cuda"
                 else [], name="ParallelTrainer.step", device=self.device)
         self._program.load(**vals)
         return self._program
 
     def _next_lr(self):
-        """Advance the step count and set the program's learning rate."""
+        """Advance the step count and set the program's learning rate and
+        update count."""
         self._t += 1
         sched = self.optimizer.lr_scheduler
         self._lr.fill_(sched(self._t) if sched is not None
                        else self.optimizer.lr)
+        self._tdev.fill_(float(self._t))
 
     def step(self, batch):
-        """One train step. ``batch``: dict of arrays (numpy or torch)
-        keyed by input name, in the trainer's input shapes. Returns the
-        outputs: copies, which later steps leave as they are."""
+        """One train step. ``batch``: dict of arrays (numpy or torch, on
+        the host or the device) keyed by input name, in the trainer's
+        input shapes. Returns the outputs: copies, which later steps leave
+        as they are."""
         if self.params is None:
             self.init_params()
+        t0 = time.perf_counter()
         prog = self._step_program(batch, "step")
         self._next_lr()
-        return [o.clone() for o in prog.run()]
+        outs = [o.clone() for o in prog.run()]
+        dt = time.perf_counter() - t0
+        _TM_STEPS.inc()
+        _TM_STEP_MS.observe(dt * 1e3)
+        tele.trace_complete("train.step", t0, dt)
+        return outs
 
     def multi_step(self, batch, num_steps):
         """Run ``num_steps`` consecutive train steps on the SAME batch:
@@ -413,8 +488,254 @@ class ParallelTrainer:
         outs, _ = self._graph_fn(vals, list(self.aux), False, self._gen)
         return outs
 
-    def prefetch(self, batches, depth=2):
-        raise _later("prefetch (the device-staged input stream)")
 
-    def fit(self, *args, **kwargs):
-        raise _later("fit (the epoch loop with metrics and callbacks)")
+    # -- input staging ---------------------------------------------------
+    def _stage_batch(self, batch, what):
+        """The batch on the device (``_batch``: host arrays through
+        pinned memory, copies that do not block the host), counted as
+        ``train.h2d_bytes``."""
+        out = self._batch(batch, what)
+        if self._h2d_batch_bytes is None:
+            self._h2d_batch_bytes = sum(v.numel() * v.element_size()
+                                        for v in out.values())
+        _TM_H2D_BYTES.inc(self._h2d_batch_bytes)
+        return out
+
+    def prefetch(self, batches, depth=2):
+        """Yield the batches of ``batches`` (any iterable of host batch
+        dicts) on the device, ``depth`` of them copied ahead, so a batch's
+        copy is queued before the step that precedes it. Use as::
+
+            for dev_batch in trainer.prefetch(host_batches):
+                trainer.step(dev_batch)
+        """
+        it = iter(batches)
+
+        def stage(n):
+            return [self._stage_batch(b, "prefetch")
+                    for b in itertools.islice(it, n)]
+
+        queue = collections.deque(stage(max(1, int(depth))))
+        while queue:
+            ready = queue.popleft()
+            queue.extend(stage(1))
+            yield ready
+
+    def staged_batches(self, data, data_names, label_names, depth=2):
+        """Staging of a DataIter for a train loop: an iterator of
+        ``(data_batch, device_batch)`` with batch i+1's copy dispatched
+        before batch i is handed out (what :meth:`fit` iterates)."""
+        return _StagedBatches(self, data, data_names, label_names,
+                              depth=depth)
+
+    # -- fit ---------------------------------------------------------------
+    @staticmethod
+    def _device_metric_kind(eval_metric):
+        if isinstance(eval_metric, metric_mod.TopKAccuracy):
+            return "topk", eval_metric.top_k
+        if isinstance(eval_metric, metric_mod.Accuracy):
+            return "acc", 1
+        if isinstance(eval_metric, metric_mod.CrossEntropy):
+            return "ce", 1
+        if isinstance(eval_metric, metric_mod.Loss):
+            return "loss", 1
+        raise MXNetError("device_metric=True supports accuracy, top-k "
+                         "accuracy, cross-entropy and loss; got %r"
+                         % (eval_metric.name,))
+
+    @staticmethod
+    @torch.no_grad()
+    def _device_metric_update(acc, kind, top_k, out, label):
+        """Add one batch to the device accumulator ``acc`` = [sum, count]
+        (f32): "acc" argmax matches, "topk" labels within the top-k
+        scores, "ce" summed -log p[label] (the output must be
+        probabilities), "loss" the outputs themselves (label unused,
+        count = the output's size)."""
+        if kind == "loss":
+            acc[0] += out.float().sum()
+            acc[1] += float(out.numel())
+            return
+        lab = label.long()
+        if kind == "acc":
+            hit = (out.argmax(dim=-1) == lab).float().sum()
+        elif kind == "topk":
+            if out.shape[-1] <= int(top_k):
+                raise MXNetError(
+                    "top-k accuracy with k=%d over %d classes is constant "
+                    "1.0 — use a smaller top_k" % (int(top_k),
+                                                   out.shape[-1]))
+            idx = out.topk(int(top_k), dim=-1).indices
+            hit = (idx == lab[..., None]).any(dim=-1).float().sum()
+        else:  # "ce"
+            prob = out.gather(-1, lab.reshape(out.shape[:-1] + (1,)))[..., 0]
+            hit = -torch.log(prob.float().clamp_min(1e-30)).sum()
+        acc[0] += hit
+        acc[1] += float(lab.numel())
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            num_epoch=1, batch_end_callback=None, epoch_end_callback=None,
+            logger=None, device_metric=False):
+        """Epoch loop over a DataIter (``provide_data``/``provide_label``,
+        ``reset``, iteration), FeedForward.fit's protocol on the step
+        program: each batch staged to the device ahead of its step, the
+        metric updated, ``batch_end_callback(BatchEndParam)`` called; at
+        an epoch's end ``epoch_end_callback(epoch, symbol, arg_params,
+        aux_params)`` and the eval pass over ``eval_data`` (``forward()``
+        and the host metric). ``last_train_metric`` holds the last
+        epoch's ``(name, value)``.
+
+        ``device_metric=True`` (accuracy, top-k accuracy, cross-entropy,
+        loss): the metric accumulates on the device, and the host reads it
+        once an epoch, so no step waits for the host; batch-end callbacks
+        see the metric object, whose value appears only at the epoch's
+        end. Without it, the host reads every batch's outputs."""
+        from ..model import BatchEndParam, _run_callbacks
+        if logger is None:
+            logger = logging
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        if device_metric:
+            dm_kind, dm_k = self._device_metric_kind(eval_metric)
+        data_names = [x[0] for x in train_data.provide_data]
+        label_names = [x[0] for x in train_data.provide_label]
+        self.last_train_metric = None
+        staged = self.staged_batches(train_data, data_names, label_names)
+        for epoch in range(num_epoch):
+            staged.reset()
+            eval_metric.reset()
+            acc = torch.zeros(2, dtype=torch.float32, device=self.device) \
+                if device_metric else None
+            tic = time.time()
+            ep_t0 = time.perf_counter()
+            for nbatch, (dbatch, dev_batch) in enumerate(staged):
+                outs = self.step(dev_batch)
+                if device_metric:
+                    label = None if dm_kind == "loss" \
+                        else dev_batch[label_names[0]]
+                    self._device_metric_update(acc, dm_kind, dm_k, outs[0],
+                                               label)
+                    if dm_kind == "ce" and epoch == 0 and nbatch == 0:
+                        # the accumulator takes the output for
+                        # probabilities; a logits output gives garbage.
+                        # One host read of the first row catches that
+                        row = float(outs[0][(0,) * (outs[0].dim() - 1)]
+                                    .double().sum())
+                        if not 0.9 <= row <= 1.1:
+                            logger.warning(
+                                "device_metric cross-entropy expects "
+                                "probability outputs (rows summing to "
+                                "1); the first output row sums to %.4g "
+                                "- the reported CE will be meaningless "
+                                "if the symbol emits raw logits.", row)
+                else:
+                    # the host blocks here until the step is done
+                    fw_t0 = time.perf_counter()
+                    host = [o.cpu() for o in outs]
+                    _TM_DEVICE_MS.observe(
+                        (time.perf_counter() - fw_t0) * 1e3)
+                    eval_metric.update(dbatch.label, host)
+                if batch_end_callback is not None:
+                    _run_callbacks(batch_end_callback, BatchEndParam(
+                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                        locals=locals()))
+            tele.trace_complete("train.epoch", ep_t0,
+                                time.perf_counter() - ep_t0,
+                                args={"epoch": epoch})
+            if device_metric:
+                msum, total = acc.tolist()  # the epoch's one host read
+                name, value = eval_metric.name, msum / max(total, 1.0)
+            else:
+                name, value = eval_metric.get()
+            self.last_train_metric = (name, value)
+            logger.info("Epoch[%d] Train-%s=%f time=%.3f", epoch, name,
+                        value, time.time() - tic)
+            if epoch_end_callback is not None:
+                ap, xp = self.get_params()
+                for cb in (epoch_end_callback
+                           if isinstance(epoch_end_callback, list)
+                           else [epoch_end_callback]):
+                    cb(epoch, self.symbol, ap, xp)
+            if eval_data is not None:
+                eval_metric.reset()
+                eval_data.reset()
+                for dbatch in eval_data:
+                    batch = dict(zip(data_names, dbatch.data))
+                    batch.update(zip(label_names, dbatch.label))
+                    outs = self.forward(batch)
+                    eval_metric.update(dbatch.label, outs)
+                logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                            *eval_metric.get())
+        return self
+
+    # -- optimizer-state blobs ---------------------------------------------
+    def get_optimizer_states(self):
+        """A picklable host snapshot: ``{"step", "opt": {param: [numpy
+        leaves in the JAX package's order]}, "torch_rng": the state of the
+        generator of dropout and SGLD's noise}``. The JAX package's blob
+        keeps its PRNG key under ``"rng"``; the port's generator state
+        goes under a key of its own, which the JAX package does not
+        read."""
+        blob = {"step": int(self._t), "opt": {},
+                "torch_rng": self._gen.get_state().numpy().copy()}
+        for name, leaves in self._state.by_name().items():
+            blob["opt"][name] = [leaf.detach().cpu().numpy().copy()
+                                 for leaf in leaves]
+        return blob
+
+    def set_optimizer_states(self, blob):
+        """Restore a :meth:`get_optimizer_states` snapshot, the port's or
+        the JAX package's (whose ``"rng"`` key is not read), onto the
+        trainer, initializing it first if it has no parameters yet. The
+        leaves are copied into the state buffers the step program
+        holds."""
+        if self.params is None:
+            self.init_params()
+        self._state.load(blob["opt"])
+        self._t = int(blob["step"])
+        if blob.get("torch_rng") is not None:
+            self._gen.set_state(torch.from_numpy(
+                np.asarray(blob["torch_rng"], dtype=np.uint8)))
+
+    # -- sharded checkpoints ------------------------------------------------
+    def save_sharded_checkpoint(self, prefix, step=None,
+                                async_write=False):
+        """Write the parameters, the optimizer state, the aux states and the
+        generator's state (``rng/0``, which the JAX package does not read)
+        as ``parallel.checkpoint`` files at ``prefix`` (step: the update
+        count unless given). ``async_write=True`` takes the host snapshot
+        now and writes on a thread; returns ``finalize()``, which joins
+        the writer (a no-op when synchronous)."""
+        from .checkpoint import save_sharded, flatten_train_state
+        flat = flatten_train_state(self.params, self._state.by_name(),
+                                   self.aux_names, self.aux)
+        flat["rng/0"] = self._gen.get_state()
+        return save_sharded(prefix, flat,
+                            step=self._t if step is None else step,
+                            async_write=async_write)
+
+    def restore_sharded_checkpoint(self, prefix):
+        """Restore the parameters, the optimizer state, the aux states and
+        the step count from ``prefix`` (in place; a fresh trainer is
+        initialized from the checkpoint)."""
+        from .checkpoint import load_sharded, restore_opt_state
+        flat, step, _ = load_sharded(prefix)
+        self.init_params({n: flat[n] for n in self.param_names},
+                         {n: flat["aux/%s" % n] for n in self.aux_names})
+        self._state.load(restore_opt_state(flat, self.params,
+                                           self._state.init_fn),
+                         "restore_sharded_checkpoint")
+        if "rng/0" in flat:
+            self._gen.set_state(flat["rng/0"])
+        self._t = int(step)
+        return self
+
+    def resume_sharded_checkpoint(self, prefix):
+        """Restore from ``prefix`` if a COMPLETE sharded checkpoint is
+        there (``latest_step``), else leave the trainer as it is. Returns
+        the restored step, or None."""
+        from .checkpoint import latest_step
+        step = latest_step(prefix)
+        if step is None:
+            return None
+        self.restore_sharded_checkpoint(prefix)
+        return step

@@ -342,7 +342,8 @@ def test_trainer_buffers_keep_their_addresses():
     tr.step(batch)
 
     def ptrs():
-        bufs = [tr._flat, tr._flat_state, tr._lr] + list(tr.aux) \
+        bufs = [tr._flat, tr._lr, tr._tdev] + tr._state.buffers() \
+            + list(tr.aux) \
             + list(tr._program.operands.values())
         return [b.data_ptr() for b in bufs]
 

@@ -37,6 +37,9 @@ from mxnet_tpu_torch.parallel import ParallelTrainer, make_graph_fn  # noqa
 from mxnet_tpu_torch.parallel import (  # noqa: F401
     SequenceParallelTrainer, build_mesh, collectives, ring_attention,
     striped_ring_attention)
+from mxnet_tpu_torch import (  # noqa: F401
+    callback, io, lr_scheduler, metric, model, optimizer)
+from mxnet_tpu_torch.parallel import checkpoint, optim  # noqa: F401
 import chip_smoke  # noqa: F401  (module level: its imports only)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
@@ -52,8 +55,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     # every module of the slice was imported (the fleet's included:
-    # serving.capture, .handoff, .fleet, .replay and telemetry_http)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 39
+    # serving.capture, .handoff, .fleet, .replay and telemetry_http; the
+    # training surface's metric, callback and parallel.checkpoint)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 42
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

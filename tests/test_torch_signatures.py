@@ -15,6 +15,11 @@ import torch
 
 import mxnet_tpu.model as jax_model
 import mxnet_tpu.optimizer as jax_opt
+from mxnet_tpu import callback as jax_callback
+from mxnet_tpu import initializer as jax_init
+from mxnet_tpu import lr_scheduler as jax_lrs
+from mxnet_tpu import metric as jax_metric
+from mxnet_tpu.parallel import checkpoint as jax_ckpt
 from mxnet_tpu.models import transformer as jax_transformer
 from mxnet_tpu.ops import pallas_kernels as jax_kernels
 from mxnet_tpu.parallel import decode as jax_decode
@@ -33,6 +38,11 @@ from mxnet_tpu.testing import faults as jax_faults
 
 import mxnet_tpu_torch.model as tmodel
 import mxnet_tpu_torch.optimizer as topt
+from mxnet_tpu_torch import callback as tcallback
+from mxnet_tpu_torch import initializer as tinit
+from mxnet_tpu_torch import lr_scheduler as tlrs
+from mxnet_tpu_torch import metric as tmetric
+from mxnet_tpu_torch.parallel import checkpoint as tckpt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.initializer import Uniform
 from mxnet_tpu_torch.models import transformer as ttransformer
@@ -167,6 +177,58 @@ CALLABLES = [
                                        "count_le")),
                         ("SloWindow", ("__init__", "tick")))
      for name in names]
+# the training surface: the trainers' methods, the optimizers, schedulers,
+# initializers, metrics, iterators, callbacks and checkpoints
+CALLABLES += [
+    ("ParallelTrainer." + name, getattr(jax_trainer.ParallelTrainer, name),
+     getattr(ttrainer.ParallelTrainer, name))
+    for name in ("fit", "prefetch", "staged_batches", "step", "forward",
+                 "init_params", "get_optimizer_states",
+                 "set_optimizer_states", "save_sharded_checkpoint",
+                 "restore_sharded_checkpoint", "resume_sharded_checkpoint")
+] + [("SequenceParallelTrainer." + name,
+      getattr(jax_sp.SequenceParallelTrainer, name),
+      getattr(tsp.SequenceParallelTrainer, name))
+     for name in ("step", "init_params", "save_sharded_checkpoint",
+                  "restore_sharded_checkpoint")
+] + [("optimizer.%s.%s" % (cls, name),
+      getattr(getattr(jax_opt, cls), name),
+      getattr(getattr(topt, cls), name))
+     for cls in ("SGLD", "Adam", "AdamW", "AdaFactor", "AdaGrad", "RMSProp",
+                 "AdaDelta", "Test")
+     for name in ("__init__", "create_state", "update")
+] + [("optimizer.Optimizer." + name, getattr(jax_opt.Optimizer, name),
+      getattr(topt.Optimizer, name))
+     for name in ("set_lr_scale", "set_lr_mult", "_get_lr")
+] + [("optimizer.get_updater", jax_opt.get_updater, topt.get_updater)
+] + [("lr_scheduler.%s" % cls, getattr(jax_lrs, cls).__init__,
+      getattr(tlrs, cls).__init__)
+     for cls in ("CosineScheduler", "PolyScheduler")
+] + [("initializer.%s" % cls, getattr(jax_init, cls).__init__,
+      getattr(tinit, cls).__init__)
+     for cls in ("Load", "Mixed", "Orthogonal", "MSRAPrelu")
+] + [("metric.%s" % name, getattr(jax_metric, name), getattr(tmetric, name))
+     for name in ("create", "np", "check_label_shapes")
+] + [("metric.%s" % cls, getattr(jax_metric, cls).__init__,
+      getattr(tmetric, cls).__init__)
+     for cls in ("TopKAccuracy", "CustomMetric")
+] + [("io.%s.%s" % (cls, name), getattr(getattr(jax_io, cls), name),
+      getattr(getattr(tio, cls), name))
+     for cls, names in (("NDArrayIter", ("__init__", "reset", "getpad")),
+                        ("DataBatch", ("__init__",)))
+     for name in names
+] + [("callback.%s" % name, getattr(jax_callback, name),
+      getattr(tcallback, name))
+     for name in ("do_checkpoint", "log_train_metric")
+] + [("callback.%s" % cls, getattr(jax_callback, cls).__init__,
+      getattr(tcallback, cls).__init__)
+     for cls in ("Speedometer", "ProgressBar")
+] + [("model.%s" % name, getattr(jax_model, name), getattr(tmodel, name))
+     for name in ("load_optimizer_states", "latest_checkpoint")
+] + [("checkpoint.%s" % name, getattr(jax_ckpt, name),
+      getattr(tckpt, name))
+     for name in ("save_sharded", "load_sharded", "latest_step",
+                  "flatten_train_state", "restore_opt_state")]
 
 
 @pytest.mark.parametrize("name,jax_fn,port_fn", CALLABLES,
@@ -380,13 +442,6 @@ def _lm_unported(kw):
                                          num_heads=2, **kw)
 
 
-def _save(tmp_path, lm):
-    symbol, _, params = lm
-    tmodel.save_checkpoint(str(tmp_path / "m"), 0, symbol,
-                           {k: torch.from_numpy(v) for k, v in params.items()},
-                           {}, optimizer_states={"momentum": 0})
-
-
 OTHER_UNPORTED = {
     "pipeline_stages": _lm_unported(dict(pipeline_stages=2)),
     "trainer_mesh": lambda lm: ttrainer.ParallelTrainer(
@@ -429,10 +484,30 @@ def test_moe_parameters_build_the_jax_symbol(case):
     assert len(moe) == (1 if "num_experts" in MOE_PORTED[case] else 0)
 
 
-def test_save_checkpoint_optimizer_states_raise(tmp_path, lm):
+def test_save_checkpoint_optimizer_states_round_trip(tmp_path, lm):
+    """``optimizer_states`` (which raised before this slice of the port)
+    writes ``prefix-0000.states`` beside the parameters; the JAX package
+    reads back the port's blob and the port the JAX package's."""
+    symbol, _, params = lm
+    blob = {"step": 3, "opt": {"embed_weight": [np.arange(4.0)]}}
+    prefix = str(tmp_path / "m")
+    tmodel.save_checkpoint(prefix, 0, symbol,
+                           {k: torch.from_numpy(v) for k, v in params.items()},
+                           {}, optimizer_states=blob)
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["m-0000.params", "m-0000.states", "m-symbol.json"]
+    for load in (tmodel.load_optimizer_states,
+                 jax_model.load_optimizer_states):
+        got = load(prefix, 0)
+        assert got["step"] == 3
+        np.testing.assert_array_equal(got["opt"]["embed_weight"][0],
+                                      np.arange(4.0))
+    assert tmodel.load_optimizer_states(prefix, 1) is None
+    assert tmodel.latest_checkpoint(prefix) == \
+        jax_model.latest_checkpoint(prefix) == 0
     with pytest.raises(MXNetError, match="later slice"):
-        _save(tmp_path, lm)
-    assert not list(tmp_path.iterdir())
+        tmodel.save_checkpoint("s3://bucket/m", 0, symbol, {}, {})
+    assert not os.path.exists("s3:")
 
 
 # the engine's view of the reuse and speculation parameters:

@@ -144,9 +144,127 @@ def test_sp_trainer_refusals():
     with pytest.raises(MXNetError, match="aux states"):
         par.SequenceParallelTrainer(bn, {"data": (2, 4)}, mesh)
     tr = par.SequenceParallelTrainer(symbol, shapes, mesh)
-    for call in (lambda: tr.save_sharded_checkpoint("x"),
-                 lambda: tr.restore_sharded_checkpoint("x")):
-        with pytest.raises(MXNetError, match="later slice"):
-            call()
     with pytest.raises(MXNetError, match="param pos_embed"):
         tr.init_params({"pos_embed": np.zeros((T // 4, 8), np.float32)})
+
+
+def _adam_pair(lm_kw, opt="adam"):
+    """The JAX and port SP trainers from the same weights, with ``opt``."""
+    shapes, init, batch = _setup(lm_kw)
+    params = {"learning_rate": 1e-2, "rescale_grad": 1.0 / B}
+    jtr = jax_par.SequenceParallelTrainer(
+        jax_lm(VOCAB, num_layers=1, impl="ring", **lm_kw), shapes,
+        jax_par.build_mesh({"dp": 2, "sp": 4}), optimizer=opt,
+        optimizer_params=dict(params))
+    jtr.init_params({k: mx.nd.array(v) for k, v in init.items()})
+    ttr = par.SequenceParallelTrainer(
+        get_transformer_lm(VOCAB, num_layers=1, impl="ring", **lm_kw),
+        shapes, par.build_mesh({"dp": 2, "sp": 4}, ["cpu"] * 8),
+        optimizer=opt, optimizer_params=dict(params))
+    ttr.init_params(init)
+    return jtr, ttr, batch
+
+
+def _assert_sp_params(got, want):
+    for n in want:
+        np.testing.assert_allclose(got[n].numpy(), want[n].asnumpy(),
+                                   err_msg=n, **PARAM_TOL)
+
+
+def test_sp_trainer_adam_matches_jax():
+    """Adam's bias correction reads the 1-based update count: the first
+    step is finite (the JAX package's regression,
+    tests/test_parallel.py:436) and 2 steps equal the JAX trainer's."""
+    jtr, ttr, batch = _adam_pair(VARIANTS["learned"])
+    for _ in range(2):
+        jl, tl = float(jtr.step(batch)), float(ttr.step(batch))
+        assert np.isfinite(tl)
+        np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    _assert_sp_params(ttr.get_params(), jtr.get_params())
+    assert [len(v) for v in ttr.opt_state.values()] == [2] * len(
+        ttr.param_names)
+
+
+def _sp(lm_kw, optimizer, optimizer_params, seed=0):
+    shapes, init, batch = _setup(lm_kw)
+    tr = par.SequenceParallelTrainer(
+        get_transformer_lm(VOCAB, num_layers=1, impl="ring", **lm_kw),
+        shapes, par.build_mesh({"dp": 2, "sp": 4}, ["cpu"] * 8),
+        optimizer=optimizer, optimizer_params=dict(optimizer_params),
+        seed=seed)
+    return tr.init_params(init), batch
+
+
+def test_sp_trainer_sgld_noise_is_seeded():
+    """SGLD on the one f32 copy: the noise comes from the trainer's seeded
+    generator (two trainers of one seed agree, another seed differs) and
+    moves the parameters off the noiseless step."""
+    runs = []
+    for seed in (4, 4, 5):
+        tr, batch = _sp(VARIANTS["learned"], "sgld",
+                        {"learning_rate": 1e-3}, seed=seed)
+        for _ in range(2):
+            assert np.isfinite(float(tr.step(batch)))
+        runs.append(tr._flat.clone())
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+    assert torch.isfinite(runs[0]).all()
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam", "sgld"])
+def test_sp_sharded_checkpoint_round_trip(tmp_path, opt):
+    """Save after one step; a fresh trainer restores (the sharded
+    pos_embed, the optimizer state and the generators of dropout and
+    SGLD's noise included) and its next steps equal the uninterrupted
+    run's bitwise (tests/test_parallel.py:604)."""
+    lm_kw = dict(VARIANTS["learned"], dropout=0.2)
+    params = dict(SGD) if opt == "sgd" else {"learning_rate": 1e-2}
+    tr, batch = _sp(lm_kw, opt, params)
+    tr.step(batch)
+    prefix = str(tmp_path / "sp")
+    tr.save_sharded_checkpoint(prefix)
+    want = [float(tr.step(batch)) for _ in range(2)]
+    fresh = par.SequenceParallelTrainer(
+        tr.symbol, tr.input_shapes, tr.mesh, optimizer=opt,
+        optimizer_params=dict(params), seed=9)
+    fresh.restore_sharded_checkpoint(prefix)
+    assert fresh._t == 1
+    got = [float(fresh.step(batch)) for _ in range(2)]
+    assert got == want
+    assert torch.equal(fresh._flat, tr._flat)
+    for a, b in zip(fresh._state.buffers(), tr._state.buffers()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_sp_sharded_checkpoint_crosses_the_packages(tmp_path, direction):
+    """An Adam SP checkpoint written by one package (the JAX package's
+    pos_embed and its moments in four row shards over sp) restores in the
+    other's trainer, whose next step equals the writer's next step."""
+    jtr, ttr, batch = _adam_pair(VARIANTS["learned"])
+    jtr.step(batch)
+    ttr.step(batch)
+    prefix = str(tmp_path / "sp")
+    src, dst = (jtr, ttr) if direction == "jax_to_port" else (ttr, jtr)
+    src.save_sharded_checkpoint(prefix)
+    src.step(batch)
+    if direction == "jax_to_port":
+        fresh = par.SequenceParallelTrainer(
+            ttr.symbol, ttr.input_shapes, ttr.mesh, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-2,
+                              "rescale_grad": 1.0 / B})
+    else:
+        fresh = jax_par.SequenceParallelTrainer(
+            jtr.symbol, jtr.input_shapes, jtr.mesh, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-2,
+                              "rescale_grad": 1.0 / B})
+    fresh.restore_sharded_checkpoint(prefix)
+    assert fresh._t == 1
+    fresh.step(batch)
+    got, want = fresh.get_params(), src.get_params()
+    for n in want:
+        g = got[n].numpy() if isinstance(got[n], torch.Tensor) \
+            else got[n].asnumpy()
+        w = want[n].numpy() if isinstance(want[n], torch.Tensor) \
+            else want[n].asnumpy()
+        np.testing.assert_allclose(g, w, err_msg=n, **PARAM_TOL)

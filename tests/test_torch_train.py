@@ -269,7 +269,7 @@ def test_sgd_update_matches_jax(kw):
     np.testing.assert_allclose(tw.numpy(), jw.asnumpy(), **TOL)
     assert isinstance(T_opt.create("ccsgd"), T_opt.SGD)
     with pytest.raises(ValueError):
-        T_opt.create("adam")
+        T_opt.create("lamb")
 
 
 def test_lr_schedulers_match_jax():
@@ -451,9 +451,5 @@ def test_trainer_later_slices_raise():
                dict(remat=True), dict(rules=object())):
         with pytest.raises(MXNetError, match="later slice"):
             ParallelTrainer(sym, shapes, device="cpu", **kw)
-    tr = ParallelTrainer(sym, shapes, device="cpu")
-    for call in (lambda: tr.fit(None), lambda: next(tr.prefetch([]))):
-        with pytest.raises(MXNetError, match="later slice"):
-            call()
     with pytest.raises(MXNetError):
         ParallelTrainer(sym, shapes, device="cpu", grad_accum=3)
