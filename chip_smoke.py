@@ -349,8 +349,36 @@ Phases:
    parameter deltas must agree; and 3 steps at B=1, T=1024,
    ``save_sharded_checkpoint``, 2 more: a fresh trainer restored from the
    checkpoint takes the same 2 steps, bitwise;
-8. the ``{"kernels": [...]}`` line (every C entry), the card's line, and
-   the result line ``{"ok": true, "device": {...}}`` last.
+7b. the classic API (``import mxnet_tpu_torch as mx``), each check on a
+   ``phase 7b`` line ending in the phase's seconds: NDArray on
+   ``mx.gpu(0)`` (views write through; ``nd.dot`` at [4096, 4096] f32
+   against the host; a save/load round trip; ``mx.random`` reproducible
+   under ``seed``); phase 5's 124M LM in f32 through
+   ``simple_bind(mx.gpu(0), data=(8, 1024), ...)`` with phase 5's seeded
+   weights and SGD through ``get_updater``: 2 warm-up and 5 timed
+   forward/backward/update steps with exactly 12 launches of each flash
+   entry and of ``fused_linear`` a step and a falling loss, ms a step by
+   CUDA events, a 2-step profile, peak memory, then one f32 step at B=1
+   T=128 against ``ParallelTrainer(device=None)`` (deltas within 2e-2 by
+   norm); ResNet-50 f32 through ``FeedForward(ctx=mx.gpu(0)).fit`` over
+   an ``NDArrayIter`` of 4 seeded batches of 64, on the default (fused)
+   loop and on the legacy loop (``MXNET_FUSED_FIT=0``, the conv-BN train
+   gate on, kvstore "local": exactly 33 ``matmul_stats`` a step), in
+   turns, img/s and the busy share of each second fit; ``predict`` and
+   ``score`` over 2 batches of 256 (exactly 53 ``fused_conv_bn_act`` a
+   forward, score equal to predict's accuracy); an MLP through the legacy
+   fit at ``ctx=[mx.gpu(0)] * 2`` against ``[mx.gpu(0)]`` (within 1e-5
+   after 2 epochs), with a ``Monitor(1)`` (every node reported), and
+   crash and resume from ``fit(checkpoint_prefix=)`` (bitwise);
+   ``FeedForward.load`` of phase 4's checkpoint and ``as_serving_engine``
+   with phase 4's settings: one wave, exact launches from
+   ``engine.stats``, streams equal phase 4's. Phase 3's timing rows gain
+   the f32 flash forward at B=8 T=1024 beside SDPA f32 and the f32
+   ``fused_linear`` at the LM's ffn1 beside ``F.linear`` + relu (the
+   ``lm_f32`` rows of the kernels line);
+8. the ``{"kernels": [...]}`` line (every C entry; ``classic_launches``
+   are phase 7b's), the card's line, and the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 needs a CUDA card and the rest of the repository beside it.
@@ -1143,12 +1171,13 @@ def _flash_inputs(gen, b, t, h, d, dtype, dev):
 
 
 def flash_cases():
-    """(B, T, H, D, causal, window, dtype, scale): the 124M training shape,
-    then ragged lengths (T=100, T=1000: not multiples of the 64-row tiles),
+    """(B, T, H, D, causal, window, dtype, scale): the 124M training shape
+    in bf16 (ParallelTrainer) and f32 (the Executor's LM), then ragged lengths (T=100, T=1000: not multiples of the 64-row tiles),
     non-causal and windowed, f32 and bf16, every head_dim the kernels take,
     and a negative and a zero scale (None: 1/sqrt(D))."""
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(8, 1024, 12, 64, True, 0, bf, None)]
+    cases = [(8, 1024, 12, 64, True, 0, bf, None),
+             (8, 1024, 12, 64, True, 0, f32, None)]
     for dt in (f32, bf):
         for t in (100, 1000):
             cases += [(2, t, 3, 64, True, 0, dt, None),
@@ -1180,17 +1209,21 @@ def check_flash_attention(K, dev, gen):
         grads_p = K.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                               scale, window)
         torch.cuda.synchronize()
-        worst["flash_attention_fwd"] = max(
-            worst["flash_attention_fwd"],
-            compare("flash fwd o " + tag, o, o_p),
-            compare("flash fwd lse " + tag, lse, lse_p))
+        errs = {"fwd o": compare("flash fwd o " + tag, o, o_p),
+                "fwd lse": compare("flash fwd lse " + tag, lse, lse_p)}
+        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"],
+                                           *errs.values())
         for name, g_, w_ in zip(("dq", "dk", "dv"), grads, grads_p):
             entry = "flash_attention_dq" if name == "dq" else \
                 "flash_attention_dkv"
-            err = compare("flash %s %s" % (name, tag), g_, w_) \
+            errs[name] = compare("flash %s %s" % (name, tag), g_, w_) \
                 if dt is torch.float32 else \
                 compare_scaled("flash %s %s" % (name, tag), g_, w_, GRAD_REL)
-            worst[entry] = max(worst[entry], err)
+            worst[entry] = max(worst[entry], errs[name])
+        if (b, t, h, dt) == (8, 1024, 12, torch.float32):
+            log("flash %s (the Executor's LM shape): kernel against plain "
+                "under TOL[f32], max |err| %s" % (tag, ", ".join(
+                    "%s %.3g" % kv for kv in errs.items())))
     # the f32 kernels' 4-byte copies: q, k and v as views into one buffer
     # whose rows lie 97 floats apart, off 16-byte boundaries, with dO
     # starting one float past a 16-byte boundary; then contiguous q, k and
@@ -7053,6 +7086,555 @@ def check_sp_resume(dev, b=1, t=1024, before=3, after=2):
 
 # -- main -------------------------------------------------------------------
 
+# -- phase 7b: the classic API --------------------------------------------------
+
+CLASSIC_WARM, CLASSIC_STEPS = 2, 5
+CLASSIC_DOT = 4096
+CLASSIC_RESNET_B, CLASSIC_RESNET_BATCHES = 64, 4
+CLASSIC_PRED_B, CLASSIC_PRED_BATCHES = 256, 2
+RESNET_CHAINS = 53          # conv -> BatchNorm chains of ResNet-50's eval
+RESNET_POINTWISE = 33       # of them 1x1 stride-1 (matmul_stats in training)
+MLP_TOL = 1e-5
+
+
+def _line7b(t0, what, text):
+    log("phase 7b %s: %s (%.1f s into the phase)" % (
+        what, text, time.perf_counter() - t0))
+
+
+def classic_ndarray(dev, t0):
+    """7b.1: NDArray on gpu(0): views write through, ``dot`` at [4096,
+    4096] f32 against the host, a save/load round trip, ``mx.random``
+    reproducible under ``seed``."""
+    import mxnet_tpu_torch as mx
+    ctx = mx.gpu(0)
+    a = mx.nd.zeros((6, 4), ctx=ctx)
+    a[2:4][:] = 7.0
+    a.reshape((4, 6))[0:1] = 1.0
+    row = a[5]
+    row += 2.0
+    want = np.zeros((6, 4), np.float32)
+    want[2:4] = 7.0
+    want.reshape(4, 6)[0] = 1.0
+    want[5] += 2.0
+    if not np.array_equal(a.asnumpy(), want) or a._tensor.device != dev:
+        raise AssertionError("NDArray views on the card: %r" % a.asnumpy())
+    n = CLASSIC_DOT
+    rs = np.random.RandomState(0)
+    x = rs.standard_normal((n, n)).astype(np.float32)
+    y = rs.standard_normal((n, n)).astype(np.float32)
+    xd, yd = mx.nd.array(x, ctx), mx.nd.array(y, ctx)
+    z = mx.nd.dot(xd, yd).asnumpy()
+    ref = x @ y
+    err = float(np.abs(z - ref).max() / np.abs(ref).max())
+    if not err <= TOL[torch.float32][0]:
+        raise AssertionError("nd.dot on the card: %.3g of the largest "
+                             "element" % err)
+    ms = Timer(dev)(lambda: mx.nd.dot(xd, yd))
+    _line7b(t0, "nd", "views write through on %s; dot [%d, %d] f32 max "
+            "|err| %.3g of the largest element against the host; %.4f ms "
+            "(%.1f TFLOP/s); %s" % (a.context, n, n, err, ms,
+                                    2.0 * n ** 3 / ms / 1e9, card_line()))
+    path = os.path.join(HERE, "build", "nd7b.params")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    mx.nd.save(path, {"x": xd, "a": a})
+    back = mx.nd.load(path)
+    os.remove(path)
+    if back["x"].context != mx.cpu() \
+            or not np.array_equal(back["x"].asnumpy(), x) \
+            or not np.array_equal(back["a"].asnumpy(), want):
+        raise AssertionError("nd.save/nd.load round trip")
+    draws = []
+    for _ in range(2):
+        mx.random.seed(7)
+        draws.append((mx.random.uniform(-1, 1, (1000, 1000), ctx=ctx)
+                      .asnumpy(), mx.random.normal(2, 3, (1000, 1000),
+                                                   ctx=ctx).asnumpy()))
+    u, g = draws[0]
+    if not all(np.array_equal(p, q) for p, q in zip(*draws)) \
+            or abs(u.mean()) > 0.01 or abs(g.mean() - 2) > 0.01 \
+            or abs(g.std() - 3) > 0.01:
+        raise AssertionError("mx.random on the card: not reproducible or "
+                             "off its moments")
+    _line7b(t0, "nd", "save/load round trip to cpu() bitwise; mx.random "
+            "reproducible under seed on the card, uniform mean %.4f, "
+            "normal mean %.4f std %.4f" % (u.mean(), g.mean(), g.std()))
+
+
+def _classic_lm_step(exe, names, updater):
+    def step():
+        exe.forward(is_train=True)
+        exe.backward()
+        for i, n in enumerate(names):
+            updater(i, exe.grad_dict[n], exe.arg_dict[n])
+    return step
+
+
+def classic_lm(K, dev, t0):
+    """7b.2: the 124M LM of phase 5 (f32) through ``simple_bind`` on
+    gpu(0), phase 5's seeded weights, SGD through ``get_updater``: warm-up
+    and timed forward/backward/update steps with exact launches and a
+    falling loss, ms a step, a 2-step profile, peak memory; then one f32
+    step at B=1 T=128 against ``ParallelTrainer(device=None)``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import get_transformer_lm
+    symbol = get_transformer_lm(VOCAB, num_layers=LAYERS, embed_dim=EMBED,
+                                num_heads=HEADS, impl="flash")
+    names = [n for n in symbol.list_arguments()
+             if n not in ("data", "softmax_label")]
+    torch.cuda.reset_peak_memory_stats()
+    exe = symbol.simple_bind(mx.gpu(0), data=(TRAIN_B, TRAIN_T),
+                             softmax_label=(TRAIN_B, TRAIN_T))
+    exe.copy_params_from(dict(_trainer(dev, TRAIN_B, TRAIN_T, None).params))
+    batch = _train_batch(7, TRAIN_B, TRAIN_T)
+    for k, v in batch.items():
+        exe.arg_dict[k][:] = v
+    label = torch.as_tensor(batch["softmax_label"]).long().to(dev)
+    updater = mx.optimizer.get_updater(mx.optimizer.create(
+        "sgd", learning_rate=1e-3, momentum=0.9, rescale_grad=1.0 / TRAIN_B))
+    step = _classic_lm_step(exe, names, updater)
+    losses = []
+    for _ in range(CLASSIC_WARM):
+        step()
+        losses.append(_lm_train_loss([exe.outputs[0]._tensor], label))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    card_ms, wall = [], []
+    for _ in range(CLASSIC_STEPS):
+        a, b = Timer._events(1)[0]
+        w0 = time.perf_counter()
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - w0) * 1e3)
+        card_ms.append(a.elapsed_time(b))
+        losses.append(_lm_train_loss([exe.outputs[0]._tensor], label))
+    launches = _check_launches(K, "phase 7b.2 executor", {
+        e: LAYERS * CLASSIC_STEPS for e in TRAIN_ENTRIES})
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError("phase 7b.2: the loss did not fall: %r"
+                             % losses)
+    mem = memory()
+    med = statistics.median(card_ms)
+    _line7b(t0, "lm", "124M LM through simple_bind(mx.gpu(0), data=(%d, "
+            "%d)) f32, SGD lr 1e-3 momentum 0.9 via get_updater (%d "
+            "parameters a step); %d timed steps: ms a step by CUDA events "
+            "median %.3f (min %.3f, max %.3f), wall %.3f, %.1f tokens/s; "
+            "loss %s; launches %s; %s; %s" % (
+                TRAIN_B, TRAIN_T, len(names), CLASSIC_STEPS, med,
+                min(card_ms), max(card_ms), statistics.median(wall),
+                TRAIN_B * TRAIN_T / med * 1e3,
+                " ".join("%.4f" % v for v in losses),
+                json.dumps({e: n for e, n in launches.items() if n}), mem,
+                card_line()))
+    REPORT["classic_lm_ms"] = med
+    wall_ms, kern_ms, busy = profile_train(
+        None, None, steps=2, trace=None, what="phase 7b.2 executor step",
+        call=step)
+    _line7b(t0, "lm", "2-step profile: wall %.3f ms a step, card kernels "
+            "%.3f, busy share %.3f, idle share %.3f" % (
+                wall_ms, kern_ms, busy, 1.0 - busy))
+    # debug_str resets the card's peak counter to measure its forward's
+    # temporaries: the phase's peak (mem) is read above, before it, and
+    # nothing after it reads the peak
+    _line7b(t0, "lm", "debug_str: %s" % exe.debug_str().splitlines()[-1])
+    del exe, step
+    free_programs()
+    classic_lm_against_trainer(dev, symbol, names, t0)
+    return launches
+
+
+def classic_lm_against_trainer(dev, symbol, names, t0, b=1, t=128):
+    """One f32 step of the 124M LM at B=1 T=128 through the Executor (the
+    default context, gpu(0)) and through ``ParallelTrainer(device=None)``
+    from the same weights and lr: per-tensor delta norms within
+    DELTA_REL."""
+    import mxnet_tpu_torch as mx
+    if mx.current_context() != mx.gpu(0):
+        raise AssertionError("the default context is %s"
+                             % mx.current_context())
+    tr = _trainer(None, b, t, None)
+    exe = symbol.simple_bind(mx.current_context(), data=(b, t),
+                             softmax_label=(b, t))
+    exe.copy_params_from(dict(tr.params))
+    before = {n: v.clone() for n, v in tr.params.items()}
+    batch = _train_batch(11, b, t)
+    for k, v in batch.items():
+        exe.arg_dict[k][:] = v
+    _classic_lm_step(exe, names, mx.optimizer.get_updater(
+        mx.optimizer.create("sgd", learning_rate=1e-3, momentum=0.9,
+                            rescale_grad=1.0 / b)))()
+    tr.step(batch)
+    rows = []
+    for n in names:
+        dt = tr.params[n] - before[n]
+        de = exe.arg_dict[n]._tensor - before[n]
+        rows.append((((de - dt).norm() / dt.norm()).item(), n))
+    rows.sort(reverse=True)
+    if not rows[0][0] <= DELTA_REL:
+        raise AssertionError("phase 7b.2: executor vs trainer deltas %s "
+                             "(gate %g)" % (rows[:5], DELTA_REL))
+    _line7b(t0, "lm", "one f32 step at B=%d T=%d, Executor against "
+            "ParallelTrainer(device=None) from the same weights: %d "
+            "parameter deltas agree, worst in norm %s %.3g (gate %g)" % (
+                b, t, len(rows), rows[0][1], rows[0][0], DELTA_REL))
+
+
+def _classic_fit(K, sym, X, y, args, aux, fused):
+    """One epoch of FeedForward(ctx=mx.gpu(0)).fit over an NDArrayIter of
+    X: the fused loop by default, or the legacy loop with the conv-BN
+    train gate on. Returns (batch-end times, launches, whether the fused
+    loop ran)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import model as mx_model
+    ran = []
+    real = mx_model._train_fused
+
+    def spy(*a, **kw):
+        ran.append(True)
+        return real(*a, **kw)
+
+    env = {} if fused else {"MXNET_FUSED_FIT": "0", GATE: "1"}
+    saved = {k: os.environ.get(k) for k in ("MXNET_FUSED_FIT", GATE)}
+    stamps = []
+    mx_model._train_fused = spy
+    try:
+        for k in saved:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        model = mx.model.FeedForward(
+            sym, ctx=mx.gpu(0), num_epoch=1, optimizer="sgd",
+            learning_rate=1e-3, momentum=0.9,
+            arg_params={k: mx.nd.array(v) for k, v in args.items()},
+            aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+        K.reset_launch_counts()
+        model.fit(mx.io.NDArrayIter(X, y, batch_size=CLASSIC_RESNET_B),
+                  kvstore="local", batch_end_callback=lambda p:
+                  stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    finally:
+        mx_model._train_fused = real
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    return stamps, launches, bool(ran)
+
+
+def classic_resnet(K, dev, t0):
+    """7b.3: ResNet-50 through FeedForward(ctx=mx.gpu(0)) in f32: fit on
+    the default (fused) loop and on the legacy loop (MXNET_FUSED_FIT=0,
+    the conv-BN train gate on, kvstore "local") over an NDArrayIter of
+    4 seeded batches of 64, in turns, with exact matmul_stats launches on
+    the legacy loop, img/s and the card's busy share of each second fit;
+    then predict and score over 2 batches of 256 with exact
+    fused_conv_bn_act launches, score equal to predict's accuracy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import get_resnet
+    sym = get_resnet(RESNET_CLASSES, RESNET_LAYERS)
+    args, aux = _resnet_scaled_params(5)
+    rs = np.random.RandomState(3)
+    n = CLASSIC_RESNET_B * CLASSIC_RESNET_BATCHES
+    X = rs.rand(n, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rs.randint(0, RESNET_CLASSES, n).astype(np.float32)
+    launches = collections.Counter()
+    rates = {}
+    for turn in range(2):
+        for fused in (True, False):
+            what = "fused" if fused else "legacy"
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) \
+                if turn else contextlib.nullcontext()
+            w0 = time.perf_counter()
+            with prof:
+                stamps, got, ran = _classic_fit(K, sym, X, y, args, aux,
+                                                fused)
+            wall = time.perf_counter() - w0
+            if ran != fused:
+                raise AssertionError("phase 7b.3: fit took the %s loop"
+                                     % ("fused" if ran else "legacy"))
+            want = {} if fused else {
+                "matmul_stats": RESNET_POINTWISE * CLASSIC_RESNET_BATCHES}
+            full = dict.fromkeys(got, 0)
+            full.update(want)
+            if got != full:
+                raise AssertionError("phase 7b.3 %s fit: launches %r, want "
+                                     "%r" % (what, got, full))
+            launches.update(got)
+            step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+            busy = ""
+            if turn:
+                kern = sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA) / 1e6
+                busy = "; over the whole fit call (set-up included) %.3f " \
+                    "s wall, %.3f s card kernels, busy share %.3f, idle " \
+                    "share %.3f" % (wall, kern, kern / wall, 1 - kern / wall)
+                rates[what] = CLASSIC_RESNET_B / step_s
+            _line7b(t0, "resnet", "ResNet-50 f32 FeedForward(ctx=mx.gpu(0))"
+                    ".fit on the %s loop%s, B=%d, %d batches (turn %d): "
+                    "%.3f ms a step (batch ends 1-%d), %.1f img/s; "
+                    "launches %s%s; %s" % (
+                        what, "" if fused else " (MXNET_FUSED_FIT=0, %s=1, "
+                        "kvstore local)" % GATE, CLASSIC_RESNET_B,
+                        CLASSIC_RESNET_BATCHES, turn, step_s * 1e3,
+                        len(stamps), CLASSIC_RESNET_B / step_s,
+                        json.dumps({e: c for e, c in got.items() if c}),
+                        busy, card_line()))
+            free_programs()
+    _line7b(t0, "resnet", "legacy over fused img/s %.3f" % (
+        rates["legacy"] / rates["fused"]))
+    del X, y
+    pb, nb = CLASSIC_PRED_B, CLASSIC_PRED_BATCHES
+    Xp = rs.rand(pb * nb, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    yp = rs.randint(0, RESNET_CLASSES, pb * nb).astype(np.float32)
+    model = mx.model.FeedForward(
+        sym, ctx=mx.gpu(0), numpy_batch_size=pb,
+        arg_params={k: mx.nd.array(v) for k, v in args.items()},
+        aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    want = {"fused_conv_bn_act": RESNET_CHAINS * nb}
+    K.reset_launch_counts()
+    w0 = time.perf_counter()
+    prob = model.predict(mx.io.NDArrayIter(Xp, yp, batch_size=pb))
+    p_secs = time.perf_counter() - w0
+    got = _check_launches(K, "phase 7b.3 predict", want)
+    launches.update(got)
+    K.reset_launch_counts()
+    w0 = time.perf_counter()
+    acc = model.score(mx.io.NDArrayIter(Xp, yp, batch_size=pb), "acc")
+    s_secs = time.perf_counter() - w0
+    launches.update(_check_launches(K, "phase 7b.3 score", want))
+    want_acc = float((prob.argmax(axis=1) == yp).mean())
+    if prob.shape != (pb * nb, RESNET_CLASSES) \
+            or not np.isfinite(prob).all() \
+            or not np.allclose(prob.sum(axis=1), 1.0, atol=1e-4) \
+            or abs(acc - want_acc) > 1e-9:
+        raise AssertionError("phase 7b.3 predict/score: shape %s, score "
+                             "%r against predict's %r" % (prob.shape, acc,
+                                                          want_acc))
+    _line7b(t0, "resnet", "predict over %d batches of %d: %.3f s (%.1f "
+            "img/s, host copies included), score %.3f s, accuracy %.5f = "
+            "predict's argmax; %d fused_conv_bn_act launches a forward; %s"
+            % (nb, pb, p_secs, pb * nb / p_secs, s_secs, acc, RESNET_CHAINS,
+               card_line()))
+    return dict(launches)
+
+
+def _mlp_symbol(num_hidden=64, k=5):
+    import mxnet_tpu_torch as mx
+    data = mx.sym.Variable("data")
+    fc1 = mx.sym.FullyConnected(data=data, name="fc1", num_hidden=num_hidden)
+    act = mx.sym.Activation(data=fc1, name="relu1", act_type="relu")
+    fc2 = mx.sym.FullyConnected(data=act, name="fc2", num_hidden=k)
+    return mx.sym.SoftmaxOutput(data=fc2, name="softmax")
+
+
+def classic_mlp(K, dev, t0):
+    """7b.4: an MLP through the legacy fit on the card (MXNET_FUSED_FIT=0):
+    ctx=[gpu(0)] * 2 against [gpu(0)] within MLP_TOL after 2 epochs; a
+    Monitor(1) reports every node; crash and resume from
+    fit(checkpoint_prefix=) equals the uninterrupted run bitwise."""
+    import shutil
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(7)
+    X = rs.randn(2000, 20).astype(np.float32)
+    y = np.argmax(X @ rs.randn(20, 5), axis=1).astype(np.float32)
+    sym = _mlp_symbol()
+    arg_shapes, _, _ = sym.infer_shape(data=(100, 20))
+    init = {n: rs.uniform(-0.1, 0.1, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    saved = os.environ.get("MXNET_FUSED_FIT")
+    os.environ["MXNET_FUSED_FIT"] = "0"
+    try:
+        def run(ctx, epochs=2, **kw):
+            model = mx.model.FeedForward(
+                sym, ctx=ctx, num_epoch=epochs, learning_rate=0.1,
+                momentum=0.9, wd=1e-4,
+                arg_params={n: mx.nd.array(v) for n, v in init.items()})
+            model.fit(mx.io.NDArrayIter(X, y, batch_size=100),
+                      kvstore="local", **kw)
+            return model
+
+        one, two = run([mx.gpu(0)]), run([mx.gpu(0)] * 2)
+        err = max(float(np.abs(one.arg_params[n].asnumpy()
+                               - two.arg_params[n].asnumpy()).max())
+                  for n in init)
+        if not err <= MLP_TOL:
+            raise AssertionError("phase 7b.4: 2 contexts against 1: %.3g"
+                                 % err)
+        acc = one.score(mx.io.NDArrayIter(X, y, batch_size=100))
+        _line7b(t0, "mlp", "legacy fit ctx=[gpu(0)] * 2 (kvstore "
+                "local_update_cpu) against [gpu(0)]: parameters within "
+                "%.3g after 2 epochs (gate %g); accuracy %.4f" % (
+                    err, MLP_TOL, acc))
+
+        class Recorder(mx.Monitor):
+            rows = []
+
+            def toc_print(self):
+                self.rows.extend(self.toc())
+
+        mon = Recorder(1)
+        run([mx.gpu(0)], epochs=1, monitor=mon)
+        nodes = {"fc1_output", "relu1_output", "fc2_output",
+                 "softmax_output"} | set(sym.list_arguments())
+        per_step = collections.defaultdict(set)
+        for step, name, _ in mon.rows:
+            per_step[step].add(name)
+        if len(per_step) != 20 or any(s != nodes
+                                      for s in per_step.values()):
+            raise AssertionError("phase 7b.4: the monitor saw %r"
+                                 % dict(per_step))
+        ckpt = os.path.join(HERE, "build", "ckpt7b")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        os.makedirs(ckpt)
+        prefix = os.path.join(ckpt, "mlp")
+        straight = run([mx.gpu(0)], epochs=3)
+
+        def crash(epoch, *_):
+            if epoch == 1:
+                raise RuntimeError("killed")
+
+        try:
+            run([mx.gpu(0)], epochs=3, checkpoint_prefix=prefix,
+                epoch_end_callback=crash)
+            raise AssertionError("phase 7b.4: the crash did not happen")
+        except RuntimeError:
+            pass
+        resumed = run([mx.gpu(0)], epochs=3, checkpoint_prefix=prefix)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if resumed.begin_epoch != 1 or not all(
+                torch.equal(resumed.arg_params[n]._tensor,
+                            straight.arg_params[n]._tensor) for n in init):
+            raise AssertionError("phase 7b.4: the resumed run differs from "
+                                 "the uninterrupted one")
+        _line7b(t0, "mlp", "Monitor(1): every node and argument reported "
+                "at each of %d batches; crash at epoch 2 and resume from "
+                "fit(checkpoint_prefix=): parameters equal the "
+                "uninterrupted run's bitwise" % len(per_step))
+    finally:
+        os.environ.pop("MXNET_FUSED_FIT", None)
+        if saved is not None:
+            os.environ["MXNET_FUSED_FIT"] = saved
+
+
+def classic_serving(K, dev, prefix, work, streams, t0):
+    """7b.5: FeedForward.load of phase 4's checkpoint, as_serving_engine
+    with phase 4's settings: one wave of phase 4's requests with exact
+    launches from engine.stats and streams equal to phase 4's."""
+    import mxnet_tpu_torch as mx
+    model = mx.model.FeedForward.load(prefix, 0, ctx=mx.gpu(0))
+    engine = model.as_serving_engine(
+        MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
+        steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
+        weight_dtype="int8", matmul_impl="fused", compute_dtype="bfloat16",
+        prefix_cache_mb=0, prefill_chunk=0)
+    rs = np.random.RandomState(2)
+    for p in BUCKETS:
+        engine.submit(rs.randint(0, VOCAB, (p,)), max_tokens=4)
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    stats0 = dict(engine.stats)
+    handles, secs = _serve_wave(engine, work)
+    steps = (engine.stats["steps"] - stats0["steps"]) * STEPS_PER_ROUND
+    prefills = engine.stats["prefills"] - stats0["prefills"]
+    launches = _check_launches(K, "phase 7b.5 as_serving_engine", {
+        "fused_decode_attention": LAYERS * steps,
+        "paged_attention_chunk": LAYERS * prefills,
+        "quant_matmul": (2 * LAYERS + 1) * steps
+        + (4 * LAYERS + 1) * prefills})
+    if [h.tokens for h in handles] != streams:
+        raise AssertionError("phase 7b.5: the engine's streams differ from "
+                             "phase 4's")
+    tps, p50, p99 = _wave_metrics(handles, secs)
+    _line7b(t0, "serving", "FeedForward.load -> as_serving_engine (phase "
+            "4's settings): %d requests, %d tokens in %.3f s = %.1f "
+            "tokens/s; ms per token p50 %.3f p99 %.3f; TTFT p50 %.3f ms; "
+            "streams equal phase 4's; launches %s; %s" % (
+                len(handles), sum(len(h.tokens) for h in handles), secs,
+                tps, p50, p99, _ttft_p50(handles),
+                json.dumps({e: n for e, n in launches.items() if n}),
+                card_line()))
+    engine.close()
+    return launches
+
+
+def classic_main_path(K, dev, prefix, work, streams):
+    """Phase 7b, the classic API: NDArray, the Executor, FeedForward's two
+    loops, predict/score, the Monitor, crash-resume and
+    ``as_serving_engine``. Returns the launches of its gated runs."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    classic_ndarray(dev, t0)
+    launches.update(classic_lm(K, dev, t0))
+    free_programs()
+    launches.update(classic_resnet(K, dev, t0))
+    free_programs()
+    classic_mlp(K, dev, t0)
+    free_programs()
+    launches.update(classic_serving(K, dev, prefix, work, streams, t0))
+    free_programs()
+    _line7b(t0, "done", "launches %s" % json.dumps(
+        {e: n for e, n in launches.items() if n}))
+    return dict(launches)
+
+
+def time_classic_kernels(K, dev, gen, timed):
+    """The f32 shapes the Executor's LM puts on a path (phase 7b): the
+    flash forward at B=8 T=1024 H=12 D=64 causal beside SDPA f32 (TF32
+    off), and fused_linear at ffn1 M=8192 K=768 N=3072 relu beside
+    F.linear + relu in f32; rows "lm_f32" of the kernels line."""
+    import torch.nn.functional as F
+    timer = Timer(dev)
+    b, t, h, d = 8, 1024, 12, 64
+    q, k, v, _ = _flash_inputs(gen, b, t, h, d, torch.float32, dev)
+    o, _ = K.flash_attention_fwd(q, k, v, causal=True)
+    po, plse = K.flash_attention_fwd_plain(q, k, v, True)
+    err = compare("flash fwd o B=8 T=1024 H=12 D=64 causal f32", o, po)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kms = timer(lambda: K.flash_attention_fwd(q, k, v, causal=True))
+    pms = timer(lambda: K.flash_attention_fwd_plain(q, k, v, True))
+    lms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True))
+    pairs = t * (t + 1) // 2 * b * h
+    bms, by = bound_ms(4 * nbytes(q) + nbytes(plse), 4 * d * pairs,
+                       torch.float32)
+    shape = "B=8 T=1024 H=12 D=64 causal f32"
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(SDPA f32, TF32 off)  bound %.4f ms (%s); max |err| %.3g" % (
+            "flash_attention_fwd", shape, kms, pms, lms, bms, by, err))
+    timed["flash_attention_fwd"]["lm_f32"] = {
+        "ms": kms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+        "bound_by": by, "shape": shape, "max_abs_err": err}
+    m, kd, n = 8192, 768, 3072
+    x = _rand(gen, (m, kd)).to(dev)
+    w = _rand(gen, (n, kd), scale=1.0 / math.sqrt(kd)).to(dev)
+    bias = _rand(gen, (n,), scale=0.1).to(dev)
+    out = K.fused_linear_fwd(x, w, bias, "relu")
+    err = compare("fused_linear ffn1 M=8192 K=768 N=3072 f32 relu", out,
+                  K.fused_linear_plain(x, w, bias, "relu"))
+    kms = timer(lambda: K.fused_linear_fwd(x, w, bias, "relu"))
+    pms = timer(lambda: K.fused_linear_plain(x, w, bias, "relu"))
+    lms = timer(lambda: torch.relu(F.linear(x, w, bias)))
+    bms, by = bound_ms(nbytes(x, w, bias, out), 2 * m * n * kd,
+                       torch.float32)
+    shape = "ffn1 M=8192 K=768 N=3072 f32 relu"
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(F.linear f32, TF32 off, + relu)  bound %.4f ms (%s); max |err| "
+        "%.3g" % ("fused_linear", shape, kms, pms, lms, bms, by, err))
+    timed["fused_linear"]["lm_f32"] = {
+        "ms": kms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+        "bound_by": by, "shape": shape, "max_abs_err": err}
+
+
 def ptxas_summary(K, name, rows=None):
     """The build log of source ``name`` (or its ``K.ptxas_report`` rows)
     in a few lines: its compiled functions, their largest register count,
@@ -7130,6 +7712,7 @@ def main():
     timed.update(time_train_kernels(K, dev, gen, worst))
     timed.update(time_cnn_kernels(K, dev, dgen, worst))
     timed.update(time_striped_pair(K, dev, gen, worst))
+    time_classic_kernels(K, dev, gen, timed)
     launches, prefix, work, streams = serve_main_path(K, dev)
     free_programs()
     launches["paged_attention_decode"] = serve_default_path(
@@ -7178,6 +7761,10 @@ def main():
                      if e in SP_ENTRIES})
     check_sp_against_flash(dev)
     check_sp_resume(dev)
+    free_programs()
+    classic = classic_main_path(K, dev, prefix, work, streams)
+    for e, n in classic.items():
+        launches[e] += n
     replaces = {
         "paged_attention": 1115, "paged_attention_chunk": 1115,
         "paged_attention_decode": 1115,
@@ -7207,9 +7794,11 @@ def main():
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
         moe_launches=moe.get(e, 0), fit_launches=fit.get(e, 0),
+        classic_launches=classic.get(e, 0),
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",
-                                    "int8", "c4", "c5", "m160", "moe")
+                                    "int8", "c4", "c5", "m160", "moe",
+                                    "lm_f32")
            if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"

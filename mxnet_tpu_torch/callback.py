@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import telemetry as _telemetry
+from .ndarray import NDArray, _tensor_of
 
 __all__ = ["do_checkpoint", "log_train_metric", "Speedometer", "ProgressBar"]
 
@@ -25,8 +26,8 @@ _TM_SAMPLES_PER_SEC = _telemetry.gauge("train.samples_per_sec")
 
 def _snapshot(v):
     """A host copy that later training steps leave alone."""
-    if isinstance(v, torch.Tensor):
-        return v.detach().to("cpu", copy=True)
+    if isinstance(v, (NDArray, torch.Tensor)):
+        return _tensor_of(v).detach().to("cpu", copy=True)
     return np.array(v)
 
 

@@ -4,6 +4,12 @@ Counterpart of ``mxnet_tpu/context.py`` (Context stack, ``cpu()`` and
 ``gpu(i)``; dev type codes of ``include/mxnet/base.h:90-175``). Here
 ``gpu(i)`` names CUDA device ``i`` and ``Context.torch_device`` is the
 ``torch.device`` tensors are placed on.
+
+The default context is ``gpu(0)``, where the JAX package and the
+reference have ``cpu(0)``: every ``ctx=None`` (the NDArray factories,
+``FeedForward``, ``current_context()``) means the card, and placing an
+array there without CUDA raises as :func:`resolve_device` does. Code that
+wants the host says so: ``ctx=cpu()`` or ``with cpu():``.
 """
 from __future__ import annotations
 
@@ -70,7 +76,7 @@ class Context:
         Context.default_ctx = self._old_ctx
 
 
-Context.default_ctx = Context("cpu", 0)
+Context.default_ctx = Context("gpu", 0)
 
 
 def cpu(device_id=0):
@@ -84,7 +90,8 @@ def gpu(device_id=0):
 
 
 def current_context():
-    """Return the current context."""
+    """Return the current context (``gpu(0)`` unless a ``with ctx:``
+    block says otherwise)."""
     return Context.default_ctx
 
 

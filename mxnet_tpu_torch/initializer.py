@@ -6,8 +6,9 @@ Counterpart of ``mxnet_tpu/initializer.py`` (the reference's
 ``*embed`` (e.g. ``pos_embed``) -> the weight draw, ``*_moving_mean`` ->
 0, ``*_moving_var`` -> 1, ...), with ``Uniform``, ``Normal``, ``Xavier``,
 ``MSRAPrelu`` and ``Orthogonal`` draws; ``Load`` (from a parameter dict or
-a ``.params`` file) and ``Mixed`` (by name pattern) compose them. An initializer fills a torch tensor in place,
-``init(name, tensor, generator)``; the draws come from the explicit
+a ``.params`` file) and ``Mixed`` (by name pattern) compose them. An
+initializer fills an NDArray or a torch tensor in place,
+``init(name, arr, generator)``; the draws come from the explicit
 ``torch.Generator`` on the host, then are copied to the tensor's device,
 so one seed gives the same weights on every device. They are not the JAX
 package's draws: tests carry weights across as numpy arrays instead.
@@ -24,14 +25,21 @@ __all__ = ["Initializer", "Load", "Mixed", "Uniform", "Normal",
            "Orthogonal", "Xavier", "MSRAPrelu"]
 
 
+def _tensor(arr):
+    """The tensor an NDArray wraps (its writes reach the NDArray)."""
+    from .ndarray import _tensor_of
+    return _tensor_of(arr)
+
+
 class Initializer:
     """Base: dispatch on the parameter's name."""
 
     def __call__(self, name, arr, generator=None):
         if not isinstance(name, str):
             raise TypeError("name must be string")
+        arr = _tensor(arr)
         if not isinstance(arr, torch.Tensor):
-            raise TypeError("arr must be a torch tensor")
+            raise TypeError("arr must be an NDArray or a torch tensor")
         with torch.no_grad():
             self._dispatch(name, arr, generator)
 
@@ -96,8 +104,8 @@ class Load:
 
     def __init__(self, param, default_init=None, verbose=False):
         if isinstance(param, str):
-            from .ndarray import load
-            param = load(param)
+            from .ndarray import _load_tensors
+            param = _load_tensors(param)
         self.param = {}
         for name, arr in param.items():
             if name.startswith("arg:") or name.startswith("aux:"):
@@ -107,8 +115,9 @@ class Load:
         self.verbose = verbose
 
     def __call__(self, name, arr, generator=None):
+        arr = _tensor(arr)
         if name in self.param:
-            src = self.param[name]
+            src = _tensor(self.param[name])
             if tuple(arr.shape) != tuple(np.shape(src)):
                 raise ValueError(
                     "Parameter %s cannot be initialized from loading. "

@@ -4,9 +4,10 @@ Counterpart of ``mxnet_tpu/io.py``: the ``DataIter`` protocol,
 ``DataBatch`` and ``NDArrayIter`` (l.45-198; the reference's
 ``python/mxnet/io.py`` NDArrayIter:311), which the trainers' ``fit``
 iterates, and :class:`StagedStream` in its inline mode, which ``fit``'s
-staged input and the serving engine's prompt stager run. Batches are CPU
-torch tensors (the imperative ``NDArray`` is not ported); a trainer
-stages them onto its device.
+staged input and the serving engine's prompt stager run. ``NDArrayIter``
+takes NDArrays, numpy arrays or torch tensors, and its batches' ``data``
+and ``label`` are NDArrays on ``cpu()`` (the host, as the JAX package's
+default context): a trainer stages them onto its device.
 """
 from __future__ import annotations
 
@@ -16,12 +17,14 @@ import numpy as np
 import torch
 
 from .base import later_slice
+from .context import cpu
+from .ndarray import NDArray, array
 
 __all__ = ["DataBatch", "DataIter", "NDArrayIter", "StagedStream"]
 
 
 class DataBatch:
-    """One batch: data/label lists of tensors, the pad (rows at the end
+    """One batch: data/label lists of NDArrays, the pad (rows at the end
     that wrap around) and the index."""
 
     def __init__(self, data, label, pad=None, index=None):
@@ -71,6 +74,8 @@ class DataIter:
 
 
 def _host_array(v):
+    if isinstance(v, NDArray):
+        return v.asnumpy()
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
@@ -82,7 +87,7 @@ def _init_data(data, allow_empty, default_name):
         if not allow_empty:
             raise ValueError("data must not be None")
         data = []
-    if isinstance(data, (np.ndarray, torch.Tensor)):
+    if isinstance(data, (np.ndarray, torch.Tensor, NDArray)):
         data = [data]
     if isinstance(data, list):
         if not allow_empty and not data:
@@ -93,13 +98,13 @@ def _init_data(data, allow_empty, default_name):
             data = {"_%d_%s" % (i, default_name): d
                     for i, d in enumerate(data)}
     if not isinstance(data, dict):
-        raise TypeError("Input must be a tensor, numpy.ndarray, list or "
-                        "dict")
+        raise TypeError("Input must be NDArray, a tensor, numpy.ndarray, "
+                        "list or dict")
     return [(k, _host_array(v)) for k, v in data.items()]
 
 
 class NDArrayIter(DataIter):
-    """Iterate over in-memory arrays (numpy or torch).
+    """Iterate over in-memory arrays (NDArray, numpy or torch).
 
     ``shuffle`` permutes the rows once, with numpy's global generator (as
     the JAX package does). ``last_batch_handle``: "pad" (the last batch
@@ -160,12 +165,12 @@ class NDArrayIter(DataIter):
             raise ValueError("DataIter needs reset.")
         end = self.cursor + self.batch_size
         if end <= self.num_data:
-            return [torch.from_numpy(v[self.cursor:end].copy())
+            rows = [v[self.cursor:end].copy() for _, v in data_source]
+        else:
+            pad = self.batch_size - self.num_data + self.cursor
+            rows = [np.concatenate([v[self.cursor:], v[:pad]], axis=0)
                     for _, v in data_source]
-        pad = self.batch_size - self.num_data + self.cursor
-        return [torch.from_numpy(np.concatenate([v[self.cursor:], v[:pad]],
-                                                axis=0))
-                for _, v in data_source]
+        return [array(r, cpu()) for r in rows]
 
     def getdata(self):
         return self._getdata(self.data)

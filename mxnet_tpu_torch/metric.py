@@ -5,8 +5,8 @@ Counterpart of ``mxnet_tpu/metric.py`` (the reference's
 ``F1``, ``MAE``/``MSE``/``RMSE``, ``TopKAccuracy``, ``CrossEntropy``,
 ``Loss``, ``CustomMetric``, ``Torch``, the ``np`` decorator helper, the
 ``create`` factory and ``check_label_shapes``. Labels and predictions
-are torch tensors (on any device; they are read on the host) or numpy
-arrays; the values are the JAX package's on the same inputs.
+are NDArrays, torch tensors (on any device; they are read on the host)
+or numpy arrays; the values are the JAX package's on the same inputs.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ __all__ = ["Torch", "check_label_shapes", "EvalMetric", "Accuracy", "F1",
 
 
 def _as_numpy(x):
+    if hasattr(x, "asnumpy"):  # an NDArray
+        return x.asnumpy()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype in (torch.bfloat16, torch.float16):

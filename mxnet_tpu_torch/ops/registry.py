@@ -12,6 +12,7 @@ from __future__ import annotations
 import ast
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
 
@@ -98,6 +99,14 @@ class OpSpec:
         entries for what cannot be inferred yet, MXNetError on
         inconsistency."""
         raise NotImplementedError
+
+    def infer_type(self, p, in_types):
+        """(in_types) -> (in_types, out_types, aux_types) as torch dtypes,
+        ``None`` where unknown. Default: every input takes the first known
+        input's type, the outputs follow it, the aux states are f32."""
+        dt = next((t for t in in_types if t is not None), None)
+        return ([dt] * len(in_types), [dt] * len(self.outputs(p)),
+                [torch.float32] * len(self.aux_states(p)))
 
     def forward(self, p, ins, aux, is_train, generator):
         """(list of tensors, aux list) -> (outs, new_aux)."""

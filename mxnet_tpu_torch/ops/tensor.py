@@ -207,6 +207,9 @@ class Cast(OpSpec):
     def infer_shape(self, p, in_shapes):
         return same_shape_infer(p, in_shapes)
 
+    def infer_type(self, p, in_types):
+        return [in_types[0]], [torch_dtype(p["dtype"])], []
+
     def forward(self, p, ins, aux, is_train, generator):
         return [ins[0].to(torch_dtype(p["dtype"]))], []
 

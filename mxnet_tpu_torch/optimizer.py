@@ -28,6 +28,8 @@ import math
 import numpy as np
 import torch
 
+from .ndarray import _tensor_of
+
 __all__ = ["Optimizer", "SGD", "SGLD", "ccSGD", "Adam", "AdamW",
            "AdaGrad", "RMSProp", "AdaDelta", "AdaFactor", "Test", "create",
            "get_updater", "register"]
@@ -485,9 +487,19 @@ def _state_from_host(state):
     return torch.from_numpy(np.array(state))
 
 
+def _state_to(state, device):
+    """A state (restored on the host by ``set_states``) on ``device``."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_to(x, device) for x in state)
+    if isinstance(state, torch.Tensor) and state.device != device:
+        return state.to(device)
+    return state
+
+
 def get_updater(optimizer):
-    """Close an optimizer into ``updater(index, grad, weight)`` with
-    lazily created per-index state (reference ``get_updater``).
+    """Close an optimizer into ``updater(index, grad, weight)`` (tensors
+    or NDArrays, updated in place) with lazily created per-index state
+    (reference ``get_updater``).
 
     ``get_states()``/``set_states()`` snapshot and restore the per-index
     state and the optimizer's update counts (bias corrections, lr
@@ -495,10 +507,16 @@ def get_updater(optimizer):
     snapshot is the JAX package's, numpy leaves included, so either
     package restores the other's."""
     states = {}
+    restored = set()  # indices whose state set_states left on the host
 
     def updater(index, grad, weight):
+        # NDArrays update through their tensors (views of their storage)
+        grad, weight = _tensor_of(grad), _tensor_of(weight)
         if index not in states:
             states[index] = optimizer.create_state(index, weight)
+        elif index in restored:
+            restored.discard(index)
+            states[index] = _state_to(states[index], weight.device)
         optimizer.update(index, weight, grad, states[index])
 
     def get_states():
@@ -512,6 +530,8 @@ def get_updater(optimizer):
         states.clear()
         states.update({k: _state_from_host(v)
                        for k, v in blob["states"].items()})
+        restored.clear()
+        restored.update(states)
         optimizer._index_update_count = dict(blob["update_count"])
         optimizer.num_update = blob["num_update"]
 

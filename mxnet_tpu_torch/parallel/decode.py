@@ -52,6 +52,7 @@ import torch
 
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
+from ..ndarray import _tensor_of
 from ..ops import kernels
 from ..ops.attention import MultiHeadAttention as _MHA, rope_rotate
 from ..serving.quant import (QuantizedTensor, embedding_rows,
@@ -334,7 +335,7 @@ class Decoder:
         cdt = None if compute_dtype is None else torch_dtype(compute_dtype)
 
         def place(v):
-            t = torch.as_tensor(v).detach().to(self.device)
+            t = _tensor_of(v).detach().to(self.device)
             return t.to(cdt) if cdt is not None and t.is_floating_point() \
                 else t
 

@@ -73,6 +73,7 @@ from .. import optimizer as opt_mod
 from .. import telemetry as tele
 from ..initializer import Uniform
 from ..io import StagedStream
+from ..ndarray import NDArray, _tensor_of
 from ..ops.fusion import _convbn_train_enabled
 from .graph import make_graph_fn, integer_semantic_inputs
 from .optim import FlatOptState
@@ -101,10 +102,12 @@ def _later(what):
 
 
 def _as_tensor(v):
-    """A host value (numpy array, torch tensor, or an array with
-    ``asnumpy()`` such as the JAX package's NDArray) as a torch tensor."""
-    if isinstance(v, torch.Tensor):
-        return v.detach()
+    """A value as a torch tensor: a tensor as it is, the port's NDArray as
+    its tensor on its own device (no host round trip), a numpy array or an
+    array with ``asnumpy()`` (such as the JAX package's NDArray) as a host
+    tensor."""
+    if isinstance(v, (NDArray, torch.Tensor)):
+        return _tensor_of(v).detach()
     if hasattr(v, "asnumpy"):
         v = v.asnumpy()
     return torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
@@ -589,58 +592,54 @@ class ParallelTrainer:
         once an epoch, so no step waits for the host; batch-end callbacks
         see the metric object, whose value appears only at the epoch's
         end. Without it, the host reads every batch's outputs."""
-        from ..model import BatchEndParam, _run_callbacks
+        from ..model import _epoch_end_callbacks, _train_epochs
         if logger is None:
             logger = logging
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         if device_metric:
             dm_kind, dm_k = self._device_metric_kind(eval_metric)
+            acc = torch.zeros(2, dtype=torch.float32, device=self.device)
         data_names = [x[0] for x in train_data.provide_data]
         label_names = [x[0] for x in train_data.provide_label]
         self.last_train_metric = None
         staged = self.staged_batches(train_data, data_names, label_names)
-        for epoch in range(num_epoch):
+        first = True
+
+        def batches(epoch):
             staged.reset()
-            eval_metric.reset()
-            acc = torch.zeros(2, dtype=torch.float32, device=self.device) \
-                if device_metric else None
-            tic = time.time()
-            ep_t0 = time.perf_counter()
-            for nbatch, (dbatch, dev_batch) in enumerate(staged):
-                outs = self.step(dev_batch)
-                if device_metric:
-                    label = None if dm_kind == "loss" \
-                        else dev_batch[label_names[0]]
-                    self._device_metric_update(acc, dm_kind, dm_k, outs[0],
-                                               label)
-                    if dm_kind == "ce" and epoch == 0 and nbatch == 0:
-                        # the accumulator takes the output for
-                        # probabilities; a logits output gives garbage.
-                        # One host read of the first row catches that
-                        row = float(outs[0][(0,) * (outs[0].dim() - 1)]
-                                    .double().sum())
-                        if not 0.9 <= row <= 1.1:
-                            logger.warning(
-                                "device_metric cross-entropy expects "
-                                "probability outputs (rows summing to "
-                                "1); the first output row sums to %.4g "
-                                "- the reported CE will be meaningless "
-                                "if the symbol emits raw logits.", row)
-                else:
-                    # the host blocks here until the step is done
-                    fw_t0 = time.perf_counter()
-                    host = [o.cpu() for o in outs]
-                    _TM_DEVICE_MS.observe(
-                        (time.perf_counter() - fw_t0) * 1e3)
-                    eval_metric.update(dbatch.label, host)
-                if batch_end_callback is not None:
-                    _run_callbacks(batch_end_callback, BatchEndParam(
-                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
-                        locals=locals()))
-            tele.trace_complete("train.epoch", ep_t0,
-                                time.perf_counter() - ep_t0,
-                                args={"epoch": epoch})
+            if device_metric:
+                acc.zero_()
+            return staged
+
+        def step(batch):
+            nonlocal first
+            dbatch, dev_batch = batch
+            outs = self.step(dev_batch)
+            if not device_metric:
+                # the host blocks here until the step is done
+                fw_t0 = time.perf_counter()
+                host = [o.cpu() for o in outs]
+                _TM_DEVICE_MS.observe((time.perf_counter() - fw_t0) * 1e3)
+                eval_metric.update(dbatch.label, host)
+                return
+            label = None if dm_kind == "loss" else dev_batch[label_names[0]]
+            self._device_metric_update(acc, dm_kind, dm_k, outs[0], label)
+            if dm_kind == "ce" and first:
+                # the accumulator takes the output for probabilities; a
+                # logits output gives garbage. One host read of the first
+                # row catches that
+                row = float(outs[0][(0,) * (outs[0].dim() - 1)]
+                            .double().sum())
+                if not 0.9 <= row <= 1.1:
+                    logger.warning(
+                        "device_metric cross-entropy expects probability "
+                        "outputs (rows summing to 1); the first output row "
+                        "sums to %.4g - the reported CE will be meaningless "
+                        "if the symbol emits raw logits.", row)
+            first = False
+
+        def epoch_end(epoch, seconds):
             if device_metric:
                 msum, total = acc.tolist()  # the epoch's one host read
                 name, value = eval_metric.name, msum / max(total, 1.0)
@@ -648,23 +647,21 @@ class ParallelTrainer:
                 name, value = eval_metric.get()
             self.last_train_metric = (name, value)
             logger.info("Epoch[%d] Train-%s=%f time=%.3f", epoch, name,
-                        value, time.time() - tic)
+                        value, seconds)
             if epoch_end_callback is not None:
                 ap, xp = self.get_params()
-                for cb in (epoch_end_callback
-                           if isinstance(epoch_end_callback, list)
-                           else [epoch_end_callback]):
-                    cb(epoch, self.symbol, ap, xp)
-            if eval_data is not None:
-                eval_metric.reset()
-                eval_data.reset()
-                for dbatch in eval_data:
-                    batch = dict(zip(data_names, dbatch.data))
-                    batch.update(zip(label_names, dbatch.label))
-                    outs = self.forward(batch)
-                    eval_metric.update(dbatch.label, outs)
-                logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                            *eval_metric.get())
+                _epoch_end_callbacks(epoch_end_callback, epoch, self.symbol,
+                                     ap, xp)
+
+        def evaluate(dbatch):
+            batch = dict(zip(data_names, dbatch.data))
+            batch.update(zip(label_names, dbatch.label))
+            eval_metric.update(dbatch.label, self.forward(batch))
+
+        _train_epochs(0, num_epoch, batches, step, eval_metric, logger,
+                      batch_end_callback=batch_end_callback,
+                      epoch_end=epoch_end, eval_data=eval_data,
+                      evaluate=evaluate, first_nbatch=0)
         return self
 
     # -- optimizer-state blobs ---------------------------------------------

@@ -207,7 +207,8 @@ def test_ndarray_iter_matches_jax(handle, shuffle):
     assert ti.provide_data == ji.provide_data
     assert ti.provide_label == ji.provide_label
     for _ in range(3):
-        got = [(b.data[0].numpy(), b.label[0].numpy(), b.pad) for b in ti]
+        got = [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
+               for b in ti]
         want = [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
                 for b in ji]
         assert len(got) == len(want)
@@ -225,9 +226,9 @@ def test_ndarray_iter_dict_inputs_and_copies():
     assert [n for n, _ in it.provide_data] == ["a", "b"]
     assert it.provide_label == []
     b = next(it)
-    b.data[0].fill_(-1)  # a copy: the iterator's rows stay as they were
+    b.data[0][:] = -1  # a copy: the iterator's rows stay as they were
     it.reset()
-    np.testing.assert_array_equal(next(it).data[0].numpy(), x[:3])
+    np.testing.assert_array_equal(next(it).data[0].asnumpy(), x[:3])
     with pytest.raises(ValueError, match="batch_size"):
         T_io.NDArrayIter(x, batch_size=7)
 
@@ -269,7 +270,7 @@ def test_fit_converges():
     correct = total = 0
     for b in it:
         out = tr.forward({"data": b.data[0], "softmax_label": b.label[0]})
-        correct += int((out[0].argmax(1) == b.label[0].long()).sum())
+        correct += int((out[0].argmax(1) == b.label[0]._tensor.long()).sum())
         total += b.label[0].shape[0]
     assert correct / total > 0.9
     assert tr.last_train_metric[0] == "accuracy" \
@@ -437,7 +438,7 @@ def test_save_checkpoint_cleans_stale_tmp_and_latest_is_anchored(tmp_path):
     assert jax_model.latest_checkpoint(prefix) == 1
     _, loaded, _ = T_model.load_checkpoint(prefix, 1)
     for n in arg:
-        assert torch.equal(loaded[n], arg[n])
+        assert torch.equal(loaded[n]._tensor, arg[n])
     assert T_model.latest_checkpoint(str(tmp_path / "none")) is None
 
 
@@ -508,7 +509,7 @@ def test_do_checkpoint_async_write_equals_sync(tmp_path):
         cb.finalize()
         _, got, _ = T_model.load_checkpoint(asyn, epoch + 1)
         for n in want:
-            assert torch.equal(got[n], want[n])
+            assert torch.equal(got[n]._tensor, want[n])
         with open(sync + "-%04d.params" % (epoch + 1), "rb") as f, \
                 open(asyn + "-%04d.params" % (epoch + 1), "rb") as g:
             assert f.read() == g.read()

@@ -39,6 +39,10 @@ from mxnet_tpu_torch.parallel import (  # noqa: F401
     striped_ring_attention)
 from mxnet_tpu_torch import (  # noqa: F401
     callback, io, lr_scheduler, metric, model, optimizer)
+from mxnet_tpu_torch import (  # noqa: F401
+    executor, executor_manager, kvstore, monitor, random)
+import mxnet_tpu_torch as mx
+assert mx.nd.NDArray and mx.sym.Group and mx.kv.create  # the namespace
 from mxnet_tpu_torch.parallel import checkpoint, optim  # noqa: F401
 import chip_smoke  # noqa: F401  (module level: its imports only)
 bad = [m for m in sys.modules
@@ -56,8 +60,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr[-3000:]
     # every module of the slice was imported (the fleet's included:
     # serving.capture, .handoff, .fleet, .replay and telemetry_http; the
-    # training surface's metric, callback and parallel.checkpoint)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 42
+    # training surface's metric, callback and parallel.checkpoint; the
+    # classic API's executor, executor_manager, kvstore, monitor, random)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 47
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -282,7 +282,7 @@ def test_moe_checkpoints_load_in_both_packages(tmp_path):
              {k: mx.nd.array(v) for k, v in init.items()}, {})
     sym, args, _ = load_checkpoint(str(tmp_path / "j"), 0)
     assert sym.list_arguments() == ts.list_arguments()
-    placed = params_from_numpy({k: v.numpy() for k, v in args.items()},
+    placed = params_from_numpy({k: v.asnumpy() for k, v in args.items()},
                                "cpu", symbol=ts,
                                input_shapes={"data": (1, 8)})
     for k, v in init.items():

@@ -289,7 +289,7 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
     sym, arg_params, aux_params = load_checkpoint(prefix, 3)
     assert set(aux_params) == set(aux) and set(arg_params) == set(args)
     for n, v in aux.items():
-        np.testing.assert_array_equal(aux_params[n].numpy(), v)
+        np.testing.assert_array_equal(aux_params[n].asnumpy(), v)
     tr = ParallelTrainer(sym, shapes, device="cpu")
     tr.init_params(arg_params, aux_params)
     np.testing.assert_allclose(tr.forward(batch)[0].numpy(), want,

@@ -230,6 +230,69 @@ CALLABLES += [
      for name in ("save_sharded", "load_sharded", "latest_step",
                   "flatten_train_state", "restore_opt_state")]
 
+# the classic API: NDArray, random, Symbol binding, Executor, KVStore,
+# executor manager, Monitor and FeedForward
+import mxnet_tpu.executor as jax_exe  # noqa: E402
+import mxnet_tpu.executor_manager as jax_em  # noqa: E402
+import mxnet_tpu.kvstore as jax_kv  # noqa: E402
+import mxnet_tpu.monitor as jax_mon  # noqa: E402
+import mxnet_tpu.ndarray as jax_nd  # noqa: E402
+import mxnet_tpu.random as jax_rnd  # noqa: E402
+import mxnet_tpu.symbol as jax_sym  # noqa: E402
+import mxnet_tpu_torch.executor as t_exe  # noqa: E402
+import mxnet_tpu_torch.executor_manager as t_em  # noqa: E402
+import mxnet_tpu_torch.kvstore as t_kv  # noqa: E402
+import mxnet_tpu_torch.monitor as t_mon  # noqa: E402
+import mxnet_tpu_torch.ndarray as t_nd  # noqa: E402
+import mxnet_tpu_torch.random as t_rnd  # noqa: E402
+import mxnet_tpu_torch.symbol as t_sym  # noqa: E402
+
+CLASSIC = [
+    (jax_nd, t_nd, ["empty", "zeros", "ones", "full", "array",
+                    "concatenate", "waitall", "save", "load",
+                    "load_buffer", "onehot_encode", "clip", "dot", "norm",
+                    "sqrt", "rsqrt", "square", "abs", "sign", "round",
+                    "ceil", "floor", "exp", "log", "cos", "sin", "maximum",
+                    "minimum", "negative", "choose_element_0index",
+                    "fill_element_0index", "sum", "max", "min",
+                    "argmax_channel", "transpose", "imdecode"]),
+    (jax_nd.NDArray, t_nd.NDArray,
+     ["wait_to_read", "asnumpy", "asscalar", "astype", "reshape", "slice",
+      "__getitem__", "__setitem__", "copy", "copyto", "as_in_context"]),
+    (jax_rnd, t_rnd, ["seed", "uniform", "normal"]),
+    (jax_sym, t_sym, ["Group", "pow", "maximum", "minimum"]),
+    (jax_sym.Symbol, t_sym.Symbol,
+     ["attr", "attr_dict", "_set_attr", "__call__", "infer_type",
+      "debug_str", "bind", "simple_bind", "grad", "__iter__"]),
+    (jax_exe.Executor, t_exe.Executor,
+     ["__init__", "forward", "backward", "copy_params_from", "reshape",
+      "set_monitor_callback", "debug_str"]),
+    (jax_kv, t_kv, ["create"]),
+    (jax_kv.KVStore, t_kv.KVStore,
+     ["__init__", "init", "push", "pull", "_set_updater", "set_optimizer",
+      "barrier", "send_command_to_servers"]),
+    (jax_mon.Monitor, t_mon.Monitor,
+     ["__init__", "stat_helper", "install", "tic", "toc", "toc_print"]),
+    (jax_em, t_em, ["_split_input_slice", "_check_arguments", "_load_data",
+                    "_load_label"]),
+    (jax_em.DataParallelExecutorGroup, t_em.DataParallelExecutorGroup,
+     ["__init__", "load_data_batch", "forward", "backward",
+      "update_metric"]),
+    (jax_em.DataParallelExecutorManager, t_em.DataParallelExecutorManager,
+     ["__init__", "install_monitor", "set_params", "copy_to",
+      "load_data_batch", "forward", "backward", "update_metric"]),
+    (jax_model, tmodel,
+     ["_create_kvstore", "_initialize_kvstore", "_update_params",
+      "_update_params_on_kvstore", "_train_multi_device",
+      "_fused_fit_eligible", "_train_fused"]),
+    (jax_model.FeedForward, tmodel.FeedForward,
+     ["__init__", "fit", "predict", "score", "save", "load", "create",
+      "as_serving_engine", "__getstate__"]),
+]
+CALLABLES += [("%s.%s" % (getattr(j, "__name__", "?"), name),
+               getattr(j, name), getattr(t, name))
+              for j, t, names in CLASSIC for name in names]
+
 
 @pytest.mark.parametrize("name,jax_fn,port_fn", CALLABLES,
                          ids=[c[0] for c in CALLABLES])

@@ -114,14 +114,14 @@ def test_params_jax_to_torch_bit_exact(tmp_path):
     for k, v in arrays.items():
         g = got[k]
         if k == "bf16":
-            g = g.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+            g = g._tensor.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         else:
-            g = g.numpy()
+            g = g.asnumpy()
         assert g.dtype == v.dtype and g.shape == v.shape, k
         assert g.tobytes() == v.tobytes(), k
     with open(path, "rb") as f:
         buf = tnd.load_buffer(f.read())
-    assert torch.equal(buf["f32"], got["f32"])
+    assert torch.equal(buf["f32"]._tensor, got["f32"]._tensor)
 
 
 def test_params_torch_to_jax_bit_exact(tmp_path):
@@ -175,7 +175,7 @@ def test_checkpoint_crosses_both_ways(tmp_path):
     sym, args, aux = tmodel.load_checkpoint(pj, 3)
     assert sym.tojson() == t.tojson() and aux == {}
     for k, v in params.items():
-        assert args[k].numpy().tobytes() == v.tobytes()
+        assert args[k].asnumpy().tobytes() == v.tobytes()
     pt = str(tmp_path / "torch")
     tmodel.save_checkpoint(pt, 0, t, {k: torch.from_numpy(v)
                                       for k, v in params.items()}, {})
