@@ -376,9 +376,40 @@ Phases:
    the f32 flash forward at B=8 T=1024 beside SDPA f32 and the f32
    ``fused_linear`` at the LM's ffn1 beside ``F.linear`` + relu (the
    ``lm_f32`` rows of the kernels line);
+7c. the model zoo through the classic API (``import mxnet_tpu_torch as
+   mx``, ``mx.models.get_symbol``, f32 on ``mx.gpu(0)``, seeded weights;
+   each check on a ``phase 7c`` line ending in the phase's seconds):
+   Inception-BN at full width (224 x 224, 1000 classes) through
+   ``FeedForward.fit`` for 2 epochs over an ``NDArrayIter`` of 4 seeded
+   batches of 64, on the fused loop and on the legacy loop (the conv-BN
+   train gate on: exactly 37 ``matmul_stats`` a step), in turns, the
+   second epoch's cross-entropy below the first's, ms a step, img/s, the
+   busy share of each second fit and a 2-step profile of the fused step
+   (``inception_fit_trace.json.gz``); ``predict`` and ``score`` over 2
+   batches of 256 (exactly 69 ``fused_conv_bn_act`` a forward, score
+   equal to predict's accuracy) and how many chains of the forward get an
+   x that is not channels-last; B=2 card against host (eval
+   log-probabilities and top-1, one train step's deltas by norm);
+   Inception-v3 (299 x 299, B=64, exactly 94 ``fused_conv_bn_act`` a
+   forward) and VGG-16 (B=64, exactly 2 ``fused_linear``) ``predict``,
+   each at B=2 card against host; AlexNet (LRN), FCN-32s
+   (Deconvolution, Crop) and the unrolled LSTM at ``lstm_ptb.py``'s
+   defaults through one ``simple_bind`` forward/backward each (inferred
+   shapes, finite, probabilities summing to 1); ``mnist_sae.py``'s sparse
+   autoencoder (``IdentityAttachKLSparseReg``, ``LinearRegressionOutput``)
+   through one ``fit`` epoch, exactly 3 ``fused_linear`` a step, a falling
+   MSE and moving ``moving_avg``s. Phase 3's holds gain every distinct
+   chain of Inception-BN (B=256) and Inception-v3 (B=64) in f32 and the
+   f32 pointwise shapes of both legacy fits (B=64); its timing rows gain
+   ``fused_conv_bn_act`` at Inception-v3's 1x7 and Inception-BN's 3x3/2,
+   ``matmul_stats`` at Inception-BN's widest chain and at ResNet-50's 33
+   legacy-fit chains a step, ``fused_linear`` at VGG-16's fc6 and the
+   f32 flash backward at B=8 (the ``f32_b8``, ``v3_1x7``, ``bn_3x3s2``,
+   ``bn_widest``, ``resnet_fit_f32`` and ``vgg_fc6`` rows of the kernels
+   line);
 8. the ``{"kernels": [...]}`` line (every C entry; ``classic_launches``
-   are phase 7b's), the card's line, and the result line ``{"ok": true,
-   "device": {...}}`` last.
+   are phase 7b's, ``zoo_launches`` phase 7c's), the card's line, and the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 needs a CUDA card and the rest of the repository beside it.
@@ -1531,20 +1562,20 @@ RESNET_B = 256                      # bench.py:115 bench_resnet50
 STAT_REL = 1e-4
 
 
-def resnet_convs(batch):
-    """Every conv -> BatchNorm chain of ResNet-50 at ``batch`` x 3 x 224 x
-    224, in the plan's order: {name, x, w (shapes), stride, pad, dilate,
-    act, pointwise}, from the port's FusionPlan and shape inference."""
-    from mxnet_tpu_torch.models import get_resnet
+def chain_convs(sym, data):
+    """Every conv -> BatchNorm chain of ``sym`` with input ``data`` (a
+    shape), in the plan's order: {name, x, w (shapes), stride, pad,
+    dilate, act, pointwise, from_data (x is the graph's input, NCHW)},
+    from the port's FusionPlan and shape inference."""
     from mxnet_tpu_torch.ops.fusion import FusionPlan
-    sym = get_resnet(RESNET_CLASSES, RESNET_LAYERS)
     internals = sym.get_internals()
-    _, outs, _ = internals.infer_shape(
-        data=(batch, 3, RESNET_HW, RESNET_HW), softmax_label=(batch,))
+    _, outs, _ = internals.infer_shape(data=data)
     shape_of = {(id(n), i): s for (n, i), s in zip(internals._heads, outs)}
     convs = []
     plan = FusionPlan(sym._topo(), sym._heads)
     for kind, nodes in plan.chains.values():
+        if kind == "fc_act":
+            continue
         conv = nodes[0]
         p = conv.params
         (xn, xi), (wn, _) = conv.inputs[:2]
@@ -1553,8 +1584,25 @@ def resnet_convs(batch):
             w=shape_of[(id(wn), 0)], stride=tuple(p["stride"]),
             pad=tuple(p["pad"]), dilate=tuple(p["dilate"]),
             act="relu" if kind == "conv_bn_relu" else "linear",
-            pointwise=FusionPlan._conv_is_pointwise(p)))
+            pointwise=FusionPlan._conv_is_pointwise(p),
+            from_data=xn.is_var))
     return convs
+
+
+def resnet_convs(batch):
+    """ResNet-50's conv -> BatchNorm chains at ``batch`` x 3 x 224 x 224
+    (:func:`chain_convs`)."""
+    from mxnet_tpu_torch.models import get_resnet
+    return chain_convs(get_resnet(RESNET_CLASSES, RESNET_LAYERS),
+                       (batch, 3, RESNET_HW, RESNET_HW))
+
+
+def zoo_convs(name, batch):
+    """The conv -> BatchNorm chains of a zoo model (``get_symbol(name)``)
+    at ``batch`` images of the size phase 7c feeds it."""
+    from mxnet_tpu_torch.models import get_symbol
+    hw = ZOO_HW[name]
+    return chain_convs(get_symbol(name), (batch, 3, hw, hw))
 
 
 def _stats_err(name, got, want, scale):
@@ -1570,7 +1618,8 @@ def _stats_err(name, got, want, scale):
 def check_matmul_stats(K, dev, gen, dgen):
     """Each distinct pointwise conv of ResNet-50 at the main path's B=256
     in bf16 (M = 256 H W, K and N its channels; inputs drawn on the card
-    from ``dgen``), then ragged shapes: (130, 70, 36) in f32 and
+    from ``dgen``), each of ResNet-50 and Inception-BN at the legacy
+    fits' B=64 in f32, then ragged shapes: (130, 70, 36) in f32 and
     bf16, M = 1000 (not a multiple of the 128-row tile), N = 130 past one
     column tile, K = 33 (the guarded scalar loads), and an f32 product
     large enough to take the 128-column f32 tile (25088, 256, 1024). y to
@@ -1581,6 +1630,13 @@ def check_matmul_stats(K, dev, gen, dgen):
     cases = sorted({(c["x"][0] * c["x"][2] * c["x"][3], c["w"][1], c["w"][0])
                     for c in resnet_convs(RESNET_B) if c["pointwise"]})
     cases = [(m, kd, n, bf, dgen) for m, kd, n in cases]
+    # the legacy fit loops' f32 shapes at B=64: ResNet-50's (phase 7b) and
+    # Inception-BN's (phase 7c: N = 64-352, some never seen in ResNet-50)
+    fit = sorted({(c["x"][0] * c["x"][2] * c["x"][3], c["w"][1], c["w"][0])
+                  for c in resnet_convs(CLASSIC_RESNET_B)
+                  + zoo_convs("inception-bn", ZOO_FIT_B) if c["pointwise"]})
+    cases += [(m, kd, n, f32, dgen) for m, kd, n in fit]
+    n_model = len(cases)
     cases += [(m, kd, n, dt, gen) for m, kd, n, dt in (
         (130, 70, 36, f32), (130, 70, 36, bf), (1000, 64, 64, bf),
         (1000, 64, 64, f32), (257, 24, 130, bf), (77, 33, 20, bf),
@@ -1599,10 +1655,12 @@ def check_matmul_stats(K, dev, gen, dgen):
                          _stats_err("matmul_stats s1 " + tag, s1, s1p, mag),
                          _stats_err("matmul_stats s2 " + tag, s2, s2p, s2p))
         del x, w, y, s1, s2, yp, s1p, s2p, mag
-    log("matmul_stats: %d cases agree (%d ResNet-50 1x1 shapes at B=%d), "
-        "max |y err| %.3g, statistics within %.3g of their sums of "
-        "magnitudes (gate %g)" % (len(cases), len(cases) - 8, RESNET_B,
-                                  worst, worst_stat, STAT_REL))
+    log("matmul_stats: %d cases agree (%d ResNet-50 1x1 shapes at B=%d "
+        "bf16; %d f32 1x1 shapes of the legacy fits of ResNet-50 and "
+        "Inception-BN at B=%d), max |y err| %.3g, statistics within %.3g "
+        "of their sums of magnitudes (gate %g)" % (
+            len(cases), n_model - len(fit), RESNET_B, len(fit), ZOO_FIT_B,
+            worst, worst_stat, STAT_REL))
     return worst
 
 
@@ -1621,7 +1679,11 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
     GEMM) from an NCHW and from a channels-last x (the stem's C = 3 takes
     the guarded element loads), in bf16 on the channels-last x the
     previous fused conv leaves (the stem's input NCHW; inputs drawn on the
-    card from ``dgen``), then
+    card from ``dgen``), each distinct chain of the eval forwards of phase
+    7c in f32 (Inception-BN at B=256, Inception-v3 at B=64: its 1x7, 7x1,
+    1x3 and 3x1 convs on the implicit GEMM, its stride-1 3x3 convs at the
+    odd outputs 147, 71 and 35 on Winograd's ragged tiles; x channels-last
+    but for the chain on the data; those two kinds are logged), then
     small ragged cases in f32 and bf16, relu and linear: 3x3 pad 1, 7x7/2
     pad 3, a non-square kernel with stride (2, 1), pad (1, 2) and dilation
     (2, 1), dilation 2, 1x1 stride 1 and stride 2, each from an NCHW and a
@@ -1640,6 +1702,20 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
             cases += [key + (f32, dgen, cl) for cl in (False, True)]
             cases.append(key + (bf, dgen, c["x"][1] > 3))
     n_resnet = len(cases)
+    # the eval forwards of phase 7c (f32): each distinct chain of
+    # Inception-BN at B=256 and of Inception-v3 at B=64 (kh != kw on the
+    # implicit GEMM: 1x7, 7x1, 1x3, 3x1; Winograd's ragged tiles at the
+    # odd outputs 147, 71, 35), x channels-last as the previous chain or
+    # Concat leaves it (NCHW for the chain on the data)
+    for name, b in (("inception-bn", ZOO_PRED_B),
+                    ("inception-v3", ZOO_V3_B)):
+        for c in zoo_convs(name, b):
+            key = (c["x"], c["w"], c["stride"], c["pad"], c["dilate"],
+                   c["act"])
+            if key not in seen:
+                seen.add(key)
+                cases.append(key + (f32, dgen, not c["from_data"], "zoo"))
+    n_zoo = len(cases) - n_resnet
     for dt in (f32, bf):
         for ws, st, pd, dl, act in (
                 ((9, 5, 3, 3), (1, 1), (1, 1), (1, 1), "relu"),
@@ -1651,7 +1727,7 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
             for cl in (False, True):
                 cases.append(((2, 5, 13, 10), ws, st, pd, dl, act, dt, gen,
                               cl))
-    n_small = len(cases) - n_resnet
+    n_small = len(cases) - n_resnet - n_zoo
     # (x, w, stride, pad, act, the path): ragged Winograd cases, then 3x3
     # convs the rule keeps on the implicit GEMM
     wino = [((2, 8, 9, 13), (12, 8, 3, 3), 1, 0, "relu", "winograd"),
@@ -1677,7 +1753,8 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
         paths[path] = paths.get(path, 0) + 1
         tag = "fused_conv_bn_act x=%s%s w=%s %s %s (%s)" % (
             xs, " channels-last" if cl else "", ws, kw, dt, path)
-        if want_path and path != want_path[0]:
+        zoo = want_path == ["zoo"]
+        if want_path and not zoo and path != want_path[0]:
             raise AssertionError("%s: the rule names %s, the case wants %s"
                                  % (tag, path, want_path[0]))
         got = K.fused_conv_bn_act(x, w, s, b, **kw)
@@ -1685,16 +1762,18 @@ def check_fused_conv_bn_act(K, dev, gen, dgen):
         torch.cuda.synchronize()
         err = compare(tag, got, want)
         worst[dt] = max(worst[dt], err)
-        if want_path:
+        if want_path and (not zoo or ws[2] != ws[3]
+                          or (path == "winograd" and got.shape[2] % 2)):
             log("  %s: max |err| %.3g" % (tag, err))
         del x, w, s, b, got, want
     log("fused_conv_bn_act: %d cases agree (%d ResNet-50 conv shapes at "
         "B=%d, each in f32 from NCHW and channels-last x and in bf16; %d "
-        "small ragged; %d of the Winograd rule's edges), max |err| f32 "
-        "%.3g, bf16 %.3g; cases by path %s" % (
-            len(cases), n_resnet // 3, RESNET_B, n_small,
-            len(cases) - n_resnet - n_small, worst[f32], worst[bf],
-            json.dumps(paths, sort_keys=True)))
+        "distinct f32 chains of Inception-BN at B=%d and Inception-v3 at "
+        "B=%d; %d small ragged; %d of the Winograd rule's edges), max |err| "
+        "f32 %.3g, bf16 %.3g; cases by path %s" % (
+            len(cases), n_resnet // 3, RESNET_B, n_zoo, ZOO_PRED_B,
+            ZOO_V3_B, n_small, len(cases) - n_resnet - n_zoo - n_small,
+            worst[f32], worst[bf], json.dumps(paths, sort_keys=True)))
     return max(worst.values())
 
 
@@ -1719,18 +1798,7 @@ def time_cnn_kernels(K, dev, gen, worst):
     m, kd, n = RESNET_B * 56 * 56, 256, 64
     x = _rand(gen, (m, kd), bf).to(dev)
     w = _rand(gen, (n, kd), bf, 1.0 / math.sqrt(kd)).to(dev)
-    y = torch.empty((m, n), dtype=bf, device=dev)
-
-    def lib_stats():
-        out = torch.matmul(x, w.t())
-        return out.sum(dim=0, dtype=torch.float32), \
-            out.float().square().sum(dim=0)
-
-    kms = timer(lambda: K.matmul_stats_fwd(x, w))
-    pms = timer(lambda: K.matmul_stats_plain(x, w))
-    lms = timer(lib_stats)
-    bms, by = bound_ms(nbytes(x, w, y) + 2 * 4 * n, 2 * m * n * kd + 3 * m * n,
-                       bf)
+    kms, pms, lms, bms, by, _ = _time_stats(timer, K, x, w)
     shape = "stage1 _a M=%d K=%d N=%d bf16" % (m, kd, n)
     log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
         "(matmul + two column sums)  bound %.4f ms (%s)" % (
@@ -1738,7 +1806,7 @@ def time_cnn_kernels(K, dev, gen, worst):
     entries["matmul_stats"] = {"ms": kms, "plain_ms": pms, "library_ms": lms,
                                "bound_ms": bms, "bound_by": by,
                                "shape": shape}
-    del x, w, y
+    del x, w
 
     # fused_conv_bn_act in f32 (the eval forward's path) at stage 1's 3x3
     # conv (the kernels line's row) and those of stages 2-4 (Winograd), the
@@ -7282,48 +7350,6 @@ def classic_lm_against_trainer(dev, symbol, names, t0, b=1, t=128):
                 b, t, len(rows), rows[0][1], rows[0][0], DELTA_REL))
 
 
-def _classic_fit(K, sym, X, y, args, aux, fused):
-    """One epoch of FeedForward(ctx=mx.gpu(0)).fit over an NDArrayIter of
-    X: the fused loop by default, or the legacy loop with the conv-BN
-    train gate on. Returns (batch-end times, launches, whether the fused
-    loop ran)."""
-    import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import model as mx_model
-    ran = []
-    real = mx_model._train_fused
-
-    def spy(*a, **kw):
-        ran.append(True)
-        return real(*a, **kw)
-
-    env = {} if fused else {"MXNET_FUSED_FIT": "0", GATE: "1"}
-    saved = {k: os.environ.get(k) for k in ("MXNET_FUSED_FIT", GATE)}
-    stamps = []
-    mx_model._train_fused = spy
-    try:
-        for k in saved:
-            os.environ.pop(k, None)
-        os.environ.update(env)
-        model = mx.model.FeedForward(
-            sym, ctx=mx.gpu(0), num_epoch=1, optimizer="sgd",
-            learning_rate=1e-3, momentum=0.9,
-            arg_params={k: mx.nd.array(v) for k, v in args.items()},
-            aux_params={k: mx.nd.array(v) for k, v in aux.items()})
-        K.reset_launch_counts()
-        model.fit(mx.io.NDArrayIter(X, y, batch_size=CLASSIC_RESNET_B),
-                  kvstore="local", batch_end_callback=lambda p:
-                  stamps.append(time.perf_counter()))
-        torch.cuda.synchronize()
-        launches = K.launch_counts()
-    finally:
-        mx_model._train_fused = real
-        for k, v in saved.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
-    return stamps, launches, bool(ran)
-
-
 def classic_resnet(K, dev, t0):
     """7b.3: ResNet-50 through FeedForward(ctx=mx.gpu(0)) in f32: fit on
     the default (fused) loop and on the legacy loop (MXNET_FUSED_FIT=0,
@@ -7352,12 +7378,13 @@ def classic_resnet(K, dev, t0):
                 if turn else contextlib.nullcontext()
             w0 = time.perf_counter()
             with prof:
-                stamps, got, ran = _classic_fit(K, sym, X, y, args, aux,
-                                                fused)
+                stamps, _, got, trainer, _ = _fit_on_card(
+                    K, sym, X, y, args, aux, fused, CLASSIC_RESNET_B)
             wall = time.perf_counter() - w0
-            if ran != fused:
-                raise AssertionError("phase 7b.3: fit took the %s loop"
-                                     % ("fused" if ran else "legacy"))
+            if (trainer is not None) != fused:
+                raise AssertionError("phase 7b.3: fit took the %s loop" % (
+                    "legacy" if fused else "fused"))
+            del trainer
             want = {} if fused else {
                 "matmul_stats": RESNET_POINTWISE * CLASSIC_RESNET_BATCHES}
             full = dict.fromkeys(got, 0)
@@ -7635,6 +7662,824 @@ def time_classic_kernels(K, dev, gen, timed):
         "bound_by": by, "shape": shape, "max_abs_err": err}
 
 
+# -- phase 7c: the model zoo through the classic API --------------------------
+
+ZOO_HW = {"inception-bn": 224, "inception-v3": 299, "vgg": 224,
+          "alexnet": 224, "fcn-xs": 224}
+ZOO_CLASSES = 1000
+ZOO_FIT_B, ZOO_FIT_BATCHES, ZOO_FIT_EPOCHS = 64, 4, 2
+ZOO_PRED_B, ZOO_PRED_BATCHES = 256, 2
+ZOO_V3_B, ZOO_VGG_B, ZOO_ALEX_B, ZOO_FCN_B = 64, 64, 64, 1
+ZOO_HOST_B = 2
+ZOO_LR = 0.01                       # train_imagenet.py's --lr default
+INCEPTION_BN_CHAINS = 69            # conv -> BatchNorm -> relu chains
+INCEPTION_BN_POINTWISE = 37         # of them 1x1 stride-1 unpadded
+INCEPTION_V3_CHAINS = 94
+VGG_FC_CHAINS = ALEXNET_FC_CHAINS = 2   # fc6, fc7: FullyConnected -> relu
+FCN_CLASSES = 21
+# example/rnn/lstm_ptb.py's defaults over a 10000-word vocabulary
+LSTM_PTB = dict(num_lstm_layer=2, seq_len=32, input_size=10000,
+                num_hidden=200, num_embed=200, num_label=10000)
+LSTM_B = 32
+# example/autoencoder/mnist_sae.py: its default dims, data, batch and lr,
+# with a nonzero sparsity penalty (enc_0, enc_1 and dec_1 end in a relu)
+SAE_DIMS, SAE_PEN, SAE_FC_CHAINS = (784, 256, 64), 1e-3, 3
+SAE_N, SAE_B, SAE_LR = 6000, 100, 0.02
+
+
+def _line7c(t0, what, text):
+    log("phase 7c %s: %s (%.1f s into the phase)" % (
+        what, text, time.perf_counter() - t0))
+
+
+def _zoo_params(sym, shapes, seed):
+    """Seeded f32 parameters for ``sym`` at input ``shapes`` (numpy):
+    fan-in scaled weights (sqrt(2 / fan-in), so activations stay O(1)
+    through the relu stacks and the logits O(1)), gammas 1 + 0.1 N(0, 1),
+    biases and betas 0.1 N(0, 1), moving means 0.1 N(0, 1) and variances
+    U(0.5, 1.5); drawn by a torch generator on the host (VGG-16's 138 M
+    values in well under a second)."""
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(sh, scale):
+        return (torch.randn(sh, generator=gen) * scale).numpy()
+
+    args = {}
+    for n, sh in zip(sym.list_arguments(), arg_shapes):
+        if n in shapes:
+            continue
+        if n.endswith("_weight"):
+            args[n] = normal(sh, math.sqrt(2.0 / np.prod(sh[1:])))
+        elif n.endswith("_gamma"):
+            args[n] = 1.0 + normal(sh, 0.1)
+        else:
+            args[n] = normal(sh, 0.1)
+    aux = {n: normal(sh, 0.1) if n.endswith("mean")
+           else (torch.rand(sh, generator=gen) + 0.5).numpy()
+           for n, sh in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def _fit_on_card(K, sym, X, y, args, aux, fused, batch_size, num_epoch=1,
+                 lr=1e-3, eval_metric="acc", shuffle=False):
+    """FeedForward(ctx=mx.gpu(0)).fit over an NDArrayIter of (X, y): the
+    fused loop by default, or the legacy loop with the conv-BN train gate
+    on (MXNET_FUSED_FIT=0, kvstore "local"). Returns (batch-end times, the
+    metric of each batch alone, launches, the fused loop's trainer or
+    None, the model)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import model as mx_model
+    ran = []
+    real = mx_model._train_fused
+
+    def spy(*a, **kw):
+        trainer = real(*a, **kw)
+        ran.append(trainer)
+        return trainer
+
+    env = {} if fused else {"MXNET_FUSED_FIT": "0", GATE: "1"}
+    saved = {k: os.environ.get(k) for k in ("MXNET_FUSED_FIT", GATE)}
+    stamps, per_batch, last = [], [], [0.0, 0]
+
+    def batch_end(p):
+        stamps.append(time.perf_counter())
+        m = p.eval_metric
+        if m.num_inst < last[1]:            # the epoch's reset
+            last[:] = [0.0, 0]
+        per_batch.append((m.sum_metric - last[0])
+                         / max(m.num_inst - last[1], 1))
+        last[:] = [m.sum_metric, m.num_inst]
+
+    mx_model._train_fused = spy
+    try:
+        for k in saved:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        model = mx.model.FeedForward(
+            sym, ctx=mx.gpu(0), num_epoch=num_epoch, optimizer="sgd",
+            learning_rate=lr, momentum=0.9,
+            arg_params=None if args is None else {
+                k: mx.nd.array(v) for k, v in args.items()},
+            aux_params=None if aux is None else {
+                k: mx.nd.array(v) for k, v in aux.items()})
+        K.reset_launch_counts()
+        model.fit(mx.io.NDArrayIter(X, y, batch_size=batch_size,
+                                    shuffle=shuffle),
+                  kvstore="local", eval_metric=eval_metric,
+                  batch_end_callback=batch_end)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    finally:
+        mx_model._train_fused = real
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    return stamps, per_batch, launches, (ran[0] if ran else None), model
+
+
+def _zoo_against_host(dev, t0, what, sym, hw, args, aux, seed, train):
+    """ZOO_HOST_B images from the same weights through
+    ``ParallelTrainer`` on the card (the kernels) and on the host (their
+    plain versions), f32: the eval log-probabilities within LOGP_ATOL and
+    the same top-1. With ``train`` (and MXNET_PALLAS_CONVBN_TRAIN=1), one
+    SGD step on each and on the host in f64 (the exact step, to f32's
+    rounding): each parameter's card delta within DELTA_REL of the f64
+    delta by norm, or no further from it than twice the host's own f32
+    delta is. Inception-BN's deltas at B=2 are ill-conditioned in f32 (a
+    BatchNorm after a BatchNorm sums gradients that cancel, and the ReLU
+    kink flips single units): the host's f32 step itself lies ~3% from the
+    f64 step in norm (PERF.md §6), so two correct f32 steps cannot
+    meet DELTA_REL against each other."""
+    from mxnet_tpu_torch.parallel import ParallelTrainer
+    b = ZOO_HOST_B
+    rs = np.random.RandomState(seed)
+    batch = {"data": rs.rand(b, 3, hw, hw).astype(np.float32),
+             "softmax_label": rs.randint(0, ZOO_CLASSES, (b,)
+                                         ).astype(np.int32)}
+    res = {}
+    runs = [(dev, None), ("cpu", None)] + ([("cpu", "float64")] if train
+                                           else [])
+    try:
+        for where, dtype in runs:
+            # the f32 steps with the conv-BN train gate on (matmul_stats
+            # on the card); the f64 step unfused (the kernel takes f32
+            # and bf16)
+            if train and dtype is None:
+                os.environ[GATE] = "1"
+            else:
+                os.environ.pop(GATE, None)
+            tr = ParallelTrainer(
+                sym, {"data": (b, 3, hw, hw), "softmax_label": (b,)},
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": ZOO_LR, "momentum": 0.9},
+                seed=0, device=where, compute_dtype=dtype)
+            tr.init_params(args, aux)
+            logp = torch.log(tr.forward(batch)[0].cpu())
+            deltas = None
+            if train:
+                before = {n: v.clone() for n, v in tr.params.items()}
+                tr.step(batch)
+                deltas = {n: (tr.params[n] - before[n]).cpu().double()
+                          for n in before}
+            res[(str(where), dtype)] = (logp, deltas)
+            del tr
+            free_programs()
+    finally:
+        os.environ.pop(GATE, None)
+    (lc, card), (lh, host) = res[(str(dev), None)], res[("cpu", None)]
+    lerr = (lc - lh).abs().max().item()
+    top = lh.topk(2, dim=1).values
+    gap = (top[:, 0] - top[:, 1]).min().item()
+    same = torch.equal(lc.argmax(dim=1), lh.argmax(dim=1))
+    rows = []
+    if train:
+        exact = res[("cpu", "float64")][1]
+        for n, d64 in exact.items():
+            ref = d64.norm().item()
+            c, h = (card[n] - d64).norm().item(), (host[n] - d64).norm().item()
+            rows.append((c / max(DELTA_REL * ref, 2 * h, 1e-30),
+                         c / max(ref, 1e-30), h / max(ref, 1e-30),
+                         ((card[n] - host[n]).norm() / max(ref, 1e-30)
+                          ).item(), n))
+        rows.sort(reverse=True)
+    # written so that a NaN fails every gate
+    if not (lerr <= LOGP_ATOL and same) or not all(r[0] <= 1 for r in rows):
+        raise AssertionError(
+            "phase 7c %s card vs host: eval log-probabilities max |err| "
+            "%.3g (gate %g), top-1 equal %s; worst deltas (over the gate, "
+            "card and host f32 from f64, card from host, by norm) %s" % (
+                what, lerr, LOGP_ATOL, same,
+                ["%s %.3g %.3g %.3g %.3g" % (n, r, c, h, ch)
+                 for r, c, h, ch, n in rows[:5]]))
+    text = "B=%d f32 from the same weights, card against host: eval " \
+        "log-probabilities max |err| %.3g (gate %g), top-1 equal (smallest " \
+        "top-2 gap %.3g)" % (b, lerr, LOGP_ATOL, gap)
+    if train:
+        r, c, h, ch, n = rows[0]
+        text += "; one SGD step (lr %g, %s=1) against the host's f64 step: " \
+            "%d parameter deltas pass, worst %s at %.3g of its gate (card " \
+            "%.3g, host f32 %.3g of the f64 delta's norm from it); largest " \
+            "card and host f32 distances from it %.3g, %.3g; card from host " \
+            "f32 at most %.3g" % (
+                ZOO_LR, GATE, len(rows), n, r, c, h,
+                max(x[1] for x in rows), max(x[2] for x in rows),
+                max(x[3] for x in rows))
+    _line7c(t0, what, text)
+
+
+def _zoo_predict(K, dev, t0, what, sym, args, aux, b, nb, hw, want):
+    """``FeedForward(ctx=mx.gpu(0)).predict`` over ``nb`` seeded batches of
+    ``b`` with exactly ``want`` launches a forward; finite probabilities
+    summing to 1. Returns (probabilities, labels, launches, seconds,
+    model)."""
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(7)
+    X = rs.rand(b * nb, 3, hw, hw).astype(np.float32)
+    y = rs.randint(0, ZOO_CLASSES, b * nb).astype(np.float32)
+    model = mx.model.FeedForward(
+        sym, ctx=mx.gpu(0), numpy_batch_size=b,
+        arg_params={k: mx.nd.array(v) for k, v in args.items()},
+        aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    model.predict(mx.io.NDArrayIter(X[:b], batch_size=b))   # binds, warms
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    w0 = time.perf_counter()
+    prob = model.predict(mx.io.NDArrayIter(X, y, batch_size=b))
+    secs = time.perf_counter() - w0
+    got = _check_launches(K, "phase 7c %s predict" % what,
+                          {e: n * nb for e, n in want.items()})
+    if prob.shape != (b * nb, ZOO_CLASSES) or not np.isfinite(prob).all() \
+            or not np.allclose(prob.sum(axis=1), 1.0, atol=1e-4):
+        raise AssertionError("phase 7c %s predict: shape %s, finite %s" % (
+            what, prob.shape, np.isfinite(prob).all()))
+    _line7c(t0, what, "predict over %d batches of %d at %dx%d f32: %.3f s "
+            "(%.1f img/s, host copies included); %s a forward; %s" % (
+                nb, b, hw, hw, secs, b * nb / secs, json.dumps(want),
+                card_line()))
+    return prob, y, got, secs, model
+
+
+def _chain_copies(K, model, X, b):
+    """One predict batch of ``model`` with ``kernels._conv_operands``
+    watched: how many conv -> BatchNorm chains got an x that is not
+    channels-last in memory (each costs one NHWC copy before the kernel),
+    and the forward's device kernels by kind under the profiler, with the
+    copy kernels by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    real = K._conv_operands
+    copied = []
+
+    def watched(x, *a):
+        copied.append(not x.permute(0, 2, 3, 1).is_contiguous())
+        return real(x, *a)
+
+    K._conv_operands = watched
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.predict(mx.io.NDArrayIter(X[:b], batch_size=b))
+            torch.cuda.synchronize()
+    finally:
+        K._conv_operands = real
+    kinds, copies = collections.Counter(), collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        key = e.key.lower()
+        kind = ("concat" if "cat" in key and "copy" in key else
+                "copy" if "copy" in key else "other")
+        kinds[kind] += e.count
+        if kind == "copy":
+            copies[e.key[:70]] += e.count
+    return sum(copied), len(copied), dict(kinds), dict(copies)
+
+
+def zoo_inception_bn(K, dev, t0):
+    """7c.1, the slice's main path: Inception-BN at full width (224 x 224,
+    1000 classes, seeded weights) through FeedForward(ctx=mx.gpu(0)) in
+    f32: fit for ZOO_FIT_EPOCHS epochs over an NDArrayIter of
+    ZOO_FIT_BATCHES seeded batches of ZOO_FIT_B on the default (fused)
+    loop and on the legacy loop (MXNET_FUSED_FIT=0, the conv-BN train gate
+    on, kvstore "local": exactly 37 matmul_stats a step), in turns, the
+    cross-entropy of the second epoch below the first's, ms a step, img/s
+    and the busy share of each second fit, a 2-step profile of the fused
+    fit's step; predict and score over ZOO_PRED_BATCHES batches of
+    ZOO_PRED_B (exactly 69 fused_conv_bn_act a forward, score equal to
+    predict's accuracy) and the chains whose x needs a copy; B=2 card
+    against host, eval and one train step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    import mxnet_tpu_torch.models  # noqa: F401  (mx.models)
+    hw = ZOO_HW["inception-bn"]
+    sym = mx.models.get_symbol("inception-bn", num_classes=ZOO_CLASSES)
+    args, aux = _zoo_params(sym, {"data": (1, 3, hw, hw),
+                                  "softmax_label": (1,)}, 21)
+    rs = np.random.RandomState(5)
+    n = ZOO_FIT_B * ZOO_FIT_BATCHES
+    X = rs.rand(n, 3, hw, hw).astype(np.float32)
+    y = rs.randint(0, ZOO_CLASSES, n).astype(np.float32)
+    steps = ZOO_FIT_BATCHES * ZOO_FIT_EPOCHS
+    launches = collections.Counter()
+    rates = {}
+    for turn in range(2):
+        for fused in (True, False):
+            what = "fused" if fused else "legacy"
+            # the card's kernels only: recording every host op of a fit
+            # makes the profile's summary take longer than the fit
+            prof = profile(activities=[ProfilerActivity.CUDA]) \
+                if turn else contextlib.nullcontext()
+            w0 = time.perf_counter()
+            with prof:
+                stamps, losses, got, trainer, _ = _fit_on_card(
+                    K, sym, X, y, args, aux, fused, ZOO_FIT_B,
+                    ZOO_FIT_EPOCHS, ZOO_LR, "ce")
+            wall = time.perf_counter() - w0
+            if (trainer is not None) != fused:
+                raise AssertionError("phase 7c inception-bn: fit took the "
+                                     "other loop than the %s one" % what)
+            want = {} if fused else {
+                "matmul_stats": INCEPTION_BN_POINTWISE * steps}
+            full = dict.fromkeys(got, 0)
+            full.update(want)
+            if got != full:
+                raise AssertionError("phase 7c inception-bn %s fit: "
+                                     "launches %r, want %r" % (what, got,
+                                                               full))
+            launches.update(got)
+            first = statistics.mean(losses[:ZOO_FIT_BATCHES])
+            second = statistics.mean(losses[ZOO_FIT_BATCHES:])
+            if len(losses) != steps \
+                    or not all(math.isfinite(v) for v in losses) \
+                    or not second < first:
+                raise AssertionError("phase 7c inception-bn %s fit: the "
+                                     "loss did not fall: %r" % (what,
+                                                                losses))
+            step_s = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+            busy = ""
+            if turn:
+                kern = sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA) / 1e6
+                busy = "; over the whole fit call (set-up included) %.3f " \
+                    "s wall, %.3f s card kernels, busy share %.3f, idle " \
+                    "share %.3f" % (wall, kern, kern / wall, 1 - kern / wall)
+                rates[what] = ZOO_FIT_B / step_s
+            _line7c(t0, "inception-bn", "Inception-BN f32 FeedForward(ctx="
+                    "mx.gpu(0)).fit on the %s loop%s, B=%d, %d batches x %d "
+                    "epochs, SGD lr %g momentum 0.9 (turn %d): %.3f ms a "
+                    "step (batch ends 1-%d), %.1f img/s; cross-entropy a "
+                    "batch %s (epoch means %.4f -> %.4f); launches %s%s; %s"
+                    % (what, "" if fused else " (MXNET_FUSED_FIT=0, %s=1, "
+                       "kvstore local)" % GATE, ZOO_FIT_B, ZOO_FIT_BATCHES,
+                       ZOO_FIT_EPOCHS, ZOO_LR, turn, step_s * 1e3,
+                       len(stamps), ZOO_FIT_B / step_s,
+                       " ".join("%.4f" % v for v in losses), first, second,
+                       json.dumps({e: c for e, c in got.items() if c}),
+                       busy, card_line()))
+            if fused and turn:
+                wall_ms, kern_ms, busy_p = profile_train(
+                    trainer, {"data": X[:ZOO_FIT_B],
+                              "softmax_label": y[:ZOO_FIT_B]},
+                    trace="inception_fit_trace.json.gz",
+                    what="phase 7c Inception-BN fused fit step")
+                _line7c(t0, "inception-bn", "2-step profile of the fused "
+                        "fit's step: wall %.3f ms a step, card kernels %.3f, "
+                        "busy share %.3f (trace inception_fit_trace.json.gz)"
+                        % (wall_ms, kern_ms, busy_p))
+            del trainer
+            free_programs()
+    _line7c(t0, "inception-bn", "legacy over fused img/s %.3f" % (
+        rates["legacy"] / rates["fused"]))
+    del X, y
+    pb, nb = ZOO_PRED_B, ZOO_PRED_BATCHES
+    want = {"fused_conv_bn_act": INCEPTION_BN_CHAINS}
+    prob, yp, got, p_secs, model = _zoo_predict(
+        K, dev, t0, "inception-bn", sym, args, aux, pb, nb, hw, want)
+    launches.update(got)
+    Xp = np.random.RandomState(7).rand(pb * nb, 3, hw, hw).astype(np.float32)
+    K.reset_launch_counts()
+    w0 = time.perf_counter()
+    acc = model.score(mx.io.NDArrayIter(Xp, yp, batch_size=pb), "acc")
+    s_secs = time.perf_counter() - w0
+    launches.update(_check_launches(K, "phase 7c inception-bn score", {
+        e: n * nb for e, n in want.items()}))
+    want_acc = float((prob.argmax(axis=1) == yp).mean())
+    if abs(acc - want_acc) > 1e-9:
+        raise AssertionError("phase 7c inception-bn: score %r against "
+                             "predict's accuracy %r" % (acc, want_acc))
+    copies, chains, kinds, names = _chain_copies(K, model, Xp, pb)
+    _line7c(t0, "inception-bn", "score over the same %d images %.3f s, "
+            "accuracy %.5f = predict's argmax; chains whose x is not "
+            "channels-last (one NHWC copy each) %d of %d a forward; the "
+            "forward's device kernels by kind %s, the copies %s" % (
+                pb * nb, s_secs, acc, copies, chains, json.dumps(kinds),
+                json.dumps(names)))
+    del model, Xp, prob
+    free_programs()
+    _zoo_against_host(dev, t0, "inception-bn", sym, hw, args, aux, 9,
+                      train=True)
+    return dict(launches)
+
+
+def zoo_predict_paths(K, dev, t0):
+    """7c.2: Inception-v3 (299 x 299) predict at B=ZOO_V3_B with exactly
+    94 fused_conv_bn_act a forward, and VGG-16 predict at B=ZOO_VGG_B with
+    exactly 2 fused_linear a forward, each over 2 batches; each at B=2
+    card against host (eval)."""
+    import mxnet_tpu_torch as mx
+    import mxnet_tpu_torch.models  # noqa: F401  (mx.models)
+    launches = collections.Counter()
+    for name, b, want, seed in (
+            ("inception-v3", ZOO_V3_B,
+             {"fused_conv_bn_act": INCEPTION_V3_CHAINS}, 22),
+            ("vgg", ZOO_VGG_B, {"fused_linear": VGG_FC_CHAINS}, 23)):
+        hw = ZOO_HW[name]
+        sym = mx.models.get_symbol(name, num_classes=ZOO_CLASSES)
+        args, aux = _zoo_params(sym, {"data": (1, 3, hw, hw),
+                                      "softmax_label": (1,)}, seed)
+        _, _, got, _, model = _zoo_predict(K, dev, t0, name, sym, args, aux,
+                                           b, 2, hw, want)
+        launches.update(got)
+        del model
+        free_programs()
+        _zoo_against_host(dev, t0, name, sym, hw, args, aux, seed,
+                          train=False)
+    return dict(launches)
+
+
+def _bind_step(K, what, sym, shapes, fill, want):
+    """One ``simple_bind(mx.gpu(0))`` forward(is_train=True) and backward
+    with exactly ``want`` launches: the outputs have the inferred shapes
+    and are finite, and so are the gradients. ``fill(name, shape)`` gives
+    each argument's numpy value. Returns (outputs on the host, launches,
+    ms of the forward and backward)."""
+    import mxnet_tpu_torch as mx
+    exe = sym.simple_bind(mx.gpu(0), **shapes)
+    for n, arr in exe.arg_dict.items():
+        arr[:] = fill(n, arr.shape)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    w0 = time.perf_counter()
+    exe.forward(is_train=True)
+    exe.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - w0) * 1e3
+    got = _check_launches(K, "phase 7c %s" % what, want)
+    _, out_shapes, _ = sym.infer_shape(**shapes)
+    outs = [o.asnumpy() for o in exe.outputs]
+    if [o.shape for o in outs] != [tuple(s) for s in out_shapes] \
+            or not all(np.isfinite(o).all() for o in outs) \
+            or not all(torch.isfinite(g._tensor).all()
+                       for g in exe.grad_dict.values()):
+        raise AssertionError("phase 7c %s: outputs %s against the inferred "
+                             "%s, or not finite" % (
+                                 what, [o.shape for o in outs], out_shapes))
+    del exe
+    return outs, got, ms
+
+
+def zoo_simple_binds(K, dev, t0):
+    """7c.3: AlexNet (LRN; B=ZOO_ALEX_B, exactly 2 fused_linear a forward),
+    FCN-32s (Deconvolution, Crop; B=ZOO_FCN_B at 224 x 224, labels with
+    the ignored 255) and the unrolled LSTM at lstm_ptb.py's defaults, one
+    simple_bind forward/backward each on the card: the inferred shapes,
+    finite outputs and gradients; the FCN's per-pixel and the LSTM's
+    per-step probabilities sum to 1."""
+    import mxnet_tpu_torch as mx
+    import mxnet_tpu_torch.models  # noqa: F401  (mx.models)
+    launches = collections.Counter()
+    rs = np.random.RandomState(31)
+    hw = ZOO_HW["alexnet"]
+    sym = mx.models.get_symbol("alexnet", num_classes=ZOO_CLASSES)
+    shapes = {"data": (ZOO_ALEX_B, 3, hw, hw),
+              "softmax_label": (ZOO_ALEX_B,)}
+    args, _ = _zoo_params(sym, shapes, 24)
+    args["data"] = rs.rand(*shapes["data"]).astype(np.float32)
+    args["softmax_label"] = rs.randint(0, ZOO_CLASSES, ZOO_ALEX_B
+                                       ).astype(np.float32)
+    outs, got, ms = _bind_step(K, "alexnet", sym, shapes,
+                               lambda n, s: args[n],
+                               {"fused_linear": ALEXNET_FC_CHAINS})
+    launches.update(got)
+    if not np.allclose(outs[0].sum(axis=1), 1.0, atol=1e-4):
+        raise AssertionError("phase 7c alexnet: rows do not sum to 1")
+    _line7c(t0, "alexnet", "AlexNet (LRN) simple_bind(mx.gpu(0), data=%s) "
+            "f32 forward/backward %.1f ms, outputs %s finite, %d "
+            "fused_linear a forward" % (shapes["data"], ms, outs[0].shape,
+                                        ALEXNET_FC_CHAINS))
+    free_programs()
+
+    hw = ZOO_HW["fcn-xs"]
+    sym = mx.models.get_symbol("fcn-xs", num_classes=FCN_CLASSES)
+    shapes = {"data": (ZOO_FCN_B, 3, hw, hw),
+              "softmax_label": (ZOO_FCN_B, hw, hw)}
+    args, _ = _zoo_params(sym, shapes, 25)
+    args["data"] = rs.rand(*shapes["data"]).astype(np.float32)
+    label = rs.randint(0, FCN_CLASSES, shapes["softmax_label"])
+    label[:, :8] = 255
+    args["softmax_label"] = label.astype(np.float32)
+    outs, got, ms = _bind_step(K, "fcn-32s", sym, shapes,
+                               lambda n, s: args[n], {})
+    launches.update(got)
+    if not np.allclose(outs[0].sum(axis=1), 1.0, atol=1e-4):
+        raise AssertionError("phase 7c fcn-32s: pixels do not sum to 1")
+    _line7c(t0, "fcn-32s", "FCN-32s (Deconvolution 64x64/32, Crop) "
+            "simple_bind(mx.gpu(0), data=%s) f32 forward/backward %.1f ms, "
+            "outputs %s finite, per-pixel probabilities sum to 1" % (
+                shapes["data"], ms, outs[0].shape))
+    free_programs()
+
+    p = LSTM_PTB
+    sym = mx.models.lstm_unroll(**p)
+    shapes = {"data": (LSTM_B, p["seq_len"])}
+    for i in range(p["num_lstm_layer"]):
+        shapes["l%d_init_c" % i] = shapes["l%d_init_h" % i] = \
+            (LSTM_B, p["num_hidden"])
+    for t in range(p["seq_len"]):
+        shapes["t%d_label" % t] = (LSTM_B,)
+
+    def fill(n, s):
+        if n == "data" or n.endswith("_label"):
+            return rs.randint(0, p["input_size"], s).astype(np.float32)
+        if "init" in n:
+            return np.zeros(s, np.float32)
+        return rs.uniform(-0.1, 0.1, s).astype(np.float32)
+
+    outs, got, ms = _bind_step(K, "lstm", sym, shapes, fill, {})
+    launches.update(got)
+    if len(outs) != p["seq_len"] or not all(
+            np.allclose(o.sum(axis=1), 1.0, atol=1e-4) for o in outs):
+        raise AssertionError("phase 7c lstm: per-step probabilities")
+    _line7c(t0, "lstm", "lstm_unroll (%d layers, %d hidden, %d embed, seq "
+            "%d, vocab %d) simple_bind(mx.gpu(0), batch %d) f32 "
+            "forward/backward %.1f ms: %d step heads %s, finite, each "
+            "step's probabilities sum to 1" % (
+                p["num_lstm_layer"], p["num_hidden"], p["num_embed"],
+                p["seq_len"], p["input_size"], LSTM_B, ms, len(outs),
+                outs[0].shape))
+    free_programs()
+    return dict(launches)
+
+
+def sae_symbol(dims, sparse_pen):
+    """``example/autoencoder/mnist_sae.py``'s ``autoencoder_symbol`` built
+    with the port's ``mx.symbol`` (the example imports the JAX
+    package)."""
+    import mxnet_tpu_torch as mx
+    data = mx.symbol.Variable("data")
+    x = data
+    for i, d in enumerate(dims[1:]):
+        x = mx.symbol.FullyConnected(data=x, name="enc_%d" % i, num_hidden=d)
+        x = mx.symbol.Activation(data=x, act_type="relu",
+                                 name="enc_act_%d" % i)
+        if sparse_pen > 0:
+            x = mx.symbol.IdentityAttachKLSparseReg(
+                data=x, penalty=sparse_pen, name="sparse_%d" % i)
+    for i, d in reversed(list(enumerate(dims[:-1]))):
+        x = mx.symbol.FullyConnected(data=x, name="dec_%d" % i, num_hidden=d)
+        if i != 0:
+            x = mx.symbol.Activation(data=x, act_type="relu",
+                                     name="dec_act_%d" % i)
+    return mx.symbol.LinearRegressionOutput(data=x, name="softmax")
+
+
+def zoo_sparse_autoencoder(K, dev, t0):
+    """7c.4: mnist_sae.py's sparse autoencoder (dims 784,256,64, its
+    seeded data, batch 100, lr 0.02 momentum 0.9) with
+    IdentityAttachKLSparseReg (penalty SAE_PEN) and LinearRegressionOutput:
+    one FeedForward(ctx=mx.gpu(0)).fit epoch on the default loop, exactly
+    3 fused_linear a step (enc_0, enc_1, dec_1; and a run of the step
+    program's warm-ups), the last batch's MSE below the first's, and each
+    moving_avg moved off its initial 0."""
+    rng = np.random.RandomState(0)
+    d0 = SAE_DIMS[0]
+    base = rng.rand(20, d0).astype(np.float32) / 20.0
+    coef = rng.rand(SAE_N, 20).astype(np.float32)
+    x = coef @ base + 0.02 * rng.rand(SAE_N, d0).astype(np.float32)
+    sym = sae_symbol(SAE_DIMS, SAE_PEN)
+    w0 = time.perf_counter()
+    stamps, mse, got, trainer, model = _fit_on_card(
+        K, sym, x, x.copy(), None, None, True, SAE_B, 1, SAE_LR, "mse",
+        shuffle=True)
+    secs = time.perf_counter() - w0
+    from mxnet_tpu_torch.parallel.program import WARMUP
+    steps = SAE_N // SAE_B
+    # the step program's first call runs it WARMUP times before capturing
+    # it (the capture launches nothing), then replays it once a step
+    got = _check_launches(K, "phase 7c sparse autoencoder fit", {
+        "fused_linear": SAE_FC_CHAINS * (steps + WARMUP)})
+    avg = {n: v.asnumpy() for n, v in model.aux_params.items()
+           if n.endswith("moving_avg")}
+    if trainer is None or len(mse) != steps \
+            or not all(math.isfinite(v) for v in mse) \
+            or not mse[-1] < mse[0] or len(avg) != len(SAE_DIMS) - 1 \
+            or not all(np.isfinite(v).all() and np.abs(v).max() > 0
+                       for v in avg.values()):
+        raise AssertionError("phase 7c sparse autoencoder: fused loop %s, "
+                             "MSE a batch %r, moving averages %r" % (
+                                 trainer is not None, mse[::10], avg))
+    _line7c(t0, "sae", "mnist_sae.py's autoencoder %s with "
+            "IdentityAttachKLSparseReg(penalty=%g) and "
+            "LinearRegressionOutput, FeedForward(ctx=mx.gpu(0)).fit one "
+            "epoch of %d batches of %d (fused loop; %d fused_linear a step "
+            "and in each of the step program's %d warm-ups): %.3f s; MSE "
+            "first batch %.6f, last %.6f; moving_avg means %s; launches %s"
+            % (
+                ",".join(map(str, SAE_DIMS)), SAE_PEN, steps, SAE_B,
+                SAE_FC_CHAINS, WARMUP, secs,
+                mse[0], mse[-1], {n: round(float(v.mean()), 5)
+                                  for n, v in sorted(avg.items())},
+                json.dumps({e: n for e, n in got.items() if n})))
+    del trainer, model
+    return got
+
+
+def zoo_main_path(K, dev):
+    """Phase 7c, the model zoo through the classic API: Inception-BN's
+    fit, predict, score and card-against-host checks (the slice's main
+    path), Inception-v3 and VGG-16 predict, AlexNet, FCN-32s and the
+    unrolled LSTM through simple_bind, and the sparse autoencoder's fit.
+    Returns the launches of its gated runs."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    for part in (zoo_inception_bn, zoo_predict_paths, zoo_simple_binds,
+                 zoo_sparse_autoencoder):
+        launches.update(part(K, dev, t0))
+        free_programs()
+    _line7c(t0, "done", "launches %s" % json.dumps(
+        {e: n for e, n in launches.items() if n}))
+    return dict(launches)
+
+
+def _time_stats(timer, K, x, w):
+    """matmul_stats at x [M, K], w [N, K]: (kernel, plain, library ms,
+    bound ms, bound by, max |y err|), after holding y to its plain
+    version."""
+    y, _, _ = K.matmul_stats_fwd(x, w)
+    err = compare("matmul_stats y M=%d K=%d N=%d %s" % (
+        x.shape[0], x.shape[1], w.shape[0], x.dtype), y,
+        K.matmul_stats_plain(x, w)[0])
+
+    def lib_stats():
+        out = torch.matmul(x, w.t())
+        return out.sum(dim=0, dtype=torch.float32), \
+            out.float().square().sum(dim=0)
+
+    m, kd = x.shape
+    n = w.shape[0]
+    bms, by = bound_ms(nbytes(x, w, y) + 2 * 4 * n,
+                       2 * m * n * kd + 3 * m * n, x.dtype)
+    return (timer(lambda: K.matmul_stats_fwd(x, w)),
+            timer(lambda: K.matmul_stats_plain(x, w)), timer(lib_stats),
+            bms, by, err)
+
+
+def time_zoo_kernels(K, dev, gen, timed):
+    """The f32 shapes phase 7c puts on a path, and the f32 shapes of
+    phase 7b that were timed only elsewhere (rows of the kernels line):
+    ``fused_conv_bn_act`` at Inception-v3's first 1x7 (in_b1, B=64) and at
+    Inception-BN's 3x3 stride-2 conv (in3c, B=256), both on the implicit
+    GEMM, x channels-last; ``matmul_stats`` at Inception-BN's widest
+    pointwise chain of the legacy fit (B=64), and ResNet-50's 33 pointwise
+    chains of a legacy-fit step (B=64; each distinct shape timed once and
+    counted as often as a step runs it, the row the sum a step);
+    ``fused_linear`` at VGG-16's fc6 (M=64, K=25088, N=4096, relu); flash
+    dQ and dK/dV at B=8 T=1024 H=12 D=64 causal (the Executor's LM step of
+    phase 7b) beside SDPA f32's backward. Each is held to its plain
+    version first (TOL[f32]); inputs drawn on the card from ``gen``; TF32
+    off."""
+    import torch.nn.functional as F
+    timer = Timer(dev)
+    f32 = torch.float32
+    convs = {c["name"]: c for c in zoo_convs("inception-v3", ZOO_V3_B)}
+    convs.update((c["name"], c) for c in zoo_convs("inception-bn",
+                                                    ZOO_PRED_B))
+    for tag, name in (("v3_1x7", "in_b1_1x7a_conv"),
+                      ("bn_3x3s2", "in3c_3x3_conv")):
+        c = convs[name]
+        xs, ws = c["x"], c["w"]
+        kw = dict(stride=c["stride"], pad=c["pad"], dilate=c["dilate"],
+                  act=c["act"])
+        x, w, sc, b = _conv_inputs(gen, xs, ws, f32, dev)
+        x = x.contiguous(memory_format=torch.channels_last)
+        out = K.fused_conv_bn_act(x, w, sc, b, **kw)
+        path = K.conv_algo(f32, xs[1], ws[2:], c["stride"], c["pad"],
+                           c["dilate"])
+        shape = "%s %dx%d/%d pad %s x=%s channels-last f32 %s (%s)" % (
+            name, ws[2], ws[3], c["stride"][0], c["pad"],
+            "x".join(map(str, xs)), c["act"], path)
+        err = compare("fused_conv_bn_act " + shape, out,
+                      K.fused_conv_bn_act_plain(x, w, sc, b, **kw))
+        wf = w * sc[:, None, None, None]
+        kms = timer(lambda: K.fused_conv_bn_act(x, w, sc, b, **kw))
+        pms = timer(lambda: K.fused_conv_bn_act_plain(x, w, sc, b, **kw))
+        lms = timer(lambda: torch.relu(F.conv2d(
+            x, wf, b, stride=c["stride"], padding=c["pad"])))
+        m = out.numel() // ws[0]
+        bms, by = bound_ms(nbytes(x, w, sc, b, out),
+                           2 * m * ws[0] * ws[1] * ws[2] * ws[3], f32)
+        log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f "
+            "ms (F.conv2d f32 with the scale folded, TF32 off, + relu)  "
+            "bound %.4f ms (%s); max |err| %.3g" % (
+                "fused_conv_bn_act", shape, kms, pms, lms, bms, by, err))
+        timed["fused_conv_bn_act"][tag] = {
+            "ms": kms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+            "bound_by": by, "shape": shape, "max_abs_err": err}
+        del x, w, sc, b, out, wf
+
+    pw = [c for c in zoo_convs("inception-bn", ZOO_FIT_B) if c["pointwise"]]
+    c = max(pw, key=lambda c: (c["w"][0], c["x"][0] * c["x"][2] * c["x"][3]))
+    m, kd, n = c["x"][0] * c["x"][2] * c["x"][3], c["w"][1], c["w"][0]
+    x = _rand(gen, (m, kd)).to(dev)
+    w = _rand(gen, (n, kd), scale=1.0 / math.sqrt(kd)).to(dev)
+    kms, pms, lms, bms, by, err = _time_stats(timer, K, x, w)
+    shape = "%s M=%d K=%d N=%d f32 (legacy fit B=%d)" % (
+        c["name"], m, kd, n, ZOO_FIT_B)
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(matmul f32 + two column sums)  bound %.4f ms (%s); max |err| "
+        "%.3g" % ("matmul_stats", shape, kms, pms, lms, bms, by, err))
+    timed["matmul_stats"]["bn_widest"] = {
+        "ms": kms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+        "bound_by": by, "shape": shape, "max_abs_err": err}
+
+    counts = collections.Counter(
+        (c["x"][0] * c["x"][2] * c["x"][3], c["w"][1], c["w"][0])
+        for c in resnet_convs(CLASSIC_RESNET_B) if c["pointwise"])
+    tot = [0.0, 0.0, 0.0, 0.0]
+    by_ops, err = 0.0, 0.0
+    for (m, kd, n), cnt in sorted(counts.items()):
+        x = _rand(gen, (m, kd)).to(dev)
+        w = _rand(gen, (n, kd), scale=1.0 / math.sqrt(kd)).to(dev)
+        kms, pms, lms, bms, by, e = _time_stats(timer, K, x, w)
+        for i, v in enumerate((kms, pms, lms, bms)):
+            tot[i] += cnt * v
+        by_ops += cnt * bms * (by == "operations")
+        err = max(err, e)
+        log("  matmul_stats ResNet-50 legacy fit M=%d K=%d N=%d f32, %d a "
+            "step: kernel %.4f ms  plain %.4f ms  library %.4f ms  bound "
+            "%.4f ms (%s)" % (m, kd, n, cnt, kms, pms, lms, bms, by))
+    by = "operations" if by_ops >= tot[3] / 2 else "bytes"
+    shape = "ResNet-50 legacy fit B=%d f32, %d chains a step (%d shapes), " \
+        "the sum a step" % (CLASSIC_RESNET_B, sum(counts.values()),
+                            len(counts))
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(matmul f32 + two column sums)  bound %.4f ms (mostly %s); max "
+        "|err| %.3g" % ("matmul_stats", shape, tot[0], tot[1], tot[2],
+                        tot[3], by, err))
+    timed["matmul_stats"]["resnet_fit_f32"] = {
+        "ms": tot[0], "plain_ms": tot[1], "library_ms": tot[2],
+        "bound_ms": tot[3], "bound_by": by, "shape": shape,
+        "max_abs_err": err}
+    del x, w
+
+    m, kd, n = ZOO_VGG_B, 512 * 7 * 7, 4096
+    x = _rand(gen, (m, kd)).to(dev)
+    w = _rand(gen, (n, kd), scale=1.0 / math.sqrt(kd)).to(dev)
+    bias = _rand(gen, (n,), scale=0.1).to(dev)
+    out = K.fused_linear_fwd(x, w, bias, "relu")
+    shape = "VGG-16 fc6 M=%d K=%d N=%d f32 relu" % (m, kd, n)
+    err = compare("fused_linear " + shape, out,
+                  K.fused_linear_plain(x, w, bias, "relu"))
+    kms = timer(lambda: K.fused_linear_fwd(x, w, bias, "relu"))
+    pms = timer(lambda: K.fused_linear_plain(x, w, bias, "relu"))
+    lms = timer(lambda: torch.relu(F.linear(x, w, bias)))
+    bms, by = bound_ms(nbytes(x, w, bias, out), 2 * m * n * kd, f32)
+    log("time %-22s %-34s kernel %.4f ms  plain %.4f ms  library %.4f ms "
+        "(F.linear f32, TF32 off, + relu)  bound %.4f ms (%s); max |err| "
+        "%.3g" % ("fused_linear", shape, kms, pms, lms, bms, by, err))
+    timed["fused_linear"]["vgg_fc6"] = {
+        "ms": kms, "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+        "bound_by": by, "shape": shape, "max_abs_err": err}
+    del x, w, bias, out
+
+    b, t, h, d = 8, 1024, 12, 64
+    q, k, v, do = _flash_inputs(gen, b, t, h, d, f32, dev)
+    o, lse = K.flash_attention_fwd(q, k, v, causal=True)
+    grads = K.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    grads_p = K.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    shape = "B=8 T=1024 H=12 D=64 causal f32"
+    errs = [compare("flash %s %s" % (nm, shape), g_, w_)
+            for nm, g_, w_ in zip(("dq", "dk", "dv"), grads, grads_p)]
+    del grads, grads_p
+    dcap = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
+    cfg = K._flash_kernel_args("flash_attention_dq", q, k, v) \
+        + (1.0 / math.sqrt(d), 1, 0, K._CODE[f32])
+    P = K._ptr
+    ms = {"flash_attention_dq": timer(lambda: K._launch(
+        "flash_attention_dq", P(q), P(k), P(v), P(o), P(do), P(lse),
+        P(dcap), P(dq), *cfg)),
+        "flash_attention_dkv": timer(lambda: K._launch(
+            "flash_attention_dkv", P(q), P(k), P(v), P(do), P(lse),
+            P(dcap), P(dk), P(dv), *cfg))}
+    pms = timer(lambda: K.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    True))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    qg, kg, vg = (a.detach().clone().requires_grad_() for a in (qt, kt, vt))
+    gt = do.transpose(1, 2)
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    lib_bwd = timer(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True).backward(gt)) - lib_fwd
+    pairs, row = t * (t + 1) // 2 * b * h, nbytes(q)
+    for name, flops, e in (("flash_attention_dq", 6 * d * pairs, errs[0]),
+                           ("flash_attention_dkv", 8 * d * pairs,
+                            max(errs[1:]))):
+        bms, by = bound_ms(6 * row + 2 * nbytes(lse), flops, f32)
+        log("time %-22s %-34s kernel %.4f ms  plain %.4f ms (whole "
+            "backward)  library %.4f ms (SDPA f32 fwd+bwd - fwd, TF32 off)  "
+            "bound %.4f ms (%s); max |err| %.3g" % (
+                name, shape, ms[name], pms, lib_bwd, bms, by, e))
+        timed[name]["f32_b8"] = {
+            "ms": ms[name], "plain_ms": pms, "library_ms": lib_bwd,
+            "bound_ms": bms, "bound_by": by, "shape": shape,
+            "max_abs_err": e}
+
+
 def ptxas_summary(K, name, rows=None):
     """The build log of source ``name`` (or its ``K.ptxas_report`` rows)
     in a few lines: its compiled functions, their largest register count,
@@ -7713,6 +8558,7 @@ def main():
     timed.update(time_cnn_kernels(K, dev, dgen, worst))
     timed.update(time_striped_pair(K, dev, gen, worst))
     time_classic_kernels(K, dev, gen, timed)
+    time_zoo_kernels(K, dev, dgen, timed)
     launches, prefix, work, streams = serve_main_path(K, dev)
     free_programs()
     launches["paged_attention_decode"] = serve_default_path(
@@ -7765,6 +8611,10 @@ def main():
     classic = classic_main_path(K, dev, prefix, work, streams)
     for e, n in classic.items():
         launches[e] += n
+    free_programs()
+    zoo = zoo_main_path(K, dev)
+    for e, n in zoo.items():
+        launches[e] += n
     replaces = {
         "paged_attention": 1115, "paged_attention_chunk": 1115,
         "paged_attention_decode": 1115,
@@ -7794,11 +8644,13 @@ def main():
         bound_ms=timed[e]["bound_ms"], bound_by=timed[e]["bound_by"],
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
         moe_launches=moe.get(e, 0), fit_launches=fit.get(e, 0),
-        classic_launches=classic.get(e, 0),
+        classic_launches=classic.get(e, 0), zoo_launches=zoo.get(e, 0),
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",
                                     "int8", "c4", "c5", "m160", "moe",
-                                    "lm_f32")
+                                    "lm_f32", "f32_b8", "v3_1x7",
+                                    "bn_3x3s2", "bn_widest",
+                                    "resnet_fit_f32", "vgg_fc6")
            if k in timed[e]})
         for e in K.SOURCE]}
     log("chip_smoke: every phase passed in %.1f s"

@@ -1,12 +1,16 @@
-"""Neural-network operators: those of the transformer LM and of ResNet.
+"""Neural-network operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: ``FullyConnected`` (l.79),
-``Convolution`` (l.126), ``Activation`` (l.277), ``LeakyReLU`` (l.301),
-``BatchNorm`` (l.457) with its hand-derived training backward (l.343),
-``Pooling`` (l.506), ``Dropout`` (l.595) and ``Embedding`` (l.643), after
-the reference's ``fully_connected-inl.h``, ``convolution-inl.h``,
-``activation-inl.h``, ``leaky_relu-inl.h``, ``batch_norm-inl.h``,
-``pooling-inl.h``, ``dropout-inl.h`` and ``embedding-inl.h``.
+``Convolution`` (l.126), ``Deconvolution`` (l.200), ``Activation``
+(l.277), ``LeakyReLU`` (l.301), ``BatchNorm`` (l.457) with its
+hand-derived training backward (l.343), ``Pooling`` (l.506), ``Dropout``
+(l.595), ``LRN`` (l.616), ``Embedding`` (l.643), ``UpSampling`` (l.671)
+and ``SoftmaxActivation`` (l.739), after the reference's
+``fully_connected-inl.h``, ``convolution-inl.h``,
+``deconvolution-inl.h``, ``activation-inl.h``, ``leaky_relu-inl.h``,
+``batch_norm-inl.h``, ``pooling-inl.h``, ``dropout-inl.h``,
+``lrn-inl.h``, ``embedding-inl.h``, ``upsampling-inl.h`` and
+``softmax_activation-inl.h``.
 """
 from __future__ import annotations
 
@@ -131,6 +135,52 @@ class Convolution(OpSpec):
         return [F.conv2d(ins[0], ins[1], None if p["no_bias"] else ins[2],
                          stride=p["stride"], padding=p["pad"],
                          dilation=p["dilate"], groups=p["num_group"])], []
+
+
+@register
+class Deconvolution(OpSpec):
+    """Transposed convolution (``deconvolution-inl.h``): the gradient of
+    Convolution with respect to its input, as a forward op; out =
+    s * (H - 1) + k - 2p. One ``F.conv_transpose2d``, whose weight layout
+    ``(C_in, num_filter / num_group, kh, kw)`` is the reference's (the
+    JAX package's ``lax.conv_general_dilated`` with the input dilated by
+    the stride and the kernel flipped)."""
+
+    name = "Deconvolution"
+    params = {
+        "kernel": Param("shape"),
+        "num_filter": Param("int"),
+        "stride": Param("shape", (1, 1)),
+        "pad": Param("shape", (0, 0)),
+        "num_group": Param("int", 1),
+        "workspace": Param("int", 512),
+        "no_bias": Param("bool", True),
+    }
+
+    def arguments(self, p):
+        return ["data", "weight"] if p["no_bias"] else ["data", "weight", "bias"]
+
+    def infer_shape(self, p, in_shapes):
+        ins = list(in_shapes)
+        d = ins[0]
+        kh, kw = p["kernel"]
+        if d is not None:
+            ins[1] = shape_assign(
+                ins[1], (d[1], p["num_filter"] // p["num_group"], kh, kw),
+                "Deconvolution weight")
+        if not p["no_bias"]:
+            ins[2] = shape_assign(ins[2], (p["num_filter"],), "Deconv bias")
+        if d is None:
+            return ins, [None], []
+        oh = p["stride"][0] * (d[2] - 1) + kh - 2 * p["pad"][0]
+        ow = p["stride"][1] * (d[3] - 1) + kw - 2 * p["pad"][1]
+        return ins, [(d[0], p["num_filter"], oh, ow)], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        return [F.conv_transpose2d(
+            ins[0], ins[1], None if p["no_bias"] else ins[2],
+            stride=p["stride"], padding=p["pad"],
+            groups=p["num_group"])], []
 
 
 @register
@@ -401,6 +451,31 @@ class Dropout(OpSpec):
 
 
 @register
+class LRN(OpSpec):
+    """Local response normalization across channels (``lrn-inl.h``),
+    AlexNet's: ``out = x * (knorm + alpha / n * sum(x^2))^-beta``, the
+    sum over a window of ``nsize`` channels padded ``(n // 2, n - 1 -
+    n // 2)``, as the JAX package pads it (asymmetric for an even n)."""
+
+    name = "LRN"
+    params = {"alpha": Param("float", 1e-4),
+              "beta": Param("float", 0.75),
+              "knorm": Param("float", 2.0),
+              "nsize": Param("int")}
+
+    def infer_shape(self, p, in_shapes):
+        return same_shape_infer(p, in_shapes)
+
+    def forward(self, p, ins, aux, is_train, generator):
+        x = ins[0]
+        n = p["nsize"]
+        sq = F.pad(x * x, (0, 0, 0, 0, n // 2, n - 1 - n // 2))
+        ssum = sq.unfold(1, n, 1).sum(dim=-1)
+        scale = p["knorm"] + (p["alpha"] / n) * ssum
+        return [x * torch.pow(scale, -p["beta"])], []
+
+
+@register
 class Embedding(OpSpec):
     """Index lookup table (``embedding-inl.h``): data of indices ->
     data.shape + (output_dim,)."""
@@ -427,3 +502,79 @@ class Embedding(OpSpec):
         # the indices are never differentiated (an integer tensor, or a
         # float one detached first); the table's gradient scatter-adds
         return [ins[1][ins[0].detach().long()]], []
+
+
+@register
+class UpSampling(OpSpec):
+    """Nearest or bilinear upsampling (``upsampling-inl.h``). Nearest takes
+    ``num_args`` inputs, each repeated up to the first input's target size,
+    then concatenated on the channels or summed (``multi_input_mode``);
+    bilinear is a depthwise transposed conv with the ``(C, 1, k, k)``
+    weight input, ``k = 2s - s % 2``, at the JAX package's padding
+    (nn.py l.711-724)."""
+
+    name = "UpSampling"
+    params = {"scale": Param("int"),
+              "num_args": Param("int", 1),
+              "sample_type": Param("str", "nearest"),
+              "num_filter": Param("int", 0),
+              "multi_input_mode": Param("str", "concat"),
+              "workspace": Param("int", 512)}
+
+    def arguments(self, p):
+        if p["sample_type"] == "bilinear":
+            return ["data", "weight"]
+        return ["arg%d" % i for i in range(p["num_args"])] \
+            if p["num_args"] > 1 else ["data"]
+
+    def infer_shape(self, p, in_shapes):
+        s = p["scale"]
+        ins = list(in_shapes)
+        d = ins[0]
+        if p["sample_type"] == "bilinear":
+            k = 2 * s - s % 2
+            if d is not None:
+                ins[1] = shape_assign(ins[1], (d[1], 1, k, k),
+                                      "UpSampling weight")
+        if d is None:
+            return ins, [None], []
+        c = d[1]
+        if p["sample_type"] == "nearest" and p["num_args"] > 1 \
+                and p["multi_input_mode"] == "concat":
+            if any(sh is None for sh in in_shapes):
+                return ins, [None], []
+            c = sum(sh[1] for sh in in_shapes)
+        return ins, [(d[0], c, d[2] * s, d[3] * s)], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        s = p["scale"]
+        if p["sample_type"] == "bilinear":
+            x, w = ins
+            k = 2 * s - s % 2
+            pad = (s + 1) // 2 - 1 + (k - 1) // 2
+            return [F.conv_transpose2d(x, w, stride=s, padding=pad,
+                                       groups=x.shape[1])], []
+        th, tw = ins[0].shape[2] * s, ins[0].shape[3] * s
+        outs = [x.repeat_interleave(th // x.shape[2], dim=2)
+                .repeat_interleave(tw // x.shape[3], dim=3) for x in ins]
+        if len(outs) == 1:
+            return outs, []
+        if p["multi_input_mode"] == "sum":
+            return [sum(outs[1:], outs[0])], []
+        return [torch.cat(outs, dim=1)], []
+
+
+@register
+class SoftmaxActivation(OpSpec):
+    """Softmax as a differentiable layer (``softmax_activation-inl.h``):
+    ``mode="instance"`` over the last axis, ``"channel"`` over axis 1."""
+
+    name = "SoftmaxActivation"
+    params = {"mode": Param("str", "instance")}
+
+    def infer_shape(self, p, in_shapes):
+        return same_shape_infer(p, in_shapes)
+
+    def forward(self, p, ins, aux, is_train, generator):
+        axis = 1 if p["mode"] == "channel" else -1
+        return [torch.softmax(ins[0], dim=axis)], []

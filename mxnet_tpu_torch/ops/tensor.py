@@ -1,9 +1,14 @@
-"""Structural and elementwise operators: the subset the transformer LM uses.
+"""Structural and elementwise operators.
 
 Counterpart of ``mxnet_tpu/ops/tensor.py``: the binary ops and their
-scalar forms (l.40-73), ``ElementWiseSum`` (l.109), ``Reshape`` (l.131),
-``Flatten`` (l.184), ``SpaceToDepth`` (l.269), ``SwapAxis`` (l.306),
-``Cast`` (l.325), ``BlockGrad`` (l.342) and ``Crop`` (l.355).
+scalar forms (l.24-72), the unary zoo (l.76-105), ``ElementWiseSum``
+(l.109), ``Reshape`` (l.131), ``Flatten`` (l.184), ``Concat`` (l.200),
+``SliceChannel`` (l.232), ``SpaceToDepth`` (l.269), ``SwapAxis``
+(l.306), ``Cast`` (l.325), ``BlockGrad`` (l.342) and ``Crop`` (l.355).
+Where PyTorch's derivative differs from JAX's, the op is written so that
+autograd takes JAX's: ``abs`` sends the gradient through its ``x >= 0``
+branch (``jax.grad(jnp.abs)(0.) == 1``), and a max or min against a
+scalar splits a tie's gradient in halves, as ``jnp.maximum`` does.
 """
 from __future__ import annotations
 
@@ -35,6 +40,9 @@ _binary_op("_Plus", torch.add)
 _binary_op("_Minus", torch.sub)
 _binary_op("_Mul", torch.mul)
 _binary_op("_Div", torch.div)
+_binary_op("_Power", torch.pow)
+_binary_op("_Maximum", torch.maximum)
+_binary_op("_Minimum", torch.minimum)
 
 
 def _scalar_op(opname, fn):
@@ -58,6 +66,42 @@ _scalar_op("_RMinusScalar", lambda x, s: s - x)
 _scalar_op("_MulScalar", lambda x, s: x * s)
 _scalar_op("_DivScalar", lambda x, s: x / s)
 _scalar_op("_RDivScalar", lambda x, s: s / x)
+_scalar_op("_PowerScalar", lambda x, s: torch.pow(x, s))
+_scalar_op("_RPowerScalar", lambda x, s: torch.pow(s, x))
+# against a 0-dim tensor, not clamp: a tie's gradient splits in halves
+_scalar_op("_MaximumScalar", lambda x, s: torch.maximum(
+    x, torch.tensor(s, dtype=x.dtype, device=x.device)))
+_scalar_op("_MinimumScalar", lambda x, s: torch.minimum(
+    x, torch.tensor(s, dtype=x.dtype, device=x.device)))
+
+
+def _unary_op(opname, fn):
+    @register
+    class _Un(OpSpec):
+        name = opname
+
+        def infer_shape(self, p, in_shapes):
+            return same_shape_infer(p, in_shapes)
+
+        def forward(self, p, ins, aux, is_train, generator):
+            return [fn(ins[0]).to(ins[0].dtype)], []
+    _Un.__name__ = "Op" + opname
+    return _Un
+
+
+# the unary zoo (both mx.nd.* and mx.sym.* in the reference)
+_unary_op("abs", lambda x: torch.where(x >= 0, x, -x))
+_unary_op("sign", torch.sign)
+_unary_op("round", torch.round)     # half to even, as jnp.round
+_unary_op("ceil", torch.ceil)
+_unary_op("floor", torch.floor)
+_unary_op("square", torch.square)
+_unary_op("sqrt", torch.sqrt)
+_unary_op("rsqrt", lambda x: 1.0 / torch.sqrt(x))
+_unary_op("exp", torch.exp)
+_unary_op("log", torch.log)
+_unary_op("cos", torch.cos)
+_unary_op("sin", torch.sin)
 
 
 @register
@@ -144,6 +188,78 @@ class Flatten(OpSpec):
     def forward(self, p, ins, aux, is_train, generator):
         x = ins[0]
         return [x.reshape(x.shape[0], -1)], []
+
+
+@register
+class Concat(OpSpec):
+    """Concatenate along ``dim`` (``concat-inl.h``)."""
+
+    name = "Concat"
+    params = {"num_args": Param("int"), "dim": Param("int", 1)}
+
+    def arguments(self, p):
+        return ["arg%d" % i for i in range(p["num_args"])]
+
+    def infer_shape(self, p, in_shapes):
+        dim = p["dim"]
+        if any(s is None for s in in_shapes):
+            return list(in_shapes), [None], []
+        ndim = len(in_shapes[0])
+        out = list(in_shapes[0])
+        total = 0
+        for s in in_shapes:
+            if len(s) != ndim:
+                raise MXNetError("Concat: ndim mismatch")
+            for ax in range(ndim):
+                if ax != dim and s[ax] != out[ax]:
+                    raise MXNetError("Concat: shape mismatch %s vs %s"
+                                     % (s, tuple(out)))
+            total += s[dim]
+        out[dim] = total
+        return list(in_shapes), [tuple(out)], []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        # channels-last inputs give a channels-last result, which the next
+        # fused conv reads as its NHWC operand without a copy
+        return [torch.cat(ins, dim=p["dim"])], []
+
+
+@register
+class SliceChannel(OpSpec):
+    """Split along an axis into ``num_outputs`` equal pieces
+    (``slice_channel-inl.h``), the inverse of Concat; ``squeeze_axis``
+    drops the split axis when each piece has size 1 there."""
+
+    name = "SliceChannel"
+    params = {"num_outputs": Param("int"), "axis": Param("int", 1),
+              "squeeze_axis": Param("bool", False)}
+
+    def outputs(self, p):
+        return ["output%d" % i for i in range(p["num_outputs"])]
+
+    def infer_shape(self, p, in_shapes):
+        d = in_shapes[0]
+        n = p["num_outputs"]
+        if d is None:
+            return [None], [None] * n, []
+        ax = p["axis"]
+        if d[ax] % n != 0:
+            raise MXNetError("SliceChannel: dim %d not divisible by %d"
+                             % (d[ax], n))
+        piece = list(d)
+        piece[ax] //= n
+        if p["squeeze_axis"]:
+            if piece[ax] != 1:
+                raise MXNetError("SliceChannel: squeeze needs size-1 axis")
+            piece = piece[:ax] + piece[ax + 1:]
+        return [d], [tuple(piece)] * n, []
+
+    def forward(self, p, ins, aux, is_train, generator):
+        x, n, ax = ins[0], p["num_outputs"], p["axis"]
+        outs = torch.split(x, x.shape[ax] // n, dim=ax)
+        if p["squeeze_axis"]:
+            outs = [o.squeeze(ax) for o in outs]
+        return list(outs), []
 
 
 @register

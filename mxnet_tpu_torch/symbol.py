@@ -19,7 +19,7 @@ import json
 import numpy as np
 import torch
 
-from .base import MXNetError, later_slice, torch_dtype
+from .base import MXNetError, torch_dtype
 from .attribute import AttrScope
 from .name import NameManager
 from .ops import registry as _reg
@@ -466,16 +466,9 @@ def Group(symbols):
     return Symbol(heads)
 
 
-# operators of the JAX package's registry that the port has not yet
-_UNPORTED_OPS = ("_Power", "_PowerScalar", "_RPowerScalar", "_Maximum",
-                 "_MaximumScalar", "_Minimum", "_MinimumScalar")
-
-
 def _create(op_name, sym_args, kwargs):
     """Instantiate an operator node (the autogen atomic-symbol ctor path,
     reference symbol.py:914 _make_atomic_symbol_function)."""
-    if op_name in _UNPORTED_OPS and op_name not in REGISTRY:
-        raise later_slice("Symbol", "the operator %s" % op_name)
     spec = _reg.get(op_name)
     name = kwargs.pop("name", None)
     attr = kwargs.pop("attr", None)

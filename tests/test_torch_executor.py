@@ -386,10 +386,16 @@ def test_composition_copy_and_pickle():
         assert clone.tojson() == net.tojson() and clone is not net
     with pytest.raises(MXNetError):
         net()
-    with pytest.raises(MXNetError, match="later slice"):
-        net ** 2
-    with pytest.raises(MXNetError, match="later slice"):
-        mx.sym.pow(net, net)
+    # the power and max/min operators build the JAX package's nodes
+    jnet = jmx.sym.FullyConnected(data=jmx.sym.Variable("data"), name="fc",
+                                  num_hidden=3)
+    for build in (lambda m, n: n ** 2, lambda m, n: n ** n,
+                  lambda m, n: m.sym.pow(n, n), lambda m, n: m.sym.pow(3, n),
+                  lambda m, n: m.sym.maximum(n, n),
+                  lambda m, n: m.sym.minimum(n, 0.5),
+                  lambda m, n: m.sym.maximum(1.5, n)):
+        with mx.NameManager(), jmx.name.NameManager():
+            assert build(mx, net).tojson() == build(jmx, jnet).tojson()
     assert mx.sym.maximum(2, 3) == 3 and mx.sym.minimum(2, 3) == 2
     with pytest.raises(MXNetError, match="args_grad"):
         net.grad(["data"])

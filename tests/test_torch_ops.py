@@ -1,10 +1,11 @@
-"""The port's LM operators against the JAX package's, one by one.
+"""The port's operators against the JAX package's, one by one.
 
 Each case parses the same parameters in both registries, runs the
-inference forward on the same seeded numpy inputs and compares: shape
-inference and the JSON form of the parameters must be equal, outputs
-within 1e-6 in f32 (the elementwise ops and gathers are exact; the
-LayerNorm and FullyConnected sums may round in another order).
+inference forward on the same seeded numpy inputs (and aux states) and
+compares: shape inference and the JSON form of the parameters must be
+equal, outputs within 1e-6 in f32 (the elementwise ops and gathers are
+exact; the LayerNorm, FullyConnected, conv and window sums may round in
+another order). The two registries hold the same operators.
 """
 import numpy as np
 import pytest
@@ -53,7 +54,62 @@ CASES = [
      [("idx", (2, 3), 10), (10, 4)]),
     ("LayerNorm", {"eps": 1e-5}, [(2, 3, 8), (8,), (8,)]),
     ("PositionalEmbedding", {}, [(2, 5, 4), (5, 4)]),
+    # the rest of the registry: binary, scalar and unary ops
+    ("_Power", {}, [("pos", (3, 4)), (3, 4)]),
+    ("_Maximum", {}, [(3, 4), (3, 4)]),
+    ("_Minimum", {}, [(3, 4), (3, 4)]),
+    ("_PowerScalar", {"scalar": 2.0}, [(2, 5)]),
+    ("_PowerScalar", {"scalar": 0.5}, [("pos", (2, 5))]),
+    ("_RPowerScalar", {"scalar": 2.5}, [(2, 5)]),
+    ("_MaximumScalar", {"scalar": 0.7}, [(2, 5)]),
+    ("_MinimumScalar", {"scalar": -0.7}, [(2, 5)]),
+    ("abs", {}, [(3, 4)]),
+    ("sign", {}, [(3, 4)]),
+    ("round", {}, [(3, 4)]),
+    ("ceil", {}, [(3, 4)]),
+    ("floor", {}, [(3, 4)]),
+    ("square", {}, [(3, 4)]),
+    ("sqrt", {}, [("pos", (3, 4))]),
+    ("rsqrt", {}, [("pos", (3, 4))]),
+    ("exp", {}, [(3, 4)]),
+    ("log", {}, [("pos", (3, 4))]),
+    ("cos", {}, [(3, 4)]),
+    ("sin", {}, [(3, 4)]),
+    # structure
+    ("Concat", {"num_args": 3}, [(2, 3, 4), (2, 5, 4), (2, 1, 4)]),
+    ("Concat", {"num_args": 2, "dim": 0}, [(2, 3), (4, 3)]),
+    ("SliceChannel", {"num_outputs": 3}, [(2, 6, 4)]),
+    ("SliceChannel", {"num_outputs": 4, "axis": 1, "squeeze_axis": True},
+     [(2, 4, 3)]),
+    # nn
+    ("Deconvolution", {"kernel": (3, 3), "num_filter": 4},
+     [(2, 3, 5, 5), (3, 4, 3, 3)]),
+    ("Deconvolution", {"kernel": (4, 4), "stride": (2, 2), "pad": (1, 1),
+                       "num_filter": 4, "num_group": 2, "no_bias": False},
+     [(2, 4, 5, 6), (4, 2, 4, 4), (4,)]),
+    ("Deconvolution", {"kernel": (2, 3), "stride": (3, 2), "num_filter": 3},
+     [(1, 2, 4, 3), (2, 3, 2, 3)]),
+    ("LRN", {"nsize": 5}, [(2, 7, 3, 3)]),
+    ("LRN", {"nsize": 4, "alpha": 0.01, "beta": 0.5, "knorm": 1.0},
+     [(2, 6, 3, 3)]),
+    ("UpSampling", {"scale": 2}, [(2, 3, 4, 4)]),
+    ("UpSampling", {"scale": 2, "num_args": 2}, [(2, 3, 4, 4), (2, 2, 2, 2)]),
+    ("UpSampling", {"scale": 3, "num_args": 2, "multi_input_mode": "sum"},
+     [(1, 2, 2, 3), (1, 2, 2, 3)]),
+    ("UpSampling", {"scale": 2, "sample_type": "bilinear", "num_filter": 3},
+     [(2, 3, 4, 4), (3, 1, 4, 4)]),
+    ("SoftmaxActivation", {}, [(3, 5)]),
+    ("SoftmaxActivation", {"mode": "channel"}, [(2, 4, 3, 3)]),
+    # loss
+    ("LinearRegressionOutput", {}, [(4, 3), (4, 3)]),
+    ("LogisticRegressionOutput", {}, [(5, 1), (5,)]),
+    ("MAERegressionOutput", {"grad_scale": 2.0}, [(4, 3), (4, 3)]),
+    ("IdentityAttachKLSparseReg", {"penalty": 0.01}, [(4, 6)]),
 ]
+
+
+def _shape(s):
+    return s[1] if s and s[0] in ("idx", "pos") else s
 
 
 def _inputs(shapes, seed):
@@ -62,6 +118,8 @@ def _inputs(shapes, seed):
     for s in shapes:
         if s and s[0] == "idx":
             out.append(rng.randint(0, s[2], s[1]).astype(np.int32))
+        elif s and s[0] == "pos":
+            out.append((rng.rand(*s[1]) + 0.5).astype(np.float32))
         else:
             out.append((rng.rand(*s) + 0.5).astype(np.float32)
                        * rng.choice([-1.0, 1.0], s).astype(np.float32))
@@ -76,16 +134,19 @@ def test_op_matches_jax(i):
     jp, tp = jspec.parse_params(dict(kw)), tspec.parse_params(dict(kw))
     assert tspec.param_str(tp) == jspec.param_str(jp)
     assert tspec.arguments(tp) == jspec.arguments(jp)
-    in_shapes = [s[1] if s and s[0] == "idx" else s for s in shapes]
-    ji, jo, _ = jspec.infer_shape(jp, list(in_shapes))
-    ti, to, _ = tspec.infer_shape(tp, list(in_shapes))
+    in_shapes = [_shape(s) for s in shapes]
+    ji, jo, ja = jspec.infer_shape(jp, list(in_shapes))
+    ti, to, ta = tspec.infer_shape(tp, list(in_shapes))
     assert [tuple(s) for s in ti] == [tuple(s) for s in ji]
     assert [tuple(s) for s in to] == [tuple(s) for s in jo]
+    assert [tuple(s) for s in ta] == [tuple(s) for s in ja]
     xs = _inputs(shapes, i)
-    jout, _ = jspec.forward(jp, [jnp.asarray(x) for x in xs], [], False,
-                            None)
-    tout, _ = tspec.forward(tp, [torch.from_numpy(x) for x in xs], [],
-                            False, None)
+    aux = [np.random.RandomState(i).rand(*s).astype(np.float32) for s in ja]
+    jout, _ = jspec.forward(jp, [jnp.asarray(x) for x in xs],
+                            [jnp.asarray(a) for a in aux], False, None)
+    tout, _ = tspec.forward(tp, [torch.from_numpy(x) for x in xs],
+                            [torch.from_numpy(a) for a in aux], False, None)
+    assert len(tout) == len(jout) == len(to)
     for j, t in zip(jout, tout):
         j = np.asarray(j)
         assert tuple(t.shape) == j.shape == tuple(to[0])
@@ -108,8 +169,9 @@ def test_dropout_and_rrelu_draw_from_the_generator():
 
 
 def test_registry_rejects():
+    assert set(treg.REGISTRY) == set(jreg.REGISTRY)
     with pytest.raises(MXNetError):
-        treg.get("Deconvolution")
+        treg.get("NoSuchOperator")
     with pytest.raises(MXNetError):
         treg.get("FullyConnected").parse_params({"num_hiden": 3})
     with pytest.raises(MXNetError):

@@ -293,6 +293,34 @@ CALLABLES += [("%s.%s" % (getattr(j, "__name__", "?"), name),
                getattr(j, name), getattr(t, name))
               for j, t, names in CLASSIC for name in names]
 
+# the model zoo: every constructor of the JAX package's models
+import mxnet_tpu.models as jax_models  # noqa: E402
+import mxnet_tpu_torch.models as t_models  # noqa: E402
+
+ZOO = [
+    (jax_models, t_models, ["get_symbol", "get_mlp", "get_lenet",
+                            "get_alexnet", "get_vgg",
+                            "get_inception_bn_small", "get_inception_bn",
+                            "get_inception_v3", "get_googlenet",
+                            "lstm_unroll", "get_fcn_symbol"]),
+    (jax_models.inception, t_models.inception, ["conv_factory"]),
+    (jax_models.lstm, t_models.lstm, ["lstm_cell"]),
+    (jax_models.vgg, t_models.vgg, ["vgg_backbone"]),
+    (jax_models.fcn, t_models.fcn, ["_vgg_stage", "_score_head"]),
+]
+CALLABLES += [("%s.%s" % (j.__name__, name), getattr(j, name),
+               getattr(t, name)) for j, t, names in ZOO for name in names]
+
+
+@pytest.mark.parametrize("j,t,name", [(j, t, n) for j, t, names in ZOO
+                                      for n in names],
+                         ids=[n for _, _, names in ZOO for n in names])
+def test_zoo_defaults_follow_the_jax_package(j, t, name):
+    want = inspect.signature(getattr(j, name)).parameters.values()
+    got = inspect.signature(getattr(t, name)).parameters.values()
+    assert [(p.name, p.default) for p in got] == \
+        [(p.name, p.default) for p in want]
+
 
 @pytest.mark.parametrize("name,jax_fn,port_fn", CALLABLES,
                          ids=[c[0] for c in CALLABLES])
