@@ -321,6 +321,32 @@ Phases:
    2e-2 by norm); the 9 optimizers' functional updates card against host;
    ``SoftmaxCELoss`` at [8192, 32000] bf16 card against host, and its
    forward's and backward's card time;
+5d. the other parallelisms at phase 5's width (each check on its own
+   ``phase 5d`` line, the phase's seconds last; ranks share the one
+   card): (1) ``ParallelTrainer`` on the mesh {dp: 2} over [cuda:0] * 2,
+   bf16 over f32 masters, SGD lr 1e-3 momentum 0.9, B=8, T=1024: 3
+   warm-up and 6 timed steps with exactly 24 launches of each flash entry
+   a step and none of ``fused_linear`` (no chain fuses on a multi-rank
+   mesh), a falling loss, tokens/s, ms per step and peak memory; a
+   captured step equal to an uncaptured one bitwise; one f32 step of the
+   mesh trainer against the one-device f32 trainer from the same weights
+   (deltas within 2e-2 by norm: f32, where the ReLU kink rule holds);
+   (2) AdamW at dp=2, 3 steps each of plain, ``zero1=True`` and
+   ``fsdp=True``: each against plain (bitwise or not, printed; deltas
+   within 2e-2 by norm) and each rank's stored bytes (zero1: half the
+   state plus the padding; fsdp: half the parameters and half the
+   state); (3) one step with ``remat=True`` against ``remat=False``,
+   both peak memories; (4) ``PipelineTrainer`` on
+   ``pipeline_stages=4`` over {pp: 4} ([cuda:0] * 4), f32, B=8, T=1024,
+   M=8: GPipe and 1F1B, 2 warm-up and 4 timed steps each, exactly 96
+   launches of each flash entry a step (1F1B: 192 of the forward, its
+   backward recomputing each stage), a falling loss, tokens/s, peak
+   memory, 1F1B's peak below GPipe's, one step of each against the
+   one-device f32 trainer on the untagged LM (deltas within 2e-2 by
+   norm), and the same for GPipe on {dp: 2, pp: 2} over [cuda:0] * 4;
+   (5) ``FeedForward(ctx=[gpu(0)] * 2)`` fitting the zoo's MLP on
+   synthetic data through the fused loop against ``ctx=gpu(0)``
+   (deltas within 2e-2 by norm);
 6. the conv-net path: ResNet-50 (``get_resnet(1000, 50)``) trained by
    ``ParallelTrainer(device=None)`` as ``bench.py``'s ``bench_resnet50``
    trains it (B=256, 224 x 224, bf16 over f32 master weights, SGD lr 0.1
@@ -6602,6 +6628,446 @@ def check_ce_loss_against_host(dev):
             card_line()))
 
 
+# -- phase 5d: the other parallelisms ------------------------------------------
+
+PAR_DP = 2                          # ranks of the data-parallel mesh
+PAR_PP, PAR_M = 4, 8                # pipeline stages and microbatches
+PAR_WARM, PAR_TIMED = 3, 6
+PIPE_WARM, PIPE_TIMED = 2, 4
+FLASH_ENTRIES = TRAIN_ENTRIES[:3]
+PAR_NOTE = "ranks on ONE card, not a multi-card figure"
+PAR_BATCH = 13                      # the seed of the f32 agreement batch
+
+
+def _par_symbol(stages=None):
+    from mxnet_tpu_torch.models import get_transformer_lm
+    return get_transformer_lm(VOCAB, num_layers=LAYERS, embed_dim=EMBED,
+                              num_heads=HEADS, impl="flash",
+                              pipeline_stages=stages)
+
+
+def _par_trainer(dev, n, compute_dtype, optimizer="sgd", params=None, **kw):
+    """The 124M LM's ParallelTrainer at B=8, T=1024, seed 0 (so every
+    trainer starts from the same weights): on the mesh {dp: n} over
+    [dev] * n, or on ``dev`` alone for n = 1."""
+    from mxnet_tpu_torch.parallel import ParallelTrainer, build_mesh
+    mesh = build_mesh({"dp": n}, [dev] * n) if n > 1 else None
+    return ParallelTrainer(
+        _par_symbol(), {"data": (TRAIN_B, TRAIN_T),
+                        "softmax_label": (TRAIN_B, TRAIN_T)},
+        optimizer=optimizer,
+        optimizer_params=params or {"learning_rate": 1e-3,
+                                    "momentum": 0.9},
+        compute_dtype=compute_dtype, seed=0, mesh=mesh,
+        device=None if mesh else dev, **kw).init_params()
+
+
+def _all_flats(tr):
+    """Every rank's stored parameters, one tensor."""
+    if tr._sharded is None:
+        return tr._flat.clone()
+    return torch.cat([f.to(tr.device) for f in tr._sharded.flats])
+
+
+def _deltas(after, before):
+    return {n: after[n].float() - before[n].float() for n in before}
+
+
+def _delta_gate(what, got, want):
+    """Per-tensor delta agreement (``_delta_rows``) within DELTA_REL by
+    norm; returns the worst row."""
+    rows = _delta_rows(got, want)
+    if not all(r[0] <= DELTA_REL for r in rows):
+        raise AssertionError("%s: parameter deltas disagree: worst (norm, "
+                             "largest element) %s (gate %g)" % (
+                                 what, ["%s %.3g %.3g" % (n, f, e)
+                                        for f, e, n in rows[:5]],
+                                 DELTA_REL))
+    return rows[0]
+
+
+def _same(a, b):
+    """(bitwise, worst per-tensor |a - b| over |b|'s largest value)."""
+    eq = all(torch.equal(a[n], b[n]) for n in b)
+    worst = max(((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(
+        1e-30)).item() for n in b)
+    return eq, worst
+
+
+def _f32_reference(dev):
+    """One f32 step of the one-device ParallelTrainer (fused_linear chains
+    on) from its seeded weights, on the PAR_BATCH batch: (the batch, the
+    weights, the deltas), on the host. The oracle of every phase 5d
+    trainer's step: f32, where two correct implementations differ by the
+    ReLU kink rule (DELTA_REL); in bf16 the rounding of two paths alone
+    moves a LayerNorm gain's delta by a few percent."""
+    batch = _train_batch(PAR_BATCH, TRAIN_B, TRAIN_T)
+    ref = _par_trainer(dev, 1, None)
+    init = ref.get_params()[0]
+    ref.step(batch)
+    want = _deltas(ref.get_params()[0], init)
+    del ref
+    free_programs()
+    return batch, init, want
+
+
+def par_dp(K, dev, ref):
+    """Check 1: ParallelTrainer on {dp: 2} over [dev] * 2, bf16 over f32
+    masters, SGD lr 1e-3 momentum 0.9, B=8 T=1024 (4 rows a rank): 3
+    warm-up and 6 timed steps, exactly LAYERS x 2 launches of each flash
+    entry a step and no fused_linear (no chain fuses on a multi-rank
+    mesh), a falling loss; a captured step equal to an uncaptured one
+    bitwise; then one f32 step of the same mesh trainer against the
+    one-device f32 step (``_f32_reference``; deltas within DELTA_REL by
+    norm). Returns the timed launches."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _par_trainer(dev, PAR_DP, "bfloat16")
+    init = tr.get_params()
+    batch = _train_batch(7, TRAIN_B, TRAIN_T)
+    label = torch.as_tensor(batch["softmax_label"]).long().to(dev)
+    losses = [_lm_train_loss(tr.step(batch), label)
+              for _ in range(PAR_WARM)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    secs = []
+    for _ in range(PAR_TIMED):
+        t1 = time.perf_counter()
+        outs = tr.step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        losses.append(_lm_train_loss(outs, label))
+    launches = _check_launches(K, "phase 5d dp", {
+        e: LAYERS * PAR_DP * PAR_TIMED for e in FLASH_ENTRIES})
+    mem = memory()
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0] - 0.01:
+        raise AssertionError("phase 5d dp: the loss did not fall: %r"
+                             % losses)
+    tps = [TRAIN_B * TRAIN_T / s for s in secs]
+    log("phase 5d dp: 124M LM through ParallelTrainer(mesh={dp: %d} over "
+        "[%s] * %d; %s), B=%d T=%d bf16 over f32 masters, SGD lr 1e-3 "
+        "momentum 0.9; built and %d warm-up steps in %.1f s; %d timed "
+        "steps: tokens/s median %.1f (min %.1f, max %.1f), ms per step "
+        "median %.3f (min %.3f, max %.3f); loss %s; launches a step %s; "
+        "memory since the trainer was built: %s; %s" % (
+            PAR_DP, dev, PAR_DP, PAR_NOTE, TRAIN_B, TRAIN_T, PAR_WARM,
+            warm_s, PAR_TIMED, statistics.median(tps), min(tps), max(tps),
+            statistics.median(secs) * 1e3, min(secs) * 1e3,
+            max(secs) * 1e3, " ".join("%.4f" % v for v in losses),
+            json.dumps({e: n // PAR_TIMED for e, n in launches.items()
+                        if n}), mem, card_line()))
+    # captured against uncaptured, from the same parameters
+    prog = tr._step_program(batch, "step")
+
+    def after(run):
+        tr.set_params(*init)
+        run()
+        torch.cuda.synchronize()
+        return _all_flats(tr)
+
+    def eager():
+        tr._next_lr()
+        prog._run_eager()
+
+    cap = after(lambda: tr.step(batch))
+    eag = after(eager)
+    if not torch.equal(cap, eag):
+        raise AssertionError(
+            "phase 5d dp: a captured step and an uncaptured one differ: "
+            "max |diff| %.3g" % (cap - eag).abs().max())
+    del cap, eag, tr, prog
+    free_programs()
+    rbatch, rinit, want = ref
+    f32 = _par_trainer(dev, PAR_DP, None)
+    f32.init_params(rinit)
+    f32.step(rbatch)
+    got = _deltas(f32.get_params()[0], rinit)
+    del f32
+    free_programs()
+    worst = _delta_gate("phase 5d dp vs one device", got, want)
+    log("phase 5d dp capture and agreement: a captured step equals an "
+        "uncaptured one bitwise (%d parameters on %d ranks); one f32 step "
+        "on the mesh against the one-device f32 step (fused_linear chains "
+        "on): %d parameter deltas within %g by norm, worst %s %.3g "
+        "(largest element %.3g of its largest delta)" % (
+            2 * sum(v.numel() for v in init[0].values()), PAR_DP,
+            len(got), DELTA_REL, worst[2], worst[0], worst[1]))
+    return launches
+
+
+def par_zero(K, dev):
+    """Check 2: AdamW (GPT-3 Small's settings) at dp=2, 3 steps each of
+    plain data parallelism, zero1 and fsdp from the same weights: each
+    equal to plain (bitwise expected; gate: deltas within DELTA_REL by
+    norm), and each rank's stored bytes: zero1 half the optimizer state
+    plus the padding, fsdp half the parameters and half the state."""
+    batch = _train_batch(9, TRAIN_B, TRAIN_T)
+    res, rows = {}, []
+    init = None
+    for kw in ({}, {"zero1": True}, {"fsdp": True}):
+        torch.cuda.reset_peak_memory_stats()
+        tr = _par_trainer(dev, PAR_DP, "bfloat16", optimizer="adamw",
+                          params=dict(GPT3_ADAMW), **kw)
+        if init is None:
+            init = tr.get_params()[0]
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.step(batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        name = next(iter(kw), "plain")
+        res[name] = tr.get_params()[0]
+        sh = tr._sharded
+        whole = sum(v.numel() for v in init.values())
+        sizes = [sh.state_bytes(r) for r in range(PAR_DP)]
+        rows.append((name, sizes, sh.pad, secs, memory()))
+        if name == "zero1":
+            for pb, sb in sizes:
+                if sb * PAR_DP != 2 * 4 * (whole + sh.pad) \
+                        or pb != 4 * (whole + sh.pad):
+                    raise AssertionError("phase 5d zero1: a rank stores "
+                                         "%d / %d bytes" % (pb, sb))
+        if name == "fsdp":
+            stored = sum(int(np.prod(s)) for s in sh.shard_shapes.values())
+            for pb, sb in sizes:
+                if pb != 4 * stored or sb != 2 * pb \
+                        or stored * PAR_DP != whole:
+                    raise AssertionError("phase 5d fsdp: a rank stores "
+                                         "%d / %d bytes of %d parameters"
+                                         % (pb, sb, whole))
+        del tr
+        free_programs()
+    base = _deltas(res["plain"], init)
+    for name in ("zero1", "fsdp"):
+        bitwise, worst_abs = _same(res[name], res["plain"])
+        worst = _delta_gate("phase 5d %s vs plain dp" % name,
+                            _deltas(res[name], init), base)
+        log("phase 5d %s: 3 AdamW steps equal plain dp=%d: bitwise %s "
+            "(worst |diff| %.3g of a tensor's largest value); deltas "
+            "within %g by norm, worst %s %.3g" % (
+                name, PAR_DP, bitwise, worst_abs, DELTA_REL, worst[2],
+                worst[0]))
+    for name, sizes, pad, secs, mem in rows:
+        log("phase 5d %s bytes a rank (parameters, optimizer state): %s of "
+            "%d parameters (%d bytes f32), padding %d elements; 3 steps in "
+            "%.3f s (with the capture); %s; %s" % (
+                name, sizes, sum(v.numel() for v in init.values()),
+                4 * sum(v.numel() for v in init.values()), pad, secs, mem,
+                card_line()))
+
+
+def par_remat(dev):
+    """Check 3: one step of the dp=2 bf16 SGD trainer with remat=True
+    against remat=False from the same weights (bitwise expected; gate:
+    deltas within DELTA_REL by norm), and both peak memories."""
+    batch = _train_batch(7, TRAIN_B, TRAIN_T)
+    res, peaks = {}, {}
+    init = None
+    for remat in (False, True):
+        free_programs()
+        torch.cuda.reset_peak_memory_stats()
+        tr = _par_trainer(dev, PAR_DP, "bfloat16", remat=remat)
+        if init is None:
+            init = tr.get_params()[0]
+        tr.step(batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**20
+        res[remat] = tr.get_params()[0]
+        del tr
+    free_programs()
+    bitwise, worst_abs = _same(res[True], res[False])
+    worst = _delta_gate("phase 5d remat", _deltas(res[True], init),
+                        _deltas(res[False], init))
+    log("phase 5d remat: one dp=%d step with remat=True equals remat=False: "
+        "bitwise %s (worst |diff| %.3g); deltas within %g by norm, worst "
+        "%s %.3g; peak memory (build, capture and step) %.1f MB without, "
+        "%.1f MB with remat; %s" % (
+            PAR_DP, bitwise, worst_abs, DELTA_REL, worst[2], worst[0],
+            peaks[False], peaks[True], card_line()))
+
+
+def _pipe_launches(schedule, steps, groups=1, m=PAR_M):
+    """Flash launches of a pipeline step: every layer runs each of its
+    microbatches once forward and once backward; 1F1B's backward
+    recomputes the stage's forward, so it launches the forward twice."""
+    n = LAYERS * m * groups * steps
+    return {"flash_attention_fwd": n * (2 if schedule == "1f1b" else 1),
+            "flash_attention_dq": n, "flash_attention_dkv": n}
+
+
+def _pipe_trainer(dev, mesh_axes, m, schedule):
+    from mxnet_tpu_torch.parallel import PipelineTrainer, build_mesh
+    n = int(np.prod(list(mesh_axes.values())))
+    return PipelineTrainer(
+        _par_symbol(mesh_axes["pp"]),
+        {"data": (TRAIN_B, TRAIN_T), "softmax_label": (TRAIN_B, TRAIN_T)},
+        build_mesh(mesh_axes, [dev] * n), num_microbatches=m,
+        optimizer="sgd",
+        optimizer_params={"learning_rate": 1e-3, "momentum": 0.9},
+        seed=0, schedule=schedule)
+
+
+def par_pipeline(K, dev, ref):
+    """Check 4: PipelineTrainer on pipeline_stages=4 over {pp: 4} ([dev] *
+    4), f32, B=8 T=1024, M=8 (one row a microbatch), from the one-device
+    f32 trainer's seeded weights: GPipe and 1F1B, 2 warm-up and 4 timed
+    steps each, exact launches (``_pipe_launches``), a falling loss,
+    tokens/s and peak memory, 1F1B's peak below GPipe's; one step of each
+    against the one-device f32 ParallelTrainer on the untagged LM
+    (deltas within DELTA_REL by norm), and the same for GPipe on {dp: 2,
+    pp: 2} over [dev] * 4 (M=4). Returns the timed launches."""
+    batch, init, want = ref
+    label = torch.as_tensor(batch["softmax_label"]).long().to(dev)
+    launches, peaks = {}, {}
+    for schedule in ("gpipe", "1f1b"):
+        free_programs()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pp = _pipe_trainer(dev, {"pp": PAR_PP}, PAR_M, schedule)
+        pp.init_params(init)
+        losses = [_lm_train_loss([pp.step(batch)], label)
+                  for _ in range(PIPE_WARM)]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        K.reset_launch_counts()
+        secs = []
+        for _ in range(PIPE_TIMED):
+            t1 = time.perf_counter()
+            out = pp.step(batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(_lm_train_loss([out], label))
+        got = _check_launches(K, "phase 5d %s" % schedule,
+                              _pipe_launches(schedule, PIPE_TIMED))
+        for e, n in got.items():
+            launches[e] = launches.get(e, 0) + n
+        peaks[schedule] = torch.cuda.max_memory_allocated() / 2**20
+        mem = memory()
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError("phase 5d %s: the loss did not fall: %r"
+                                 % (schedule, losses))
+        pp.init_params(init)
+        pp.step(batch)
+        worst = _delta_gate("phase 5d %s vs one device" % schedule,
+                            _deltas(pp.get_params(), init), want)
+        tps = [TRAIN_B * TRAIN_T / s for s in secs]
+        log("phase 5d %s: PipelineTrainer(pipeline_stages=%d, mesh={pp: %d} "
+            "over [%s] * %d; %s), B=%d T=%d f32, M=%d, SGD lr 1e-3 momentum "
+            "0.9; built and %d warm-up steps in %.1f s; %d timed steps: "
+            "tokens/s median %.1f (min %.1f, max %.1f), ms per step median "
+            "%.3f; loss %s; launches a step %s; in flight at most %d "
+            "microbatches a stage; peak %.1f MB (%s); one step against the "
+            "one-device f32 trainer: deltas within %g by norm, worst %s "
+            "%.3g; %s" % (
+                schedule, PAR_PP, PAR_PP, dev, PAR_PP, PAR_NOTE, TRAIN_B,
+                TRAIN_T, PAR_M, PIPE_WARM, warm_s, PIPE_TIMED,
+                statistics.median(tps), min(tps), max(tps),
+                statistics.median(secs) * 1e3,
+                " ".join("%.4f" % v for v in losses),
+                json.dumps({e: n // PIPE_TIMED for e, n in got.items()
+                            if n}),
+                pp.max_in_flight if schedule == "1f1b" else PAR_M,
+                peaks[schedule], mem, DELTA_REL, worst[2], worst[0],
+                card_line()))
+        del pp
+    if not peaks["1f1b"] < peaks["gpipe"]:
+        raise AssertionError("phase 5d: 1F1B's peak %.1f MB is not below "
+                             "GPipe's %.1f MB" % (peaks["1f1b"],
+                                                  peaks["gpipe"]))
+    free_programs()
+    pp = _pipe_trainer(dev, {"dp": 2, "pp": 2}, PAR_M // 2, "gpipe")
+    pp.init_params(init)
+    pp.step(batch)          # builds the step program (two warm-up runs)
+    pp.init_params(init)
+    K.reset_launch_counts()
+    pp.step(batch)
+    got = _check_launches(K, "phase 5d dp x pp",
+                          _pipe_launches("gpipe", 1, 2, PAR_M // 2))
+    worst = _delta_gate("phase 5d dp x pp vs one device",
+                        _deltas(pp.get_params(), init), want)
+    del pp
+    free_programs()
+    log("phase 5d dp x pp: PipelineTrainer(pipeline_stages=2, mesh={dp: 2, "
+        "pp: 2} over [%s] * 4), M=%d a group, f32: one step's launches %s; "
+        "deltas against the one-device f32 trainer within %g by norm, "
+        "worst %s %.3g; 1F1B peak %.1f MB below GPipe's %.1f MB; %s" % (
+            dev, PAR_M // 2, json.dumps({e: n for e, n in got.items() if n}),
+            DELTA_REL, worst[2], worst[0], peaks["1f1b"], peaks["gpipe"],
+            card_line()))
+    return launches
+
+
+FF_BATCHES, FF_BATCH = 8, 128
+
+
+def par_feedforward(dev):
+    """Check 5: FeedForward(ctx=[gpu(0)] * 2) fits the zoo's MLP on
+    synthetic data through the fused loop (a dp=2 mesh on one card, the
+    default there), one epoch of FF_BATCHES batches, against
+    FeedForward(ctx=gpu(0)) from the same weights: deltas within
+    DELTA_REL by norm."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.model import _fused_fit_eligible
+    from mxnet_tpu_torch.models.classifiers import get_mlp
+    sym = get_mlp(10)
+    rs = np.random.RandomState(21)
+    X = rs.randn(FF_BATCHES * FF_BATCH, 784).astype(np.float32)
+    y = np.argmax(X @ rs.randn(784, 10), axis=1).astype(np.float32)
+    arg_shapes, _, _ = sym.infer_shape(data=(FF_BATCH, 784),
+                                       softmax_label=(FF_BATCH,))
+    init = {n: rs.uniform(-0.05, 0.05, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    two = [mx.gpu(0)] * 2
+    sgd = mx.optimizer.create("sgd")
+    if not _fused_fit_eligible(two, None, None, None, None, sgd):
+        raise AssertionError("phase 5d: FeedForward over [gpu(0)] * 2 does "
+                             "not take the fused loop")
+    got, secs = [], []
+    for ctx in (mx.gpu(0), two):
+        model = mx.model.FeedForward(
+            sym, ctx=ctx, num_epoch=1,
+            arg_params={n: mx.nd.array(v, ctx=mx.cpu())
+                        for n, v in init.items()},
+            learning_rate=0.1, momentum=0.9)
+        t0 = time.perf_counter()
+        model.fit(mx.io.NDArrayIter(X, y, batch_size=FF_BATCH))
+        secs.append(time.perf_counter() - t0)
+        got.append({n: torch.from_numpy(v.asnumpy())
+                    for n, v in model.arg_params.items()})
+    base = {n: torch.from_numpy(v) for n, v in init.items()}
+    worst = _delta_gate("phase 5d FeedForward", _deltas(got[1], base),
+                        _deltas(got[0], base))
+    free_programs()
+    log("phase 5d FeedForward: get_mlp(10) fit for one epoch of %d batches "
+        "of %d through the fused loop on ctx=[gpu(0)] * 2 (a dp=2 mesh) "
+        "against ctx=gpu(0): deltas within %g by norm, worst %s %.3g; "
+        "fit %.3f s and %.3f s (with the capture)" % (
+            FF_BATCHES, FF_BATCH, DELTA_REL, worst[2], worst[0], secs[1],
+            secs[0]))
+
+
+def parallel_main_path(K, dev):
+    """Phase 5d: the other parallelisms at the 124M LM's width, each
+    check on its own ``phase 5d`` line, the phase's seconds last. Returns
+    the launches of its gated runs."""
+    t_phase = time.perf_counter()
+    ref = _f32_reference(dev)
+    launches = dict(par_dp(K, dev, ref))
+    free_programs()
+    par_zero(K, dev)
+    par_remat(dev)
+    for e, n in par_pipeline(K, dev, ref).items():
+        launches[e] = launches.get(e, 0) + n
+    par_feedforward(dev)
+    log("phase 5d: every check passed in %.1f s" % (
+        time.perf_counter() - t_phase))
+    return launches
+
+
 # -- phase 6: the conv-net path: ResNet-50 -------------------------------------
 
 RESNET_FLOPS_PER_IMG = 3 * 4.1e9    # bench.py:39, forward + backward
@@ -8597,6 +9063,10 @@ def main():
     free_programs()
     fit = fit_main_path(K, dev)
     free_programs()
+    par = parallel_main_path(K, dev)
+    for e, n in par.items():
+        launches[e] += n
+    free_programs()
     launches.update(train_resnet(K, dev))
     free_programs()
     launches.update(eval_resnet(K, dev))
@@ -8645,6 +9115,7 @@ def main():
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
         moe_launches=moe.get(e, 0), fit_launches=fit.get(e, 0),
         classic_launches=classic.get(e, 0), zoo_launches=zoo.get(e, 0),
+        **{"5d_launches": par.get(e, 0)},
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",
                                     "int8", "c4", "c5", "m160", "moe",

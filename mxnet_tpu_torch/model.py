@@ -13,12 +13,12 @@ data, crash-resume from ``fit(checkpoint_prefix=)``):
   ``DataParallelExecutorManager`` (one ``Executor`` per context over its
   slice of the batch), then the gradients through the ``KVStore`` and the
   optimizer's updater, one parameter at a time;
-* the fused loop ``_train_fused``: the port's ``ParallelTrainer`` on
-  ``ctx[0]`` (one captured step program on the card), taken by default
-  when the one context is a card (``_fused_fit_eligible``; the JAX rule
-  "every ctx is a TPU" reads "every ctx is a GPU"). More than one context
-  takes the legacy loop: the trainer's meshes belong to a later slice, so
-  ``MXNET_FUSED_FIT=1`` with several contexts raises.
+* the fused loop ``_train_fused``: the port's ``ParallelTrainer`` on a
+  ``dp`` mesh over the contexts (``_mesh_for_ctx``: one rank a context,
+  so ``[gpu(0), gpu(0)]`` is two ranks on one card), one captured step
+  program on the card, taken by default when every context is a card
+  (``_fused_fit_eligible``; the JAX rule "every ctx is a TPU" reads
+  "every ctx is a GPU").
 
 The FeedForward's own ``arg_params``/``aux_params`` are NDArrays on
 ``cpu()``, as the JAX package's default context keeps them; the
@@ -577,10 +577,9 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
 def _fused_fit_eligible(ctx, kvstore, monitor, sym_gen, work_load_list,
                         optimizer):
     """Should fit() run the fused ``ParallelTrainer`` step instead of the
-    executor loop? By default, yes on one card context (every ctx a GPU;
-    the JAX package's rule reads "every ctx a TPU"), no elsewhere.
-    ``MXNET_FUSED_FIT=1`` forces it on one context of any kind and raises
-    for several (the trainer's meshes belong to a later slice); ``=0``
+    executor loop? By default, yes when every ctx is a GPU that exists
+    (the JAX package's rule reads "every ctx a TPU"), no elsewhere.
+    ``MXNET_FUSED_FIT=1`` forces it on contexts of any kind; ``=0``
     forces the legacy loop. What only the legacy loop supports (monitors,
     ``sym_gen`` bucketing, uneven work loads, per-index ``lr_scale``,
     optimizers without an adapter) takes it."""
@@ -600,19 +599,20 @@ def _fused_fit_eligible(ctx, kvstore, monitor, sym_gen, work_load_list,
         make_functional(optimizer)
     except MXNetError:
         return False
-    if len(ctx) > 1:
-        if flag == "1":
-            raise later_slice("FeedForward.fit",
-                              "the fused loop over several contexts "
-                              "(MXNET_FUSED_FIT=1 with %d ctx; the "
-                              "trainer's meshes)" % len(ctx))
-        return False
     if flag == "1":
         return True
     if any(c.device_type != "gpu" for c in ctx):
         return False
     return torch.cuda.is_available() \
-        and torch.cuda.device_count() > ctx[0].device_id
+        and torch.cuda.device_count() > max(c.device_id for c in ctx)
+
+
+def _mesh_for_ctx(ctx):
+    """A ``dp`` mesh with one rank a context, on the device each names
+    (``mxnet_tpu/model.py`` l.386-400; a device may repeat: ``[gpu(0),
+    gpu(0)]`` is two ranks on one card)."""
+    from .parallel import build_mesh
+    return build_mesh({"dp": len(ctx)}, [resolve_device(c) for c in ctx])
 
 
 def _train_fused(symbol, ctx, arg_params, aux_params, begin_epoch,
@@ -623,16 +623,17 @@ def _train_fused(symbol, ctx, arg_params, aux_params, begin_epoch,
                  resume_states=None):
     """The fused loop: ``_train_multi_device``'s protocol (metrics,
     callbacks, ``epoch_size``, eval data, checkpoints), each step the
-    port's ``ParallelTrainer`` step program on ``ctx[0]``."""
+    port's ``ParallelTrainer`` step program on a ``dp`` mesh over the
+    contexts (the gradient sum over them inside the step)."""
     from .parallel import ParallelTrainer
     if logger is None:
         logger = logging
     if kvstore is not None:
-        logger.info("fused fit: the '%s' kvstore is not needed on one "
-                    "device", kvstore.type)
+        logger.info("fused fit: '%s' kvstore is subsumed by the "
+                    "in-program gradient reduction", kvstore.type)
     input_shapes = dict(train_data.provide_data + train_data.provide_label)
     trainer = ParallelTrainer(symbol, input_shapes, optimizer=optimizer,
-                              device=resolve_device(ctx[0]))
+                              mesh=_mesh_for_ctx(ctx))
     trainer.init_params(arg_params, aux_params)
     if resume_states is not None and _resume_blob_fits(
             resume_states, "fused", type(optimizer).__name__, logger):

@@ -1,18 +1,18 @@
 """Decoder-only transformer language model.
 
 Counterpart of ``mxnet_tpu/models/transformer.py`` ``get_transformer_lm``
-(l.89), ``moe_transformer_block`` (l.67) and ``ep_rules`` (l.218): the
-same Symbol graph, node names and parameter layouts, so a checkpoint of
-either package serves in the other. Pipeline-stage tags wait for a later
-slice of the port.
+(l.89), ``moe_transformer_block`` (l.67), ``tp_rules`` (l.201) and
+``ep_rules`` (l.218): the same Symbol graph, node names, parameter layouts
+and pipeline-stage tags, so a checkpoint of either package serves in the
+other and ``tojson()`` is the JAX package's.
 """
 from __future__ import annotations
 
 from .. import symbol as sym
-from ..base import later_slice
+from ..attribute import AttrScope
 
 __all__ = ["transformer_block", "moe_transformer_block",
-           "get_transformer_lm", "ep_rules"]
+           "get_transformer_lm", "tp_rules", "ep_rules"]
 
 
 def _ln(data, name):
@@ -91,13 +91,13 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
     ``num_kv_heads`` is grouped-query attention, ``window`` sliding-window
     attention (0 = unlimited). ``num_experts`` builds every block with
     :func:`moe_transformer_block` (``moe_top_k`` its top-k routing, read
-    only with ``num_experts``, as in the JAX package). The parameters are
-    the JAX package's, in its order; ``pipeline_stages`` (pipeline stage
-    tags) raises unless left at its default: it belongs to a later
-    slice."""
-    if pipeline_stages:
-        raise later_slice("get_transformer_lm", "pipeline stage tags "
-                          "(pipeline_stages=%r)" % (pipeline_stages,))
+    only with ``num_experts``, as in the JAX package).
+    ``pipeline_stages=S`` tags every node with ``ctx_group="stage<K>"``
+    (the reference's graph-cut attribute), as the JAX package does: the
+    embedding with block 0, block ``i`` in stage ``i * S // num_layers``,
+    the final LayerNorm, the head and the loss in stage ``S - 1``; the
+    tagged symbol drives ``parallel.PipelineTrainer``. The parameters are
+    the JAX package's, in its order."""
     if pos_encoding not in ("learned", "rope"):
         raise ValueError("pos_encoding must be 'learned' or 'rope', "
                          "got %r" % (pos_encoding,))
@@ -106,53 +106,85 @@ def get_transformer_lm(vocab_size, num_layers=2, embed_dim=128, num_heads=4,
                          "'ce', got %r" % (loss_layout,))
     if ffn_hidden is None:
         ffn_hidden = 4 * embed_dim
-    data = sym.Variable("data")  # [B, T] int tokens
-    net = sym.Embedding(data=data, input_dim=vocab_size,
-                        output_dim=embed_dim, name="embed")
-    rope = pos_encoding == "rope"
-    if not rope:
-        net = sym.PositionalEmbedding(data=net,
-                                      pos=sym.Variable("pos_embed"),
-                                      name="pos_add")
-    for i in range(num_layers):
-        if num_experts:
-            net = moe_transformer_block(net, num_heads, ffn_hidden,
-                                        embed_dim, num_experts,
-                                        "layer%d" % i, impl=impl,
-                                        dropout=dropout, moe_top_k=moe_top_k,
-                                        rope=rope, num_kv_heads=num_kv_heads,
-                                        window=window)
-        else:
-            net = transformer_block(net, num_heads, ffn_hidden, embed_dim,
-                                    "layer%d" % i, impl=impl,
-                                    dropout=dropout, rope=rope,
-                                    num_kv_heads=num_kv_heads,
-                                    window=window)
-    ln_f = _ln(net, "lnf")
-    logits = sym.FullyConnected(data=ln_f, num_hidden=vocab_size,
-                                name="lm_head", flatten=False)
-    if loss_layout in ("flat", "ce"):
-        flat = sym.Reshape(data=logits, shape=(-1, vocab_size),
-                           name="logits_flat")
-        flat_label = sym.Reshape(
-            data=sym.Variable("softmax_label"), shape=(-1,),
-            name="label_flat")
-        if loss_layout == "ce":
-            return sym.SoftmaxCELoss(data=flat, label=flat_label,
-                                     name="softmax")
-        return sym.SoftmaxOutput(data=flat, label=flat_label,
-                                 name="softmax")
-    logits_t = sym.SwapAxis(data=logits, dim1=1, dim2=2, name="logits_t")
-    return sym.SoftmaxOutput(data=logits_t, name="softmax",
-                             multi_output=True)
 
+    def scope(i=None, last=False):
+        if not pipeline_stages:
+            return AttrScope()
+        if last:
+            s = pipeline_stages - 1
+        else:
+            s = 0 if i is None else i * pipeline_stages // num_layers
+        return AttrScope(ctx_group="stage%d" % s)
+
+    with scope(0):
+        data = sym.Variable("data")  # [B, T] int tokens
+        net = sym.Embedding(data=data, input_dim=vocab_size,
+                            output_dim=embed_dim, name="embed")
+        rope = pos_encoding == "rope"
+        if not rope:
+            net = sym.PositionalEmbedding(data=net,
+                                          pos=sym.Variable("pos_embed"),
+                                          name="pos_add")
+    for i in range(num_layers):
+        with scope(i):
+            if num_experts:
+                net = moe_transformer_block(
+                    net, num_heads, ffn_hidden, embed_dim, num_experts,
+                    "layer%d" % i, impl=impl, dropout=dropout,
+                    moe_top_k=moe_top_k, rope=rope,
+                    num_kv_heads=num_kv_heads, window=window)
+            else:
+                net = transformer_block(net, num_heads, ffn_hidden,
+                                        embed_dim, "layer%d" % i,
+                                        impl=impl, dropout=dropout,
+                                        rope=rope,
+                                        num_kv_heads=num_kv_heads,
+                                        window=window)
+    with scope(last=True):
+        ln_f = _ln(net, "lnf")
+        logits = sym.FullyConnected(data=ln_f, num_hidden=vocab_size,
+                                    name="lm_head", flatten=False)
+        if loss_layout in ("flat", "ce"):
+            flat = sym.Reshape(data=logits, shape=(-1, vocab_size),
+                               name="logits_flat")
+            flat_label = sym.Reshape(
+                data=sym.Variable("softmax_label"), shape=(-1,),
+                name="label_flat")
+            if loss_layout == "ce":
+                return sym.SoftmaxCELoss(data=flat, label=flat_label,
+                                         name="softmax")
+            return sym.SoftmaxOutput(data=flat, label=flat_label,
+                                     name="softmax")
+        logits_t = sym.SwapAxis(data=logits, dim1=1, dim2=2,
+                                name="logits_t")
+        return sym.SoftmaxOutput(data=logits_t, name="softmax",
+                                 multi_output=True)
+
+
+def tp_rules():
+    """Tensor-parallel sharding rules, the JAX package's (the Megatron
+    layout: QKV/FFN1 column-parallel, proj/FFN2 row-parallel), for
+    ``ShardingRules(param_rules=...)``. ``ParallelTrainer`` stores each
+    such parameter as the rule shards it and gathers it where the walk
+    uses it."""
+    from ..parallel.shard import P
+    return [
+        (r"_qkv_weight$", P("tp", None)),
+        (r"_qkv_bias$", P("tp")),
+        (r"_ffn1_weight$", P("tp", None)),
+        (r"_ffn1_bias$", P("tp")),
+        (r"_proj_weight$", P(None, "tp")),
+        (r"_ffn2_weight$", P(None, "tp")),
+        (r"embed_weight$", P("tp", None)),
+        (r"lm_head_weight$", P("tp", None)),
+    ]
 
 def ep_rules():
     """Expert-parallel sharding rules, the JAX package's: the leading
     ``num_experts`` dim of every expert stack shards over ``ep``. A list of
-    ``(name regex, PartitionSpec)`` for ``ShardingRules(param_rules=...)``,
-    which waits for the trainer's meshes (a later slice); the serving
-    engine's ``ep`` shards its own copy (``serving/engine.py``)."""
+    ``(name regex, PartitionSpec)`` for ``ShardingRules(param_rules=...)``;
+    the serving engine's ``ep`` shards its own copy
+    (``serving/engine.py``)."""
     from ..parallel.shard import P
     return [
         (r"_expert_w1$", P("ep", None, None)),

@@ -362,6 +362,45 @@ class BatchNorm(OpSpec):
         out = out * gamma.reshape(shape) + beta.reshape(shape)
         return [out], [mmean, mvar]
 
+    def forward_global(self, p, rank_ins, rank_aux):
+        """Training BatchNorm over the batch that the ranks' shards make
+        together (one walk a data-parallel rank, ``parallel/graph.py``):
+        the statistics of the GLOBAL batch, as GSPMD gives the JAX
+        package's BatchNorm under a ``dp`` sharding. Each rank's sums of x
+        and of x^2 (f32, or f64 for f64 data) are ``psum``'d over the
+        ranks, in the mode ``_BN_STATS_MODE`` selects ("centered" and
+        "welford" psum the sums of (x - mean)^2 after the mean); autograd
+        differentiates through the sums. Returns ``(outs, aux)`` per
+        rank; the moving statistics come out equal on every rank."""
+        from ..parallel.collectives import psum
+        xs = [ins[0] for ins in rank_ins]
+        axes, shape = _bn_axes(xs[0])
+        n = sum(x.numel() // x.shape[1] for x in xs)
+        acc = torch.promote_types(xs[0].dtype, torch.float32)
+        xf = [x.to(acc) for x in xs]
+        means = [t / n for t in psum([x.sum(dim=axes) for x in xf])]
+        if _BN_STATS_MODE() in ("centered", "welford"):
+            vs = psum([(x - m.reshape(shape)).square().sum(dim=axes)
+                       for x, m in zip(xf, means)])
+            vars_ = [v / n for v in vs]
+        else:
+            sq = psum([(x * x).sum(dim=axes) for x in xf])
+            vars_ = [torch.clamp(q / n - m.square(), min=0.0)
+                     for q, m in zip(sq, means)]
+        outs, auxs = [], []
+        for (x, gamma, beta), (mmean, mvar), mean, var in zip(
+                rank_ins, rank_aux, means, vars_):
+            if p["fix_gamma"]:
+                gamma = torch.ones_like(gamma)
+            ga = gamma.to(acc) * torch.rsqrt(var + float(p["eps"]))
+            shift = beta.to(acc) - mean * ga
+            out = x.to(acc) * ga.reshape(shape) + shift.reshape(shape)
+            outs.append([out.to(x.dtype)])
+            m = p["momentum"]
+            auxs.append([m * mmean + (1 - m) * mean.to(mmean.dtype),
+                         m * mvar + (1 - m) * var.to(mvar.dtype)])
+        return outs, auxs
+
 
 @register
 class Pooling(OpSpec):

@@ -11,11 +11,14 @@ Counterpart of ``mxnet_tpu/parallel/checkpoint.py``, with its files:
 and its names: the parameters by name, the optimizer state's leaves as
 ``opt/<param>/<i>`` (the JAX package's tree order) and the aux states as
 ``aux/<name>``. A checkpoint written by either package loads in the
-other. The port's trainers hold every array whole in one process, so one
-process writes everything: each array once, as one shard covering it,
-with a replicated spec (which the JAX package's ``load_sharded`` places
-on any mesh). Loading assembles each global array from whatever shards
-the files hold, the JAX package's per-device slices included.
+other. The port's trainers run in one process, so one process writes
+everything: an array held whole as one shard covering it, with a
+replicated spec (which the JAX package's ``load_sharded`` places on any
+mesh); a parameter that a ``ParallelTrainer`` on a mesh stores sharded as
+each distinct shard once, keyed by its slice, with its spec, as a JAX
+process writes the shards of its devices. Loading assembles each global
+array from whatever shards the files hold, the JAX package's per-device
+slices included.
 
 Every file lands through ``tmp`` + ``os.replace``, and the manifest,
 written last, is the completeness marker: :func:`latest_step` returns a
@@ -23,6 +26,7 @@ step only when the manifest and every shard file it names exist.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
@@ -33,12 +37,26 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["save_sharded", "load_sharded", "latest_step",
-           "flatten_train_state", "restore_opt_state"]
+           "flatten_train_state", "restore_opt_state", "Shards"]
+
+#: an array held as shards: ``pieces`` is ``[(slices, shard), ...]``,
+#: ``slices`` a ``(start, stop)`` per dimension, covering the array once;
+#: ``spec`` the PartitionSpec the manifest records
+Shards = collections.namedtuple("Shards", ["spec", "pieces"])
 
 
 def _index_key(shape):
     """The key of a shard covering the whole of an array of ``shape``."""
     return ",".join("0:%d" % d for d in shape)
+
+
+def _host(arr):
+    return arr.detach().to("cpu", copy=True).numpy() \
+        if isinstance(arr, torch.Tensor) else np.array(arr)
+
+
+def _spec_json(spec):
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
 
 
 def _snapshot(params, step, extra):
@@ -48,11 +66,23 @@ def _snapshot(params, step, extra):
     manifest = {"step": int(step), "nprocs": 1, "params": {},
                 "extra": extra or {}}
     for name, arr in params.items():
-        host = arr.detach().to("cpu", copy=True).numpy() \
-            if isinstance(arr, torch.Tensor) else np.array(arr)
-        manifest["params"][name] = {"global_shape": list(host.shape),
-                                    "dtype": str(host.dtype), "spec": []}
-        blobs["%s|%s" % (name, _index_key(host.shape))] = host
+        spec = []
+        if isinstance(arr, Shards):
+            spec = _spec_json(arr.spec)
+            shards = [(sl, _host(v)) for sl, v in arr.pieces]
+            gshape = [stop for _, stop in shards[0][0]]
+            for sl, _ in shards:
+                gshape = [max(g, stop) for g, (_, stop) in zip(gshape, sl)]
+            for sl, host in shards:
+                blobs["%s|%s" % (name, ",".join(
+                    "%d:%d" % se for se in sl))] = host
+            dtype = shards[0][1].dtype
+        else:
+            host = _host(arr)
+            gshape, dtype = list(host.shape), host.dtype
+            blobs["%s|%s" % (name, _index_key(host.shape))] = host
+        manifest["params"][name] = {
+            "global_shape": gshape, "dtype": str(dtype), "spec": spec}
     return blobs, manifest
 
 
@@ -67,11 +97,12 @@ def _write(prefix, blobs, manifest):
 
 
 def save_sharded(prefix, params, step=0, extra=None, async_write=False):
-    """Write every array of ``params`` (a flat name -> tensor dict).
-    ``async_write=True`` takes the host snapshot now and writes the files
-    on a background thread. Returns ``finalize``, a 0-arg callable that
-    joins the writer and raises its error (a no-op when synchronous);
-    call it before restoring or exiting."""
+    """Write every array of ``params`` (a flat name -> value dict: a
+    tensor or array, held whole, or :class:`Shards`).
+    ``async_write=True`` takes the host snapshot now and
+    writes the files on a background thread. Returns ``finalize``, a
+    0-arg callable that joins the writer and raises its error (a no-op
+    when synchronous); call it before restoring or exiting."""
     blobs, manifest = _snapshot(params, step, extra)
     if not async_write:
         _write(prefix, blobs, manifest)

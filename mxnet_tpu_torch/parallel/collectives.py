@@ -19,14 +19,21 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["psum", "all_gather", "reduce_scatter", "ppermute", "all_to_all",
-           "axis_size", "broadcast", "barrier", "ring_exchange",
-           "bucketed_psum"]
+__all__ = ["psum", "pmean", "pmax", "all_gather", "reduce_scatter",
+           "ppermute", "all_to_all", "axis_index", "axis_size", "broadcast",
+           "barrier", "ring_exchange", "bucketed_psum"]
 
 
 def axis_size(xs):
     """The number of ranks along the axis (``lax.psum(1, axis)``)."""
     return len(xs)
+
+
+def axis_index(xs):
+    """Each rank's index along the axis, an int32 0-dim tensor on its
+    device (``lax.axis_index``)."""
+    return [torch.tensor(i, dtype=torch.int32, device=x.device)
+            for i, x in enumerate(xs)]
 
 
 def _spread(val, xs):
@@ -46,6 +53,22 @@ def psum(xs):
     for p in parts[1:]:
         total = total + p
     return _spread(total, xs)
+
+
+def pmean(xs):
+    """The mean of the shards, on every rank: ``psum`` divided by the
+    number of ranks (``lax.pmean``)."""
+    return [t / len(xs) for t in psum(xs)]
+
+
+def pmax(xs):
+    """The elementwise maximum of the shards, on every rank (taken in
+    rank order; ``lax.pmax``)."""
+    parts = _gather(xs)
+    top = parts[0]
+    for p in parts[1:]:
+        top = torch.maximum(top, p)
+    return _spread(top, xs)
 
 
 def ppermute(xs, perm):

@@ -9,7 +9,8 @@ keeps its own walk (it swaps the attention nodes for cached variants).
 
 ``make_spmd_graph_fn`` is the single-controller counterpart of running
 the graph function under JAX's ``shard_map`` (``mxnet_tpu/parallel/sp.py``
-l.148-219): one walk drives every rank of a mesh in lockstep, node by
+l.148-219) or over a GSPMD-sharded batch (``mxnet_tpu/parallel/
+trainer.py``): one walk drives every rank of a mesh in lockstep, node by
 node, each rank on its own shard.
 """
 from __future__ import annotations
@@ -102,26 +103,41 @@ def make_graph_fn(symbol, allow_fusion=True):
     return fn
 
 
-def make_spmd_graph_fn(symbol, mesh):
-    """Build ``fn(rank_args, is_train, generators) -> outs per rank`` for
-    the ranks of ``mesh`` in row-major order of its device array.
+def make_spmd_graph_fn(symbol, mesh, allow_fusion=True):
+    """Build ``fn(rank_args, is_train, generators, rank_aux=None) ->
+    (outs, new_aux)``, each a list per rank, for the ranks of ``mesh`` in
+    row-major order of its device array.
 
     ``rank_args[r]`` is rank r's argument list (``list_arguments()``
-    order), each value on rank r's device; ``generators[r]`` its
-    ``torch.Generator``. The walk goes node by node over all ranks in
-    lockstep: a plain op, or a fused chain of ``FusionPlan``, runs once per
-    rank on that rank's values; an op whose ``is_collective`` holds (the
-    ring attention impls) runs once per ring along its ``axis_name`` param,
-    through ``forward_ranks``, with the inputs of the ring's ranks in
-    axis order, since a ring hop needs every rank's K/V. The whole walk is
-    one autograd graph. Aux states are not supported (no op of the
-    sequence-parallel path has any)."""
-    if symbol.list_auxiliary_states():
-        raise MXNetError("the SPMD walk does not support aux states (%s)"
-                         % ", ".join(symbol.list_auxiliary_states()))
+    order), each value on rank r's device, or a callable of no arguments
+    that returns it: the walk calls it where it reaches the variable, so a
+    parameter stored as shards is gathered at its use (the trainers pass
+    an ``all_gather`` of the ranks' shards). ``rank_aux[r]`` is rank r's
+    aux list (``list_auxiliary_states()`` order); ``generators[r]`` its
+    ``torch.Generator``.
+
+    The walk goes node by node over all ranks in lockstep: a plain op, or
+    a fused chain of ``FusionPlan``, runs once per rank on that rank's
+    values; an op whose ``is_collective`` holds (the ring attention
+    impls) runs once per ring along its ``axis_name`` param, through
+    ``forward_ranks``, with the inputs of the ring's ranks in axis order,
+    since a ring hop needs every rank's K/V; a training BatchNorm on more
+    than one rank normalizes by the statistics of the batch all the ranks
+    hold together (``BatchNorm.forward_global``: the ranks' sums are
+    psum'd), as GSPMD gives the JAX package's BatchNorm under a ``dp``
+    sharding, and every rank's moving statistics come out the same. The
+    whole walk is one autograd graph.
+
+    ``allow_fusion=False`` runs no chain fused unless
+    ``MXNET_PALLAS_FUSION=1`` turns the plan back on (as
+    ``make_graph_fn``); the training conv -> BatchNorm chain never fuses
+    here, since its statistics would be one rank's."""
     topo = symbol._topo()
     heads = symbol._heads
-    plan = FusionPlan(topo, heads)
+    if allow_fusion or os.environ.get("MXNET_PALLAS_FUSION") == "1":
+        plan = FusionPlan(topo, heads)
+    else:
+        plan = None
     coords = list(np.ndindex(*mesh.devices.shape))
 
     def rings(axis):
@@ -134,17 +150,26 @@ def make_spmd_graph_fn(symbol, mesh):
             groups.setdefault(c[:ax] + c[ax + 1:], []).append(r)
         return list(groups.values())
 
-    def fn(rank_args, is_train, generators):
+    def fn(rank_args, is_train, generators, rank_aux=None):
         envs = [{} for _ in coords]
         var_iters = [iter(a) for a in rank_args]
+        if rank_aux is None:
+            rank_aux = [[] for _ in coords]
+        new_aux = [list(a) for a in rank_aux]
+        cur = 0  # aux cursor, the same on every rank
         for n in topo:
             if n.is_var:
                 for env, it in zip(envs, var_iters):
-                    env[(id(n), 0)] = next(it)
+                    v = next(it)
+                    env[(id(n), 0)] = v() if callable(v) else v
                 continue
-            if plan.is_covered(n, is_train):
-                continue
-            if all([plan.execute(n, env, [], is_train) for env in envs]):
+            n_aux = len(n.spec.aux_states(n.params))
+            if plan is not None and (
+                    plan.is_covered(n, is_train, False)
+                    or all([plan.execute(n, env, aux, is_train, na, False)
+                            for env, aux, na in zip(envs, rank_aux,
+                                                    new_aux)])):
+                cur += n_aux
                 continue
             if n.spec.is_collective(n.params):
                 for ring in rings(n.params["axis_name"]):
@@ -157,11 +182,23 @@ def make_spmd_graph_fn(symbol, mesh):
                         for j, o in enumerate(ro):
                             envs[r][(id(n), j)] = o
                 continue
-            for env, gen in zip(envs, generators):
-                ins = [env[(id(i), j)] for i, j in n.inputs]
-                outs, _ = n.spec.forward(n.params, ins, [], is_train, gen)
-                for j, o in enumerate(outs):
+            ins = [[env[(id(i), j)] for i, j in n.inputs] for env in envs]
+            aux_in = [a[cur:cur + n_aux] for a in rank_aux]
+            if n_aux and is_train and len(envs) > 1 \
+                    and hasattr(n.spec, "forward_global"):
+                outs, aux_out = n.spec.forward_global(n.params, ins, aux_in)
+            else:
+                outs, aux_out = zip(*[
+                    n.spec.forward(n.params, i, a, is_train, gen)
+                    for i, a, gen in zip(ins, aux_in, generators)])
+            for env, ro in zip(envs, outs):
+                for j, o in enumerate(ro):
                     env[(id(n), j)] = o
-        return [[env[(id(h), i)] for h, i in heads] for env in envs]
+            if n_aux:
+                for na, ao in zip(new_aux, aux_out):
+                    na[cur:cur + n_aux] = list(ao)
+            cur += n_aux
+        return ([[env[(id(h), i)] for h, i in heads] for env in envs],
+                new_aux)
 
     return fn

@@ -22,8 +22,9 @@ generator SGLD draws its noise from (one registered with the trainer's
 captured step). The math is the optimizer's own ``_step``, so the
 imperative and the fused paths agree.
 
-:class:`FlatOptState` lays the state out once for ``ParallelTrainer`` and
-``SequenceParallelTrainer``.
+:class:`FlatOptState` lays the state out once for ``ParallelTrainer``,
+``SequenceParallelTrainer`` and ``PipelineTrainer``; for ZeRO-1 it holds
+one rank's chunk of it.
 """
 from __future__ import annotations
 
@@ -94,33 +95,55 @@ class FlatOptState:
     """The optimizer state of a flat parameter buffer.
 
     The trainers keep their parameters in ONE flat f32 buffer (``names``
-    in order, of ``shapes``). An elementwise optimizer's state is its
-    leaves a weight as flat buffers of the same size, updated in one
-    ``update_fn`` call over the whole buffer (a few launches whatever the
-    number of weights); AdaFactor's factored moments are per weight, so
-    its leaves are tensors of their own and its update runs per weight,
-    over views of the parameter and gradient buffers.
+    in order, of ``shapes``; the buffer may end in padding that no name
+    covers). An elementwise optimizer's state is its leaves a weight as
+    flat buffers of the same size, updated in one ``update_fn`` call over
+    the whole buffer (a few launches whatever the number of weights);
+    AdaFactor's factored moments are per weight, so its leaves are tensors
+    of their own and its update runs per weight, over views of the
+    parameter and gradient buffers.
+
+    ZeRO-1 (``shards > 1``, elementwise optimizers only): the flat buffer
+    is padded to a multiple of ``shards``, and this state covers chunk
+    ``index`` of it, ``1/shards`` of the whole: :meth:`update` updates that
+    chunk of the parameters alone, the other ranks update theirs, and the
+    trainer all-gathers the chunks. Every shipped elementwise optimizer
+    computes each element from that element's weight, gradient and state
+    alone, so the chunked update equals the whole one bit for bit.
 
     The buffers are allocated once: a captured step holds their addresses
     (``buffers()`` is its ``mutable=`` list), so :meth:`reset` and
     :meth:`load` copy into them and never rebind them.
     """
 
-    def __init__(self, optimizer, names, shapes, flat):
+    def __init__(self, optimizer, names, shapes, flat, shards=1, index=0):
         self.init_fn, self._update = make_functional(optimizer)
         self.per_weight = getattr(self._update, "per_weight", False)
         self.names = list(names)
         self.shapes = [tuple(s) for s in shapes]
         self._numels = [int(np.prod(s)) for s in self.shapes]
+        self.shards, self.index = int(shards), int(index)
+        if self.shards > 1 and (self.per_weight
+                                or flat.numel() % self.shards):
+            raise MXNetError("FlatOptState: %d shards need an elementwise "
+                             "optimizer over a buffer padded to a multiple "
+                             "of them" % self.shards)
         self.units = self._fresh(flat)
+
+    def chunk(self, flat):
+        """This state's chunk of a flat buffer (the whole when unsharded)."""
+        if self.shards == 1:
+            return flat
+        return flat.view(self.shards, -1)[self.index]
 
     def _fresh(self, flat):
         if self.per_weight:
             return [tuple(self.init_fn(v)) for v in self.views(flat)]
-        return [tuple(self.init_fn(flat))]
+        return [tuple(self.init_fn(self.chunk(flat)))]
 
     def views(self, flat):
         """Each weight's view of a flat buffer, in its shape."""
+        flat = flat.narrow(0, 0, sum(self._numels))
         return [p.view(s) for p, s in zip(flat.split(self._numels),
                                           self.shapes)]
 
@@ -131,21 +154,27 @@ class FlatOptState:
     def by_name(self):
         """``{name: (leaf, ...)}``: each weight's state leaves in the JAX
         package's tree order (views of the flat buffers for an
-        elementwise optimizer)."""
+        elementwise optimizer). A chunked state has no whole leaves: the
+        trainer gathers the chunks."""
         if self.per_weight:
             return dict(zip(self.names, self.units))
+        if self.shards > 1:
+            raise MXNetError("FlatOptState.by_name: a ZeRO-1 chunk holds "
+                             "no whole leaf; gather the chunks first")
         per_leaf = [self.views(b) for b in self.units[0]]
         return {n: tuple(v[i] for v in per_leaf)
                 for i, n in enumerate(self.names)}
 
     @torch.no_grad()
     def update(self, flat, grad, lr, t, gen=None):
-        """One update of ``flat`` by the flat gradient ``grad``."""
+        """One update of ``flat`` (this state's chunk of it) by the flat
+        gradient ``grad``."""
         if self.per_weight:
             self._update(self.views(flat), self.views(grad), self.units,
                          lr, t, gen)
         else:
-            self._update([flat], [grad], self.units, lr, t, gen)
+            self._update([self.chunk(flat)], [self.chunk(grad)], self.units,
+                         lr, t, gen)
 
     @torch.no_grad()
     def reset(self, flat):

@@ -71,7 +71,7 @@ class SequenceParallelTrainer:
                              "'dp' and 'sp', got %s" % (dict(mesh.shape),))
         if symbol.list_auxiliary_states():
             raise MXNetError("SequenceParallelTrainer: aux states are not "
-                             "supported by the SPMD walk")
+                             "supported (as in the JAX package)")
         self.symbol = symbol
         self.mesh = mesh
         self.label_name = label_name
@@ -227,7 +227,7 @@ class SequenceParallelTrainer:
                 inputs[n] if n in inputs else
                 self._rank_value(n, pvals[n], dpi, spi).to(dev)
                 for n in self.arg_names])
-        outs = self._graph_fn(rank_args, True, self._gens)
+        outs, _ = self._graph_fn(rank_args, True, self._gens)
         flat_outs = [o for ro in outs for o in ro]
         torch.autograd.backward(flat_outs,
                                 [torch.ones_like(o) for o in flat_outs])

@@ -1,7 +1,8 @@
-"""ParallelTrainer: the training step of a Symbol on one device.
+"""ParallelTrainer: the training step of a Symbol, on one device or over
+a mesh.
 
 Counterpart of ``mxnet_tpu/parallel/trainer.py`` ``ParallelTrainer``
-(l.111-786) on a one-device mesh: each step runs the forward (the graph
+(l.111-1092). On a one-rank mesh each step runs the forward (the graph
 walk of ``make_graph_fn``, with the ``fused_linear``, ``flash_attention``
 and, for conv nets, ``matmul_stats`` kernels on the card), the backward
 (torch autograd, which reaches the kernels' backward through their
@@ -50,10 +51,19 @@ Semantics kept from the JAX package:
   the f32 parameters and the batch as given, in any compute dtype
   (``_build_eval``, l.506-515), uncaptured;
 * ``MXNET_PALLAS_CONVBN_TRAIN`` is read when the step program is built,
-  as the JAX package reads it when it traces the step.
+  as the JAX package reads it when it traces the step;
+* ``remat`` (default: ``MXNET_BACKWARD_DO_MIRROR=1``, l.163-169) runs the
+  differentiated forward under ``torch.utils.checkpoint``, so the
+  backward recomputes the activations (l.421-422).
 
-Meshes, sharding rules, ZeRO-1, FSDP and rematerialization belong to
-later slices of the port.
+On a mesh of more than one rank (``mesh``, ``rules``: a
+``ShardingRules``; ``zero1``, ``fsdp``) the state is laid out one shard
+per rank and the step is ``parallel.sharded.ShardedState.step``: one walk
+per data-parallel coordinate over its rows of the batch, gradients summed
+over the walks and reduce-scattered to the ranks' shards, each rank
+updating what it stores; the numbers are the one-device step's, as
+GSPMD's are. No chain is fused there (the JAX rule, l.317-322). The step
+is still one ``Program``, captured on the card.
 """
 from __future__ import annotations
 
@@ -61,12 +71,13 @@ import collections
 import functools
 import itertools
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..base import MXNetError, later_slice, torch_dtype
+from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from .. import metric as metric_mod
 from .. import optimizer as opt_mod
@@ -76,8 +87,12 @@ from ..io import StagedStream
 from ..ndarray import NDArray, _tensor_of
 from ..ops.fusion import _convbn_train_enabled
 from .graph import make_graph_fn, integer_semantic_inputs
-from .optim import FlatOptState
+from .mesh import build_mesh
+from .optim import FlatOptState, make_functional
 from .program import Program
+from .shard import ShardingRules
+from .sharded import (ShardedState, _Unflatten, _draws, backward_heads,
+                      remat_walk)
 
 __all__ = ["ParallelTrainer"]
 
@@ -87,19 +102,6 @@ _TM_INPUT_MS = tele.histogram("train.input_wait_ms")   # blocked on input
 _TM_DEVICE_MS = tele.histogram("train.device_wait_ms")  # blocked on device
 _TM_H2D_BYTES = tele.counter("train.h2d_bytes")
 _TM_COMPILES = tele.counter("train.compiles")
-
-_LATER = {
-    "mesh": "meshes and sharding (parallel/mesh.py, parallel/shard.py)",
-    "rules": "meshes and sharding (parallel/mesh.py, parallel/shard.py)",
-    "zero1": "ZeRO-1 optimizer-state sharding",
-    "fsdp": "FSDP parameter sharding",
-    "remat": "rematerialization (MXNET_BACKWARD_DO_MIRROR)",
-}
-
-
-def _later(what):
-    return later_slice("ParallelTrainer", what)
-
 
 def _as_tensor(v):
     """A value as a torch tensor: a tensor as it is, the port's NDArray as
@@ -145,24 +147,8 @@ class _StagedBatches:
         return out
 
 
-class _Unflatten(torch.autograd.Function):
-    """The flat parameter buffer -> one view per parameter; the backward
-    concatenates the parameters' gradients (zeros for an unused one) into
-    one flat gradient: one node and one kernel for all of them."""
-
-    @staticmethod
-    def forward(ctx, flat, shapes):
-        numels = [int(np.prod(sh)) for sh in shapes]
-        return tuple(p.view(sh) for p, sh in zip(flat.split(numels), shapes))
-
-    @staticmethod
-    def backward(ctx, *grads):
-        # autograd materializes the gradient of an unused output as zeros
-        return torch.cat([g.reshape(-1) for g in grads]), None
-
-
 class ParallelTrainer:
-    """Train a loss-headed Symbol on one device.
+    """Train a loss-headed Symbol on one device or over a mesh.
 
     Parameters
     ----------
@@ -173,10 +159,21 @@ class ParallelTrainer:
     optimizer : str or Optimizer
         A string is created with ``rescale_grad=1/batch`` (the loss
         gradients are batch sums), like FeedForward.fit.
-    mesh, rules, remat, zero1, fsdp :
-        The JAX package's parameters, in its order; any value but the
-        default (or a false one) raises: sharding and rematerialization
-        belong to a later slice.
+    mesh : parallel.Mesh, optional
+        Default: ``rules.mesh``, else one rank on ``device``. Its devices
+        may repeat (``["cpu"] * 8``, ``[cuda:0] * 2``).
+    rules : ShardingRules, optional
+        Default: ``ShardingRules(mesh)`` (the batch over ``dp``, the
+        parameters replicated).
+    zero1 : bool
+        Store the optimizer state ``1/dp`` per rank (needs a ``dp`` axis).
+    fsdp : bool
+        Store every parameter that the rules leave replicated ``1/dp`` per
+        rank, along its first dimension ``dp`` divides, gathered where it
+        is used; the optimizer state follows (implies zero1).
+    remat : bool, optional
+        Recompute the activations in the backward
+        (``torch.utils.checkpoint``); default ``MXNET_BACKWARD_DO_MIRROR``.
     optimizer_params : dict, optional
     initializer : Initializer, default ``Uniform(0.01)``
     seed : int, optional
@@ -192,8 +189,9 @@ class ParallelTrainer:
         Clip the global gradient norm (over all parameters, after
         ``rescale_grad``) to this value before the update.
     device : optional, keyword-only (the port's own)
-        ``None`` means ``cuda:0`` and raises without CUDA; pass ``"cpu"``
-        to run the plain versions of the kernels on the host.
+        The device of a trainer without a mesh: ``None`` means ``cuda:0``
+        and raises without CUDA; pass ``"cpu"`` to run the plain versions
+        of the kernels on the host.
     """
 
     def __init__(self, symbol, input_shapes, optimizer="sgd", mesh=None,
@@ -201,12 +199,21 @@ class ParallelTrainer:
                  optimizer_params=None, compute_dtype=None, remat=None,
                  zero1=False, fsdp=False, grad_accum=1, clip_grad_norm=None,
                  *, device=None):
-        for name, val in (("mesh", mesh), ("rules", rules),
-                          ("zero1", zero1), ("fsdp", fsdp),
-                          ("remat", remat)):
-            if val:
-                raise _later(_LATER[name])
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = rules.mesh if rules is not None else \
+                build_mesh({"dp": 1}, [resolve_device(device)])
+        self.mesh = mesh
+        self.rules = rules if rules is not None else ShardingRules(mesh)
+        self.device = torch.device(mesh.devices.flat[0])
+        if remat is None:
+            remat = os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
+        self.remat = bool(remat)
+        self.fsdp = bool(fsdp)
+        self.zero1 = bool(zero1)
+        if self.fsdp and "dp" not in mesh.shape:
+            raise MXNetError("fsdp=True needs a 'dp' mesh axis")
+        if self.zero1 and not self.fsdp and "dp" not in mesh.shape:
+            raise MXNetError("zero1=True needs a 'dp' mesh axis")
         self.symbol = symbol
         self.compute_dtype = (None if compute_dtype is None
                               else torch_dtype(compute_dtype))
@@ -240,8 +247,14 @@ class ParallelTrainer:
             opt_kwargs.setdefault("rescale_grad", 1.0 / batch_size)
             optimizer = opt_mod.create(optimizer, **opt_kwargs)
         self.optimizer = optimizer
+        self._opt_init_fn, self._opt_update_fn = make_functional(optimizer)
 
         self._graph_fn = make_graph_fn(symbol)
+        if self.remat and self.device.type == "cuda" and _draws(symbol):
+            raise MXNetError(
+                "ParallelTrainer: remat of a graph that draws (dropout) "
+                "needs its generators restored under CUDA graph capture, "
+                "which the port does not do yet")
         # index-valued inputs (labels, embedding tokens) are exempt from
         # the compute_dtype cast: bf16 spaces integers 4 apart near 1000
         self._no_cast = (
@@ -260,23 +273,28 @@ class ParallelTrainer:
         self._h2d_batch_bytes = None
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
+        self._seed = seed
         self._init_gen = torch.Generator().manual_seed(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._initializer = initializer if initializer is not None \
             else Uniform(0.01)
+        self._input_dtypes = None
+        # more than one rank: the state is laid out per rank
+        self._sharded = ShardedState(self) if mesh.size > 1 else None
 
     # ------------------------------------------------------------------
-    def _initial(self, name, shape, given):
+    def _initial(self, name, shape, given, device=None):
+        device = self.device if device is None else device
         if given and name in given:
             val = _as_tensor(given[name])
             if tuple(val.shape) != tuple(shape):
                 raise MXNetError("init_params: %s has shape %s, the symbol "
                                  "wants %s" % (name, tuple(val.shape),
                                                tuple(shape)))
-            return val.to(self.device, torch.float32, copy=True)
+            return val.to(device, torch.float32, copy=True)
         arr = torch.zeros(shape, dtype=torch.float32)
         self._initializer(name, arr, self._init_gen)
-        return arr.to(self.device)
+        return arr.to(device)
 
     def init_params(self, arg_params=None, aux_params=None):
         """Initialize (or load) the parameters as f32 tensors on the
@@ -292,7 +310,15 @@ class ParallelTrainer:
         optimizer updates the buffer (and its flat state buffers) in a few
         launches, where a tensor per parameter costs several host calls
         per parameter. ``opt_state`` maps each name to its state leaves in
-        the JAX package's order."""
+        the JAX package's order.
+
+        On a mesh of several ranks each rank stores its shards
+        (``parallel.sharded``); ``params`` and ``aux`` are then rank 0's
+        (views of its buffer: the whole of a parameter it holds whole),
+        ``opt_state`` its leaves when it holds the whole of them, else
+        None. ``get_params`` gathers the whole."""
+        if self._sharded is not None:
+            return self._init_sharded(arg_params, aux_params)
         vals = [self._initial(n, self.arg_shapes[n], arg_params)
                 for n in self.param_names]
         flat = torch.cat([v.reshape(-1) for v in vals]) if vals \
@@ -315,6 +341,20 @@ class ParallelTrainer:
         self._t = 0
         return self
 
+    def _init_sharded(self, arg_params, aux_params):
+        sh = self._sharded
+        vals = {n: self._initial(n, self.arg_shapes[n], arg_params, "cpu")
+                for n in self.param_names}
+        aux = [self._initial(n, s, aux_params, "cpu")
+               for n, s in zip(self.aux_names, self.aux_shapes)]
+        sh.init(vals, aux)
+        self.params = sh.rank_params[0]
+        self.aux = sh.aux[0]
+        self.opt_state = None if sh.per_weight or sh.zero1 \
+            else sh.states[0].by_name()
+        self._t = 0
+        return self
+
     def _views(self, flat):
         """{name: view of ``flat`` in the parameter's shape}."""
         shapes = [self.arg_shapes[n] for n in self.param_names]
@@ -326,9 +366,14 @@ class ParallelTrainer:
         return self.init_params(arg_params, aux_params)
 
     def get_params(self):
-        """Host copies ``(arg_params, aux_params)`` as CPU f32 tensors."""
-        arg = {n: v.detach().to("cpu", copy=True)
-               for n, v in self.params.items()}
+        """Host copies ``(arg_params, aux_params)`` as CPU f32 tensors,
+        each parameter whole (gathered from the ranks' shards on a
+        mesh)."""
+        if self._sharded is not None:
+            arg = self._sharded.whole_params()
+        else:
+            arg = {n: v.detach().to("cpu", copy=True)
+                   for n, v in self.params.items()}
         aux = {n: v.detach().to("cpu", copy=True)
                for n, v in zip(self.aux_names, self.aux)}
         return arg, aux
@@ -366,15 +411,22 @@ class ParallelTrainer:
         inside the differentiated function, so the gradient comes back
         f32), then the backward from head gradients of ones (the loss
         heads ignore them). The new aux states are copied into
-        ``self.aux``."""
+        ``self.aux``. Under ``remat`` the forward runs checkpointed."""
         leaf = self._flat.detach().requires_grad_(True)
         shapes = tuple(tuple(self.arg_shapes[n]) for n in self.param_names)
-        pvals = dict(zip(self.param_names,
-                         _Unflatten.apply(self._cast(leaf), shapes)))
-        outs, new_aux = self._graph_fn(self._inputs(pvals, batch),
-                                       list(self.aux), True, self._gen,
-                                       convbn_train=convbn_train)
-        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+        def fwd(flat):
+            pvals = dict(zip(self.param_names,
+                             _Unflatten.apply(self._cast(flat), shapes)))
+            outs, new_aux = self._graph_fn(self._inputs(pvals, batch),
+                                           list(self.aux), True, self._gen,
+                                           convbn_train=convbn_train)
+            return tuple(outs) + tuple(new_aux)
+
+        res = remat_walk(fwd, [leaf], [self._gen]) if self.remat \
+            else fwd(leaf)
+        outs, new_aux = res[:len(self.out_shapes)], res[len(self.out_shapes):]
+        backward_heads(outs)
         grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
         with torch.no_grad():
             for a, v in zip(self.aux, new_aux):
@@ -418,20 +470,33 @@ class ParallelTrainer:
             raise MXNetError("%s: missing input %s" % (what, missing[0]))
         vals = {k: _as_tensor(batch[k]) for k in self.input_shapes}
         if self._program is None:
-            inputs = {k: torch.empty(self.input_shapes[k], dtype=v.dtype,
-                                     device=self.device)
-                      for k, v in vals.items()}
+            self._input_dtypes = {k: v.dtype for k, v in vals.items()}
             _TM_COMPILES.inc()
             tele.mark("train.compile", kind="step", shapes=",".join(
                 "%s:%s" % (k, "x".join(map(str, v)))
                 for k, v in sorted(self.input_shapes.items())))
+            if self._sharded is not None:
+                sh = self._sharded
+                inputs = sh.input_buffers()
+                fn = functools.partial(sh.step, inputs, self._lr,
+                                       self._tdev)
+                mutable = sh.buffers()
+                gens = sh.generators()
+            else:
+                inputs = {k: torch.empty(self.input_shapes[k],
+                                         dtype=v.dtype, device=self.device)
+                          for k, v in vals.items()}
+                fn = functools.partial(self._step_fn, inputs,
+                                       _convbn_train_enabled())
+                mutable = [self._flat] + self._state.buffers() \
+                    + list(self.aux)
+                gens = [self._gen]
             self._program = Program(
-                functools.partial(self._step_fn, inputs,
-                                  _convbn_train_enabled()),
-                inputs, mutable=[self._flat] + self._state.buffers()
-                + list(self.aux),
-                generators=[self._gen] if self.device.type == "cuda"
-                else [], name="ParallelTrainer.step", device=self.device)
+                fn, inputs, mutable=mutable,
+                generators=gens if self.device.type == "cuda" else [],
+                name="ParallelTrainer.step", device=self.device)
+        if self._sharded is not None:
+            vals = self._sharded.split_batch(vals)
         self._program.load(**vals)
         return self._program
 
@@ -486,6 +551,8 @@ class ParallelTrainer:
         if self.params is None:
             self.init_params()
         batch = self._batch(batch, "forward")
+        if self._sharded is not None:
+            return self._sharded.forward(batch)
         vals = [self.params[n] if n in self.params else batch[n]
                 for n in self.arg_names]
         outs, _ = self._graph_fn(vals, list(self.aux), False, self._gen)
@@ -674,10 +741,22 @@ class ParallelTrainer:
         read."""
         blob = {"step": int(self._t), "opt": {},
                 "torch_rng": self._gen.get_state().numpy().copy()}
-        for name, leaves in self._state.by_name().items():
+        for name, leaves in self._opt_leaves().items():
             blob["opt"][name] = [leaf.detach().cpu().numpy().copy()
                                  for leaf in leaves]
         return blob
+
+    def _opt_leaves(self):
+        """``{name: [leaf, ...]}``, each leaf whole."""
+        if self._sharded is not None:
+            return self._sharded.whole_opt_state()
+        return self._state.by_name()
+
+    def _load_opt(self, leaves, what):
+        if self._sharded is not None:
+            self._sharded.load_opt_state(leaves, what)
+        else:
+            self._state.load(leaves, what)
 
     def set_optimizer_states(self, blob):
         """Restore a :meth:`get_optimizer_states` snapshot, the port's or
@@ -687,7 +766,7 @@ class ParallelTrainer:
         holds."""
         if self.params is None:
             self.init_params()
-        self._state.load(blob["opt"])
+        self._load_opt(blob["opt"], "set_optimizer_states")
         self._t = int(blob["step"])
         if blob.get("torch_rng") is not None:
             self._gen.set_state(torch.from_numpy(
@@ -702,8 +781,12 @@ class ParallelTrainer:
         count unless given). ``async_write=True`` takes the host snapshot
         now and writes on a thread; returns ``finalize()``, which joins
         the writer (a no-op when synchronous)."""
-        from .checkpoint import save_sharded, flatten_train_state
-        flat = flatten_train_state(self.params, self._state.by_name(),
+        from .checkpoint import Shards, save_sharded, flatten_train_state
+        sh = self._sharded
+        params = self.params if sh is None else \
+            {n: Shards(sh.specs[n], sh.param_shards(n))
+             for n in self.param_names}
+        flat = flatten_train_state(params, self._opt_leaves(),
                                    self.aux_names, self.aux)
         flat["rng/0"] = self._gen.get_state()
         return save_sharded(prefix, flat,
@@ -718,9 +801,10 @@ class ParallelTrainer:
         flat, step, _ = load_sharded(prefix)
         self.init_params({n: flat[n] for n in self.param_names},
                          {n: flat["aux/%s" % n] for n in self.aux_names})
-        self._state.load(restore_opt_state(flat, self.params,
-                                           self._state.init_fn),
-                         "restore_sharded_checkpoint")
+        whole = {n: torch.empty(self.arg_shapes[n], device="meta")
+                 for n in self.param_names}
+        self._load_opt(restore_opt_state(flat, whole, self._opt_init_fn),
+                       "restore_sharded_checkpoint")
         if "rng/0" in flat:
             self._gen.set_state(flat["rng/0"])
         self._t = int(step)

@@ -5,7 +5,8 @@ the optimizer's updater) at one and at two contexts; one epoch from the
 same initial parameters against JAX's ``FeedForward`` (parameter deltas
 by per-tensor norm at 2e-2: the MLP has a ReLU; ``predict`` at 1e-5);
 the fused loop (``MXNET_FUSED_FIT=1``) against ``ParallelTrainer.step``
-on the same batches, bitwise; its refusal of several contexts;
+on the same batches, bitwise, and over two contexts (a dp=2 mesh)
+against one;
 ``fit(checkpoint_prefix=)`` crash and resume, bitwise within the port, on
 both loops; a JAX-saved checkpoint through ``FeedForward.load``; and
 ``as_serving_engine`` against ``Decoder.generate``.
@@ -133,12 +134,32 @@ def test_fused_fit_matches_trainer_step(monkeypatch):
 
 
 def test_fused_fit_over_two_contexts_raises(monkeypatch):
+    """The fused loop over several contexts (which raised "later slice"
+    before the trainer had meshes): ``[cpu(0), cpu(1)]`` is a dp=2 mesh
+    (``_mesh_for_ctx``), and one epoch gives the parameters of the fused
+    loop on one context, up to the order of the gradient sum (the
+    trainers' tolerance, rtol 2e-4, atol 2e-5)."""
+    from mxnet_tpu_torch.model import _mesh_for_ctx
     monkeypatch.setenv("MXNET_FUSED_FIT", "1")
-    X, y = _problem(n=200)
-    model = mx.model.FeedForward(_mlp(mx), ctx=[mx.cpu(0), mx.cpu(1)],
-                                 num_epoch=1, learning_rate=0.1)
-    with pytest.raises(MXNetError, match="later slice"):
-        model.fit(X, y)
+    mesh = _mesh_for_ctx([mx.cpu(0), mx.cpu(1)])
+    assert mesh.shape == {"dp": 2}
+    X, y = _problem(n=256, d=16, k=4)
+    batch = 32
+    sym = _mlp(mx, num_hidden=32, k=4)
+    init = _init(sym, {"data": (batch, 16), "softmax_label": (batch,)},
+                 seed=12)
+    got = []
+    for ctx in (mx.cpu(), [mx.cpu(0), mx.cpu(1)]):
+        model = mx.model.FeedForward(
+            sym, ctx=ctx, num_epoch=1,
+            arg_params={n: mx.nd.array(v) for n, v in init.items()},
+            learning_rate=0.1, momentum=0.9)
+        model.fit(mx.io.NDArrayIter(X, y, batch_size=batch, shuffle=False))
+        got.append({n: v.asnumpy() for n, v in model.arg_params.items()})
+    for n in init:
+        assert not np.array_equal(got[0][n], init[n]), n
+        np.testing.assert_allclose(got[1][n], got[0][n], rtol=2e-4,
+                                   atol=2e-5, err_msg=n)
 
 
 def test_fused_loop_is_the_default_only_on_a_card(monkeypatch):

@@ -44,6 +44,9 @@ from mxnet_tpu_torch import (  # noqa: F401
 import mxnet_tpu_torch as mx
 assert mx.nd.NDArray and mx.sym.Group and mx.kv.create  # the namespace
 from mxnet_tpu_torch.parallel import checkpoint, optim  # noqa: F401
+from mxnet_tpu_torch.parallel import (  # noqa: F401
+    layout, pipeline, sharded, PipelineTrainer, ShardingRules,
+    partition_stages, pipeline_spmd)
 from mxnet_tpu_torch.models import (  # noqa: F401
     alexnet, classifiers, fcn, inception, lstm, vgg)
 from mxnet_tpu_torch.models import get_symbol  # noqa: F401
@@ -65,8 +68,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # serving.capture, .handoff, .fleet, .replay and telemetry_http; the
     # training surface's metric, callback and parallel.checkpoint; the
     # classic API's executor, executor_manager, kvstore, monitor, random;
-    # the model zoo's classifiers, alexnet, vgg, inception, lstm, fcn)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 53
+    # the model zoo's classifiers, alexnet, vgg, inception, lstm, fcn;
+    # the parallelisms' parallel.layout, .sharded and .pipeline)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 56
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -533,19 +533,60 @@ def _lm_unported(kw):
                                          num_heads=2, **kw)
 
 
+# parameters that raised "later slice" before the port had pipelines and
+# meshes: each now builds what the JAX package builds
 OTHER_UNPORTED = {
-    "pipeline_stages": _lm_unported(dict(pipeline_stages=2)),
-    "trainer_mesh": lambda lm: ttrainer.ParallelTrainer(
-        lm[0], lm[1], "sgd", object(), device="cpu"),
-    "trainer_remat": lambda lm: ttrainer.ParallelTrainer(
-        lm[0], lm[1], remat=True, device="cpu"),
+    "pipeline_stages": (_lm_unported(dict(pipeline_stages=2)),
+                        lambda sym: all(
+                            n.attrs.get("ctx_group") in ("stage0", "stage1")
+                            for n in sym._topo() if not n.is_var)),
+    "trainer_mesh": (lambda lm: ttrainer.ParallelTrainer(
+        lm[0], lm[1], "sgd", tmesh.build_mesh({"dp": 2}, ["cpu"] * 2)),
+        lambda tr: tr.mesh.shape == {"dp": 2} and tr._sharded is not None),
+    "trainer_remat": (lambda lm: ttrainer.ParallelTrainer(
+        lm[0], lm[1], remat=True, device="cpu"), lambda tr: tr.remat),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OTHER_UNPORTED))
 def test_other_unported_parameters_raise(lm, case):
-    with pytest.raises(MXNetError, match="later slice"):
-        OTHER_UNPORTED[case](lm)
+    build, check = OTHER_UNPORTED[case]
+    assert check(build(lm))
+
+
+# the parallelism names the JAX package exports, with its parameters, in
+# its order; the collectives keep the drift the port records for them:
+# each takes the LIST of the ranks' shards where JAX takes one shard and
+# an axis name, so the first parameter differs and the axis goes
+def test_parallel_names_follow_the_jax_package():
+    import mxnet_tpu.parallel as jpar
+    from mxnet_tpu.parallel import collectives as jcoll
+    from mxnet_tpu.parallel import pipeline as jpipe
+    from mxnet_tpu.parallel import shard as jshard
+    import mxnet_tpu_torch.parallel as tpar
+    from mxnet_tpu_torch.parallel import collectives as tcoll
+    from mxnet_tpu_torch.parallel import pipeline as tpipe
+    from mxnet_tpu_torch.parallel import shard as tshard
+
+    for name in ("ShardingRules", "pipeline_spmd", "partition_stages",
+                 "PipelineTrainer"):
+        assert hasattr(jpar, name) and hasattr(tpar, name), name
+    pairs = [(jshard.ShardingRules.__init__, tshard.ShardingRules.__init__),
+             (jpipe.PipelineTrainer.__init__, tpipe.PipelineTrainer.__init__),
+             (jpipe.partition_stages, tpipe.partition_stages),
+             (jpipe.pipeline_spmd, tpipe.pipeline_spmd),
+             (jax_transformer.tp_rules, ttransformer.tp_rules)]
+    for jf, tf in pairs:
+        want = inspect.signature(jf).parameters
+        got = inspect.signature(tf).parameters
+        assert [(p.name, p.default) for p in got.values()] == \
+            [(p.name, p.default) for p in want.values()], jf.__qualname__
+    assert ttransformer.tp_rules() == [
+        (pat, tuple(spec)) for pat, spec in jax_transformer.tp_rules()]
+    for name in ("pmean", "pmax", "axis_index"):
+        assert name in jcoll.__all__ and name in tcoll.__all__, name
+        got = list(inspect.signature(getattr(tcoll, name)).parameters)
+        assert got == ["xs"], (name, got)
 
 
 # the mixture-of-experts parameters (they raised "later slice" before this

@@ -223,11 +223,13 @@ def test_context_maps_to_torch_devices():
 
 
 def test_unported_parts_raise():
-    # pipeline stage tags are still unported; mixture-of-experts blocks
-    # are ported and build one MoEFFN node a layer
-    with pytest.raises(MXNetError, match="later slice"):
-        torch_lm(29, num_layers=1, embed_dim=16, num_heads=2,
-                 pipeline_stages=2)
+    # pipeline stage tags (which raised "later slice" before the port had
+    # pipelines) tag every op; mixture-of-experts blocks build one MoEFFN
+    # node a layer
+    staged = torch_lm(29, num_layers=1, embed_dim=16, num_heads=2,
+                      pipeline_stages=2)
+    assert {n.attrs.get("ctx_group") for n in staged._topo()
+            if not n.is_var} == {"stage0", "stage1"}
     moe = torch_lm(29, num_layers=1, embed_dim=16, num_heads=2,
                    num_experts=2)
     assert [n.spec.name for n in moe._topo() if not n.is_var].count(

@@ -445,11 +445,33 @@ def test_trainer_needs_cuda_or_an_explicit_cpu():
 
 
 def test_trainer_later_slices_raise():
-    _, shapes, _, batches = _setup(LM)
+    """The mesh parameters, which raised "later slice" before the port had
+    them: zero1 and fsdp need a ``dp`` axis (the JAX errors); a two-rank
+    mesh, its rules, zero1, fsdp and remat each take one step equal to the
+    one-device step."""
+    from mxnet_tpu_torch.parallel import ShardingRules, build_mesh
+    _, shapes, init, batches = _setup(LM)
     sym = get_transformer_lm(VOCAB, **LM)
-    for kw in (dict(mesh=object()), dict(zero1=True), dict(fsdp=True),
-               dict(remat=True), dict(rules=object())):
-        with pytest.raises(MXNetError, match="later slice"):
-            ParallelTrainer(sym, shapes, device="cpu", **kw)
+    for kw in (dict(zero1=True), dict(fsdp=True)):
+        with pytest.raises(MXNetError, match="needs a 'dp' mesh axis"):
+            ParallelTrainer(sym, shapes, device="cpu",
+                            mesh=build_mesh({"tp": 1}, ["cpu"]), **kw)
+
+    def one_step(**kw):
+        tr = ParallelTrainer(sym, shapes, optimizer="sgd",
+                             optimizer_params=dict(SGD), **kw)
+        tr.init_params({k: v.copy() for k, v in init.items()})
+        tr.step(batches[0])
+        return tr.get_params()[0]
+
+    want = one_step(device="cpu")
+    mesh = build_mesh({"dp": 2}, ["cpu"] * 2)
+    for kw in (dict(mesh=mesh), dict(rules=ShardingRules(mesh)),
+               dict(mesh=mesh, zero1=True), dict(mesh=mesh, fsdp=True),
+               dict(device="cpu", remat=True)):
+        got = one_step(**kw)
+        for n in want:
+            np.testing.assert_allclose(got[n], want[n], err_msg=n,
+                                       **PARAM_TOL)
     with pytest.raises(MXNetError):
         ParallelTrainer(sym, shapes, device="cpu", grad_accum=3)
