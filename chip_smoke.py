@@ -6639,11 +6639,11 @@ PAR_NOTE = "ranks on ONE card, not a multi-card figure"
 PAR_BATCH = 13                      # the seed of the f32 agreement batch
 
 
-def _par_symbol(stages=None):
+def _par_symbol(stages=None, dropout=0.0):
     from mxnet_tpu_torch.models import get_transformer_lm
     return get_transformer_lm(VOCAB, num_layers=LAYERS, embed_dim=EMBED,
                               num_heads=HEADS, impl="flash",
-                              pipeline_stages=stages)
+                              pipeline_stages=stages, dropout=dropout)
 
 
 def _par_trainer(dev, n, compute_dtype, optimizer="sgd", params=None, **kw):
@@ -6897,11 +6897,11 @@ def _pipe_launches(schedule, steps, groups=1, m=PAR_M):
             "flash_attention_dq": n, "flash_attention_dkv": n}
 
 
-def _pipe_trainer(dev, mesh_axes, m, schedule):
+def _pipe_trainer(dev, mesh_axes, m, schedule, dropout=0.0):
     from mxnet_tpu_torch.parallel import PipelineTrainer, build_mesh
     n = int(np.prod(list(mesh_axes.values())))
     return PipelineTrainer(
-        _par_symbol(mesh_axes["pp"]),
+        _par_symbol(mesh_axes["pp"], dropout),
         {"data": (TRAIN_B, TRAIN_T), "softmax_label": (TRAIN_B, TRAIN_T)},
         build_mesh(mesh_axes, [dev] * n), num_microbatches=m,
         optimizer="sgd",
@@ -7000,6 +7000,168 @@ def par_pipeline(K, dev, ref):
     return launches
 
 
+PAR_DROPOUT = 0.1                   # the draws of the recompute checks
+DROP_PP, DROP_M, DROP_STEPS = 2, 4, 4
+
+
+def par_remat_draws(dev):
+    """Check 6: a graph that draws, recomputed inside captured steps. The
+    124M LM with dropout PAR_DROPOUT, one device, bf16 over f32 masters:
+    one captured step with remat=True against remat=False from the same
+    seed, bitwise (the recompute takes the forward's draws from its
+    ``DrawTape``, and the generator ends where a plain step leaves it: a
+    second step is bitwise too)."""
+    from mxnet_tpu_torch.parallel import ParallelTrainer
+    batch = _train_batch(17, TRAIN_B, TRAIN_T)
+    res, peaks = {}, {}
+    for remat in (False, True):
+        free_programs()
+        torch.cuda.reset_peak_memory_stats()
+        tr = ParallelTrainer(
+            _par_symbol(dropout=PAR_DROPOUT),
+            {"data": (TRAIN_B, TRAIN_T), "softmax_label": (TRAIN_B, TRAIN_T)},
+            optimizer="sgd",
+            optimizer_params={"learning_rate": 1e-3, "momentum": 0.9},
+            compute_dtype="bfloat16", seed=0, device=dev,
+            remat=remat).init_params()
+        outs = []
+        for _ in range(2):
+            outs.append(tr.step(batch)[0].clone())
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**20
+        res[remat] = (outs, tr.get_params()[0])
+        del tr
+    free_programs()
+    same_outs = all(torch.equal(a, b) for a, b in zip(res[True][0],
+                                                       res[False][0]))
+    bitwise, worst = _same(res[True][1], res[False][1])
+    if not (same_outs and bitwise):
+        raise AssertionError("phase 5d remat with dropout: not bitwise "
+                             "(outputs equal %s, worst parameter diff %.3g)"
+                             % (same_outs, worst))
+    log("phase 5d remat with dropout %g: two captured steps of the 124M LM "
+        "(one device, bf16) with remat=True bitwise equal to remat=False "
+        "from seed 0: outputs and parameters; peak memory %.1f MB without, "
+        "%.1f MB with remat; %s" % (PAR_DROPOUT, peaks[False], peaks[True],
+                                   card_line()))
+
+
+def _compare_recomputes(pp, counts):
+    """Wrap ``pp._stage`` so each 1F1B recompute (the call with grad on)
+    is held against the outputs its forward (under no_grad) gave: adds
+    the elements that differ to ``counts[0]`` and those compared to
+    ``counts[1]`` (device tensors, so the comparison is captured with the
+    step). A stage's backwards run in its forwards' order."""
+    kept = collections.defaultdict(collections.deque)
+    real = pp._stage
+
+    def stage(s, x, inputs, params, gen, is_train=True):
+        y, o = real(s, x, inputs, params, gen, is_train)
+        vals = [y] if o is None else list(o)
+        if not torch.is_grad_enabled():
+            kept[s].append(vals)
+            return y, o
+        for a, f in zip(vals, kept[s].popleft()):
+            counts[0] += (a.detach() != f).sum()
+            counts[1] += f.numel()
+        return y, o
+
+    pp._stage = stage
+
+
+def par_1f1b_draws(K, dev):
+    """Check 7: 1F1B over a graph that draws. PipelineTrainer on
+    pipeline_stages=DROP_PP over {pp: DROP_PP}, dropout PAR_DROPOUT, f32,
+    M=DROP_M: DROP_STEPS captured steps after the one that builds the
+    program, every recomputed stage output (boundary activations and the
+    last stage's softmax) equal to what its forward produced, element for
+    element (``_compare_recomputes``), exact launches, a falling loss;
+    the peak memory against the same trainer without dropout (the draw
+    tapes' cost)."""
+    batch = _train_batch(19, TRAIN_B, TRAIN_T)
+    label = torch.as_tensor(batch["softmax_label"]).long().to(dev)
+    peaks = {}
+    for dropout in (0.0, PAR_DROPOUT):
+        free_programs()
+        torch.cuda.reset_peak_memory_stats()
+        pp = _pipe_trainer(dev, {"pp": DROP_PP}, DROP_M, "1f1b", dropout)
+        pp.init_params()
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        _compare_recomputes(pp, counts)
+        losses = [_lm_train_loss([pp.step(batch)], label)]
+        counts.zero_()
+        K.reset_launch_counts()
+        for _ in range(DROP_STEPS):
+            losses.append(_lm_train_loss([pp.step(batch)], label))
+        torch.cuda.synchronize()
+        peaks[dropout] = torch.cuda.max_memory_allocated() / 2**20
+        got = _check_launches(K, "phase 5d 1f1b with dropout %g" % dropout,
+                              _pipe_launches("1f1b", DROP_STEPS, m=DROP_M))
+        differ, compared = counts.tolist()
+        want = DROP_STEPS * DROP_M * TRAIN_B // DROP_M * TRAIN_T * (
+            EMBED * (DROP_PP - 1) + VOCAB)
+        if differ or compared != want:
+            raise AssertionError(
+                "phase 5d 1f1b with dropout %g: %d of %d recomputed "
+                "elements differ from the forward's (want %d compared)"
+                % (dropout, differ, compared, want))
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError("phase 5d 1f1b with dropout %g: the loss "
+                                 "did not fall: %r" % (dropout, losses))
+        del pp
+    free_programs()
+    log("phase 5d 1f1b with dropout %g: PipelineTrainer(pipeline_stages=%d, "
+        "{pp: %d} over [%s] * %d), f32, M=%d: %d captured steps, %d "
+        "recomputed stage-output elements equal to the forward's (0 "
+        "differ); loss %s; launches %s; peak memory (build, capture and "
+        "steps) %.1f MB, against %.1f MB without dropout; %s" % (
+            PAR_DROPOUT, DROP_PP, DROP_PP, dev, DROP_PP, DROP_M, DROP_STEPS,
+            compared, " ".join("%.4f" % v for v in losses),
+            json.dumps({e: n for e, n in got.items() if n}),
+            peaks[PAR_DROPOUT], peaks[0.0], card_line()))
+    return got
+
+
+def par_graphsafe_probe(dev):
+    """An observation, not a gate: the capture-safe generator calls as a
+    recompute's restore. Inside one captured graph, draw, restore the
+    generator to what ``graphsafe_get_state()`` (or ``clone_state()``)
+    returned before the draw, draw again; replayed twice. A recompute
+    needs the two draws of a replay equal, and a replay's draws new."""
+    n = 1 << 16
+    for how in ("graphsafe_get_state", "clone_state"):
+        g = torch.Generator(device=dev).manual_seed(0)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(g)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                live = g.graphsafe_get_state()
+                snap = live if how == "graphsafe_get_state" \
+                    else g.clone_state()
+                a = torch.rand(n, generator=g, device=dev)
+                g.graphsafe_set_state(snap)
+                b = torch.rand(n, generator=g, device=dev)
+                g.graphsafe_set_state(live)
+            seen = []
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                seen.append((a.clone(), torch.equal(a, b)))
+            said = "the two draws of a replay equal: %s, %s; the first " \
+                "draw new in the second replay: %s" % (
+                    seen[0][1], seen[1][1],
+                    not torch.equal(seen[0][0], seen[1][0]))
+        except Exception as e:  # the observation is the failure itself
+            said = "raised %s: %s" % (type(e).__name__,
+                                      str(e).splitlines()[0][:200])
+        del graph
+        log("phase 5d graphsafe probe: restore by %s inside a captured "
+            "draw: %s" % (how, said))
+
+
 FF_BATCHES, FF_BATCH = 8, 128
 
 
@@ -7063,6 +7225,10 @@ def parallel_main_path(K, dev):
     for e, n in par_pipeline(K, dev, ref).items():
         launches[e] = launches.get(e, 0) + n
     par_feedforward(dev)
+    par_graphsafe_probe(dev)
+    par_remat_draws(dev)
+    for e, n in par_1f1b_draws(K, dev).items():
+        launches[e] = launches.get(e, 0) + n
     log("phase 5d: every check passed in %.1f s" % (
         time.perf_counter() - t_phase))
     return launches
@@ -7081,13 +7247,13 @@ GATE = "MXNET_PALLAS_CONVBN_TRAIN"
 LOGP_ATOL = 1e-3
 
 
-def _resnet_trainer(dev, b, compute_dtype):
+def _resnet_trainer(dev, b, compute_dtype, lr=0.1):
     from mxnet_tpu_torch.models import get_resnet
     from mxnet_tpu_torch.parallel import ParallelTrainer
     return ParallelTrainer(
         get_resnet(RESNET_CLASSES, RESNET_LAYERS),
         {"data": (b, 3, RESNET_HW, RESNET_HW), "softmax_label": (b,)},
-        optimizer="sgd", optimizer_params={"learning_rate": 0.1,
+        optimizer="sgd", optimizer_params={"learning_rate": lr,
                                            "momentum": 0.9, "wd": 1e-4},
         compute_dtype=compute_dtype, seed=0, device=dev)
 
@@ -7211,6 +7377,9 @@ def train_resnet(K, dev):
                                what="resnet train (%s=1)" % GATE)
     _report_resnet("resnet train (%s=1)" % GATE, RESNET_B, secs, queued,
                    peak, busy)
+    # phase 7d holds the step fed from records against this one
+    REPORT["resnet_ms"] = statistics.median(secs) * 1e3
+    REPORT["resnet_busy"] = busy
     log("resnet train: loss over the %d steps %s" % (
         len(losses), " ".join("%.4f" % v for v in losses)))
     log("resnet train launches: %s" % json.dumps(launches))
@@ -8474,6 +8643,7 @@ def zoo_inception_bn(K, dev, t0):
                     "s wall, %.3f s card kernels, busy share %.3f, idle " \
                     "share %.3f" % (wall, kern, kern / wall, 1 - kern / wall)
                 rates[what] = ZOO_FIT_B / step_s
+                REPORT["inception_%s_ms" % what] = step_s * 1e3
             _line7c(t0, "inception-bn", "Inception-BN f32 FeedForward(ctx="
                     "mx.gpu(0)).fit on the %s loop%s, B=%d, %d batches x %d "
                     "epochs, SGD lr %g momentum 0.9 (turn %d): %.3f ms a "
@@ -8946,6 +9116,620 @@ def time_zoo_kernels(K, dev, gen, timed):
             "max_abs_err": e}
 
 
+# -- phase 7d: the IO layer: training fed from records ----------------------------
+
+IO_SIDE = 256                       # the device-augment records' side
+IO_SIDES = (288, 384)               # the host path's records: sides drawn
+IO_CLASSES = 16                     # labels (a colour tint each)
+# an epoch: 12 batches of 256 (3072 records of 256x256, 604 MB) and 24 of
+# 64 (1536 records of 288-384 px, ~520 MB); the two sets are written one
+# after the other, each removed after its runs. With queue_depth 1 a
+# worker holds at most 2 batches ahead, so each trains through several
+# batches a worker, decoded while the card steps
+IO_RESNET_BATCHES, IO_EPOCHS = 12, 2
+IO_INC_B, IO_INC_BATCHES, IO_VAL_BATCHES = 64, 24, 2
+IO_QUEUE_DEPTH = 1                  # of the training runs' pools
+IO_MEAN = (123.68, 116.779, 103.939)    # train_imagenet.py's mean_r/g/b
+IO_SWEEP_B, IO_SWEEP_S = 16, 1.0    # batch, most seconds a pool size runs
+IO_HEADROOM = 1.2                   # the pool's img/s over the step's need
+IO_CHECK_B = 32
+IO_FEED_BATCHES = 6                 # the fed batches checked
+IO_RESNET_LR = 0.02                 # SGD from scratch on the tinted records
+IO_KILL_TIMEOUT = 20.0              # MXNET_IO_WORKER_TIMEOUT of the kill
+
+
+def _line7d(t0, what, text):
+    log("phase 7d %s: %s (%.1f s into the phase)" % (
+        what, text, time.perf_counter() - t0))
+
+
+def _io_records(path, n, sides, seed):
+    """``n`` seeded RAW0 records, record i of label i % IO_CLASSES: noise
+    in [0, 64) under a tint of its class (one channel, a class-dependent
+    level), so the label survives any crop and a loss can fall. ``sides``:
+    one side, or the (low, high) range each side is drawn from. Returns
+    the bytes written."""
+    from mxnet_tpu_torch import recordio
+    rng = np.random.default_rng(seed)
+    w = recordio.MXRecordIO(path, "w")
+    for i in range(n):
+        c = i % IO_CLASSES
+        h, wd = (sides, sides) if isinstance(sides, int) else \
+            (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
+        img = np.frombuffer(rng.bytes(h * wd * 3), np.uint8).reshape(
+            h, wd, 3) & np.uint8(63)
+        img[..., c % 3] += np.uint8(60 + 20 * (c // 3))
+        w.write(recordio.pack_img((0, float(c), i, 0), img, img_fmt=".raw"))
+    w.close()
+    return os.path.getsize(path)
+
+
+def _poison_consumer_decode():
+    """From here on a record decoded in this process raises: the forked
+    pool workers keep their own code, so training from a pool shows the
+    consumer decodes nothing. Returns the undo."""
+    from mxnet_tpu_torch import image_io
+
+    real = image_io._PyEngine._load
+
+    def poisoned(*a, **k):
+        raise AssertionError("phase 7d: a record was decoded in the "
+                             "consumer process")
+
+    image_io._PyEngine._load = poisoned
+    return lambda: setattr(image_io._PyEngine, "_load", real)
+
+
+def io_sweep(t0, what, path, shape, kw, counts):
+    """The serial engine and the pool at each of ``counts`` workers, each
+    inside ONE epoch (no reset, so no pool restart, in the window): img/s
+    at IO_SWEEP_B a batch, after as many batches as there are workers
+    (the freshly forked workers' first, slowed by copy-on-write faults),
+    to the epoch's end or IO_SWEEP_S seconds, whichever comes first; the
+    pool's wait p50/p99 (the telemetry's bucket bounds), io.pool_starved
+    and the decode time an image over the same window. Returns {workers:
+    img/s}."""
+    from mxnet_tpu_torch import telemetry as tele
+    from mxnet_tpu_torch.image_io import ImageRecordIter
+    rates = {}
+    for n in [0] + list(counts):
+        it = ImageRecordIter(path, shape, IO_SWEEP_B, num_workers=n, **kw)
+        for _ in range(max(n, 1)):
+            it.iter_next()
+        tele.reset()
+        k, w0 = 0, time.perf_counter()
+        while time.perf_counter() - w0 < IO_SWEEP_S and it.iter_next():
+            k += 1
+        secs = time.perf_counter() - w0
+        whole = not it.iter_next()
+        it.close()
+        rates[n] = k * IO_SWEEP_B / secs
+        wait = tele.histogram("io.pool_wait_ms")
+        dec = tele.histogram("io.decode_batch_ms")
+        pool = "serial engine" if n == 0 else "%d worker%s" % (
+            n, "s" if n > 1 else "")
+        stats = "" if n == 0 else (
+            "; io.pool_wait_ms p50 <= %g p99 <= %g (bucket bounds), "
+            "io.pool_starved %d of %d batches; decode %.3f ms an image "
+            "(io.decode_batch_ms mean)" % (
+                wait.percentile(50), wait.percentile(99),
+                tele.counter("io.pool_starved").value,
+                tele.counter("io.pool_batches").value,
+                dec._sum / max(dec._count, 1) / IO_SWEEP_B))
+        _line7d(t0, "throughput", "%s, %s: %d batches of %d after the "
+                "first %d (%s) in %.3f s = %.1f img/s%s" % (
+                    what, pool, k, IO_SWEEP_B, max(n, 1),
+                    "to the epoch's end" if whole else "of one epoch", secs,
+                    rates[n], stats))
+    return rates
+
+
+def _feeding(rates, need):
+    """The fewest swept workers whose img/s reaches IO_HEADROOM x
+    ``need``, else None."""
+    ok = [n for n, r in sorted(rates.items())
+          if n and r >= IO_HEADROOM * need]
+    return ok[0] if ok else None
+
+
+def io_pool_equals_serial(t0, what, path, shape, kw, workers):
+    """The pool's first batches byte-identical to the serial engine's,
+    shuffle and draws on."""
+    from mxnet_tpu_torch.image_io import ImageRecordIter
+    got = []
+    for n in (0, workers):
+        it = ImageRecordIter(path, shape, IO_CHECK_B, shuffle=True, seed=8,
+                             num_workers=n, **kw)
+        got.append([(b.data[0].asnumpy(), b.label[0].asnumpy())
+                    for _, b in zip(range(2), it)])
+        it.close()
+    for (d0, l0), (d1, l1) in zip(*got):
+        if not (np.array_equal(d0, d1) and np.array_equal(l0, l1)):
+            raise AssertionError("phase 7d: the pool's batch of %s "
+                                 "differs from the serial engine's" % what)
+    _line7d(t0, "checks", "the pool (%d workers) byte-identical to the "
+            "serial engine on %s (shuffle, crop and mirror draws)"
+            % (workers, what))
+
+
+def _host_crop(host, y0, x0, flip, crop):
+    """The numpy crop, mirror and normalization of a uint8 NHWC batch at
+    the given offsets and flags, NCHW float32."""
+    want = np.empty((host.shape[0], 3, crop, crop), np.float32)
+    for i in range(host.shape[0]):
+        im = host[i, y0[i]:y0[i] + crop, x0[i]:x0[i] + crop]
+        im = im[:, ::-1] if flip[i] else im
+        want[i] = ((im.astype(np.float32) - np.asarray(IO_MEAN, np.float32))
+                   * np.float32(1 / 58.0)).transpose(2, 0, 1)
+    return want
+
+
+def io_checks(dev, t0, dpath, cpus):
+    """The correctness gates of the device-augment records: the pool's
+    batches byte-identical to the serial engine's; DeviceAugmentIter's
+    card batch equal to the numpy centre crop and normalization without
+    draws, and to the host crop and mirror at the drawn offsets with
+    them; the pool fed through DeviceAugmentIter and DevicePrefetchIter
+    equal, data and labels, to the serial engine's centre crop; a killed
+    worker raises within MXNET_IO_WORKER_TIMEOUT."""
+    import signal
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.image_io import ImageRecordIter
+    io_pool_equals_serial(t0, "the device-augment records", dpath,
+                          (3, IO_SIDE, IO_SIDE),
+                          dict(resize=IO_SIDE, device_augment=True),
+                          min(4, cpus))
+    base = ImageRecordIter(dpath, (3, IO_SIDE, IO_SIDE), IO_CHECK_B,
+                           resize=IO_SIDE, device_augment=True)
+    u8 = [b.data[0].asnumpy().copy() for _, b in zip(range(2), base)]
+    crop = RESNET_HW
+    for draws in (False, True):
+        base.reset()
+        aug = mx.DeviceAugmentIter(base, crop_shape=(crop, crop),
+                                   rand_crop=draws, rand_mirror=draws,
+                                   mean=IO_MEAN, scale=1 / 58.0, seed=6)
+        g = torch.Generator(device=dev).manual_seed(6)
+        for _, batch, host in zip(range(2), aug, u8):
+            card = batch.data[0]._tensor
+            if card.device != dev or card.dtype != torch.float32:
+                raise AssertionError("phase 7d: DeviceAugmentIter's batch "
+                                     "is %s on %s" % (card.dtype,
+                                                      card.device))
+            b = host.shape[0]
+            if draws:
+                y0 = torch.randint(0, IO_SIDE - crop + 1, (b,), generator=g,
+                                   device=dev).tolist()
+                x0 = torch.randint(0, IO_SIDE - crop + 1, (b,), generator=g,
+                                   device=dev).tolist()
+                flip = (torch.rand((b,), generator=g, device=dev)
+                        < 0.5).tolist()
+            else:
+                y0 = x0 = [(IO_SIDE - crop) // 2] * b
+                flip = [False] * b
+            want = _host_crop(host, y0, x0, flip, crop)
+            if not np.array_equal(card.cpu().numpy(), want):
+                raise AssertionError("phase 7d: DeviceAugmentIter (draws "
+                                     "%s) differs from the host crop" % draws)
+    # the feed as training takes it: the pool, then DeviceAugmentIter and
+    # DevicePrefetchIter's thread, side stream and event; data and labels
+    # batch for batch as the serial engine's
+    pool = ImageRecordIter(dpath, (3, IO_SIDE, IO_SIDE), IO_CHECK_B,
+                           resize=IO_SIDE, device_augment=True,
+                           shuffle=True, seed=8, num_workers=min(4, cpus),
+                           queue_depth=IO_QUEUE_DEPTH)
+    feed = mx.DevicePrefetchIter(mx.DeviceAugmentIter(
+        pool, crop_shape=(crop, crop), rand_crop=False, rand_mirror=False,
+        mean=IO_MEAN, scale=1 / 58.0), depth=2)
+    serial = ImageRecordIter(dpath, (3, IO_SIDE, IO_SIDE), IO_CHECK_B,
+                             resize=IO_SIDE, device_augment=True,
+                             shuffle=True, seed=8)
+    fed = 0
+    for _, batch, host in zip(range(IO_FEED_BATCHES), feed, serial):
+        b = IO_CHECK_B
+        want = _host_crop(host.data[0].asnumpy(),
+                          [(IO_SIDE - crop) // 2] * b,
+                          [(IO_SIDE - crop) // 2] * b, [False] * b, crop)
+        if not (np.array_equal(batch.data[0]._tensor.cpu().numpy(), want)
+                and np.array_equal(batch.label[0]._tensor.cpu().numpy(),
+                                   host.label[0].asnumpy())):
+            raise AssertionError("phase 7d: the fed batch %d differs from "
+                                 "the serial engine's crop or labels" % fed)
+        fed += 1
+    if fed != IO_FEED_BATCHES:
+        raise AssertionError("phase 7d: the feed gave %d batches" % fed)
+    feed.close()
+    pool.close()
+    serial.close()
+    base.close()
+    os.environ["MXNET_IO_WORKER_TIMEOUT"] = str(IO_KILL_TIMEOUT)
+    try:
+        it = ImageRecordIter(dpath, (3, IO_SIDE, IO_SIDE), IO_CHECK_B,
+                             resize=IO_SIDE, device_augment=True,
+                             num_workers=2, queue_depth=1)
+        it.iter_next()
+        os.kill(it._py._workers[1].pid, signal.SIGKILL)
+        k0 = time.perf_counter()
+        try:
+            for _ in range(3):
+                while it.iter_next():
+                    pass
+                it.reset()
+        except MXNetError as e:
+            if "died" not in str(e):
+                raise
+        else:
+            raise AssertionError("phase 7d: a killed decode worker did not "
+                                 "raise")
+        killed_s = time.perf_counter() - k0
+        if killed_s > IO_KILL_TIMEOUT:
+            raise AssertionError("phase 7d: the killed worker raised after "
+                                 "%.1f s" % killed_s)
+        it.close()
+    finally:
+        del os.environ["MXNET_IO_WORKER_TIMEOUT"]
+    _line7d(t0, "checks", "DeviceAugmentIter's card batch equal to the "
+            "numpy centre crop and normalization without draws, and to the "
+            "host crop and mirror at the drawn offsets with them, exactly; "
+            "%d batches of the pool through DeviceAugmentIter and "
+            "DevicePrefetchIter equal to the serial engine's centre crop "
+            "and labels, exactly; a killed worker raised MXNetError %.3f s "
+            "after the kill (timeout %g s)" % (
+                IO_FEED_BATCHES, killed_s, IO_KILL_TIMEOUT))
+
+
+class _Stamps:
+    """batch_end_callback: the time and the metric of each training batch
+    alone (the metric's running sums differenced); ``eval`` as the
+    eval_batch_end_callback: the time each validation batch ended."""
+
+    def __init__(self):
+        self.times, self.values, self.eval_times = [], [], []
+        self._last = (0.0, 0)
+
+    def __call__(self, p):
+        self.times.append(time.perf_counter())
+        m = p.eval_metric
+        if m.num_inst < self._last[1]:      # an epoch's reset
+            self._last = (0.0, 0)
+        self.values.append((m.sum_metric - self._last[0])
+                           / max(m.num_inst - self._last[1], 1))
+        self._last = (m.sum_metric, m.num_inst)
+
+    def eval(self, p):
+        self.eval_times.append(time.perf_counter())
+
+    def epoch_ms(self, per_epoch):
+        """ms a step of the last epoch, every wait on input included:
+        from the end of what ran before it (the previous epoch's last
+        training or validation batch) to its last batch's end, over its
+        batches; the pool restarts at the epoch's reset, inside that
+        window. And the ms between its batch ends (its first batch's wait
+        left out)."""
+        first = self.times[-per_epoch]
+        start = max([self.times[-per_epoch - 1]]
+                    + [t for t in self.eval_times if t < first])
+        return ((self.times[-1] - start) / per_epoch * 1e3,
+                (self.times[-1] - first) / (per_epoch - 1) * 1e3)
+
+
+def _falls(values, per_epoch, what):
+    first = statistics.mean(values[:per_epoch])
+    second = statistics.mean(values[per_epoch:])
+    if not all(math.isfinite(v) for v in values) or not second < first:
+        raise AssertionError("phase 7d %s: the loss did not fall: %r"
+                             % (what, values))
+    return first, second
+
+
+def io_resnet(K, dev, t0, path, pools):
+    """ResNet-50 bf16 at B=256 with the conv-BN train gate on, fed from
+    records: ParallelTrainer.fit over DevicePrefetchIter(DeviceAugmentIter(
+    ImageRecordIter(device_augment=True, num_workers=n,
+    queue_depth=IO_QUEUE_DEPTH))) for each n of ``pools``, IO_EPOCHS
+    epochs of IO_RESNET_BATCHES batches each, the consumer's decode
+    poisoned; exactly RESNET_POINTWISE matmul_stats a step, a falling
+    cross-entropy (the first pool's fit; the trainer trains on through
+    the others, finite), the last epoch's ms a step with its input waits
+    (``_Stamps.epoch_ms``) and img/s against phase 6's device-resident
+    batch, the pool's and the pipeline's starvation counters and the
+    workers' decode time an image; the busy share of one more epoch
+    (profiled) on the last pool. Returns the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry as tele
+    from mxnet_tpu_torch.image_io import ImageRecordIter
+    os.environ[GATE] = "1"
+    try:
+        trainer = _resnet_trainer(None, RESNET_B, "bfloat16",
+                                  IO_RESNET_LR).init_params()
+        # the step program's build and capture, on a device batch: its
+        # warm-up runs count as launches, so they come before the count
+        trainer.step(_resnet_batch(0, RESNET_B, dev))
+        torch.cuda.synchronize()
+    finally:
+        del os.environ[GATE]
+    total = collections.Counter()
+    for workers in pools:
+        base = ImageRecordIter(path, (3, IO_SIDE, IO_SIDE), RESNET_B,
+                               resize=IO_SIDE, device_augment=True,
+                               shuffle=True, seed=3, num_workers=workers,
+                               queue_depth=IO_QUEUE_DEPTH)
+        feed = mx.DevicePrefetchIter(mx.DeviceAugmentIter(
+            base, crop_shape=(RESNET_HW, RESNET_HW), rand_crop=True,
+            rand_mirror=True, mean=IO_MEAN, seed=4), depth=2)
+        undo = _poison_consumer_decode()
+        profiled = ""
+        try:
+            tele.reset()
+            stamps = _Stamps()
+            K.reset_launch_counts()
+            w0 = time.perf_counter()
+            trainer.fit(feed, eval_metric="ce", num_epoch=IO_EPOCHS,
+                        batch_end_callback=stamps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            steps = IO_EPOCHS * IO_RESNET_BATCHES
+            launches = _check_launches(K, "phase 7d resnet fit", {
+                "matmul_stats": RESNET_POINTWISE * steps})
+            total.update(launches)
+            starved = (tele.counter("io.pool_starved").value,
+                       tele.counter("io.pipeline_starved").value,
+                       tele.counter("io.pool_batches").value)
+            inwait = tele.histogram("train.input_wait_ms")
+            dec = tele.histogram("io.decode_batch_ms")
+            if workers == pools[0]:
+                first, second = _falls(stamps.values, IO_RESNET_BATCHES,
+                                       "resnet fit")
+            else:   # the same trainer trained on: finite, not gated to fall
+                if not all(math.isfinite(v) for v in stamps.values):
+                    raise AssertionError("phase 7d resnet fit: %r"
+                                         % stamps.values)
+                first, second = (
+                    statistics.mean(stamps.values[:IO_RESNET_BATCHES]),
+                    statistics.mean(stamps.values[IO_RESNET_BATCHES:]))
+            if workers == pools[-1]:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    p0 = time.perf_counter()
+                    trainer.fit(feed, eval_metric="ce", num_epoch=1)
+                    torch.cuda.synchronize()
+                    pwall = time.perf_counter() - p0
+                kern = sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA) / 1e6
+                profiled = "; one more epoch profiled: %.3f s wall, %.3f s " \
+                    "card kernels, busy share %.3f" % (pwall, kern,
+                                                       kern / pwall)
+        finally:
+            undo()
+            feed.close()
+            base.close()
+        ms, between = stamps.epoch_ms(IO_RESNET_BATCHES)
+        ref = REPORT.get("resnet_ms")
+        _line7d(t0, "resnet-50", "ResNet-50 B=%d bf16 (%s=1) trained by "
+                "ParallelTrainer.fit from records: DevicePrefetchIter("
+                "DeviceAugmentIter(ImageRecordIter(%dx%d RAW0, "
+                "device_augment, num_workers=%d, queue_depth=%d)), crop %d, "
+                "mirror, mean %s); %d epochs x %d batches (%.1f a worker) in "
+                "%.3f s; the last epoch %.3f ms a step with every input wait "
+                "(the pool's restart included), %.1f img/s, %.3f ms between "
+                "its batch ends; against phase 6's device-resident batch "
+                "%.3f ms, %.1f img/s: %.3f of its img/s (%.3f between batch "
+                "ends); cross-entropy a batch %s (epoch means %.4f -> %.4f); "
+                "launches %s; io.pool_starved %d, io.pipeline_starved %d of "
+                "%d batches; train.input_wait_ms mean %.3f; decode %.3f ms "
+                "an image (io.decode_batch_ms mean)%s; %s" % (
+                    RESNET_B, GATE, IO_SIDE, IO_SIDE, workers,
+                    IO_QUEUE_DEPTH, RESNET_HW, IO_MEAN, IO_EPOCHS,
+                    IO_RESNET_BATCHES, IO_RESNET_BATCHES / workers, wall, ms,
+                    RESNET_B / ms * 1e3, between, ref or float("nan"),
+                    RESNET_B / ref * 1e3 if ref else float("nan"),
+                    ref / ms if ref else float("nan"),
+                    ref / between if ref else float("nan"),
+                    " ".join("%.4f" % v for v in stamps.values), first,
+                    second,
+                    json.dumps({e: n for e, n in launches.items() if n}),
+                    starved[0], starved[1], starved[2],
+                    inwait._sum / max(inwait._count, 1),
+                    dec._sum / max(dec._count, 1) / RESNET_B, profiled,
+                    card_line()))
+        del feed, base
+    del trainer
+    free_programs()
+    return dict(total)
+
+
+def io_inception(K, dev, t0, path, workers):
+    """Inception-BN f32 at B=IO_INC_B, train_imagenet.py's network and
+    host recipe: FeedForward(ctx=mx.gpu(0)).fit from ImageRecordIter(
+    resize=256, random crop 224, mirror, mean_r/g/b, num_workers=workers)
+    queue_depth=IO_QUEUE_DEPTH) with a validation iterator (IO_VAL_BATCHES
+    batches of the centre crop), IO_EPOCHS epochs of IO_INC_BATCHES
+    batches, on the fused loop
+    and on the legacy loop (MXNET_FUSED_FIT=0, the conv-BN train gate on),
+    the consumer's decode poisoned; exact launches (the legacy loop's
+    INCEPTION_BN_POINTWISE matmul_stats a step, INCEPTION_BN_CHAINS
+    fused_conv_bn_act an eval forward on both loops), then ``score`` over
+    the validation records; the last epoch's ms a step with its input
+    waits (``_Stamps.epoch_ms``) against phase 7c's. Returns the
+    launches."""
+    import mxnet_tpu_torch as mx
+    import mxnet_tpu_torch.models  # noqa: F401  (mx.models)
+    from mxnet_tpu_torch import telemetry as tele
+    from mxnet_tpu_torch.image_io import ImageRecordIter
+    sym = mx.models.get_symbol("inception-bn", num_classes=ZOO_CLASSES)
+    args, aux = _zoo_params(sym, {"data": (1, 3, 224, 224),
+                                  "softmax_label": (1,)}, 21)
+    recipe = dict(resize=256, mean_r=IO_MEAN[0], mean_g=IO_MEAN[1],
+                  mean_b=IO_MEAN[2])
+    total = collections.Counter()
+    steps = IO_EPOCHS * IO_INC_BATCHES
+    for fused in (True, False):
+        what = "fused" if fused else "legacy"
+        train = ImageRecordIter(path, (3, 224, 224), IO_INC_B,
+                                rand_crop=True, rand_mirror=True,
+                                shuffle=True, seed=5, num_workers=workers,
+                                queue_depth=IO_QUEUE_DEPTH, **recipe)
+        val_base = ImageRecordIter(path, (3, 224, 224), IO_INC_B,
+                                   num_workers=2, **recipe)
+        val = mx.io.ResizeIter(val_base, IO_VAL_BATCHES)
+        env = {} if fused else {"MXNET_FUSED_FIT": "0", GATE: "1"}
+        os.environ.update(env)
+        undo = _poison_consumer_decode()
+        try:
+            model = mx.model.FeedForward(
+                sym, ctx=mx.gpu(0), num_epoch=IO_EPOCHS, optimizer="sgd",
+                learning_rate=ZOO_LR, momentum=0.9,
+                arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                            for k, v in args.items()},
+                aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                            for k, v in aux.items()})
+            stamps = _Stamps()
+            tele.reset()
+            K.reset_launch_counts()
+            w0 = time.perf_counter()
+            model.fit(X=train, eval_data=val, eval_metric="ce",
+                      kvstore="local", batch_end_callback=stamps,
+                      eval_batch_end_callback=stamps.eval)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            want = {"fused_conv_bn_act": INCEPTION_BN_CHAINS * IO_EPOCHS
+                    * IO_VAL_BATCHES}
+            if not fused:
+                want["matmul_stats"] = INCEPTION_BN_POINTWISE * steps
+            got = _check_launches(K, "phase 7d inception-bn %s fit" % what,
+                                  want)
+            total.update(got)
+            first, second = _falls(stamps.values, IO_INC_BATCHES,
+                                   "inception-bn %s fit" % what)
+            starved = (tele.counter("io.pool_starved").value,
+                       tele.counter("io.pool_batches").value)
+            dec = tele.histogram("io.decode_batch_ms")
+            K.reset_launch_counts()
+            s0 = time.perf_counter()
+            acc = model.score(val, "acc")
+            s_secs = time.perf_counter() - s0
+            total.update(_check_launches(
+                K, "phase 7d inception-bn score",
+                {"fused_conv_bn_act": INCEPTION_BN_CHAINS
+                 * IO_VAL_BATCHES}))
+            if not 0.0 <= acc <= 1.0:
+                raise AssertionError("phase 7d inception-bn score: %r"
+                                     % acc)
+        finally:
+            undo()
+            for k in env:
+                del os.environ[k]
+            train.close()
+            val_base.close()
+        ms, between = stamps.epoch_ms(IO_INC_BATCHES)
+        ref = REPORT.get("inception_%s_ms" % what)
+        _line7d(t0, "inception-bn", "Inception-BN f32 FeedForward(ctx="
+                "mx.gpu(0)).fit on the %s loop%s from records: "
+                "ImageRecordIter(%d-%d px RAW0, resize 256, random crop 224, "
+                "mirror, mean %s, num_workers=%d, queue_depth=%d) with a "
+                "validation iterator of %d batches; B=%d, %d epochs x %d "
+                "batches (%.1f a worker) in %.3f s; the last epoch %.3f ms a "
+                "step with every input wait (the pool's restart included), "
+                "%.1f img/s, %.3f ms between its batch ends; phase 7c's "
+                "device-ready NDArrayIter %.3f ms a step: %.3f "
+                "of its img/s; cross-entropy a batch %s (epoch means %.4f "
+                "-> %.4f); io.pool_starved %d of %d batches (train and "
+                "validation pools); decode %.3f ms an image "
+                "(io.decode_batch_ms mean); score (accuracy, eval-mode "
+                "BatchNorm) %.4f in %.3f s; launches %s; %s" % (
+                    what, "" if fused else " (MXNET_FUSED_FIT=0, %s=1)"
+                    % GATE, IO_SIDES[0], IO_SIDES[1], IO_MEAN, workers,
+                    IO_QUEUE_DEPTH, IO_VAL_BATCHES, IO_INC_B, IO_EPOCHS,
+                    IO_INC_BATCHES, IO_INC_BATCHES / workers, wall, ms,
+                    IO_INC_B / ms * 1e3, between, ref or float("nan"),
+                    ref / ms if ref else float("nan"),
+                    " ".join("%.4f" % v for v in stamps.values), first,
+                    second, starved[0], starved[1],
+                    dec._sum / max(dec._count, 1) / IO_INC_B, acc, s_secs,
+                    json.dumps({e: n for e, n in got.items() if n}),
+                    card_line()))
+        del model, train, val, val_base
+        free_programs()
+    return dict(total)
+
+
+def io_main_path(K, dev):
+    """Phase 7d: the IO layer feeding training. Under a temporary directory
+    (removed after), for each record set in turn, written from seeded
+    numpy and removed after its runs: the throughput of the serial engine
+    and the pool at 1, 2, 3, 4, 6 and os.cpu_count() workers, the
+    correctness gates and the training fed from it (ResNet-50 from the
+    device-augment set, Inception-BN from the host float set), with the
+    fewest swept workers whose img/s reaches IO_HEADROOM x the step's
+    need; ResNet-50 again with as many workers as the training runs may
+    take (os.cpu_count() - 2). Returns the launches of the gated runs."""
+    import tempfile
+    t0 = time.perf_counter()
+    cpus = os.cpu_count() or 1
+    counts = sorted({n for n in (1, 2, 3, 4, 6, cpus) if n <= cpus})
+    most = max(1, cpus - 2)         # the training runs' cap on workers
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="mx_io7d_") as tmp:
+        dpath = os.path.join(tmp, "train256.rec")
+        n_r = RESNET_B * IO_RESNET_BATCHES
+        t1 = time.perf_counter()
+        size = _io_records(dpath, n_r, IO_SIDE, 1)
+        _line7d(t0, "records", "%d RAW0 records of %dx%d, %.1f MB, written "
+                "in %.1f s; os.cpu_count() %d" % (
+                    n_r, IO_SIDE, IO_SIDE, size / 2**20,
+                    time.perf_counter() - t1, cpus))
+        rates = io_sweep(t0, "device_augment %dx%d" % (IO_SIDE, IO_SIDE),
+                         dpath, (3, IO_SIDE, IO_SIDE),
+                         dict(resize=IO_SIDE, device_augment=True,
+                              shuffle=True), counts)
+        need = RESNET_B / REPORT["resnet_ms"] * 1e3 \
+            if "resnet_ms" in REPORT else 1700.0
+        feed = _feeding(rates, need)
+        _line7d(t0, "workers", "to feed ResNet-50's %.1f img/s with %gx "
+                "headroom the device-augment pool needs %s (of %d cores; "
+                "the training runs take at most %d)" % (
+                    need, IO_HEADROOM, "%d worker(s)" % feed if feed else
+                    "more than %d workers" % counts[-1], cpus, most))
+        io_checks(dev, t0, dpath, cpus)
+        free_programs()
+        pick = min(feed or counts[-1], most)
+        launches.update(io_resnet(K, dev, t0, dpath,
+                                  sorted({pick, most})))
+        os.remove(dpath)
+        hpath = os.path.join(tmp, "train_mixed.rec")
+        n_i = IO_INC_B * IO_INC_BATCHES
+        t1 = time.perf_counter()
+        size = _io_records(hpath, n_i, IO_SIDES, 2)
+        _line7d(t0, "records", "the 256x256 set removed; %d RAW0 records of "
+                "%d-%d px sides, %.1f MB, written in %.1f s" % (
+                    n_i, IO_SIDES[0], IO_SIDES[1], size / 2**20,
+                    time.perf_counter() - t1))
+        host_kw = dict(resize=256, rand_crop=True, rand_mirror=True,
+                       mean_r=IO_MEAN[0], mean_g=IO_MEAN[1],
+                       mean_b=IO_MEAN[2])
+        rates = io_sweep(t0, "host float (resize 256, crop 224, mirror, "
+                         "mean)", hpath, (3, 224, 224),
+                         dict(host_kw, shuffle=True), counts)
+        need = IO_INC_B / REPORT["inception_fused_ms"] * 1e3 \
+            if "inception_fused_ms" in REPORT else 970.0
+        feed = _feeding(rates, need)
+        _line7d(t0, "workers", "to feed Inception-BN's %.1f img/s (the "
+                "fused loop) with %gx headroom the host float pool needs %s "
+                "(of %d cores; the training runs take at most %d)" % (
+                    need, IO_HEADROOM, "%d worker(s)" % feed if feed else
+                    "more than %d workers" % counts[-1], cpus, most))
+        io_pool_equals_serial(t0, "the host-path records", hpath,
+                              (3, 224, 224), host_kw, min(4, cpus))
+        launches.update(io_inception(K, dev, t0, hpath,
+                                     min(feed or counts[-1], most)))
+    _line7d(t0, "done", "every check passed in %.1f s; the records' "
+            "directory removed; launches %s" % (
+                time.perf_counter() - t0, json.dumps(dict(launches))))
+    return dict(launches)
+
+
 def ptxas_summary(K, name, rows=None):
     """The build log of source ``name`` (or its ``K.ptxas_report`` rows)
     in a few lines: its compiled functions, their largest register count,
@@ -9085,6 +9869,10 @@ def main():
     zoo = zoo_main_path(K, dev)
     for e, n in zoo.items():
         launches[e] += n
+    free_programs()
+    io = io_main_path(K, dev)
+    for e, n in io.items():
+        launches[e] += n
     replaces = {
         "paged_attention": 1115, "paged_attention_chunk": 1115,
         "paged_attention_decode": 1115,
@@ -9115,6 +9903,7 @@ def main():
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
         moe_launches=moe.get(e, 0), fit_launches=fit.get(e, 0),
         classic_launches=classic.get(e, 0), zoo_launches=zoo.get(e, 0),
+        io_launches=io.get(e, 0),
         **{"5d_launches": par.get(e, 0)},
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",

@@ -1,8 +1,9 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of ``mxnet_tpu``, with the API
 surface of dmlc-era MXNet (``mxnet_tpu/__init__.py:22-82``) for every
 module ported so far: ``mx.nd``, ``mx.sym``, ``mx.kv``, ``mx.init``,
-``mx.mon``, ``mx.rnd``, ``mx.io``, ``mx.model.FeedForward``, the
-trainers and the serving engine. Importing it touches no CUDA device;
+``mx.mon``, ``mx.rnd``, ``mx.io``, ``mx.recordio``, ``mx.ImageRecordIter``,
+``mx.DeviceAugmentIter``, ``mx.DevicePrefetchIter``,
+``mx.model.FeedForward``, the trainers and the serving engine. Importing it touches no CUDA device;
 ``mx.cpu()``/``mx.gpu(i)`` name where arrays live, and the default
 context is ``mx.gpu(0)`` (``context.py``).
 """
@@ -29,6 +30,11 @@ from .initializer import (Uniform, Normal, Orthogonal, Xavier,  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import telemetry  # noqa: F401
 from . import io  # noqa: F401
+from . import recordio  # noqa: F401
+from . import stream  # noqa: F401
+from . import image_io  # noqa: F401
+from .image_io import ImageRecordIter, DeviceAugmentIter  # noqa: F401
+from .io import DevicePrefetchIter  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import executor_manager  # noqa: F401

@@ -57,11 +57,12 @@ from . import io
 from . import kvstore as kvs
 from . import metric
 from . import optimizer as opt
-from .base import MXNetError, later_slice, torch_dtype
+from .base import MXNetError, torch_dtype
 from .context import Context, cpu, current_context, resolve_device
 from .executor_manager import (DataParallelExecutorManager,
                                _check_arguments, _load_general)
 from .initializer import Uniform
+from .stream import open_stream
 
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
            "load_optimizer_states", "latest_checkpoint", "params_from_numpy",
@@ -89,13 +90,8 @@ def _strip_file_uri(path):
     return path[len("file://"):] if path.startswith("file://") else path
 
 
-def _local(path, what):
-    """A local path for ``path``; remote URIs raise (the port has no
-    stream layer for them yet)."""
-    path = _strip_file_uri(path)
-    if path.startswith(("s3://", "hdfs://")):
-        raise later_slice(what, "remote URIs (%s)" % path.split("://")[0])
-    return path
+def _is_remote(path):
+    return path.startswith(("s3://", "hdfs://"))
 
 
 def _clear_stale_tmp(tmp_name):
@@ -112,7 +108,13 @@ def _clear_stale_tmp(tmp_name):
 
 
 def _publish(path, writer):
-    """tmp + os.replace publication of one local checkpoint file."""
+    """Write one checkpoint file: a remote URI directly (an object store
+    publishes on a successful close, ``stream.py``), a local path through
+    tmp + os.replace."""
+    path = _strip_file_uri(path)
+    if _is_remote(path):
+        writer(path)
+        return
     tmp_name = path + ".tmp"
     _clear_stale_tmp(tmp_name)
     writer(tmp_name)
@@ -143,7 +145,9 @@ def _forget_states_published(prefix):
 
 
 def _save_lock_for(prefix):
-    key = os.path.abspath(prefix)
+    key = _strip_file_uri(prefix)
+    if not _is_remote(key):
+        key = os.path.abspath(key)
     with _SAVE_LOCKS_GUARD:
         return _SAVE_LOCKS.setdefault(key, threading.Lock())
 
@@ -165,7 +169,7 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
     ``prefix-%04d.states``, so a resumed run continues the same optimizer
     trajectory. Records the ``checkpoint.save`` span and the
     ``checkpoint.write_ms`` histogram."""
-    local = _local(prefix, "save_checkpoint")
+    local = _strip_file_uri(prefix)
     save_dict = {("arg:%s" % k): _host(v) for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): _host(v)
                       for k, v in aux_params.items()})
@@ -175,7 +179,9 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
     with _save_lock_for(local):
         _publish("%s-symbol.json" % local, symbol.save)
         if optimizer_states is None:
-            if os.path.abspath(states_name) not in _STATES_PUBLISHED \
+            if not _is_remote(local) \
+                    and os.path.abspath(states_name) \
+                    not in _STATES_PUBLISHED \
                     and os.path.exists(states_name):
                 logging.warning("removing stale optimizer-state file %s "
                                 "(this checkpoint has no optimizer state)",
@@ -186,12 +192,13 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
                     pass
         else:
             def write_states(path):
-                with open(path, "wb") as f:
+                with open_stream(path, "wb") as f:
                     pickle.dump(optimizer_states, f,
                                 protocol=pickle.HIGHEST_PROTOCOL)
             _publish(states_name, write_states)
-            with _SAVE_LOCKS_GUARD:
-                _STATES_PUBLISHED.add(os.path.abspath(states_name))
+            if not _is_remote(local):
+                with _SAVE_LOCKS_GUARD:
+                    _STATES_PUBLISHED.add(os.path.abspath(states_name))
         _publish(param_name, lambda p: nd.save(p, save_dict))
     dt = time.perf_counter() - t0
     _TM_CKPT_MS.observe(dt * 1e3)
@@ -201,10 +208,9 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
 
 def load_checkpoint(prefix, epoch):
     """Load (symbol, arg_params, aux_params); arrays are NDArrays on
-    ``cpu()``."""
-    local = _local(prefix, "load_checkpoint")
-    symbol = sym.load("%s-symbol.json" % local)
-    save_dict = nd.load("%s-%04d.params" % (local, epoch))
+    ``cpu()``. ``prefix`` may be a URI (``stream.open_stream``)."""
+    symbol = sym.load("%s-symbol.json" % prefix)
+    save_dict = nd.load("%s-%04d.params" % (prefix, epoch))
     arg_params = {}
     aux_params = {}
     for k, v in save_dict.items():
@@ -220,11 +226,11 @@ def load_optimizer_states(prefix, epoch):
     """The optimizer-state blob saved beside ``prefix-%04d.params``, or
     None when that epoch was saved without one. Unpickles the file, so
     load only checkpoints this program (or the JAX package) wrote."""
-    path = "%s-%04d.states" % (_local(prefix, "load_optimizer_states"),
-                               epoch)
     try:
-        f = open(path, "rb")
-    except OSError:
+        # any open failure (a missing local file, an absent remote
+        # object) means no state was saved
+        f = open_stream("%s-%04d.states" % (prefix, epoch), "rb")
+    except Exception:
         return None
     with f:
         return pickle.load(f)
@@ -235,7 +241,7 @@ def latest_checkpoint(prefix):
     anchored ``%04d`` match: ``cp-b-cp-0007.params`` is not epoch 7 of
     ``cp``), or None; in-flight ``.tmp`` files do not count."""
     prefix = _strip_file_uri(prefix)
-    if prefix.startswith(("s3://", "hdfs://")):
+    if _is_remote(prefix):
         return None  # remote prefixes cannot be listed
     best = None
     pat = re.compile(re.escape(os.path.basename(prefix))
@@ -900,7 +906,7 @@ class FeedForward(BASE_ESTIMATOR):
         """Auto-resume: load the latest complete checkpoint at ``prefix``
         (parameters, and the optimizer-state blob when one was saved) and
         move ``begin_epoch`` to it. Returns the blob or None."""
-        if _strip_file_uri(prefix).startswith(("s3://", "hdfs://")):
+        if _is_remote(_strip_file_uri(prefix)):
             logger.warning(
                 "fit: auto-resume does not support remote checkpoint "
                 "prefixes (%s); training starts at begin_epoch=%d",

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .base import (DTYPE_MX_TO_TORCH, DTYPE_TORCH_TO_MX, MXNetError,
-                   later_slice, torch_dtype)
+                   torch_dtype)
 from .context import Context, cpu, current_context, resolve_device
 
 __all__ = ["NDArray", "zeros", "ones", "full", "empty", "array", "save",
@@ -520,9 +520,36 @@ def fill_element_0index(lhs, mhs, rhs, out=None):
 
 def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0,
              channels=3, mean=None):
-    """Decode an image bytestring (reference: ndarray.cc:799): it needs
-    the port of ``image_io``."""
-    raise later_slice("imdecode", "the image decoder (image_io)")
+    """Decode a JPEG/PNG bytestring (reference: ndarray.cc:799
+    ``_imdecode``) into a ``[1, 3, H, W]`` float32 array: Pillow, else
+    OpenCV, as the JAX package does (``MXNetError`` without either).
+    ``clip_rect=(x0, y0, x1, y1)`` crops first; ``mean`` (an NDArray) is
+    subtracted."""
+    import io as _io
+    try:
+        from PIL import Image
+        img = np.asarray(Image.open(_io.BytesIO(str_img)).convert("RGB"))
+    except ImportError:
+        try:
+            import cv2
+        except ImportError as exc:
+            raise MXNetError("imdecode needs PIL or cv2") from exc
+        img = cv2.imdecode(np.frombuffer(str_img, np.uint8),
+                           cv2.IMREAD_COLOR)
+        if img is None:
+            raise MXNetError("imdecode: decode failed")
+        img = img[:, :, ::-1]
+    x0, y0, x1, y1 = clip_rect
+    if x1 > 0 or y1 > 0:
+        img = img[y0:y1, x0:x1]
+    img = np.transpose(img, (2, 0, 1)).astype(np.float32)
+    if mean is not None:
+        img = img - mean.asnumpy()
+    img = img[None]
+    if out is not None:
+        out._set(torch.from_numpy(np.ascontiguousarray(img)))
+        return out
+    return array(img)
 
 
 # -- the .params codec ----------------------------------------------------------
@@ -576,7 +603,7 @@ def _load_one(fi):
 def save(fname, data):
     """Save one array, a list of arrays or a str-keyed dict of arrays
     (reference ``ndarray.py:565``): NDArrays, numpy arrays or torch
-    tensors."""
+    tensors. ``fname`` may be a URI (``stream.open_stream``)."""
     if isinstance(data, (NDArray, np.ndarray, torch.Tensor)):
         data = [data]
     names = []
@@ -585,7 +612,8 @@ def save(fname, data):
         arrays = [data[k] for k in names]
     else:
         arrays = list(data)
-    with open(fname, "wb") as fo:
+    from .stream import open_stream  # URI dispatch (dmlc::Stream)
+    with open_stream(fname, "wb") as fo:
         fo.write(struct.pack("<QQ", _LIST_MAGIC, 0))
         fo.write(struct.pack("<Q", len(arrays)))
         for arr in arrays:
@@ -621,7 +649,8 @@ def _as_ndarrays(loaded):
 
 def _load_tensors(fname):
     """:func:`load` as CPU torch tensors."""
-    with open(fname, "rb") as fi:
+    from .stream import open_stream
+    with open_stream(fname, "rb") as fi:
         return _load_stream(fi)
 
 
@@ -632,7 +661,8 @@ def _load_buffer_tensors(data):
 
 def load(fname):
     """Load a list or dict saved by :func:`save`, by the JAX package or by
-    the reference, as NDArrays on ``cpu()``."""
+    the reference, as NDArrays on ``cpu()``. ``fname`` may be a URI
+    (``s3://``, ``hdfs://``, ``file://``; ``stream.open_stream``)."""
     return _as_ndarrays(_load_tensors(fname))
 
 

@@ -17,7 +17,7 @@ import torch
 
 from ..base import MXNetError
 from . import kernels
-from .registry import OpSpec, Param, register, shape_assign
+from .registry import OpSpec, Param, keep_mask, register, shape_assign
 
 
 @register
@@ -374,8 +374,7 @@ class MultiHeadAttention(OpSpec):
         out = torch.nn.functional.linear(o.reshape(b, t, e), ins[3], ins[4])
         if is_train and p["dropout"] > 0.0:
             keep = 1.0 - p["dropout"]
-            mask = torch.rand(out.shape, generator=generator,
-                              device=out.device) < keep
+            mask = keep_mask(out.shape, keep, generator, out.device)
             out = torch.where(mask, out / keep, torch.zeros_like(out))
         return out
 

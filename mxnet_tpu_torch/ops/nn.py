@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .registry import OpSpec, Param, register, same_shape_infer, shape_assign
+from .registry import (OpSpec, Param, keep_mask, register,
+                       same_shape_infer, shape_assign, uniform)
 
 
 def _BN_STATS_MODE():
@@ -242,9 +243,8 @@ class LeakyReLU(OpSpec):
         if t == "rrelu":
             if is_train:
                 lo, hi = p["lower_bound"], p["upper_bound"]
-                slope = torch.rand(x.shape, generator=generator,
-                                   device=x.device, dtype=x.dtype) \
-                    * (hi - lo) + lo
+                slope = (uniform(x.shape, generator, x.device, x.dtype)
+                         * (hi - lo) + lo)
             else:
                 slope = (p["lower_bound"] + p["upper_bound"]) / 2.0
             return [torch.where(x > 0, x, slope * x)], []
@@ -484,8 +484,7 @@ class Dropout(OpSpec):
         if not is_train or rate <= 0.0:
             return [x], []
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
+        mask = keep_mask(x.shape, keep, generator, x.device)
         return [torch.where(mask, x / keep, torch.zeros_like(x))], []
 
 

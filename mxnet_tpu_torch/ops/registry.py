@@ -10,6 +10,8 @@ ops that draw random numbers at training time.
 from __future__ import annotations
 
 import ast
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -17,6 +19,79 @@ import torch
 from ..base import MXNetError
 
 REQUIRED = object()
+
+
+_TAPE = threading.local()
+
+
+class DrawTape:
+    """The training draws of one forward, kept for its recompute.
+
+    A checkpointed forward (``parallel.sharded.remat_walk``, a 1F1B
+    stage's backward) runs its ops twice; under ``record()`` every draw
+    of :func:`uniform` and :func:`keep_mask` is kept, and under
+    ``replay()`` the same draws are handed back in order instead of drawn
+    again, so the recompute applies the forward's dropout masks and rrelu
+    slopes. The generators are not touched: no state is read or set, so
+    it holds under CUDA graph capture, and the step leaves them where a
+    step without the recompute does (the JAX package's ``jax.checkpoint``
+    replays the same key). A dropout site keeps its bool mask, the bytes
+    a step without the recompute saves for its backward."""
+
+    def __init__(self):
+        self.draws = []
+        self._next = None
+
+    @contextlib.contextmanager
+    def record(self):
+        self.draws, self._next = [], None
+        with self._active():
+            yield self
+
+    @contextlib.contextmanager
+    def replay(self):
+        self._next = 0
+        with self._active():
+            yield self
+
+    @contextlib.contextmanager
+    def _active(self):
+        held = getattr(_TAPE, "tape", None)
+        _TAPE.tape = self
+        try:
+            yield
+        finally:
+            _TAPE.tape = held
+
+    def _draw(self, make):
+        if self._next is None:
+            out = make()
+            self.draws.append(out)
+            return out
+        if self._next >= len(self.draws):
+            raise MXNetError("recompute draws more than its forward drew")
+        out = self.draws[self._next]
+        self._next += 1
+        return out
+
+
+def _drawn(make):
+    tape = getattr(_TAPE, "tape", None)
+    return make() if tape is None else tape._draw(make)
+
+
+def uniform(shape, generator, device, dtype=torch.float32):
+    """An op's training draw: ``torch.rand(shape)`` from ``generator``,
+    or, inside a :class:`DrawTape`, the draw its forward recorded."""
+    return _drawn(lambda: torch.rand(tuple(shape), generator=generator,
+                                     device=device, dtype=dtype))
+
+
+def keep_mask(shape, keep, generator, device):
+    """A dropout mask: ``torch.rand(shape) < keep`` from ``generator``,
+    or, inside a :class:`DrawTape`, the mask its forward recorded."""
+    return _drawn(lambda: torch.rand(tuple(shape), generator=generator,
+                                     device=device) < keep)
 
 
 def _parse_shape(v):

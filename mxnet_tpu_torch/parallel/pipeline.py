@@ -50,7 +50,8 @@ from .collectives import ppermute, psum
 from .layout import Layout
 from .optim import FlatOptState
 from .program import Program
-from .sharded import _draws, backward_heads, remat_walk
+from ..ops.registry import DrawTape
+from .sharded import backward_heads, remat_walk
 from .trainer import _as_tensor
 
 __all__ = ["pipeline_spmd", "partition_stages", "PipelineTrainer"]
@@ -353,12 +354,6 @@ class PipelineTrainer:
                                           else {})))
                        for s in range(self.S)] for d in range(self.dp)]
         self.device = L.devices[self._rank[0][0]]
-        if (self.remat or schedule == "1f1b") \
-                and self.device.type == "cuda" and _draws(symbol):
-            raise MXNetError(
-                "PipelineTrainer: replaying a stage that draws (dropout) "
-                "needs its generator restored under CUDA graph capture, "
-                "which the port does not do yet")
         self._gens = [torch.Generator(device=d).manual_seed(int(
             np.random.SeedSequence([seed, r]).generate_state(1)[0]))
             for r, d in enumerate(L.devices)]
@@ -575,7 +570,7 @@ class PipelineTrainer:
                         names = sorted(params[s])
                         y, o = self._remat_stage(
                             fn, state[s], [params[s][n] for n in names],
-                            names, self._gens[ranks[s]], s == S - 1)
+                            names, s == S - 1)
                     else:
                         y, o = fn(state[s], params=params[s])
                     if s == S - 1:
@@ -588,7 +583,7 @@ class PipelineTrainer:
         return [[[o.detach() for o in mb] for mb in g] for g in heads]
 
     @staticmethod
-    def _remat_stage(fn, x, pvals, names, gen, last):
+    def _remat_stage(fn, x, pvals, names, last):
         """``fn`` (one stage on one microbatch) checkpointed: the backward
         recomputes the stage's activations from its boundary input."""
         leaves = ([x] if x is not None else []) + pvals
@@ -598,7 +593,7 @@ class PipelineTrainer:
             y, o = fn(xv, params=dict(zip(names, rest)))
             return tuple(o) if last else (y,)
 
-        res = remat_walk(run, leaves, [gen])
+        res = remat_walk(run, leaves)
         return (None, list(res)) if last else (res[0], None)
 
     def _1f1b(self, inputs, groups):
@@ -611,13 +606,12 @@ class PipelineTrainer:
         S, M = self.S, self.M
         L = self.layout
         heads = []
-        replay = _draws(self.symbol)
         for d, (leaves, big, params) in enumerate(groups):
             ranks = self._rank[d]
             devs = [L.devices[r] for r in ranks]
             gens = [self._gens[r] for r in ranks]
             saved = [dict() for _ in range(S)]
-            states = [dict() for _ in range(S)]
+            tapes = [dict() for _ in range(S)]
             outs = [None] * M
             fwd_in = [None] * S
             bwd_in = [None] * S
@@ -630,9 +624,8 @@ class PipelineTrainer:
                     saved[s][m] = fwd_in[s]
                     self.max_in_flight = max(self.max_in_flight,
                                              len(saved[s]))
-                    if replay:
-                        states[s][m] = gens[s].get_state()
-                    with torch.no_grad():
+                    tapes[s][m] = tape = DrawTape()
+                    with torch.no_grad(), tape.record():
                         y, o = self._stage(
                             s, fwd_in[s],
                             {k: v[m] for k, v in inputs[d][s].items()},
@@ -649,15 +642,13 @@ class PipelineTrainer:
                     x = saved[s].pop(b)
                     xg = None if x is None else \
                         x.detach().requires_grad_(True)
-                    if replay:
-                        now = gens[s].get_state()
-                        gens[s].set_state(states[s].pop(b))
-                    # the stage's parameter views anew for each backward
-                    y, o = self._stage(
-                        s, xg, {k: v[b] for k, v in inputs[d][s].items()},
-                        self._stage_params(s, leaves[s], big), gens[s])
-                    if replay:
-                        gens[s].set_state(now)
+                    # the stage's parameter views anew for each backward,
+                    # and the draws its forward made
+                    with tapes[s].pop(b).replay():
+                        y, o = self._stage(
+                            s, xg,
+                            {k: v[b] for k, v in inputs[d][s].items()},
+                            self._stage_params(s, leaves[s], big), gens[s])
                     if s == S - 1:
                         backward_heads(o)
                     else:

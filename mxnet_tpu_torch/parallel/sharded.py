@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..ops.registry import DrawTape
 from .collectives import psum
 from .graph import make_spmd_graph_fn
 from .layout import Layout, spec_groups
@@ -78,39 +79,25 @@ class _Unflatten(torch.autograd.Function):
         return torch.cat([g.reshape(-1) for g in grads]), None
 
 
-def remat_walk(fn, leaves, generators):
+def remat_walk(fn, leaves):
     """``fn(*leaves)`` under ``torch.utils.checkpoint`` (non-reentrant):
     the backward recomputes the forward's activations instead of keeping
     them, the counterpart of the JAX package's ``jax.checkpoint`` over the
-    differentiated forward. The recompute restores ``generators`` to
-    their states at the forward's start, so it draws the masks the
-    forward drew (the default generators are not touched: the port's ops
-    draw from the trainer's own)."""
+    differentiated forward. The forward's draws are kept on a
+    ``DrawTape`` and handed back to the recompute, so it applies the
+    masks the forward drew, also inside a captured step."""
     from torch.utils.checkpoint import checkpoint
-    start = []
+    tape = DrawTape()
+    recorded = []
 
     def run(*args):
-        if start:
-            for g, st in zip(generators, start[0]):
-                g.set_state(st)
-        else:
-            start.append([g.get_state() for g in generators])
-        return fn(*args)
+        with (tape.replay() if recorded else tape.record()):
+            out = fn(*args)
+        recorded.append(True)
+        return out
 
     return checkpoint(run, *leaves, use_reentrant=False,
                       preserve_rng_state=False)
-
-
-def _draws(symbol):
-    """Does a training walk of ``symbol`` draw random numbers?"""
-    for n in symbol._topo():
-        if n.is_var:
-            continue
-        p = n.params
-        if (n.spec.name == "Dropout" and p.get("p", 0) > 0) \
-                or p.get("dropout", 0) > 0 or p.get("act_type") == "rrelu":
-            return True
-    return False
 
 
 class ShardedState:
@@ -151,6 +138,12 @@ class ShardedState:
                            if all(L.index(r, a) == 0 for a in zero)]
         self.walk_of = [self.walk_ranks.index(L.moved(r, zero))
                         for r in range(len(L))]
+        nw = len(self.walk_ranks)
+        if t.grad_accum > 1 and t.global_batch % (t.grad_accum * nw):
+            raise MXNetError(
+                "grad_accum=%d: a microbatch of %d rows does not split "
+                "over %d data-parallel walks"
+                % (t.grad_accum, t.global_batch // t.grad_accum, nw))
         wdev = np.empty(len(self.walk_ranks), dtype=object)
         wdev[:] = [self.devices[r] for r in self.walk_ranks]
         if axes:
@@ -364,7 +357,7 @@ class ShardedState:
                 + tuple(a for ra in new_aux for a in ra)
 
         if t.remat:
-            res = remat_walk(walk, leaves, self.walk_gens)
+            res = remat_walk(walk, leaves)
         else:
             res = walk(*leaves)
         flat_outs = list(res[:n_out * nw])
@@ -400,8 +393,7 @@ class ShardedState:
         A = B = None
         outs_parts = []
         for i in range(t.grad_accum):
-            part = [{k: v.chunk(t.grad_accum)[i] for k, v in r.items()}
-                    for r in rows] if t.grad_accum > 1 else rows
+            part = self._microbatch(rows, i) if t.grad_accum > 1 else rows
             a, b, outs = self._grads(part)
             outs_parts.append(outs)
             if A is None:
@@ -448,12 +440,31 @@ class ShardedState:
                     for d, s in zip(self.aux[r], self.aux[src]):
                         d.copy_(s)
         dev0 = self.devices[0]
-        per_walk = [[torch.cat(p) for p in zip(*[o[w] for o in outs_parts])]
-                    if len(outs_parts) > 1 else outs_parts[0][w]
-                    for w in range(nw)]
-        return [torch.cat([pw[j].to(dev0) for pw in per_walk])
-                if nw > 1 else per_walk[0][j]
-                for j in range(len(per_walk[0]))]
+        # batch-major: microbatch i's rows, walk by walk within it (the
+        # JAX reshape of [A, B/A] back to [B])
+        parts = [outs[w] for outs in outs_parts for w in range(nw)]
+        if len(parts) == 1:
+            return parts[0]
+        return [torch.cat([p[j].to(dev0) for p in parts])
+                for j in range(len(parts[0]))]
+
+    def _microbatch(self, rows, i):
+        """Microbatch ``i`` of ``grad_accum`` A, per walk: global rows
+        ``[i*B/A, (i+1)*B/A)`` split over the walks as a whole batch is
+        (the JAX trainer's reshape of the global batch to ``[A, B/A]``,
+        ``mxnet_tpu/parallel/trainer.py`` l.442-443), so a BatchNorm
+        sees the JAX microbatch. Walk ``w``'s piece is global chunk
+        ``i*nw + w`` of size ``B/(A*nw)``, which lies in walk
+        ``(i*nw + w) // A``'s rows."""
+        a, nw = self.trainer.grad_accum, len(rows)
+        out = []
+        for w in range(nw):
+            c = i * nw + w
+            src = rows[c // a]
+            dev = self.devices[self.walk_ranks[w]]
+            out.append({k: v.chunk(a)[c % a].to(dev)
+                        for k, v in src.items()})
+        return out
 
     @torch.no_grad()
     def _gather_chunks(self):

@@ -91,8 +91,7 @@ from .mesh import build_mesh
 from .optim import FlatOptState, make_functional
 from .program import Program
 from .shard import ShardingRules
-from .sharded import (ShardedState, _Unflatten, _draws, backward_heads,
-                      remat_walk)
+from .sharded import ShardedState, _Unflatten, backward_heads, remat_walk
 
 __all__ = ["ParallelTrainer"]
 
@@ -250,11 +249,6 @@ class ParallelTrainer:
         self._opt_init_fn, self._opt_update_fn = make_functional(optimizer)
 
         self._graph_fn = make_graph_fn(symbol)
-        if self.remat and self.device.type == "cuda" and _draws(symbol):
-            raise MXNetError(
-                "ParallelTrainer: remat of a graph that draws (dropout) "
-                "needs its generators restored under CUDA graph capture, "
-                "which the port does not do yet")
         # index-valued inputs (labels, embedding tokens) are exempt from
         # the compute_dtype cast: bf16 spaces integers 4 apart near 1000
         self._no_cast = (
@@ -423,7 +417,7 @@ class ParallelTrainer:
                                            convbn_train=convbn_train)
             return tuple(outs) + tuple(new_aux)
 
-        res = remat_walk(fwd, [leaf], [self._gen]) if self.remat \
+        res = remat_walk(fwd, [leaf]) if self.remat \
             else fwd(leaf)
         outs, new_aux = res[:len(self.out_shapes)], res[len(self.out_shapes):]
         backward_heads(outs)

@@ -444,7 +444,10 @@ class Symbol:
         }, indent=2)
 
     def save(self, fname):
-        with open(fname, "w") as f:
+        """Write ``tojson()`` to ``fname``, a path or a URI
+        (``stream.open_stream``)."""
+        from .stream import open_stream  # URI dispatch (dmlc::Stream)
+        with open_stream(fname, "w") as f:
             f.write(self.tojson())
 
 
@@ -528,7 +531,9 @@ def load_json(json_str):
 
 
 def load(fname):
-    with open(fname, "r") as f:
+    """A Symbol from a JSON file, a path or a URI (``stream.open_stream``)."""
+    from .stream import open_stream
+    with open_stream(fname, "r") as f:
         return load_json(f.read())
 
 

@@ -50,6 +50,9 @@ from mxnet_tpu_torch.parallel import (  # noqa: F401
 from mxnet_tpu_torch.models import (  # noqa: F401
     alexnet, classifiers, fcn, inception, lstm, vgg)
 from mxnet_tpu_torch.models import get_symbol  # noqa: F401
+from mxnet_tpu_torch import image_io, recordio, stream  # noqa: F401
+assert mx.recordio and mx.ImageRecordIter and mx.DeviceAugmentIter
+assert mx.DevicePrefetchIter and mx.io.ImageRecordIter
 import chip_smoke  # noqa: F401  (module level: its imports only)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
@@ -69,8 +72,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # training surface's metric, callback and parallel.checkpoint; the
     # classic API's executor, executor_manager, kvstore, monitor, random;
     # the model zoo's classifiers, alexnet, vgg, inception, lstm, fcn;
-    # the parallelisms' parallel.layout, .sharded and .pipeline)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 56
+    # the parallelisms' parallel.layout, .sharded and .pipeline; the IO
+    # layer's recordio, stream and image_io)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 59
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -348,5 +348,25 @@ def test_default_context_outside_any_block():
 
 
 def test_imdecode_is_a_later_slice():
-    with pytest.raises(MXNetError, match="later slice"):
-        mx.nd.imdecode(b"")
+    """``imdecode`` (a later slice before the IO layer was ported) decodes
+    as the JAX package's does: the same [1, 3, H, W] float32 values, with
+    ``clip_rect``, ``mean`` and ``out``."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 256, (12, 10, 3)).astype(np.uint8)
+    ok, buf = cv2.imencode(".png", img)
+    blob = buf.tobytes()
+    want = jmx.nd.imdecode(blob).asnumpy()
+    got = mx.nd.imdecode(blob)
+    assert got.shape == (1, 3, 12, 10)
+    np.testing.assert_array_equal(got.asnumpy(), want)
+    np.testing.assert_array_equal(got.asnumpy()[0].transpose(1, 2, 0),
+                                  img[:, :, ::-1].astype(np.float32))
+    mean = rng.uniform(0, 50, (3, 6, 4)).astype(np.float32)
+    want = jmx.nd.imdecode(blob, clip_rect=(2, 3, 6, 9),
+                              mean=jmx.nd.array(mean)).asnumpy()
+    out = mx.nd.zeros((1, 3, 6, 4))
+    got = mx.nd.imdecode(blob, clip_rect=(2, 3, 6, 9), out=out,
+                         mean=mx.nd.array(mean))
+    assert got is out
+    np.testing.assert_allclose(out.asnumpy(), want, rtol=0, atol=1e-5)

@@ -11,6 +11,7 @@ two pipeline forms to each other; 1e-5 / 1e-6 for remat). The tagged LM's
 read as a count: the most boundary inputs a stage holds at once is
 ``2S - 1`` whatever the number of microbatches.
 """
+import collections
 import warnings
 
 import numpy as np
@@ -385,3 +386,55 @@ def test_pipeline_imbalanced_memory_and_warning():
     assert any("imbalanced" in m for m in msgs_p), msgs_p
     assert any("per-stage bytes" in m for m in msgs_p), msgs_p
     assert _rank_bytes(pp_s, 0) < 0.7 * _rank_bytes(pp_pad, 0)
+
+
+def _compare_recomputes(pp, counts):
+    """Wrap ``pp._stage`` so each 1F1B recompute (the call with grad on)
+    is held against the outputs its forward (under no_grad) gave: adds
+    the elements that differ to ``counts[0]`` and those compared to
+    ``counts[1]``. A stage's backwards run in its forwards' order."""
+    kept = collections.defaultdict(collections.deque)
+    real = pp._stage
+
+    def stage(s, x, inputs, params, gen, is_train=True):
+        y, o = real(s, x, inputs, params, gen, is_train)
+        vals = [y] if o is None else list(o)
+        if not torch.is_grad_enabled():
+            kept[s].append(vals)
+            return y, o
+        for a, f in zip(vals, kept[s].popleft()):
+            counts[0] += (a.detach() != f).sum()
+            counts[1] += f.numel()
+        return y, o
+
+    pp._stage = stage
+
+
+def test_pipeline_recompute_replays_forward_draws():
+    """With dropout, 1F1B's recompute of every stage gives the outputs its
+    forward gave (each element compared), and GPipe under remat equals
+    GPipe without it bit for bit: the recomputes take the forward's draws
+    from its ``DrawTape`` and leave the generators as a plain step does."""
+    vocab, B, T, E = 11, 8, 12, 16
+    batch = _lm_batch(vocab, B, T, 2)
+    shapes = {k: v.shape for k, v in batch.items()}
+    staged = get_transformer_lm(vocab, num_layers=2, embed_dim=E,
+                                num_heads=2, impl="dense", dropout=0.3,
+                                pipeline_stages=2)
+    init = _init(staged, shapes, 5)
+    pp = par.PipelineTrainer(staged, shapes, _mesh({"pp": 2}),
+                             optimizer="sgd", optimizer_params=SGD,
+                             num_microbatches=4, schedule="1f1b")
+    pp.init_params({k: v.copy() for k, v in init.items()})
+    counts = torch.zeros(2, dtype=torch.int64)
+    _compare_recomputes(pp, counts)
+    for _ in range(2):
+        pp.step(batch)
+    assert int(counts[0]) == 0
+    assert int(counts[1]) > 0
+    runs = [_pipe(staged, batch, init, _mesh({"pp": 2}), 2, SGD,
+                  num_microbatches=4, remat=r)[0].get_params()
+            for r in (False, True)]
+    assert set(runs[0]) == set(runs[1])
+    for n, v in runs[0].items():
+        assert np.array_equal(np.asarray(runs[1][n]), np.asarray(v)), n

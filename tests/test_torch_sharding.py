@@ -464,3 +464,78 @@ def test_sharded_checkpoint_adafactor_fsdp(tmp_path):
     again.restore_sharded_checkpoint(prefix)
     for n, v in again.get_params()[0].items():
         np.testing.assert_array_equal(np.asarray(flat[n]), v.numpy())
+
+
+def _bn_convnet(pkg):
+    s = pkg.symbol
+    x = s.Convolution(data=s.Variable("data"), name="conv", kernel=(3, 3),
+                      num_filter=4, pad=(1, 1))
+    x = s.BatchNorm(data=x, name="bn")
+    x = s.Activation(data=x, name="relu", act_type="relu")
+    x = s.Pooling(data=x, name="pool", kernel=(2, 2), stride=(2, 2),
+                  pool_type="max")
+    x = s.FullyConnected(data=s.Flatten(data=x, name="flat"), name="fc",
+                         num_hidden=5)
+    return s.SoftmaxOutput(data=x, name="softmax")
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_grad_accum_on_mesh_splits_global_batch(dp):
+    """grad_accum=2 on a dp mesh: microbatch i is the global rows
+    [i*B/2, (i+1)*B/2), split over the walks, as the JAX trainer reshapes
+    the global batch, so a BatchNorm's statistics, gradients and moving
+    averages follow the JAX package's after one and after two steps."""
+    rng = np.random.RandomState(3)
+    # rows differ by half: a split by walk would see other statistics
+    x = rng.randn(16, 3, 6, 6).astype(np.float32)
+    x[8:] = x[8:] * 3.0 + 2.0
+    batch = {"data": x, "softmax_label":
+             rng.randint(0, 5, (16,)).astype(np.float32)}
+    shapes = {k: v.shape for k, v in batch.items()}
+    sym = _bn_convnet(mx)
+    init = _init(sym, shapes, 4, scale=0.3)
+    opt = dict(optimizer="sgd", grad_accum=2,
+               optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    tr = par.ParallelTrainer(sym, shapes, mesh=par.build_mesh(
+        {"dp": dp}, ["cpu"] * dp), **opt)
+    tr.init_params({k: v.copy() for k, v in init.items()})
+    jtr = jpar.ParallelTrainer(_bn_convnet(jmx), shapes,
+                               mesh=jpar.build_mesh({"dp": dp}), **opt)
+    jtr.init_params({k: jmx.nd.array(v.copy()) for k, v in init.items()})
+    for step in range(2):
+        out = tr.step(batch)[0].numpy()
+        jout = np.asarray(jtr.step(batch)[0])
+        np.testing.assert_allclose(out, jout, **TOL)
+        args, aux = tr.get_params()
+        jargs, jaux = jtr.get_params()
+        for n, v in jargs.items():
+            want = v.asnumpy()
+            err = np.linalg.norm(args[n].numpy() - want)
+            assert err <= TOL["rtol"] * np.linalg.norm(want) \
+                + TOL["atol"], (step, n, err)
+        for n, v in jaux.items():
+            np.testing.assert_allclose(aux[n].numpy(), v.asnumpy(),
+                                       rtol=1e-5, atol=1e-7,
+                                       err_msg="%d %s" % (step, n))
+
+
+@pytest.mark.parametrize("mesh_axes", [None, {"dp": 2}])
+def test_remat_with_dropout_equals_plain_bitwise(mesh_axes):
+    """remat over a graph that draws: the recompute takes the forward's
+    draws (``DrawTape``), so two steps equal two plain steps bit for bit,
+    on one device and on a dp=2 mesh."""
+    vocab = 13
+    rng = np.random.RandomState(6)
+    batch = {"data": rng.randint(0, vocab, (4, 8)).astype(np.float32),
+             "softmax_label": rng.randint(0, vocab, (4, 8)
+                                          ).astype(np.float32)}
+    shapes = {k: v.shape for k, v in batch.items()}
+    sym = get_transformer_lm(vocab, num_layers=1, embed_dim=16,
+                             num_heads=2, impl="dense", dropout=0.3)
+    init = _init(sym, shapes, 2)
+    kw = {} if mesh_axes is None else dict(
+        mesh=par.build_mesh(mesh_axes, ["cpu"] * 2))
+    got = [_params(_port(sym, shapes, init, batch, 2, remat=r, seed=7,
+                         optimizer="sgd", **kw)) for r in (False, True)]
+    for n, v in got[0].items():
+        assert np.array_equal(got[1][n], v), n
