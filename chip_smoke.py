@@ -433,9 +433,41 @@ Phases:
    f32 flash backward at B=8 (the ``f32_b8``, ``v3_1x7``, ``bn_3x3s2``,
    ``bn_widest``, ``resnet_fit_f32`` and ``vgg_fc6`` rows of the kernels
    line);
+7e. the periphery on the card, each check on a ``phase 7e`` line ending in
+   the phase's seconds: two workers on the one card through the unchanged
+   ``tools/launch.py -n 2`` (``mxnet_tpu_torch.testing.dist_worker``;
+   the kernels built by this process first): ResNet-50 f32 (224 x 224,
+   1000 classes, seeded weights) through
+   ``FeedForward(ctx=mx.gpu(0)).fit(kvstore="dist_sync")`` on the legacy
+   loop with the conv-BN train gate on, B=32 a worker over 4 global
+   batches of 64 for 2 epochs (exactly 33 ``matmul_stats`` a step in each
+   worker, the second epoch's cross-entropy below the first's, both
+   ranks' parameters bitwise equal, and within 2e-2 by norm of the deltas
+   of one process at ``ctx=[mx.gpu(0)] * 2`` with kvstore local; ms a
+   step both ways, the update's push/pull ms, bytes all-reduced, the
+   collectives' route; exact sums of keys kept on the card, each
+   collective handed card tensors), then train_mnist's MLP over the ``dist_async``
+   servers with fc1_weight range-partitioned (accuracy > 0.85 on both
+   ranks, pushes and pulls equal to the steps, MB/s); ResNet-50 saved
+   and served by ``Predictor(dev_type="gpu")`` at B=64 (exactly 53
+   ``fused_conv_bn_act`` a forward, within 1e-5 of
+   ``FeedForward.predict``, a partial-out head with its inferred shape,
+   img/s) and by the port's C predict client on the card (within 1e-5 of
+   Python, ms a forward); the port's ``train_c`` on the card through the
+   graph ABI (accuracy > 0.9) and ``MXDataIter`` over a C-created CSV
+   iterator handle (``CSVIter``'s batches); a ``NumpyOp`` softmax in an
+   MLP fit (deltas within 1e-5 of ``SoftmaxOutput``'s, the step run
+   uncaptured and counted), ``TorchModuleOp(nn.Linear)`` against
+   ``F.linear``, an ``Rtc`` saxpy compiled by NVRTC (exact, timed); the
+   profiler's trace around a Predictor forward (the scope and the
+   ``fused_conv_bn_act`` kernels named) and, after an engine with phase
+   4's settings served, ``program.serving_decode.flops`` within 1% of
+   the kernels' count and on ``/metrics``;
 8. the ``{"kernels": [...]}`` line (every C entry; ``classic_launches``
-   are phase 7b's, ``zoo_launches`` phase 7c's), the card's line, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+   are phase 7b's, ``zoo_launches`` phase 7c's, ``periphery_launches``
+   phase 7e's, workers included; and phase 7e's ``rtc_saxpy``), the
+   card's line, and the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 needs a CUDA card and the rest of the repository beside it.
@@ -9730,6 +9762,665 @@ def io_main_path(K, dev):
     return dict(launches)
 
 
+# -- phase 7e: the periphery ------------------------------------------------
+
+PERI_PRED_B = 64                    # the Predictor's and the C client's batch
+PERI_TOL = 1e-5                     # Predictor and C client against predict
+PERI_PRED_REPS = 5                  # timed Predictor forwards
+PERI_ASYNC_BOUND = 50000            # fc1_weight (100352 values) partitioned
+PERI_PARTIAL = "stage3_unit1_out"   # the partial-out head (a unit's output)
+PERI_MLP = (512, 256, 10)           # the custom-op fit's MLP
+PERI_MLP_B, PERI_MLP_BATCHES = 128, 8
+RTC_N = 1 << 24                     # saxpy's values
+RTC_SRC = ("int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+           "if (i < x_dims[0]) y[i] += 2.0f * x[i];")
+PERI_NOTE = "two ranks on ONE card, not a multi-card figure"
+
+
+def _line7e(t0, what, text):
+    log("phase 7e %s: %s (%.1f s into the phase)" % (
+        what, text, time.perf_counter() - t0))
+
+
+def _local_oracle(K, sym, args, aux, X, y, steps):
+    """ResNet-50 through FeedForward(ctx=[gpu(0)] * 2).fit on the legacy
+    loop with the gate on and kvstore local, cuDNN deterministic (as the
+    dist workers run it): (the model, the batch-end times, the update's
+    seconds a step), after its exact matmul_stats launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import model as mx_model
+    from mxnet_tpu_torch.testing import dist_worker as W
+    saved = {k: os.environ.get(k) for k in (GATE, "MXNET_FUSED_FIT")}
+    os.environ.update({GATE: "1", "MXNET_FUSED_FIT": "0"})
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    stamps, upd = [], []
+    real = mx_model._update_params_on_kvstore
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        real(*a, **kw)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - tic)
+
+    def stamp(p):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    mx_model._update_params_on_kvstore = timed_update
+    try:
+        model = mx.model.FeedForward(
+            sym, ctx=[mx.gpu(0)] * 2, num_epoch=W.RESNET_EPOCHS,
+            learning_rate=W.RESNET_LR, momentum=0.9,
+            arg_params={k: mx.nd.array(v) for k, v in args.items()},
+            aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+        K.reset_launch_counts()
+        model.fit(mx.io.NDArrayIter(X, y, batch_size=W.RESNET_GB),
+                  eval_metric="ce", kvstore="local",
+                  batch_end_callback=stamp)
+        torch.cuda.synchronize()
+        local_launches = K.launch_counts()
+    finally:
+        mx_model._update_params_on_kvstore = real
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = cudnn
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    # 33 a step in each of the two contexts' executors
+    if local_launches["matmul_stats"] != 2 * RESNET_POINTWISE * steps:
+        raise AssertionError("phase 7e local oracle: %d matmul_stats" %
+                             local_launches["matmul_stats"])
+    return model, stamps, upd
+
+
+def _peri_dist(K, dev, t0, out):
+    """7e.1-2: two workers on the one card through the unchanged
+    ``tools/launch.py -n 2``: ResNet-50 under dist_sync (the legacy fit,
+    the conv-BN train gate on) and the MLP over the dist_async servers
+    (fc1_weight range-partitioned). Their results are held here: exact
+    launches, falling loss, bitwise ranks, the one-process
+    ``[gpu(0)] * 2`` local oracle within DELTA_REL by norm, async accuracy
+    and push/pull counts."""
+    from mxnet_tpu_torch.models import get_resnet
+    from mxnet_tpu_torch.testing import dist_worker as W
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ)
+    env.update(MXNET_DISTTEST_CHECKS="resnet_sync,mlp_async,card_routes",
+               MXNET_DISTTEST_OUT=out,
+               MXNET_KVSTORE_BIGARRAY_BOUND=str(PERI_ASYNC_BOUND),
+               PYTHONPATH=HERE + os.pathsep + env.get("PYTHONPATH", ""))
+    for k in ("MXNET_TPU_COORDINATOR", "MXNET_KVSTORE_PORT_BASE",
+              "MXNET_TPU_LOCAL_DEVICES", GATE, "MXNET_FUSED_FIT"):
+        env.pop(k, None)
+    w0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "launch.py"), "-n", "2",
+         "--", sys.executable, "-m", "mxnet_tpu_torch.testing.dist_worker"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - w0
+    if proc.returncode != 0 or proc.stdout.count("OK all") != 2:
+        raise AssertionError("phase 7e dist workers failed (rc %d):\n%s\n%s"
+                             % (proc.returncode, proc.stdout[-3000:],
+                                proc.stderr[-6000:]))
+    res = [json.load(open(os.path.join(out, "resnet_sync-%d.json" % r)))
+           for r in range(2)]
+    card_routes = [json.load(open(os.path.join(out, "card_routes-%d.json"
+                                                % r))) for r in range(2)]
+    want_routes = {"broadcast": "host", "all_reduce": "cuda",
+                   "reduce_scatter": "cuda", "all_gather": "cuda"}
+    if card_routes != [want_routes] * 2:
+        raise AssertionError("phase 7e card_routes: values kept on the card "
+                             "handed gloo %r, want %r" % (card_routes,
+                                                          want_routes))
+    steps = W.RESNET_BATCHES * W.RESNET_EPOCHS
+    for r, d in enumerate(res):
+        if d["steps"] != steps \
+                or d["matmul_stats"] != RESNET_POINTWISE * steps:
+            raise AssertionError("phase 7e dist_sync rank %d: %d steps, "
+                                 "%d matmul_stats (want %d a step)" % (
+                                     r, d["steps"], d["matmul_stats"],
+                                     RESNET_POINTWISE))
+        if not d["loss"][1] < d["loss"][0]:
+            raise AssertionError("phase 7e dist_sync rank %d: the loss did "
+                                 "not fall: %s" % (r, d["loss"]))
+    ranks = [dict(np.load(os.path.join(out, "resnet_sync-%d.npz" % r)))
+             for r in range(2)]
+    if not all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ranks[0]):
+        raise AssertionError("phase 7e dist_sync: the ranks' parameters "
+                             "differ")
+    # the one-process oracle: [gpu(0)] * 2 and kvstore local on the same
+    # global batches, the same weights, the legacy loop
+    sym = get_resnet(RESNET_CLASSES, RESNET_LAYERS)
+    args, aux = W.resnet_params(sym, 5)
+    X, y = W.resnet_batches()
+    model, stamps, upd = _local_oracle(K, sym, args, aux, X, y, steps)
+    want = {k: torch.from_numpy(model.arg_params[k].asnumpy() - args[k])
+            for k in args}
+    got = {k: torch.from_numpy(ranks[0][k] - args[k]) for k in args}
+    rows = _delta_rows(got, want)
+    if not rows[0][0] <= DELTA_REL:
+        # a second oracle run: is the gap the dist path's, or two runs'?
+        again = _local_oracle(K, sym, args, aux, X, y, steps)[0]
+        twice = _delta_rows({k: torch.from_numpy(
+            again.arg_params[k].asnumpy() - args[k]) for k in args}, want)
+        raise AssertionError(
+            "phase 7e dist_sync against [gpu(0)] * 2: deltas worst %s; two "
+            "oracle runs against each other: %s (gate %g)" % (
+                rows[:3], twice[:3], DELTA_REL))
+    worst = rows[0]
+    bitwise = all(np.array_equal(ranks[0][k],
+                                 model.arg_params[k].asnumpy())
+                  for k in args)
+    del model, X
+    free_programs()
+    # the steady steps: every step but the first of the run
+    d = res[0]
+    dist_ms = statistics.median(d["step_ms"])
+    local_ms = statistics.median(
+        [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])])
+    dist_upd = statistics.median(d["update_ms"][1:])
+    local_upd = statistics.median([t * 1e3 for t in upd[1:]])
+    push_mb = d["sync_bytes"] / steps / 1e6
+    _line7e(t0, "dist_sync", "ResNet-50 f32 224x224 1000 classes, "
+            "FeedForward(ctx=mx.gpu(0)).fit(kvstore='dist_sync') on the "
+            "legacy loop (%s=1), B=%d a worker x 2 workers (%s), %d batches "
+            "x %d epochs, SGD lr %g momentum 0.9: %d matmul_stats a step in "
+            "each worker, ce by epoch rank 0 %s rank 1 %s, ranks bitwise "
+            "equal; against ctx=[gpu(0)] * 2 kvstore local: deltas worst "
+            "%s by norm %.3g (gate %g)%s; ms a step dist %.3f (median of "
+            "steps 2-%d; step 1 %.1f ms) local %.3f (x%.3f); push/pull of "
+            "every key a step (the update, synchronized) dist %.3f ms local "
+            "%.3f ms; %d collectives a step in %.3f ms; %.3f MB all-reduced "
+            "a step a worker; routes %s (the device of the tensors each "
+            "collective handed gloo: the legacy fit's store lives with its "
+            "host arg_params); values kept on the card (exact f32 and int32 "
+            "sums, replicated and reduce-scattered keys) handed gloo %s; "
+            "the launch took %.1f s; %s" % (
+                GATE, W.RESNET_GB // 2, PERI_NOTE, W.RESNET_BATCHES,
+                W.RESNET_EPOCHS, W.RESNET_LR, RESNET_POINTWISE,
+                ["%.4f" % v for v in res[0]["loss"]],
+                ["%.4f" % v for v in res[1]["loss"]], worst[2], worst[0],
+                DELTA_REL, " (bitwise)" if bitwise else "", dist_ms,
+                steps, d["first_step_ms"], local_ms, dist_ms / local_ms,
+                dist_upd, local_upd, d["sync_calls"] // steps,
+                d["sync_ms_total"] / steps, push_mb,
+                json.dumps(d["routes"]), json.dumps(card_routes[0]), wall,
+                card_line()))
+    REPORT["dist"] = dict(dist_ms=dist_ms, local_ms=local_ms,
+                          dist_upd=dist_upd, local_upd=local_upd,
+                          push_mb=push_mb)
+    am = [json.load(open(os.path.join(out, "mlp_async-%d.json" % r)))
+          for r in range(2)]
+    for r, a in enumerate(am):
+        if not (a["acc"] > 0.85 and a["pushes"] == a["steps"] * a["keys"]
+                and a["pulls"] == (a["steps"] + 1) * a["keys"]
+                and a["parts_fc1"] == 2
+                and a["fused_linear"] == 2 * a["steps"]):
+            raise AssertionError("phase 7e dist_async rank %d: %s" % (r, a))
+    rates = ["push %.1f MB/s pull %.1f MB/s" % (
+        a["push_bytes"] / a["push_s"] / 1e6,
+        a["pull_bytes"] / a["pull_s"] / 1e6) for a in am]
+    _line7e(t0, "dist_async", "train_mnist's MLP %s on gpu(0) in each of 2 "
+            "workers over the dist_async servers (%s), fc1_weight range-"
+            "partitioned over 2 servers (MXNET_KVSTORE_BIGARRAY_BOUND=%d): "
+            "accuracy %s, %s steps, kvstore.pushes %s = steps x keys, pulls "
+            "%s = (steps + 1) x keys, 2 fused_linear a step; rank 0 %s, "
+            "rank 1 %s; %s" % (
+                "-".join(map(str, W.MLP_DIMS)), PERI_NOTE, PERI_ASYNC_BOUND,
+                ["%.4f" % a["acc"] for a in am], [a["steps"] for a in am],
+                [a["pushes"] for a in am], [a["pulls"] for a in am],
+                rates[0], rates[1], card_line()))
+    launches = collections.Counter()
+    for d in res:
+        launches.update({k: v for k, v in d["launches"].items()})
+    launches["fused_linear"] += sum(a["fused_linear"] for a in am)
+    return launches
+
+
+def _peri_predict(K, dev, t0, out):
+    """7e.3: ResNet-50 f32 saved as prefix-symbol.json/.params; Predictor
+    on the card at B=PERI_PRED_B (exact fused_conv_bn_act launches,
+    FeedForward.predict within PERI_TOL, a partial-out head at an internal
+    layer with its inferred shape, img/s); then the port's C predict
+    client over the same files on the card (within PERI_TOL of Python,
+    ms a forward)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import capi
+    from mxnet_tpu_torch.models import get_resnet
+    from mxnet_tpu_torch.predict import Predictor
+    from mxnet_tpu_torch.testing import dist_worker as W
+    sym = get_resnet(RESNET_CLASSES, RESNET_LAYERS)
+    args, aux = W.resnet_params(sym, 5)
+    os.makedirs(out, exist_ok=True)
+    prefix = os.path.join(out, "resnet50")
+    mx.model.save_checkpoint(prefix, 0, sym, {k: mx.nd.array(v, mx.cpu())
+                                              for k, v in args.items()},
+                             {k: mx.nd.array(v, mx.cpu())
+                              for k, v in aux.items()})
+    files = (prefix + "-symbol.json", prefix + "-0000.params")
+    b = PERI_PRED_B
+    X = np.random.RandomState(7).rand(b, 3, RESNET_HW, RESNET_HW).astype(
+        np.float32)
+    shapes = {"data": X.shape}
+    pred = Predictor(*files, shapes, dev_type="gpu", dev_id=0)
+    K.reset_launch_counts()
+    prob = pred.forward(data=X).get_output(0)
+    launches = collections.Counter(_check_launches(
+        K, "phase 7e Predictor", {"fused_conv_bn_act": RESNET_CHAINS}))
+    model = mx.model.FeedForward(
+        sym, ctx=mx.gpu(0), numpy_batch_size=b,
+        arg_params={k: mx.nd.array(v) for k, v in args.items()},
+        aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    want = model.predict(X)
+    err = float(np.abs(prob - want).max())
+    if prob.shape != (b, RESNET_CLASSES) or not err <= PERI_TOL:
+        raise AssertionError("phase 7e Predictor: shape %s, max |p - "
+                             "predict| %.3g" % (prob.shape, err))
+    del model
+    free_programs()
+    xd = torch.from_numpy(X).to(dev)
+    for _ in range(2):
+        pred.forward(data=xd)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(PERI_PRED_REPS):
+        pred.forward(data=xd)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - tic) / PERI_PRED_REPS * 1e3
+    # the partial-out head, with the shape the symbol infers for it
+    internals = sym.get_internals()
+    name = PERI_PARTIAL + "_output"
+    _, ishapes, _ = internals.infer_shape(**shapes)
+    ishape = tuple(dict(zip(internals.list_outputs(), ishapes))[name])
+    part = Predictor(*files, shapes, dev_type="gpu",
+                     output_names=[PERI_PARTIAL])
+    feat = part.forward(data=X).get_output(0)
+    if feat.shape != ishape or not np.isfinite(feat).all():
+        raise AssertionError("phase 7e partial out: %s, inferred %s" % (
+            feat.shape, ishape))
+    del part
+    _line7e(t0, "predictor", "ResNet-50 f32 Predictor(dev_type='gpu') at "
+            "B=%d: %d fused_conv_bn_act a forward, max |p - "
+            "FeedForward.predict| %.3g (gate %g); %.3f ms a forward (%d "
+            "timed, synchronized), %.1f img/s; partial out at %s: %s = the "
+            "inferred shape; %s" % (
+                b, RESNET_CHAINS, err, PERI_TOL, fwd_ms, PERI_PRED_REPS,
+                b / fwd_ms * 1e3, PERI_PARTIAL, feat.shape, card_line()))
+    # the C client, on the card, over the same files
+    exe = capi.build_example("predict_example")
+    w0 = time.perf_counter()
+    r = subprocess.run([exe, files[0], files[1], "2", "0"]
+                       + [str(s) for s in X.shape],
+                       input=X.astype("<f4").tobytes(), capture_output=True,
+                       timeout=300)
+    c_wall = time.perf_counter() - w0
+    if r.returncode != 0:
+        raise AssertionError("phase 7e C predict client failed: %s"
+                             % r.stderr.decode()[-3000:])
+    got = np.array(r.stdout.split(), dtype=np.float32).reshape(prob.shape)
+    cerr = float(np.abs(got - prob).max())
+    c_ms = float(r.stderr.decode().split("forward_ms")[-1].split()[0])
+    if not cerr <= PERI_TOL:
+        raise AssertionError("phase 7e C predict client: max |c - python| "
+                             "%.3g" % cerr)
+    _line7e(t0, "c_predict", "the port's C predict client (predict_example "
+            "over libmxnet_tpu_torch_predict.so, dev_type 2) on the same "
+            "files at B=%d: max |c - Python| %.3g (gate %g); %.3f ms its "
+            "second MXTPredForward (outputs copied to the host included); "
+            "the whole process %.1f s (interpreter, torch and CUDA start); "
+            "%s" % (b, cerr, PERI_TOL, c_ms, c_wall, card_line()))
+    REPORT["predict"] = dict(fwd_ms=fwd_ms, img_s=b / fwd_ms * 1e3,
+                             c_ms=c_ms)
+    return launches, pred
+
+
+def _peri_graph_abi(t0, out):
+    """7e.4: the port's train_c on the card through the graph ABI alone
+    (accuracy > 0.9); MXDataIter over a CSV iterator handle the C ABI
+    created, against CSVIter."""
+    import ctypes
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import capi
+    exe = capi.build_example("train_c")
+    os.makedirs(out, exist_ok=True)
+    w0 = time.perf_counter()
+    r = subprocess.run([exe, "2", "0"], capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ, TMPDIR=out))
+    secs = time.perf_counter() - w0
+    if r.returncode != 0 or "C-ABI training OK" not in r.stdout:
+        raise AssertionError("phase 7e train_c: %s %s" % (
+            r.stdout[-2000:], r.stderr[-3000:]))
+    acc = float(r.stdout.split("accuracy")[-1])
+    if not acc > 0.9:
+        raise AssertionError("phase 7e train_c: accuracy %.4f" % acc)
+    rs = np.random.RandomState(9)
+    x = rs.randn(1000, 20).astype(np.float32)
+    y = rs.randint(0, 5, 1000).astype(np.float32)
+    dpath, lpath = os.path.join(out, "d.csv"), os.path.join(out, "l.csv")
+    np.savetxt(dpath, x, delimiter=",", fmt="%.9g")
+    np.savetxt(lpath, y, delimiter=",", fmt="%d")
+    lib = ctypes.CDLL(capi.build("graph"))
+    lib.MXTApiGetLastError.restype = ctypes.c_char_p
+    n = ctypes.c_uint()
+    creators = ctypes.POINTER(ctypes.c_void_p)()
+    if lib.MXTListDataIters(ctypes.byref(n), ctypes.byref(creators)):
+        raise AssertionError(lib.MXTApiGetLastError())
+    csv = None
+    for i in range(n.value):
+        nm, desc = ctypes.c_char_p(), ctypes.c_char_p()
+        na = ctypes.c_uint()
+        an, at, ad = (ctypes.POINTER(ctypes.c_char_p)() for _ in range(3))
+        lib.MXTDataIterGetIterInfo(
+            ctypes.c_void_p(creators[i]), ctypes.byref(nm),
+            ctypes.byref(desc), ctypes.byref(na), ctypes.byref(an),
+            ctypes.byref(at), ctypes.byref(ad))
+        if nm.value == b"CSVIter":
+            csv = creators[i]
+    keys = [b"data_csv", b"data_shape", b"label_csv", b"batch_size"]
+    vals = [dpath.encode(), b"(20,)", lpath.encode(), b"100"]
+    h = ctypes.c_void_p()
+    if csv is None or lib.MXTDataIterCreateIter(
+            ctypes.c_void_p(csv), 4, (ctypes.c_char_p * 4)(*keys),
+            (ctypes.c_char_p * 4)(*vals), ctypes.byref(h)):
+        raise AssertionError("phase 7e: CSVIter handle: %s"
+                             % lib.MXTApiGetLastError())
+    got = mx.io.MXDataIter(h.value)
+    want = mx.io.CSVIter(data_csv=dpath, data_shape=(20,), label_csv=lpath,
+                         batch_size=100)
+    nb = 0
+    for bg, bw in zip(got, want):
+        if not (np.array_equal(bg.data[0].asnumpy(), bw.data[0].asnumpy())
+                and np.array_equal(bg.label[0].asnumpy(),
+                                   bw.label[0].asnumpy())):
+            raise AssertionError("phase 7e MXDataIter: batch %d differs"
+                                 % nb)
+        nb += 1
+    if nb != 10:
+        raise AssertionError("phase 7e MXDataIter: %d batches" % nb)
+    _line7e(t0, "graph_abi", "the port's train_c (libmxnet_tpu_torch_capi."
+            "so, dev_type 2: CSVIter, Symbol compose, Executor, KVStore with "
+            "a C momentum-SGD updater) trained its MLP to accuracy %.4f in "
+            "%.1f s (process start included); MXDataIter over a C-created "
+            "CSVIter handle: %d batches equal CSVIter's; %s" % (
+                acc, secs, nb, card_line()))
+
+
+def _custom_softmax(mx):
+    class Softmax(mx.operator.NumpyOp):
+        """softmax forward, p - onehot(label) backward, on the host."""
+
+        def __init__(self):
+            super().__init__(False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][0]]], [in_shape[0]]
+
+        def forward(self, in_data, out_data):
+            x = in_data[0]
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            out_data[0][:] = e / e.sum(axis=1, keepdims=True)
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            lab = in_data[1].astype(int)
+            g = out_data[0].copy()
+            g[np.arange(lab.shape[0]), lab] -= 1.0
+            in_grad[0][:] = g
+    return Softmax()
+
+
+def _peri_extensions(K, dev, t0, timed):
+    """7e.5: a NumpyOp softmax inside an MLP fit on the card against the
+    built-in SoftmaxOutput (deltas within PERI_TOL by norm; the step ran
+    uncaptured, counted); TorchModuleOp(nn.Linear) forward and backward
+    against F.linear's; an Rtc saxpy compiled at run time on gpu(0)
+    NDArrays against torch's, timed into ``timed``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch import telemetry as tele
+    from mxnet_tpu_torch.parallel.program import WARMUP
+    launches = collections.Counter()
+    d_in, hid, k = PERI_MLP
+    rs = np.random.RandomState(11)
+    n = PERI_MLP_B * PERI_MLP_BATCHES
+    protos = rs.randn(k, d_in)
+    y = rs.randint(0, k, n)
+    X = (0.1 * (protos[y] + rs.randn(n, d_in))).astype(np.float32)
+    y = y.astype(np.float32)
+    deltas = []
+    for custom in (False, True):
+        s = mx.symbol
+        net = s.FullyConnected(data=s.Variable("data"), num_hidden=hid,
+                               name="fc1")
+        net = s.Activation(data=net, act_type="relu", name="relu1")
+        net = s.FullyConnected(data=net, num_hidden=k, name="fc2")
+        net = _custom_softmax(mx)(data=net, name="softmax") if custom \
+            else s.SoftmaxOutput(data=net, name="softmax")
+        arg_shapes, _, _ = net.infer_shape(data=(PERI_MLP_B, d_in))
+        prs = np.random.RandomState(12)
+        init = {nm: (0.05 * prs.randn(*sh)).astype(np.float32)
+                for nm, sh in zip(net.list_arguments(), arg_shapes)
+                if nm not in ("data", "softmax_label")}
+        model = mx.model.FeedForward(
+            net, ctx=mx.gpu(0), num_epoch=2, learning_rate=0.1,
+            momentum=0.9, arg_params={nm: mx.nd.array(v)
+                                      for nm, v in init.items()})
+        unc0 = tele.counter("program.uncaptured_runs").value
+        K.reset_launch_counts()
+        model.fit(mx.io.NDArrayIter(X, y, batch_size=PERI_MLP_B),
+                  kvstore="local")
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        unc = tele.counter("program.uncaptured_runs").value - unc0
+        steps = 2 * PERI_MLP_BATCHES
+        # a captured program also launches in its warm-up runs
+        warm = 0 if custom else WARMUP
+        if unc != (steps if custom else 0) \
+                or got["fused_linear"] != steps + warm:
+            raise AssertionError("phase 7e custom-op fit (custom %s): %d "
+                                 "uncaptured runs, %d fused_linear over %d "
+                                 "steps" % (custom, unc,
+                                            got["fused_linear"], steps))
+        launches.update(got)
+        deltas.append({nm: torch.from_numpy(model.arg_params[nm].asnumpy()
+                                            - v) for nm, v in init.items()})
+        del model
+        free_programs()
+    rows = _delta_rows(deltas[1], deltas[0])
+    if not rows[0][0] <= PERI_TOL:
+        raise AssertionError("phase 7e NumpyOp softmax fit: deltas %s"
+                             % rows[:3])
+    _line7e(t0, "custom_op", "an MLP %d-%d-%d fit on gpu(0) (the fused "
+            "loop), 2 epochs of %d batches of %d, with a NumpyOp softmax: "
+            "deltas against the built-in SoftmaxOutput worst %s %.3g by norm "
+            "(gate %g); the step program ran uncaptured %d times "
+            "(program.uncaptured_runs; 0 with the built-in op, captured "
+            "after its %d warm-ups); 1 fused_linear a step" % (
+                d_in, hid, k, PERI_MLP_BATCHES, PERI_MLP_B, rows[0][2],
+                rows[0][0], PERI_TOL, 2 * PERI_MLP_BATCHES, WARMUP))
+    # TorchModuleOp(nn.Linear) against F.linear
+    gen = torch.Generator().manual_seed(13)
+    lin = torch.nn.Linear(1024, 1024).to(dev)
+    x = torch.randn(256, 1024, generator=gen).to(dev)
+    head = torch.randn(256, 1024, generator=gen).to(dev)
+    net = mx.th.TorchModuleOp(lin)(data=mx.sym.Variable("data"), name="lin")
+    exe = net.simple_bind(mx.gpu(0), data=(256, 1024))
+    exe.arg_dict["data"][:] = x
+    exe.forward(is_train=True)
+    exe.backward([mx.nd.array(head)])
+    xr = x.clone().requires_grad_(True)
+    ref = torch.nn.functional.linear(xr, lin.weight, lin.bias)
+    ref.backward(head)
+    ferr = (exe.outputs[0]._tensor - ref.detach()).abs().max().item()
+    berr = (exe.grad_dict["data"]._tensor - xr.grad).abs().max().item()
+    if ferr > 1e-6 or berr > 1e-6:
+        raise AssertionError("phase 7e TorchModuleOp: forward %.3g "
+                             "backward %.3g" % (ferr, berr))
+    _line7e(t0, "torch_module", "TorchModuleOp(nn.Linear(1024, 1024)) bound "
+            "on gpu(0) at B=256: forward max err %.3g, input gradient max "
+            "err %.3g against F.linear and autograd" % (ferr, berr))
+    # Rtc: saxpy compiled through NVRTC, launched on torch's stream
+    xs = torch.randn(RTC_N, generator=gen).to(dev)
+    ys = torch.randn(RTC_N, generator=gen).to(dev)
+    xn, yn = mx.nd.array(xs), mx.nd.array(ys)
+    w0 = time.perf_counter()
+    kern = rtc.Rtc("saxpy", [("x", xn)], [("y", yn)], RTC_SRC)
+    grid, block = ((RTC_N + 255) // 256, 1, 1), (256, 1, 1)
+    rtc.LAUNCHES.clear()
+    kern.push([xn], [yn], grid, block)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - w0
+    want = ys + 2.0 * xs
+    err = (yn._tensor - want).abs().max().item()
+    if not torch.allclose(yn._tensor, want, rtol=1e-6, atol=1e-6):
+        raise AssertionError("phase 7e Rtc saxpy: max err %.3g" % err)
+    main_launches = rtc.LAUNCHES["saxpy"]
+    timer = Timer(dev)
+    ms = timer(lambda: kern.push([xn], [yn], grid, block))
+    plain = timer(lambda: yn._tensor.add_(2.0 * xn._tensor))
+    lib = timer(lambda: torch.add(yn._tensor, xn._tensor, alpha=2.0,
+                                  out=yn._tensor))
+    bms, by = bound_ms(3 * RTC_N * 4, 2 * RTC_N, torch.float32)
+    timed["rtc_saxpy"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bms, bound_by=by, library_ms=lib,
+                              shape="n=%d f32" % RTC_N)
+    _line7e(t0, "rtc", "Rtc('saxpy') over gpu(0) NDArrays of %d f32, "
+            "compiled through NVRTC for the card and launched with "
+            "cuLaunchKernel on torch's stream: max err %.3g against torch "
+            "(compile and first launch %.3f s); %.4f ms a launch, plain "
+            "(y += 2 * x, two kernels) %.4f, torch.add(alpha=2) %.4f, bound "
+            "%.4f (%s); %s" % (RTC_N, err, compile_s, ms, plain, lib, bms,
+                               by, card_line()))
+    return launches, main_launches
+
+
+def _decode_flops():
+    """The decode program's operations a round from the kernels' shapes:
+    STEPS_PER_ROUND steps of, a layer, fused_decode_attention's QKV and
+    output GEMMs and its read of every cached row, the two FFN
+    quant_matmuls; and the LM head's quant_matmul."""
+    s, e, d = SLOTS, EMBED, EMBED // HEADS
+    layer = 2 * s * 3 * e * e + 4 * s * HEADS * MAX_LEN * d \
+        + 2 * s * e * e + 2 * (2 * s * 4 * e * e)
+    return STEPS_PER_ROUND * (LAYERS * layer + 2 * s * VOCAB * e)
+
+
+def _peri_profiler(K, dev, t0, out, pred, prefix):
+    """7e.6: profiler.start/scope/stop around a Predictor forward (the
+    trace names the scope and the fused_conv_bn_act kernels); then an
+    engine with phase 4's settings serves, collect_program_stats: the
+    decode program's flops equal the kernels' count within 1%, and
+    /metrics shows them."""
+    import re
+    import urllib.request
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler, telemetry
+    src = open(os.path.join(HERE, "mxnet_tpu_torch", "ops", "csrc",
+                            "fused_linear.cu")).read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]"
+                       r"|\([^()]*\))*\)\s+)?(\w+)", src)
+    xd = torch.from_numpy(np.random.RandomState(7).rand(
+        PERI_PRED_B, 3, RESNET_HW, RESNET_HW).astype(np.float32)).to(dev)
+    tdir = os.path.join(out, "trace")
+    profiler.start(tdir)
+    with profiler.scope("predictor_forward"):
+        pred.forward(data=xd)
+        torch.cuda.synchronize()
+    path = profiler.stop()
+    events = json.load(open(path))["traceEvents"]
+    scoped = [e for e in events if e.get("name") == "predictor_forward"]
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and any(nm in e.get("name", "") for nm in names)]
+    if not scoped or len(kern) < RESNET_CHAINS:
+        raise AssertionError("phase 7e profiler: %d scope events, %d "
+                             "fused_linear.cu kernels" % (len(scoped),
+                                                          len(kern)))
+    mem = profiler.device_memory()
+    _line7e(t0, "profiler", "start/scope/stop around a Predictor forward: "
+            "the trace (%s, %.1f MB) names the scope and %d kernels of "
+            "fused_linear.cu (%s); device_memory %s" % (
+                os.path.basename(path), os.path.getsize(path) / 2**20,
+                len(kern), ", ".join(sorted({nm for nm in names if any(
+                    nm in e["name"] for e in kern)})),
+                json.dumps({k: int(v) for k, v in mem.items()})))
+    os.remove(path)
+    model = mx.model.FeedForward.load(prefix, 0, ctx=mx.gpu(0))
+    engine = model.as_serving_engine(
+        MAX_LEN, slots=SLOTS, prefill_buckets=BUCKETS,
+        steps_per_round=STEPS_PER_ROUND, attn_impl="paged",
+        weight_dtype="int8", matmul_impl="fused", compute_dtype="bfloat16",
+        prefix_cache_mb=0, prefill_chunk=0)
+    rs = np.random.RandomState(2)
+    for p in BUCKETS:
+        engine.submit(rs.randint(0, VOCAB, (p,)), max_tokens=4)
+    K.reset_launch_counts()
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+    launches = collections.Counter(K.launch_counts())
+    profiler.collect_program_stats()
+    flops = telemetry.gauge("program.serving_decode.flops").value
+    nbytes_ = telemetry.gauge("program.serving_decode.bytes_accessed").value
+    want = _decode_flops()
+    if not (flops > 0 and abs(flops - want) <= 0.01 * want):
+        raise AssertionError("phase 7e program flops: %.6g, the kernels' "
+                             "count %.6g" % (flops, want))
+    srv = telemetry.serve(port=0)
+    try:
+        text = urllib.request.urlopen(srv.url + "/metrics",
+                                      timeout=10).read().decode()
+    finally:
+        srv.stop()
+    line = [ln for ln in text.splitlines()
+            if ln.startswith("mxnet_program_serving_decode_flops ")]
+    if not line or float(line[0].split()[1]) != flops:
+        raise AssertionError("phase 7e /metrics: %r" % line)
+    _line7e(t0, "program_cost", "an engine with phase 4's settings served "
+            "3 requests; program.serving_decode.flops %.6g against the "
+            "kernels' count %.6g (%+.4f%%), bytes_accessed %.6g; /metrics "
+            "shows %r; registered %s" % (
+                flops, want, (flops - want) / want * 100, nbytes_, line[0],
+                profiler.registered_programs()))
+    engine.close()
+    del model
+    free_programs()
+    return launches
+
+
+def periphery_main_path(K, dev, prefix):
+    """Phase 7e, the periphery on the card: the distributed store (two
+    workers on one card), Predictor and the C predict ABI, the C graph
+    ABI, the extension points, the profiler and the program-cost gauges.
+    Returns (the launches of its gated runs, in-process and the workers',
+    the Rtc launches, the Rtc timing row)."""
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, "build", "periphery7e")
+    launches = collections.Counter()
+    timed = {}
+    try:
+        launches.update(_peri_dist(K, dev, t0, os.path.join(out, "dist")))
+        got, pred = _peri_predict(K, dev, t0, os.path.join(out, "predict"))
+        launches.update(got)
+        _peri_graph_abi(t0, os.path.join(out, "capi"))
+        got, rtc_launches = _peri_extensions(K, dev, t0, timed)
+        launches.update(got)
+        launches.update(_peri_profiler(K, dev, t0, out, pred, prefix))
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+    _line7e(t0, "done", "every check passed in %.1f s; launches %s" % (
+        time.perf_counter() - t0, json.dumps(
+            {e: n for e, n in launches.items() if n})))
+    return dict(launches), rtc_launches, timed
+
+
 def ptxas_summary(K, name, rows=None):
     """The build log of source ``name`` (or its ``K.ptxas_report`` rows)
     in a few lines: its compiled functions, their largest register count,
@@ -9873,6 +10564,10 @@ def main():
     io = io_main_path(K, dev)
     for e, n in io.items():
         launches[e] += n
+    free_programs()
+    peri, rtc_launches, rtc_timed = periphery_main_path(K, dev, prefix)
+    for e, n in peri.items():
+        launches[e] += n
     replaces = {
         "paged_attention": 1115, "paged_attention_chunk": 1115,
         "paged_attention_decode": 1115,
@@ -9903,7 +10598,7 @@ def main():
         library_ms=timed[e]["library_ms"], shape=timed[e]["shape"],
         moe_launches=moe.get(e, 0), fit_launches=fit.get(e, 0),
         classic_launches=classic.get(e, 0), zoo_launches=zoo.get(e, 0),
-        io_launches=io.get(e, 0),
+        io_launches=io.get(e, 0), periphery_launches=peri.get(e, 0),
         **{"5d_launches": par.get(e, 0)},
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",
@@ -9913,6 +10608,11 @@ def main():
                                     "resnet_fit_f32", "vgg_fc6")
            if k in timed[e]})
         for e in K.SOURCE]}
+    # phase 7e's runtime user kernel (NVRTC), the port's rtc.Rtc
+    line["kernels"].append(dict(
+        name="rtc_saxpy", route="cuda", source="mxnet_tpu_torch/rtc.py",
+        replaces="mxnet_tpu/rtc.py:80", launches=rtc_launches,
+        periphery_launches=rtc_launches, **rtc_timed["rtc_saxpy"]))
     log("chip_smoke: every phase passed in %.1f s"
         % (time.perf_counter() - t_start))
     log(json.dumps(line))

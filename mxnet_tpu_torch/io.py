@@ -802,10 +802,63 @@ ImageRecordIter = _imagerecorditer
 
 
 class MXDataIter(DataIter):
-    """An iterator behind a handle of the C graph ABI (reference
-    io.py:426). The C ABI belongs to a later slice of the port, so this
-    raises."""
+    """Wrap a DataIterHandle from the native C graph ABI (reference
+    io.py:426: MXDataIter wraps C-registered iterators).
+
+    ``handle`` is the opaque id returned by ``MXTDataIterCreateIter`` /
+    ``c_api_impl.data_iter_create``, so iterators created through the C
+    ABI and Python code can share state. Prefer the direct classes
+    (MNISTIter/CSVIter/ImageRecordIter) in pure-Python programs.
+    """
 
     def __init__(self, handle, data_name="data",
                  label_name="softmax_label"):
-        raise later_slice("MXDataIter", "the C ABI's iterator handles")
+        from . import c_api_impl as _impl
+        self._impl = _impl
+        self.handle = int(handle)
+        super().__init__()
+        inner = _impl._get(self.handle)
+        self.batch_size = getattr(inner, "batch_size", 0)
+        self.data_name = data_name
+        self.label_name = label_name
+
+    def reset(self):
+        self._impl.data_iter_before_first(self.handle)
+
+    def iter_next(self):
+        return bool(self._impl.data_iter_next(self.handle))
+
+    def getdata(self):
+        hid = self._impl.data_iter_get_data(self.handle)
+        try:
+            return [self._impl._get(hid)]  # list, like NDArrayIter
+        finally:
+            self._impl.free_handle(hid)
+
+    def getlabel(self):
+        hid = self._impl.data_iter_get_label(self.handle)
+        try:
+            return [self._impl._get(hid)]
+        finally:
+            self._impl.free_handle(hid)
+
+    def getindex(self):
+        idx = self._impl.data_iter_get_index(self.handle)
+        return np.asarray(idx) if idx else None
+
+    def getpad(self):
+        return self._impl.data_iter_get_pad(self.handle)
+
+    @property
+    def provide_data(self):
+        return getattr(self._impl._get(self.handle), "provide_data", None)
+
+    @property
+    def provide_label(self):
+        return getattr(self._impl._get(self.handle), "provide_label", None)
+
+    def __del__(self):
+        try:
+            self._impl.free_handle(self.handle)
+        except Exception:  # interpreter shutdown
+            pass

@@ -479,6 +479,16 @@ def _restore_updater_states(updater, resume_states, logger):
                 len(resume_states.get("states", {})))
 
 
+def _is_checkpoint_writer(kvstore):
+    """In multi-process dist training every worker runs the training
+    loop, but only rank 0 publishes the shared checkpoint files: the
+    save-path serialization (_SAVE_LOCKS) is in-process only and cannot
+    arbitrate two ranks writing the same .tmp path on a shared FS."""
+    if kvstore is None or "dist" not in getattr(kvstore, "type", ""):
+        return True
+    return getattr(kvstore, "rank", 0) == 0
+
+
 def _updater_states_blob(updater):
     """The updater's checkpointable blob, tagged with its loop and
     optimizer."""
@@ -549,12 +559,15 @@ def _train_multi_device(symbol, ctx, arg_names, param_names, aux_names,
 
     def epoch_end(epoch, seconds):
         logger.info("Epoch[%d] Time cost=%.3f", epoch, seconds)
-        if epoch_end_callback or checkpoint_prefix \
+        if epoch_end_callback \
+                or (checkpoint_prefix and _is_checkpoint_writer(kvstore)) \
                 or epoch + 1 == end_epoch:
+            # non-writer dist ranks skip the per-epoch host gather: they
+            # would only throw it away at the checkpoint gate below
             executor_manager.copy_to(arg_params, aux_params)
         _epoch_end_callbacks(epoch_end_callback, epoch, symbol, arg_params,
                              aux_params)
-        if checkpoint_prefix:
+        if checkpoint_prefix and _is_checkpoint_writer(kvstore):
             # crash-resume checkpoint: params and optimizer state, every
             # epoch, published atomically
             states = _updater_states_blob(
@@ -950,9 +963,20 @@ class FeedForward(BASE_ESTIMATOR):
         if checkpoint_prefix is not None:
             _forget_states_published(checkpoint_prefix)
             if resume:
+                log = logger if logger is not None else logging
+                kv_type = kvstore if isinstance(kvstore, str) \
+                    else getattr(kvstore, "type", "")
+                if "dist" in (kv_type or ""):
+                    # each rank decides begin_epoch from the files IT
+                    # sees; with per-worker disks the ranks would resume
+                    # at different epochs and hang in collectives
+                    log.warning(
+                        "fit: dist auto-resume assumes every worker "
+                        "sees the same checkpoint files (shared "
+                        "filesystem) — ranks resuming at different "
+                        "epochs will desynchronize the job")
                 resume_states = self._resume_from_checkpoint(
-                    checkpoint_prefix,
-                    logger if logger is not None else logging)
+                    checkpoint_prefix, log)
 
         if self.sym_gen:
             self.symbol = self.sym_gen(data.default_bucket_key)
@@ -970,8 +994,11 @@ class FeedForward(BASE_ESTIMATOR):
 
         optimizer = self.optimizer
         if isinstance(optimizer, str):
+            batch_size = data.batch_size
+            if kvstore and kvstore.type == "dist_sync":
+                batch_size *= kvstore.num_workers
             optimizer = opt.create(optimizer,
-                                   rescale_grad=(1.0 / data.batch_size),
+                                   rescale_grad=(1.0 / batch_size),
                                    **self.kwargs)
         elif not isinstance(optimizer, opt.Optimizer):
             raise TypeError("optimizer must be str or Optimizer")

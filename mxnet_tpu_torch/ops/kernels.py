@@ -338,6 +338,20 @@ _ARGTYPES = {
 }
 _LAUNCHES = dict.fromkeys(SOURCE, 0)
 
+# the count of a program being counted (profiler.py ``_count``): a dict the
+# wrappers add their launches' operations and operand bytes to; None
+# outside a count
+_COST = None
+
+
+def _cost(flops, *tensors):
+    """Add one launch's operations and its operands' bytes (each read or
+    written once) to the active count; one None check outside a count."""
+    if _COST is not None:
+        _COST["flops"] += float(flops)
+        _COST["bytes_accessed"] += float(sum(
+            t.numel() * t.element_size() for t in tensors if t is not None))
+
 
 def _launch(entry, *args):
     """Call C entry ``mx_<entry>`` on the current stream and count the
@@ -573,6 +587,7 @@ def _paged_decode(q, k, v, pos, k_scale, v_scale, scale):
     # read by their merge, both inside the entry
     ws = torch.empty((s_, kv, ns, (h // kv) * c, d + 2),
                      dtype=torch.float32, device=q.device)
+    _cost(4 * s_ * c * h * l_ * d, q, k, v, k_scale, v_scale, pos, out)
     _launch("paged_attention_decode", _ptr(q), _ptr(k), _ptr(v),
             _ptr(k_scale), _ptr(v_scale), _ptr(pos), _ptr(out), _ptr(ws),
             s_, c, h, kv, l_, d, ns, float(scale), _CODE[q.dtype],
@@ -603,6 +618,7 @@ def _paged_chunk(q, k, v, pos, scale, k_scale=None, v_scale=None):
             ("k_scale", k_scale), ("v_scale", v_scale))
     _aligned(16, ("q", q), ("k", k), ("v", v))
     out = torch.empty_like(q)
+    _cost(4 * s_ * c * h * l_ * d, q, k, v, k_scale, v_scale, pos, out)
     _launch("paged_attention_chunk", _ptr(q), _ptr(k), _ptr(v),
             _ptr(k_scale), _ptr(v_scale), _ptr(pos), _ptr(out), s_, c, h,
             kv, l_, d, float(scale), _CODE[k.dtype])
@@ -673,6 +689,7 @@ def paged_attention(q, k, v, pos, *, k_scale=None, v_scale=None,
     _contig(("q", q), ("k", k), ("v", v), ("pos", pos),
             ("k_scale", k_scale), ("v_scale", v_scale))
     out = torch.empty_like(q)
+    _cost(4 * s_ * c * h * l_ * d, q, k, v, k_scale, v_scale, pos, out)
     _launch("paged_attention", _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale),
             _ptr(v_scale), _ptr(pos), _ptr(out), s_, c, h, kv, l_, d,
             float(scale), _CODE[q.dtype], _CODE[k.dtype])
@@ -728,6 +745,7 @@ def quant_matmul(x, q, scale, *, bits=8, group=None, block_f=None,
     if m:
         ksplit = quant_matmul_splits(f, e, _sm_count(x.device))
         part, count = _split_workspace(m, f, ksplit, x.device)
+        _cost(2 * m * f * e, x, q, scale, out)
         _launch("quant_matmul", _ptr(x), _ptr(q), _ptr(scale), _ptr(out),
                 _ptr(part), _ptr(count), m, e, f, bits, group or 0, ksplit,
                 _CODE[x.dtype], _CODE[out_dtype])
@@ -980,6 +998,8 @@ def fused_decode_attention(x, pos, k_cache, v_cache, wqkv, sqkv, bqkv,
     att = torch.empty((s_, kv, ns, g, d + 2), dtype=torch.float32,
                       device=dev)
     count = _zeroed_counts(tiles1 + tiles3, dev)
+    _cost(2 * s_ * fq * e + 4 * s_ * heads * l_ * d + 2 * s_ * e * e, x,
+          pos, k_cache, v_cache, wqkv, sqkv, wo, so, out, kn, vn)
     _launch("fused_decode_attention", _ptr(x), _ptr(pos), _ptr(k_cache),
             _ptr(v_cache), _ptr(wqkv), _ptr(sqkv), _ptr(bq), _ptr(wo),
             _ptr(so), _ptr(bo_), _ptr(cos), _ptr(sin), _ptr(out),
@@ -1100,6 +1120,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, window=0,
     b, h, tq = cfg[:3]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+    _cost(4 * b * h * tq * k.shape[1] * q.shape[3], q, k, v, o, lse)
     _launch("flash_attention_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
             _ptr(lse), *cfg, float(scale), int(causal), int(window),
             _CODE[q.dtype])
@@ -1129,6 +1150,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
     dcap = torch.empty_like(lse)
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
+    _cost(14 * q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1]
+          * q.shape[3], q, k, v, o, do, lse, dq, dk, dv)
     _launch("flash_attention_dq", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
             _ptr(do), _ptr(lse), _ptr(dcap), _ptr(dq), *cfg)
     _launch("flash_attention_dkv", _ptr(q), _ptr(k), _ptr(v), _ptr(do),
@@ -1279,6 +1302,8 @@ def striped_pair_attention_fwd(q, k, v, q_off, k_off, *, n_stride,
     o = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32,
                       device=q.device)
+    _cost(4 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2], q, k, v,
+          o, lse)
     _launch("striped_pair_fwd", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
             _ptr(lse), *cfg, float(scale), int(n_stride), int(q_off),
             int(k_off), _CODE[q.dtype])
@@ -1311,6 +1336,8 @@ def striped_pair_attention_bwd(q, k, v, o, lse, g_o, g_lse, q_off, k_off, *,
            _CODE[q.dtype])
     dcap = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _cost(14 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2], q, k, v,
+          o, g_o, lse, dq, dk, dv)
     _launch("striped_pair_dq", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
             _ptr(g_o), _ptr(lse), _ptr(g_lse), _ptr(dcap), _ptr(dq), *cfg)
     _launch("striped_pair_dkv", _ptr(q), _ptr(k), _ptr(v), _ptr(g_o),
@@ -1415,6 +1442,7 @@ def fused_linear_fwd(x, w, b=None, act="linear", scale=None, *,
     if m:
         bf = None if b is None else b.to(torch.float32).contiguous()
         sf = None if scale is None else scale.to(torch.float32).contiguous()
+        _cost(2 * m * n * kdim, x, w, scale, b, out)
         _launch("fused_linear", _ptr(x), _ptr(w), _ptr(sf), _ptr(bf),
                 _ptr(out), m, n, kdim, _ACT_CODE[act], _CODE[x.dtype])
     return out
@@ -1641,6 +1669,7 @@ def fused_conv_bn_act(x, w, scale, bias, stride=(1, 1), pad=(0, 0),
     nb = x.shape[0]
     out = torch.empty((nb * oh * ow, nf), dtype=x.dtype, device=x.device)
     if out.numel():
+        _cost(2 * out.numel() * wm.shape[1], xc, wm, scale, bias, out)
         _launch("fused_conv_bn_act", _ptr(xc), _ptr(wm),
                 _ptr(scale.to(torch.float32).contiguous()),
                 _ptr(bias.to(torch.float32).contiguous()), _ptr(out),
@@ -1686,6 +1715,7 @@ def matmul_stats_fwd(x, w, *, interpret=None):
     part = torch.empty((2, -(-m // _MS_TILE), n),
                        dtype=torch.float32, device=x.device)
     if m:
+        _cost(2 * m * n * kdim, x, w, y, part)
         _launch("matmul_stats", _ptr(x), _ptr(w), _ptr(y), _ptr(part[0]),
                 _ptr(part[1]), m, n, kdim, _CODE[x.dtype])
     s1, s2 = part.sum(dim=1)

@@ -70,6 +70,15 @@ def integer_semantic_inputs(symbol):
     return {n.name for n in topo if n.is_var and node_is_int(n)}
 
 
+def has_host_ops(symbol):
+    """True when a node of ``symbol`` runs on the host (a custom Python
+    op of ``operator.py``, a ``torch.TorchModuleOp``): it reads device
+    values on the host, so a program over the graph cannot be captured as
+    a CUDA graph and runs uncaptured (``program.Program(capture=False)``)."""
+    return any(getattr(n.spec, "host", False) for n in symbol._topo()
+               if not n.is_var)
+
+
 def make_graph_fn(symbol, allow_fusion=True):
     """Build ``fn(arg_vals, aux_vals, is_train, generator,
     convbn_train=None) -> (outs, new_aux)``.

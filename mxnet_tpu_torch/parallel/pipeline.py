@@ -47,6 +47,7 @@ from ..base import MXNetError
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
 from .collectives import ppermute, psum
+from .graph import has_host_ops
 from .layout import Layout
 from .optim import FlatOptState
 from .program import Program
@@ -753,7 +754,8 @@ class PipelineTrainer:
                 mutable=self._buffers(),
                 generators=self._gens + self._opt_gens
                 if self.device.type == "cuda" else [],
-                name="PipelineTrainer.step", device=self.device)
+                name="PipelineTrainer.step", device=self.device,
+                capture=not has_host_ops(self.symbol))
         # [B, ...] -> [M, dp*mb, ...]; dp group d takes columns d*mb...
         split = {}
         for k, v in vals.items():

@@ -22,6 +22,17 @@ function uncaptured.
 On the CPU a call runs the function over the same buffers, so the tests
 here hold the fixed-address discipline that capture needs.
 
+``capture=False`` (a graph holding a host op: ``operator.PythonOp``,
+``torch.TorchModuleOp``) runs the function uncaptured on the card at
+every call instead; each such run adds one to the
+``program.uncaptured_runs`` telemetry counter.
+
+A program with a ``stats`` name is COUNTED in one uncaptured run (the
+first warm-up before the capture; the first run on the CPU, or
+uncaptured): its operations and bytes go to
+``profiler.register_program``'s registry as ``program.<stats>.flops``
+and ``.bytes_accessed``.
+
 Each capture, and on the CPU each program's first call, appends the
 program's ``tag`` to ``log`` (the engine's ``compile_counts`` reads it).
 The kernel wrappers count a launch when they launch
@@ -36,11 +47,14 @@ import torch
 
 from ..base import MXNetError
 from ..ops import kernels
+from .. import telemetry as tele
 
 __all__ = ["Program", "copy_in"]
 
 # uncaptured runs on the capture stream before the capture
 WARMUP = 2
+
+_TM_UNCAPTURED = tele.counter("program.uncaptured_runs")
 
 _STREAMS = {}
 
@@ -102,10 +116,17 @@ class Program:
     log : list, optional
         The compile log.
     device : torch.device
+    stats : str, optional
+        The name the program's count registers under (the profiler's
+        ``program.<stats>.*`` gauges); None counts nothing.
+    capture : bool
+        False runs ``fn`` uncaptured at every call on the card (a graph
+        holding a host op).
     """
 
     def __init__(self, fn, operands=None, mutable=(), generators=(),
-                 name="program", tag=None, log=None, device=None):
+                 name="program", tag=None, log=None, device=None,
+                 stats=None, capture=True):
         self.name = name
         self.operands = dict(operands or {})
         self.device = torch.device(device) if device is not None \
@@ -119,6 +140,8 @@ class Program:
         self._graph = None
         self._outs = None
         self._launches = {}
+        self._stats = stats
+        self._capture_ok = capture
 
     def __call__(self, **values):
         """Copy ``values`` into the operand buffers of the same names and
@@ -145,10 +168,13 @@ class Program:
 
     def run(self):
         """Run over the operands as they stand (replay on the card)."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self._capture_ok:
+            if self.device.type == "cuda":
+                _TM_UNCAPTURED.inc()
             if not self._built:
                 self._built = True
                 self._record()
+                return self._counted()
             return self._fn()
         if self._graph is None:
             self._capture()
@@ -168,6 +194,17 @@ class Program:
         self.load(**values)
         return self._fn()
 
+    def _counted(self):
+        """``fn()``, counted into the profiler's registry when the program
+        has a ``stats`` name."""
+        if self._stats is None:
+            return self._fn()
+        from .. import profiler
+        with profiler._count() as cost:
+            outs = self._fn()
+        profiler._register_counted(self._stats, cost)
+        return outs
+
     def _record(self):
         if self._log is not None:
             self._log.append(self._tag)
@@ -180,7 +217,8 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.stream(s):
-                for _ in range(WARMUP):
+                self._counted()
+                for _ in range(WARMUP - 1):
                     self._fn()
                 for m, v in zip(self._mutable, saved):
                     m.copy_(v)

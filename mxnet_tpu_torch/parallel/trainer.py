@@ -86,7 +86,7 @@ from ..initializer import Uniform
 from ..io import StagedStream
 from ..ndarray import NDArray, _tensor_of
 from ..ops.fusion import _convbn_train_enabled
-from .graph import make_graph_fn, integer_semantic_inputs
+from .graph import make_graph_fn, integer_semantic_inputs, has_host_ops
 from .mesh import build_mesh
 from .optim import FlatOptState, make_functional
 from .program import Program
@@ -488,7 +488,9 @@ class ParallelTrainer:
             self._program = Program(
                 fn, inputs, mutable=mutable,
                 generators=gens if self.device.type == "cuda" else [],
-                name="ParallelTrainer.step", device=self.device)
+                name="ParallelTrainer.step", device=self.device,
+                stats="train_step",
+                capture=not has_host_ops(self.symbol))
         if self._sharded is not None:
             vals = self._sharded.split_batch(vals)
         self._program.load(**vals)

@@ -139,7 +139,8 @@ from .capture import CaptureStream
 from .flight import FlightRecorder
 from .handoff import HANDOFF_DTYPES, KVHandoff, unpack_rows
 from .prefix import PrefixCache
-from .quant import QuantizedTensor, quantize_params, quantized_weight_names
+from .quant import (QuantizedTensor, quantize_params, quantized_weight_names,
+                    weight_nbytes)
 from .spec import NgramDrafter
 
 __all__ = ["InferenceEngine", "Request", "EngineOverloaded",
@@ -1172,12 +1173,7 @@ class InferenceEngine:
 
     @staticmethod
     def _weight_nbytes(params):
-        def one(v):
-            if isinstance(v, list):             # an ep-sharded stack
-                return sum(one(s) for s in v)
-            return v.nbytes if isinstance(v, QuantizedTensor) \
-                else v.numel() * v.element_size()
-        return sum(one(v) for v in params.values())
+        return weight_nbytes(params)
 
     def _check_draft(self, ddec):
         """Validate ``draft_decoder`` as the JAX package does (l.1131)."""
@@ -1931,10 +1927,12 @@ class InferenceEngine:
                 {"prefill": self._prefill_fn, "copy": self._copy_fn,
                  "draft_prefill": self._draft_prefill_fn}[family],
                 bucket, operands["ops"])
+        stats = "serving_" + (tag if isinstance(tag, str)
+                              else "%s_b%d" % tag)
         prog = self._programs[tag] = Program(
             fn, operands, mutable=self._state(),
             name="InferenceEngine %s program" % (tag,), tag=tag,
-            log=self._compile_log, device=self.device)
+            log=self._compile_log, device=self.device, stats=stats)
         return prog
 
     # -- KV handoff row movers (the JAX package's l.1711-1788) ------------
@@ -1977,7 +1975,8 @@ class InferenceEngine:
             name="InferenceEngine handoff %s program (bucket %d)"
             % ("import" if write else "export", bucket),
             tag=("handoff", bucket), log=self._compile_log,
-            device=self.device)
+            device=self.device, stats="serving_handoff%s_b%d"
+            % ("_wr" if write else "", bucket))
         return prog
 
     def _export_rows(self, slot, length):

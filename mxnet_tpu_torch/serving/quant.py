@@ -32,7 +32,7 @@ __all__ = ["QuantizedTensor", "quantize_tensor", "dequantize",
            "quantized_weight_names", "quantize_params",
            "scale_fused_matmul", "pack_int4", "unpack_int4",
            "resolve_chunk", "resolve_group", "embedding_rows",
-           "expert_slice", "moe_ffn_forward"]
+           "expert_slice", "moe_ffn_forward", "weight_nbytes"]
 
 # op name -> input indices that are quantizable matmul weights; every
 # OTHER consumer position vetoes quantization of its variable
@@ -318,3 +318,18 @@ def moe_ffn_forward(p, ins, mm=None, ep=None):
 
     return moe_ffn_math(p, ins, gate_mm=gate_mm, up_mm=up_mm,
                         down_mm=down_mm, ep=ep)
+
+
+def weight_nbytes(params):
+    """Total stored bytes of a parameter dict (quantized entries count
+    their int8/int4 values + scales; an ep-sharded entry, a list of rank
+    shards, counts every shard) — the ``serving.weight_bytes`` gauge."""
+    def one(v):
+        if isinstance(v, (list, tuple)):
+            return sum(one(s) for s in v)
+        if isinstance(v, dict):
+            return sum(one(s) for s in v.values())
+        if isinstance(v, QuantizedTensor):
+            return v.nbytes
+        return v.numel() * v.element_size()
+    return int(one(params))

@@ -7,12 +7,12 @@ strictly read-only GET endpoints:
 
 ``/metrics``
     Prometheus text exposition (``to_prometheus()``), refreshed before
-    rendering with the device-memory gauges (``device.bytes_in_use`` and
-    friends, from ``torch.cuda``'s allocator on a CUDA process) and
-    the serving and fleet SLO burn rates. ``?prefix=serving.`` restricts
-    to one dotted-name subtree. The JAX package also refreshes its
-    profiler's per-program cost analyses here; the port's profiler is a
-    later slice, so those gauges are absent, not faked.
+    rendering with the profiler's per-program cost gauges
+    (``program.<name>.flops`` and ``.bytes_accessed``, counted when each
+    program was built), the device-memory gauges (``device.bytes_in_use``
+    and friends, ``profiler.device_memory()``: ``torch.cuda``'s allocator
+    on a CUDA process) and the serving and fleet SLO burn rates.
+    ``?prefix=serving.`` restricts to one dotted-name subtree.
 ``/snapshot``
     ``snapshot()`` as JSON (non-finite floats serialized as null); honors
     the same ``?prefix=`` filter.
@@ -88,30 +88,15 @@ def _routers():
         return []
 
 
-def _device_memory():
-    """Set the device-memory gauges from the caching allocator of every
-    CUDA device this process initialized (bytes, summed over devices):
-    ``device.bytes_in_use`` (``torch.cuda.memory_allocated``, the JAX
-    package's name for it), ``device.peak_bytes_in_use`` and
-    ``device.bytes_reserved`` (``memory_reserved``). Nothing on a process
-    that never touched CUDA."""
-    torch = sys.modules.get("torch")
-    if torch is None or not torch.cuda.is_initialized():
-        return
-    devs = range(torch.cuda.device_count())
-    for name, fn in (("device.bytes_in_use", torch.cuda.memory_allocated),
-                     ("device.peak_bytes_in_use",
-                      torch.cuda.max_memory_allocated),
-                     ("device.bytes_reserved", torch.cuda.memory_reserved)):
-        telemetry.gauge(name).set(sum(fn(d) for d in devs))
-
-
 def _refresh():
-    """Pre-scrape refresh, all best-effort and host-side: device memory
-    gauges, serving + fleet SLO burn rates. A failure in any refresher
-    must never fail the scrape."""
+    """Pre-scrape refresh, all best-effort and host-side: program cost
+    gauges (counted at each program's build: nothing runs here), device
+    memory gauges, serving + fleet SLO burn rates. A failure in any
+    refresher must never fail the scrape."""
     try:
-        _device_memory()
+        from . import profiler
+        profiler.collect_program_stats()
+        profiler.device_memory()
     except Exception:
         pass
     for e in _engines():

@@ -1,7 +1,16 @@
-"""Deterministic fault injection for the serving engine and the fleet.
+"""Deterministic fault injection for the ``dist_async`` transport, the
+serving engine and the fleet.
 
-Counterpart of the serving and fleet halves of
-``mxnet_tpu/testing/faults.py``. A :class:`FaultInjector` installs itself
+Counterpart of ``mxnet_tpu/testing/faults.py``. The transport plans
+(:meth:`FaultInjector.random_faults`, ``drop_sends``, ``delay_sends``,
+``sever_connections``, ``close_mid_message``, ``drop_replies``) install
+the injector as ``mxnet_tpu_torch.kvstore_dist._CLIENT_FAULTS`` and
+consume one directive per request attempt of
+``kvstore_dist.PSBackend._request``; :func:`kill_server`,
+:func:`restart_server` and :func:`server_down` stop a live parameter
+server and bring up a successor with its state on the same port.
+
+A :class:`FaultInjector` installs itself
 as ``mxnet_tpu_torch.serving.engine._SERVING_FAULTS`` while one of its
 serving plans is active, and drives the engine's host-side failure seams
 deterministically:
@@ -38,8 +47,7 @@ handoff delivery). A directive naming replica ``None`` matches whichever
 replica reaches that seam first.
 
 Every injected fault is appended to ``FaultInjector.log`` as ``(kind,
-op)``. The JAX package's transport plans (the ``dist_async`` kvstore)
-raise: they belong to a later slice of the port.
+op)``.
 """
 from __future__ import annotations
 
@@ -49,9 +57,10 @@ import random
 import threading
 import time
 
-from ..base import later_slice
+from .. import kvstore_dist as _kd
 
-__all__ = ["FaultInjector", "InjectedCrash"]
+__all__ = ["FaultInjector", "InjectedCrash", "kill_server",
+           "restart_server", "server_down"]
 
 
 class InjectedCrash(RuntimeError):
@@ -64,14 +73,25 @@ class InjectedCrash(RuntimeError):
 class FaultInjector:
     """A seeded, FIFO fault plan over the serving engine's host seams.
 
-    ``seed`` seeds the injector's own RNG (the JAX package's randomized
-    transport schedules draw from it; no serving plan does)."""
+    ``seed`` seeds the injector's own RNG (the randomized transport
+    schedules draw from it; no serving plan does). The transport
+    directives, consumed one per ``_request`` send/recv attempt:
+    ``("drop",)`` swallows the outgoing frame (the client times out and
+    retries), ``("delay", s)`` sleeps ``s`` seconds before sending,
+    ``("sever",)`` closes the connection instead of sending,
+    ``("truncate",)`` sends half a length header then closes,
+    ``("drop_reply",)`` lets the request through then loses its reply
+    (the apply-then-lose-the-ack case the server's dedup exists for) and
+    ``("pass",)`` is no fault."""
 
     def __init__(self, seed=0):
         self.rng = random.Random(seed)
+        self.plan = collections.deque()
         self.serving_plan = collections.deque()
         self.fleet_plan = collections.deque()
         self.log = []          # (kind, op) per injected fault
+        self._depth = 0
+        self._prev = None
         self._serving_depth = 0
         self._fleet_depth = 0
         self._fleet_prev = None
@@ -79,25 +99,45 @@ class FaultInjector:
         self._hang_until = None
         self._lock = threading.Lock()
 
-    # -- the transport plans: a later slice ----------------------------
+    # -- plan construction --------------------------------------------
     def random_faults(self, n, p_drop=0.0, p_sever=0.2, p_delay=0.0,
                       delay_s=0.05):
-        raise later_slice("FaultInjector", "the kvstore transport plans")
+        """A deterministic (seeded) schedule of ``n`` directives, each
+        independently a drop/sever/delay with the given probabilities
+        (else a no-op). Returns the active context manager."""
+        plan = []
+        for _ in range(n):
+            r = self.rng.random()
+            if r < p_drop:
+                plan.append(("drop",))
+            elif r < p_drop + p_sever:
+                plan.append(("sever",))
+            elif r < p_drop + p_sever + p_delay:
+                plan.append(("delay", delay_s))
+            else:
+                plan.append(("pass",))
+        return self._scheduled(plan)
 
     def drop_sends(self, n=1):
-        raise later_slice("FaultInjector", "the kvstore transport plans")
+        """Swallow the next ``n`` outgoing frames (timeout path)."""
+        return self._scheduled([("drop",)] * n)
 
     def delay_sends(self, n=1, seconds=0.05):
-        raise later_slice("FaultInjector", "the kvstore transport plans")
+        """Stall the next ``n`` sends by ``seconds`` each."""
+        return self._scheduled([("delay", seconds)] * n)
 
     def sever_connections(self, n=1):
-        raise later_slice("FaultInjector", "the kvstore transport plans")
+        """Close the connection instead of the next ``n`` sends."""
+        return self._scheduled([("sever",)] * n)
 
     def close_mid_message(self, n=1):
-        raise later_slice("FaultInjector", "the kvstore transport plans")
+        """Send a truncated frame then close, ``n`` times."""
+        return self._scheduled([("truncate",)] * n)
 
     def drop_replies(self, n=1):
-        raise later_slice("FaultInjector", "the kvstore transport plans")
+        """Lose the reply (after the server applied the request) for
+        the next ``n`` round trips."""
+        return self._scheduled([("drop_reply",)] * n)
 
     # -- serving-engine plans -----------------------------------------
     def serving_h2d_failures(self, n=1):
@@ -313,3 +353,118 @@ class FaultInjector:
             self.log.append(("slow", replica_id))
             return slow[2]
         return 0
+
+    @contextlib.contextmanager
+    def _scheduled(self, directives):
+        with self._lock:
+            self.plan.extend(directives)
+            if self._depth == 0:
+                self._prev = _kd._CLIENT_FAULTS
+                _kd._CLIENT_FAULTS = self
+            self._depth += 1
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    _kd._CLIENT_FAULTS = self._prev
+                    self.plan.clear()  # unconsumed faults die with scope
+
+    # -- hooks called by kvstore_dist._request ------------------------
+    def before_send(self, server, envelope, conn):
+        """Return False to suppress the real send (frame dropped)."""
+        with self._lock:
+            head = self.plan[0] if self.plan else None
+            if head is None or head[0] == "drop_reply":
+                return True  # drop_reply waits for after_recv
+            self.plan.popleft()
+        op = envelope[3][0]
+        kind = head[0]
+        if kind == "pass":
+            return True
+        self.log.append((kind, op))
+        if kind == "drop":
+            return False
+        if kind == "delay":
+            time.sleep(head[1])
+            return True
+        if kind == "sever":
+            conn.close()
+            raise ConnectionError("fault injection: connection severed "
+                                  "before send")
+        if kind == "truncate":
+            try:
+                conn.sendall(b"\x00\x00\x00\x00")  # half a length prefix
+            finally:
+                conn.close()
+            raise ConnectionError("fault injection: connection closed "
+                                  "mid-message")
+        raise AssertionError("unknown fault directive %r" % (head,))
+
+    def after_recv(self, server, envelope, reply, conn):
+        with self._lock:
+            head = self.plan[0] if self.plan else None
+            if head is None or head[0] != "drop_reply":
+                return
+            self.plan.popleft()
+        self.log.append(("drop_reply", envelope[3][0]))
+        conn.close()
+        raise ConnectionError("fault injection: reply lost")
+
+
+# -- server crash / recovery ------------------------------------------
+
+def kill_server(owner):
+    """Stop a live ``_Server`` (listener + every accepted connection),
+    as a crash would. ``owner`` is a ``PSBackend`` or a ``_Server``;
+    returns the dead server (its in-memory state survives for
+    :func:`restart_server`)."""
+    server = getattr(owner, "server", owner)
+    server.close()
+    return server
+
+
+def restart_server(owner, dead=None):
+    """Bring up a successor ``_Server`` on the dead one's port with its
+    whole state (store, updater, retry-dedup table, and the shared
+    lock/condition, so a predecessor handler still mid-apply publishes
+    where successor waiters can see it) — a parameter server recovering
+    from its replica. Rebinds ``owner.server`` when ``owner`` is a
+    ``PSBackend``. Returns the new server."""
+    old = dead if dead is not None else getattr(owner, "server", owner)
+    new = _kd._Server(old.rank, old.port, predecessor=old)
+    new.start()
+    if hasattr(owner, "server"):
+        owner.server = new
+    return new
+
+
+@contextlib.contextmanager
+def server_down(backend, restart_after=None):
+    """The backend's colocated server is DEAD inside the block.
+
+    With ``restart_after`` set, a timer restarts it that many seconds
+    in — so a client request issued inside the block retries against a
+    refused port and then succeeds against the successor, the
+    kill-and-recover scenario. Without it, the server stays down until
+    the block exits (then it is restarted)."""
+    dead = kill_server(backend)
+    restarted = threading.Event()
+
+    def _revive():
+        restart_server(backend, dead)
+        restarted.set()
+
+    timer = None
+    if restart_after is not None:
+        timer = threading.Timer(restart_after, _revive)
+        timer.daemon = True
+        timer.start()
+    try:
+        yield dead
+    finally:
+        if timer is not None:
+            timer.join()
+        if not restarted.is_set():
+            _revive()

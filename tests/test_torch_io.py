@@ -331,8 +331,30 @@ def test_checkpoint_to_a_remote_uri_raises_without_a_client(tmp_path):
 
 
 def test_mxdataiter_is_a_later_slice():
-    with pytest.raises(MXNetError, match="later slice"):
-        tio.MXDataIter(1)
+    """MXDataIter over a C-ABI iterator handle (``c_api_impl``) yields
+    the batches of the iterator behind it, as the JAX package's over its
+    own handle; the handle's table entry goes with the iterator."""
+    from mxnet_tpu import c_api_impl as jimpl
+    from mxnet_tpu_torch import c_api_impl as timpl
+    rs = np.random.RandomState(3)
+    x = rs.randn(10, 4).astype(np.float32)
+    y = np.arange(10, dtype=np.float32)
+    got = tio.MXDataIter(timpl._put(tio.NDArrayIter(x, y, batch_size=4)))
+    want = jio.MXDataIter(jimpl._put(jio.NDArrayIter(x, y, batch_size=4)))
+    assert got.batch_size == want.batch_size == 4
+    for _ in range(2):
+        got.reset()
+        want.reset()
+        for bg, bw in zip(got, want):
+            np.testing.assert_array_equal(bg.data[0].asnumpy(),
+                                          bw.data[0].asnumpy())
+            np.testing.assert_array_equal(bg.label[0].asnumpy(),
+                                          bw.label[0].asnumpy())
+            assert bg.pad == bw.pad
+    assert [b.pad for b in got] == []  # exhausted until reset
+    hid = got.handle
+    del got
+    assert hid not in timpl._TABLE
 
 
 def test_io_names_follow_jax():

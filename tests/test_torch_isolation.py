@@ -53,6 +53,14 @@ from mxnet_tpu_torch.models import get_symbol  # noqa: F401
 from mxnet_tpu_torch import image_io, recordio, stream  # noqa: F401
 assert mx.recordio and mx.ImageRecordIter and mx.DeviceAugmentIter
 assert mx.DevicePrefetchIter and mx.io.ImageRecordIter
+from mxnet_tpu_torch import (  # noqa: F401
+    distributed, kvstore_dist, kvstore_server, predict, c_predict,
+    c_api_impl, libinfo, profiler, visualization, operator, misc, rtc,
+    capi)
+from mxnet_tpu_torch import torch as th  # noqa: F401
+from mxnet_tpu_torch.testing import dist_worker  # noqa: F401
+assert mx.Predictor and mx.viz and mx.th and mx.rtc.Rtc and mx.profiler
+assert mx.operator.NumpyOp and mx.distributed.rank() == 0
 import chip_smoke  # noqa: F401  (module level: its imports only)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
@@ -73,8 +81,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # classic API's executor, executor_manager, kvstore, monitor, random;
     # the model zoo's classifiers, alexnet, vgg, inception, lstm, fcn;
     # the parallelisms' parallel.layout, .sharded and .pipeline; the IO
-    # layer's recordio, stream and image_io)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 59
+    # layer's recordio, stream and image_io; the periphery's distributed,
+    # kvstore_dist, kvstore_server, predict, c_predict, c_api_impl,
+    # libinfo, profiler, visualization, operator, torch, misc, rtc, capi
+    # and testing.dist_worker)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 81
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

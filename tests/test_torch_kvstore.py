@@ -1,7 +1,7 @@
 """The port's local KVStore and the executor manager's slicing against the
 JAX package's: the cases of ``tests/test_kvstore.py`` (but the server
 commands), ``_split_input_slice`` over a grid of batch sizes and work
-loads, and the distributed store's refusal. On the CPU; contexts
+loads, and the distributed stores in one process. On the CPU; contexts
 ``cpu(i)`` stand for devices, as in the JAX tests.
 """
 import numpy as np
@@ -120,18 +120,36 @@ def test_set_optimizer_updates_the_stored_value():
 
 
 def test_roles_and_the_distributed_store():
+    """Roles of one process, and every dist store in one process is the
+    local store: the same values as the JAX package's ``dist_sync`` in
+    one process, a no-op server command, the same errors."""
     kv = mx.kv.create("local")
     assert (kv.rank, kv.num_workers) == (0, 1)
     kv.barrier()
     for kind in ("dist", "dist_sync", "dist_async"):
-        with pytest.raises(MXNetError, match="later slice"):
-            mx.kv.create(kind)
-    with pytest.raises(MXNetError, match="later slice"):
-        kv.send_command_to_servers(0, b"")
+        got, want = (_init_kv(pkg, kind) for pkg in (mx, jmx))
+        assert (got.rank, got.num_workers, got.type) == (0, 1, kind)
+        got.barrier()
+        for kvs, pkg in ((got, mx), (want, jmx)):
+            kvs.push(3, [pkg.nd.ones(SHAPE) * v for v in (1, 2, 4)])
+            kvs._set_updater(_upd_double)
+            kvs.push(KEYS, [pkg.nd.ones(SHAPE) * 3] * len(KEYS))
+        for k in [3] + KEYS:
+            a, b = mx.nd.zeros(SHAPE), jmx.nd.zeros(SHAPE)
+            got.pull(k, a)
+            want.pull(k, b)
+            np.testing.assert_array_equal(a.asnumpy(), b.asnumpy())
+        assert got.send_command_to_servers(0, b"") is None
+        got.close()
+        want.close()
     with pytest.raises(MXNetError, match="unknown"):
         mx.kv.create("nope")
     with pytest.raises(TypeError):
         mx.kv.create(3)
+
+
+def _upd_double(key, recv, stored):
+    stored += 2 * recv
 
 
 GRID = [(b, w) for b in (1, 2, 3, 7, 8, 32, 100, 129)

@@ -345,6 +345,117 @@ CALLABLES += [("%s.%s" % (j.__name__, name), getattr(j, name),
                getattr(t, name)) for j, t, names in ZOO for name in names]
 
 
+# the periphery: the distributed store and its bootstrap, the predictor
+# and the C ABIs' shims, the profiler, the extension points and the small
+# modules
+import mxnet_tpu.c_api_impl as jax_capi  # noqa: E402
+import mxnet_tpu.c_predict as jax_cpred  # noqa: E402
+import mxnet_tpu.distributed as jax_dist  # noqa: E402
+import mxnet_tpu.kvstore_dist as jax_kvd  # noqa: E402
+import mxnet_tpu.kvstore_server as jax_kvs  # noqa: E402
+import mxnet_tpu.libinfo as jax_libinfo  # noqa: E402
+import mxnet_tpu.misc as jax_misc  # noqa: E402
+import mxnet_tpu.operator as jax_op  # noqa: E402
+import mxnet_tpu.predict as jax_pred  # noqa: E402
+import mxnet_tpu.profiler as jax_prof  # noqa: E402
+import mxnet_tpu.torch as jax_th  # noqa: E402
+import mxnet_tpu.visualization as jax_viz  # noqa: E402
+from mxnet_tpu.serving import quant as jax_quant  # noqa: E402
+import mxnet_tpu_torch.c_api_impl as t_capi  # noqa: E402
+import mxnet_tpu_torch.c_predict as t_cpred  # noqa: E402
+import mxnet_tpu_torch.distributed as t_dist  # noqa: E402
+import mxnet_tpu_torch.kvstore_dist as t_kvd  # noqa: E402
+import mxnet_tpu_torch.kvstore_server as t_kvs  # noqa: E402
+import mxnet_tpu_torch.libinfo as t_libinfo  # noqa: E402
+import mxnet_tpu_torch.misc as t_misc  # noqa: E402
+import mxnet_tpu_torch.operator as t_op  # noqa: E402
+import mxnet_tpu_torch.predict as t_pred  # noqa: E402
+import mxnet_tpu_torch.profiler as t_prof  # noqa: E402
+import mxnet_tpu_torch.torch as t_th  # noqa: E402
+import mxnet_tpu_torch.visualization as t_viz  # noqa: E402
+from mxnet_tpu_torch.serving import quant as t_quant  # noqa: E402
+
+PERIPHERY = [
+    (jax_dist, t_dist, ["initialize", "is_initialized", "rank",
+                        "num_workers", "local_devices", "barrier",
+                        "shutdown"]),
+    (jax_kv, t_kv, ["_ctype_key_value", "_bigarray_bound"]),
+    (jax_kv.KVStore, t_kv.KVStore, ["_call_updater", "_sync_rng", "close",
+                                    "rank", "num_workers"]),
+    (jax_kvd, t_kvd, ["_send_msg", "_recv_msg", "_recv_exact",
+                      "_port_base", "_request_timeout", "_max_retries",
+                      "_backoff_base_s", "_secret"]),
+    (jax_kvd.PSBackend, t_kvd.PSBackend,
+     ["__init__", "init", "push", "pull", "set_optimizer", "close",
+      "_request", "_ping", "_owner", "_partition", "_port"]),
+    (jax_kvd._Server, t_kvd._Server,
+     ["__init__", "run", "close", "_claim", "_serve", "_handle"]),
+    (jax_kvs.KVStoreServer, t_kvs.KVStoreServer,
+     ["__init__", "_controller", "run"]),
+    (jax_pred.Predictor, t_pred.Predictor,
+     ["__init__", "forward", "get_output"]),
+    (jax_cpred, t_cpred, ["create", "create_partial_out", "set_input",
+                          "forward", "num_outputs", "get_output_shape",
+                          "get_output"]),
+    (jax_capi, t_capi, sorted(
+        n for n, f in vars(jax_capi).items()
+        if inspect.isfunction(f) and f.__module__ == jax_capi.__name__
+        and not n.startswith("__"))),
+    (jax_libinfo, t_libinfo, ["find_lib_path", "get_lib", "check_call"]),
+    (jax_prof, t_prof, ["profiler_set_config", "start", "stop", "scope",
+                        "device_memory_profile", "record_step",
+                        "reset_step_stats", "get_step_stats",
+                        "benchmark_chain", "compiled_stats", "collecting",
+                        "register_program", "collect_program_stats",
+                        "registered_programs", "device_memory"]),
+    (jax_viz, t_viz, ["plot_network", "print_summary", "network_dot"]),
+    (jax_op.PythonOp, t_op.PythonOp,
+     ["__init__", "forward", "backward", "infer_shape", "list_arguments",
+      "list_outputs", "need_top_grad", "__call__", "get_symbol"]),
+    (jax_th, t_th, ["to_torch", "from_torch", "th_function"]),
+    (jax_th.TorchModuleOp, t_th.TorchModuleOp,
+     ["__init__", "list_arguments", "list_outputs", "infer_shape",
+      "forward", "backward"]),
+    (jax_misc.FactorScheduler, t_misc.FactorScheduler,
+     ["__init__", "__call__"]),
+    (jax_misc.LearningRateScheduler, t_misc.LearningRateScheduler,
+     ["__init__", "__call__"]),
+    (jax_quant, t_quant, ["weight_nbytes"]),
+    (jax_io.MXDataIter, tio.MXDataIter,
+     ["__init__", "reset", "iter_next", "getdata", "getlabel", "getindex",
+      "getpad"]),
+    (jax_faults.FaultInjector, tfaults.FaultInjector,
+     ["random_faults", "drop_sends", "delay_sends", "sever_connections",
+      "close_mid_message", "drop_replies", "_scheduled", "before_send",
+      "after_recv"]),
+    (jax_faults, tfaults, ["kill_server", "restart_server", "server_down"]),
+    (jax_model, tmodel, ["_is_checkpoint_writer"]),
+]
+CALLABLES += [("%s.%s" % (getattr(j, "__name__", "?"), name),
+               getattr(j, name), getattr(t, name))
+              for j, t, names in PERIPHERY for name in names
+              if not isinstance(getattr(j, name), property)]
+
+
+def test_periphery_names_follow_the_jax_package():
+    """Every public name of the JAX package's periphery modules is in the
+    port's (the JAX ``rtc.PallasOp``, a Pallas user kernel, is the one
+    deviation: the port's ``Rtc`` takes CUDA source)."""
+    import mxnet_tpu.rtc as jax_rtc
+    import mxnet_tpu_torch.rtc as t_rtc
+    for j, t in ((jax_dist, t_dist), (jax_kvd, t_kvd), (jax_kvs, t_kvs),
+                 (jax_pred, t_pred), (jax_cpred, t_cpred),
+                 (jax_prof, t_prof), (jax_viz, t_viz), (jax_op, t_op),
+                 (jax_th, t_th), (jax_misc, t_misc)):
+        names = getattr(j, "__all__", None) or [
+            n for n, f in vars(j).items() if inspect.isfunction(f)
+            and f.__module__ == j.__name__ and not n.startswith("_")]
+        assert all(hasattr(t, n) for n in names), j.__name__
+    assert set(jax_rtc.__all__) - set(t_rtc.__all__) == {"PallasOp"}
+    for prop in ("rank", "num_workers"):
+        assert isinstance(getattr(t_kv.KVStore, prop), property)
+
+
 @pytest.mark.parametrize("j,t,name", [(j, t, n) for j, t, names in ZOO
                                       for n in names],
                          ids=[n for _, _, names in ZOO for n in names])
