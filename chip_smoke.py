@@ -10,7 +10,11 @@ Phases:
    into ``build/kernels/``, one process per source, all at once (timed;
    each source's largest register count and every function that spills,
    by name, with its registers and spilled bytes, from the compiler's
-   report);
+   report); the training kernels' sources (``LATE_SOURCES``: flash,
+   striped, ``fused_linear``, ``matmul_stats``) build on a thread while
+   the serving kernels are checked and phases 4-4g run (they launch none
+   of them), and their checks, and every kernel's timing row, follow
+   phase 4g; a ``wall:`` line gives each phase's seconds;
 3. every kernel against its plain PyTorch version on the card, at the
    shapes the 124M LM's serving and training paths and ResNet-50 give it
    and at small ragged shapes, in every mode, each to a stated tolerance:
@@ -463,11 +467,32 @@ Phases:
    ``fused_conv_bn_act`` kernels named) and, after an engine with phase
    4's settings served, ``program.serving_decode.flops`` within 1% of
    the kernels' count and on ``/metrics``;
+7f. multi-process training, each check on a ``phase 7f`` line ending in
+   the phase's seconds: ``ParallelTrainer`` over ONE mesh {dp: 2} that
+   spans two workers on the one card (the unchanged ``tools/launch.py -n
+   2``, ``mxnet_tpu_torch.testing.dist_worker`` at ``MXNET_DISTTEST_SIZE=
+   full``; each worker passes its rows of the global batch; the kernels
+   built by this process first): (1) the 124M LM bf16 over f32 masters
+   at global B=8 T=1024, SGD lr 1e-3 momentum 0.9, 3 steps on one batch,
+   plain, ``zero1=True`` and ``fsdp=True``: each bitwise equal on both
+   ranks, to each other and to one process over ``[cuda:0] * 2`` here,
+   a falling loss, exactly 12 launches of each flash entry a step in
+   each worker, the step two captured programs (compute, update) with
+   the gloo collective between them; ms a step against the one-process
+   run, the collectives' ms and bytes a step, each rank's stored bytes;
+   (2) ResNet-50 f32 at 224 x 224, global B=64, 2 steps, cuDNN
+   deterministic and TF32 off, BatchNorm over the global batch (its sums
+   in the walk, which therefore runs uncaptured): parameters, moving
+   averages and momentum bitwise the one-process run's; (3) the fsdp
+   LM's checkpoints written by both workers, sync and async, restored
+   bitwise in both workers and here in one process; (4) the sharded-IO
+   fit (RAW0 records, ``ImageRecordIter(num_parts=2, part_index=rank)``,
+   ``fit(device_metric=True)``): accuracy above 0.85, equal in both;
 8. the ``{"kernels": [...]}`` line (every C entry; ``classic_launches``
    are phase 7b's, ``zoo_launches`` phase 7c's, ``periphery_launches``
-   phase 7e's, workers included; and phase 7e's ``rtc_saxpy``), the
-   card's line, and the result line ``{"ok": true, "device": {...}}``
-   last.
+   phase 7e's, workers included, ``multiproc_launches`` phase 7f's
+   workers'; and phase 7e's ``rtc_saxpy``), the card's line, and the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 needs a CUDA card and the rest of the repository beside it.
@@ -483,6 +508,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -506,8 +532,15 @@ TIMING_RUNS = 25
 OFF_PATH = ("paged_attention",)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a result line; its wall seconds since the start go to stderr
+    (the order of the phases' costs, in a log that keeps both)."""
     print(*a, flush=True)
+    print("  [%.1f s]" % (time.perf_counter() - _T0), file=sys.stderr,
+          flush=True)
 
 
 def card_line():
@@ -10421,6 +10454,305 @@ def periphery_main_path(K, dev, prefix):
     return dict(launches), rtc_launches, timed
 
 
+# -- phase 7f: multi-process training -----------------------------------------
+
+MP_NOTE = "two processes on ONE card, not a multi-card figure"
+MP_CHECKS = "lm_dp,bn_global,ckpt,shardio"
+MP_SIZE = "full"                    # dist_worker's LM_SIZES / BN_SIZES
+
+
+def _line7f(t0, what, text):
+    log("phase 7f %s: %s (%.1f s into the phase)" % (
+        what, text, time.perf_counter() - t0))
+
+
+def _timed_steps(tr, batches):
+    """Step over ``batches``: (ms a step of every step after the first,
+    synchronized; the launches of those steps)."""
+    from mxnet_tpu_torch.ops import kernels as K
+    ms = []
+    for i, b in enumerate(batches):
+        if i == 1:
+            K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.step(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return ms[1:], {k: v for k, v in K.launch_counts().items() if v}
+
+
+def _mp_oracle(W, dev, what, make, batches):
+    """The one-process run over ``[dev] * 2`` (one captured program):
+    (its state's digests, ms a step, launches a step)."""
+    from mxnet_tpu_torch.testing import dist_worker as Wm
+    tr = make()
+    ms, launches = _timed_steps(tr, batches)
+    digests = Wm.digests(Wm.trainer_state(tr))
+    if tr.compile_counts != {"step": 1}:
+        raise AssertionError("phase 7f %s oracle: compile_counts %r"
+                             % (what, tr.compile_counts))
+    del tr
+    free_programs()
+    return digests, ms, launches
+
+
+def _same_digests(what, got, want):
+    bad = sorted(k for k in want if got.get(k) != want[k])
+    if bad or sorted(got) != sorted(want):
+        raise AssertionError("phase 7f %s: not bitwise: %d of %d arrays "
+                             "differ (%s)" % (what, len(bad), len(want),
+                                              bad[:4]))
+
+
+def multiproc_main_path(K, dev):
+    """Phase 7f: ``ParallelTrainer`` over one mesh across two processes on
+    the one card (``tools/launch.py -n 2``, ``mxnet_tpu_torch.testing.
+    dist_worker`` at its full size; the kernels built by this process
+    first): the 124M LM (plain, zero1, fsdp), ResNet-50 f32 with global
+    BatchNorm, checkpoints from both processes, the sharded-IO fit; each
+    held against the one-process run over ``[dev] * 2`` here, bitwise.
+    Returns the workers' launches."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.testing import dist_worker as W
+    t0 = time.perf_counter()
+    out = os.path.join(HERE, "build", "multiproc7f")
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    env = dict(os.environ)
+    env.update(MXNET_DISTTEST_CHECKS=MP_CHECKS, MXNET_DISTTEST_OUT=out,
+               MXNET_DISTTEST_SIZE=MP_SIZE,
+               PYTHONPATH=HERE + os.pathsep + env.get("PYTHONPATH", ""))
+    for k in ("MXNET_TPU_COORDINATOR", "MXNET_KVSTORE_PORT_BASE",
+              "MXNET_TPU_LOCAL_DEVICES", "MXNET_DISTTEST_CTX", GATE):
+        env.pop(k, None)
+    try:
+        w0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "tools", "launch.py"), "-n",
+             "2", "--", sys.executable, "-m",
+             "mxnet_tpu_torch.testing.dist_worker"],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - w0
+        if proc.returncode != 0 or proc.stdout.count("OK all") != 2:
+            raise AssertionError(
+                "phase 7f workers failed (rc %d):\n%s\n%s" % (
+                    proc.returncode, proc.stdout[-3000:],
+                    proc.stderr[-6000:]))
+        timing = [ln for ln in proc.stdout.splitlines()
+                  if ln.startswith("TIMING")]
+        _line7f(t0, "workers", "2 processes through tools/launch.py -n 2 "
+                "in %.1f s (%s); %s" % (wall, "; ".join(timing), MP_NOTE))
+        launches = _mp_lm(W, par, dev, t0, out)
+        _mp_resnet(W, par, dev, t0, out)
+        _mp_ckpt(W, par, dev, t0, out)
+        acc = [json.load(open(os.path.join(out, "shardio-%d.json" % r)))
+               for r in range(2)]
+        if not (acc[0]["acc"] > 0.85 and acc[0]["acc"] == acc[1]["acc"]):
+            raise AssertionError("phase 7f shardio: %s" % acc)
+        _line7f(t0, "shardio", "RAW0 records (%d of %dx%d, %d classes) "
+                "written by rank 0, ImageRecordIter(num_parts=2, "
+                "part_index=rank) into fit(device_metric=True) over {dp: 2} "
+                "(global batch 16), 30 epochs: accuracy %s, equal in both "
+                "processes; fit %.1f s; %s" % (
+                    W.SHARDIO_N, W.SHARDIO_HW, W.SHARDIO_HW, W.SHARDIO_K,
+                    [a["acc"] for a in acc], acc[0]["fit_s"], card_line()))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _line7f(t0, "done", "every check passed in %.1f s; launches %s" % (
+        time.perf_counter() - t0, json.dumps(launches)))
+    return launches
+
+
+def _mp_lm(W, par, dev, t0, out):
+    """7f.1: the 124M LM at full width, bf16 over f32 masters, global B=8
+    T=1024 over {dp: 2} across the two processes, SGD lr 1e-3 momentum
+    0.9, 3 steps on one batch: each variant's ranks bitwise equal, equal
+    to the one-process [dev] * 2 run, zero1 and fsdp to plain, a falling
+    loss, 12 launches of each flash entry a step in each process, the
+    compute and the update captured with the collective between them."""
+    cfg = W.LM_SIZES[MP_SIZE]
+    batch = W.lm_batch(cfg)
+    card = dev.type == "cuda"
+    want, one_ms, one_launches = _mp_oracle(
+        W, dev, "lm", lambda: W.lm_trainer(par, cfg, par.build_mesh(
+            {"dp": 2}, [dev] * 2)), [batch] * W.LM_STEPS)
+    steps = W.LM_STEPS - 1
+    layers = cfg["layers"] if card else 0
+    for e in FLASH_ENTRIES:
+        if one_launches.get(e, 0) != 2 * layers * steps:
+            raise AssertionError("phase 7f lm oracle: launches %r"
+                                 % one_launches)
+    launches = collections.Counter()
+    rows = []
+    for variant, _ in W.LM_VARIANTS:
+        res = [json.load(open(os.path.join(out, "lm_dp-%s-%d.json"
+                                                % (variant, r))))
+               for r in range(2)]
+        for r, d in enumerate(res):
+            _same_digests("lm %s rank %d" % (variant, r), d["digests"],
+                          want)
+            if not all(math.isfinite(v) for v in d["loss"]) \
+                    or not d["loss"][-1] < d["loss"][0]:
+                raise AssertionError("phase 7f lm %s: the loss did not "
+                                     "fall: %s" % (variant, d["loss"]))
+            flash = {e: d["launches"].get(e, 0) for e in FLASH_ENTRIES}
+            if flash != {e: layers * steps for e in FLASH_ENTRIES} \
+                    or set(d["launches"]) - set(FLASH_ENTRIES):
+                raise AssertionError("phase 7f lm %s rank %d: launches %r "
+                                     "(want %d of each flash entry a step)"
+                                     % (variant, r, d["launches"], layers))
+            if d["compile_counts"] != {"step.compute": 1,
+                                       "step.update": 1} \
+                    or d["programs"] != 2 \
+                    or d["captured"] != (2 if card else 0):
+                raise AssertionError("phase 7f lm %s: programs %s, %d "
+                                     "captured, compile_counts %r" % (
+                                         variant, d["programs"],
+                                         d["captured"], d["compile_counts"]))
+            launches.update(d["launches"])
+        d = res[0]
+        rows.append("%s: ms a step %.3f (steps 2-%d: %s), the collectives "
+                    "%.3f ms and %.1f MB a step in %d calls, %d programs a "
+                    "step (%d captured) and %d host stages, loss %s, rank "
+                    "0 stores %.1f MB of parameters and %.1f MB of state" % (
+                        variant, statistics.median(d["ms"][1:]),
+                        W.LM_STEPS, ["%.3f" % v for v in d["ms"][1:]],
+                        d["cross_ms"], d["cross_bytes"] / 1e6,
+                        d["cross_calls"], d["programs"], d["captured"],
+                        d["host_stages"], ["%.4f" % v for v in d["loss"]],
+                        d["state_bytes"][0][0] / 1e6,
+                        d["state_bytes"][0][1] / 1e6))
+    REPORT["mp_lm"] = dict(one_ms=statistics.median(one_ms))
+    _line7f(t0, "lm_dp", "LM (%d layers, E=%d, %d heads, vocab %d) %s "
+            "over f32 masters, global B=%d T=%d over {dp: 2} "
+            "across 2 processes (%s), SGD lr %g momentum 0.9, %d steps on "
+            "one batch: plain, zero1 and fsdp each bitwise equal on both "
+            "ranks, to each other and to one process over [%s] * 2 (one "
+            "captured program: ms a step %.3f, steps 2-%d: %s); %d of each "
+            "flash entry a step in each process; %s; %s" % (
+                cfg["layers"], cfg["embed"], cfg["heads"], cfg["vocab"],
+                cfg["dtype"] or "f32",
+                cfg["b"], cfg["t"], MP_NOTE, W.LM_LR, W.LM_STEPS, dev,
+                statistics.median(one_ms), W.LM_STEPS,
+                ["%.3f" % v for v in one_ms], layers, "; ".join(rows),
+                card_line()))
+    return dict(launches)
+
+
+def _mp_resnet(W, par, dev, t0, out):
+    """7f.2: ResNet-50 f32 224x224 at global B=64 over {dp: 2} across the
+    two processes, 2 steps, cuDNN deterministic and TF32 off, BatchNorm
+    over the global batch: parameters, moving averages and optimizer
+    state bitwise the one-process [dev] * 2 run's."""
+    import mxnet_tpu_torch as mx
+    cfg = W.BN_SIZES[MP_SIZE]
+    sym = W.bn_symbol(mx, cfg)
+    args, aux, batches = W.bn_problem(sym, cfg)
+    shapes = {k: v.shape for k, v in batches[0].items()}
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def make():
+        tr = par.ParallelTrainer(
+            sym, shapes, optimizer="sgd",
+            mesh=par.build_mesh({"dp": 2}, [dev] * 2),
+            optimizer_params={"learning_rate": W.BN_LR, "momentum": 0.9},
+            clip_grad_norm=cfg["clip"])
+        tr.init_params(args, aux)
+        return tr
+
+    try:
+        want, one_ms, _ = _mp_oracle(W, dev, "resnet", make, batches)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    res = [json.load(open(os.path.join(out, "bn_global-1-%d.json" % r)))
+           for r in range(2)]
+    for r, d in enumerate(res):
+        _same_digests("resnet rank %d" % r, d["digests"], want)
+        if d["programs"] != 2 or d["captured"] != (dev.type == "cuda"):
+            raise AssertionError("phase 7f resnet: %d programs, %d "
+                                 "captured (the walk holds BatchNorm's "
+                                 "collectives: the update alone)" % (
+                                     d["programs"], d["captured"]))
+    d = res[0]
+    _line7f(t0, "resnet", "%s f32 %dx%d %d classes, global B=%d "
+            "over {dp: 2} across 2 processes (%s), cuDNN deterministic, "
+            "TF32 off, SGD lr %g momentum 0.9, %d steps: parameters, "
+            "moving averages and momentum bitwise equal on both ranks and "
+            "to one process over [%s] * 2; ms a step %.3f against %.3f in "
+            "one process (the second step); the collectives %.3f ms and "
+            "%.1f MB a step in %d calls (BatchNorm's sums in the walk, "
+            "uncaptured, and the gradient sum); %d programs a step, %d "
+            "captured; %s" % (
+                "ResNet-50" if cfg["hw"] == W.RESNET_HW else "a conv net",
+                cfg["hw"], cfg["hw"], cfg["classes"],
+                cfg["b"], MP_NOTE, W.BN_LR, W.BN_STEPS, dev, d["ms"][-1],
+                one_ms[-1], d["cross_ms"], d["cross_bytes"] / 1e6,
+                d["cross_calls"], d["programs"], d["captured"],
+                card_line()))
+
+
+def _mp_ckpt(W, par, dev, t0, out):
+    """7f.3: the checkpoints of 7f.1's fsdp LM written by both processes
+    (sync and async, each restored in both processes by the workers)
+    restored here in one process over [dev] * 2: its state bitwise the
+    saved one, which is 7f.1's (so the one-process run's)."""
+    cfg = W.LM_SIZES[MP_SIZE]
+    res = [json.load(open(os.path.join(out, "ckpt-%d.json" % r)))
+           for r in range(2)]
+    _same_digests("ckpt ranks", res[1]["digests"], res[0]["digests"])
+    _same_digests("ckpt is 7f.1's fsdp state", res[0]["digests"], json.load(
+        open(os.path.join(out, "lm_dp-fsdp-0.json")))["digests"])
+    secs = []
+    tr = W.lm_trainer(par, cfg, par.build_mesh({"dp": 2}, [dev] * 2),
+                      fsdp=True)
+    for how in ("sync", "async"):
+        prefix = os.path.join(out, "ckpt-" + how)
+        with open(prefix + "-manifest.json") as f:
+            nprocs = json.load(f)["nprocs"]
+        if nprocs != 2:
+            raise AssertionError("phase 7f ckpt %s: nprocs %s"
+                                 % (how, nprocs))
+        t1 = time.perf_counter()
+        tr.restore_sharded_checkpoint(prefix)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        _same_digests("ckpt %s restored in one process" % how,
+                      W.digests(W.trainer_state(tr)), res[0]["digests"])
+    del tr
+    free_programs()
+    d = res[0]
+    _line7f(t0, "ckpt", "the fsdp LM of 7f.1 after its %d steps, "
+            "save_sharded_checkpoint from both processes: sync %.2f s, "
+            "async %.2f s (to finalize), %.1f + %.1f MB a process's file; "
+            "each restored bitwise in both processes and here in one "
+            "process over [%s] * 2 (restore_sharded_checkpoint %.2f s, "
+            "%.2f s); %s" % (
+                d["step"], d["save_s"]["sync"], d["save_s"]["async"],
+                d["bytes"]["sync"] / 1e6, d["bytes"]["async"] / 1e6, dev,
+                secs[0], secs[1], card_line()))
+
+
+_WALL = []
+# the sources main() builds on a thread while the serving phases run
+LATE_SOURCES = ("flash_attention", "striped_pair_attention", "fused_linear",
+                "matmul_stats")
+
+
+def wall(what):
+    """Log the wall seconds since the previous call (each phase's share
+    of the run; the first call starts the clock)."""
+    now = time.perf_counter()
+    if _WALL:
+        log("wall: %s %.1f s" % (what, now - _WALL[-1]))
+    _WALL.append(now)
+
+
 def ptxas_summary(K, name, rows=None):
     """The build log of source ``name`` (or its ``K.ptxas_report`` rows)
     in a few lines: its compiled functions, their largest register count,
@@ -10463,11 +10795,24 @@ def main():
         name, card, torch.__version__, torch.version.cuda))
 
     t_start = t0 = time.perf_counter()
-    secs = K.build()
-    log("build: %.1f s wall (%s)" % (time.perf_counter() - t0, ", ".join(
-        "%s %.1f s" % kv for kv in secs.items())))
-    for kname in K.KERNELS:
-        log(ptxas_summary(K, kname))
+    wall("start")
+    # the training kernels' sources (a minute or two of nvcc) build on a
+    # thread while the serving kernels are checked and phases 4-4g run,
+    # which launch none of them; their checks come after
+    late, late_err = {}, []
+
+    def build_late():
+        try:
+            late.update(K.build(LATE_SOURCES))
+        except BaseException as e:  # raised after the join
+            late_err.append(e)
+
+    nvcc = threading.Thread(target=build_late, name="nvcc")
+    nvcc.start()
+    secs = K.build(tuple(k for k in K.KERNELS if k not in LATE_SOURCES))
+    log("build of the serving kernels: %.1f s wall (%s)" % (
+        time.perf_counter() - t0, ", ".join(
+            "%s %.1f s" % kv for kv in secs.items())))
     # the paged chunk's instantiations, bf16 and int8 cache; the int8
     # ones must not spill
     log(ptxas_lines(K, "paged_attention", ["fwd_mma"]))
@@ -10486,6 +10831,50 @@ def main():
                                 check_quant_matmul_moe(K, dev, gen))
     worst.update(check_paged_attention(K, dev, gen))
     check_paged_invariance(K, dev, gen)
+    wall("phase 3 (the serving kernels)")
+    launches, prefix, work, streams = serve_main_path(K, dev)
+    free_programs()
+    launches["paged_attention_decode"] = serve_default_path(
+        K, dev, prefix, work)["paged_attention_decode"]
+    free_programs()
+    serve_int8_kv_path(K, dev, prefix, work)
+    free_programs()
+    wall("phase 4")
+    for e, n in reuse_main_path(K, dev, prefix).items():
+        launches[e] += n
+    free_programs()
+    wall("phase 4b")
+    for e, n in robust_main_path(K, dev, prefix, work, streams).items():
+        launches[e] += n
+    free_programs()
+    wall("phase 4c")
+    for e, n in fleet_main_path(K, dev, prefix, work, streams).items():
+        launches[e] += n
+    free_programs()
+    wall("phase 4d")
+    for e, n in tp_main_path(K, dev, prefix, work).items():
+        launches[e] += n
+    free_programs()
+    wall("phase 4e")
+    for e, n in dense_main_path(K, dev, prefix, work).items():
+        launches[e] += n
+    free_programs()
+    wall("phase 4f")
+    check_small_against_host(dev)
+    moe = moe_main_path(K, dev, work)
+    for e, n in moe.items():
+        launches[e] += n
+    free_programs()
+    wall("phase 4g")
+    nvcc.join()
+    if late_err:
+        raise late_err[0]
+    secs.update(late)
+    log("build: the training kernels ready %.1f s after the start (%s)" % (
+        time.perf_counter() - t0, ", ".join(
+            "%s %.1f s" % (k, late[k]) for k in LATE_SOURCES)))
+    for kname in K.KERNELS:
+        log(ptxas_summary(K, kname))
     worst.update(check_flash_attention(K, dev, gen))
     check_flash_repeat(K, dev)
     worst["fused_linear"] = check_fused_linear(K, dev, gen)
@@ -10500,74 +10889,63 @@ def main():
     timed.update(time_striped_pair(K, dev, gen, worst))
     time_classic_kernels(K, dev, gen, timed)
     time_zoo_kernels(K, dev, dgen, timed)
-    launches, prefix, work, streams = serve_main_path(K, dev)
-    free_programs()
-    launches["paged_attention_decode"] = serve_default_path(
-        K, dev, prefix, work)["paged_attention_decode"]
-    free_programs()
-    serve_int8_kv_path(K, dev, prefix, work)
-    free_programs()
-    for e, n in reuse_main_path(K, dev, prefix).items():
-        launches[e] += n
-    free_programs()
-    for e, n in robust_main_path(K, dev, prefix, work, streams).items():
-        launches[e] += n
-    free_programs()
-    for e, n in fleet_main_path(K, dev, prefix, work, streams).items():
-        launches[e] += n
-    free_programs()
-    for e, n in tp_main_path(K, dev, prefix, work).items():
-        launches[e] += n
-    free_programs()
-    for e, n in dense_main_path(K, dev, prefix, work).items():
-        launches[e] += n
-    free_programs()
-    check_small_against_host(dev)
-    moe = moe_main_path(K, dev, work)
-    for e, n in moe.items():
-        launches[e] += n
-    free_programs()
+    wall("phase 3 (the training kernels and every timing)")
     launches.update({e: n for e, n in train_main_path(K, dev).items()
                      if e in TRAIN_ENTRIES})
     free_programs()
     check_train_against_host(dev)
     free_programs()
+    wall("phase 5")
     for e, n in moe_train_path(K, dev).items():
         launches[e] += n
         moe[e] = moe.get(e, 0) + n
     free_programs()
+    wall("phase 5b")
     fit = fit_main_path(K, dev)
     free_programs()
+    wall("phase 5c")
     par = parallel_main_path(K, dev)
     for e, n in par.items():
         launches[e] += n
     free_programs()
+    wall("phase 5d")
     launches.update(train_resnet(K, dev))
     free_programs()
     launches.update(eval_resnet(K, dev))
     check_resnet_against_host(dev)
     free_programs()
+    wall("phase 6")
     check_ring_on_card(dev)
     launches.update({e: n for e, n in sp_main_path(K, dev).items()
                      if e in SP_ENTRIES})
     check_sp_against_flash(dev)
     check_sp_resume(dev)
     free_programs()
+    wall("phase 7")
     classic = classic_main_path(K, dev, prefix, work, streams)
     for e, n in classic.items():
         launches[e] += n
     free_programs()
+    wall("phase 7b")
     zoo = zoo_main_path(K, dev)
     for e, n in zoo.items():
         launches[e] += n
     free_programs()
+    wall("phase 7c")
     io = io_main_path(K, dev)
     for e, n in io.items():
         launches[e] += n
     free_programs()
+    wall("phase 7d")
     peri, rtc_launches, rtc_timed = periphery_main_path(K, dev, prefix)
     for e, n in peri.items():
         launches[e] += n
+    free_programs()
+    wall("phase 7e")
+    mp = multiproc_main_path(K, dev)
+    for e, n in mp.items():
+        launches[e] += n
+    wall("phase 7f")
     replaces = {
         "paged_attention": 1115, "paged_attention_chunk": 1115,
         "paged_attention_decode": 1115,
@@ -10599,6 +10977,7 @@ def main():
         moe_launches=moe.get(e, 0), fit_launches=fit.get(e, 0),
         classic_launches=classic.get(e, 0), zoo_launches=zoo.get(e, 0),
         io_launches=io.get(e, 0), periphery_launches=peri.get(e, 0),
+        multiproc_launches=mp.get(e, 0),
         **{"5d_launches": par.get(e, 0)},
         **{k: timed[e][k] for k in ("stage2", "stage3", "stage4", "stem",
                                     "proj", "bf16", "f32", "scalar_ms",

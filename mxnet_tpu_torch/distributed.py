@@ -18,6 +18,13 @@ sets:
 * ``MXNET_TPU_INIT_TIMEOUT`` (seconds, default 600) bounds the join.
 
 With none of them set the process is rank 0 of 1 and nothing is joined.
+
+At the join every process's local devices are gathered into one global,
+process-ordered list, :func:`devices` (process 0's first), with the
+process that owns each, :func:`device_processes`: the counterpart of the
+global ``jax.devices()`` with each device's ``process_index``. A device
+may repeat across processes (``cuda:0`` of process 0 and ``cuda:0`` of
+process 1 are two ranks of a mesh built over the list).
 """
 from __future__ import annotations
 
@@ -30,10 +37,13 @@ import torch.distributed as dist
 from .context import Context, cpu, gpu
 
 __all__ = ["initialize", "is_initialized", "rank", "num_workers",
-           "local_devices", "barrier", "shutdown"]
+           "process_index", "process_count", "local_devices", "devices",
+           "device_processes", "barrier", "shutdown"]
 
 _initialized = False
 _local = {"count": None}
+# the global device list and each device's process, gathered at the join
+_global = {"devices": None, "processes": None}
 
 
 def initialize(coordinator=None, num_processes=None, process_id=None,
@@ -65,6 +75,12 @@ def initialize(coordinator=None, num_processes=None, process_id=None,
                 "gloo", init_method="tcp://%s" % coordinator,
                 world_size=int(num_processes), rank=int(process_id or 0),
                 timeout=datetime.timedelta(seconds=init_timeout))
+        mine = [str(c.torch_device) for c in local_devices()]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        _global["devices"] = [torch.device(d) for ds in every for d in ds]
+        _global["processes"] = [p for p, ds in enumerate(every)
+                                for _ in ds]
     _initialized = True
 
 
@@ -81,6 +97,16 @@ def num_workers():
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def process_index():
+    """This process's index (``jax.process_index()``): its rank."""
+    return rank()
+
+
+def process_count():
+    """The number of processes (``jax.process_count()``)."""
+    return num_workers()
+
+
 def local_devices():
     """This process's contexts: ``MXNET_TPU_LOCAL_DEVICES`` CPU contexts
     when set, else every visible card, else the CPU."""
@@ -89,6 +115,22 @@ def local_devices():
     if torch.cuda.is_available():
         return [gpu(i) for i in range(torch.cuda.device_count())]
     return [cpu(0)]
+
+
+def devices():
+    """Every process's devices as ``torch.device``s, process by process
+    (the global ``jax.devices()``); this process's alone when no group
+    was joined."""
+    if _global["devices"] is not None and dist.is_initialized():
+        return list(_global["devices"])
+    return [c.torch_device for c in local_devices()]
+
+
+def device_processes():
+    """The process that owns each device of :func:`devices`."""
+    if _global["processes"] is not None and dist.is_initialized():
+        return list(_global["processes"])
+    return [process_index()] * len(local_devices())
 
 
 def barrier(name="mxnet_tpu_barrier"):
@@ -102,4 +144,5 @@ def shutdown():
     global _initialized
     if dist.is_initialized():
         dist.destroy_process_group()
+    _global.update(devices=None, processes=None)
     _initialized = False

@@ -564,13 +564,14 @@ class StagedStream:
 def _prefetch_device(sharding, mesh, data_axis):
     """The device ``DevicePrefetchIter`` places batches on: ``sharding``
     (a device, its name or a Context), else the device of ``mesh``'s
-    ranks (``ParallelTrainer(mesh=)`` takes the global batch there and
+    ranks in this process (``ParallelTrainer(mesh=)`` takes the batch
+    there, the global one or across processes this process's rows, and
     gives each ``data_axis`` rank its rows), else ``cuda:0``."""
     if sharding is None and mesh is not None:
         if data_axis not in mesh.shape:
             raise MXNetError("DevicePrefetchIter: the mesh has no axis %r "
                              "(axes %s)" % (data_axis, list(mesh.shape)))
-        devs = {torch.device(d) for d in np.ravel(mesh.devices)}
+        devs = {torch.device(d) for d in mesh.local_devices()}
         if len(devs) > 1:
             raise later_slice("DevicePrefetchIter",
                               "a mesh over distinct devices")

@@ -362,20 +362,28 @@ class BatchNorm(OpSpec):
         out = out * gamma.reshape(shape) + beta.reshape(shape)
         return [out], [mmean, mvar]
 
-    def forward_global(self, p, rank_ins, rank_aux):
+    def forward_global(self, p, rank_ins, rank_aux, span=None):
         """Training BatchNorm over the batch that the ranks' shards make
         together (one walk a data-parallel rank, ``parallel/graph.py``):
         the statistics of the GLOBAL batch, as GSPMD gives the JAX
         package's BatchNorm under a ``dp`` sharding. Each rank's sums of x
-        and of x^2 (f32, or f64 for f64 data) are ``psum``'d over the
-        ranks, in the mode ``_BN_STATS_MODE`` selects ("centered" and
-        "welford" psum the sums of (x - mean)^2 after the mean); autograd
-        differentiates through the sums. Returns ``(outs, aux)`` per
-        rank; the moving statistics come out equal on every rank."""
-        from ..parallel.collectives import psum
+        and of x^2 (f32, or f64 for f64 data) are summed over the ranks
+        in rank order (``collectives.psum_ranked``; over ``span``, a
+        ``collectives.Span`` of the walks, when they live in several
+        processes, of which ``rank_ins`` are this process's), in the mode
+        ``_BN_STATS_MODE`` selects ("centered" and "welford" sum the sums
+        of (x - mean)^2 after the mean); the backward sums the ranks'
+        gradients of the sums in the same order. Returns ``(outs, aux)``
+        per rank; the moving statistics come out equal on every rank."""
+        from ..parallel.collectives import psum_ranked
+
+        def psum(vals):
+            return psum_ranked(vals, span)
+
         xs = [ins[0] for ins in rank_ins]
         axes, shape = _bn_axes(xs[0])
-        n = sum(x.numel() // x.shape[1] for x in xs)
+        n = sum(x.numel() // x.shape[1] for x in xs) * (
+            1 if span is None else span.n // len(xs))
         acc = torch.promote_types(xs[0].dtype, torch.float32)
         xf = [x.to(acc) for x in xs]
         means = [t / n for t in psum([x.sum(dim=axes) for x in xf])]

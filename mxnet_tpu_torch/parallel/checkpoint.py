@@ -11,18 +11,28 @@ Counterpart of ``mxnet_tpu/parallel/checkpoint.py``, with its files:
 and its names: the parameters by name, the optimizer state's leaves as
 ``opt/<param>/<i>`` (the JAX package's tree order) and the aux states as
 ``aux/<name>``. A checkpoint written by either package loads in the
-other. The port's trainers run in one process, so one process writes
-everything: an array held whole as one shard covering it, with a
-replicated spec (which the JAX package's ``load_sharded`` places on any
-mesh); a parameter that a ``ParallelTrainer`` on a mesh stores sharded as
-each distinct shard once, keyed by its slice, with its spec, as a JAX
-process writes the shards of its devices. Loading assembles each global
-array from whatever shards the files hold, the JAX package's per-device
-slices included.
+other. Every process writes its own file: an array held whole as one
+shard covering it, with a replicated spec (which the JAX package's
+``load_sharded`` places on any mesh); a parameter that a
+``ParallelTrainer`` on a mesh stores sharded as each distinct shard once
+(the replica of its lowest rank, written by the process that owns that
+rank), keyed by its slice, with its spec, as a JAX process writes the
+replica-0 shards of its devices. Loading assembles each global array from
+whatever shards the files hold, the JAX package's per-device slices
+included, in any process count.
 
 Every file lands through ``tmp`` + ``os.replace``, and the manifest,
-written last, is the completeness marker: :func:`latest_step` returns a
-step only when the manifest and every shard file it names exist.
+written last by process 0 (``"nprocs"``: the process count), is the
+completeness marker: :func:`latest_step` returns a step only when the
+manifest and every shard file it names exist. Across processes a
+synchronous save orders the manifest after every shard file with gloo
+barriers on the calling thread; the ``async_write=True`` writer thread
+issues no collective (it would race the training step's) and follows
+the JAX package's marker-file protocol instead (``mxnet_tpu/parallel/
+checkpoint.py`` l.79-160): each process drops a marker named by a token
+that rank 0 broadcast on the calling thread, rank 0 publishes the
+manifest once every marker is there, and the others wait for that
+manifest.
 """
 from __future__ import annotations
 
@@ -30,19 +40,27 @@ import collections
 import json
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import distributed
 
 __all__ = ["save_sharded", "load_sharded", "latest_step",
            "flatten_train_state", "restore_opt_state", "Shards"]
 
 #: an array held as shards: ``pieces`` is ``[(slices, shard), ...]``,
-#: ``slices`` a ``(start, stop)`` per dimension, covering the array once;
-#: ``spec`` the PartitionSpec the manifest records
-Shards = collections.namedtuple("Shards", ["spec", "pieces"])
+#: ``slices`` a ``(start, stop)`` per dimension (this process's pieces;
+#: every process's together cover the array once); ``spec`` the
+#: PartitionSpec the manifest records; ``shape`` the global shape
+#: (default: where the pieces end)
+Shards = collections.namedtuple("Shards", ["spec", "pieces", "shape"],
+                                defaults=(None,))
+
+# how long a process waits for its peers' files (seconds)
+WAIT_S = 600
 
 
 def _index_key(shape):
@@ -63,19 +81,24 @@ def _snapshot(params, step, extra):
     """Host copies of ``params`` (later steps update the device values in
     place, so this part cannot wait) and the manifest."""
     blobs = {}
-    manifest = {"step": int(step), "nprocs": 1, "params": {},
-                "extra": extra or {}}
+    manifest = {"step": int(step), "nprocs": distributed.process_count(),
+                "params": {}, "extra": extra or {}}
     for name, arr in params.items():
         spec = []
         if isinstance(arr, Shards):
             spec = _spec_json(arr.spec)
             shards = [(sl, _host(v)) for sl, v in arr.pieces]
-            gshape = [stop for _, stop in shards[0][0]]
-            for sl, _ in shards:
-                gshape = [max(g, stop) for g, (_, stop) in zip(gshape, sl)]
             for sl, host in shards:
                 blobs["%s|%s" % (name, ",".join(
                     "%d:%d" % se for se in sl))] = host
+            if not shards:
+                # none of it here: another process writes it and the
+                # manifest
+                continue
+            gshape = list(arr.shape) if arr.shape is not None else \
+                [stop for _, stop in shards[0][0]]
+            for sl, _ in shards:
+                gshape = [max(g, stop) for g, (_, stop) in zip(gshape, sl)]
             dtype = shards[0][1].dtype
         else:
             host = _host(arr)
@@ -86,32 +109,92 @@ def _snapshot(params, step, extra):
     return blobs, manifest
 
 
-def _write(prefix, blobs, manifest):
-    tmp = "%s-shards-p0.tmp.npz" % prefix  # np.savez wants the suffix
+def _wait(what, ready):
+    deadline = time.time() + WAIT_S
+    while not ready():
+        if time.time() > deadline:
+            raise MXNetError("save_sharded: timed out waiting for %s" % what)
+        time.sleep(0.05)
+
+
+def _write(prefix, blobs, manifest, use_collectives=True):
+    """This process's shard file, then the manifest (process 0), ordered
+    across processes by gloo barriers (``use_collectives``, the calling
+    thread) or by marker files (the writer thread)."""
+    rank, nprocs = distributed.process_index(), manifest["nprocs"]
+    tmp = "%s-shards-p%d.tmp.npz" % (prefix, rank)  # np.savez wants .npz
     np.savez(tmp, **blobs)
-    os.replace(tmp, "%s-shards-p0.npz" % prefix)
-    mtmp = "%s-manifest.json.tmp" % prefix
-    with open(mtmp, "w") as f:
-        json.dump(manifest, f)
-    os.replace(mtmp, "%s-manifest.json" % prefix)
+    os.replace(tmp, "%s-shards-p%d.npz" % (prefix, rank))
+    token = manifest.get("save_token", manifest["step"])
+
+    def marker(r):
+        return "%s-done-p%d-%s" % (prefix, r, token)
+
+    if nprocs > 1:
+        if use_collectives:
+            # every shard file exists before the manifest appears
+            distributed.barrier("save_sharded:" + prefix)
+        else:
+            with open(marker(rank), "w"):
+                pass
+            if rank == 0:
+                _wait("the shard files of %s (save %s)" % (prefix, token),
+                      lambda: all(os.path.exists(marker(r))
+                                  for r in range(nprocs)))
+    if rank == 0:
+        mtmp = "%s-manifest.json.tmp" % prefix
+        with open(mtmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(mtmp, "%s-manifest.json" % prefix)
+    if nprocs > 1:
+        if use_collectives:
+            # and no process returns (and restores) before it is there
+            distributed.barrier("save_sharded_done:" + prefix)
+        elif rank == 0:
+            for r in range(nprocs):
+                try:
+                    os.remove(marker(r))
+                except OSError:
+                    pass
+        else:
+            def current():
+                try:
+                    with open("%s-manifest.json" % prefix) as f:
+                        m = json.load(f)
+                except (OSError, ValueError):
+                    return False
+                return m.get("save_token", m.get("step")) == token
+            _wait("the manifest of %s (save %s)" % (prefix, token),
+                  current)
 
 
 def save_sharded(prefix, params, step=0, extra=None, async_write=False):
     """Write every array of ``params`` (a flat name -> value dict: a
-    tensor or array, held whole, or :class:`Shards`).
-    ``async_write=True`` takes the host snapshot now and
-    writes the files on a background thread. Returns ``finalize``, a
-    0-arg callable that joins the writer and raises its error (a no-op
-    when synchronous); call it before restoring or exiting."""
+    tensor or array, held whole, or :class:`Shards`: this process's
+    pieces). Call from every process, all synchronous or all
+    ``async_write=True``, which takes the host snapshot now and writes
+    the files on a background thread. Returns ``finalize``, a 0-arg
+    callable that joins the writer and raises its error (a no-op when
+    synchronous); call it before restoring or exiting. Across processes
+    an asynchronous save needs one filesystem at ``prefix`` for every
+    process (the marker files)."""
     blobs, manifest = _snapshot(params, step, extra)
     if not async_write:
         _write(prefix, blobs, manifest)
         return lambda: None
+    # the save's token, agreed on the calling thread (the one place a
+    # collective may run); from os.urandom, so no user stream draws
+    tok = torch.tensor([int.from_bytes(os.urandom(4), "little")
+                        & 0x7fffffff], dtype=torch.int64)
+    if manifest["nprocs"] > 1:
+        import torch.distributed as dist
+        dist.broadcast(tok, 0)
+    manifest["save_token"] = "%d-%08x" % (step, int(tok[0]) & 0xffffffff)
     err = []
 
     def run():
         try:
-            _write(prefix, blobs, manifest)
+            _write(prefix, blobs, manifest, use_collectives=False)
         except BaseException as e:  # raised at finalize()
             err.append(e)
 

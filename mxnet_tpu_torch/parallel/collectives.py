@@ -10,18 +10,47 @@ device, a peer copy between cards. Every function is made of copies,
 concatenations and sums, so autograd differentiates through it: the
 backward of a rotation is the reverse rotation and that of ``psum`` a
 ``psum``, as in JAX, with no hand-written transpose.
+
+Across processes (a mesh whose ranks live in several processes started
+by ``tools/launch.py``, ``distributed.initialize``) a :class:`Span`
+names the members of a collective (the ranks or the data-parallel walks,
+in global order) and the process that owns each, and moves them over
+``torch.distributed`` (gloo, which also runs several ranks on one card;
+a card tensor is handed to gloo as it is, and gloo stages it through
+host memory and orders itself after the producing stream). Its sum adds
+the members in global order, so it equals the one-process ``psum`` bit
+for bit at any process count: every member's operand is gathered (by
+sends and receives between the processes), then added in order on the
+caller's device. :func:`psum_ranked` is that sum
+as an autograd function (its backward the same ordered sum of the
+outputs' gradients), what a training BatchNorm uses over a mesh in one
+process or several.
+Each cross-process call adds to the ``collectives.cross_calls``,
+``collectives.cross_bytes`` (bytes this process sends) and
+``collectives.cross_ms`` (the host's wall time in the exchange)
+telemetry.
 """
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
 from ..base import MXNetError
+from .. import distributed
+from .. import telemetry as tele
 
 __all__ = ["psum", "pmean", "pmax", "all_gather", "reduce_scatter",
            "ppermute", "all_to_all", "axis_index", "axis_size", "broadcast",
-           "barrier", "ring_exchange", "bucketed_psum"]
+           "barrier", "ring_exchange", "bucketed_psum", "Span",
+           "psum_ranked", "process_sum", "process_broadcast"]
+
+_TM_CROSS_MS = tele.histogram("collectives.cross_ms")
+_TM_CROSS_BYTES = tele.counter("collectives.cross_bytes")
+_TM_CROSS_CALLS = tele.counter("collectives.cross_calls")
+# the piece a cross-process send or receive moves at once
+CHUNK_BYTES = 32 << 20
 
 
 def axis_size(xs):
@@ -190,3 +219,178 @@ def bucketed_psum(grads, bucket_bytes=4 * 1024 * 1024):
     if is_dict:
         return out
     return [[o[k] for k in keys] for o in out]
+
+
+# -- across processes ---------------------------------------------------------
+
+class _Timed:
+    """Counts one cross-process call of ``nbytes`` and its wall time."""
+
+    def __init__(self, nbytes):
+        self.nbytes = nbytes
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _TM_CROSS_CALLS.inc()
+        _TM_CROSS_BYTES.inc(self.nbytes)
+        _TM_CROSS_MS.observe((time.perf_counter() - self.t0) * 1e3)
+
+
+class Span:
+    """The members of a collective, in global order, and the process that
+    owns each (``owners[i]``): the ranks of a mesh, or its data-parallel
+    walks. This process holds the members ``local``; every process holds
+    as many. With every member local nothing crosses a process and the
+    functions are the one-process ones."""
+
+    def __init__(self, owners):
+        self.owners = [int(p) for p in owners]
+        self.n = len(self.owners)
+        me = distributed.process_index()
+        self.local = [i for i, p in enumerate(self.owners) if p == me]
+        self.cross = len(self.local) != self.n
+        self.nprocs = distributed.process_count() if self.cross else 1
+        self.members = [[i for i, p in enumerate(self.owners) if p == q]
+                        for q in range(self.nprocs)] if self.cross \
+            else [list(range(self.n))]
+        if self.cross and len({len(m) for m in self.members}) != 1:
+            raise MXNetError(
+                "a collective across processes needs the same number of "
+                "members in every process; got %s"
+                % [len(m) for m in self.members])
+
+    def gather(self, xs):
+        """Every member's tensor, in global order, given this process's
+        ``xs`` (one a local member, all of one shape and dtype), on the
+        device of ``xs[0]`` (:meth:`_exchange`). A card's operands go
+        through pinned host buffers this span keeps (copied out after the
+        producing stream's work, copied in before the buffers are used
+        again)."""
+        xs = list(xs)
+        if not self.cross:
+            return xs
+        shape, numel = xs[0].shape, xs[0].numel()
+        flat = torch.cat([x.reshape(-1) for x in xs]) if len(xs) > 1 \
+            else xs[0].reshape(-1).contiguous()
+        me = distributed.process_index()
+        peers = [q for q in range(self.nprocs) if q != me]
+        if flat.device.type == "cuda":
+            send = self._pinned("send", flat)
+            send.copy_(flat)  # waits for the stream that made flat
+            recv = {q: self._pinned(q, flat) for q in peers}
+        else:
+            send = flat
+            recv = {q: torch.empty_like(flat) for q in peers}
+        with _Timed(send.numel() * send.element_size() * len(peers)):
+            self._exchange(send, recv)
+        out = [None] * self.n
+        for q, mem in enumerate(self.members):
+            parts = xs if q == me else \
+                recv[q].to(flat.device).split(numel)
+            for i, p in zip(mem, parts):
+                out[i] = p.view(shape)
+        return out
+
+    def _pinned(self, key, like):
+        """A pinned host buffer of ``like``'s size and dtype, kept."""
+        if not hasattr(self, "_host"):
+            self._host = {}
+        k = (key, like.numel(), like.dtype)
+        buf = self._host.get(k)
+        if buf is None:
+            buf = self._host[k] = torch.empty(like.numel(), dtype=like.dtype,
+                                              pin_memory=True)
+        return buf
+
+    def _exchange(self, send, recv):
+        """``send`` (this process's host buffer) to every other process
+        and ``recv[q]`` from process q. A card's pinned buffers go by
+        point-to-point sends and receives in chunks of ``CHUNK_BYTES``
+        (two processes on one H100 host, ``chip_smoke.py`` phase 7f: the
+        LM's 540 MB gradient 2.4-3.8x faster, BatchNorm's small sums 4-5x,
+        than gloo's all-gather of the card tensors); host tensors by
+        gloo's all-gather (a CPU mesh's small operands: the sends' waits
+        slowed the CPU tests' workers beside their compute threads)."""
+        import torch.distributed as dist
+        if not send.is_pinned():
+            bufs = [recv[q] if q in recv else torch.empty_like(send)
+                    for q in range(self.nprocs)]
+            dist.all_gather(bufs, send)
+            return
+        step = max(1, CHUNK_BYTES // send.element_size())
+        reqs = []
+        for q, buf in recv.items():
+            for off in range(0, send.numel(), step):
+                m = min(step, send.numel() - off)
+                reqs.append(dist.isend(send.narrow(0, off, m), q))
+                reqs.append(dist.irecv(buf.narrow(0, off, m), q))
+        for w in reqs:
+            w.wait()
+
+    def sum(self, xs):
+        """The sum of every member's tensor in global order (``psum``'s
+        order), one tensor on the device of ``xs[0]``: the operands
+        gathered, then added here, so the arithmetic is this device's
+        (gloo's own reduction may treat subnormals otherwise)."""
+        xs = list(xs)
+        parts = self.gather(xs)
+        dev = xs[0].device
+        total = parts[0].to(dev)
+        for p in parts[1:]:
+            total = total + p.to(dev)
+        return total
+
+    def psum(self, xs):
+        """:func:`psum_ranked` over this span: the ordered sum on every
+        local member's device, differentiable."""
+        return list(_RankSum.apply(self, *xs))
+
+
+class _RankSum(torch.autograd.Function):
+    """The sum of a span's members in global order, one output a local
+    member; the backward sums the outputs' gradients in the same order
+    (each member's own gradient, which autograd would otherwise add up in
+    the order of its consumers)."""
+
+    @staticmethod
+    def forward(ctx, span, *xs):
+        ctx.span = span
+        ctx.devs = [x.device for x in xs]
+        total = span.sum(xs)
+        return tuple(total.to(d, copy=True) for d in ctx.devs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        total = ctx.span.sum(gs)
+        return (None,) + tuple(total.to(d, copy=True) for d in ctx.devs)
+
+
+def psum_ranked(xs, span=None):
+    """``psum`` of the local members ``xs`` over ``span`` (default: these
+    members alone, in one process), added in global order in the forward
+    and in the backward, with one output a member."""
+    if span is None:
+        span = Span([distributed.process_index()] * len(xs))
+    return span.psum(xs)
+
+
+def process_sum(t):
+    """The sum over every process of ``t`` (a small tensor, e.g. a metric
+    accumulator), in place; nothing to add in one process."""
+    if distributed.process_count() > 1:
+        import torch.distributed as dist
+        with _Timed(t.numel() * t.element_size()):
+            dist.all_reduce(t)
+    return t
+
+
+def process_broadcast(t, src=0):
+    """Process ``src``'s ``t`` in every process, in place."""
+    if distributed.process_count() > 1:
+        import torch.distributed as dist
+        with _Timed(t.numel() * t.element_size()):
+            dist.broadcast(t, src)
+    return t

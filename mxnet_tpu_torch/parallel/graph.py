@@ -112,7 +112,7 @@ def make_graph_fn(symbol, allow_fusion=True):
     return fn
 
 
-def make_spmd_graph_fn(symbol, mesh, allow_fusion=True):
+def make_spmd_graph_fn(symbol, mesh, allow_fusion=True, span=None):
     """Build ``fn(rank_args, is_train, generators, rank_aux=None) ->
     (outs, new_aux)``, each a list per rank, for the ranks of ``mesh`` in
     row-major order of its device array.
@@ -133,9 +133,12 @@ def make_spmd_graph_fn(symbol, mesh, allow_fusion=True):
     since a ring hop needs every rank's K/V; a training BatchNorm on more
     than one rank normalizes by the statistics of the batch all the ranks
     hold together (``BatchNorm.forward_global``: the ranks' sums are
-    psum'd), as GSPMD gives the JAX package's BatchNorm under a ``dp``
-    sharding, and every rank's moving statistics come out the same. The
-    whole walk is one autograd graph.
+    added in rank order), as GSPMD gives the JAX package's BatchNorm
+    under a ``dp`` sharding, and every rank's moving statistics come out
+    the same. ``span`` (a ``collectives.Span``): the walks live in
+    several processes and ``mesh`` holds this process's; a training
+    BatchNorm then sums over every process's walks, through gloo, also
+    with one walk here. The whole walk is one autograd graph.
 
     ``allow_fusion=False`` runs no chain fused unless
     ``MXNET_PALLAS_FUSION=1`` turns the plan back on (as
@@ -193,9 +196,10 @@ def make_spmd_graph_fn(symbol, mesh, allow_fusion=True):
                 continue
             ins = [[env[(id(i), j)] for i, j in n.inputs] for env in envs]
             aux_in = [a[cur:cur + n_aux] for a in rank_aux]
-            if n_aux and is_train and len(envs) > 1 \
+            if n_aux and is_train and (len(envs) > 1 or span is not None) \
                     and hasattr(n.spec, "forward_global"):
-                outs, aux_out = n.spec.forward_global(n.params, ins, aux_in)
+                outs, aux_out = n.spec.forward_global(n.params, ins, aux_in,
+                                                      span)
             else:
                 outs, aux_out = zip(*[
                     n.spec.forward(n.params, i, a, is_train, gen)

@@ -10,6 +10,15 @@ holds (:meth:`Layout.shard`), and how the ranks' shards put the whole (or
 a part of it) back together (:meth:`Layout.assemble`, an ``all_gather``
 along every sharded dimension). A dimension sharded over several axes is
 split over their product in row-major order, as JAX splits it.
+
+On a mesh across processes a process holds its ranks alone
+(``Layout.local``) and its rows of the global batch:
+:meth:`Layout.process_rows` says which (one block, as JAX's
+``make_array_from_process_local_data`` wants it) and
+:meth:`Layout.shard` takes a rank's slice from them (``row0``); to
+assemble from other processes' shards, gather them first
+(``collectives.Span.gather``) and hand ``assemble`` a ``pick`` over the
+gathered list.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..base import later_slice
 
 __all__ = ["Layout", "spec_groups"]
 
@@ -43,6 +54,7 @@ class Layout:
         self.coords = list(np.ndindex(*mesh.devices.shape))
         self.devices = [mesh.devices[c] for c in self.coords]
         self._rank = {c: r for r, c in enumerate(self.coords)}
+        self.local = list(mesh.local_ranks)
 
     def __len__(self):
         return len(self.coords)
@@ -84,12 +96,28 @@ class Layout:
             out[dim] = (idx * size, (idx + 1) * size)
         return out
 
-    def shard(self, t, spec, r):
-        """Rank ``r``'s shard of the whole tensor ``t`` (a view)."""
-        for dim, (start, stop) in enumerate(self.slices(r, t.shape, spec)):
+    def shard(self, t, spec, r, shape=None, row0=0):
+        """Rank ``r``'s shard of the whole tensor ``t`` (a view); or, with
+        ``shape`` the global shape, of ``t`` holding the global rows
+        ``[row0, row0 + len(t))`` of dimension 0 (this process's rows)."""
+        sl = self.slices(r, t.shape if shape is None else shape, spec)
+        for dim, (start, stop) in enumerate(sl):
+            if dim == 0:
+                start, stop = start - row0, stop - row0
             if stop - start != t.shape[dim]:
                 t = t.narrow(dim, start, stop - start)
         return t
+
+    def process_rows(self, shape, spec):
+        """``(lo, hi)``: the rows of dimension 0 of an array of ``shape``
+        that this process's ranks hold together, one block."""
+        spans = sorted({tuple(self.slices(r, shape, spec)[0])
+                        for r in self.local})
+        lo, hi = spans[0][0], spans[-1][1]
+        if sum(b - a for a, b in spans) != hi - lo:
+            raise later_slice("Layout", "a process whose ranks' rows are "
+                              "not one block")
+        return lo, hi
 
     def assemble(self, pick, spec, r, ndim, keep=(), device=None):
         """The array that the shards of the ranks sharing rank ``r``'s

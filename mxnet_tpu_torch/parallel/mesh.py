@@ -1,15 +1,22 @@
-"""Device meshes for single-controller SPMD programs.
+"""Device meshes for SPMD programs, in one process or across several.
 
 Counterpart of ``mxnet_tpu/parallel/mesh.py`` (l.23-89). A :class:`Mesh`
-names the axes of a grid of ``torch.device``s; one Python process drives
-every rank of it, as one JAX program drives every device of a
-``jax.sharding.Mesh`` (the port's collectives are tensor operations
-between the ranks' shards, ``parallel/collectives.py``).
+names the axes of a grid of ``torch.device``s and records the process
+that owns each rank (``processes``). A process drives every rank it
+owns, as one JAX program drives the addressable devices of a
+``jax.sharding.Mesh``; between the ranks of one process the port's
+collectives are tensor operations on their shards, and between processes
+they go over ``torch.distributed`` (gloo; ``parallel/collectives.py``
+``Span``).
 
 A grid may name the same device more than once: ``["cpu"] * 8`` is the
 analogue of the JAX tests' 8 virtual CPU devices, and ``[cuda:0] * 4``
 runs a 4-rank ring on one card. On distinct cards a hop between ranks is
-a peer copy.
+a peer copy. A mesh built without ``devices=`` after
+``distributed.initialize`` joined several processes spans them all, as
+``jax.devices()`` does: its devices are every process's local devices,
+process by process, and ``cuda:0`` of process 0 and ``cuda:0`` of process
+1 are two ranks. A mesh given ``devices=`` alone belongs to this process.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import distributed
 
 __all__ = ["Mesh", "build_mesh", "data_parallel_mesh", "local_mesh",
            "model_parallel_mesh"]
@@ -30,9 +38,12 @@ class Mesh:
     ``devices``: an array (nested lists or numpy) of ``torch.device`` or
     device strings, one dimension per axis; ``axis_names``: a name per
     dimension. ``shape`` maps each name to its size, in order, as JAX's
-    ``mesh.shape`` does."""
+    ``mesh.shape`` does. ``processes`` (the port's own, keyword-only): the
+    process that owns each device, an array of the same shape; default
+    this process for every rank. ``local_ranks`` are the ranks (row-major
+    indices of the device array) this process owns."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, *, processes=None):
         flat = [torch.device(d) for d in np.asarray(devices,
                                                     dtype=object).ravel()]
         grid = np.empty(len(flat), dtype=object)
@@ -43,10 +54,36 @@ class Mesh:
             raise MXNetError("Mesh: %d axis names for a %d-d device array"
                              % (len(self.axis_names), self.devices.ndim))
         self.shape = dict(zip(self.axis_names, self.devices.shape))
+        me = distributed.process_index()
+        if processes is None:
+            procs = np.full(len(flat), me, dtype=np.int64)
+        else:
+            procs = np.asarray(processes, dtype=np.int64).ravel()
+            if procs.size != len(flat):
+                raise MXNetError("Mesh: %d processes for %d devices"
+                                 % (procs.size, len(flat)))
+        self.processes = procs.reshape(self.devices.shape)
+        self.local_ranks = [r for r, p in enumerate(procs) if p == me]
+        if not self.local_ranks:
+            raise MXNetError("Mesh: process %d owns no rank of it" % me)
 
     @property
     def size(self):
         return self.devices.size
+
+    @property
+    def is_multiprocess(self):
+        """True when ranks of the mesh live in other processes."""
+        return len(self.local_ranks) != self.devices.size
+
+    def owner(self, r):
+        """The process that owns rank ``r``."""
+        return int(self.processes.ravel()[r])
+
+    def local_devices(self):
+        """The devices of this process's ranks, in rank order."""
+        flat = self.devices.ravel()
+        return [flat[r] for r in self.local_ranks]
 
     def axis_devices(self, name):
         """The devices along axis ``name``, in rank order (at index 0 of
@@ -59,8 +96,10 @@ class Mesh:
         return list(grid.reshape(grid.shape[0], -1)[:, 0])
 
     def __repr__(self):
-        return "Mesh(%s, %s)" % (self.shape, sorted(
-            {str(d) for d in self.devices.ravel()}))
+        procs = sorted({int(p) for p in self.processes.ravel()})
+        return "Mesh(%s, %s%s)" % (self.shape, sorted(
+            {str(d) for d in self.devices.ravel()}),
+            ", processes %s" % procs if len(procs) > 1 else "")
 
 
 def _visible_devices():
@@ -72,12 +111,23 @@ def _visible_devices():
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def build_mesh(axes=None, devices=None):
+def _default_devices():
+    """(devices, processes): every process's devices once
+    ``distributed`` joined several processes, else this process's visible
+    CUDA devices."""
+    if distributed.process_count() > 1:
+        return distributed.devices(), distributed.device_processes()
+    return _visible_devices(), None
+
+
+def build_mesh(axes=None, devices=None, *, processes=None):
     """Build a Mesh from {axis_name: size} over ``devices`` (default:
-    every visible CUDA device; a device may repeat). One axis may be -1,
-    "use the remaining devices"."""
+    every process's devices after ``distributed.initialize`` joined
+    several, else every visible CUDA device; a device may repeat). One
+    axis may be -1, "use the remaining devices". ``processes`` (the
+    port's own): the owner of each device, default this process."""
     if devices is None:
-        devices = _visible_devices()
+        devices, processes = _default_devices()
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     if axes is None:
@@ -99,20 +149,25 @@ def build_mesh(axes=None, devices=None):
                          % (total, n))
     grid = np.empty(total, dtype=object)
     grid[:] = devices[:total]
-    return Mesh(grid.reshape(sizes), names)
+    if processes is not None:
+        processes = np.asarray(list(processes)[:total]).reshape(sizes)
+    return Mesh(grid.reshape(sizes), names, processes=processes)
 
 
 def data_parallel_mesh(n_devices=None, name="dp", devices=None):
-    """Pure data-parallel mesh over all (or the first n) devices."""
+    """Pure data-parallel mesh over all (or the first n) devices (every
+    process's after ``distributed.initialize`` joined several)."""
+    processes = None
     if devices is None:
-        devices = _visible_devices()
+        devices, processes = _default_devices()
     if n_devices is not None:
         devices = list(devices)[:n_devices]
-    return build_mesh({name: len(devices)}, devices)
+    return build_mesh({name: len(devices)}, devices, processes=processes)
 
 
 def local_mesh(devices=None):
-    """The default 1-axis mesh over every visible device."""
+    """The default 1-axis mesh over every visible device (every
+    process's after ``distributed.initialize`` joined several)."""
     return data_parallel_mesh(devices=devices)
 
 

@@ -22,6 +22,11 @@ function uncaptured.
 On the CPU a call runs the function over the same buffers, so the tests
 here hold the fixed-address discipline that capture needs.
 
+A :class:`ProgramChain` runs programs with host stages between them: a
+step whose collectives go over gloo (which a graph cannot hold) is the
+captured compute, the host collective on the buffers it wrote, then the
+captured update (``ParallelTrainer`` on a mesh across processes).
+
 ``capture=False`` (a graph holding a host op: ``operator.PythonOp``,
 ``torch.TorchModuleOp``) runs the function uncaptured on the card at
 every call instead; each such run adds one to the
@@ -49,7 +54,7 @@ from ..base import MXNetError
 from ..ops import kernels
 from .. import telemetry as tele
 
-__all__ = ["Program", "copy_in"]
+__all__ = ["Program", "ProgramChain", "copy_in"]
 
 # uncaptured runs on the capture stream before the capture
 WARMUP = 2
@@ -239,3 +244,52 @@ class Program:
         self._launches = {e: n for e, n in added.items() if n}
         self._graph, self._outs = graph, outs
         self._record()
+
+
+class ProgramChain:
+    """Programs and host stages run in order, one call a step.
+
+    ``stages``: :class:`Program` objects and host callables; a program
+    runs (replays on the card) and a host callable takes the previous
+    stage's result, so a host collective reads the buffers the program
+    before it wrote (gloo orders itself after the producing stream) and
+    writes the buffers the program after it reads. The first program owns
+    the operands (``load``). ``run()`` returns the last stage's result."""
+
+    def __init__(self, stages, name="chain"):
+        self.stages = list(stages)
+        self.name = name
+        self.programs = [st for st in self.stages
+                         if isinstance(st, Program)]
+        if not self.programs:
+            raise MXNetError("%s: no program among its stages" % name)
+        self.operands = self.programs[0].operands
+
+    @property
+    def host_stages(self):
+        """The host stages a run makes (collectives between programs)."""
+        return len(self.stages) - len(self.programs)
+
+    @property
+    def captured(self):
+        """The programs that run as CUDA graphs (none on the CPU)."""
+        return sum(1 for p in self.programs
+                   if p._capture_ok and p.device.type == "cuda")
+
+    def load(self, **values):
+        self.programs[0].load(**values)
+
+    def run(self):
+        val = None
+        for st in self.stages:
+            val = st.run() if isinstance(st, Program) else st(val)
+        return val
+
+    def _run_eager(self, **values):
+        """Every program's function uncaptured, with the host stages
+        between them (a check holds the chain against it)."""
+        self.load(**values)
+        val = None
+        for st in self.stages:
+            val = st._fn() if isinstance(st, Program) else st(val)
+        return val

@@ -64,6 +64,24 @@ over the walks and reduce-scattered to the ranks' shards, each rank
 updating what it stores; the numbers are the one-device step's, as
 GSPMD's are. No chain is fused there (the JAX rule, l.317-322). The step
 is still one ``Program``, captured on the card.
+
+On a mesh whose ranks live in several processes (every process runs the
+same script under ``tools/launch.py`` and builds the same mesh, e.g.
+``build_mesh({"dp": -1})`` after ``distributed.initialize``), each
+process holds its ranks alone, as a JAX process holds its addressable
+shards: ``init_params`` takes the full values in every process (the
+JAX convention; the default initializer draws the same values in every
+process from the one seed, which rank 0 broadcasts when it is not
+given); ``step`` and ``multi_step`` take this process's rows of the
+global batch of ``input_shapes`` (JAX's ``_shard_batch``) and return
+them; ``forward`` takes them too and returns the global batch's outputs;
+``get_params``, ``get_optimizer_states`` and the checkpoints gather or
+write across processes; ``fit(device_metric=True)`` sums its accumulator
+over the processes, so every process reports the global batch's metric.
+The step is then a ``ProgramChain``: the captured compute program, the
+gradient sum over gloo in rank order (bitwise the one-process sum), the
+captured update, with ZeRO-1's and FSDP's gathers as host stages too
+(``parallel.sharded``); ``compile_counts`` counts each program built.
 """
 from __future__ import annotations
 
@@ -86,11 +104,12 @@ from ..initializer import Uniform
 from ..io import StagedStream
 from ..ndarray import NDArray, _tensor_of
 from ..ops.fusion import _convbn_train_enabled
+from .collectives import Span, process_broadcast, process_sum
 from .graph import make_graph_fn, integer_semantic_inputs, has_host_ops
 from .mesh import build_mesh
 from .optim import FlatOptState, make_functional
-from .program import Program
-from .shard import ShardingRules
+from .program import Program, ProgramChain
+from .shard import P, ShardingRules
 from .sharded import ShardedState, _Unflatten, backward_heads, remat_walk
 
 __all__ = ["ParallelTrainer"]
@@ -160,7 +179,8 @@ class ParallelTrainer:
         gradients are batch sums), like FeedForward.fit.
     mesh : parallel.Mesh, optional
         Default: ``rules.mesh``, else one rank on ``device``. Its devices
-        may repeat (``["cpu"] * 8``, ``[cuda:0] * 2``).
+        may repeat (``["cpu"] * 8``, ``[cuda:0] * 2``); its ranks may live
+        in several processes (``Mesh.processes``).
     rules : ShardingRules, optional
         Default: ``ShardingRules(mesh)`` (the batch over ``dp``, the
         parameters replicated).
@@ -203,7 +223,8 @@ class ParallelTrainer:
                 build_mesh({"dp": 1}, [resolve_device(device)])
         self.mesh = mesh
         self.rules = rules if rules is not None else ShardingRules(mesh)
-        self.device = torch.device(mesh.devices.flat[0])
+        # this process's first device (the mesh's first, in one process)
+        self.device = torch.device(mesh.local_devices()[0])
         if remat is None:
             remat = os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
         self.remat = bool(remat)
@@ -264,9 +285,15 @@ class ParallelTrainer:
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._tdev = torch.zeros((), dtype=torch.float32, device=self.device)
         self._program = None
+        self._compile_log = []
         self._h2d_batch_bytes = None
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
+            if mesh.is_multiprocess:
+                # one seed for every process: the initializer's draws and
+                # the walks' generators are the one-process run's
+                seed = int(process_broadcast(
+                    torch.tensor([seed], dtype=torch.int64))[0])
         self._seed = seed
         self._init_gen = torch.Generator().manual_seed(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -342,10 +369,11 @@ class ParallelTrainer:
         aux = [self._initial(n, s, aux_params, "cpu")
                for n, s in zip(self.aux_names, self.aux_shapes)]
         sh.init(vals, aux)
-        self.params = sh.rank_params[0]
-        self.aux = sh.aux[0]
+        r0 = sh.local[0]
+        self.params = sh.rank_params[r0]
+        self.aux = sh.aux[r0]
         self.opt_state = None if sh.per_weight or sh.zero1 \
-            else sh.states[0].by_name()
+            else sh.states[r0].by_name()
         self._t = 0
         return self
 
@@ -469,32 +497,66 @@ class ParallelTrainer:
             tele.mark("train.compile", kind="step", shapes=",".join(
                 "%s:%s" % (k, "x".join(map(str, v)))
                 for k, v in sorted(self.input_shapes.items())))
-            if self._sharded is not None:
-                sh = self._sharded
-                inputs = sh.input_buffers()
-                fn = functools.partial(sh.step, inputs, self._lr,
-                                       self._tdev)
-                mutable = sh.buffers()
-                gens = sh.generators()
+            if self._sharded is not None and self._sharded.mp:
+                self._program = self._chain()
             else:
-                inputs = {k: torch.empty(self.input_shapes[k],
-                                         dtype=v.dtype, device=self.device)
-                          for k, v in vals.items()}
-                fn = functools.partial(self._step_fn, inputs,
-                                       _convbn_train_enabled())
-                mutable = [self._flat] + self._state.buffers() \
-                    + list(self.aux)
-                gens = [self._gen]
-            self._program = Program(
-                fn, inputs, mutable=mutable,
-                generators=gens if self.device.type == "cuda" else [],
-                name="ParallelTrainer.step", device=self.device,
-                stats="train_step",
-                capture=not has_host_ops(self.symbol))
+                self._program = self._one_program(vals)
         if self._sharded is not None:
             vals = self._sharded.split_batch(vals)
         self._program.load(**vals)
         return self._program
+
+    def _one_program(self, vals):
+        """The step as one program (every rank in this process)."""
+        if self._sharded is not None:
+            sh = self._sharded
+            inputs = sh.input_buffers()
+            fn = functools.partial(sh.step, inputs, self._lr, self._tdev)
+            mutable = sh.buffers()
+            gens = sh.generators()
+        else:
+            inputs = {k: torch.empty(self.input_shapes[k], dtype=v.dtype,
+                                     device=self.device)
+                      for k, v in vals.items()}
+            fn = functools.partial(self._step_fn, inputs,
+                                   _convbn_train_enabled())
+            mutable = [self._flat] + self._state.buffers() + list(self.aux)
+            gens = [self._gen]
+        return Program(
+            fn, inputs, mutable=mutable,
+            generators=gens if self.device.type == "cuda" else [],
+            name="ParallelTrainer.step", device=self.device,
+            stats="train_step", tag="step", log=self._compile_log,
+            capture=not has_host_ops(self.symbol))
+
+    def _chain(self):
+        """The step across processes: the compute and update programs
+        with the host collectives between them (``ShardedState.bind``)."""
+        sh = self._sharded
+        inputs = sh.input_buffers()
+        cuda = self.device.type == "cuda"
+        stages = []
+        for piece in sh.bind(inputs, self._lr, self._tdev):
+            if piece[0] == "host":
+                stages.append(piece[1])
+                continue
+            _, part, fn, mutable, gens, capturable = piece
+            stages.append(Program(
+                fn, inputs if part == "compute" else None, mutable=mutable,
+                generators=gens if cuda else [],
+                name="ParallelTrainer.step.%s" % part, device=self.device,
+                stats="train_step_%s" % part, tag="step.%s" % part,
+                log=self._compile_log,
+                capture=capturable and not has_host_ops(self.symbol)))
+        return ProgramChain(stages, "ParallelTrainer.step")
+
+    @property
+    def compile_counts(self):
+        """``{tag: builds}`` of the step's programs: ``{"step": 1}`` after
+        any steps on one process; across processes ``{"step.compute": 1,
+        "step.update": 1}`` (the collectives between them run on the
+        host)."""
+        return dict(collections.Counter(self._compile_log))
 
     def _next_lr(self):
         """Advance the step count and set the program's learning rate and
@@ -543,7 +605,18 @@ class ParallelTrainer:
         JAX package's ``_build_eval`` (l.506-515), it runs on the f32
         master parameters and the batch as given, with no cast to
         ``compute_dtype``: a bf16 trainer's ``forward()`` computes in
-        f32."""
+        f32. On a mesh across processes ``batch`` is this process's rows
+        of the global batch, and the outputs are the global batch's,
+        gathered from every process."""
+        outs = self._local_forward(batch)
+        if self._sharded is not None and self._sharded.mp:
+            procs = Span(range(self._sharded.rspan.nprocs))
+            outs = [torch.cat(procs.gather([o])) for o in outs]
+        return outs
+
+    @torch.no_grad()
+    def _local_forward(self, batch):
+        """The eval forward of ``batch``'s rows alone."""
         if self.params is None:
             self.init_params()
         batch = self._batch(batch, "forward")
@@ -654,7 +727,14 @@ class ParallelTrainer:
         loss): the metric accumulates on the device, and the host reads it
         once an epoch, so no step waits for the host; batch-end callbacks
         see the metric object, whose value appears only at the epoch's
-        end. Without it, the host reads every batch's outputs."""
+        end. Without it, the host reads every batch's outputs.
+
+        On a mesh across processes ``train_data`` yields this process's
+        rows of each global batch (an iterator over its part of the data,
+        e.g. ``ImageRecordIter(num_parts=, part_index=)``); the device
+        accumulator is summed over the processes at each epoch's end, so
+        every process reports the global batch's metric, while the host
+        metric and the eval pass see this process's rows."""
         from ..model import _epoch_end_callbacks, _train_epochs
         if logger is None:
             logger = logging
@@ -704,7 +784,8 @@ class ParallelTrainer:
 
         def epoch_end(epoch, seconds):
             if device_metric:
-                msum, total = acc.tolist()  # the epoch's one host read
+                # the epoch's one host read (its sum over the processes)
+                msum, total = process_sum(acc).tolist()
                 name, value = eval_metric.name, msum / max(total, 1.0)
             else:
                 name, value = eval_metric.get()
@@ -719,7 +800,7 @@ class ParallelTrainer:
         def evaluate(dbatch):
             batch = dict(zip(data_names, dbatch.data))
             batch.update(zip(label_names, dbatch.label))
-            eval_metric.update(dbatch.label, self.forward(batch))
+            eval_metric.update(dbatch.label, self._local_forward(batch))
 
         _train_epochs(0, num_epoch, batches, step, eval_metric, logger,
                       batch_end_callback=batch_end_callback,
@@ -780,11 +861,26 @@ class ParallelTrainer:
         from .checkpoint import Shards, save_sharded, flatten_train_state
         sh = self._sharded
         params = self.params if sh is None else \
-            {n: Shards(sh.specs[n], sh.param_shards(n))
+            {n: Shards(sh.specs[n], sh.param_shards(n),
+                       tuple(self.arg_shapes[n]))
              for n in self.param_names}
-        flat = flatten_train_state(params, self._opt_leaves(),
-                                   self.aux_names, self.aux)
-        flat["rng/0"] = self._gen.get_state()
+        if sh is not None and sh.mp:
+            # each process its shards; what every rank holds whole, the
+            # process of rank 0 alone
+            def once(v):
+                full = tuple((0, d) for d in v.shape)
+                return Shards(P(), [(full, v)] if 0 in sh.local else [],
+                              tuple(v.shape))
+
+            opt = {n: [Shards(*leaf) for leaf in leaves]
+                   for n, leaves in sh.opt_shards().items()}
+            flat = flatten_train_state(params, opt, self.aux_names,
+                                       [once(a) for a in self.aux])
+            flat["rng/0"] = once(self._gen.get_state())
+        else:
+            flat = flatten_train_state(params, self._opt_leaves(),
+                                       self.aux_names, self.aux)
+            flat["rng/0"] = self._gen.get_state()
         return save_sharded(prefix, flat,
                             step=self._t if step is None else step,
                             async_write=async_write)

@@ -17,11 +17,34 @@ CPU checks (``kvstore``, ``intdtype``, ``rngupd``, ``async``, ``fit``,
 (``resnet_sync``: ResNet-50 under ``dist_sync`` through the legacy
 ``fit``; ``mlp_async``: an MLP fit over the ``dist_async`` servers;
 ``card_routes``: exact sums of values kept on the card and the device
-each collective handed gloo) put both ranks on ``gpu(0)``. Importing this module does nothing; the work is
-in :func:`main`.
+each collective handed gloo) put both ranks on ``gpu(0)``.
+
+The multi-process trainer checks build ``ParallelTrainer`` over ONE mesh
+that spans the processes (``build_mesh({"dp": -1})`` over every
+process's devices; with ``--local-devices 2`` and 2 processes, 4 ranks
+on the host; without it, every process's cards: two ranks on one card
+with ``-n 2``), each process passing its rows of the global batch:
+``trainer`` (the JAX package's ``check_trainer``: an FC layer, 3 SGD
+steps), ``shardio`` (its ``check_sharded_io``: RAW0 records written by
+rank 0, ``ImageRecordIter(num_parts=, part_index=)`` into
+``fit(device_metric=True)``), ``lm_dp`` (the LM, 3 SGD steps, plain,
+``zero1`` and ``fsdp``), ``bn_global`` (a conv net's BatchNorm over the
+global batch, 2 steps, also with ``grad_accum=2`` at the tiny size) and
+``ckpt`` (``save_sharded_checkpoint`` from every process, synchronous
+and asynchronous, restored in every process). ``MXNET_DISTTEST_SIZE``
+picks their sizes: ``tiny`` (the CPU tests; the default with
+``MXNET_DISTTEST_CTX=cpu``) or ``full`` (phase 7f, the default on the
+card: the 124M LM in bf16 at B=8 T=1024, ResNet-50 f32 at 224 x 224
+B=64).
+They write each trainer's parameters, aux and optimizer states as
+digests (and at the tiny size as ``.npz``), losses, ms a step, the
+collectives' ms and bytes a step, the programs a step and the kernels'
+launches. Importing this module does nothing; the work is in
+:func:`main`.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import sys
@@ -37,6 +60,22 @@ RESNET_HW, RESNET_CLASSES, RESNET_GB, RESNET_BATCHES = 224, 1000, 64, 4
 RESNET_LR, RESNET_EPOCHS = 0.01, 2
 MLP_DIMS = (784, 128, 64, 10)        # train_mnist.py's MLP
 MLP_SAMPLES, MLP_B, MLP_EPOCHS = 2000, 100, 6
+# the multi-process trainer checks: the LM (vocab, layers, width, heads,
+# global batch, sequence, compute dtype) and the BatchNorm net (ResNet-50
+# at 224 x 224, else a conv -> BatchNorm -> relu -> pool -> FC net; its
+# grad_accum runs and global-norm clip) by size
+LM_SIZES = {"tiny": dict(vocab=61, layers=1, embed=64, heads=4, b=8, t=16,
+                         dtype=None),
+            "full": dict(vocab=32000, layers=12, embed=768, heads=12, b=8,
+                         t=1024, dtype="bfloat16")}
+LM_STEPS, LM_LR, LM_SEED = 3, 1e-3, 7
+LM_VARIANTS = (("plain", {}), ("zero1", {"zero1": True}),
+               ("fsdp", {"fsdp": True}))
+BN_SIZES = {"tiny": dict(b=16, hw=8, classes=5, accum=(1, 2), clip=1.0),
+            "full": dict(b=RESNET_GB, hw=RESNET_HW, classes=RESNET_CLASSES,
+                         accum=(1,), clip=None)}
+BN_STEPS, BN_LR = 2, 0.01
+TRAINER_GB, SHARDIO_HW, SHARDIO_N, SHARDIO_K = 16, 12, 64, 4
 
 
 def _acc_updater(key, recv, stored):
@@ -146,6 +185,124 @@ def mlp_data(seed=21):
     y = rs.randint(0, MLP_DIMS[-1], MLP_SAMPLES)
     x = 0.1 * (protos[y] + rs.randn(MLP_SAMPLES, MLP_DIMS[0]))
     return x.astype(np.float32), y.astype(np.float32)
+
+
+def lm_symbol(cfg):
+    """The LM of size ``cfg`` (``LM_SIZES``), ``impl="flash"``."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    return get_transformer_lm(cfg["vocab"], num_layers=cfg["layers"],
+                              embed_dim=cfg["embed"],
+                              num_heads=cfg["heads"], impl="flash")
+
+
+def lm_batch(cfg, seed=LM_SEED):
+    """The LM checks' seeded global batch: token ids and labels, int32
+    [b, t]."""
+    rs = np.random.RandomState(seed)
+    shape = (cfg["b"], cfg["t"])
+    return {"data": rs.randint(0, cfg["vocab"], shape).astype(np.int32),
+            "softmax_label": rs.randint(0, cfg["vocab"], shape)
+            .astype(np.int32)}
+
+
+def lm_trainer(par, cfg, mesh, **kw):
+    """The LM checks' trainer: SGD lr ``LM_LR`` momentum 0.9 over
+    ``mesh``, the default initializer from seed 0 (every process and the
+    one-process oracle draw the same weights)."""
+    shape = (cfg["b"], cfg["t"])
+    return par.ParallelTrainer(
+        lm_symbol(cfg), {"data": shape, "softmax_label": shape},
+        optimizer="sgd", optimizer_params={"learning_rate": LM_LR,
+                                           "momentum": 0.9},
+        mesh=mesh, compute_dtype=cfg["dtype"], seed=0, **kw).init_params()
+
+
+def bn_symbol(mx, cfg):
+    """The BatchNorm checks' net: ResNet-50 at the full size, else conv
+    3x3 -> BatchNorm -> relu -> max pool -> FC -> softmax."""
+    if cfg["hw"] == RESNET_HW:
+        from mxnet_tpu_torch.models import get_resnet
+        return get_resnet(cfg["classes"], 50)
+    s = mx.symbol
+    x = s.Convolution(data=s.Variable("data"), name="conv", kernel=(3, 3),
+                      num_filter=4, pad=(1, 1))
+    x = s.BatchNorm(data=x, name="bn")
+    x = s.Activation(data=x, name="relu", act_type="relu")
+    x = s.Pooling(data=x, name="pool", kernel=(2, 2), stride=(2, 2),
+                  pool_type="max")
+    x = s.FullyConnected(data=s.Flatten(data=x, name="flat"), name="fc",
+                         num_hidden=cfg["classes"])
+    return s.SoftmaxOutput(data=x, name="softmax")
+
+
+def bn_problem(symbol, cfg, seed=3):
+    """(weights, aux, global batches) of the BatchNorm checks: at the full
+    size ``resnet_params`` and ``resnet_batches``; else seeded uniform
+    weights and ``BN_STEPS`` batches whose halves differ in scale (a split
+    by process would see other statistics)."""
+    if cfg["hw"] == RESNET_HW:
+        args, aux = resnet_params(symbol, 5)
+        x, y = resnet_batches()
+        return args, aux, [{"data": x[i * cfg["b"]:(i + 1) * cfg["b"]],
+                            "softmax_label": y[i * cfg["b"]:
+                                               (i + 1) * cfg["b"]]}
+                           for i in range(BN_STEPS)]
+    rs = np.random.RandomState(seed)
+    shapes = {"data": (cfg["b"], 3, cfg["hw"], cfg["hw"]),
+              "softmax_label": (cfg["b"],)}
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+    args = {n: rs.uniform(-0.3, 0.3, sh).astype(np.float32)
+            for n, sh in zip(symbol.list_arguments(), arg_shapes)
+            if n not in shapes}
+    aux = {n: (np.zeros(sh) if n.endswith("mean") else np.ones(sh))
+           .astype(np.float32)
+           for n, sh in zip(symbol.list_auxiliary_states(), aux_shapes)}
+    batches = []
+    for _ in range(BN_STEPS):
+        x = rs.randn(*shapes["data"]).astype(np.float32)
+        x[cfg["b"] // 2:] = x[cfg["b"] // 2:] * 3.0 + 2.0
+        batches.append({"data": x, "softmax_label": rs.randint(
+            0, cfg["classes"], (cfg["b"],)).astype(np.float32)})
+    return args, aux, batches
+
+
+def fc_symbol(mx, k=4):
+    """The ``trainer`` check's net: FullyConnected(4) -> SoftmaxOutput."""
+    fc = mx.symbol.FullyConnected(data=mx.symbol.Variable("data"),
+                                  name="fc", num_hidden=k)
+    return mx.symbol.SoftmaxOutput(data=fc, name="softmax")
+
+
+def fc_problem():
+    """The ``trainer`` check's weights and global batch (the JAX package's
+    ``check_trainer``: seed 123)."""
+    rng = np.random.RandomState(123)
+    w = rng.uniform(-0.1, 0.1, (4, 8)).astype(np.float32)
+    b = np.zeros(4, np.float32)
+    data = rng.randn(TRAINER_GB, 8).astype(np.float32)
+    label = rng.randint(0, 4, (TRAINER_GB,)).astype(np.float32)
+    return {"fc_weight": w, "fc_bias": b}, {"data": data,
+                                            "softmax_label": label}
+
+
+def digests(state):
+    """{key: sha1 of the array's bytes} of a flat dict of arrays."""
+    import hashlib
+    return {k: hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def trainer_state(tr):
+    """A trainer's parameters, aux states and optimizer state leaves as
+    one flat dict of host numpy arrays (``arg:``, ``aux:``,
+    ``opt:<name>:<i>``)."""
+    args, aux = tr.get_params()
+    out = {"arg:" + k: v.numpy() for k, v in args.items()}
+    out.update({"aux:" + k: v.numpy() for k, v in aux.items()})
+    for k, leaves in tr.get_optimizer_states()["opt"].items():
+        for i, leaf in enumerate(leaves):
+            out["opt:%s:%d" % (k, i)] = np.asarray(leaf)
+    return out
 
 
 class _EpochLoss:
@@ -487,12 +644,266 @@ def main():
             json.dump(dict(kvs.ROUTES), f)
         print("OK card_routes rank=%d" % rank, flush=True)
 
+    # -- the multi-process trainer ---------------------------------------
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.ops import kernels as K
+    from mxnet_tpu_torch.parallel import collectives as coll
+    # the trainer checks' size: tiny on the host, full on the card
+    size = os.environ.get("MXNET_DISTTEST_SIZE") or (
+        "tiny" if card.device_type == "cpu" else "full")
+
+    def rows(gb):
+        """This process's rows of a global batch of ``gb`` (the mesh over
+        every process's devices is process-ordered)."""
+        return slice(rank * gb // n, (rank + 1) * gb // n)
+
+    def local(batch, gb):
+        return {k: v[rows(gb)] for k, v in batch.items()}
+
+    def settle(tr):
+        if tr.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def cross():
+        hist = tele.histogram("collectives.cross_ms")
+        return (hist.sum, hist.count,
+                tele.counter("collectives.cross_bytes").value)
+
+    def global_nll(out, label):
+        """The mean -log p[label] over the global batch of the softmax
+        output (classes on dimension 1: [B, K] or the LM's [B, V, T];
+        this process's sum and count, summed over the processes)."""
+        lab = torch.as_tensor(label).long().to(out.device)
+        p = out.gather(1, lab.unsqueeze(1))
+        acc = torch.stack([-torch.log(p.float().clamp_min(1e-30)).sum(),
+                           torch.tensor(float(lab.numel()),
+                                        device=out.device)])
+        tot = coll.process_sum(acc).tolist()
+        return tot[0] / tot[1]
+
+    def train(tr, batches, what):
+        """Step over ``batches`` (this process's rows, a list; each step
+        the next); ms a step, losses, the collectives and the launches
+        of every step after the first (which builds and captures)."""
+        res = {"ms": [], "loss": []}
+        for i, b in enumerate(batches):
+            if i == 1:
+                K.reset_launch_counts()
+                c0 = cross()
+            settle(tr)
+            t0 = time.perf_counter()
+            outs = tr.step(b)
+            settle(tr)
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["loss"].append(global_nll(outs[0], b["softmax_label"]))
+        c1 = cross()
+        steps = max(len(batches) - 1, 1)
+        res["launches"] = {k: v for k, v in K.launch_counts().items() if v}
+        res["cross_ms"] = (c1[0] - c0[0]) / steps
+        res["cross_calls"] = (c1[1] - c0[1]) / steps
+        res["cross_bytes"] = (c1[2] - c0[2]) / steps
+        chain = tr._program
+        res["programs"] = len(chain.programs)
+        res["captured"] = chain.captured
+        res["host_stages"] = chain.host_stages
+        res["compile_counts"] = tr.compile_counts
+        res["what"] = what
+        return res
+
+    def keep(name, state, extra):
+        """Write a trainer's state: digests (and at the tiny size the
+        arrays) and ``extra``."""
+        extra = dict(extra, digests=digests(state))
+        with open(_out(name, rank) + ".json", "w") as f:
+            json.dump(extra, f)
+        if size == "tiny":
+            np.savez(_out(name, rank), **state)
+
+    def card_math():
+        # reproducible f32 convolutions and products (no TF32, fixed
+        # algorithms), as the one-process oracle runs them
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def check_trainer():
+        """The JAX package's check_trainer: an FC layer over the mesh of
+        every process's devices, 3 SGD steps on this process's rows; the
+        same by ``multi_step(batch, 3)``, bitwise; the eval forward of
+        this process's rows gives the global batch's outputs."""
+        sym = fc_symbol(mx)
+        init, batch = fc_problem()
+        trainers = []
+        for _ in range(2):
+            tr = par.ParallelTrainer(
+                sym, {k: v.shape for k, v in batch.items()},
+                optimizer="sgd", mesh=par.build_mesh({"dp": -1}),
+                optimizer_params={"learning_rate": 0.5, "momentum": 0.9})
+            tr.init_params(init)
+            trainers.append(tr)
+        for _ in range(3):
+            trainers[0].step(local(batch, TRAINER_GB))
+        trainers[1].multi_step(local(batch, TRAINER_GB), 3)
+        state = trainer_state(trainers[0])
+        again = trainer_state(trainers[1])
+        assert all(np.array_equal(state[k], again[k]) for k in state)
+        state["forward"] = trainers[0].forward(
+            local(batch, TRAINER_GB))[0].cpu().numpy()
+        keep("trainer", state, {"ranks": tr.mesh.size})
+        csum = float(np.abs(state["arg:fc_weight"]).sum())
+        print("OK trainer rank=%d csum=%.6f" % (rank, csum), flush=True)
+
+    kept = {}   # lm_dp's fsdp trainer and its state, for ckpt
+
+    def check_lm_dp():
+        """The LM over the mesh of every process's devices, 3 SGD steps on
+        one global batch (this process's rows), plain, zero1 and fsdp."""
+        cfg = LM_SIZES[size]
+        batch = local(lm_batch(cfg), cfg["b"])
+        for variant, kw in LM_VARIANTS:
+            tr = lm_trainer(par, cfg, par.build_mesh({"dp": -1}), **kw)
+            if tr.device.type == "cuda":
+                card_math()
+            res = train(tr, [batch] * LM_STEPS, variant)
+            res["state_bytes"] = [list(tr._sharded.state_bytes(r))
+                                  for r in tr._sharded.local]
+            state = trainer_state(tr)
+            keep("lm_dp-%s" % variant, state, res)
+            if variant == "fsdp":
+                kept.update(tr=tr, state=state)
+            del tr
+            gc.collect()
+        print("OK lm_dp rank=%d" % rank, flush=True)
+
+    def check_bn_global():
+        """A training BatchNorm over the global batch of every process
+        (ResNet-50 f32 at the full size), BN_STEPS SGD steps, each
+        grad_accum of the size, with its global-norm clip."""
+        cfg = BN_SIZES[size]
+        sym = bn_symbol(mx, cfg)
+        args, aux, batches = bn_problem(sym, cfg)
+        for accum in cfg["accum"]:
+            tr = par.ParallelTrainer(
+                sym, {k: v.shape for k, v in batches[0].items()},
+                optimizer="sgd", mesh=par.build_mesh({"dp": -1}),
+                optimizer_params={"learning_rate": BN_LR, "momentum": 0.9},
+                grad_accum=accum, clip_grad_norm=cfg["clip"])
+            tr.init_params(args, aux)
+            if tr.device.type == "cuda":
+                card_math()
+            res = train(tr, [local(b, cfg["b"]) for b in batches],
+                        "accum%d" % accum)
+            keep("bn_global-%d" % accum, trainer_state(tr), res)
+            del tr
+            gc.collect()
+        print("OK bn_global rank=%d" % rank, flush=True)
+
+    def check_ckpt():
+        """save_sharded_checkpoint of the fsdp LM (lm_dp's trainer after
+        its steps when that check ran, else a fresh one after one step)
+        from every process, synchronous and asynchronous; after one more
+        step each is restored into the trainer in every process: this
+        process's buffers (parameters, optimizer state, aux) bitwise the
+        saved ones."""
+        from mxnet_tpu_torch.parallel.checkpoint import latest_step
+        cfg = LM_SIZES[size]
+        batch = local(lm_batch(cfg), cfg["b"])
+        tr, want = kept.pop("tr", None), kept.pop("state", None)
+        if tr is None:
+            tr = lm_trainer(par, cfg, par.build_mesh({"dp": -1}),
+                            fsdp=True)
+            if tr.device.type == "cuda":
+                card_math()
+            tr.step(batch)
+            want = trainer_state(tr)
+        saved = [b.clone() for b in tr._sharded.buffers()]
+        step = tr._t
+        res = {"save_s": {}, "bytes": {}, "step": step}
+        prefixes = {how: os.path.join(os.environ["MXNET_DISTTEST_OUT"],
+                                      "ckpt-" + how)
+                    for how in ("sync", "async")}
+        for how, prefix in prefixes.items():
+            t0 = time.perf_counter()
+            tr.save_sharded_checkpoint(
+                prefix, async_write=how == "async")()
+            distributed.barrier("ckpt")
+            res["save_s"][how] = time.perf_counter() - t0
+            assert latest_step(prefix) == step, (how, latest_step(prefix))
+            res["bytes"][how] = os.path.getsize(
+                "%s-shards-p%d.npz" % (prefix, rank))
+        for how, prefix in prefixes.items():
+            tr.step(batch)  # the live state moves on
+            tr.restore_sharded_checkpoint(prefix)
+            bad = [i for i, (b, v) in enumerate(zip(
+                tr._sharded.buffers(), saved)) if not torch.equal(b, v)]
+            assert not bad and tr._t == step, \
+                "ckpt %s: %d restored buffers differ" % (how, len(bad))
+        keep("ckpt", want, res)
+        del tr, saved
+        gc.collect()
+        print("OK ckpt rank=%d" % rank, flush=True)
+
+    def check_sharded_io():
+        """The JAX package's check_sharded_io: rank 0 packs RAW0 records;
+        every process feeds its num_parts/part_index shard through
+        ImageRecordIter into the trainer's fit with the device metric
+        (summed over the processes); the model converges."""
+        from mxnet_tpu_torch import recordio
+        from mxnet_tpu_torch.image_io import ImageRecordIter
+        hw, k = SHARDIO_HW, SHARDIO_K
+        path = os.path.join(os.environ["MXNET_DISTTEST_OUT"],
+                            "shardio.rec")
+        if rank == 0:
+            rs = np.random.RandomState(0)
+            w = recordio.MXRecordIO(path, "w")
+            quad = [(0, 0), (0, 6), (6, 0), (6, 6)]
+            for i in range(SHARDIO_N):
+                lab = i % k
+                img = np.clip(rs.randn(hw, hw, 3) * 2 + 20, 0, 255)
+                r, c = quad[lab]
+                img[r:r + 6, c:c + 6] += 120  # label = bright quadrant
+                w.write(recordio.pack_img(
+                    (0, float(lab), i, 0),
+                    np.clip(img, 0, 255).astype(np.uint8), img_fmt=".raw"))
+            w.close()
+        distributed.barrier("shardio_written")
+        gbatch = 16
+        it = ImageRecordIter(path, (3, hw, hw), batch_size=gbatch // n,
+                             shuffle=True, seed=7, num_parts=n,
+                             part_index=rank, preprocess_threads=1)
+        data = mx.symbol.Variable("data")
+        fl = mx.symbol.Flatten(data=data)
+        fc = mx.symbol.FullyConnected(data=fl, name="fc", num_hidden=k)
+        sym = mx.symbol.SoftmaxOutput(data=fc, name="softmax")
+        tr = par.ParallelTrainer(
+            sym, {"data": (gbatch, 3, hw, hw), "softmax_label": (gbatch,)},
+            optimizer="sgd", mesh=par.build_mesh({"dp": -1}),
+            optimizer_params={"learning_rate": 1e-5, "momentum": 0.9})
+        prng = np.random.RandomState(5)
+        tr.init_params({  # raw-pixel-scale features: small explicit init
+            "fc_weight": (prng.uniform(-1, 1, (k, 3 * hw * hw)) * 1e-4)
+            .astype(np.float32),
+            "fc_bias": np.zeros((k,), np.float32)})
+        t0 = time.perf_counter()
+        tr.fit(it, num_epoch=30, device_metric=True)
+        name, acc = tr.last_train_metric
+        with open(_out("shardio", rank) + ".json", "w") as f:
+            json.dump({"acc": acc, "fit_s": time.perf_counter() - t0,
+                       "steps": tele.counter("train.steps").value}, f)
+        assert acc > 0.85, "sharded-IO fit failed to converge: %s=%f" \
+            % (name, acc)
+        print("OK shardio rank=%d ioacc=%.3f" % (rank, acc), flush=True)
+
     checks = {"kvstore": check_kvstore, "intdtype": check_int_dtype,
               "rngupd": check_rng_updater, "async": check_async,
               "fit": check_fit, "afit": check_fit_async,
               "resnet_sync": check_resnet_sync,
               "mlp_async": check_mlp_async,
-              "card_routes": check_card_routes}
+              "card_routes": check_card_routes,
+              "trainer": check_trainer, "shardio": check_sharded_io,
+              "lm_dp": check_lm_dp, "bn_global": check_bn_global,
+              "ckpt": check_ckpt}
     sel = os.environ.get("MXNET_DISTTEST_CHECKS", "")
     for name in [c for c in sel.split(",") if c] or list(checks)[:6]:
         tic = time.time()

@@ -61,6 +61,11 @@ from mxnet_tpu_torch import torch as th  # noqa: F401
 from mxnet_tpu_torch.testing import dist_worker  # noqa: F401
 assert mx.Predictor and mx.viz and mx.th and mx.rtc.Rtc and mx.profiler
 assert mx.operator.NumpyOp and mx.distributed.rank() == 0
+assert mx.distributed.process_index() == 0
+assert mx.distributed.process_count() == 1
+from mxnet_tpu_torch.parallel.collectives import (  # noqa: F401
+    Span, process_broadcast, process_sum, psum_ranked)
+from mxnet_tpu_torch.parallel.program import ProgramChain  # noqa: F401
 import chip_smoke  # noqa: F401  (module level: its imports only)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]

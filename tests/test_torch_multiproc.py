@@ -1,0 +1,290 @@
+"""The port's ``ParallelTrainer`` over a mesh that spans worker processes:
+two workers launched by the unchanged ``tools/launch.py -n 2
+--local-devices 2`` (4 ranks on the host, 2 a process, so the sums run
+over 4 ranks in rank order) join one gloo group and run the checks
+``trainer``, ``shardio``, ``lm_dp``, ``bn_global`` and ``ckpt`` of
+``mxnet_tpu_torch.testing.dist_worker`` at their tiny size, each process
+passing its rows of the global batch.
+
+Oracles: the port's own one-process run over ``["cpu"] * 4`` from the
+same weights and global batches, bitwise (parameters, optimizer states,
+BatchNorm moving averages), and both ranks bitwise equal; the JAX
+package's one-process ``ParallelTrainer`` over 4 CPU devices, as
+``tests/test_dist.py`` builds its oracle: the FC check's parameter
+checksum within 1e-4, the LM's and the BatchNorm net's parameter deltas
+within 2e-2 by norm per tensor (f32; another order of sums), the moving
+statistics within rtol 1e-4; the JAX package's ``load_sharded`` reading
+the 2-process checkpoint; the sharded-IO fit above 0.85, equal in both
+processes.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import mxnet_tpu as jmx
+from mxnet_tpu import parallel as jpar
+from mxnet_tpu.models import get_transformer_lm as jax_lm
+from mxnet_tpu.parallel import checkpoint as jckpt
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import parallel as par
+from mxnet_tpu_torch.testing import dist_worker as W
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHECKS = ("trainer", "shardio", "lm_dp", "bn_global", "ckpt")
+CPU4 = ["cpu"] * 4
+DELTA_REL = 2e-2
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    out = tmp_path_factory.mktemp("multiproc")
+    env = dict(os.environ)
+    env.update(MXNET_DISTTEST_CHECKS=",".join(CHECKS),
+               MXNET_DISTTEST_OUT=str(out), MXNET_DISTTEST_CTX="cpu",
+               MXNET_DISTTEST_SIZE="tiny",
+               PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
+    for k in ("MXNET_KVSTORE_PORT_BASE", "MXNET_TPU_COORDINATOR"):
+        env.pop(k, None)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "launch.py"), "-n",
+         "2", "--local-devices", "2", "--", sys.executable, "-m",
+         "mxnet_tpu_torch.testing.dist_worker"],
+        capture_output=True, text=True, timeout=240, env=env, cwd=ROOT)
+    text = proc.stdout + proc.stderr
+    assert proc.returncode == 0, text[-4000:]
+    return out, text
+
+
+def _npz(out, name):
+    return [dict(np.load(os.path.join(out, "%s-%d.npz" % (name, r))))
+            for r in range(2)]
+
+
+def _json(out, name):
+    out_ = []
+    for r in range(2):
+        with open(os.path.join(out, "%s-%d.json" % (name, r))) as f:
+            out_.append(json.load(f))
+    return out_
+
+
+def _equal(got, want, what):
+    assert sorted(got) == sorted(want), what
+    bad = [k for k in want if not np.array_equal(got[k], want[k])]
+    assert not bad, (what, bad)
+
+
+def _ranks_and_oracle(out, name, tr):
+    """Both ranks' state bitwise equal to the one-process trainer's."""
+    want = W.trainer_state(tr)
+    ranks = _npz(out, name)
+    for r, got in enumerate(ranks):
+        _equal(got, want, "%s rank %d" % (name, r))
+    return want
+
+
+def _delta_gate(what, got, init, want):
+    """Per-tensor parameter deltas within DELTA_REL of the JAX
+    package's by norm, plus 1e-6 of the tensor's norm (the bias of a
+    convolution before a BatchNorm has a gradient of rounding noise,
+    ~1e-9 in one package and 0 in the other)."""
+    for n, w in want.items():
+        dw = w - init[n]
+        dg = got[n] - init[n]
+        err = np.linalg.norm(dg - dw)
+        assert err <= DELTA_REL * np.linalg.norm(dw) \
+            + 1e-6 * np.linalg.norm(init[n]), (what, n, err)
+
+
+@pytest.mark.parametrize("check", CHECKS + ("all",))
+def test_every_rank_passes(launched, check):
+    _, text = launched
+    assert text.count("OK %s rank=" % check) == 2, text[-3000:]
+
+
+def test_trainer_matches_one_process_and_jax(launched):
+    """The JAX package's check_trainer: cross-process dp (3 steps, and
+    multi_step, asserted equal in the workers) equals the one-process
+    run, bitwise in the port and within 1e-4 of the JAX trainer's
+    checksum; the eval forward of each process's rows returns the
+    global batch's outputs, the one-process forward's."""
+    out, _ = launched
+    init, batch = W.fc_problem()
+    shapes = {k: v.shape for k, v in batch.items()}
+    opt = {"learning_rate": 0.5, "momentum": 0.9}
+    tr = par.ParallelTrainer(W.fc_symbol(mx), shapes, optimizer="sgd",
+                             mesh=par.build_mesh({"dp": 4}, CPU4),
+                             optimizer_params=opt)
+    tr.init_params(init)
+    for _ in range(3):
+        tr.step(batch)
+    fwd = tr.forward(batch)[0].numpy()
+    for got in _npz(out, "trainer"):
+        assert np.array_equal(got.pop("forward"), fwd)
+    want = W.trainer_state(tr)
+    for r, got in enumerate(_npz(out, "trainer")):
+        got.pop("forward")
+        _equal(got, want, "trainer rank %d" % r)
+    jtr = jpar.ParallelTrainer(W.fc_symbol(jmx), shapes, optimizer="sgd",
+                               mesh=jpar.build_mesh({"dp": 4}),
+                               optimizer_params=opt)
+    jtr.init_params({k: jmx.nd.array(v) for k, v in init.items()})
+    for _ in range(3):
+        jtr.step(batch)
+    jw = jtr.get_params()[0]["fc_weight"].asnumpy()
+    assert abs(np.abs(want["arg:fc_weight"]).sum()
+               - np.abs(jw).sum()) < 1e-4
+
+
+def _lm_port(variant_kw):
+    cfg = W.LM_SIZES["tiny"]
+    tr = W.lm_trainer(par, cfg, par.build_mesh({"dp": 4}, CPU4),
+                      **variant_kw)
+    init = {k: v.numpy() for k, v in tr.get_params()[0].items()}
+    batch = W.lm_batch(cfg)
+    for _ in range(W.LM_STEPS):
+        tr.step(batch)
+    return tr, init, batch
+
+
+@pytest.fixture(scope="module")
+def lm_jax():
+    """The JAX package's dp=4 LM trainer, 3 steps from the port's initial
+    weights (seed 0 of the port's default initializer)."""
+    cfg = W.LM_SIZES["tiny"]
+    _, init, batch = _lm_port({})
+    shapes = {k: v.shape for k, v in batch.items()}
+    jsym = jax_lm(cfg["vocab"], num_layers=cfg["layers"],
+                  embed_dim=cfg["embed"], num_heads=cfg["heads"],
+                  impl="flash")
+    jtr = jpar.ParallelTrainer(
+        jsym, shapes, optimizer="sgd", mesh=jpar.build_mesh({"dp": 4}),
+        optimizer_params={"learning_rate": W.LM_LR, "momentum": 0.9})
+    jtr.init_params({k: jmx.nd.array(v) for k, v in init.items()})
+    for _ in range(W.LM_STEPS):
+        jtr.step(batch)
+    return init, {k: v.asnumpy() for k, v in jtr.get_params()[0].items()}
+
+
+@pytest.mark.parametrize("variant", [v for v, _ in W.LM_VARIANTS])
+def test_lm_dp_matches_one_process_and_jax(launched, lm_jax, variant):
+    """The LM across 2 processes x 2 ranks: plain, zero1 and fsdp each
+    bitwise the one-process 4-rank run and each other; the loss falls;
+    the step is two programs with host stages between them; within
+    2e-2 by norm of the JAX package's deltas."""
+    out, _ = launched
+    kw = dict(W.LM_VARIANTS)[variant]
+    tr, init, _ = _lm_port(kw)
+    want = _ranks_and_oracle(out, "lm_dp-" + variant, tr)
+    plain = _npz(out, "lm_dp-plain")[0]
+    for k, v in want.items():
+        assert np.array_equal(plain[k], v), k
+    res = _json(out, "lm_dp-" + variant)
+    for r in res:
+        assert r["loss"][-1] < r["loss"][0]
+        assert r["compile_counts"] == {"step.compute": 1, "step.update": 1}
+        assert r["programs"] == 2 and r["captured"] == 0
+        # the reduce and the output stage; fsdp gathers the parameters
+        # first, zero1 the chunks after the update
+        assert r["host_stages"] == (3 if variant != "plain" else 2)
+        assert r["cross_bytes"] > 0
+    assert res[0]["loss"] == res[1]["loss"]
+    jinit, jwant = lm_jax
+    _delta_gate(variant, {k[4:]: v for k, v in want.items()
+                          if k.startswith("arg:")}, jinit, jwant)
+
+
+@pytest.mark.parametrize("accum", W.BN_SIZES["tiny"]["accum"])
+def test_bn_global_matches_one_process_and_jax(launched, accum):
+    """A training BatchNorm over the global batch of both processes (and
+    grad_accum's global-row microbatches), under a global-norm clip that
+    binds (the gradient's norm is ~4): parameters, moving averages and
+    optimizer states bitwise the one-process 4-rank run's; the JAX
+    package's within 2e-2 by norm (deltas) and rtol 1e-4 (moving
+    statistics)."""
+    out, _ = launched
+    cfg = W.BN_SIZES["tiny"]
+    sym = W.bn_symbol(mx, cfg)
+    args, aux, batches = W.bn_problem(sym, cfg)
+    shapes = {k: v.shape for k, v in batches[0].items()}
+    opt = dict(optimizer="sgd", grad_accum=accum,
+               clip_grad_norm=cfg["clip"],
+               optimizer_params={"learning_rate": W.BN_LR,
+                                 "momentum": 0.9})
+    tr = par.ParallelTrainer(sym, shapes, mesh=par.build_mesh(
+        {"dp": 4}, CPU4), **opt)
+    tr.init_params(args, aux)
+    for b in batches:
+        tr.step(b)
+    want = _ranks_and_oracle(out, "bn_global-%d" % accum, tr)
+    jtr = jpar.ParallelTrainer(W.bn_symbol(jmx, cfg), shapes,
+                               mesh=jpar.build_mesh({"dp": 4}), **opt)
+    jtr.init_params({k: jmx.nd.array(v) for k, v in args.items()},
+                    {k: jmx.nd.array(v) for k, v in aux.items()})
+    for b in batches:
+        jtr.step(b)
+    jargs, jaux = jtr.get_params()
+    _delta_gate("bn accum %d" % accum,
+                {k[4:]: v for k, v in want.items() if k.startswith("arg:")},
+                args, {k: v.asnumpy() for k, v in jargs.items()})
+    for k, v in jaux.items():
+        np.testing.assert_allclose(want["aux:" + k], v.asnumpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    # the walk holds the BatchNorm's cross-process sums: uncaptured
+    for r in _json(out, "bn_global-%d" % accum):
+        assert r["programs"] == 2 and r["cross_calls"] > 2
+
+
+def test_ckpt_two_processes_restore_in_one_and_in_jax(launched):
+    """save_sharded_checkpoint of lm_dp's fsdp trainer from 2
+    processes, sync and async: one file per process and a manifest with
+    nprocs 2; restored in one process (an fsdp trainer on 4 ranks and a
+    one-device trainer) bitwise the saved state (lm_dp's, itself bitwise
+    the one-process run's); the JAX package's load_sharded reads it (the
+    restore in 2 processes is asserted in the workers)."""
+    out, _ = launched
+    want = _npz(out, "ckpt")
+    _equal(want[1], want[0], "ckpt ranks")
+    want = want[0]
+    _equal(want, _npz(out, "lm_dp-fsdp")[0], "ckpt is lm_dp's fsdp state")
+    cfg = W.LM_SIZES["tiny"]
+    jmesh = jpar.build_mesh({"dp": 4})
+    for how in ("sync", "async"):
+        prefix = os.path.join(out, "ckpt-" + how)
+        with open(prefix + "-manifest.json") as f:
+            manifest = json.load(f)
+        # lm_dp's fsdp trainer after its steps
+        assert manifest["nprocs"] == 2 and manifest["step"] == W.LM_STEPS
+        assert ("save_token" in manifest) == (how == "async")
+        for r in range(2):
+            assert os.path.exists("%s-shards-p%d.npz" % (prefix, r))
+        for kw in (dict(mesh=par.build_mesh({"dp": 4}, CPU4), fsdp=True),
+                   dict(mesh=None)):
+            shape = (cfg["b"], cfg["t"])
+            tr = par.ParallelTrainer(
+                W.lm_symbol(cfg), {"data": shape, "softmax_label": shape},
+                optimizer="sgd",
+                optimizer_params={"learning_rate": W.LM_LR,
+                                  "momentum": 0.9},
+                device=None if kw.get("mesh") else "cpu", **kw)
+            tr.restore_sharded_checkpoint(prefix)
+            _equal(W.trainer_state(tr), want, "%s restore %s" % (how, kw))
+        flat, step, _ = jckpt.load_sharded(prefix, jmesh)
+        assert step == W.LM_STEPS
+        for k, v in want.items():
+            kind, name = k.split(":", 1)
+            key = name if kind == "arg" else (
+                "aux/" + name if kind == "aux"
+                else "opt/%s/%s" % tuple(name.rsplit(":", 1)))
+            assert np.array_equal(np.asarray(flat[key]), v), (how, k)
+
+
+def test_shardio_converges_with_equal_metrics(launched):
+    out, _ = launched
+    res = _json(out, "shardio")
+    assert res[0]["acc"] > 0.85 and res[0]["acc"] == res[1]["acc"]

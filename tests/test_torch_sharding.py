@@ -12,7 +12,12 @@ checkpoint round trip; AdaFactor sharded at the JAX test's 2e-3). Within
 the port, zero1 and fsdp equal plain data parallelism bit for bit (the
 reduce-scatter sums in ``psum``'s rank order), and the tests read each
 rank's stored bytes: 1/dp of the state (zero1), and of the parameters
-(fsdp), plus the stated padding.
+(fsdp), plus the stated padding. The meshes across processes are held
+here as process 1 of 2 (``distributed``'s process index, count and
+global device list stood in for, and the exchange between processes):
+each rank's process and this process's ranks, and the rank-order sum
+bitwise the one-process ``psum`` (``tests/test_torch_multiproc.py``
+runs real processes).
 """
 import numpy as np
 import pytest
@@ -172,6 +177,97 @@ def test_collectives_exact_values():
     # the max of each column reaches only its rank, once per rank output
     assert ys[2].grad.tolist() == [3.0, 0.0]
     assert ys[0].grad.tolist() == [0.0, 3.0]
+
+
+# -- meshes and sums across processes ----------------------------------------
+
+def _as_process(monkeypatch, index, count, devices=None, owners=None):
+    """This process as process ``index`` of ``count``, with the global
+    device list ``devices`` owned by ``owners`` (what
+    ``distributed.initialize`` gathers at the join)."""
+    from mxnet_tpu_torch import distributed as D
+    monkeypatch.setattr(D, "process_index", lambda: index)
+    monkeypatch.setattr(D, "process_count", lambda: count)
+    if devices is not None:
+        monkeypatch.setattr(D, "devices", lambda: [torch.device(d)
+                                                   for d in devices])
+        monkeypatch.setattr(D, "device_processes", lambda: list(owners))
+
+
+def test_mesh_across_processes(monkeypatch):
+    """A mesh over a process-spanning device list records each rank's
+    process and this process's ranks; without ``devices=`` it spans every
+    process's devices (the global ``jax.devices()``), a device repeating
+    across processes; with ``devices=`` alone it is this process's."""
+    m = par.Mesh(np.array(["cpu"] * 4, dtype=object).reshape(2, 2),
+                 ("dp", "tp"), processes=[[0, 0], [1, 1]])
+    assert m.local_ranks == [0, 1] and m.is_multiprocess
+    assert [m.owner(r) for r in range(4)] == [0, 0, 1, 1]
+    assert m.local_devices() == [torch.device("cpu")] * 2
+    assert not par.build_mesh({"dp": 2}, CPU8[:2]).is_multiprocess
+    _as_process(monkeypatch, 1, 2, CPU8[:4], [0, 0, 1, 1])
+    m = par.build_mesh({"dp": -1})
+    assert m.shape == {"dp": 4} and m.local_ranks == [2, 3]
+    assert m.processes.tolist() == [0, 0, 1, 1]
+    m = par.build_mesh({"dp": 2, "tp": -1})
+    assert m.shape == {"dp": 2, "tp": 2} and m.local_ranks == [2, 3]
+    assert par.data_parallel_mesh().local_ranks == [2, 3]
+    assert par.build_mesh({"dp": 2}, CPU8[:2]).local_ranks == [0, 1]
+    # DevicePrefetchIter(mesh=) places on the device of this process's
+    # ranks
+    from mxnet_tpu_torch import io as tio
+    m = par.build_mesh({"dp": -1})
+    assert tio._prefetch_device(None, m, "dp") == torch.device("cpu")
+    with pytest.raises(mx.base.MXNetError, match="owns no rank"):
+        par.Mesh(CPU8[:2], ("dp",), processes=[0, 0])
+
+
+def _seeded_operands(n, size=4096, seed=11):
+    """Operands whose magnitudes span 7 decades, so the order of a sum
+    shows in its bits."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy((rng.randn(size) * 10.0 ** rng.randint(
+        -3, 4, size)).astype(np.float32)) for _ in range(n)]
+
+
+def test_rank_order_sum_across_processes_equals_one_process(monkeypatch):
+    """``Span.sum`` as process 0 of 2, process 1's operands arriving
+    through a stand-in for the sends and receives between the processes,
+    equals the one-process ``psum`` over the 4 ranks bit for bit (a sum
+    in another order does not); the gather returns every member in rank
+    order."""
+    xs = _seeded_operands(4)
+    want = coll.psum(xs)[0]
+    assert not torch.equal(want, ((xs[3] + xs[2]) + xs[1]) + xs[0])
+    _as_process(monkeypatch, 0, 2)
+    sent = []
+
+    def exchange(self, send, recv):
+        sent.append(send.clone())
+        recv[1].copy_(torch.cat(xs[2:]))
+
+    monkeypatch.setattr(coll.Span, "_exchange", exchange)
+    span = coll.Span([0, 0, 1, 1])
+    assert span.cross and span.local == [0, 1]
+    assert torch.equal(span.sum(xs[:2]), want)
+    assert torch.equal(sent[0], torch.cat(xs[:2]))
+    assert all(torch.equal(a, b) for a, b in zip(span.gather(xs[:2]), xs))
+    with pytest.raises(mx.base.MXNetError, match="same number"):
+        coll.Span([0, 1, 1])
+
+
+def test_psum_ranked_backward_sums_in_rank_order():
+    """``psum_ranked``: one output a rank, the ordered sum in the forward;
+    each rank's input gets the ordered sum of every rank's output
+    gradient."""
+    xs = [x.requires_grad_(True) for x in _seeded_operands(4)]
+    ys = coll.psum_ranked(xs)
+    total = ((xs[0] + xs[1]) + xs[2]) + xs[3]
+    assert all(torch.equal(y, total) for y in ys)
+    gs = _seeded_operands(4, seed=12)
+    torch.autograd.backward(ys, gs)
+    want = ((gs[0] + gs[1]) + gs[2]) + gs[3]
+    assert all(torch.equal(x.grad, want) for x in xs)
 
 
 # -- the data-parallel step ---------------------------------------------------

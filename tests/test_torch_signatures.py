@@ -456,6 +456,40 @@ def test_periphery_names_follow_the_jax_package():
         assert isinstance(getattr(t_kv.KVStore, prop), property)
 
 
+def test_multiprocess_names():
+    """The multi-process trainer's names: ``distributed.process_index``
+    and ``process_count`` (``jax.process_index``/``process_count``, no
+    backend to choose), ``devices`` and ``device_processes`` (the global
+    ``jax.devices()`` and each device's ``process_index``); the mesh
+    functions keep the JAX package's parameters in its order, the port's
+    ``processes`` keyword-only after them; the cross-process collectives
+    are exported."""
+    import jax
+    import mxnet_tpu.parallel.mesh as jmesh
+    from mxnet_tpu_torch.parallel import collectives as tcoll
+    from mxnet_tpu_torch.parallel import program as tprog
+    assert t_dist.process_index() == jax.process_index() == 0
+    assert t_dist.process_count() == jax.process_count() == 1
+    for name in ("process_index", "process_count", "devices",
+                 "device_processes"):
+        assert name in t_dist.__all__
+        assert not inspect.signature(getattr(t_dist, name)).parameters
+    assert t_dist.device_processes() == [0] * len(t_dist.devices())
+    for name in ("build_mesh", "data_parallel_mesh"):
+        got = inspect.signature(getattr(tmesh, name)).parameters
+        want = inspect.signature(getattr(jmesh, name)).parameters
+        pos = [p.name for p in got.values()
+               if p.kind != p.KEYWORD_ONLY]
+        assert pos[:len(want)] == list(want), name
+    for f in (tmesh.build_mesh, tmesh.Mesh.__init__):
+        p = inspect.signature(f).parameters["processes"]
+        assert p.kind == p.KEYWORD_ONLY and p.default is None
+    for name in ("Span", "psum_ranked", "process_sum", "process_broadcast"):
+        assert name in tcoll.__all__, name
+    assert "ProgramChain" in tprog.__all__
+    assert isinstance(ttrainer.ParallelTrainer.compile_counts, property)
+
+
 @pytest.mark.parametrize("j,t,name", [(j, t, n) for j, t, names in ZOO
                                       for n in names],
                          ids=[n for _, _, names in ZOO for n in names])
