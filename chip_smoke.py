@@ -342,7 +342,7 @@ Phases:
    state); (3) one step with ``remat=True`` against ``remat=False``,
    both peak memories; (4) ``PipelineTrainer`` on
    ``pipeline_stages=4`` over {pp: 4} ([cuda:0] * 4), f32, B=8, T=1024,
-   M=8: GPipe and 1F1B, 2 warm-up and 4 timed steps each, exactly 96
+   M=8: GPipe and 1F1B, 1 warm-up and 2 timed steps each, exactly 96
    launches of each flash entry a step (1F1B: 192 of the forward, its
    backward recomputing each stage), a falling loss, tokens/s, peak
    memory, 1F1B's peak below GPipe's, one step of each against the
@@ -443,7 +443,7 @@ Phases:
    the kernels built by this process first): ResNet-50 f32 (224 x 224,
    1000 classes, seeded weights) through
    ``FeedForward(ctx=mx.gpu(0)).fit(kvstore="dist_sync")`` on the legacy
-   loop with the conv-BN train gate on, B=32 a worker over 4 global
+   loop with the conv-BN train gate on, B=32 a worker over 2 global
    batches of 64 for 2 epochs (exactly 33 ``matmul_stats`` a step in each
    worker, the second epoch's cross-entropy below the first's, both
    ranks' parameters bitwise equal, and within 2e-2 by norm of the deltas
@@ -488,6 +488,14 @@ Phases:
    bitwise in both workers and here in one process; (4) the sharded-IO
    fit (RAW0 records, ``ImageRecordIter(num_parts=2, part_index=rank)``,
    ``fit(device_metric=True)``): accuracy above 0.85, equal in both;
+   (5) ``PipelineTrainer`` on the 124M LM f32 with ``pipeline_stages=2``
+   over {pp: 2}, one stage in each process, B=8 T=1024 M=4, GPipe and
+   1F1B, 3 steps: parameters (gathered in both ranks) and each rank's
+   momentum bitwise the one-process run over ``[cuda:0] * 2``, the head
+   only in rank 1, exactly 24 of each flash entry a step in each process
+   (1F1B: 48 forwards), ms a step against one process, the hops' MB and
+   calls a step (``python3 chip_smoke.py --7f pipe`` runs one check
+   alone);
 8. the ``{"kernels": [...]}`` line (every C entry; ``classic_launches``
    are phase 7b's, ``zoo_launches`` phase 7c's, ``periphery_launches``
    phase 7e's, workers included, ``multiproc_launches`` phase 7f's
@@ -4673,22 +4681,24 @@ def _unfused_launches(d, spec=False):
 
 def _equal_generate_grouped(what, dec, handles):
     """Every stream of ``handles`` equal to ``Decoder.generate``, one batch
-    a (prompt length, tokens) group: the dense, blocked and ring reads and
-    ``quant_matmul`` give a row the same bits whatever the batch (phase
-    4f.1 gates the reads' batch invariance). Returns the seconds of
-    offline decoding."""
+    a prompt length, decoded to the group's longest budget (a greedy
+    stream's first n tokens are its n-token generation): the dense,
+    blocked and ring reads and ``quant_matmul`` give a row the same bits
+    whatever the batch (phase 4f.1 gates the reads' batch invariance).
+    Returns the seconds of offline decoding."""
     groups = collections.defaultdict(list)
     for h in handles:
         if not h.done or len(h.tokens) != h.limit:
             raise AssertionError("%s: request %s did not finish its budget"
                                  % (what, h.id))
-        groups[(len(h.prompt), len(h.tokens))].append(h)
+        groups[len(h.prompt)].append(h)
     t0 = time.perf_counter()
-    for (p, n), hs in groups.items():
+    for p, hs in groups.items():
+        n = max(len(h.tokens) for h in hs)
         ref = dec.generate(np.stack([np.asarray(h.prompt) for h in hs]),
                            n)[:, p:].cpu().tolist()
         for h, r in zip(hs, ref):
-            if r != h.tokens:
+            if r[:len(h.tokens)] != h.tokens:
                 raise AssertionError("%s: request %s's stream differs from "
                                      "Decoder.generate" % (what, h.id))
     return time.perf_counter() - t0
@@ -6698,7 +6708,7 @@ def check_ce_loss_against_host(dev):
 PAR_DP = 2                          # ranks of the data-parallel mesh
 PAR_PP, PAR_M = 4, 8                # pipeline stages and microbatches
 PAR_WARM, PAR_TIMED = 3, 6
-PIPE_WARM, PIPE_TIMED = 2, 4
+PIPE_WARM, PIPE_TIMED = 1, 2
 FLASH_ENTRIES = TRAIN_ENTRIES[:3]
 PAR_NOTE = "ranks on ONE card, not a multi-card figure"
 PAR_BATCH = 13                      # the seed of the f32 agreement batch
@@ -6977,9 +6987,10 @@ def _pipe_trainer(dev, mesh_axes, m, schedule, dropout=0.0):
 def par_pipeline(K, dev, ref):
     """Check 4: PipelineTrainer on pipeline_stages=4 over {pp: 4} ([dev] *
     4), f32, B=8 T=1024, M=8 (one row a microbatch), from the one-device
-    f32 trainer's seeded weights: GPipe and 1F1B, 2 warm-up and 4 timed
-    steps each, exact launches (``_pipe_launches``), a falling loss,
-    tokens/s and peak memory, 1F1B's peak below GPipe's; one step of each
+    f32 trainer's seeded weights: GPipe and 1F1B, PIPE_WARM warm-up and
+    PIPE_TIMED timed steps each, exact launches (``_pipe_launches``), a
+    falling loss, tokens/s and peak memory, 1F1B's peak below GPipe's; one
+    step of each
     against the one-device f32 ParallelTrainer on the untagged LM
     (deltas within DELTA_REL by norm), and the same for GPipe on {dp: 2,
     pp: 2} over [dev] * 4 (M=4). Returns the timed launches."""
@@ -10457,7 +10468,7 @@ def periphery_main_path(K, dev, prefix):
 # -- phase 7f: multi-process training -----------------------------------------
 
 MP_NOTE = "two processes on ONE card, not a multi-card figure"
-MP_CHECKS = "lm_dp,bn_global,ckpt,shardio"
+MP_CHECKS = "lm_dp,bn_global,ckpt,shardio,pipe"
 MP_SIZE = "full"                    # dist_worker's LM_SIZES / BN_SIZES
 
 
@@ -10482,13 +10493,14 @@ def _timed_steps(tr, batches):
     return ms[1:], {k: v for k, v in K.launch_counts().items() if v}
 
 
-def _mp_oracle(W, dev, what, make, batches):
+def _mp_oracle(W, dev, what, make, batches, state=None):
     """The one-process run over ``[dev] * 2`` (one captured program):
-    (its state's digests, ms a step, launches a step)."""
+    (its state's digests (``state(trainer)``, default
+    ``dist_worker.trainer_state``), ms a step, launches a step)."""
     from mxnet_tpu_torch.testing import dist_worker as Wm
     tr = make()
     ms, launches = _timed_steps(tr, batches)
-    digests = Wm.digests(Wm.trainer_state(tr))
+    digests = Wm.digests((state or Wm.trainer_state)(tr))
     if tr.compile_counts != {"step": 1}:
         raise AssertionError("phase 7f %s oracle: compile_counts %r"
                              % (what, tr.compile_counts))
@@ -10505,13 +10517,15 @@ def _same_digests(what, got, want):
                                               bad[:4]))
 
 
-def multiproc_main_path(K, dev):
-    """Phase 7f: ``ParallelTrainer`` over one mesh across two processes on
-    the one card (``tools/launch.py -n 2``, ``mxnet_tpu_torch.testing.
-    dist_worker`` at its full size; the kernels built by this process
-    first): the 124M LM (plain, zero1, fsdp), ResNet-50 f32 with global
-    BatchNorm, checkpoints from both processes, the sharded-IO fit; each
-    held against the one-process run over ``[dev] * 2`` here, bitwise.
+def multiproc_main_path(K, dev, checks=MP_CHECKS):
+    """Phase 7f: ``ParallelTrainer`` and ``PipelineTrainer`` over one mesh
+    across two processes on the one card (``tools/launch.py -n 2``,
+    ``mxnet_tpu_torch.testing.dist_worker`` at its full size; the kernels
+    built by this process first): the 124M LM (plain, zero1, fsdp),
+    ResNet-50 f32 with global BatchNorm, checkpoints from both processes
+    (after ``lm_dp``), the sharded-IO fit, the pipelined LM (GPipe and
+    1F1B, a stage a process); each held against the one-process run over
+    ``[dev] * 2`` here, bitwise. ``checks``: which of ``MP_CHECKS`` run.
     Returns the workers' launches."""
     from mxnet_tpu_torch import parallel as par
     from mxnet_tpu_torch.testing import dist_worker as W
@@ -10521,7 +10535,7 @@ def multiproc_main_path(K, dev):
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     env = dict(os.environ)
-    env.update(MXNET_DISTTEST_CHECKS=MP_CHECKS, MXNET_DISTTEST_OUT=out,
+    env.update(MXNET_DISTTEST_CHECKS=checks, MXNET_DISTTEST_OUT=out,
                MXNET_DISTTEST_SIZE=MP_SIZE,
                PYTHONPATH=HERE + os.pathsep + env.get("PYTHONPATH", ""))
     for k in ("MXNET_TPU_COORDINATOR", "MXNET_KVSTORE_PORT_BASE",
@@ -10544,25 +10558,142 @@ def multiproc_main_path(K, dev):
                   if ln.startswith("TIMING")]
         _line7f(t0, "workers", "2 processes through tools/launch.py -n 2 "
                 "in %.1f s (%s); %s" % (wall, "; ".join(timing), MP_NOTE))
-        launches = _mp_lm(W, par, dev, t0, out)
-        _mp_resnet(W, par, dev, t0, out)
-        _mp_ckpt(W, par, dev, t0, out)
-        acc = [json.load(open(os.path.join(out, "shardio-%d.json" % r)))
-               for r in range(2)]
-        if not (acc[0]["acc"] > 0.85 and acc[0]["acc"] == acc[1]["acc"]):
-            raise AssertionError("phase 7f shardio: %s" % acc)
-        _line7f(t0, "shardio", "RAW0 records (%d of %dx%d, %d classes) "
-                "written by rank 0, ImageRecordIter(num_parts=2, "
-                "part_index=rank) into fit(device_metric=True) over {dp: 2} "
-                "(global batch 16), 30 epochs: accuracy %s, equal in both "
-                "processes; fit %.1f s; %s" % (
-                    W.SHARDIO_N, W.SHARDIO_HW, W.SHARDIO_HW, W.SHARDIO_K,
-                    [a["acc"] for a in acc], acc[0]["fit_s"], card_line()))
+        names = checks.split(",")
+        launches = collections.Counter()
+        if "lm_dp" in names:
+            launches.update(_mp_lm(W, par, dev, t0, out))
+        if "bn_global" in names:
+            _mp_resnet(W, par, dev, t0, out)
+        if "ckpt" in names:
+            _mp_ckpt(W, par, dev, t0, out)
+        if "shardio" in names:
+            _mp_shardio(W, t0, out)
+        if "pipe" in names:
+            launches.update(_mp_pipe(W, par, dev, t0, out, timing))
     finally:
         shutil.rmtree(out, ignore_errors=True)
     _line7f(t0, "done", "every check passed in %.1f s; launches %s" % (
         time.perf_counter() - t0, json.dumps(launches)))
-    return launches
+    return dict(launches)
+
+
+def _mp_shardio(W, t0, out):
+    """7f.4: the sharded-IO fit's accuracy, above 0.85 and equal in both
+    processes."""
+    acc = [json.load(open(os.path.join(out, "shardio-%d.json" % r)))
+           for r in range(2)]
+    if not (acc[0]["acc"] > 0.85 and acc[0]["acc"] == acc[1]["acc"]):
+        raise AssertionError("phase 7f shardio: %s" % acc)
+    _line7f(t0, "shardio", "RAW0 records (%d of %dx%d, %d classes) "
+            "written by rank 0, ImageRecordIter(num_parts=2, "
+            "part_index=rank) into fit(device_metric=True) over {dp: 2} "
+            "(global batch 16), 30 epochs: accuracy %s, equal in both "
+            "processes; fit %.1f s; %s" % (
+                W.SHARDIO_N, W.SHARDIO_HW, W.SHARDIO_HW, W.SHARDIO_K,
+                [a["acc"] for a in acc], acc[0]["fit_s"], card_line()))
+
+
+def _mp_pipe_launches(schedule, layers, steps):
+    """Flash launches of ``steps`` pipeline steps over ``layers`` layers
+    (a process's stage, or every stage in one process), PIPE_M
+    microbatches each; 1F1B's backward recomputes the forward."""
+    from mxnet_tpu_torch.testing import dist_worker as W
+    n = layers * W.PIPE_M * steps
+    return {"flash_attention_fwd": n * (2 if schedule == "1f1b" else 1),
+            "flash_attention_dq": n, "flash_attention_dkv": n}
+
+
+def _mp_pipe(W, par, dev, t0, out, timing):
+    """7f.5: ``PipelineTrainer`` on the 124M LM at full width f32
+    (``pipeline_stages=2``), global B=8 T=1024, M=4, over {pp: 2} with
+    one stage in each of the two processes, GPipe and 1F1B, 3 SGD
+    momentum steps on one batch: each process's state (the whole
+    parameters from ``get_params``, its rank's momentum) bitwise the
+    one-process run over [dev] * 2 here, both ranks' parameters equal,
+    the head only in the last stage's process, a falling loss, exactly
+    the stage's flash launches, the step one uncaptured program (a gloo
+    hop each tick); ms a step against the one-process captured run, the
+    hops' MB and calls a step. Returns the workers' launches."""
+    cfg = W.LM_SIZES[MP_SIZE]
+    batch = W.lm_batch(cfg)
+    layers = cfg["layers"] if dev.type == "cuda" else 0
+    steps = W.LM_STEPS - 1
+    launches = collections.Counter()
+    rows = []
+    t1 = time.perf_counter()
+    for schedule in W.pipe_schedules("a"):
+        want, one_ms, one_launches = _mp_oracle(
+            W, dev, "pipe %s" % schedule,
+            lambda: W.pipe_trainer(par, cfg, par.build_mesh(
+                {"pp": 2}, [dev] * 2), schedule),
+            [batch] * W.LM_STEPS, state=W.pipe_state)
+        if one_launches != {e: n for e, n in _mp_pipe_launches(
+                schedule, layers, steps).items() if n}:
+            raise AssertionError("phase 7f pipe %s oracle: launches %r"
+                                 % (schedule, one_launches))
+        res = [json.load(open(os.path.join(out, "pipe-a-%s-%d.json"
+                                                % (schedule, r))))
+               for r in range(2)]
+        for r, d in enumerate(res):
+            what = "pipe %s rank %d" % (schedule, r)
+            got = d["digests"]
+            _same_digests(what, got, {k: want[k] for k in got})
+            if not all(k in got for k in want if k.startswith("arg:")):
+                raise AssertionError("phase 7f %s: parameters missing"
+                                     % what)
+            if d["has_head"] != (r == 1):
+                raise AssertionError("phase 7f %s: a head where the "
+                                     "process runs no last stage, or none "
+                                     "where it does" % what)
+            if not all(math.isfinite(v) for v in d["loss"]) \
+                    or not d["loss"][-1] < d["loss"][0] \
+                    or d["loss"] != res[0]["loss"]:
+                raise AssertionError("phase 7f %s: loss %s" % (what,
+                                                               d["loss"]))
+            if d["launches"] != {e: n for e, n in _mp_pipe_launches(
+                    schedule, layers // 2, steps).items() if n}:
+                raise AssertionError("phase 7f %s: launches %r" % (
+                    what, d["launches"]))
+            if d["compile_counts"] != {"step": 1} or d["programs"] != 1 \
+                    or d["captured"] != 0:
+                raise AssertionError("phase 7f %s: programs %d, %d "
+                                     "captured, compile_counts %r" % (
+                                         what, d["programs"], d["captured"],
+                                         d["compile_counts"]))
+            launches.update(d["launches"])
+        if set(res[0]["digests"]) | set(res[1]["digests"]) != set(want):
+            raise AssertionError("phase 7f pipe %s: the ranks' states do "
+                                 "not cover the one-process state"
+                                 % schedule)
+        rows.append(
+            "%s: ms a step %.3f across the processes (steps 2-%d: %s) "
+            "against %.3f in one process (captured; %s), hops and the "
+            "loss's sum %.3f ms and %.2f MB sent a process a step in %.1f "
+            "calls (rank 0 %.2f MB, rank 1 %.2f MB), loss %s, launches "
+            "a step in each process %s" % (
+                schedule, statistics.median(res[0]["ms"][1:]), W.LM_STEPS,
+                ["%.3f" % v for v in res[0]["ms"][1:]],
+                statistics.median(one_ms), ["%.3f" % v for v in one_ms],
+                res[0]["cross_ms"], res[0]["cross_bytes"] / 1e6,
+                res[0]["cross_calls"], res[0]["cross_bytes"] / 1e6,
+                res[1]["cross_bytes"] / 1e6,
+                ["%.4f" % v for v in res[0]["loss"]],
+                json.dumps({e: n // steps
+                            for e, n in res[0]["launches"].items()})))
+    _line7f(t0, "pipe", "PipelineTrainer, LM (%d layers, E=%d, %d heads, "
+            "vocab %d) f32 with pipeline_stages=2, global B=%d T=%d, M=%d, "
+            "over {pp: 2} with one stage in each of 2 processes (%s), SGD "
+            "lr %g momentum 0.9, %d steps on one batch: GPipe and 1F1B "
+            "each bitwise equal to one process over [%s] * 2 (parameters "
+            "in both ranks, each rank's momentum), the head only in rank "
+            "1, one uncaptured program a step; %s; the workers' pipe "
+            "check %s, the one-process runs here %.1f s; %s" % (
+                cfg["layers"], cfg["embed"], cfg["heads"], cfg["vocab"],
+                cfg["b"], cfg["t"], W.PIPE_M, MP_NOTE, W.LM_LR, W.LM_STEPS,
+                dev, "; ".join(rows), "; ".join(
+                    t for t in timing if t.startswith("TIMING pipe")),
+                time.perf_counter() - t1, card_line()))
+    return dict(launches)
 
 
 def _mp_lm(W, par, dev, t0, out):
@@ -11002,5 +11133,26 @@ def main():
     return 0
 
 
+def phase7f_alone(checks):
+    """``python3 chip_smoke.py --7f CHECKS``: phase 7f's checks alone
+    (``CHECKS`` a comma list of ``MP_CHECKS``; ``ckpt`` reads ``lm_dp``'s
+    state), after building every kernel source; it prints the 7f lines
+    and the card's line, no kernels line and no result line."""
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device — this script runs on the card")
+        return 2
+    sys.path.insert(0, HERE)
+    from mxnet_tpu_torch.ops import kernels as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    K.build()
+    multiproc_main_path(K, torch.device("cuda", 0), checks)
+    log(card_line())
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--7f"]:
+        sys.exit(phase7f_alone(sys.argv[2] if len(sys.argv) > 2
+                               else MP_CHECKS))
     sys.exit(main())

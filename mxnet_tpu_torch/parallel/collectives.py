@@ -24,7 +24,10 @@ sends and receives between the processes), then added in order on the
 caller's device. :func:`psum_ranked` is that sum
 as an autograd function (its backward the same ordered sum of the
 outputs' gradients), what a training BatchNorm uses over a mesh in one
-process or several.
+process or several. :meth:`Span.ppermute` moves one tensor between the
+members of each pair it is given (the pipeline's hop of a boundary
+between the processes of neighbouring stages): a send and a receive
+where the pair's ends lie in two processes.
 Each cross-process call adds to the ``collectives.cross_calls``,
 ``collectives.cross_bytes`` (bytes this process sends) and
 ``collectives.cross_ms`` (the host's wall time in the exchange)
@@ -278,9 +281,10 @@ class Span:
         me = distributed.process_index()
         peers = [q for q in range(self.nprocs) if q != me]
         if flat.device.type == "cuda":
-            send = self._pinned("send", flat)
+            send = self._pinned("send", flat.numel(), flat.dtype)
             send.copy_(flat)  # waits for the stream that made flat
-            recv = {q: self._pinned(q, flat) for q in peers}
+            recv = {q: self._pinned(q, flat.numel(), flat.dtype)
+                    for q in peers}
         else:
             send = flat
             recv = {q: torch.empty_like(flat) for q in peers}
@@ -294,14 +298,14 @@ class Span:
                 out[i] = p.view(shape)
         return out
 
-    def _pinned(self, key, like):
-        """A pinned host buffer of ``like``'s size and dtype, kept."""
+    def _pinned(self, key, numel, dtype):
+        """A pinned host buffer of ``numel`` elements of ``dtype``, kept."""
         if not hasattr(self, "_host"):
             self._host = {}
-        k = (key, like.numel(), like.dtype)
+        k = (key, numel, dtype)
         buf = self._host.get(k)
         if buf is None:
-            buf = self._host[k] = torch.empty(like.numel(), dtype=like.dtype,
+            buf = self._host[k] = torch.empty(numel, dtype=dtype,
                                               pin_memory=True)
         return buf
 
@@ -329,6 +333,60 @@ class Span:
                 reqs.append(dist.irecv(buf.narrow(0, off, m), q))
         for w in reqs:
             w.wait()
+
+    def ppermute(self, xs, perm, devices, meta):
+        """``lax.ppermute`` over the members: for each ``(src, dst)`` of
+        ``perm`` (global member indices), member src's tensor to member
+        dst. ``xs[i]``: member i's tensor where this process owns it and
+        it sends (else None); ``devices[i]``: member i's device; ``meta``:
+        ``(shape, dtype)`` of what a destination receives. A pair whose
+        two ends are local moves by ``.to``; a local source sends and a
+        local destination receives into a new tensor (a card's through
+        pinned host buffers this span keeps, in pieces of
+        ``CHUNK_BYTES``; host tensors directly), every process posting
+        its sends and receives in ``perm``'s order before waiting on any,
+        so that two processes cannot wait on each other. Returns one
+        entry a member: what a local destination received, else None."""
+        import torch.distributed as dist
+        me = distributed.process_index()
+        out = [None] * self.n
+        posts, landed, nbytes = [], [], 0
+        for src, dst in perm:
+            s_mine, d_mine = self.owners[src] == me, self.owners[dst] == me
+            if s_mine and d_mine:
+                out[dst] = xs[src].to(devices[dst])
+            elif s_mine:
+                flat = xs[src].reshape(-1).contiguous()
+                if flat.device.type == "cuda":
+                    buf = self._pinned(("send", src, dst), flat.numel(),
+                                       flat.dtype)
+                    buf.copy_(flat)  # waits for the stream that made it
+                    flat = buf
+                posts.append((dist.isend, flat, self.owners[dst]))
+                nbytes += flat.numel() * flat.element_size()
+            elif d_mine:
+                shape, dtype = meta
+                dev = torch.device(devices[dst])
+                buf = self._pinned(("recv", src, dst), math.prod(shape),
+                                   dtype) if dev.type == "cuda" \
+                    else torch.empty(math.prod(shape), dtype=dtype)
+                posts.append((dist.irecv, buf, self.owners[src]))
+                landed.append((dst, buf, shape, dev))
+        if not posts:
+            return out
+        with _Timed(nbytes):
+            reqs = []
+            for op, t, peer in posts:
+                step = max(1, CHUNK_BYTES // t.element_size())
+                for off in range(0, t.numel(), step):
+                    reqs.append(op(t.narrow(0, off, min(step, t.numel()
+                                                         - off)), peer))
+            for w in reqs:
+                w.wait()
+        for dst, buf, shape, dev in landed:
+            out[dst] = (buf.to(dev) if dev.type == "cuda" else buf).view(
+                shape)
+        return out
 
     def sum(self, xs):
         """The sum of every member's tensor in global order (``psum``'s

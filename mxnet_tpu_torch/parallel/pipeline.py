@@ -15,8 +15,9 @@ GPipe schedule over a mesh, and so does the port:
   on the host, so only the ``(stage, microbatch)`` pairs that exist run,
   each on its stage's rank, tick by tick, and the boundary moves to the
   next rank by ``ppermute``.
-* ``schedule="gpipe"`` takes the gradients by autograd through the whole
-  schedule (all M microbatches' activations live until the backward);
+* ``schedule="gpipe"`` keeps every tick's graph (all M microbatches'
+  activations live until the backward), then runs the backward stage by
+  stage from the last, the cotangents hopping back a stage at a time;
   ``schedule="1f1b"`` runs each tick's forward without keeping the graph
   and each stage's backward explicitly, recomputing the stage from its
   saved boundary input, with at most ``2S - 1`` microbatches in flight
@@ -33,9 +34,17 @@ every rank and sums the stages' gradients. The step is one
 ``parallel.program.Program``, captured on the card. Dropout draws come
 from one generator per rank (the port's own streams, not JAX's); 1F1B's
 recompute replays them.
+
+Across processes (a mesh whose ranks live in several processes, as the
+JAX package runs one SPMD program over a global mesh) each process runs
+its own ranks, the hops between stages are sends and receives between
+the processes (``collectives.Span.ppermute``) and the sums add in rank
+order, so the step equals the one-process step bit for bit
+(:class:`PipelineTrainer`).
 """
 from __future__ import annotations
 
+import collections
 import functools
 import os
 import warnings
@@ -43,14 +52,15 @@ import warnings
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, later_slice, torch_dtype
+from .. import distributed
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
-from .collectives import ppermute, psum
+from .collectives import Span, ppermute, process_broadcast
 from .graph import has_host_ops
 from .layout import Layout
 from .optim import FlatOptState
-from .program import Program
+from .program import Program, ProgramChain
 from ..ops.registry import DrawTape
 from .sharded import backward_heads, remat_walk
 from .trainer import _as_tensor
@@ -199,7 +209,8 @@ class PipelineTrainer:
     input_shapes : dict of GLOBAL input shapes, batch first.
     mesh : Mesh with a ``pp`` axis and optionally ``dp`` (the batch over
         ``dp`` replica groups, each with its own pipeline; gradients
-        summed over both). Its devices may repeat (``[cuda:0] * 4``).
+        summed over both). Its devices may repeat (``[cuda:0] * 4``), and
+        its ranks may live in several processes (see below).
     num_microbatches : each dp group's batch splits into M microbatches
         (default S); the GPipe bubble is (S-1)/(M+S-1).
     param_placement : "stage" (default) or "replicated".
@@ -207,6 +218,32 @@ class PipelineTrainer:
         ``MXNET_BACKWARD_DO_MIRROR``); inherent to 1F1B.
     pp_shard_min_size : "auto", an int, or None (no pp-sharded params).
     schedule : "gpipe" or "1f1b" (needs ``param_placement="stage"``).
+
+    dp group ``d`` trains on rows ``[d * B / dp, (d + 1) * B / dp)`` of
+    the global batch (the JAX package gives it columns ``d * mb`` of each
+    microbatch instead: the same sum of every row's gradient, other
+    bits), cut into its M microbatches in order.
+
+    **Across processes** (a mesh whose ranks live in several processes,
+    ``Mesh.local_ranks``) each process builds and runs only the ranks it
+    owns, and every process calls :meth:`step` and :meth:`get_params`
+    together. It passes :meth:`step` the rows of its dp groups (one block
+    of the global batch: the whole batch at dp = 1); the data feeds its
+    stage-0 ranks and the label its last-stage ranks. The boundary
+    activations and their cotangents hop between the processes of
+    neighbouring stages (``collectives.Span.ppermute``), the dp sums and
+    the ``"replicated"`` sum add every rank's gradient in rank order
+    across processes (``Span.sum``), a pp-sharded parameter is gathered
+    from its pp ranks. The initializer and the dropout generators draw
+    what they draw in one process (``seed=None``: process 0's seed), so
+    the step equals the one-process step over the same mesh bit for bit.
+    With the pp ranks of every group in one process the step is a
+    ``ProgramChain`` (compute and update captured, the dp sums on the
+    host between them); with a pp hop across processes every tick holds
+    a gloo call, and the step runs uncaptured (``program.
+    uncaptured_runs``). ``step`` returns the head outputs of the groups
+    whose last stage the process owns, and None where it owns none: the
+    ``[B, ...]`` probabilities are not shipped across processes.
     """
 
     def __init__(self, symbol, input_shapes, mesh, num_microbatches=None,
@@ -342,26 +379,61 @@ class PipelineTrainer:
                 "parameters take the pp-sharded path."
                 % (self._pmax, mean_sz, self.stage_param_bytes))
 
+        L = self.layout
+        self._rank = [[L.moved(0, dict({"pp": s},
+                                       **({"dp": d} if "dp" in mesh.shape
+                                          else {})))
+                       for s in range(self.S)] for d in range(self.dp)]
+        self._local = set(mesh.local_ranks)
+        #: this process's (dp group, stage) ranks, group by group, and its
+        #: dp groups
+        self._mine = [(d, s) for d in range(self.dp) for s in range(self.S)
+                      if self._rank[d][s] in self._local]
+        self._groups = sorted({d for d, _ in self._mine})
+        if mesh.is_multiprocess:
+            self._check_processes()
+        owner = mesh.owner
+        self._span = Span([owner(r) for r in range(len(L))])
+        self._stage_spans = {s: Span([owner(self._rank[d][s])
+                                      for d in range(self.dp)])
+                             for s in {s for _, s in self._mine}}
+        self._group_spans = {d: Span([owner(r) for r in self._rank[d]])
+                             for d in self._groups} if self._big_meta else {}
+        self._flat_order = [r for grp in self._rank for r in grp]
+        self._flat_span = Span([owner(r) for r in self._flat_order])
+        self._pp_cross = any(len({owner(r) for r in grp}) > 1
+                             for grp in self._rank)
+        g0 = self._groups[0]
+        rows = batch // self.dp
+        #: the global batch's rows this process passes to ``step``
+        self.process_rows = (g0 * rows, (self._groups[-1] + 1) * rows)
+
         if isinstance(optimizer, str):
             okw = dict(optimizer_params or {})
             okw.setdefault("rescale_grad", 1.0 / batch)
             optimizer = opt_mod.create(optimizer, **okw)
         self.optimizer = optimizer
         self._initializer = initializer or Uniform(0.05)
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+            if mesh.is_multiprocess:
+                # every process draws the one-process run's weights
+                seed = int(process_broadcast(
+                    torch.tensor([seed], dtype=torch.int64))[0])
+        self._seed = seed
         self._init_gen = torch.Generator().manual_seed(seed)
-        L = self.layout
-        self._rank = [[L.moved(0, dict({"pp": s},
-                                       **({"dp": d} if "dp" in mesh.shape
-                                          else {})))
-                       for s in range(self.S)] for d in range(self.dp)]
-        self.device = L.devices[self._rank[0][0]]
+        self.device = L.devices[mesh.local_ranks[0]]
+        # seeded by the GLOBAL rank: a rank draws what it draws in one
+        # process
         self._gens = [torch.Generator(device=d).manual_seed(int(
             np.random.SeedSequence([seed, r]).generate_state(1)[0]))
+            if r in self._local else None
             for r, d in enumerate(L.devices)]
         # SGLD's noise: one stream a stage, the same on its dp replicas
         self._opt_gens = [torch.Generator(device=d).manual_seed(int(
             np.random.SeedSequence([seed, 1 << 20, L.index(r, "pp")])
-            .generate_state(1)[0])) for r, d in enumerate(L.devices)]
+            .generate_state(1)[0])) if r in self._local else None
+            for r, d in enumerate(L.devices)]
         # the step program's learning rate and update count, set by the
         # host before each run
         self._lr = torch.zeros((), device=self.device)
@@ -369,28 +441,65 @@ class PipelineTrainer:
         self.params = None
         self.opt_state = None
         self._program = None
+        self._compile_log = []
+        self._gbuf = None     # the summed gradients (the chain's)
+        self._outs = None
         self._t = 0
         #: the most boundary inputs a stage held at once in a 1F1B step
         self.max_in_flight = 0
 
+    def _check_processes(self):
+        """What a mesh across processes needs, else ``later_slice``
+        naming the layout: this process's dp groups one block of the
+        batch, and the members of each collective (every rank; a stage's
+        dp ranks; a group's pp ranks, which gather a pp-sharded
+        parameter) in one process or spread evenly over every process."""
+        mesh, g = self.mesh, self._groups
+        if g != list(range(g[0], g[-1] + 1)):
+            raise later_slice("PipelineTrainer", "%r: a process whose dp "
+                              "groups %s are not one block of the batch"
+                              % (mesh, g))
+        spans = [("every rank", range(mesh.size))]
+        spans += [("stage %d's dp ranks" % s,
+                   [self._rank[d][s] for d in range(self.dp)])
+                  for s in range(self.S)]
+        if self._big_meta:
+            spans += [("dp group %d's pp ranks" % d, self._rank[d])
+                      for d in range(self.dp)]
+        nprocs = distributed.process_count()
+        for what, ranks in spans:
+            count = collections.Counter(mesh.owner(r) for r in ranks)
+            if len(count) > 1 and (len(count) != nprocs
+                                   or len(set(count.values())) > 1):
+                raise later_slice(
+                    "PipelineTrainer", "%r: %s in processes %s, neither "
+                    "one process nor every process evenly"
+                    % (mesh, what, dict(sorted(count.items()))))
+
     # ------------------------------------------------------------------
     def _infer_boundary_meta(self):
         """The boundary activations' shape at microbatch size, one for
-        every cut."""
+        every cut, and their dtype (the parameters' f32)."""
         from ..symbol import Symbol
-        shapes = set()
+        shapes, dtypes = set(), set()
         for node, idx in self.boundaries:
             sub = Symbol([(node, idx)])
             _, out, _ = sub.infer_shape(**{
                 k: v for k, v in self._mb_shapes.items()
                 if k in sub.list_arguments()})
             shapes.add(tuple(out[0]))
-        if len(shapes) > 1:
+            _, types, _ = sub.infer_type(**{
+                k: "float32" for k in sub.list_arguments()
+                if k not in self.input_shapes})
+            dtypes.add(torch_dtype(types[0]) if types else torch.float32)
+        if len(shapes) > 1 or len(dtypes) > 1:
             raise MXNetError(
-                "pipeline: boundary activations differ in shape (%s); "
-                "the SPMD schedule carries ONE uniform tensor between "
-                "stages — cut at equal-shape points" % (sorted(shapes),))
+                "pipeline: boundary activations differ in shape or dtype "
+                "(%s, %s); the SPMD schedule carries ONE uniform tensor "
+                "between stages — cut at equal-shape points"
+                % (sorted(shapes), sorted(map(str, dtypes))))
         self._boundary_shape = shapes.pop() if shapes else ()
+        self._boundary_dtype = dtypes.pop() if dtypes else torch.float32
 
     def _init_value(self, name, arg_params):
         if arg_params and name in arg_params:
@@ -407,12 +516,21 @@ class PipelineTrainer:
             val = val.float()
         return val.reshape(self.arg_shapes[name])
 
+    def _per_rank(self, fn):
+        """``fn(rank, device)`` for this process's ranks, None at other
+        processes' (lists stay indexed by global rank)."""
+        return [fn(r, d) if r in self._local else None
+                for r, d in enumerate(self.layout.devices)]
+
     def init_params(self, arg_params=None):
         """Initialize (or load) the parameters and the optimizer state.
         Under ``"stage"`` placement ``params`` is ``{"rows": [row per
         rank], "big": {name: [chunk per rank]}}`` and ``opt_state`` the
         matching ``FlatOptState``\\ s; under ``"replicated"`` ``params`` is
-        a list per rank of ``{name: view}`` over one flat buffer."""
+        a list per rank of ``{name: view}`` over one flat buffer. Each
+        list is indexed by global rank, None at the ranks of other
+        processes; every process draws every parameter and keeps its
+        ranks' pieces."""
         L = self.layout
         vals = {n: self._init_value(n, arg_params) for n in self.param_names}
         if self.param_placement == "stage":
@@ -425,51 +543,52 @@ class PipelineTrainer:
                 flat = torch.zeros(padded)
                 flat[:size] = vals[name].reshape(-1)
                 big[name] = flat.view(self.S, padded // self.S)
-            new_rows = [rows[L.index(r, "pp")].to(d, copy=True)
-                        for r, d in enumerate(L.devices)]
-            new_big = {n: [v[L.index(r, "pp")].to(d, copy=True)
-                           for r, d in enumerate(L.devices)]
-                       for n, v in big.items()}
+            new_rows = self._per_rank(
+                lambda r, d: rows[L.index(r, "pp")].to(d, copy=True))
+            new_big = {n: self._per_rank(
+                lambda r, d, v=v: v[L.index(r, "pp")].to(d, copy=True))
+                for n, v in big.items()}
             if self.params is None:
                 self.params = {"rows": new_rows, "big": new_big}
                 self.opt_state = {
                     "rows": [FlatOptState(self.optimizer, ["row"],
                                           [(self._pmax,)], r)
-                             for r in new_rows],
+                             if r is not None else None for r in new_rows],
                     "big": {n: [FlatOptState(self.optimizer, [n],
                                              [tuple(c.shape)], c)
-                                for c in v]
+                                if c is not None else None for c in v]
                             for n, v in new_big.items()}}
             else:
                 self._copy_state(new_rows, new_big)
         else:
             flat = torch.cat([vals[n].reshape(-1) for n in self.param_names])
-            new = [flat.to(d, copy=True) for d in L.devices]
+            new = self._per_rank(lambda r, d: flat.to(d, copy=True))
             if self.params is None:
                 self._flats = new
-                self.params = [self._views(f) for f in new]
+                self.params = [self._views(f) if f is not None else None
+                               for f in new]
                 self.opt_state = [FlatOptState(
                     self.optimizer, self.param_names,
                     [self.arg_shapes[n] for n in self.param_names], f)
-                    for f in new]
+                    if f is not None else None for f in new]
             else:
                 for dst, src, st in zip(self._flats, new, self.opt_state):
-                    dst.copy_(src)
-                    st.reset(dst)
+                    if dst is not None:
+                        dst.copy_(src)
+                        st.reset(dst)
         self._t = 0
         return self
 
     @torch.no_grad()
     def _copy_state(self, rows, big):
-        for dst, src, st in zip(self.params["rows"], rows,
-                                self.opt_state["rows"]):
-            dst.copy_(src)
-            st.reset(dst)
-        for n, chunks in big.items():
-            for dst, src, st in zip(self.params["big"][n], chunks,
-                                    self.opt_state["big"][n]):
-                dst.copy_(src)
-                st.reset(dst)
+        pairs = [(self.params["rows"], rows, self.opt_state["rows"])]
+        pairs += [(self.params["big"][n], chunks, self.opt_state["big"][n])
+                  for n, chunks in big.items()]
+        for dsts, srcs, states in pairs:
+            for dst, src, st in zip(dsts, srcs, states):
+                if dst is not None:
+                    dst.copy_(src)
+                    st.reset(dst)
 
     def _views(self, flat):
         shapes = [self.arg_shapes[n] for n in self.param_names]
@@ -519,69 +638,113 @@ class PipelineTrainer:
         return out
 
     # -- the step -----------------------------------------------------------
+    def _hop(self, vals, sends, shift, shape):
+        """The values of the stages ``sends`` (``(group, stage)`` pairs,
+        the schedule's, the same in every process) to the rank ``shift``
+        stages on in their groups. ``vals``: by global rank, the values
+        of this process's senders. Returns, by global rank, what this
+        process's ranks received (None where nothing arrived)."""
+        perm = [(self._rank[d][s], self._rank[d][s + shift])
+                for d, s in sends]
+        return self._span.ppermute(vals, perm, self.layout.devices,
+                                   (shape, self._boundary_dtype))
+
     def _leaves(self):
-        """Per dp group: the leaves the step differentiates (per stage rank
-        a row leaf, or a flat leaf under "replicated") and the stage
-        parameters built from them; the pp-sharded parameters are gathered
-        over the group's ranks where their stage uses them."""
+        """Per dp group of this process (``{d: (leaves, big, params)}``):
+        the leaves the step differentiates, by stage (a row leaf, or a
+        flat leaf under "replicated"; None at another process's rank),
+        and the stage parameters built from them; each pp-sharded
+        parameter whole on the rank of the stage that uses it, gathered
+        over the group's ranks (from other processes through its
+        span)."""
         L = self.layout
-        groups = []
-        for d in range(self.dp):
+        groups = {}
+        for d in self._groups:
             ranks = self._rank[d]
             if self.param_placement == "stage":
                 leaves = [self.params["rows"][r].detach().requires_grad_(
-                    True) for r in ranks]
+                    True) if r in self._local else None for r in ranks]
                 big = {}
                 for name, _shape, _size, _padded, owner in self._big_meta:
-                    dev = L.devices[ranks[owner]]
-                    whole = torch.cat([self.params["big"][name][r].to(dev)
-                                       for r in ranks])
-                    big[name] = whole.detach().requires_grad_(True)
-                params = [self._stage_params(s, leaves[s], big)
-                          for s in range(self.S)]
-                groups.append((leaves, big, params))
+                    parts = self._group_spans[d].gather(
+                        [self.params["big"][name][r] for r in ranks
+                         if r in self._local])
+                    if ranks[owner] in self._local:
+                        dev = L.devices[ranks[owner]]
+                        big[name] = torch.cat([p.to(dev) for p in parts]) \
+                            .detach().requires_grad_(True)
+                params = [self._stage_params(s, lf, big)
+                          if lf is not None else None
+                          for s, lf in enumerate(leaves)]
+                groups[d] = (leaves, big, params)
             else:
                 leaves = [self._flats[r].detach().requires_grad_(True)
-                          for r in ranks]
-                params = [self._views(lf) for lf in leaves]
-                groups.append((leaves, {}, params))
+                          if r in self._local else None for r in ranks]
+                groups[d] = (leaves, {}, [self._views(lf)
+                                          if lf is not None else None
+                                          for lf in leaves])
         return groups
 
     def _gpipe(self, inputs, groups):
-        """The GPipe schedule of every dp group, differentiated by
-        autograd: returns the head outputs per group and microbatch."""
-        S, M = self.S, self.M
-        L = self.layout
-        heads = []
-        for d, (_leaves, _big, params) in enumerate(groups):
-            ranks = self._rank[d]
-            devs = [L.devices[r] for r in ranks]
-            outs = [None] * M
-            state = [None] * S
-            for t in range(M + S - 1):
-                ys = [None] * S
-                for s in range(S):
-                    m = t - s
-                    if not 0 <= m < M:
-                        continue
-                    mbin = {k: v[m] for k, v in inputs[d][s].items()}
-                    fn = functools.partial(self._stage, s, inputs=mbin,
-                                           gen=self._gens[ranks[s]])
-                    if self.remat:
-                        names = sorted(params[s])
-                        y, o = self._remat_stage(
-                            fn, state[s], [params[s][n] for n in names],
-                            names, s == S - 1)
-                    else:
-                        y, o = fn(state[s], params=params[s])
-                    if s == S - 1:
-                        outs[m] = o
-                    ys[s] = y
-                state = _hop(ys, devs, 1)
-            heads.append(outs)
-        flat = [o for g in heads for mb in g for o in mb]
-        backward_heads(flat)
-        return [[[o.detach() for o in mb] for mb in g] for g in heads]
+        """The GPipe schedule: every tick's forward with its graph kept,
+        the boundary hopping to the next stage; then the backward stage
+        by stage from the last (its heads, then each earlier stage's
+        outputs against the cotangents the stage after it sent back, all
+        M microbatches in one call: the same calls in one process and in
+        several). Returns the head outputs of this process's last-stage
+        groups, by group and microbatch."""
+        S, M, n = self.S, self.M, len(self.layout)
+        kept = {k: [] for k in self._mine}   # (x, y, outs) a microbatch
+        state = [None] * n
+        for t in range(M + S - 1):
+            ys = [None] * n
+            for d, s in self._mine:
+                m = t - s
+                if not 0 <= m < M:
+                    continue
+                r = self._rank[d][s]
+                x = state[r]
+                if x is not None:
+                    x.requires_grad_(True)
+                mbin = {k: v[m] for k, v in inputs[d][s].items()}
+                fn = functools.partial(self._stage, s, inputs=mbin,
+                                       gen=self._gens[r])
+                params = groups[d][2][s]
+                if self.remat:
+                    names = sorted(params)
+                    y, o = self._remat_stage(
+                        fn, x, [params[k] for k in names], names,
+                        s == S - 1)
+                else:
+                    y, o = fn(x, params=params)
+                kept[(d, s)].append((x, y, o))
+                if s < S - 1:
+                    ys[r] = y.detach()
+            state = self._hop(ys, [(d, s) for d in range(self.dp)
+                                   for s in range(S - 1) if 0 <= t - s < M],
+                              1, self._boundary_shape)
+        cot = [None] * n
+        for s in reversed(range(S)):
+            gs = [None] * n
+            for d, s2 in self._mine:
+                if s2 != s:
+                    continue
+                r = self._rank[d][s]
+                rec = kept[(d, s)]
+                if s == S - 1:
+                    backward_heads([o for _, _, outs in rec for o in outs])
+                else:
+                    torch.autograd.backward([y for _, y, _ in rec],
+                                            list(cot[r].unbind(0)))
+                if s:
+                    gs[r] = torch.stack([
+                        x.grad if x.grad is not None else torch.zeros_like(x)
+                        for x, _, _ in rec])
+            if s:
+                cot = self._hop(gs, [(d, s) for d in range(self.dp)], -1,
+                                (M,) + tuple(self._boundary_shape))
+        return {d: [[o.detach() for o in outs] for _, _, outs in rec]
+                for (d, s), rec in kept.items() if s == S - 1}
 
     @staticmethod
     def _remat_stage(fn, x, pvals, names, last):
@@ -598,122 +761,153 @@ class PipelineTrainer:
         return (None, list(res)) if last else (res[0], None)
 
     def _1f1b(self, inputs, groups):
-        """The 1F1B schedule of every dp group. Tick t: stage s runs the
-        forward of microbatch t - s without keeping its graph (saving the
-        boundary input), then the backward of microbatch t - (2S-2-s):
-        the stage again from its saved input, differentiated, with the
-        cotangent stage s+1's backward sent back a tick before. Returns
-        the head outputs per group and microbatch."""
-        S, M = self.S, self.M
-        L = self.layout
-        heads = []
-        for d, (leaves, big, params) in enumerate(groups):
-            ranks = self._rank[d]
-            devs = [L.devices[r] for r in ranks]
-            gens = [self._gens[r] for r in ranks]
-            saved = [dict() for _ in range(S)]
-            tapes = [dict() for _ in range(S)]
-            outs = [None] * M
-            fwd_in = [None] * S
-            bwd_in = [None] * S
-            for t in range(M + 2 * S - 2):
-                ys = [None] * S
-                for s in range(S):
-                    m = t - s
-                    if not 0 <= m < M:
-                        continue
-                    saved[s][m] = fwd_in[s]
-                    self.max_in_flight = max(self.max_in_flight,
-                                             len(saved[s]))
-                    tapes[s][m] = tape = DrawTape()
-                    with torch.no_grad(), tape.record():
-                        y, o = self._stage(
-                            s, fwd_in[s],
-                            {k: v[m] for k, v in inputs[d][s].items()},
-                            params[s], gens[s])
-                    if s == S - 1:
-                        outs[m] = o
-                    ys[s] = y
-                fwd_in = _hop(ys, devs, 1)
-                gs = [None] * S
-                for s in range(S):
-                    b = t - (2 * S - 2 - s)
-                    if not 0 <= b < M:
-                        continue
-                    x = saved[s].pop(b)
-                    xg = None if x is None else \
-                        x.detach().requires_grad_(True)
-                    # the stage's parameter views anew for each backward,
-                    # and the draws its forward made
-                    with tapes[s].pop(b).replay():
-                        y, o = self._stage(
-                            s, xg,
-                            {k: v[b] for k, v in inputs[d][s].items()},
-                            self._stage_params(s, leaves[s], big), gens[s])
-                    if s == S - 1:
-                        backward_heads(o)
-                    else:
-                        torch.autograd.backward([y], [bwd_in[s]])
-                    if xg is not None:
-                        gs[s] = xg.grad if xg.grad is not None \
-                            else torch.zeros_like(xg)
-                bwd_in = _hop(gs, devs, -1)
-            heads.append(outs)
+        """The 1F1B schedule. Tick t: stage s runs the forward of
+        microbatch t - s without keeping its graph (saving the boundary
+        input), then the backward of microbatch t - (2S-2-s): the stage
+        again from its saved input, differentiated, with the cotangent
+        stage s+1's backward sent back a tick before. Returns the head
+        outputs of this process's last-stage groups, by group and
+        microbatch."""
+        S, M, n = self.S, self.M, len(self.layout)
+        saved = {k: dict() for k in self._mine}
+        tapes = {k: dict() for k in self._mine}
+        heads = {d: [None] * M for d, s in self._mine if s == S - 1}
+        fwd_in = [None] * n
+        bwd_in = [None] * n
+        for t in range(M + 2 * S - 2):
+            ys = [None] * n
+            for d, s in self._mine:
+                m = t - s
+                if not 0 <= m < M:
+                    continue
+                r = self._rank[d][s]
+                saved[(d, s)][m] = fwd_in[r]
+                self.max_in_flight = max(self.max_in_flight,
+                                         len(saved[(d, s)]))
+                tapes[(d, s)][m] = tape = DrawTape()
+                with torch.no_grad(), tape.record():
+                    y, o = self._stage(
+                        s, fwd_in[r],
+                        {k: v[m] for k, v in inputs[d][s].items()},
+                        groups[d][2][s], self._gens[r])
+                if s == S - 1:
+                    heads[d][m] = o
+                ys[r] = y
+            fwd_in = self._hop(ys, [(d, s) for d in range(self.dp)
+                                    for s in range(S - 1) if 0 <= t - s < M],
+                               1, self._boundary_shape)
+            gs = [None] * n
+            for d, s in self._mine:
+                b = t - (2 * S - 2 - s)
+                if not 0 <= b < M:
+                    continue
+                r = self._rank[d][s]
+                leaves, big, _ = groups[d]
+                x = saved[(d, s)].pop(b)
+                xg = None if x is None else \
+                    x.detach().requires_grad_(True)
+                # the stage's parameter views anew for each backward,
+                # and the draws its forward made
+                with tapes[(d, s)].pop(b).replay():
+                    y, o = self._stage(
+                        s, xg, {k: v[b] for k, v in inputs[d][s].items()},
+                        self._stage_params(s, leaves[s], big), self._gens[r])
+                if s == S - 1:
+                    backward_heads(o)
+                else:
+                    torch.autograd.backward([y], [bwd_in[r]])
+                if xg is not None:
+                    gs[r] = xg.grad if xg.grad is not None \
+                        else torch.zeros_like(xg)
+            bwd_in = self._hop(gs, [(d, s) for d in range(self.dp)
+                                    for s in range(1, S)
+                                    if 0 <= t - (2 * S - 2 - s) < M],
+                               -1, self._boundary_shape)
         return heads
+
+    def _compute(self, inputs):
+        """The forward and backward of this process's ranks: (the head
+        outputs of its last-stage groups, each head's rows group by group
+        and microbatch by microbatch on ``self.device``; the gradients by
+        the rank that updates with them, before the dp sum:
+        ``("row", r)``, ``("big", name, r)`` (chunk s of the group's whole
+        gradient, moved from the rank of the stage that uses the
+        parameter to pp rank s's) or ``("flat", r)``)."""
+        groups = self._leaves()
+        run = self._1f1b if self.schedule == "1f1b" else self._gpipe
+        heads = run(inputs, groups)
+        outs = [torch.cat([heads[d][m][j].detach().to(self.device)
+                           for d in sorted(heads) for m in range(self.M)])
+                for j in range(len(self.out_shapes))] if heads else []
+
+        def grad(t):
+            return t.grad if t.grad is not None else torch.zeros_like(t)
+
+        kind = "row" if self.param_placement == "stage" else "flat"
+        grads = {(kind, self._rank[d][s]): grad(groups[d][0][s])
+                 for d, s in self._mine}
+        for name, _shape, _size, padded, owner in self._big_meta:
+            for s in range(self.S):
+                vals = [None] * len(self.layout)
+                for d in self._groups:
+                    if self._rank[d][owner] in self._local:
+                        vals[self._rank[d][owner]] = grad(
+                            groups[d][1][name]).view(self.S, -1)[s]
+                got = self._span.ppermute(
+                    vals, [(self._rank[d][owner], self._rank[d][s])
+                           for d in range(self.dp)],
+                    self.layout.devices, ((padded // self.S,), torch.float32))
+                for d, s2 in self._mine:
+                    if s2 == s:
+                        grads[("big", name, self._rank[d][s])] = \
+                            got[self._rank[d][s]]
+        return outs, grads
+
+    def _reduce(self, grads):
+        """The gradient each of this process's ranks updates with, by
+        ``grads``'s keys: every stage's rows and pp-shard chunks summed
+        over its dp ranks, or under "replicated" every rank's flat
+        gradient summed, in rank order across processes (``Span.sum``:
+        the one-process ``psum``'s bits)."""
+        devs = self.layout.devices
+        if self.param_placement != "stage":
+            total = self._flat_span.sum([grads[("flat", r)]
+                                         for r in self._flat_order
+                                         if r in self._local])
+            return {k: total.to(devs[k[1]]) for k in grads}
+        sums = {}
+        prefixes = [("row",)] + [("big", m[0]) for m in self._big_meta]
+        for s in sorted(self._stage_spans):
+            ranks = [self._rank[d][s] for d in range(self.dp)]
+            for prefix in prefixes:
+                keys = [prefix + (r,) for r in ranks if r in self._local]
+                total = self._stage_spans[s].sum([grads[k] for k in keys])
+                for k in keys:
+                    sums[k] = total.to(devs[k[-1]])
+        return sums
+
+    def _apply(self, sums):
+        """Each of this process's ranks' update from its summed
+        gradient."""
+        lr, tdev = self._lr, self._tdev
+        for key, g in sums.items():
+            r = key[-1]
+            if key[0] == "flat":
+                st, p = self.opt_state[r], self._flats[r]
+            elif key[0] == "row":
+                st, p = self.opt_state["rows"][r], self.params["rows"][r]
+            else:
+                st = self.opt_state["big"][key[1]][r]
+                p = self.params["big"][key[1]][r]
+            st.update(p, g, lr.to(g.device), tdev.to(g.device),
+                      self._opt_gens[r])
 
     def _step_fn(self, inputs):
         """One train step over the input buffers (``inputs[d][s]``: dp
         group d's microbatched inputs on its stage-s rank)."""
-        S = self.S
-        L = self.layout
-        groups = self._leaves()
-        if self.schedule == "1f1b":
-            heads = self._1f1b(inputs, groups)
-        else:
-            heads = self._gpipe(inputs, groups)
-        lr, tdev = self._lr, self._tdev
-        if self.param_placement == "stage":
-            for s in range(S):
-                rows = [g[0][s] for g in groups]
-                grads = [lf.grad if lf.grad is not None
-                         else torch.zeros_like(lf) for lf in rows]
-                if self.dp > 1:
-                    grads = psum(grads)
-                for d, g in enumerate(grads):
-                    r = self._rank[d][s]
-                    self.opt_state["rows"][r].update(
-                        self.params["rows"][r], g, lr.to(g.device),
-                        tdev.to(g.device), self._opt_gens[r])
-            for name, _shape, _size, padded, _o in self._big_meta:
-                wholes = [g[1][name] for g in groups]
-                wholes = [w.grad if w.grad is not None
-                          else torch.zeros_like(w) for w in wholes]
-                for s in range(S):
-                    chunks = [w.view(S, -1)[s].to(
-                        L.devices[self._rank[d][s]])
-                        for d, w in enumerate(wholes)]
-                    if self.dp > 1:
-                        chunks = psum(chunks)
-                    for d, g in enumerate(chunks):
-                        r = self._rank[d][s]
-                        self.opt_state["big"][name][r].update(
-                            self.params["big"][name][r], g,
-                            lr.to(g.device), tdev.to(g.device),
-                            self._opt_gens[r])
-        else:
-            ranks = [r for grp in self._rank for r in grp]
-            leaves = [lf for g in groups for lf in g[0]]
-            grads = psum([lf.grad if lf.grad is not None
-                          else torch.zeros_like(lf) for lf in leaves])
-            for r, g in zip(ranks, grads):
-                self.opt_state[r].update(self._flats[r], g,
-                                         lr.to(g.device), tdev.to(g.device),
-                                         self._opt_gens[r])
-        dev0 = self.device
-        nheads = len(self.out_shapes)
-        return [torch.cat([heads[d][m][j].detach().to(dev0)
-                           for m in range(self.M) for d in range(self.dp)])
-                for j in range(nheads)]
+        outs, grads = self._compute(inputs)
+        self._apply(self._reduce(grads))
+        return outs
 
     def _buffers(self):
         if self.param_placement == "stage":
@@ -721,55 +915,120 @@ class PipelineTrainer:
             for v in self.params["big"].values():
                 out.extend(v)
             for st in self.opt_state["rows"]:
-                out.extend(st.buffers())
+                out.extend(st.buffers() if st is not None else [])
             for v in self.opt_state["big"].values():
                 for st in v:
-                    out.extend(st.buffers())
-            return out
-        out = list(self._flats)
-        for st in self.opt_state:
-            out.extend(st.buffers())
-        return out
+                    out.extend(st.buffers() if st is not None else [])
+        else:
+            out = list(self._flats)
+            for st in self.opt_state:
+                out.extend(st.buffers() if st is not None else [])
+        return [t for t in out if t is not None]
+
+    def _build(self, inputs, ops):
+        """The step: one program in one process, captured on the card;
+        across processes with every group's pp ranks in one process a
+        ``ProgramChain`` (the compute and the update captured, the dp sums
+        on the host between them); with a pp hop across processes one
+        program run uncaptured (each tick holds a gloo call)."""
+        cuda = self.device.type == "cuda"
+        capture = not has_host_ops(self.symbol)
+        gens = [g for g in self._gens if g is not None]
+        opt_gens = [g for g in self._opt_gens if g is not None]
+        kw = dict(device=self.device, log=self._compile_log)
+        if not self.mesh.is_multiprocess or self._pp_cross:
+            return Program(
+                functools.partial(self._step_fn, inputs), ops,
+                mutable=self._buffers(),
+                generators=gens + opt_gens if cuda else [],
+                name="PipelineTrainer.step", tag="step",
+                capture=capture and not self._pp_cross, **kw)
+        nout = len(self.out_shapes) if any(
+            s == self.S - 1 for _, s in self._mine) else 0
+
+        def compute():
+            outs, grads = self._compute(inputs)
+            self._gkeys = list(grads)
+            return tuple(outs) + tuple(grads.values())
+
+        @torch.no_grad()
+        def reduce(res):
+            sums = self._reduce(dict(zip(self._gkeys, res[nout:])))
+            if self._gbuf is None:
+                self._gbuf = {k: v.clone() for k, v in sums.items()}
+            else:
+                for k, v in sums.items():
+                    self._gbuf[k].copy_(v)
+            self._outs = res[:nout]
+
+        def update():
+            self._apply(self._gbuf)
+            return ()
+
+        return ProgramChain([
+            Program(compute, ops, generators=gens if cuda else [],
+                    name="PipelineTrainer.step.compute",
+                    tag="step.compute", capture=capture, **kw),
+            reduce,
+            Program(update, mutable=self._buffers(),
+                    generators=opt_gens if cuda else [],
+                    name="PipelineTrainer.step.update", tag="step.update",
+                    capture=capture, **kw),
+            lambda _: self._outs], "PipelineTrainer.step")
+
+    @property
+    def compile_counts(self):
+        """``{tag: builds}`` of the step's programs: ``{"step": 1}``, or
+        ``{"step.compute": 1, "step.update": 1}`` for the chain."""
+        return dict(collections.Counter(self._compile_log))
 
     def _step_program(self, batch):
         missing = [k for k in self.input_shapes if k not in batch]
         if missing:
             raise MXNetError("step: missing input %s" % missing[0])
         vals = {k: _as_tensor(batch[k]) for k in self.input_shapes}
+        lo, hi = self.process_rows
+        for k, v in vals.items():
+            if v.shape[0] != hi - lo:
+                raise MXNetError(
+                    "step: input %r has %d rows; this process passes rows "
+                    "[%d, %d) of the global batch of %d (its dp groups')"
+                    % (k, v.shape[0], lo, hi, self.global_batch))
         L = self.layout
         if self._program is None:
             ops = {}
-            inputs = [[dict() for _ in range(self.S)]
-                      for _ in range(self.dp)]
+            inputs = {d: [dict() for _ in range(self.S)]
+                      for d in self._groups}
             for k, v in vals.items():
                 # the label on the last stage's rank, the data on stage 0's
                 s = self.S - 1 if k == self.label_name else 0
-                for d in range(self.dp):
+                for d in self._groups:
+                    if self._rank[d][s] not in self._local:
+                        continue
                     buf = torch.empty(
                         (self.M, self.mb) + tuple(v.shape[1:]),
                         dtype=v.dtype, device=L.devices[self._rank[d][s]])
                     ops["%s@%d" % (k, d)] = inputs[d][s][k] = buf
-            self._program = Program(
-                functools.partial(self._step_fn, inputs), ops,
-                mutable=self._buffers(),
-                generators=self._gens + self._opt_gens
-                if self.device.type == "cuda" else [],
-                name="PipelineTrainer.step", device=self.device,
-                capture=not has_host_ops(self.symbol))
-        # [B, ...] -> [M, dp*mb, ...]; dp group d takes columns d*mb...
+            self._program = self._build(inputs, ops)
+        # [rows, ...] -> [groups, M, mb, ...]: group d's rows, microbatch
+        # by microbatch
         split = {}
-        for k, v in vals.items():
-            v = v.reshape((self.M, self.dp * self.mb) + tuple(v.shape[1:]))
-            for d in range(self.dp):
-                split["%s@%d" % (k, d)] = \
-                    v[:, d * self.mb:(d + 1) * self.mb]
+        for key in self._program.operands:
+            k, d = key.rsplit("@", 1)
+            v = vals[k]
+            split[key] = v.reshape((len(self._groups), self.M, self.mb)
+                                   + tuple(v.shape[1:]))[
+                                       int(d) - self._groups[0]]
         self._program.load(**split)
         return self._program
 
     def step(self, batch):
-        """One pipelined train step on a GLOBAL batch dict (arrays or
-        tensors). Returns the head output ``[B, ...]`` (microbatches put
-        back in batch order); a list when the symbol has several heads."""
+        """One pipelined train step on a batch dict (arrays or tensors):
+        the GLOBAL batch in one process, else this process's rows of it
+        (``process_rows``). Returns the head output (microbatches put back
+        in batch order; a list when the symbol has several heads) of the
+        rows whose last stage this process runs, None where it runs no
+        last stage."""
         if self.params is None:
             self.init_params()
         prog = self._step_program(batch)
@@ -779,21 +1038,29 @@ class PipelineTrainer:
                        else self.optimizer.lr)
         self._tdev.fill_(float(self._t))
         outs = [o.clone() for o in prog.run()]
+        if not outs:
+            return None
         return outs[0] if len(outs) == 1 else outs
 
     def get_params(self):
-        """Every parameter whole, as CPU f32 tensors by name."""
+        """Every parameter whole, as CPU f32 tensors by name. On a mesh
+        across processes the stages' rows and the pp shards are gathered
+        from every process (as the JAX package does at
+        ``process_count() > 1``), so every process calls it together."""
+        local = self.mesh.local_ranks
         if self.param_placement == "stage":
             out = {}
             ranks = self._rank[0]
+            rows = self._span.gather([self.params["rows"][r] for r in local])
             for s, meta in enumerate(self._flat_meta):
-                row = self.params["rows"][ranks[s]].detach().cpu()
+                row = rows[ranks[s]].detach().cpu()
                 for name, shape, off, size in meta:
                     out[name] = row[off:off + size].reshape(shape).clone()
             for name, shape, size, _padded, _s in self._big_meta:
-                whole = torch.cat([self.params["big"][name][r].detach()
-                                   .cpu() for r in ranks])
+                chunks = self._span.gather([self.params["big"][name][r]
+                                            for r in local])
+                whole = torch.cat([chunks[r].detach().cpu() for r in ranks])
                 out[name] = whole[:size].reshape(shape).clone()
             return out
         return {n: v.detach().to("cpu", copy=True)
-                for n, v in self.params[0].items()}
+                for n, v in self.params[local[0]].items()}

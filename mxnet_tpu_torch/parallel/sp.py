@@ -31,7 +31,7 @@ import re
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, later_slice
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
 from .graph import make_spmd_graph_fn
@@ -69,6 +69,10 @@ class SequenceParallelTrainer:
         if "sp" not in mesh.shape or "dp" not in mesh.shape:
             raise MXNetError("SequenceParallelTrainer: mesh needs axes "
                              "'dp' and 'sp', got %s" % (dict(mesh.shape),))
+        if mesh.is_multiprocess:
+            # the ring hops are tensor moves inside this process
+            raise later_slice("SequenceParallelTrainer", "a mesh across "
+                              "processes (%r)" % (mesh,))
         if symbol.list_auxiliary_states():
             raise MXNetError("SequenceParallelTrainer: aux states are not "
                              "supported (as in the JAX package)")

@@ -547,7 +547,8 @@ def _resolve_parallel(tp, ep, mesh, decoder):
     tp)``; tp > 1 alone takes ``["cpu"] * tp`` on the host (the caller
     asked for it) and the visible cards on CUDA. Every rank must name the
     decoder's device: the engine's programs are single-device (CUDA
-    graphs), so a mesh over distinct devices belongs to a later slice.
+    graphs), so a mesh over distinct devices, or across processes,
+    belongs to a later slice.
     Returns ``(tp, ep, mesh)``, the mesh None at tp = ep = 1."""
     device = decoder.device
     if mesh is None and tp is None:
@@ -569,6 +570,11 @@ def _resolve_parallel(tp, ep, mesh, decoder):
                 "axis size %d — pass one or the other"
                 % (tp, mesh.shape["model"]))
         tp = int(mesh.shape["model"])
+        if mesh.is_multiprocess:
+            # the engine's programs run on this process's device, as the
+            # JAX engine has no path across processes
+            raise later_slice("InferenceEngine", "serving over a mesh "
+                              "across processes (%r)" % (mesh,))
     tp = int(tp)
     if tp < 1:
         raise MXNetError("InferenceEngine: tp must be >= 1 (1 = unsharded; "
@@ -767,9 +773,9 @@ class InferenceEngine:
         ``tp`` that differs from it raises. Without a mesh a CPU engine
         runs its ranks on the host and a CUDA one takes the visible cards.
         Every rank must name the decoder's device (a mesh over distinct
-        cards belongs to a later slice), and the kv heads of the target
-        and draft models must divide by ``tp``. Greedy streams equal
-        tp=1's.
+        cards, or across processes, belongs to a later slice), and the
+        kv heads of the target and draft models must divide by ``tp``.
+        Greedy streams equal tp=1's.
     ep : optional
         Expert parallelism of a MoE decoder: every input of each MoE node
         but its data (the gate and the four expert stacks; a quantized

@@ -31,11 +31,18 @@ rank 0, ``ImageRecordIter(num_parts=, part_index=)`` into
 ``zero1`` and ``fsdp``), ``bn_global`` (a conv net's BatchNorm over the
 global batch, 2 steps, also with ``grad_accum=2`` at the tiny size) and
 ``ckpt`` (``save_sharded_checkpoint`` from every process, synchronous
-and asynchronous, restored in every process). ``MXNET_DISTTEST_SIZE``
+and asynchronous, restored in every process). ``pipe`` builds
+``PipelineTrainer`` (the LM with ``pipeline_stages=2``, f32, 3 SGD
+momentum steps) over meshes whose ranks it places across the processes
+itself (``PIPE_LAYOUTS``): {pp: 2} with one stage a process, GPipe and
+1F1B, and at the tiny size also {dp: 2, pp: 2} with pp across the
+processes and dp inside each, the same with dp across and pp inside, and
+{pp: 2} with a pp-sharded parameter across the processes and with
+``param_placement="replicated"``. ``MXNET_DISTTEST_SIZE``
 picks their sizes: ``tiny`` (the CPU tests; the default with
 ``MXNET_DISTTEST_CTX=cpu``) or ``full`` (phase 7f, the default on the
-card: the 124M LM in bf16 at B=8 T=1024, ResNet-50 f32 at 224 x 224
-B=64).
+card: the 124M LM in bf16 at B=8 T=1024 (f32 in ``pipe``), ResNet-50 f32
+at 224 x 224 B=64).
 They write each trainer's parameters, aux and optimizer states as
 digests (and at the tiny size as ``.npz``), losses, ms a step, the
 collectives' ms and bytes a step, the programs a step and the kernels'
@@ -56,7 +63,7 @@ import numpy as np
 # the rows that context r of a [ctx] * n run gets (executor_manager splits
 # each batch into n contiguous parts)
 FIT_SAMPLES, FIT_D, FIT_K, FIT_B = 400, 16, 4, 100
-RESNET_HW, RESNET_CLASSES, RESNET_GB, RESNET_BATCHES = 224, 1000, 64, 4
+RESNET_HW, RESNET_CLASSES, RESNET_GB, RESNET_BATCHES = 224, 1000, 64, 2
 RESNET_LR, RESNET_EPOCHS = 0.01, 2
 MLP_DIMS = (784, 128, 64, 10)        # train_mnist.py's MLP
 MLP_SAMPLES, MLP_B, MLP_EPOCHS = 2000, 100, 6
@@ -75,6 +82,16 @@ BN_SIZES = {"tiny": dict(b=16, hw=8, classes=5, accum=(1, 2), clip=1.0),
             "full": dict(b=RESNET_GB, hw=RESNET_HW, classes=RESNET_CLASSES,
                          accum=(1,), clip=None)}
 BN_STEPS, BN_LR = 2, 0.01
+# the pipeline check: microbatches a step, the layouts by size (each a
+# mesh shape, where each process's ranks lie, and the trainer's options)
+PIPE_M = 4
+PIPE_AXES = {"a": {"pp": 2}, "b": {"dp": 2, "pp": 2},
+             "c": {"dp": 2, "pp": 2}, "d_shard": {"pp": 2},
+             "d_repl": {"pp": 2}}
+PIPE_KW = {"a": {}, "b": {}, "c": {}, "d_shard": {"pp_shard_min_size": 1024},
+           "d_repl": {"param_placement": "replicated"}}
+PIPE_LAYOUTS = {"tiny": ("a", "b", "c", "d_shard", "d_repl"),
+                "full": ("a",)}
 TRAINER_GB, SHARDIO_HW, SHARDIO_N, SHARDIO_K = 16, 12, 64, 4
 
 
@@ -187,12 +204,14 @@ def mlp_data(seed=21):
     return x.astype(np.float32), y.astype(np.float32)
 
 
-def lm_symbol(cfg):
-    """The LM of size ``cfg`` (``LM_SIZES``), ``impl="flash"``."""
+def lm_symbol(cfg, stages=None):
+    """The LM of size ``cfg`` (``LM_SIZES``), ``impl="flash"``, tagged
+    for ``stages`` pipeline stages."""
     from mxnet_tpu_torch.models import get_transformer_lm
     return get_transformer_lm(cfg["vocab"], num_layers=cfg["layers"],
                               embed_dim=cfg["embed"],
-                              num_heads=cfg["heads"], impl="flash")
+                              num_heads=cfg["heads"], impl="flash",
+                              pipeline_stages=stages)
 
 
 def lm_batch(cfg, seed=LM_SEED):
@@ -215,6 +234,65 @@ def lm_trainer(par, cfg, mesh, **kw):
         optimizer="sgd", optimizer_params={"learning_rate": LM_LR,
                                            "momentum": 0.9},
         mesh=mesh, compute_dtype=cfg["dtype"], seed=0, **kw).init_params()
+
+
+def pipe_schedules(layout):
+    """The schedules a pipeline layout runs (1F1B needs the "stage"
+    placement)."""
+    return ("gpipe",) if layout == "d_repl" else ("gpipe", "1f1b")
+
+
+def pipe_mesh(par, layout, devs, owners):
+    """Layout ``layout``'s mesh over the global device list ``devs``
+    owned by ``owners`` (two processes): stage s in process s ("a", "b",
+    "d_*"; "b" with dp over two devices of each), or dp group d in process
+    d with both stages on two of its devices ("c")."""
+    own = [[d for d, p in zip(devs, owners) if p == q] for q in (0, 1)]
+    if PIPE_AXES[layout] == {"pp": 2}:
+        return par.Mesh([own[0][0], own[1][0]], ("pp",), processes=[0, 1])
+    if layout == "b":
+        grid = [[own[0][0], own[1][0]], [own[0][1], own[1][1]]]
+        procs = [[0, 1], [0, 1]]
+    else:
+        grid = [own[0][:2], own[1][:2]]
+        procs = [[0, 0], [1, 1]]
+    devices = np.empty((2, 2), dtype=object)
+    devices[:] = grid
+    return par.Mesh(devices, ("dp", "pp"), processes=procs)
+
+
+def pipe_trainer(par, cfg, mesh, schedule, init=True, **kw):
+    """The pipeline check's trainer: the LM of size ``cfg`` with
+    ``pipeline_stages=2`` (f32), PIPE_M microbatches, SGD lr ``LM_LR``
+    momentum 0.9 over ``mesh``, the default initializer from seed 0;
+    its parameters drawn unless ``init`` is False."""
+    shape = (cfg["b"], cfg["t"])
+    kw.setdefault("seed", 0)
+    tr = par.PipelineTrainer(
+        lm_symbol(cfg, stages=2), {"data": shape, "softmax_label": shape},
+        mesh, num_microbatches=PIPE_M, optimizer="sgd",
+        optimizer_params={"learning_rate": LM_LR, "momentum": 0.9},
+        schedule=schedule, **kw)
+    return tr.init_params() if init else tr
+
+
+def pipe_state(tr):
+    """A PipelineTrainer's whole parameters (``arg:``; ``get_params``
+    gathers them, so every process calls it together) and the optimizer
+    state this process holds, by rank (``opt:<row|flat|name>:<rank>:<i>``),
+    as host numpy arrays."""
+    out = {"arg:" + k: v.numpy() for k, v in tr.get_params().items()}
+    st = tr.opt_state
+    per = dict(st["big"], row=st["rows"]) \
+        if tr.param_placement == "stage" else {"flat": st}
+    for name, states in per.items():
+        for r, rank_state in enumerate(states):
+            if rank_state is None:
+                continue
+            for i, b in enumerate(rank_state.buffers()):
+                out["opt:%s:%d:%d" % (name, r, i)] = \
+                    b.detach().cpu().numpy()
+    return out
 
 
 def bn_symbol(mx, cfg):
@@ -672,19 +750,25 @@ def main():
     def global_nll(out, label):
         """The mean -log p[label] over the global batch of the softmax
         output (classes on dimension 1: [B, K] or the LM's [B, V, T];
-        this process's sum and count, summed over the processes)."""
-        lab = torch.as_tensor(label).long().to(out.device)
-        p = out.gather(1, lab.unsqueeze(1))
-        acc = torch.stack([-torch.log(p.float().clamp_min(1e-30)).sum(),
-                           torch.tensor(float(lab.numel()),
-                                        device=out.device)])
+        this process's sum and count, summed over the processes; a
+        process that returns no output adds nothing)."""
+        if out is None:
+            acc = torch.zeros(2)
+        else:
+            lab = torch.as_tensor(label).long().to(out.device)
+            p = out.gather(1, lab.unsqueeze(1))
+            acc = torch.stack([-torch.log(p.float().clamp_min(1e-30)).sum(),
+                               torch.tensor(float(lab.numel()),
+                                            device=out.device)])
         tot = coll.process_sum(acc).tolist()
         return tot[0] / tot[1]
 
     def train(tr, batches, what):
         """Step over ``batches`` (this process's rows, a list; each step
-        the next); ms a step, losses, the collectives and the launches
-        of every step after the first (which builds and captures)."""
+        the next): (ms a step, losses, the collectives and the launches
+        of every step after the first (which builds and captures), the
+        step's programs; the last step's first head output, None where
+        this process returns none)."""
         res = {"ms": [], "loss": []}
         for i, b in enumerate(batches):
             if i == 1:
@@ -695,20 +779,22 @@ def main():
             outs = tr.step(b)
             settle(tr)
             res["ms"].append((time.perf_counter() - t0) * 1e3)
-            res["loss"].append(global_nll(outs[0], b["softmax_label"]))
+            out = outs[0] if isinstance(outs, list) else outs
+            res["loss"].append(global_nll(out, b["softmax_label"]))
         c1 = cross()
         steps = max(len(batches) - 1, 1)
         res["launches"] = {k: v for k, v in K.launch_counts().items() if v}
         res["cross_ms"] = (c1[0] - c0[0]) / steps
         res["cross_calls"] = (c1[1] - c0[1]) / steps
         res["cross_bytes"] = (c1[2] - c0[2]) / steps
-        chain = tr._program
-        res["programs"] = len(chain.programs)
-        res["captured"] = chain.captured
-        res["host_stages"] = chain.host_stages
+        progs = getattr(tr._program, "programs", [tr._program])
+        res["programs"] = len(progs)
+        res["captured"] = sum(1 for p in progs if p._capture_ok
+                              and p.device.type == "cuda")
+        res["host_stages"] = getattr(tr._program, "host_stages", 0)
         res["compile_counts"] = tr.compile_counts
         res["what"] = what
-        return res
+        return res, out
 
     def keep(name, state, extra):
         """Write a trainer's state: digests (and at the tiny size the
@@ -765,7 +851,7 @@ def main():
             tr = lm_trainer(par, cfg, par.build_mesh({"dp": -1}), **kw)
             if tr.device.type == "cuda":
                 card_math()
-            res = train(tr, [batch] * LM_STEPS, variant)
+            res, _ = train(tr, [batch] * LM_STEPS, variant)
             res["state_bytes"] = [list(tr._sharded.state_bytes(r))
                                   for r in tr._sharded.local]
             state = trainer_state(tr)
@@ -792,8 +878,8 @@ def main():
             tr.init_params(args, aux)
             if tr.device.type == "cuda":
                 card_math()
-            res = train(tr, [local(b, cfg["b"]) for b in batches],
-                        "accum%d" % accum)
+            res, _ = train(tr, [local(b, cfg["b"]) for b in batches],
+                           "accum%d" % accum)
             keep("bn_global-%d" % accum, trainer_state(tr), res)
             del tr
             gc.collect()
@@ -843,6 +929,42 @@ def main():
         del tr, saved
         gc.collect()
         print("OK ckpt rank=%d" % rank, flush=True)
+
+    def check_pipe():
+        """PipelineTrainer over meshes whose ranks lie across the two
+        processes (``PIPE_LAYOUTS`` of the size; each schedule the layout
+        runs), LM_STEPS steps on one global batch, each process passing
+        its rows (``process_rows``): the state (whole parameters, this
+        process's optimizer state; at the tiny size the last head output
+        where this process returns one, ``<name>-head-<rank>.npy``) and
+        the step's figures, written for the launcher's one-process
+        oracle; ``seed=None`` takes process 0's seed in both."""
+        cfg = LM_SIZES[size]
+        devs, owners = distributed.devices(), distributed.device_processes()
+        gbatch = lm_batch(cfg)
+        drawn = pipe_trainer(par, cfg, pipe_mesh(par, "a", devs, owners),
+                             "gpipe", init=False, seed=None)._seed
+        for layout in PIPE_LAYOUTS[size]:
+            for schedule in pipe_schedules(layout):
+                tr = pipe_trainer(par, cfg,
+                                  pipe_mesh(par, layout, devs, owners),
+                                  schedule, **PIPE_KW[layout])
+                if tr.device.type == "cuda":
+                    card_math()
+                lo, hi = tr.process_rows
+                res, head = train(tr, [{k: v[lo:hi] for k, v in
+                                        gbatch.items()}] * LM_STEPS,
+                                  "%s %s" % (layout, schedule))
+                res.update(process_rows=[lo, hi], has_head=head is not None,
+                           seed_none=drawn)
+                name = "pipe-%s-%s" % (layout, schedule)
+                state = pipe_state(tr)
+                keep(name, state, res)
+                if head is not None and size == "tiny":
+                    np.save(_out(name + "-head", rank), head.cpu().numpy())
+                del tr, state
+                gc.collect()
+        print("OK pipe rank=%d" % rank, flush=True)
 
     def check_sharded_io():
         """The JAX package's check_sharded_io: rank 0 packs RAW0 records;
@@ -903,7 +1025,7 @@ def main():
               "card_routes": check_card_routes,
               "trainer": check_trainer, "shardio": check_sharded_io,
               "lm_dp": check_lm_dp, "bn_global": check_bn_global,
-              "ckpt": check_ckpt}
+              "ckpt": check_ckpt, "pipe": check_pipe}
     sel = os.environ.get("MXNET_DISTTEST_CHECKS", "")
     for name in [c for c in sel.split(",") if c] or list(checks)[:6]:
         tic = time.time()

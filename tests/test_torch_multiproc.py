@@ -1,10 +1,10 @@
-"""The port's ``ParallelTrainer`` over a mesh that spans worker processes:
-two workers launched by the unchanged ``tools/launch.py -n 2
---local-devices 2`` (4 ranks on the host, 2 a process, so the sums run
-over 4 ranks in rank order) join one gloo group and run the checks
-``trainer``, ``shardio``, ``lm_dp``, ``bn_global`` and ``ckpt`` of
-``mxnet_tpu_torch.testing.dist_worker`` at their tiny size, each process
-passing its rows of the global batch.
+"""The port's ``ParallelTrainer`` and ``PipelineTrainer`` over meshes that
+span worker processes: two workers launched by the unchanged
+``tools/launch.py -n 2 --local-devices 2`` (4 ranks on the host, 2 a
+process, so the sums run over 4 ranks in rank order) join one gloo group
+and run the checks ``trainer``, ``shardio``, ``lm_dp``, ``bn_global``,
+``ckpt`` and ``pipe`` of ``mxnet_tpu_torch.testing.dist_worker`` at their
+tiny size, each process passing its rows of the global batch.
 
 Oracles: the port's own one-process run over ``["cpu"] * 4`` from the
 same weights and global batches, bitwise (parameters, optimizer states,
@@ -15,7 +15,16 @@ checksum within 1e-4, the LM's and the BatchNorm net's parameter deltas
 within 2e-2 by norm per tensor (f32; another order of sums), the moving
 statistics within rtol 1e-4; the JAX package's ``load_sharded`` reading
 the 2-process checkpoint; the sharded-IO fit above 0.85, equal in both
-processes.
+processes. The pipelines (``pipe``: {pp: 2} a stage a process, {dp: 2,
+pp: 2} with pp or dp across the processes, a pp-sharded parameter
+across them, ``param_placement="replicated"``; GPipe and 1F1B): both
+ranks' ``get_params()`` and each rank's optimizer state bitwise the
+port's one-process run over the same mesh shape on ``["cpu"] * n``, the
+head output only in the processes that run a last stage, equal to the
+one-process rows; the parameters within ``test_torch_pipeline.py``'s
+tolerance (rtol 2e-4, atol 2e-5) of the JAX package's
+``PipelineTrainer`` on as many CPU devices, and their deltas within 2e-2
+by norm (the ReLU kink).
 """
 import json
 import os
@@ -35,9 +44,10 @@ from mxnet_tpu_torch import parallel as par
 from mxnet_tpu_torch.testing import dist_worker as W
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CHECKS = ("trainer", "shardio", "lm_dp", "bn_global", "ckpt")
+CHECKS = ("trainer", "shardio", "lm_dp", "bn_global", "ckpt", "pipe")
 CPU4 = ["cpu"] * 4
 DELTA_REL = 2e-2
+TOL = dict(rtol=2e-4, atol=2e-5)
 
 
 @pytest.fixture(scope="module")
@@ -288,3 +298,83 @@ def test_shardio_converges_with_equal_metrics(launched):
     out, _ = launched
     res = _json(out, "shardio")
     assert res[0]["acc"] > 0.85 and res[0]["acc"] == res[1]["acc"]
+
+
+PIPE_RUNS = [(layout, schedule) for layout in W.PIPE_LAYOUTS["tiny"]
+             for schedule in W.pipe_schedules(layout)]
+_PIPE_JAX = {}
+
+
+def _pipe_jax(axes, schedule, init, batch):
+    """The JAX package's PipelineTrainer on the mesh ``axes`` of CPU
+    devices, LM_STEPS steps from ``init`` (the port's initial weights):
+    its parameters, once for each mesh shape and schedule."""
+    key = (tuple(axes.items()), schedule)
+    if key not in _PIPE_JAX:
+        cfg = W.LM_SIZES["tiny"]
+        jsym = jax_lm(cfg["vocab"], num_layers=cfg["layers"],
+                      embed_dim=cfg["embed"], num_heads=cfg["heads"],
+                      impl="flash", pipeline_stages=2)
+        jtr = jpar.PipelineTrainer(
+            jsym, {k: v.shape for k, v in batch.items()},
+            jpar.build_mesh(axes), num_microbatches=W.PIPE_M,
+            optimizer="sgd", schedule=schedule,
+            optimizer_params={"learning_rate": W.LM_LR, "momentum": 0.9})
+        jtr.init_params({k: jmx.nd.array(v) for k, v in init.items()})
+        for _ in range(W.LM_STEPS):
+            jtr.step(batch)
+        _PIPE_JAX[key] = {k: v.asnumpy()
+                          for k, v in jtr.get_params().items()}
+    return _PIPE_JAX[key]
+
+
+@pytest.mark.parametrize("layout,schedule", PIPE_RUNS)
+def test_pipe_matches_one_process_and_jax(launched, layout, schedule):
+    """PipelineTrainer across 2 processes (the layout's ranks placed by
+    ``dist_worker.pipe_mesh``): both ranks' whole parameters and each
+    rank's optimizer state bitwise the one-process run over the same
+    mesh shape, the loss falling; the head only where a process runs a
+    last stage, its rows the one-process head's; a pp hop across the
+    processes runs the step uncaptured, dp across them a chain; seed=None
+    is process 0's in both; within the JAX package's pipeline."""
+    out, _ = launched
+    cfg = W.LM_SIZES["tiny"]
+    axes = W.PIPE_AXES[layout]
+    n = int(np.prod(list(axes.values())))
+    tr = W.pipe_trainer(par, cfg, par.build_mesh(axes, ["cpu"] * n),
+                        schedule, **W.PIPE_KW[layout])
+    init = {k: v.numpy() for k, v in tr.get_params().items()}
+    batch = W.lm_batch(cfg)
+    for _ in range(W.LM_STEPS):
+        head = tr.step(batch)
+    want = W.pipe_state(tr)
+    name = "pipe-%s-%s" % (layout, schedule)
+    ranks, res = _npz(out, name), _json(out, name)
+    for r, (got, info) in enumerate(zip(ranks, res)):
+        lo, hi = info["process_rows"]
+        if layout == "c":
+            assert (lo, hi) == (r * cfg["b"] // 2, (r + 1) * cfg["b"] // 2)
+        assert info["has_head"] == (layout == "c" or r == 1)
+        path = os.path.join(out, "%s-head-%d.npy" % (name, r))
+        assert os.path.exists(path) == info["has_head"]
+        if info["has_head"]:
+            assert np.array_equal(np.load(path), head.numpy()[lo:hi])
+        assert all(k in got for k in want if k.startswith("arg:"))
+        _equal(got, {k: want[k] for k in got}, "%s rank %d" % (name, r))
+        assert info["loss"][-1] < info["loss"][0]
+        assert info["seed_none"] == res[0]["seed_none"]
+        assert info["cross_bytes"] > 0
+        if layout == "c":
+            assert info["compile_counts"] == {"step.compute": 1,
+                                              "step.update": 1}
+            assert info["programs"] == 2 and info["host_stages"] == 2
+        else:
+            assert info["compile_counts"] == {"step": 1}
+            assert info["programs"] == 1 and info["host_stages"] == 0
+    assert set(ranks[0]) | set(ranks[1]) == set(want)
+    assert res[0]["loss"] == res[1]["loss"]
+    got = {k[4:]: v for k, v in want.items() if k.startswith("arg:")}
+    jwant = _pipe_jax(axes, schedule, init, batch)
+    for k in jwant:
+        np.testing.assert_allclose(got[k], jwant[k], err_msg=k, **TOL)
+    _delta_gate(name, got, init, jwant)

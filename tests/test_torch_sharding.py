@@ -270,6 +270,103 @@ def test_psum_ranked_backward_sums_in_rank_order():
     assert all(torch.equal(x.grad, want) for x in xs)
 
 
+def test_span_ppermute_moves_sends_and_receives(monkeypatch):
+    """``Span.ppermute`` as process 0 of 2 over members owned [0, 0, 1,
+    1]: a pair with both ends here moves, a local source sends to its
+    destination's process in pieces of ``CHUNK_BYTES``, a local
+    destination receives a tensor of the shape and dtype given; the sends
+    are posted before the receives in ``perm``'s order, nothing is waited
+    on before every piece is posted, and nothing arrives elsewhere."""
+    import torch.distributed as dist
+    _as_process(monkeypatch, 0, 2)
+    monkeypatch.setattr(coll, "CHUNK_BYTES", 16)   # 4 floats a piece
+    xs = _seeded_operands(4, size=10)
+    events, waits = [], []
+
+    class Req:
+        def wait(self):
+            waits.append(len(events))
+
+    def isend(t, peer):
+        events.append(("send", t.clone(), peer))
+        return Req()
+
+    incoming = iter(xs[3].split(4))
+
+    def irecv(t, peer):
+        t.copy_(next(incoming))
+        events.append(("recv", t.numel(), peer))
+        return Req()
+
+    monkeypatch.setattr(dist, "isend", isend)
+    monkeypatch.setattr(dist, "irecv", irecv)
+    calls = coll._TM_CROSS_CALLS.value
+    span = coll.Span([0, 0, 1, 1])
+    out = span.ppermute([xs[0], xs[1], None, None],
+                        [(0, 1), (1, 2), (3, 0)], ["cpu"] * 4,
+                        ((2, 5), torch.float32))
+    assert torch.equal(out[1], xs[0]) and out[2] is None and out[3] is None
+    assert out[0].shape == (2, 5) and torch.equal(out[0].reshape(-1), xs[3])
+    assert [e[0] for e in events] == ["send"] * 3 + ["recv"] * 3
+    assert torch.equal(torch.cat([e[1] for e in events[:3]]), xs[1])
+    assert {e[2] for e in events} == {1} and waits == [6] * 6
+    assert coll._TM_CROSS_CALLS.value == calls + 1
+
+
+def test_sequence_parallel_refuses_a_mesh_across_processes():
+    mesh = par.Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 2),
+                    ("dp", "sp"), processes=[[0, 1]])
+    sym = get_transformer_lm(11, num_layers=1, embed_dim=16, num_heads=2,
+                             impl="ring_striped")
+    with pytest.raises(mx.base.MXNetError, match="SequenceParallelTrainer: "
+                       "a mesh across processes .* later slice"):
+        par.SequenceParallelTrainer(
+            sym, {"data": (2, 8), "softmax_label": (2, 8)}, mesh)
+
+
+def test_engine_refuses_a_mesh_across_processes():
+    from mxnet_tpu_torch.serving.engine import InferenceEngine
+    sym = get_transformer_lm(17, num_layers=1, embed_dim=32, num_heads=4)
+    shapes, _, _ = sym.infer_shape(data=(2, 16), softmax_label=(2, 16))
+    rng = np.random.RandomState(0)
+    params = {n: rng.uniform(-0.3, 0.3, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    dec = par.Decoder(sym, params, max_len=16, device="cpu")
+    mesh = par.Mesh(["cpu"] * 2, ("model",), processes=[0, 1])
+    with pytest.raises(mx.base.MXNetError, match="InferenceEngine: serving "
+                       "over a mesh across processes .* later slice"):
+        InferenceEngine(dec, tp=2, mesh=mesh, slots=2,
+                        prefill_buckets=(4, 8), prefix_cache_mb=0)
+
+
+PIPE_REFUSED = {
+    # process 0 owns dp groups 0 and 2 of 4
+    "groups_not_one_block": ([[0, 0], [1, 1], [0, 0], [1, 1]],
+                             r"dp groups \[0, 2\] are not one block"),
+    # process 0 owns 6 ranks of 8, process 1 two
+    "uneven_ranks": ([[0, 0], [0, 0], [0, 1], [0, 1]],
+                     r"every rank in processes \{0: 6, 1: 2\}"),
+}
+
+
+@pytest.mark.parametrize("case", list(PIPE_REFUSED))
+def test_pipeline_refuses_a_layout_across_processes_it_does_not_cover(
+        monkeypatch, case):
+    """A mesh across processes that the port's pipeline does not run
+    raises ``later_slice`` naming the layout, before any state exists."""
+    procs, match = PIPE_REFUSED[case]
+    _as_process(monkeypatch, 0, 2)
+    sym = get_transformer_lm(11, num_layers=2, embed_dim=16, num_heads=2,
+                             impl="dense", pipeline_stages=2)
+    mesh = par.Mesh(np.array(CPU8, dtype=object).reshape(4, 2),
+                    ("dp", "pp"), processes=procs)
+    with pytest.raises(mx.base.MXNetError, match="PipelineTrainer: Mesh.*"
+                       + match + ".* later slice"):
+        par.PipelineTrainer(sym, {"data": (8, 8), "softmax_label": (8, 8)},
+                            mesh, num_microbatches=2)
+
+
 # -- the data-parallel step ---------------------------------------------------
 
 @pytest.mark.parametrize("mesh_axes", [{"dp": 8}, {"dp": 4, "tp": 2}],
