@@ -473,8 +473,10 @@ Phases:
    2``, ``mxnet_tpu_torch.testing.dist_worker`` at ``MXNET_DISTTEST_SIZE=
    full``; each worker passes its rows of the global batch; the kernels
    built by this process first): (1) the 124M LM bf16 over f32 masters
-   at global B=8 T=1024, SGD lr 1e-3 momentum 0.9, 3 steps on one batch,
-   plain, ``zero1=True`` and ``fsdp=True``: each bitwise equal on both
+   at global B=8 T=1024, SGD lr 1e-3 momentum 0.9, 2 steps on one batch,
+   plain, ``zero1=True`` and ``fsdp=True`` (and AdaFactor with
+   ``fsdp=True``, its state leaves sharded across the workers and
+   gathered before the captured update): each bitwise equal on both
    ranks, to each other and to one process over ``[cuda:0] * 2`` here,
    a falling loss, exactly 12 launches of each flash entry a step in
    each worker, the step two captured programs (compute, update) with
@@ -484,7 +486,7 @@ Phases:
    deterministic and TF32 off, BatchNorm over the global batch (its sums
    in the walk, which therefore runs uncaptured): parameters, moving
    averages and momentum bitwise the one-process run's; (3) the fsdp
-   LM's checkpoints written by both workers, sync and async, restored
+   LM's checkpoint written by both workers (synchronous), restored
    bitwise in both workers and here in one process; (4) the sharded-IO
    fit (RAW0 records, ``ImageRecordIter(num_parts=2, part_index=rank)``,
    ``fit(device_metric=True)``): accuracy above 0.85, equal in both;
@@ -494,8 +496,14 @@ Phases:
    momentum bitwise the one-process run over ``[cuda:0] * 2``, the head
    only in rank 1, exactly 24 of each flash entry a step in each process
    (1F1B: 48 forwards), ms a step against one process, the hops' MB and
-   calls a step (``python3 chip_smoke.py --7f pipe`` runs one check
-   alone);
+   calls a step; (6) ``SequenceParallelTrainer``, phase 7's cell, over
+   {dp: 1, sp: 4} with 2 ranks in each worker (two hops of each
+   rotation cross), 3 steps: parameters and momentum in both workers
+   bitwise phase 7's one-process run after its 3 warm-up steps, its
+   losses, exactly 96 launches of each striped_pair entry and 24 of
+   fused_linear a step in each worker; ms a step against phase 7's, the
+   exchanges' ms, MB and calls a step (``python3 chip_smoke.py --7f sp``
+   runs one check alone);
 8. the ``{"kernels": [...]}`` line (every C entry; ``classic_launches``
    are phase 7b's, ``zoo_launches`` phase 7c's, ``periphery_launches``
    phase 7e's, workers included, ``multiproc_launches`` phase 7f's
@@ -4239,8 +4247,8 @@ def fleet_main_path(K, dev, prefix, work, streams):
 # -- phase 4e: tensor-parallel serving ---------------------------------------
 
 TP = 2
-TP_WAVES = 5                        # phase 4's wave at each degree, in turns
-TP_INT8_WAVES = 3                   # the same with the int8 KV cache
+TP_WAVES = 3                        # phase 4's wave at each degree, in turns
+TP_INT8_WAVES = 2                   # the same with the int8 KV cache
 # both degrees' products: unfused (the fused step is not eligible under tp,
 # and it rounds a bf16 step differently from the unfused chain)
 TP_MM = "pallas"
@@ -4643,7 +4651,7 @@ def tp_main_path(K, dev, prefix, work):
 # -- phase 4f: the dense, blocked and windowed reads -------------------------
 
 WINDOW = 256                        # the windowed cell's ring rows
-DW_WAVES = 3                        # paged and dense waves, in turns
+DW_WAVES = 2                        # paged and dense waves, in turns
 # the windowed wave: 4 prompt lengths x 9 requests (36 > 32 slots: slots
 # are reused), prompts past the window and a budget that carries the short
 # ones past it during decode; pieces of CHUNK tokens
@@ -7618,6 +7626,7 @@ def check_resnet_against_host(dev, b=2):
 # -- phase 7: the sequence-parallel training path ----------------------------
 
 SP_B, SP_T = 2, 4096                # 8192 tokens a step, as TRAIN_B x TRAIN_T
+SP_TIMED_STEPS = 6                  # phase 7's timed steps (7f sp pays)
 SP_MESH = {"dp": 1, "sp": SP_RING}
 SP_ENTRIES = ("striped_pair_fwd", "striped_pair_dq", "striped_pair_dkv")
 # the striped ring against dense causal attention on the card, f32 (TF32
@@ -7694,7 +7703,7 @@ def sp_main_path(K, dev):
     on the mesh {dp: 1, sp: 4} over [cuda:0] * 4 at B=2, T=4096 (local
     C=1024 a rank), f32, SGD lr 1e-3 momentum 0.9, rescale_grad 1/(B T),
     the default Uniform(0.05) init from seed 0, on one repeated seeded
-    batch: WARM_STEPS steps, then TIMED_STEPS with the launch counters
+    batch: WARM_STEPS steps, then SP_TIMED_STEPS with the launch counters
     zeroed just before and read just after. Per step, exactly 12 layers x
     4 ranks x 4 hops = 192 launches of each striped_pair entry and 12 x 4
     of fused_linear (each rank's ffn1 + relu chains). Returns the launch
@@ -7711,10 +7720,11 @@ def sp_main_path(K, dev):
         "local C=%d; SGD lr 1e-3 momentum 0.9; %d warm-up steps in %.1f s"
         % (LAYERS, EMBED, HEADS, VOCAB, SP_B, SP_T, SP_MESH, SP_RING, dev,
            SP_T // SP_RING, WARM_STEPS, time.perf_counter() - t0))
+    _sp_oracle_record(trainer, losses)
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     secs, queued = [], []
-    for _ in range(TIMED_STEPS):
+    for _ in range(SP_TIMED_STEPS):
         t0 = time.perf_counter()
         nll = trainer.step(batch)
         queued.append(time.perf_counter() - t0)
@@ -7726,7 +7736,7 @@ def sp_main_path(K, dev):
     per_step = dict.fromkeys(launches, 0)
     per_step.update({e: LAYERS * SP_RING * SP_RING for e in SP_ENTRIES})
     per_step["fused_linear"] = LAYERS * SP_RING
-    want = {e: n * TIMED_STEPS for e, n in per_step.items()}
+    want = {e: n * SP_TIMED_STEPS for e, n in per_step.items()}
     if launches != want:
         raise AssertionError("sp train launch counts %r, the main path "
                              "wants %r" % (launches, want))
@@ -7734,13 +7744,14 @@ def sp_main_path(K, dev):
             or not losses[-1] < losses[0] - LOSS_FALL:
         raise AssertionError("the SP loss on the repeated batch did not "
                              "fall: %r" % losses)
+    REPORT["sp_ms"] = statistics.median(secs) * 1e3
     tokens = SP_B * SP_T
     tps = [tokens / s for s in secs]
     log("sp train: %d timed steps; tokens/s median %.1f (min %.1f, max "
         "%.1f); ms per step median %.3f (min %.3f, max %.3f); step() "
         "returns after %.3f ms (median; min %.3f, max %.3f); peak memory "
         "%.1f MB; %s" % (
-            TIMED_STEPS, statistics.median(tps), min(tps), max(tps),
+            SP_TIMED_STEPS, statistics.median(tps), min(tps), max(tps),
             statistics.median(secs) * 1e3, min(secs) * 1e3, max(secs) * 1e3,
             statistics.median(queued) * 1e3, min(queued) * 1e3,
             max(queued) * 1e3, peak / 2**20, card_line()))
@@ -7752,6 +7763,19 @@ def sp_main_path(K, dev):
     profile_train(trainer, batch, trace="sp_train_trace.json.gz",
                   what="sp train")
     return launches
+
+
+def _sp_oracle_record(trainer, losses):
+    """Phase 7f's ``sp`` oracle from phase 7's trainer after its warm-up
+    steps (``dist_worker``'s SP trainer at the full size, the same
+    weights and batch; as many steps): the digests of its state and its
+    losses."""
+    from mxnet_tpu_torch.testing import dist_worker as W
+    if WARM_STEPS != W.LM_STEPS or W.SP_SIZES["full"]["b"] != SP_B \
+            or W.SP_SIZES["full"]["t"] != SP_T or W.LM_SEED != 7:
+        raise AssertionError("phase 7's SP run is no longer 7f sp's oracle")
+    REPORT["sp_oracle"] = dict(digests=W.digests(W.sp_state(trainer)),
+                               loss=list(losses))
 
 
 def _delta_rows(got, want):
@@ -9206,7 +9230,7 @@ IO_RESNET_BATCHES, IO_EPOCHS = 12, 2
 IO_INC_B, IO_INC_BATCHES, IO_VAL_BATCHES = 64, 24, 2
 IO_QUEUE_DEPTH = 1                  # of the training runs' pools
 IO_MEAN = (123.68, 116.779, 103.939)    # train_imagenet.py's mean_r/g/b
-IO_SWEEP_B, IO_SWEEP_S = 16, 1.0    # batch, most seconds a pool size runs
+IO_SWEEP_B, IO_SWEEP_S = 16, 0.75   # batch, most seconds a pool size runs
 IO_HEADROOM = 1.2                   # the pool's img/s over the step's need
 IO_CHECK_B = 32
 IO_FEED_BATCHES = 6                 # the fed batches checked
@@ -10468,7 +10492,7 @@ def periphery_main_path(K, dev, prefix):
 # -- phase 7f: multi-process training -----------------------------------------
 
 MP_NOTE = "two processes on ONE card, not a multi-card figure"
-MP_CHECKS = "lm_dp,bn_global,ckpt,shardio,pipe"
+MP_CHECKS = "lm_dp,bn_global,ckpt,shardio,pipe,sp"
 MP_SIZE = "full"                    # dist_worker's LM_SIZES / BN_SIZES
 
 
@@ -10518,15 +10542,18 @@ def _same_digests(what, got, want):
 
 
 def multiproc_main_path(K, dev, checks=MP_CHECKS):
-    """Phase 7f: ``ParallelTrainer`` and ``PipelineTrainer`` over one mesh
-    across two processes on the one card (``tools/launch.py -n 2``,
+    """Phase 7f: ``ParallelTrainer``, ``PipelineTrainer`` and
+    ``SequenceParallelTrainer`` over one mesh across two processes on the
+    one card (``tools/launch.py -n 2``,
     ``mxnet_tpu_torch.testing.dist_worker`` at its full size; the kernels
-    built by this process first): the 124M LM (plain, zero1, fsdp),
-    ResNet-50 f32 with global BatchNorm, checkpoints from both processes
-    (after ``lm_dp``), the sharded-IO fit, the pipelined LM (GPipe and
-    1F1B, a stage a process); each held against the one-process run over
-    ``[dev] * 2`` here, bitwise. ``checks``: which of ``MP_CHECKS`` run.
-    Returns the workers' launches."""
+    built by this process first): the 124M LM (plain, zero1, fsdp;
+    AdaFactor with fsdp), ResNet-50 f32 with global BatchNorm,
+    checkpoints from both processes (after ``lm_dp``), the sharded-IO
+    fit, the pipelined LM (GPipe and 1F1B, a stage a process), the
+    sequence-parallel LM (phase 7's cell, 2 ranks a process); each held
+    against the one-process run over ``[dev] * 2`` here (``sp``: phase
+    7's run over ``[dev] * 4``), bitwise. ``checks``: which of
+    ``MP_CHECKS`` run. Returns the workers' launches."""
     from mxnet_tpu_torch import parallel as par
     from mxnet_tpu_torch.testing import dist_worker as W
     t0 = time.perf_counter()
@@ -10562,6 +10589,7 @@ def multiproc_main_path(K, dev, checks=MP_CHECKS):
         launches = collections.Counter()
         if "lm_dp" in names:
             launches.update(_mp_lm(W, par, dev, t0, out))
+            launches.update(_mp_adafactor(W, par, dev, t0, out))
         if "bn_global" in names:
             _mp_resnet(W, par, dev, t0, out)
         if "ckpt" in names:
@@ -10570,6 +10598,8 @@ def multiproc_main_path(K, dev, checks=MP_CHECKS):
             _mp_shardio(W, t0, out)
         if "pipe" in names:
             launches.update(_mp_pipe(W, par, dev, t0, out, timing))
+        if "sp" in names:
+            launches.update(_mp_sp(W, dev, t0, out, timing))
     finally:
         shutil.rmtree(out, ignore_errors=True)
     _line7f(t0, "done", "every check passed in %.1f s; launches %s" % (
@@ -10699,17 +10729,19 @@ def _mp_pipe(W, par, dev, t0, out, timing):
 def _mp_lm(W, par, dev, t0, out):
     """7f.1: the 124M LM at full width, bf16 over f32 masters, global B=8
     T=1024 over {dp: 2} across the two processes, SGD lr 1e-3 momentum
-    0.9, 3 steps on one batch: each variant's ranks bitwise equal, equal
+    0.9, LM_DP_STEPS steps on one batch: each variant's ranks bitwise
+    equal, equal
     to the one-process [dev] * 2 run, zero1 and fsdp to plain, a falling
     loss, 12 launches of each flash entry a step in each process, the
     compute and the update captured with the collective between them."""
     cfg = W.LM_SIZES[MP_SIZE]
+    nsteps = W.LM_DP_STEPS[MP_SIZE]
     batch = W.lm_batch(cfg)
     card = dev.type == "cuda"
     want, one_ms, one_launches = _mp_oracle(
         W, dev, "lm", lambda: W.lm_trainer(par, cfg, par.build_mesh(
-            {"dp": 2}, [dev] * 2)), [batch] * W.LM_STEPS)
-    steps = W.LM_STEPS - 1
+            {"dp": 2}, [dev] * 2)), [batch] * nsteps)
+    steps = nsteps - 1
     layers = cfg["layers"] if card else 0
     for e in FLASH_ENTRIES:
         if one_launches.get(e, 0) != 2 * layers * steps:
@@ -10749,7 +10781,7 @@ def _mp_lm(W, par, dev, t0, out):
                     "step (%d captured) and %d host stages, loss %s, rank "
                     "0 stores %.1f MB of parameters and %.1f MB of state" % (
                         variant, statistics.median(d["ms"][1:]),
-                        W.LM_STEPS, ["%.3f" % v for v in d["ms"][1:]],
+                        nsteps, ["%.3f" % v for v in d["ms"][1:]],
                         d["cross_ms"], d["cross_bytes"] / 1e6,
                         d["cross_calls"], d["programs"], d["captured"],
                         d["host_stages"], ["%.4f" % v for v in d["loss"]],
@@ -10765,9 +10797,146 @@ def _mp_lm(W, par, dev, t0, out):
             "flash entry a step in each process; %s; %s" % (
                 cfg["layers"], cfg["embed"], cfg["heads"], cfg["vocab"],
                 cfg["dtype"] or "f32",
-                cfg["b"], cfg["t"], MP_NOTE, W.LM_LR, W.LM_STEPS, dev,
-                statistics.median(one_ms), W.LM_STEPS,
+                cfg["b"], cfg["t"], MP_NOTE, W.LM_LR, nsteps, dev,
+                statistics.median(one_ms), nsteps,
                 ["%.3f" % v for v in one_ms], layers, "; ".join(rows),
+                card_line()))
+    return dict(launches)
+
+
+def _mp_adafactor(W, par, dev, t0, out):
+    """7f.1b: the LM of 7f.1 with AdaFactor (lr 1e-3) and fsdp, its
+    factored state leaves sharded over dp with the parameters across the
+    two processes, LM_DP_STEPS steps: both ranks bitwise equal to
+    the one-process [dev] * 2 run, a falling loss, the flash launches,
+    the compute and the update captured with a host stage gathering the
+    shards before the update."""
+    variant, kw = W.LM_ADAFACTOR
+    cfg = W.LM_SIZES[MP_SIZE]
+    nsteps = W.LM_DP_STEPS[MP_SIZE]
+    batch = W.lm_batch(cfg)
+    card = dev.type == "cuda"
+    want, one_ms, one_launches = _mp_oracle(
+        W, dev, variant, lambda: W.lm_trainer(par, cfg, par.build_mesh(
+            {"dp": 2}, [dev] * 2), **kw), [batch] * nsteps)
+    steps = nsteps - 1
+    layers = cfg["layers"] if card else 0
+    if any(one_launches.get(e, 0) != 2 * layers * steps
+           for e in FLASH_ENTRIES):
+        raise AssertionError("phase 7f %s oracle: launches %r"
+                             % (variant, one_launches))
+    res = [json.load(open(os.path.join(out, "lm_dp-%s-%d.json"
+                                            % (variant, r))))
+           for r in range(2)]
+    launches = collections.Counter()
+    for r, d in enumerate(res):
+        what = "%s rank %d" % (variant, r)
+        _same_digests(what, d["digests"], want)
+        if not all(math.isfinite(v) for v in d["loss"]) \
+                or not d["loss"][-1] < d["loss"][0] \
+                or d["loss"] != res[0]["loss"]:
+            raise AssertionError("phase 7f %s: loss %s" % (what, d["loss"]))
+        if d["launches"] != {e: layers * steps for e in FLASH_ENTRIES
+                             if layers}:
+            raise AssertionError("phase 7f %s: launches %r"
+                                 % (what, d["launches"]))
+        if d["compile_counts"] != {"step.compute": 1, "step.update": 1} \
+                or d["captured"] != (2 if card else 0) \
+                or d["host_stages"] != 4:
+            raise AssertionError("phase 7f %s: %d captured, %d host "
+                                 "stages, compile_counts %r" % (
+                                     what, d["captured"], d["host_stages"],
+                                     d["compile_counts"]))
+        launches.update(d["launches"])
+    d = res[0]
+    _line7f(t0, variant, "LM (%d layers, E=%d, %d heads, vocab %d) %s over "
+            "f32 masters, global B=%d T=%d over {dp: 2} across 2 processes "
+            "(%s), AdaFactor lr %g with fsdp (its state leaves sharded with "
+            "the parameters), %d steps: bitwise equal on both ranks and to "
+            "one process over [%s] * 2 (ms a step %s); ms a step %s across "
+            "the processes, the collectives %.3f ms and %.1f MB a step in "
+            "%d calls, %d host stages; loss %s; rank 0 stores %.1f MB of "
+            "parameters and %.1f MB of state; %s" % (
+                cfg["layers"], cfg["embed"], cfg["heads"], cfg["vocab"],
+                cfg["dtype"] or "f32", cfg["b"], cfg["t"], MP_NOTE,
+                W.LM_LR, nsteps, dev, ["%.3f" % v for v in one_ms],
+                ["%.3f" % v for v in d["ms"][1:]], d["cross_ms"],
+                d["cross_bytes"] / 1e6, d["cross_calls"], d["host_stages"],
+                ["%.4f" % v for v in d["loss"]],
+                d["state_bytes"][0][0] / 1e6, d["state_bytes"][0][1] / 1e6,
+                card_line()))
+    return dict(launches)
+
+
+def _mp_sp(W, dev, t0, out, timing):
+    """7f.6: SequenceParallelTrainer, phase 7's cell (the 124M LM,
+    ring_striped, f32, B=2 T=4096, SGD lr 1e-3 momentum 0.9) over {dp: 1,
+    sp: 4} with 2 ranks in each of the two processes on the one card
+    (layout "b": two hops of each rotation cross), 3 steps: both
+    processes' parameters and momentum bitwise phase 7's run over [dev] *
+    4 after as many steps (run here when phase 7 did not), the losses its
+    losses, exactly 2 ranks x 4 hops x 12 layers = 96 launches of each
+    striped_pair entry and 24 of fused_linear a step in each process; ms
+    a step against phase 7's, the exchanges' ms, MB and calls a step (the
+    checkpoint across processes is the tiny size's, in the CPU tests).
+    Returns the workers' launches."""
+    cfg = W.SP_SIZES[MP_SIZE]
+    layers = cfg["layers"] if dev.type == "cuda" else 0
+    ranks = W.SP_AXES["b"]["sp"] // 2
+    if "sp_oracle" not in REPORT:
+        tr = _sp_trainer(dev, cfg["b"], cfg["t"])
+        batch = W.lm_batch(cfg)
+        losses, secs = [], []
+        for _ in range(W.LM_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(tr.step(batch).item())
+            secs.append(time.perf_counter() - t1)
+        _sp_oracle_record(tr, losses)
+        REPORT["sp_ms"] = statistics.median(secs[1:]) * 1e3
+        del tr
+    want = REPORT["sp_oracle"]
+    steps = W.LM_STEPS - 1
+    per_step = {e: ranks * W.SP_AXES["b"]["sp"] * layers
+                for e in SP_ENTRIES}
+    per_step["fused_linear"] = ranks * layers
+    launches = collections.Counter()
+    res = [json.load(open(os.path.join(out, "sp-%s-b-%d.json"
+                                            % (cfg["impls"][0], r))))
+           for r in range(2)]
+    for r, d in enumerate(res):
+        what = "sp rank %d" % r
+        _same_digests(what, d["digests"], want["digests"])
+        if d["loss"] != want["loss"] or not d["loss"][-1] < d["loss"][0]:
+            raise AssertionError("phase 7f %s: loss %s, one process %s"
+                                 % (what, d["loss"], want["loss"]))
+        if d["launches"] != {e: n * steps for e, n in per_step.items()
+                             if n}:
+            raise AssertionError("phase 7f %s: launches %r, want %r a "
+                                 "step" % (what, d["launches"], per_step))
+        launches.update(d["launches"])
+    d = res[0]
+    one = REPORT["sp_ms"]
+    _line7f(t0, "sp", "SequenceParallelTrainer, LM (%d layers, E=%d, %d "
+            "heads, vocab %d, impl=%s) f32, global B=%d T=%d over {dp: 1, "
+            "sp: 4} with %d ranks in each of 2 processes (%s), SGD lr %g "
+            "momentum 0.9, %d steps on one batch: parameters and momentum "
+            "in both processes bitwise equal to phase 7's one process over "
+            "[%s] * 4, the losses its losses %s; launches a step in each "
+            "process %s; ms a step %s across the processes (steps 2-%d) "
+            "against %s in one process (phase 7's median, or steps 2-3 "
+            "here when it did not run); the exchanges "
+            "(hops, deals, the gradient's and the loss's sums) %.3f ms, "
+            "%.2f MB sent and %.1f calls a step a process; %s; %s" % (
+                cfg["layers"], cfg["embed"], cfg["heads"], cfg["vocab"],
+                cfg["impls"][0], cfg["b"], cfg["t"], ranks, MP_NOTE,
+                W.LM_LR, W.LM_STEPS, dev,
+                ["%.5f" % v for v in d["loss"]], json.dumps(
+                    {e: n for e, n in per_step.items() if n}),
+                ["%.3f" % v for v in d["ms"][1:]], W.LM_STEPS,
+                "%.3f" % one, d["cross_ms"], d["cross_bytes"] / 1e6,
+                d["cross_calls"],
+                "; ".join(t for t in timing if t.startswith("TIMING sp")),
                 card_line()))
     return dict(launches)
 
@@ -10829,10 +10998,11 @@ def _mp_resnet(W, par, dev, t0, out):
 
 
 def _mp_ckpt(W, par, dev, t0, out):
-    """7f.3: the checkpoints of 7f.1's fsdp LM written by both processes
-    (sync and async, each restored in both processes by the workers)
-    restored here in one process over [dev] * 2: its state bitwise the
-    saved one, which is 7f.1's (so the one-process run's)."""
+    """7f.3: the checkpoint of 7f.1's fsdp LM written by both processes
+    (synchronous; ``dist_worker.CKPT_KINDS``; restored in both processes
+    by the workers) restored here in one process over [dev] * 2: its
+    state bitwise the saved one, which is 7f.1's (so the one-process
+    run's)."""
     cfg = W.LM_SIZES[MP_SIZE]
     res = [json.load(open(os.path.join(out, "ckpt-%d.json" % r)))
            for r in range(2)]
@@ -10842,7 +11012,8 @@ def _mp_ckpt(W, par, dev, t0, out):
     secs = []
     tr = W.lm_trainer(par, cfg, par.build_mesh({"dp": 2}, [dev] * 2),
                       fsdp=True)
-    for how in ("sync", "async"):
+    kinds = W.CKPT_KINDS[MP_SIZE]
+    for how in kinds:
         prefix = os.path.join(out, "ckpt-" + how)
         with open(prefix + "-manifest.json") as f:
             nprocs = json.load(f)["nprocs"]
@@ -10859,14 +11030,14 @@ def _mp_ckpt(W, par, dev, t0, out):
     free_programs()
     d = res[0]
     _line7f(t0, "ckpt", "the fsdp LM of 7f.1 after its %d steps, "
-            "save_sharded_checkpoint from both processes: sync %.2f s, "
-            "async %.2f s (to finalize), %.1f + %.1f MB a process's file; "
-            "each restored bitwise in both processes and here in one "
-            "process over [%s] * 2 (restore_sharded_checkpoint %.2f s, "
-            "%.2f s); %s" % (
-                d["step"], d["save_s"]["sync"], d["save_s"]["async"],
-                d["bytes"]["sync"] / 1e6, d["bytes"]["async"] / 1e6, dev,
-                secs[0], secs[1], card_line()))
+            "save_sharded_checkpoint from both processes (%s): %s; each "
+            "restored bitwise in both processes and here in one process "
+            "over [%s] * 2 (restore_sharded_checkpoint %s); %s" % (
+                d["step"], ", ".join(kinds), "; ".join(
+                    "%s %.2f s (to finalize), %.1f MB a process's file"
+                    % (how, d["save_s"][how], d["bytes"][how] / 1e6)
+                    for how in kinds), dev,
+                ", ".join("%.2f s" % v for v in secs), card_line()))
 
 
 _WALL = []

@@ -415,25 +415,31 @@ class MultiHeadAttention(OpSpec):
             raise MXNetError("MultiHeadAttention: unknown impl %r" % impl)
         return [self._output(p, o, ins, is_train, generator)], []
 
-    def forward_ranks(self, p, ins_by_rank, is_train, generators):
+    def forward_ranks(self, p, ins_by_rank, is_train, generators, pos=None,
+                      span=None):
         """The forward on every rank of one ring along ``axis_name`` at
-        once: ``ins_by_rank[r]`` are rank r's inputs, its data the
-        contiguous tokens ``[r T, (r+1) T)``. ``impl="ring"`` rotates K/V
+        once: ``ins_by_rank[j]`` are the inputs of the rank at ring
+        position ``pos[j]`` (default ``j``), its data the contiguous
+        tokens ``[pos[j] T, (pos[j]+1) T)``. ``impl="ring"`` rotates K/V
         around the ring; ``"ring_striped"`` re-deals the tokens
         round-robin with one all_to_all, runs the striped ring (the
-        ``striped_pair_attention`` kernel) and deals back. Returns each
+        ``striped_pair_attention`` kernel) and deals back. ``span`` (a
+        ``collectives.Span`` over the ring): the ring's other ranks live
+        in other processes, ``pos`` are the GLOBAL positions of the ranks
+        given, and the hops and deals cross through it. Returns each
         rank's outputs."""
         from ..parallel import collectives
         from ..parallel.ring import _ring_attention_local, _striped_ring_local
         self._validate(p)
-        n = len(ins_by_rank)
+        n = span.n if span is not None else len(ins_by_rank)
+        pos = list(range(len(ins_by_rank))) if pos is None else list(pos)
         t = ins_by_rank[0][0].shape[1]
         qkv = [self._project(p, ins, r * t)
-               for r, ins in enumerate(ins_by_rank)]
+               for r, ins in zip(pos, ins_by_rank)]
         qs, ks, vs = (list(z) for z in zip(*qkv))
         if p["impl"] == "ring":
             os_ = _ring_attention_local(qs, ks, vs, causal=p["causal"],
-                                        scale=None)
+                                        scale=None, pos=pos, span=span)
         else:
             if t % n:
                 raise MXNetError(
@@ -444,15 +450,16 @@ class MultiHeadAttention(OpSpec):
             def deal(zs):  # contiguous shards -> striped shards
                 zs = [z.reshape(b, t // n, n, h, d).transpose(1, 2)
                       for z in zs]
-                return [z.reshape(b, t, h, d)
-                        for z in collectives.all_to_all(zs, 1, 1)]
+                return [z.reshape(b, t, h, d) for z in
+                        collectives.all_to_all(zs, 1, 1, span=span)]
 
             def undeal(zs):  # striped shards -> contiguous shards
                 zs = [z.reshape(b, n, t // n, h, d) for z in zs]
-                return [z.transpose(1, 2).reshape(b, t, h, d)
-                        for z in collectives.all_to_all(zs, 1, 1)]
+                return [z.transpose(1, 2).reshape(b, t, h, d) for z in
+                        collectives.all_to_all(zs, 1, 1, span=span)]
 
             os_ = undeal(_striped_ring_local(deal(qs), deal(ks), deal(vs),
-                                             scale=None))
+                                             scale=None, pos=pos,
+                                             span=span))
         return [[self._output(p, o, ins, is_train, g)]
                 for o, ins, g in zip(os_, ins_by_rank, generators)]

@@ -55,9 +55,12 @@ __all__ = ["save_sharded", "load_sharded", "latest_step",
 #: ``slices`` a ``(start, stop)`` per dimension (this process's pieces;
 #: every process's together cover the array once); ``spec`` the
 #: PartitionSpec the manifest records; ``shape`` the global shape
-#: (default: where the pieces end)
-Shards = collections.namedtuple("Shards", ["spec", "pieces", "shape"],
-                                defaults=(None,))
+#: (default: where the pieces end); ``dtype`` (a torch dtype, with
+#: ``shape``) lets a process that holds none of the array record it in
+#: the manifest, which process 0 writes
+Shards = collections.namedtuple("Shards",
+                                ["spec", "pieces", "shape", "dtype"],
+                                defaults=(None, None))
 
 # how long a process waits for its peers' files (seconds)
 WAIT_S = 600
@@ -91,7 +94,7 @@ def _snapshot(params, step, extra):
             for sl, host in shards:
                 blobs["%s|%s" % (name, ",".join(
                     "%d:%d" % se for se in sl))] = host
-            if not shards:
+            if not shards and (arr.shape is None or arr.dtype is None):
                 # none of it here: another process writes it and the
                 # manifest
                 continue
@@ -99,7 +102,8 @@ def _snapshot(params, step, extra):
                 [stop for _, stop in shards[0][0]]
             for sl, _ in shards:
                 gshape = [max(g, stop) for g, (_, stop) in zip(gshape, sl)]
-            dtype = shards[0][1].dtype
+            dtype = shards[0][1].dtype if shards else \
+                torch.empty(0, dtype=arr.dtype).numpy().dtype
         else:
             host = _host(arr)
             gshape, dtype = list(host.shape), host.dtype

@@ -27,7 +27,12 @@ outputs' gradients), what a training BatchNorm uses over a mesh in one
 process or several. :meth:`Span.ppermute` moves one tensor between the
 members of each pair it is given (the pipeline's hop of a boundary
 between the processes of neighbouring stages): a send and a receive
-where the pair's ends lie in two processes.
+where the pair's ends lie in two processes. :func:`ring_hop` and
+:func:`all_to_all` given a span are the sequence-parallel ring's hop and
+its striped deal across processes: one autograd node over every local
+member, whose backward is the reverse rotation or the inverse exchange,
+so that every process builds the same graph and reaches the exchanges of
+its backward in the same order.
 Each cross-process call adds to the ``collectives.cross_calls``,
 ``collectives.cross_bytes`` (bytes this process sends) and
 ``collectives.cross_ms`` (the host's wall time in the exchange)
@@ -46,7 +51,7 @@ from .. import telemetry as tele
 
 __all__ = ["psum", "pmean", "pmax", "all_gather", "reduce_scatter",
            "ppermute", "all_to_all", "axis_index", "axis_size", "broadcast",
-           "barrier", "ring_exchange", "bucketed_psum", "Span",
+           "barrier", "ring_exchange", "ring_hop", "bucketed_psum", "Span",
            "psum_ranked", "process_sum", "process_broadcast"]
 
 _TM_CROSS_MS = tele.histogram("collectives.cross_ms")
@@ -122,6 +127,24 @@ def ring_exchange(xs, shift=1):
     return ppermute(xs, [(i, (i + shift) % n) for i in range(n)])
 
 
+def ring_hop(groups, shift=1, span=None):
+    """:func:`ring_exchange` of every list of ``groups`` (the ring's K and
+    V) at once. ``span`` (a :class:`Span` over the ring's members in ring
+    order): each list holds this process's members (``span.local``), and
+    member ``i``'s tensors move to member ``(i + shift) % n`` through ONE
+    autograd node (:class:`_RingHop`), in one exchange between the
+    processes a hop; without a span, the one-process rotation of each
+    list. The node makes each rotated tensor's gradient the sum of two
+    terms (its own use and the next hop's), whose order cannot change the
+    bits, so a ring in one process and across several add alike."""
+    if span is None:
+        return [ring_exchange(xs, shift) for xs in groups]
+    k = len(groups[0])
+    out = _RingHop.apply(span, shift, len(groups),
+                         *[x for xs in groups for x in xs])
+    return [list(out[g * k:(g + 1) * k]) for g in range(len(groups))]
+
+
 def all_gather(xs, *, axis=0, tiled=True):
     """Every rank gets all shards, concatenated along ``axis`` (``tiled``)
     or stacked in a new ``axis``."""
@@ -152,31 +175,46 @@ def reduce_scatter(xs, *, scatter_dimension=0, tiled=True):
     return [t.select(scatter_dimension, i) for i, t in enumerate(total)]
 
 
-def all_to_all(xs, split_axis, concat_axis, *, tiled=False):
+def all_to_all(xs, split_axis, concat_axis, *, tiled=False, span=None):
     """Rank ``j`` receives the ``j``-th piece of ``split_axis`` from every
     rank ``i`` and puts them in rank order along ``concat_axis``
     (``lax.all_to_all``). Untiled, ``split_axis`` has size n and each
     piece is one slice: rank ``j``'s result is
     ``stack([xs[i].select(split_axis, j) for i], concat_axis)``. Tiled,
-    the pieces are blocks of ``size / n`` and are concatenated."""
+    the pieces are blocks of ``size / n`` and are concatenated. ``span``
+    (a :class:`Span` over the ranks): ``xs`` are this process's ranks'
+    (``span.local``), every one of one shape, through ONE autograd node
+    (:class:`_AllToAll`, whose backward is the inverse exchange), the
+    pieces between processes in one exchange."""
+    if span is not None:
+        return list(_AllToAll.apply(span, split_axis, concat_axis, tiled,
+                                    *xs))
     n = len(xs)
+    pieces = _pieces(xs, n, split_axis, tiled)
+    out = []
+    for j, dst in enumerate(xs):
+        got = [pieces[i][j].to(dst.device) for i in range(n)]
+        out.append(_join(got, concat_axis, tiled))
+    return out
+
+
+def _pieces(xs, n, split_axis, tiled):
+    """Each tensor of ``xs`` cut into its n pieces along ``split_axis``."""
     size = xs[0].shape[split_axis]
     if tiled:
         if size % n:
             raise MXNetError("all_to_all: dimension %d of size %d does not "
                              "split over %d ranks" % (split_axis, size, n))
-        pieces = [x.chunk(n, dim=split_axis) for x in xs]
-    else:
-        if size != n:
-            raise MXNetError("all_to_all: untiled needs dimension %d of "
-                             "size %d, got %d" % (split_axis, n, size))
-        pieces = [x.unbind(dim=split_axis) for x in xs]
-    out = []
-    for j, dst in enumerate(xs):
-        got = [pieces[i][j].to(dst.device) for i in range(n)]
-        out.append(torch.cat(got, dim=concat_axis) if tiled else
-                   torch.stack(got, dim=concat_axis))
-    return out
+        return [x.chunk(n, dim=split_axis) for x in xs]
+    if size != n:
+        raise MXNetError("all_to_all: untiled needs dimension %d of "
+                         "size %d, got %d" % (split_axis, n, size))
+    return [x.unbind(dim=split_axis) for x in xs]
+
+
+def _join(got, concat_axis, tiled):
+    return torch.cat(got, dim=concat_axis) if tiled else \
+        torch.stack(got, dim=concat_axis)
 
 
 def broadcast(xs, root=0):
@@ -324,15 +362,8 @@ class Span:
                     for q in range(self.nprocs)]
             dist.all_gather(bufs, send)
             return
-        step = max(1, CHUNK_BYTES // send.element_size())
-        reqs = []
-        for q, buf in recv.items():
-            for off in range(0, send.numel(), step):
-                m = min(step, send.numel() - off)
-                reqs.append(dist.isend(send.narrow(0, off, m), q))
-                reqs.append(dist.irecv(buf.narrow(0, off, m), q))
-        for w in reqs:
-            w.wait()
+        _post([post for q, buf in recv.items()
+               for post in ((dist.isend, send, q), (dist.irecv, buf, q))])
 
     def ppermute(self, xs, perm, devices, meta):
         """``lax.ppermute`` over the members: for each ``(src, dst)`` of
@@ -340,52 +371,71 @@ class Span:
         dst. ``xs[i]``: member i's tensor where this process owns it and
         it sends (else None); ``devices[i]``: member i's device; ``meta``:
         ``(shape, dtype)`` of what a destination receives. A pair whose
-        two ends are local moves by ``.to``; a local source sends and a
-        local destination receives into a new tensor (a card's through
-        pinned host buffers this span keeps, in pieces of
-        ``CHUNK_BYTES``; host tensors directly), every process posting
-        its sends and receives in ``perm``'s order before waiting on any,
-        so that two processes cannot wait on each other. Returns one
-        entry a member: what a local destination received, else None."""
-        import torch.distributed as dist
+        two ends are local moves by ``.to``; the others go in one
+        :meth:`swap`, each end packing its pairs with one peer in
+        ``perm``'s order. Returns one entry a member: what a local
+        destination received, else None."""
         me = distributed.process_index()
         out = [None] * self.n
-        posts, landed, nbytes = [], [], 0
+        sends, recvs, land = {}, {}, {}
         for src, dst in perm:
             s_mine, d_mine = self.owners[src] == me, self.owners[dst] == me
             if s_mine and d_mine:
                 out[dst] = xs[src].to(devices[dst])
             elif s_mine:
-                flat = xs[src].reshape(-1).contiguous()
+                sends.setdefault(self.owners[dst], []).append(xs[src])
+            elif d_mine:
+                q = self.owners[src]
+                recvs.setdefault(q, []).append(tuple(meta) + (devices[dst],))
+                land.setdefault(q, []).append(dst)
+        got = self.swap(sends, recvs)
+        for q, dsts in land.items():
+            for dst, t in zip(dsts, got[q]):
+                out[dst] = t
+        return out
+
+    def swap(self, sends, recvs):
+        """Point-to-point between this process and its peers, one call:
+        ``sends[q]``, the tensors this process sends to process q, in
+        order; ``recvs[q]``, ``[(shape, dtype, device), ...]`` of what it
+        receives from q, in the order q sends them. Each peer's tensors
+        go as ONE flat buffer each way (a card's through pinned host
+        buffers this span keeps), every piece posted before any wait.
+        Returns ``{q: [tensor, ...]}``, each received tensor on its
+        device."""
+        import torch.distributed as dist
+        if not any(sends.values()) and not any(recvs.values()):
+            return {}
+        posts, landed, nbytes = [], [], 0
+        for q in sorted(set(sends) | set(recvs)):
+            if sends.get(q):
+                flat = torch.cat([t.reshape(-1) for t in sends[q]]) \
+                    if len(sends[q]) > 1 \
+                    else sends[q][0].reshape(-1).contiguous()
                 if flat.device.type == "cuda":
-                    buf = self._pinned(("send", src, dst), flat.numel(),
+                    buf = self._pinned(("swap-send", q), flat.numel(),
                                        flat.dtype)
                     buf.copy_(flat)  # waits for the stream that made it
                     flat = buf
-                posts.append((dist.isend, flat, self.owners[dst]))
+                posts.append((dist.isend, flat, q))
                 nbytes += flat.numel() * flat.element_size()
-            elif d_mine:
-                shape, dtype = meta
-                dev = torch.device(devices[dst])
-                buf = self._pinned(("recv", src, dst), math.prod(shape),
-                                   dtype) if dev.type == "cuda" \
-                    else torch.empty(math.prod(shape), dtype=dtype)
-                posts.append((dist.irecv, buf, self.owners[src]))
-                landed.append((dst, buf, shape, dev))
-        if not posts:
-            return out
+            if recvs.get(q):
+                specs = recvs[q]
+                numel = sum(math.prod(sh) for sh, _, _ in specs)
+                dtype = specs[0][1]
+                buf = self._pinned(("swap-recv", q), numel, dtype) \
+                    if torch.device(specs[0][2]).type == "cuda" \
+                    else torch.empty(numel, dtype=dtype)
+                posts.append((dist.irecv, buf, q))
+                landed.append((q, buf, specs))
         with _Timed(nbytes):
-            reqs = []
-            for op, t, peer in posts:
-                step = max(1, CHUNK_BYTES // t.element_size())
-                for off in range(0, t.numel(), step):
-                    reqs.append(op(t.narrow(0, off, min(step, t.numel()
-                                                         - off)), peer))
-            for w in reqs:
-                w.wait()
-        for dst, buf, shape, dev in landed:
-            out[dst] = (buf.to(dev) if dev.type == "cuda" else buf).view(
-                shape)
+            _post(posts)
+        out = {}
+        for q, buf, specs in landed:
+            parts = buf.split([math.prod(sh) for sh, _, _ in specs])
+            # a pinned buffer is this span's, reused: copy out of it
+            out[q] = [p.view(sh).to(dev, copy=buf.is_pinned())
+                      for p, (sh, _, dev) in zip(parts, specs)]
         return out
 
     def sum(self, xs):
@@ -405,6 +455,119 @@ class Span:
         """:func:`psum_ranked` over this span: the ordered sum on every
         local member's device, differentiable."""
         return list(_RankSum.apply(self, *xs))
+
+
+def _post(posts):
+    """Post every ``(op, flat tensor, peer)`` of ``posts`` (``isend`` or
+    ``irecv``) in pieces of ``CHUNK_BYTES``, in order, then wait on all:
+    no process waits before it has posted everything, so two processes
+    cannot wait on each other."""
+    reqs = []
+    for op, t, peer in posts:
+        step = max(1, CHUNK_BYTES // t.element_size())
+        for off in range(0, t.numel(), step):
+            reqs.append(op(t.narrow(0, off, min(step, t.numel() - off)),
+                           peer))
+    for w in reqs:
+        w.wait()
+
+
+def _rotate(span, shift, groups):
+    """Member ``i``'s tensor of each list of ``groups`` (this process's
+    members, ``span.local``) to member ``(i + shift) % n``: a pair whose
+    two ends are here by ``.to``, the others in one :meth:`Span.swap`.
+    Both ends walk the pairs in the order of their source, so a sender
+    packs what its peer unpacks in the same order."""
+    n, local = span.n, span.local
+    at = {m: j for j, m in enumerate(local)}
+    out = [[None] * len(local) for _ in groups]
+    sends, recvs, land = {}, {}, {}
+    for src in range(n):
+        dst = (src + shift) % n
+        s_mine, d_mine = src in at, dst in at
+        if s_mine and d_mine:
+            for g, xs in enumerate(groups):
+                out[g][at[dst]] = xs[at[src]].to(xs[at[dst]].device)
+        elif s_mine:
+            sends.setdefault(span.owners[dst], []).extend(
+                xs[at[src]] for xs in groups)
+        elif d_mine:
+            q = span.owners[src]
+            for g, xs in enumerate(groups):
+                x = xs[at[dst]]
+                recvs.setdefault(q, []).append((x.shape, x.dtype, x.device))
+                land.setdefault(q, []).append((g, at[dst]))
+    got = span.swap(sends, recvs)
+    for q, slots in land.items():
+        for (g, j), t in zip(slots, got[q]):
+            out[g][j] = t
+    return out
+
+
+class _RingHop(torch.autograd.Function):
+    """:func:`ring_hop` across processes: every local member's tensors of
+    every group in ONE node, so each process's graph holds the same nodes
+    in the same order; the backward rotates the gradients back."""
+
+    @staticmethod
+    def forward(ctx, span, shift, ngroups, *xs):
+        ctx.span, ctx.shift, ctx.ngroups = span, shift, ngroups
+        k = len(xs) // ngroups
+        out = _rotate(span, shift, [xs[g * k:(g + 1) * k]
+                                    for g in range(ngroups)])
+        return tuple(t for ts in out for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        k = len(gs) // ctx.ngroups
+        back = _rotate(ctx.span, -ctx.shift,
+                       [gs[g * k:(g + 1) * k] for g in range(ctx.ngroups)])
+        return (None, None, None) + tuple(t for ts in back for t in ts)
+
+
+def _exchange_pieces(span, xs, split_axis, concat_axis, tiled):
+    """The tiled or untiled ``all_to_all`` of this process's members
+    ``xs`` over ``span``: local pieces by ``.to``, the others in one
+    :meth:`Span.swap` (member i's pieces for the members of process q,
+    i outer, in global order on both ends)."""
+    n, local = span.n, span.local
+    at = {m: j for j, m in enumerate(local)}
+    pieces = _pieces(xs, n, split_axis, tiled)
+    got = {i: pieces[at[i]] for i in local}  # got[i][j]: i's piece for j
+    peers = {}
+    for i, q in enumerate(span.owners):
+        if i not in at:
+            peers.setdefault(q, []).append(i)
+    sends = {q: [got[i][j] for i in local for j in members]
+             for q, members in peers.items()}
+    recvs = {q: [(pieces[0][0].shape, xs[at[j]].dtype, xs[at[j]].device)
+                 for i in members for j in local]
+             for q, members in peers.items()}
+    came = span.swap(sends, recvs)
+    for q, members in peers.items():
+        it = iter(came[q])
+        for i in members:
+            got[i] = {j: next(it) for j in local}
+    return [_join([got[i][j].to(xs[at[j]].device) for i in range(n)],
+                  concat_axis, tiled) for j in local]
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all` across processes: one node over every local
+    member; the backward is the inverse exchange of the gradients (the
+    split and concatenation axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, span, split_axis, concat_axis, tiled, *xs):
+        ctx.args = (span, split_axis, concat_axis, tiled)
+        return tuple(_exchange_pieces(span, xs, split_axis, concat_axis,
+                                      tiled))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        span, split_axis, concat_axis, tiled = ctx.args
+        return (None,) * 4 + tuple(_exchange_pieces(
+            span, gs, concat_axis, split_axis, tiled))
 
 
 class _RankSum(torch.autograd.Function):

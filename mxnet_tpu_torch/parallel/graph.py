@@ -22,7 +22,8 @@ import numpy as np
 from ..base import MXNetError
 from ..ops.fusion import FusionPlan, eval_graph
 
-__all__ = ["make_graph_fn", "make_spmd_graph_fn", "integer_semantic_inputs"]
+__all__ = ["make_graph_fn", "make_spmd_graph_fn", "spmd_rings",
+           "integer_semantic_inputs"]
 
 # ops that forward their input VALUES unchanged (layout/flow only), so
 # integer semantics propagate backwards through them — a label reshaped
@@ -115,7 +116,9 @@ def make_graph_fn(symbol, allow_fusion=True):
 def make_spmd_graph_fn(symbol, mesh, allow_fusion=True, span=None):
     """Build ``fn(rank_args, is_train, generators, rank_aux=None) ->
     (outs, new_aux)``, each a list per rank, for the ranks of ``mesh`` in
-    row-major order of its device array.
+    row-major order of its device array: on a mesh across processes
+    (``mesh.is_multiprocess``), this process's ranks (``mesh.local_ranks``)
+    alone.
 
     ``rank_args[r]`` is rank r's argument list (``list_arguments()``
     order), each value on rank r's device, or a callable of no arguments
@@ -130,7 +133,11 @@ def make_spmd_graph_fn(symbol, mesh, allow_fusion=True, span=None):
     values; an op whose ``is_collective`` holds (the ring attention
     impls) runs once per ring along its ``axis_name`` param, through
     ``forward_ranks``, with the inputs of the ring's ranks in axis order,
-    since a ring hop needs every rank's K/V; a training BatchNorm on more
+    since a ring hop needs every rank's K/V (a ring is built from the
+    whole mesh, :func:`spmd_rings`: ``forward_ranks`` gets the ring
+    positions of this process's ranks and a ``collectives.Span`` over the
+    ring, through which its hops and deals cross between processes; a
+    ring with no rank here is skipped); a training BatchNorm on more
     than one rank normalizes by the statistics of the batch all the ranks
     hold together (``BatchNorm.forward_global``: the ranks' sums are
     added in rank order), as GSPMD gives the JAX package's BatchNorm
@@ -150,23 +157,19 @@ def make_spmd_graph_fn(symbol, mesh, allow_fusion=True, span=None):
         plan = FusionPlan(topo, heads)
     else:
         plan = None
-    coords = list(np.ndindex(*mesh.devices.shape))
+    local = list(mesh.local_ranks)
+    ring_cache = {}
 
     def rings(axis):
-        if axis not in mesh.shape:
-            raise MXNetError("the mesh %s has no axis %r for the ring"
-                             % (mesh.shape, axis))
-        ax = mesh.axis_names.index(axis)
-        groups = {}
-        for r, c in enumerate(coords):
-            groups.setdefault(c[:ax] + c[ax + 1:], []).append(r)
-        return list(groups.values())
+        if axis not in ring_cache:
+            ring_cache[axis] = spmd_rings(mesh, axis)
+        return ring_cache[axis]
 
     def fn(rank_args, is_train, generators, rank_aux=None):
-        envs = [{} for _ in coords]
+        envs = [{} for _ in local]
         var_iters = [iter(a) for a in rank_args]
         if rank_aux is None:
-            rank_aux = [[] for _ in coords]
+            rank_aux = [[] for _ in local]
         new_aux = [list(a) for a in rank_aux]
         cur = 0  # aux cursor, the same on every rank
         for n in topo:
@@ -184,13 +187,13 @@ def make_spmd_graph_fn(symbol, mesh, allow_fusion=True, span=None):
                 cur += n_aux
                 continue
             if n.spec.is_collective(n.params):
-                for ring in rings(n.params["axis_name"]):
+                for at, pos, rspan in rings(n.params["axis_name"]):
                     ins = [[envs[r][(id(i), j)] for i, j in n.inputs]
-                           for r in ring]
+                           for r in at]
                     outs = n.spec.forward_ranks(
                         n.params, ins, is_train,
-                        [generators[r] for r in ring])
-                    for r, ro in zip(ring, outs):
+                        [generators[r] for r in at], pos=pos, span=rspan)
+                    for r, ro in zip(at, outs):
                         for j, o in enumerate(ro):
                             envs[r][(id(n), j)] = o
                 continue
@@ -215,3 +218,31 @@ def make_spmd_graph_fn(symbol, mesh, allow_fusion=True, span=None):
                 new_aux)
 
     return fn
+
+
+def spmd_rings(mesh, axis):
+    """The rings along ``axis`` of ``mesh`` that hold ranks of this
+    process, in the mesh's order: ``[(at, pos, span), ...]``, ``at`` the
+    indices of this process's ranks of the ring among ``mesh.local_ranks``,
+    ``pos`` their positions on the ring, ``span`` a ``collectives.Span``
+    over the ring's ranks (raising where they are spread unevenly over
+    the processes): the ring's hops and deals go through its one-node
+    exchanges whether or not they cross, so a ring adds its gradients
+    alike in one process and across several."""
+    from .collectives import Span
+    if axis not in mesh.shape:
+        raise MXNetError("the mesh %s has no axis %r for the ring"
+                         % (mesh.shape, axis))
+    ax = mesh.axis_names.index(axis)
+    where = {r: k for k, r in enumerate(mesh.local_ranks)}
+    groups = {}
+    for r, c in enumerate(np.ndindex(*mesh.devices.shape)):
+        groups.setdefault(c[:ax] + c[ax + 1:], []).append(r)
+    out = []
+    for ring in groups.values():
+        pos = [i for i, r in enumerate(ring) if r in where]
+        if not pos:
+            continue
+        out.append(([where[ring[i]] for i in pos], pos,
+                    Span([mesh.owner(r) for r in ring])))
+    return out

@@ -3,11 +3,12 @@
 Counterpart of ``mxnet_tpu/parallel/ring.py`` (l.52-285). Sequences are
 sharded over the ``sp`` mesh axis and attention runs as a ring: each rank
 holds a query block, and the key/value blocks rotate around the ring
-(``collectives.ring_exchange``, one hop per step) while a streaming-softmax
+(``collectives.ring_hop``, one hop per step) while a streaming-softmax
 accumulator folds each block in. The JAX package runs one program per
 device under ``shard_map``; here one process drives every rank of the ring
-in lockstep (``parallel/mesh.py``), so the per-rank bodies take the LIST
-of the ranks' shards of one ring.
+it owns in lockstep (``parallel/mesh.py``), so the per-rank bodies take
+the LIST of those ranks' shards of one ring and their ring positions; a
+ring across processes hops through its ``collectives.Span``.
 
 ``ring_attention`` keeps the contiguous layout; ``striped_ring_attention``
 is the balanced form for causal attention: tokens are dealt round-robin
@@ -24,7 +25,7 @@ import torch
 
 from ..base import MXNetError
 from ..ops import kernels
-from .collectives import ring_exchange
+from .collectives import ring_hop
 
 __all__ = ["blockwise_attention", "ring_attention", "ring_self_attention",
            "striped_ring_attention"]
@@ -101,43 +102,56 @@ def blockwise_attention(q, k, v, *, causal=False, block_size=512,
     return _finalize(o, l).to(q.dtype)
 
 
-def _ring_attention_local(qs, ks, vs, *, causal, scale):
+def _ring_of(qs, pos, span):
+    """(ring size, the ring positions of the ranks of ``qs``)."""
+    n = span.n if span is not None else len(qs)
+    return n, list(range(len(qs))) if pos is None else list(pos)
+
+
+def _ring_attention_local(qs, ks, vs, *, causal, scale, pos=None,
+                          span=None):
     """The ring body over one ring's ranks: qs, ks, vs are the LOCAL
-    sequence shards [B, T/n, H, D] of ranks 0..n-1 (rank r holds positions
-    [r T/n, (r+1) T/n)). K/V rotate the ring; streaming softmax folds each
-    arriving block in. Returns the ranks' outputs."""
-    n = len(qs)
+    sequence shards [B, T/n, H, D] of the ranks at ring positions ``pos``
+    (default 0..n-1; rank r holds positions [r T/n, (r+1) T/n)). K/V
+    rotate the ring; streaming softmax folds each arriving block in.
+    ``span`` (a ``collectives.Span`` over the ring): the ring's other
+    ranks live in other processes, ``pos`` are this process's ranks'
+    GLOBAL positions, and the hops cross (``collectives.ring_hop``).
+    Returns the ranks' outputs."""
+    n, pos = _ring_of(qs, pos, span)
     tq, tk, d = qs[0].shape[1], ks[0].shape[1], qs[0].shape[3]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     state = [_init_state(q) for q in qs]
     kcur, vcur = list(ks), list(vs)
     for i in range(n):
-        for my in range(n):
+        for j, my in enumerate(pos):
             src = (my - i) % n  # ring position whose K/V block `my` holds
-            dev = qs[my].device
+            dev = qs[j].device
             if causal:
                 qpos = my * tq + torch.arange(tq, device=dev)
                 kpos = src * tk + torch.arange(tk, device=dev)
                 mask = qpos[:, None] >= kpos[None, :]
             else:
                 mask = None
-            state[my] = _block_update(qs[my], kcur[my], vcur[my],
-                                      *state[my], mask, scale)
+            state[j] = _block_update(qs[j], kcur[j], vcur[j], *state[j],
+                                     mask, scale)
         if i < n - 1:
-            kcur, vcur = ring_exchange(kcur), ring_exchange(vcur)
+            kcur, vcur = ring_hop([kcur, vcur], span=span)
     return [_finalize(o, l).to(q.dtype) for (o, l, _), q in zip(state, qs)]
 
 
-def _striped_ring_local(qs, ks, vs, *, scale, block_q=None, block_k=None):
+def _striped_ring_local(qs, ks, vs, *, scale, block_q=None, block_k=None,
+                        pos=None, span=None):
     """The striped ring body over one ring's ranks: qs, ks, vs are the
-    STRIPED shards [B, C, H, D] of ranks 0..n-1 (local row ``a`` of rank
-    ``my`` is global position ``a*n + my``). Each hop runs the
-    ``striped_pair_attention`` kernel for every rank, with the ring
-    positions ``(my, (my - i) % n)`` as host ints, and merges the (o, lse)
-    partial with streaming softmax; ``block_q``/``block_k`` go to every
-    hop. Returns the ranks' outputs."""
-    n = len(qs)
+    STRIPED shards [B, C, H, D] of the ranks at ring positions ``pos``
+    (default 0..n-1; local row ``a`` of rank ``my`` is global position
+    ``a*n + my``). Each hop runs the ``striped_pair_attention`` kernel for
+    every rank, with the ring positions ``(my, (my - i) % n)`` as host
+    ints, and merges the (o, lse) partial with streaming softmax;
+    ``block_q``/``block_k`` go to every hop. ``span``: as
+    :func:`_ring_attention_local`'s. Returns the ranks' outputs."""
+    n, pos = _ring_of(qs, pos, span)
     b, c, h, d = qs[0].shape
     if scale is None:
         scale = 1.0 / (d ** 0.5)
@@ -152,17 +166,17 @@ def _striped_ring_local(qs, ks, vs, *, scale, block_q=None, block_k=None):
                       device=q.device) for q in qs]
     kcur, vcur = [to_bh(k) for k in ks], [to_bh(v) for v in vs]
     for i in range(n):
-        for my in range(n):
+        for j, my in enumerate(pos):
             src = (my - i) % n  # ring position of this K/V block
             o_i, lse_i = kernels.striped_pair_attention(
-                qb[my], kcur[my], vcur[my], my, src, n_stride=n, scale=scale,
+                qb[j], kcur[j], vcur[j], my, src, n_stride=n, scale=scale,
                 block_q=block_q, block_k=block_k)
-            new_lse = torch.logaddexp(lse[my], lse_i)
-            o[my] = o[my] * torch.exp(lse[my] - new_lse) \
+            new_lse = torch.logaddexp(lse[j], lse_i)
+            o[j] = o[j] * torch.exp(lse[j] - new_lse) \
                 + o_i.float() * torch.exp(lse_i - new_lse)
-            lse[my] = new_lse
+            lse[j] = new_lse
         if i < n - 1:
-            kcur, vcur = ring_exchange(kcur), ring_exchange(vcur)
+            kcur, vcur = ring_hop([kcur, vcur], span=span)
     return [x.reshape(b, h, c, d).transpose(1, 2).to(q.dtype)
             for x, q in zip(o, qs)]
 

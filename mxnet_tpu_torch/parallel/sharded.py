@@ -34,7 +34,8 @@ the one-device step's, as GSPMD's are:
   leaves are stored as the JAX package shards them (dim 0 over ``dp``
   under zero1 when ``dp`` divides it; under fsdp a leaf of the
   parameter's shape follows the parameter), and each rank gathers the
-  whole weight, gradient and leaves, updates them and keeps its shards.
+  whole weight, gradient and leaves (across processes, from every
+  process's shards), updates them and keeps its shards.
 
 **Across processes** (a mesh whose ranks live in several processes,
 ``Mesh.local_ranks``; the multi-controller run of ``tools/launch.py``)
@@ -48,9 +49,10 @@ walk's rows, for ``grad_accum``'s global-row microbatches), the
 compute program (the walks' forward and backward into one flat gradient
 a walk: the rank layout, then each gathered parameter's whole gradient),
 ``reduce`` (the flat gradients summed over every process's walks in
-rank order: bitwise ``psum``'s sum), the update program, and
-``gather_chunks`` (ZeRO-1's chunks). A training BatchNorm sums its
-statistics over every process's walks inside the walk
+rank order: bitwise ``psum``'s sum), ``gather_pw`` (a per-weight
+optimizer's sharded parameters and state leaves from every process),
+the update program, and ``gather_chunks`` (ZeRO-1's chunks). A training
+BatchNorm sums its statistics over every process's walks inside the walk
 (``BatchNorm.forward_global`` over the walks' span), so a walk holding
 one cannot be captured and runs uncaptured. The walks' generators are
 seeded by the global walk index, so a walk draws what it draws in one
@@ -206,12 +208,11 @@ class ShardedState:
                                  for n in t.param_names)
         if self.pad:
             self.flat_shapes += ((self.pad,),)
-        if self.mp and self.per_weight and any(
-                spec_groups(sp, 8) for n in t.param_names
-                for sp in [self.specs[n]] + self.leaf_specs[n]):
-            raise later_slice("ParallelTrainer",
-                              "a per-weight optimizer's sharded state "
-                              "across processes")
+        # a per-weight update reads other processes' shards
+        self.pw_cross = self.mp and self.per_weight and any(
+            spec_groups(sp, 8) for n in t.param_names
+            for sp in [self.specs[n]] + self.leaf_specs[n])
+        self._pw_bufs = None
         seed = t._seed
         # seeded by the GLOBAL walk index: walk w draws what it draws in
         # one process
@@ -597,6 +598,8 @@ class ShardedState:
                     [a for r in self.local for a in self.aux[r]],
                     list(self.walk_gens), not self.cross_in_walk))
         out.append(("host", self.reduce))
+        if self.pw_cross:
+            out.append(("host", self.gather_pw))
         out.append(("program", "update", self.update, self.buffers(),
                     self.local_opt_gens(), True))
         if self.zero1:
@@ -712,25 +715,57 @@ class ShardedState:
                     mine[d].copy_(chunks[src])
 
     @torch.no_grad()
+    def gather_pw(self, _=None):
+        """Host stage (a per-weight optimizer whose parameters or state
+        leaves are sharded across processes, ``pw_cross``): every rank's
+        parameter shards and state leaves, from every process (one
+        all-gather of each local rank's flat buffer and leaves packed
+        together), into the buffers the update reads (``pw_every``:
+        ``(params[rr][name], leaves[rr][name])``)."""
+        names = self.trainer.param_names
+        every = self._every_rank([
+            None if f is None else torch.cat(
+                [f] + [x.reshape(-1) for n in names
+                       for x in self.pw_state[r][n]])
+            for r, f in enumerate(self.flats)])
+        if self._pw_bufs is not None:
+            for d, b in zip(self._pw_bufs, every):
+                d.copy_(b)
+            return
+        self._pw_bufs = [b.clone() for b in every]
+        mine = self.pw_state[self.local[0]]
+        nflat = self.flats[self.local[0]].numel()
+        params, leaves = [], []
+        for b in self._pw_bufs:
+            params.append(self._views(b[:nflat]))
+            parts = iter(b[nflat:].split([x.numel() for n in names
+                                          for x in mine[n]]))
+            leaves.append({n: [next(parts).view(x.shape) for x in mine[n]]
+                           for n in names})
+        self.pw_every = (params, leaves)
+
+    @torch.no_grad()
     def _update_per_weight(self, grads, B, lr, tdev):
         """AdaFactor and the other per-weight optimizers: every rank
-        gathers the whole weight and state leaves first, then updates and
-        keeps its shards (gather before any write, so no rank reads a
-        shard another has already updated)."""
+        gathers the whole weight and state leaves first (across processes
+        from what :meth:`gather_pw` gathered before the update), then
+        updates and keeps its shards (gather before any write, so no rank
+        reads a shard another has already updated)."""
         t, L = self.trainer, self.layout
         upd = t._opt_update_fn
+        params, leaves = self.pw_every if self.pw_cross \
+            else (self.rank_params, self.pw_state)
         work = {}
         for r in self.local:
             dev = self.devices[r]
             per = {}
             for n in t.param_names:
                 nd = len(t.arg_shapes[n])
-                w = L.assemble(lambda rr, n=n: self.rank_params[rr][n],
+                w = L.assemble(lambda rr, n=n: params[rr][n],
                                self.specs[n], r, nd)
                 specs = self.leaf_specs[n]
-                full = [L.assemble(lambda rr, n=n, i=i:
-                                   self.pw_state[rr][n][i], s, r,
-                                   len(t.arg_shapes[n]))
+                full = [L.assemble(lambda rr, n=n, i=i: leaves[rr][n][i], s,
+                                   r, nd)
                         for i, s in enumerate(specs)]
                 if n in self.gathered:
                     g = B[n].to(dev)
@@ -838,12 +873,15 @@ class ShardedState:
         out = {}
         if self.per_weight:
             r0 = self.local[0]
+            leaves = self.pw_state
+            if self.pw_cross:
+                self.gather_pw()
+                leaves = self.pw_every[1]
             for n in t.param_names:
                 specs = self.leaf_specs[n]
-                out[n] = [L.assemble(lambda rr, n=n, i=i:
-                                     self.pw_state[rr][n][i], s, r0,
-                                     len(t.arg_shapes[n]), device="cpu")
-                          .to("cpu", copy=True)
+                out[n] = [L.assemble(lambda rr, n=n, i=i: leaves[rr][n][i],
+                                     s, r0, len(t.arg_shapes[n]),
+                                     device="cpu").to("cpu", copy=True)
                           for i, s in enumerate(specs)]
             return out
         units = self._leaf_units()

@@ -5,24 +5,38 @@ Counterpart of ``mxnet_tpu/parallel/sp.py`` ``SequenceParallelTrainer``
 the batch over ``dp``), so each rank holds ``T/sp`` positions, and the only
 traffic between ranks is the K/V ring inside
 ``MultiHeadAttention(impl="ring")`` or ``"ring_striped"``. The JAX package
-runs the step under ``shard_map``; here one process drives every rank
-(``make_spmd_graph_fn``), and the whole step is one autograd graph:
+runs the step under ``shard_map``; here a process drives every rank it
+owns (``make_spmd_graph_fn``), and its part of the step is one autograd
+graph:
 
-* each rank's copy of a replicated parameter is the same f32 leaf moved
-  to the rank's device, so autograd sums the ranks' gradients, the
+* each rank's copy of the parameters is a leaf of its own (the flat f32
+  buffer, detached: no copy on the buffer's device), and the step adds
+  the ranks' gradients in rank order (``collectives.Span.sum``), the
   ``psum`` over ``("dp", "sp")`` of l.196-203;
 * a sequence-sharded parameter (``pos_embed``, ``P("sp", None)``) is
-  sliced per rank, so its rows get only their own ranks' gradients, the
-  ``psum`` over ``dp`` alone;
+  sliced per rank, so its rows get only their own ranks' gradients (the
+  other ranks add exact zeros), the ``psum`` over ``dp`` alone;
 * the optimizer updates the one f32 copy, on the first rank's device,
   its state laid out by ``parallel.optim.FlatOptState`` (any optimizer of
   ``optimizer.py``).
 
-Dropout draws from one ``torch.Generator`` per rank, the stand-in for the
-``fold_in(dp, sp)`` streams, and SGLD's noise from one more: the draws are
-the port's own, not JAX's. Sharded checkpoints (``parallel.checkpoint``)
-hold the parameters, the optimizer state, the step and the generators'
-states.
+**Across processes** (a mesh whose ranks live in several processes,
+``Mesh(..., processes=)`` or ``build_mesh`` after
+``distributed.initialize``) each process runs its own ranks: their
+generators, their slices of the global batch and the walk over them. A
+ring whose ranks lie in several processes hops and deals through
+``collectives.ring_hop`` and ``all_to_all`` over its ``Span``; the
+gradient and the loss are summed over every process's ranks in rank
+order, so every process holds the same parameters and optimizer state,
+whole (the JAX package shards ``pos_embed`` over sp), and they equal the
+one-process run's bit for bit. The step stays uncaptured.
+
+Dropout draws from one ``torch.Generator`` per rank, seeded by its global
+``(dp, sp)`` coordinates, the stand-in for the ``fold_in(dp, sp)``
+streams, and SGLD's noise from one more: the draws are the port's own,
+not JAX's. Sharded checkpoints (``parallel.checkpoint``) hold the
+parameters, the optimizer state, the step and the generators' states,
+keyed by global rank.
 """
 from __future__ import annotations
 
@@ -32,9 +46,11 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, later_slice
+from .. import distributed
 from .. import optimizer as opt_mod
 from ..initializer import Uniform
-from .graph import make_spmd_graph_fn
+from .collectives import Span
+from .graph import make_spmd_graph_fn, spmd_rings
 from .optim import FlatOptState
 from .shard import P
 from .trainer import _as_tensor, _Unflatten
@@ -56,7 +72,8 @@ class SequenceParallelTrainer:
         ``dp``, T over ``sp``.
     mesh : Mesh with axes ``dp`` and ``sp`` (``parallel.build_mesh``); its
         devices may repeat (``[cuda:0] * 4`` runs a 4-rank ring on one
-        card, ``["cpu"] * 8`` a dp=2 x sp=4 mesh on the host).
+        card, ``["cpu"] * 8`` a dp=2 x sp=4 mesh on the host), and its
+        ranks may live in several processes, as many in each.
     seq_param_rules : list[(regex, PartitionSpec)]
         Params sharded WITH the sequence (first match wins); default ships
         the learned positional embedding ``pos_embed`` as ``P('sp', None)``.
@@ -69,10 +86,14 @@ class SequenceParallelTrainer:
         if "sp" not in mesh.shape or "dp" not in mesh.shape:
             raise MXNetError("SequenceParallelTrainer: mesh needs axes "
                              "'dp' and 'sp', got %s" % (dict(mesh.shape),))
-        if mesh.is_multiprocess:
-            # the ring hops are tensor moves inside this process
-            raise later_slice("SequenceParallelTrainer", "a mesh across "
-                              "processes (%r)" % (mesh,))
+        try:
+            # the gradient's sum over every rank, and each ring
+            self._rspan = Span([mesh.owner(r) for r in range(mesh.size)])
+            spmd_rings(mesh, "sp")
+        except MXNetError as e:
+            raise later_slice("SequenceParallelTrainer", "a mesh whose "
+                              "ranks of a collective are spread unevenly "
+                              "over the processes (%r: %s)" % (mesh, e))
         if symbol.list_auxiliary_states():
             raise MXNetError("SequenceParallelTrainer: aux states are not "
                              "supported (as in the JAX package)")
@@ -111,14 +132,17 @@ class SequenceParallelTrainer:
         self._initializer = initializer or Uniform(0.05)
         self._init_gen = torch.Generator().manual_seed(seed)
         self._graph_fn = make_spmd_graph_fn(symbol, mesh)
-        # the ranks in row-major order of the mesh, as the walk takes them
+        # every rank in row-major order of the mesh; this process walks
+        # its own, in that order
         axes = mesh.axis_names
         self._ranks = [(mesh.devices[c], c[axes.index("dp")],
                         c[axes.index("sp")])
                        for c in np.ndindex(*mesh.devices.shape)]
-        self.device = self._ranks[0][0]
+        self._local = list(mesh.local_ranks)
+        self.device = self._ranks[self._local[0]][0]
         self._gens = []
-        for dev, dpi, spi in self._ranks:
+        for r in self._local:
+            dev, dpi, spi = self._ranks[r]
             s = int(np.random.SeedSequence([seed, dpi, spi]).generate_state(
                 1)[0])
             self._gens.append(torch.Generator(device=dev).manual_seed(s))
@@ -206,9 +230,10 @@ class SequenceParallelTrainer:
     # -- the sharded step ------------------------------------------------
     def step(self, batch):
         """One global train step. batch: dict with GLOBAL 'data' and label
-        arrays (host or device). Returns the mean NLL per token over the
-        global batch as a 0-d tensor on the first rank's device (reading
-        it waits for the step)."""
+        arrays (host or device), the same in every process. Returns the
+        mean NLL per token over the global batch as a 0-d tensor on the
+        first local rank's device (reading it waits for the step), the
+        same in every process."""
         if self.params is None:
             self.init_params()
         data = _as_tensor(batch["data"])
@@ -217,11 +242,14 @@ class SequenceParallelTrainer:
         self._t += 1
         sched = self.optimizer.lr_scheduler
         lr = sched(self._t) if sched is not None else self.optimizer.lr
-        leaf = self._flat.detach().requires_grad_(True)
-        pvals = dict(zip(self.param_names,
-                         _Unflatten.apply(leaf, self._shapes())))
-        rank_args, labels = [], []
-        for dev, dpi, spi in self._ranks:
+        leaves, rank_args, labels = [], [], []
+        for r in self._local:
+            dev, dpi, spi = self._ranks[r]
+            # the rank's own leaf: its gradient is the rank's alone
+            leaf = self._flat.detach().to(dev).requires_grad_(True)
+            leaves.append(leaf)
+            pvals = dict(zip(self.param_names,
+                             _Unflatten.apply(leaf, self._shapes())))
             rows = slice(dpi * bl, (dpi + 1) * bl)
             cols = slice(spi * tl, (spi + 1) * tl)
             inputs = {"data": data[rows, cols].to(dev),
@@ -229,22 +257,25 @@ class SequenceParallelTrainer:
             labels.append(inputs[self.label_name])
             rank_args.append([
                 inputs[n] if n in inputs else
-                self._rank_value(n, pvals[n], dpi, spi).to(dev)
+                self._rank_value(n, pvals[n], dpi, spi)
                 for n in self.arg_names])
         outs, _ = self._graph_fn(rank_args, True, self._gens)
         flat_outs = [o for ro in outs for o in ro]
         torch.autograd.backward(flat_outs,
                                 [torch.ones_like(o) for o in flat_outs])
-        grad = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+        # the ranks' gradients added in rank order, over every process
+        grad = self._rspan.sum([
+            leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+            for leaf in leaves])
         self._state.update(self._flat, grad, lr, float(self._t),
                            self._opt_gen)
-        # global mean NLL per token (for logging): outs[r][0] is rank r's
-        # [B_l, V, T_l] multi_output softmax
+        # global mean NLL per token (for logging): outs[i][0] is local
+        # rank i's [B_l, V, T_l] multi_output softmax
         with torch.no_grad():
-            nll = sum(
+            nll = self._rspan.sum([
                 (-torch.log(ro[0].gather(1, lab.long()[:, None, :])[:, 0]
                             + 1e-8).sum()).to(self.device)
-                for ro, lab in zip(outs, labels))
+                for ro, lab in zip(outs, labels)])
         return nll / float(self.global_batch * self.seq_len)
 
     def get_params(self):
@@ -254,32 +285,56 @@ class SequenceParallelTrainer:
 
     # -- sharded checkpoints --------------------------------------------
     def _generators(self):
-        return self._gens + [self._opt_gen]
+        """``{global rank: generator}`` of this process's ranks, and SGLD's
+        at the rank count."""
+        out = dict(zip(self._local, self._gens))
+        out[self.mesh.size] = self._opt_gen
+        return out
 
     def save_sharded_checkpoint(self, prefix, step=None, async_write=False):
         """Write the parameters, the optimizer state and the generators'
-        states as ``parallel.checkpoint`` files at ``prefix`` (step: the
-        update count unless given). ``async_write=True`` writes on a
-        thread; returns ``finalize()``, which joins it."""
-        from .checkpoint import save_sharded, flatten_train_state
+        states (``rng/<global rank>``, SGLD's at the rank count) as
+        ``parallel.checkpoint`` files at ``prefix`` (step: the update
+        count unless given); across processes call it from every process:
+        process 0 writes the parameters, the state and SGLD's generator,
+        each process its ranks' generators, and every key reaches the
+        manifest. ``async_write=True`` writes on a thread; returns
+        ``finalize()``, which joins it."""
+        from .checkpoint import save_sharded, flatten_train_state, Shards
         flat = flatten_train_state(self.params, self._state.by_name())
-        flat.update({"rng/%d" % i: g.get_state()
-                     for i, g in enumerate(self._generators())})
+        gens = self._generators()
+        if self.mesh.is_multiprocess:
+            first = distributed.process_index() == 0
+            flat = {k: Shards(P(), [(tuple((0, d) for d in v.shape), v)]
+                              if first else [], tuple(v.shape))
+                    for k, v in flat.items()}
+            # the ranks' generators are of one device type: one width
+            width = gens[self._local[0]].get_state().numel()
+            for r in range(self.mesh.size + 1):
+                g = gens.get(r) if r < self.mesh.size or first else None
+                flat["rng/%d" % r] = Shards(
+                    P(), [] if g is None else [(((0, width),),
+                                                g.get_state())],
+                    (width,), torch.uint8)
+        else:
+            flat.update({"rng/%d" % r: g.get_state()
+                         for r, g in gens.items()})
         return save_sharded(prefix, flat,
                             step=self._t if step is None else step,
                             async_write=async_write)
 
     def restore_sharded_checkpoint(self, prefix):
         """Restore the parameters, the optimizer state, the step count and
-        the generators from ``prefix``; works on a fresh trainer."""
+        this process's generators from ``prefix`` (written by any number
+        of processes); works on a fresh trainer."""
         from .checkpoint import load_sharded, restore_opt_state
         flat, step, _ = load_sharded(prefix)
         self.init_params({n: flat[n] for n in self.param_names})
         self._state.load(restore_opt_state(flat, self.params,
                                            self._state.init_fn),
                          "restore_sharded_checkpoint")
-        for i, g in enumerate(self._generators()):
-            if "rng/%d" % i in flat:
-                g.set_state(flat["rng/%d" % i])
+        for r, g in self._generators().items():
+            if "rng/%d" % r in flat:
+                g.set_state(flat["rng/%d" % r])
         self._t = int(step)
         return self

@@ -28,21 +28,31 @@ with ``-n 2``), each process passing its rows of the global batch:
 steps), ``shardio`` (its ``check_sharded_io``: RAW0 records written by
 rank 0, ``ImageRecordIter(num_parts=, part_index=)`` into
 ``fit(device_metric=True)``), ``lm_dp`` (the LM, 3 SGD steps, plain,
-``zero1`` and ``fsdp``), ``bn_global`` (a conv net's BatchNorm over the
-global batch, 2 steps, also with ``grad_accum=2`` at the tiny size) and
-``ckpt`` (``save_sharded_checkpoint`` from every process, synchronous
-and asynchronous, restored in every process). ``pipe`` builds
+``zero1`` and ``fsdp``; then AdaFactor with ``fsdp``, its factored state
+sharded across the processes; 2 steps each at the full size),
+``bn_global`` (a conv net's BatchNorm over the global batch, 2 steps,
+also with ``grad_accum=2`` at the tiny size) and ``ckpt``
+(``save_sharded_checkpoint`` from every process, synchronous and, at
+the tiny size, asynchronous, restored in every process). ``pipe`` builds
 ``PipelineTrainer`` (the LM with ``pipeline_stages=2``, f32, 3 SGD
 momentum steps) over meshes whose ranks it places across the processes
 itself (``PIPE_LAYOUTS``): {pp: 2} with one stage a process, GPipe and
 1F1B, and at the tiny size also {dp: 2, pp: 2} with pp across the
 processes and dp inside each, the same with dp across and pp inside, and
 {pp: 2} with a pp-sharded parameter across the processes and with
-``param_placement="replicated"``. ``MXNET_DISTTEST_SIZE``
-picks their sizes: ``tiny`` (the CPU tests; the default with
-``MXNET_DISTTEST_CTX=cpu``) or ``full`` (phase 7f, the default on the
-card: the 124M LM in bf16 at B=8 T=1024 (f32 in ``pipe``), ResNet-50 f32
-at 224 x 224 B=64).
+``param_placement="replicated"``. ``sp`` builds
+``SequenceParallelTrainer`` (the LM with ``impl="ring_striped"`` and, at
+the tiny size, ``"ring"``; f32, 3 SGD momentum steps, every process
+passing the global batch) over {dp, sp} meshes whose ranks it places
+across the processes (``SP_LAYOUTS``: a rank a process; 2 a process;
+dp across with the rings inside a process; sp across with dp inside),
+with (at the tiny size) a checkpoint written by both processes and
+restored in both.
+``MXNET_DISTTEST_SIZE`` picks their sizes: ``tiny`` (the CPU tests; the
+default with ``MXNET_DISTTEST_CTX=cpu``) or ``full`` (phase 7f, the
+default on the card: the 124M LM in bf16 at B=8 T=1024 (f32 in ``pipe``;
+in ``sp`` f32 at B=2 T=4096, 2 ranks a process), ResNet-50 f32 at 224 x
+224 B=64).
 They write each trainer's parameters, aux and optimizer states as
 digests (and at the tiny size as ``.npz``), losses, ms a step, the
 collectives' ms and bytes a step, the programs a step and the kernels'
@@ -78,6 +88,10 @@ LM_SIZES = {"tiny": dict(vocab=61, layers=1, embed=64, heads=4, b=8, t=16,
 LM_STEPS, LM_LR, LM_SEED = 3, 1e-3, 7
 LM_VARIANTS = (("plain", {}), ("zero1", {"zero1": True}),
                ("fsdp", {"fsdp": True}))
+# lm_dp's AdaFactor variant (its state sharded with the parameters), and
+# the steps of every lm_dp variant by size
+LM_ADAFACTOR = ("adafactor_fsdp", {"optimizer": "adafactor", "fsdp": True})
+LM_DP_STEPS = {"tiny": LM_STEPS, "full": 2}
 BN_SIZES = {"tiny": dict(b=16, hw=8, classes=5, accum=(1, 2), clip=1.0),
             "full": dict(b=RESNET_GB, hw=RESNET_HW, classes=RESNET_CLASSES,
                          accum=(1,), clip=None)}
@@ -92,6 +106,21 @@ PIPE_KW = {"a": {}, "b": {}, "c": {}, "d_shard": {"pp_shard_min_size": 1024},
            "d_repl": {"param_placement": "replicated"}}
 PIPE_LAYOUTS = {"tiny": ("a", "b", "c", "d_shard", "d_repl"),
                 "full": ("a",)}
+# the sequence-parallel check: the LM by size (phase 7's SP cell at the
+# full size) and its layouts, each a {dp, sp} mesh shape and where each
+# process's ranks lie: "a" a rank a process; "b" 2 ranks a process (two
+# hops of each rotation cross); "c" dp across the processes (the rings
+# inside one); "d" sp across them, dp inside
+SP_SIZES = {"tiny": dict(vocab=61, layers=1, embed=64, heads=4, b=4, t=16,
+                         impls=("ring_striped", "ring")),
+            "full": dict(vocab=32000, layers=12, embed=768, heads=12, b=2,
+                         t=4096, impls=("ring_striped",))}
+SP_AXES = {"a": {"dp": 1, "sp": 2}, "b": {"dp": 1, "sp": 4},
+           "c": {"dp": 2, "sp": 2}, "d": {"dp": 2, "sp": 2}}
+SP_LAYOUTS = {"tiny": ("a", "b", "c", "d"), "full": ("b",)}
+# the checkpoint checks' writes by size (the asynchronous writer's
+# protocol is host-side: the tiny size holds it)
+CKPT_KINDS = {"tiny": ("sync", "async"), "full": ("sync",)}
 TRAINER_GB, SHARDIO_HW, SHARDIO_N, SHARDIO_K = 16, 12, 64, 4
 
 
@@ -224,16 +253,72 @@ def lm_batch(cfg, seed=LM_SEED):
             .astype(np.int32)}
 
 
-def lm_trainer(par, cfg, mesh, **kw):
-    """The LM checks' trainer: SGD lr ``LM_LR`` momentum 0.9 over
-    ``mesh``, the default initializer from seed 0 (every process and the
-    one-process oracle draw the same weights)."""
+def lm_trainer(par, cfg, mesh, optimizer="sgd", **kw):
+    """The LM checks' trainer: SGD lr ``LM_LR`` momentum 0.9 (or
+    ``optimizer`` at lr ``LM_LR``) over ``mesh``, the default initializer
+    from seed 0 (every process and the one-process oracle draw the same
+    weights)."""
     shape = (cfg["b"], cfg["t"])
+    opt = {"learning_rate": LM_LR}
+    if optimizer == "sgd":
+        opt["momentum"] = 0.9
     return par.ParallelTrainer(
         lm_symbol(cfg), {"data": shape, "softmax_label": shape},
-        optimizer="sgd", optimizer_params={"learning_rate": LM_LR,
-                                           "momentum": 0.9},
+        optimizer=optimizer, optimizer_params=opt,
         mesh=mesh, compute_dtype=cfg["dtype"], seed=0, **kw).init_params()
+
+
+def sp_trainer(par, cfg, mesh, impl, init=True):
+    """The SP check's trainer: the LM of size ``cfg`` (``SP_SIZES``) with
+    ``impl``, f32, over ``mesh``, SGD lr ``LM_LR`` momentum 0.9 and
+    rescale_grad 1/(B T), the default initializer from seed 0: phase 7's
+    SP trainer at the full size."""
+    from mxnet_tpu_torch.models import get_transformer_lm
+    shape = (cfg["b"], cfg["t"])
+    tr = par.SequenceParallelTrainer(
+        get_transformer_lm(cfg["vocab"], num_layers=cfg["layers"],
+                           embed_dim=cfg["embed"], num_heads=cfg["heads"],
+                           impl=impl),
+        {"data": shape, "softmax_label": shape}, mesh, optimizer="sgd",
+        optimizer_params={"learning_rate": LM_LR, "momentum": 0.9}, seed=0)
+    return tr.init_params() if init else tr
+
+
+def sp_mesh(par, layout, devs, owners):
+    """Layout ``layout``'s {dp, sp} mesh over the global device list
+    ``devs`` owned by ``owners`` (two processes; a process with one
+    device repeats it)."""
+    own = [[d for d, p in zip(devs, owners) if p == q] for q in (0, 1)]
+
+    def dev(q, k):
+        return own[q][k % len(own[q])]
+
+    if layout == "a":
+        grid, procs = [[dev(0, 0), dev(1, 0)]], [[0, 1]]
+    elif layout == "b":
+        grid = [[dev(0, 0), dev(0, 1), dev(1, 0), dev(1, 1)]]
+        procs = [[0, 0, 1, 1]]
+    elif layout == "c":
+        grid = [[dev(0, 0), dev(0, 1)], [dev(1, 0), dev(1, 1)]]
+        procs = [[0, 0], [1, 1]]
+    else:
+        grid = [[dev(0, 0), dev(1, 0)], [dev(0, 1), dev(1, 1)]]
+        procs = [[0, 1], [0, 1]]
+    devices = np.empty(np.shape(procs), dtype=object)
+    devices[:] = grid
+    return par.Mesh(devices, ("dp", "sp"), processes=procs)
+
+
+def sp_state(tr):
+    """An SP trainer's parameters (``arg:``) and optimizer state leaves
+    (``opt:<name>:<i>``) as host numpy arrays (whole in every
+    process)."""
+    out = {"arg:" + k: v.numpy() for k, v in tr.get_params().items()}
+    for k, leaves in tr._state.by_name().items():
+        for i, leaf in enumerate(leaves):
+            out["opt:%s:%d" % (k, i)] = leaf.detach().to(
+                "cpu", copy=True).numpy()
+    return out
 
 
 def pipe_schedules(layout):
@@ -781,12 +866,7 @@ def main():
             res["ms"].append((time.perf_counter() - t0) * 1e3)
             out = outs[0] if isinstance(outs, list) else outs
             res["loss"].append(global_nll(out, b["softmax_label"]))
-        c1 = cross()
-        steps = max(len(batches) - 1, 1)
-        res["launches"] = {k: v for k, v in K.launch_counts().items() if v}
-        res["cross_ms"] = (c1[0] - c0[0]) / steps
-        res["cross_calls"] = (c1[1] - c0[1]) / steps
-        res["cross_bytes"] = (c1[2] - c0[2]) / steps
+        figures(res, c0, len(batches))
         progs = getattr(tr._program, "programs", [tr._program])
         res["programs"] = len(progs)
         res["captured"] = sum(1 for p in progs if p._capture_ok
@@ -795,6 +875,33 @@ def main():
         res["compile_counts"] = tr.compile_counts
         res["what"] = what
         return res, out
+
+    def figures(res, c0, nsteps):
+        """The launches and the collectives' ms, calls and bytes a step
+        since ``c0`` (``cross()`` before step 2) into ``res``."""
+        c1 = cross()
+        steps = max(nsteps - 1, 1)
+        res["launches"] = {k: v for k, v in K.launch_counts().items() if v}
+        res["cross_ms"] = (c1[0] - c0[0]) / steps
+        res["cross_calls"] = (c1[1] - c0[1]) / steps
+        res["cross_bytes"] = (c1[2] - c0[2]) / steps
+
+    def sp_train(tr, batch, steps):
+        """``steps`` SP steps on the global ``batch``: ms a step, the
+        losses (the global mean NLL ``step`` returns) and the figures of
+        every step after the first."""
+        res = {"ms": [], "loss": []}
+        for i in range(steps):
+            if i == 1:
+                K.reset_launch_counts()
+                c0 = cross()
+            settle(tr)
+            t0 = time.perf_counter()
+            loss = float(tr.step(batch))
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["loss"].append(loss)
+        figures(res, c0, steps)
+        return res
 
     def keep(name, state, extra):
         """Write a trainer's state: digests (and at the tiny size the
@@ -847,11 +954,11 @@ def main():
         one global batch (this process's rows), plain, zero1 and fsdp."""
         cfg = LM_SIZES[size]
         batch = local(lm_batch(cfg), cfg["b"])
-        for variant, kw in LM_VARIANTS:
+        for variant, kw in LM_VARIANTS + (LM_ADAFACTOR,):
             tr = lm_trainer(par, cfg, par.build_mesh({"dp": -1}), **kw)
             if tr.device.type == "cuda":
                 card_math()
-            res, _ = train(tr, [batch] * LM_STEPS, variant)
+            res, _ = train(tr, [batch] * LM_DP_STEPS[size], variant)
             res["state_bytes"] = [list(tr._sharded.state_bytes(r))
                                   for r in tr._sharded.local]
             state = trainer_state(tr)
@@ -908,7 +1015,7 @@ def main():
         res = {"save_s": {}, "bytes": {}, "step": step}
         prefixes = {how: os.path.join(os.environ["MXNET_DISTTEST_OUT"],
                                       "ckpt-" + how)
-                    for how in ("sync", "async")}
+                    for how in CKPT_KINDS[size]}
         for how, prefix in prefixes.items():
             t0 = time.perf_counter()
             tr.save_sharded_checkpoint(
@@ -965,6 +1072,75 @@ def main():
                 del tr, state
                 gc.collect()
         print("OK pipe rank=%d" % rank, flush=True)
+
+    def check_sp():
+        """SequenceParallelTrainer over {dp, sp} meshes whose ranks lie
+        across the two processes (``SP_LAYOUTS`` of the size, each impl of
+        the size), LM_STEPS steps on one global batch, which every process
+        passes whole: the state (whole in every process) and the step's
+        figures, written for the launcher's one-process oracle. At the
+        tiny size, on layout "b" with the first impl, a checkpoint written
+        by both processes (``sp-ckpt``) restored in both after one more
+        step, bitwise, and the launcher's one-process checkpoint
+        (``sp-onep``, when there) restored in both, then one step
+        (``sp-onep-restored``, ``sp-onep-step``)."""
+        from mxnet_tpu_torch.parallel.checkpoint import latest_step
+        cfg = SP_SIZES[size]
+        devs, owners = distributed.devices(), distributed.device_processes()
+        batch = lm_batch(cfg)
+        first = cfg["impls"][0]
+        for impl in cfg["impls"]:
+            for layout in SP_LAYOUTS[size]:
+                tr = sp_trainer(par, cfg, sp_mesh(par, layout, devs, owners),
+                                impl)
+                if tr.device.type == "cuda":
+                    card_math()
+                res = sp_train(tr, batch, LM_STEPS)
+                state = sp_state(tr)
+                if size == "tiny" and layout == "b" and impl == first:
+                    res["ckpt"] = sp_round_trip(tr, batch, state)
+                keep("sp-%s-%s" % (impl, layout), state, res)
+                del tr, state
+                gc.collect()
+        onep = os.path.join(os.environ["MXNET_DISTTEST_OUT"], "sp-onep")
+        if size == "tiny" and latest_step(onep) is not None:
+            tr = sp_trainer(par, cfg, sp_mesh(par, "b", devs, owners),
+                            first, init=False)
+            tr.restore_sharded_checkpoint(onep)
+            state = sp_state(tr)
+            state.update({"rng:%d" % r: g.get_state().numpy()
+                          for r, g in tr._generators().items()})
+            keep("sp-onep-restored", state, {"t": tr._t})
+            tr.step(batch)
+            keep("sp-onep-step", sp_state(tr), {"t": tr._t})
+            del tr
+        print("OK sp rank=%d" % rank, flush=True)
+
+    def sp_round_trip(tr, batch, state):
+        """save_sharded_checkpoint of the SP trainer from every process,
+        one more step, then restore_sharded_checkpoint in every process:
+        the state, the step and this process's generators bitwise the
+        saved ones; the seconds of each."""
+        prefix = os.path.join(os.environ["MXNET_DISTTEST_OUT"], "sp-ckpt")
+        gens = [g.get_state() for g in tr._generators().values()]
+        step = tr._t
+        t0 = time.perf_counter()
+        tr.save_sharded_checkpoint(prefix)()
+        save_s = time.perf_counter() - t0
+        tr.step(batch)
+        for g in tr._generators().values():  # the restore must reset them
+            torch.rand(1, generator=g, device=g.device)
+        t0 = time.perf_counter()
+        tr.restore_sharded_checkpoint(prefix)
+        settle(tr)
+        load_s = time.perf_counter() - t0
+        got = sp_state(tr)
+        bad = [k for k in state if not np.array_equal(got[k], state[k])]
+        assert not bad and tr._t == step and all(
+            torch.equal(g.get_state(), want)
+            for g, want in zip(tr._generators().values(), gens)), \
+            "sp checkpoint: %d restored arrays differ" % len(bad)
+        return {"save_s": save_s, "load_s": load_s, "step": step}
 
     def check_sharded_io():
         """The JAX package's check_sharded_io: rank 0 packs RAW0 records;
@@ -1025,7 +1201,7 @@ def main():
               "card_routes": check_card_routes,
               "trainer": check_trainer, "shardio": check_sharded_io,
               "lm_dp": check_lm_dp, "bn_global": check_bn_global,
-              "ckpt": check_ckpt, "pipe": check_pipe}
+              "ckpt": check_ckpt, "pipe": check_pipe, "sp": check_sp}
     sel = os.environ.get("MXNET_DISTTEST_CHECKS", "")
     for name in [c for c in sel.split(",") if c] or list(checks)[:6]:
         tic = time.time()

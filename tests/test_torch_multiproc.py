@@ -24,7 +24,18 @@ head output only in the processes that run a last stage, equal to the
 one-process rows; the parameters within ``test_torch_pipeline.py``'s
 tolerance (rtol 2e-4, atol 2e-5) of the JAX package's
 ``PipelineTrainer`` on as many CPU devices, and their deltas within 2e-2
-by norm (the ReLU kink).
+by norm (the ReLU kink). The sequence-parallel LM (``sp``: {dp, sp}
+meshes a rank a process, 2 ranks a process, dp across with the rings
+inside a process, sp across with dp inside; ``ring_striped`` and
+``ring``): both ranks' parameters and optimizer state bitwise the port's
+one-process ``SequenceParallelTrainer`` over the same mesh shape, the
+same losses in both, no ring crossing where dp alone crosses; within
+``test_torch_sp.py``'s tolerance of the JAX package's trainer on as many
+CPU devices; its 2-process checkpoint restored in one process and a
+one-process checkpoint (written here before the launch) in two, bitwise.
+AdaFactor with ``fsdp`` (its factored state sharded across the
+processes) bitwise the one-process run and within 2e-2 by norm of the
+JAX package's deltas.
 """
 import json
 import os
@@ -33,6 +44,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jmx
 from mxnet_tpu import parallel as jpar
@@ -41,10 +53,12 @@ from mxnet_tpu.parallel import checkpoint as jckpt
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import parallel as par
+from mxnet_tpu_torch.parallel.checkpoint import load_sharded
 from mxnet_tpu_torch.testing import dist_worker as W
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CHECKS = ("trainer", "shardio", "lm_dp", "bn_global", "ckpt", "pipe")
+CHECKS = ("trainer", "shardio", "lm_dp", "bn_global", "ckpt", "pipe",
+          "sp")
 CPU4 = ["cpu"] * 4
 DELTA_REL = 2e-2
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -60,6 +74,9 @@ def launched(tmp_path_factory):
                PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
     for k in ("MXNET_KVSTORE_PORT_BASE", "MXNET_TPU_COORDINATOR"):
         env.pop(k, None)
+    # the one-process SP checkpoint the workers restore in two processes
+    tr, _ = _sp_port("ring_striped", "b")
+    tr.save_sharded_checkpoint(os.path.join(out, "sp-onep"))
     proc = subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools", "launch.py"), "-n",
          "2", "--local-devices", "2", "--", sys.executable, "-m",
@@ -157,7 +174,7 @@ def _lm_port(variant_kw):
                       **variant_kw)
     init = {k: v.numpy() for k, v in tr.get_params()[0].items()}
     batch = W.lm_batch(cfg)
-    for _ in range(W.LM_STEPS):
+    for _ in range(W.LM_DP_STEPS["tiny"]):
         tr.step(batch)
     return tr, init, batch
 
@@ -176,7 +193,7 @@ def lm_jax():
         jsym, shapes, optimizer="sgd", mesh=jpar.build_mesh({"dp": 4}),
         optimizer_params={"learning_rate": W.LM_LR, "momentum": 0.9})
     jtr.init_params({k: jmx.nd.array(v) for k, v in init.items()})
-    for _ in range(W.LM_STEPS):
+    for _ in range(W.LM_DP_STEPS["tiny"]):
         jtr.step(batch)
     return init, {k: v.asnumpy() for k, v in jtr.get_params()[0].items()}
 
@@ -269,7 +286,8 @@ def test_ckpt_two_processes_restore_in_one_and_in_jax(launched):
         with open(prefix + "-manifest.json") as f:
             manifest = json.load(f)
         # lm_dp's fsdp trainer after its steps
-        assert manifest["nprocs"] == 2 and manifest["step"] == W.LM_STEPS
+        assert manifest["nprocs"] == 2 \
+            and manifest["step"] == W.LM_DP_STEPS["tiny"]
         assert ("save_token" in manifest) == (how == "async")
         for r in range(2):
             assert os.path.exists("%s-shards-p%d.npz" % (prefix, r))
@@ -285,7 +303,7 @@ def test_ckpt_two_processes_restore_in_one_and_in_jax(launched):
             tr.restore_sharded_checkpoint(prefix)
             _equal(W.trainer_state(tr), want, "%s restore %s" % (how, kw))
         flat, step, _ = jckpt.load_sharded(prefix, jmesh)
-        assert step == W.LM_STEPS
+        assert step == W.LM_DP_STEPS["tiny"]
         for k, v in want.items():
             kind, name = k.split(":", 1)
             key = name if kind == "arg" else (
@@ -378,3 +396,169 @@ def test_pipe_matches_one_process_and_jax(launched, layout, schedule):
     for k in jwant:
         np.testing.assert_allclose(got[k], jwant[k], err_msg=k, **TOL)
     _delta_gate(name, got, init, jwant)
+
+
+SP_RUNS = [(impl, layout) for impl in W.SP_SIZES["tiny"]["impls"]
+           for layout in W.SP_LAYOUTS["tiny"]]
+_SP_JAX = {}
+
+
+def _sp_port(impl, layout, steps=W.LM_STEPS):
+    """The port's one-process SequenceParallelTrainer over layout
+    ``layout``'s mesh shape on ``["cpu"] * n``, ``steps`` steps on the
+    check's batch, and its initial parameters."""
+    cfg = W.SP_SIZES["tiny"]
+    axes = W.SP_AXES[layout]
+    tr = W.sp_trainer(par, cfg, par.build_mesh(axes, ["cpu"] * (
+        axes["dp"] * axes["sp"])), impl)
+    init = {k: v.numpy() for k, v in tr.get_params().items()}
+    batch = W.lm_batch(cfg)
+    tr.losses = [float(tr.step(batch)) for _ in range(steps)]
+    return tr, init
+
+
+def _sp_jax(impl, axes, init):
+    """The JAX package's SequenceParallelTrainer on the mesh ``axes`` of
+    CPU devices, LM_STEPS steps from ``init``: its parameters, once for
+    each impl and mesh shape."""
+    key = (impl, tuple(axes.items()))
+    if key not in _SP_JAX:
+        cfg = W.SP_SIZES["tiny"]
+        batch = W.lm_batch(cfg)
+        jtr = jpar.SequenceParallelTrainer(
+            jax_lm(cfg["vocab"], num_layers=cfg["layers"],
+                   embed_dim=cfg["embed"], num_heads=cfg["heads"],
+                   impl=impl), {k: v.shape for k, v in batch.items()},
+            jpar.build_mesh(axes), optimizer="sgd",
+            optimizer_params={"learning_rate": W.LM_LR, "momentum": 0.9})
+        jtr.init_params({k: jmx.nd.array(v) for k, v in init.items()})
+        for _ in range(W.LM_STEPS):
+            jtr.step(batch)
+        _SP_JAX[key] = {k: v.asnumpy() for k, v in jtr.get_params().items()}
+    return _SP_JAX[key]
+
+
+@pytest.mark.parametrize("impl,layout", SP_RUNS)
+def test_sp_matches_one_process_and_jax(launched, impl, layout):
+    """SequenceParallelTrainer across 2 processes (the layout's ranks
+    placed by ``dist_worker.sp_mesh``, every process passing the global
+    batch): both ranks' parameters and optimizer state bitwise the
+    one-process run over the same mesh shape; the losses the one-process
+    run's in both, falling; the ring's hops and deals cross the
+    processes except where dp alone does (the gradient's and the loss's
+    sums alone: 2 calls a step); within the JAX package's trainer."""
+    out, _ = launched
+    tr, init = _sp_port(impl, layout)
+    want = W.sp_state(tr)
+    name = "sp-%s-%s" % (impl, layout)
+    for r, (got, info) in enumerate(zip(_npz(out, name), _json(out, name))):
+        _equal(got, want, "%s rank %d" % (name, r))
+        assert info["loss"] == tr.losses, (info["loss"], tr.losses)
+        assert info["loss"][-1] < info["loss"][0]
+        assert info["cross_bytes"] > 0
+        if layout == "c":
+            assert info["cross_calls"] == 2
+        else:
+            assert info["cross_calls"] > 2
+    jwant = _sp_jax(impl, W.SP_AXES[layout], init)
+    got = {k[4:]: v for k, v in want.items() if k.startswith("arg:")}
+    assert set(got) == set(jwant)
+    for k in jwant:
+        np.testing.assert_allclose(got[k], jwant[k], err_msg=k, **TOL)
+
+
+def test_sp_checkpoints_cross_process_counts(launched):
+    """The SP checkpoint written by 2 processes (layout b, after its 3
+    steps; restored bitwise in both by the workers) holds every rank's
+    generator and restores in one process bitwise; the one-process
+    checkpoint written before the launch restored in 2 processes holds its
+    parameters, state, step and each rank's generator, and the next step
+    there equals the one-process run's."""
+    out, _ = launched
+    prefix = os.path.join(out, "sp-ckpt")
+    with open(prefix + "-manifest.json") as f:
+        assert json.load(f)["nprocs"] == 2
+    for info in _json(out, "sp-ring_striped-b"):
+        assert info["ckpt"]["step"] == W.LM_STEPS
+    tr, _ = _sp_port("ring_striped", "b")
+    # every rank's generator, from both processes' files
+    flat = load_sharded(prefix)[0]
+    rows = [flat["rng/%d" % r] for r in range(5)]
+    fresh, _ = _sp_port("ring_striped", "b", steps=0)
+    for g in fresh._generators().values():
+        torch.rand(1, generator=g)
+    fresh.restore_sharded_checkpoint(prefix)
+    assert fresh._t == W.LM_STEPS
+    _equal(W.sp_state(fresh), _npz(out, "sp-ring_striped-b")[0],
+           "2-process checkpoint restored in one")
+    for r, g in fresh._generators().items():
+        assert torch.equal(g.get_state(), rows[r])
+        assert torch.equal(rows[r], tr._generators()[r].get_state())
+    want = W.sp_state(tr)
+    want.update({"rng:%d" % r: g.get_state().numpy()
+                 for r, g in tr._generators().items()})
+    for r, (got, info) in enumerate(zip(_npz(out, "sp-onep-restored"),
+                                        _json(out, "sp-onep-restored"))):
+        assert info["t"] == W.LM_STEPS
+        mine = [2 * r, 2 * r + 1, 4]
+        assert {k for k in got if k.startswith("rng:")} == {
+            "rng:%d" % i for i in mine}
+        _equal(got, {k: want[k] for k in got}, "onep restored, rank %d" % r)
+    tr.step(W.lm_batch(W.SP_SIZES["tiny"]))
+    for r, got in enumerate(_npz(out, "sp-onep-step")):
+        _equal(got, W.sp_state(tr), "onep restored + 1 step, rank %d" % r)
+
+
+def test_lm_dp_adafactor_fsdp_matches_one_process_and_jax(launched):
+    """AdaFactor with fsdp across 2 processes x 2 ranks (its factored
+    state leaves sharded over dp with the parameters, gathered from both
+    processes before the update): both ranks bitwise the one-process
+    4-rank run, the loss falling, a host stage gathering the shards
+    before the captured update; within 2e-2 by norm of the JAX package's
+    deltas."""
+    out, _ = launched
+    variant, kw = W.LM_ADAFACTOR
+    cfg = W.LM_SIZES["tiny"]
+    tr = W.lm_trainer(par, cfg, par.build_mesh({"dp": 4}, CPU4), **kw)
+    init = {k: v.numpy() for k, v in tr.get_params()[0].items()}
+    batch = W.lm_batch(cfg)
+    steps = W.LM_DP_STEPS["tiny"]
+    for _ in range(steps):
+        tr.step(batch)
+    want = _ranks_and_oracle(out, "lm_dp-" + variant, tr)
+    assert any(k.startswith("opt:") for k in want)
+    res = _json(out, "lm_dp-" + variant)
+    for r in res:
+        assert r["loss"][-1] < r["loss"][0]
+        assert r["compile_counts"] == {"step.compute": 1, "step.update": 1}
+        # gather_params, reduce, the per-weight gather, the output stage
+        assert r["host_stages"] == 4
+    assert res[0]["loss"] == res[1]["loss"]
+    jsym = jax_lm(cfg["vocab"], num_layers=cfg["layers"],
+                  embed_dim=cfg["embed"], num_heads=cfg["heads"],
+                  impl="flash")
+    jtr = jpar.ParallelTrainer(
+        jsym, {k: v.shape for k, v in batch.items()},
+        optimizer="adafactor", mesh=jpar.build_mesh({"dp": 4}), fsdp=True,
+        optimizer_params={"learning_rate": W.LM_LR})
+    jtr.init_params({k: jmx.nd.array(v) for k, v in init.items()})
+    for _ in range(steps):
+        jtr.step(batch)
+    got = {k[4:]: v for k, v in want.items() if k.startswith("arg:")}
+    jwant = {k: v.asnumpy() for k, v in jtr.get_params()[0].items()}
+    # the key third of qkv_bias: its gradient is 0 in exact arithmetic (a
+    # per-query constant in the scores, which the softmax cancels), and
+    # AdaFactor's RMS normalization turns its rounding noise into steps of
+    # lr x epsilon2 in either package: both held to that size, the q and
+    # v thirds to the delta gate
+    e = cfg["embed"]
+    for name in [k for k in got if k.endswith("qkv_bias")]:
+        for a in (got, jwant, init):
+            a[name + ":k"] = a[name][e:2 * e]
+            a[name] = np.concatenate([a[name][:e], a[name][2 * e:]])
+        for a in (got, jwant):
+            step = np.abs(a[name + ":k"] - init[name + ":k"]).max()
+            assert 0 < step <= 4 * steps * W.LM_LR * 1e-3, (name, step)
+        for a in (got, jwant, init):
+            del a[name + ":k"]
+    _delta_gate(variant, got, init, jwant)

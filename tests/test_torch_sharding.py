@@ -313,15 +313,128 @@ def test_span_ppermute_moves_sends_and_receives(monkeypatch):
     assert coll._TM_CROSS_CALLS.value == calls + 1
 
 
-def test_sequence_parallel_refuses_a_mesh_across_processes():
-    mesh = par.Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 2),
-                    ("dp", "sp"), processes=[[0, 1]])
+def test_sequence_parallel_refuses_a_ring_spread_unevenly(monkeypatch):
+    """Across processes the SP trainer takes any {dp, sp} mesh whose
+    collectives hold as many ranks in every process; a ring of 3 ranks
+    over 2 processes (2 + 1) is refused, naming the layout."""
+    _as_process(monkeypatch, 0, 2)
     sym = get_transformer_lm(11, num_layers=1, embed_dim=16, num_heads=2,
                              impl="ring_striped")
+    shapes = {"data": (2, 12), "softmax_label": (2, 12)}
+    even = par.Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 2),
+                    ("dp", "sp"), processes=[[0, 1]])
+    assert par.SequenceParallelTrainer(sym, shapes, even)._local == [0]
+    mesh = par.Mesh(np.array(["cpu"] * 3, dtype=object).reshape(1, 3),
+                    ("dp", "sp"), processes=[[0, 0, 1]])
     with pytest.raises(mx.base.MXNetError, match="SequenceParallelTrainer: "
-                       "a mesh across processes .* later slice"):
-        par.SequenceParallelTrainer(
-            sym, {"data": (2, 8), "softmax_label": (2, 8)}, mesh)
+                       "a mesh whose ranks of a collective are spread "
+                       "unevenly .*processes \\[0, 1\\].* later slice"):
+        par.SequenceParallelTrainer(sym, shapes, mesh)
+
+
+class _FakeP2P:
+    """``torch.distributed.isend``/``irecv`` stood in for: each send is
+    recorded, each receive filled from ``incoming`` in order; ``waits``
+    holds how many posts there were at each wait."""
+
+    def __init__(self, monkeypatch, incoming):
+        import torch.distributed as dist
+        self.events, self.waits = [], []
+        self.incoming = iter(incoming)
+        fake = self
+
+        class Req:
+            def wait(self):
+                fake.waits.append(len(fake.events))
+
+        def isend(t, peer):
+            fake.events.append(("send", t.clone(), peer))
+            return Req()
+
+        def irecv(t, peer):
+            t.copy_(next(fake.incoming))
+            fake.events.append(("recv", t.numel(), peer))
+            return Req()
+
+        monkeypatch.setattr(dist, "isend", isend)
+        monkeypatch.setattr(dist, "irecv", irecv)
+
+    def take(self):
+        out, self.events, self.waits = (self.events, self.waits), [], []
+        return out
+
+
+def test_span_ring_hop_sends_k_and_v_at_once_and_reverses(monkeypatch):
+    """``ring_hop`` over a ring owned [0, 0, 1, 1], as process 0 of 2: one
+    node moves K and V of both local members; member 0 -> 1 stays here,
+    member 1's K and V go to process 1 as ONE buffer and member 3's come
+    back as one, every piece posted before any wait; the backward posts in
+    the same order and is the reverse rotation (member 0's gradient goes
+    to member 3's process, member 1 takes member 2's)."""
+    _as_process(monkeypatch, 0, 2)
+    k, v, g = (_seeded_operands(4, size=6, seed=s) for s in (1, 2, 3))
+    gv = _seeded_operands(4, size=6, seed=4)
+    ks = [x.clone().requires_grad_(True) for x in k[:2]]
+    vs = [x.clone().requires_grad_(True) for x in v[:2]]
+    # process 1 sends member 3's K and V, then (backward) member 2's
+    # gradients, each pair as one buffer
+    p2p = _FakeP2P(monkeypatch, [torch.cat([k[3], v[3]]),
+                                 torch.cat([g[2], gv[2]])])
+    span = coll.Span([0, 0, 1, 1])
+    (ko, vo) = coll.ring_hop([ks, vs], span=span)
+    assert torch.equal(ko[0], k[3]) and torch.equal(vo[0], v[3])
+    assert torch.equal(ko[1], k[0]) and torch.equal(vo[1], v[0])
+    (events, waits) = p2p.take()
+    assert [(e[0], e[2]) for e in events] == [("send", 1), ("recv", 1)]
+    assert torch.equal(events[0][1], torch.cat([k[1], v[1]]))
+    assert events[1][1] == 12 and waits == [2, 2]
+    assert ko[0].grad_fn is ko[1].grad_fn is vo[0].grad_fn
+    torch.autograd.backward(ko + vo, g[:2] + gv[:2])
+    (events, waits) = p2p.take()
+    assert [(e[0], e[2]) for e in events] == [("send", 1), ("recv", 1)]
+    assert torch.equal(events[0][1], torch.cat([g[0], gv[0]]))
+    assert waits == [2, 2]
+    assert torch.equal(ks[0].grad, g[1]) and torch.equal(vs[0].grad, gv[1])
+    assert torch.equal(ks[1].grad, g[2]) and torch.equal(vs[1].grad, gv[2])
+    # with no span: the one-process rotation
+    assert torch.equal(coll.ring_hop([k], span=None)[0][1], k[0])
+
+
+def test_span_all_to_all_pieces_and_inverse(monkeypatch):
+    """The untiled ``all_to_all`` of the striped deal over members owned
+    [0, 0, 1, 1], as process 0 of 2: one node; each local member's pieces
+    for process 1's members go as one buffer (member-major), process 1's
+    pieces for the local members come as one; the outputs and the input
+    gradients equal the one-process ``all_to_all`` of all four members',
+    and the backward is the inverse exchange, posted in the same order."""
+    _as_process(monkeypatch, 0, 2)
+    rng = np.random.RandomState(5)
+    xs = [torch.from_numpy(rng.randn(4, 3).astype(np.float32))
+          for _ in range(4)]
+    ws = [torch.from_numpy(rng.randn(4, 3).astype(np.float32))
+          for _ in range(4)]
+    full = [x.clone().requires_grad_(True) for x in xs]
+    want = coll.all_to_all(full, 0, 0)
+    torch.autograd.backward(want, ws)
+    # process 1: member i's pieces for members 0 and 1; then (backward)
+    # the gradients of its outputs 2 and 3, pieces for members 0 and 1
+    p2p = _FakeP2P(monkeypatch, [
+        torch.cat([xs[i][j] for i in (2, 3) for j in (0, 1)]),
+        torch.cat([ws[j][i] for j in (2, 3) for i in (0, 1)])])
+    mine = [x.clone().requires_grad_(True) for x in xs[:2]]
+    out = coll.all_to_all(mine, 0, 0, span=coll.Span([0, 0, 1, 1]))
+    (events, waits) = p2p.take()
+    assert [(e[0], e[2]) for e in events] == [("send", 1), ("recv", 1)]
+    assert torch.equal(events[0][1], torch.cat(
+        [xs[i][j] for i in (0, 1) for j in (2, 3)]))
+    assert waits == [2, 2]
+    assert all(torch.equal(o, w) for o, w in zip(out, want[:2]))
+    torch.autograd.backward(out, ws[:2])
+    (events, waits) = p2p.take()
+    assert [(e[0], e[2]) for e in events] == [("send", 1), ("recv", 1)]
+    assert torch.equal(events[0][1], torch.cat(
+        [ws[j][i] for j in (0, 1) for i in (2, 3)]))
+    assert all(torch.equal(m.grad, f.grad) for m, f in zip(mine, full))
 
 
 def test_engine_refuses_a_mesh_across_processes():
